@@ -1,0 +1,29 @@
+"""PyTorch and CUDA port of the Ising Monte Carlo framework.
+
+The second package beside ``pyisingmontecarlo_tpu`` (the JAX reference): the
+same names, on torch, with hand-written CUDA kernels for Hopper (``csrc/``).
+It never imports jax. Ported so far: :class:`Lattice` on the uniform periodic
+square lattice (classical methods). The other public classes of the JAX
+package are listed in ROADMAP.md as still to port.
+"""
+
+from .lattice import Lattice
+
+__version__ = "0.1.0"
+
+__all__ = ["Lattice"]
+
+_NOT_PORTED = {
+    "ClassicIsing": "item 4",
+    "QmcIsing": "item 5",
+    "LatticeTempering": "item 6",
+    "QmcRunner": "item 7",
+}
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise AttributeError(
+            f"{name} is not ported to torch yet: ROADMAP.md, modules to port, {_NOT_PORTED[name]}"
+        )
+    raise AttributeError(name)

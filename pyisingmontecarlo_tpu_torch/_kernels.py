@@ -1,0 +1,92 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+with a plain C interface, at first use, into ``_build/`` under a name keyed by
+the hash of the sources; ``ctypes`` loads it. Each C entry returns
+``cudaGetLastError()`` after its launches, and the Python wrapper raises if it
+is not 0. Nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["build", "load", "error_string"]
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
+_SIGNATURES = {
+    "sq2d_sweeps": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "pmc_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found (on PATH, or under $CUDA_HOME/bin or /usr/local/cuda/bin); "
+                       "the CUDA kernels cannot be built")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` unless a library for these sources exists; returns
+    its path. ``verbose`` compiles in any case, with ``-Xptxas -v``, and prints
+    what nvcc says (registers, shared memory and spills of each kernel)."""
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    lib = _BUILD / f"libpmc_kernels-{digest.hexdigest()[:16]}.so"
+    if lib.exists() and not verbose:
+        return lib
+    nvcc = _nvcc()
+    _BUILD.mkdir(exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp),
+           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr, end="")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the kernel library with its C signatures set."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def error_string(code: int) -> str:
+    """``cudaGetErrorString`` of a code returned by a C entry."""
+    return load().pmc_error_string(code).decode()

@@ -1,0 +1,102 @@
+"""Edge lists -> compiled graph arrays, and the square-torus detector.
+
+Counterpart of ``pyisingmontecarlo_tpu/graph.py``, carried over (numpy only)
+rather than imported, because importing any module of the JAX package imports
+jax. This slice needs only the edge arrays: colorings, ELL adjacency and the
+native graph library serve the arbitrary-graph engines, which are not ported
+yet (ROADMAP.md, modules to port, item 4).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+
+__all__ = [
+    "CompiledGraph",
+    "parse_edges",
+    "compile_graph",
+    "grid_2d_edges",
+    "detect_square_torus",
+]
+
+
+def parse_edges(edges: Sequence) -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """Parse ``[((a, b), J), ...]`` into ``(nvars, edge_a, edge_b, edge_j)``.
+
+    Raises ``ValueError`` for an empty edge list, non-integer or negative
+    indices, or self-loops (the JAX package's checks)."""
+    if len(edges) == 0:
+        raise ValueError("Must supply some edges for graph")
+    arr = np.array([(a, b, j) for (a, b), j in edges], dtype=np.float64)
+    ea = arr[:, 0].astype(np.int64)
+    eb = arr[:, 1].astype(np.int64)
+    if np.any(arr[:, 0] != ea) or np.any(arr[:, 1] != eb):
+        raise ValueError("Edge vertex indices must be integers")
+    if (ea < 0).any() or (eb < 0).any():
+        raise ValueError("Edge vertex indices must be non-negative")
+    if (ea == eb).any():
+        k = int(np.nonzero(ea == eb)[0][0])
+        raise ValueError(f"Edge ({ea[k]}, {eb[k]}) is a self-loop")
+    nvars = int(max(ea.max(), eb.max())) + 1
+    return nvars, ea.astype(np.int32), eb.astype(np.int32), arr[:, 2].copy()
+
+
+class CompiledGraph:
+    """The edge arrays of a graph: ``nvars``, ``edge_a``, ``edge_b``, ``edge_j``."""
+
+    def __init__(self, nvars: int, edge_a: np.ndarray, edge_b: np.ndarray, edge_j: np.ndarray):
+        self.nvars = int(nvars)
+        self.edge_a = np.asarray(edge_a, np.int32)
+        self.edge_b = np.asarray(edge_b, np.int32)
+        self.edge_j = np.asarray(edge_j, np.float64)
+        self.nedges = len(self.edge_a)
+
+
+def compile_graph(edges: Sequence) -> CompiledGraph:
+    return CompiledGraph(*parse_edges(edges))
+
+
+def grid_2d_edges(lx: int, ly: int, j: float = -1.0, periodic: bool = True):
+    """Square-lattice edge list (vertex id = x * ly + y)."""
+    edges = []
+    for x in range(lx):
+        for y in range(ly):
+            v = x * ly + y
+            if periodic or x + 1 < lx:
+                edges.append(((v, ((x + 1) % lx) * ly + y), j))
+            if periodic or y + 1 < ly:
+                edges.append(((v, x * ly + (y + 1) % ly), j))
+    return edges
+
+
+def detect_square_torus(cg: CompiledGraph):
+    """``(L, J)`` when the graph is exactly an L x L periodic square lattice
+    (L even, L >= 4) with uniform coupling J, else None."""
+    n = cg.nvars
+    L = int(round(np.sqrt(n)))
+    if L * L != n or L < 4 or L % 2 != 0:
+        return None
+    if cg.nedges != 2 * n:
+        return None
+    j0 = cg.edge_j[0]
+    if not np.all(cg.edge_j == j0):
+        return None
+    a = cg.edge_a.astype(np.int64)
+    b = cg.edge_b.astype(np.int64)
+    have = np.sort(np.minimum(a, b) * n + np.maximum(a, b))
+    x = np.arange(n, dtype=np.int64) // L
+    y = np.arange(n, dtype=np.int64) % L
+    right = ((x + 1) % L) * L + y
+    down = x * L + (y + 1) % L
+    v = np.arange(n, dtype=np.int64)
+    want = np.sort(
+        np.concatenate(
+            [np.minimum(v, right) * n + np.maximum(v, right),
+             np.minimum(v, down) * n + np.maximum(v, down)]
+        )
+    )
+    if not np.array_equal(have, want):
+        return None
+    return L, float(j0)

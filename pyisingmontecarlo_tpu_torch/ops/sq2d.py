@@ -1,0 +1,218 @@
+"""Checkerboard Glauber sweeps on a uniform square torus: the kernel wrapper
+and its plain PyTorch version.
+
+Counterpart of ``pyisingmontecarlo_tpu/ops/sq2d_pallas.py``. The kernel is
+``csrc/sq2d.cu``; ``sweeps_2d`` launches it for a CUDA tensor (or raises) and
+runs ``sweeps_2d_reference`` for a CPU tensor. Both take and return spins as
+``[R, L, L]`` int8 in {-1, +1}, L even and >= 4.
+
+One sweep is two phases: phase 0 updates the sites with x+y even, phase 1
+those with x+y odd. A site with spin s and neighbour sum B in {-4, ..., 4}
+flips when its 31-bit draw u satisfies ``u <= thr[t, 5*(s > 0) + (B+4)/2]``,
+where row t of the ``[T, 10]`` int32 table (``thresholds``) holds
+``sigmoid(-beta_t * dE) * (2^31 - 1)`` for the ten values of
+``dE = -2 s (J B + h)`` (Glauber acceptance; ``dE_values`` gives the order).
+
+Randomness contract (replaces the TPU hardware PRNG of the JAX kernel):
+
+- The draw for site (x, y) in sweep t, phase p is
+  ``lane_draw31(seed_r, *make_pos_mix(0, x*(L/2) + y//2, 0), 2*(ctr0+t) + p)``:
+  plane ``2t+p`` at packed column ``k = y//2`` in the layout that the JAX
+  package's ``run_steps_2d_testbits`` consumes, so explicit random planes
+  ``rb[2T, L, L/2]`` and hashed draws are interchangeable.
+- ``ctr0`` counts the sweeps already run on these replicas within one
+  ``run_*`` call, so thermalization followed by sampling continues the stream
+  and never repeats it. ``ctr0 + T`` must stay below 2^30, which keeps every
+  sweep counter below the one reserved for initial states
+  (``lattice2d.random_states_2d``, counter ``0x7FFFFFFF``).
+- A replica's trajectory therefore depends only on its own seed, and the
+  kernel and the plain version give the same trajectory at any batch size.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .lanerng import lane_draw31, make_pos_mix
+
+__all__ = [
+    "dE_values",
+    "thresholds",
+    "pack_checkerboard",
+    "unpack_checkerboard",
+    "sweeps_2d",
+    "sweeps_2d_reference",
+]
+
+_I31_MAX = 2**31 - 1
+_CTR_LIMIT = 2**30
+_GRID_MAX = 65535  # CUDA grid y (rows) and z (replicas) limits
+
+
+def dE_values(j: float, h: float) -> np.ndarray:
+    """dE for flipping spin s with neighbour sum B: dE = -2 s (J B + h), as
+    f32. Order: s=-1 with B in (-4,-2,0,2,4), then s=+1 with the same B."""
+    out = np.empty(10, np.float32)
+    for si, s in enumerate((-1.0, 1.0)):
+        for bi, B in enumerate((-4.0, -2.0, 0.0, 2.0, 4.0)):
+            out[si * 5 + bi] = -2.0 * s * (j * B + h)
+    return out
+
+
+def thresholds(beta_arr, j: float, h: float) -> torch.Tensor:
+    """Per-sweep betas ``[T]`` -> ``[T, 10]`` int32 Glauber thresholds, on the CPU.
+
+    Computed in f32 as the JAX kernel does (``sigmoid(-beta * dE) * 2147483647.0``),
+    then clamped to [0, 2^31 - 1] before the int32 cast: the product reaches 2^31
+    where the sigmoid saturates, which JAX's cast saturates but torch's does not.
+    ``torch.sigmoid`` differs from ``jax.nn.sigmoid`` by a few ulps on a small share
+    of inputs, so rows can differ from JAX's by a few hundred. Each distinct beta
+    is evaluated once."""
+    b = np.asarray(beta_arr, np.float32).reshape(-1)
+    ub, inv = np.unique(b, return_inverse=True)
+    x = torch.from_numpy(-ub)[:, None] * torch.from_numpy(dE_values(j, h))[None, :]
+    p = torch.sigmoid(x) * 2147483647.0
+    table = p.to(torch.float64).clamp_(0, _I31_MAX).to(torch.int32)
+    return table[torch.from_numpy(inv.astype(np.int64))].contiguous()
+
+
+def pack_checkerboard(s: torch.Tensor):
+    """``s[R, L, L]`` -> ``(E, O)``, each ``[R, L, L/2]``: E holds the x+y even
+    sites at column ``k = y//2``, O the x+y odd ones."""
+    R, L, _ = s.shape
+    pairs = s.reshape(R, L, L // 2, 2)
+    row_even = (torch.arange(L, device=s.device) % 2 == 0)[None, :, None]
+    E = torch.where(row_even, pairs[..., 0], pairs[..., 1])
+    O = torch.where(row_even, pairs[..., 1], pairs[..., 0])
+    return E, O
+
+
+def unpack_checkerboard(E: torch.Tensor, O: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_checkerboard`` over the trailing ``[L, W]`` dims."""
+    L, W = E.shape[-2], E.shape[-1]
+    row_even = (torch.arange(L, device=E.device) % 2 == 0)[:, None]
+    p0 = torch.where(row_even, E, O)
+    p1 = torch.where(row_even, O, E)
+    return torch.stack([p0, p1], dim=-1).reshape(*E.shape[:-1], 2 * W)
+
+
+def _check(s, seeds_i32, thr, ctr0, rb, samples):
+    """Validate the arguments shared by the kernel and the plain version;
+    returns (R, L, T)."""
+    if s.dtype != torch.int8 or s.dim() != 3 or s.shape[1] != s.shape[2]:
+        raise ValueError(f"s must be [R, L, L] int8, got {tuple(s.shape)} {s.dtype}")
+    R, L, _ = s.shape
+    if L < 4 or L % 2:
+        raise ValueError(f"L must be even and >= 4, got {L}")
+    if L > _GRID_MAX or R > _GRID_MAX:
+        raise ValueError(f"L and R must be <= {_GRID_MAX}, got L={L}, R={R}")
+    if seeds_i32.dtype != torch.int32 or tuple(seeds_i32.shape) != (R,):
+        raise ValueError(f"seeds_i32 must be [{R}] int32, got {tuple(seeds_i32.shape)} {seeds_i32.dtype}")
+    if thr.dtype != torch.int32 or thr.dim() != 2 or thr.shape[1] != 10:
+        raise ValueError(f"thr must be [T, 10] int32, got {tuple(thr.shape)} {thr.dtype}")
+    T = thr.shape[0]
+    ctr0 = int(ctr0)
+    if ctr0 < 0 or ctr0 + T >= _CTR_LIMIT:
+        raise ValueError(f"sweep counters ctr0={ctr0} .. ctr0+T={ctr0 + T} must lie in [0, 2^30)")
+    if rb is not None and (rb.dtype != torch.int32 or tuple(rb.shape) != (2 * T, L, L // 2)):
+        raise ValueError(f"rb must be [{2 * T}, {L}, {L // 2}] int32, got {tuple(rb.shape)} {rb.dtype}")
+    if samples is not None and int(samples) < 1:
+        raise ValueError(f"samples (the sampling period in sweeps) must be >= 1, got {samples}")
+    for name, t in (("s", s), ("seeds_i32", seeds_i32), ("thr", thr), ("rb", rb)):
+        if t is None:
+            continue
+        if t.device != s.device:
+            raise ValueError(f"{name} is on {t.device}, s on {s.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return R, L, T
+
+
+def sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb=None, samples=None):
+    """Plain PyTorch version of ``sweeps_2d``: same arguments, same result."""
+    R, L, T = _check(s, seeds_i32, thr, ctr0, rb, samples)
+    W = L // 2
+    dev = s.device
+    s = s.clone()
+    flat = s.view(R, L * L)
+    x = torch.arange(L, device=dev)[:, None]
+    k = torch.arange(W, device=dev)[None, :]
+    # flat site index of packed column k of row x, for each phase; the packed
+    # index x*W + k is the draw position
+    sites = [(x * L + 2 * k + (x + p) % 2).reshape(-1) for p in (0, 1)]
+    pos1, pos2 = make_pos_mix(torch.zeros(1, dtype=torch.int64, device=dev), torch.arange(L * W, device=dev), 0)
+    seed = seeds_i32[:, None]
+    stack = torch.empty((R, T // samples, L, L), dtype=torch.int8, device=dev) if samples else None
+    for t in range(T):
+        row = thr[t]
+        for p in (0, 1):
+            s32 = s.to(torch.int32)
+            B = s32.roll(1, 1) + s32.roll(-1, 1) + s32.roll(1, 2) + s32.roll(-1, 2)
+            sv = s32.view(R, L * L)[:, sites[p]]
+            Bv = B.view(R, L * L)[:, sites[p]]
+            tv = row[5 * (sv > 0) + (Bv + 4) // 2]
+            if rb is not None:
+                u = rb[2 * t + p].reshape(1, -1)
+            else:
+                u = lane_draw31(seed, pos1, pos2, 2 * (ctr0 + t) + p)
+            flat[:, sites[p]] = torch.where(u <= tv, -sv, sv).to(torch.int8)
+        if samples and (t + 1) % samples == 0:
+            stack[:, (t + 1) // samples - 1] = s
+    return (s, stack) if samples else s
+
+
+def _launch(out, seeds_i32, thr, ctr0, rb, stack, samples, R, L, T):
+    from .. import _kernels
+
+    lib = _kernels.load()
+    nsamples = stack.shape[1] if stack is not None else 0
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.sq2d_sweeps(
+            out.data_ptr(), seeds_i32.data_ptr(), thr.data_ptr(),
+            None if rb is None else rb.data_ptr(),
+            None if stack is None else stack.data_ptr(),
+            R, L, T, int(ctr0), int(samples or 0), nsamples, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sq2d kernel launch failed: {_kernels.error_string(err)} ({err})")
+    sweeps_2d.launches += 2 * T
+
+
+def sweeps_2d(
+    s: torch.Tensor,
+    seeds_i32: torch.Tensor,
+    thr: torch.Tensor,
+    ctr0: int,
+    rb: Optional[torch.Tensor] = None,
+    samples: Optional[int] = None,
+):
+    """Run ``T = thr.shape[0]`` sweeps on ``s[R, L, L]`` int8; returns the new
+    state (``s`` itself is not modified).
+
+    ``seeds_i32[R]`` int32 keys each replica's draws and ``ctr0`` is the sweep
+    offset of the randomness contract above. ``rb[2T, L, L/2]`` int32 in
+    [0, 2^31), when given, supplies the draws of every replica instead (plane
+    ``2t+p`` for sweep t, phase p, packed layout). ``samples``, when given, is a
+    sampling period: the state after every ``samples`` sweeps is staged into a
+    ``[R, T // samples, L, L]`` int8 stack, and ``(state, stack)`` is returned.
+
+    A CUDA tensor launches ``csrc/sq2d.cu`` (2 launches per sweep, counted in
+    ``sweeps_2d.launches``) or raises; a CPU tensor runs the plain version."""
+    R, L, T = _check(s, seeds_i32, thr, ctr0, rb, samples)
+    if s.device.type == "cpu":
+        return sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb, samples)
+    if s.device.type != "cuda":
+        raise ValueError(f"sweeps_2d runs on cuda or cpu tensors, got {s.device}")
+    out = torch.empty_like(s)
+    out.copy_(s)
+    stack = torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
+    if R and T:
+        _launch(out, seeds_i32, thr, ctr0, rb, stack, samples, R, L, T)
+    return (out, stack) if samples else out
+
+
+sweeps_2d.launches = 0
