@@ -2,9 +2,11 @@
 
 The second package beside ``pyisingmontecarlo_tpu`` (the JAX reference): the
 same names, on torch, with hand-written CUDA kernels for Hopper (``csrc/``).
-It never imports jax. Ported so far: :class:`Lattice` on the uniform periodic
-square lattice (classical methods). The other public classes of the JAX
-package are listed in ROADMAP.md as still to port.
+It never imports jax. Ported so far, on :class:`Lattice`: the classical
+methods on the uniform periodic square lattice (``ops/sq2d.py``), and the
+quantum (transverse-field) methods on a uniform periodic ring or square torus
+(``engines/worldline.py`` on ``ops/wl.py``). The other public classes of the
+JAX package are listed in ROADMAP.md as still to port.
 """
 
 from .lattice import Lattice

@@ -30,6 +30,7 @@ _I = ctypes.c_int
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
     "sq2d_sweeps": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "wl_sweeps": ([_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "pmc_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,355 @@
+// Trotterized TFIM worldline sweeps on R replicas of a uniform periodic ring
+// or square torus, for sm_90a.
+//
+// Replaces the two Pallas TPU kernels of pyisingmontecarlo_tpu/ops/wl_pallas.py:
+// _kernel (plain sweeps, l.330, launched by _call at l.406) and _kernel_sample
+// (slice-0 rows staged every freq sweeps, l.346, launched by _call_sample at
+// l.449), both built on _build_ops (l.186), as one set of kernels with an
+// optional sampling mode. The semantics, the randomness contract and the
+// plain PyTorch version it is held to bit for bit are in
+// pyisingmontecarlo_tpu_torch/ops/wl.py.
+//
+// Layout: the state is s[R, nvars, L] int8, so a replica's time line (r, i)
+// is L contiguous bytes. One sweep is seven launches on the caller's stream:
+//
+// - wl_site, four times (site color x tau parity): one thread per active
+//   (r, i, tau), updated in place. Its spatial neighbours have the other color
+//   and its tau neighbours the other parity, so nothing it reads is written in
+//   the launch. Acceptance compares a 31-bit draw with one of 30 int31
+//   thresholds made on the host; only active spins draw.
+// - wl_cluster, twice (one per color): one thread per time line of the
+//   color, in three passes along the line (frozen bonds, as bits in shared
+//   memory; each cluster's dE and its head's decision; the flips). The
+//   forward segmented sum gives the JAX kernel's pointer-doubling sums bit for
+//   bit by a binary-counter walk (see wl_cluster); the fully frozen ring's
+//   total is summed in XLA's CPU order (ops/wl.py, xla_sum_last). Additions
+//   and products are __fadd_rn / __fmul_rn, so nothing is contracted, and the
+//   log is logf (no fast math). Shared memory: 2 ceil(L/32) words per line,
+//   64 KB per block of 64 lines at L = 4096, the longest line taken.
+// - wl_accumulate, once: one thread per line (both colors) adds the line's
+//   tau-sums of bond products (outgoing bonds), spins and aligned time bonds
+//   to int64 accumulators [R, 3, nvars]: exact, no atomics (one writer per
+//   line). In sampling mode the same launch writes slice 0 into the sample
+//   slot after every freq-th sweep.
+//
+// What bounds it on an H100: a sweep must hash two draws per spin (the site
+// phase's and its time bond's; 22 integer operations each) and do about 18
+// more operations per spin, 62 in all; at the 256^2 torus, R=8, L=40 (21 M
+// spins) that is 1.3 G operations, 39 us at the 33.5 T int32 op/s peak, while
+// reading and writing the 21 MB state once would take 12.5 us at 3.35 TB/s
+// (and it stays in the 50 MB L2). So integer issue bounds it. The kernels
+// pass over the state nine times a sweep with byte loads, and the cluster
+// phase's walk is a serial chain per line. At the 256-site chain, R=64,
+// L=40 (0.66 M spins) each launch is a few microseconds: launch latency, the
+// gaps between the seven launches, and too few lines to hide the cluster
+// walk's latency set the time. Left for later: a block-resident plane per
+// replica for small systems (one launch per sweep), CUDA graphs over the
+// seven launches, and 2-bit or packed spins.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "lanerng.cuh"
+
+namespace {
+
+constexpr int kSiteBlock = 256;
+constexpr int kLineBlock = 64;  // lines (threads) per block of the cluster phase
+constexpr int kMaxL = 4096;
+constexpr int kTreeDepth = 13;  // binary-counter blocks of up to 2^12 = kMaxL slices
+constexpr float kLogScale = 4.656612873077393e-10f;  // 2^-31
+
+struct Geo {
+    int torus;  // 0: ring of nvars sites; 1: size x size torus, i = x * size + y
+    int size;
+    int nvars;
+    int L;
+};
+
+// The k-th site of a color.
+__device__ __forceinline__ int site_of(const Geo& g, int k, int color) {
+    if (!g.torus) return 2 * k + color;
+    const int half = g.size >> 1;
+    const int x = k / half;
+    return x * g.size + 2 * (k - x * half) + ((x + color) & 1);
+}
+
+// The spatial neighbours of site i (the ring's last two are -1).
+struct Nbrs {
+    int j[4];
+};
+
+__device__ __forceinline__ Nbrs neighbours(const Geo& g, int i) {
+    if (!g.torus) return {{i + 1 == g.nvars ? 0 : i + 1, i == 0 ? g.nvars - 1 : i - 1, -1, -1}};
+    const int n = g.size;
+    const int x = i / n, y = i - x * n;
+    return {{(x + 1 == n ? 0 : x + 1) * n + y, (x == 0 ? n - 1 : x - 1) * n + y,
+             x * n + (y + 1 == n ? 0 : y + 1), x * n + (y == 0 ? n - 1 : y - 1)}};
+}
+
+// Spatial neighbour sum at slice t; p is the replica's [nvars, L].
+__device__ __forceinline__ int nbr_sum(const int8_t* p, const Nbrs& nb, int L, int t) {
+    int b = p[nb.j[0] * L + t] + p[nb.j[1] * L + t];
+    if (nb.j[2] >= 0) b += p[nb.j[2] * L + t] + p[nb.j[3] * L + t];
+    return b;
+}
+
+__device__ __forceinline__ float log_uniform(uint32_t u31) {
+    return logf(__fmul_rn(__fadd_rn(__int2float_rn((int)u31), 0.5f), kLogScale));
+}
+
+// grid: one thread per (r, site of the color, tau of the parity), tau
+// fastest. Indices fit in int: R * nvars * L < 2^31 (ops/wl.py, gate).
+__global__ void __launch_bounds__(kSiteBlock) wl_site(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const int32_t* __restrict__ thr,
+    Geo g, int n_active, uint32_t ctr, int color, int parity) {
+    const int idx = blockIdx.x * kSiteBlock + threadIdx.x;
+    if (idx >= n_active) return;
+    const int halfL = g.L >> 1, lines = g.nvars >> 1, L = g.L;
+    const int q = idx / halfL;
+    const int tau = 2 * (idx - q * halfL) + parity;
+    const int r = q / lines;
+    const int i = site_of(g, q - r * lines, color);
+    int8_t* p = s + (size_t)r * g.nvars * L;
+    int8_t* lp = p + (size_t)i * L;
+    const int sv = lp[tau];
+    const int ud = lp[tau + 1 == L ? 0 : tau + 1] + lp[tau == 0 ? L - 1 : tau - 1];
+    const int b = nbr_sum(p, neighbours(g, i), L, tau);
+    const int t = __ldg(thr + 15 * (sv > 0) + 3 * ((b + 4) >> 1) + ((ud + 2) >> 1));
+    const uint32_t u = lane_draw31((uint32_t)__ldg(seeds + r), (uint32_t)(tau * g.nvars + i), ctr);
+    if ((int)u <= t) lp[tau] = (int8_t)(-sv);
+}
+
+// A fully frozen line's total dE in XLA's CPU order (ops/wl.py,
+// xla_sum_last), fed one slice at a time in order: windows of 32 slices,
+// padded evenly at both ends, each summed from 0, then the window sums by the
+// same rule (L <= 4096 needs at most two levels). The pads add +0, which
+// changes no comparison.
+struct XlaSum {
+    bool small, two;
+    int lo1, lo2, w_cur = 0, v_cur = 0;
+    float p1 = 0.0f, p2 = 0.0f, tot = 0.0f;
+
+    __device__ explicit XlaSum(int L) : small(L <= 32) {
+        const int nw1 = (L + 31) / 32;
+        two = nw1 > 32;
+        lo1 = (32 * nw1 - L) / 2;
+        lo2 = two ? (32 * ((nw1 + 31) / 32) - nw1) / 2 : 0;
+    }
+    __device__ void flush() {  // window w_cur is complete
+        if (two) {
+            const int v = (w_cur + lo2) >> 5;
+            if (v != v_cur) {
+                tot = __fadd_rn(tot, p2);
+                p2 = 0.0f;
+                v_cur = v;
+            }
+            p2 = __fadd_rn(p2, p1);
+        } else {
+            tot = __fadd_rn(tot, p1);
+        }
+        p1 = 0.0f;
+    }
+    __device__ void add(int t, float v) {
+        if (small) {
+            tot = __fadd_rn(tot, v);
+            return;
+        }
+        const int w = (t + lo1) >> 5;
+        if (w != w_cur) {
+            flush();
+            w_cur = w;
+        }
+        p1 = __fadd_rn(p1, v);
+    }
+    __device__ float total() {
+        if (small) return tot;
+        flush();
+        return two ? __fadd_rn(tot, p2) : tot;
+    }
+};
+
+// Per-line bit arrays in shared memory: word w of the block's thread j at
+// [w * kLineBlock + j], so a warp's accesses fall in distinct banks.
+__device__ __forceinline__ bool get_bit(const uint32_t* b, int x) {
+    return (b[(x >> 5) * kLineBlock] >> (x & 31)) & 1u;
+}
+__device__ __forceinline__ void set_bit(uint32_t* b, int x) { b[(x >> 5) * kLineBlock] |= 1u << (x & 31); }
+
+// grid: one thread per time line of the color, kLineBlock lines per block.
+//
+// The JAX kernel runs the forward segmented sum by pointer doubling over the
+// whole ring; at a cluster head h with n slices that gives
+// R(h, n) = F(h, p) + R(h + p, n - p), p the largest power of two below n,
+// F a perfect binary tree of additions. Walking the cluster and merging equal
+// blocks like a binary counter leaves exactly the blocks F of n's binary
+// expansion, which summed right-nested are R: the same f32 additions in the
+// same order, done once per slice instead of log2 L times. Three passes along
+// the line: (1) frozen bonds, as bits; (2) from the first head (tau = 0 on a
+// fully frozen line), each cluster's dE and its head's decision, as bits;
+// (3) the decisions carried to every slice of their cluster, and the flips
+// written. Frozen and other lines take the same passes, so a warp's threads
+// stay together.
+__global__ void __launch_bounds__(kLineBlock) wl_cluster(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const float* __restrict__ cde,
+    int32_t pb, Geo g, int n_lines, uint32_t ctr, int color) {
+    extern __shared__ uint32_t bits[];
+    const int line = blockIdx.x * kLineBlock + threadIdx.x;
+    if (line >= n_lines) return;
+    const int L = g.L, lines = g.nvars >> 1, words = (L + 31) >> 5;
+    const int r = line / lines;
+    const int i = site_of(g, line - r * lines, color);
+    int8_t* p = s + (size_t)r * g.nvars * L;
+    int8_t* lp = p + (size_t)i * L;
+    const uint32_t seed = (uint32_t)__ldg(seeds + r);
+    const Nbrs nb = neighbours(g, i);
+    uint32_t* act = bits + threadIdx.x;
+    uint32_t* dec = act + words * kLineBlock;
+    for (int w = 0; w < words; ++w) act[w * kLineBlock] = dec[w * kLineBlock] = 0u;
+
+    // (1) bond (t, t+1) frozen: aligned and its draw below pb; h0 = the
+    // first head (the slice after the first thawed bond)
+    int h0 = -1;
+    const int s0 = lp[0];
+#pragma unroll 4
+    for (int t = 0; t < L; ++t) {
+        const int sv = lp[t], nx = t + 1 == L ? s0 : lp[t + 1];
+        if (sv == nx && (int)lane_draw31(seed, (uint32_t)(t * g.nvars + i), ctr) < pb)
+            set_bit(act, t);
+        else if (h0 < 0)
+            h0 = t + 1 == L ? 0 : t + 1;
+    }
+    const bool frozen = h0 < 0;  // one cluster, headed at tau = 0
+    if (frozen) h0 = 0;
+    // (2) blk[b] holds the tree sum of a block of 2^b slices while bit b of
+    // count is set
+    float blk[kTreeDepth];
+    unsigned count = 0;
+    XlaSum whole(L);
+    for (int j = 0, x = h0, head = h0; j < L; ++j, x = x + 1 == L ? 0 : x + 1) {
+        const int sv = lp[x];
+        float v = __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, x) + 4) >> 1));
+        float acc = 0.0f;
+        bool ends = false;
+        if (frozen) {
+            whole.add(x, v);
+            if (j == L - 1) {
+                acc = whole.total();
+                ends = true;
+            }
+        } else {
+            int b = 0;
+            for (; (count >> b) & 1u; ++b) v = __fadd_rn(blk[b], v);
+            blk[b] = v;
+            ++count;
+            if (!get_bit(act, x)) {  // the cluster ends at x: R, right-nested
+                ends = true;
+                bool first = true;
+                for (b = 0; b < kTreeDepth; ++b)
+                    if ((count >> b) & 1u) {
+                        acc = first ? blk[b] : __fadd_rn(blk[b], acc);
+                        first = false;
+                    }
+            }
+        }
+        if (ends) {
+            if (log_uniform(lane_draw31(seed, (uint32_t)(head * g.nvars + i), ctr + 1)) < -acc)
+                set_bit(dec, head);
+            count = 0;
+            head = x + 1 == L ? 0 : x + 1;
+        }
+    }
+    // (3) a head (after a thawed bond, or tau = 0 of a frozen line) sets the
+    // decision its cluster takes
+    bool flip = false;
+#pragma unroll 4
+    for (int j = 0, x = h0; j < L; ++j, x = x + 1 == L ? 0 : x + 1) {
+        if (j == 0 || !get_bit(act, x == 0 ? L - 1 : x - 1)) flip = get_bit(dec, x);
+        if (flip) lp[x] = (int8_t)(-lp[x]);
+    }
+}
+
+// grid: one thread per time line (all sites); it walks its line and its bond
+// partners' lines, which L1 holds across the walk.
+__global__ void __launch_bounds__(kSiteBlock) wl_accumulate(
+    const int8_t* __restrict__ s, long long* __restrict__ acc, int8_t* __restrict__ stage,
+    int stage_stride, Geo g, int n_lines) {
+    const int line = blockIdx.x * kSiteBlock + threadIdx.x;
+    if (line >= n_lines) return;
+    const int L = g.L, n = g.nvars;
+    const int r = line / n;
+    const int i = line - r * n;
+    const int8_t* p = s + (size_t)r * n * L;
+    const int8_t* lp = p + (size_t)i * L;
+    const int8_t* q1;  // the partners of the site's outgoing bonds
+    const int8_t* q2 = nullptr;
+    if (!g.torus) {
+        q1 = p + (size_t)(i + 1 == n ? 0 : i + 1) * L;
+    } else {
+        const int m = g.size, x = i / m, y = i - x * m;
+        q1 = p + (size_t)(x * m + (y + 1 == m ? 0 : y + 1)) * L;
+        q2 = p + (size_t)((x + 1 == m ? 0 : x + 1) * m + y) * L;
+    }
+    const int s0 = lp[0];
+    int sb = 0, sh = 0, al = 0;
+#pragma unroll 4
+    for (int t = 0; t < L; ++t) {
+        const int sv = lp[t], nx = t + 1 == L ? s0 : lp[t + 1];
+        sb += sv * (q1[t] + (q2 ? q2[t] : 0));
+        sh += sv;
+        al += sv == nx;
+    }
+    long long* a = acc + (size_t)r * 3 * n + i;
+    a[0] += sb;
+    a[n] += sh;
+    a[2 * (size_t)n] += al;
+    if (stage) stage[(size_t)r * stage_stride + i] = (int8_t)s0;
+}
+
+}  // namespace
+
+// Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L]. thr [30] int32, cde [10] f32 and pb as in ops/wl.py;
+// acc [R, 3, nvars] int64 is added to; samples is [R, nsamples, nvars] int8
+// or null, slot k written after sweep (k + 1) * freq. Draw d of sweep t uses
+// counter 8 t + d. Returns the first launch error, or 0.
+extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void* cde, int pb,
+                         void* acc, void* samples, int R, int nvars, int L, int torus, int size,
+                         int T, int freq, int nsamples, void* stream) {
+    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1)) return (int)cudaErrorInvalidValue;
+    const Geo g{torus, size, nvars, L};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int8_t* sp = static_cast<int8_t*>(s);
+    const int32_t* sd = static_cast<const int32_t*>(seeds);
+    const int n_active = R * (nvars / 2) * (L / 2);
+    const int n_color = R * (nvars / 2);
+    const int n_all = R * nvars;
+    const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
+    const unsigned color_grid = (n_color + kLineBlock - 1) / kLineBlock;
+    const unsigned all_grid = (n_all + kSiteBlock - 1) / kSiteBlock;
+    const int smem = 2 * ((L + 31) / 32) * kLineBlock * (int)sizeof(uint32_t);  // frozen and decision bits
+    cudaError_t e = cudaFuncSetAttribute(wl_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    for (int t = 0; t < T; ++t) {
+        const uint32_t base = 8u * (uint32_t)t;
+        uint32_t d = 0;
+        for (int color = 0; color < 2; ++color)
+            for (int parity = 0; parity < 2; ++parity) {
+                wl_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, static_cast<const int32_t*>(thr), g,
+                                                          n_active, base + d++, color, parity);
+                if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+            }
+        for (int color = 0; color < 2; ++color) {
+            wl_cluster<<<color_grid, kLineBlock, smem, st>>>(sp, sd, static_cast<const float*>(cde), pb, g,
+                                                             n_color, base + d, color);
+            d += 2;
+            if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+        }
+        int8_t* stage = nullptr;
+        if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
+            stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
+        wl_accumulate<<<all_grid, kSiteBlock, 0, st>>>(sp, static_cast<long long*>(acc), stage,
+                                                       nsamples * nvars, g, n_all);
+        if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    return 0;
+}

@@ -1,8 +1,8 @@
-"""Edge lists -> compiled graph arrays, and the square-torus detector.
+"""Edge lists -> compiled graph arrays, and the uniform ring and torus detectors.
 
 Counterpart of ``pyisingmontecarlo_tpu/graph.py``, carried over (numpy only)
 rather than imported, because importing any module of the JAX package imports
-jax. This slice needs only the edge arrays: colorings, ELL adjacency and the
+jax. The ported paths need only the edge arrays: colorings, ELL adjacency and the
 native graph library serve the arbitrary-graph engines, which are not ported
 yet (ROADMAP.md, modules to port, item 4).
 """
@@ -19,6 +19,7 @@ __all__ = [
     "compile_graph",
     "grid_2d_edges",
     "detect_square_torus",
+    "detect_dense",
 ]
 
 
@@ -100,3 +101,25 @@ def detect_square_torus(cg: CompiledGraph):
     if not np.array_equal(have, want):
         return None
     return L, float(j0)
+
+
+def detect_dense(cg: CompiledGraph):
+    """``("torus", L, J)`` for a uniform even square torus, ``("ring", n, J)``
+    for a uniform even periodic chain (n >= 4), else None: the lattices the
+    worldline kernel runs on (the JAX package's ``worldline.detect_dense``)."""
+    tor = detect_square_torus(cg)
+    if tor is not None:
+        return ("torus", tor[0], tor[1])
+    n = cg.nvars
+    if n < 4 or n % 2 or cg.nedges != n:
+        return None
+    j0 = cg.edge_j[0]
+    if not np.all(cg.edge_j == j0):
+        return None
+    a = np.minimum(cg.edge_a, cg.edge_b).astype(np.int64)
+    b = np.maximum(cg.edge_a, cg.edge_b).astype(np.int64)
+    v = np.arange(n, dtype=np.int64)
+    w = (v + 1) % n
+    want = np.unique(np.minimum(v, w) * n + np.maximum(v, w))
+    have = np.unique(a * n + b)
+    return ("ring", n, float(j0)) if np.array_equal(have, want) else None

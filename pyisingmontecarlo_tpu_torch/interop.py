@@ -3,7 +3,9 @@
 ``lattice_from_reference`` reads a ``pyisingmontecarlo_tpu.Lattice`` by
 attribute only (no jax import): its edges, bias, transverse field, initial
 state, flags and dtau, and the state of its master seed stream, so that both
-objects then draw identical u64 seeds.
+objects then draw identical u64 seeds. ``worldline_from_arrays`` builds a
+worldline ensemble from a JAX ensemble's state and key data, handed over as
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,9 +15,11 @@ import copy
 import numpy as np
 import torch
 
-from .lattice import Lattice
+from .engines.worldline import WorldlineEnsemble
+from .graph import compile_graph, grid_2d_edges
+from .lattice import Lattice, resolve_device
 
-__all__ = ["lattice_from_reference", "state_to_torch", "state_to_numpy"]
+__all__ = ["lattice_from_reference", "worldline_from_arrays", "state_to_torch", "state_to_numpy"]
 
 
 def lattice_from_reference(obj, device="cuda") -> Lattice:
@@ -30,6 +34,23 @@ def lattice_from_reference(obj, device="cuda") -> Lattice:
     lat.enable_heatbath = bool(obj.enable_heatbath)
     lat.enable_cluster = bool(obj.enable_cluster)
     return lat
+
+
+def worldline_from_arrays(s, key_data, beta: float, gamma: float, h: float, ltau: int, dense,
+                          device="cuda") -> WorldlineEnsemble:
+    """A worldline ensemble at state ``s[R, nvars, L]`` (+-1) with threefry key
+    data ``key_data[R, 2]`` (uint32; ``jax.random.key_data`` of the JAX
+    ensemble's keys) on the lattice ``dense`` = ``("ring", n, J)`` or
+    ``("torus", L, J)``."""
+    kind, size, j = dense
+    if kind == "ring":
+        edges = [((i, (i + 1) % size), float(j)) for i in range(size)]
+    else:
+        edges = grid_2d_edges(size, size, float(j))
+    s = np.array(s, dtype=np.int8)
+    return WorldlineEnsemble(compile_graph(edges), gamma, h, beta, np.asarray(key_data, np.uint32),
+                             s.shape[0], ltau=ltau, states=torch.from_numpy(s),
+                             device=resolve_device(device))
 
 
 def state_to_torch(np_state, device="cpu") -> torch.Tensor:

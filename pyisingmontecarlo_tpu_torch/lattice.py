@@ -1,11 +1,15 @@
 """``Lattice`` — the stateless launcher class, on torch.
 
 Counterpart of ``pyisingmontecarlo_tpu/lattice.py``: the same constructor,
-setters and classical methods, returning the same numpy types. Ported so far is
-the uniform periodic square lattice with a global bias (the JAX package's
-``_fast2d`` dispatch): every classical method runs there on the sweep kernel of
-``ops/sq2d.py``. Every other branch raises ``NotImplementedError`` naming its
-item of ROADMAP.md.
+setters and methods, returning the same numpy types. Ported so far:
+
+- the classical methods on the uniform periodic square lattice with a global
+  bias (the JAX package's ``_fast2d`` dispatch), on the sweep kernel of
+  ``ops/sq2d.py``;
+- the quantum (transverse-field) methods on a uniform periodic ring or square
+  torus, on the worldline kernel of ``ops/wl.py`` (``engines/worldline.py``).
+
+Every other branch raises ``NotImplementedError`` naming its item of ROADMAP.md.
 
 The device is explicit: ``device="cuda"`` (the default) runs the kernel and
 raises where there is no CUDA; ``device="cpu"`` runs the kernel's plain version.
@@ -21,19 +25,18 @@ import torch
 
 from .graph import compile_graph, detect_square_torus
 from .ops import lattice2d as l2d
-from .rng import MasterRng, replica_seeds_i32
+from .rng import MasterRng, key_data_from_seeds, replica_seeds_i32
 
-__all__ = ["Lattice"]
+__all__ = ["Lattice", "resolve_device"]
 
 _CLASSICAL_ITEM = "ROADMAP.md, modules to port, item 4 (engines/classical.py)"
-_QUANTUM_ITEM = "ROADMAP.md, modules to port, item 5 (engines/worldline.py)"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to torch yet: {item}")
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -49,8 +52,9 @@ class Lattice:
     """Stateless Monte Carlo launcher over an edge-list Ising graph.
 
     ``Lattice(edges, seed_gen=None, use_allocator=True, *, dtau=None,
-    device="cuda")``; ``use_allocator`` and ``dtau`` are kept for the JAX
-    package's signature and are not used by the classical torus path."""
+    device="cuda")``; ``use_allocator`` is kept for the JAX package's
+    signature and is not used; ``dtau`` is the quantum methods' Trotter-step
+    target (default 0.05, or the PMC_DTAU environment variable)."""
 
     def __init__(
         self,
@@ -61,7 +65,7 @@ class Lattice:
         dtau: Optional[float] = None,
         device="cuda",
     ):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.edges = [((int(a), int(b)), float(j)) for (a, b), j in edges]
         self.cg = compile_graph(self.edges)
         self.nvars = self.cg.nvars
@@ -255,25 +259,153 @@ class Lattice:
         s, es = l2d.run_steps_2d(s0, seeds, beta_arr, J, h, collect_energies=True)
         return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
 
+    # ---------------------------------------------------------- quantum runs
 
-def _quantum_stub(name: str):
-    def method(self, *args, **kwargs):
-        raise _not_ported(f"Lattice.{name}", _QUANTUM_ITEM)
+    def _check_quantum(self):
+        """Quantum runs need a global (not individual) bias and a transverse field."""
+        if self.bias[0] != "global":
+            raise ValueError("Cannot run quantum monte carlo with individual biases")
+        if self.transverse is None:
+            raise ValueError("Cannot run quantum monte carlo without transverse field")
 
-    method.__name__ = name
-    method.__doc__ = f"Not ported yet: {_QUANTUM_ITEM}."
-    return method
+    def _worldline(self, num_experiments: int, beta: float):
+        """Fresh per-experiment keys and worldlines (a new ensemble per call)."""
+        self._check_quantum()
+        from .engines import worldline as wl
 
+        key_data = key_data_from_seeds(self.rng.make_seeds(num_experiments))
+        init = None
+        if self.initial_state is not None:
+            init = np.where(self.initial_state, 1, -1).astype(np.int8)
+        return wl.WorldlineEnsemble(
+            cg=self.cg,
+            transverse=float(self.transverse),
+            longitudinal=float(self.bias[1]),
+            beta=float(beta),
+            key_data=key_data,
+            num_experiments=num_experiments,
+            initial_state=init,
+            enable_rvb=self.enable_rvb,
+            enable_heatbath=self.enable_heatbath,
+            dtau=self.dtau,
+            device=self.device,
+        )
 
-for _name in (
-    "run_quantum_monte_carlo",
-    "run_quantum_monte_carlo_sampling",
-    "run_quantum_monte_carlo_and_measure_variable_autocorrelation",
-    "run_quantum_monte_carlo_and_measure_spin_product_autocorrelation",
-    "run_quantum_monte_carlo_and_measure_bond_autocorrelation",
-    "run_quantum_monte_carlo_and_measure_spins",
-    "get_offset",
-    "average_on_and_off_diagonal_and_consts",
-):
-    setattr(Lattice, _name, _quantum_stub(_name))
-del _name
+    def run_quantum_monte_carlo(self, beta: float, timesteps: int, num_experiments: int):
+        """-> (avg_energies[n] f64, states[n, nvars] bool)."""
+        w = self._worldline(num_experiments, beta)
+        es = w.timesteps(int(timesteps))
+        return np.asarray(es, np.float64), w.states_bool()
+
+    def run_quantum_monte_carlo_sampling(
+        self,
+        beta: float,
+        timesteps: int,
+        num_experiments: int,
+        sampling_wait_buffer: Optional[int] = None,
+        sampling_freq: Optional[int] = None,
+    ):
+        """-> (avg_energies[n] f64, states[n, t/freq, nvars] bool). The wait
+        buffer is clamped to ``timesteps``."""
+        w = self._worldline(num_experiments, beta)
+        wait = min(int(sampling_wait_buffer or 0), int(timesteps))
+        freq = int(sampling_freq) if sampling_freq else 1
+        if wait:
+            w.timesteps(wait)
+        es, ss = w.timesteps_sample(int(timesteps), freq)
+        return np.asarray(es, np.float64), np.asarray(ss)
+
+    def _autocorr_run(self, num_experiments, beta, sampling_wait_buffer, sampling_freq):
+        """Ensemble after the wait buffer (not clamped), and the sampling period."""
+        w = self._worldline(num_experiments, beta)
+        if sampling_wait_buffer:
+            w.timesteps(int(sampling_wait_buffer))
+        return w, int(sampling_freq) if sampling_freq else 1
+
+    def run_quantum_monte_carlo_and_measure_variable_autocorrelation(
+        self,
+        beta: float,
+        timesteps: int,
+        num_experiments: int,
+        sampling_wait_buffer: Optional[int] = None,
+        sampling_freq: Optional[int] = None,
+    ):
+        """-> corrs[n, t/freq] f64."""
+        w, freq = self._autocorr_run(num_experiments, beta, sampling_wait_buffer, sampling_freq)
+        return np.asarray(w.variable_autocorrelation(int(timesteps), freq), np.float64)
+
+    def run_quantum_monte_carlo_and_measure_spin_product_autocorrelation(
+        self,
+        beta: float,
+        timesteps: int,
+        num_experiments: int,
+        spin_products: Sequence[Sequence[int]],
+        sampling_wait_buffer: Optional[int] = None,
+        sampling_freq: Optional[int] = None,
+    ):
+        """-> corrs[n, t/freq] f64."""
+        w, freq = self._autocorr_run(num_experiments, beta, sampling_wait_buffer, sampling_freq)
+        return np.asarray(w.spin_product_autocorrelation(int(timesteps), freq, spin_products), np.float64)
+
+    def run_quantum_monte_carlo_and_measure_bond_autocorrelation(
+        self,
+        beta: float,
+        timesteps: int,
+        num_experiments: int,
+        sampling_wait_buffer: Optional[int] = None,
+        sampling_freq: Optional[int] = None,
+    ):
+        """-> corrs[n, t/freq] f64."""
+        w, freq = self._autocorr_run(num_experiments, beta, sampling_wait_buffer, sampling_freq)
+        return np.asarray(w.bond_autocorrelation(int(timesteps), freq), np.float64)
+
+    def run_quantum_monte_carlo_and_measure_spins(
+        self,
+        beta: float,
+        timesteps: int,
+        num_experiments: int,
+        sampling_freq: Optional[int] = None,
+        sampling_wait_buffer: Optional[int] = None,
+        spin_measurement=None,
+        exponent: Optional[int] = None,
+    ):
+        """-> (measures[n], energies[n]) f64: per sample ``(sum_i m(s_i)) **
+        exponent`` with m mapping down/up to ``spin_measurement`` (default
+        (-1.0, 1.0)), averaged over the samples. The wait buffer is clamped."""
+        w = self._worldline(num_experiments, beta)
+        wait = min(int(sampling_wait_buffer or 0), int(timesteps))
+        freq = int(sampling_freq) if sampling_freq else 1
+        if wait:
+            w.timesteps(wait)
+        down, up = spin_measurement if spin_measurement is not None else (-1.0, 1.0)
+        exp_ = int(exponent) if exponent is not None else 1
+        meas, es = w.measure_spins(int(timesteps), freq, float(down), float(up), exp_)
+        return np.asarray(meas, np.float64), np.asarray(es, np.float64)
+
+    def get_offset(self) -> float:
+        """The constant energy offset with E = offset - <n_ops>/beta:
+        sum_b |J_b| + nvars * |h| + nvars * Gamma."""
+        self._check_quantum()
+        h = abs(float(self.bias[1]))
+        return float(
+            np.abs(self.cg.edge_j).sum() + self.nvars * h + self.nvars * float(self.transverse)
+        )
+
+    def average_on_and_off_diagonal_and_consts(
+        self,
+        beta: float,
+        timesteps: int,
+        num_experiments: int,
+        sampling_freq: Optional[int] = None,
+        sampling_wait_buffer: Optional[int] = None,
+    ):
+        """-> (diag, offdiag, consts): mean SSE operator counts, reinterpreted
+        for worldlines (``WorldlineEnsemble.op_count_estimates``). The wait
+        buffer is not clamped."""
+        w = self._worldline(num_experiments, beta)
+        wait = int(sampling_wait_buffer or 0)
+        freq = int(sampling_freq) if sampling_freq else 1
+        if wait:
+            w.timesteps(wait)
+        d, o, c = w.op_count_estimates(int(timesteps), freq)
+        return float(d), float(o), float(c)

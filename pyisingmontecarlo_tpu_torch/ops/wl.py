@@ -1,0 +1,425 @@
+"""Trotterized TFIM worldline sweeps on a uniform periodic ring or square
+torus: the kernel wrapper, its plain PyTorch version, and the host side
+around them.
+
+Counterpart of ``pyisingmontecarlo_tpu/ops/wl_pallas.py``. The kernel is
+``csrc/wl.cu``; ``wl_sweeps`` launches it for a CUDA tensor (or raises) and
+runs ``wl_sweeps_reference`` for a CPU tensor. Spins are ``s[R, nvars, L]``
+int8 in {-1, +1} (site i of replica r at Trotter slice tau is ``s[r, i, tau]``),
+as at the JAX package's public functions.
+
+One sweep, for sweep index t (counting from 0 within one dispatch chunk):
+
+1. four site phases, one per (site color, tau parity), draw ``d = 0..3``:
+   Glauber acceptance ``u <= thr[15*(s > 0) + 3*(B/2 + 2) + (s_up + s_dn)/2 + 1]``,
+   with B the spatial neighbour sum and ``thr`` the 30-entry int31 table of
+   ``site_tables``;
+2. two Fortuin-Kasteleyn cluster phases along the tau rings of each color,
+   draws ``d = 4, 5`` (color 0) and ``6, 7`` (color 1): bond (tau, tau+1) is
+   frozen when aligned and its draw ``u < pb``; a forward segmented sum of the
+   f32 diagonal dE by pointer doubling gives each cluster's dE at its head;
+   the head flips its cluster when ``log((u + 0.5) / 2^31) < -dE``; the decision
+   propagates forward by pointer doubling. A fully frozen ring is one cluster
+   headed at tau = 0, whose dE is the sum of the whole line in the order of
+   ``xla_sum_last``;
+3. accumulation of three exact integer statistics: bond products over the
+   outgoing bonds, spins, and aligned time bonds.
+
+Randomness: the draw ``d`` of sweep t at (tau, i) is
+``lane_draw31(seed_r, pos = tau*nvars + i, ctr = 8*t + d)``. A run longer than
+the JAX kernel's exactness bound is split into dispatch chunks
+(``chunk_plan``); chunk c > 0 re-keys each replica with
+``seed ^ (0x9E3779B9 * c)`` and restarts t at 0. The port's accumulators are
+int64 and need no such bound; it keeps the schedule so that its trajectories
+are the JAX kernel's at any run length.
+
+Numerics that must match the JAX kernel bit for bit: the thresholds, the
+cluster dE table and pb are f64 math cast once on the host (``site_tables``,
+``bond_threshold``), never redone on the device; the f32 additions of the
+pointer doubling and of a frozen ring's total keep the JAX order; the log is
+f32 ``log``. The one known source of rare differences is the last ulp of f32
+``log``, which can differ between libraries and moves a decision only when
+``-dE`` falls between the two results.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .lanerng import lane_draw31, make_pos_mix
+
+__all__ = [
+    "WlTables",
+    "site_tables",
+    "bond_threshold",
+    "coupling_params",
+    "make_tables",
+    "lattice_fns",
+    "gate",
+    "dispatch_bound",
+    "chunk_plan",
+    "chunk_seeds",
+    "xla_sum_last",
+    "wl_sweeps",
+    "wl_sweeps_reference",
+    "run_wl_sweeps",
+    "run_wl_sample",
+]
+
+DRAWS_PER_SWEEP = 8
+LAUNCHES_PER_SWEEP = 7  # 4 site phases, 2 cluster phases, 1 accumulation
+MAX_LTAU = 4096  # the cluster phase's per-line shared-memory buffer (csrc/wl.cu)
+_INT_LIMIT = 2**31
+# the JAX kernel's dispatch plan: planes of more than 2 MiB (int32) use its
+# row accumulators, whose exactness bound is 2^23 / (2 L) sweeps per dispatch
+_ROW_PLANE_BYTES = 2 * 1024 * 1024
+_EXACT = 1 << 23
+_CHUNK_SEED_STEP = 0x9E3779B9
+_LOG_SCALE = 1.0 / 2147483648.0
+
+
+class WlTables(NamedTuple):
+    """What a sweep needs besides the state and the seeds: the lattice
+    (``kind`` "ring" or "torus", ``size`` = ring length or torus side,
+    ``nvars``, ``ltau``) and the acceptance tables, on the state's device."""
+
+    kind: str
+    size: int
+    nvars: int
+    ltau: int
+    thr: torch.Tensor  # [30] int32 site-phase Glauber thresholds
+    cde: torch.Tensor  # [10] f32 cluster-phase diagonal dE per site
+    pb: int  # int31 bond-freezing threshold
+
+
+def coupling_params(beta: float, gamma: float, ltau: int):
+    """``(dtau, a, ktau)``: the Trotter step, ``dtau * gamma`` and the
+    time-like coupling ``-1/2 log tanh(a)``, in f64 as the JAX kernel's host."""
+    dtau = float(beta) / ltau
+    a = dtau * float(gamma)
+    ktau = -0.5 * math.log(math.tanh(a))
+    return dtau, a, ktau
+
+
+def site_tables(j: float, h: float, dtau: float, ktau: float):
+    """``(thr [30] int32, cde [10] f32)``: Glauber thresholds of the site
+    phase, indexed ``[s > 0][B/2 + 2][ud/2 + 1]`` (B the +-1 spatial neighbour
+    sum, ud = s_up + s_down), and the cluster phase's per-site dE, indexed
+    ``[s > 0][B/2 + 2]``. f64 math then one cast, as ``_site_tables``."""
+    thr = np.empty(30, np.int32)
+    for si, s in enumerate((-1.0, 1.0)):
+        for bi, bsum in enumerate((-4.0, -2.0, 0.0, 2.0, 4.0)):
+            for ui, ud in enumerate((-2.0, 0.0, 2.0)):
+                dE = -2.0 * s * (dtau * (j * bsum + h) - ktau * ud)
+                pacc = 1.0 / (1.0 + math.exp(min(dE, 60.0)))
+                thr[si * 15 + bi * 3 + ui] = np.int32(pacc * 2147483647.0)
+    cde = np.empty(10, np.float32)
+    for si, s in enumerate((-1.0, 1.0)):
+        for bi, bsum in enumerate((-4.0, -2.0, 0.0, 2.0, 4.0)):
+            cde[si * 5 + bi] = -2.0 * s * dtau * (j * bsum + h)
+    return thr, cde
+
+
+def bond_threshold(ktau: float) -> int:
+    """int31 threshold of ``p_bond = 1 - exp(-2 ktau)``: a bond freezes when its draw is below it."""
+    return int(np.int32((1.0 - math.exp(-2.0 * ktau)) * 2147483647.0))
+
+
+def make_tables(dense, nvars: int, beta: float, gamma: float, h: float, ltau: int,
+                device="cpu") -> WlTables:
+    """The tables of one (lattice, beta, gamma, h, L_tau) on ``device``."""
+    kind, size, j = dense
+    dtau, _, ktau = coupling_params(beta, gamma, ltau)
+    thr, cde = site_tables(float(j), float(h), dtau, ktau)
+    return WlTables(kind, int(size), int(nvars), int(ltau), torch.from_numpy(thr).to(device),
+                    torch.from_numpy(cde).to(device), bond_threshold(ktau))
+
+
+def gate(dense, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
+    """None when the kernel takes this shape, else the reason it does not:
+    a uniform ring or torus (``dense``), L_tau even and in [4, MAX_LTAU], an
+    even number of sites (an even torus side), and fewer than 2^31 spins."""
+    if dense is None:
+        return "the graph is not a uniform periodic ring or square torus"
+    kind, size, _ = dense
+    if kind not in ("ring", "torus"):
+        return f"unknown lattice kind {kind!r}"
+    if ltau < 4 or ltau % 2 or ltau > MAX_LTAU:
+        return f"L_tau={ltau} is not even and in [4, {MAX_LTAU}]"
+    if nvars % 2 or nvars < 4 or (kind == "torus" and (size % 2 or size * size != nvars)):
+        return f"{kind} of {nvars} sites (size {size}) is not even"
+    if kind == "ring" and size != nvars:
+        return f"ring size {size} != nvars {nvars}"
+    if R * nvars * ltau >= _INT_LIMIT:
+        return f"R * nvars * L_tau = {R * nvars * ltau} spins reach 2^31"
+    return None
+
+
+def dispatch_bound(nvars: int, ltau: int) -> int:
+    """Sweeps per dispatch chunk of the JAX kernel: 2^23, or 2^23 // (2 L_tau)
+    when its plane (``nvars * L_tau`` int32) exceeds 2 MiB."""
+    if nvars * ltau * 4 > _ROW_PLANE_BYTES:
+        return max(1, _EXACT // max(2 * ltau, 1))
+    return _EXACT
+
+
+def chunk_plan(total: int, nvars: int, ltau: int):
+    """``[(chunk index, sweeps), ...]`` covering ``total`` sweeps."""
+    bound = dispatch_bound(nvars, ltau)
+    plan, done = [], 0
+    while done < total:
+        step = min(total - done, bound)
+        plan.append((done // bound, step))
+        done += step
+    return plan
+
+
+def chunk_seeds(seeds_u32, index: int) -> np.ndarray:
+    """The replicas' seeds for dispatch chunk ``index`` (uint32)."""
+    seeds = np.asarray(seeds_u32).astype(np.uint32)
+    if index == 0:
+        return seeds
+    return seeds ^ np.uint32((_CHUNK_SEED_STEP * index) & 0xFFFFFFFF)
+
+
+def xla_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """f32 sum over the last axis in XLA's CPU order, which the JAX kernel's
+    ``jnp.sum`` of a fully frozen ring follows: up to 32 terms are added one
+    by one to 0; more are zero-padded evenly on both sides to a multiple of 32,
+    each window of 32 is summed so, and the window sums are summed again by
+    the same rule. ``csrc/wl.cu`` sums in this order too."""
+    L = x.shape[-1]
+    if L > 32:
+        n = -(-L // 32)
+        lo = (32 * n - L) // 2
+        z = x.new_zeros(x.shape[:-1] + (1,))
+        x = torch.cat([z.expand(*x.shape[:-1], lo), x, z.expand(*x.shape[:-1], 32 * n - L - lo)], -1)
+        return xla_sum_last(_sum_in_order(x.reshape(*x.shape[:-1], n, 32)))
+    return _sum_in_order(x)
+
+
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros_like(x[..., 0])
+    for t in range(x.shape[-1]):
+        acc = acc + x[..., t]
+    return acc
+
+
+def _check(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int):
+    """Validate the arguments shared by the kernel and the plain version;
+    returns R."""
+    if s.dtype != torch.int8 or s.dim() != 3:
+        raise ValueError(f"s must be [R, nvars, L] int8, got {tuple(s.shape)} {s.dtype}")
+    R, nvars, L = s.shape
+    if (nvars, L) != (tables.nvars, tables.ltau):
+        raise ValueError(f"s is [R, {nvars}, {L}], the tables are for [R, {tables.nvars}, {tables.ltau}]")
+    why = gate((tables.kind, tables.size, 0.0), nvars, L, R)
+    if why:
+        raise ValueError(f"the worldline kernel does not take this shape: {why}")
+    if seeds_i32.dtype != torch.int32 or tuple(seeds_i32.shape) != (R,):
+        raise ValueError(f"seeds_i32 must be [{R}] int32, got {tuple(seeds_i32.shape)} {seeds_i32.dtype}")
+    if tables.thr.dtype != torch.int32 or tuple(tables.thr.shape) != (30,):
+        raise ValueError("tables.thr must be [30] int32")
+    if tables.cde.dtype != torch.float32 or tuple(tables.cde.shape) != (10,):
+        raise ValueError("tables.cde must be [10] float32")
+    if not 0 <= int(tables.pb) < _INT_LIMIT:
+        raise ValueError(f"tables.pb={tables.pb} is not an int31 threshold")
+    if T < 0 or 8 * T >= 2**32:
+        raise ValueError(f"T={T} sweeps: the draw counter 8*T must stay below 2^32")
+    if nsamples < 0 or (nsamples and (freq < 1 or freq * nsamples > T)):
+        raise ValueError(f"nsamples={nsamples} samples every freq={freq} sweeps do not fit T={T}")
+    for name, t in (("seeds_i32", seeds_i32), ("tables.thr", tables.thr), ("tables.cde", tables.cde)):
+        if t.device != s.device:
+            raise ValueError(f"{name} is on {t.device}, s on {s.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not s.is_contiguous():
+        raise ValueError("s must be contiguous")
+    return R
+
+
+def lattice_fns(kind: str, size: int, nvars: int, dev):
+    """Per-site color-0 mask ``[nvars, 1]`` and the functions giving the
+    spatial neighbour sum and the outgoing bonds' partners of ``s[R, nvars, L]``."""
+    i = torch.arange(nvars, device=dev)
+    if kind == "ring":
+        color0 = i % 2 == 0
+
+        def nsum(s):
+            return s.roll(1, 1) + s.roll(-1, 1)
+
+        def partners(s):  # (i + 1)
+            return (s.roll(-1, 1),)
+    else:  # torus, i = x * size + y
+        color0 = (i // size + i % size) % 2 == 0
+
+        def nsum(s):
+            q = s.view(s.shape[0], size, size, -1)
+            return (q.roll(1, 1) + q.roll(-1, 1) + q.roll(1, 2) + q.roll(-1, 2)).view(s.shape)
+
+        def partners(s):  # (x, y + 1) and (x + 1, y)
+            q = s.view(s.shape[0], size, size, -1)
+            return (q.roll(-1, 2).reshape(s.shape), q.roll(-1, 1).reshape(s.shape))
+
+    return color0[:, None], nsum, partners
+
+
+def wl_sweeps_reference(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0):
+    """Plain PyTorch version of ``wl_sweeps``: same arguments, same result."""
+    R = _check(s, seeds_i32, tables, T, freq, nsamples)
+    _, nvars, L = s.shape
+    dev = s.device
+    color0, nsum, partners = lattice_fns(tables.kind, tables.size, nvars, dev)
+    cmask = (color0, ~color0)
+    tau = torch.arange(L, device=dev)[None, :]
+    tmask = (tau % 2 == 0, tau % 2 == 1)
+    pos1, pos2 = make_pos_mix(tau, torch.arange(nvars, device=dev)[:, None], nvars)
+    seed = seeds_i32[:, None, None]
+    thr, cde, pb = tables.thr, tables.cde, int(tables.pb)
+    ksteps = max(1, int(math.ceil(math.log2(L))))
+    x = s.to(torch.int32)
+    stats = torch.zeros((R, 3), dtype=torch.int64, device=dev)
+    samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=dev)
+
+    def draw(ctr):
+        return lane_draw31(seed, pos1, pos2, ctr)
+
+    for t in range(T):
+        d = DRAWS_PER_SWEEP * t
+        for color in (0, 1):
+            for parity in (0, 1):
+                B = nsum(x)
+                ud = x.roll(-1, 2) + x.roll(1, 2)
+                tv = thr[15 * (x > 0) + 3 * ((B + 4) // 2) + (ud + 2) // 2]
+                acc = (draw(d) <= tv) & cmask[color] & tmask[parity]
+                x = torch.where(acc, -x, x)
+                d += 1
+        for color in (0, 1):
+            active = ((x == x.roll(-1, 2)) & (draw(d) < pb)).to(torch.int32)
+            de = cde[5 * (x > 0) + (nsum(x) + 4) // 2]
+            acc, reach, k = de, active, 1
+            for _ in range(ksteps):  # forward segmented run-sum
+                acc = acc + torch.where(reach == 1, acc.roll(-k, 2), 0.0)
+                reach = reach & reach.roll(-k, 2)
+                k *= 2
+            allact = active.amin(2, keepdim=True) == 1  # fully frozen ring
+            heads = torch.where(allact, tau == 0, active.roll(1, 2) == 0)
+            acc = torch.where(allact, xla_sum_last(de)[..., None], acc)
+            log_u = torch.log((draw(d + 1).to(torch.float32) + 0.5) * _LOG_SCALE)
+            prop = (heads & (log_u < -acc)).to(torch.int32)
+            cb, k = active.roll(1, 2), 1  # cb[tau]: tau joined to tau - 1
+            for _ in range(ksteps):  # propagate the head decisions forward
+                prop = prop | (prop.roll(k, 2) & cb)
+                cb = cb & cb.roll(k, 2)
+                k *= 2
+            x = torch.where((prop == 1) & cmask[color], -x, x)
+            d += 2
+        sb = sum(x * nb for nb in partners(x))
+        stats += torch.stack([sb.sum((1, 2)), x.sum((1, 2)), (x == x.roll(-1, 2)).sum((1, 2))], 1)
+        if nsamples and (t + 1) % freq == 0 and (t + 1) // freq <= nsamples:
+            samples[:, (t + 1) // freq - 1] = x[:, :, 0].to(torch.int8)
+    return x.to(torch.int8), stats, samples
+
+
+def _launch(x, seeds_i32, tables: WlTables, acc, samples, T, freq, nsamples):
+    """Launch the kernel on the state ``x[R, nvars, L]``, in place."""
+    from .. import _kernels
+
+    R, nvars, L = x.shape
+    lib = _kernels.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.wl_sweeps(
+            x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
+            int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
+            R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wl kernel launch failed: {_kernels.error_string(err)} ({err})")
+    wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
+
+
+def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int,
+              freq: int = 0, nsamples: int = 0):
+    """Run ``T`` full sweeps on ``s[R, nvars, L]`` int8 (not modified).
+
+    Returns ``(state, stats [R, 3] int64, samples [R, nsamples, nvars] int8)``:
+    ``stats`` sums, over the T sweeps and the lattice, the bond products of
+    the outgoing bonds, the spins and the aligned time bonds after each sweep;
+    ``samples[:, k]`` is slice 0 after sweep ``(k + 1) * freq``. ``seeds_i32[R]``
+    keys each replica's draws (counter ``8t + d`` for sweep t of this call).
+
+    A CUDA tensor launches ``csrc/wl.cu`` (``LAUNCHES_PER_SWEEP`` launches per
+    sweep, counted in ``wl_sweeps.launches``) or raises; a CPU tensor runs the
+    plain version."""
+    T, freq, nsamples = int(T), int(freq), int(nsamples)
+    R = _check(s, seeds_i32, tables, T, freq, nsamples)
+    if s.device.type == "cpu":
+        return wl_sweeps_reference(s, seeds_i32, tables, T, freq, nsamples)
+    if s.device.type != "cuda":
+        raise ValueError(f"wl_sweeps runs on cuda or cpu tensors, got {s.device}")
+    _, nvars, _ = s.shape
+    x = s.clone()
+    acc = torch.zeros((R, 3, nvars), dtype=torch.int64, device=s.device)
+    samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
+    if R and T:
+        _launch(x, seeds_i32, tables, acc, samples, T, freq, nsamples)
+    return x, acc.sum(2), samples
+
+
+def _seeds_tensor(seeds_u32, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(seeds_u32).astype(np.uint32).view(np.int32))).to(device)
+
+
+def _estimator(sums: np.ndarray, t: float, nvars: int, L: int, j: float, h: float, gamma: float, a: float):
+    """``(ediag, eoff, ntb, al)`` from the exact sums ``[R, 3]`` (f64), written
+    as the JAX kernel's host code writes it so that energies agree bit for bit."""
+    sb, sh, al = sums[:, 0], sums[:, 1], sums[:, 2]
+    ntb = nvars * L * t  # time bonds summed over all sweeps
+    tanh_a, coth_a = math.tanh(a), 1.0 / math.tanh(a)
+    ediag = (float(j) * sb + float(h) * sh) / L
+    eoff = -float(gamma) * (tanh_a * al + coth_a * (ntb - al)) / L
+    return ediag, eoff, ntb, al
+
+
+def run_wl_sweeps(s, seeds_u32, nsweeps: int, dense, beta: float, gamma: float, h: float, ltau: int):
+    """``nsweeps`` sweeps on ``s[R, nvars, L]``, in the dispatch chunks of
+    ``chunk_plan``. Returns ``(s, esum [R] f64, stats)``: ``esum`` is the total
+    energy estimator summed over the sweeps and ``stats`` holds the per-sweep
+    means ``diag_mean`` (diagonal energy) and ``kinks_mean`` (kink count), as
+    ``run_wl_sweeps_pallas``."""
+    R, nvars, L = s.shape
+    _, a, _ = coupling_params(beta, gamma, ltau)
+    tables = make_tables(dense, nvars, beta, gamma, h, ltau, s.device)
+    total = int(nsweeps)
+    sums = torch.zeros((R, 3), dtype=torch.int64, device=s.device)
+    for index, step in chunk_plan(total, nvars, L):
+        s, st, _ = wl_sweeps(s, _seeds_tensor(chunk_seeds(seeds_u32, index), s.device), tables, step)
+        sums += st
+    t = float(total)
+    ediag, eoff, ntb, al = _estimator(sums.cpu().numpy().astype(np.float64), t, nvars, L,
+                                      dense[2], h, gamma, a)
+    stats = dict(diag_mean=ediag / max(t, 1.0), kinks_mean=(ntb - al) / max(t, 1.0))
+    return s, ediag + eoff, stats
+
+
+def run_wl_sample(s, seeds_u32, freq: int, nsamples: int, rem: int, dense, beta: float,
+                  gamma: float, h: float, ltau: int):
+    """``nsamples`` blocks of ``freq`` sweeps, slice 0 recorded after each,
+    then ``rem`` sweeps, in one dispatch. Returns ``(s, esum [R] f64,
+    samples [R, nsamples, nvars] int8)``, as ``run_wl_sample_pallas``."""
+    R, nvars, L = s.shape
+    _, a, _ = coupling_params(beta, gamma, ltau)
+    tables = make_tables(dense, nvars, beta, gamma, h, ltau, s.device)
+    total = int(freq) * int(nsamples) + int(rem)
+    s, sums, samples = wl_sweeps(s, _seeds_tensor(seeds_u32, s.device), tables, total, freq, nsamples)
+    ediag, eoff, _, _ = _estimator(sums.cpu().numpy().astype(np.float64), float(total), nvars, L,
+                                   dense[2], h, gamma, a)
+    return s, ediag + eoff, samples
+
+
+wl_sweeps.launches = 0

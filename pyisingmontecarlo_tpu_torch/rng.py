@@ -1,10 +1,21 @@
-"""Master seed stream and per-replica kernel seeds.
+"""Master seed stream, threefry keys on the host, and per-replica kernel seeds.
 
 ``MasterRng`` is the JAX package's (numpy PCG64, one u64 per experiment), so
-the same ``seed_gen`` gives the same u64 seeds in both packages. Where the JAX
-package turns each u64 into a threefry key, the port needs only the 32-bit
-seed that the square-torus kernel is keyed by (``replica_seeds_i32``); all
-further randomness is the counter hash of ``ops/lanerng.py``.
+the same ``seed_gen`` gives the same u64 seeds in both packages. The JAX
+package turns each u64 into a threefry2x32 key; the port keeps the key's two
+32-bit words as numpy ``[R, 2]`` uint32 key data and reproduces, bit for bit,
+the three threefry operations its paths use: ``fold_in`` (continuing a
+replica's stream from one call to the next), ``bernoulli(key, 0.5, (n,))``
+(random initial states) and the 32-bit kernel seed of each key. These are
+``[R]``-sized host operations done once per call. All further randomness is
+the counter hash of ``ops/lanerng.py``.
+
+Threefry2x32 is the 20-round Threefish-derived block function with the key
+schedule ``(k0, k1, k0 ^ k1 ^ 0x1BD11BDA)``. Under jax's partitionable mode
+(the default of the JAX version the package is held against), the i-th 32-bit
+word of ``random_bits(key, (n,))`` is ``x0 ^ x1`` of the block function at
+counter ``(i >> 32, i & 0xFFFFFFFF)``, and ``fold_in(key, d)`` is the block
+function of ``key`` at counter ``(0, d)``.
 """
 
 from __future__ import annotations
@@ -13,7 +24,18 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["MasterRng", "replica_seeds_i32"]
+__all__ = [
+    "MasterRng",
+    "key_data_from_seeds",
+    "threefry2x32",
+    "fold_all",
+    "random_bits",
+    "random_states",
+    "seeds_from_key_data",
+    "replica_seeds_i32",
+]
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 class MasterRng:
@@ -45,13 +67,72 @@ class MasterRng:
         return other
 
 
-def replica_seeds_i32(seeds_u64) -> np.ndarray:
-    """uint64[n] experiment seeds -> int32[n] kernel seeds.
-
-    ``hi ^ 0x9E3779B9 ^ (lo << 1)`` on the two 32-bit halves: the numpy form
-    of the JAX package's ``_pallas_seeds(keys_from_seeds(seeds))``, bit for
-    bit, with no threefry involved."""
+def key_data_from_seeds(seeds_u64) -> np.ndarray:
+    """uint64[n] experiment seeds -> ``[n, 2]`` uint32 threefry key data
+    ``[hi, lo]``: the words of the JAX package's ``keys_from_seeds``."""
     seeds = np.asarray(seeds_u64, dtype=np.uint64)
     hi = (seeds >> np.uint64(32)).astype(np.uint32)
     lo = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    return (hi ^ np.uint32(0x9E3779B9) ^ (lo << np.uint32(1))).view(np.int32)
+    return np.stack([hi, lo], axis=-1)
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The threefry2x32 block function on broadcastable uint32 arrays: key
+    ``(k0, k1)``, counter ``(x0, x1)``; returns the two output words."""
+    k0, k1, x0, x1 = (np.asarray(v, dtype=np.uint32) for v in (k0, k1, x0, x1))
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0 = x0 + ks[0]
+        x1 = x1 + ks[1]
+        for n in range(5):
+            for r in _ROTATIONS[n % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            x0 = x0 + ks[(n + 1) % 3]
+            x1 = x1 + ks[(n + 2) % 3] + np.uint32(n + 1)
+    return x0, x1
+
+
+def fold_all(key_data: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for every key of ``[R, 2]`` key data."""
+    kd = np.asarray(key_data, dtype=np.uint32)
+    d = np.uint32(int(data) & 0xFFFFFFFF)
+    y0, y1 = threefry2x32(kd[:, 0], kd[:, 1], np.uint32(0), d)
+    return np.stack([y0, y1], axis=-1)
+
+
+def random_bits(key_data: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.bits(key, (n,))`` (32-bit words) for every key -> ``[R, n]`` uint32."""
+    kd = np.asarray(key_data, dtype=np.uint32)
+    idx = np.arange(int(n), dtype=np.uint64)
+    hi = (idx >> np.uint64(32)).astype(np.uint32)[None, :]
+    lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)[None, :]
+    y0, y1 = threefry2x32(kd[:, :1], kd[:, 1:], hi, lo)
+    return y0 ^ y1
+
+
+def random_states(key_data: np.ndarray, nvars: int) -> np.ndarray:
+    """Random +-1 states ``[R, nvars]`` int8, as the JAX package's
+    ``classical.random_states``: +1 where ``bernoulli(key, 0.5, (nvars,))``.
+
+    jax's uniform keeps the top 23 bits as the mantissa of a float in [1, 2)
+    and subtracts 1, so ``u < 0.5`` is exactly "the top bit is 0"."""
+    bits = random_bits(key_data, nvars)
+    return np.where(bits < np.uint32(1 << 31), 1, -1).astype(np.int8)
+
+
+def seeds_from_key_data(key_data: np.ndarray) -> np.ndarray:
+    """``[R, 2]`` key data -> int32[R] kernel seeds ``k0 ^ 0x9E3779B9 ^ (k1 << 1)``:
+    the numpy form of the JAX package's ``_pallas_seeds``, bit for bit."""
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    return (kd[:, 0] ^ np.uint32(0x9E3779B9) ^ (kd[:, 1] << np.uint32(1))).view(np.int32)
+
+
+def replica_seeds_i32(seeds_u64) -> np.ndarray:
+    """uint64[n] experiment seeds -> int32[n] kernel seeds: the JAX package's
+    ``_pallas_seeds(keys_from_seeds(seeds))``, bit for bit."""
+    return seeds_from_key_data(key_data_from_seeds(seeds_u64))

@@ -39,6 +39,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import pyisingmontecarlo_tpu_torch, pyisingmontecarlo_tpu_torch.interop\n"
         "import pyisingmontecarlo_tpu_torch._kernels, pyisingmontecarlo_tpu_torch.ops.lattice2d\n"
+        "import pyisingmontecarlo_tpu_torch.ops.wl, pyisingmontecarlo_tpu_torch.engines.worldline\n"
+        "import pyisingmontecarlo_tpu_torch.engines.observables, pyisingmontecarlo_tpu_torch.rng\n"
+        "import pyisingmontecarlo_tpu_torch.graph\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pyisingmontecarlo_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -148,8 +151,9 @@ def test_unported_branches_raise():
     chain = tpmc.Lattice([((0, 1), 1.0), ((1, 2), 1.0)], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         chain.run_monte_carlo_annealing([(0, 0.1)], 2, 2)
+    chain.set_transverse_field(1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.run_quantum_monte_carlo(1.0, 2, 2)
+        chain.run_quantum_monte_carlo(1.0, 2, 2)
     lat = port.clone()
     lat.set_transverse_field(1.0)
     with pytest.raises(ValueError, match="transverse"):
