@@ -25,7 +25,18 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 10. physics-wl    <E> of a 6-ring against dense diagonalization, and a bond
                   autocorrelation on a 32^2 torus;
 11. timing-wl     worldline kernel and plain version at both main shapes, and
-                  each launch's device time (torch.profiler).
+                  each launch's device time (torch.profiler);
+12. compare-ladder    the tempering ladder kernel vs its plain version, bit
+                  for bit (ring with field and per-replica couplings, 12^2 +-J
+                  torus, frozen lines, L_tau=1200, the 64 x 144 x 60 bench shape);
+13. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
+                  2000, on the ladder of benches/bench_tempering.py (12^2 +-J
+                  spin glass, 64 replicas, L_tau = 60; 6 launches per sweep),
+                  with sweeps/s and swap attempts/s as that bench takes them;
+14. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
+15. timing-ladder     ladder kernel and plain version at the bench shape, each
+                  launch's device time and the idle share over whole tempering
+                  steps (torch.profiler), and the kernel on a 64^2 +-J torus.
 
 Then one JSON line with the kernels, and last ``{"ok": true, "device": ...}``.
 Needs torch with CUDA, nvcc and numpy; imports no jax.
@@ -60,9 +71,24 @@ CHAIN = (("ring", 256, -1.0), 256, 64)
 # which depend on the data, are not counted, so the bound is a lower one.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+F32_OPS_PER_S = 67e12  # outside the tensor cores (the H100 SXM data sheet)
 HASH_OPS = 22
 SQ2D_OPS_PER_SITE = HASH_OPS + 8
 WL_OPS_PER_SPIN = 2 * HASH_OPS + 18
+# A ladder spin per sweep (csrc/ladder.cu): two draws (site phase, time bond)
+# and about 10 more integer operations (indices, alignment, bits); in f32 the
+# site phase's field, dE, uniform and logit (about 20 operations plus two
+# logf) and the cluster phase's uniform, bond test, field, slice dE and run
+# sum (about 17). A logf counts 10 f32 operations (range reduction and
+# polynomial). Cluster-head draws and logs depend on the data and are not
+# counted, so the bound is a lower one.
+LOG_OPS = 10
+LADDER_INT_OPS_PER_SPIN = 2 * HASH_OPS + 10
+LADDER_F32_OPS_PER_SPIN = 37 + 2 * LOG_OPS
+# the tempering ladder of benches/bench_tempering.py (the BASELINE.json
+# "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
+# geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
+PT_SIDE, PT_R, PT_LTAU = 12, 64, 60
 
 
 def check(cond, msg):
@@ -80,23 +106,26 @@ def onsager_u(beta):
     return -1.0 / np.tanh(2 * beta) * (1.0 + (2.0 / np.pi) * (2.0 * np.tanh(2 * beta) ** 2 - 1.0) * K)
 
 
-def bound(nbytes, ops):
-    """(least ms, what sets it) for ``nbytes`` moved and ``ops`` integer operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+def bound(nbytes, ops, f32_ops=0):
+    """(least ms, what sets it) for ``nbytes`` moved, ``ops`` integer and
+    ``f32_ops`` f32 operations: the larger of the three times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def reset_counts():
-    from pyisingmontecarlo_tpu_torch.ops import sq2d, wl
+    from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
     sq2d.sweeps_2d.launches = 0
     wl.wl_sweeps.launches = 0
+    ladder.ladder_sweeps.launches = 0
 
 
 def read_counts():
-    from pyisingmontecarlo_tpu_torch.ops import sq2d, wl
+    from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
-    return {"sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches}
+    return {"sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches, "ladder": ladder.ladder_sweeps.launches}
 
 
 def phase_gpu():
@@ -185,7 +214,8 @@ def phase_main(dev):
     dt = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["sq2d"]
-    check(launches == 2 * T and counts["wl"] == 0, f"launch counts {counts}, want sq2d {2 * T}")
+    check(launches == 2 * T and counts["wl"] == 0 and counts["ladder"] == 0,
+          f"launch counts {counts}, want sq2d {2 * T}")
     check(es.shape == (BENCH_R,) and es.dtype == np.float64, f"energies {es.shape} {es.dtype}")
     check(st.shape == (BENCH_R, BENCH_L * BENCH_L) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
     check(np.isfinite(es).all(), "non-finite energies")
@@ -328,7 +358,7 @@ def phase_main_quantum(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    check(counts == {"sq2d": 0, "wl": wl.LAUNCHES_PER_SWEEP * T},
+    check(counts == {"sq2d": 0, "wl": wl.LAUNCHES_PER_SWEEP * T, "ladder": 0},
           f"launch counts {counts}, want wl {wl.LAUNCHES_PER_SWEEP * T}")
     check(es.shape == (R,) and es.dtype == np.float64, f"energies {es.shape} {es.dtype}")
     check(st.shape == (R, nvars) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
@@ -381,7 +411,7 @@ def phase_main_chain(dev):
     dt = time.perf_counter() - t0
     counts = read_counts()
     want = wl.LAUNCHES_PER_SWEEP * (wait + T)
-    check(counts == {"sq2d": 0, "wl": want}, f"launch counts {counts}, want wl {want}")
+    check(counts == {"sq2d": 0, "wl": want, "ladder": 0}, f"launch counts {counts}, want wl {want}")
     check(es.shape == (R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape} {es.dtype}")
     check(ss.shape == (R, T // freq, n) and ss.dtype == np.bool_, f"samples {ss.shape} {ss.dtype}")
     e, se = es.mean() / n, es.std(ddof=1) / np.sqrt(R) / n
@@ -433,20 +463,22 @@ def phase_physics_wl(dev):
           f"rho(10)={rho[:, 10].mean():.4f}, {dt:.3f} s host wall", flush=True)
 
 
-def _device_times(prof):
-    """(mean us per launch by kernel, busy us, span us) of the CUDA kernels a
-    torch.profiler run recorded; None when it recorded no device time."""
+def _device_times(prof, names, everything=False):
+    """({kernel: [us of each launch]}, busy us, span us) of the device
+    activity a torch.profiler run recorded: the kernels whose names contain
+    one of ``names``, or with ``everything`` all of it (the rest as "other");
+    None when it recorded no device time."""
     evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name and "wl_" in e.name]
+           and e.name and (everything or any(n in e.name for n in names))]
     if not evs:
         return None
     per = {}
     for e in evs:
-        name = next(k for k in ("wl_site", "wl_cluster", "wl_accumulate", e.name) if k in e.name)
+        name = next((n for n in names if n in e.name), "other")
         per.setdefault(name, []).append(e.time_range.elapsed_us())
     busy = sum(sum(v) for v in per.values())
     span = max(e.time_range.end for e in evs) - min(e.time_range.start for e in evs)
-    return {k: float(np.mean(v)) for k, v in per.items()}, busy, span
+    return per, busy, span
 
 
 def phase_timing_wl(dev, smi):
@@ -474,18 +506,216 @@ def phase_timing_wl(dev, smi):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             wl.wl_sweeps(s, seeds, tables, 20, freq, 20 // freq if freq else 0)
             torch.cuda.synchronize()
-        dev_t = _device_times(prof)
+        dev_t = _device_times(prof, ("wl_site", "wl_cluster", "wl_accumulate"))
         if dev_t is None:
             per_launch = "per-launch device times: not measured (the profiler recorded no device time)"
         else:
             per, busy, span = dev_t
-            per_launch = ("per launch " + ", ".join(f"{k} {v:.3f} us" for k, v in sorted(per.items()))
+            per_launch = ("per launch " + ", ".join(f"{k} {np.mean(v):.3f} us" for k, v in sorted(per.items()))
                           + f"; device busy {busy:.1f} of {span:.1f} us over 20 sweeps, idle {100 * (1 - busy / span):.2f}%")
         print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={WL_LTAU}{' sampling freq=' + str(freq) if freq else ''}, "
               f"on {smi}: kernel {ms['kernel']:.5f} ms/sweep = {spins / (ms['kernel'] * 1e6):.3f} spin updates/ns "
               f"(runs {times['kernel']}); plain torch {ms['plain']:.5f} ms/sweep (runs {times['plain']}); "
               f"bound {b_ms:.5f} ms/sweep ({b_by}); {per_launch}", flush=True)
     return out
+
+
+def pt_edges(side):
+    """benches/bench_tempering.py's +-J couplings on the side x side torus."""
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+
+    rng = np.random.default_rng(0)
+    return [((a, b), float(rng.choice([-1.0, 1.0]))) for (a, b), _ in grid_2d_edges(side, side)]
+
+
+def pt_ladder(dev, side=PT_SIDE):
+    """benches/bench_tempering.py's ladder, through the user's entry point."""
+    from pyisingmontecarlo_tpu_torch import LatticeTempering
+
+    lt = LatticeTempering(pt_edges(side), seed=0, device=dev)
+    for b in np.geomspace(0.2, 3.0, PT_R):
+        lt.add_graph(1.0, 0.0, float(b))
+    return lt
+
+
+def _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, seed, dev):
+    """Random worldlines constant along tau, per-sweep seeds [T, R] from a
+    split key chain, and the planes."""
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+    from pyisingmontecarlo_tpu_torch.ops import ladder
+    from pyisingmontecarlo_tpu_torch.rng import key_data_from_seeds, random_states
+    from pyisingmontecarlo_tpu_torch.tempering import key_tables
+
+    nvars = size if kind == "ring" else size * size
+    if kind == "ring":
+        ea, eb = np.arange(size), (np.arange(size) + 1) % size
+    else:
+        g = grid_2d_edges(size, size)
+        ea, eb = np.array([a for (a, _), _ in g]), np.array([b for (_, b), _ in g])
+    R = len(betas)
+    kd = key_data_from_seeds(np.random.default_rng(seed).integers(0, 2**64, R, dtype=np.uint64))
+    s = torch.from_numpy(random_states(kd, nvars)).to(dev)[:, :, None].expand(R, nvars, L).contiguous()
+    seeds = torch.from_numpy(key_tables(kd, kd[0], T, 2**31 - 1)[0]).to(dev)
+    planes = ladder.build_planes(kind, size, nvars, ea, eb, jv, betas, gammas, hs, L, dev)
+    return s, seeds, planes
+
+
+def phase_compare_ladder(dev):
+    """Ladder kernel vs plain version on the card; returns the largest |difference|."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder
+
+    rng = np.random.default_rng(11)
+    dyadic = np.where(rng.random((4, 8)) < 0.25, 0.0, rng.choice([-1.0, -0.5, 0.5, 1.0], (4, 8)))
+    glass = np.array([j for _, j in pt_edges(PT_SIDE)])
+    bench = np.geomspace(0.2, 3.0, PT_R)
+    cases = [  # name, kind, size, J, betas, gammas, hs, L_tau, T
+        ("ring 8 R=4 h, per-replica couplings (J=0, +-0.5, +-1)", "ring", 8, dyadic, [0.8, 1.0, 1.2, 1.4],
+         [1.0, 0.9, 1.0, 1.1], [0.3, 0.2, 0.0, -0.3], 40, 6),
+        ("torus 12^2 +-J R=8 h=0.3", "torus", 12, glass, np.geomspace(0.2, 3.0, 8), [1.0] * 8, [0.3] * 8, 60, 4),
+        ("frozen lines: ring 64 R=4 Gamma=0.05 h=0.2", "ring", 64, np.full(64, 0.7), [2.0] * 4, [0.05] * 4,
+         [0.2] * 4, 40, 4),
+        ("long L_tau=1200 (two-level frozen sums) ring 32 R=2", "ring", 32, np.full(32, -1.0), [60.0, 60.0],
+         [0.05, 0.05], [0.1, -0.1], 1200, 3),
+        (f"bench shape torus 12^2 +-J R={PT_R} L_tau={PT_LTAU}", "torus", 12, glass, bench, [1.0] * PT_R,
+         [0.0] * PT_R, PT_LTAU, 4),
+    ]
+    worst = 0
+    for k, (name, kind, size, jv, betas, gammas, hs, L, T) in enumerate(cases):
+        s, seeds, planes = _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, 200 + k, dev)
+        got = ladder.ladder_sweeps(s, seeds, planes, T)
+        want = ladder.ladder_sweeps_reference(s, seeds, planes, T)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max().item())
+        check(torch.equal(got, want), f"{name}: kernel != plain (max |diff| {err}, "
+                                      f"{int((got != want).sum())} of {got.numel()} spins)")
+        moved = float((got != s).float().mean())
+        check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
+        frozen = float((got == got[:, :, :1]).all(2).float().mean())
+        worst = max(worst, err)
+        print(f"compare-ladder: {name}, T={T}: bit-identical; {moved:.3f} of spins moved, "
+              f"{frozen:.3f} of lines constant in tau", flush=True)
+    return worst
+
+
+def phase_main_tempering(dev):
+    """The tempering path through the user's entry point at the bench ladder;
+    returns the launch count."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder
+    from pyisingmontecarlo_tpu_torch.tempering import key_tables
+
+    lt = pt_ladder(dev)
+    t0 = time.perf_counter()
+    m = lt._materialize()
+    setup = time.perf_counter() - t0
+    check(m["L"] == PT_LTAU and m["planes"].kind == "torus", f"L_tau {m['L']}, {m['planes'].kind}")
+    t0 = time.perf_counter()
+    key_tables(m["key_data"], lt._swapkey, 2000, 1)
+    tables = time.perf_counter() - t0
+    reset_counts()
+    wall, out = {}, {}
+    for T in (500, 2000):
+        t0 = time.perf_counter()
+        out[T] = lt.qmc_timesteps_sample(T, replica_swap_freq=1)
+        torch.cuda.synchronize()
+        wall[T] = [time.perf_counter() - t0]
+    counts = read_counts()
+    want = ladder.LAUNCHES_PER_SWEEP * 2500
+    check(counts == {"sq2d": 0, "wl": 0, "ladder": want}, f"launch counts {counts}, want ladder {want}")
+    swaps = lt.get_total_swaps()
+    for T, (states, es) in out.items():
+        check(states.shape == (PT_R, T, PT_SIDE**2) and states.dtype == np.bool_, f"states {states.shape}")
+        check(es.shape == (PT_R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape}")
+    es = out[2000][1]
+    check(swaps > 0, "no swap accepted")
+    check(es[-8:].mean() < es[:8].mean(), f"<E> of the 8 highest betas {es[-8:].mean()} is not below "
+                                          f"that of the 8 lowest {es[:8].mean()}")
+    for T in (500, 2000):  # again, for the bench's min-of-two slope
+        t0 = time.perf_counter()
+        lt.qmc_timesteps_sample(T, replica_swap_freq=1)
+        torch.cuda.synchronize()
+        wall[T].append(time.perf_counter() - t0)
+    dt = min(wall[2000]) - min(wall[500])
+    sweeps, attempts = 1500, 1500 * (PT_R - 1) / 2
+    print(f"main-tempering: LatticeTempering.qmc_timesteps_sample(500, then 2000, replica_swap_freq=1) on the "
+          f"12^2 +-J glass, {PT_R} replicas, L_tau={PT_LTAU}: {counts['ladder']} launches, {swaps} accepted swaps; "
+          f"host wall {wall[500][0]:.3f} s + {wall[2000][0]:.3f} s (materialize {setup:.3f} s; the seed and "
+          f"uniform tables of 2000 sweeps {tables:.3f} s); slope {sweeps / dt:.2f} sweeps/s = "
+          f"{attempts / dt:.1f} swap attempts/s (runs {wall}); <E> beta=0.2..0.26 {es[:8].mean():.4f}, "
+          f"beta=2.3..3.0 {es[-8:].mean():.4f}", flush=True)
+    return counts["ladder"], sweeps / dt, attempts / dt
+
+
+def phase_physics_tempering(dev):
+    from pyisingmontecarlo_tpu_torch import LatticeTempering
+
+    ring4 = [((i, (i + 1) % 4), -1.0) for i in range(4)]
+    betas = [1.0, 1.5, 2.0, 2.5]
+    lt = LatticeTempering(ring4, seed=2, device=dev)
+    for _ in range(6):
+        for b in betas:
+            lt.add_graph(1.0, 0.0, b)
+    lt.qmc_timesteps(150)
+    _, es = lt.qmc_timesteps_sample(250, replica_swap_freq=5)
+    es = es.reshape(6, len(betas))
+    out = []
+    for k, b in enumerate(betas):
+        exact = dense_tfim_energy(ring4, 0.0, 1.0, b, 4)
+        m, se = es[:, k].mean(), es[:, k].std(ddof=1) / np.sqrt(6)
+        check(abs(m - exact) < 5 * se + 0.06, f"4-ring ladder beta={b}: <E>={m} vs dense {exact} (se {se})")
+        out.append(f"beta={b} <E>={m:.4f} (dense {exact:.4f}, se {se:.4f})")
+    check(lt.get_total_swaps() > 0, "no swap accepted")
+    print(f"physics-tempering: 4-ring ladder, 24 replicas, {lt.get_total_swaps()} swaps: " + "; ".join(out),
+          flush=True)
+
+
+def phase_timing_ladder(dev, smi):
+    """Kernel and plain version at the bench shape (plain, kernel, kernel,
+    plain, CUDA events), the device times of whole tempering steps
+    (torch.profiler), and the kernel on a 64^2 +-J torus. Returns (kernel
+    ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder
+    from pyisingmontecarlo_tpu_torch.tempering import key_tables
+
+    T, T_plain = 200, 3
+    lt = pt_ladder(dev)
+    m = lt._materialize()
+    s, planes = m["s"], m["planes"]
+    seeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
+    for fn in (ladder.ladder_sweeps, ladder.ladder_sweeps_reference):  # warm-up
+        fn(s, seeds[:2], planes, 2)
+    k, p = in_turns(lambda: ladder.ladder_sweeps(s, seeds, planes, T),
+                    lambda: ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain), T, T_plain)
+    ms, plain_ms = float(np.mean(k)), float(np.mean(p))
+    R, nvars = PT_R, PT_SIDE**2
+    spins = R * nvars * PT_LTAU
+    # the main path calls the kernel once per sweep: state in and out, seeds and parameters in
+    nbytes = 2 * spins + 4 * R + 4 * R * 2 * nvars + 16 * R
+    b_ms, b_by = bound(nbytes, LADDER_INT_OPS_PER_SPIN * spins, LADDER_F32_OPS_PER_SPIN * spins)
+    lt.qmc_timesteps_sample(4, replica_swap_freq=1)  # warm-up
+    steps = 20
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lt.qmc_timesteps_sample(steps, replica_swap_freq=1)
+        torch.cuda.synchronize()
+    dev_t = _device_times(prof, ("ladder_site", "ladder_cluster"), everything=True)
+    if dev_t is None:
+        step = "device times of a tempering step: not measured (the profiler recorded no device time)"
+    else:
+        per, busy, span = dev_t
+        step = (f"over {steps} tempering steps (sweep, features, swap): "
+                + ", ".join(f"{n} {np.mean(v):.3f} us x {len(v)} = {np.sum(v):.1f} us"
+                            for n, v in sorted(per.items()))
+                + f"; device busy {busy:.1f} of {span:.1f} us, idle {100 * (1 - busy / span):.2f}%")
+    big = pt_ladder(dev, side=64)
+    mb = big._materialize()
+    seeds_b = torch.from_numpy(key_tables(mb["key_data"], big._swapkey, 20, 2**31 - 1)[0]).to(dev)
+    ladder.ladder_sweeps(mb["s"], seeds_b[:2], mb["planes"], 2)
+    kb, _ = in_turns(lambda: ladder.ladder_sweeps(mb["s"], seeds_b, mb["planes"], 20), lambda: None, 20, 1)
+    spins_b = R * 64 * 64 * PT_LTAU
+    print(f"timing-ladder: bench shape {R} x {nvars} x {PT_LTAU} ({spins} spins), on {smi}: kernel {ms:.5f} ms/sweep "
+          f"= {spins / (ms * 1e6):.3f} spin updates/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep (runs {p}); "
+          f"bound {b_ms:.5f} ms/sweep ({b_by}); {step}; 64^2 +-J torus, same ladder ({spins_b} spins): kernel "
+          f"{np.mean(kb):.5f} ms/sweep = {spins_b / (np.mean(kb) * 1e6):.3f} spin updates/ns (runs {kb})", flush=True)
+    return ms, plain_ms, b_ms, b_by
 
 
 def main():
@@ -502,6 +732,10 @@ def main():
     chain_launches = phase_main_chain(dev)
     phase_physics_wl(dev)
     wl_t = phase_timing_wl(dev, smi)
+    ladder_err = phase_compare_ladder(dev)
+    ladder_launches, _, _ = phase_main_tempering(dev)
+    phase_physics_tempering(dev)
+    ladder_t = phase_timing_ladder(dev, smi)
     sites = BENCH_R * BENCH_L**2
     sq_bound, sq_by = bound(2 * sites / 1024, SQ2D_OPS_PER_SITE * sites)  # per sweep of a 1024-sweep call
     wl_src, wl_tpu = "pyisingmontecarlo_tpu_torch/csrc/wl.cu", "pyisingmontecarlo_tpu/ops/wl_pallas.py"
@@ -515,6 +749,10 @@ def main():
         dict(name="wl_site+wl_cluster+wl_accumulate (sampling mode)", route="cuda", source=wl_src,
              replaces=f"{wl_tpu}:346", launches=chain_launches, max_abs_err=wl_err, ms=wl_t["chain"][0],
              plain_ms=wl_t["chain"][1], bound_ms=wl_t["chain"][2], bound_by=wl_t["chain"][3], library_ms=None),
+        dict(name="ladder_site+ladder_cluster", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/ladder.cu",
+             replaces="pyisingmontecarlo_tpu/ops/wl_ladder_pallas.py:157", launches=ladder_launches,
+             max_abs_err=ladder_err, ms=ladder_t[0], plain_ms=ladder_t[1], bound_ms=ladder_t[2],
+             bound_by=ladder_t[3], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, at first use, into ``_build/`` under a name keyed by
-the hash of the sources; ``ctypes`` loads it. Each C entry returns
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
+all started together) and links them into one shared library with a plain C
+interface, at first use, into ``_build/`` under a name keyed by the hash of
+the sources; ``ctypes`` loads it. Each C entry returns
 ``cudaGetLastError()`` after its launches, and the Python wrapper raises if it
 is not 0. Nothing here runs when the module is imported.
 """
@@ -22,8 +23,7 @@ __all__ = ["build", "load", "error_string"]
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +31,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sq2d_sweeps": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "wl_sweeps": ([_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "ladder_sweeps": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "pmc_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -66,13 +67,26 @@ def build(verbose: bool = False) -> Path:
     nvcc = _nvcc()
     _BUILD.mkdir(exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp),
-           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, end="")
+    jobs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = tmp.with_suffix(f".{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+    try:
+        for job_cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(job_cmd)}\n{out}")
+            if verbose:
+                print(out, end="")
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    finally:
+        for _, obj, proc in jobs:
+            proc.wait()
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
     return lib
 

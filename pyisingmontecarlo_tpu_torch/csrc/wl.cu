@@ -21,7 +21,7 @@
 //   color, in three passes along the line (frozen bonds, as bits in shared
 //   memory; each cluster's dE and its head's decision; the flips). The
 //   forward segmented sum gives the JAX kernel's pointer-doubling sums bit for
-//   bit by a binary-counter walk (see wl_cluster); the fully frozen ring's
+//   bit by a binary-counter walk (fk_line_update, worldline.cuh); the fully frozen ring's
 //   total is summed in XLA's CPU order (ops/wl.py, xla_sum_last). Additions
 //   and products are __fadd_rn / __fmul_rn, so nothing is contracted, and the
 //   log is logf (no fast math). Shared memory: 2 ceil(L/32) words per line,
@@ -50,42 +50,11 @@
 #include <cuda_runtime.h>
 
 #include "lanerng.cuh"
+#include "worldline.cuh"
 
 namespace {
 
-constexpr int kSiteBlock = 256;
-constexpr int kLineBlock = 64;  // lines (threads) per block of the cluster phase
-constexpr int kMaxL = 4096;
-constexpr int kTreeDepth = 13;  // binary-counter blocks of up to 2^12 = kMaxL slices
 constexpr float kLogScale = 4.656612873077393e-10f;  // 2^-31
-
-struct Geo {
-    int torus;  // 0: ring of nvars sites; 1: size x size torus, i = x * size + y
-    int size;
-    int nvars;
-    int L;
-};
-
-// The k-th site of a color.
-__device__ __forceinline__ int site_of(const Geo& g, int k, int color) {
-    if (!g.torus) return 2 * k + color;
-    const int half = g.size >> 1;
-    const int x = k / half;
-    return x * g.size + 2 * (k - x * half) + ((x + color) & 1);
-}
-
-// The spatial neighbours of site i (the ring's last two are -1).
-struct Nbrs {
-    int j[4];
-};
-
-__device__ __forceinline__ Nbrs neighbours(const Geo& g, int i) {
-    if (!g.torus) return {{i + 1 == g.nvars ? 0 : i + 1, i == 0 ? g.nvars - 1 : i - 1, -1, -1}};
-    const int n = g.size;
-    const int x = i / n, y = i - x * n;
-    return {{(x + 1 == n ? 0 : x + 1) * n + y, (x == 0 ? n - 1 : x - 1) * n + y,
-             x * n + (y + 1 == n ? 0 : y + 1), x * n + (y == 0 ? n - 1 : y - 1)}};
-}
 
 // Spatial neighbour sum at slice t; p is the replica's [nvars, L].
 __device__ __forceinline__ int nbr_sum(const int8_t* p, const Nbrs& nb, int L, int t) {
@@ -120,153 +89,29 @@ __global__ void __launch_bounds__(kSiteBlock) wl_site(
     if ((int)u <= t) lp[tau] = (int8_t)(-sv);
 }
 
-// A fully frozen line's total dE in XLA's CPU order (ops/wl.py,
-// xla_sum_last), fed one slice at a time in order: windows of 32 slices,
-// padded evenly at both ends, each summed from 0, then the window sums by the
-// same rule (L <= 4096 needs at most two levels). The pads add +0, which
-// changes no comparison.
-struct XlaSum {
-    bool small, two;
-    int lo1, lo2, w_cur = 0, v_cur = 0;
-    float p1 = 0.0f, p2 = 0.0f, tot = 0.0f;
-
-    __device__ explicit XlaSum(int L) : small(L <= 32) {
-        const int nw1 = (L + 31) / 32;
-        two = nw1 > 32;
-        lo1 = (32 * nw1 - L) / 2;
-        lo2 = two ? (32 * ((nw1 + 31) / 32) - nw1) / 2 : 0;
-    }
-    __device__ void flush() {  // window w_cur is complete
-        if (two) {
-            const int v = (w_cur + lo2) >> 5;
-            if (v != v_cur) {
-                tot = __fadd_rn(tot, p2);
-                p2 = 0.0f;
-                v_cur = v;
-            }
-            p2 = __fadd_rn(p2, p1);
-        } else {
-            tot = __fadd_rn(tot, p1);
-        }
-        p1 = 0.0f;
-    }
-    __device__ void add(int t, float v) {
-        if (small) {
-            tot = __fadd_rn(tot, v);
-            return;
-        }
-        const int w = (t + lo1) >> 5;
-        if (w != w_cur) {
-            flush();
-            w_cur = w;
-        }
-        p1 = __fadd_rn(p1, v);
-    }
-    __device__ float total() {
-        if (small) return tot;
-        flush();
-        return two ? __fadd_rn(tot, p2) : tot;
-    }
-};
-
-// Per-line bit arrays in shared memory: word w of the block's thread j at
-// [w * kLineBlock + j], so a warp's accesses fall in distinct banks.
-__device__ __forceinline__ bool get_bit(const uint32_t* b, int x) {
-    return (b[(x >> 5) * kLineBlock] >> (x & 31)) & 1u;
-}
-__device__ __forceinline__ void set_bit(uint32_t* b, int x) { b[(x >> 5) * kLineBlock] |= 1u << (x & 31); }
-
-// grid: one thread per time line of the color, kLineBlock lines per block.
-//
-// The JAX kernel runs the forward segmented sum by pointer doubling over the
-// whole ring; at a cluster head h with n slices that gives
-// R(h, n) = F(h, p) + R(h + p, n - p), p the largest power of two below n,
-// F a perfect binary tree of additions. Walking the cluster and merging equal
-// blocks like a binary counter leaves exactly the blocks F of n's binary
-// expansion, which summed right-nested are R: the same f32 additions in the
-// same order, done once per slice instead of log2 L times. Three passes along
-// the line: (1) frozen bonds, as bits; (2) from the first head (tau = 0 on a
-// fully frozen line), each cluster's dE and its head's decision, as bits;
-// (3) the decisions carried to every slice of their cluster, and the flips
-// written. Frozen and other lines take the same passes, so a warp's threads
-// stay together.
+// grid: one thread per time line of the color, kLineBlock lines per block:
+// fk_line_update (worldline.cuh) with the bond frozen when its int31 draw is
+// below pb, the slice's dE from the host table, and the head's flip when
+// log((u + 0.5) / 2^31) < -dE.
 __global__ void __launch_bounds__(kLineBlock) wl_cluster(
     int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const float* __restrict__ cde,
     int32_t pb, Geo g, int n_lines, uint32_t ctr, int color) {
     extern __shared__ uint32_t bits[];
     const int line = blockIdx.x * kLineBlock + threadIdx.x;
     if (line >= n_lines) return;
-    const int L = g.L, lines = g.nvars >> 1, words = (L + 31) >> 5;
+    const int L = g.L, nvars = g.nvars, lines = nvars >> 1;
     const int r = line / lines;
     const int i = site_of(g, line - r * lines, color);
-    int8_t* p = s + (size_t)r * g.nvars * L;
-    int8_t* lp = p + (size_t)i * L;
+    const int8_t* p = s + (size_t)r * nvars * L;
     const uint32_t seed = (uint32_t)__ldg(seeds + r);
     const Nbrs nb = neighbours(g, i);
-    uint32_t* act = bits + threadIdx.x;
-    uint32_t* dec = act + words * kLineBlock;
-    for (int w = 0; w < words; ++w) act[w * kLineBlock] = dec[w * kLineBlock] = 0u;
-
-    // (1) bond (t, t+1) frozen: aligned and its draw below pb; h0 = the
-    // first head (the slice after the first thawed bond)
-    int h0 = -1;
-    const int s0 = lp[0];
-#pragma unroll 4
-    for (int t = 0; t < L; ++t) {
-        const int sv = lp[t], nx = t + 1 == L ? s0 : lp[t + 1];
-        if (sv == nx && (int)lane_draw31(seed, (uint32_t)(t * g.nvars + i), ctr) < pb)
-            set_bit(act, t);
-        else if (h0 < 0)
-            h0 = t + 1 == L ? 0 : t + 1;
-    }
-    const bool frozen = h0 < 0;  // one cluster, headed at tau = 0
-    if (frozen) h0 = 0;
-    // (2) blk[b] holds the tree sum of a block of 2^b slices while bit b of
-    // count is set
-    float blk[kTreeDepth];
-    unsigned count = 0;
-    XlaSum whole(L);
-    for (int j = 0, x = h0, head = h0; j < L; ++j, x = x + 1 == L ? 0 : x + 1) {
-        const int sv = lp[x];
-        float v = __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, x) + 4) >> 1));
-        float acc = 0.0f;
-        bool ends = false;
-        if (frozen) {
-            whole.add(x, v);
-            if (j == L - 1) {
-                acc = whole.total();
-                ends = true;
-            }
-        } else {
-            int b = 0;
-            for (; (count >> b) & 1u; ++b) v = __fadd_rn(blk[b], v);
-            blk[b] = v;
-            ++count;
-            if (!get_bit(act, x)) {  // the cluster ends at x: R, right-nested
-                ends = true;
-                bool first = true;
-                for (b = 0; b < kTreeDepth; ++b)
-                    if ((count >> b) & 1u) {
-                        acc = first ? blk[b] : __fadd_rn(blk[b], acc);
-                        first = false;
-                    }
-            }
-        }
-        if (ends) {
-            if (log_uniform(lane_draw31(seed, (uint32_t)(head * g.nvars + i), ctr + 1)) < -acc)
-                set_bit(dec, head);
-            count = 0;
-            head = x + 1 == L ? 0 : x + 1;
-        }
-    }
-    // (3) a head (after a thawed bond, or tau = 0 of a frozen line) sets the
-    // decision its cluster takes
-    bool flip = false;
-#pragma unroll 4
-    for (int j = 0, x = h0; j < L; ++j, x = x + 1 == L ? 0 : x + 1) {
-        if (j == 0 || !get_bit(act, x == 0 ? L - 1 : x - 1)) flip = get_bit(dec, x);
-        if (flip) lp[x] = (int8_t)(-lp[x]);
-    }
+    fk_line_update(
+        s + ((size_t)r * nvars + i) * L, bits + threadIdx.x, L,
+        [&](int t) { return (int)lane_draw31(seed, (uint32_t)(t * nvars + i), ctr) < pb; },
+        [&](int x, int sv) { return __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, x) + 4) >> 1)); },
+        [&](int head, float de) {
+            return log_uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1)) < -de;
+        });
 }
 
 // grid: one thread per time line (all sites); it walks its line and its bond
@@ -326,7 +171,7 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
     const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
     const unsigned color_grid = (n_color + kLineBlock - 1) / kLineBlock;
     const unsigned all_grid = (n_all + kSiteBlock - 1) / kSiteBlock;
-    const int smem = 2 * ((L + 31) / 32) * kLineBlock * (int)sizeof(uint32_t);  // frozen and decision bits
+    const int smem = cluster_smem_bytes(L);
     cudaError_t e = cudaFuncSetAttribute(wl_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     for (int t = 0; t < T; ++t) {

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,7 +35,8 @@ from ..ops import wl
 from ..rng import fold_all, random_states, seeds_from_key_data
 from .observables import autocorrelation_device
 
-__all__ = ["WorldlineEnsemble", "choose_ltau", "resolve_dtau", "total_energy", "DEFAULT_DTAU"]
+__all__ = ["WorldlineEnsemble", "WlParams", "make_params", "choose_ltau", "resolve_dtau", "total_energy",
+           "DEFAULT_DTAU"]
 
 # Default Trotter step target; the bias in <E> is O((dtau * Gamma)^2 * beta)
 DEFAULT_DTAU = 0.05
@@ -65,6 +66,28 @@ def choose_ltau(beta: float, gamma: float, dtau_target=None) -> int:
     L = int(math.ceil(float(beta) * scale / dtau_target))
     L = max(L, 4)
     return L + (L % 2)
+
+
+class WlParams(NamedTuple):
+    """Per-replica worldline parameters, each ``[R]`` f32."""
+
+    dtau: torch.Tensor  # beta / L
+    ktau: torch.Tensor  # -1/2 log tanh(dtau * gamma)
+    gamma: torch.Tensor
+    h: torch.Tensor
+    beta: torch.Tensor
+
+
+def make_params(betas, gammas, hs, L: int, device="cpu") -> WlParams:
+    """The JAX package's ``make_params``, in f32 as there: ``dtau = beta / L``,
+    ``a = dtau * gamma``, ``ktau = -1/2 log tanh(a)``. (The ladder kernel's own
+    dtau, Ktau and p_bond are f64 math cast once, ``ops/ladder.build_planes``.)"""
+    beta = torch.from_numpy(np.atleast_1d(np.asarray(betas, np.float32))).to(device)
+    gamma = torch.from_numpy(np.asarray(gammas, np.float32)).to(device).expand(beta.shape).contiguous()
+    h = torch.from_numpy(np.asarray(hs, np.float32)).to(device).expand(beta.shape).contiguous()
+    dtau = beta / L
+    ktau = -0.5 * torch.log(torch.tanh(dtau * gamma))
+    return WlParams(dtau=dtau, ktau=ktau, gamma=gamma, h=h, beta=beta)
 
 
 def total_energy(dense, s: torch.Tensor, beta: float, gamma: float, h: float) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Edge lists -> compiled graph arrays, and the uniform ring and torus detectors.
+"""Edge lists -> compiled graph arrays, and the ring and torus detectors.
 
 Counterpart of ``pyisingmontecarlo_tpu/graph.py``, carried over (numpy only)
 rather than imported, because importing any module of the JAX package imports
@@ -20,6 +20,7 @@ __all__ = [
     "grid_2d_edges",
     "detect_square_torus",
     "detect_dense",
+    "detect_topology",
 ]
 
 
@@ -123,3 +124,29 @@ def detect_dense(cg: CompiledGraph):
     want = np.unique(np.minimum(v, w) * n + np.maximum(v, w))
     have = np.unique(a * n + b)
     return ("ring", n, float(j0)) if np.array_equal(have, want) else None
+
+
+def detect_topology(nvars: int, edge_a, edge_b):
+    """``("ring", nvars)`` or ``("torus", side)`` from the edge structure alone,
+    whatever the couplings (the tempering ladder's kernel takes quenched
+    disorder), else None: a ring of n >= 4 sites, n even, or a side x side
+    periodic square lattice, side >= 2 and even (vertex x * side + y). The JAX
+    package's ``wl_ladder_pallas.detect_topology``."""
+    n = int(nvars)
+    a = np.asarray(edge_a, np.int64)
+    b = np.asarray(edge_b, np.int64)
+    have = np.unique(np.minimum(a, b) * n + np.maximum(a, b))
+
+    def same(u, v):
+        return np.array_equal(have, np.unique(np.minimum(u, v) * n + np.maximum(u, v)))
+
+    v = np.arange(n, dtype=np.int64)
+    if n >= 4 and n % 2 == 0 and same(v, (v + 1) % n):
+        return ("ring", n)
+    side = int(round(np.sqrt(n)))
+    if side * side == n and side >= 2 and side % 2 == 0:
+        x, y = v // side, v % side
+        nb = np.concatenate([x * side + (y + 1) % side, ((x + 1) % side) * side + y])
+        if same(np.concatenate([v, v]), nb):
+            return ("torus", side)
+    return None

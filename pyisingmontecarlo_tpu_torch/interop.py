@@ -5,7 +5,8 @@ attribute only (no jax import): its edges, bias, transverse field, initial
 state, flags and dtau, and the state of its master seed stream, so that both
 objects then draw identical u64 seeds. ``worldline_from_arrays`` builds a
 worldline ensemble from a JAX ensemble's state and key data, handed over as
-numpy arrays.
+numpy arrays. ``tempering_from_reference`` does both for a
+``pyisingmontecarlo_tpu.LatticeTempering``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ import torch
 from .engines.worldline import WorldlineEnsemble
 from .graph import compile_graph, grid_2d_edges
 from .lattice import Lattice, resolve_device
+from .tempering import LatticeTempering
 
-__all__ = ["lattice_from_reference", "worldline_from_arrays", "state_to_torch", "state_to_numpy"]
+__all__ = ["lattice_from_reference", "worldline_from_arrays", "tempering_from_reference", "state_to_torch",
+           "state_to_numpy"]
 
 
 def lattice_from_reference(obj, device="cuda") -> Lattice:
@@ -51,6 +54,38 @@ def worldline_from_arrays(s, key_data, beta: float, gamma: float, h: float, ltau
     return WorldlineEnsemble(compile_graph(edges), gamma, h, beta, np.asarray(key_data, np.uint32),
                              s.shape[0], ltau=ltau, states=torch.from_numpy(s),
                              device=resolve_device(device))
+
+
+def tempering_from_reference(obj, device="cuda", state=None) -> LatticeTempering:
+    """A port ``LatticeTempering`` with the ladder and seed stream of ``obj``
+    (its edges, graphs with their seeds, dtau, swap count, pending
+    checkpoint states and master seed stream), so that both then run
+    identically. Once ``obj`` has drawn its swap key (its first run), its
+    device state must come as ``state``: numpy ``s [R, nvars, L]`` (+-1),
+    ``key_data [R, 2]`` and ``swapkey [2]`` (uint32; ``jax.random.key_data``
+    of its keys) and ``phase``, the parity of its next swap step."""
+    lt = LatticeTempering(obj.edges, seed=obj.seed, use_allocator=obj.use_allocator, dtau=obj.dtau,
+                          device=device)
+    lt.rng._gen.bit_generator.state = obj.rng._gen.bit_generator.state
+    lt.graphs = [dict(g) for g in obj.graphs]
+    lt._edge_index = dict(obj._edge_index)
+    lt.total_swaps = int(obj.total_swaps)
+    restored = getattr(obj, "_restored", None)
+    if restored is not None:
+        lt._restored = torch.from_numpy(np.array(restored["states"], dtype=np.int8))
+    if state is None:
+        if obj._swapkey is not None:
+            raise ValueError("the reference has run: pass its state (s, key_data, swapkey, phase)")
+        return lt
+    lt._swapkey = np.asarray(state["swapkey"], np.uint32).reshape(2)
+    m = lt._materialize()
+    s = torch.from_numpy(np.array(state["s"], dtype=np.int8)).to(m["s"].device)
+    if s.shape != m["s"].shape:
+        raise ValueError(f"state s is {tuple(s.shape)}, the ladder is {tuple(m['s'].shape)}")
+    m["s"] = s.contiguous()
+    m["key_data"] = np.asarray(state["key_data"], np.uint32).reshape(-1, 2)
+    m["phase"] = int(state["phase"])
+    return lt
 
 
 def state_to_torch(np_state, device="cpu") -> torch.Tensor:

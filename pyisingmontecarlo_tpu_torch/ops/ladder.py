@@ -1,0 +1,248 @@
+"""Worldline sweeps of a parallel-tempering ladder: the kernel wrapper, its
+plain PyTorch version, and the host-side parameter planes.
+
+Counterpart of ``pyisingmontecarlo_tpu/ops/wl_ladder_pallas.py``. The kernel
+is ``csrc/ladder.cu``; ``ladder_sweeps`` launches it for a CUDA tensor (or
+raises) and runs ``ladder_sweeps_reference`` for a CPU tensor. Spins are
+``s[R, nvars, L]`` int8 in {-1, +1}, as in ``ops/wl.py``; replica r has its
+own couplings and (dtau, Ktau, h, p_bond) (``LadderPlanes``).
+
+One sweep:
+
+1. four site phases, one per (site color, tau parity), draw ``d = 0..3``:
+   Glauber acceptance in logit form, ``log(u) - log(1 - u) < -dE`` with
+   ``dE = (-2 s) * (dt * (F + h) - kt * (s_up + s_dn))`` and F the field
+   ``sum_b J_b s_b`` (ring ``fwd + bwd``; torus ``((y+ + y-) + x+) + x-``);
+2. two Fortuin-Kasteleyn cluster phases, one per color, draws ``4 + 2c``
+   (bond (tau, tau + 1) freezes when aligned and ``u < pb``) and ``5 + 2c``
+   (the head flips its cluster when ``log(u) < -dE``), with the slice dE
+   ``((-2 s) * dt) * (F + h)`` summed as in ``ops/wl.fk_flips``.
+
+The uniform is ``u = min(f32(u31) * 2^-31 + 2^-32, f32(1 - 1.2e-7))``.
+
+Randomness: the draw ``d`` of a sweep at (tau, i) is
+``lane_draw31(seed, pos = tau*nvars + i, ctr = d)``; every sweep has fresh
+per-replica seeds (the caller derives them from each replica's threefry key,
+split once per sweep), so the counter restarts at 0.
+
+Numerics that must match the JAX kernel bit for bit: the per-replica
+dtau, Ktau and p_bond are f64 math cast once to f32 on the host
+(``build_planes``); every f32 operation of a phase keeps the JAX order; the
+logs are f32 ``log``. Any last-ulp difference (``log`` between libraries, or
+an FMA that XLA's CPU code forms) moves a decision only when the two sides of
+a comparison fall within that ulp.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .lanerng import lane_draw31, make_pos_mix
+from .wl import MAX_LTAU, fk_flips, lattice_fns
+
+__all__ = ["LadderPlanes", "build_planes", "gate", "ladder_sweeps", "ladder_sweeps_reference"]
+
+LAUNCHES_PER_SWEEP = 6  # 4 site phases, 2 cluster phases
+_INT_LIMIT = 2**31
+_SCALE = 1.0 / 2147483648.0  # 2^-31
+_HALF_STEP = 0.5 / 2147483648.0  # 2^-32
+_U_MAX = float(np.float32(1.0 - 1.2e-7))  # 1 - 2^-23
+
+
+class LadderPlanes(NamedTuple):
+    """The lattice (``kind`` "ring" or "torus", ``size`` = ring length or
+    torus side, ``nvars``, ``ltau``) and each replica's parameters, on one
+    device: ``j [R, ndir, nvars]`` f32 outgoing couplings (ring ndir = 1:
+    J(i -> i+1); torus ndir = 2: J(i -> y+1), J(i -> x+1)), and ``dt``, ``kt``,
+    ``h``, ``pb`` ``[R]`` f32."""
+
+    kind: str
+    size: int
+    nvars: int
+    ltau: int
+    j: torch.Tensor
+    dt: torch.Tensor
+    kt: torch.Tensor
+    h: torch.Tensor
+    pb: torch.Tensor
+
+
+def build_planes(kind: str, size: int, nvars: int, edge_a, edge_b, edge_j, betas, gammas, hs,
+                 ltau: int, device="cpu") -> LadderPlanes:
+    """The ladder's parameters on ``device``. ``edge_j`` is ``[E]`` (shared) or
+    ``[R, E]`` (per-replica couplings; a replica's missing edge has J = 0).
+    dtau = beta / L, Ktau = -1/2 log tanh(dtau Gamma) and p_bond =
+    1 - exp(-2 Ktau) are f64 math, cast once to f32."""
+    R = len(betas)
+    ndir = 1 if kind == "ring" else 2
+    ej = np.asarray(edge_j, np.float64)
+    ej = np.broadcast_to(ej, (R, len(edge_a))) if ej.ndim == 1 else ej
+    lookup = {}
+    for k, (a, b) in enumerate(zip(np.asarray(edge_a), np.asarray(edge_b))):
+        lookup[(int(a), int(b))] = lookup[(int(b), int(a))] = k
+    jsite = np.zeros((R, ndir, nvars))
+    for i in range(nvars):
+        if kind == "ring":
+            outgoing = ((i + 1) % nvars,)
+        else:
+            x, y = divmod(i, size)
+            outgoing = (x * size + (y + 1) % size, ((x + 1) % size) * size + y)
+        for d, nb in enumerate(outgoing):
+            k = lookup.get((i, nb))
+            if k is not None:
+                jsite[:, d, i] = ej[:, k]
+    dtau = np.asarray(betas, np.float64) / ltau
+    ktau = -0.5 * np.log(np.tanh(dtau * np.asarray(gammas, np.float64)))
+    pb = 1.0 - np.exp(-2.0 * ktau)
+
+    def f32(v):
+        return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+
+    return LadderPlanes(kind, int(size), int(nvars), int(ltau), f32(jsite), f32(dtau), f32(ktau),
+                        f32(np.asarray(hs, np.float64)), f32(pb))
+
+
+def gate(kind_size, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
+    """None when the kernel takes this ladder, else the reason it does not: a
+    ring or torus (``kind_size`` from ``graph.detect_topology``), L_tau even
+    and in [4, MAX_LTAU], an even number of sites, and fewer than 2^31 spins."""
+    if kind_size is None:
+        return "the union graph is not a periodic ring or square torus"
+    if ltau < 4 or ltau % 2 or ltau > MAX_LTAU:
+        return f"L_tau={ltau} is not even and in [4, {MAX_LTAU}]"
+    if nvars % 2:
+        return f"{nvars} sites is not even"
+    if R * nvars * ltau >= _INT_LIMIT:
+        return f"R * nvars * L_tau = {R * nvars * ltau} spins reach 2^31"
+    return None
+
+
+def _check(s, seeds, planes: LadderPlanes, T: int):
+    """Validate the arguments shared by the kernel and the plain version."""
+    if s.dtype != torch.int8 or s.dim() != 3:
+        raise ValueError(f"s must be [R, nvars, L] int8, got {tuple(s.shape)} {s.dtype}")
+    R, nvars, L = s.shape
+    if (nvars, L) != (planes.nvars, planes.ltau):
+        raise ValueError(f"s is [R, {nvars}, {L}], the planes are for [R, {planes.nvars}, {planes.ltau}]")
+    why = gate((planes.kind, planes.size), nvars, L, R)
+    if why:
+        raise ValueError(f"the ladder kernel does not take this shape: {why}")
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (T, R):
+        raise ValueError(f"seeds must be [{T}, {R}] int32, got {tuple(seeds.shape)} {seeds.dtype}")
+    ndir = 1 if planes.kind == "ring" else 2
+    want = {"j": (R, ndir, nvars), "dt": (R,), "kt": (R,), "h": (R,), "pb": (R,)}
+    for name, shape in want.items():
+        t = getattr(planes, name)
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"planes.{name} must be {list(shape)} float32, got {tuple(t.shape)} {t.dtype}")
+    for name, t in [("seeds", seeds)] + [(f"planes.{k}", getattr(planes, k)) for k in want]:
+        if t.device != s.device:
+            raise ValueError(f"{name} is on {t.device}, s on {s.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not s.is_contiguous():
+        raise ValueError("s must be contiguous")
+
+
+def _field_fn(planes: LadderPlanes):
+    """``field(sf)`` -> the f32 field of ``sf[R, nvars, L]`` in the JAX order."""
+    j = planes.j[..., None]  # [R, ndir, nvars, 1]
+    if planes.kind == "ring":
+        j0 = j[:, 0]
+
+        def field(sf):
+            return j0 * sf.roll(-1, 1) + (j0 * sf).roll(1, 1)
+
+        return field
+    m = planes.size
+    j1 = j[:, 0].reshape(-1, m, m, 1)  # J(i -> y+1), i = x * m + y
+    j2 = j[:, 1].reshape(-1, m, m, 1)  # J(i -> x+1)
+
+    def field(sf):
+        q = sf.view(sf.shape[0], m, m, -1)
+        yp, ym = j1 * q.roll(-1, 2), (j1 * q).roll(1, 2)
+        xp, xm = j2 * q.roll(-1, 1), (j2 * q).roll(1, 1)
+        return (((yp + ym) + xp) + xm).view(sf.shape)
+
+    return field
+
+
+def ladder_sweeps_reference(s, seeds, planes: LadderPlanes, T: int):
+    """Plain PyTorch version of ``ladder_sweeps``: same arguments, same result."""
+    _check(s, seeds, planes, T)
+    _, nvars, L = s.shape
+    dev = s.device
+    color0, _, _ = lattice_fns(planes.kind, planes.size, nvars, dev)
+    cmask = (color0, ~color0)
+    tau = torch.arange(L, device=dev)[None, :]
+    tmask = (tau % 2 == 0, tau % 2 == 1)
+    pos1, pos2 = make_pos_mix(tau, torch.arange(nvars, device=dev)[:, None], nvars)
+    field = _field_fn(planes)
+    dt, kt, h, pb = (v[:, None, None] for v in (planes.dt, planes.kt, planes.h, planes.pb))
+    x = s.to(torch.int32)
+
+    for t in range(T):
+        seed = seeds[t][:, None, None]
+
+        def uniform(ctr):
+            u = lane_draw31(seed, pos1, pos2, ctr).to(torch.float32) * _SCALE + _HALF_STEP
+            return u.clamp(max=_U_MAX)
+
+        d = 0
+        for color in (0, 1):
+            for parity in (0, 1):
+                sf = x.to(torch.float32)
+                ud = (x.roll(-1, 2) + x.roll(1, 2)).to(torch.float32)
+                dE = (-2.0 * sf) * (dt * (field(sf) + h) - kt * ud)
+                u = uniform(d)
+                acc = (torch.log(u) - torch.log(1.0 - u) < -dE) & cmask[color] & tmask[parity]
+                x = torch.where(acc, -x, x)
+                d += 1
+        for color in (0, 1):
+            sf = x.to(torch.float32)
+            active = ((x == x.roll(-1, 2)) & (uniform(d) < pb)).to(torch.int32)
+            de = ((-2.0 * sf) * dt) * (field(sf) + h)
+            x = torch.where(fk_flips(active, de, torch.log(uniform(d + 1))) & cmask[color], -x, x)
+            d += 2
+    return x.to(torch.int8)
+
+
+def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T: int) -> torch.Tensor:
+    """Run ``T`` sweeps on ``s[R, nvars, L]`` int8 (not modified) and return
+    the new state; ``seeds[T, R]`` int32 keys sweep t's draws (counter
+    ``d = 0..7`` within each sweep).
+
+    A CUDA tensor launches ``csrc/ladder.cu`` (``LAUNCHES_PER_SWEEP`` launches
+    per sweep, counted in ``ladder_sweeps.launches``) or raises; a CPU tensor
+    runs the plain version."""
+    T = int(T)
+    _check(s, seeds, planes, T)
+    if s.device.type == "cpu":
+        return ladder_sweeps_reference(s, seeds, planes, T)
+    if s.device.type != "cuda":
+        raise ValueError(f"ladder_sweeps runs on cuda or cpu tensors, got {s.device}")
+    from .. import _kernels
+
+    R, nvars, L = s.shape
+    x = s.clone()
+    if R == 0 or T == 0:
+        return x
+    lib = _kernels.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ladder_sweeps(
+            x.data_ptr(), seeds.data_ptr(), planes.j.data_ptr(), planes.dt.data_ptr(), planes.kt.data_ptr(),
+            planes.h.data_ptr(), planes.pb.data_ptr(), R, nvars, L, int(planes.kind == "torus"),
+            planes.size, T, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ladder kernel launch failed: {_kernels.error_string(err)} ({err})")
+    ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
+    return x
+
+
+ladder_sweeps.launches = 0

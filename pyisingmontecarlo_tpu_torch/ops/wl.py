@@ -64,6 +64,7 @@ __all__ = [
     "chunk_plan",
     "chunk_seeds",
     "xla_sum_last",
+    "fk_flips",
     "wl_sweeps",
     "wl_sweeps_reference",
     "run_wl_sweeps",
@@ -209,6 +210,35 @@ def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fk_flips(active: torch.Tensor, de: torch.Tensor, log_u: torch.Tensor) -> torch.Tensor:
+    """Which spins of ``[R, nvars, L]`` a Fortuin-Kasteleyn time-line phase
+    flips, in the JAX kernels' arithmetic: ``active`` (int32) marks the frozen
+    bonds (tau, tau + 1), ``de`` (f32) is each slice's diagonal dE and
+    ``log_u`` (f32) each slice's log-uniform. A forward segmented sum of
+    ``de`` by pointer doubling gives each cluster's dE at its head (a fully
+    frozen line is one cluster headed at tau = 0, summed by ``xla_sum_last``);
+    the head flips its cluster when ``log_u < -dE``; the decisions propagate
+    forward by pointer doubling."""
+    L = active.shape[-1]
+    ksteps = max(1, int(math.ceil(math.log2(L))))
+    tau = torch.arange(L, device=active.device)
+    acc, reach, k = de, active, 1
+    for _ in range(ksteps):  # forward segmented run-sum
+        acc = acc + torch.where(reach == 1, acc.roll(-k, 2), 0.0)
+        reach = reach & reach.roll(-k, 2)
+        k *= 2
+    allact = active.amin(2, keepdim=True) == 1  # fully frozen line
+    heads = torch.where(allact, tau == 0, active.roll(1, 2) == 0)
+    acc = torch.where(allact, xla_sum_last(de)[..., None], acc)
+    prop = (heads & (log_u < -acc)).to(torch.int32)
+    cb, k = active.roll(1, 2), 1  # cb[tau]: tau joined to tau - 1
+    for _ in range(ksteps):  # propagate the head decisions forward
+        prop = prop | (prop.roll(k, 2) & cb)
+        cb = cb & cb.roll(k, 2)
+        k *= 2
+    return prop == 1
+
+
 def _check(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int):
     """Validate the arguments shared by the kernel and the plain version;
     returns R."""
@@ -280,7 +310,6 @@ def wl_sweeps_reference(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, n
     pos1, pos2 = make_pos_mix(tau, torch.arange(nvars, device=dev)[:, None], nvars)
     seed = seeds_i32[:, None, None]
     thr, cde, pb = tables.thr, tables.cde, int(tables.pb)
-    ksteps = max(1, int(math.ceil(math.log2(L))))
     x = s.to(torch.int32)
     stats = torch.zeros((R, 3), dtype=torch.int64, device=dev)
     samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=dev)
@@ -301,22 +330,8 @@ def wl_sweeps_reference(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, n
         for color in (0, 1):
             active = ((x == x.roll(-1, 2)) & (draw(d) < pb)).to(torch.int32)
             de = cde[5 * (x > 0) + (nsum(x) + 4) // 2]
-            acc, reach, k = de, active, 1
-            for _ in range(ksteps):  # forward segmented run-sum
-                acc = acc + torch.where(reach == 1, acc.roll(-k, 2), 0.0)
-                reach = reach & reach.roll(-k, 2)
-                k *= 2
-            allact = active.amin(2, keepdim=True) == 1  # fully frozen ring
-            heads = torch.where(allact, tau == 0, active.roll(1, 2) == 0)
-            acc = torch.where(allact, xla_sum_last(de)[..., None], acc)
             log_u = torch.log((draw(d + 1).to(torch.float32) + 0.5) * _LOG_SCALE)
-            prop = (heads & (log_u < -acc)).to(torch.int32)
-            cb, k = active.roll(1, 2), 1  # cb[tau]: tau joined to tau - 1
-            for _ in range(ksteps):  # propagate the head decisions forward
-                prop = prop | (prop.roll(k, 2) & cb)
-                cb = cb & cb.roll(k, 2)
-                k *= 2
-            x = torch.where((prop == 1) & cmask[color], -x, x)
+            x = torch.where(fk_flips(active, de, log_u) & cmask[color], -x, x)
             d += 2
         sb = sum(x * nb for nb in partners(x))
         stats += torch.stack([sb.sum((1, 2)), x.sum((1, 2)), (x == x.roll(-1, 2)).sum((1, 2))], 1)

@@ -15,7 +15,8 @@ schedule ``(k0, k1, k0 ^ k1 ^ 0x1BD11BDA)``. Under jax's partitionable mode
 (the default of the JAX version the package is held against), the i-th 32-bit
 word of ``random_bits(key, (n,))`` is ``x0 ^ x1`` of the block function at
 counter ``(i >> 32, i & 0xFFFFFFFF)``, and ``fold_in(key, d)`` is the block
-function of ``key`` at counter ``(0, d)``.
+function of ``key`` at counter ``(0, d)``; ``split(key, 2)[i]`` is the block
+function at counter ``(0, i)``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ __all__ = [
     "key_data_from_seeds",
     "threefry2x32",
     "fold_all",
+    "split_all",
     "random_bits",
+    "uniform_f32",
     "random_states",
     "seeds_from_key_data",
     "replica_seeds_i32",
@@ -105,14 +108,31 @@ def fold_all(key_data: np.ndarray, data: int) -> np.ndarray:
     return np.stack([y0, y1], axis=-1)
 
 
+def split_all(key_data: np.ndarray):
+    """``jax.random.split(key)`` for every key of ``[R, 2]`` key data ->
+    ``(next [R, 2], sub [R, 2])``, the JAX package's ``split_keys``."""
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    y0, y1 = threefry2x32(kd[:, :1], kd[:, 1:], np.uint32(0), np.arange(2, dtype=np.uint32))
+    out = np.stack([y0, y1], axis=-1)  # [R, 2 (next, sub), 2 (words)]
+    return out[:, 0], out[:, 1]
+
+
 def random_bits(key_data: np.ndarray, n: int) -> np.ndarray:
     """``jax.random.bits(key, (n,))`` (32-bit words) for every key -> ``[R, n]`` uint32."""
-    kd = np.asarray(key_data, dtype=np.uint32)
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
     idx = np.arange(int(n), dtype=np.uint64)
     hi = (idx >> np.uint64(32)).astype(np.uint32)[None, :]
     lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)[None, :]
     y0, y1 = threefry2x32(kd[:, :1], kd[:, 1:], hi, lo)
     return y0 ^ y1
+
+
+def uniform_f32(key_data: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.uniform(key, (n,))`` (f32 in [0, 1)) for every key ->
+    ``[R, n]`` float32: the top 23 bits as the mantissa of a float in [1, 2),
+    minus 1."""
+    bits = random_bits(key_data, n)
+    return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
 
 
 def random_states(key_data: np.ndarray, nvars: int) -> np.ndarray:

@@ -1,0 +1,382 @@
+"""``LatticeTempering`` — parallel tempering over TFIM worldlines, on torch.
+
+Counterpart of ``pyisingmontecarlo_tpu/tempering.py`` on the path that the
+JAX package sends to its ladder kernel: replicas at per-replica
+(beta, Gamma, h), optionally with their own couplings on a union graph that
+is a periodic ring or square torus, sweep together (``ops/ladder.py``, one
+kernel call per run of sweeps between two swap steps), with an even/odd
+neighbour swap every ``replica_swap_freq`` sweeps.
+
+A swap step weighs every replica's configuration under its own and its
+neighbours' parameters from three exact integer features of each
+configuration (``swap_features``: per-edge bond products, spin sum, aligned
+time bonds), in f32 as the JAX package does, and accepts pair (r, r+1), r of
+the step's parity, when ``log u < W_r(x_{r+1}) W_{r+1}(x_r) / (W_r(x_r)
+W_{r+1}(x_{r+1}))`` in log space; accepted pairs exchange configurations.
+Energies use the same features, accumulated per replica slot as int64 on the
+device; the estimator is linear in them, so it is formed once per call on the
+host in f64.
+
+Randomness, bit for bit the JAX package's: each replica's threefry key is
+split once per sweep and the subkey gives that sweep's kernel seed; the swap
+key is split once per swap step and the subkey gives ``uniform(sub, (R,))``.
+A call makes both tables on the host before its first launch (``key_tables``).
+
+Ladders with ``enable_rvb_update``, union graphs that are not a ring or
+torus, and shapes off the kernel's gate raise ``NotImplementedError``
+(ROADMAP.md item 5, the generic colored worldline engine);
+``enable_heatbath_update`` is accepted and has no effect, as on the JAX
+ladder path. The multi-device ladder is not ported (ROADMAP.md item 8).
+
+Checkpoints are the JAX package's CBOR files (``utils/cbor.py``); the
+per-replica seeds are not saved, so a reload reseeds.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .engines.observables import autocorrelation_device, pad_autocorr
+from .engines.worldline import _not_ported, choose_ltau, make_params
+from .graph import detect_topology, parse_edges
+from .lattice import resolve_device
+from .ops import ladder
+from .rng import MasterRng, key_data_from_seeds, random_states, seeds_from_key_data, split_all, uniform_f32
+from .utils import cbor
+
+__all__ = ["LatticeTempering", "key_tables", "swap_features"]
+
+_NEVER = 2**31 - 1  # the swap period of runs without swaps
+
+
+def key_tables(key_data: np.ndarray, swapkey: np.ndarray, timesteps: int, swap_freq: int):
+    """The host tables of a call of ``timesteps`` sweeps with a swap every
+    ``swap_freq``: ``(seeds [T, R] int32, uniforms [T // swap_freq, R] f32,
+    key_data, swapkey)`` with the keys advanced past the call."""
+    kd = np.asarray(key_data, np.uint32)
+    R = kd.shape[0]
+    seeds = np.empty((timesteps, R), np.int32)
+    for t in range(timesteps):
+        kd, sub = split_all(kd)
+        seeds[t] = seeds_from_key_data(sub)
+    sk = np.asarray(swapkey, np.uint32).reshape(1, 2)
+    uniforms = np.empty((timesteps // swap_freq, R), np.float32)
+    for k in range(len(uniforms)):
+        sk, sub = split_all(sk)
+        uniforms[k] = uniform_f32(sub, R)[0]
+    return seeds, uniforms, kd, sk[0]
+
+
+def swap_features(s: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor):
+    """``(P [R, E], S [R], A [R])`` int64 of ``s[R, nvars, L]``: the bond
+    products summed over tau per edge, the spin sum, and the aligned time bonds."""
+    P = (s[:, ea] * s[:, eb]).sum(2)
+    return P, s.sum((1, 2)), (s == s.roll(-1, 2)).sum((1, 2))
+
+
+class LatticeTempering:
+    """Parallel-tempering container over worldline TFIM simulators.
+
+    ``LatticeTempering(edges, seed=None, use_allocator=True, *, dtau=None,
+    device="cuda")``: the JAX package's constructor, with the device
+    explicit (``device="cuda"`` raises where there is no CUDA; ``"cpu"`` runs
+    the kernel's plain version). ``cutoff = nvars`` and ``use_allocator`` are
+    kept as attributes."""
+
+    def __init__(self, edges: Sequence, seed: Optional[int] = None, use_allocator: bool = True, *,
+                 dtau: Optional[float] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.edges = [((int(a), int(b)), float(j)) for (a, b), j in edges]
+        self.nvars, _, _, _ = parse_edges(self.edges)
+        self.cutoff = self.nvars
+        self.seed = seed
+        self.rng = MasterRng(seed)
+        self.use_allocator = bool(use_allocator)
+        self.dtau = dtau
+        self.graphs = []  # per-replica dicts
+        self._edge_index = {}  # (a, b) -> union edge id
+        for (a, b), _ in self.edges:
+            self._edge_index.setdefault((min(a, b), max(a, b)), len(self._edge_index))
+        self.total_swaps = 0
+        self._mat = None  # materialized ladder (dict)
+        self._swapkey = None  # [2] uint32 key data
+        self._restored = None  # [R, nvars, L] int8 states from a checkpoint
+
+    # ---------------------------------------------------------------- ladder
+
+    def add_graph(self, transverse: float, longitudinal: float, beta: float, edges: Optional[Sequence] = None,
+                  enable_rvb_update: bool = False, enable_heatbath_update: bool = False,
+                  seed: Optional[int] = None, use_allocator: Optional[bool] = None) -> None:
+        """Append a replica with its own Hamiltonian and beta; ``edges``
+        overrides the couplings (edges may be new to the union graph)."""
+        transverse = float(transverse)
+        if transverse <= 0:
+            raise ValueError("Transverse field must be positive for QMC")
+        if edges is not None:
+            own = [((int(a), int(b)), float(j)) for (a, b), j in edges]
+            for (a, b), _ in own:
+                if a >= self.nvars or b >= self.nvars or a < 0:
+                    raise ValueError(f"Edge ({a},{b}) out of bounds (nvars={self.nvars})")
+                self._edge_index.setdefault((min(a, b), max(a, b)), len(self._edge_index))
+        else:
+            own = self.edges
+        g_seed = int(seed) if seed is not None else self.rng.next_seed()
+        self.graphs.append(dict(transverse=transverse, longitudinal=float(longitudinal), beta=float(beta),
+                                edges=own, rvb=bool(enable_rvb_update), heatbath=bool(enable_heatbath_update),
+                                seed=g_seed))
+        self._mat = None  # materialize anew
+
+    def get_num_graphs(self) -> int:
+        return len(self.graphs)
+
+    def get_total_swaps(self) -> int:
+        """Accepted swaps, over the container's life."""
+        return int(self.total_swaps)
+
+    # --------------------------------------------------------- materialization
+
+    def _union_jvals(self) -> np.ndarray:
+        jv = np.zeros((len(self.graphs), len(self._edge_index)))
+        for r, g in enumerate(self.graphs):
+            for (a, b), j in g["edges"]:
+                jv[r, self._edge_index[(min(a, b), max(a, b))]] = j
+        return jv
+
+    def _materialize(self) -> dict:
+        if self._mat is not None:
+            return self._mat
+        if not self.graphs:
+            raise ValueError("No graphs added to tempering container")
+        R, nvars, dev = len(self.graphs), self.nvars, self.device
+        pairs = sorted(self._edge_index.items(), key=lambda kv: kv[1])
+        ea = np.array([a for (a, _), _ in pairs], np.int64)
+        eb = np.array([b for (_, b), _ in pairs], np.int64)
+        jv = self._union_jvals()
+        betas = np.array([g["beta"] for g in self.graphs])
+        gammas = np.array([g["transverse"] for g in self.graphs])
+        hs = np.array([g["longitudinal"] for g in self.graphs])
+        L = max(choose_ltau(b, g, self.dtau) for b, g in zip(betas, gammas))
+        if any(g["rvb"] for g in self.graphs):
+            raise _not_ported("The RVB (worldline pair-flip) move on a tempering ladder")
+        topo = detect_topology(nvars, ea, eb)
+        why = ladder.gate(topo, nvars, L, R)
+        if why:
+            raise _not_ported(f"Tempering off the ladder kernel's path ({why})")
+        key_data = key_data_from_seeds(np.array([g["seed"] for g in self.graphs], np.uint64))
+        if self._restored is not None:
+            s = self._restored.to(dev)
+            if s.shape[2] != L:  # regrid (nearest slice) if the ladder changed
+                s = s[:, :, torch.from_numpy(np.arange(L) * s.shape[2] // L).to(dev)]
+            self._restored = None
+        else:
+            s = torch.from_numpy(random_states(key_data, nvars)).to(dev)[:, :, None].expand(R, nvars, L)
+        if self._swapkey is None:
+            self._swapkey = key_data_from_seeds(self.rng.make_seeds(1))[0]
+        p = make_params(betas, gammas, hs, L, dev)
+        a = p.dtau * p.gamma
+        self._mat = dict(
+            L=L,
+            ea=torch.from_numpy(ea).to(dev),
+            eb=torch.from_numpy(eb).to(dev),
+            jv=torch.from_numpy(jv.astype(np.float32)).to(dev),
+            p=p,
+            log_cosh=torch.log(torch.cosh(a)),
+            log_sinh=torch.log(torch.sinh(a)),
+            planes=ladder.build_planes(topo[0], topo[1], nvars, ea, eb, jv, betas, gammas, hs, L, dev),
+            s=s.contiguous(),
+            key_data=key_data,
+            phase=0,
+        )
+        return self._mat
+
+    # ------------------------------------------------------------------- runs
+
+    def _swap(self, m: dict, s, features, u, phase: int):
+        """One even/odd swap step with uniforms ``u[R]``: returns the new
+        state and the accepted count (a device scalar)."""
+        R, nvars, L = s.shape
+        ntot = nvars * L
+        p, jv = m["p"], m["jv"]
+
+        def log_weight(P, S, A):
+            A = A.to(torch.float32)
+            diag = -p.dtau * ((jv * P.to(torch.float32)).sum(-1) + p.h * S.to(torch.float32))
+            return diag + A * m["log_cosh"] + (ntot - A) * m["log_sinh"]
+
+        lw_self = log_weight(*features)
+        lw_up = log_weight(*(f.roll(-1, 0) for f in features))  # log W_r(x_{r+1})
+        lw_dn = log_weight(*(f.roll(1, 0) for f in features))  # log W_r(x_{r-1})
+        delta = lw_up + lw_dn.roll(-1, 0) - lw_self - lw_self.roll(-1, 0)
+        idx = torch.arange(R, device=s.device)
+        leader = ((idx % 2) == phase) & (idx + 1 < R)
+        acc_leader = leader & (torch.log(u) < delta)
+        acc_follower = acc_leader.roll(1, 0) & (idx > 0)
+        perm = torch.where(acc_leader, idx + 1, torch.where(acc_follower, idx - 1, idx))
+        return s[perm], acc_leader.sum()
+
+    def _run(self, timesteps: int, swap_freq: Optional[int], sampling_freq: int = 0, with_energy: bool = True):
+        """``timesteps`` sweeps, a swap step after every ``swap_freq``-th
+        (none when None), slice 0 recorded after every ``sampling_freq``-th
+        sweep's swap. Returns ``(esum [R] f64 or None, samples [n, R, nvars]
+        int8 on the device)``."""
+        m = self._materialize()
+        T, sf, freq = int(timesteps), int(swap_freq) if swap_freq else _NEVER, int(sampling_freq)
+        nsamples = T // freq if freq else 0
+        s, planes, dev = m["s"], m["planes"], self.device
+        R = s.shape[0]
+        seeds, uniforms, m["key_data"], self._swapkey = key_tables(m["key_data"], self._swapkey, T, sf)
+        seeds, uniforms = torch.from_numpy(seeds).to(dev), torch.from_numpy(uniforms).to(dev)
+        sums = None
+        if with_energy:
+            sums = [torch.zeros((R, m["ea"].numel()), dtype=torch.int64, device=dev),
+                    torch.zeros(R, dtype=torch.int64, device=dev), torch.zeros(R, dtype=torch.int64, device=dev)]
+        accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        samples, nswaps, t = [], 0, 0
+        while t < T:
+            stop = T
+            if with_energy:
+                stop = t + 1
+            else:
+                stop = min(stop, (t // sf + 1) * sf)
+                if t < nsamples * freq:
+                    stop = min(stop, (t // freq + 1) * freq)
+            s = ladder.ladder_sweeps(s, seeds[t:stop], planes, stop - t)
+            t = stop
+            features = None
+            if with_energy:
+                features = swap_features(s, m["ea"], m["eb"])
+                for acc, f in zip(sums, features):
+                    acc += f
+            if t % sf == 0:
+                if features is None:
+                    features = swap_features(s, m["ea"], m["eb"])
+                s, n = self._swap(m, s, features, uniforms[nswaps], m["phase"])
+                accepted += n
+                nswaps += 1
+                m["phase"] = 1 - m["phase"]
+            if freq and t % freq == 0 and t // freq <= nsamples:
+                samples.append(s[:, :, 0])
+        m["s"] = s
+        self.total_swaps += int(accepted)
+        out = torch.stack(samples) if samples else s.new_empty((0, R, self.nvars))
+        return (self._energy_sum(m, T, sums) if with_energy else None), out
+
+    def _energy_sum(self, m: dict, T: int, sums) -> np.ndarray:
+        """The energy estimator summed over ``T`` sweeps, per replica slot, from
+        the feature sums (f64 on the host): the slice-averaged diagonal energy
+        plus ``-Gamma * sum_i mean_tau w``, w = tanh(a) on aligned time bonds
+        and coth(a) elsewhere, with the f32 parameters of ``make_params``."""
+        P, S, A = (x.cpu().numpy().astype(np.float64) for x in sums)
+        p = m["p"]
+        jv, h, gamma = (x.cpu().numpy().astype(np.float64) for x in (m["jv"], p.h, p.gamma))
+        tanh_a = np.tanh((p.dtau * p.gamma).cpu().numpy().astype(np.float64))
+        L = m["L"]
+        ediag = ((jv * P).sum(1) + h * S) / L
+        eoff = -gamma * (tanh_a * A + (T * self.nvars * L - A) / tanh_a) / L
+        return ediag + eoff
+
+    def qmc_timesteps(self, t: int) -> None:
+        """Sweeps, no swaps, no estimators."""
+        self._run(int(t), None, with_energy=False)
+
+    def qmc_timesteps_sample(self, timesteps: int, replica_swap_freq: Optional[int] = None,
+                             sampling_freq: Optional[int] = None):
+        """-> (states [ngraphs, t/sfreq, nvars] bool, avg_energies [ngraphs]
+        f64): sweeps, neighbour swaps every ``replica_swap_freq`` (default 1),
+        slice-0 samples every ``sampling_freq`` (default 1)."""
+        swap_freq = int(replica_swap_freq) if replica_swap_freq else 1
+        sfreq = int(sampling_freq) if sampling_freq else 1
+        esum, states = self._run(int(timesteps), swap_freq, sfreq)
+        states = (states == 1).cpu().numpy()  # [t/sfreq, R, nvars]
+        return np.swapaxes(states, 0, 1), esum / max(int(timesteps), 1)
+
+    def get_graph_itime(self, g: int) -> np.ndarray:
+        """-> bool [L, nvars], the worldline of replica g."""
+        g = int(g)
+        if g < 0 or g >= len(self.graphs):
+            raise ValueError(f"Graph index {g} out of bounds")
+        return (self._materialize()["s"][g].T == 1).cpu().numpy()
+
+    # ---------------------------------------------------------- correlations
+
+    def _autocorr(self, timesteps, sampling_wait_buffer, replica_swap_freq, sampling_freq, series_fn):
+        """Autocorrelation of the ``sampling_freq``-sampled series after a wait
+        buffer (which swaps too), zero-padded into ``[ngraphs, timesteps]``."""
+        wait = int(sampling_wait_buffer or 0)
+        swap_freq = int(replica_swap_freq) if replica_swap_freq else 1
+        freq = int(sampling_freq) if sampling_freq else 1
+        if wait:
+            self._run(wait, swap_freq, with_energy=False)
+        _, states = self._run(int(timesteps), swap_freq, freq, with_energy=False)
+        x = states.to(torch.float32).transpose(0, 1)  # [R, t/freq, nvars]
+        return pad_autocorr(autocorrelation_device(series_fn(x)), int(timesteps))
+
+    def run_quantum_monte_carlo_and_measure_variable_autocorrelation(
+            self, timesteps: int, sampling_wait_buffer: Optional[int] = None,
+            replica_swap_freq: Optional[int] = None, sampling_freq: Optional[int] = None):
+        """-> corrs [ngraphs, timesteps] f64, with swaps interleaved."""
+        return self._autocorr(timesteps, sampling_wait_buffer, replica_swap_freq, sampling_freq, lambda x: x)
+
+    def run_quantum_monte_carlo_and_measure_bond_autocorrelation(
+            self, timesteps: int, sampling_wait_buffer: Optional[int] = None,
+            replica_swap_freq: Optional[int] = None, sampling_freq: Optional[int] = None):
+        """-> corrs [ngraphs, timesteps] f64 of the union graph's bond products."""
+        m = self._materialize()
+        ea, eb = m["ea"], m["eb"]
+        return self._autocorr(timesteps, sampling_wait_buffer, replica_swap_freq, sampling_freq,
+                              lambda x: x[:, :, ea] * x[:, :, eb])
+
+    # ----------------------------------------------------------- persistence
+
+    def clone(self) -> "LatticeTempering":
+        """An independent copy (runs never modify a materialized tensor in place)."""
+        other = LatticeTempering.__new__(LatticeTempering)
+        other.__dict__.update(self.__dict__)
+        other.rng = self.rng.clone()
+        other.graphs = [dict(g) for g in self.graphs]
+        other._edge_index = dict(self._edge_index)
+        if self._mat is not None:
+            other._mat = dict(self._mat)
+        return other
+
+    def save_to_file(self, path: str) -> None:
+        """CBOR (nvars, edges, cutoff, seed, use_allocator, container), the JAX
+        package's file; the random state is not saved."""
+        states = None if self._mat is None else self._mat["s"].cpu().numpy()
+        container = [
+            {
+                "transverse": g["transverse"],
+                "longitudinal": g["longitudinal"],
+                "beta": g["beta"],
+                "edges": [[list(ab), j] for ab, j in g["edges"]],
+                "rvb": g["rvb"],
+                "heatbath": g["heatbath"],
+                "worldline": None if states is None else (states[r] == 1),
+            }
+            for r, g in enumerate(self.graphs)
+        ]
+        cbor.dump([self.nvars, [[list(ab), j] for ab, j in self.edges], self.cutoff,
+                   None if self.seed is None else int(self.seed), self.use_allocator,
+                   {"graphs": container, "total_swaps": int(self.total_swaps)}], path)
+
+    @staticmethod
+    def read_from_file(path: str, reseed: Optional[int] = None, device="cuda") -> "LatticeTempering":
+        """Reload a checkpoint; the per-replica seeds are drawn anew from
+        ``reseed`` (or entropy), and saved worldlines are regridded if the
+        ladder's L_tau changed."""
+        nvars, edges, cutoff, seed, use_alloc, container = cbor.load(path)
+        out = LatticeTempering([((int(a), int(b)), float(j)) for (a, b), j in edges], seed=reseed,
+                               use_allocator=use_alloc, device=device)
+        states = []
+        for g in container["graphs"]:
+            out.add_graph(g["transverse"], g["longitudinal"], g["beta"],
+                          edges=[((int(a), int(b)), float(j)) for (a, b), j in g["edges"]],
+                          enable_rvb_update=g["rvb"], enable_heatbath_update=g["heatbath"])
+            states.append(None if g["worldline"] is None else np.where(g["worldline"], 1, -1).astype(np.int8))
+        out.total_swaps = int(container["total_swaps"])
+        if states and all(x is not None for x in states):
+            out._restored = torch.from_numpy(np.stack(states))
+        return out

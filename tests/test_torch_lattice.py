@@ -41,7 +41,13 @@ def test_port_imports_no_jax():
         "import pyisingmontecarlo_tpu_torch._kernels, pyisingmontecarlo_tpu_torch.ops.lattice2d\n"
         "import pyisingmontecarlo_tpu_torch.ops.wl, pyisingmontecarlo_tpu_torch.engines.worldline\n"
         "import pyisingmontecarlo_tpu_torch.engines.observables, pyisingmontecarlo_tpu_torch.rng\n"
-        "import pyisingmontecarlo_tpu_torch.graph\n"
+        "import pyisingmontecarlo_tpu_torch.graph, pyisingmontecarlo_tpu_torch.tempering\n"
+        "import pyisingmontecarlo_tpu_torch.ops.ladder, pyisingmontecarlo_tpu_torch.utils.cbor\n"
+        "lt = pyisingmontecarlo_tpu_torch.LatticeTempering([((i, (i + 1) % 4), -1.0) for i in range(4)],\n"
+        "                                                  seed=0, device='cpu')\n"
+        "lt.add_graph(1.0, 0.0, 0.5)\n"
+        "lt.add_graph(1.0, 0.0, 0.6)\n"
+        "lt.qmc_timesteps_sample(2)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pyisingmontecarlo_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -160,7 +166,7 @@ def test_unported_branches_raise():
         lat.run_monte_carlo(0.3, 2, 2)
     with pytest.raises(ValueError):
         tpmc.Lattice([], device="cpu")
-    for name in ("ClassicIsing", "QmcIsing", "QmcRunner", "LatticeTempering"):
+    for name in ("ClassicIsing", "QmcIsing", "QmcRunner"):
         with pytest.raises(AttributeError, match="ROADMAP.md"):
             getattr(tpmc, name)
 

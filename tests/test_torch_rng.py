@@ -78,3 +78,32 @@ def test_threefry_known_answer():
     suite, which jax's own tests also check."""
     y0, y1 = trng.threefry2x32(0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3)
     assert (int(y0), int(y1)) == (0xC4923A9C, 0x483DF7A0)
+
+
+@pytest.mark.parametrize("seed,n", [(6, 1), (7, 5), (8, 64)])
+def test_split_all(seed, n):
+    """``jax.random.split`` of every key (the JAX package's ``split_keys``),
+    along a chain of ten splits as the tempering loop takes them."""
+    seeds = _seeds(seed, n)
+    keys = jrng.keys_from_seeds(seeds)
+    kd = trng.key_data_from_seeds(seeds)
+    for _ in range(10):
+        keys, sub = jrng.split_keys(keys)
+        kd, ksub = trng.split_all(kd)
+        np.testing.assert_array_equal(kd, np.asarray(jax.random.key_data(keys)))
+        np.testing.assert_array_equal(ksub, np.asarray(jax.random.key_data(sub)))
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 1000])
+def test_uniform_f32(n):
+    """``jax.random.uniform(key, (n,))`` of one key (the swap's draw) and of
+    several, bit for bit."""
+    seeds = _seeds(9, 3)
+    keys = jrng.keys_from_seeds(seeds)
+    kd = trng.key_data_from_seeds(seeds)
+    got = trng.uniform_f32(kd, n)
+    assert got.dtype == np.float32 and got.shape == (len(seeds), n)
+    want = np.stack([np.asarray(jax.random.uniform(k, (n,))) for k in keys])
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(trng.uniform_f32(kd[0], n)[0], want[0])
+    assert got.min() >= 0.0 and got.max() < 1.0
