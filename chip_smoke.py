@@ -14,32 +14,65 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   sweeps, through the kernel (2 launches per sweep);
 5.  physics       Onsager energy (L=32) and disordered magnetization (L=16);
 6.  timing        square-torus kernel and plain version at the bench shape;
-7.  compare-wl    the worldline kernel vs its plain version, bit for bit
-                  (ring, torus with field, frozen rings, long L_tau, sampling,
-                  and the 256^2 x 8 x 40 main shape);
+7.  compare-wl    the worldline kernels vs their plain version, bit for bit:
+                  the resident kernel (where it fits) and the multi-launch
+                  kernels, each against the plain version and against each
+                  other (ring, torus with field, frozen rings, long L_tau,
+                  sampling, L_tau=4, the longest chain the gate admits, R=1,
+                  odd R, tori the gate admits (24^2, 32^2), one that fits
+                  but is left to the multi-launch kernels (48^2), and the
+                  256^2 x 8 x 40 main shape in plain and sampling mode,
+                  multi-launch only);
 8.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
-                  256^2 TFIM torus (the shape of benches/bench_qmc_large.py);
-9.  main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
+                  256^2 TFIM torus (the shape of benches/bench_qmc_large.py;
+                  multi-launch, 7 launches per sweep);
+9.  main-quantum-sampling  ``run_quantum_monte_carlo_sampling`` on the same
+                  torus, 20 sweeps (the multi-launch kernels' sampling mode);
+10. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
                   TFIM chain, 64 replicas, 500 + 2000 sweeps (benches/bench_qmc.py's
-                  shape), against the exact free-fermion energy;
-10. physics-wl    <E> of a 6-ring against dense diagonalization, and a bond
+                  shape; resident, one launch per call), against the exact
+                  free-fermion energy;
+11. physics-wl    <E> of a 6-ring against dense diagonalization, and a bond
                   autocorrelation on a 32^2 torus;
-11. timing-wl     worldline kernel and plain version at both main shapes, and
-                  each launch's device time (torch.profiler);
-12. compare-ladder    the tempering ladder kernel vs its plain version, bit
-                  for bit (ring with field and per-replica couplings, 12^2 +-J
-                  torus, frozen lines, L_tau=1200, the 64 x 144 x 60 bench shape);
-13. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
+12. timing-wl     worldline kernels and plain version at both main shapes
+                  (the chain on both routes), each launch's device time
+                  (torch.profiler), and both routes at the gate's edges;
+13. compare-ladder    the ladder kernels vs their plain version, bit for bit
+                  in states and swap features: resident and multi-launch,
+                  each against the plain version and each other (ring with
+                  field and per-replica couplings, 12^2 +-J torus, frozen
+                  lines, L_tau=1200, L_tau=4 with R=1, odd R, a 24^2 torus,
+                  a 48^2 torus off the gate, the 64 x 144 x 60 bench shape,
+                  and the 64 x 4096 x 60 shape of main-tempering-wide);
+14. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
                   2000, on the ladder of benches/bench_tempering.py (12^2 +-J
-                  spin glass, 64 replicas, L_tau = 60; 6 launches per sweep),
-                  with sweeps/s and swap attempts/s as that bench takes them;
-14. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
-15. timing-ladder     ladder kernel and plain version at the bench shape, each
-                  launch's device time and the idle share over whole tempering
-                  steps (torch.profiler), and the kernel on a 64^2 +-J torus.
+                  spin glass, 64 replicas, L_tau = 60; resident, one launch per
+                  sweep, features from the kernel), with sweeps/s and swap
+                  attempts/s as that bench takes them;
+15. main-tempering-wide  the same ladder on a 64^2 +-J torus, 5 sweeps
+                  (multi-launch, 6 launches per sweep);
+16. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
+17. timing-ladder     ladder kernels and plain version at the bench shape (200-
+                  sweep calls, and one-sweep calls as the main path makes
+                  them), each launch's device time and the idle share over
+                  whole tempering steps (torch.profiler), and the multi-launch
+                  kernels and plain version at main-tempering-wide's 64^2 shape.
+
+Each entry of the kernels line takes its launches, times and bound from one
+shape: the main path that launched it.
 
 Then one JSON line with the kernels, and last ``{"ok": true, "device": ...}``.
 Needs torch with CUDA, nvcc and numpy; imports no jax.
+
+    python3 chip_smoke.py --ab DIR   # DIR: the root of another checkout, e.g. the parent commit's
+
+times the end-to-end main paths that the resident kernels serve (the
+tempering bench's sweeps/s slope, and the 256-chain's sampling call) for the
+package in DIR and for this one, each in a process of its own, ten runs a
+side in the order DIR, this, this, DIR; it prints each run's numbers, each
+side's median and quartiles and the pairs won, and checks nothing else. The
+host's speed moves between calls to the card, so two commits are compared
+only within one call.
 """
 
 from __future__ import annotations
@@ -119,13 +152,22 @@ def reset_counts():
 
     sq2d.sweeps_2d.launches = 0
     wl.wl_sweeps.launches = 0
+    wl.wl_sweeps.resident_launches = 0
     ladder.ladder_sweeps.launches = 0
+    ladder.ladder_sweeps.resident_launches = 0
 
 
 def read_counts():
     from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
-    return {"sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches, "ladder": ladder.ladder_sweeps.launches}
+    return {"sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches,
+            "wl_resident": wl.wl_sweeps.resident_launches, "ladder": ladder.ladder_sweeps.launches,
+            "ladder_resident": ladder.ladder_sweeps.resident_launches}
+
+
+def counts_only(**want):
+    """The launch counts with ``want`` and zeros elsewhere."""
+    return {**dict.fromkeys(("sq2d", "wl", "wl_resident", "ladder", "ladder_resident"), 0), **want}
 
 
 def phase_gpu():
@@ -214,8 +256,7 @@ def phase_main(dev):
     dt = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["sq2d"]
-    check(launches == 2 * T and counts["wl"] == 0 and counts["ladder"] == 0,
-          f"launch counts {counts}, want sq2d {2 * T}")
+    check(counts == counts_only(sq2d=2 * T), f"launch counts {counts}, want sq2d {2 * T} only")
     check(es.shape == (BENCH_R,) and es.dtype == np.float64, f"energies {es.shape} {es.dtype}")
     check(st.shape == (BENCH_R, BENCH_L * BENCH_L) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
     check(np.isfinite(es).all(), "non-finite energies")
@@ -308,10 +349,23 @@ def _wl_inputs(dense, nvars, R, seed, dev, ltau=WL_LTAU):
     return s, torch.from_numpy(seeds_from_key_data(kd)).to(dev)
 
 
+def _equal_all(got, want):
+    """(all equal, largest |difference|) over matching tensors."""
+    err = max((int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item()) if g.numel() else 0)
+              for g, w in zip(got, want))
+    return all(torch.equal(g.to(torch.int64), w.to(torch.int64)) for g, w in zip(got, want)), err
+
+
 def phase_compare_wl(dev):
-    """Worldline kernel vs plain version on the card; returns the largest |difference|."""
+    """Worldline kernels vs the plain version on the card: the route the gate
+    picks (or, for a shape that fits but is left to the multi-launch kernels,
+    the resident kernel through its private launcher) and the multi-launch
+    kernels, each against the plain version and against each other; returns
+    (largest |difference| of the multi-launch kernels, of the resident kernel)."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
+    lim = wl.device_limits(dev)
+    longest = max(L for L in range(4, wl.MAX_LTAU + 1, 2) if wl.resident_plan(256, L, 1, wl.WL_PARAM_BYTES, *lim))
     cases = [  # name, dense, nvars, R, L_tau, T, beta, gamma, h, freq, nsamples
         ("ring 256 R=4 L=40 T=13", ("ring", 256, -1.0), 256, 4, 40, 13, 2.0, 1.0, 0.0, 0, 0),
         ("torus 16^2 R=2 h=-0.3 T=9", ("torus", 16, -1.0), 256, 2, 40, 9, 2.0, 1.0, -0.3, 0, 0),
@@ -319,25 +373,47 @@ def phase_compare_wl(dev):
         ("long L_tau=1200 (two-level frozen sums) ring 32 R=2 T=5", ("ring", 32, -1.0), 32, 2, 1200, 5,
          60.0, 0.05, 0.1, 0, 0),
         ("sampling chain 256 R=64 freq=3 nsamples=4 rem=2", CHAIN[0], 256, 64, 40, 14, 2.0, 1.0, 0.0, 3, 4),
+        ("L_tau=4 ring 8 R=3 sampling freq=2 nsamples=3 T=7", ("ring", 8, -1.0), 8, 3, 4, 7, 0.4, 1.0, 0.1, 2, 3),
+        (f"longest chain the gate admits: L_tau={longest} R=1 T=3", CHAIN[0], 256, 1, longest, 3,
+         WL_BETA * longest / WL_LTAU, 1.0, 0.0, 0, 0),
+        ("torus 24^2 R=5 L=40 T=6", ("torus", 24, -1.0), 576, 5, 40, 6, 2.0, 1.0, 0.2, 0, 0),
+        ("torus 32^2 R=3 L=40 T=4", ("torus", 32, -1.0), 1024, 3, 40, 4, 2.0, 1.0, 0.0, 0, 0),
+        ("torus 48^2 R=2 L=40 T=3 (fits; the gate leaves it to the multi-launch kernels)", ("torus", 48, -1.0),
+         2304, 2, 40, 3, 2.0, 1.0, 0.0, 0, 0),
         ("main torus 256^2 R=8 L=40 T=4", TORUS[0], TORUS[1], TORUS[2], 40, 4, WL_BETA, WL_GAMMA, 0.0, 0, 0),
+        ("main torus 256^2 R=8 L=40 sampling freq=2 nsamples=2 T=4", TORUS[0], TORUS[1], TORUS[2], 40, 4,
+         WL_BETA, WL_GAMMA, 0.0, 2, 2),
     ]
-    worst = 0
+    worst = {"multi": 0, "resident": 0}
     for k, (name, dense, nvars, R, L, T, beta, gamma, h, freq, ns) in enumerate(cases):
         s, seeds = _wl_inputs(dense, nvars, R, 100 + k, dev, L)
         tables = wl.make_tables(dense, nvars, beta, gamma, h, L, dev)
-        got = wl.wl_sweeps(s, seeds, tables, T, freq, ns)
+        plan = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim)
+        fit = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim, None)  # the idle-sites threshold lifted
         want = wl.wl_sweeps_reference(s, seeds, tables, T, freq, ns)
+        runs = {"multi": wl._run_multi(s, seeds, tables, T, freq, ns)}
+        if plan:
+            runs["resident"] = wl.wl_sweeps(s, seeds, tables, T, freq, ns)  # the wrapper's own route
+        elif fit:
+            runs["resident"] = wl._run_resident(s, seeds, tables, T, freq, ns, fit)
         torch.cuda.synchronize()
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item()) if g.numel() else 0
-                  for g, w in zip(got, want))
-        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name}: kernel != plain (max |diff| {err})")
+        for route, got in runs.items():
+            same, err = _equal_all(got, want)
+            check(same, f"{name}: {route} != plain (max |diff| {err})")
+            worst[route] = max(worst[route], err)
+        if "resident" in runs:
+            same, err = _equal_all(runs["resident"], runs["multi"])
+            check(same, f"{name}: resident != multi-launch (max |diff| {err})")
+        got = runs["multi"]
         moved = float((got[0] != s).float().mean())
         check(moved > 0.05, f"{name}: only {moved:.4f} of the spins moved")
         frozen = float((got[0] == got[0][:, :, :1]).all(2).float().mean())
-        worst = max(worst, err)
-        print(f"compare-wl: {name}: bit-identical (spins, statistics{', samples' if ns else ''}); "
-              f"{moved:.3f} of spins moved, {frozen:.3f} of lines constant in tau", flush=True)
-    return worst
+        route = ("resident (gate) == multi-launch" if plan else
+                 "resident (private launcher) == multi-launch" if fit else "multi-launch (does not fit)")
+        print(f"compare-wl: {name}: {route} == plain, bit-identical (spins, statistics"
+              f"{', samples' if ns else ''}); resident plan {plan or fit}; {moved:.3f} of spins moved, "
+              f"{frozen:.3f} of lines constant in tau", flush=True)
+    return worst["multi"], worst["resident"]
 
 
 def phase_main_quantum(dev):
@@ -358,8 +434,8 @@ def phase_main_quantum(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    check(counts == {"sq2d": 0, "wl": wl.LAUNCHES_PER_SWEEP * T, "ladder": 0},
-          f"launch counts {counts}, want wl {wl.LAUNCHES_PER_SWEEP * T}")
+    check(counts == counts_only(wl=wl.LAUNCHES_PER_SWEEP * T),
+          f"launch counts {counts}, want wl {wl.LAUNCHES_PER_SWEEP * T} only (multi-launch)")
     check(es.shape == (R,) and es.dtype == np.float64, f"energies {es.shape} {es.dtype}")
     check(st.shape == (R, nvars) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
     check(np.isfinite(es).all(), "non-finite energies")
@@ -369,6 +445,36 @@ def phase_main_quantum(dev):
     check(-2.5 < e < -1.0, f"e/site {e} outside (-2.5, -1.0)")
     print(f"main-quantum: Lattice.run_quantum_monte_carlo({WL_BETA}, {T}, {R}) on the 256^2 torus, "
           f"L_tau={WL_LTAU}: {counts['wl']} launches, {dt:.3f} s host wall, e/site={e:.6f}", flush=True)
+    return counts["wl"]
+
+
+def phase_main_quantum_sampling(dev):
+    """The sampling path through the user's entry point at the 256^2 torus,
+    which the gate leaves to the multi-launch kernels' sampling mode; returns
+    the launch count."""
+    from pyisingmontecarlo_tpu_torch import Lattice
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    T, freq, (dense, nvars, R) = 20, 5, TORUS
+    lat = Lattice(grid_2d_edges(256, 256, -1.0), seed_gen=1, device=dev)
+    lat.set_transverse_field(WL_GAMMA)
+    reset_counts()
+    t0 = time.perf_counter()
+    es, ss = lat.run_quantum_monte_carlo_sampling(WL_BETA, T, R, sampling_freq=freq)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == counts_only(wl=wl.LAUNCHES_PER_SWEEP * T),
+          f"launch counts {counts}, want wl {wl.LAUNCHES_PER_SWEEP * T} only (multi-launch)")
+    check(es.shape == (R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape} {es.dtype}")
+    check(ss.shape == (R, T // freq, nvars) and ss.dtype == np.bool_, f"samples {ss.shape} {ss.dtype}")
+    e = es.mean() / nvars
+    # 20 sweeps from a random start: ordering has begun, far from the ground state's -2.13
+    check(-2.5 < e < -0.5, f"e/site {e} outside (-2.5, -0.5)")
+    print(f"main-quantum-sampling: Lattice.run_quantum_monte_carlo_sampling({WL_BETA}, {T}, {R}, freq={freq}) on "
+          f"the 256^2 torus: {counts['wl']} launches, {dt:.3f} s host wall, e/site={e:.6f}, "
+          f"{ss.shape[1]} samples per replica", flush=True)
     return counts["wl"]
 
 
@@ -410,8 +516,8 @@ def phase_main_chain(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    want = wl.LAUNCHES_PER_SWEEP * (wait + T)
-    check(counts == {"sq2d": 0, "wl": want, "ladder": 0}, f"launch counts {counts}, want wl {want}")
+    want = counts_only(wl_resident=2)  # one resident launch for the wait, one for the sampled sweeps
+    check(counts == want, f"launch counts {counts}, want {want}")
     check(es.shape == (R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape} {es.dtype}")
     check(ss.shape == (R, T // freq, n) and ss.dtype == np.bool_, f"samples {ss.shape} {ss.dtype}")
     e, se = es.mean() / n, es.std(ddof=1) / np.sqrt(R) / n
@@ -420,9 +526,9 @@ def phase_main_chain(dev):
     check(abs(e - exact) < 4 * se + 0.03, f"e/site {e} vs exact {exact} (se {se})")
     m = np.abs(np.where(ss, 1.0, -1.0).mean(axis=2)).mean()
     print(f"main-chain: Lattice.run_quantum_monte_carlo_sampling({WL_BETA}, {T}, {R}, wait={wait}, freq={freq}) "
-          f"on the 256-chain: {counts['wl']} launches, {dt:.3f} s host wall, e/site={e:.6f} "
-          f"(exact {exact:.6f}, se {se:.6f}), <|m|> of the samples {m:.4f}", flush=True)
-    return counts["wl"]
+          f"on the 256-chain: {counts['wl_resident']} resident launches, 0 multi-launch, {dt:.3f} s host wall, "
+          f"e/site={e:.6f} (exact {exact:.6f}, se {se:.6f}), <|m|> of the samples {m:.4f}", flush=True)
+    return counts["wl_resident"]
 
 
 def dense_tfim_energy(edges, h, gamma, beta, nvars):
@@ -481,42 +587,82 @@ def _device_times(prof, names, everything=False):
     return per, busy, span
 
 
+def _profile_line(prof, names, sweeps):
+    dev_t = _device_times(prof, names)
+    if dev_t is None:
+        return "per-launch device times: not measured (the profiler recorded no device time)"
+    per, busy, span = dev_t
+    return ("per launch " + ", ".join(f"{k} {np.mean(v):.3f} us x {len(v)}" for k, v in sorted(per.items()))
+            + f"; device busy {busy:.1f} of {span:.1f} us over {sweeps} sweeps, idle {100 * (1 - busy / span):.2f}%")
+
+
 def phase_timing_wl(dev, smi):
-    """Kernel and plain version at both main shapes (the torus in plain mode,
-    the chain in sampling mode), plain-kernel-kernel-plain with CUDA events;
-    then each launch's device time from torch.profiler. Returns
-    {shape: (kernel ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)}."""
+    """Worldline kernels and plain version at the main shapes (the torus in
+    plain and sampling mode on the multi-launch kernels, the chain in sampling
+    mode on both routes through the wrappers' private launchers), in turns with CUDA
+    events; each launch's device time from torch.profiler; then both routes at
+    the gate's edges. Returns {route: (ms/sweep, plain ms/sweep, bound
+    ms/sweep, bound_by)} for "torus" and "torus-sampling" (multi-launch, the
+    main paths' calls: 200 plain sweeps, and 20 sampled every 5), "chain"
+    (multi-launch) and "chain-resident"."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
+    lim = wl.device_limits(dev)
     out = {}
-    for key, (dense, nvars, R), freq, T, T_plain in (("torus", TORUS, 0, 200, 3), ("chain", CHAIN, 10, 2000, 20)):
+    for key, (dense, nvars, R), freq, T, T_plain in (("torus", TORUS, 0, 200, 3), ("torus-sampling", TORUS, 5, 20, 5),
+                                                     ("chain", CHAIN, 10, 2000, 20)):
         s, seeds = _wl_inputs(dense, nvars, R, 7, dev)
         tables = wl.make_tables(dense, nvars, WL_BETA, WL_GAMMA, 0.0, WL_LTAU, dev)
-        for fn in (wl.wl_sweeps, wl.wl_sweeps_reference):  # warm-up
-            fn(s, seeds, tables, 2, freq, 2 // freq if freq else 0)
-        k, p = in_turns(lambda: wl.wl_sweeps(s, seeds, tables, T, freq, T // freq if freq else 0),
-                        lambda: wl.wl_sweeps_reference(s, seeds, tables, T_plain, freq, T_plain // freq if freq else 0),
-                        T, T_plain)
-        times = {"kernel": k, "plain": p}
-        ms = {name: float(np.mean(v)) for name, v in times.items()}
+        plan = wl.resident_plan(nvars, WL_LTAU, R, wl.WL_PARAM_BYTES, *lim)
+
+        def ns(t):
+            return t // freq if freq else 0
+
+        def plain():
+            wl.wl_sweeps_reference(s, seeds, tables, T_plain, freq, ns(T_plain))
+
+        routes = {"multi-launch": lambda t: wl._run_multi(s, seeds, tables, t, freq, ns(t))}
+        if plan:
+            routes["resident"] = lambda t: wl._run_resident(s, seeds, tables, t, freq, ns(t), plan)
         spins = R * nvars * WL_LTAU
-        nbytes = 2 * spins + (R * nvars * (T // freq) if freq else 0)  # state in and out, samples out
+        nbytes = 2 * spins + R * nvars * ns(T)  # state in and out once per call, samples out
         b_ms, b_by = bound(nbytes / T, WL_OPS_PER_SPIN * spins)
-        out[key] = (ms["kernel"], ms["plain"], b_ms, b_by)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            wl.wl_sweeps(s, seeds, tables, 20, freq, 20 // freq if freq else 0)
-            torch.cuda.synchronize()
-        dev_t = _device_times(prof, ("wl_site", "wl_cluster", "wl_accumulate"))
-        if dev_t is None:
-            per_launch = "per-launch device times: not measured (the profiler recorded no device time)"
-        else:
-            per, busy, span = dev_t
-            per_launch = ("per launch " + ", ".join(f"{k} {np.mean(v):.3f} us" for k, v in sorted(per.items()))
-                          + f"; device busy {busy:.1f} of {span:.1f} us over 20 sweeps, idle {100 * (1 - busy / span):.2f}%")
-        print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={WL_LTAU}{' sampling freq=' + str(freq) if freq else ''}, "
-              f"on {smi}: kernel {ms['kernel']:.5f} ms/sweep = {spins / (ms['kernel'] * 1e6):.3f} spin updates/ns "
-              f"(runs {times['kernel']}); plain torch {ms['plain']:.5f} ms/sweep (runs {times['plain']}); "
-              f"bound {b_ms:.5f} ms/sweep ({b_by}); {per_launch}", flush=True)
+        for route, run in routes.items():
+            run(2)  # warm-up
+            wl.wl_sweeps_reference(s, seeds, tables, 2, freq, ns(2))
+            k, p = in_turns(lambda: run(T), plain, T, T_plain)
+            ms, plain_ms = float(np.mean(k)), float(np.mean(p))
+            out[key + ("-resident" if route == "resident" else "")] = (ms, plain_ms, b_ms, b_by)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run(20)
+                torch.cuda.synchronize()
+            names = ("wl_resident",) if route == "resident" else ("wl_site", "wl_cluster", "wl_accumulate")
+            print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={WL_LTAU}"
+                  f"{' sampling freq=' + str(freq) if freq else ''}, {route}, on {smi}: kernel {ms:.5f} ms/sweep = "
+                  f"{spins / (ms * 1e6):.3f} spin updates/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep "
+                  f"(runs {p}); bound {b_ms:.5f} ms/sweep ({b_by}); {_profile_line(prof, names, 20)}", flush=True)
+    # the gate's edges: both routes where the resident kernel fits, resident through its private launcher;
+    # tori of 24^2 to 48^2 sites at R = 16 and 64, at R = 264 (two waves of the 132 SMs) and at one full wave
+    edges = [(CHAIN[0], 256, 64, 824, 10), (CHAIN[0], 256, 64, 200, 20), (("ring", 32, -1.0), 32, 64, 1200, 10)]
+    edges += [(("torus", m, -1.0), m * m, R, 40, 50) for m in (24, 32, 36, 40, 48) for R in (16, 64)]
+    edges += [(("torus", m, -1.0), m * m, R, 40, 20) for m, R in ((24, 264), (32, 264), (48, 132))]
+    for dense, nvars, R, L, T in edges:
+        s, seeds = _wl_inputs(dense, nvars, R, 9, dev, L)
+        tables = wl.make_tables(dense, nvars, WL_BETA * L / WL_LTAU, WL_GAMMA, 0.0, L, dev)
+        fit = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim, None)  # the idle-sites threshold lifted
+        plan = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim)
+        wl._run_resident(s, seeds, tables, 2, 0, 0, fit)
+        wl._run_multi(s, seeds, tables, 2, 0, 0)
+        k, p = in_turns(lambda: wl._run_resident(s, seeds, tables, T, 0, 0, fit),
+                        lambda: wl._run_multi(s, seeds, tables, T, 0, 0), T, T)
+        faster = "resident" if np.mean(k) < np.mean(p) else "multi-launch"
+        gate = "resident" if plan else "multi-launch"
+        sms = lim[1]
+        idle = nvars * (-(-R // sms) * sms - R) / sms
+        print(f"timing-wl: gate edge {dense[0]} n={nvars} R={R} L_tau={L} (tile {fit[0]} of {nvars // 2} lines, "
+              f"{idle:.1f} idle sites), "
+              f"on {smi}: resident {np.mean(k):.5f} ms/sweep (runs {k}), multi-launch {np.mean(p):.5f} ms/sweep "
+              f"(runs {p}); faster: {faster}; the gate picks {gate}", flush=True)
     return out
 
 
@@ -538,32 +684,44 @@ def pt_ladder(dev, side=PT_SIDE):
     return lt
 
 
+def _ladder_edges(kind, size):
+    """The union edges (ea, eb) of a ring or torus ladder, as numpy arrays."""
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+
+    if kind == "ring":
+        return np.arange(size), (np.arange(size) + 1) % size
+    g = grid_2d_edges(size, size)
+    return np.array([a for (a, _), _ in g]), np.array([b for (_, b), _ in g])
+
+
 def _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, seed, dev):
     """Random worldlines constant along tau, per-sweep seeds [T, R] from a
-    split key chain, and the planes."""
-    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+    split key chain, the planes, and the union edges as int32 device arrays."""
     from pyisingmontecarlo_tpu_torch.ops import ladder
     from pyisingmontecarlo_tpu_torch.rng import key_data_from_seeds, random_states
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
     nvars = size if kind == "ring" else size * size
-    if kind == "ring":
-        ea, eb = np.arange(size), (np.arange(size) + 1) % size
-    else:
-        g = grid_2d_edges(size, size)
-        ea, eb = np.array([a for (a, _), _ in g]), np.array([b for (_, b), _ in g])
+    ea, eb = _ladder_edges(kind, size)
     R = len(betas)
     kd = key_data_from_seeds(np.random.default_rng(seed).integers(0, 2**64, R, dtype=np.uint64))
     s = torch.from_numpy(random_states(kd, nvars)).to(dev)[:, :, None].expand(R, nvars, L).contiguous()
     seeds = torch.from_numpy(key_tables(kd, kd[0], T, 2**31 - 1)[0]).to(dev)
     planes = ladder.build_planes(kind, size, nvars, ea, eb, jv, betas, gammas, hs, L, dev)
-    return s, seeds, planes
+    edges = tuple(torch.from_numpy(e.astype(np.int32)).to(dev) for e in (ea, eb))
+    return s, seeds, planes, edges
 
 
 def phase_compare_ladder(dev):
-    """Ladder kernel vs plain version on the card; returns the largest |difference|."""
-    from pyisingmontecarlo_tpu_torch.ops import ladder
+    """Ladder kernels vs the plain version on the card, in states and swap
+    features: the route the gate picks (or the resident kernel through its
+    private launcher where it fits but the gate leaves the shape to the
+    multi-launch kernels) and the multi-launch kernels, each against the plain
+    version and against each other; returns (largest |difference| of the
+    multi-launch kernels, of the resident kernel)."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
 
+    lim = wl.device_limits(dev)
     rng = np.random.default_rng(11)
     dyadic = np.where(rng.random((4, 8)) < 0.25, 0.0, rng.choice([-1.0, -0.5, 0.5, 1.0], (4, 8)))
     glass = np.array([j for _, j in pt_edges(PT_SIDE)])
@@ -576,31 +734,57 @@ def phase_compare_ladder(dev):
          [0.2] * 4, 40, 4),
         ("long L_tau=1200 (two-level frozen sums) ring 32 R=2", "ring", 32, np.full(32, -1.0), [60.0, 60.0],
          [0.05, 0.05], [0.1, -0.1], 1200, 3),
+        ("L_tau=4 ring 8 R=1 h=0.2", "ring", 8, np.full(8, -1.0), [0.3], [1.0], [0.2], 4, 5),
+        ("odd R: torus 12^2 +-J R=5 h=-0.2", "torus", 12, glass, np.geomspace(0.5, 2.0, 5), [1.0] * 5, [-0.2] * 5,
+         40, 3),
+        ("torus 24^2 +-1 R=3", "torus", 24, rng.choice([-1.0, 1.0], 2 * 24 * 24), [0.8, 1.2, 1.6], [1.0] * 3,
+         [0.0] * 3, 40, 3),
+        ("torus 48^2 R=2 (fits; the gate leaves it to the multi-launch kernels)", "torus", 48,
+         np.full(2 * 48 * 48, -1.0), [1.0, 1.5], [1.0] * 2, [0.1] * 2, 40, 3),
         (f"bench shape torus 12^2 +-J R={PT_R} L_tau={PT_LTAU}", "torus", 12, glass, bench, [1.0] * PT_R,
          [0.0] * PT_R, PT_LTAU, 4),
+        (f"wide ladder torus 64^2 +-J R={PT_R} L_tau={PT_LTAU} (main-tempering-wide's shape)", "torus", 64,
+         np.array([j for _, j in pt_edges(64)]), bench, [1.0] * PT_R, [0.0] * PT_R, PT_LTAU, 2),
     ]
-    worst = 0
+    worst = {"multi": 0, "resident": 0}
     for k, (name, kind, size, jv, betas, gammas, hs, L, T) in enumerate(cases):
-        s, seeds, planes = _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, 200 + k, dev)
-        got = ladder.ladder_sweeps(s, seeds, planes, T)
-        want = ladder.ladder_sweeps_reference(s, seeds, planes, T)
+        s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, 200 + k, dev)
+        nvars = s.shape[1]
+        pbytes = ladder.param_bytes(kind, nvars)
+        R = s.shape[0]
+        plan, fit = wl.resident_plan(nvars, L, R, pbytes, *lim), wl.resident_plan(nvars, L, R, pbytes, *lim, None)
+        x, feats = ladder.ladder_sweeps_reference(s, seeds, planes, T, edges)
+        want = (x, *feats)
+        x = ladder._run_multi(s, seeds, planes, T)
+        runs = {"multi": (x, ladder.swap_features(x, *edges))}
+        if plan:
+            runs["resident"] = ladder.ladder_sweeps(s, seeds, planes, T, edges)  # the wrapper's own route
+        elif fit:
+            runs["resident"] = ladder._run_resident(s, seeds, planes, T, edges, fit)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max().item())
-        check(torch.equal(got, want), f"{name}: kernel != plain (max |diff| {err}, "
-                                      f"{int((got != want).sum())} of {got.numel()} spins)")
+        flat = {route: (y, *f) for route, (y, f) in runs.items()}
+        for route, got in flat.items():
+            same, err = _equal_all(got, want)
+            check(same, f"{name}: {route} != plain (max |diff| {err}, "
+                        f"{int((got[0] != want[0]).sum())} of {want[0].numel()} spins)")
+            worst[route] = max(worst[route], err)
+        if "resident" in flat:
+            same, err = _equal_all(flat["resident"], flat["multi"])
+            check(same, f"{name}: resident != multi-launch (max |diff| {err})")
+        got = runs["multi"][0]
         moved = float((got != s).float().mean())
         check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
         frozen = float((got == got[:, :, :1]).all(2).float().mean())
-        worst = max(worst, err)
-        print(f"compare-ladder: {name}, T={T}: bit-identical; {moved:.3f} of spins moved, "
-              f"{frozen:.3f} of lines constant in tau", flush=True)
-    return worst
+        route = ("resident (gate) == multi-launch" if plan else
+                 "resident (private launcher) == multi-launch" if fit else "multi-launch (does not fit)")
+        print(f"compare-ladder: {name}, T={T}: {route} == plain, bit-identical (spins, features); resident plan "
+              f"{plan or fit}; {moved:.3f} of spins moved, {frozen:.3f} of lines constant in tau", flush=True)
+    return worst["multi"], worst["resident"]
 
 
 def phase_main_tempering(dev):
     """The tempering path through the user's entry point at the bench ladder;
     returns the launch count."""
-    from pyisingmontecarlo_tpu_torch.ops import ladder
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
     lt = pt_ladder(dev)
@@ -619,8 +803,8 @@ def phase_main_tempering(dev):
         torch.cuda.synchronize()
         wall[T] = [time.perf_counter() - t0]
     counts = read_counts()
-    want = ladder.LAUNCHES_PER_SWEEP * 2500
-    check(counts == {"sq2d": 0, "wl": 0, "ladder": want}, f"launch counts {counts}, want ladder {want}")
+    want = counts_only(ladder_resident=2500)  # one resident launch per sweep
+    check(counts == want, f"launch counts {counts}, want {want}")
     swaps = lt.get_total_swaps()
     for T, (states, es) in out.items():
         check(states.shape == (PT_R, T, PT_SIDE**2) and states.dtype == np.bool_, f"states {states.shape}")
@@ -637,12 +821,38 @@ def phase_main_tempering(dev):
     dt = min(wall[2000]) - min(wall[500])
     sweeps, attempts = 1500, 1500 * (PT_R - 1) / 2
     print(f"main-tempering: LatticeTempering.qmc_timesteps_sample(500, then 2000, replica_swap_freq=1) on the "
-          f"12^2 +-J glass, {PT_R} replicas, L_tau={PT_LTAU}: {counts['ladder']} launches, {swaps} accepted swaps; "
+          f"12^2 +-J glass, {PT_R} replicas, L_tau={PT_LTAU}: {counts['ladder_resident']} resident launches, "
+          f"0 multi-launch, {swaps} accepted swaps; "
           f"host wall {wall[500][0]:.3f} s + {wall[2000][0]:.3f} s (materialize {setup:.3f} s; the seed and "
           f"uniform tables of 2000 sweeps {tables:.3f} s); slope {sweeps / dt:.2f} sweeps/s = "
           f"{attempts / dt:.1f} swap attempts/s (runs {wall}); <E> beta=0.2..0.26 {es[:8].mean():.4f}, "
           f"beta=2.3..3.0 {es[-8:].mean():.4f}", flush=True)
-    return counts["ladder"], sweeps / dt, attempts / dt
+    return counts["ladder_resident"], sweeps / dt, attempts / dt
+
+
+def phase_main_tempering_wide(dev):
+    """The tempering path on the same ladder over a 64^2 +-J torus, whose
+    plane (245 KB a replica) the gate leaves to the multi-launch kernels;
+    returns the launch count."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder
+
+    T, side = 5, 64
+    lt = pt_ladder(dev, side=side)
+    lt._materialize()
+    reset_counts()
+    t0 = time.perf_counter()
+    states, es = lt.qmc_timesteps_sample(T, replica_swap_freq=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T)
+    check(counts == want, f"launch counts {counts}, want {want}")
+    check(states.shape == (PT_R, T, side * side) and states.dtype == np.bool_, f"states {states.shape}")
+    check(es.shape == (PT_R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape}")
+    print(f"main-tempering-wide: LatticeTempering.qmc_timesteps_sample({T}, replica_swap_freq=1) on a {side}^2 "
+          f"+-J glass, {PT_R} replicas, L_tau={PT_LTAU}: {counts['ladder']} multi-launch launches, "
+          f"{lt.get_total_swaps()} accepted swaps, {dt:.3f} s host wall", flush=True)
+    return counts["ladder"]
 
 
 def phase_physics_tempering(dev):
@@ -669,53 +879,95 @@ def phase_physics_tempering(dev):
 
 
 def phase_timing_ladder(dev, smi):
-    """Kernel and plain version at the bench shape (plain, kernel, kernel,
-    plain, CUDA events), the device times of whole tempering steps
-    (torch.profiler), and the kernel on a 64^2 +-J torus. Returns (kernel
-    ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)."""
-    from pyisingmontecarlo_tpu_torch.ops import ladder
+    """Ladder kernels and plain version through the wrappers' private
+    launchers (plain, kernel, kernel, plain, CUDA events): at the bench shape
+    200-sweep calls on both routes, and one-sweep calls with features as the
+    main path makes them; the device times of whole tempering steps
+    (torch.profiler); the multi-launch kernels and the plain version at
+    main-tempering-wide's 64^2 +-J shape. Returns {route: (ms/sweep, plain
+    ms/sweep, bound ms/sweep, bound_by)} for "multi-launch" and "resident" at
+    the bench shape and "multi-launch-wide" at 64^2 (the bound as the main
+    path calls the kernel: once per sweep)."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
+    def setup(side, T):
+        lt = pt_ladder(dev, side=side)
+        m = lt._materialize()
+        seeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
+        return lt, m["s"], seeds, m["planes"], (m["ea"], m["eb"])
+
+    def bounds(side, features):
+        """(ms, bound_by) of one sweep as the main path calls the kernel:
+        state in and out, seeds and parameters in, and, for the resident
+        route, the features [R, E + 2] int32 out."""
+        nvars = side * side
+        spins = PT_R * nvars * PT_LTAU
+        nbytes = 2 * spins + 4 * PT_R + 4 * PT_R * 2 * nvars + 16 * PT_R + features * 4 * PT_R * (2 * nvars + 2)
+        return bound(nbytes, LADDER_INT_OPS_PER_SPIN * spins, LADDER_F32_OPS_PER_SPIN * spins)
+
     T, T_plain = 200, 3
-    lt = pt_ladder(dev)
-    m = lt._materialize()
-    s, planes = m["s"], m["planes"]
-    seeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
-    for fn in (ladder.ladder_sweeps, ladder.ladder_sweeps_reference):  # warm-up
-        fn(s, seeds[:2], planes, 2)
-    k, p = in_turns(lambda: ladder.ladder_sweeps(s, seeds, planes, T),
-                    lambda: ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain), T, T_plain)
-    ms, plain_ms = float(np.mean(k)), float(np.mean(p))
-    R, nvars = PT_R, PT_SIDE**2
-    spins = R * nvars * PT_LTAU
-    # the main path calls the kernel once per sweep: state in and out, seeds and parameters in
-    nbytes = 2 * spins + 4 * R + 4 * R * 2 * nvars + 16 * R
-    b_ms, b_by = bound(nbytes, LADDER_INT_OPS_PER_SPIN * spins, LADDER_F32_OPS_PER_SPIN * spins)
+    lt, s, seeds, planes, edges = setup(PT_SIDE, T)
+    nvars = PT_SIDE**2
+    spins = PT_R * nvars * PT_LTAU
+    plan = wl.resident_plan(nvars, PT_LTAU, PT_R, ladder.param_bytes("torus", nvars), *wl.device_limits(dev))
+
+    def multi_with_features(t):
+        x = ladder._run_multi(s, seeds[:t], planes, t)
+        return x, ladder.swap_features(x, *edges)
+
+    routes = {"multi-launch": (lambda t: ladder._run_multi(s, seeds[:t], planes, t), multi_with_features),
+              "resident": (lambda t: ladder._run_resident(s, seeds[:t], planes, t, edges, plan),) * 2}
+
+    def plain():
+        ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain, edges)
+
+    out = {}
+    for route, (run, run_features) in routes.items():
+        run_features(2)  # warm-up
+        ladder.ladder_sweeps_reference(s, seeds[:2], planes, 2, edges)
+        k, p = in_turns(lambda: run(T), plain, T, T_plain)
+        out[route] = (float(np.mean(k)), float(np.mean(p)), *bounds(PT_SIDE, route == "resident"))
+
+        def one_sweep_calls():
+            for _ in range(T):
+                run_features(1)
+
+        one, _ = in_turns(one_sweep_calls, lambda: None, T, 1)
+        print(f"timing-ladder: bench shape {PT_R} x {nvars} x {PT_LTAU} ({spins} spins), {route}, on {smi}: "
+              f"{T}-sweep call {out[route][0]:.5f} ms/sweep = {spins / (out[route][0] * 1e6):.3f} spin updates/ns "
+              f"(runs {k}); one-sweep calls with features {np.mean(one):.5f} ms/sweep (runs {one}); "
+              f"plain torch {out[route][1]:.5f} ms/sweep (runs {p}); bound {out[route][2]:.5f} ms/sweep "
+              f"({out[route][3]}, once per sweep)", flush=True)
     lt.qmc_timesteps_sample(4, replica_swap_freq=1)  # warm-up
     steps = 20
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         lt.qmc_timesteps_sample(steps, replica_swap_freq=1)
         torch.cuda.synchronize()
-    dev_t = _device_times(prof, ("ladder_site", "ladder_cluster"), everything=True)
+    dev_t = _device_times(prof, ("ladder_resident", "ladder_site", "ladder_cluster"), everything=True)
     if dev_t is None:
         step = "device times of a tempering step: not measured (the profiler recorded no device time)"
     else:
         per, busy, span = dev_t
-        step = (f"over {steps} tempering steps (sweep, features, swap): "
+        step = (f"over {steps} tempering steps (sweep with features, swap): "
                 + ", ".join(f"{n} {np.mean(v):.3f} us x {len(v)} = {np.sum(v):.1f} us"
                             for n, v in sorted(per.items()))
-                + f"; device busy {busy:.1f} of {span:.1f} us, idle {100 * (1 - busy / span):.2f}%")
-    big = pt_ladder(dev, side=64)
-    mb = big._materialize()
-    seeds_b = torch.from_numpy(key_tables(mb["key_data"], big._swapkey, 20, 2**31 - 1)[0]).to(dev)
-    ladder.ladder_sweeps(mb["s"], seeds_b[:2], mb["planes"], 2)
-    kb, _ = in_turns(lambda: ladder.ladder_sweeps(mb["s"], seeds_b, mb["planes"], 20), lambda: None, 20, 1)
-    spins_b = R * 64 * 64 * PT_LTAU
-    print(f"timing-ladder: bench shape {R} x {nvars} x {PT_LTAU} ({spins} spins), on {smi}: kernel {ms:.5f} ms/sweep "
-          f"= {spins / (ms * 1e6):.3f} spin updates/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep (runs {p}); "
-          f"bound {b_ms:.5f} ms/sweep ({b_by}); {step}; 64^2 +-J torus, same ladder ({spins_b} spins): kernel "
-          f"{np.mean(kb):.5f} ms/sweep = {spins_b / (np.mean(kb) * 1e6):.3f} spin updates/ns (runs {kb})", flush=True)
-    return ms, plain_ms, b_ms, b_by
+                + f"; device busy {busy:.1f} of {span:.1f} us, idle {100 * (1 - busy / span):.2f}%; "
+                f"{PT_R} of {torch.cuda.get_device_properties(dev).multi_processor_count} SMs hold a resident block")
+    print(f"timing-ladder: tempering steps on {smi}: {step}", flush=True)
+    # main-tempering-wide's shape: the multi-launch kernels in 20-sweep calls against the plain version
+    side, T, T_plain = 64, 20, 2
+    _, s, seeds, planes, edges = setup(side, T)
+    spins = PT_R * side * side * PT_LTAU
+    ladder._run_multi(s, seeds[:2], planes, 2)  # warm-up
+    k, p = in_turns(lambda: ladder._run_multi(s, seeds, planes, T),
+                    lambda: ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain, edges), T, T_plain)
+    out["multi-launch-wide"] = (float(np.mean(k)), float(np.mean(p)), *bounds(side, False))
+    print(f"timing-ladder: {side}^2 +-J torus, {PT_R} x {side * side} x {PT_LTAU} ({spins} spins), multi-launch, on "
+          f"{smi}: {T}-sweep call {np.mean(k):.5f} ms/sweep = {spins / (np.mean(k) * 1e6):.3f} spin updates/ns "
+          f"(runs {k}); plain torch {np.mean(p):.5f} ms/sweep (runs {p}); bound "
+          f"{out['multi-launch-wide'][2]:.5f} ms/sweep ({out['multi-launch-wide'][3]}, once per sweep)", flush=True)
+    return out
 
 
 def main():
@@ -727,32 +979,41 @@ def main():
     launches = phase_main(dev)
     phase_physics(dev)
     ms, plain_ms = phase_timing(dev, smi)
-    wl_err = phase_compare_wl(dev)
+    wl_err, wl_res_err = phase_compare_wl(dev)
     wl_launches = phase_main_quantum(dev)
+    wl_sample_launches = phase_main_quantum_sampling(dev)
     chain_launches = phase_main_chain(dev)
     phase_physics_wl(dev)
     wl_t = phase_timing_wl(dev, smi)
-    ladder_err = phase_compare_ladder(dev)
-    ladder_launches, _, _ = phase_main_tempering(dev)
+    ladder_err, ladder_res_err = phase_compare_ladder(dev)
+    ladder_res_launches, _, _ = phase_main_tempering(dev)
+    ladder_launches = phase_main_tempering_wide(dev)
     phase_physics_tempering(dev)
     ladder_t = phase_timing_ladder(dev, smi)
     sites = BENCH_R * BENCH_L**2
     sq_bound, sq_by = bound(2 * sites / 1024, SQ2D_OPS_PER_SITE * sites)  # per sweep of a 1024-sweep call
     wl_src, wl_tpu = "pyisingmontecarlo_tpu_torch/csrc/wl.cu", "pyisingmontecarlo_tpu/ops/wl_pallas.py"
+    ladder_src, ladder_tpu = ("pyisingmontecarlo_tpu_torch/csrc/ladder.cu",
+                              "pyisingmontecarlo_tpu/ops/wl_ladder_pallas.py:157")
+
+    def timed(t):
+        return dict(ms=t[0], plain_ms=t[1], bound_ms=t[2], bound_by=t[3], library_ms=None)
+
     kernels = [
         dict(name="sq2d_phase", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/sq2d.cu",
              replaces="pyisingmontecarlo_tpu/ops/sq2d_pallas.py:159", launches=launches, max_abs_err=err,
              ms=ms, plain_ms=plain_ms, bound_ms=sq_bound, bound_by=sq_by, library_ms=None),
         dict(name="wl_site+wl_cluster+wl_accumulate (plain sweeps)", route="cuda", source=wl_src,
-             replaces=f"{wl_tpu}:330", launches=wl_launches, max_abs_err=wl_err, ms=wl_t["torus"][0],
-             plain_ms=wl_t["torus"][1], bound_ms=wl_t["torus"][2], bound_by=wl_t["torus"][3], library_ms=None),
+             replaces=f"{wl_tpu}:330", launches=wl_launches, max_abs_err=wl_err, **timed(wl_t["torus"])),
         dict(name="wl_site+wl_cluster+wl_accumulate (sampling mode)", route="cuda", source=wl_src,
-             replaces=f"{wl_tpu}:346", launches=chain_launches, max_abs_err=wl_err, ms=wl_t["chain"][0],
-             plain_ms=wl_t["chain"][1], bound_ms=wl_t["chain"][2], bound_by=wl_t["chain"][3], library_ms=None),
-        dict(name="ladder_site+ladder_cluster", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/ladder.cu",
-             replaces="pyisingmontecarlo_tpu/ops/wl_ladder_pallas.py:157", launches=ladder_launches,
-             max_abs_err=ladder_err, ms=ladder_t[0], plain_ms=ladder_t[1], bound_ms=ladder_t[2],
-             bound_by=ladder_t[3], library_ms=None),
+             replaces=f"{wl_tpu}:346", launches=wl_sample_launches, max_abs_err=wl_err,
+             **timed(wl_t["torus-sampling"])),
+        dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
+             launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
+        dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
+             launches=chain_launches, max_abs_err=wl_res_err, **timed(wl_t["chain-resident"])),
+        dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
+             launches=ladder_res_launches, max_abs_err=ladder_res_err, **timed(ladder_t["resident"])),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -760,5 +1021,66 @@ def main():
     }}), flush=True)
 
 
+def rates():
+    """The end-to-end main paths of the package first on sys.path, as JSON:
+    the tempering bench's slope (min of two runs at t = 500 and 2000, as
+    main-tempering takes it) and the chain's sampling call (min of two)."""
+    from pyisingmontecarlo_tpu_torch import Lattice, __file__ as pkg
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    lt = pt_ladder(dev)
+    lt.qmc_timesteps_sample(20, replica_swap_freq=1)  # build and warm up
+    wall = {500: [], 2000: []}
+    for _ in range(2):
+        for T in (500, 2000):
+            t0 = time.perf_counter()
+            lt.qmc_timesteps_sample(T, replica_swap_freq=1)
+            torch.cuda.synchronize()
+            wall[T].append(time.perf_counter() - t0)
+    slope = 1500 / (min(wall[2000]) - min(wall[500]))
+    (_, n, R), chain = CHAIN, []
+    lat = Lattice([((i, (i + 1) % n), -1.0) for i in range(n)], seed_gen=0, device=dev)
+    lat.set_transverse_field(WL_GAMMA)
+    lat.run_quantum_monte_carlo_sampling(WL_BETA, 20, R, sampling_wait_buffer=5, sampling_freq=10)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        lat.run_quantum_monte_carlo_sampling(WL_BETA, 2000, R, sampling_wait_buffer=500, sampling_freq=10)
+        torch.cuda.synchronize()
+        chain.append(time.perf_counter() - t0)
+    print(json.dumps({"package": str(Path(pkg).parent.parent), "tempering_sweeps_per_s": slope,
+                      "tempering_runs_s": wall, "chain_sampling_call_s": min(chain), "chain_runs_s": chain}),
+          flush=True)
+
+
+def ab(other, pairs=10):
+    """``rates`` of the package in ``other`` and of this one, each in a process
+    of its own, ``pairs`` runs a side in the order other, this, this, other;
+    then each side's median and quartiles and the pairs this one won."""
+    smi = phase_gpu()
+    runs = {"other": [], "this": []}
+    for _ in range(pairs // 2):
+        for side, root in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
+            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--rates", str(Path(root).resolve())],
+                                 capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                raise RuntimeError(f"rates of {root} failed ({out.returncode}):\n{out.stdout}{out.stderr}")
+            line = out.stdout.strip().splitlines()[-1]
+            runs[side].append(json.loads(line))
+            print(f"ab on {smi}: {line}", flush=True)
+    for key, higher in (("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False)):
+        a, b = (np.array([r[key] for r in runs[side]]) for side in ("other", "this"))
+        won = int(((b > a) if higher else (b < a)).sum())
+        print(f"ab on {smi}: {key}: {Path(other).resolve()} median {np.median(a)} (quartiles "
+              f"{np.percentile(a, 25)}, {np.percentile(a, 75)}); this median {np.median(b)} (quartiles "
+              f"{np.percentile(b, 25)}, {np.percentile(b, 75)}); this one won {won} of {len(a)} pairs", flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rates"]:
+        sys.path.insert(0, sys.argv[2])
+        rates()
+    elif sys.argv[1:2] == ["--ab"]:
+        ab(sys.argv[2])
+    else:
+        main()

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "load", "error_string"]
+__all__ = ["build", "load", "error_string", "smem_optin"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -32,6 +32,9 @@ _SIGNATURES = {
     "sq2d_sweeps": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "wl_sweeps": ([_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "ladder_sweeps": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
+    "wl_resident_sweeps": ([_P, _P, _P, _P, _I, _P, _P] + [_I] * 10 + [_P], ctypes.c_int),
+    "ladder_resident_sweeps": ([_P] * 10 + [_I] * 9 + [_P], ctypes.c_int),
+    "pmc_smem_optin": ([_I], ctypes.c_int),
     "pmc_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -105,3 +108,12 @@ def load() -> ctypes.CDLL:
 def error_string(code: int) -> str:
     """``cudaGetErrorString`` of a code returned by a C entry."""
     return load().pmc_error_string(code).decode()
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device: int) -> int:
+    """The opt-in shared memory per block of CUDA device ``device``, in bytes."""
+    v = load().pmc_smem_optin(int(device))
+    if v < 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: {error_string(-v)} ({-v})")
+    return v

@@ -10,7 +10,20 @@
 // Layout: s[R, nvars, L] int8 (a time line is L contiguous bytes, as in
 // wl.cu); couplings J[R, ndir, nvars] f32, each site's outgoing bonds (ring:
 // J(i -> i+1); torus: J(i -> y+1), then J(i -> x+1)); dt, kt, h, pb [R] f32.
-// One sweep is six launches on the caller's stream:
+// Two routes, chosen by shape alone (ops/ladder.py, through
+// ops/wl.resident_plan):
+//
+// Resident (ladder_resident, one launch per call): one block per replica
+// holds its plane, its couplings J[r] and its neighbour tables in shared
+// memory for all T sweeps (resident.cuh), sweep t keyed by row t of the seeds;
+// four site phases and two cluster phases (res_cluster) a sweep. After the
+// last sweep the block writes the swap features of the state it leaves,
+// feat[r] = (P per union edge (ea, eb) summed over tau, S the spin sum, A the
+// aligned time bonds), int32, which LatticeTempering reads in place of
+// computing them with torch operations.
+//
+// Multi-launch (planes too large for a block, such as a 64^2 torus at
+// L_tau = 60, 245 KB a replica), six launches a sweep on the caller's stream:
 //
 // - ladder_site, four times (site color x tau parity): one thread per active
 //   (r, i, tau), in place. Glauber acceptance in logit form,
@@ -34,15 +47,18 @@
 // heads' draws and logs depend on the data and are not counted. At the
 // tempering bench shape (64 replicas x 144 sites x L_tau 60 = 0.55 M spins)
 // that is about 0.9 us of integer issue at 33.5 T op/s per sweep, while the
-// 0.55 MB state stays in L2. Each launch lasts a few microseconds, so launch
-// latency and the gaps between the six launches set the time there, as at
-// wl.cu's 256-chain. Left for later: one launch per sweep with a replica
-// resident in a block, CUDA graphs, the swap's features fused in.
+// 0.55 MB state stays in L2. The multi-launch route's six launches last a few
+// microseconds each and its cluster phase is a serial walk on 4608 lines per
+// color, latency-bound; the resident route takes that shape with no launch
+// between phases, every thread busy in the cluster phase, the state read and
+// written once per call, and the features computed from shared memory. At
+// R = 64 it fills 64 of the 132 SMs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "lanerng.cuh"
+#include "resident.cuh"
 #include "worldline.cuh"
 
 namespace {
@@ -130,6 +146,97 @@ __global__ void __launch_bounds__(kLineBlock) ladder_cluster(
         });
 }
 
+// field() on the resident plane: Js is the replica's [ndir, nvars] couplings
+// in shared memory, n site i's neighbours (ring i+1, i-1; torus x+1, x-1,
+// y+1, y-1); the same operations in the same order.
+__device__ __forceinline__ float res_field(const int8_t* pl, const float* Js, ushort4 n, int torus, int nvars,
+                                           int L, int i, int t) {
+    if (!torus)
+        return __fadd_rn(__fmul_rn(Js[i], (float)pl[n.x * L + t]), __fmul_rn(Js[n.y], (float)pl[n.y * L + t]));
+    const float* J2 = Js + nvars;
+    float f = __fadd_rn(__fmul_rn(Js[i], (float)pl[n.z * L + t]), __fmul_rn(Js[n.w], (float)pl[n.w * L + t]));
+    f = __fadd_rn(f, __fmul_rn(J2[i], (float)pl[n.x * L + t]));
+    return __fadd_rn(f, __fmul_rn(J2[n.y], (float)pl[n.y * L + t]));
+}
+
+// grid: one block per replica (resident.cuh), T sweeps, then the features of
+// the final state into feat [R, E + 2] int32 (per-edge bond products, spin
+// sum, aligned time bonds).
+__global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int R, int T, int tile,
+    const int32_t* __restrict__ ea, const int32_t* __restrict__ eb, int E, int32_t* __restrict__ feat) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    Res b;
+    b.base = smem;
+    const int r = blockIdx.x, tid = threadIdx.x;
+    const int L = g.L, nvars = g.nvars, half = g.nvars >> 1;
+    int8_t* gs = s + (size_t)r * nvars * L;
+    res_load(b, gs, g, ndir * nvars * 4, tile);
+    float* Js = reinterpret_cast<float*>(b.params());
+    for (int k = tid; k < ndir * nvars; k += kResThreads) Js[k] = q.J[(size_t)r * ndir * nvars + k];
+    const float dt = q.dt[r], kt = q.kt[r], h = q.h[r], pb = q.pb[r];
+    __syncthreads();
+    int8_t* pl = b.pl();
+    const ushort4* nb = b.nb();
+    const Walk sw(L >> 1), lw(L);
+    for (int t = 0; t < T; ++t) {
+        const uint32_t seed = (uint32_t)seeds[(size_t)t * R + r];
+        for (int color = 0; color < 2; ++color)
+            for (int parity = 0; parity < 2; ++parity) {
+                const uint32_t ctr = 2 * color + parity;
+                const uint16_t* sites = b.sites() + color * half;
+                for (Walk w = sw; w.row < half; w.next()) {
+                    const int i = sites[w.row], tau = 2 * w.col + parity;
+                    int8_t* lp = pl + i * L;
+                    const int sv = lp[tau];
+                    const float ud = (float)(lp[tau + 1 == L ? 0 : tau + 1] + lp[tau == 0 ? L - 1 : tau - 1]);
+                    const float F = res_field(pl, Js, nb[i], g.torus, nvars, L, i, tau);
+                    const float inner = __fsub_rn(__fmul_rn(dt, __fadd_rn(F, h)), __fmul_rn(kt, ud));
+                    const float dE = __fmul_rn(-2.0f * (float)sv, inner);
+                    const float u = uniform(lane_draw31(seed, (uint32_t)(tau * nvars + i), ctr));
+                    if (__fsub_rn(logf(u), logf(__fsub_rn(1.0f, u))) < -dE) lp[tau] = (int8_t)(-sv);
+                }
+                __syncthreads();
+            }
+        for (int color = 0; color < 2; ++color) {
+            const uint32_t ctr = 4 + 2 * color;
+            res_cluster(
+                b, sw, color,
+                [&](int i, int t) { return uniform(lane_draw31(seed, (uint32_t)(t * nvars + i), ctr)) < pb; },
+                [&](int i, int t, int sv) {
+                    return __fmul_rn(__fmul_rn(-2.0f * (float)sv, dt),
+                                     __fadd_rn(res_field(pl, Js, nb[i], g.torus, nvars, L, i, t), h));
+                },
+                [&](int i, int head, float de) {
+                    return logf(uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1))) < -de;
+                });
+        }
+    }
+    // the features of the state the launch leaves
+    int32_t* f = feat + (size_t)r * (E + 2);
+    for (int e = tid; e < E; e += kResThreads) {
+        const int8_t* a = pl + ea[e] * L;
+        const int8_t* c = pl + eb[e] * L;
+        int p = 0;
+        for (int t = 0; t < L; ++t) p += a[t] * c[t];
+        f[e] = p;
+    }
+    int S = 0, A = 0;
+    for (Walk w = lw; w.row < nvars; w.next()) {
+        const int sv = pl[w.e];
+        S += sv;
+        A += sv == pl[w.col + 1 == L ? w.e - w.col : w.e + 1];
+    }
+    res_block_add(b.red(), 0, S);
+    res_block_add(b.red(), 1, A);
+    __syncthreads();
+    if (tid == 0) {
+        f[E] = b.red()[0];
+        f[E + 1] = b.red()[1];
+    }
+    res_store(b, gs);
+}
+
 }  // namespace
 
 // Runs T sweeps (6 T launches) on `stream` on s[R, nvars, L]; seeds is
@@ -169,4 +276,27 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
         }
     }
     return 0;
+}
+
+// The resident route: T sweeps in one launch of R blocks on `stream`, then the
+// features of the final state into feat [R, E + 2] int32 (ea, eb [E] int32
+// site indices in [0, nvars)); tile and smem as ops/wl.resident_plan gives
+// them (refused unless they match this file's layout). The other arguments
+// as ladder_sweeps.
+extern "C" int ladder_resident_sweeps(void* s, const void* seeds, const void* J, const void* dt, const void* kt,
+                                      const void* h, const void* pb, const void* ea, const void* eb, void* feat,
+                                      int R, int nvars, int L, int torus, int size, int T, int E, int tile, int smem,
+                                      void* stream) {
+    const int ndir = torus ? 2 : 1;
+    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || nvars > 65535 || tile < 1 || tile > nvars / 2 ||
+        E < 0 || res_layout(nvars, L, ndir * nvars * 4, tile).bytes != smem)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(ladder_resident, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    const Params q{static_cast<const float*>(J), static_cast<const float*>(dt), static_cast<const float*>(kt),
+                   static_cast<const float*>(h), static_cast<const float*>(pb)};
+    ladder_resident<<<R, kResThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int8_t*>(s), static_cast<const int32_t*>(seeds), q, Geo{torus, size, nvars, L}, ndir, R, T, tile,
+        static_cast<const int32_t*>(ea), static_cast<const int32_t*>(eb), E, static_cast<int32_t*>(feat));
+    return (int)cudaGetLastError();
 }

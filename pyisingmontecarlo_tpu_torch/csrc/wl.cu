@@ -10,7 +10,23 @@
 // pyisingmontecarlo_tpu_torch/ops/wl.py.
 //
 // Layout: the state is s[R, nvars, L] int8, so a replica's time line (r, i)
-// is L contiguous bytes. One sweep is seven launches on the caller's stream:
+// is L contiguous bytes. Two routes, chosen by shape alone (ops/wl.py,
+// resident_plan: the plane and a cluster tile of at least one line per
+// thread, or every line, in the card's opt-in shared memory per block, and at
+// most RESIDENT_IDLE_SITES sites that the idle SMs of the launch's last wave
+// could have swept, where the resident route is the faster on an H100):
+//
+// Resident (wl_resident, one launch per call): one block of kResThreads per
+// replica holds its plane in shared memory for all T sweeps (resident.cuh):
+// four site phases (the block strides over the active (site, tau)), two
+// cluster phases (res_cluster: parallel pointer doubling in the JAX kernel's
+// order), then the accumulation, each thread keeping its int64 sums of bond
+// products, spins and aligned time bonds in registers, added to acc [R, 3]
+// once per launch; in sampling mode slice 0 goes to the sample slot after
+// every freq-th sweep. 2 ceil(log2 L) + 9 barriers a sweep (one cluster tile).
+//
+// Multi-launch (planes too large for a block: the 256^2 torus is 2.6 MB a
+// replica), seven launches a sweep on the caller's stream:
 //
 // - wl_site, four times (site color x tau parity): one thread per active
 //   (r, i, tau), updated in place. Its spatial neighbours have the other color
@@ -34,22 +50,23 @@
 //
 // What bounds it on an H100: a sweep must hash two draws per spin (the site
 // phase's and its time bond's; 22 integer operations each) and do about 18
-// more operations per spin, 62 in all; at the 256^2 torus, R=8, L=40 (21 M
+// more operations per spin, 62 in all. At the 256^2 torus, R=8, L=40 (21 M
 // spins) that is 1.3 G operations, 39 us at the 33.5 T int32 op/s peak, while
 // reading and writing the 21 MB state once would take 12.5 us at 3.35 TB/s
-// (and it stays in the 50 MB L2). So integer issue bounds it. The kernels
-// pass over the state nine times a sweep with byte loads, and the cluster
-// phase's walk is a serial chain per line. At the 256-site chain, R=64,
-// L=40 (0.66 M spins) each launch is a few microseconds: launch latency, the
-// gaps between the seven launches, and too few lines to hide the cluster
-// walk's latency set the time. Left for later: a block-resident plane per
-// replica for small systems (one launch per sweep), CUDA graphs over the
-// seven launches, and 2-bit or packed spins.
+// (and it stays in the 50 MB L2): integer issue bounds it, and the
+// multi-launch route passes over the state nine times a sweep with byte loads
+// and walks each line serially in its cluster phase. At the 256-site chain,
+// R=64, L=40 (0.66 M spins) the multi-launch route's launches last a few
+// microseconds and its 8192 lines per color cannot hide the serial walk's
+// latency; the resident route takes that shape instead, with no launch and
+// no device-memory pass between phases, every thread busy in the cluster
+// phase, and barriers in their place. It fills only R of the 132 SMs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "lanerng.cuh"
+#include "resident.cuh"
 #include "worldline.cuh"
 
 namespace {
@@ -151,6 +168,102 @@ __global__ void __launch_bounds__(kSiteBlock) wl_accumulate(
     if (stage) stage[(size_t)r * stage_stride + i] = (int8_t)s0;
 }
 
+constexpr int kWlParamBytes = 30 * 4 + 10 * 4;  // thr, cde (ops/wl.py WL_PARAM_BYTES)
+
+// grid: one block per replica (resident.cuh), T sweeps of the plain or the
+// sampling mode; acc [R, 3] int64 is added to once, samples [R, nsamples,
+// nvars] or null.
+__global__ void __launch_bounds__(kResThreads, 1) wl_resident(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const int32_t* __restrict__ thr_g,
+    const float* __restrict__ cde_g, int32_t pb, Geo g, long long* __restrict__ acc, int8_t* __restrict__ samples,
+    int T, int freq, int nsamples, int tile) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    Res b;
+    b.base = smem;
+    const int r = blockIdx.x, tid = threadIdx.x;
+    int8_t* gs = s + (size_t)r * g.nvars * g.L;
+    res_load(b, gs, g, kWlParamBytes, tile);
+    int32_t* thr = reinterpret_cast<int32_t*>(b.params());
+    float* cde = reinterpret_cast<float*>(b.params() + 30 * 4);
+    if (tid < 30) thr[tid] = thr_g[tid];
+    if (tid < 10) cde[tid] = cde_g[tid];
+    __syncthreads();
+    const int L = g.L, nvars = g.nvars, half = b.half;
+    const uint32_t seed = (uint32_t)seeds[r];
+    int8_t* pl = b.pl();
+    const ushort4* nb = b.nb();
+    const Walk sw(L >> 1);
+    long long sb = 0, sh = 0, al = 0;
+    int since = 0, slot = 0;  // sweeps since the last sample, samples taken
+    for (int t = 0; t < T; ++t) {
+        const uint32_t base = 8u * (uint32_t)t;
+        for (int color = 0; color < 2; ++color)
+            for (int parity = 0; parity < 2; ++parity) {
+                const uint32_t ctr = base + 2 * color + parity;
+                const uint16_t* sites = b.sites() + color * half;
+                for (Walk w = sw; w.row < half; w.next()) {
+                    const int i = sites[w.row], tau = 2 * w.col + parity;
+                    int8_t* lp = pl + i * L;
+                    const int sv = lp[tau];
+                    const int ud = lp[tau + 1 == L ? 0 : tau + 1] + lp[tau == 0 ? L - 1 : tau - 1];
+                    const ushort4 n = nb[i];
+                    int bs = pl[n.x * L + tau] + pl[n.y * L + tau];
+                    if (g.torus) bs += pl[n.z * L + tau] + pl[n.w * L + tau];
+                    const int th = thr[15 * (sv > 0) + 3 * ((bs + 4) >> 1) + ((ud + 2) >> 1)];
+                    if ((int)lane_draw31(seed, (uint32_t)(tau * nvars + i), ctr) <= th) lp[tau] = (int8_t)(-sv);
+                }
+                __syncthreads();
+            }
+        for (int color = 0; color < 2; ++color) {
+            const uint32_t ctr = base + 4 + 2 * color;
+            res_cluster(
+                b, sw, color,
+                [&](int i, int t) { return (int)lane_draw31(seed, (uint32_t)(t * nvars + i), ctr) < pb; },
+                [&](int i, int t, int sv) {
+                    const ushort4 n = nb[i];
+                    int bs = pl[n.x * L + t] + pl[n.y * L + t];
+                    if (g.torus) bs += pl[n.z * L + t] + pl[n.w * L + t];
+                    return cde[5 * (sv > 0) + ((bs + 4) >> 1)];
+                },
+                [&](int i, int head, float de) {
+                    return log_uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1)) < -de;
+                });
+        }
+        // statistics of the sweep's state: bond products over the outgoing
+        // bonds (ring i+1; torus y+1 and x+1), spins, aligned time bonds
+        int psb = 0, psh = 0, pal = 0;
+        for (Walk w = sw; w.row < nvars; w.next()) {  // pairs of slices (t, t + 1)
+            const int t = 2 * w.col;
+            const char2 v = reinterpret_cast<const char2*>(pl)[w.e];
+            const int nx = pl[t + 2 == L ? 2 * w.e + 2 - L : 2 * w.e + 2];
+            const ushort4 n = nb[w.row];
+            const char2 p1 = *reinterpret_cast<const char2*>(pl + n.x * L + t);
+            const char2 p2 = g.torus ? *reinterpret_cast<const char2*>(pl + n.z * L + t) : make_char2(0, 0);
+            psb += v.x * (p1.x + p2.x) + v.y * (p1.y + p2.y);
+            psh += v.x + v.y;
+            pal += (v.x == v.y) + (v.y == nx);
+        }
+        sb += psb;
+        sh += psh;
+        al += pal;
+        if (samples && ++since == freq && slot < nsamples) {
+            int8_t* out = samples + ((size_t)r * nsamples + slot) * nvars;
+            for (int i = tid; i < nvars; i += kResThreads) out[i] = pl[i * L];
+            since = 0;
+            ++slot;
+        }
+        __syncthreads();
+    }
+    long long v[3] = {sb, sh, al};
+    for (int k = 0; k < 3; ++k) {
+        long long x = v[k];
+        for (int o = 16; o; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+        if ((tid & 31) == 0)
+            atomicAdd(reinterpret_cast<unsigned long long*>(acc + 3 * r + k), (unsigned long long)x);
+    }
+    res_store(b, gs);
+}
+
 }  // namespace
 
 // Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L]. thr [30] int32, cde [10] f32 and pb as in ops/wl.py;
@@ -197,4 +310,31 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
     return 0;
+}
+
+// The resident route: T sweeps in one launch of R blocks on `stream`, with
+// tile lines per cluster tile and smem bytes of shared memory as
+// ops/wl.resident_plan gives them (refused unless they match this file's
+// layout). acc is [R, 3] int64, added to; the other arguments as wl_sweeps.
+extern "C" int wl_resident_sweeps(void* s, const void* seeds, const void* thr, const void* cde, int pb, void* acc,
+                                  void* samples, int R, int nvars, int L, int torus, int size, int T, int freq,
+                                  int nsamples, int tile, int smem, void* stream) {
+    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || nvars > 65535 || tile < 1 || tile > nvars / 2 ||
+        res_layout(nvars, L, kWlParamBytes, tile).bytes != smem)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(wl_resident, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    wl_resident<<<R, kResThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int8_t*>(s), static_cast<const int32_t*>(seeds), static_cast<const int32_t*>(thr),
+        static_cast<const float*>(cde), pb, Geo{torus, size, nvars, L}, static_cast<long long*>(acc),
+        static_cast<int8_t*>(samples), T, samples ? freq : 0, samples ? nsamples : 0, tile);
+    return (int)cudaGetLastError();
+}
+
+// The opt-in shared memory per block of a device, in bytes (negative: the
+// CUDA error), for the resident routes' gate.
+extern "C" int pmc_smem_optin(int device) {
+    int v = 0;
+    const cudaError_t e = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    return e == cudaSuccess ? v : -(int)e;
 }

@@ -1,8 +1,12 @@
 // What the worldline kernels (wl.cu, ladder.cu) share: the layout of
 // R replicas of a periodic ring or square torus, s[R, nvars, L] int8 (a time
-// line (r, i) is L contiguous bytes), and the Fortuin-Kasteleyn time-line
-// cluster update of one line, which holds the JAX kernels' pointer-doubling
-// f32 sums bit for bit (fk_line_update).
+// line (r, i) is L contiguous bytes), a fully frozen line's total in XLA's
+// order (XlaSum), and the multi-launch route's Fortuin-Kasteleyn time-line
+// cluster update of one line by one thread, which holds the JAX kernels'
+// pointer-doubling f32 sums bit for bit (fk_line_update). The resident route,
+// one block per replica with its plane in shared memory and the cluster
+// phase in parallel, is in resident.cuh; ops/wl.resident_plan picks the route
+// by shape.
 #pragma once
 
 #include <cstdint>

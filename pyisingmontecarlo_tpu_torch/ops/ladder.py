@@ -20,6 +20,13 @@ One sweep:
 
 The uniform is ``u = min(f32(u31) * 2^-31 + 2^-32, f32(1 - 1.2e-7))``.
 
+Two routes on the card, chosen by shape alone (``wl.resident_plan``): the
+resident kernel (one launch per call, one block per replica with its plane
+and couplings in shared memory, the swap features of the final state written
+by the kernel) where ``wl.resident_plan`` admits the shape, else the
+multi-launch kernels (six launches a sweep, the features then from
+``swap_features``). Both equal the plain version bit for bit.
+
 Randomness: the draw ``d`` of a sweep at (tau, i) is
 ``lane_draw31(seed, pos = tau*nvars + i, ctr = d)``; every sweep has fresh
 per-replica seeds (the caller derives them from each replica's threefry key,
@@ -42,11 +49,12 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
-from .wl import MAX_LTAU, fk_flips, lattice_fns
+from .wl import MAX_LTAU, _kernel_call, _stream, device_limits, fk_flips, lattice_fns, resident_plan
 
-__all__ = ["LadderPlanes", "build_planes", "gate", "ladder_sweeps", "ladder_sweeps_reference"]
+__all__ = ["LadderPlanes", "build_planes", "gate", "param_bytes", "swap_features", "ladder_sweeps",
+           "ladder_sweeps_reference"]
 
-LAUNCHES_PER_SWEEP = 6  # 4 site phases, 2 cluster phases
+LAUNCHES_PER_SWEEP = 6  # multi-launch route: 4 site phases, 2 cluster phases
 _INT_LIMIT = 2**31
 _SCALE = 1.0 / 2147483648.0  # 2^-31
 _HALF_STEP = 0.5 / 2147483648.0  # 2^-32
@@ -121,7 +129,20 @@ def gate(kind_size, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
     return None
 
 
-def _check(s, seeds, planes: LadderPlanes, T: int):
+def param_bytes(kind: str, nvars: int) -> int:
+    """The resident block's parameter bytes: the replica's couplings ``[ndir, nvars]`` f32."""
+    return (1 if kind == "ring" else 2) * nvars * 4
+
+
+def swap_features(s: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor):
+    """``(P [R, E], S [R], A [R])`` int64 of ``s[R, nvars, L]``: the bond
+    products summed over tau per edge (``ea``, ``eb``), the spin sum, and the
+    aligned time bonds."""
+    P = (s[:, ea] * s[:, eb]).sum(2)
+    return P, s.sum((1, 2)), (s == s.roll(-1, 2)).sum((1, 2))
+
+
+def _check(s, seeds, planes: LadderPlanes, T: int, edges):
     """Validate the arguments shared by the kernel and the plain version."""
     if s.dtype != torch.int8 or s.dim() != 3:
         raise ValueError(f"s must be [R, nvars, L] int8, got {tuple(s.shape)} {s.dtype}")
@@ -146,6 +167,12 @@ def _check(s, seeds, planes: LadderPlanes, T: int):
             raise ValueError(f"{name} must be contiguous")
     if not s.is_contiguous():
         raise ValueError("s must be contiguous")
+    ea, eb = edges
+    for name, t in (("ea", ea), ("eb", eb)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape != ea.shape:
+            raise ValueError(f"{name} must be [E] int32 like ea, got {tuple(t.shape)} {t.dtype}")
+        if t.device != s.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {s.device}")
 
 
 def _field_fn(planes: LadderPlanes):
@@ -171,9 +198,9 @@ def _field_fn(planes: LadderPlanes):
     return field
 
 
-def ladder_sweeps_reference(s, seeds, planes: LadderPlanes, T: int):
+def ladder_sweeps_reference(s, seeds, planes: LadderPlanes, T: int, edges):
     """Plain PyTorch version of ``ladder_sweeps``: same arguments, same result."""
-    _check(s, seeds, planes, T)
+    _check(s, seeds, planes, T, edges)
     _, nvars, L = s.shape
     dev = s.device
     color0, _, _ = lattice_fns(planes.kind, planes.size, nvars, dev)
@@ -208,41 +235,77 @@ def ladder_sweeps_reference(s, seeds, planes: LadderPlanes, T: int):
             de = ((-2.0 * sf) * dt) * (field(sf) + h)
             x = torch.where(fk_flips(active, de, torch.log(uniform(d + 1))) & cmask[color], -x, x)
             d += 2
-    return x.to(torch.int8)
+    x = x.to(torch.int8)
+    return x, swap_features(x, *edges)
 
 
-def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T: int) -> torch.Tensor:
-    """Run ``T`` sweeps on ``s[R, nvars, L]`` int8 (not modified) and return
-    the new state; ``seeds[T, R]`` int32 keys sweep t's draws (counter
-    ``d = 0..7`` within each sweep).
+def _planes_args(planes: LadderPlanes):
+    return [planes.j.data_ptr(), planes.dt.data_ptr(), planes.kt.data_ptr(), planes.h.data_ptr(),
+            planes.pb.data_ptr()]
 
-    A CUDA tensor launches ``csrc/ladder.cu`` (``LAUNCHES_PER_SWEEP`` launches
-    per sweep, counted in ``ladder_sweeps.launches``) or raises; a CPU tensor
-    runs the plain version."""
-    T = int(T)
-    _check(s, seeds, planes, T)
-    if s.device.type == "cpu":
-        return ladder_sweeps_reference(s, seeds, planes, T)
-    if s.device.type != "cuda":
-        raise ValueError(f"ladder_sweeps runs on cuda or cpu tensors, got {s.device}")
-    from .. import _kernels
 
+def _run_multi(s, seeds, planes: LadderPlanes, T: int):
+    """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP``
+    launches a sweep, counted in ``ladder_sweeps.launches``); the new state,
+    without features."""
     R, nvars, L = s.shape
     x = s.clone()
-    if R == 0 or T == 0:
-        return x
-    lib = _kernels.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ladder_sweeps(
-            x.data_ptr(), seeds.data_ptr(), planes.j.data_ptr(), planes.dt.data_ptr(), planes.kt.data_ptr(),
-            planes.h.data_ptr(), planes.pb.data_ptr(), R, nvars, L, int(planes.kind == "torus"),
-            planes.size, T, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ladder kernel launch failed: {_kernels.error_string(err)} ({err})")
-    ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
+    if R and T:
+        with torch.cuda.device(x.device):
+            _kernel_call("ladder kernel", lambda lib: lib.ladder_sweeps(
+                x.data_ptr(), seeds.data_ptr(), *_planes_args(planes), R, nvars, L, int(planes.kind == "torus"),
+                planes.size, T, _stream(x)))
+        ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
     return x
 
 
+def _run_resident(s, seeds, planes: LadderPlanes, T: int, edges, plan):
+    """The resident route on a CUDA tensor (one launch, counted in
+    ``ladder_sweeps.resident_launches``), with ``plan = (tile, bytes)`` from
+    ``wl.resident_plan``; the features are the kernel's (int32 views of one
+    ``[R, E + 2]`` tensor). ``ladder_sweeps``' result."""
+    R, nvars, L = s.shape
+    x = s.clone()
+    if not (R and T):
+        return x, swap_features(x, *edges)
+    ea, eb = edges
+    E = ea.numel()
+    feat = torch.empty((R, E + 2), dtype=torch.int32, device=s.device)
+    tile, nbytes = plan
+    with torch.cuda.device(x.device):
+        _kernel_call("ladder resident kernel", lambda lib: lib.ladder_resident_sweeps(
+            x.data_ptr(), seeds.data_ptr(), *_planes_args(planes), ea.data_ptr(), eb.data_ptr(), feat.data_ptr(),
+            R, nvars, L, int(planes.kind == "torus"), planes.size, T, E, tile, nbytes, _stream(x)))
+    ladder_sweeps.resident_launches += 1
+    return x, (feat[:, :E], feat[:, E], feat[:, E + 1])
+
+
+def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T: int, edges):
+    """Run ``T`` sweeps on ``s[R, nvars, L]`` int8 (not modified); returns
+    ``(state, features)``. ``seeds[T, R]`` int32 keys sweep t's draws (counter
+    ``d = 0..7`` within each sweep); ``edges = (ea, eb)`` are ``[E]`` int32
+    site indices in ``[0, nvars)``, and the features ``(P [R, E], S [R],
+    A [R])`` of the new state are those ``swap_features`` gives (int32 from
+    the resident kernel, int64 otherwise).
+
+    A CUDA tensor launches ``csrc/ladder.cu`` or raises: the resident kernel
+    (one launch, counted in ``ladder_sweeps.resident_launches``) where
+    ``wl.resident_plan`` admits the shape, else the multi-launch kernels
+    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``ladder_sweeps.launches``). A
+    CPU tensor runs the plain version."""
+    T = int(T)
+    _check(s, seeds, planes, T, edges)
+    if s.device.type == "cpu":
+        return ladder_sweeps_reference(s, seeds, planes, T, edges)
+    if s.device.type != "cuda":
+        raise ValueError(f"ladder_sweeps runs on cuda or cpu tensors, got {s.device}")
+    R, nvars, L = s.shape
+    plan = resident_plan(nvars, L, R, param_bytes(planes.kind, nvars), *device_limits(s.device))
+    if plan:
+        return _run_resident(s, seeds, planes, T, edges, plan)
+    x = _run_multi(s, seeds, planes, T)
+    return x, swap_features(x, *edges)
+
+
 ladder_sweeps.launches = 0
+ladder_sweeps.resident_launches = 0

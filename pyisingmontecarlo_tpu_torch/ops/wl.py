@@ -25,6 +25,14 @@ One sweep, for sweep index t (counting from 0 within one dispatch chunk):
 3. accumulation of three exact integer statistics: bond products over the
    outgoing bonds, spins, and aligned time bonds.
 
+Two routes on the card, chosen by shape alone (``resident_plan``): the
+resident kernel (one launch per call, one block per replica with its plane in
+shared memory) where the plane and a cluster tile fit the card's opt-in
+shared memory per block and the SMs its last wave leaves idle cost less than
+the multi-launch route's floor (``RESIDENT_IDLE_SITES``), else the
+multi-launch kernels (seven launches a sweep). Both equal the plain version
+bit for bit.
+
 Randomness: the draw ``d`` of sweep t at (tau, i) is
 ``lane_draw31(seed_r, pos = tau*nvars + i, ctr = 8*t + d)``. A run longer than
 the JAX kernel's exactness bound is split into dispatch chunks
@@ -44,6 +52,7 @@ f32 ``log``. The one known source of rare differences is the last ulp of f32
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -60,6 +69,8 @@ __all__ = [
     "make_tables",
     "lattice_fns",
     "gate",
+    "resident_bytes",
+    "resident_plan",
     "dispatch_bound",
     "chunk_plan",
     "chunk_seeds",
@@ -72,8 +83,21 @@ __all__ = [
 ]
 
 DRAWS_PER_SWEEP = 8
-LAUNCHES_PER_SWEEP = 7  # 4 site phases, 2 cluster phases, 1 accumulation
+LAUNCHES_PER_SWEEP = 7  # multi-launch route: 4 site phases, 2 cluster phases, 1 accumulation
 MAX_LTAU = 4096  # the cluster phase's per-line shared-memory buffer (csrc/wl.cu)
+RESIDENT_THREADS = 1024  # threads of a resident block (csrc/resident.cuh, kResThreads)
+WL_PARAM_BYTES = 30 * 4 + 10 * 4  # the resident block's thr and cde
+# The resident route runs one replica per SM (a block of 1024 threads, one
+# per SM by registers), so a launch takes ceil(R / SMs) waves and leaves the
+# SMs of its last wave that hold no replica idle. The multi-launch route
+# spreads every replica's lines over all SMs, and has a floor set by its
+# serial cluster walk. On an H100 a resident site costs about what 132
+# replicas' sites cost the multi-launch route, and the floor is worth about
+# 1150 resident sites (the gate's edges in chip_smoke.py's timing-wl, tori of
+# 24^2 to 48^2 at L_tau = 40 and R = 16, 64, 264; PERF.md). So the resident
+# route is the faster while the sites its idle SMs could have swept,
+# ``nvars * (ceil(R / SMs) - R / SMs)``, stay within this many.
+RESIDENT_IDLE_SITES = 1150
 _INT_LIMIT = 2**31
 # the JAX kernel's dispatch plan: planes of more than 2 MiB (int32) use its
 # row accumulators, whose exactness bound is 2^23 / (2 L) sweeps per dispatch
@@ -158,6 +182,51 @@ def gate(dense, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
     if R * nvars * ltau >= _INT_LIMIT:
         return f"R * nvars * L_tau = {R * nvars * ltau} spins reach 2^31"
     return None
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def resident_bytes(nvars: int, ltau: int, param_bytes: int, tile: int) -> int:
+    """Shared memory of a resident block (``csrc/resident.cuh``, ``res_layout``):
+    the int8 plane, the neighbour and site tables, ``param_bytes`` of the
+    kernel's parameters, reductions, and a cluster tile of ``tile`` lines
+    (11 bytes per (line, tau); per line 5 bytes and two masks of
+    ``ceil(L_tau / 32)`` words), each region 16-byte aligned."""
+    a, P = _align16, tile * ltau
+    return (a(nvars * ltau) + a(8 * nvars) + a(2 * nvars) + a(param_bytes) + 16 + a(4 * tile) + a(tile)
+            + a(8 * tile * (-(-ltau // 32))) + 2 * a(4 * P) + 3 * a(P))
+
+
+@functools.lru_cache(maxsize=256)
+def resident_plan(nvars: int, ltau: int, R: int, param_bytes: int, limit: int, sms: int,
+                  idle_sites: Optional[int] = RESIDENT_IDLE_SITES) -> Optional[tuple]:
+    """``(tile, bytes)`` of the resident kernel for ``R`` replicas of
+    ``[nvars, ltau]`` on a card of ``sms`` SMs, or None: the shape takes it
+    when ``nvars * (ceil(R / sms) - R / sms)``, the sites its last wave's idle
+    SMs could have swept, is at most ``idle_sites`` (None: any), and the
+    plane and a cluster tile of at least one line per thread (or every line
+    of a color) fit in ``limit`` bytes, the card's opt-in shared memory per
+    block. The tile is the most lines that fit, split evenly over the color's
+    lines. Shape only (cached per shape: the tempering loop asks once a
+    sweep); the wrappers never fall back from a failed launch."""
+    if idle_sites is not None and nvars * (-(-R // sms) * sms - R) > idle_sites * sms:
+        return None
+    lines = nvars // 2
+    least = min(lines, -(-RESIDENT_THREADS // ltau))
+    if lines < 1 or resident_bytes(nvars, ltau, param_bytes, least) > limit:
+        return None
+    lo, hi = least, lines  # the largest tile that fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if resident_bytes(nvars, ltau, param_bytes, mid) <= limit:
+            lo = mid
+        else:
+            hi = mid - 1
+    tiles = -(-lines // lo)
+    tile = -(-lines // tiles)
+    return tile, resident_bytes(nvars, ltau, param_bytes, tile)
 
 
 def dispatch_bound(nvars: int, ltau: int) -> int:
@@ -340,22 +409,67 @@ def wl_sweeps_reference(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, n
     return x.to(torch.int8), stats, samples
 
 
-def _launch(x, seeds_i32, tables: WlTables, acc, samples, T, freq, nsamples):
-    """Launch the kernel on the state ``x[R, nvars, L]``, in place."""
+def _kernel_call(name: str, fn):
+    """Run ``fn(lib)``, a C entry of the kernel library, and raise if it returns an error."""
     from .. import _kernels
 
-    R, nvars, L = x.shape
-    lib = _kernels.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.wl_sweeps(
-            x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
-            int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
-            R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, stream,
-        )
+    err = fn(_kernels.load())
     if err != 0:
-        raise RuntimeError(f"wl kernel launch failed: {_kernels.error_string(err)} ({err})")
-    wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
+        raise RuntimeError(f"{name} launch failed: {_kernels.error_string(err)} ({err})")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0):
+    """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP`` launches
+    a sweep, counted in ``wl_sweeps.launches``); ``wl_sweeps``' result."""
+    R, nvars, L = s.shape
+    x = s.clone()
+    acc = torch.zeros((R, 3, nvars), dtype=torch.int64, device=s.device)
+    samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
+    if R and T:
+        with torch.cuda.device(x.device):
+            _kernel_call("wl kernel", lambda lib: lib.wl_sweeps(
+                x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
+                int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
+                R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, _stream(x)))
+        wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
+    return x, acc.sum(2), samples
+
+
+def _run_resident(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int, plan):
+    """The resident route on a CUDA tensor (one launch, counted in
+    ``wl_sweeps.resident_launches``), with ``plan = (tile, bytes)`` from
+    ``resident_plan``; ``wl_sweeps``' result."""
+    R, nvars, L = s.shape
+    x = s.clone()
+    acc = torch.zeros((R, 3), dtype=torch.int64, device=s.device)
+    samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
+    if R and T:
+        tile, nbytes = plan
+        with torch.cuda.device(x.device):
+            _kernel_call("wl resident kernel", lambda lib: lib.wl_resident_sweeps(
+                x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
+                int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
+                R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, tile, nbytes, _stream(x)))
+        wl_sweeps.resident_launches += 1
+    return x, acc, samples
+
+
+def device_limits(device) -> tuple:
+    """``(limit, sms)`` of a CUDA device: its opt-in shared memory per block
+    in bytes and its SM count, as ``resident_plan`` takes them."""
+    from .. import _kernels
+
+    index = torch.device(device).index or 0
+    return _kernels.smem_optin(index), _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int,
@@ -368,22 +482,22 @@ def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int
     ``samples[:, k]`` is slice 0 after sweep ``(k + 1) * freq``. ``seeds_i32[R]``
     keys each replica's draws (counter ``8t + d`` for sweep t of this call).
 
-    A CUDA tensor launches ``csrc/wl.cu`` (``LAUNCHES_PER_SWEEP`` launches per
-    sweep, counted in ``wl_sweeps.launches``) or raises; a CPU tensor runs the
-    plain version."""
+    A CUDA tensor launches ``csrc/wl.cu`` or raises: the resident kernel
+    (one launch, counted in ``wl_sweeps.resident_launches``) where
+    ``resident_plan`` admits the shape, else the multi-launch kernels
+    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``wl_sweeps.launches``). A CPU
+    tensor runs the plain version."""
     T, freq, nsamples = int(T), int(freq), int(nsamples)
-    R = _check(s, seeds_i32, tables, T, freq, nsamples)
+    _check(s, seeds_i32, tables, T, freq, nsamples)
     if s.device.type == "cpu":
         return wl_sweeps_reference(s, seeds_i32, tables, T, freq, nsamples)
     if s.device.type != "cuda":
         raise ValueError(f"wl_sweeps runs on cuda or cpu tensors, got {s.device}")
-    _, nvars, _ = s.shape
-    x = s.clone()
-    acc = torch.zeros((R, 3, nvars), dtype=torch.int64, device=s.device)
-    samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
-    if R and T:
-        _launch(x, seeds_i32, tables, acc, samples, T, freq, nsamples)
-    return x, acc.sum(2), samples
+    R, nvars, L = s.shape
+    plan = resident_plan(nvars, L, R, WL_PARAM_BYTES, *device_limits(s.device))
+    if plan:
+        return _run_resident(s, seeds_i32, tables, T, freq, nsamples, plan)
+    return _run_multi(s, seeds_i32, tables, T, freq, nsamples)
 
 
 def _seeds_tensor(seeds_u32, device) -> torch.Tensor:
@@ -438,3 +552,4 @@ def run_wl_sample(s, seeds_u32, freq: int, nsamples: int, rem: int, dense, beta:
 
 
 wl_sweeps.launches = 0
+wl_sweeps.resident_launches = 0

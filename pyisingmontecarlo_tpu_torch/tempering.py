@@ -9,8 +9,9 @@ neighbour swap every ``replica_swap_freq`` sweeps.
 
 A swap step weighs every replica's configuration under its own and its
 neighbours' parameters from three exact integer features of each
-configuration (``swap_features``: per-edge bond products, spin sum, aligned
-time bonds), in f32 as the JAX package does, and accepts pair (r, r+1), r of
+configuration (``ops/ladder.swap_features``: per-edge bond products, spin
+sum, aligned time bonds; the ladder call returns them, from the resident
+kernel itself where the shape takes it), in f32 as the JAX package does, and accepts pair (r, r+1), r of
 the step's parity, when ``log u < W_r(x_{r+1}) W_{r+1}(x_r) / (W_r(x_r)
 W_{r+1}(x_{r+1}))`` in log space; accepted pairs exchange configurations.
 Energies use the same features, accumulated per replica slot as int64 on the
@@ -44,6 +45,7 @@ from .engines.worldline import _not_ported, choose_ltau, make_params
 from .graph import detect_topology, parse_edges
 from .lattice import resolve_device
 from .ops import ladder
+from .ops.ladder import swap_features
 from .rng import MasterRng, key_data_from_seeds, random_states, seeds_from_key_data, split_all, uniform_f32
 from .utils import cbor
 
@@ -68,13 +70,6 @@ def key_tables(key_data: np.ndarray, swapkey: np.ndarray, timesteps: int, swap_f
         sk, sub = split_all(sk)
         uniforms[k] = uniform_f32(sub, R)[0]
     return seeds, uniforms, kd, sk[0]
-
-
-def swap_features(s: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor):
-    """``(P [R, E], S [R], A [R])`` int64 of ``s[R, nvars, L]``: the bond
-    products summed over tau per edge, the spin sum, and the aligned time bonds."""
-    P = (s[:, ea] * s[:, eb]).sum(2)
-    return P, s.sum((1, 2)), (s == s.roll(-1, 2)).sum((1, 2))
 
 
 class LatticeTempering:
@@ -179,8 +174,8 @@ class LatticeTempering:
         a = p.dtau * p.gamma
         self._mat = dict(
             L=L,
-            ea=torch.from_numpy(ea).to(dev),
-            eb=torch.from_numpy(eb).to(dev),
+            ea=torch.from_numpy(ea.astype(np.int32)).to(dev),
+            eb=torch.from_numpy(eb.astype(np.int32)).to(dev),
             jv=torch.from_numpy(jv.astype(np.float32)).to(dev),
             p=p,
             log_cosh=torch.log(torch.cosh(a)),
@@ -243,16 +238,13 @@ class LatticeTempering:
                 stop = min(stop, (t // sf + 1) * sf)
                 if t < nsamples * freq:
                     stop = min(stop, (t // freq + 1) * freq)
-            s = ladder.ladder_sweeps(s, seeds[t:stop], planes, stop - t)
+            # the call returns the features of its final state
+            s, features = ladder.ladder_sweeps(s, seeds[t:stop], planes, stop - t, (m["ea"], m["eb"]))
             t = stop
-            features = None
             if with_energy:
-                features = swap_features(s, m["ea"], m["eb"])
                 for acc, f in zip(sums, features):
                     acc += f
             if t % sf == 0:
-                if features is None:
-                    features = swap_features(s, m["ea"], m["eb"])
                 s, n = self._swap(m, s, features, uniforms[nswaps], m["phase"])
                 accepted += n
                 nswaps += 1

@@ -88,7 +88,8 @@ def test_plain_sweeps_equal_jax_kernel(case):
             s = wlp.ladder_sweep(s, jnp.asarray(seeds[t]), jp, kind, size, nvars)
     want = np.asarray(s)
     planes = ladder.build_planes(kind, size, nvars, ea, eb, jv, betas, gammas, hs, L)
-    got = ladder.ladder_sweeps(torch.from_numpy(s0), torch.from_numpy(seeds), planes, T).numpy()
+    edges = tuple(torch.from_numpy(np.asarray(e, np.int32)) for e in (ea, eb))
+    got = ladder.ladder_sweeps(torch.from_numpy(s0), torch.from_numpy(seeds), planes, T, edges)[0].numpy()
     diff = np.argwhere(want != got)
     assert len(diff) == 0, f"{len(diff)} of {want.size} spins differ; first at {diff[:8].tolist()}"
     assert (got != s0).mean() > 0.05, "too few spins moved to test anything"
@@ -152,14 +153,15 @@ def test_wrapper_checks():
     planes = ladder.build_planes("ring", 8, 8, ea, eb, np.ones(8), [1.0, 2.0], [1.0, 1.0], [0.0, 0.0], 8)
     s = torch.ones((2, 8, 8), dtype=torch.int8)
     seeds = torch.zeros((3, 2), dtype=torch.int32)
-    assert torch.equal(ladder.ladder_sweeps(s, seeds[:0], planes, 0), s)
+    edges = tuple(torch.from_numpy(np.asarray(e, np.int32)) for e in (ea, eb))
+    assert torch.equal(ladder.ladder_sweeps(s, seeds[:0], planes, 0, edges)[0], s)
     with pytest.raises(ValueError, match="int8"):
-        ladder.ladder_sweeps(s.to(torch.int32), seeds, planes, 3)
+        ladder.ladder_sweeps(s.to(torch.int32), seeds, planes, 3, edges)
     with pytest.raises(ValueError, match="planes are for"):
-        ladder.ladder_sweeps(torch.ones((2, 8, 10), dtype=torch.int8), seeds, planes, 3)
+        ladder.ladder_sweeps(torch.ones((2, 8, 10), dtype=torch.int8), seeds, planes, 3, edges)
     with pytest.raises(ValueError, match="seeds"):
-        ladder.ladder_sweeps(s, seeds, planes, 2)
+        ladder.ladder_sweeps(s, seeds, planes, 2, edges)
     with pytest.raises(ValueError, match="planes.dt"):
-        ladder.ladder_sweeps(s, seeds, planes._replace(dt=planes.dt.double()), 3)
+        ladder.ladder_sweeps(s, seeds, planes._replace(dt=planes.dt.double()), 3, edges)
     with pytest.raises(ValueError, match="contiguous"):
-        ladder.ladder_sweeps(s.transpose(1, 2).contiguous().transpose(1, 2), seeds, planes, 3)
+        ladder.ladder_sweeps(s.transpose(1, 2).contiguous().transpose(1, 2), seeds, planes, 3, edges)
