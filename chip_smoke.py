@@ -15,44 +15,53 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 5.  physics       Onsager energy (L=32) and disordered magnetization (L=16);
 6.  timing        square-torus kernel and plain version at the bench shape;
 7.  compare-wl    the worldline kernels vs their plain version, bit for bit:
-                  the resident kernel (where it fits) and the multi-launch
-                  kernels, each against the plain version and against each
-                  other (ring, torus with field, frozen rings, long L_tau,
-                  sampling, L_tau=4, the longest chain the gate admits, R=1,
-                  odd R, tori the gate admits (24^2, 32^2), one that fits
-                  but is left to the multi-launch kernels (48^2), and the
-                  256^2 x 8 x 40 main shape in plain and sampling mode,
-                  multi-launch only);
+                  the multi-launch, resident and tiled kernels (the gate's
+                  route through the wrapper, the others through their private
+                  launchers where the shape fits them), each against the plain
+                  version and the multi-launch kernels (ring, torus with
+                  field, frozen rings, long L_tau, sampling, L_tau=4, the
+                  longest chain the gate admits, R=1, odd R, tori 24^2 to
+                  100^2, a side that is not a multiple of the tile, an 8192
+                  ring, the 256^2 x 8 x 40 main shape in plain and sampling
+                  mode, and a 64^2 torus at L_tau=800 that no tile fits);
 8.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
                   256^2 TFIM torus (the shape of benches/bench_qmc_large.py;
-                  multi-launch, 7 launches per sweep);
+                  tiled, one launch per sweep);
 9.  main-quantum-sampling  ``run_quantum_monte_carlo_sampling`` on the same
-                  torus, 20 sweeps (the multi-launch kernels' sampling mode);
-10. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
+                  torus, 20 sweeps (the tiled kernel's sampling mode);
+10. main-quantum-long  both entry points on a 64^2 torus at beta=40, so
+                  L_tau=800, 5 and 4 sweeps (multi-launch, 7 launches per
+                  sweep, plain and sampling mode);
+11. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
                   TFIM chain, 64 replicas, 500 + 2000 sweeps (benches/bench_qmc.py's
                   shape; resident, one launch per call), against the exact
                   free-fermion energy;
-11. physics-wl    <E> of a 6-ring against dense diagonalization, and a bond
+12. physics-wl    <E> of a 6-ring against dense diagonalization, and a bond
                   autocorrelation on a 32^2 torus;
-12. timing-wl     worldline kernels and plain version at both main shapes
-                  (the chain on both routes), each launch's device time
-                  (torch.profiler), and both routes at the gate's edges;
-13. compare-ladder    the ladder kernels vs their plain version, bit for bit
+13. timing-wl     every route that fits each main path's shape against the
+                  plain version, the tiled route against the multi-launch
+                  route at both torus shapes (ten runs each in turns), each
+                  launch's device time and the idle share (torch.profiler), the
+                  tiled kernel's measurement builds (the sweep cut after its
+                  load and store, site phases and cluster phases), the tiled
+                  kernel at every tile side that fits the main shape, and the
+                  three routes at the gate's edges;
+14. compare-ladder    the ladder kernels vs their plain version, bit for bit
                   in states and swap features: resident and multi-launch,
                   each against the plain version and each other (ring with
                   field and per-replica couplings, 12^2 +-J torus, frozen
                   lines, L_tau=1200, L_tau=4 with R=1, odd R, a 24^2 torus,
                   a 48^2 torus off the gate, the 64 x 144 x 60 bench shape,
                   and the 64 x 4096 x 60 shape of main-tempering-wide);
-14. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
+15. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
                   2000, on the ladder of benches/bench_tempering.py (12^2 +-J
                   spin glass, 64 replicas, L_tau = 60; resident, one launch per
                   sweep, features from the kernel), with sweeps/s and swap
                   attempts/s as that bench takes them;
-15. main-tempering-wide  the same ladder on a 64^2 +-J torus, 5 sweeps
+16. main-tempering-wide  the same ladder on a 64^2 +-J torus, 5 sweeps
                   (multi-launch, 6 launches per sweep);
-16. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
-17. timing-ladder     ladder kernels and plain version at the bench shape (200-
+17. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
+18. timing-ladder     ladder kernels and plain version at the bench shape (200-
                   sweep calls, and one-sweep calls as the main path makes
                   them), each launch's device time and the idle share over
                   whole tempering steps (torch.profiler), and the multi-launch
@@ -66,8 +75,9 @@ Needs torch with CUDA, nvcc and numpy; imports no jax.
 
     python3 chip_smoke.py --ab DIR   # DIR: the root of another checkout, e.g. the parent commit's
 
-times the end-to-end main paths that the resident kernels serve (the
-tempering bench's sweeps/s slope, and the 256-chain's sampling call) for the
+times the end-to-end main paths that the resident and tiled kernels serve
+(the tempering bench's sweeps/s slope, the 256-chain's sampling call, and the
+256^2 torus's site updates/s slope of benches/bench_qmc_large.py) for the
 package in DIR and for this one, each in a process of its own, ten runs a
 side in the order DIR, this, this, DIR; it prints each run's numbers, each
 side's median and quartiles and the pairs won, and checks nothing else. The
@@ -93,6 +103,10 @@ BENCH_L, BENCH_R, BENCH_BETA = 1024, 8, 0.4
 WL_BETA, WL_GAMMA, WL_LTAU = 2.0, 1.0, 40
 TORUS = (("torus", 256, -1.0), 256 * 256, 8)
 CHAIN = (("ring", 256, -1.0), 256, 64)
+# the multi-launch kernels' main path: a 64^2 torus at beta=40, Gamma=1, so L_tau = 800, too long for a
+# tile of 8 sites and its halo in shared memory (ops/wl.tiled_plan)
+LONG_BETA, LONG_LTAU = 40.0, 800
+LONG = (("torus", 64, -1.0), 64 * 64, 2)
 
 # Least time of a kernel's work on an H100 SXM: the bytes it must move at the
 # 3.35 TB/s of HBM3, or its integer operations at 33.5 T int32 op/s (the
@@ -153,6 +167,7 @@ def reset_counts():
     sq2d.sweeps_2d.launches = 0
     wl.wl_sweeps.launches = 0
     wl.wl_sweeps.resident_launches = 0
+    wl.wl_sweeps.tiled_launches = 0
     ladder.ladder_sweeps.launches = 0
     ladder.ladder_sweeps.resident_launches = 0
 
@@ -161,13 +176,13 @@ def read_counts():
     from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
     return {"sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches,
-            "wl_resident": wl.wl_sweeps.resident_launches, "ladder": ladder.ladder_sweeps.launches,
-            "ladder_resident": ladder.ladder_sweeps.resident_launches}
+            "wl_resident": wl.wl_sweeps.resident_launches, "wl_tiled": wl.wl_sweeps.tiled_launches,
+            "ladder": ladder.ladder_sweeps.launches, "ladder_resident": ladder.ladder_sweeps.resident_launches}
 
 
 def counts_only(**want):
     """The launch counts with ``want`` and zeros elsewhere."""
-    return {**dict.fromkeys(("sq2d", "wl", "wl_resident", "ladder", "ladder_resident"), 0), **want}
+    return {**dict.fromkeys(("sq2d", "wl", "wl_resident", "wl_tiled", "ladder", "ladder_resident"), 0), **want}
 
 
 def phase_gpu():
@@ -183,14 +198,28 @@ def phase_gpu():
     return smi
 
 
+# builds of the tiled worldline kernel that timing-wl times beside it (csrc/wl.cu): the sweep cut after the
+# box's load and store, after the site phases, after the cluster phases
+TILED_VARIANTS = {"load and store only": ("PMC_TILED_PHASES=0",), "+ site phases": ("PMC_TILED_PHASES=1",),
+                  "+ cluster phases": ("PMC_TILED_PHASES=3",)}
+
+
 def phase_build():
+    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pyisingmontecarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    path = _kernels.build(verbose=True)
-    _kernels.load()
-    dt = time.perf_counter() - t0
-    print(f"build: {dt:.3f} s, {path.relative_to(HERE)}", flush=True)
+    with ThreadPoolExecutor(len(TILED_VARIANTS)) as pool:
+        variants = [pool.submit(_kernels.build, defines=d) for d in TILED_VARIANTS.values()]
+        path = _kernels.build(verbose=True)
+        _kernels.load()
+        dt = time.perf_counter() - t0
+        for v in variants:
+            v.result()
+    print(f"build: {dt:.3f} s, {path.relative_to(HERE)}; with the {len(variants)} measurement builds "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def _inputs(L, R, seed, dev):
@@ -291,20 +320,29 @@ def phase_physics(dev):
     print("physics: " + "; ".join(out), flush=True)
 
 
+def versus(run_a, run_b, n_a, n_b, pairs=5):
+    """Milliseconds per sweep of two calls (of ``n_a`` and ``n_b`` sweeps),
+    timed with CUDA events in the order a, b, b, a, ``pairs`` times over (2
+    ``pairs`` runs of each); returns (a runs, b runs)."""
+    runs = {"a": [], "b": []}
+    for _ in range(pairs):
+        for name in ("a", "b", "b", "a"):
+            fn, n = (run_a, n_a) if name == "a" else (run_b, n_b)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            runs[name].append(start.elapsed_time(end) / n)
+    return runs["a"], runs["b"]
+
+
 def in_turns(run_kernel, run_plain, n_kernel, n_plain):
     """Milliseconds per sweep of each call, timed with CUDA events in the order
     plain, kernel, kernel, plain; returns (kernel runs, plain runs)."""
-    runs = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn, n = (run_kernel, n_kernel) if name == "kernel" else (run_plain, n_plain)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        runs[name].append(start.elapsed_time(end) / n)
-    return runs["kernel"], runs["plain"]
+    plain, kernel = versus(run_plain, run_kernel, n_plain, n_kernel, pairs=1)
+    return kernel, plain
 
 
 def phase_timing(dev, smi):
@@ -357,11 +395,11 @@ def _equal_all(got, want):
 
 
 def phase_compare_wl(dev):
-    """Worldline kernels vs the plain version on the card: the route the gate
-    picks (or, for a shape that fits but is left to the multi-launch kernels,
-    the resident kernel through its private launcher) and the multi-launch
-    kernels, each against the plain version and against each other; returns
-    (largest |difference| of the multi-launch kernels, of the resident kernel)."""
+    """Worldline kernels vs the plain version on the card: the multi-launch
+    kernels, the resident kernel and the tiled kernel (each through the
+    wrapper where the gate picks it, else through its private launcher where
+    the shape fits it), each against the plain version and against the
+    multi-launch kernels; returns {route: largest |difference|}."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
     lim = wl.device_limits(dev)
@@ -378,42 +416,63 @@ def phase_compare_wl(dev):
          WL_BETA * longest / WL_LTAU, 1.0, 0.0, 0, 0),
         ("torus 24^2 R=5 L=40 T=6", ("torus", 24, -1.0), 576, 5, 40, 6, 2.0, 1.0, 0.2, 0, 0),
         ("torus 32^2 R=3 L=40 T=4", ("torus", 32, -1.0), 1024, 3, 40, 4, 2.0, 1.0, 0.0, 0, 0),
-        ("torus 48^2 R=2 L=40 T=3 (fits; the gate leaves it to the multi-launch kernels)", ("torus", 48, -1.0),
+        ("torus 48^2 R=2 L=40 T=3 (fits resident; the gate leaves it to the tiled kernel)", ("torus", 48, -1.0),
          2304, 2, 40, 3, 2.0, 1.0, 0.0, 0, 0),
         ("main torus 256^2 R=8 L=40 T=4", TORUS[0], TORUS[1], TORUS[2], 40, 4, WL_BETA, WL_GAMMA, 0.0, 0, 0),
         ("main torus 256^2 R=8 L=40 sampling freq=2 nsamples=2 T=4", TORUS[0], TORUS[1], TORUS[2], 40, 4,
          WL_BETA, WL_GAMMA, 0.0, 2, 2),
+        ("torus 100^2 R=5 L=40 h=0.1 T=3 (the side not a multiple of the tile)", ("torus", 100, -1.0), 10000, 5,
+         40, 3, 2.0, 1.0, 0.1, 0, 0),
+        ("ring 8192 R=3 L=40 T=4 (too long for the resident kernel)", ("ring", 8192, -1.0), 8192, 3, 40, 4,
+         2.0, 1.0, 0.0, 0, 0),
+        ("frozen lines, tiled: ring 4096 R=2 Gamma=0.05 h=0.2 sampling freq=1 nsamples=3 T=4", ("ring", 4096, 0.7),
+         4096, 2, 40, 4, 2.0, 0.05, 0.2, 1, 3),
+        ("odd R: torus 64^2 R=3 L=40 T=3", ("torus", 64, -1.0), 4096, 3, 40, 3, 2.0, 1.0, -0.2, 0, 0),
+        ("R=1: torus 64^2 L=60 T=3", ("torus", 64, -1.0), 4096, 1, 60, 3, 3.0, 1.0, 0.0, 0, 0),
+        ("L_tau=30 (lines not padded) torus 40^2 R=16 T=3", ("torus", 40, -1.0), 1600, 16, 30, 3, 1.5, 1.0, 0.0, 0,
+         0),
+        ("L_tau=200 (13 counter levels) torus 64^2 R=2 T=2", ("torus", 64, -1.0), 4096, 2, 200, 2, 10.0, 1.0, 0.0,
+         0, 0),
+        (f"long L_tau: torus 64^2 R=2 L={LONG_LTAU} T=2 (no tile fits: multi-launch)", LONG[0], LONG[1], LONG[2],
+         LONG_LTAU, 2, LONG_BETA, WL_GAMMA, 0.0, 0, 0),
+        (f"long L_tau sampling: torus 64^2 R=2 L={LONG_LTAU} freq=2 nsamples=2 T=4 (main-quantum-long's sampling "
+         "mode, multi-launch)", LONG[0], LONG[1], LONG[2], LONG_LTAU, 4, LONG_BETA, WL_GAMMA, 0.0, 2, 2),
     ]
-    worst = {"multi": 0, "resident": 0}
+    worst = {"multi": 0, "resident": 0, "tiled": 0}
     for k, (name, dense, nvars, R, L, T, beta, gamma, h, freq, ns) in enumerate(cases):
         s, seeds = _wl_inputs(dense, nvars, R, 100 + k, dev, L)
         tables = wl.make_tables(dense, nvars, beta, gamma, h, L, dev)
-        plan = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim)
+        route, _ = wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)
         fit = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim, None)  # the idle-sites threshold lifted
+        tiles = wl.tiled_plan(dense[0], dense[1], nvars, L, R, *lim)
         want = wl.wl_sweeps_reference(s, seeds, tables, T, freq, ns)
         runs = {"multi": wl._run_multi(s, seeds, tables, T, freq, ns)}
-        if plan:
-            runs["resident"] = wl.wl_sweeps(s, seeds, tables, T, freq, ns)  # the wrapper's own route
-        elif fit:
-            runs["resident"] = wl._run_resident(s, seeds, tables, T, freq, ns, fit)
+        how = {"multi": "gate" if route == "multi" else "private launcher"}
+        if fit:
+            runs["resident"] = (wl.wl_sweeps(s, seeds, tables, T, freq, ns) if route == "resident"
+                                else wl._run_resident(s, seeds, tables, T, freq, ns, fit))
+            how["resident"] = "gate" if route == "resident" else "private launcher"
+        if tiles:
+            runs["tiled"] = (wl.wl_sweeps(s, seeds, tables, T, freq, ns) if route == "tiled"
+                             else wl._run_tiled(s, seeds, tables, T, freq, ns, tiles))
+            how["tiled"] = "gate" if route == "tiled" else "private launcher"
         torch.cuda.synchronize()
-        for route, got in runs.items():
+        for r, got in runs.items():
             same, err = _equal_all(got, want)
-            check(same, f"{name}: {route} != plain (max |diff| {err})")
-            worst[route] = max(worst[route], err)
-        if "resident" in runs:
-            same, err = _equal_all(runs["resident"], runs["multi"])
-            check(same, f"{name}: resident != multi-launch (max |diff| {err})")
+            check(same, f"{name}: {r} != plain (max |diff| {err})")
+            worst[r] = max(worst[r], err)
+            if r != "multi":
+                same, err = _equal_all(got, runs["multi"])
+                check(same, f"{name}: {r} != multi-launch (max |diff| {err})")
         got = runs["multi"]
         moved = float((got[0] != s).float().mean())
         check(moved > 0.05, f"{name}: only {moved:.4f} of the spins moved")
         frozen = float((got[0] == got[0][:, :, :1]).all(2).float().mean())
-        route = ("resident (gate) == multi-launch" if plan else
-                 "resident (private launcher) == multi-launch" if fit else "multi-launch (does not fit)")
-        print(f"compare-wl: {name}: {route} == plain, bit-identical (spins, statistics"
-              f"{', samples' if ns else ''}); resident plan {plan or fit}; {moved:.3f} of spins moved, "
+        print(f"compare-wl: {name}: " + " == ".join(f"{r} ({how[r]})" for r in runs)
+              + f" == plain, bit-identical (spins, statistics{', samples' if ns else ''}); the gate picks {route}; "
+              f"resident plan {fit}, tiled plan {tiles}; {moved:.3f} of spins moved, "
               f"{frozen:.3f} of lines constant in tau", flush=True)
-    return worst["multi"], worst["resident"]
+    return worst
 
 
 def phase_main_quantum(dev):
@@ -434,8 +493,7 @@ def phase_main_quantum(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    check(counts == counts_only(wl=wl.LAUNCHES_PER_SWEEP * T),
-          f"launch counts {counts}, want wl {wl.LAUNCHES_PER_SWEEP * T} only (multi-launch)")
+    check(counts == counts_only(wl_tiled=T), f"launch counts {counts}, want wl_tiled {T} only (one a sweep)")
     check(es.shape == (R,) and es.dtype == np.float64, f"energies {es.shape} {es.dtype}")
     check(st.shape == (R, nvars) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
     check(np.isfinite(es).all(), "non-finite energies")
@@ -444,14 +502,14 @@ def phase_main_quantum(dev):
     # leave domain walls, which cost at most a few tenths per site
     check(-2.5 < e < -1.0, f"e/site {e} outside (-2.5, -1.0)")
     print(f"main-quantum: Lattice.run_quantum_monte_carlo({WL_BETA}, {T}, {R}) on the 256^2 torus, "
-          f"L_tau={WL_LTAU}: {counts['wl']} launches, {dt:.3f} s host wall, e/site={e:.6f}", flush=True)
-    return counts["wl"]
+          f"L_tau={WL_LTAU}: {counts['wl_tiled']} tiled launches, 0 others, {dt:.3f} s host wall, e/site={e:.6f}",
+          flush=True)
+    return counts["wl_tiled"]
 
 
 def phase_main_quantum_sampling(dev):
-    """The sampling path through the user's entry point at the 256^2 torus,
-    which the gate leaves to the multi-launch kernels' sampling mode; returns
-    the launch count."""
+    """The sampling path through the user's entry point at the 256^2 torus
+    (the tiled kernel's sampling mode); returns the launch count."""
     from pyisingmontecarlo_tpu_torch import Lattice
     from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
     from pyisingmontecarlo_tpu_torch.ops import wl
@@ -465,17 +523,55 @@ def phase_main_quantum_sampling(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    check(counts == counts_only(wl=wl.LAUNCHES_PER_SWEEP * T),
-          f"launch counts {counts}, want wl {wl.LAUNCHES_PER_SWEEP * T} only (multi-launch)")
+    check(counts == counts_only(wl_tiled=T), f"launch counts {counts}, want wl_tiled {T} only (one a sweep)")
     check(es.shape == (R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape} {es.dtype}")
     check(ss.shape == (R, T // freq, nvars) and ss.dtype == np.bool_, f"samples {ss.shape} {ss.dtype}")
     e = es.mean() / nvars
     # 20 sweeps from a random start: ordering has begun, far from the ground state's -2.13
     check(-2.5 < e < -0.5, f"e/site {e} outside (-2.5, -0.5)")
     print(f"main-quantum-sampling: Lattice.run_quantum_monte_carlo_sampling({WL_BETA}, {T}, {R}, freq={freq}) on "
-          f"the 256^2 torus: {counts['wl']} launches, {dt:.3f} s host wall, e/site={e:.6f}, "
+          f"the 256^2 torus: {counts['wl_tiled']} tiled launches, 0 others, {dt:.3f} s host wall, e/site={e:.6f}, "
           f"{ss.shape[1]} samples per replica", flush=True)
-    return counts["wl"]
+    return counts["wl_tiled"]
+
+
+def phase_main_quantum_long(dev):
+    """The worldline paths through the user's entry points on a 64^2 torus at
+    L_tau = 800, where no tile fits and the multi-launch kernels sweep: 5
+    plain sweeps, then 4 sampled every 2; returns the two launch counts."""
+    from pyisingmontecarlo_tpu_torch import Lattice
+    from pyisingmontecarlo_tpu_torch.engines.worldline import choose_ltau
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    (dense, nvars, R), side = LONG, LONG[0][1]
+    check(choose_ltau(LONG_BETA, WL_GAMMA) == LONG_LTAU, "L_tau")
+    lat = Lattice(grid_2d_edges(side, side, -1.0), seed_gen=2, device=dev)
+    lat.set_transverse_field(WL_GAMMA)
+    out = []
+    for T, freq in ((5, 0), (4, 2)):
+        reset_counts()
+        t0 = time.perf_counter()
+        if freq:
+            es, ss = lat.run_quantum_monte_carlo_sampling(LONG_BETA, T, R, sampling_freq=freq)
+            check(ss.shape == (R, T // freq, nvars) and ss.dtype == np.bool_, f"samples {ss.shape} {ss.dtype}")
+        else:
+            es, st = lat.run_quantum_monte_carlo(LONG_BETA, T, R)
+            check(st.shape == (R, nvars) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        want = counts_only(wl=wl.LAUNCHES_PER_SWEEP * T)
+        check(counts == want, f"launch counts {counts}, want {want} (multi-launch)")
+        check(es.shape == (R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape}")
+        e = es.mean() / nvars
+        # a few sweeps from a random start: far from the ground state's -2.13, below the random state's ~0
+        check(-2.5 < e < 0.5, f"e/site {e} outside (-2.5, 0.5)")
+        print(f"main-quantum-long: Lattice.run_quantum_monte_carlo{'_sampling' if freq else ''}({LONG_BETA}, {T}, "
+              f"{R}{', freq=' + str(freq) if freq else ''}) on the {side}^2 torus, L_tau={LONG_LTAU}: {counts['wl']} "
+              f"multi-launch launches, 0 others, {dt:.3f} s host wall, e/site={e:.6f}", flush=True)
+        out.append(counts["wl"])
+    return tuple(out)
 
 
 def chain_energy(n, beta, gamma, j=1.0):
@@ -597,23 +693,32 @@ def _profile_line(prof, names, sweeps):
 
 
 def phase_timing_wl(dev, smi):
-    """Worldline kernels and plain version at the main shapes (the torus in
-    plain and sampling mode on the multi-launch kernels, the chain in sampling
-    mode on both routes through the wrappers' private launchers), in turns with CUDA
-    events; each launch's device time from torch.profiler; then both routes at
-    the gate's edges. Returns {route: (ms/sweep, plain ms/sweep, bound
-    ms/sweep, bound_by)} for "torus" and "torus-sampling" (multi-launch, the
-    main paths' calls: 200 plain sweeps, and 20 sampled every 5), "chain"
-    (multi-launch) and "chain-resident"."""
+    """Worldline kernels and plain version at the main paths' shapes, through
+    the wrappers' private launchers, in turns with CUDA events: every route
+    that fits each shape against the plain version; at both 256^2 torus shapes
+    the tiled route against the multi-launch route, ten runs each in turns;
+    each launch's device time and the idle share from torch.profiler; the
+    tiled kernel's measurement builds and every tile side that fits at the
+    main shape; then the three routes at the gate's edges. Returns {"shape/route": (ms/sweep, plain ms/sweep,
+    bound ms/sweep, bound_by)} for the shapes "torus" and "torus-sampling"
+    (the main paths' calls: 200 plain sweeps, and 20 sampled every 5), "chain"
+    (2000 sampled every 10) and "long" and "long-sampling" (5 plain, and 4
+    sampled every 2, at L_tau = 800)."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
     lim = wl.device_limits(dev)
     out = {}
-    for key, (dense, nvars, R), freq, T, T_plain in (("torus", TORUS, 0, 200, 3), ("torus-sampling", TORUS, 5, 20, 5),
-                                                     ("chain", CHAIN, 10, 2000, 20)):
-        s, seeds = _wl_inputs(dense, nvars, R, 7, dev)
-        tables = wl.make_tables(dense, nvars, WL_BETA, WL_GAMMA, 0.0, WL_LTAU, dev)
-        plan = wl.resident_plan(nvars, WL_LTAU, R, wl.WL_PARAM_BYTES, *lim)
+    names = {"multi-launch": ("wl_site", "wl_cluster", "wl_accumulate"), "resident": ("wl_resident",),
+             "tiled": ("wl_tiled",)}
+    shapes = (("torus", TORUS, WL_LTAU, WL_BETA, 0, 200, 3), ("torus-sampling", TORUS, WL_LTAU, WL_BETA, 5, 20, 5),
+              ("chain", CHAIN, WL_LTAU, WL_BETA, 10, 2000, 20), ("long", LONG, LONG_LTAU, LONG_BETA, 0, 5, 2),
+              ("long-sampling", LONG, LONG_LTAU, LONG_BETA, 2, 4, 2))
+    for key, (dense, nvars, R), L, beta, freq, T, T_plain in shapes:
+        s, seeds = _wl_inputs(dense, nvars, R, 7, dev, L)
+        tables = wl.make_tables(dense, nvars, beta, WL_GAMMA, 0.0, L, dev)
+        res = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim)
+        tiles = wl.tiled_plan(dense[0], dense[1], nvars, L, R, *lim)
+        gate, _ = wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)
 
         def ns(t):
             return t // freq if freq else 0
@@ -622,27 +727,68 @@ def phase_timing_wl(dev, smi):
             wl.wl_sweeps_reference(s, seeds, tables, T_plain, freq, ns(T_plain))
 
         routes = {"multi-launch": lambda t: wl._run_multi(s, seeds, tables, t, freq, ns(t))}
-        if plan:
-            routes["resident"] = lambda t: wl._run_resident(s, seeds, tables, t, freq, ns(t), plan)
-        spins = R * nvars * WL_LTAU
-        nbytes = 2 * spins + R * nvars * ns(T)  # state in and out once per call, samples out
-        b_ms, b_by = bound(nbytes / T, WL_OPS_PER_SPIN * spins)
+        if res:
+            routes["resident"] = lambda t: wl._run_resident(s, seeds, tables, t, freq, ns(t), res)
+        if tiles:
+            routes["tiled"] = lambda t: wl._run_tiled(s, seeds, tables, t, freq, ns(t), tiles)
+        spins = R * nvars * L
         for route, run in routes.items():
+            # the least bytes of the work as the route's caller asks for it: the state in and out once per
+            # launch (every sweep on the tiled route, once per call on the others), the samples out
+            nbytes = 2 * spins * (T if route == "tiled" else 1) + R * nvars * ns(T)
+            b_ms, b_by = bound(nbytes / T, WL_OPS_PER_SPIN * spins)
             run(2)  # warm-up
             wl.wl_sweeps_reference(s, seeds, tables, 2, freq, ns(2))
             k, p = in_turns(lambda: run(T), plain, T, T_plain)
             ms, plain_ms = float(np.mean(k)), float(np.mean(p))
-            out[key + ("-resident" if route == "resident" else "")] = (ms, plain_ms, b_ms, b_by)
+            out[f"{key}/{route}"] = (ms, plain_ms, b_ms, b_by)
+            n_prof = min(T, 20)
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                run(20)
+                run(n_prof)
                 torch.cuda.synchronize()
-            names = ("wl_resident",) if route == "resident" else ("wl_site", "wl_cluster", "wl_accumulate")
-            print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={WL_LTAU}"
-                  f"{' sampling freq=' + str(freq) if freq else ''}, {route}, on {smi}: kernel {ms:.5f} ms/sweep = "
+            print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={L}"
+                  f"{' sampling freq=' + str(freq) if freq else ''}, {route}"
+                  f"{' (the gate picks it)' if route == gate else ''}, on {smi}: kernel {ms:.5f} ms/sweep = "
                   f"{spins / (ms * 1e6):.3f} spin updates/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep "
-                  f"(runs {p}); bound {b_ms:.5f} ms/sweep ({b_by}); {_profile_line(prof, names, 20)}", flush=True)
-    # the gate's edges: both routes where the resident kernel fits, resident through its private launcher;
-    # tori of 24^2 to 48^2 sites at R = 16 and 64, at R = 264 (two waves of the 132 SMs) and at one full wave
+                  f"(runs {p}); bound {b_ms:.5f} ms/sweep ({b_by}); {_profile_line(prof, names[route], n_prof)}",
+                  flush=True)
+        if key.startswith("torus"):  # the tiled route against the multi-launch route, ten runs each in turns
+            a, b = versus(lambda: routes["tiled"](T), lambda: routes["multi-launch"](T), T, T)
+            print(f"timing-wl: {key}, on {smi}: tiled median {np.median(a):.5f} ms/sweep (runs {a}); multi-launch "
+                  f"median {np.median(b):.5f} (runs {b}); tiled faster in {sum(x < y for x, y in zip(a, b))} of "
+                  f"{len(a)} pairs, {np.median(b) / np.median(a):.3f}x; tile {tiles[0]}, "
+                  f"{R * (-(-dense[1] // tiles[0])) ** 2} blocks, box {tiles[1]} sites, {tiles[2]} bytes of shared "
+                  f"memory; box bytes read a sweep {R * (-(-dense[1] // tiles[0])) ** 2 * tiles[1] * L}, "
+                  f"written {spins}", flush=True)
+    # the tiled kernel's measurement builds at the main shape, each in turns with the kernel itself
+    (dense, nvars, R), T = TORUS, 50
+    s, seeds = _wl_inputs(dense, nvars, R, 8, dev)
+    tables = wl.make_tables(dense, nvars, WL_BETA, WL_GAMMA, 0.0, WL_LTAU, dev)
+    tiles = wl.tiled_plan(dense[0], dense[1], nvars, WL_LTAU, R, *lim)
+    s = wl._run_tiled(s, seeds, tables, 20, 0, 0, tiles)[0]  # a state 20 sweeps in, as the main path sees
+    for what, defines in TILED_VARIANTS.items():
+        wl._run_tiled(s, seeds, tables, 2, 0, 0, tiles, defines)
+        a, b = versus(lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, tiles),
+                      lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, tiles, defines), T, T, 2)
+        print(f"timing-wl: tiled build {' '.join(defines)} ({what}) at the main shape, on {smi}: "
+              f"{np.mean(b):.5f} ms/sweep (runs {b}) against the kernel's {np.mean(a):.5f} (runs {a})", flush=True)
+    # every tile side that fits the main shape (a multiple of TILE_STEP, the box within the lattice and the
+    # opt-in shared memory), each in turns with the side tiled_plan picks
+    side = dense[1]
+    for B in range(wl.TILE_MIN, side - sum(wl.TILE_HALO) + 1, wl.TILE_STEP):
+        box, nbytes = (B + sum(wl.TILE_HALO)) ** 2, wl.tiled_bytes(dense[0], B, WL_LTAU)
+        if box > 65535 or nbytes > lim[0]:
+            break
+        plan = (B, box, nbytes)
+        wl._run_tiled(s, seeds, tables, 2, 0, 0, plan)
+        a, b = versus(lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, tiles),
+                      lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, plan), T, T, 2)
+        print(f"timing-wl: tile side {B} at the main shape ({R * (-(-side // B)) ** 2} blocks, box {box} sites, "
+              f"{nbytes} bytes), on {smi}: {np.mean(b):.5f} ms/sweep (runs {b}) against tiled_plan's side "
+              f"{tiles[0]}, {np.mean(a):.5f} (runs {a})", flush=True)
+    # the gate's edges: the three routes where each fits, the resident and tiled kernels through their
+    # private launchers; tori of 24^2 to 48^2 sites at R = 16 and 64, at R = 264 (two waves of the 132
+    # SMs) and at one full wave
     edges = [(CHAIN[0], 256, 64, 824, 10), (CHAIN[0], 256, 64, 200, 20), (("ring", 32, -1.0), 32, 64, 1200, 10)]
     edges += [(("torus", m, -1.0), m * m, R, 40, 50) for m in (24, 32, 36, 40, 48) for R in (16, 64)]
     edges += [(("torus", m, -1.0), m * m, R, 40, 20) for m, R in ((24, 264), (32, 264), (48, 132))]
@@ -650,19 +796,26 @@ def phase_timing_wl(dev, smi):
         s, seeds = _wl_inputs(dense, nvars, R, 9, dev, L)
         tables = wl.make_tables(dense, nvars, WL_BETA * L / WL_LTAU, WL_GAMMA, 0.0, L, dev)
         fit = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim, None)  # the idle-sites threshold lifted
-        plan = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim)
-        wl._run_resident(s, seeds, tables, 2, 0, 0, fit)
-        wl._run_multi(s, seeds, tables, 2, 0, 0)
-        k, p = in_turns(lambda: wl._run_resident(s, seeds, tables, T, 0, 0, fit),
-                        lambda: wl._run_multi(s, seeds, tables, T, 0, 0), T, T)
-        faster = "resident" if np.mean(k) < np.mean(p) else "multi-launch"
-        gate = "resident" if plan else "multi-launch"
+        tiles = wl.tiled_plan(dense[0], dense[1], nvars, L, R, *lim)
+        gate, _ = wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)
+        runs = {"resident": lambda t: wl._run_resident(s, seeds, tables, t, 0, 0, fit),
+                "multi-launch": lambda t: wl._run_multi(s, seeds, tables, t, 0, 0)}
+        if tiles:
+            runs["tiled"] = lambda t: wl._run_tiled(s, seeds, tables, t, 0, 0, tiles)
+        for run in runs.values():
+            run(2)
+        k, p = in_turns(lambda: runs["resident"](T), lambda: runs["multi-launch"](T), T, T)
+        times = {"resident": k, "multi-launch": p}
+        if tiles:
+            times["tiled"], _ = versus(lambda: runs["tiled"](T), lambda: runs["multi-launch"](T), T, T, 1)
+        means = {r: float(np.mean(v)) for r, v in times.items()}
+        faster = min(means, key=means.get)
         sms = lim[1]
         idle = nvars * (-(-R // sms) * sms - R) / sms
-        print(f"timing-wl: gate edge {dense[0]} n={nvars} R={R} L_tau={L} (tile {fit[0]} of {nvars // 2} lines, "
-              f"{idle:.1f} idle sites), "
-              f"on {smi}: resident {np.mean(k):.5f} ms/sweep (runs {k}), multi-launch {np.mean(p):.5f} ms/sweep "
-              f"(runs {p}); faster: {faster}; the gate picks {gate}", flush=True)
+        print(f"timing-wl: gate edge {dense[0]} n={nvars} R={R} L_tau={L} (resident tile {fit[0]} of {nvars // 2} "
+              f"lines, {idle:.1f} idle sites; tiled plan {tiles}), on {smi}: "
+              + ", ".join(f"{r} {means[r]:.5f} ms/sweep (runs {times[r]})" for r in means)
+              + f"; faster: {faster}; the gate picks {gate}", flush=True)
     return out
 
 
@@ -979,9 +1132,10 @@ def main():
     launches = phase_main(dev)
     phase_physics(dev)
     ms, plain_ms = phase_timing(dev, smi)
-    wl_err, wl_res_err = phase_compare_wl(dev)
+    wl_errs = phase_compare_wl(dev)
     wl_launches = phase_main_quantum(dev)
     wl_sample_launches = phase_main_quantum_sampling(dev)
+    long_launches, long_sample_launches = phase_main_quantum_long(dev)
     chain_launches = phase_main_chain(dev)
     phase_physics_wl(dev)
     wl_t = phase_timing_wl(dev, smi)
@@ -1003,15 +1157,20 @@ def main():
         dict(name="sq2d_phase", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/sq2d.cu",
              replaces="pyisingmontecarlo_tpu/ops/sq2d_pallas.py:159", launches=launches, max_abs_err=err,
              ms=ms, plain_ms=plain_ms, bound_ms=sq_bound, bound_by=sq_by, library_ms=None),
+        dict(name="wl_tiled (plain sweeps)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:330",
+             launches=wl_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus/tiled"])),
+        dict(name="wl_tiled (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
+             launches=wl_sample_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus-sampling/tiled"])),
         dict(name="wl_site+wl_cluster+wl_accumulate (plain sweeps)", route="cuda", source=wl_src,
-             replaces=f"{wl_tpu}:330", launches=wl_launches, max_abs_err=wl_err, **timed(wl_t["torus"])),
+             replaces=f"{wl_tpu}:330", launches=long_launches, max_abs_err=wl_errs["multi"],
+             **timed(wl_t["long/multi-launch"])),
         dict(name="wl_site+wl_cluster+wl_accumulate (sampling mode)", route="cuda", source=wl_src,
-             replaces=f"{wl_tpu}:346", launches=wl_sample_launches, max_abs_err=wl_err,
-             **timed(wl_t["torus-sampling"])),
+             replaces=f"{wl_tpu}:346", launches=long_sample_launches, max_abs_err=wl_errs["multi"],
+             **timed(wl_t["long-sampling/multi-launch"])),
         dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
         dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
-             launches=chain_launches, max_abs_err=wl_res_err, **timed(wl_t["chain-resident"])),
+             launches=chain_launches, max_abs_err=wl_errs["resident"], **timed(wl_t["chain/resident"])),
         dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_res_launches, max_abs_err=ladder_res_err, **timed(ladder_t["resident"])),
     ]
@@ -1024,8 +1183,12 @@ def main():
 def rates():
     """The end-to-end main paths of the package first on sys.path, as JSON:
     the tempering bench's slope (min of two runs at t = 500 and 2000, as
-    main-tempering takes it) and the chain's sampling call (min of two)."""
+    main-tempering takes it), the chain's sampling call (min of two), and the
+    256^2 torus's site updates/s as benches/bench_qmc_large.py takes them
+    (the slope between min-of-two runs of run_quantum_monte_carlo(2.0, t, 8)
+    at t = 200 and 800)."""
     from pyisingmontecarlo_tpu_torch import Lattice, __file__ as pkg
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1048,9 +1211,21 @@ def rates():
         lat.run_quantum_monte_carlo_sampling(WL_BETA, 2000, R, sampling_wait_buffer=500, sampling_freq=10)
         torch.cuda.synchronize()
         chain.append(time.perf_counter() - t0)
+    (_, n, R), side = TORUS, TORUS[0][1]
+    lat = Lattice(grid_2d_edges(side, side, -1.0), seed_gen=0, device=dev)
+    lat.set_transverse_field(WL_GAMMA)
+    for t in (200, 800):  # build and warm up, as the bench does
+        lat.run_quantum_monte_carlo(WL_BETA, t, R)
+    torus = {200: [], 800: []}
+    for t in (200, 800, 200, 800):
+        t0 = time.perf_counter()
+        lat.run_quantum_monte_carlo(WL_BETA, t, R)
+        torch.cuda.synchronize()
+        torus[t].append(time.perf_counter() - t0)
+    updates = R * n * WL_LTAU * 600 / (min(torus[800]) - min(torus[200]))
     print(json.dumps({"package": str(Path(pkg).parent.parent), "tempering_sweeps_per_s": slope,
-                      "tempering_runs_s": wall, "chain_sampling_call_s": min(chain), "chain_runs_s": chain}),
-          flush=True)
+                      "tempering_runs_s": wall, "chain_sampling_call_s": min(chain), "chain_runs_s": chain,
+                      "torus_site_updates_per_s": updates, "torus_runs_s": torus}), flush=True)
 
 
 def ab(other, pairs=10):
@@ -1068,7 +1243,8 @@ def ab(other, pairs=10):
             line = out.stdout.strip().splitlines()[-1]
             runs[side].append(json.loads(line))
             print(f"ab on {smi}: {line}", flush=True)
-    for key, higher in (("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False)):
+    for key, higher in (("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
+                        ("torus_site_updates_per_s", True)):
         a, b = (np.array([r[key] for r in runs[side]]) for side in ("other", "this"))
         won = int(((b > a) if higher else (b < a)).sum())
         print(f"ab on {smi}: {key}: {Path(other).resolve()} median {np.median(a)} (quartiles "

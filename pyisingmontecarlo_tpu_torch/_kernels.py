@@ -34,6 +34,7 @@ _SIGNATURES = {
     "ladder_sweeps": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "wl_resident_sweeps": ([_P, _P, _P, _P, _I, _P, _P] + [_I] * 10 + [_P], ctypes.c_int),
     "ladder_resident_sweeps": ([_P] * 10 + [_I] * 9 + [_P], ctypes.c_int),
+    "wl_tiled_sweeps": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 10 + [_P], ctypes.c_int),
     "pmc_smem_optin": ([_I], ctypes.c_int),
     "pmc_error_string": ([_I], ctypes.c_char_p),
 }
@@ -55,15 +56,18 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, defines: tuple = ()) -> Path:
     """Compile ``csrc/*.cu`` unless a library for these sources exists; returns
     its path. ``verbose`` compiles in any case, with ``-Xptxas -v``, and prints
-    what nvcc says (registers, shared memory and spills of each kernel)."""
+    what nvcc says (registers, shared memory and spills of each kernel).
+    ``defines`` (``"NAME=value"`` strings) build a variant for measurement,
+    such as a phase-cut sweep, under a name of its own."""
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     lib = _BUILD / f"libpmc_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists() and not verbose:
         return lib
@@ -73,7 +77,7 @@ def build(verbose: bool = False) -> Path:
     jobs = []
     for src in sorted(_CSRC.glob("*.cu")):
         obj = tmp.with_suffix(f".{src.stem}.o")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *flags, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
     try:
@@ -95,9 +99,10 @@ def build(verbose: bool = False) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build if needed, then load the kernel library with its C signatures set."""
-    lib = ctypes.CDLL(str(build()))
+def load(defines: tuple = ()) -> ctypes.CDLL:
+    """Build if needed, then load the kernel library (or the variant that
+    ``defines`` builds) with its C signatures set."""
+    lib = ctypes.CDLL(str(build(defines=defines)))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -94,20 +94,22 @@ struct Res {
     __device__ uint8_t* act() const { return base + o.act; }
 };
 
-// The elements e = threadIdx.x + m kResThreads of a grid of `cols` columns,
-// as (row, col): the divisions happen once, when a walk is made.
-struct Walk {
+// The elements e = threadIdx.x + m N of a grid of `cols` columns, as
+// (row, col), for a block of N threads: the divisions happen once, when a
+// walk is made.
+template <int N>
+struct WalkN {
     int e, row, col, drow, dcol, cols;
 
-    __device__ explicit Walk(int cols_) : cols(cols_) {
+    __device__ explicit WalkN(int cols_) : cols(cols_) {
         e = threadIdx.x;
         row = e / cols;
         col = e - row * cols;
-        drow = kResThreads / cols;
-        dcol = kResThreads - drow * cols;
+        drow = N / cols;
+        dcol = N - drow * cols;
     }
     __device__ void next() {
-        e += kResThreads;
+        e += N;
         row += drow;
         col += dcol;
         if (col >= cols) {
@@ -116,6 +118,7 @@ struct Walk {
         }
     }
 };
+using Walk = WalkN<kResThreads>;
 
 // Load replica r's plane (gs, nvars L bytes, a multiple of 4) and build the
 // neighbour and site tables; every fully-frozen flag starts set.

@@ -10,11 +10,14 @@
 // pyisingmontecarlo_tpu_torch/ops/wl.py.
 //
 // Layout: the state is s[R, nvars, L] int8, so a replica's time line (r, i)
-// is L contiguous bytes. Two routes, chosen by shape alone (ops/wl.py,
-// resident_plan: the plane and a cluster tile of at least one line per
-// thread, or every line, in the card's opt-in shared memory per block, and at
-// most RESIDENT_IDLE_SITES sites that the idle SMs of the launch's last wave
-// could have swept, where the resident route is the faster on an H100):
+// is L contiguous bytes. Three routes, chosen by shape alone (ops/wl.py,
+// choose_route): resident where resident_plan admits the shape (the plane and
+// a cluster tile of at least one line per thread, or every line, in the
+// card's opt-in shared memory per block, and at most
+// RESIDENT_IDLE_SITES_TILED sites that the idle SMs of the launch's last wave
+// could have swept), else
+// tiled where tiled_plan admits it (a tile and its halo in that memory), else
+// multi-launch.
 //
 // Resident (wl_resident, one launch per call): one block of kResThreads per
 // replica holds its plane in shared memory for all T sweeps (resident.cuh):
@@ -24,9 +27,25 @@
 // products, spins and aligned time bonds in registers, added to acc [R, 3]
 // once per launch; in sampling mode slice 0 goes to the sample slot after
 // every freq-th sweep. 2 ceil(log2 L) + 9 barriers a sweep (one cluster tile).
+// Bound: one replica per SM, so it fills only R of the 132 SMs.
 //
-// Multi-launch (planes too large for a block: the 256^2 torus is 2.6 MB a
-// replica), seven launches a sweep on the caller's stream:
+// Tiled (wl_tiled, one launch per sweep; planes too large for a block, such
+// as the 256^2 torus, 2.6 MB a replica): one block of kTileThreads per
+// (replica, B x B tile) copies its tile and a halo of 4 sites below and 5
+// above from one state buffer into shared memory, runs the whole sweep there
+// (tiled.cuh: each phase on the sites of its color up to its rank, the halo's
+// updates recomputed exactly; the cluster phases by tile_cluster, whose only
+// serial step is each line's walk of its cluster sums), adds the interior's
+// statistics to acc [R, 3] with one atomic per value and block, writes slice
+// 0 of the interior to the sample slot in sampling mode, and writes the
+// interior to the other buffer. 15 barriers a sweep besides the list
+// builder's. Bound: integer issue, as below, inflated by the halo's
+// recomputed work ((B + 7)^2 / B^2 of the sites in the first site phases, down
+// to (B + 1)^2 / B^2 in the last cluster phase), and the serial walk; the
+// state moves once in and once out a sweep, the halo read again from L2.
+//
+// Multi-launch (what neither takes: L_tau so long that no tile of 8 fits),
+// seven launches a sweep on the caller's stream:
 //
 // - wl_site, four times (site color x tau parity): one thread per active
 //   (r, i, tau), updated in place. Its spatial neighbours have the other color
@@ -48,25 +67,27 @@
 //   line). In sampling mode the same launch writes slice 0 into the sample
 //   slot after every freq-th sweep.
 //
-// What bounds it on an H100: a sweep must hash two draws per spin (the site
+// What bounds a sweep on an H100: it must hash two draws per spin (the site
 // phase's and its time bond's; 22 integer operations each) and do about 18
 // more operations per spin, 62 in all. At the 256^2 torus, R=8, L=40 (21 M
 // spins) that is 1.3 G operations, 39 us at the 33.5 T int32 op/s peak, while
 // reading and writing the 21 MB state once would take 12.5 us at 3.35 TB/s
-// (and it stays in the 50 MB L2): integer issue bounds it, and the
-// multi-launch route passes over the state nine times a sweep with byte loads
-// and walks each line serially in its cluster phase. At the 256-site chain,
-// R=64, L=40 (0.66 M spins) the multi-launch route's launches last a few
-// microseconds and its 8192 lines per color cannot hide the serial walk's
-// latency; the resident route takes that shape instead, with no launch and
-// no device-memory pass between phases, every thread busy in the cluster
-// phase, and barriers in their place. It fills only R of the 132 SMs.
+// (and it stays in the 50 MB L2): integer issue bounds it. The multi-launch
+// route passes over the state nine times a sweep with byte loads and walks
+// each line serially in its cluster phase, its neighbours' bytes read from
+// L2; the tiled route passes once and reads every neighbour from shared
+// memory. At the 256-site chain, R=64, L=40 (0.66 M spins) the multi-launch
+// route's launches last a few microseconds and its 8192 lines per color
+// cannot hide the serial walk's latency; the resident route takes that shape
+// instead, with no launch and no device-memory pass between phases, every
+// thread busy in the cluster phase, and barriers in their place.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "lanerng.cuh"
 #include "resident.cuh"
+#include "tiled.cuh"
 #include "worldline.cuh"
 
 namespace {
@@ -264,6 +285,111 @@ __global__ void __launch_bounds__(kResThreads, 1) wl_resident(
     res_store(b, gs);
 }
 
+// The phases wl_tiled runs, as bits: 1 the site phases, 2 the cluster
+// phases, 4 the statistics and samples (the box is always loaded and its
+// interior stored). All of them but in a build that times a cut sweep
+// (chip_smoke.py, timing-wl: nvcc -DPMC_TILED_PHASES=...), whose results are
+// not a sweep's.
+#ifndef PMC_TILED_PHASES
+#define PMC_TILED_PHASES 7
+#endif
+
+// grid: one block of kTileThreads per (replica, tile) (tiled.cuh), one sweep
+// t (draw counter base = 8 t) from s_in to s_out; acc [R, 3] int64 is added
+// to once per block; stage is the sample slot of this sweep ([R, stage_stride]
+// rows of nvars) or null. Depth: the line walk's counter levels for this L.
+template <int Depth>
+__global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
+    const int8_t* __restrict__ s_in, int8_t* __restrict__ s_out, const int32_t* __restrict__ seeds,
+    const int32_t* __restrict__ thr_g, const float* __restrict__ cde_g, int32_t pb, Geo g, int B,
+    long long* __restrict__ acc, int8_t* __restrict__ stage, int stage_stride, uint32_t base) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const TileLayout o = tile_layout(g.torus, B, g.L, kWlParamBytes);
+    const Tile t = tile_of(g, B);
+    const int tid = threadIdx.x, L = g.L, nvars = g.nvars, wy = t.wy, torus = g.torus;
+    int8_t* pl = reinterpret_cast<int8_t*>(smem + o.plane);
+    int* gi = reinterpret_cast<int*>(smem + o.gi);
+    uint16_t* list = reinterpret_cast<uint16_t*>(smem + o.list);
+    int* start = reinterpret_cast<int*>(smem + o.start);
+    int32_t* thr = reinterpret_cast<int32_t*>(smem + o.params);
+    float* cde = reinterpret_cast<float*>(smem + o.params + 30 * 4);
+    int* red = reinterpret_cast<int*>(smem + o.red);
+    if (tid < 30) thr[tid] = thr_g[tid];
+    if (tid < 10) cde[tid] = cde_g[tid];
+    if (tid < 3) red[tid] = 0;
+    for (int ln = tid; ln < tile_max_lines(g.torus, B); ln += kTileThreads)
+        reinterpret_cast<int*>(smem + o.first)[ln] = L;
+    tile_lists(g, t, gi, list, start, reinterpret_cast<int*>(smem + o.wcnt));
+    const size_t plane_off = (size_t)t.r * nvars * L;
+    by_unit(L, [&](auto unit) { tile_load<decltype(unit)>(pl, s_in + plane_off, gi, t.sites, L); });
+    __syncthreads();
+    const uint32_t seed = (uint32_t)seeds[t.r];
+    // four site phases, each on the sites of its color up to its rank
+    for (int color = 0; color < 2 && (PMC_TILED_PHASES & 1); ++color)
+        for (int parity = 0; parity < 2; ++parity) {
+            const uint32_t ctr = base + 2 * color + parity;
+            const uint16_t* ls = list + start[color * kRanks];
+            const int n = start[color * kRanks + tile_rank(2 * color + parity) + 1] - start[color * kRanks];
+            for (TileWalk w(L >> 1); w.row < n; w.next()) {
+                const int k = ls[w.row], tau = 2 * w.col + parity;
+                int8_t* lp = pl + k * L;
+                const int sv = lp[tau];
+                const int ud = lp[tau + 1 == L ? 0 : tau + 1] + lp[tau == 0 ? L - 1 : tau - 1];
+                const int bs = tile_nsum(pl, k, wy, L, tau, torus);
+                const int th = thr[15 * (sv > 0) + 3 * ((bs + 4) >> 1) + ((ud + 2) >> 1)];
+                if ((int)lane_draw31(seed, (uint32_t)(tau * nvars + gi[k]), ctr) <= th) lp[tau] = (int8_t)(-sv);
+            }
+            __syncthreads();
+        }
+    // two cluster phases, on the lines of the color up to its rank
+    const TileCluster cl{reinterpret_cast<int*>(smem + o.first),
+                         reinterpret_cast<int*>(smem + o.first) + tile_max_lines(g.torus, B),
+                         reinterpret_cast<uint16_t*>(smem + o.order), reinterpret_cast<uint32_t*>(smem + o.masks),
+                         reinterpret_cast<float*>(smem + o.qde), reinterpret_cast<uint16_t*>(smem + o.qhead)};
+    for (int color = 0; color < 2 && (PMC_TILED_PHASES & 2); ++color) {
+        const uint32_t ctr = base + 4 + 2 * color;
+        const uint16_t* ls = list + start[color * kRanks];
+        const int n = start[color * kRanks + tile_rank(4 + color) + 1] - start[color * kRanks];
+        auto bond_frozen = [&](int k, int tau) {
+            return (int)lane_draw31(seed, (uint32_t)(tau * nvars + gi[k]), ctr) < pb;
+        };
+        auto head_flips = [&](int k, int head, float de) {
+            return log_uniform(lane_draw31(seed, (uint32_t)(head * nvars + gi[k]), ctr + 1)) < -de;
+        };
+        tile_cluster<Depth>(pl, L, wy, torus, ls, n, cde, cl, bond_frozen, head_flips);
+    }
+    // statistics of the interior (rank 0 of both colors): bond products over
+    // the outgoing bonds (ring k + 1; torus k + 1 and k + wy), spins, aligned
+    // time bonds; slice 0 to the sample slot
+    const int n0 = start[1] - start[0], n1 = start[kRanks + 1] - start[kRanks];
+    const uint16_t* l0 = list + start[0];
+    const uint16_t* l1 = list + start[kRanks];
+    int psb = 0, psh = 0, pal = 0;
+    for (TileWalk w(L >> 1); w.row < ((PMC_TILED_PHASES & 4) ? n0 + n1 : 0); w.next()) {  // pairs (tau, tau + 1)
+        const int k = w.row < n0 ? l0[w.row] : l1[w.row - n0], tau = 2 * w.col;
+        const int8_t* lp = pl + k * L;
+        const char2 v = *reinterpret_cast<const char2*>(lp + tau);
+        const int nx = lp[tau + 2 == L ? 0 : tau + 2];
+        const char2 p1 = *reinterpret_cast<const char2*>(lp + L + tau);
+        const char2 p2 = torus ? *reinterpret_cast<const char2*>(lp + wy * L + tau) : make_char2(0, 0);
+        psb += v.x * (p1.x + p2.x) + v.y * (p1.y + p2.y);
+        psh += v.x + v.y;
+        pal += (v.x == v.y) + (v.y == nx);
+    }
+    if (stage && (PMC_TILED_PHASES & 4))
+        for (int j = tid; j < n0 + n1; j += kTileThreads) {
+            const int k = j < n0 ? l0[j] : l1[j - n0];
+            stage[(size_t)t.r * stage_stride + gi[k]] = pl[k * L];
+        }
+    res_block_add(red, 0, psb);
+    res_block_add(red, 1, psh);
+    res_block_add(red, 2, pal);
+    by_unit(L, [&](auto unit) { tile_store<decltype(unit)>(pl, s_out + plane_off, g, t, L); });
+    __syncthreads();
+    if (tid < 3)
+        atomicAdd(reinterpret_cast<unsigned long long*>(acc + 3 * t.r + tid), (unsigned long long)(long long)red[tid]);
+}
+
 }  // namespace
 
 // Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L]. thr [30] int32, cde [10] f32 and pb as in ops/wl.py;
@@ -329,6 +455,47 @@ extern "C" int wl_resident_sweeps(void* s, const void* seeds, const void* thr, c
         static_cast<const float*>(cde), pb, Geo{torus, size, nvars, L}, static_cast<long long*>(acc),
         static_cast<int8_t*>(samples), T, samples ? freq : 0, samples ? nsamples : 0, tile);
     return (int)cudaGetLastError();
+}
+
+// The tiled route: T sweeps, one launch each, of R x tiles blocks on
+// `stream`, with tiles of side `tile` and smem bytes of shared memory as
+// ops/wl.tiled_plan gives them (refused unless they match this file's
+// layout). Sweep t reads s (t = 0) or the buffer the sweep before wrote, and
+// writes a (t even) or b (t odd): the result is in a when T is odd, in b
+// when T is even. s is not modified. acc is [R, 3] int64, added to; the other
+// arguments as wl_sweeps.
+extern "C" int wl_tiled_sweeps(const void* s, void* a, void* b, const void* seeds, const void* thr, const void* cde,
+                               int pb, void* acc, void* samples, int R, int nvars, int L, int torus, int size, int T,
+                               int freq, int nsamples, int tile, int smem, void* stream) {
+    const int side = torus ? size : nvars;
+    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || R < 1 || tile < 1 ||
+        tile + kHaloLo + kHaloHi > side || tile_box_sites(torus, tile) > 65535 ||
+        tile_layout(torus, tile, L, kWlParamBytes).bytes != smem)
+        return (int)cudaErrorInvalidValue;
+    const long long tiles = torus ? (long long)((side + tile - 1) / tile) * ((side + tile - 1) / tile)
+                                  : (side + tile - 1) / tile;
+    if (tiles * R >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const bool shallow = L < 128;  // counts below 128 need 7 counter levels
+    cudaError_t e = cudaFuncSetAttribute(shallow ? wl_tiled<7> : wl_tiled<kTreeDepth>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    const Geo g{torus, size, nvars, L};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int8_t* in = static_cast<const int8_t*>(s);
+    for (int t = 0; t < T; ++t) {
+        int8_t* out = static_cast<int8_t*>(t & 1 ? b : a);
+        int8_t* stage = nullptr;
+        if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
+            stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
+        auto kernel = shallow ? wl_tiled<7> : wl_tiled<kTreeDepth>;
+        kernel<<<(unsigned)(tiles * R), kTileThreads, smem, st>>>(
+            in, out, static_cast<const int32_t*>(seeds), static_cast<const int32_t*>(thr),
+            static_cast<const float*>(cde), pb, g, tile, static_cast<long long*>(acc), stage, nsamples * nvars,
+            8u * (uint32_t)t);
+        if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+        in = out;
+    }
+    return 0;
 }
 
 // The opt-in shared memory per block of a device, in bytes (negative: the

@@ -1,12 +1,13 @@
 // What the worldline kernels (wl.cu, ladder.cu) share: the layout of
 // R replicas of a periodic ring or square torus, s[R, nvars, L] int8 (a time
 // line (r, i) is L contiguous bytes), a fully frozen line's total in XLA's
-// order (XlaSum), and the multi-launch route's Fortuin-Kasteleyn time-line
-// cluster update of one line by one thread, which holds the JAX kernels'
-// pointer-doubling f32 sums bit for bit (fk_line_update). The resident route,
+// order (XlaSum), a cluster's sum in the order of the JAX kernels' pointer
+// doubling fed one slice at a time (TreeSum), and the multi-launch route's
+// Fortuin-Kasteleyn time-line cluster update of one line by one thread
+// (fk_line_update), which holds those sums bit for bit. The resident route,
 // one block per replica with its plane in shared memory and the cluster
-// phase in parallel, is in resident.cuh; ops/wl.resident_plan picks the route
-// by shape.
+// phase in parallel, is in resident.cuh, the tiled route in tiled.cuh;
+// ops/wl.choose_route picks the route by shape.
 #pragma once
 
 #include <cstdint>
@@ -96,6 +97,49 @@ struct XlaSum {
     }
 };
 
+// The forward segmented sum of a cluster's slice dE in the JAX kernels'
+// order, fed one slice at a time from the cluster's head. Their pointer
+// doubling over the whole ring gives, at a head h with n slices,
+// R(h, n) = F(h, p) + R(h + p, n - p), p the largest power of two below n, F a
+// perfect binary tree of additions. Merging equal blocks like a binary
+// counter leaves exactly the blocks F of n's binary expansion (blk[b] holds
+// the sum of a block of 2^b slices while bit b of count is set), which summed
+// right-nested are R: the same f32 additions in the same order, done once per
+// slice instead of log2 L times. Every index of blk is a constant once the
+// loops over b are unrolled, so blk stays in registers, and the loops
+// branch on nothing: the threads of a warp, each at its own place in its own
+// cluster, stay together (the additions whose results are not kept are
+// computed all the same). Depth: the levels, floor(log2 n) + 1 at least.
+template <int Depth>
+struct TreeSum {
+    float blk[Depth] = {};
+    unsigned count = 0;
+
+    __device__ __forceinline__ void add(float v) {
+        const int merges = __ffs(~count) - 1;  // the trailing ones of count
+#pragma unroll
+        for (int b = 0; b < Depth; ++b) {
+            const float m = __fadd_rn(blk[b], v);
+            v = b < merges ? m : v;
+        }
+#pragma unroll
+        for (int b = 0; b < Depth; ++b) blk[b] = b == merges ? v : blk[b];
+        ++count;
+    }
+    __device__ __forceinline__ float total() const {  // R, right-nested
+        float acc = 0.0f;
+        bool first = true;
+#pragma unroll
+        for (int b = 0; b < Depth; ++b) {
+            const bool set = (count >> b) & 1u;
+            const float m = first ? blk[b] : __fadd_rn(blk[b], acc);
+            acc = set ? m : acc;
+            first = first && !set;
+        }
+        return acc;
+    }
+};
+
 // Per-line bit arrays in shared memory: word w of the block's thread j at
 // [w * kLineBlock + j], so a warp's accesses fall in distinct banks.
 __device__ __forceinline__ bool get_bit(const uint32_t* b, int x) {
@@ -113,13 +157,8 @@ inline int cluster_smem_bytes(int L) { return 2 * ((L + 31) / 32) * kLineBlock *
 // head_flips(head, dE): the cluster headed at head, of total dE, flips.
 //
 // The JAX kernels run the forward segmented sum by pointer doubling over the
-// whole ring; at a cluster head h with n slices that gives
-// R(h, n) = F(h, p) + R(h + p, n - p), p the largest power of two below n,
-// F a perfect binary tree of additions. Walking the cluster and merging equal
-// blocks like a binary counter leaves exactly the blocks F of n's binary
-// expansion, which summed right-nested are R: the same f32 additions in the
-// same order, done once per slice instead of log2 L times. Three passes along
-// the line: (1) frozen bonds, as bits; (2) from the first head (tau = 0 on a
+// whole ring; TreeSum gives the same sums walking each cluster. Three passes
+// along the line: (1) frozen bonds, as bits; (2) from the first head (tau = 0 on a
 // fully frozen line, whose total is summed in XLA's order), each cluster's dE
 // and its head's decision, as bits; (3) the decisions carried to every slice
 // of their cluster, and the flips written. Frozen and other lines take the
@@ -146,13 +185,11 @@ __device__ __forceinline__ void fk_line_update(int8_t* lp, uint32_t* bits, int L
     }
     const bool frozen = h0 < 0;  // one cluster, headed at tau = 0
     if (frozen) h0 = 0;
-    // (2) blk[b] holds the tree sum of a block of 2^b slices while bit b of
-    // count is set
-    float blk[kTreeDepth];
-    unsigned count = 0;
+    // (2) each cluster's dE by the binary counter, and its head's decision
+    TreeSum<kTreeDepth> sum;
     XlaSum whole(L);
     for (int j = 0, x = h0, head = h0; j < L; ++j, x = x + 1 == L ? 0 : x + 1) {
-        float v = slice_de(x, (int)lp[x]);
+        const float v = slice_de(x, (int)lp[x]);
         float acc = 0.0f;
         bool ends = false;
         if (frozen) {
@@ -162,23 +199,15 @@ __device__ __forceinline__ void fk_line_update(int8_t* lp, uint32_t* bits, int L
                 ends = true;
             }
         } else {
-            int b = 0;
-            for (; (count >> b) & 1u; ++b) v = __fadd_rn(blk[b], v);
-            blk[b] = v;
-            ++count;
-            if (!get_bit(act, x)) {  // the cluster ends at x: R, right-nested
+            sum.add(v);
+            if (!get_bit(act, x)) {  // the cluster ends at x
                 ends = true;
-                bool first = true;
-                for (b = 0; b < kTreeDepth; ++b)
-                    if ((count >> b) & 1u) {
-                        acc = first ? blk[b] : __fadd_rn(blk[b], acc);
-                        first = false;
-                    }
+                acc = sum.total();
             }
         }
         if (ends) {
             if (head_flips(head, acc)) set_bit(dec, head);
-            count = 0;
+            sum.count = 0;
             head = x + 1 == L ? 0 : x + 1;
         }
     }

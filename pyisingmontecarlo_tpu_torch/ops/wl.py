@@ -25,13 +25,16 @@ One sweep, for sweep index t (counting from 0 within one dispatch chunk):
 3. accumulation of three exact integer statistics: bond products over the
    outgoing bonds, spins, and aligned time bonds.
 
-Two routes on the card, chosen by shape alone (``resident_plan``): the
+Three routes on the card, chosen by shape alone (``choose_route``): the
 resident kernel (one launch per call, one block per replica with its plane in
 shared memory) where the plane and a cluster tile fit the card's opt-in
 shared memory per block and the SMs its last wave leaves idle cost less than
-the multi-launch route's floor (``RESIDENT_IDLE_SITES``), else the
-multi-launch kernels (seven launches a sweep). Both equal the plain version
-bit for bit.
+the tiled route's redundant halo work (``resident_plan``,
+``RESIDENT_IDLE_SITES_TILED``); else the tiled kernel (one launch per sweep,
+one block per spatial tile of a replica with the tile and its halo in shared
+memory) where a tile of at least ``TILE_MIN`` sites a side fits
+(``tiled_plan``); else the multi-launch kernels (seven launches a sweep). All
+three equal the plain version bit for bit.
 
 Randomness: the draw ``d`` of sweep t at (tau, i) is
 ``lane_draw31(seed_r, pos = tau*nvars + i, ctr = 8*t + d)``. A run longer than
@@ -71,6 +74,9 @@ __all__ = [
     "gate",
     "resident_bytes",
     "resident_plan",
+    "tiled_bytes",
+    "tiled_plan",
+    "choose_route",
     "dispatch_bound",
     "chunk_plan",
     "chunk_seeds",
@@ -98,6 +104,33 @@ WL_PARAM_BYTES = 30 * 4 + 10 * 4  # the resident block's thr and cde
 # route is the faster while the sites its idle SMs could have swept,
 # ``nvars * (ceil(R / SMs) - R / SMs)``, stay within this many.
 RESIDENT_IDLE_SITES = 1150
+# Against the tiled route, which fills the SMs whatever R is, the resident
+# route wins only with fewer idle sites: the gate's edges on an H100 (tori of
+# 24^2 to 48^2 at L_tau = 40 and R = 16, 64, 132, 264, and the 256-chain;
+# PERF.md) had it faster at 297 idle sites and below (a 24^2 torus at R = 64)
+# and slower at 506 to 528 (24^2 at R = 16, 32^2 at R = 64). choose_route
+# takes this threshold for the worldline; every shape whose plane fits a
+# resident block but no tile does has a side under 17 sites, so fewer idle
+# sites than either threshold. The ladder, which has no tiled route, keeps
+# RESIDENT_IDLE_SITES.
+RESIDENT_IDLE_SITES_TILED = 400
+# The tiled route (csrc/tiled.cuh): blocks of TILE_THREADS threads, each
+# holding a tile of B x B sites (a ring: B sites) and a halo of TILE_HALO =
+# (below, above) sites in each direction; phase p of a sweep (four site
+# phases by (color, parity), then the cluster phases of colors 0 and 1)
+# updates the sites of its color whose rank is at most TILE_RANKS[p], the rank
+# of a box site being the larger over the directions of 0 inside the tile, 1
+# in the first ring above it, and r + 1 in the r-th ring below and in the
+# (r + 1)-th above. The tile side is a multiple of TILE_STEP, TILE_MIN at
+# least, and the box fits the side (no site twice in one box) and the card's
+# opt-in shared memory per block.
+TILE_THREADS = 512
+TILE_HALO = (4, 5)
+TILE_RANKS = (4, 4, 3, 3, 2, 1)
+TILE_MIN = TILE_STEP = 8
+TILE_QUEUE = 6  # clusters per line walk whose decisions wait for the walk's end (csrc/tiled.cuh)
+TILE_BLOCKS_PER_SM = 2  # csrc/wl.cu: __launch_bounds__(TILE_THREADS, 2)
+_SMEM_RESERVED = 1024  # shared memory the card reserves per block
 _INT_LIMIT = 2**31
 # the JAX kernel's dispatch plan: planes of more than 2 MiB (int32) use its
 # row accumulators, whose exactness bound is 2^23 / (2 L) sweeps per dispatch
@@ -227,6 +260,66 @@ def resident_plan(nvars: int, ltau: int, R: int, param_bytes: int, limit: int, s
     tiles = -(-lines // lo)
     tile = -(-lines // tiles)
     return tile, resident_bytes(nvars, ltau, param_bytes, tile)
+
+
+def tiled_bytes(kind: str, B: int, ltau: int, param_bytes: int = WL_PARAM_BYTES) -> int:
+    """Shared memory of a tiled block (``csrc/tiled.cuh``, ``tile_layout``) for
+    tiles of side ``B``: the box's int8 plane, its sites' global indices
+    (int32) and their list by (color, rank) (uint16), the list builder's
+    bucket offsets and per-warp counts, ``param_bytes`` of the kernel's
+    parameters, reductions, the cluster phase's scratch for its most lines
+    (half the sites of rank 2 at most: an int32 and two counters, a uint16,
+    and two masks of ``ceil(L_tau / 32)`` words each) and its queue of
+    ``TILE_QUEUE`` clusters (f32 dE, uint16 head) per thread, each region
+    16-byte aligned."""
+    a = _align16
+    w, w2 = B + sum(TILE_HALO), B + 3
+    sites = w * w if kind == "torus" else w
+    lines = ((w2 * w2 if kind == "torus" else w2) + 1) // 2
+    buckets = 2 * (max(TILE_RANKS) + 2)
+    return (a(sites * ltau) + a(4 * sites) + a(2 * sites) + a(4 * (2 * buckets + 1)) + a(param_bytes)
+            + a(4 * (TILE_THREADS // 32) * buckets) + 16 + a(4 * lines) + 16 + a(2 * lines)
+            + a(8 * (-(-ltau // 32)) * lines) + a(4 * TILE_QUEUE * TILE_THREADS) + a(2 * TILE_QUEUE * TILE_THREADS))
+
+
+@functools.lru_cache(maxsize=256)
+def tiled_plan(kind: str, size: int, nvars: int, ltau: int, R: int, limit: int, sms: int) -> Optional[tuple]:
+    """``(B, box sites, bytes)`` of the tiled kernel for ``R`` replicas of a
+    ``kind`` lattice of side ``size`` (a ring's is ``nvars``) at ``ltau`` on a
+    card of ``sms`` SMs with ``limit`` bytes of opt-in shared memory per
+    block, or None when no tile side fits. Of the sides that fit, the one
+    whose launch is least in ``waves * blocks per SM * box sites`` (a wave of
+    blocks shares an SM's issue; a block's work grows with its box). Shape
+    only, cached per shape; the wrappers never fall back from a failed
+    launch."""
+    side = size if kind == "torus" else nvars
+    best = None
+    for B in range(TILE_MIN, side - sum(TILE_HALO) + 1, TILE_STEP):
+        w = B + sum(TILE_HALO)
+        sites = w * w if kind == "torus" else w
+        nbytes = tiled_bytes(kind, B, ltau)
+        if sites > 65535 or nbytes > limit:
+            break  # larger tiles only grow
+        tiles = (-(-side // B)) ** (2 if kind == "torus" else 1)
+        per_sm = min(TILE_BLOCKS_PER_SM, (limit + _SMEM_RESERVED) // (nbytes + _SMEM_RESERVED))
+        cost = -(-(R * tiles) // (sms * per_sm)) * per_sm * sites
+        if best is None or cost <= best[0]:
+            best = (cost, (B, sites, nbytes))
+    return best and best[1]
+
+
+def choose_route(kind: str, size: int, nvars: int, ltau: int, R: int, limit: int, sms: int):
+    """``("resident", resident_plan)``, ``("tiled", tiled_plan)`` or
+    ``("multi", None)``: the route ``wl_sweeps`` takes on a card of ``sms``
+    SMs and ``limit`` bytes of opt-in shared memory per block, by shape alone
+    (resident up to ``RESIDENT_IDLE_SITES_TILED`` idle sites)."""
+    plan = resident_plan(nvars, ltau, R, WL_PARAM_BYTES, limit, sms, RESIDENT_IDLE_SITES_TILED)
+    if plan:
+        return "resident", plan
+    plan = tiled_plan(kind, size, nvars, ltau, R, limit, sms)
+    if plan:
+        return "tiled", plan
+    return "multi", None
 
 
 def dispatch_bound(nvars: int, ltau: int) -> int:
@@ -409,11 +502,12 @@ def wl_sweeps_reference(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, n
     return x.to(torch.int8), stats, samples
 
 
-def _kernel_call(name: str, fn):
-    """Run ``fn(lib)``, a C entry of the kernel library, and raise if it returns an error."""
+def _kernel_call(name: str, fn, defines: tuple = ()):
+    """Run ``fn(lib)``, a C entry of the kernel library (or of the variant
+    that ``defines`` builds), and raise if it returns an error."""
     from .. import _kernels
 
-    err = fn(_kernels.load())
+    err = fn(_kernels.load(defines))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {_kernels.error_string(err)} ({err})")
 
@@ -458,6 +552,32 @@ def _run_resident(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: i
     return x, acc, samples
 
 
+def _run_tiled(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int, plan, defines: tuple = ()):
+    """The tiled route on a CUDA tensor (one launch a sweep, counted in
+    ``wl_sweeps.tiled_launches``), with ``plan = (B, box sites, bytes)`` from
+    ``tiled_plan``; ``wl_sweeps``' result. The sweeps alternate between two
+    new buffers; ``s`` is read by the first (through a copy if it is not
+    16-byte aligned, as the kernel's vector loads need). ``defines`` launch a
+    variant built for measurement (``_kernels.build``)."""
+    R, nvars, L = s.shape
+    acc = torch.zeros((R, 3), dtype=torch.int64, device=s.device)
+    samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
+    if not (R and T):
+        return s.clone(), acc, samples
+    src = s if s.data_ptr() % 16 == 0 else s.clone()
+    a = torch.empty_like(s)
+    b = torch.empty_like(s) if T > 1 else a
+    B, _, nbytes = plan
+    with torch.cuda.device(s.device):
+        _kernel_call("wl tiled kernel", lambda lib: lib.wl_tiled_sweeps(
+            src.data_ptr(), a.data_ptr(), b.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(),
+            tables.cde.data_ptr(), int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
+            R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, B, nbytes, _stream(s)),
+            defines)
+    wl_sweeps.tiled_launches += T
+    return (a if T % 2 else b), acc, samples
+
+
 def device_limits(device) -> tuple:
     """``(limit, sms)`` of a CUDA device: its opt-in shared memory per block
     in bytes and its SM count, as ``resident_plan`` takes them."""
@@ -482,11 +602,12 @@ def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int
     ``samples[:, k]`` is slice 0 after sweep ``(k + 1) * freq``. ``seeds_i32[R]``
     keys each replica's draws (counter ``8t + d`` for sweep t of this call).
 
-    A CUDA tensor launches ``csrc/wl.cu`` or raises: the resident kernel
-    (one launch, counted in ``wl_sweeps.resident_launches``) where
-    ``resident_plan`` admits the shape, else the multi-launch kernels
-    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``wl_sweeps.launches``). A CPU
-    tensor runs the plain version."""
+    A CUDA tensor launches ``csrc/wl.cu`` or raises, on the route
+    ``choose_route`` gives: the resident kernel (one launch, counted in
+    ``wl_sweeps.resident_launches``), the tiled kernel (one launch a sweep,
+    counted in ``wl_sweeps.tiled_launches``) or the multi-launch kernels
+    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``wl_sweeps.launches``). A
+    CPU tensor runs the plain version."""
     T, freq, nsamples = int(T), int(freq), int(nsamples)
     _check(s, seeds_i32, tables, T, freq, nsamples)
     if s.device.type == "cpu":
@@ -494,9 +615,11 @@ def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int
     if s.device.type != "cuda":
         raise ValueError(f"wl_sweeps runs on cuda or cpu tensors, got {s.device}")
     R, nvars, L = s.shape
-    plan = resident_plan(nvars, L, R, WL_PARAM_BYTES, *device_limits(s.device))
-    if plan:
+    route, plan = choose_route(tables.kind, tables.size, nvars, L, R, *device_limits(s.device))
+    if route == "resident":
         return _run_resident(s, seeds_i32, tables, T, freq, nsamples, plan)
+    if route == "tiled":
+        return _run_tiled(s, seeds_i32, tables, T, freq, nsamples, plan)
     return _run_multi(s, seeds_i32, tables, T, freq, nsamples)
 
 
@@ -553,3 +676,4 @@ def run_wl_sample(s, seeds_u32, freq: int, nsamples: int, rem: int, dense, beta:
 
 wl_sweeps.launches = 0
 wl_sweeps.resident_launches = 0
+wl_sweeps.tiled_launches = 0
