@@ -6,14 +6,25 @@
 Phases, each printing at least one line; any failure raises and exits non-zero:
 
 1.  gpu           the card's name and power limit (nvidia-smi);
-2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``;
-3.  compare       the square-torus kernel vs its plain PyTorch version on the
-                  card, bit for bit (annealing, field, explicit randoms,
-                  sampling, bench shape);
+2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
+                  (registers, shared memory and spills of each), and the SASS
+                  instructions of one lane-hash draw (cuobjdump, where the
+                  toolkit has it);
+3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
+                  PyTorch version on the card, bit for bit (annealing, field,
+                  explicit randoms, sampling, bench shape; L = 6, 16 and 200,
+                  37 sweeps across launch boundaries from ctr0 = 3, sampling
+                  every 3 sweeps and every sweep, explicit randoms over
+                  several launches), and every (B, K) of the timing grid
+                  against the plan's at the bench shape;
 4.  main          ``Lattice.run_monte_carlo`` at 1024^2, 8 replicas, 1024
-                  sweeps, through the kernel (2 launches per sweep);
+                  sweeps, through the kernel (``sq2d_plan``'s ceil(T / K)
+                  launches);
 5.  physics       Onsager energy (L=32) and disordered magnetization (L=16);
 6.  timing        square-torus kernel and plain version at the bench shape;
+                  the (B, K) grid there; the tiled kernel against the
+                  one-launch-per-phase ``sq2d_phase``, ten runs each in turns,
+                  in all three modes, each against its bound;
 7.  compare-wl    the worldline kernels vs their plain version, bit for bit:
                   the multi-launch, resident and tiled kernels (the gate's
                   route through the wrapper, the others through their private
@@ -75,9 +86,11 @@ Needs torch with CUDA, nvcc and numpy; imports no jax.
 
     python3 chip_smoke.py --ab DIR   # DIR: the root of another checkout, e.g. the parent commit's
 
-times the end-to-end main paths that the resident and tiled kernels serve
-(the tempering bench's sweeps/s slope, the 256-chain's sampling call, and the
-256^2 torus's site updates/s slope of benches/bench_qmc_large.py) for the
+times the end-to-end main paths (``bench.py``'s headline, the best of three
+``Lattice.run_monte_carlo(0.4, 16384, 8)`` calls at 1024^2 after a warm-up,
+in attempted flips/ns; the tempering bench's sweeps/s slope, the 256-chain's
+sampling call, and the 256^2 torus's site updates/s slope of
+benches/bench_qmc_large.py) for the
 package in DIR and for this one, each in a process of its own, ten runs a
 side in the order DIR, this, this, DIR; it prints each run's numbers, each
 side's median and quartiles and the pairs won, and checks nothing else. The
@@ -98,6 +111,7 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 BENCH_L, BENCH_R, BENCH_BETA = 1024, 8, 0.4
+BENCH_SWEEPS = 16384  # bench.py's sweeps a call
 # the worldline main shapes: the 256^2 torus (8 replicas) and the 256-site
 # chain (64 replicas), both at beta=2, Gamma=1, J=-1, so L_tau = 40
 WL_BETA, WL_GAMMA, WL_LTAU = 2.0, 1.0, 40
@@ -109,17 +123,23 @@ LONG_BETA, LONG_LTAU = 40.0, 800
 LONG = (("torus", 64, -1.0), 64 * 64, 2)
 
 # Least time of a kernel's work on an H100 SXM: the bytes it must move at the
-# 3.35 TB/s of HBM3, or its integer operations at 33.5 T int32 op/s (the
-# H100 white paper; 64 int32 lanes per SM, half the fp32 rate). A lane-hash
-# draw is 22 integer operations (ops/lanerng.py); a square-torus site update
-# adds 8 (neighbour sum, table index, compare, select); a worldline spin takes
-# two draws per sweep (site phase and time bond) and 18 more operations
-# (site test, cluster dE and run sum, accumulation). Cluster-head draws,
-# which depend on the data, are not counted, so the bound is a lower one.
+# 3.35 TB/s of HBM3, or its integer operations on the integer (ALU) pipe:
+# 64 int32 lanes per SM (16 in each of the 4 partitions; the H100 white
+# paper), 132 SMs, 1.98 GHz (the clock at which the data sheet's 67 TFLOP/s
+# f32 is 132 SMs x 128 lanes x 2 operations of an FMA; phase_build prints the
+# card's clocks.max.sm beside it): 16.7 T op/s. An integer multiply-add
+# (IMAD) issues to the FMA pipe, beside the ALU, so only ALU instructions are
+# counted. A lane-hash draw compiles to HASH_OPS ALU instructions (shifts,
+# xors, the final shift; phase_build counts them in SASS) and 4 IMADs; a
+# square-torus site update adds 8 (neighbour sum, table index, compare,
+# select); a worldline spin takes two draws per sweep (site phase and time
+# bond) and 18 more operations (site test, cluster dE and run sum,
+# accumulation). Cluster-head draws, which depend on the data, are not
+# counted, so the bound is a lower one.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 33.5e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 F32_OPS_PER_S = 67e12  # outside the tensor cores (the H100 SXM data sheet)
-HASH_OPS = 22
+HASH_OPS = 13
 SQ2D_OPS_PER_SITE = HASH_OPS + 8
 WL_OPS_PER_SPIN = 2 * HASH_OPS + 18
 # A ladder spin per sweep (csrc/ladder.cu): two draws (site phase, time bond)
@@ -220,6 +240,63 @@ def phase_build():
             v.result()
     print(f"build: {dt:.3f} s, {path.relative_to(HERE)}; with the {len(variants)} measurement builds "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    hash_sass()
+
+
+# two kernels that differ by one lane-hash draw whose pos is data and whose seed and ctr are fixed, as in
+# the sweep kernels' inner loops; the difference of their SASS is the draw's instructions
+HASH_PROBE = r"""
+#include <cstdint>
+#include "lanerng.cuh"
+extern "C" __global__ void one(const uint32_t* in, uint32_t* out) {
+    out[threadIdx.x] = lane_draw31(in[0], in[1 + threadIdx.x], in[2]);
+}
+extern "C" __global__ void two(const uint32_t* in, uint32_t* out) {
+    out[threadIdx.x] = lane_draw31(in[0], lane_draw31(in[0], in[1 + threadIdx.x], in[2]), in[2]);
+}
+"""
+
+
+def hash_sass():
+    """Print the SASS instructions of one lane-hash draw by opcode (cuobjdump
+    of HASH_PROBE), those on the ALU pipe (all but IMAD), the HASH_OPS the
+    bounds take, and the card's maximum SM clock; 'not measured' where the
+    toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    from pyisingmontecarlo_tpu_torch import _kernels
+
+    nvcc = _kernels._nvcc()
+    dump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.strip()
+    if not Path(dump).exists():
+        print(f"hash SASS: not measured (no cuobjdump); clocks.max.sm {clock}", flush=True)
+        return
+    build = _kernels._BUILD
+    build.mkdir(exist_ok=True)
+    src, cubin = build / "hash_probe.cu", build / "hash_probe.cubin"
+    src.write_text(HASH_PROBE)
+    subprocess.run([nvcc, "-arch=sm_90a", "-O3", "-I", str(_kernels._CSRC), "-cubin", "-o", str(cubin),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    sass = subprocess.run([dump, "-sass", str(cubin)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    ops, fn = {"one": {}, "two": {}}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\w+)", line)
+        if head:
+            fn = head.group(1)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn in ops and m and m.group(1) not in ("NOP", "BRA", "EXIT"):
+            ops[fn][m.group(1)] = ops[fn].get(m.group(1), 0) + 1
+    diff = {k: ops["two"].get(k, 0) - ops["one"].get(k, 0) for k in set(ops["one"]) | set(ops["two"])}
+    diff = {k: v for k, v in sorted(diff.items()) if v}
+    imad = sum(v for k, v in diff.items() if k.startswith(("IMAD", "IMUL")))
+    print(f"hash SASS: one draw = {sum(diff.values())} instructions {diff}: {sum(diff.values()) - imad} on the ALU "
+          f"pipe, {imad} IMAD on the FMA pipe (HASH_OPS = {HASH_OPS}); clocks.max.sm {clock}; integer rate "
+          f"{INT32_OPS_PER_S / 1e12:.2f} T op/s", flush=True)
 
 
 def _inputs(L, R, seed, dev):
@@ -231,9 +308,16 @@ def _inputs(L, R, seed, dev):
     return random_states_2d(seeds, L), seeds
 
 
+# the (B, K) grid that timing measures at the bench shape (compare holds each to the plan's result)
+SQ2D_GRID_B, SQ2D_GRID_K = (64, 128, 192, 256), (2, 4, 8, 16)
+
+
 def phase_compare(dev):
-    """Kernel vs plain version on the card; returns the largest |difference|."""
+    """Kernel vs plain version on the card, through the wrapper (the plan's
+    (B, K)); then every (B, K) of the timing grid against the plan's result
+    at the bench shape; returns the largest |difference|."""
     from pyisingmontecarlo_tpu_torch.ops import sq2d
+    from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
 
     rng = np.random.default_rng(0)
     cases = []
@@ -253,6 +337,23 @@ def phase_compare(dev):
     s, seeds = _inputs(BENCH_L, BENCH_R, 5, dev)
     cases.append((f"bench L={BENCH_L} R={BENCH_R} beta={BENCH_BETA} T=64", s, seeds,
                   sq2d.thresholds(np.full(64, BENCH_BETA, np.float32), -1.0, 0.0), 0, {}))
+    # lattices smaller than the box and not a multiple of the tile, 37 sweeps across launch boundaries
+    # from ctr0 = 3 under an annealing schedule, sampling every 3 sweeps and every sweep, explicit
+    # randoms over several launches
+    for L, R in ((6, 3), (16, 2), (200, 2)):
+        s, seeds = _inputs(L, R, 10 + L, dev)
+        cases.append((f"anneal L={L} R={R} T=37 ctr0=3", s, seeds, sq2d.thresholds(sched, -1.0, 0.1), 3, {}))
+    s, seeds = _inputs(200, 2, 20, dev)
+    cases.append(("sampling L=200 R=2 freq=3 T=37 ctr0=3", s, seeds, sq2d.thresholds(sched, -1.0, 0.0), 3,
+                  dict(samples=3)))
+    s, seeds = _inputs(64, 3, 21, dev)
+    cases.append(("sampling L=64 R=3 freq=1 T=20", s, seeds,
+                  sq2d.thresholds(np.full(20, 0.44, np.float32), -1.0, 0.0), 7, dict(samples=1)))
+    s, seeds = _inputs(64, 2, 22, dev)
+    rb = torch.from_numpy(rng.integers(0, 2**31, (2 * 37, 64, 32), dtype=np.int64).astype(np.int32)).to(dev)
+    cases.append(("explicit rb L=64 R=2 T=37 (several launches)", s, seeds, sq2d.thresholds(sched, 0.7, 0.0), 0,
+                  dict(rb=rb)))
+    lim = device_limits(dev)
     worst = 0
     for name, s, seeds, thr, ctr0, kw in cases:
         thr = thr.to(dev)
@@ -265,7 +366,22 @@ def phase_compare(dev):
         check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name}: kernel != plain (max |diff| {err})")
         check(not torch.equal(got[0], s), f"{name}: no spin moved")
         worst = max(worst, err)
-        print(f"compare: {name}: bit-identical ({sum(g.numel() for g in got)} spins)", flush=True)
+        B, K = sq2d.sq2d_plan(s.shape[1], s.shape[0], *lim)[:2]
+        print(f"compare: {name}: bit-identical ({sum(g.numel() for g in got)} spins; B={B} K={K}, "
+              f"{-(-thr.shape[0] // K)} launches)", flush=True)
+    # every (B, K) of the grid, and the one-launch-per-phase kernel, against the plan's result
+    s, seeds = _inputs(BENCH_L, BENCH_R, 23, dev)
+    thr = sq2d.thresholds(sched, -1.0, 0.0).to(dev)
+    want = sq2d.sweeps_2d(s, seeds, thr, 3, samples=5)
+    runs = {f"B={B} K={K}": (lambda B=B, K=K: sq2d._run_tiled(s, seeds, thr, 3, None, 5, (B, K)))
+            for B in SQ2D_GRID_B for K in SQ2D_GRID_K}
+    runs["sq2d_phase"] = lambda: sq2d._run_phase(s, seeds, thr, 3, None, 5)
+    for name, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"bench shape {name}: != the plan's result")
+    print(f"compare: bench L={BENCH_L} R={BENCH_R} T=37 ctr0=3 sampling freq=5: {', '.join(runs)} bit-identical "
+          f"to the plan's {sq2d.sq2d_plan(BENCH_L, BENCH_R, *lim)[:2]}", flush=True)
     return worst
 
 
@@ -274,6 +390,8 @@ def phase_main(dev):
     from pyisingmontecarlo_tpu_torch import Lattice
     from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
     from pyisingmontecarlo_tpu_torch.ops import lattice2d
+    from pyisingmontecarlo_tpu_torch.ops.sq2d import sq2d_plan
+    from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
 
     T = 1024
     lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
@@ -285,7 +403,9 @@ def phase_main(dev):
     dt = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["sq2d"]
-    check(counts == counts_only(sq2d=2 * T), f"launch counts {counts}, want sq2d {2 * T} only")
+    plan = sq2d_plan(BENCH_L, BENCH_R, *device_limits(dev))
+    want = -(-T // plan[1])
+    check(launches < T and counts == counts_only(sq2d=want), f"launch counts {counts}, want sq2d {want} only")
     check(es.shape == (BENCH_R,) and es.dtype == np.float64, f"energies {es.shape} {es.dtype}")
     check(st.shape == (BENCH_R, BENCH_L * BENCH_L) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
     check(np.isfinite(es).all(), "non-finite energies")
@@ -295,7 +415,7 @@ def phase_main(dev):
     u = es.mean() / BENCH_L**2
     check(abs(u - onsager_u(BENCH_BETA)) < 0.01, f"u={u} vs Onsager {onsager_u(BENCH_BETA)}")
     print(f"main: Lattice.run_monte_carlo({BENCH_BETA}, {T}, {BENCH_R}) at {BENCH_L}^2: "
-          f"{launches} launches, {dt:.3f} s host wall, u={u:.6f} (Onsager {onsager_u(BENCH_BETA):.6f})", flush=True)
+          f"{launches} launches (B={plan[0]}, K={plan[1]}), {dt:.3f} s host wall, u={u:.6f} (Onsager {onsager_u(BENCH_BETA):.6f})", flush=True)
     return launches
 
 
@@ -346,34 +466,58 @@ def in_turns(run_kernel, run_plain, n_kernel, n_plain):
 
 
 def phase_timing(dev, smi):
-    """Kernel and plain version at the bench shape, in turns, then the kernel's
-    sampling and explicit-randoms modes (TPU kernels 2 and 3) at the same
-    shape; returns (kernel ms per sweep, plain ms per sweep)."""
+    """At the bench shape: the kernel (the plan's (B, K)) and the plain
+    version in turns; every (B, K) of the grid, each in turns with the plan's;
+    then the tiled kernel against ``sq2d_phase``, ten runs each in turns, in
+    plain, sampling and explicit-randoms mode (TPU kernels 1, 2 and 3), each
+    beside the plain version and its bound. Returns (kernel ms per sweep,
+    plain ms per sweep) of the 1024-sweep call."""
     from pyisingmontecarlo_tpu_torch.ops import sq2d
+    from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
 
     T, L, sites = 1024, BENCH_L, BENCH_R * BENCH_L**2
     s, seeds = _inputs(L, BENCH_R, 6, dev)
     thr = sq2d.thresholds(np.full(T, BENCH_BETA, np.float32), -1.0, 0.0).to(dev)
+    plan = sq2d.sq2d_plan(L, BENCH_R, *device_limits(dev))
     for fn in (sq2d.sweeps_2d, sq2d.sweeps_2d_reference):  # warm-up
         fn(s, seeds, thr[:8], 0)
     k, p = in_turns(lambda: sq2d.sweeps_2d(s, seeds, thr, 0), lambda: sq2d.sweeps_2d_reference(s, seeds, thr, 0),
                     T, T)
     ms, plain_ms = float(np.mean(k)), float(np.mean(p))
-    print(f"timing: {L}^2 x {BENCH_R} replicas, beta={BENCH_BETA}, {T} sweeps, on {smi}: "
-          f"kernel {ms:.5f} ms/sweep = {sites / (ms * 1e6):.3f} attempted flips/ns (runs {k}); "
-          f"plain torch {plain_ms:.5f} ms/sweep = {sites / (plain_ms * 1e6):.3f} flips/ns (runs {p})", flush=True)
+    b_ms, b_by = bound(2 * sites / T, SQ2D_OPS_PER_SITE * sites)
+    print(f"timing: {L}^2 x {BENCH_R} replicas, beta={BENCH_BETA}, {T} sweeps, on {smi}: kernel (B={plan[0]}, "
+          f"K={plan[1]}, box {plan[2]}^2, {plan[3]} bytes, {BENCH_R * (-(-L // plan[0])) ** 2} blocks) {ms:.5f} "
+          f"ms/sweep = {sites / (ms * 1e6):.3f} attempted flips/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep = "
+          f"{sites / (plain_ms * 1e6):.3f} flips/ns (runs {p}); bound {b_ms:.5f} ms/sweep ({b_by})", flush=True)
+    Tg = 256
+    for B in SQ2D_GRID_B:
+        row = []
+        for K in SQ2D_GRID_K:
+            sq2d._run_tiled(s, seeds, thr[:8], 0, None, None, (B, K))
+            a, b = versus(lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, plan),
+                          lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, (B, K)), Tg, Tg, 1)
+            row.append(f"K={K} {np.mean(b):.5f} (the plan's {np.mean(a):.5f})")
+        print(f"timing: grid at {L}^2 x {BENCH_R}, {Tg} sweeps, on {smi}: B={B} "
+              f"({BENCH_R * (-(-L // B)) ** 2} blocks): " + "; ".join(row) + " ms/sweep", flush=True)
     T2 = 64
     rb = torch.randint(0, 2**31 - 1, (2 * T2, L, L // 2), dtype=torch.int32, device=dev)
-    for mode, kw, nbytes, ops in (
-        ("sampling, a sample every 16 sweeps", dict(samples=16), 2 * sites / T2 + sites / 16,
+    for mode, n, kw, nbytes, ops in (
+        ("plain", T, {}, 2 * sites / T, SQ2D_OPS_PER_SITE * sites),
+        ("sampling, a sample every 16 sweeps", T2, dict(samples=16), 2 * sites / T2 + sites / 16,
          SQ2D_OPS_PER_SITE * sites),
-        ("explicit randoms", dict(rb=rb), 2 * sites / T2 + 4 * L * L, (SQ2D_OPS_PER_SITE - HASH_OPS) * sites),
+        ("explicit randoms", T2, dict(rb=rb), 2 * sites / T2 + 4 * L * L, (SQ2D_OPS_PER_SITE - HASH_OPS) * sites),
     ):
-        k, p = in_turns(lambda: sq2d.sweeps_2d(s, seeds, thr[:T2], 0, **kw),
-                        lambda: sq2d.sweeps_2d_reference(s, seeds, thr[:T2], 0, **kw), T2, T2)
-        b_ms, b_by = bound(nbytes, ops)
-        print(f"timing: {mode}, {L}^2 x {BENCH_R}, {T2} sweeps: kernel {np.mean(k):.5f} ms/sweep (runs {k}); "
-              f"plain torch {np.mean(p):.5f} ms/sweep (runs {p}); bound {b_ms:.5f} ms/sweep ({b_by})", flush=True)
+        rbm, freq = kw.get("rb"), kw.get("samples")
+        a, b = versus(lambda: sq2d._run_tiled(s, seeds, thr[:n], 0, rbm, freq, plan),
+                      lambda: sq2d._run_phase(s, seeds, thr[:n], 0, rbm, freq), n, n)
+        _, p = in_turns(lambda: sq2d._run_tiled(s, seeds, thr[:n], 0, rbm, freq, plan),
+                        lambda: sq2d.sweeps_2d_reference(s, seeds, thr[:n], 0, **kw), n, n)
+        mb_ms, mb_by = bound(nbytes, ops)
+        print(f"timing: {mode}, {L}^2 x {BENCH_R}, {n} sweeps, on {smi}: sq2d_tiled median {np.median(a):.5f} "
+              f"ms/sweep (mean {np.mean(a):.5f}; runs {a}); sq2d_phase median {np.median(b):.5f} (mean "
+              f"{np.mean(b):.5f}; runs {b}); tiled faster in {sum(x < y for x, y in zip(a, b))} of {len(a)} pairs, "
+              f"{np.median(b) / np.median(a):.3f}x; plain torch {np.mean(p):.5f} ms/sweep (runs {p}); bound "
+              f"{mb_ms:.5f} ms/sweep ({mb_by}); launches {-(-n // plan[1])} against {2 * n}", flush=True)
     return ms, plain_ms
 
 
@@ -1154,7 +1298,7 @@ def main():
         return dict(ms=t[0], plain_ms=t[1], bound_ms=t[2], bound_by=t[3], library_ms=None)
 
     kernels = [
-        dict(name="sq2d_phase", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/sq2d.cu",
+        dict(name="sq2d_tiled", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/sq2d.cu",
              replaces="pyisingmontecarlo_tpu/ops/sq2d_pallas.py:159", launches=launches, max_abs_err=err,
              ms=ms, plain_ms=plain_ms, bound_ms=sq_bound, bound_by=sq_by, library_ms=None),
         dict(name="wl_tiled (plain sweeps)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:330",
@@ -1182,7 +1326,9 @@ def main():
 
 def rates():
     """The end-to-end main paths of the package first on sys.path, as JSON:
-    the tempering bench's slope (min of two runs at t = 500 and 2000, as
+    ``bench.py``'s headline as bench.py takes it (a warm-up call, then the
+    best of three ``Lattice.run_monte_carlo(0.4, 16384, 8)`` calls at 1024^2,
+    in attempted flips/ns), the tempering bench's slope (min of two runs at t = 500 and 2000, as
     main-tempering takes it), the chain's sampling call (min of two), and the
     256^2 torus's site updates/s as benches/bench_qmc_large.py takes them
     (the slope between min-of-two runs of run_quantum_monte_carlo(2.0, t, 8)
@@ -1192,6 +1338,14 @@ def rates():
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
+    lat.run_monte_carlo(BENCH_BETA, BENCH_SWEEPS, BENCH_R)  # build and warm up, as bench.py does
+    bench = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lat.run_monte_carlo(BENCH_BETA, BENCH_SWEEPS, BENCH_R)  # returns numpy arrays: the device is done
+        bench.append(time.perf_counter() - t0)
+    flips = BENCH_R * BENCH_L**2 * BENCH_SWEEPS / (min(bench) * 1e9)
     lt = pt_ladder(dev)
     lt.qmc_timesteps_sample(20, replica_swap_freq=1)  # build and warm up
     wall = {500: [], 2000: []}
@@ -1223,7 +1377,8 @@ def rates():
         torch.cuda.synchronize()
         torus[t].append(time.perf_counter() - t0)
     updates = R * n * WL_LTAU * 600 / (min(torus[800]) - min(torus[200]))
-    print(json.dumps({"package": str(Path(pkg).parent.parent), "tempering_sweeps_per_s": slope,
+    print(json.dumps({"package": str(Path(pkg).parent.parent), "bench_flips_per_ns": flips, "bench_runs_s": bench,
+                      "tempering_sweeps_per_s": slope,
                       "tempering_runs_s": wall, "chain_sampling_call_s": min(chain), "chain_runs_s": chain,
                       "torus_site_updates_per_s": updates, "torus_runs_s": torus}), flush=True)
 
@@ -1243,7 +1398,7 @@ def ab(other, pairs=10):
             line = out.stdout.strip().splitlines()[-1]
             runs[side].append(json.loads(line))
             print(f"ab on {smi}: {line}", flush=True)
-    for key, higher in (("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
+    for key, higher in (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
                         ("torus_site_updates_per_s", True)):
         a, b = (np.array([r[key] for r in runs[side]]) for side in ("other", "this"))
         won = int(((b > a) if higher else (b < a)).sum())

@@ -6,25 +6,47 @@
 // l.180) and _kernel_testbits (explicit random planes, l.315), as one kernel
 // with two optional modes. The semantics, the randomness contract and the plain
 // PyTorch version it is held to are in pyisingmontecarlo_tpu_torch/ops/sq2d.py.
+// Acceptance compares a 31-bit draw with one of ten int31 thresholds of the
+// sweep's row of a [T, 10] table made once on the host (never expf here: the
+// plain version must agree bit for bit).
 //
-// Design: one launch per phase, two per sweep, all on the caller's stream. A
-// thread updates one site of the active color in place in the [R, L, L] int8
-// state (its four neighbours are of the other color, which no thread of the
-// launch writes), so the launch needs no scratch. Acceptance compares a 31-bit
-// draw with one of ten int31 thresholds of the sweep's row of a [T, 10] table
-// made once on the host (never expf here: the plain version must agree bit for
-// bit). In sampling mode the last phase of each freq block also writes the
-// finished state into its slot of the [R, nsamples, L, L] buffer: the thread
-// that updates (x, y) writes its untouched partner (x, y^1) too, so no copy
-// kernel runs.
+// sq2d_tiled, temporal blocking: one launch runs K sweeps. A block owns one
+// B x B tile of one replica and holds the tile with a halo of 2K sites (the
+// box, w = B + 4K a side) in shared memory, as the TPU kernel holds both
+// color planes in VMEM for a whole call. Phase j of a launch (j = 0 .. 2K-1)
+// updates its color only where a site is at least j + 1 sites from the box's
+// edge, so its four neighbours were exact after phase j - 1; after 2K phases
+// the tile is exact. Box coordinates are global coordinates mod L, and every
+// draw keeps its global key (pos = x*L/2 + y/2, ctr = 2*(ctr0 + t) + p), so a
+// site that several boxes hold, or one box holds twice (L < w), takes the
+// same value everywhere. A launch reads one [R, L, L] buffer and writes the
+// tiles into another (blocks read their neighbours' tiles as halo), so the
+// launcher alternates two buffers and never updates in place.
 //
-// What bounds it: at 1024^2 x 8 replicas the state is 8 MiB and stays in the
-// 50 MB L2. Per updated site a phase reads five bytes (site and four
-// neighbours, 64 contiguous bytes per warp and row), writes one, and runs about
-// a dozen integer ops of hashing plus the indexing; so L2 bandwidth or the
-// integer pipes bound it, and a 16384-sweep run is 32768 launches, whose gaps
-// add to that. Multi-spin coding, temporal blocking and CUDA graphs are not
-// done here.
+// In shared memory the box is packed as the JAX kernel packs the lattice:
+// plane E holds the sites with x + y even at column c = y/2, O the others
+// (the box's origin is even, so local and global colors agree). A phase's
+// sites are then contiguous, and a thread updates four of them from one
+// 32-bit word of its plane: the neighbours are the same word of the other
+// plane in rows i - 1 and i + 1, and in row i that word and the same shifted
+// by one byte to the left or the right, by the row's parity. A neighbour sum
+// is four byte-wise adds of the spins' "up" bits, so the table index of four
+// sites costs a handful of word operations; the lane hash, one per site, is
+// what remains. The box is loaded with 2- to 16-byte vector loads (the widest
+// that L, B, 2K and the buffers' alignment allow: a chunk never crosses the
+// periodic edge) and packed in registers with byte permutes; the tile is
+// unpacked the same way on the way out. In sampling mode the tile is exact
+// after every sweep of a launch, so a sample is written from shared memory
+// inside the launch. In explicit-randoms mode each box site reads
+// rb[2t + p] at its global packed position, halo sites included.
+//
+// What bounds it: the lane hash, about 20 integer instructions a site, on
+// the SMs' integer pipes; a sweep moves 2 bytes a site only once every K
+// sweeps (the box in, the tile out), and the halo adds (w^2 - B^2)-ish
+// redundant updates, which sq2d_plan weighs against the launches K saves.
+//
+// sq2d_phase, the kernel this one replaces on the main path, is kept beside
+// it for comparison: one launch per phase, a thread per site, in place.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,6 +94,196 @@ __global__ void __launch_bounds__(kBlock) sq2d_phase(
     }
 }
 
+
+constexpr int kTiledThreads = 256;
+
+struct TiledArgs {
+    const int8_t* src;     // [R, L, L], read
+    int8_t* dst;           // [R, L, L], the tiles written
+    const int32_t* seeds;  // [R]
+    const int32_t* thr;    // [kl, 10]: this launch's rows
+    const int32_t* rb;     // [2 kl, L, L/2]: this launch's planes, or null
+    int8_t* samples;       // [R, nsamples, L, L], or null
+    int nsamples, freq;
+    int L, B, K, kl;       // tile side, halo 2K, sweeps in this launch (kl <= K)
+    int t0;                // the call's sweep index of this launch's first sweep
+    uint32_t ctr;          // 2 * (ctr0 + t0)
+    int ntiles;            // tiles a side, ceil(L / B)
+};
+
+// Bytes of dynamic shared memory of a block: the E and O planes of the box
+// (w rows of P bytes each, P = w/2 rounded up to 16), the launch's threshold
+// rows, and the box's packed-column and row keys. ops/sq2d.py:tiled_bytes
+// mirrors it.
+__host__ __device__ __forceinline__ int tiled_pitch(int w) { return ((w >> 1) + 15) & ~15; }
+__host__ __device__ __forceinline__ int tiled_bytes(int B, int K) {
+    const int w = B + 4 * K;
+    return 2 * w * tiled_pitch(w) + 4 * ((10 * K + 3) & ~3) + 4 * (((w >> 1) + 3) & ~3) + 4 * w;
+}
+
+// V bytes of one global row (V/2 site pairs) -> V/2 bytes each of E and O.
+// Even rows put even columns in E, odd rows in O.
+template <int V>
+__device__ __forceinline__ void load_pack(const int8_t* g, uint8_t* e, uint8_t* o, int odd) {
+    if constexpr (V == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(g);
+        uint2 ev = make_uint2(__byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
+        uint2 od = make_uint2(__byte_perm(v.x, v.y, 0x7531), __byte_perm(v.z, v.w, 0x7531));
+        if (odd) { const uint2 t = ev; ev = od; od = t; }
+        *reinterpret_cast<uint2*>(e) = ev;
+        *reinterpret_cast<uint2*>(o) = od;
+    } else if constexpr (V == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(g);
+        const uint32_t ev = __byte_perm(v.x, v.y, 0x6420), od = __byte_perm(v.x, v.y, 0x7531);
+        *reinterpret_cast<uint32_t*>(e) = odd ? od : ev;
+        *reinterpret_cast<uint32_t*>(o) = odd ? ev : od;
+    } else if constexpr (V == 4) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(g);
+        const uint16_t ev = (uint16_t)__byte_perm(v, 0, 0x20), od = (uint16_t)__byte_perm(v, 0, 0x31);
+        *reinterpret_cast<uint16_t*>(e) = odd ? od : ev;
+        *reinterpret_cast<uint16_t*>(o) = odd ? ev : od;
+    } else {
+        const uint16_t v = *reinterpret_cast<const uint16_t*>(g);
+        const uint8_t ev = (uint8_t)(v & 0xFF), od = (uint8_t)(v >> 8);
+        *e = odd ? od : ev;
+        *o = odd ? ev : od;
+    }
+}
+
+// The inverse of load_pack: V/2 bytes each of E and O -> V bytes of a row.
+template <int V>
+__device__ __forceinline__ void store_unpack(int8_t* g, const uint8_t* e, const uint8_t* o, int odd) {
+    if constexpr (V == 16) {
+        uint2 ev = *reinterpret_cast<const uint2*>(e), od = *reinterpret_cast<const uint2*>(o);
+        if (odd) { const uint2 t = ev; ev = od; od = t; }
+        *reinterpret_cast<uint4*>(g) = make_uint4(__byte_perm(ev.x, od.x, 0x5140), __byte_perm(ev.x, od.x, 0x7362),
+                                                  __byte_perm(ev.y, od.y, 0x5140), __byte_perm(ev.y, od.y, 0x7362));
+    } else if constexpr (V == 8) {
+        uint32_t ev = *reinterpret_cast<const uint32_t*>(e), od = *reinterpret_cast<const uint32_t*>(o);
+        if (odd) { const uint32_t t = ev; ev = od; od = t; }
+        *reinterpret_cast<uint2*>(g) = make_uint2(__byte_perm(ev, od, 0x5140), __byte_perm(ev, od, 0x7362));
+    } else if constexpr (V == 4) {
+        uint32_t ev = *reinterpret_cast<const uint16_t*>(e), od = *reinterpret_cast<const uint16_t*>(o);
+        if (odd) { const uint32_t t = ev; ev = od; od = t; }
+        *reinterpret_cast<uint32_t*>(g) = __byte_perm(ev, od, 0x5140);
+    } else {
+        const uint16_t ev = *e, od = *o;
+        *reinterpret_cast<uint16_t*>(g) = odd ? (uint16_t)(od | (ev << 8)) : (uint16_t)(ev | (od << 8));
+    }
+}
+
+// The tile (box rows and columns H .. H + B - 1, clipped to the lattice where
+// the last tile a side is partial or B > L) into out[L, L].
+template <int V>
+__device__ __forceinline__ void store_tile(int8_t* out, const uint8_t* E, const uint8_t* O, int P, int H, int B,
+                                           int L, int X0, int Y0) {
+    const int nch = B / V;
+    for (int f = threadIdx.x; f < B * nch; f += kTiledThreads) {
+        const int ii = f / nch, m = f - ii * nch;
+        const int x = X0 + ii, y = Y0 + m * V;
+        if (x >= L || y >= L) continue;
+        const int off = (H + ii) * P + ((H + m * V) >> 1);
+        store_unpack<V>(out + (size_t)x * L + y, E + off, O + off, (H + ii) & 1);
+    }
+}
+
+// grid = (ntiles^2, R); one block per (tile, replica).
+template <int V, bool RB>
+__global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int L = a.L, W = L >> 1, B = a.B, H = 2 * a.K, w = B + 2 * H, hw = w >> 1;
+    const int P = tiled_pitch(w);
+    uint8_t* E = smem;
+    uint8_t* O = smem + w * P;
+    int* thr_s = reinterpret_cast<int*>(smem + 2 * w * P);
+    int* kpos = thr_s + ((10 * a.K + 3) & ~3);  // global packed column of box column c
+    int* xpos = kpos + ((hw + 3) & ~3);         // global row of box row i, times L/2
+    const int r = blockIdx.y, tid = threadIdx.x;
+    const int X0 = (blockIdx.x / a.ntiles) * B, Y0 = (blockIdx.x % a.ntiles) * B;
+    const int x0 = ((X0 - H) % L + L) % L, y0 = ((Y0 - H) % L + L) % L;
+    const size_t plane = (size_t)L * L;
+
+    for (int f = tid; f < 10 * a.kl; f += kTiledThreads) thr_s[f] = __ldg(a.thr + f);
+    for (int f = tid; f < hw; f += kTiledThreads) kpos[f] = ((y0 >> 1) + f) % W;
+    for (int f = tid; f < w; f += kTiledThreads) xpos[f] = ((x0 + f) % L) * W;
+    {
+        const int8_t* src = a.src + r * plane;
+        const int nch = w / V;
+        for (int f = tid; f < w * nch; f += kTiledThreads) {
+            const int i = f / nch, m = f - i * nch;
+            const int off = i * P + m * (V / 2);
+            load_pack<V>(src + (size_t)((x0 + i) % L) * L + (y0 + m * V) % L, E + off, O + off, i & 1);
+        }
+    }
+    __syncthreads();
+
+    const uint32_t seed = (uint32_t)__ldg(a.seeds + r);
+    constexpr uint32_t kOnes = 0x01010101u;
+    for (int jp = 0; jp < 2 * a.kl; ++jp) {
+        const int tl = jp >> 1, p = jp & 1;
+        const int lo = jp + 1, hi = w - 2 - jp;  // the sites this phase updates: lo <= i, j <= hi
+        uint8_t* Pp = p ? O : E;
+        const uint8_t* Q = p ? E : O;
+        const int qlo = lo >> 3, qhi = hi >> 3, nq = qhi - qlo + 1;  // words of four packed columns
+        const int di = kTiledThreads / nq, dq = kTiledThreads - di * nq;
+        const int* th = thr_s + 10 * tl;
+        const uint32_t ctr = a.ctr + 2u * tl + p;
+        const int32_t* rbp = RB ? a.rb + (size_t)jp * L * W : nullptr;
+        int i = lo + tid / nq, q = qlo + tid % nq;
+        while (i <= hi) {
+            const int par = (i + p) & 1;  // box column of packed column c: 2c + par
+            uint8_t* row = Pp + i * P + 4 * q;
+            const uint8_t* qr = Q + i * P + 4 * q;
+            const uint32_t self = *reinterpret_cast<const uint32_t*>(row);
+            const uint32_t up = *reinterpret_cast<const uint32_t*>(qr - P);
+            const uint32_t dn = *reinterpret_cast<const uint32_t*>(qr + P);
+            const uint32_t mid = *reinterpret_cast<const uint32_t*>(qr);
+            const uint32_t nb = *reinterpret_cast<const uint32_t*>(qr + (par ? 4 : -4));
+            const uint32_t side = par ? __funnelshift_r(mid, nb, 8) : __funnelshift_l(nb, mid, 8);
+            // per byte: 5 * (spin up) + (neighbours up), the threshold's index (a spin s is 0x01 or 0xFF)
+            const uint32_t idx = 5u * ((~self >> 1) & kOnes) + ((~up >> 1) & kOnes) + ((~dn >> 1) & kOnes) +
+                                 ((~mid >> 1) & kOnes) + ((~side >> 1) & kOnes);
+            const int4 kp = *reinterpret_cast<const int4*>(kpos + 4 * q);
+            const int xb = xpos[i];
+            const int j0 = 8 * q + par;
+            const bool whole = j0 >= lo && j0 + 6 <= hi;
+            uint32_t flip = 0;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                const int j = j0 + 2 * b;
+                if (whole || (j >= lo && j <= hi)) {
+                    const int pos = xb + (b == 0 ? kp.x : b == 1 ? kp.y : b == 2 ? kp.z : kp.w);
+                    const int t = th[(idx >> (8 * b)) & 0xFF];
+                    const int u = RB ? __ldg(rbp + pos) : (int)lane_draw31(seed, (uint32_t)pos, ctr);
+                    flip |= (uint32_t)(u <= t) << (8 * b);
+                }
+            }
+            *reinterpret_cast<uint32_t*>(row) = self ^ (flip * 0xFEu);
+            q += dq;
+            i += di;
+            if (q > qhi) {
+                q -= nq;
+                ++i;
+            }
+        }
+        __syncthreads();
+        const int t = a.t0 + tl + 1;  // sweeps done
+        if (p == 1 && a.samples && t % a.freq == 0 && t / a.freq <= a.nsamples) {
+            store_tile<V>(a.samples + ((size_t)r * a.nsamples + t / a.freq - 1) * plane, E, O, P, H, B, L, X0, Y0);
+            __syncthreads();
+        }
+    }
+    store_tile<V>(a.dst + r * plane, E, O, P, H, B, L, X0, Y0);
+}
+
+template <int V, bool RB>
+cudaError_t launch_tiled(const TiledArgs& a, int R, int smem, cudaStream_t st) {
+    cudaError_t e = cudaFuncSetAttribute(sq2d_tiled<V, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    sq2d_tiled<V, RB><<<dim3(a.ntiles * a.ntiles, R), kTiledThreads, smem, st>>>(a);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // Runs T sweeps (2T launches) on `stream`. thr is [T, 10]; rb is [2T, L, L/2]
@@ -99,6 +311,51 @@ extern "C" int sq2d_sweeps(void* s, const void* seeds, const void* thr, const vo
             const cudaError_t e = cudaGetLastError();
             if (e != cudaSuccess) return (int)e;
         }
+    }
+    return 0;
+}
+
+// Runs T sweeps of sq2d_tiled on `stream`: ceil(T / K) launches of up to K
+// sweeps each, on tiles of B x B (B a multiple of 8, K even: ops/sq2d.py's
+// sq2d_plan). s is read by the first launch only; the launches alternate
+// between out and tmp so that the last writes out (tmp is unused, and may be
+// null, for one launch). thr is [T, 10]; rb is [2T, L, L/2] or null; samples
+// is [R, nsamples, L, L] or null, a slot written after every freq sweeps.
+// Returns the first CUDA error, else 0.
+extern "C" int sq2d_tiled_sweeps(const void* s, void* out, void* tmp, const void* seeds, const void* thr,
+                                 const void* rb, void* samples, int R, int L, int T, int ctr0, int freq,
+                                 int nsamples, int B, int K, void* stream) {
+    if (B < 8 || B % 8 || K < 2 || K % 2 || L < 4 || L % 2 || (B + 4 * K) / 8 + 1 > kTiledThreads)
+        return (int)cudaErrorInvalidValue;
+    const int ntiles = (L + B - 1) / B, smem = tiled_bytes(B, K);
+    if ((long long)ntiles * ntiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    // the widest chunk of a row that L, B and 2K (so every box and tile column origin) and the buffers allow
+    int V = 16;
+    const uintptr_t align = (uintptr_t)s | (uintptr_t)out | (uintptr_t)tmp | (uintptr_t)samples;
+    while (V > 2 && (L % V || B % V || (2 * K) % V || align % V)) V >>= 1;
+    const int n = (T + K - 1) / K;
+    const int8_t* in = static_cast<const int8_t*>(s);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    for (int m = 0; m < n; ++m) {
+        const int t0 = m * K;
+        int8_t* dst = static_cast<int8_t*>((n - 1 - m) % 2 == 0 ? out : tmp);
+        TiledArgs a{in, dst, static_cast<const int32_t*>(seeds), static_cast<const int32_t*>(thr) + 10LL * t0,
+                    rb ? static_cast<const int32_t*>(rb) + 2LL * t0 * L * (L / 2) : nullptr,
+                    static_cast<int8_t*>(samples), nsamples, freq, L, B, K, T - t0 < K ? T - t0 : K, t0,
+                    (uint32_t)(2 * (ctr0 + t0)), ntiles};
+        cudaError_t e;
+        switch (V * 2 + (rb != nullptr)) {
+            case 32: e = launch_tiled<16, false>(a, R, smem, st); break;
+            case 33: e = launch_tiled<16, true>(a, R, smem, st); break;
+            case 16: e = launch_tiled<8, false>(a, R, smem, st); break;
+            case 17: e = launch_tiled<8, true>(a, R, smem, st); break;
+            case 8: e = launch_tiled<4, false>(a, R, smem, st); break;
+            case 9: e = launch_tiled<4, true>(a, R, smem, st); break;
+            case 4: e = launch_tiled<2, false>(a, R, smem, st); break;
+            default: e = launch_tiled<2, true>(a, R, smem, st); break;
+        }
+        if (e != cudaSuccess) return (int)e;
+        in = dst;
     }
     return 0;
 }

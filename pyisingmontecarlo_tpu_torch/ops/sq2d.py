@@ -2,9 +2,15 @@
 and its plain PyTorch version.
 
 Counterpart of ``pyisingmontecarlo_tpu/ops/sq2d_pallas.py``. The kernel is
-``csrc/sq2d.cu``; ``sweeps_2d`` launches it for a CUDA tensor (or raises) and
-runs ``sweeps_2d_reference`` for a CPU tensor. Both take and return spins as
-``[R, L, L]`` int8 in {-1, +1}, L even and >= 4.
+``sq2d_tiled`` in ``csrc/sq2d.cu``; ``sweeps_2d`` launches it for a CUDA tensor
+(or raises) and runs ``sweeps_2d_reference`` for a CPU tensor. Both take and
+return spins as ``[R, L, L]`` int8 in {-1, +1}, L even and >= 4.
+
+The kernel blocks in time: a launch runs up to K sweeps on each B x B tile
+of each replica, held with a halo of ``HALO_PER_SWEEP * K`` sites in shared
+memory, and phase j of a launch (j = 0 .. 2K-1) updates its color only where
+a site is at least ``j + 1`` sites from the box's edge (``phase_margin``).
+``sq2d_plan`` picks (B, K) by shape alone; the launches are ``ceil(T / K)``.
 
 One sweep is two phases: phase 0 updates the sites with x+y even, phase 1
 those with x+y odd. A site with spin s and neighbour sum B in {-4, ..., 4}
@@ -33,6 +39,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import functools
+
 import numpy as np
 import torch
 
@@ -45,11 +53,84 @@ __all__ = [
     "unpack_checkerboard",
     "sweeps_2d",
     "sweeps_2d_reference",
+    "sq2d_plan",
+    "tiled_bytes",
+    "phase_margin",
 ]
 
 _I31_MAX = 2**31 - 1
 _CTR_LIMIT = 2**30
 _GRID_MAX = 65535  # CUDA grid y (rows) and z (replicas) limits
+
+# The tiled kernel's schedule and the plan's choices (csrc/sq2d.cu)
+TILED_THREADS = 256
+HALO_PER_SWEEP = 2  # a launch of K sweeps reads a halo of 2K sites around its tile
+TILE_STEP = 8  # tile sides are multiples of 8 (and the box's side w = B + 4K too)
+TILE_MAX = 256
+SWEEPS_PER_LAUNCH = (2, 4, 8, 16)  # K; even, so that 2K is a multiple of 4
+TILED_BLOCKS_PER_SM = 2048 // TILED_THREADS  # the SM's thread limit
+_SMEM_RESERVED = 1024  # shared memory the card reserves per block
+# the plan's cost model, in site updates of the busiest SM per sweep (fit by
+# chip_smoke.py's (B, K) grid at 1024^2 x 8): an SM needs this many blocks to
+# keep its integer pipes busy; a byte loaded or stored counts this much of an
+# update; a launch costs this many updates
+PLAN_MIN_BLOCKS_PER_SM = 2
+PLAN_IO_WEIGHT = 0.5
+PLAN_LAUNCH_SITES = 20000
+
+
+def phase_margin(j: int) -> int:
+    """Phase j of a launch (0 .. 2K-1) updates its color at the box sites at
+    least this far from the box's edge: their neighbours were exact after
+    phase j - 1, so after 2K phases the tile, ``HALO_PER_SWEEP * K`` sites in,
+    is exact."""
+    return j + 1
+
+
+def tiled_bytes(B: int, K: int) -> int:
+    """Shared memory of a block of the tiled kernel (``tiled_bytes`` of
+    ``csrc/sq2d.cu``): the E and O planes of the box, ``w`` rows of ``w/2``
+    bytes padded to 16; ``K`` threshold rows; the box's packed-column and row
+    keys (int32)."""
+    w = B + 2 * HALO_PER_SWEEP * K
+    pitch = -(-(w // 2) // 16) * 16
+    return 2 * w * pitch + 4 * (-(-10 * K // 4) * 4) + 4 * (-(-(w // 2) // 4) * 4) + 4 * w
+
+
+def _phase_updates(w: int, K: int) -> int:
+    """Site updates of one block's launch of K sweeps: half the sites of each
+    phase's region."""
+    return sum((w - 2 * phase_margin(j)) ** 2 for j in range(2 * K)) // 2
+
+
+@functools.lru_cache(maxsize=256)
+def sq2d_plan(L: int, R: int, limit: int, sms: int) -> Optional[tuple]:
+    """``(B, K, w, bytes)`` of the tiled kernel for ``R`` replicas of an
+    ``L x L`` torus on a card of ``sms`` SMs with ``limit`` bytes of opt-in
+    shared memory per block: tile side B (a multiple of ``TILE_STEP`` up to
+    ``TILE_MAX``, at most L rounded up to one), sweeps per launch K, box side
+    ``w = B + 4K`` and the block's shared memory; None when nothing fits.
+    Of the (B, K) that fit, the least in the model's time per sweep: the
+    blocks of the busiest SM (at least ``PLAN_MIN_BLOCKS_PER_SM``) times a
+    block's updates and weighted bytes, over K, plus a launch over K. Shape
+    only, cached per shape; the wrapper never falls back from a failed
+    launch."""
+    best = None
+    top = min(TILE_MAX, -(-L // TILE_STEP) * TILE_STEP)
+    for B in range(TILE_STEP, top + 1, TILE_STEP):
+        blocks = R * (-(-L // B)) ** 2
+        for K in SWEEPS_PER_LAUNCH:
+            w = B + 2 * HALO_PER_SWEEP * K
+            nbytes = tiled_bytes(B, K)
+            if nbytes > limit or w // 8 + 1 > TILED_THREADS:
+                continue
+            cap = min(TILED_BLOCKS_PER_SM, (limit + _SMEM_RESERVED) // (nbytes + _SMEM_RESERVED))
+            load = -(-blocks // sms) if blocks <= sms * cap else -(-blocks // (sms * cap)) * cap
+            work = _phase_updates(w, K) + PLAN_IO_WEIGHT * (w * w + B * B)
+            cost = (max(load, PLAN_MIN_BLOCKS_PER_SM) * work + PLAN_LAUNCH_SITES) / K
+            if best is None or cost < best[0]:
+                best = (cost, (B, K, w, nbytes))
+    return best and best[1]
 
 
 def dE_values(j: float, h: float) -> np.ndarray:
@@ -164,22 +245,60 @@ def sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb=None, samples=None):
     return (s, stack) if samples else s
 
 
-def _launch(out, seeds_i32, thr, ctr0, rb, stack, samples, R, L, T):
+def _kernel_call(name: str, fn):
     from .. import _kernels
 
-    lib = _kernels.load()
-    nsamples = stack.shape[1] if stack is not None else 0
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.sq2d_sweeps(
-            out.data_ptr(), seeds_i32.data_ptr(), thr.data_ptr(),
-            None if rb is None else rb.data_ptr(),
-            None if stack is None else stack.data_ptr(),
-            R, L, T, int(ctr0), int(samples or 0), nsamples, stream,
-        )
+    err = fn(_kernels.load())
     if err != 0:
-        raise RuntimeError(f"sq2d kernel launch failed: {_kernels.error_string(err)} ({err})")
-    sweeps_2d.launches += 2 * T
+        raise RuntimeError(f"{name} launch failed: {_kernels.error_string(err)} ({err})")
+
+
+def _stack(s, T, samples):
+    R, L, _ = s.shape
+    return torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
+
+
+def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan):
+    """The tiled kernel on CUDA tensors (``ceil(T / K)`` launches, counted in
+    ``sweeps_2d.launches``) with ``plan = (B, K, ...)`` from ``sq2d_plan``;
+    returns ``(state, stack or None)``. The launches alternate between two new
+    buffers, and the last writes the one returned; ``s`` is only read."""
+    R, L, _ = s.shape
+    T = thr.shape[0]
+    stack = _stack(s, T, samples)
+    if not (R and T):
+        return s.clone(), stack
+    B, K = plan[0], plan[1]
+    n = -(-T // K)
+    out = torch.empty_like(s)
+    tmp = torch.empty_like(s) if n > 1 else None
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        _kernel_call("sq2d tiled kernel", lambda lib: lib.sq2d_tiled_sweeps(
+            s.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(), seeds_i32.data_ptr(),
+            thr.data_ptr(), None if rb is None else rb.data_ptr(), None if stack is None else stack.data_ptr(),
+            R, L, T, int(ctr0), int(samples or 0), 0 if stack is None else stack.shape[1], B, K, stream))
+    sweeps_2d.launches += n
+    return out, stack
+
+
+def _run_phase(s, seeds_i32, thr, ctr0, rb, samples):
+    """The one-launch-per-phase kernel ``sq2d_phase`` on CUDA tensors (2T
+    launches, counted in ``sweeps_2d.launches``), kept for comparison;
+    returns ``(state, stack or None)``."""
+    R, L, _ = s.shape
+    T = thr.shape[0]
+    out = s.clone()
+    stack = _stack(s, T, samples)
+    if R and T:
+        with torch.cuda.device(s.device):
+            stream = torch.cuda.current_stream(s.device).cuda_stream
+            _kernel_call("sq2d kernel", lambda lib: lib.sq2d_sweeps(
+                out.data_ptr(), seeds_i32.data_ptr(), thr.data_ptr(), None if rb is None else rb.data_ptr(),
+                None if stack is None else stack.data_ptr(), R, L, T, int(ctr0), int(samples or 0),
+                0 if stack is None else stack.shape[1], stream))
+        sweeps_2d.launches += 2 * T
+    return out, stack
 
 
 def sweeps_2d(
@@ -200,18 +319,20 @@ def sweeps_2d(
     sampling period: the state after every ``samples`` sweeps is staged into a
     ``[R, T // samples, L, L]`` int8 stack, and ``(state, stack)`` is returned.
 
-    A CUDA tensor launches ``csrc/sq2d.cu`` (2 launches per sweep, counted in
+    A CUDA tensor launches the tiled kernel of ``csrc/sq2d.cu`` with
+    ``sq2d_plan``'s (B, K) (``ceil(T / K)`` launches, counted in
     ``sweeps_2d.launches``) or raises; a CPU tensor runs the plain version."""
     R, L, T = _check(s, seeds_i32, thr, ctr0, rb, samples)
     if s.device.type == "cpu":
         return sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb, samples)
     if s.device.type != "cuda":
         raise ValueError(f"sweeps_2d runs on cuda or cpu tensors, got {s.device}")
-    out = torch.empty_like(s)
-    out.copy_(s)
-    stack = torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
-    if R and T:
-        _launch(out, seeds_i32, thr, ctr0, rb, stack, samples, R, L, T)
+    from .wl import device_limits
+
+    plan = sq2d_plan(L, R, *device_limits(s.device))
+    if plan is None:
+        raise ValueError(f"no tile of the sq2d kernel fits L={L} on {s.device}")
+    out, stack = _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan)
     return (out, stack) if samples else out
 
 
