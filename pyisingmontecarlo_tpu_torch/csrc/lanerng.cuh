@@ -20,3 +20,21 @@ __device__ __forceinline__ uint32_t lane_draw31(uint32_t seed, uint32_t pos, uin
     x ^= x >> 15;
     return x >> 1;
 }
+
+// lane_draw31(seed, xw + kg, ctr) with the row's part of the position folded in
+// once: ha = seed + xw * 0x9E3779B1 + ctr * 0xC2B2AE3D and
+// hb = xw * 0x85EBCA77 + ctr * 0x27D4EB2E (every product mod 2^32, so the
+// draw is the same).
+__device__ __forceinline__ uint32_t lane_draw31_split(uint32_t ha, uint32_t hb, uint32_t kg) {
+    uint32_t x = ha + kg * 0x9E3779B1u;
+    x ^= x >> 16;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+    x ^= hb + kg * 0x85EBCA77u;
+    x ^= x >> 16;
+    x *= 0x7FEB352Du;
+    x ^= x >> 15;
+    return x >> 1;
+}

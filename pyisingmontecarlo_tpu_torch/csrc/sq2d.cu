@@ -177,13 +177,12 @@ __device__ __forceinline__ void store_unpack(int8_t* g, const uint8_t* e, const 
 template <int V>
 __device__ __forceinline__ void store_tile(int8_t* out, const uint8_t* E, const uint8_t* O, int P, int H, int B,
                                            int L, int X0, int Y0) {
-    const int nch = B / V;
-    for (int f = threadIdx.x; f < B * nch; f += kTiledThreads) {
-        const int ii = f / nch, m = f - ii * nch;
-        const int x = X0 + ii, y = Y0 + m * V;
-        if (x >= L || y >= L) continue;
+    // a thread keeps one chunk column m and takes every rs-th row
+    const int nch = B / V, rs = kTiledThreads / nch, m = threadIdx.x % nch, y = Y0 + m * V;
+    if ((int)threadIdx.x >= rs * nch || y >= L) return;
+    for (int ii = threadIdx.x / nch; ii < B && X0 + ii < L; ii += rs) {
         const int off = (H + ii) * P + ((H + m * V) >> 1);
-        store_unpack<V>(out + (size_t)x * L + y, E + off, O + off, (H + ii) & 1);
+        store_unpack<V>(out + (size_t)(X0 + ii) * L + y, E + off, O + off, (H + ii) & 1);
     }
 }
 
@@ -206,64 +205,70 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
     for (int f = tid; f < 10 * a.kl; f += kTiledThreads) thr_s[f] = __ldg(a.thr + f);
     for (int f = tid; f < hw; f += kTiledThreads) kpos[f] = ((y0 >> 1) + f) % W;
     for (int f = tid; f < w; f += kTiledThreads) xpos[f] = ((x0 + f) % L) * W;
+    __syncthreads();
     {
-        const int8_t* src = a.src + r * plane;
-        const int nch = w / V;
-        for (int f = tid; f < w * nch; f += kTiledThreads) {
-            const int i = f / nch, m = f - i * nch;
-            const int off = i * P + m * (V / 2);
-            load_pack<V>(src + (size_t)((x0 + i) % L) * L + (y0 + m * V) % L, E + off, O + off, i & 1);
-        }
+        // a thread keeps one chunk column m of the box and takes every rs-th row
+        const int nch = w / V, rs = kTiledThreads / nch, m = tid % nch;
+        const int8_t* src = a.src + r * plane + (y0 + m * V) % L;
+        if (tid < rs * nch)
+            for (int i = tid / nch; i < w; i += rs) {
+                const int off = i * P + m * (V / 2);
+                load_pack<V>(src + 2 * (size_t)xpos[i], E + off, O + off, i & 1);
+            }
     }
     __syncthreads();
 
+    // a thread keeps one word column q (four packed columns) of the box for the launch, and takes rows
+    // r0, r0 + RS, ... of each phase's region; its columns' global keys stay in registers
+    const int nW = hw >> 2, RS = kTiledThreads / nW;
+    const int q = tid % nW, r0 = tid / nW;
+    const int4 kg = *reinterpret_cast<const int4*>(kpos + 4 * q);
     const uint32_t seed = (uint32_t)__ldg(a.seeds + r);
-    constexpr uint32_t kOnes = 0x01010101u;
     for (int jp = 0; jp < 2 * a.kl; ++jp) {
         const int tl = jp >> 1, p = jp & 1;
         const int lo = jp + 1, hi = w - 2 - jp;  // the sites this phase updates: lo <= i, j <= hi
-        uint8_t* Pp = p ? O : E;
-        const uint8_t* Q = p ? E : O;
-        const int qlo = lo >> 3, qhi = hi >> 3, nq = qhi - qlo + 1;  // words of four packed columns
-        const int di = kTiledThreads / nq, dq = kTiledThreads - di * nq;
-        const int* th = thr_s + 10 * tl;
-        const uint32_t ctr = a.ctr + 2u * tl + p;
-        const int32_t* rbp = RB ? a.rb + (size_t)jp * L * W : nullptr;
-        int i = lo + tid / nq, q = qlo + tid % nq;
-        while (i <= hi) {
-            const int par = (i + p) & 1;  // box column of packed column c: 2c + par
-            uint8_t* row = Pp + i * P + 4 * q;
-            const uint8_t* qr = Q + i * P + 4 * q;
-            const uint32_t self = *reinterpret_cast<const uint32_t*>(row);
-            const uint32_t up = *reinterpret_cast<const uint32_t*>(qr - P);
-            const uint32_t dn = *reinterpret_cast<const uint32_t*>(qr + P);
-            const uint32_t mid = *reinterpret_cast<const uint32_t*>(qr);
-            const uint32_t nb = *reinterpret_cast<const uint32_t*>(qr + (par ? 4 : -4));
-            const uint32_t side = par ? __funnelshift_r(mid, nb, 8) : __funnelshift_l(nb, mid, 8);
-            // per byte: 5 * (spin up) + (neighbours up), the threshold's index (a spin s is 0x01 or 0xFF)
-            const uint32_t idx = 5u * ((~self >> 1) & kOnes) + ((~up >> 1) & kOnes) + ((~dn >> 1) & kOnes) +
-                                 ((~mid >> 1) & kOnes) + ((~side >> 1) & kOnes);
-            const int4 kp = *reinterpret_cast<const int4*>(kpos + 4 * q);
-            const int xb = xpos[i];
-            const int j0 = 8 * q + par;
-            const bool whole = j0 >= lo && j0 + 6 <= hi;
-            uint32_t flip = 0;
+        // per row parity: 0xFE in each byte of the word whose site (box column 8q + 2b + par) is in range
+        uint32_t in0 = 0, in1 = 0;
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
-                const int j = j0 + 2 * b;
-                if (whole || (j >= lo && j <= hi)) {
-                    const int pos = xb + (b == 0 ? kp.x : b == 1 ? kp.y : b == 2 ? kp.z : kp.w);
-                    const int t = th[(idx >> (8 * b)) & 0xFF];
-                    const int u = RB ? __ldg(rbp + pos) : (int)lane_draw31(seed, (uint32_t)pos, ctr);
-                    flip |= (uint32_t)(u <= t) << (8 * b);
+        for (int b = 0; b < 4; ++b) {
+            const int j = 8 * q + 2 * b;
+            in0 |= (j >= lo && j <= hi) ? 0xFEu << (8 * b) : 0u;
+            in1 |= (j + 1 >= lo && j + 1 <= hi) ? 0xFEu << (8 * b) : 0u;
+        }
+        if (r0 < RS && (in0 | in1)) {
+            uint8_t* Pp = p ? O : E;
+            const uint8_t* Q = p ? E : O;
+            const uint8_t* th = reinterpret_cast<const uint8_t*>(thr_s + 10 * tl);
+            const uint32_t ctr = a.ctr + 2u * tl + p;
+            const uint32_t ha0 = seed + ctr * 0xC2B2AE3Du, hb0 = ctr * 0x27D4EB2Eu;
+            const int32_t* rbp = RB ? a.rb + (size_t)jp * L * W : nullptr;
+            for (int i = lo + r0; i <= hi; i += RS) {
+                const int par = (i + p) & 1;  // box column of packed column c: 2c + par
+                uint8_t* row = Pp + i * P + 4 * q;
+                const uint8_t* qr = Q + i * P + 4 * q;
+                const uint32_t self = *reinterpret_cast<const uint32_t*>(row);
+                const uint32_t up = *reinterpret_cast<const uint32_t*>(qr - P);
+                const uint32_t dn = *reinterpret_cast<const uint32_t*>(qr + P);
+                const uint32_t mid = *reinterpret_cast<const uint32_t*>(qr);
+                const uint32_t nb = *reinterpret_cast<const uint32_t*>(qr + (par ? 4 : -4));
+                const uint32_t side = par ? __funnelshift_r(mid, nb, 8) : __funnelshift_l(nb, mid, 8);
+                // bit 1 of a spin's byte is set for -1 (0xFF) and clear for +1 (0x01): per byte, twice the
+                // down neighbours plus ten for a down site, then 4 * the threshold's index
+                // 5 * (s > 0) + (up neighbours) = 9 - 5 * (s < 0) - (down neighbours)
+                constexpr uint32_t kOnes = 0x01010101u, kTwos = 0x02020202u;
+                const uint32_t down2 = (up & kTwos) + (dn & kTwos) + (mid & kTwos) + (side & kTwos) + 5u * (self & kTwos);
+                const uint32_t idx4 = 36u * kOnes - 2u * down2;
+                const uint32_t xw = (uint32_t)xpos[i];
+                const uint32_t ha = ha0 + xw * 0x9E3779B1u, hb = hb0 + xw * 0x85EBCA77u;
+                uint32_t flip = 0;
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    const uint32_t k = (uint32_t)(b == 0 ? kg.x : b == 1 ? kg.y : b == 2 ? kg.z : kg.w);
+                    const int t = *reinterpret_cast<const int*>(th + __byte_perm(idx4, 0, 0x4440 | b));
+                    const int u = RB ? __ldg(rbp + xw + k) : (int)lane_draw31_split(ha, hb, k);
+                    if (u <= t) flip |= 0xFEu << (8 * b);
                 }
-            }
-            *reinterpret_cast<uint32_t*>(row) = self ^ (flip * 0xFEu);
-            q += dq;
-            i += di;
-            if (q > qhi) {
-                q -= nq;
-                ++i;
+                *reinterpret_cast<uint32_t*>(row) = self ^ (flip & (par ? in1 : in0));
             }
         }
         __syncthreads();
