@@ -186,6 +186,15 @@ __device__ __forceinline__ void store_tile(int8_t* out, const uint8_t* E, const 
     }
 }
 
+// The sign of each of four int32 values as one byte each: 0xFF where negative, else 0 (prmt's
+// sign-replicating selectors: 0xB and 0xF take the sign of byte 3 of the first and second operand).
+__device__ __forceinline__ uint32_t signs4(int d0, int d1, int d2, int d3) {
+    uint32_t lo, hi;
+    asm("prmt.b32 %0, %1, %2, 0xFB;" : "=r"(lo) : "r"(d0), "r"(d1));
+    asm("prmt.b32 %0, %1, %2, 0xFB;" : "=r"(hi) : "r"(d2), "r"(d3));
+    return __byte_perm(lo, hi, 0x5410);
+}
+
 // grid = (ntiles^2, R); one block per (tile, replica).
 template <int V, bool RB>
 __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
@@ -202,7 +211,8 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
     const int x0 = ((X0 - H) % L + L) % L, y0 = ((Y0 - H) % L + L) % L;
     const size_t plane = (size_t)L * L;
 
-    for (int f = tid; f < 10 * a.kl; f += kTiledThreads) thr_s[f] = __ldg(a.thr + f);
+    // thresholds as ~t = -t - 1, so that a draw u flips its site where u + ~t < 0 (u <= t)
+    for (int f = tid; f < 10 * a.kl; f += kTiledThreads) thr_s[f] = ~__ldg(a.thr + f);
     for (int f = tid; f < hw; f += kTiledThreads) kpos[f] = ((y0 >> 1) + f) % W;
     for (int f = tid; f < w; f += kTiledThreads) xpos[f] = ((x0 + f) % L) * W;
     __syncthreads();
@@ -260,15 +270,14 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
                 const uint32_t idx4 = 36u * kOnes - 2u * down2;
                 const uint32_t xw = (uint32_t)xpos[i];
                 const uint32_t ha = ha0 + xw * 0x9E3779B1u, hb = hb0 + xw * 0x85EBCA77u;
-                uint32_t flip = 0;
+                int d[4];  // u - t - 1: negative where the site flips
 #pragma unroll
                 for (int b = 0; b < 4; ++b) {
                     const uint32_t k = (uint32_t)(b == 0 ? kg.x : b == 1 ? kg.y : b == 2 ? kg.z : kg.w);
-                    const int t = *reinterpret_cast<const int*>(th + __byte_perm(idx4, 0, 0x4440 | b));
-                    const int u = RB ? __ldg(rbp + xw + k) : (int)lane_draw31_split(ha, hb, k);
-                    if (u <= t) flip |= 0xFEu << (8 * b);
+                    const int nt = *reinterpret_cast<const int*>(th + __byte_perm(idx4, 0, 0x4440 | b));
+                    d[b] = (RB ? __ldg(rbp + xw + k) : (int)lane_draw31_split(ha, hb, k)) + nt;
                 }
-                *reinterpret_cast<uint32_t*>(row) = self ^ (flip & (par ? in1 : in0));
+                *reinterpret_cast<uint32_t*>(row) = self ^ (signs4(d[0], d[1], d[2], d[3]) & (par ? in1 : in0));
             }
         }
         __syncthreads();
