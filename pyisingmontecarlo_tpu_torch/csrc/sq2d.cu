@@ -53,6 +53,12 @@
 
 #include "lanerng.cuh"
 
+// Measurement builds only (chip_smoke.py's timing; no wrapper passes it): PMC_SQ2D_CUT=0 skips the phases
+// of sq2d_tiled, 1 replaces its lane hash by one xor, 2 drops its barriers between phases.
+#ifndef PMC_SQ2D_CUT
+#define PMC_SQ2D_CUT 3
+#endif
+
 namespace {
 
 constexpr int kBlock = 128;
@@ -96,6 +102,7 @@ __global__ void __launch_bounds__(kBlock) sq2d_phase(
 
 
 constexpr int kTiledThreads = 256;
+constexpr int kLoadBatch = 4;  // box rows a thread loads before it packs them
 
 struct TiledArgs {
     const int8_t* src;     // [R, L, L], read
@@ -121,36 +128,54 @@ __host__ __device__ __forceinline__ int tiled_bytes(int B, int K) {
     return 2 * w * tiled_pitch(w) + 4 * ((10 * K + 3) & ~3) + 4 * (((w >> 1) + 3) & ~3) + 4 * w;
 }
 
-// V bytes of one global row (V/2 site pairs) -> V/2 bytes each of E and O.
-// Even rows put even columns in E, odd rows in O.
+// V bytes of one global row (V/2 site pairs), in registers.
 template <int V>
-__device__ __forceinline__ void load_pack(const int8_t* g, uint8_t* e, uint8_t* o, int odd) {
+struct Chunk {
+    uint32_t w[V >= 4 ? V / 4 : 1];
+};
+
+template <int V>
+__device__ __forceinline__ Chunk<V> load_chunk(const int8_t* g) {
+    Chunk<V> c;
     if constexpr (V == 16) {
         const uint4 v = *reinterpret_cast<const uint4*>(g);
-        uint2 ev = make_uint2(__byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
-        uint2 od = make_uint2(__byte_perm(v.x, v.y, 0x7531), __byte_perm(v.z, v.w, 0x7531));
+        c.w[0] = v.x, c.w[1] = v.y, c.w[2] = v.z, c.w[3] = v.w;
+    } else if constexpr (V == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(g);
+        c.w[0] = v.x, c.w[1] = v.y;
+    } else if constexpr (V == 4) {
+        c.w[0] = *reinterpret_cast<const uint32_t*>(g);
+    } else {
+        c.w[0] = *reinterpret_cast<const uint16_t*>(g);
+    }
+    return c;
+}
+
+// A chunk -> V/2 bytes each of E and O. Even rows put even columns in E, odd rows in O.
+template <int V>
+__device__ __forceinline__ void pack_chunk(const Chunk<V>& c, uint8_t* e, uint8_t* o, int odd) {
+    if constexpr (V == 16) {
+        uint2 ev = make_uint2(__byte_perm(c.w[0], c.w[1], 0x6420), __byte_perm(c.w[2], c.w[3], 0x6420));
+        uint2 od = make_uint2(__byte_perm(c.w[0], c.w[1], 0x7531), __byte_perm(c.w[2], c.w[3], 0x7531));
         if (odd) { const uint2 t = ev; ev = od; od = t; }
         *reinterpret_cast<uint2*>(e) = ev;
         *reinterpret_cast<uint2*>(o) = od;
     } else if constexpr (V == 8) {
-        const uint2 v = *reinterpret_cast<const uint2*>(g);
-        const uint32_t ev = __byte_perm(v.x, v.y, 0x6420), od = __byte_perm(v.x, v.y, 0x7531);
+        const uint32_t ev = __byte_perm(c.w[0], c.w[1], 0x6420), od = __byte_perm(c.w[0], c.w[1], 0x7531);
         *reinterpret_cast<uint32_t*>(e) = odd ? od : ev;
         *reinterpret_cast<uint32_t*>(o) = odd ? ev : od;
     } else if constexpr (V == 4) {
-        const uint32_t v = *reinterpret_cast<const uint32_t*>(g);
-        const uint16_t ev = (uint16_t)__byte_perm(v, 0, 0x20), od = (uint16_t)__byte_perm(v, 0, 0x31);
+        const uint16_t ev = (uint16_t)__byte_perm(c.w[0], 0, 0x20), od = (uint16_t)__byte_perm(c.w[0], 0, 0x31);
         *reinterpret_cast<uint16_t*>(e) = odd ? od : ev;
         *reinterpret_cast<uint16_t*>(o) = odd ? ev : od;
     } else {
-        const uint16_t v = *reinterpret_cast<const uint16_t*>(g);
-        const uint8_t ev = (uint8_t)(v & 0xFF), od = (uint8_t)(v >> 8);
+        const uint8_t ev = (uint8_t)(c.w[0] & 0xFF), od = (uint8_t)(c.w[0] >> 8);
         *e = odd ? od : ev;
         *o = odd ? ev : od;
     }
 }
 
-// The inverse of load_pack: V/2 bytes each of E and O -> V bytes of a row.
+// The inverse of pack_chunk: V/2 bytes each of E and O -> V bytes of a row.
 template <int V>
 __device__ __forceinline__ void store_unpack(int8_t* g, const uint8_t* e, const uint8_t* o, int odd) {
     if constexpr (V == 16) {
@@ -217,13 +242,21 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
     for (int f = tid; f < w; f += kTiledThreads) xpos[f] = ((x0 + f) % L) * W;
     __syncthreads();
     {
-        // a thread keeps one chunk column m of the box and takes every rs-th row
+        // a thread keeps one chunk column m of the box and takes every rs-th row, with kLoadBatch loads
+        // in flight
         const int nch = w / V, rs = kTiledThreads / nch, m = tid % nch;
         const int8_t* src = a.src + r * plane + (y0 + m * V) % L;
         if (tid < rs * nch)
-            for (int i = tid / nch; i < w; i += rs) {
-                const int off = i * P + m * (V / 2);
-                load_pack<V>(src + 2 * (size_t)xpos[i], E + off, O + off, i & 1);
+            for (int i0 = tid / nch; i0 < w; i0 += kLoadBatch * rs) {
+                Chunk<V> c[kLoadBatch];
+#pragma unroll
+                for (int u = 0; u < kLoadBatch; ++u)
+                    if (i0 + u * rs < w) c[u] = load_chunk<V>(src + 2 * (size_t)xpos[i0 + u * rs]);
+#pragma unroll
+                for (int u = 0; u < kLoadBatch; ++u) {
+                    const int i = i0 + u * rs, off = i * P + m * (V / 2);
+                    if (i < w) pack_chunk<V>(c[u], E + off, O + off, i & 1);
+                }
             }
     }
     __syncthreads();
@@ -234,7 +267,12 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
     const int q = tid % nW, r0 = tid / nW;
     const int4 kg = *reinterpret_cast<const int4*>(kpos + 4 * q);
     const uint32_t seed = (uint32_t)__ldg(a.seeds + r);
-    for (int jp = 0; jp < 2 * a.kl; ++jp) {
+#if PMC_SQ2D_CUT == 0
+    const int nphases = 0;  // measurement build: the box in and the tile out only
+#else
+    const int nphases = 2 * a.kl;
+#endif
+    for (int jp = 0; jp < nphases; ++jp) {
         const int tl = jp >> 1, p = jp & 1;
         const int lo = jp + 1, hi = w - 2 - jp;  // the sites this phase updates: lo <= i, j <= hi
         // per row parity: 0xFE in each byte of the word whose site (box column 8q + 2b + par) is in range
@@ -275,12 +313,18 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
                 for (int b = 0; b < 4; ++b) {
                     const uint32_t k = (uint32_t)(b == 0 ? kg.x : b == 1 ? kg.y : b == 2 ? kg.z : kg.w);
                     const int nt = *reinterpret_cast<const int*>(th + __byte_perm(idx4, 0, 0x4440 | b));
+#if PMC_SQ2D_CUT == 1
+                    d[b] = (int)((ha ^ k) >> 1) + nt;  // measurement build: no hash
+#else
                     d[b] = (RB ? __ldg(rbp + xw + k) : (int)lane_draw31_split(ha, hb, k)) + nt;
+#endif
                 }
                 *reinterpret_cast<uint32_t*>(row) = self ^ (signs4(d[0], d[1], d[2], d[3]) & (par ? in1 : in0));
             }
         }
+#if PMC_SQ2D_CUT != 2  // measurement build: no barrier between phases
         __syncthreads();
+#endif
         const int t = a.t0 + tl + 1;  // sweeps done
         if (p == 1 && a.samples && t % a.freq == 0 && t / a.freq <= a.nsamples) {
             store_tile<V>(a.samples + ((size_t)r * a.nsamples + t / a.freq - 1) * plane, E, O, P, H, B, L, X0, Y0);

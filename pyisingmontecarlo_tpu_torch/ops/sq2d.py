@@ -245,10 +245,10 @@ def sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb=None, samples=None):
     return (s, stack) if samples else s
 
 
-def _kernel_call(name: str, fn):
+def _kernel_call(name: str, fn, defines: tuple = ()):
     from .. import _kernels
 
-    err = fn(_kernels.load())
+    err = fn(_kernels.load(defines))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {_kernels.error_string(err)} ({err})")
 
@@ -258,11 +258,12 @@ def _stack(s, T, samples):
     return torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
 
 
-def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan):
+def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
     """The tiled kernel on CUDA tensors (``ceil(T / K)`` launches, counted in
     ``sweeps_2d.launches``) with ``plan = (B, K, ...)`` from ``sq2d_plan``;
     returns ``(state, stack or None)``. The launches alternate between two new
-    buffers, and the last writes the one returned; ``s`` is only read."""
+    buffers, and the last writes the one returned; ``s`` is only read.
+    ``defines`` launch a build for measurement (``PMC_SQ2D_CUT``)."""
     R, L, _ = s.shape
     T = thr.shape[0]
     stack = _stack(s, T, samples)
@@ -277,7 +278,7 @@ def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan):
         _kernel_call("sq2d tiled kernel", lambda lib: lib.sq2d_tiled_sweeps(
             s.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(), seeds_i32.data_ptr(),
             thr.data_ptr(), None if rb is None else rb.data_ptr(), None if stack is None else stack.data_ptr(),
-            R, L, T, int(ctr0), int(samples or 0), 0 if stack is None else stack.shape[1], B, K, stream))
+            R, L, T, int(ctr0), int(samples or 0), 0 if stack is None else stack.shape[1], B, K, stream), defines)
     sweeps_2d.launches += n
     return out, stack
 
