@@ -129,8 +129,8 @@ LONG = (("torus", 64, -1.0), 64 * 64, 2)
 # f32 is 132 SMs x 128 lanes x 2 operations of an FMA; phase_build prints the
 # card's clocks.max.sm beside it): 16.7 T op/s. An integer multiply-add
 # (IMAD) issues to the FMA pipe, beside the ALU, so only ALU instructions are
-# counted. A lane-hash draw compiles to HASH_OPS ALU instructions (shifts,
-# xors, the final shift; phase_build counts them in SASS) and 4 IMADs; a
+# counted. A lane-hash draw compiles to HASH_OPS = 11 ALU instructions (6
+# shifts, 5 xors; phase_build counts them in SASS, nvcc 12.9) and 6 IMADs; a
 # square-torus site update adds 8 (neighbour sum, table index, compare,
 # select); a worldline spin takes two draws per sweep (site phase and time
 # bond) and 18 more operations (site test, cluster dE and run sum,
@@ -139,7 +139,7 @@ LONG = (("torus", 64, -1.0), 64 * 64, 2)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 F32_OPS_PER_S = 67e12  # outside the tensor cores (the H100 SXM data sheet)
-HASH_OPS = 13
+HASH_OPS = 11
 SQ2D_OPS_PER_SITE = HASH_OPS + 8
 WL_OPS_PER_SPIN = 2 * HASH_OPS + 18
 # A ladder spin per sweep (csrc/ladder.cu): two draws (site phase, time bond)
@@ -224,15 +224,23 @@ TILED_VARIANTS = {"load and store only": ("PMC_TILED_PHASES=0",), "+ site phases
                   "+ cluster phases": ("PMC_TILED_PHASES=3",)}
 
 
+# builds of the square-torus kernel that timing times beside it (csrc/sq2d.cu): the launches' box in and
+# tile out alone, the phases without the lane hash, the phases without their barriers
+SQ2D_CUTS = {"box in and tile out only": ("PMC_SQ2D_CUT=0",), "no lane hash": ("PMC_SQ2D_CUT=1",),
+             "no barriers between phases": ("PMC_SQ2D_CUT=2",)}
+
+
 def phase_build():
-    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, all at once."""
+    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS and SQ2D_CUTS,
+    all at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(TILED_VARIANTS)) as pool:
-        variants = [pool.submit(_kernels.build, defines=d) for d in TILED_VARIANTS.values()]
+    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values()]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        variants = [pool.submit(_kernels.build, defines=d) for d in builds]
         path = _kernels.build(verbose=True)
         _kernels.load()
         dt = time.perf_counter() - t0
@@ -490,6 +498,12 @@ def phase_timing(dev, smi):
           f"ms/sweep = {sites / (ms * 1e6):.3f} attempted flips/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep = "
           f"{sites / (plain_ms * 1e6):.3f} flips/ns (runs {p}); bound {b_ms:.5f} ms/sweep ({b_by})", flush=True)
     Tg = 256
+    for what, defines in SQ2D_CUTS.items():  # the measurement builds, each in turns with the kernel
+        sq2d._run_tiled(s, seeds, thr[:8], 0, None, None, plan, defines)
+        a, b = versus(lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, plan),
+                      lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, plan, defines), Tg, Tg, 2)
+        print(f"timing: sq2d_tiled build {' '.join(defines)} ({what}) at {L}^2 x {BENCH_R}, {Tg} sweeps, on {smi}: "
+              f"{np.mean(b):.5f} ms/sweep (runs {b}) against the kernel's {np.mean(a):.5f} (runs {a})", flush=True)
     for B in SQ2D_GRID_B:
         row = []
         for K in SQ2D_GRID_K:

@@ -70,13 +70,15 @@ TILE_MAX = 256
 SWEEPS_PER_LAUNCH = (2, 4, 8, 16)  # K; even, so that 2K is a multiple of 4
 TILED_BLOCKS_PER_SM = 2048 // TILED_THREADS  # the SM's thread limit
 _SMEM_RESERVED = 1024  # shared memory the card reserves per block
-# the plan's cost model, in site updates of the busiest SM per sweep (fit by
-# chip_smoke.py's (B, K) grid at 1024^2 x 8): an SM needs this many blocks to
-# keep its integer pipes busy; a byte loaded or stored counts this much of an
-# update; a launch costs this many updates
-PLAN_MIN_BLOCKS_PER_SM = 2
-PLAN_IO_WEIGHT = 0.5
-PLAN_LAUNCH_SITES = 20000
+# the plan's cost model, in site updates of the busiest SM per sweep (fit to
+# chip_smoke.py's (B, K) grid at 1024^2 x 8 on an H100): one block of 256
+# threads keeps an SM's integer pipes only 1/1.25 as busy as several blocks
+# do; a launch (the box in, the tile out) costs as much as 48000 updates, or
+# 0.2 of an update for each byte its busiest SM moves where that is more (an
+# SM's share of HBM against its rate of updates)
+PLAN_MIN_BLOCKS_PER_SM = 1.25
+PLAN_IO_WEIGHT = 0.2
+PLAN_LAUNCH_SITES = 48000
 
 
 def phase_margin(j: int) -> int:
@@ -112,8 +114,9 @@ def sq2d_plan(L: int, R: int, limit: int, sms: int) -> Optional[tuple]:
     ``w = B + 4K`` and the block's shared memory; None when nothing fits.
     Of the (B, K) that fit, the least in the model's time per sweep: the
     blocks of the busiest SM (at least ``PLAN_MIN_BLOCKS_PER_SM``) times a
-    block's updates and weighted bytes, over K, plus a launch over K. Shape
-    only, cached per shape; the wrapper never falls back from a failed
+    block's site updates in a launch (halo included), plus the launch's fixed
+    cost or its weighted bytes in and out, whichever is more, over K.
+    Shape only, cached per shape; the wrapper never falls back from a failed
     launch."""
     best = None
     top = min(TILE_MAX, -(-L // TILE_STEP) * TILE_STEP)
@@ -126,8 +129,8 @@ def sq2d_plan(L: int, R: int, limit: int, sms: int) -> Optional[tuple]:
                 continue
             cap = min(TILED_BLOCKS_PER_SM, (limit + _SMEM_RESERVED) // (nbytes + _SMEM_RESERVED))
             load = -(-blocks // sms) if blocks <= sms * cap else -(-blocks // (sms * cap)) * cap
-            work = _phase_updates(w, K) + PLAN_IO_WEIGHT * (w * w + B * B)
-            cost = (max(load, PLAN_MIN_BLOCKS_PER_SM) * work + PLAN_LAUNCH_SITES) / K
+            io = max(PLAN_LAUNCH_SITES, PLAN_IO_WEIGHT * load * (w * w + B * B))
+            cost = (max(load, PLAN_MIN_BLOCKS_PER_SM) * _phase_updates(w, K) + io) / K
             if best is None or cost < best[0]:
                 best = (cost, (B, K, w, nbytes))
     return best and best[1]
