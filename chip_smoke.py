@@ -532,7 +532,43 @@ def phase_timing(dev, smi):
               f"{np.mean(b):.5f}; runs {b}); tiled faster in {sum(x < y for x, y in zip(a, b))} of {len(a)} pairs, "
               f"{np.median(b) / np.median(a):.3f}x; plain torch {np.mean(p):.5f} ms/sweep (runs {p}); bound "
               f"{mb_ms:.5f} ms/sweep ({mb_by}); launches {-(-n // plan[1])} against {2 * n}", flush=True)
+    main_path_profile(dev, smi)
     return ms, plain_ms
+
+
+def main_path_profile(dev, smi):
+    """``Lattice.run_monte_carlo(0.4, T, 8)`` at 1024^2 for T = 1024 and
+    16384 (bench.py's), after a warm-up call: the host wall of the call, and
+    under torch.profiler the device time of the sq2d launches and of all
+    device work, the median gap between consecutive sq2d launches, and the
+    host's share of the call (the wall not covered by device work)."""
+    from pyisingmontecarlo_tpu_torch import Lattice
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+
+    lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
+    for T in (1024, BENCH_SWEEPS):
+        lat.run_monte_carlo(BENCH_BETA, T, BENCH_R)
+        t0 = time.perf_counter()
+        lat.run_monte_carlo(BENCH_BETA, T, BENCH_R)  # returns numpy arrays: the device is done
+        wall = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lat.run_monte_carlo(BENCH_BETA, T, BENCH_R)
+        evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        sq = [e for e in evs if "sq2d_tiled" in e.name]
+        if not sq:
+            print(f"timing: main path T={T}: device times not measured (the profiler recorded none); host wall "
+                  f"{wall:.3f} ms", flush=True)
+            continue
+        busy_sq = sum(e.time_range.elapsed_us() for e in sq) / 1e3
+        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        gaps = [b.time_range.start - a.time_range.end for a, b in zip(sq, sq[1:])]
+        print(f"timing: main path Lattice.run_monte_carlo({BENCH_BETA}, {T}, {BENCH_R}) at {BENCH_L}^2, on {smi}: "
+              f"host wall {wall:.3f} ms; device: {len(sq)} sq2d_tiled launches {busy_sq:.3f} ms (median "
+              f"{np.median([e.time_range.elapsed_us() for e in sq]):.3f} us, median gap "
+              f"{np.median(gaps) if gaps else 0:.3f} us, gaps {sum(gaps) / 1e3:.3f} ms), all device work "
+              f"{busy:.3f} ms in {len(evs)} operations; host share {100 * (1 - busy / wall):.2f}% of the wall",
+              flush=True)
 
 
 def _wl_inputs(dense, nvars, R, seed, dev, ltau=WL_LTAU):
