@@ -22,9 +22,11 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   launches);
 5.  physics       Onsager energy (L=32) and disordered magnetization (L=16);
 6.  timing        square-torus kernel and plain version at the bench shape;
-                  the (B, K) grid there; the tiled kernel against the
-                  one-launch-per-phase ``sq2d_phase``, ten runs each in turns,
-                  in all three modes, each against its bound;
+                  the kernel's measurement builds (SQ2D_CUTS) and the (B, K)
+                  grid there; the kernel in all three modes, ten runs each in
+                  turns with the plain version, each against its bound; the
+                  main path's launch gaps and host share at 1024 and 16384
+                  sweeps (torch.profiler);
 7.  compare-wl    the worldline kernels vs their plain version, bit for bit:
                   the multi-launch, resident and tiled kernels (the gate's
                   route through the wrapper, the others through their private
@@ -377,13 +379,12 @@ def phase_compare(dev):
         B, K = sq2d.sq2d_plan(s.shape[1], s.shape[0], *lim)[:2]
         print(f"compare: {name}: bit-identical ({sum(g.numel() for g in got)} spins; B={B} K={K}, "
               f"{-(-thr.shape[0] // K)} launches)", flush=True)
-    # every (B, K) of the grid, and the one-launch-per-phase kernel, against the plan's result
+    # every (B, K) of the grid against the plan's result
     s, seeds = _inputs(BENCH_L, BENCH_R, 23, dev)
     thr = sq2d.thresholds(sched, -1.0, 0.0).to(dev)
     want = sq2d.sweeps_2d(s, seeds, thr, 3, samples=5)
     runs = {f"B={B} K={K}": (lambda B=B, K=K: sq2d._run_tiled(s, seeds, thr, 3, None, 5, (B, K)))
             for B in SQ2D_GRID_B for K in SQ2D_GRID_K}
-    runs["sq2d_phase"] = lambda: sq2d._run_phase(s, seeds, thr, 3, None, 5)
     for name, run in runs.items():
         got = run()
         torch.cuda.synchronize()
@@ -475,11 +476,12 @@ def in_turns(run_kernel, run_plain, n_kernel, n_plain):
 
 def phase_timing(dev, smi):
     """At the bench shape: the kernel (the plan's (B, K)) and the plain
-    version in turns; every (B, K) of the grid, each in turns with the plan's;
-    then the tiled kernel against ``sq2d_phase``, ten runs each in turns, in
-    plain, sampling and explicit-randoms mode (TPU kernels 1, 2 and 3), each
-    beside the plain version and its bound. Returns (kernel ms per sweep,
-    plain ms per sweep) of the 1024-sweep call."""
+    version in turns; each measurement build and every (B, K) of the grid, in
+    turns with the plan's kernel; the kernel in plain, sampling and
+    explicit-randoms mode (TPU kernels 1, 2 and 3), ten runs each in turns
+    with the plain version, each against its bound; then the main path's
+    profile. Returns (kernel ms per sweep, plain ms per sweep) of the
+    1024-sweep call."""
     from pyisingmontecarlo_tpu_torch.ops import sq2d
     from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
 
@@ -515,23 +517,19 @@ def phase_timing(dev, smi):
               f"({BENCH_R * (-(-L // B)) ** 2} blocks): " + "; ".join(row) + " ms/sweep", flush=True)
     T2 = 64
     rb = torch.randint(0, 2**31 - 1, (2 * T2, L, L // 2), dtype=torch.int32, device=dev)
-    for mode, n, kw, nbytes, ops in (
-        ("plain", T, {}, 2 * sites / T, SQ2D_OPS_PER_SITE * sites),
-        ("sampling, a sample every 16 sweeps", T2, dict(samples=16), 2 * sites / T2 + sites / 16,
+    for mode, kw, nbytes, ops in (
+        ("plain", {}, 2 * sites / T2, SQ2D_OPS_PER_SITE * sites),
+        ("sampling, a sample every 16 sweeps", dict(samples=16), 2 * sites / T2 + sites / 16,
          SQ2D_OPS_PER_SITE * sites),
-        ("explicit randoms", T2, dict(rb=rb), 2 * sites / T2 + 4 * L * L, (SQ2D_OPS_PER_SITE - HASH_OPS) * sites),
+        ("explicit randoms", dict(rb=rb), 2 * sites / T2 + 4 * L * L, (SQ2D_OPS_PER_SITE - HASH_OPS) * sites),
     ):
         rbm, freq = kw.get("rb"), kw.get("samples")
-        a, b = versus(lambda: sq2d._run_tiled(s, seeds, thr[:n], 0, rbm, freq, plan),
-                      lambda: sq2d._run_phase(s, seeds, thr[:n], 0, rbm, freq), n, n)
-        _, p = in_turns(lambda: sq2d._run_tiled(s, seeds, thr[:n], 0, rbm, freq, plan),
-                        lambda: sq2d.sweeps_2d_reference(s, seeds, thr[:n], 0, **kw), n, n)
+        a, p = versus(lambda: sq2d._run_tiled(s, seeds, thr[:T2], 0, rbm, freq, plan),
+                      lambda: sq2d.sweeps_2d_reference(s, seeds, thr[:T2], 0, **kw), T2, T2)
         mb_ms, mb_by = bound(nbytes, ops)
-        print(f"timing: {mode}, {L}^2 x {BENCH_R}, {n} sweeps, on {smi}: sq2d_tiled median {np.median(a):.5f} "
-              f"ms/sweep (mean {np.mean(a):.5f}; runs {a}); sq2d_phase median {np.median(b):.5f} (mean "
-              f"{np.mean(b):.5f}; runs {b}); tiled faster in {sum(x < y for x, y in zip(a, b))} of {len(a)} pairs, "
-              f"{np.median(b) / np.median(a):.3f}x; plain torch {np.mean(p):.5f} ms/sweep (runs {p}); bound "
-              f"{mb_ms:.5f} ms/sweep ({mb_by}); launches {-(-n // plan[1])} against {2 * n}", flush=True)
+        print(f"timing: {mode}, {L}^2 x {BENCH_R}, {T2} sweeps, on {smi}: sq2d_tiled median {np.median(a):.5f} "
+              f"ms/sweep (mean {np.mean(a):.5f}; runs {a}); plain torch median {np.median(p):.5f} ms/sweep (runs "
+              f"{p}); bound {mb_ms:.5f} ms/sweep ({mb_by}); {-(-T2 // plan[1])} launches", flush=True)
     main_path_profile(dev, smi)
     return ms, plain_ms
 

@@ -29,7 +29,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
-    "sq2d_sweeps": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "sq2d_tiled_sweeps": ([_P] * 7 + [_I] * 8 + [_P], ctypes.c_int),
     "wl_sweeps": ([_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "ladder_sweeps": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),

@@ -1,5 +1,5 @@
 // Checkerboard Glauber sweeps on R replicas of an L x L uniform-J periodic
-// square lattice, for sm_90a.
+// square lattice, for sm_90a: the kernel sq2d_tiled.
 //
 // Replaces the three Pallas TPU kernels of pyisingmontecarlo_tpu/ops/sq2d_pallas.py:
 // _kernel (plain sweeps, l.159), _kernel_sample (state staged every freq sweeps,
@@ -10,7 +10,7 @@
 // sweep's row of a [T, 10] table made once on the host (never expf here: the
 // plain version must agree bit for bit).
 //
-// sq2d_tiled, temporal blocking: one launch runs K sweeps. A block owns one
+// Temporal blocking: one launch runs K sweeps. A block owns one
 // B x B tile of one replica and holds the tile with a halo of 2K sites (the
 // box, w = B + 4K a side) in shared memory, as the TPU kernel holds both
 // color planes in VMEM for a whole call. Phase j of a launch (j = 0 .. 2K-1)
@@ -29,24 +29,28 @@
 // sites are then contiguous, and a thread updates four of them from one
 // 32-bit word of its plane: the neighbours are the same word of the other
 // plane in rows i - 1 and i + 1, and in row i that word and the same shifted
-// by one byte to the left or the right, by the row's parity. A neighbour sum
-// is four byte-wise adds of the spins' "up" bits, so the table index of four
-// sites costs a handful of word operations; the lane hash, one per site, is
-// what remains. The box is loaded with 2- to 16-byte vector loads (the widest
+// by one byte to the left or the right, by the row's parity. A neighbour count
+// is four byte-wise adds of the spins' sign bits (bit 1 of a byte), so the
+// table index of four sites costs a handful of word operations; the lane
+// hash, one per site, is what remains. The box is loaded with 2- to 16-byte vector loads (the widest
 // that L, B, 2K and the buffers' alignment allow: a chunk never crosses the
-// periodic edge) and packed in registers with byte permutes; the tile is
-// unpacked the same way on the way out. In sampling mode the tile is exact
+// periodic edge), four rows a thread in flight, and packed in registers with
+// byte permutes; the tile is unpacked the same way on the way out. (cp.async
+// would land the bytes unpacked, and a launch has no work to overlap with
+// its box: every phase needs all of it.) In sampling mode the tile is exact
 // after every sweep of a launch, so a sample is written from shared memory
 // inside the launch. In explicit-randoms mode each box site reads
 // rb[2t + p] at its global packed position, halo sites included.
 //
-// What bounds it: the lane hash, about 20 integer instructions a site, on
-// the SMs' integer pipes; a sweep moves 2 bytes a site only once every K
-// sweeps (the box in, the tile out), and the halo adds (w^2 - B^2)-ish
-// redundant updates, which sq2d_plan weighs against the launches K saves.
-//
-// sq2d_phase, the kernel this one replaces on the main path, is kept beside
-// it for comparison: one launch per phase, a thread per site, in place.
+// What bounds it: the integer (ALU) pipe. The lane hash is 11 ALU
+// instructions a site and 6 multiply-adds, which issue to the FMA pipe; the
+// neighbour sums, the table lookups and the flips add about 6 more ALU
+// instructions a site, four sites at a time (the thresholds are stored as
+// ~t, so that the flip mask is the sign bytes of u + ~t, gathered four at a
+// time by prmt). The halo adds redundant updates (1.11x the tile's at B = 128,
+// K = 4), and each launch pays a fixed cost for the box in and the tile out;
+// sq2d_plan weighs the two against each other. A sweep moves 2 bytes a site
+// once every K sweeps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,46 +64,6 @@
 #endif
 
 namespace {
-
-constexpr int kBlock = 128;
-
-// grid = (ceil(W / kBlock), L, R): blockIdx.y is the row x, blockIdx.z the
-// replica r, and the thread's packed column is k.
-__global__ void __launch_bounds__(kBlock) sq2d_phase(
-    int8_t* __restrict__ s,             // [R, L, L], updated in place
-    const int32_t* __restrict__ seeds,  // [R]
-    const int32_t* __restrict__ thr,    // [10]: this sweep's thresholds
-    const int32_t* __restrict__ rb,     // [L, W] random plane, or null: hash
-    int8_t* __restrict__ stage,         // slot 0 of this block's sample, or null
-    long long stage_stride,             // bytes between replicas' samples
-    int L, uint32_t ctr, int parity) {
-    const int W = L >> 1;
-    const int k = blockIdx.x * kBlock + threadIdx.x;
-    if (k >= W) return;
-    const int x = blockIdx.y;
-    const int r = blockIdx.z;
-    const int y = 2 * k + ((x + parity) & 1);
-
-    int8_t* p = s + (size_t)r * L * L;
-    const int row = x * L;
-    const int up = (x == 0 ? L - 1 : x - 1) * L;
-    const int dn = (x == L - 1 ? 0 : x + 1) * L;
-    const int yl = y == 0 ? L - 1 : y - 1;
-    const int yr = y == L - 1 ? 0 : y + 1;
-    const int b = p[up + y] + p[dn + y] + p[row + yl] + p[row + yr];
-    const int sv = p[row + y];
-    const int t = __ldg(thr + 5 * (sv > 0) + ((b + 4) >> 1));
-    const int pos = x * W + k;
-    const int u = rb ? __ldg(rb + pos) : (int)lane_draw31((uint32_t)__ldg(seeds + r), (uint32_t)pos, ctr);
-    const int8_t ns = (int8_t)(u <= t ? -sv : sv);
-    p[row + y] = ns;
-    if (stage) {
-        int8_t* q = stage + (size_t)r * stage_stride;
-        q[row + y] = ns;
-        q[row + (y ^ 1)] = p[row + (y ^ 1)];
-    }
-}
-
 
 constexpr int kTiledThreads = 256;
 constexpr int kLoadBatch = 4;  // box rows a thread loads before it packs them
@@ -343,35 +307,6 @@ cudaError_t launch_tiled(const TiledArgs& a, int R, int smem, cudaStream_t st) {
 }
 
 }  // namespace
-
-// Runs T sweeps (2T launches) on `stream`. thr is [T, 10]; rb is [2T, L, L/2]
-// or null (then draws use counters 2 * (ctr0 + t) + phase); samples is
-// [R, nsamples, L, L] or null, with a slot written after every freq sweeps.
-// Returns cudaGetLastError() after the first failing launch, else 0.
-extern "C" int sq2d_sweeps(void* s, const void* seeds, const void* thr, const void* rb,
-                           void* samples, int R, int L, int T, int ctr0, int freq,
-                           int nsamples, void* stream) {
-    const int W = L / 2;
-    const dim3 grid((W + kBlock - 1) / kBlock, L, R);
-    const long long plane = (long long)L * L;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    for (int t = 0; t < T; ++t) {
-        for (int ph = 0; ph < 2; ++ph) {
-            int8_t* stage = nullptr;
-            if (samples && ph == 1 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
-                stage = static_cast<int8_t*>(samples) + ((t + 1) / freq - 1) * plane;
-            const int32_t* rbp =
-                rb ? static_cast<const int32_t*>(rb) + (long long)(2 * t + ph) * L * W : nullptr;
-            sq2d_phase<<<grid, kBlock, 0, st>>>(
-                static_cast<int8_t*>(s), static_cast<const int32_t*>(seeds),
-                static_cast<const int32_t*>(thr) + 10LL * t, rbp, stage, nsamples * plane, L,
-                (uint32_t)(2 * (ctr0 + t) + ph), ph);
-            const cudaError_t e = cudaGetLastError();
-            if (e != cudaSuccess) return (int)e;
-        }
-    }
-    return 0;
-}
 
 // Runs T sweeps of sq2d_tiled on `stream`: ceil(T / K) launches of up to K
 // sweeps each, on tiles of B x B (B a multiple of 8, K even: ops/sq2d.py's

@@ -286,25 +286,6 @@ def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
     return out, stack
 
 
-def _run_phase(s, seeds_i32, thr, ctr0, rb, samples):
-    """The one-launch-per-phase kernel ``sq2d_phase`` on CUDA tensors (2T
-    launches, counted in ``sweeps_2d.launches``), kept for comparison;
-    returns ``(state, stack or None)``."""
-    R, L, _ = s.shape
-    T = thr.shape[0]
-    out = s.clone()
-    stack = _stack(s, T, samples)
-    if R and T:
-        with torch.cuda.device(s.device):
-            stream = torch.cuda.current_stream(s.device).cuda_stream
-            _kernel_call("sq2d kernel", lambda lib: lib.sq2d_sweeps(
-                out.data_ptr(), seeds_i32.data_ptr(), thr.data_ptr(), None if rb is None else rb.data_ptr(),
-                None if stack is None else stack.data_ptr(), R, L, T, int(ctr0), int(samples or 0),
-                0 if stack is None else stack.shape[1], stream))
-        sweeps_2d.launches += 2 * T
-    return out, stack
-
-
 def sweeps_2d(
     s: torch.Tensor,
     seeds_i32: torch.Tensor,
