@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
+from .wl import _SMEM_RESERVED, _kernel_call, _stream, device_limits
 
 __all__ = [
     "dE_values",
@@ -60,7 +61,7 @@ __all__ = [
 
 _I31_MAX = 2**31 - 1
 _CTR_LIMIT = 2**30
-_GRID_MAX = 65535  # CUDA grid y (rows) and z (replicas) limits
+_GRID_MAX = 65535  # replicas are the kernel's grid y; L at most this keeps x * L/2 an int32
 
 # The tiled kernel's schedule and the plan's choices (csrc/sq2d.cu)
 TILED_THREADS = 256
@@ -69,7 +70,6 @@ TILE_STEP = 8  # tile sides are multiples of 8 (and the box's side w = B + 4K to
 TILE_MAX = 256
 SWEEPS_PER_LAUNCH = (2, 4, 8, 16)  # K; even, so that 2K is a multiple of 4
 TILED_BLOCKS_PER_SM = 2048 // TILED_THREADS  # the SM's thread limit
-_SMEM_RESERVED = 1024  # shared memory the card reserves per block
 # the plan's cost model, in site updates of the busiest SM per sweep (fit to
 # chip_smoke.py's (B, K) grid at 1024^2 x 8 on an H100): one block of 256
 # threads keeps an SM's integer pipes only 1/1.25 as busy as several blocks
@@ -248,19 +248,6 @@ def sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb=None, samples=None):
     return (s, stack) if samples else s
 
 
-def _kernel_call(name: str, fn, defines: tuple = ()):
-    from .. import _kernels
-
-    err = fn(_kernels.load(defines))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {_kernels.error_string(err)} ({err})")
-
-
-def _stack(s, T, samples):
-    R, L, _ = s.shape
-    return torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
-
-
 def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
     """The tiled kernel on CUDA tensors (``ceil(T / K)`` launches, counted in
     ``sweeps_2d.launches``) with ``plan = (B, K, ...)`` from ``sq2d_plan``;
@@ -269,7 +256,7 @@ def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
     ``defines`` launch a build for measurement (``PMC_SQ2D_CUT``)."""
     R, L, _ = s.shape
     T = thr.shape[0]
-    stack = _stack(s, T, samples)
+    stack = torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
     if not (R and T):
         return s.clone(), stack
     B, K = plan[0], plan[1]
@@ -277,11 +264,10 @@ def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
     out = torch.empty_like(s)
     tmp = torch.empty_like(s) if n > 1 else None
     with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
         _kernel_call("sq2d tiled kernel", lambda lib: lib.sq2d_tiled_sweeps(
             s.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(), seeds_i32.data_ptr(),
             thr.data_ptr(), None if rb is None else rb.data_ptr(), None if stack is None else stack.data_ptr(),
-            R, L, T, int(ctr0), int(samples or 0), 0 if stack is None else stack.shape[1], B, K, stream), defines)
+            R, L, T, int(ctr0), int(samples or 0), 0 if stack is None else stack.shape[1], B, K, _stream(s)), defines)
     sweeps_2d.launches += n
     return out, stack
 
@@ -312,8 +298,6 @@ def sweeps_2d(
         return sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb, samples)
     if s.device.type != "cuda":
         raise ValueError(f"sweeps_2d runs on cuda or cpu tensors, got {s.device}")
-    from .wl import device_limits
-
     plan = sq2d_plan(L, R, *device_limits(s.device))
     if plan is None:
         raise ValueError(f"no tile of the sq2d kernel fits L={L} on {s.device}")
