@@ -23,8 +23,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 5.  physics       Onsager energy (L=32) and disordered magnetization (L=16);
 6.  timing        square-torus kernel and plain version at the bench shape;
                   the kernel's measurement builds (SQ2D_CUTS) and the (B, K)
-                  grid there; the kernel in all three modes, ten runs each in
-                  turns with the plain version, each against its bound; the
+                  grid there; the kernel in all three modes, ten runs each,
+                  beside the plain version and its bound; the
                   main path's launch gaps and host share at 1024 and 16384
                   sweeps (torch.profiler);
 7.  compare-wl    the worldline kernels vs their plain version, bit for bit:
@@ -457,14 +457,19 @@ def versus(run_a, run_b, n_a, n_b, pairs=5):
     for _ in range(pairs):
         for name in ("a", "b", "b", "a"):
             fn, n = (run_a, n_a) if name == "a" else (run_b, n_b)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            runs[name].append(start.elapsed_time(end) / n)
+            runs[name].append(event_ms(fn, n))
     return runs["a"], runs["b"]
+
+
+def event_ms(fn, n):
+    """Milliseconds per sweep of one call of ``fn`` (``n`` sweeps), by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def in_turns(run_kernel, run_plain, n_kernel, n_plain):
@@ -478,9 +483,9 @@ def phase_timing(dev, smi):
     """At the bench shape: the kernel (the plan's (B, K)) and the plain
     version in turns; each measurement build and every (B, K) of the grid, in
     turns with the plan's kernel; the kernel in plain, sampling and
-    explicit-randoms mode (TPU kernels 1, 2 and 3), ten runs each in turns
-    with the plain version, each against its bound; then the main path's
-    profile. Returns (kernel ms per sweep, plain ms per sweep) of the
+    explicit-randoms mode (TPU kernels 1, 2 and 3), ten runs each, then in
+    turns with the plain version, each against its bound; then the main
+    path's profile. Returns (kernel ms per sweep, plain ms per sweep) of the
     1024-sweep call."""
     from pyisingmontecarlo_tpu_torch.ops import sq2d
     from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
@@ -524,8 +529,13 @@ def phase_timing(dev, smi):
         ("explicit randoms", dict(rb=rb), 2 * sites / T2 + 4 * L * L, (SQ2D_OPS_PER_SITE - HASH_OPS) * sites),
     ):
         rbm, freq = kw.get("rb"), kw.get("samples")
-        a, p = versus(lambda: sq2d._run_tiled(s, seeds, thr[:T2], 0, rbm, freq, plan),
-                      lambda: sq2d.sweeps_2d_reference(s, seeds, thr[:T2], 0, **kw), T2, T2)
+
+        def run():
+            sq2d._run_tiled(s, seeds, thr[:T2], 0, rbm, freq, plan)
+
+        run()
+        a = [event_ms(run, T2) for _ in range(10)]  # back to back: a plain call between them slows the next
+        _, p = in_turns(run, lambda: sq2d.sweeps_2d_reference(s, seeds, thr[:T2], 0, **kw), T2, T2)
         mb_ms, mb_by = bound(nbytes, ops)
         print(f"timing: {mode}, {L}^2 x {BENCH_R}, {T2} sweeps, on {smi}: sq2d_tiled median {np.median(a):.5f} "
               f"ms/sweep (mean {np.mean(a):.5f}; runs {a}); plain torch median {np.median(p):.5f} ms/sweep (runs "
