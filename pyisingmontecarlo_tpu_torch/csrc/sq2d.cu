@@ -47,8 +47,8 @@
 // neighbour sums, the table lookups and the flips add about 6 more ALU
 // instructions a site, four sites at a time (the thresholds are stored as
 // ~t, so that the flip mask is the sign bytes of u + ~t, gathered four at a
-// time by prmt). The halo adds redundant updates (1.11x the tile's at B = 128,
-// K = 4), and each launch pays a fixed cost for the box in and the tile out;
+// time by prmt). The halo adds redundant updates (1.12x the tile's at B = 256,
+// K = 8), and each launch pays a fixed cost for the box in and the tile out;
 // sq2d_plan weighs the two against each other. A sweep moves 2 bytes a site
 // once every K sweeps.
 

@@ -71,12 +71,11 @@ TILE_MAX = 256
 SWEEPS_PER_LAUNCH = (2, 4, 8, 16)  # K; even, so that 2K is a multiple of 4
 TILED_BLOCKS_PER_SM = 2048 // TILED_THREADS  # the SM's thread limit
 # the plan's cost model, in site updates of the busiest SM per sweep (fit to
-# chip_smoke.py's (B, K) grid at 1024^2 x 8 on an H100): one block of 256
-# threads keeps an SM's integer pipes only 1/1.25 as busy as several blocks
-# do; a launch (the box in, the tile out) costs as much as 48000 updates, or
-# 0.2 of an update for each byte its busiest SM moves where that is more (an
-# SM's share of HBM against its rate of updates)
-PLAN_MIN_BLOCKS_PER_SM = 1.25
+# chip_smoke.py's (B, K) grid at 1024^2 x 8 on an H100, where one block of
+# 256 threads keeps an SM as busy as several): a launch (the box in, the tile
+# out) costs as much as 48000 updates, or 0.2 of an update for each byte its
+# busiest SM moves where that is more (an SM's share of HBM against its rate
+# of updates)
 PLAN_IO_WEIGHT = 0.2
 PLAN_LAUNCH_SITES = 48000
 
@@ -113,9 +112,9 @@ def sq2d_plan(L: int, R: int, limit: int, sms: int) -> Optional[tuple]:
     ``TILE_MAX``, at most L rounded up to one), sweeps per launch K, box side
     ``w = B + 4K`` and the block's shared memory; None when nothing fits.
     Of the (B, K) that fit, the least in the model's time per sweep: the
-    blocks of the busiest SM (at least ``PLAN_MIN_BLOCKS_PER_SM``) times a
-    block's site updates in a launch (halo included), plus the launch's fixed
-    cost or its weighted bytes in and out, whichever is more, over K.
+    blocks of the busiest SM times a block's site updates in a launch (halo
+    included), plus the launch's fixed cost or its weighted bytes in and out,
+    whichever is more, over K.
     Shape only, cached per shape; the wrapper never falls back from a failed
     launch."""
     best = None
@@ -130,7 +129,7 @@ def sq2d_plan(L: int, R: int, limit: int, sms: int) -> Optional[tuple]:
             cap = min(TILED_BLOCKS_PER_SM, (limit + _SMEM_RESERVED) // (nbytes + _SMEM_RESERVED))
             load = -(-blocks // sms) if blocks <= sms * cap else -(-blocks // (sms * cap)) * cap
             io = max(PLAN_LAUNCH_SITES, PLAN_IO_WEIGHT * load * (w * w + B * B))
-            cost = (max(load, PLAN_MIN_BLOCKS_PER_SM) * _phase_updates(w, K) + io) / K
+            cost = (load * _phase_updates(w, K) + io) / K
             if best is None or cost < best[0]:
                 best = (cost, (B, K, w, nbytes))
     return best and best[1]

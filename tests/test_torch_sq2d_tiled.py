@@ -34,13 +34,13 @@ H100_OPTIN, H100_SMS = 232448, 132
 
 
 def test_main_shape_plan():
-    """1024^2 x 8 (bench.py's shape): tiles of 128, 4 sweeps a launch, a 144^2
-    box of 2 x 144 x 80 bytes of spins (rows padded to 16), 512 blocks, so
-    256 launches for 1024 sweeps."""
+    """1024^2 x 8 (bench.py's shape): tiles of 256, 8 sweeps a launch, a 288^2
+    box of 2 x 288 x 144 bytes of spins (rows padded to 16), 128 blocks (one
+    an SM), so 128 launches for 1024 sweeps."""
     B, K, w, nbytes = sq2d.sq2d_plan(1024, 8, H100_OPTIN, H100_SMS)
-    assert (B, K, w) == (128, 4, 144)
-    assert nbytes == sq2d.tiled_bytes(128, 4) == 2 * 144 * 80 + 4 * 40 + 4 * 72 + 4 * 144
-    assert 8 * (1024 // B) ** 2 == 512 and -(-1024 // K) == 256
+    assert (B, K, w) == (256, 8, 288)
+    assert nbytes == sq2d.tiled_bytes(256, 8) == 2 * 288 * 144 + 4 * 80 + 4 * 144 + 4 * 288
+    assert 8 * (1024 // B) ** 2 == 128 <= H100_SMS and -(-1024 // K) == 128
 
 
 @pytest.mark.parametrize("L", [4, 6, 16])
@@ -59,18 +59,19 @@ def test_plan_invariants(L, R):
 
 
 def test_plan_at_a_side_no_tile_divides():
-    """L = 1000 takes a partial last tile a side; the plan still fills the card."""
+    """L = 1000 takes a partial last tile a side; the plan still keeps most
+    of the card busy."""
     B, K, _, _ = sq2d.sq2d_plan(1000, 8, H100_OPTIN, H100_SMS)
-    assert 1000 % B and 8 * (-(-1000 // B)) ** 2 >= H100_SMS
+    assert 1000 % B and 8 * (-(-1000 // B)) ** 2 >= 0.9 * H100_SMS
 
 
 def test_plan_fills_the_card_by_replicas():
     """Few replicas take smaller tiles than many, so that the blocks still
-    cover the 132 SMs."""
+    cover most of the 132 SMs (one block an SM keeps it busy)."""
     few = sq2d.sq2d_plan(1024, 1, H100_OPTIN, H100_SMS)[0]
     many = sq2d.sq2d_plan(1024, 1024, H100_OPTIN, H100_SMS)[0]
     assert few < many
-    assert (1024 // few) ** 2 >= H100_SMS
+    assert 0.9 * H100_SMS <= (-(-1024 // few)) ** 2 <= H100_SMS
 
 
 def test_plan_reads_the_limit_it_is_given():
