@@ -376,7 +376,7 @@ def phase_compare(dev):
         check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name}: kernel != plain (max |diff| {err})")
         check(not torch.equal(got[0], s), f"{name}: no spin moved")
         worst = max(worst, err)
-        B, K = sq2d.sq2d_plan(s.shape[1], s.shape[0], *lim)[:2]
+        B, K = sq2d.sq2d_plan(s.shape[1], s.shape[0], *lim, "rb" in kw)[:2]
         print(f"compare: {name}: bit-identical ({sum(g.numel() for g in got)} spins; B={B} K={K}, "
               f"{-(-thr.shape[0] // K)} launches)", flush=True)
     # every (B, K) of the grid against the plan's result
@@ -529,9 +529,10 @@ def phase_timing(dev, smi):
         ("explicit randoms", dict(rb=rb), 2 * sites / T2 + 4 * L * L, (SQ2D_OPS_PER_SITE - HASH_OPS) * sites),
     ):
         rbm, freq = kw.get("rb"), kw.get("samples")
+        mplan = sq2d.sq2d_plan(L, BENCH_R, *device_limits(dev), rbm is not None)
 
         def run():
-            sq2d._run_tiled(s, seeds, thr[:T2], 0, rbm, freq, plan)
+            sq2d._run_tiled(s, seeds, thr[:T2], 0, rbm, freq, mplan)
 
         run()
         a = [event_ms(run, T2) for _ in range(10)]  # back to back: a plain call between them slows the next
@@ -539,7 +540,8 @@ def phase_timing(dev, smi):
         mb_ms, mb_by = bound(nbytes, ops)
         print(f"timing: {mode}, {L}^2 x {BENCH_R}, {T2} sweeps, on {smi}: sq2d_tiled median {np.median(a):.5f} "
               f"ms/sweep (mean {np.mean(a):.5f}; runs {a}); plain torch median {np.median(p):.5f} ms/sweep (runs "
-              f"{p}); bound {mb_ms:.5f} ms/sweep ({mb_by}); {-(-T2 // plan[1])} launches", flush=True)
+              f"{p}); bound {mb_ms:.5f} ms/sweep ({mb_by}); B={mplan[0]} K={mplan[1]}, {-(-T2 // mplan[1])} launches",
+              flush=True)
     main_path_profile(dev, smi)
     return ms, plain_ms
 

@@ -75,8 +75,10 @@ TILED_BLOCKS_PER_SM = 2048 // TILED_THREADS  # the SM's thread limit
 # 256 threads keeps an SM as busy as several): a launch (the box in, the tile
 # out) costs as much as 48000 updates, or 0.2 of an update for each byte its
 # busiest SM moves where that is more (an SM's share of HBM against its rate
-# of updates)
+# of updates). With explicit random planes, each site loads its draw from
+# HBM, and an SM needs this many blocks to hide that latency.
 PLAN_IO_WEIGHT = 0.2
+PLAN_RB_BLOCKS_PER_SM = 4
 PLAN_LAUNCH_SITES = 48000
 
 
@@ -105,18 +107,18 @@ def _phase_updates(w: int, K: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def sq2d_plan(L: int, R: int, limit: int, sms: int) -> Optional[tuple]:
+def sq2d_plan(L: int, R: int, limit: int, sms: int, rb: bool = False) -> Optional[tuple]:
     """``(B, K, w, bytes)`` of the tiled kernel for ``R`` replicas of an
     ``L x L`` torus on a card of ``sms`` SMs with ``limit`` bytes of opt-in
     shared memory per block: tile side B (a multiple of ``TILE_STEP`` up to
     ``TILE_MAX``, at most L rounded up to one), sweeps per launch K, box side
     ``w = B + 4K`` and the block's shared memory; None when nothing fits.
     Of the (B, K) that fit, the least in the model's time per sweep: the
-    blocks of the busiest SM times a block's site updates in a launch (halo
-    included), plus the launch's fixed cost or its weighted bytes in and out,
-    whichever is more, over K.
-    Shape only, cached per shape; the wrapper never falls back from a failed
-    launch."""
+    blocks of the busiest SM (at least ``PLAN_RB_BLOCKS_PER_SM`` when ``rb``,
+    the draws read from random planes) times a block's site updates in a
+    launch (halo included), plus the launch's fixed cost or its weighted
+    bytes in and out, whichever is more, over K. Shape and mode only, cached;
+    the wrapper never falls back from a failed launch."""
     best = None
     top = min(TILE_MAX, -(-L // TILE_STEP) * TILE_STEP)
     for B in range(TILE_STEP, top + 1, TILE_STEP):
@@ -129,7 +131,8 @@ def sq2d_plan(L: int, R: int, limit: int, sms: int) -> Optional[tuple]:
             cap = min(TILED_BLOCKS_PER_SM, (limit + _SMEM_RESERVED) // (nbytes + _SMEM_RESERVED))
             load = -(-blocks // sms) if blocks <= sms * cap else -(-blocks // (sms * cap)) * cap
             io = max(PLAN_LAUNCH_SITES, PLAN_IO_WEIGHT * load * (w * w + B * B))
-            cost = (load * _phase_updates(w, K) + io) / K
+            busy = max(load, PLAN_RB_BLOCKS_PER_SM) if rb else load
+            cost = (busy * _phase_updates(w, K) + io) / K
             if best is None or cost < best[0]:
                 best = (cost, (B, K, w, nbytes))
     return best and best[1]
@@ -290,14 +293,14 @@ def sweeps_2d(
     ``[R, T // samples, L, L]`` int8 stack, and ``(state, stack)`` is returned.
 
     A CUDA tensor launches the tiled kernel of ``csrc/sq2d.cu`` with
-    ``sq2d_plan``'s (B, K) (``ceil(T / K)`` launches, counted in
+    ``sq2d_plan``'s (B, K) for the shape and mode (``ceil(T / K)`` launches, counted in
     ``sweeps_2d.launches``) or raises; a CPU tensor runs the plain version."""
     R, L, T = _check(s, seeds_i32, thr, ctr0, rb, samples)
     if s.device.type == "cpu":
         return sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb, samples)
     if s.device.type != "cuda":
         raise ValueError(f"sweeps_2d runs on cuda or cpu tensors, got {s.device}")
-    plan = sq2d_plan(L, R, *device_limits(s.device))
+    plan = sq2d_plan(L, R, *device_limits(s.device), rb is not None)
     if plan is None:
         raise ValueError(f"no tile of the sq2d kernel fits L={L} on {s.device}")
     out, stack = _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan)

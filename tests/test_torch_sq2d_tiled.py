@@ -43,6 +43,15 @@ def test_main_shape_plan():
     assert 8 * (1024 // B) ** 2 == 128 <= H100_SMS and -(-1024 // K) == 128
 
 
+def test_explicit_randoms_plan_keeps_several_blocks_an_sm():
+    """Draws read from random planes in HBM need several blocks an SM to hide
+    their latency: at the main shape, tiles of 128 and 4 sweeps a launch (512
+    blocks, 4 an SM) in place of one block an SM."""
+    B, K, w, nbytes = sq2d.sq2d_plan(1024, 8, H100_OPTIN, H100_SMS, rb=True)
+    assert (B, K, w, nbytes) == (128, 4, 144, sq2d.tiled_bytes(128, 4))
+    assert 8 * (1024 // B) ** 2 / H100_SMS > sq2d.PLAN_RB_BLOCKS_PER_SM - 1
+
+
 @pytest.mark.parametrize("L", [4, 6, 16])
 def test_lattices_smaller_than_the_box(L):
     """The smallest tile, one a side, in a box larger than the lattice."""
