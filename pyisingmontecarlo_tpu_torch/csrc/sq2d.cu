@@ -44,13 +44,14 @@
 //
 // What bounds it: the integer (ALU) pipe. The lane hash is 11 ALU
 // instructions a site and 6 multiply-adds, which issue to the FMA pipe; the
-// neighbour sums, the table lookups and the flips add about 6 more ALU
-// instructions a site, four sites at a time (the thresholds are stored as
-// ~t, so that the flip mask is the sign bytes of u + ~t, gathered four at a
-// time by prmt). The halo adds redundant updates (1.12x the tile's at B = 256,
+// neighbour sums, the table lookups, the flips and the row loop's own
+// addresses and test add about 6 more ALU instructions a site, four sites at
+// a time (the thresholds are stored as ~t, so that the flip mask is the sign
+// bytes of u + ~t, gathered four at a time by prmt; chip_smoke.py counts the
+// loop's SASS). The halo adds redundant updates (1.12x the tile's at B = 256,
 // K = 8), and each launch pays a fixed cost for the box in and the tile out;
-// sq2d_plan weighs the two against each other. A sweep moves 2 bytes a site
-// once every K sweeps.
+// sq2d_plan takes the largest tiles that still fill the card. A sweep moves
+// 2 bytes a site once every K sweeps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -177,16 +178,29 @@ __device__ __forceinline__ void store_tile(int8_t* out, const uint8_t* E, const 
 
 // The sign of each of four int32 values as one byte each: 0xFF where negative, else 0 (prmt's
 // sign-replicating selectors: 0xB and 0xF take the sign of byte 3 of the first and second operand).
-__device__ __forceinline__ uint32_t signs4(int d0, int d1, int d2, int d3) {
+__device__ __forceinline__ uint32_t signs4(uint32_t d0, uint32_t d1, uint32_t d2, uint32_t d3) {
     uint32_t lo, hi;
     asm("prmt.b32 %0, %1, %2, 0xFB;" : "=r"(lo) : "r"(d0), "r"(d1));
     asm("prmt.b32 %0, %1, %2, 0xFB;" : "=r"(hi) : "r"(d2), "r"(d3));
     return __byte_perm(lo, hi, 0x5410);
 }
 
-// grid = (ntiles^2, R); one block per (tile, replica).
+// u + nt as int32 with its bit 31 the sign of the exact sum (u <= t for nt = ~t). A hashed draw u lies in
+// [0, 2^31) and nt in [-2^31, 0] (the stored table), so the wrapped sum is exact; a draw from a random
+// plane may be any int32, so the sum's sign is corrected where it overflowed (u and nt of one sign, the
+// sum of the other), one LOP3.
+template <bool RB>
+__device__ __forceinline__ uint32_t flip_sign(uint32_t u, uint32_t nt) {
+    const uint32_t d = u + nt;
+    return RB ? d ^ ((d ^ u) & (d ^ nt)) : d;
+}
+
+// grid = (ntiles^2, R); one block per (tile, replica). The launch bound's one block an SM lets ptxas
+// spend registers (47 to 55 by instance, against 32 to 40 without it; chip_smoke.py's build prints them)
+// on running the row loop's four draws side by side: with one block an SM, two warps a scheduler, the
+// loop's latency is hidden by its own instructions or not at all.
 template <int V, bool RB>
-__global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
+__global__ void __launch_bounds__(kTiledThreads, 1) sq2d_tiled(const TiledArgs a) {
     extern __shared__ __align__(16) uint8_t smem[];
     const int L = a.L, W = L >> 1, B = a.B, H = 2 * a.K, w = B + 2 * H, hw = w >> 1;
     const int P = tiled_pitch(w);
@@ -200,8 +214,11 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
     const int x0 = ((X0 - H) % L + L) % L, y0 = ((Y0 - H) % L + L) % L;
     const size_t plane = (size_t)L * L;
 
-    // thresholds as ~t = -t - 1, so that a draw u flips its site where u + ~t < 0 (u <= t)
-    for (int f = tid; f < 10 * a.kl; f += kTiledThreads) thr_s[f] = ~__ldg(a.thr + f);
+    // thresholds as ~t = -t - 1, so that a draw u flips its site where u + ~t < 0 (u <= t; flip_sign). A
+    // hashed draw lies in [0, 2^31), so a threshold below -1 flips no site, as -1 does, and is stored as
+    // -1: then u + ~t cannot overflow.
+    for (int f = tid; f < 10 * a.kl; f += kTiledThreads)
+        thr_s[f] = ~(RB ? __ldg(a.thr + f) : max(__ldg(a.thr + f), -1));
     for (int f = tid; f < hw; f += kTiledThreads) kpos[f] = ((y0 >> 1) + f) % W;
     for (int f = tid; f < w; f += kTiledThreads) xpos[f] = ((x0 + f) % L) * W;
     __syncthreads();
@@ -272,15 +289,15 @@ __global__ void __launch_bounds__(kTiledThreads) sq2d_tiled(const TiledArgs a) {
                 const uint32_t idx4 = 36u * kOnes - 2u * down2;
                 const uint32_t xw = (uint32_t)xpos[i];
                 const uint32_t ha = ha0 + xw * 0x9E3779B1u, hb = hb0 + xw * 0x85EBCA77u;
-                int d[4];  // u - t - 1: negative where the site flips
+                uint32_t d[4];  // u - t - 1: negative where the site flips
 #pragma unroll
                 for (int b = 0; b < 4; ++b) {
                     const uint32_t k = (uint32_t)(b == 0 ? kg.x : b == 1 ? kg.y : b == 2 ? kg.z : kg.w);
-                    const int nt = *reinterpret_cast<const int*>(th + __byte_perm(idx4, 0, 0x4440 | b));
+                    const uint32_t nt = *reinterpret_cast<const uint32_t*>(th + __byte_perm(idx4, 0, 0x4440 | b));
 #if PMC_SQ2D_CUT == 1
-                    d[b] = (int)((ha ^ k) >> 1) + nt;  // measurement build: no hash
+                    d[b] = ((ha ^ k) >> 1) + nt;  // measurement build: no hash
 #else
-                    d[b] = (RB ? __ldg(rbp + xw + k) : (int)lane_draw31_split(ha, hb, k)) + nt;
+                    d[b] = flip_sign<RB>(RB ? (uint32_t)__ldg(rbp + xw + k) : lane_draw31_split(ha, hb, k), nt);
 #endif
                 }
                 *reinterpret_cast<uint32_t*>(row) = self ^ (signs4(d[0], d[1], d[2], d[3]) & (par ? in1 : in0));
@@ -326,6 +343,8 @@ extern "C" int sq2d_tiled_sweeps(const void* s, void* out, void* tmp, const void
     int V = 16;
     const uintptr_t align = (uintptr_t)s | (uintptr_t)out | (uintptr_t)tmp | (uintptr_t)samples;
     while (V > 2 && (L % V || B % V || (2 * K) % V || align % V)) V >>= 1;
+    // a thread of the box load and of store_tile takes one chunk column (the tile's are fewer)
+    if ((B + 4 * K) / V > kTiledThreads) return (int)cudaErrorInvalidValue;
     const int n = (T + K - 1) / K;
     const int8_t* in = static_cast<const int8_t*>(s);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
