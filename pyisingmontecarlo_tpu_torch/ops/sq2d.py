@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
-from .wl import _SMEM_RESERVED, _kernel_call, _stream, device_limits
+from .wl import _kernel_call, _stream, device_limits
 
 __all__ = [
     "dE_values",
@@ -68,18 +68,17 @@ TILED_THREADS = 256
 HALO_PER_SWEEP = 2  # a launch of K sweeps reads a halo of 2K sites around its tile
 TILE_STEP = 8  # tile sides are multiples of 8 (and the box's side w = B + 4K too)
 TILE_MAX = 256
-SWEEPS_PER_LAUNCH = (2, 4, 8, 16)  # K; even, so that 2K is a multiple of 4
-TILED_BLOCKS_PER_SM = 2048 // TILED_THREADS  # the SM's thread limit
-# the plan's cost model, in site updates of the busiest SM per sweep (fit to
-# chip_smoke.py's (B, K) grid at 1024^2 x 8 on an H100, where one block of
-# 256 threads keeps an SM as busy as several): a launch (the box in, the tile
-# out) costs as much as 48000 updates, or 0.2 of an update for each byte its
-# busiest SM moves where that is more (an SM's share of HBM against its rate
-# of updates). With explicit random planes, each site loads its draw from
-# HBM, and an SM needs this many blocks to hide that latency.
-PLAN_IO_WEIGHT = 0.2
+SWEEPS_PER_LAUNCH = (2, 4, 8)  # the K the plan takes; even, so that 2K is a multiple of 4
+# The plan's rule, read off chip_smoke.py's (B, K) grids on an H100 (1024^2 x 1 and x 8, 1000^2 x 8,
+# 2048^2 x 8, 256^2 x 64, and 1024^2 x 8 with random planes): the largest tiles whose blocks fill the
+# card, where one block an SM keeps it busy and the card counts as full at PLAN_FILL of its SMs; draws
+# read from random planes in HBM need PLAN_RB_BLOCKS_PER_SM blocks an SM to hide their loads. A launch
+# runs 8 sweeps on tiles of PLAN_K8_TILE or more (a halo of 16 adds 27% to such a tile's updates, as a
+# halo of 8 does to a tile of 128), and with random planes (a cheaper row loop, so the launches weigh
+# more); else 4.
+PLAN_FILL = 0.9
 PLAN_RB_BLOCKS_PER_SM = 4
-PLAN_LAUNCH_SITES = 48000
+PLAN_K8_TILE = 256
 
 
 def phase_margin(j: int) -> int:
@@ -100,42 +99,34 @@ def tiled_bytes(B: int, K: int) -> int:
     return 2 * w * pitch + 4 * (-(-10 * K // 4) * 4) + 4 * (-(-(w // 2) // 4) * 4) + 4 * w
 
 
-def _phase_updates(w: int, K: int) -> int:
-    """Site updates of one block's launch of K sweeps: half the sites of each
-    phase's region."""
-    return sum((w - 2 * phase_margin(j)) ** 2 for j in range(2 * K)) // 2
-
-
 @functools.lru_cache(maxsize=256)
 def sq2d_plan(L: int, R: int, limit: int, sms: int, rb: bool = False) -> Optional[tuple]:
     """``(B, K, w, bytes)`` of the tiled kernel for ``R`` replicas of an
     ``L x L`` torus on a card of ``sms`` SMs with ``limit`` bytes of opt-in
     shared memory per block: tile side B (a multiple of ``TILE_STEP`` up to
-    ``TILE_MAX``, at most L rounded up to one), sweeps per launch K, box side
-    ``w = B + 4K`` and the block's shared memory; None when nothing fits.
-    Of the (B, K) that fit, the least in the model's time per sweep: the
-    blocks of the busiest SM (at least ``PLAN_RB_BLOCKS_PER_SM`` when ``rb``,
-    the draws read from random planes) times a block's site updates in a
-    launch (halo included), plus the launch's fixed cost or its weighted
-    bytes in and out, whichever is more, over K. Shape and mode only, cached;
-    the wrapper never falls back from a failed launch."""
-    best = None
-    top = min(TILE_MAX, -(-L // TILE_STEP) * TILE_STEP)
-    for B in range(TILE_STEP, top + 1, TILE_STEP):
-        blocks = R * (-(-L // B)) ** 2
-        for K in SWEEPS_PER_LAUNCH:
+    ``TILE_MAX``), sweeps per launch K, box side ``w = B + 4K`` and the
+    block's shared memory; None when nothing fits. The fewest tiles a side,
+    n, whose ``R * n^2`` blocks fill the card (``PLAN_FILL``; ``rb``: the
+    draws read from random planes), each tile the least multiple of
+    ``TILE_STEP`` that n of cover L; else the smallest tile, which makes the
+    most blocks. K is 8 with ``rb`` or from ``PLAN_K8_TILE`` up, else 4, or
+    less where that box does not fit. Shape and mode only, cached; the
+    wrapper never falls back from a failed launch."""
+    want = PLAN_FILL * sms * (PLAN_RB_BLOCKS_PER_SM if rb else 1)
+    last = None
+    for n in range(1, -(-L // TILE_STEP) + 1):
+        B = -(-(-(-L // n)) // TILE_STEP) * TILE_STEP  # ceil(L / n), rounded up to a multiple of TILE_STEP
+        if B > TILE_MAX or (last and B == last[0]):
+            continue
+        for K in (8, 4, 2) if rb or B >= PLAN_K8_TILE else (4, 2):
             w = B + 2 * HALO_PER_SWEEP * K
             nbytes = tiled_bytes(B, K)
-            if nbytes > limit or w // 8 + 1 > TILED_THREADS:
-                continue
-            cap = min(TILED_BLOCKS_PER_SM, (limit + _SMEM_RESERVED) // (nbytes + _SMEM_RESERVED))
-            load = -(-blocks // sms) if blocks <= sms * cap else -(-blocks // (sms * cap)) * cap
-            io = max(PLAN_LAUNCH_SITES, PLAN_IO_WEIGHT * load * (w * w + B * B))
-            busy = max(load, PLAN_RB_BLOCKS_PER_SM) if rb else load
-            cost = (busy * _phase_updates(w, K) + io) / K
-            if best is None or cost < best[0]:
-                best = (cost, (B, K, w, nbytes))
-    return best and best[1]
+            if nbytes <= limit and w // 8 + 1 <= TILED_THREADS:
+                last = (B, K, w, nbytes)
+                if R * (-(-L // B)) ** 2 >= want:
+                    return last
+                break
+    return last
 
 
 def dE_values(j: float, h: float) -> np.ndarray:
@@ -286,9 +277,10 @@ def sweeps_2d(
     state (``s`` itself is not modified).
 
     ``seeds_i32[R]`` int32 keys each replica's draws and ``ctr0`` is the sweep
-    offset of the randomness contract above. ``rb[2T, L, L/2]`` int32 in
-    [0, 2^31), when given, supplies the draws of every replica instead (plane
-    ``2t+p`` for sweep t, phase p, packed layout). ``samples``, when given, is a
+    offset of the randomness contract above. ``rb[2T, L, L/2]`` int32, when
+    given, supplies the draws of every replica instead (plane ``2t+p`` for
+    sweep t, phase p, packed layout; hashed draws lie in [0, 2^31), but the
+    kernel compares any int32 draw with any int32 threshold exactly). ``samples``, when given, is a
     sampling period: the state after every ``samples`` sweeps is staged into a
     ``[R, T // samples, L, L]`` int8 stack, and ``(state, stack)`` is returned.
 

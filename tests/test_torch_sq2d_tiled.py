@@ -45,10 +45,10 @@ def test_main_shape_plan():
 
 def test_explicit_randoms_plan_keeps_several_blocks_an_sm():
     """Draws read from random planes in HBM need several blocks an SM to hide
-    their latency: at the main shape, tiles of 128 and 4 sweeps a launch (512
+    their latency: at the main shape, tiles of 128 and 8 sweeps a launch (512
     blocks, 4 an SM) in place of one block an SM."""
     B, K, w, nbytes = sq2d.sq2d_plan(1024, 8, H100_OPTIN, H100_SMS, rb=True)
-    assert (B, K, w, nbytes) == (128, 4, 144, sq2d.tiled_bytes(128, 4))
+    assert (B, K, w, nbytes) == (128, 8, 160, sq2d.tiled_bytes(128, 8))
     assert 8 * (1024 // B) ** 2 / H100_SMS > sq2d.PLAN_RB_BLOCKS_PER_SM - 1
 
 
@@ -65,6 +65,18 @@ def test_plan_invariants(L, R):
     assert B % sq2d.TILE_STEP == 0 and sq2d.TILE_STEP <= B <= min(sq2d.TILE_MAX, -(-L // 8) * 8)
     assert K in sq2d.SWEEPS_PER_LAUNCH and w == B + 2 * sq2d.HALO_PER_SWEEP * K
     assert nbytes == sq2d.tiled_bytes(B, K) <= H100_OPTIN and w // 8 + 1 <= sq2d.TILED_THREADS
+    # the least tile of its count a side: one step less would take more tiles
+    assert B == sq2d.TILE_STEP or -(-L // (B - sq2d.TILE_STEP)) > -(-L // B)
+
+
+@pytest.mark.parametrize("L,R,rb,want", [(1024, 1, False, (96, 4)), (1000, 8, False, (256, 8)),
+                                         (2048, 8, False, (256, 8)), (256, 64, False, (128, 4))])
+def test_plan_at_the_timed_shapes(L, R, rb, want):
+    """The shapes where chip_smoke.py times the plan's pick against a (B, K)
+    grid: one replica (11 tiles a side, 121 blocks), a side no tile divides,
+    a larger lattice (512 blocks), many small lattices (B = 256 would make
+    64 blocks, half the card); 8 sweeps a launch only on tiles of 256."""
+    assert sq2d.sq2d_plan(L, R, H100_OPTIN, H100_SMS, rb)[:2] == want
 
 
 def test_plan_at_a_side_no_tile_divides():
@@ -210,6 +222,44 @@ def test_a_halo_one_site_short_differs():
     want = sq2d.sweeps_2d_reference(s, seeds, thr, 0)
     assert torch.equal(tiled_emulation(s, seeds, thr, 0, B=8, K=2), want)
     assert not torch.equal(tiled_emulation(s, seeds, thr, 0, B=8, K=2, halo=3), want)
+
+
+# --- the kernel's flip test -----------------------------------------------------
+
+I32_ENDS = np.array([-2**31, -2**31 + 1, -2**30, -2, -1, 0, 1, 2**30, 2**31 - 2, 2**31 - 1], np.int64)
+
+
+def kernel_flips(u, t, rb, clamp=True, correct=True):
+    """``csrc/sq2d.cu``'s flip test on int64 arrays of int32 values, in
+    uint32 arithmetic as the kernel does it: the table stores ``~t`` (with
+    hashed draws ``~max(t, -1)``), ``d = u + ~t`` wraps mod 2^32 and, with
+    draws from random planes, bit 31 of ``d ^ ((d ^ u) & (d ^ ~t))`` is the
+    exact sum's sign (``flip_sign``); the site flips where bit 31 is set.
+    ``clamp`` and ``correct`` off are the versions without those steps."""
+    m = 0xFFFFFFFF
+    nt = ~(t if rb or not clamp else np.maximum(t, -1)) & m
+    uu = u & m
+    d = (uu + nt) & m
+    if rb and correct:
+        d = d ^ ((d ^ uu) & (d ^ nt))
+    return (d >> 31) == 1
+
+
+@pytest.mark.parametrize("mode", ["hashed draws", "random planes"])
+def test_flip_test_is_exact_over_int32(mode):
+    """The kernel flips where ``u <= t``, as the plain version does, for every
+    threshold and every draw its mode gives: hashed draws lie in [0, 2^31),
+    draws from random planes are any int32. Without the clamp (hashed) or the
+    sign correction (random planes), ``u + ~t`` overflows and some differ."""
+    rng = np.random.default_rng(3)
+    lo = 0 if mode == "hashed draws" else -2**31
+    u = np.concatenate([I32_ENDS[I32_ENDS >= lo], rng.integers(lo, 2**31, 2000)])
+    t = np.concatenate([I32_ENDS, rng.integers(-2**31, 2**31, 2000)])
+    u, t = np.meshgrid(u, t)
+    rb = mode == "random planes"
+    assert np.array_equal(kernel_flips(u, t, rb), u <= t)
+    broken = kernel_flips(u, t, rb, clamp=False) if not rb else kernel_flips(u, t, rb, correct=False)
+    assert not np.array_equal(broken, u <= t)
 
 
 # --- the wrapper -------------------------------------------------------------
