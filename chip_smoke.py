@@ -8,22 +8,26 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 1.  gpu           the card's name and power limit (nvidia-smi);
 2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
                   (registers, shared memory and spills of each), and the SASS
-                  instructions of one lane-hash draw (cuobjdump, where the
-                  toolkit has it);
+                  instructions of one lane-hash draw and of a site update of
+                  ``sq2d_tiled``'s row loop (cuobjdump, where the toolkit has
+                  it);
 3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
                   PyTorch version on the card, bit for bit (annealing, field,
                   explicit randoms, sampling, bench shape; L = 6, 16 and 200,
                   37 sweeps across launch boundaries from ctr0 = 3, sampling
                   every 3 sweeps and every sweep, explicit randoms over
-                  several launches), and every (B, K) of the timing grid
-                  against the plan's at the bench shape;
+                  several launches, draws and thresholds over the whole
+                  int32 range), and every (B, K) of the timing grid against
+                  the plan's at the bench shape;
 4.  main          ``Lattice.run_monte_carlo`` at 1024^2, 8 replicas, 1024
                   sweeps, through the kernel (``sq2d_plan``'s ceil(T / K)
                   launches);
 5.  physics       Onsager energy (L=32) and disordered magnetization (L=16);
 6.  timing        square-torus kernel and plain version at the bench shape;
                   the kernel's measurement builds (SQ2D_CUTS) and the (B, K)
-                  grid there; the kernel in all three modes, ten runs each,
+                  grid there, and a (B, K) grid beside the plan's at five
+                  more shapes and modes (SQ2D_PLAN_SHAPES); the kernel in all three
+                  modes, ten runs each,
                   beside the plain version and its bound; the
                   main path's launch gaps and host share at 1024 and 16384
                   sweeps (torch.profiler);
@@ -133,8 +137,11 @@ LONG = (("torus", 64, -1.0), 64 * 64, 2)
 # (IMAD) issues to the FMA pipe, beside the ALU, so only ALU instructions are
 # counted. A lane-hash draw compiles to HASH_OPS = 11 ALU instructions (6
 # shifts, 5 xors; phase_build counts them in SASS, nvcc 12.9) and 6 IMADs; a
-# square-torus site update adds 8 (neighbour sum, table index, compare,
-# select); a worldline spin takes two draws per sweep (site phase and time
+# square-torus site update takes SQ2D_OPS_PER_SITE of them (the hash and the
+# rest of sq2d_tiled's row loop: neighbour sums, table index and lookup, flip
+# mask, the loop's own addresses and test), or SQ2D_RB_OPS_PER_SITE with its
+# draw from a random plane (phase_build counts both in the kernel's SASS); a
+# worldline spin takes two draws per sweep (site phase and time
 # bond) and 18 more operations (site test, cluster dE and run sum,
 # accumulation). Cluster-head draws, which depend on the data, are not
 # counted, so the bound is a lower one.
@@ -142,7 +149,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 F32_OPS_PER_S = 67e12  # outside the tensor cores (the H100 SXM data sheet)
 HASH_OPS = 11
-SQ2D_OPS_PER_SITE = HASH_OPS + 8
+SQ2D_OPS_PER_SITE = 67 / 4  # ALU instructions of the row loop for a word of four sites, the draws' 44 among them
+SQ2D_RB_OPS_PER_SITE = 40 / 4
 WL_OPS_PER_SPIN = 2 * HASH_OPS + 18
 # A ladder spin per sweep (csrc/ladder.cu): two draws (site phase, time bond)
 # and about 10 more integer operations (indices, alignment, bits); in f32 the
@@ -267,13 +275,58 @@ extern "C" __global__ void two(const uint32_t* in, uint32_t* out) {
 """
 
 
+# SASS opcodes not issued to the ALU pipe: multiply-adds (the FMA pipe), loads and stores, control
+NOT_ALU = ("IMAD", "IMUL", "LD", "ST", "BRA", "BAR", "NOP", "EXIT", "BSSY", "BSYNC", "WARPSYNC", "DEPBAR")
+
+
+def _sass(nvcc, dump, src, cubin):
+    """{function: [(address, opcode, operands)]} of ``src`` compiled for sm_90a."""
+    import re
+
+    from pyisingmontecarlo_tpu_torch import _kernels
+
+    subprocess.run([nvcc, "-arch=sm_90a", "-std=c++17", "-O3", "-I", str(_kernels._CSRC), "-cubin", "-o",
+                    str(cubin), str(src)], check=True, capture_output=True, timeout=300)
+    text = subprocess.run([dump, "-sass", str(cubin)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    fns, fn = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\w+)", line)
+        if head:
+            fn = fns.setdefault(head.group(1), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if fn is not None and m:
+            fn.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return fns
+
+
+def _row_loop(ins, marker):
+    """The instructions of the shortest loop (a backward branch and what it
+    jumps over) of ``ins`` that holds an instruction for which ``marker`` is
+    true and a shared-memory store."""
+    import re
+
+    best = None
+    for addr, op, rest in ins:
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            body = [i for i in ins if int(target.group(1), 16) <= i[0] <= addr]
+            if any(marker(i) for i in body) and any(i[1] == "STS" for i in body):
+                best = body if best is None or len(body) < len(best) else best
+    return best
+
+
 def hash_sass():
     """Print the SASS instructions of one lane-hash draw by opcode (cuobjdump
     of HASH_PROBE), those on the ALU pipe (all but IMAD), the HASH_OPS the
-    bounds take, and the card's maximum SM clock; 'not measured' where the
-    toolkit has no cuobjdump."""
-    import re
+    bounds take, and the card's maximum SM clock; then the ALU instructions a
+    site of sq2d_tiled's row loop (V = 16; the loop's, over the four sites of
+    each word it stores) with hashed draws and with draws from random planes,
+    beside SQ2D_OPS_PER_SITE and SQ2D_RB_OPS_PER_SITE; 'not measured' where
+    the toolkit has no cuobjdump."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
 
@@ -286,27 +339,40 @@ def hash_sass():
         return
     build = _kernels._BUILD
     build.mkdir(exist_ok=True)
-    src, cubin = build / "hash_probe.cu", build / "hash_probe.cubin"
-    src.write_text(HASH_PROBE)
-    subprocess.run([nvcc, "-arch=sm_90a", "-O3", "-I", str(_kernels._CSRC), "-cubin", "-o", str(cubin),
-                    str(src)], check=True, capture_output=True, timeout=300)
-    sass = subprocess.run([dump, "-sass", str(cubin)], check=True, capture_output=True, text=True,
-                          timeout=300).stdout
-    ops, fn = {"one": {}, "two": {}}, None
-    for line in sass.splitlines():
-        head = re.search(r"Function : (\w+)", line)
-        if head:
-            fn = head.group(1)
-            continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if fn in ops and m and m.group(1) not in ("NOP", "BRA", "EXIT"):
-            ops[fn][m.group(1)] = ops[fn].get(m.group(1), 0) + 1
+    probe = build / "hash_probe.cu"
+    probe.write_text(HASH_PROBE)
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(_sass, nvcc, dump, probe, build / "hash_probe.cubin"),
+                pool.submit(_sass, nvcc, dump, _kernels._CSRC / "sq2d.cu", build / "sq2d.cubin")]
+        probe_fns, sq2d_fns = (j.result() for j in jobs)
+
+    def histogram(ins):
+        out = {}
+        for _, op, _ in ins:
+            if op not in ("NOP", "BRA", "EXIT"):
+                out[op] = out.get(op, 0) + 1
+        return out
+
+    ops = {k: histogram(v) for k, v in probe_fns.items()}
     diff = {k: ops["two"].get(k, 0) - ops["one"].get(k, 0) for k in set(ops["one"]) | set(ops["two"])}
     diff = {k: v for k, v in sorted(diff.items()) if v}
     imad = sum(v for k, v in diff.items() if k.startswith(("IMAD", "IMUL")))
     print(f"hash SASS: one draw = {sum(diff.values())} instructions {diff}: {sum(diff.values()) - imad} on the ALU "
           f"pipe, {imad} IMAD on the FMA pipe (HASH_OPS = {HASH_OPS}); clocks.max.sm {clock}; integer rate "
           f"{INT32_OPS_PER_S / 1e12:.2f} T op/s", flush=True)
+    for rb, want in ((False, SQ2D_OPS_PER_SITE), (True, SQ2D_RB_OPS_PER_SITE)):
+        name = next(k for k in sq2d_fns if "sq2d_tiled" in k and f"ILi16ELb{int(rb)}E" in k)
+        # the row loop gathers its flip masks with prmt's sign-replicating selector (signs4)
+        body = _row_loop(sq2d_fns[name], lambda i: i[1] == "PRMT" and "0xfb" in i[2])
+        if body is None:
+            print(f"sq2d SASS ({'random planes' if rb else 'hashed draws'}): no row loop found", flush=True)
+            continue
+        alu = sum(1 for _, op, _ in body if not op.startswith(NOT_ALU))
+        words = sum(1 for _, op, _ in body if op == "STS")
+        print(f"sq2d SASS ({'random planes' if rb else 'hashed draws'}): the row loop is {len(body)} instructions "
+              f"{dict(sorted(histogram(body).items()))} for {words} word(s) of 4 sites: {alu} on the ALU pipe, "
+              f"{alu / (4 * words):.2f} a site ({'SQ2D_RB_OPS_PER_SITE' if rb else 'SQ2D_OPS_PER_SITE'} = {want})",
+              flush=True)
 
 
 def _inputs(L, R, seed, dev):
@@ -320,6 +386,10 @@ def _inputs(L, R, seed, dev):
 
 # the (B, K) grid that timing measures at the bench shape (compare holds each to the plan's result)
 SQ2D_GRID_B, SQ2D_GRID_K = (64, 128, 192, 256), (2, 4, 8, 16)
+# shapes (L, R, explicit randoms) where timing holds sq2d_plan's pick against a (B, K) grid: one replica, a
+# side no tile divides, a larger lattice, many small lattices, and the bench shape with random planes
+SQ2D_PLAN_SHAPES = ((1024, 1, False), (1000, 8, False), (2048, 8, False), (256, 64, False), (1024, 8, True))
+SQ2D_PLAN_GRID_B = (32, 64, 96, 128, 192, 256)
 
 
 def phase_compare(dev):
@@ -363,6 +433,20 @@ def phase_compare(dev):
     rb = torch.from_numpy(rng.integers(0, 2**31, (2 * 37, 64, 32), dtype=np.int64).astype(np.int32)).to(dev)
     cases.append(("explicit rb L=64 R=2 T=37 (several launches)", s, seeds, sq2d.thresholds(sched, 0.7, 0.0), 0,
                   dict(rb=rb)))
+    # thresholds, and draws from random planes, over the whole int32 range, the ends and their neighbours
+    # among them: the kernel's flip test u <= t is exact for every pair
+    ends = np.array([-2**31, -2**31 + 1, -2, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int64)
+
+    def full_range(shape):
+        v = rng.integers(-2**31, 2**31, int(np.prod(shape)), dtype=np.int64)
+        pick = rng.random(v.size) < 0.25
+        v[pick] = rng.choice(ends, int(pick.sum()))
+        return torch.from_numpy(v.reshape(shape).astype(np.int32))
+
+    s, seeds = _inputs(64, 2, 24, dev)
+    cases.append(("full-range thresholds L=64 R=2 T=9, hashed draws", s, seeds, full_range((9, 10)), 0, {}))
+    cases.append(("full-range thresholds and explicit rb L=64 R=2 T=9", s, seeds, full_range((9, 10)), 0,
+                  dict(rb=full_range((18, 64, 32)).to(dev))))
     lim = device_limits(dev)
     worst = 0
     for name, s, seeds, thr, ctr0, kw in cases:
@@ -520,13 +604,31 @@ def phase_timing(dev, smi):
             row.append(f"K={K} {np.mean(b):.5f} (the plan's {np.mean(a):.5f})")
         print(f"timing: grid at {L}^2 x {BENCH_R}, {Tg} sweeps, on {smi}: B={B} "
               f"({BENCH_R * (-(-L // B)) ** 2} blocks): " + "; ".join(row) + " ms/sweep", flush=True)
+    for Lp, Rp, use_rb in SQ2D_PLAN_SHAPES:  # the plan against a grid at other shapes, each cell in turns with it
+        sp, seedsp = _inputs(Lp, Rp, 30 + Rp, dev)
+        rbp = torch.randint(0, 2**31 - 1, (2 * Tg, Lp, Lp // 2), dtype=torch.int32, device=dev) if use_rb else None
+        pplan = sq2d.sq2d_plan(Lp, Rp, *device_limits(dev), use_rb)
+        cells, mine = {}, []
+        for B, K in sorted({(B, K) for B in SQ2D_PLAN_GRID_B for K in SQ2D_GRID_K} | {pplan[:2]}):
+            sq2d._run_tiled(sp, seedsp, thr[:8], 0, None if rbp is None else rbp[:16], None, (B, K))
+            a, b = versus(lambda: sq2d._run_tiled(sp, seedsp, thr[:Tg], 0, rbp, None, pplan),
+                          lambda: sq2d._run_tiled(sp, seedsp, thr[:Tg], 0, rbp, None, (B, K)), Tg, Tg, 1)
+            cells[B, K] = float(np.mean(b))
+            mine += a
+        best = min(cells, key=cells.get)
+        print(f"timing: plan at {Lp}^2 x {Rp}{', explicit randoms' if use_rb else ''}, {Tg} sweeps, on {smi}: "
+              f"the plan's (B, K) = {pplan[:2]} "
+              f"({Rp * (-(-Lp // pplan[0])) ** 2} blocks) {np.mean(mine):.5f} ms/sweep (mean of {len(mine)} runs, "
+              f"{cells[pplan[:2]]:.5f} as a cell); the grid's best {best} {cells[best]:.5f}, the plan "
+              f"{cells[pplan[:2]] / cells[best]:.3f}x it; grid " + "; ".join(
+                  f"{B},{K} {t:.5f}" for (B, K), t in cells.items()), flush=True)
     T2 = 64
     rb = torch.randint(0, 2**31 - 1, (2 * T2, L, L // 2), dtype=torch.int32, device=dev)
     for mode, kw, nbytes, ops in (
         ("plain", {}, 2 * sites / T2, SQ2D_OPS_PER_SITE * sites),
         ("sampling, a sample every 16 sweeps", dict(samples=16), 2 * sites / T2 + sites / 16,
          SQ2D_OPS_PER_SITE * sites),
-        ("explicit randoms", dict(rb=rb), 2 * sites / T2 + 4 * L * L, (SQ2D_OPS_PER_SITE - HASH_OPS) * sites),
+        ("explicit randoms", dict(rb=rb), 2 * sites / T2 + 4 * L * L, SQ2D_RB_OPS_PER_SITE * sites),
     ):
         rbm, freq = kw.get("rb"), kw.get("samples")
         mplan = sq2d.sq2d_plan(L, BENCH_R, *device_limits(dev), rbm is not None)
