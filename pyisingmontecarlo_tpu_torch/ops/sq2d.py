@@ -280,9 +280,10 @@ def sweeps_2d(
     offset of the randomness contract above. ``rb[2T, L, L/2]`` int32, when
     given, supplies the draws of every replica instead (plane ``2t+p`` for
     sweep t, phase p, packed layout; hashed draws lie in [0, 2^31), but the
-    kernel compares any int32 draw with any int32 threshold exactly). ``samples``, when given, is a
-    sampling period: the state after every ``samples`` sweeps is staged into a
-    ``[R, T // samples, L, L]`` int8 stack, and ``(state, stack)`` is returned.
+    kernel compares any int32 draw with any int32 threshold exactly).
+    ``samples``, when given, is a sampling period: the state after every
+    ``samples`` sweeps is staged into a ``[R, T // samples, L, L]`` int8
+    stack, and ``(state, stack)`` is returned.
 
     A CUDA tensor launches the tiled kernel of ``csrc/sq2d.cu`` with
     ``sq2d_plan``'s (B, K) for the shape and mode (``ceil(T / K)`` launches, counted in
