@@ -82,7 +82,33 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   sweep calls, and one-sweep calls as the main path makes
                   them), each launch's device time and the idle share over
                   whole tempering steps (torch.profiler), and the multi-launch
-                  kernels and plain version at main-tempering-wide's 64^2 shape.
+                  kernels and plain version at main-tempering-wide's 64^2 shape;
+19. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
+                  vs its numpy version, bit for bit: the main path's plan (200
+                  steps x 29 slots x R = 100) and a plan with worm and cluster
+                  slots at R = 1 over 2^16 chained splits; its time at 200 and
+                  4000 steps beside its bound, and the numpy chain's (the
+                  build phase counts a threefry block's SASS instructions);
+20. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
+                  every family (spin on the dense int, dense hi+lo and ELL
+                  paths, edge with and without importance weights, worms, SW
+                  with a field, annealing energies) at small shapes; then one
+                  default step of the main path at full width, move by move,
+                  where every differing spin must be an f32 tie;
+21. main-classical    ``Lattice.run_monte_carlo_annealing_and_get_energies`` of
+                  BASELINE.json config 2 (benches/bench_configs.py: the 48^2
+                  triangular AFM, 100 experiments, beta 0.1 -> 3.0), depth
+                  cut from 4000 steps to 200: one threefry_chain launch, steps/s
+                  and site-steps/s, the graph's set-up, torch and device
+                  operations a step and the idle share (torch.profiler over a
+                  20-step call); the last energy column against ``energy`` of
+                  the states, <E> falling along the schedule;
+22. main-classicising ``ClassicIsing`` on benches/bench_classical_graph.py's 4-regular
+                  +-J glass (R = 64, beta = 1.5): ms a step of each move family
+                  at n = 4096 (dense) and of the spin family at n = 16384
+                  (ELL); ``get_energies`` against the run's energies;
+23. physics-classical <E> of a frustrated 10-site graph with a field against exact
+                  enumeration (Lattice with and without clusters, ClassicIsing).
 
 Each entry of the kernels line takes its launches, times and bound from one
 shape: the main path that launched it.
@@ -95,8 +121,9 @@ Needs torch with CUDA, nvcc and numpy; imports no jax.
 times the end-to-end main paths (``bench.py``'s headline, the best of three
 ``Lattice.run_monte_carlo(0.4, 16384, 8)`` calls at 1024^2 after a warm-up,
 in attempted flips/ns; the tempering bench's sweeps/s slope, the 256-chain's
-sampling call, and the 256^2 torus's site updates/s slope of
-benches/bench_qmc_large.py) for the
+sampling call, the 256^2 torus's site updates/s slope of
+benches/bench_qmc_large.py, the triangular annealing's site-steps/s and the
+glass's ms a step) for the
 package in DIR and for this one, each in a process of its own, ten runs a
 side in the order DIR, this, this, DIR; it prints each run's numbers, each
 side's median and quartiles and the pairs won, and checks nothing else. The
@@ -192,8 +219,10 @@ def bound(nbytes, ops, f32_ops=0):
 
 
 def reset_counts():
+    from pyisingmontecarlo_tpu_torch import rng
     from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
+    rng.threefry_chain.launches = 0
     sq2d.sweeps_2d.launches = 0
     wl.wl_sweeps.launches = 0
     wl.wl_sweeps.resident_launches = 0
@@ -203,16 +232,18 @@ def reset_counts():
 
 
 def read_counts():
+    from pyisingmontecarlo_tpu_torch import rng
     from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
-    return {"sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches,
+    return {"keychain": rng.threefry_chain.launches, "sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches,
             "wl_resident": wl.wl_sweeps.resident_launches, "wl_tiled": wl.wl_sweeps.tiled_launches,
             "ladder": ladder.ladder_sweeps.launches, "ladder_resident": ladder.ladder_sweeps.resident_launches}
 
 
 def counts_only(**want):
     """The launch counts with ``want`` and zeros elsewhere."""
-    return {**dict.fromkeys(("sq2d", "wl", "wl_resident", "wl_tiled", "ladder", "ladder_resident"), 0), **want}
+    return {**dict.fromkeys(("keychain", "sq2d", "wl", "wl_resident", "wl_tiled", "ladder", "ladder_resident"), 0),
+            **want}
 
 
 def phase_gpu():
@@ -259,6 +290,7 @@ def phase_build():
     print(f"build: {dt:.3f} s, {path.relative_to(HERE)}; with the {len(variants)} measurement builds "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     hash_sass()
+    keychain_sass()
 
 
 # two kernels that differ by one lane-hash draw whose pos is data and whose seed and ctr are fixed, as in
@@ -1429,6 +1461,464 @@ def phase_timing_ladder(dev, smi):
     return out
 
 
+# ----------------------------------------------------------------------------------------- the classical graph path
+
+# the classical graph path's main call: BASELINE.json config 2 (benches/bench_configs.py:30-42), the annealing of
+# the 48^2 triangular antiferromagnet (J = +1), 100 experiments, beta 0.1 -> 3.0; the depth cut from 4000 steps
+TRI_L, TRI_R, TRI_SEED, TRI_T, TRI_T_FULL = 48, 100, 11, 200, 4000
+# benches/bench_classical_graph.py's glass: a 4-regular +-J graph (two random Hamilton cycles, seed 7), 64
+# replicas at beta 1.5; n = 4096 takes the dense coupling path, n = 16384 the ELL path (spin family there)
+GLASS_NS, GLASS_R, GLASS_BETA = (4096, 16384), 64, 1.5
+# one threefry2x32 block on a key that is data, counted in SASS by keychain_sass (nvcc 12.9): 68 instructions,
+# 50 of them on the ALU pipe (20 SHF, 21 LOP3, 9 IADD3) and 18 IMAD.IADD on the FMA pipe; the chain's serial
+# path runs at most one of them a cycle at the SM clock
+THREEFRY_OPS, THREEFRY_ALU_OPS = 68, 50
+SM_CLOCK_HZ = 1.98e9
+# blocks of each slot kind of the chain (rng.KEY_PLAIN, KEY_WORM, KEY_CLUSTER): the split, and the sub-key's work
+CHAIN_BLOCKS = {0: 2, 1: 8, 2: 7}
+
+THREEFRY_PROBE = r"""
+#include "keychain.cu"
+extern "C" __global__ void one(const uint32_t* in, uint32_t* out) {
+    const Key k = threefry(Key{in[0], in[1 + threadIdx.x]}, 0u, in[2]);
+    out[2 * threadIdx.x] = k.k0;
+    out[2 * threadIdx.x + 1] = k.k1;
+}
+extern "C" __global__ void two(const uint32_t* in, uint32_t* out) {
+    const Key k = threefry(threefry(Key{in[0], in[1 + threadIdx.x]}, 0u, in[2]), 0u, in[2]);
+    out[2 * threadIdx.x] = k.k0;
+    out[2 * threadIdx.x + 1] = k.k1;
+}
+"""
+
+
+def keychain_sass():
+    """The SASS instructions of one threefry2x32 block on a key that is data
+    (cuobjdump of THREEFRY_PROBE: two chained blocks less one), beside
+    THREEFRY_OPS; 'not measured' without cuobjdump."""
+    import shutil
+
+    from pyisingmontecarlo_tpu_torch import _kernels
+
+    nvcc = _kernels._nvcc()
+    dump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    if not Path(dump).exists():
+        print("keychain SASS: not measured (no cuobjdump)", flush=True)
+        return
+    probe = _kernels._BUILD / "threefry_probe.cu"
+    probe.write_text(THREEFRY_PROBE)
+    fns = _sass(nvcc, dump, probe, _kernels._BUILD / "threefry_probe.cubin")
+    count = {k: sum(1 for _, op, _ in v if op not in ("NOP", "BRA", "EXIT")) for k, v in fns.items()}
+    ops = {}
+    for k, sign in (("two", 1), ("one", -1)):
+        for _, op, _ in fns[k]:
+            if op not in ("NOP", "BRA", "EXIT"):
+                ops[op] = ops.get(op, 0) + sign
+    alu = sum(v for k, v in ops.items() if not k.startswith(NOT_ALU))
+    print(f"keychain SASS: one threefry2x32 block = {count['two'] - count['one']} instructions "
+          f"{ {k: v for k, v in sorted(ops.items()) if v} }, {alu} on the ALU pipe (THREEFRY_OPS = {THREEFRY_OPS}, "
+          f"THREEFRY_ALU_OPS = {THREEFRY_ALU_OPS})", flush=True)
+
+
+def chain_bound(kinds, T, R):
+    """(least ms, what sets it) of the key chain: the larger of its table bytes
+    at the HBM rate, all its blocks' ALU instructions at the integer rate, and
+    its serial path (one block a slot, T * slots of them, one instruction a
+    cycle)."""
+    from pyisingmontecarlo_tpu_torch.rng import chain_columns
+
+    C, W = chain_columns(kinds)
+    nbytes = 4 * T * R * (C + W) + 16 * R
+    ops = THREEFRY_ALU_OPS * T * R * sum(CHAIN_BLOCKS[k] for k in kinds)
+    t_bytes, t_ops = bound(nbytes, ops)[0], max(ops / INT32_OPS_PER_S, THREEFRY_OPS * T * len(kinds) / SM_CLOCK_HZ) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tri_plan():
+    """The key plan of the triangular annealing's default step (Lattice._move_args)."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+
+    ga = ce.device_graph_sorted(compile_graph(triangular_edges(TRI_L, j=1.0)), device="cpu")
+    return ce.step_plan(ga, 1, 1, 1, False, 0)
+
+
+def _keys(R, seed):
+    from pyisingmontecarlo_tpu_torch.rng import key_data_from_seeds
+
+    return key_data_from_seeds(np.random.default_rng(seed).integers(0, 2**64, R, dtype=np.uint64))
+
+
+def phase_compare_keychain(dev, smi):
+    """threefry_chain against its numpy version, bit for bit: the main path's
+    plan (200 steps x 29 slots x R = 100) and a plan with worm and cluster
+    slots at R = 1 over 2^16 splits; then the kernel's time at the main shape
+    and at the full 4000 steps, beside the numpy chain's. Returns (largest
+    |difference|, kernel ms, plain ms) at the main shape."""
+    from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain, threefry_chain_reference
+
+    kinds = tri_plan()
+    check(len(kinds) == 29 and kinds.count(1) == 1, f"the triangular plan has {len(kinds)} slots: {kinds}")
+    cases = (("main path", kinds, TRI_T, TRI_R, TRI_L**2, 3), ("worm and cluster, R=1", [0, 1, 0, 0, 2, 0, 0, 0],
+             8192, 1, 100003, 4))
+    err = 0
+    for name, plan, T, R, nvars, seed in cases:
+        kd = _keys(R, seed)
+        t0 = time.perf_counter()
+        want = threefry_chain_reference(kd, plan, T, nvars)
+        plain_s = time.perf_counter() - t0
+        got = threefry_chain(key_tensor(kd, dev), plan, T, nvars)
+        torch.cuda.synchronize()
+        got = [g.cpu().numpy() for g in got]
+        want = [want[0], want[1], key_tensor(want[2], "cpu").numpy()]
+        for g, w in zip(got, want):
+            check(g.shape == w.shape, f"compare-keychain {name}: shape {g.shape} vs {w.shape}")
+            err = max(err, int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()) if g.size else 0)
+        check(err == 0, f"compare-keychain {name}: threefry_chain != its numpy version (max |diff| {err})")
+        print(f"compare-keychain: {name}: {T} steps x {len(plan)} slots x R={R} ({T * len(plan)} chained splits, "
+              f"nvars {nvars}): seeds {got[0].shape}, worm starts {got[1].shape} and keys equal bit for bit "
+              f"(numpy {plain_s:.3f} s)", flush=True)
+    kd = key_tensor(_keys(TRI_R, 5), dev)
+    out = {}
+    for T in (TRI_T, TRI_T_FULL):
+        threefry_chain(kd, kinds, T, TRI_L**2)
+        runs = [event_ms(lambda: threefry_chain(kd, kinds, T, TRI_L**2), 1) for _ in range(5)]
+        b_ms, b_by = chain_bound(kinds, T, TRI_R)
+        out[T] = (float(np.median(runs)), b_ms, b_by)
+        print(f"compare-keychain: timing on {smi}: {T} steps x {len(kinds)} slots x R={TRI_R}: threefry_chain "
+              f"median {out[T][0]:.5f} ms (runs {runs}); bound {b_ms:.5f} ms ({b_by})", flush=True)
+    host = _keys(TRI_R, 5)
+    t0 = time.perf_counter()
+    threefry_chain_reference(host, kinds, TRI_T, TRI_L**2)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"compare-keychain: the numpy chain at {TRI_T} steps {plain_ms:.3f} ms "
+          f"({plain_ms / (TRI_T * len(kinds)) * 1e3:.1f} us a slot; {plain_ms * TRI_T_FULL / TRI_T / 1e3:.3f} s at "
+          f"{TRI_T_FULL} steps by proportion)", flush=True)
+    return err, out[TRI_T][0], plain_ms, out[TRI_T][1], out[TRI_T][2]
+
+
+def glass_edges(n, seed=7):
+    """benches/bench_classical_graph.py's random_regular_pm_j(n, 2, seed)."""
+    rng = np.random.default_rng(seed)
+    seen, edges = set(), []
+    for _ in range(2):
+        perm = rng.permutation(n)
+        for i in range(n):
+            a, b = int(perm[i]), int(perm[(i + 1) % n])
+            key = (min(a, b), max(a, b))
+            if a != b and key not in seen:
+                seen.add(key)
+                edges.append(((a, b), 1.0 if rng.random() < 0.5 else -1.0))
+    return edges
+
+
+def _engine_case(dev, edges, R, T, moves, dense=None, bias=0.0, iw=None, energies=False, seed=1):
+    """The graph engine's run on the card and on the CPU from one state and
+    key set: (differing spins and key words, energies equal or None, dense path)."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph
+    from pyisingmontecarlo_tpu_torch.rng import key_tensor
+
+    cg = compile_graph(edges)
+    kd = _keys(R, seed)
+    s0 = ce.random_states(kd, cg.nvars)
+    beta = np.linspace(0.3, 1.4, T).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        ga = ce.device_graph_sorted(cg, dense=dense, device=d)
+        w = None
+        if iw == "per class":
+            w = ce.importance_weights(cg, d)
+        elif iw == "per replica":
+            w = tuple(torch.where(torch.arange(R, device=d)[:, None] % 2 == 0, x[None], 1.0)
+                      for x in ce.importance_weights(cg, d))
+        h = torch.full((cg.nvars,), bias, dtype=torch.float32, device=d)
+        fn = ce.run_steps_energies if energies else ce.run_steps
+        out[str(d)] = [x.cpu() for x in fn(ga, h, s0.to(d), key_tensor(kd, d), beta, iw=w, **moves)]
+    a, b = out["cpu"], out[str(dev)]
+    diff = int((a[0] != b[0]).sum()) + int((a[1] != b[1]).sum())
+    return diff, (torch.equal(a[2], b[2]) if energies else None), ga.A_hi is not None
+
+
+def _ties(ga, bias, st, move, beta):
+    """Sites whose decision in ``move`` was a tie on the CPU state ``st``: the
+    uniform within 2 ulp of its acceptance probability recomputed in f64."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+
+    kind = move[0]
+    n, R = st.shape
+    s64 = st.double()
+    A = ga.A_hi.double() + (0 if ga.A_lo is None else ga.A_lo.double())
+    h = bias.double()
+    mask = torch.zeros((n, R), dtype=torch.bool)
+
+    def close(u, p):
+        return (u.double() - p).abs() <= 2 * torch.from_numpy(np.spacing(p.float().numpy()).astype(np.float64))
+
+    if kind == "spin":
+        lo, hi = ce._color_bounds(ga)[move[1]:move[1] + 2]
+        dE = -2 * s64[lo:hi] * (A[lo:hi] @ s64 + h[lo:hi, None])
+        mask[lo:hi] = close(ce._uniform_lanes(move[2], (hi - lo,)), torch.sigmoid(-beta * dE))
+    elif kind == "edge":
+        a, b, j = ga.e_a[move[1]], ga.e_b[move[1]], ga.e_j[move[1]].double()
+        B = A @ s64
+        sa, sb = s64[a], s64[b]
+        dE = -2 * sa * (B[a] + h[a, None]) - 2 * sb * (B[b] + h[b, None]) + 4 * j[:, None] * sa * sb
+        t = close(ce._uniform_lanes(move[2], (a.shape[0],)), torch.sigmoid(-beta * dE))
+        mask[a] |= t
+        mask[b] |= t
+    else:
+        f, closed, u = ce._worm_walk(ga, move[1], move[2], move[3], n, R)
+        cut = (f[ga.edge_a] ^ f[ga.edge_b]).double()
+        ebond = ga.edge_j.double()[:, None] * s64[ga.edge_a] * s64[ga.edge_b]
+        dE = -2 * (ebond * cut).sum(0) - 2 * (h[:, None] * s64 * f).sum(0)
+        t = closed & close(u, torch.exp(-beta * dE))
+        mask |= f & t[None, :]
+    return mask
+
+
+def full_width_step(dev):
+    """One default time step of the triangular annealing at full width
+    (48^2, R = 100, beta 1.5), move by move on the card and on the CPU from
+    the same state; every differing spin must be a tie of its move. Returns
+    (differing spins, ties among them)."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+    from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain
+
+    cg = compile_graph(triangular_edges(TRI_L, j=1.0))
+    gc, gg = ce.device_graph_sorted(cg, device="cpu"), ce.device_graph_sorted(cg, device=dev)
+    kd = _keys(TRI_R, 9)
+    st, hc = ce._to_internal(gc, ce.random_states(kd, cg.nvars), torch.zeros(cg.nvars))
+    hg = hc.to(dev)
+    kinds = ce.step_plan(gc, 1, 1, 1, False)
+    seeds, v0, _ = threefry_chain(key_tensor(kd, "cpu"), kinds, 1, cg.nvars)
+    beta, wlen = 1.5, ce.DEFAULT_WLEN
+    moves = [("spin", c, seeds[0, c]) for c in range(len(gc.c_sites))]
+    moves += [("edge", c, seeds[0, len(moves) + c]) for c in range(len(gc.e_a))]
+    moves += [("worm", seeds[0, len(moves)], v0[0, 0], wlen)]
+    differ = ties = 0
+    with ce.exact_f32_matmul():
+        for move in moves:
+            x, y = st.clone(), st.to(dev)
+            if move[0] == "spin":
+                x = ce._spin_color_update(gc, hc, x, move[2], beta, move[1], False)
+                y = ce._spin_color_update(gg, hg, y, move[2].to(dev), beta, move[1], False)
+            elif move[0] == "edge":
+                x = ce._edge_color_update(gc, hc, x, move[2], beta, move[1], False)
+                y = ce._edge_color_update(gg, hg, y, move[2].to(dev), beta, move[1], False)
+            else:
+                x = ce._worm_update(gc, hc, x, move[1], move[2], beta, wlen, False)
+                y = ce._worm_update(gg, hg, y, move[1].to(dev), move[2].to(dev), beta, wlen, False)
+            d = x != y.cpu()
+            if d.any():
+                tie = _ties(gc, hc, st, move, beta)
+                check(bool((d <= tie).all()), f"full-width step: {int((d & ~tie).sum())} spins differ in "
+                                              f"{move[0]} {move[1] if move[0] != 'worm' else ''} with no tie")
+                differ += int(d.sum())
+                ties += int((d & tie).sum())
+            st = y.cpu()
+    return differ, ties
+
+
+def phase_compare_classical(dev):
+    """The graph engine on the card against the port on the CPU, each family
+    at a small shape (integer or dyadic couplings and fields: bit for bit),
+    then one default step of the main path at full width (ties only)."""
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+
+    tri = triangular_edges(6, j=1.0)
+    dyadic = [((a, b), j * (1 + 2**-10)) for (a, b), j in triangular_edges(5, j=1.0)]
+    spin = dict(nspin_sweeps=1, nedge_sweeps=0, nworms=0, only_basic=True, heatbath=False, wlen=1)
+    edge = dict(nspin_sweeps=0, nedge_sweeps=1, nworms=0, only_basic=False, heatbath=False, wlen=1)
+    worm = dict(nspin_sweeps=0, nedge_sweeps=0, nworms=2, only_basic=False, heatbath=False, wlen=16)
+    sw = dict(nspin_sweeps=0, nedge_sweeps=0, nworms=0, only_basic=False, heatbath=False, wlen=1, nclusters=1)
+    full = dict(nspin_sweeps=1, nedge_sweeps=1, nworms=1, only_basic=False, heatbath=False, wlen=32)
+    cases = (
+        ("spin, dense int", tri, spin, {}),
+        ("spin, dense hi+lo (J = 1 + 2^-10)", dyadic, spin, {}),
+        ("spin, ELL", glass_edges(64), spin, dict(dense=False)),
+        ("spin, heat-bath flag, ELL, field 0.25", tri, dict(spin, heatbath=True), dict(dense=False, bias=0.25)),
+        ("edge", tri, edge, {}),
+        ("edge, iw [Ec]", [((a, b), j * (1 + (a % 3))) for (a, b), j in tri], edge, dict(iw="per class")),
+        ("edge, iw [R, Ec]", [((a, b), j * (1 + (a % 3))) for (a, b), j in tri], edge, dict(iw="per replica")),
+        ("edge, ELL", glass_edges(64), edge, dict(dense=False)),
+        ("worm, field 0.25", tri, worm, dict(bias=0.25)),
+        ("worm, heat-bath", glass_edges(64), dict(worm, heatbath=True), {}),
+        ("SW, field 0.25", tri, sw, dict(bias=0.25)),
+        ("SW, ELL, field -0.5", glass_edges(64), sw, dict(dense=False, bias=-0.5)),
+        ("annealing energies, default moves", tri, full, dict(energies=True)),
+    )
+    for name, edges, moves, kw in cases:
+        diff, es_equal, dense = _engine_case(dev, edges, 16, 12, moves, **kw)
+        check(diff == 0 and es_equal in (None, True), f"compare-classical {name}: {diff} differing spins and keys, "
+                                                       f"energies equal {es_equal}")
+        print(f"compare-classical: {name}: 16 replicas, 12 steps, {'dense' if dense else 'ELL'} path: card == CPU "
+              f"bit for bit (states, keys{', energies' if es_equal else ''})", flush=True)
+    differ, ties = full_width_step(dev)
+    print(f"compare-classical: one default step of the main path at full width ({TRI_L}^2, R={TRI_R}, beta 1.5, "
+          f"move by move): {differ} spins differ, {ties} of them at ties", flush=True)
+
+
+def _profile_call(fn, steps):
+    """(torch operations a step, device operations a step, idle share %, device
+    ms by kernel) over one call of ``fn`` (``steps`` steps) under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    ops = sum(1 for e in evs if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("aten::")
+              and e.cpu_parent is None)
+    dev_t = _device_times(prof, ("threefry_chain", "gemm", "sgemm"), everything=True)
+    if dev_t is None:
+        return ops / steps, None, None, None
+    per, busy, span = dev_t
+    return (ops / steps, sum(len(v) for v in per.values()) / steps, 100 * (1 - busy / span),
+            {k: float(np.sum(v)) / 1e3 for k, v in per.items()})
+
+
+def phase_main_classical(dev, smi):
+    """The annealing of BASELINE.json config 2 through Lattice, depth cut to
+    200 steps: steps/s, site-steps/s, the host's set-up, the key chain's
+    launch and time, torch operations and launches a step and the idle share;
+    checks the energies and the schedule. Returns the chain's launches."""
+    from pyisingmontecarlo_tpu_torch import Lattice
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+    from pyisingmontecarlo_tpu_torch.rng import threefry_chain_reference
+
+    n, T, R = TRI_L**2, TRI_T, TRI_R
+    lat = Lattice(triangular_edges(TRI_L, j=1.0), seed_gen=TRI_SEED, device=dev)
+    check(lat._torus is None, "the triangular lattice took the torus path")
+    sched = [(0, 0.1), (T, 3.0)]
+    t0 = time.perf_counter()
+    ga = lat._graph_arrays()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    es, st = lat.run_monte_carlo_annealing_and_get_energies(sched, T, R)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == counts_only(keychain=1), f"launch counts {counts}, want one threefry_chain launch only")
+    check(es.shape == (R, T) and st.shape == (R, n) and np.isfinite(es).all(), f"shapes {es.shape} {st.shape}")
+    s = torch.from_numpy(np.where(st, 1, -1).astype(np.int8)).to(dev)
+    again = ce.energy(ga, torch.zeros(n, device=dev), s).cpu().numpy().astype(np.float64)
+    check(np.array_equal(es[:, -1], again), "the last energy column != energy(states)")
+    first, last = es[:, : T // 10].mean() / n, es[:, -T // 10:].mean() / n
+    check(last < first - 0.3 and last < -0.8, f"<E>/site {first} at the start, {last} at the end")
+    print(f"main-classical: Lattice(triangular_edges({TRI_L}, j=1.0), seed_gen={TRI_SEED})."
+          f"run_monte_carlo_annealing_and_get_energies({sched}, {T}, {R}) (depth cut from {TRI_T_FULL}), on {smi}: "
+          f"dense int path ({len(ga.c_sites)} site colors, {len(ga.e_a)} strong edge classes, 1 worm a step), "
+          f"{counts['keychain']} threefry_chain launch; {wall:.3f} s host wall ({wall / T * 1e3:.3f} ms a step) = "
+          f"{T / wall:.2f} steps/s = "
+          f"{n * R * T / wall:.4g} site-steps/s; graph set-up {setup_s * 1e3:.1f} ms (colorings, ELL, dense planes, "
+          f"paid once a Lattice); <E>/site {first:.4f} over the first {T // 10} steps, {last:.4f} over the last",
+          flush=True)
+    steps = 20
+    lat.run_monte_carlo_annealing_and_get_energies(sched, steps, R)  # warm-up at the profiled length
+    t0 = time.perf_counter()
+    lat.run_monte_carlo_annealing_and_get_energies(sched, steps, R)
+    short = time.perf_counter() - t0
+    ops, launches, idle, per = _profile_call(lambda: lat.run_monte_carlo_annealing_and_get_energies(sched, steps, R),
+                                             steps)
+    dev_line = ("device time not measured (the profiler recorded none)" if per is None else
+                f"{launches:.1f} device operations a step, device idle {idle:.2f}% of the call; device ms by kernel "
+                + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per.items())))
+    t0 = time.perf_counter()
+    threefry_chain_reference(_keys(R, 1), tri_plan(), steps, n)
+    plain_chain = (time.perf_counter() - t0) * 1e3
+    print(f"main-classical: a {steps}-step call on {smi}: {short:.3f} s host wall ({steps / short:.2f} steps/s, "
+          f"{short / steps * 1e3:.3f} ms a step); under torch.profiler {ops:.1f} torch operations a step; {dev_line}; "
+          f"the numpy chain of these {steps} steps {plain_chain:.3f} ms", flush=True)
+    return counts["keychain"]
+
+
+def phase_main_classicising(dev, smi):
+    """ClassicIsing on the glass of benches/bench_classical_graph.py: each
+    move family's ms a step (the slope between 10- and 40-step calls, the
+    best of two each), and get_energies against the energies a sampling run
+    returned. Returns {size/family: ms a step}."""
+    from pyisingmontecarlo_tpu_torch import ClassicIsing
+
+    out = {}
+    for n in GLASS_NS:
+        ci = ClassicIsing(glass_edges(n), num_experiments=GLASS_R, seed=3, device=dev)
+        E = ci.cg.nedges
+        fams = {"spin": dict(nspinupdates=n, nedgeupdates=0, nwormupdates=0)}
+        if n <= 8192:
+            fams.update({"spin+edge": dict(nspinupdates=n, nedgeupdates=E, nwormupdates=0),
+                         "spin+worm": dict(nspinupdates=n, nedgeupdates=0, nwormupdates=1),
+                         "default": {}, "default+sw": {}})
+        reset_counts()
+        for fam, kw in fams.items():
+            ci.set_enable_cluster_updates(fam == "default+sw")
+            ci.run_monte_carlo(GLASS_BETA, 2, **kw)  # warm-up
+            wall = {}
+            for T in (10, 40, 10, 40):
+                t0 = time.perf_counter()
+                ci.run_monte_carlo(GLASS_BETA, T, **kw)
+                torch.cuda.synchronize()
+                wall.setdefault(T, []).append(time.perf_counter() - t0)
+            out[f"{n}/{fam}"] = (min(wall[40]) - min(wall[10])) / 30 * 1e3
+        counts = read_counts()
+        check(counts["keychain"] > 0 and counts["sq2d"] == 0, f"launch counts {counts}")
+        ci.set_enable_cluster_updates(False)
+        es, _ = ci.run_monte_carlo_sampling(GLASS_BETA, 4, sampling_freq=2, **fams["spin"])
+        check(np.array_equal(es[:, -1], ci.get_energies()), "get_energies != the sampling run's last energies")
+        e = ci.get_energies().mean() / n
+        check(-2.0 <= e < -0.9, f"<E>/site {e} on the glass at beta {GLASS_BETA}")
+        path = "dense" if ci._graph_arrays().A_hi is not None else "ELL"
+        print(f"main-classicising: ClassicIsing on the 4-regular +-J glass, n={n} ({path} path), R={GLASS_R}, "
+              f"beta={GLASS_BETA}, on {smi}: " + ", ".join(f"{fam} {out[f'{n}/{fam}']:.3f}" for fam in fams)
+              + f" ms a step; {counts['keychain']} threefry_chain launches; get_energies == the run's last "
+              f"energies; <E>/site {e:.4f}", flush=True)
+    return out
+
+
+def exact_classical(edges, h, beta):
+    """<E> of H = sum J s_a s_b + h sum s by enumeration of every state."""
+    import itertools
+
+    n = max(max(a, b) for (a, b), _ in edges) + 1
+    s = np.array(list(itertools.product((-1, 1), repeat=n)), np.float64)
+    e = sum(j * s[:, a] * s[:, b] for (a, b), j in edges) + h * s.sum(1)
+    w = np.exp(-beta * (e - e.min()))
+    return float((w * e).sum() / w.sum())
+
+
+def phase_physics_classical(dev):
+    """<E> on the card against exact enumeration, within 4 se: a frustrated
+    10-site graph with a field, through Lattice (default moves, then with
+    cluster updates) and through ClassicIsing."""
+    from pyisingmontecarlo_tpu_torch import ClassicIsing, Lattice
+
+    rng = np.random.default_rng(12)
+    edges = [((i, (i + 1) % 10), 1.0) for i in range(10)] + [((i, (i + 3) % 10), float(rng.choice([-1.0, 0.5])))
+                                                             for i in range(0, 10, 2)]
+    h, beta = 0.25, 0.8
+    exact = exact_classical(edges, h, beta)
+    out = []
+    for name, cluster in (("Lattice", False), ("Lattice, clusters", True)):
+        lat = Lattice(edges, seed_gen=5, device=dev)
+        lat.set_global_bias(h)
+        lat.set_enable_cluster_updates(cluster)
+        es, _ = lat.run_monte_carlo_sampling(beta, 100, 256, thermalization_time=50, sampling_freq=4)
+        m, se = es.mean(), es.mean(1).std(ddof=1) / np.sqrt(es.shape[0])
+        check(abs(m - exact) < 4 * se, f"physics-classical {name}: <E> {m} vs exact {exact}, se {se}")
+        out.append(f"{name} {m:.4f} (se {se:.4f})")
+    ci = ClassicIsing(edges, longitudinal=h, num_experiments=256, seed=6, device=dev)
+    es, _ = ci.run_monte_carlo_sampling(beta, 100, thermalization_time=50, sampling_freq=4)
+    m, se = es.mean(), es.mean(1).std(ddof=1) / np.sqrt(es.shape[0])
+    check(abs(m - exact) < 4 * se, f"physics-classical ClassicIsing: <E> {m} vs exact {exact}, se {se}")
+    out.append(f"ClassicIsing {m:.4f} (se {se:.4f})")
+    print(f"physics-classical: 10-site frustrated graph, h={h}, beta={beta}: exact <E> {exact:.4f}; "
+          + "; ".join(out), flush=True)
+
+
 def main():
     smi = phase_gpu()
     dev = torch.device("cuda", 0)
@@ -1450,6 +1940,11 @@ def main():
     ladder_launches = phase_main_tempering_wide(dev)
     phase_physics_tempering(dev)
     ladder_t = phase_timing_ladder(dev, smi)
+    chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = phase_compare_keychain(dev, smi)
+    phase_compare_classical(dev)
+    chain_launches = phase_main_classical(dev, smi)
+    phase_main_classicising(dev, smi)
+    phase_physics_classical(dev)
     sites = BENCH_R * BENCH_L**2
     sq_bound, sq_by = bound(2 * sites / 1024, SQ2D_OPS_PER_SITE * sites)  # per sweep of a 1024-sweep call
     wl_src, wl_tpu = "pyisingmontecarlo_tpu_torch/csrc/wl.cu", "pyisingmontecarlo_tpu/ops/wl_pallas.py"
@@ -1479,6 +1974,11 @@ def main():
              launches=chain_launches, max_abs_err=wl_errs["resident"], **timed(wl_t["chain/resident"])),
         dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_res_launches, max_abs_err=ladder_res_err, **timed(ladder_t["resident"])),
+        dict(name="threefry_chain", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
+             replaces="pyisingmontecarlo_tpu/engines/classical.py:675 (the XLA split_keys chain of time_step; "
+                      "no Pallas kernel)",
+             launches=chain_launches, max_abs_err=chain_err, ms=chain_ms, plain_ms=chain_plain_ms,
+             bound_ms=chain_bound_ms, bound_by=chain_by, library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1494,7 +1994,7 @@ def rates():
     main-tempering takes it), the chain's sampling call (min of two), and the
     256^2 torus's site updates/s as benches/bench_qmc_large.py takes them
     (the slope between min-of-two runs of run_quantum_monte_carlo(2.0, t, 8)
-    at t = 200 and 800)."""
+    at t = 200 and 800); then ``classical_rates``."""
     from pyisingmontecarlo_tpu_torch import Lattice, __file__ as pkg
     from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
 
@@ -1542,7 +2042,43 @@ def rates():
     print(json.dumps({"package": str(Path(pkg).parent.parent), "bench_flips_per_ns": flips, "bench_runs_s": bench,
                       "tempering_sweeps_per_s": slope,
                       "tempering_runs_s": wall, "chain_sampling_call_s": min(chain), "chain_runs_s": chain,
-                      "torus_site_updates_per_s": updates, "torus_runs_s": torus}), flush=True)
+                      "torus_site_updates_per_s": updates, "torus_runs_s": torus, **classical_rates(dev)}),
+          flush=True)
+
+
+def classical_rates(dev):
+    """The classical graph path's end-to-end numbers: the triangular
+    annealing's site-steps/s (main-classical's call, a warm-up and the best
+    of two), and ms a step of ClassicIsing's default moves on the n = 4096
+    glass and of its spin family on the n = 16384 glass (the slope between
+    10- and 40-step calls). None where the package has no graph engine."""
+    try:
+        from pyisingmontecarlo_tpu_torch import ClassicIsing, Lattice
+        from pyisingmontecarlo_tpu_torch.models import triangular_edges
+
+        lat = Lattice(triangular_edges(TRI_L, j=1.0), seed_gen=TRI_SEED, device=dev)
+        lat.run_monte_carlo_annealing_and_get_energies([(0, 0.1), (TRI_T, 3.0)], TRI_T, TRI_R)
+    except (ImportError, NotImplementedError):
+        return {"triangular_site_steps_per_s": None, "glass_default_ms_per_step": None,
+                "glass_ell_spin_ms_per_step": None}
+    tri = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        lat.run_monte_carlo_annealing_and_get_energies([(0, 0.1), (TRI_T, 3.0)], TRI_T, TRI_R)
+        tri.append(time.perf_counter() - t0)
+    glass = {}
+    for n, kw in ((GLASS_NS[0], {}), (GLASS_NS[1], dict(nedgeupdates=0, nwormupdates=0))):
+        ci = ClassicIsing(glass_edges(n), num_experiments=GLASS_R, seed=3, device=dev)
+        ci.run_monte_carlo(GLASS_BETA, 2, **kw)
+        wall = {}
+        for T in (10, 40):
+            t0 = time.perf_counter()
+            ci.run_monte_carlo(GLASS_BETA, T, **kw)
+            torch.cuda.synchronize()
+            wall[T] = time.perf_counter() - t0
+        glass[n] = (wall[40] - wall[10]) / 30 * 1e3
+    return {"triangular_site_steps_per_s": TRI_L**2 * TRI_R * TRI_T / min(tri), "triangular_runs_s": tri,
+            "glass_default_ms_per_step": glass[GLASS_NS[0]], "glass_ell_spin_ms_per_step": glass[GLASS_NS[1]]}
 
 
 def ab(other, pairs=10):
@@ -1561,7 +2097,11 @@ def ab(other, pairs=10):
             runs[side].append(json.loads(line))
             print(f"ab on {smi}: {line}", flush=True)
     for key, higher in (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
-                        ("torus_site_updates_per_s", True)):
+                        ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),
+                        ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False)):
+        if any(r.get(key) is None for side in runs.values() for r in side):
+            print(f"ab on {smi}: {key}: not measured on both sides", flush=True)
+            continue
         a, b = (np.array([r[key] for r in runs[side]]) for side in ("other", "this"))
         won = int(((b > a) if higher else (b < a)).sum())
         print(f"ab on {smi}: {key}: {Path(other).resolve()} median {np.median(a)} (quartiles "

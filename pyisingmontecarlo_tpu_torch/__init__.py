@@ -2,23 +2,24 @@
 
 The second package beside ``pyisingmontecarlo_tpu`` (the JAX reference): the
 same names, on torch, with hand-written CUDA kernels for Hopper (``csrc/``).
-It never imports jax. Ported so far, on :class:`Lattice`: the classical
-methods on the uniform periodic square lattice (``ops/sq2d.py``), and the
-quantum (transverse-field) methods on a uniform periodic ring or square torus
-(``engines/worldline.py`` on ``ops/wl.py``); :class:`LatticeTempering` on
-ring and torus ladders (``ops/ladder.py``). The other public classes of the
-JAX package are listed in ROADMAP.md as still to port.
+It never imports jax. Ported so far: :class:`Lattice`'s classical methods
+on any graph (the square-torus kernel of ``ops/sq2d.py``, else the graph
+engine of ``engines/classical.py``) and its quantum (transverse-field)
+methods on a uniform periodic ring or square torus (``engines/worldline.py``
+on ``ops/wl.py``); :class:`ClassicIsing`; :class:`LatticeTempering` on ring
+and torus ladders (``ops/ladder.py``). The other public classes of the JAX
+package are listed in ROADMAP.md as still to port.
 """
 
+from .classicising import ClassicIsing
 from .lattice import Lattice
 from .tempering import LatticeTempering
 
 __version__ = "0.1.0"
 
-__all__ = ["Lattice", "LatticeTempering"]
+__all__ = ["Lattice", "ClassicIsing", "LatticeTempering"]
 
 _NOT_PORTED = {
-    "ClassicIsing": "item 4",
     "QmcIsing": "item 5",
     "QmcRunner": "item 7",
 }

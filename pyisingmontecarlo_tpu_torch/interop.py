@@ -6,7 +6,8 @@ state, flags and dtau, and the state of its master seed stream, so that both
 objects then draw identical u64 seeds. ``worldline_from_arrays`` builds a
 worldline ensemble from a JAX ensemble's state and key data, handed over as
 numpy arrays. ``tempering_from_reference`` does both for a
-``pyisingmontecarlo_tpu.LatticeTempering``.
+``pyisingmontecarlo_tpu.LatticeTempering``, and ``classicising_from_reference``
+for a ``pyisingmontecarlo_tpu.ClassicIsing``.
 """
 
 from __future__ import annotations
@@ -16,13 +17,14 @@ import copy
 import numpy as np
 import torch
 
+from .classicising import ClassicIsing
 from .engines.worldline import WorldlineEnsemble
 from .graph import compile_graph, grid_2d_edges
 from .lattice import Lattice, resolve_device
 from .tempering import LatticeTempering
 
-__all__ = ["lattice_from_reference", "worldline_from_arrays", "tempering_from_reference", "state_to_torch",
-           "state_to_numpy"]
+__all__ = ["lattice_from_reference", "worldline_from_arrays", "tempering_from_reference",
+           "classicising_from_reference", "state_to_torch", "state_to_numpy"]
 
 
 def lattice_from_reference(obj, device="cuda") -> Lattice:
@@ -86,6 +88,26 @@ def tempering_from_reference(obj, device="cuda", state=None) -> LatticeTempering
     m["key_data"] = np.asarray(state["key_data"], np.uint32).reshape(-1, 2)
     m["phase"] = int(state["phase"])
     return lt
+
+
+def classicising_from_reference(obj, key_data, device="cuda") -> ClassicIsing:
+    """A port ``ClassicIsing`` in the state of ``obj``: its edges, field, move
+    settings, importance flags and master seed stream, its spins, and its
+    keys as ``key_data`` ``[R, 2]`` uint32 (``jax.random.key_data(obj._keys)``,
+    which the caller reads, as this module imports no jax). Both then run
+    identically."""
+    ci = ClassicIsing(obj.edges, longitudinal=obj.longitudinal, num_experiments=0, seed=obj.rng.seed_gen,
+                      use_basic_moves=obj.use_basic_moves, device=device)
+    ci.rng._gen.bit_generator.state = obj.rng._gen.bit_generator.state
+    ci.enable_cluster = bool(obj.enable_cluster)
+    ci._imp_flags = [bool(f) for f in obj._imp_flags]
+    spins = np.array(obj._spins, dtype=np.int8).reshape(-1, ci.nvars)
+    kd = np.asarray(key_data, np.uint32).reshape(-1, 2)
+    if not len(spins) == len(kd) == len(ci._imp_flags):
+        raise ValueError(f"{len(spins)} states, {len(kd)} keys and {len(ci._imp_flags)} flags")
+    ci._spins = torch.from_numpy(spins).to(ci.device)
+    ci._keys = kd.copy()
+    return ci
 
 
 def state_to_torch(np_state, device="cpu") -> torch.Tensor:

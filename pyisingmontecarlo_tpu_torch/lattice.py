@@ -1,15 +1,18 @@
 """``Lattice`` — the stateless launcher class, on torch.
 
 Counterpart of ``pyisingmontecarlo_tpu/lattice.py``: the same constructor,
-setters and methods, returning the same numpy types. Ported so far:
+setters and methods, returning the same numpy types. Ported:
 
-- the classical methods on the uniform periodic square lattice with a global
-  bias (the JAX package's ``_fast2d`` dispatch), on the sweep kernel of
-  ``ops/sq2d.py``;
+- the four classical methods: on the uniform periodic square lattice with a
+  global bias and single-spin updates (the JAX package's ``_fast2d``
+  dispatch) on the sweep kernel of ``ops/sq2d.py``; on any other graph, or
+  with individual biases, heat-bath or cluster updates, on the graph engine
+  of ``engines/classical.py`` (bit for bit the JAX package's on the CPU,
+  wherever couplings and biases are integer or dyadic);
 - the quantum (transverse-field) methods on a uniform periodic ring or square
-  torus, on the worldline kernel of ``ops/wl.py`` (``engines/worldline.py``).
-
-Every other branch raises ``NotImplementedError`` naming its item of ROADMAP.md.
+  torus, on the worldline kernel of ``ops/wl.py`` (``engines/worldline.py``);
+  other quantum branches raise ``NotImplementedError`` naming their item of
+  ROADMAP.md.
 
 The device is explicit: ``device="cuda"`` (the default) runs the kernel and
 raises where there is no CUDA; ``device="cpu"`` runs the kernel's plain version.
@@ -23,17 +26,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .engines import classical as ce
 from .graph import compile_graph, detect_square_torus
 from .ops import lattice2d as l2d
-from .rng import MasterRng, key_data_from_seeds, replica_seeds_i32
+from .rng import MasterRng, key_data_from_seeds, key_tensor, replica_seeds_i32
 
 __all__ = ["Lattice", "resolve_device"]
-
-_CLASSICAL_ITEM = "ROADMAP.md, modules to port, item 4 (engines/classical.py)"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to torch yet: {item}")
 
 
 def resolve_device(device) -> torch.device:
@@ -79,6 +77,7 @@ class Lattice:
         self.enable_rvb = False
         self.enable_heatbath = False
         self.enable_cluster = False
+        self._ga = None  # the graph engine's tensors, built at first use
         # (L, J) for a uniform-J periodic square lattice, else None
         self._torus = detect_square_torus(self.cg)
 
@@ -148,8 +147,9 @@ class Lattice:
     # ------------------------------------------------------------- internals
 
     def _fast2d(self) -> bool:
-        """The uniform square torus with a global bias and single-spin updates:
-        the only classical path ported so far."""
+        """The uniform square torus with a global bias and single-spin
+        updates, which runs the torus kernel; everything else runs the graph
+        engine."""
         return (
             self._torus is not None
             and self.bias[0] == "global"
@@ -159,12 +159,6 @@ class Lattice:
 
     def _torus_args(self, num_experiments: int):
         """Fresh per-experiment seeds and initial states, and (J, h)."""
-        self._check_classical()
-        if not self._fast2d():
-            raise _not_ported(
-                "Classical runs other than single-spin updates on a uniform periodic "
-                "square lattice with a global bias", _CLASSICAL_ITEM,
-            )
         L, J = self._torus
         n = int(num_experiments)
         seeds = torch.from_numpy(replica_seeds_i32(self.rng.make_seeds(n))).to(self.device)
@@ -174,6 +168,43 @@ class Lattice:
         else:
             s0 = l2d.random_states_2d(seeds, L)
         return s0, seeds, J, float(self.bias[1])
+
+    def _graph_arrays(self):
+        if self._ga is None:
+            self._ga = ce.device_graph_sorted(self.cg, device=self.device)
+        return self._ga
+
+    def _bias_vector(self) -> np.ndarray:
+        if self.bias[0] == "global":
+            return np.full(self.nvars, float(self.bias[1]), dtype=np.float64)
+        return np.asarray(self.bias[1], dtype=np.float64)
+
+    def _classical_setup(self, num_experiments: int):
+        """The graph engine's tensors, the f32 bias, and fresh per-experiment
+        keys and initial states (``[R, nvars]`` int8)."""
+        n = int(num_experiments)
+        key_data = key_data_from_seeds(self.rng.make_seeds(n))
+        if self.initial_state is not None:
+            s0 = torch.from_numpy(np.where(self.initial_state, 1, -1).astype(np.int8))
+            s0 = s0[None].to(self.device).expand(n, self.nvars).contiguous()
+        else:
+            s0 = ce.random_states(key_data, self.nvars, self.device)
+        bias = torch.from_numpy(self._bias_vector().astype(np.float32)).to(self.device)
+        return self._graph_arrays(), bias, s0, key_tensor(key_data, self.device)
+
+    def _move_args(self, only_basic_moves, importance=None):
+        only_basic = bool(only_basic_moves) if only_basic_moves is not None else False
+        return dict(
+            nspin_sweeps=1,
+            nedge_sweeps=0 if only_basic else 1,
+            nworms=0 if only_basic else 1,
+            only_basic=only_basic,
+            heatbath=self.enable_heatbath,
+            wlen=min(self.nvars, ce.DEFAULT_WLEN),
+            nclusters=1 if (self.enable_cluster and not only_basic) else 0,
+            # importance-sampled edge attempts, probability |J_e| / max |J| (ce.importance_weights)
+            iw=ce.importance_weights(self.cg, self.device) if (importance and not only_basic) else None,
+        )
 
     def _check_classical(self):
         """Classical runs reject a set transverse field."""
@@ -205,9 +236,17 @@ class Lattice:
     ):
         """-> (energies[n] f64, states[n, nvars] bool). The move flags are
         no-ops on the torus (single-spin updates, uniform weights)."""
-        s0, seeds, J, h = self._torus_args(num_experiments)
-        s = l2d.run_steps_2d(s0, seeds, np.full(int(timesteps), beta, np.float32), J, h)
-        es = l2d.energy_2d(s, J, h)
+        self._check_classical()
+        beta_arr = np.full(int(timesteps), beta, np.float32)
+        if self._fast2d():
+            s0, seeds, J, h = self._torus_args(num_experiments)
+            s = l2d.run_steps_2d(s0, seeds, beta_arr, J, h)
+            es = l2d.energy_2d(s, J, h)
+            return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
+        ga, bias, s0, keys = self._classical_setup(num_experiments)
+        s, _ = ce.run_steps_chunked(ga, bias, s0, keys, beta_arr,
+                                    **self._move_args(only_basic_moves, edge_move_importance_sampling))
+        es = ce.energy(ga, bias, s)
         return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
 
     def run_monte_carlo_sampling(
@@ -221,14 +260,22 @@ class Lattice:
         edge_move_importance_sampling: Optional[bool] = None,
     ):
         """-> (energies[n, t/freq] f64, states[n, t/freq, nvars] bool)."""
-        s0, seeds, J, h = self._torus_args(num_experiments)
+        self._check_classical()
         therm = int(thermalization_time or 0)
         freq = int(sampling_freq) if sampling_freq else 1
+        if self._fast2d():
+            s0, seeds, J, h = self._torus_args(num_experiments)
+            if therm:
+                s0 = l2d.run_steps_2d(s0, seeds, np.full(therm, beta, np.float32), J, h)
+            # the sampling sweeps continue the thermalization's counter stream
+            _, es, ss = l2d.run_sampling_2d(s0, seeds, float(beta), J, h, int(timesteps), freq, ctr0=therm)
+            return es.cpu().numpy().astype(np.float64), self._states(ss, *ss.shape[:2])
+        ga, bias, s0, keys = self._classical_setup(num_experiments)
+        margs = self._move_args(only_basic_moves, edge_move_importance_sampling)
         if therm:
-            s0 = l2d.run_steps_2d(s0, seeds, np.full(therm, beta, np.float32), J, h)
-        # the sampling sweeps continue the thermalization's counter stream
-        _, es, ss = l2d.run_sampling_2d(s0, seeds, float(beta), J, h, int(timesteps), freq, ctr0=therm)
-        return es.cpu().numpy().astype(np.float64), self._states(ss, *ss.shape[:2])
+            s0, keys = ce.run_steps_chunked(ga, bias, s0, keys, np.full(therm, beta, np.float32), **margs)
+        _, _, es, ss = ce.run_sampling(ga, bias, s0, keys, float(np.float32(beta)), int(timesteps), freq, **margs)
+        return es.cpu().numpy().astype(np.float64), (ss == 1).cpu().numpy()
 
     def run_monte_carlo_annealing(
         self,
@@ -239,10 +286,17 @@ class Lattice:
         edge_move_importance_sampling: Optional[bool] = None,
     ):
         """-> (energies[n] f64, states[n, nvars] bool)."""
-        s0, seeds, J, h = self._torus_args(num_experiments)
+        self._check_classical()
         beta_arr = self._anneal_schedule(betas, int(timesteps)).astype(np.float32)
-        s = l2d.run_steps_2d(s0, seeds, beta_arr, J, h)
-        es = l2d.energy_2d(s, J, h)
+        if self._fast2d():
+            s0, seeds, J, h = self._torus_args(num_experiments)
+            s = l2d.run_steps_2d(s0, seeds, beta_arr, J, h)
+            es = l2d.energy_2d(s, J, h)
+            return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
+        ga, bias, s0, keys = self._classical_setup(num_experiments)
+        s, _ = ce.run_steps_chunked(ga, bias, s0, keys, beta_arr,
+                                    **self._move_args(only_basic_moves, edge_move_importance_sampling))
+        es = ce.energy(ga, bias, s)
         return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
 
     def run_monte_carlo_annealing_and_get_energies(
@@ -254,9 +308,15 @@ class Lattice:
         edge_move_importance_sampling: Optional[bool] = None,
     ):
         """-> (energies[n, timesteps] f64, states[n, nvars] bool)."""
-        s0, seeds, J, h = self._torus_args(num_experiments)
+        self._check_classical()
         beta_arr = self._anneal_schedule(betas, int(timesteps)).astype(np.float32)
-        s, es = l2d.run_steps_2d(s0, seeds, beta_arr, J, h, collect_energies=True)
+        if self._fast2d():
+            s0, seeds, J, h = self._torus_args(num_experiments)
+            s, es = l2d.run_steps_2d(s0, seeds, beta_arr, J, h, collect_energies=True)
+            return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
+        ga, bias, s0, keys = self._classical_setup(num_experiments)
+        s, _, es = ce.run_steps_chunked(ga, bias, s0, keys, beta_arr, collect_energies=True,
+                                        **self._move_args(only_basic_moves, edge_move_importance_sampling))
         return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
 
     # ---------------------------------------------------------- quantum runs

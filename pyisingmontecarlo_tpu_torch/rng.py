@@ -10,6 +10,12 @@ replica's stream from one call to the next), ``bernoulli(key, 0.5, (n,))``
 ``[R]``-sized host operations done once per call. All further randomness is
 the counter hash of ``ops/lanerng.py``.
 
+The classical graph engine splits each replica's key once for every move of
+every time step. ``threefry_chain`` walks that chain for a whole call: on a
+CUDA tensor in one launch of the kernel of ``csrc/keychain.cu`` (one thread a
+replica), on a CPU tensor in its plain numpy version
+``threefry_chain_reference``; both write the same tables bit for bit.
+
 Threefry2x32 is the 20-round Threefish-derived block function with the key
 schedule ``(k0, k1, k0 ^ k1 ^ 0x1BD11BDA)``. Under jax's partitionable mode
 (the default of the JAX version the package is held against), the i-th 32-bit
@@ -21,9 +27,10 @@ function at counter ``(0, i)``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 __all__ = [
     "MasterRng",
@@ -36,6 +43,15 @@ __all__ = [
     "random_states",
     "seeds_from_key_data",
     "replica_seeds_i32",
+    "randint",
+    "KEY_PLAIN",
+    "KEY_WORM",
+    "KEY_CLUSTER",
+    "chain_columns",
+    "threefry_chain",
+    "threefry_chain_reference",
+    "key_tensor",
+    "key_data_of",
 ]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -156,3 +172,122 @@ def replica_seeds_i32(seeds_u64) -> np.ndarray:
     """uint64[n] experiment seeds -> int32[n] kernel seeds: the JAX package's
     ``_pallas_seeds(keys_from_seeds(seeds))``, bit for bit."""
     return seeds_from_key_data(key_data_from_seeds(seeds_u64))
+
+
+def randint(key_data: np.ndarray, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, (), 0, maxval)`` (int32) for every key of
+    ``[R, 2]`` key data -> int32[R], jax's algorithm bit for bit: the key is
+    split in two, 32 random bits drawn from each half, and with ``span =
+    maxval`` (1 where ``maxval <= 0``) and ``m = ((2^16 % span)^2) % span`` in
+    uint32 arithmetic (so m = 0 for span > 2^16), the value is
+    ``((hi % span) * m + lo % span) % span``, every step wrapping mod 2^32."""
+    k1, k2 = split_all(key_data)
+    hi = random_bits(k1, 1)[:, 0].astype(np.uint64)
+    lo = random_bits(k2, 1)[:, 0].astype(np.uint64)
+    span = np.uint64(int(maxval) if int(maxval) > 0 else 1)
+    m32 = np.uint64(0xFFFFFFFF)
+    mult = np.uint64(1 << 16) % span
+    mult = (mult * mult & m32) % span
+    off = (((hi % span) * mult & m32) + lo % span & m32) % span
+    return off.astype(np.int32)
+
+
+# the moves of a time step, in the order they split the replica's key
+KEY_PLAIN, KEY_WORM, KEY_CLUSTER = 0, 1, 2
+_COLUMNS = {KEY_PLAIN: 1, KEY_WORM: 1, KEY_CLUSTER: 3}
+
+
+def chain_columns(kinds: Sequence[int]):
+    """``(C, W)``: the lane seeds and the worm start sites a step of this plan writes."""
+    return sum(_COLUMNS[int(k)] for k in kinds), sum(int(k) == KEY_WORM for k in kinds)
+
+
+def threefry_chain_reference(key_data: np.ndarray, kinds: Sequence[int], T: int, nvars: int):
+    """The key chain of ``T`` time steps of the plan ``kinds``, in numpy.
+
+    Each slot takes ``keys, sub = split(keys)``; then a KEY_PLAIN slot writes
+    the lane seed of ``sub`` (``seeds_from_key_data``); a KEY_WORM slot
+    ``ku, k0 = split(sub)`` and writes the lane seed of ``ku`` and the start
+    site ``randint(k0, nvars)``; a KEY_CLUSTER slot ``k1, k_e = split(sub)``,
+    ``k2, k_g = split(k1)``, ``_, k_f = split(k2)`` and writes the lane seeds
+    of ``k_e``, ``k_g``, ``k_f``, in that order. Returns ``(seeds [T, C, R]
+    int32, v0 [T, W, R] int32, key_data [R, 2] uint32)`` with the keys
+    advanced past the ``T`` steps: the JAX package's ``time_step`` splits, bit
+    for bit."""
+    kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
+    R = kd.shape[0]
+    C, W = chain_columns(kinds)
+    seeds = np.empty((T, C, R), np.int32)
+    v0 = np.empty((T, W, R), np.int32)
+    for t in range(T):
+        col = w = 0
+        for kind in kinds:
+            kd, sub = split_all(kd)
+            if kind == KEY_PLAIN:
+                seeds[t, col] = seeds_from_key_data(sub)
+            elif kind == KEY_WORM:
+                ku, k0 = split_all(sub)
+                seeds[t, col] = seeds_from_key_data(ku)
+                v0[t, w] = randint(k0, nvars)
+                w += 1
+            else:
+                k1, k_e = split_all(sub)
+                k2, k_g = split_all(k1)
+                _, k_f = split_all(k2)
+                seeds[t, col:col + 3] = np.stack([seeds_from_key_data(k) for k in (k_e, k_g, k_f)])
+            col += _COLUMNS[kind]
+    return seeds, v0, kd
+
+
+def key_tensor(key_data: np.ndarray, device) -> torch.Tensor:
+    """``[R, 2]`` uint32 key data -> an int32 tensor of the same bits on ``device``."""
+    kd = np.ascontiguousarray(np.asarray(key_data, dtype=np.uint32).reshape(-1, 2))
+    return torch.from_numpy(kd.view(np.int32).copy()).to(device)
+
+
+def key_data_of(keys: torch.Tensor) -> np.ndarray:
+    """The inverse of ``key_tensor``: ``[R, 2]`` uint32 key data on the host."""
+    return keys.detach().cpu().numpy().astype(np.int32).view(np.uint32).reshape(-1, 2)
+
+
+def threefry_chain(keys: torch.Tensor, kinds: Sequence[int], T: int, nvars: int):
+    """``threefry_chain_reference`` on an ``[R, 2]`` int32 key tensor (the bits
+    of ``key_tensor``), returning tensors on its device: ``(seeds [T, C, R],
+    v0 [T, W, R], keys [R, 2])``.
+
+    A CUDA tensor launches ``threefry_chain`` of ``csrc/keychain.cu`` once
+    (counted in ``threefry_chain.launches``; nothing is launched when the
+    chain is empty) or raises; a CPU tensor runs the numpy version."""
+    kinds = [int(k) for k in kinds]
+    if any(k not in _COLUMNS for k in kinds):
+        raise ValueError(f"unknown slot kinds in {kinds}")
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int32:
+        raise ValueError(f"keys must be [R, 2] int32, got {tuple(keys.shape)} {keys.dtype}")
+    if keys.device.type != "cuda":
+        seeds, v0, kd = threefry_chain_reference(key_data_of(keys), kinds, int(T), nvars)
+        return torch.from_numpy(seeds), torch.from_numpy(v0), key_tensor(kd, keys.device)
+    R, T = keys.shape[0], int(T)
+    C, W = chain_columns(kinds)
+    dev = keys.device
+    seeds = torch.empty((T, C, R), dtype=torch.int32, device=dev)
+    v0 = torch.empty((T, W, R), dtype=torch.int32, device=dev)
+    if R == 0 or T == 0 or not kinds:
+        return seeds, v0, keys.clone()
+    if not 0 < nvars < 2**31:
+        raise ValueError(f"nvars must be in [1, 2^31), got {nvars}")
+    from . import _kernels
+
+    keys_in = keys.contiguous()
+    out = torch.empty_like(keys_in)
+    plan = torch.tensor(kinds, dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernels.load().threefry_chain(
+            keys_in.data_ptr(), out.data_ptr(), plan.data_ptr(), len(kinds), T, C, W, int(nvars), R,
+            seeds.data_ptr(), v0.data_ptr() if W else None, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"threefry_chain launch failed: {_kernels.error_string(err)} ({err})")
+    threefry_chain.launches += 1
+    return seeds, v0, out
+
+
+threefry_chain.launches = 0

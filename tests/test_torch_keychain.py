@@ -1,0 +1,134 @@
+"""The classical engine's key chain against jax: ``rng.randint`` against
+``jax.random.randint`` (maxval 1 to 10^5 and beyond 2^16, where jax's
+multiplier wraps to 0), the lane seeds against ``lanerng.replica_seeds_from_keys``,
+and ``threefry_chain_reference`` against the JAX engine's own splits
+(``rng.split_keys`` per slot, then the worm's and the cluster update's) for
+plans of every slot kind (tolerance: none). The CUDA kernel is held to the
+same numpy version on the card by chip_smoke.py's compare-keychain."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from pyisingmontecarlo_tpu.ops import lanerng as jlanerng
+from pyisingmontecarlo_tpu.rng import keys_from_seeds, split_keys
+from pyisingmontecarlo_tpu_torch import rng
+
+torch.set_num_threads(1)
+
+
+def _seeds(R, seed):
+    return np.random.default_rng(seed).integers(0, 2**64, R, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("maxval", [1, 2, 3, 7, 36, 100, 2304, 4096, 65535, 65536, 65537, 100000, 2**20 + 3, 0])
+def test_randint_equals_jax(maxval):
+    u64 = _seeds(64, maxval + 1)
+    want = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (), 0, maxval))(keys_from_seeds(u64)))
+    np.testing.assert_array_equal(rng.randint(rng.key_data_from_seeds(u64), maxval), want)
+
+
+def test_randint_covers_one_to_1e5():
+    """Every maxval in a sweep from 1 to 10^5, one key each."""
+    maxvals = np.unique(np.geomspace(1, 100000, 60).astype(int))
+    u64 = _seeds(len(maxvals), 3)
+    keys = keys_from_seeds(u64)
+    kd = rng.key_data_from_seeds(u64)
+    for i, m in enumerate(maxvals):
+        want = int(jax.random.randint(keys[i], (), 0, int(m)))
+        assert int(rng.randint(kd[i:i + 1], int(m))[0]) == want, m
+
+
+def test_lane_seeds_equal_replica_seeds_from_keys():
+    u64 = _seeds(50, 4)
+    keys = keys_from_seeds(u64)
+    for _ in range(3):
+        keys, sub = split_keys(keys)
+    kd = rng.key_data_from_seeds(u64)
+    for _ in range(3):
+        kd, ksub = rng.split_all(kd)
+    np.testing.assert_array_equal(rng.seeds_from_key_data(ksub),
+                                  np.asarray(jlanerng.replica_seeds_from_keys(sub)))
+
+
+def _jax_chain(u64, kinds, T, nvars):
+    """The JAX engine's splits of T steps of the plan: (seeds, v0, key data)."""
+    keys = keys_from_seeds(u64)
+    seeds, v0 = [], []
+    for _ in range(T):
+        row, worms = [], []
+        for kind in kinds:
+            keys, sub = split_keys(keys)
+            if kind == rng.KEY_PLAIN:
+                row.append(jlanerng.replica_seeds_from_keys(sub))
+            elif kind == rng.KEY_WORM:
+                ku, k0 = split_keys(sub)  # engines/classical._worm_walk
+                row.append(jlanerng.replica_seeds_from_keys(ku))
+                worms.append(jax.vmap(lambda k: jax.random.randint(k, (), 0, nvars))(k0))
+            else:
+                k1, k_e = split_keys(sub)  # engines/classical.sw_cluster_update
+                k2, k_g = split_keys(k1)
+                _, k_f = split_keys(k2)
+                row += [jlanerng.replica_seeds_from_keys(k) for k in (k_e, k_g, k_f)]
+        seeds.append(np.stack([np.asarray(x) for x in row]) if row else np.zeros((0, len(u64)), np.int32))
+        v0.append(np.stack([np.asarray(x) for x in worms]) if worms else np.zeros((0, len(u64)), np.int32))
+    return np.stack(seeds), np.stack(v0), np.asarray(jax.random.key_data(keys))
+
+
+@pytest.mark.parametrize("kinds,T,R,nvars", [
+    ([0, 0, 0, 0, 1], 3, 5, 36),
+    ([0, 1, 2, 0], 2, 4, 100003),
+    ([2, 2, 1, 1], 2, 3, 70000),
+    ([1], 4, 1, 1),
+    ([], 3, 4, 10),
+])
+def test_chain_equals_jax_splits(kinds, T, R, nvars):
+    u64 = _seeds(R, T + R)
+    want = _jax_chain(u64, kinds, T, nvars)
+    got = rng.threefry_chain_reference(rng.key_data_from_seeds(u64), kinds, T, nvars)
+    assert rng.chain_columns(kinds) == (got[0].shape[1], got[1].shape[1])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.astype(g.dtype))
+
+
+def test_chain_continues_across_pieces():
+    """Two calls of T1 and T2 steps give the tables of one call of T1 + T2."""
+    kd = rng.key_data_from_seeds(_seeds(6, 1))
+    kinds = [0, 1, 0, 2]
+    whole = rng.threefry_chain_reference(kd, kinds, 5, 50)
+    a = rng.threefry_chain_reference(kd, kinds, 2, 50)
+    b = rng.threefry_chain_reference(a[2], kinds, 3, 50)
+    np.testing.assert_array_equal(np.concatenate([a[0], b[0]]), whole[0])
+    np.testing.assert_array_equal(np.concatenate([a[1], b[1]]), whole[1])
+    np.testing.assert_array_equal(b[2], whole[2])
+
+
+def test_wrapper_on_cpu_tensor_launches_nothing():
+    kd = rng.key_data_from_seeds(_seeds(7, 2))
+    rng.threefry_chain.launches = 0
+    seeds, v0, keys = rng.threefry_chain(rng.key_tensor(kd, "cpu"), [0, 1, 2], 4, 33)
+    assert rng.threefry_chain.launches == 0
+    want = rng.threefry_chain_reference(kd, [0, 1, 2], 4, 33)
+    np.testing.assert_array_equal(seeds.numpy(), want[0])
+    np.testing.assert_array_equal(v0.numpy(), want[1])
+    np.testing.assert_array_equal(rng.key_data_of(keys), want[2])
+    assert seeds.dtype == v0.dtype == keys.dtype == torch.int32
+
+
+def test_wrapper_checks_its_inputs():
+    kd = rng.key_tensor(rng.key_data_from_seeds(_seeds(3, 2)), "cpu")
+    with pytest.raises(ValueError):
+        rng.threefry_chain(kd, [0, 3], 1, 5)
+    with pytest.raises(ValueError):
+        rng.threefry_chain(kd.to(torch.int64), [0], 1, 5)
+    with pytest.raises(ValueError):
+        rng.threefry_chain(kd[:, :1], [0], 1, 5)
+
+
+def test_key_tensor_round_trip():
+    kd = rng.key_data_from_seeds(_seeds(9, 8))
+    t = rng.key_tensor(kd, "cpu")
+    assert t.dtype == torch.int32 and t.shape == (9, 2)
+    np.testing.assert_array_equal(rng.key_data_of(t), kd)

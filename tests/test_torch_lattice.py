@@ -43,11 +43,21 @@ def test_port_imports_no_jax():
         "import pyisingmontecarlo_tpu_torch.engines.observables, pyisingmontecarlo_tpu_torch.rng\n"
         "import pyisingmontecarlo_tpu_torch.graph, pyisingmontecarlo_tpu_torch.tempering\n"
         "import pyisingmontecarlo_tpu_torch.ops.ladder, pyisingmontecarlo_tpu_torch.utils.cbor\n"
+        "import pyisingmontecarlo_tpu_torch.engines.classical, pyisingmontecarlo_tpu_torch.classicising\n"
+        "import pyisingmontecarlo_tpu_torch.models, pyisingmontecarlo_tpu_torch.models.lattices\n"
+        "import pyisingmontecarlo_tpu_torch.utils.profiling\n"
         "lt = pyisingmontecarlo_tpu_torch.LatticeTempering([((i, (i + 1) % 4), -1.0) for i in range(4)],\n"
         "                                                  seed=0, device='cpu')\n"
         "lt.add_graph(1.0, 0.0, 0.5)\n"
         "lt.add_graph(1.0, 0.0, 0.6)\n"
         "lt.qmc_timesteps_sample(2)\n"
+        "tri = pyisingmontecarlo_tpu_torch.models.triangular_edges(4)\n"
+        "lat = pyisingmontecarlo_tpu_torch.Lattice(tri, seed_gen=0, device='cpu')\n"
+        "lat.set_enable_cluster_updates(True)\n"
+        "lat.run_monte_carlo_annealing_and_get_energies([(0, 0.1), (2, 1.0)], 2, 2)\n"
+        "ci = pyisingmontecarlo_tpu_torch.ClassicIsing(tri, num_experiments=2, seed=0, device='cpu')\n"
+        "ci.run_monte_carlo_sampling(1.0, 2)\n"
+        "pyisingmontecarlo_tpu_torch.engines.classical.worm_closure_fraction(lat.cg, trials=4, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pyisingmontecarlo_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -144,6 +154,9 @@ def test_energy_matches_exact_enumeration():
 
 
 def test_unported_branches_raise():
+    """Every classical branch runs now (the graph engine takes what the torus
+    kernel does not); the quantum methods off the worldline kernel's lattices,
+    QmcIsing and QmcRunner still raise, naming their ROADMAP.md item."""
     port = tpmc.Lattice(grid_2d_edges(4, 4), device="cpu")
     for setup in (
         lambda l: l.set_individual_bias(0, 0.5),
@@ -152,11 +165,12 @@ def test_unported_branches_raise():
     ):
         lat = port.clone()
         setup(lat)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            lat.run_monte_carlo(0.3, 2, 2)
+        assert not lat._fast2d()
+        es, st = lat.run_monte_carlo(0.3, 2, 2)
+        assert es.shape == (2,) and st.shape == (2, 16)
     chain = tpmc.Lattice([((0, 1), 1.0), ((1, 2), 1.0)], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        chain.run_monte_carlo_annealing([(0, 0.1)], 2, 2)
+    es, st = chain.run_monte_carlo_annealing([(0, 0.1)], 2, 2)
+    assert es.shape == (2,) and st.shape == (2, 3)
     chain.set_transverse_field(1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         chain.run_quantum_monte_carlo(1.0, 2, 2)
@@ -166,7 +180,8 @@ def test_unported_branches_raise():
         lat.run_monte_carlo(0.3, 2, 2)
     with pytest.raises(ValueError):
         tpmc.Lattice([], device="cpu")
-    for name in ("ClassicIsing", "QmcIsing", "QmcRunner"):
+    assert tpmc.ClassicIsing is not None
+    for name in ("QmcIsing", "QmcRunner"):
         with pytest.raises(AttributeError, match="ROADMAP.md"):
             getattr(tpmc, name)
 
