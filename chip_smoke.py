@@ -1521,17 +1521,21 @@ def keychain_sass():
 
 
 def chain_bound(kinds, T, R):
-    """(least ms, what sets it) of the key chain: the larger of its table bytes
-    at the HBM rate, all its blocks' ALU instructions at the integer rate, and
-    its serial path (one block a slot, T * slots of them, one instruction a
-    cycle)."""
+    """(least ms, "bytes" or "operations", which term set it) of the key
+    chain: the larger of its table bytes at the HBM rate, all its blocks' ALU
+    instructions at the integer rate, and one warp's issue of its own
+    replicas' chain (every block of every slot, T * sum(CHAIN_BLOCKS) of them
+    a thread, one instruction a cycle at the SM clock)."""
     from pyisingmontecarlo_tpu_torch.rng import chain_columns
 
     C, W = chain_columns(kinds)
     nbytes = 4 * T * R * (C + W) + 16 * R
-    ops = THREEFRY_ALU_OPS * T * R * sum(CHAIN_BLOCKS[k] for k in kinds)
-    t_bytes, t_ops = bound(nbytes, ops)[0], max(ops / INT32_OPS_PER_S, THREEFRY_OPS * T * len(kinds) / SM_CLOCK_HZ) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    blocks = T * sum(CHAIN_BLOCKS[k] for k in kinds)
+    ops = THREEFRY_ALU_OPS * R * blocks
+    t_bytes, t_alu = bound(nbytes, ops)[0], ops / INT32_OPS_PER_S * 1e3
+    t_issue = THREEFRY_OPS * blocks / SM_CLOCK_HZ * 1e3
+    return max((t_bytes, "bytes", "the table's bytes"), (t_alu, "operations", "the ALU rate"),
+               (t_issue, "operations", "one warp's serial issue"))
 
 
 def tri_plan():
@@ -1584,10 +1588,10 @@ def phase_compare_keychain(dev, smi):
     for T in (TRI_T, TRI_T_FULL):
         threefry_chain(kd, kinds, T, TRI_L**2)
         runs = [event_ms(lambda: threefry_chain(kd, kinds, T, TRI_L**2), 1) for _ in range(5)]
-        b_ms, b_by = chain_bound(kinds, T, TRI_R)
+        b_ms, b_by, b_what = chain_bound(kinds, T, TRI_R)
         out[T] = (float(np.median(runs)), b_ms, b_by)
         print(f"compare-keychain: timing on {smi}: {T} steps x {len(kinds)} slots x R={TRI_R}: threefry_chain "
-              f"median {out[T][0]:.5f} ms (runs {runs}); bound {b_ms:.5f} ms ({b_by})", flush=True)
+              f"median {out[T][0]:.5f} ms (runs {runs}); bound {b_ms:.5f} ms ({b_by}: {b_what})", flush=True)
     host = _keys(TRI_R, 5)
     t0 = time.perf_counter()
     threefry_chain_reference(host, kinds, TRI_T, TRI_L**2)
@@ -1932,7 +1936,7 @@ def main():
     wl_launches = phase_main_quantum(dev)
     wl_sample_launches = phase_main_quantum_sampling(dev)
     long_launches, long_sample_launches = phase_main_quantum_long(dev)
-    chain_launches = phase_main_chain(dev)
+    resident_launches = phase_main_chain(dev)
     phase_physics_wl(dev)
     wl_t = phase_timing_wl(dev, smi)
     ladder_err, ladder_res_err = phase_compare_ladder(dev)
@@ -1942,7 +1946,7 @@ def main():
     ladder_t = phase_timing_ladder(dev, smi)
     chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = phase_compare_keychain(dev, smi)
     phase_compare_classical(dev)
-    chain_launches = phase_main_classical(dev, smi)
+    keychain_launches = phase_main_classical(dev, smi)
     phase_main_classicising(dev, smi)
     phase_physics_classical(dev)
     sites = BENCH_R * BENCH_L**2
@@ -1971,13 +1975,13 @@ def main():
         dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
         dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
-             launches=chain_launches, max_abs_err=wl_errs["resident"], **timed(wl_t["chain/resident"])),
+             launches=resident_launches, max_abs_err=wl_errs["resident"], **timed(wl_t["chain/resident"])),
         dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_res_launches, max_abs_err=ladder_res_err, **timed(ladder_t["resident"])),
         dict(name="threefry_chain", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
              replaces="pyisingmontecarlo_tpu/engines/classical.py:675 (the XLA split_keys chain of time_step; "
                       "no Pallas kernel)",
-             launches=chain_launches, max_abs_err=chain_err, ms=chain_ms, plain_ms=chain_plain_ms,
+             launches=keychain_launches, max_abs_err=chain_err, ms=chain_ms, plain_ms=chain_plain_ms,
              bound_ms=chain_bound_ms, bound_by=chain_by, library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2051,16 +2055,18 @@ def classical_rates(dev):
     annealing's site-steps/s (main-classical's call, a warm-up and the best
     of two), and ms a step of ClassicIsing's default moves on the n = 4096
     glass and of its spin family on the n = 16384 glass (the slope between
-    10- and 40-step calls). None where the package has no graph engine."""
-    try:
-        from pyisingmontecarlo_tpu_torch import ClassicIsing, Lattice
-        from pyisingmontecarlo_tpu_torch.models import triangular_edges
+    10- and 40-step calls). None where the package has no graph engine (no
+    ``ClassicIsing``); a failure of a package that has one propagates."""
+    import pyisingmontecarlo_tpu_torch as tpmc
 
-        lat = Lattice(triangular_edges(TRI_L, j=1.0), seed_gen=TRI_SEED, device=dev)
-        lat.run_monte_carlo_annealing_and_get_energies([(0, 0.1), (TRI_T, 3.0)], TRI_T, TRI_R)
-    except (ImportError, NotImplementedError):
+    if not hasattr(tpmc, "ClassicIsing"):
         return {"triangular_site_steps_per_s": None, "glass_default_ms_per_step": None,
                 "glass_ell_spin_ms_per_step": None}
+    from pyisingmontecarlo_tpu_torch import ClassicIsing, Lattice
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+
+    lat = Lattice(triangular_edges(TRI_L, j=1.0), seed_gen=TRI_SEED, device=dev)
+    lat.run_monte_carlo_annealing_and_get_energies([(0, 0.1), (TRI_T, 3.0)], TRI_T, TRI_R)
     tri = []
     for _ in range(2):
         t0 = time.perf_counter()

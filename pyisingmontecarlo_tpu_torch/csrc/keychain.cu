@@ -21,9 +21,10 @@
 //
 // Bound: the chain is serial along the steps and independent across replicas,
 // so with R threads (100 on the triangular annealing, a block of 128 on one
-// SM) the time is the critical path: T * S dependent blocks of about 80
-// integer instructions (the next key's block; the sub-key's work overlaps
-// it). The tables' bytes (4 * R * C * T) are small beside that. The design
+// SM) each warp issues its own threads' whole chain: every block of every
+// slot (2 a plain slot, 8 a worm, 7 a cluster), about 70 integer
+// instructions each, at most one instruction a cycle. The tables' bytes
+// (4 * R * C * T) are small beside that. The design
 // keeps the chain in registers and writes each table entry once, coalesced
 // across the replicas of a warp; nothing is read but the plan.
 

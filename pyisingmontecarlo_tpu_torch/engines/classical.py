@@ -32,8 +32,8 @@ otherwise sums taken in another order can differ in the last bit.
 
 Left out of the JAX engine: the opt-in ``PMC_EDGE_B0`` edge variant, and the
 timing probe of ``run_steps_chunked`` that sizes chunks for a TPU front end's
-watchdog (chunks come from ``PMC_STEPS_PER_DISPATCH`` alone, and a bound on
-the key table's bytes).
+watchdog (a call's pieces come from ``PMC_STEPS_PER_DISPATCH`` alone, each
+cut further by a bound on the key table's bytes).
 
 Energy convention: H = sum_e J_e s_a s_b + sum_i h_i s_i, positive J
 antiferromagnetic. The move functions update ``s`` in place and return it.
@@ -571,16 +571,26 @@ def _from_internal(ga, st):
     return st.T.contiguous()
 
 
+def _dispatch_chunk() -> int:
+    try:
+        return max(0, int(os.environ.get("PMC_STEPS_PER_DISPATCH", "0")))
+    except ValueError:
+        return 0
+
+
 def _steps(ga, bias_s, st, keys, beta_arr, moves: dict, on_step=None):
     """``len(beta_arr)`` time steps on a site-major state, the key chain walked
-    in pieces whose table stays under ``_TABLE_BYTES``; ``on_step(t, st)``
-    after step t. Returns ``(st, keys)``."""
+    in pieces of ``PMC_STEPS_PER_DISPATCH`` steps (all at once when unset or
+    0), each cut further so that its table stays under ``_TABLE_BYTES``;
+    ``on_step(t, st)`` after step t. The chain continues from piece to piece,
+    so any chunking gives the same trajectory bit for bit. Returns ``(st, keys)``."""
     betas = np.asarray(beta_arr, np.float32).reshape(-1).tolist()
     kinds = step_plan(ga, moves["nspin_sweeps"], moves["nedge_sweeps"], moves["nworms"], moves["only_basic"],
                       moves.get("nclusters", 0))
     C, W = chain_columns(kinds)
     R = st.shape[1]
     piece = max(1, _TABLE_BYTES // max(1, 4 * (C + W) * R))
+    piece = min(piece, _dispatch_chunk() or piece)
     with exact_f32_matmul():
         for t0 in range(0, len(betas), piece):
             n = min(piece, len(betas) - t0)
@@ -619,31 +629,12 @@ def run_steps_energies(ga, bias, s, keys, beta_arr, nspin_sweeps, nedge_sweeps, 
     return _from_internal(ga, st), keys, out
 
 
-def _dispatch_chunk() -> int:
-    try:
-        return max(0, int(os.environ.get("PMC_STEPS_PER_DISPATCH", "0")))
-    except ValueError:
-        return 0
-
-
 def run_steps_chunked(ga, bias, s, keys, beta_arr, *, collect_energies=False, **kw):
-    """``run_steps`` (or ``run_steps_energies``) in pieces of
-    ``PMC_STEPS_PER_DISPATCH`` steps (all at once when unset or 0). The key
-    chain continues from piece to piece, so any chunking gives the same
-    trajectory bit for bit."""
-    T = int(np.asarray(beta_arr).shape[0])
-    chunk = _dispatch_chunk() or max(T, 1)
-    es_parts = []
-    for i in range(0, max(T, 1), chunk):
-        piece = beta_arr[i:i + chunk]
-        if collect_energies:
-            s, keys, es = run_steps_energies(ga, bias, s, keys, piece, **kw)
-            es_parts.append(es)
-        else:
-            s, keys = run_steps(ga, bias, s, keys, piece, **kw)
+    """``run_steps_energies`` when ``collect_energies``, else ``run_steps``;
+    both split the call by ``PMC_STEPS_PER_DISPATCH`` (``_steps``)."""
     if collect_energies:
-        return s, keys, torch.cat(es_parts, 1)
-    return s, keys
+        return run_steps_energies(ga, bias, s, keys, beta_arr, **kw)
+    return run_steps(ga, bias, s, keys, beta_arr, **kw)
 
 
 def run_sampling(ga, bias, s, keys, beta, timesteps, sampling_freq, nspin_sweeps, nedge_sweeps, nworms,
