@@ -108,10 +108,37 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   at n = 4096 (dense) and of the spin family at n = 16384
                   (ELL); ``get_energies`` against the run's energies;
 23. physics-classical <E> of a frustrated 10-site graph with a field against exact
-                  enumeration (Lattice with and without clusters, ClassicIsing).
+                  enumeration (Lattice with and without clusters, ClassicIsing);
+24. compare-qmc-generic the generic worldline engine on the card vs on the CPU,
+                  bit for bit in states, keys, samples, cluster sizes and RVB
+                  ratios (run_sweeps, run_sweeps_sample, run_diagonal_sweeps,
+                  run_single_cluster, run_rvb_sweeps; a 64-site glass and a
+                  6 x 6 triangular patch, RVB on), energies within 2e-6
+                  relative; one sweep of the main path's glass at full width,
+                  phase by phase, where every differing spin must be an f32
+                  tie; threefry_chain with the main path's all-plain plan vs
+                  its numpy version, bit for bit, its time and bound;
+25. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
+                  benches/bench_classical_graph.py (n = 4096, R = 64, Gamma = 1,
+                  beta = 2, L_tau = 40): run_qmc(2.0, 100), then
+                  run_sampling(2.0, 200, sampling_freq=10) (generic route, one
+                  threefry_chain launch a call): sweeps/s, spin updates/ns,
+                  torch and device operations a sweep and the idle share
+                  (torch.profiler over a 20-sweep call);
+26. main-qmcising-lattice ``QmcIsing`` on the 256^2 torus (R = 8, 200 sweeps;
+                  wl_tiled) and run_sampling on the 256-chain (R = 64;
+                  wl_resident), against the exact free-fermion energy;
+27. physics-qmcising <E> against dense diagonalization: QmcIsing on an 8-site
+                  +-J graph with a field and RVB, Lattice on a 3 x 3 triangular
+                  patch with RVB, each rung of a LatticeTempering glass ladder
+                  off the ladder kernel's gate; cluster sizes and RVB ratios in
+                  range.
 
-Each entry of the kernels line takes its launches, times and bound from one
-shape: the main path that launched it.
+Each entry of the kernels line takes its times and bound from one shape,
+that of the first main path that launched it; its launches are the sum over
+the main paths that launched it, each counted from 0 (wl_tiled plain sweeps:
+main-quantum and main-qmcising-lattice; wl_resident: main-chain and
+main-qmcising-lattice; threefry_chain: main-classical and main-qmcising).
 
 Then one JSON line with the kernels, and last ``{"ok": true, "device": ...}``.
 Needs torch with CUDA, nvcc and numpy; imports no jax.
@@ -122,8 +149,8 @@ times the end-to-end main paths (``bench.py``'s headline, the best of three
 ``Lattice.run_monte_carlo(0.4, 16384, 8)`` calls at 1024^2 after a warm-up,
 in attempted flips/ns; the tempering bench's sweeps/s slope, the 256-chain's
 sampling call, the 256^2 torus's site updates/s slope of
-benches/bench_qmc_large.py, the triangular annealing's site-steps/s and the
-glass's ms a step) for the
+benches/bench_qmc_large.py, the triangular annealing's site-steps/s, the
+glass's ms a step and QmcIsing's sweeps/s on the glass) for the
 package in DIR and for this one, each in a process of its own, ten runs a
 side in the order DIR, this, this, DIR; it prints each run's numbers, each
 side's median and quartiles and the pairs won, and checks nothing else. The
@@ -1923,6 +1950,335 @@ def phase_physics_classical(dev):
           + "; ".join(out), flush=True)
 
 
+# the QmcIsing main path: QmcIsing on the 4-regular +-J glass of benches/bench_classical_graph.py at
+# n = 4096, 64 experiments, Gamma = 1, h = 0, beta = 2 (L_tau = 40): run_qmc(2.0, 100), then
+# run_sampling(2.0, 200, sampling_freq=10), on the generic worldline engine
+QMC_N, QMC_R, QMC_BETA, QMC_GAMMA, QMC_SEED = 4096, 64, 2.0, 1.0, 17
+QMC_T, QMC_SAMPLE_T, QMC_FREQ = 100, 200, 10
+# card vs CPU energy sums: both accumulate the same f32 per-sweep estimators in a compensated pair, with
+# the lattice sums reduced in another order on each device
+QMC_E_RTOL = 2e-6
+
+
+def _worldline_case(dev, edges, R, L, beta, gamma, h, seed):
+    """One graph's generic-engine inputs on the CPU and on the card: graph
+    arrays, the same f32 parameters, a random worldline state (half the lines
+    straight in tau) and key data."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.engines import worldline as wl
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph
+
+    cg = compile_graph(edges)
+    r = np.random.default_rng(seed)
+    s = r.integers(0, 2, (R, cg.nvars, L)).astype(np.int8) * 2 - 1
+    s[:, : cg.nvars // 2] = s[:, : cg.nvars // 2, :1]
+    pc = wl.make_params(np.full(R, beta), gamma, h, L)
+    return cg, {d: (ce.device_graph(cg, d), wl.params_from_arrays([x.numpy() for x in pc[:5]], d))
+                for d in ("cpu", dev)}, s, _keys(R, seed)
+
+
+def _generic_calls(ga, p, s, keys, nedges):
+    """Every generic run function in turn, each from the last one's state and keys:
+    {name: tensors on the CPU} and the energies (f64)."""
+    from pyisingmontecarlo_tpu_torch.engines import worldline as wl
+    from pyisingmontecarlo_tpu_torch.utils.accum import kfinal
+
+    out, es = {}, {}
+    s, keys, e = wl.run_sweeps(ga, p, s, keys, 6, True, True)
+    out["run_sweeps"], es["run_sweeps"] = [s, keys], kfinal(e)
+    s, keys, e, smp = wl.run_sweeps_sample(ga, p, s, keys, 5, 2, True, True)
+    out["run_sweeps_sample"], es["run_sweeps_sample"] = [s, keys, smp], kfinal(e)
+    s, keys = wl.run_diagonal_sweeps(ga, p, s, keys, 3)
+    out["run_diagonal_sweeps"] = [s, keys]
+    sizes = []
+    for _ in range(3):
+        s, keys, z = wl.run_single_cluster(ga, p, s, keys)
+        sizes.append(z)
+    out["run_single_cluster"] = [s, keys, torch.stack(sizes)]
+    s, keys, ratios = wl.run_rvb_sweeps(ga, p, s, keys, 3, nedges + 5)
+    out["run_rvb_sweeps"] = [s, keys, ratios]
+    return {k: [x.cpu() for x in v] for k, v in out.items()}, es
+
+
+def _phase_ties(ga, p, st, seeds, phase):
+    """Spins of the CPU state ``st`` whose decision in one generic phase is a
+    tie: it changes when the site phase's acceptance probability, or the
+    cluster phase's log-uniform, moves by 4 ulp either way."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.engines import worldline as wl
+    from pyisingmontecarlo_tpu_torch.ops.wl import fk_flips
+
+    def nudge(x, toward, k=4):
+        for _ in range(k):
+            x = torch.nextafter(x, torch.full_like(x, toward))
+        return x
+
+    kind, c = phase[0], phase[1]
+    sites = ga.c_sites[c]
+    R, _, L = st.shape
+    si = st.index_select(1, sites)
+    B = wl._spatial_field(ga.c_nbrs[c], ga.c_j[c], st)
+    col = lambda x: x[:, None, None]  # noqa: E731
+    if kind == "site":
+        up, dn = si.roll(-1, 2).float(), si.roll(1, 2).float()
+        dE = -2.0 * si.float() * (col(p.dtau) * (B + col(p.h)) - col(p.ktau) * (up + dn))
+        u = ce._uniform_per_replica(seeds, (sites.shape[0], L))
+        prob = torch.sigmoid(dE * -1.0)
+        tie = (u < nudge(prob, 0.0)) != (u < nudge(prob, 1.0))
+        tie &= (torch.arange(L) % 2) == phase[2]
+    else:
+        u = ce._uniform_per_replica(seeds, (sites.shape[0], L, 2))
+        active = ((si == si.roll(-1, 2)) & (u[..., 0] < col(p.pbond))).int()
+        dE = -2.0 * si.float() * col(p.dtau) * (B + col(p.h))
+        log_u = torch.log(u[..., 1])
+        tie = fk_flips(active, dE, nudge(log_u, -np.inf)) != fk_flips(active, dE, nudge(log_u, np.inf))
+    mask = torch.zeros(st.shape, dtype=torch.bool)
+    mask[:, sites] = tie
+    return mask
+
+
+def qmc_full_width_sweep(dev):
+    """One generic sweep of the main path's glass at full width (n = 4096,
+    R = 64, L_tau = 40), phase by phase on the card and on the CPU from the
+    same state (after 5 sweeps on the card from a random classical start);
+    every differing spin must be a tie of its phase. Returns (differing
+    spins, ties among them, decisions)."""
+    from pyisingmontecarlo_tpu_torch.engines import worldline as wl
+    from pyisingmontecarlo_tpu_torch.rng import KEY_PLAIN, key_tensor, random_states, threefry_chain
+
+    cg, arrays, _, kd = _worldline_case(dev, glass_edges(QMC_N), QMC_R, WL_LTAU, QMC_BETA, QMC_GAMMA, 0.0, 29)
+    (gc, pc), (gg, pg) = arrays["cpu"], arrays[dev]
+    s0 = torch.from_numpy(random_states(kd, cg.nvars))[:, :, None].expand(-1, -1, WL_LTAU).contiguous()
+    st, keys, _ = wl.run_sweeps(gg, pg, s0.to(dev), key_tensor(kd, dev), 5)
+    st = st.cpu()
+    C = len(gc.c_sites)
+    phases = [("site", c, parity) for c in range(C) for parity in (0, 1)] + [("cluster", c) for c in range(C)]
+    seeds, _, _ = threefry_chain(keys.cpu(), [KEY_PLAIN] * len(phases), 1, cg.nvars)
+    differ = ties = 0
+    for col, phase in enumerate(phases):
+        x, y, sd = st.clone(), st.to(dev), seeds[0, col]
+        if phase[0] == "site":
+            x = wl._site_color_update(gc, pc, x, sd, phase[1], phase[2])
+            y = wl._site_color_update(gg, pg, y, sd.to(dev), phase[1], phase[2])
+        else:
+            x = wl._time_cluster_update(gc, pc, x, sd, phase[1])
+            y = wl._time_cluster_update(gg, pg, y, sd.to(dev), phase[1])
+        d = x != y.cpu()
+        if d.any():
+            tie = _phase_ties(gc, pc, st, sd, phase)
+            check(bool((d <= tie).all()), f"full-width sweep: {int((d & ~tie).sum())} spins differ in {phase} "
+                                          f"with no tie")
+            differ += int(d.sum())
+            ties += int((d & tie).sum())
+        st = y.cpu()
+    return differ, ties, 2 * QMC_R * QMC_N * WL_LTAU
+
+
+def phase_compare_qmc_generic(dev, smi):
+    """The generic worldline engine on the card against the same engine on
+    the CPU: every run function on a small glass and a triangular patch, RVB on,
+    bit for bit in states, keys, samples, cluster sizes and RVB ratios, the
+    energies within QMC_E_RTOL; one full-width sweep of the main path's glass
+    (ties only); the key chain's all-plain plan of the main path against its
+    numpy version, bit for bit, with its time and bound. Returns (largest
+    |difference| of the chain, its ms, the numpy chain's ms, bound ms, bound_by)."""
+    from pyisingmontecarlo_tpu_torch.engines import worldline as wl
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+    from pyisingmontecarlo_tpu_torch.rng import KEY_PLAIN, key_tensor, threefry_chain, threefry_chain_reference
+
+    cases = (("glass n=64, h=0.3, L_tau=40", glass_edges(64), 16, 40, 2.0, 1.0, 0.3),
+             ("triangular 6x6, h=0.25, L_tau=24", triangular_edges(6, j=1.0), 16, 24, 1.5, 0.7, 0.25))
+    for name, edges, R, L, beta, gamma, h in cases:
+        cg, arrays, s, kd = _worldline_case(dev, edges, R, L, beta, gamma, h, 31)
+        res = {d: _generic_calls(*arrays[d], torch.from_numpy(s).to(d), key_tensor(kd, d), cg.nedges)
+               for d in ("cpu", dev)}
+        (want, we), (got, ge) = res["cpu"], res[dev]
+        for k in want:
+            diff = sum(int((a != b).sum()) for a, b in zip(want[k], got[k]))
+            check(diff == 0, f"compare-qmc-generic {name}: {k}: {diff} differing values, card vs CPU")
+        for k in we:
+            err = float(np.abs(ge[k] - we[k]).max() / np.abs(we[k]).max())
+            check(err <= QMC_E_RTOL, f"compare-qmc-generic {name}: {k} energies differ by {err:.3g} relative")
+        sizes, ratios = got["run_single_cluster"][2], got["run_rvb_sweeps"][2]
+        check(bool(((sizes >= 1) & (sizes <= L)).all() and ((ratios >= 0) & (ratios <= 1)).all()),
+              "cluster sizes or RVB ratios out of range")
+        print(f"compare-qmc-generic: {name}, R={R}, RVB on: run_sweeps, run_sweeps_sample, run_diagonal_sweeps, "
+              f"run_single_cluster x3, run_rvb_sweeps: card == CPU bit for bit (states, keys, samples, sizes, "
+              f"ratios); energies within {QMC_E_RTOL:g} relative", flush=True)
+    t0 = time.perf_counter()
+    differ, ties, decisions = qmc_full_width_sweep(dev)
+    print(f"compare-qmc-generic: one sweep of the main path's glass at full width (n={QMC_N}, R={QMC_R}, "
+          f"L_tau={WL_LTAU}, phase by phase, {decisions} site and bond decisions): {differ} spins differ, {ties} of "
+          f"them at f32 ties ({time.perf_counter() - t0:.1f} s)", flush=True)
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph
+
+    kinds = [KEY_PLAIN] * wl.sweep_slots(ce.device_graph(compile_graph(glass_edges(QMC_N))), True, False)
+    kd = _keys(QMC_R, 37)
+    t0 = time.perf_counter()
+    want = threefry_chain_reference(kd, kinds, QMC_T, QMC_N)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = [g.cpu().numpy() for g in threefry_chain(key_tensor(kd, dev), kinds, QMC_T, QMC_N)]
+    want = [want[0], want[1], key_tensor(want[2], "cpu").numpy()]
+    err = max(int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()) if g.size else 0 for g, w in zip(got, want))
+    check(err == 0 and all(g.shape == w.shape for g, w in zip(got, want)),
+          f"compare-qmc-generic: threefry_chain of the glass plan != its numpy version (max |diff| {err})")
+    kt = key_tensor(kd, dev)
+    threefry_chain(kt, kinds, QMC_T, QMC_N)
+    runs = [event_ms(lambda: threefry_chain(kt, kinds, QMC_T, QMC_N), 1) for _ in range(5)]
+    b_ms, b_by, b_what = chain_bound(kinds, QMC_T, QMC_R)
+    print(f"compare-qmc-generic: threefry_chain, the main path's all-plain plan ({len(kinds)} slots a sweep x "
+          f"{QMC_T} sweeps x R={QMC_R}) == its numpy version bit for bit; on {smi}: median {np.median(runs):.5f} ms "
+          f"(runs {runs}), bound {b_ms:.5f} ms ({b_by}: {b_what}); numpy {plain_ms:.3f} ms", flush=True)
+    return err, float(np.median(runs)), plain_ms, b_ms, b_by
+
+
+def phase_main_qmcising(dev, smi):
+    """The QmcIsing main path: run_qmc(2.0, 100), then run_sampling(2.0, 200,
+    sampling_freq=10), on the glass at full width through the user's entry
+    points (generic route, one threefry_chain launch a call); host wall and
+    CUDA-event times, sweeps/s and spin updates/ns; then a 20-sweep call under
+    torch.profiler: torch and device operations a sweep, idle share, device
+    ms by kernel. Returns the threefry_chain launches and the sweeps/s."""
+    from pyisingmontecarlo_tpu_torch import QmcIsing
+
+    n, R, L = QMC_N, QMC_R, WL_LTAU
+    t0 = time.perf_counter()
+    q = QmcIsing(glass_edges(n), QMC_GAMMA, 0.0, num_experiments=R, seed=QMC_SEED, device=dev)
+    w = q._ensure(QMC_BETA)
+    ga = w.ga
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(w.L == L and not w.on_kernel(), f"L_tau {w.L}, kernel route {w.on_kernel()}")
+    reset_counts()
+    out = {}
+    for name, fn, T in (("run_qmc", lambda: q.run_qmc(QMC_BETA, QMC_T), QMC_T),
+                        ("run_sampling", lambda: q.run_sampling(QMC_BETA, QMC_SAMPLE_T, sampling_freq=QMC_FREQ),
+                         QMC_SAMPLE_T)):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        res = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0, e0.elapsed_time(e1), T, res)
+    counts = read_counts()
+    check(counts == counts_only(keychain=2), f"launch counts {counts}, want two threefry_chain launches only")
+    es, ss = out["run_sampling"][3]
+    check(es.shape == (R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape} {es.dtype}")
+    check(ss.shape == (R, QMC_SAMPLE_T // QMC_FREQ, n) and ss.dtype == np.bool_, f"samples {ss.shape} {ss.dtype}")
+    check(np.array_equal(ss[:, -1], w.states_bool()), "the last sample != slice 0 of the final state")
+    e = es.mean() / n
+    # 300 sweeps from a random start at Gamma = 1, beta = 2: a 4-regular +-J glass's classical ground state
+    # is near -1.3 a site and the transverse term lowers the energy further; a random state is near 0
+    check(-2.5 < e < -0.8, f"e/site {e} outside (-2.5, -0.8)")
+    lines = []
+    for name, (wall, ev_ms, T, _) in out.items():
+        lines.append(f"{name}: {wall:.3f} s host wall, {ev_ms:.3f} ms between CUDA events, {T / wall:.2f} sweeps/s, "
+                     f"{R * n * L * T / wall / 1e9:.4f} spin updates/ns")
+    print(f"main-qmcising: QmcIsing(glass_edges({n}), {QMC_GAMMA}, 0.0, {R}, seed={QMC_SEED}) on {smi}: generic route "
+          f"({len(ga.c_sites)} site colors: {3 * len(ga.c_sites)} phases a sweep), L_tau={L}, set-up "
+          f"{setup_s * 1e3:.1f} ms; " + "; ".join(lines) + f"; {counts['keychain']} threefry_chain launches; "
+          f"e/site {e:.5f}", flush=True)
+    steps = 20
+    q.run_qmc(QMC_BETA, steps)  # warm-up at the profiled length
+    ops, launches, idle, per = _profile_call(lambda: q.run_qmc(QMC_BETA, steps), steps)
+    dev_line = ("device time not measured (the profiler recorded none)" if per is None else
+                f"{launches:.1f} device operations a sweep, device idle {idle:.2f}% of the call; device ms by kernel "
+                + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per.items())))
+    print(f"main-qmcising: a {steps}-sweep run_qmc under torch.profiler on {smi}: {ops:.1f} torch operations a "
+          f"sweep; {dev_line}", flush=True)
+    wall, _, T, _ = out["run_qmc"]
+    return counts["keychain"], T / wall
+
+
+def phase_main_qmcising_lattice(dev):
+    """QmcIsing on the worldline kernels' lattices: run_qmc(2.0, 200) on the
+    256^2 torus (R = 8; tiled, one launch a sweep) and run_sampling(2.0, 2000,
+    wait 500, freq 10) on the 256-chain (R = 64; resident, one launch for the
+    wait and one for the sampled sweeps), against the exact free-fermion
+    energy. Returns (tiled launches, resident launches)."""
+    from pyisingmontecarlo_tpu_torch import QmcIsing
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+
+    (_, nvars, R), side, T = TORUS, TORUS[0][1], 200
+    q = QmcIsing(grid_2d_edges(side, side, -1.0), WL_GAMMA, 0.0, num_experiments=R, seed=3, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    q.run_qmc(WL_BETA, T)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tiled = read_counts()
+    check(tiled == counts_only(wl_tiled=T), f"launch counts {tiled}, want wl_tiled {T} only")
+    m = float(np.mean([abs(np.where(q.get_graph_itime(g), 1.0, -1.0).mean()) for g in range(R)]))
+    print(f"main-qmcising-lattice: QmcIsing on the {side}^2 torus, R={R}, run_qmc({WL_BETA}, {T}): "
+          f"{tiled['wl_tiled']} wl_tiled launches, 0 others, {dt:.3f} s host wall, <|m|> {m:.4f}", flush=True)
+    (_, n, R), wait, T, freq = CHAIN, 500, 2000, 10
+    q = QmcIsing([((i, (i + 1) % n), -1.0) for i in range(n)], WL_GAMMA, 0.0, num_experiments=R, seed=4,
+                 device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    es, ss = q.run_sampling(WL_BETA, T, sampling_wait_buffer=wait, sampling_freq=freq)
+    dt = time.perf_counter() - t0
+    res = read_counts()
+    check(res == counts_only(wl_resident=2), f"launch counts {res}, want wl_resident 2 only")
+    check(ss.shape == (R, T // freq, n) and np.isfinite(es).all(), f"samples {ss.shape}")
+    e, se = es.mean() / n, es.std(ddof=1) / np.sqrt(R) / n
+    exact = chain_energy(n, WL_BETA, WL_GAMMA)
+    check(abs(e - exact) < 4 * se + 0.03, f"e/site {e} vs exact {exact} (se {se})")
+    print(f"main-qmcising-lattice: QmcIsing on the {n}-chain, R={R}, run_sampling({WL_BETA}, {T}, wait={wait}, "
+          f"freq={freq}): {res['wl_resident']} wl_resident launches, 0 others, {dt:.3f} s host wall, "
+          f"e/site={e:.6f} (exact {exact:.6f}, se {se:.6f})", flush=True)
+    return tiled["wl_tiled"], res["wl_resident"]
+
+
+def phase_physics_qmcising(dev):
+    """<E> on the card within 4 se + 0.03 of dense diagonalization:
+    QmcIsing on an 8-site non-uniform +-J graph with a field, Lattice on a
+    3 x 3 open triangular patch with RVB on, and each rung of a 3-rung
+    LatticeTempering glass ladder off the ladder kernel's gate; run_cluster's
+    sizes in [1, L_tau] and run_rvb's ratios in [0, 1]."""
+    from pyisingmontecarlo_tpu_torch import Lattice, LatticeTempering, QmcIsing
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+
+    out = []
+
+    def near(name, es, exact):
+        m, se = es.mean(), es.std(ddof=1) / np.sqrt(len(es))
+        check(abs(m - exact) < 4 * se + 0.03, f"physics-qmcising {name}: <E> {m} vs dense {exact} (se {se})")
+        out.append(f"{name} {m:.4f} (dense {exact:.4f}, se {se:.4f})")
+
+    g8 = [((0, 1), -1.0), ((1, 2), 1.0), ((2, 3), -1.0), ((3, 0), -1.0), ((4, 5), 1.0), ((5, 6), -1.0),
+          ((6, 7), -1.0), ((7, 4), 1.0), ((0, 4), -0.5), ((2, 6), 1.0)]
+    q = QmcIsing(g8, 0.8, 0.3, num_experiments=96, seed=5, do_rvb_updates=True, device=dev)
+    es, _ = q.run_sampling(1.5, 200, sampling_wait_buffer=150)
+    near("QmcIsing 8-site +-J, h=0.3, Gamma=0.8, beta=1.5, RVB", es, dense_tfim_energy(g8, 0.3, 0.8, 1.5, 8))
+    sizes, ratios = q.run_cluster(), q.run_rvb(5)
+    check(sizes.shape == (96,) and ((sizes >= 1) & (sizes <= q._w.L)).all(), f"cluster sizes {sizes.min()}..")
+    check(ratios.shape == (96, 5) and ((ratios >= 0) & (ratios <= 1)).all(), "RVB ratios out of [0, 1]")
+    tri = triangular_edges(3, j=1.0, periodic=False)
+    lat = Lattice(tri, seed_gen=6, device=dev)
+    lat.set_transverse_field(1.0)
+    lat.set_enable_rvb_update(True)
+    es, _ = lat.run_quantum_monte_carlo_sampling(1.0, 200, 96, sampling_wait_buffer=150)
+    near("Lattice 3x3 triangular, RVB, Gamma=1, beta=1", es, dense_tfim_energy(tri, 0.0, 1.0, 1.0, 9))
+    glass = glass_edges(8, seed=3)
+    betas = [0.8, 1.1, 1.4]
+    lt = LatticeTempering(glass, seed=7, device=dev)
+    for _ in range(32):
+        for b in betas:
+            lt.add_graph(1.0, 0.25, b)
+    check("ga" in lt._materialize(), "the glass ladder took the ladder kernel")
+    lt.qmc_timesteps(150)
+    _, es = lt.qmc_timesteps_sample(300)
+    check(lt.get_total_swaps() > 0, "no swaps")
+    for k, b in enumerate(betas):
+        near(f"LatticeTempering glass rung beta={b}", es[k::3], dense_tfim_energy(glass, 0.25, 1.0, b, 8))
+    print("physics-qmcising: " + "; ".join(out) + f"; run_cluster sizes {sizes.min()}..{sizes.max()} of "
+          f"L_tau={q._w.L}, run_rvb ratios {ratios.min():.3f}..{ratios.max():.3f}", flush=True)
+
+
 def main():
     smi = phase_gpu()
     dev = torch.device("cuda", 0)
@@ -1949,6 +2305,10 @@ def main():
     keychain_launches = phase_main_classical(dev, smi)
     phase_main_classicising(dev, smi)
     phase_physics_classical(dev)
+    phase_compare_qmc_generic(dev, smi)
+    qmc_keychain_launches, _ = phase_main_qmcising(dev, smi)
+    qmc_tiled_launches, qmc_resident_launches = phase_main_qmcising_lattice(dev)
+    phase_physics_qmcising(dev)
     sites = BENCH_R * BENCH_L**2
     sq_bound, sq_by = bound(2 * sites / 1024, SQ2D_OPS_PER_SITE * sites)  # per sweep of a 1024-sweep call
     wl_src, wl_tpu = "pyisingmontecarlo_tpu_torch/csrc/wl.cu", "pyisingmontecarlo_tpu/ops/wl_pallas.py"
@@ -1963,7 +2323,7 @@ def main():
              replaces="pyisingmontecarlo_tpu/ops/sq2d_pallas.py:159", launches=launches, max_abs_err=err,
              ms=ms, plain_ms=plain_ms, bound_ms=sq_bound, bound_by=sq_by, library_ms=None),
         dict(name="wl_tiled (plain sweeps)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:330",
-             launches=wl_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus/tiled"])),
+             launches=wl_launches + qmc_tiled_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus/tiled"])),
         dict(name="wl_tiled (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
              launches=wl_sample_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus-sampling/tiled"])),
         dict(name="wl_site+wl_cluster+wl_accumulate (plain sweeps)", route="cuda", source=wl_src,
@@ -1975,13 +2335,15 @@ def main():
         dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
         dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
-             launches=resident_launches, max_abs_err=wl_errs["resident"], **timed(wl_t["chain/resident"])),
+             launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"],
+             **timed(wl_t["chain/resident"])),
         dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_res_launches, max_abs_err=ladder_res_err, **timed(ladder_t["resident"])),
         dict(name="threefry_chain", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
-             replaces="pyisingmontecarlo_tpu/engines/classical.py:675 (the XLA split_keys chain of time_step; "
-                      "no Pallas kernel)",
-             launches=keychain_launches, max_abs_err=chain_err, ms=chain_ms, plain_ms=chain_plain_ms,
+             replaces="pyisingmontecarlo_tpu/engines/classical.py:675 and engines/worldline.py:396 (the XLA "
+                      "split_keys chains of time_step and sweep; no Pallas kernel)",
+             launches=keychain_launches + qmc_keychain_launches, max_abs_err=chain_err, ms=chain_ms,
+             plain_ms=chain_plain_ms,
              bound_ms=chain_bound_ms, bound_by=chain_by, library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2046,7 +2408,8 @@ def rates():
     print(json.dumps({"package": str(Path(pkg).parent.parent), "bench_flips_per_ns": flips, "bench_runs_s": bench,
                       "tempering_sweeps_per_s": slope,
                       "tempering_runs_s": wall, "chain_sampling_call_s": min(chain), "chain_runs_s": chain,
-                      "torus_site_updates_per_s": updates, "torus_runs_s": torus, **classical_rates(dev)}),
+                      "torus_site_updates_per_s": updates, "torus_runs_s": torus, **classical_rates(dev),
+                      **qmcising_rates(dev)}),
           flush=True)
 
 
@@ -2087,6 +2450,27 @@ def classical_rates(dev):
             "glass_default_ms_per_step": glass[GLASS_NS[0]], "glass_ell_spin_ms_per_step": glass[GLASS_NS[1]]}
 
 
+def qmcising_rates(dev):
+    """The QmcIsing main path's sweeps/s: run_qmc on the n = 4096 glass (R = 64,
+    L_tau = 40), the slope between 10- and 40-sweep calls (the best of two
+    each) after a warm-up. None where the package has no ``QmcIsing``; a
+    failure of a package that has one propagates."""
+    import pyisingmontecarlo_tpu_torch as tpmc
+
+    if not hasattr(tpmc, "QmcIsing"):
+        return {"glass_qmc_sweeps_per_s": None}
+    q = tpmc.QmcIsing(glass_edges(QMC_N), QMC_GAMMA, 0.0, num_experiments=QMC_R, seed=QMC_SEED, device=dev)
+    q.run_qmc(QMC_BETA, 5)
+    wall = {10: [], 40: []}
+    for T in (10, 40, 10, 40):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q.run_qmc(QMC_BETA, T)
+        torch.cuda.synchronize()
+        wall[T].append(time.perf_counter() - t0)
+    return {"glass_qmc_sweeps_per_s": 30 / (min(wall[40]) - min(wall[10])), "glass_qmc_runs_s": wall}
+
+
 def ab(other, pairs=10):
     """``rates`` of the package in ``other`` and of this one, each in a process
     of its own, ``pairs`` runs a side in the order other, this, this, other;
@@ -2104,7 +2488,8 @@ def ab(other, pairs=10):
             print(f"ab on {smi}: {line}", flush=True)
     for key, higher in (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
                         ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),
-                        ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False)):
+                        ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False),
+                        ("glass_qmc_sweeps_per_s", True)):
         if any(r.get(key) is None for side in runs.values() for r in side):
             print(f"ab on {smi}: {key}: not measured on both sides", flush=True)
             continue

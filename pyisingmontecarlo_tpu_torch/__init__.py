@@ -5,22 +5,24 @@ same names, on torch, with hand-written CUDA kernels for Hopper (``csrc/``).
 It never imports jax. Ported so far: :class:`Lattice`'s classical methods
 on any graph (the square-torus kernel of ``ops/sq2d.py``, else the graph
 engine of ``engines/classical.py``) and its quantum (transverse-field)
-methods on a uniform periodic ring or square torus (``engines/worldline.py``
-on ``ops/wl.py``); :class:`ClassicIsing`; :class:`LatticeTempering` on ring
-and torus ladders (``ops/ladder.py``). The other public classes of the JAX
-package are listed in ROADMAP.md as still to port.
+methods on any graph (``engines/worldline.py``: the kernels of ``ops/wl.py``
+on a uniform periodic ring or square torus, else the generic colored
+worldline engine); :class:`ClassicIsing`; :class:`QmcIsing`;
+:class:`LatticeTempering` on any ladder (``ops/ladder.py`` on ring and torus
+ladders, else the generic engine). ``QmcRunner`` is listed in ROADMAP.md as
+still to port.
 """
 
 from .classicising import ClassicIsing
 from .lattice import Lattice
+from .qmcising import QmcIsing
 from .tempering import LatticeTempering
 
 __version__ = "0.1.0"
 
-__all__ = ["Lattice", "ClassicIsing", "LatticeTempering"]
+__all__ = ["Lattice", "ClassicIsing", "QmcIsing", "LatticeTempering"]
 
 _NOT_PORTED = {
-    "QmcIsing": "item 5",
     "QmcRunner": "item 7",
 }
 

@@ -152,21 +152,23 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 
 def _assemble(nbrs, jm, deg, ea, eb, ej, c_sites, strong, slot_eid, device, **extra) -> GraphArrays:
-    """GraphArrays from numpy arrays in one numbering (``strong``: edge ids per class)."""
+    """GraphArrays from numpy arrays in one numbering (``strong``: edge ids per
+    class). The couplings ``jm [nvars, D]`` and ``ej [E]`` may carry a leading
+    replica axis (``[R, nvars, D]``, ``[R, E]``), which every coupling field keeps."""
     ix = functools.partial(_t, dtype=_L, device=device)
     fl = functools.partial(_t, dtype=_F, device=device)
     return GraphArrays(
         neighbors=ix(nbrs), jmat=fl(jm), degree=ix(deg), edge_a=ix(ea), edge_b=ix(eb), edge_j=fl(ej),
         c_sites=tuple(ix(s) for s in c_sites),
         c_nbrs=tuple(ix(nbrs[s]) for s in c_sites),
-        c_j=tuple(fl(jm[s]) for s in c_sites),
+        c_j=tuple(fl(jm[..., s, :]) for s in c_sites),
         e_a=tuple(ix(ea[e]) for e in strong),
         e_b=tuple(ix(eb[e]) for e in strong),
-        e_j=tuple(fl(ej[e]) for e in strong),
+        e_j=tuple(fl(ej[..., e]) for e in strong),
         e_a_nbrs=tuple(ix(nbrs[ea[e]]) for e in strong),
-        e_a_j=tuple(fl(jm[ea[e]]) for e in strong),
+        e_a_j=tuple(fl(jm[..., ea[e], :]) for e in strong),
         e_b_nbrs=tuple(ix(nbrs[eb[e]]) for e in strong),
-        e_b_j=tuple(fl(jm[eb[e]]) for e in strong),
+        e_b_j=tuple(fl(jm[..., eb[e], :]) for e in strong),
         slot_eid=ix(slot_eid),
         **extra,
     )

@@ -6,8 +6,9 @@ state, flags and dtau, and the state of its master seed stream, so that both
 objects then draw identical u64 seeds. ``worldline_from_arrays`` builds a
 worldline ensemble from a JAX ensemble's state and key data, handed over as
 numpy arrays. ``tempering_from_reference`` does both for a
-``pyisingmontecarlo_tpu.LatticeTempering``, and ``classicising_from_reference``
-for a ``pyisingmontecarlo_tpu.ClassicIsing``.
+``pyisingmontecarlo_tpu.LatticeTempering``, ``classicising_from_reference``
+for a ``pyisingmontecarlo_tpu.ClassicIsing`` and ``qmcising_from_reference``
+for a ``pyisingmontecarlo_tpu.QmcIsing``.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from .classicising import ClassicIsing
 from .engines.worldline import WorldlineEnsemble
 from .graph import compile_graph, grid_2d_edges
 from .lattice import Lattice, resolve_device
+from .qmcising import QmcIsing
 from .tempering import LatticeTempering
 
 __all__ = ["lattice_from_reference", "worldline_from_arrays", "tempering_from_reference",
-           "classicising_from_reference", "state_to_torch", "state_to_numpy"]
+           "classicising_from_reference", "qmcising_from_reference", "state_to_torch", "state_to_numpy"]
 
 
 def lattice_from_reference(obj, device="cuda") -> Lattice:
@@ -108,6 +110,35 @@ def classicising_from_reference(obj, key_data, device="cuda") -> ClassicIsing:
     ci._spins = torch.from_numpy(spins).to(ci.device)
     ci._keys = kd.copy()
     return ci
+
+
+def qmcising_from_reference(obj, key_data, device="cuda") -> QmcIsing:
+    """A port ``QmcIsing`` in the state of ``obj``: its edges, fields, flags,
+    Trotter-step target and master seed stream; once materialized its
+    worldlines ``s [R, nvars, L]`` and the f32 parameters of its ensemble
+    (so the sweeps start from the JAX package's f32 ``dtau``, ``ktau``, ...),
+    else its pending initial states; and its keys as ``key_data`` ``[R, 2]``
+    uint32 (``jax.random.key_data`` of ``obj._w.keys`` once materialized,
+    else of ``obj._keys``; the caller reads it, as this module imports no
+    jax). Both then run identically."""
+    q = QmcIsing(obj.edges, obj.transverse, obj.longitudinal, num_experiments=0, seed=obj.seed,
+                 use_allocator=obj.use_allocator, do_heatbath_updates=obj.enable_heatbath,
+                 do_rvb_updates=obj.enable_rvb, dtau=obj.dtau, device=device)
+    q.rng._gen.bit_generator.state = obj.rng._gen.bit_generator.state
+    kd = np.asarray(key_data, np.uint32).reshape(-1, 2).copy()
+    w = obj._w
+    if w is not None:
+        s = torch.from_numpy(np.array(w.s, dtype=np.int8))
+        if s.shape[0] != len(kd):
+            raise ValueError(f"{s.shape[0]} worldlines and {len(kd)} keys")
+        q._w = q._ensemble(w.beta, s, kd, w.L, params=[np.asarray(x, np.float32) for x in w.p])
+        q._w.enable_rvb, q._w.enable_heatbath = bool(w.enable_rvb), bool(w.enable_heatbath)
+    elif obj._keys is not None:
+        init = np.array(obj._init_states, dtype=np.int8).reshape(-1, q.nvars)
+        if len(init) != len(kd):
+            raise ValueError(f"{len(init)} initial states and {len(kd)} keys")
+        q._keys, q._init_states = kd, init
+    return q
 
 
 def state_to_torch(np_state, device="cpu") -> torch.Tensor:

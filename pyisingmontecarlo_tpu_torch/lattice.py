@@ -9,10 +9,12 @@ setters and methods, returning the same numpy types. Ported:
   with individual biases, heat-bath or cluster updates, on the graph engine
   of ``engines/classical.py`` (bit for bit the JAX package's on the CPU,
   wherever couplings and biases are integer or dyadic);
-- the quantum (transverse-field) methods on a uniform periodic ring or square
-  torus, on the worldline kernel of ``ops/wl.py`` (``engines/worldline.py``);
-  other quantum branches raise ``NotImplementedError`` naming their item of
-  ROADMAP.md.
+- the quantum (transverse-field) methods on any graph, with or without the
+  RVB move (``engines/worldline.py``): on the worldline kernel of
+  ``ops/wl.py`` for a uniform periodic ring or square torus that its gate
+  admits with RVB off, else on the generic colored worldline engine (bit for
+  bit the JAX package's on the CPU, wherever couplings, fields and dtau are
+  integer or dyadic).
 
 The device is explicit: ``device="cuda"`` (the default) runs the kernel and
 raises where there is no CUDA; ``device="cpu"`` runs the kernel's plain version.

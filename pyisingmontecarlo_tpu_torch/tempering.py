@@ -1,33 +1,43 @@
 """``LatticeTempering`` — parallel tempering over TFIM worldlines, on torch.
 
-Counterpart of ``pyisingmontecarlo_tpu/tempering.py`` on the path that the
-JAX package sends to its ladder kernel: replicas at per-replica
-(beta, Gamma, h), optionally with their own couplings on a union graph that
-is a periodic ring or square torus, sweep together (``ops/ladder.py``, one
-kernel call per run of sweeps between two swap steps), with an even/odd
-neighbour swap every ``replica_swap_freq`` sweeps.
+Counterpart of ``pyisingmontecarlo_tpu/tempering.py``: replicas at
+per-replica (beta, Gamma, h), optionally with their own couplings on a union
+graph, sweep together, with an even/odd neighbour swap every
+``replica_swap_freq`` sweeps. Two routes, as in the JAX package:
+
+- the **ladder route**, where the union graph is a periodic ring or square
+  torus that ``ops/ladder.gate`` admits and no replica has the RVB move: the
+  ladder kernel (``ops/ladder.py``, one kernel call per run of sweeps between
+  two swap steps);
+- the **generic route** for every other ladder: the generic colored worldline
+  sweep of ``engines/worldline.py`` with the per-replica couplings ``[R, E]``
+  on the union graph's colorings (``batched_graph_arrays``), and the RVB
+  phases masked to the replicas that ask for them.
 
 A swap step weighs every replica's configuration under its own and its
 neighbours' parameters from three exact integer features of each
 configuration (``ops/ladder.swap_features``: per-edge bond products, spin
 sum, aligned time bonds; the ladder call returns them, from the resident
-kernel itself where the shape takes it), in f32 as the JAX package does, and accepts pair (r, r+1), r of
+kernel itself where the shape takes it; the generic route computes them from
+the state), in f32 as the JAX package does, and accepts pair (r, r+1), r of
 the step's parity, when ``log u < W_r(x_{r+1}) W_{r+1}(x_r) / (W_r(x_r)
 W_{r+1}(x_{r+1}))`` in log space; accepted pairs exchange configurations.
-Energies use the same features, accumulated per replica slot as int64 on the
-device; the estimator is linear in them, so it is formed once per call on the
-host in f64.
+On the ladder route the energies use the same features, accumulated per
+replica slot as int64 on the device; the estimator is linear in them, so it
+is formed once per call on the host in f64. The generic route accumulates
+``worldline.total_energy`` after every sweep in a compensated f32 pair, as
+the JAX package does.
 
-Randomness, bit for bit the JAX package's: each replica's threefry key is
-split once per sweep and the subkey gives that sweep's kernel seed; the swap
-key is split once per swap step and the subkey gives ``uniform(sub, (R,))``.
-A call makes both tables on the host before its first launch (``key_tables``).
+Randomness, bit for bit the JAX package's: on the ladder route each
+replica's threefry key is split once per sweep and the subkey gives that
+sweep's kernel seed (``key_tables``, on the host); on the generic route once
+per phase of the sweep (``worldline.walk`` on ``rng.threefry_chain``). The
+swap key is split once per swap step and the subkey gives
+``uniform(sub, (R,))`` (``swap_uniforms``).
 
-Ladders with ``enable_rvb_update``, union graphs that are not a ring or
-torus, and shapes off the kernel's gate raise ``NotImplementedError``
-(ROADMAP.md item 5, the generic colored worldline engine);
-``enable_heatbath_update`` is accepted and has no effect, as on the JAX
-ladder path. The multi-device ladder is not ported (ROADMAP.md item 8).
+``enable_heatbath_update`` is accepted and has no effect, as in the JAX
+package (every parallel phase accepts by Glauber). The multi-device ladder
+is not ported (ROADMAP.md item 8).
 
 Checkpoints are the JAX package's CBOR files (``utils/cbor.py``); the
 per-replica seeds are not saved, so a reload reseeds.
@@ -40,16 +50,20 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .engines import classical as ce
+from .engines import worldline as wl
 from .engines.observables import autocorrelation_device, pad_autocorr
-from .engines.worldline import _not_ported, choose_ltau, make_params
-from .graph import detect_topology, parse_edges
+from .engines.worldline import choose_ltau, make_params
+from .graph import CompiledGraph, compile_graph_arrays, detect_topology, parse_edges
 from .lattice import resolve_device
 from .ops import ladder
 from .ops.ladder import swap_features
-from .rng import MasterRng, key_data_from_seeds, random_states, seeds_from_key_data, split_all, uniform_f32
+from .rng import (MasterRng, key_data_from_seeds, key_data_of, key_tensor, random_states, seeds_from_key_data,
+                  split_all, uniform_f32)
 from .utils import cbor
+from .utils.accum import kadd, kfinal, kzero
 
-__all__ = ["LatticeTempering", "key_tables", "swap_features"]
+__all__ = ["LatticeTempering", "key_tables", "swap_uniforms", "swap_features", "batched_graph_arrays"]
 
 _NEVER = 2**31 - 1  # the swap period of runs without swaps
 
@@ -64,12 +78,32 @@ def key_tables(key_data: np.ndarray, swapkey: np.ndarray, timesteps: int, swap_f
     for t in range(timesteps):
         kd, sub = split_all(kd)
         seeds[t] = seeds_from_key_data(sub)
+    uniforms, sk = swap_uniforms(swapkey, timesteps // swap_freq, R)
+    return seeds, uniforms, kd, sk
+
+
+def swap_uniforms(swapkey: np.ndarray, nswaps: int, R: int):
+    """``(uniforms [nswaps, R] f32, swapkey)``: the swap key split once per
+    swap step, each subkey giving ``uniform(sub, (R,))``."""
     sk = np.asarray(swapkey, np.uint32).reshape(1, 2)
-    uniforms = np.empty((timesteps // swap_freq, R), np.float32)
-    for k in range(len(uniforms)):
+    uniforms = np.empty((nswaps, R), np.float32)
+    for k in range(nswaps):
         sk, sub = split_all(sk)
         uniforms[k] = uniform_f32(sub, R)[0]
-    return seeds, uniforms, kd, sk[0]
+    return uniforms, sk[0]
+
+
+def batched_graph_arrays(cg: CompiledGraph, jvals: np.ndarray, device="cpu") -> ce.GraphArrays:
+    """``classical.GraphArrays`` of the union topology ``cg`` with the
+    per-replica couplings ``jvals [R, nedges]`` on every coupling field (a
+    leading replica axis), the JAX package's ``batched_graph_arrays``. The
+    pair flips use the union's strong edge classes, which are strong for every
+    replica's overlay too."""
+    jm = np.zeros((jvals.shape[0], cg.nvars, cg.max_deg))
+    jm[:, cg.edge_a, cg.edge_slot_a] = jvals
+    jm[:, cg.edge_b, cg.edge_slot_b] = jvals
+    return ce._assemble(cg.neighbors, jm, cg.degree, cg.edge_a, cg.edge_b, jvals, cg.color_sites,
+                        cg.strong_ecolor_edges, ce._slot_eid_np(cg), device)
 
 
 class LatticeTempering:
@@ -154,12 +188,9 @@ class LatticeTempering:
         gammas = np.array([g["transverse"] for g in self.graphs])
         hs = np.array([g["longitudinal"] for g in self.graphs])
         L = max(choose_ltau(b, g, self.dtau) for b, g in zip(betas, gammas))
-        if any(g["rvb"] for g in self.graphs):
-            raise _not_ported("The RVB (worldline pair-flip) move on a tempering ladder")
+        rvb = np.array([g["rvb"] for g in self.graphs])
         topo = detect_topology(nvars, ea, eb)
-        why = ladder.gate(topo, nvars, L, R)
-        if why:
-            raise _not_ported(f"Tempering off the ladder kernel's path ({why})")
+        generic = bool(rvb.any()) or ladder.gate(topo, nvars, L, R) is not None
         key_data = key_data_from_seeds(np.array([g["seed"] for g in self.graphs], np.uint64))
         if self._restored is not None:
             s = self._restored.to(dev)
@@ -180,11 +211,16 @@ class LatticeTempering:
             p=p,
             log_cosh=torch.log(torch.cosh(a)),
             log_sinh=torch.log(torch.sinh(a)),
-            planes=ladder.build_planes(topo[0], topo[1], nvars, ea, eb, jv, betas, gammas, hs, L, dev),
             s=s.contiguous(),
             key_data=key_data,
             phase=0,
         )
+        if generic:
+            cg = compile_graph_arrays(nvars, ea, eb, np.ones(len(ea)))
+            self._mat.update(ga=batched_graph_arrays(cg, jv, dev), rvb=torch.from_numpy(rvb).to(dev),
+                             any_rvb=bool(rvb.any()))
+        else:
+            self._mat["planes"] = ladder.build_planes(topo[0], topo[1], nvars, ea, eb, jv, betas, gammas, hs, L, dev)
         return self._mat
 
     # ------------------------------------------------------------------- runs
@@ -219,6 +255,8 @@ class LatticeTempering:
         int8 on the device)``."""
         m = self._materialize()
         T, sf, freq = int(timesteps), int(swap_freq) if swap_freq else _NEVER, int(sampling_freq)
+        if "ga" in m:
+            return self._run_generic(m, T, sf, freq, with_energy)
         nsamples = T // freq if freq else 0
         s, planes, dev = m["s"], m["planes"], self.device
         R = s.shape[0]
@@ -255,6 +293,41 @@ class LatticeTempering:
         self.total_swaps += int(accepted)
         out = torch.stack(samples) if samples else s.new_empty((0, R, self.nvars))
         return (self._energy_sum(m, T, sums) if with_energy else None), out
+
+    def _run_generic(self, m: dict, T: int, sf: int, freq: int, with_energy: bool):
+        """``_run`` on the generic route: each sweep is ``worldline.sweep``
+        from its row of the key chain, then (``with_energy``) the energy
+        estimator's compensated sum, then the swap step where one is due, then
+        the sample where one is due."""
+        ga, p, dev = m["ga"], m["p"], self.device
+        R = m["s"].shape[0]
+        nsamples = T // freq if freq else 0
+        uniforms, self._swapkey = swap_uniforms(self._swapkey, T // sf, R)
+        uniforms = torch.from_numpy(uniforms).to(dev)
+        ea, eb = m["ea"].long(), m["eb"].long()
+        esum = kzero(R, dev)
+        accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        samples = []
+
+        def step(t, s, seeds):
+            nonlocal esum, accepted
+            s = wl.sweep(ga, p, s, seeds, True, m["any_rvb"], rvb_replicas=m["rvb"])
+            if with_energy:
+                esum = kadd(esum, wl.total_energy(ga, p, s))
+            if (t + 1) % sf == 0:
+                s, n = self._swap(m, s, swap_features(s, ea, eb), uniforms[(t + 1) // sf - 1], m["phase"])
+                accepted += n
+                m["phase"] = 1 - m["phase"]
+            if freq and (t + 1) % freq == 0 and (t + 1) // freq <= nsamples:
+                samples.append(s[:, :, 0].clone())
+            return s
+
+        slots = wl.sweep_slots(ga, True, m["any_rvb"])
+        m["s"], keys = wl.walk(m["s"], key_tensor(m["key_data"], dev), T, slots, step)
+        m["key_data"] = key_data_of(keys)
+        self.total_swaps += int(accepted)
+        out = torch.stack(samples) if samples else m["s"].new_empty((0, R, self.nvars))
+        return (kfinal(esum) if with_energy else None), out
 
     def _energy_sum(self, m: dict, T: int, sums) -> np.ndarray:
         """The energy estimator summed over ``T`` sweeps, per replica slot, from

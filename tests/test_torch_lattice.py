@@ -45,7 +45,11 @@ def test_port_imports_no_jax():
         "import pyisingmontecarlo_tpu_torch.ops.ladder, pyisingmontecarlo_tpu_torch.utils.cbor\n"
         "import pyisingmontecarlo_tpu_torch.engines.classical, pyisingmontecarlo_tpu_torch.classicising\n"
         "import pyisingmontecarlo_tpu_torch.models, pyisingmontecarlo_tpu_torch.models.lattices\n"
-        "import pyisingmontecarlo_tpu_torch.utils.profiling\n"
+        "import pyisingmontecarlo_tpu_torch.utils.profiling, pyisingmontecarlo_tpu_torch.utils.accum\n"
+        "import pyisingmontecarlo_tpu_torch.qmcising\n"
+        "q = pyisingmontecarlo_tpu_torch.QmcIsing([((0, 1), 1.0), ((1, 2), -1.0)], 1.0, num_experiments=2,\n"
+        "                                         do_rvb_updates=True, device='cpu')\n"
+        "q.run_qmc(1.0, 2); q.run_cluster(); q.run_rvb(); q.run_bond_sampling(1.0, 2)\n"
         "lt = pyisingmontecarlo_tpu_torch.LatticeTempering([((i, (i + 1) % 4), -1.0) for i in range(4)],\n"
         "                                                  seed=0, device='cpu')\n"
         "lt.add_graph(1.0, 0.0, 0.5)\n"
@@ -155,8 +159,9 @@ def test_energy_matches_exact_enumeration():
 
 def test_unported_branches_raise():
     """Every classical branch runs now (the graph engine takes what the torus
-    kernel does not); the quantum methods off the worldline kernel's lattices,
-    QmcIsing and QmcRunner still raise, naming their ROADMAP.md item."""
+    kernel does not), and so do the quantum methods off the worldline kernel's
+    lattices (the generic worldline engine) and QmcIsing; QmcRunner still
+    raises, naming its ROADMAP.md item."""
     port = tpmc.Lattice(grid_2d_edges(4, 4), device="cpu")
     for setup in (
         lambda l: l.set_individual_bias(0, 0.5),
@@ -172,18 +177,17 @@ def test_unported_branches_raise():
     es, st = chain.run_monte_carlo_annealing([(0, 0.1)], 2, 2)
     assert es.shape == (2,) and st.shape == (2, 3)
     chain.set_transverse_field(1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        chain.run_quantum_monte_carlo(1.0, 2, 2)
+    es, st = chain.run_quantum_monte_carlo(1.0, 2, 2)
+    assert es.shape == (2,) and np.isfinite(es).all() and st.shape == (2, 3)
     lat = port.clone()
     lat.set_transverse_field(1.0)
     with pytest.raises(ValueError, match="transverse"):
         lat.run_monte_carlo(0.3, 2, 2)
     with pytest.raises(ValueError):
         tpmc.Lattice([], device="cpu")
-    assert tpmc.ClassicIsing is not None
-    for name in ("QmcIsing", "QmcRunner"):
-        with pytest.raises(AttributeError, match="ROADMAP.md"):
-            getattr(tpmc, name)
+    assert tpmc.ClassicIsing is not None and tpmc.QmcIsing is not None
+    with pytest.raises(AttributeError, match="ROADMAP.md"):
+        getattr(tpmc, "QmcRunner")
 
 
 def test_state_interop_round_trip():

@@ -147,17 +147,21 @@ def test_autocorrelation_device_close_to_jax():
 
 
 def test_unported_and_invalid_quantum_branches():
+    """Graphs off the kernel's lattices and RVB runs take the generic engine
+    (tests/test_torch_worldline_generic.py holds it to the JAX package);
+    the invalid branches raise."""
     tri = [((0, 1), 1.0), ((1, 2), 1.0), ((0, 2), 1.0)]
     for edges in (tri, grid_2d_edges(4, 4, -1.0)[:-1]):
         lat = Lattice(edges, device="cpu")
         lat.set_transverse_field(1.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            lat.run_quantum_monte_carlo(1.0, 2, 2)
+        es, st = lat.run_quantum_monte_carlo(1.0, 2, 2)
+        assert es.shape == (2,) and np.isfinite(es).all() and st.shape == (2, lat.nvars)
     lat = Lattice(RING8, device="cpu")
     lat.set_transverse_field(1.0)
     lat.set_enable_rvb_update(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lat.run_quantum_monte_carlo_sampling(1.0, 2, 2)
+    assert not lat._worldline(2, 1.0).on_kernel()
+    es, ss = lat.run_quantum_monte_carlo_sampling(1.0, 2, 2)
+    assert es.shape == (2,) and ss.shape == (2, 2, 8)
     lat = Lattice(RING8, device="cpu")
     with pytest.raises(ValueError, match="transverse"):
         lat.run_quantum_monte_carlo(1.0, 2, 2)
