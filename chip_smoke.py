@@ -134,11 +134,35 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   off the ladder kernel's gate; cluster sizes and RVB ratios in
                   range.
 
+28. compare-qmcrunner the generic k-local engine on the card vs on the CPU:
+                  QmcRunner on a 5-ring with ZZ, X, XX and ZZZ terms and a free
+                  variable, both routes forced, with and without do_loop, bit
+                  for bit (states, samples, bond counts, keys); one gm sweep of
+                  the hard n = 32, R = 64 system at full width with its
+                  Glauber ties counted (the card replays the CPU's decisions);
+                  threefry_chain's fan, slice and bits slots vs its numpy
+                  version bit for bit (a plan of every kind, the do_loop plan,
+                  the hard plan at 100 sweeps x R = 64, timed with its bound);
+29. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
+                  and bench_qmcrunner.py time it, depth cut to a quarter: the
+                  hard n = 32 system (ZZ, X, XX, ZZZ on a ring; R = 64, beta 1;
+                  slope between 50 and 200 sweeps) and the 64-site TFIM chain
+                  (slope between 100 and 400): sweeps/s, site-subslice updates/s, the route, set-up
+                  seconds, torch and device operations a sweep, device ms a
+                  sweep and the idle share (torch.profiler over 20 sweeps), one
+                  threefry_chain launch a call; the chain against the exact
+                  free-fermion energy;
+30. crossover-qmcrunner the hard family at n = 128, R = 64 on both routes
+                  forced: sweeps/s and set-up (the gate's price at one size);
+31. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
+                  and an 8-ring with ZZZ triples, 256 replicas.
+
 Each entry of the kernels line takes its times and bound from one shape,
 that of the first main path that launched it; its launches are the sum over
 the main paths that launched it, each counted from 0 (wl_tiled plain sweeps:
 main-quantum and main-qmcising-lattice; wl_resident: main-chain and
-main-qmcising-lattice; threefry_chain: main-classical and main-qmcising).
+main-qmcising-lattice; threefry_chain: main-classical, main-qmcising and
+main-qmcrunner).
 
 Then one JSON line with the kernels, and last ``{"ok": true, "device": ...}``.
 Needs torch with CUDA, nvcc and numpy; imports no jax.
@@ -1501,8 +1525,18 @@ GLASS_NS, GLASS_R, GLASS_BETA = (4096, 16384), 64, 1.5
 # path runs at most one of them a cycle at the SM clock
 THREEFRY_OPS, THREEFRY_ALU_OPS = 68, 50
 SM_CLOCK_HZ = 1.98e9
-# blocks of each slot kind of the chain (rng.KEY_PLAIN, KEY_WORM, KEY_CLUSTER): the split, and the sub-key's work
-CHAIN_BLOCKS = {0: 2, 1: 8, 2: 7}
+# blocks of a slot of the chain by kind (rng.KEY_PLAIN, KEY_WORM, KEY_CLUSTER, KEY_FAN, KEY_SLICE, KEY_BITS): the
+# split, and the sub-key's work (a fan of m: 2 a split of its inner chain; bits: 1 a word)
+CHAIN_BLOCKS = {0: lambda m: 2, 1: lambda m: 8, 2: lambda m: 7, 3: lambda m: 2 + 2 * m, 4: lambda m: 8,
+                5: lambda m: 2 + m}
+
+
+def _slot_blocks(slot):
+    from pyisingmontecarlo_tpu_torch.rng import _slot
+
+    kind, m = _slot(slot)
+    return CHAIN_BLOCKS[kind](m)
+
 
 THREEFRY_PROBE = r"""
 #include "keychain.cu"
@@ -1551,13 +1585,13 @@ def chain_bound(kinds, T, R):
     """(least ms, "bytes" or "operations", which term set it) of the key
     chain: the larger of its table bytes at the HBM rate, all its blocks' ALU
     instructions at the integer rate, and one warp's issue of its own
-    replicas' chain (every block of every slot, T * sum(CHAIN_BLOCKS) of them
+    replicas' chain (every block of every slot, T * the plan's CHAIN_BLOCKS
     a thread, one instruction a cycle at the SM clock)."""
     from pyisingmontecarlo_tpu_torch.rng import chain_columns
 
     C, W = chain_columns(kinds)
     nbytes = 4 * T * R * (C + W) + 16 * R
-    blocks = T * sum(CHAIN_BLOCKS[k] for k in kinds)
+    blocks = T * sum(_slot_blocks(k) for k in kinds)
     ops = THREEFRY_ALU_OPS * R * blocks
     t_bytes, t_alu = bound(nbytes, ops)[0], ops / INT32_OPS_PER_S * 1e3
     t_issue = THREEFRY_OPS * blocks / SM_CLOCK_HZ * 1e3
@@ -2279,6 +2313,390 @@ def phase_physics_qmcising(dev):
           f"L_tau={q._w.L}, run_rvb ratios {ratios.min():.3f}..{ratios.max():.3f}", flush=True)
 
 
+# the QmcRunner main path: benches/bench_qmcrunner_hard.py's system (a ring of n = 32 with ZZ bonds J = -1, X
+# fields Gamma = 1, XX bonds jx = 0.5 and ZZZ triples k3 = 0.25; R = 64, beta = 1) and benches/bench_qmcrunner.py's
+# 64-site TFIM chain as generic terms (R = 64, beta = 1), each timed by the slope between two run_sampling calls
+# as the benches time it, depth cut to a quarter (the benches' 200 -> 800 and 400 -> 1600 sweeps took ~270 s of
+# the script's time at 6-27 sweeps/s); the hard family at n = 128 prices the route gate
+QR_N, QR_R, QR_BETA = 32, 64, 1.0
+QR_SLOPE, QR_CHAIN_SLOPE = (50, 200), (100, 400)
+QR_CROSS_N, QR_CROSS_SWEEPS = 128, (3, 9)
+# physics-qmcrunner: XX bonds mix slowly (term kinks); at beta 0.5 a 6-ring settles within 300 sweeps
+QR_PHYS = (("6-ring ZZ + X(0.7) + XX(0.5)", 6, dict(gamma=0.7, jx=0.5, k3=0.0), 0.5, 300, 200),
+           ("8-ring ZZ + X(0.8) + ZZZ(0.4)", 8, dict(gamma=0.8, jx=0.0, k3=0.4), 1.0, 100, 200))
+# the tolerance of tests/test_generic_gm.py on a delta: a Glauber decision whose delta differs by no more
+# between the card and the CPU is a tie of f32 rounding
+QR_DELTA_ATOL, QR_DELTA_RTOL = 3e-4, 1e-4
+
+
+def _zz(j):
+    return np.array([j * (1 if (i & 1) else -1) * (1 if (i & 2) else -1) for i in range(4)], np.float64)
+
+
+def _zzz(k):
+    return np.array([k * np.prod([1 if (i >> b) & 1 else -1 for b in range(3)]) for i in range(8)], np.float64)
+
+
+def _xx(jx):
+    m = np.zeros((4, 4))
+    for a in range(4):
+        m[a, a ^ 3] = -jx
+    return m.reshape(-1)
+
+
+def _x(gamma):
+    return np.array([0.0, -gamma, -gamma, 0.0])
+
+
+def hard_terms(n, gamma=1.0, jx=0.5, k3=0.25, ring=None):
+    """benches/bench_qmcrunner_hard.py's terms on a ring of ``ring`` (default
+    n) of the n variables, XX and ZZZ left out where jx or k3 is 0:
+    [(kind, matrix, vars)]."""
+    ring = n if ring is None else ring
+    out = []
+    for i in range(ring):
+        out += [("diag", _zz(-1.0), [i, (i + 1) % ring]), ("full", _x(gamma), [i])]
+        if jx:
+            out.append(("full", _xx(jx), [i, (i + 1) % ring]))
+        if k3:
+            out.append(("diag", _zzz(k3), [i, (i + 1) % ring, (i + 2) % ring]))
+    return out
+
+
+def chain_terms(n, gamma=1.0):
+    """benches/bench_qmcrunner.py's 64-site TFIM chain as generic terms."""
+    out = []
+    for i in range(n):
+        out += [("diag", _zz(-1.0), [i, (i + 1) % n]), ("full", _x(gamma), [i])]
+    return out
+
+
+def qmc_runner(nvars, R, terms, dev, seed=0, **kw):
+    from pyisingmontecarlo_tpu_torch import QmcRunner
+
+    q = QmcRunner(nvars, R, seed=seed, device=dev, **kw)
+    for kind, mat, vs in terms:
+        (q.add_diagonal_interaction if kind == "diag" else q.add_interaction)(mat, vs)
+    return q
+
+
+class _route:
+    """PMC_GENERIC_GM set to ``mode`` for the duration (None: unset)."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get("PMC_GENERIC_GM")
+        if self.mode is None:
+            os.environ.pop("PMC_GENERIC_GM", None)
+        else:
+            os.environ["PMC_GENERIC_GM"] = self.mode
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.old is None:
+            os.environ.pop("PMC_GENERIC_GM", None)
+        else:
+            os.environ["PMC_GENERIC_GM"] = self.old
+
+
+def qr_full_width_sweep(dev):
+    """One gm sweep of the hard n = 32, R = 64 system at full width, on the
+    card and on the CPU from the same state (after 5 sweeps on the card from
+    a random start) and keys. The CPU's Glauber decisions are recorded, and
+    the card's run replays them: each card decision is compared with the
+    CPU's, every differing one must have deltas within QR_DELTA_ATOL +
+    QR_DELTA_RTOL |delta| of each other (a tie), and the CPU's decision is
+    kept so that the two runs stay aligned; the uniforms must be equal bit
+    for bit, and so must the final planes and keys. Returns (decisions,
+    ties, largest |delta difference| over all decisions with |delta| < 80)."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.engines import generic as ge
+    from pyisingmontecarlo_tpu_torch.engines import generic_gm as gg
+    from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain
+
+    with _route(None):
+        q = qmc_runner(QR_N, QR_R, hard_terms(QR_N), dev, seed=11)
+        q.run_sampling(QR_BETA, 5)
+    w = q._w
+    check(w.use_gm, "the hard n = 32 system took the classic route")
+    gs_c = gg.compile_gm(w.comp, QR_N, "cpu")
+    kinks_c = gg.compile_gm_kinks(w.comp, gs_c, "cpu")
+    plan = ge.sweep_plan(w.comp, w.ltau, False, gm=True)
+    seeds, v0, keys = threefry_chain(key_tensor(w.key_data, "cpu"), plan, 1, 1)
+    s = w.s.cpu()
+    record, stats = [], {"decisions": 0, "ties": 0, "max_dd": 0.0}
+
+    def rec(u, delta):
+        acc = u < torch.sigmoid(delta)
+        record.append((u, delta, acc))
+        return acc
+
+    def replay(u, delta):
+        u_c, d_c, acc_c = record[len(stats.setdefault("seen", []))]
+        stats["seen"].append(1)
+        check(torch.equal(u.cpu(), u_c), "full-width gm sweep: the uniforms differ between the card and the CPU")
+        d = delta.cpu()
+        acc = u.cpu() < torch.sigmoid(d)
+        diff = acc != acc_c
+        dd = (d - d_c).abs()
+        live = (d_c.abs() < 80) & (d.abs() < 80)
+        stats["decisions"] += acc.numel()
+        stats["max_dd"] = max(stats["max_dd"], float(dd[live].max()) if live.any() else 0.0)
+        if diff.any():
+            tol = QR_DELTA_ATOL + QR_DELTA_RTOL * d_c.abs()
+            check(bool((dd[diff] <= tol[diff]).all()), f"full-width gm sweep: {int(diff.sum())} decisions differ, "
+                                                        f"some with deltas further apart than the tolerance")
+            stats["ties"] += int(diff.sum())
+        return acc_c.to(u.device)
+
+    old = gg.glauber
+    try:
+        gg.glauber = rec
+        with ce.exact_f32_matmul():
+            want = gg.sweep_gm(gs_c, kinks_c, gg.to_gm(s, w.comp.G), seeds[0], v0[0], QR_R, False)
+        gg.glauber = replay
+        with ce.exact_f32_matmul():
+            got = gg.sweep_gm(w.gs, w.kinks, gg.to_gm(s.to(dev), w.comp.G), seeds[0].to(dev), v0[0].to(dev), QR_R,
+                              False)
+    finally:
+        gg.glauber = old
+    check(len(stats["seen"]) == len(record), f"{len(stats['seen'])} card decisions, {len(record)} on the CPU")
+    check(torch.equal(got.cpu(), want), "full-width gm sweep: the planes differ after the replayed decisions")
+    _, _, keys_card = threefry_chain(key_tensor(w.key_data, dev), plan, 1, 1)
+    check(torch.equal(keys_card.cpu(), keys), "full-width gm sweep: keys differ")
+    return stats["decisions"], stats["ties"], stats["max_dd"]
+
+
+def phase_compare_qmcrunner(dev, smi):
+    """The generic k-local engine on the card against the same engine on the
+    CPU: QmcRunner on a 5-ring with ZZ, X, XX and ZZZ terms and a free sixth
+    variable, on both routes (forced) with and without do_loop: states,
+    samples, bond counts and keys bit for bit, energies within QMC_E_RTOL; one
+    full-width gm sweep of the hard n = 32 system with its ties counted
+    (qr_full_width_sweep); threefry_chain with the generic sweep's slots
+    (fan, slice, bits) against its numpy version bit for bit: a plan of every
+    kind, the do_loop plan, and the hard n = 32 plan at 100 sweeps x R = 64,
+    with its time, bound and the numpy chain's time. Returns (largest |difference|
+    of the chain, its ms, the numpy chain's ms, bound ms, bound_by)."""
+    from pyisingmontecarlo_tpu_torch.engines import generic as ge
+    from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain, threefry_chain_reference
+
+    for route, mode in (("gm", "1"), ("classic", "0")):
+        for loop in (False, True):
+            res = {}
+            with _route(mode):
+                for d in ("cpu", dev):
+                    q = qmc_runner(6, 8, hard_terms(6, ring=5), d, seed=3, do_loop_updates=loop)
+                    es, ss = q.run_sampling(QR_BETA, 6, sampling_wait_buffer=2, sampling_freq=2)
+                    counts = q.run_bond_sampling(QR_BETA, 2)
+                    res[str(d)] = (q._w.s.cpu().numpy(), ss, counts, q._w.key_data, es, q._w.use_gm)
+            a, b = res["cpu"], res[str(dev)]
+            check(a[5] == b[5] == (route == "gm"), f"compare-qmcrunner: route {a[5]} {b[5]}, want {route}")
+            diff = [int((x != y).sum()) for x, y in zip(a[:4], b[:4])]
+            check(sum(diff) == 0, f"compare-qmcrunner {route}, do_loop {loop}: {diff} differing values, card vs CPU")
+            err = float(np.abs(a[4] - b[4]).max() / np.abs(a[4]).max())
+            check(err <= QMC_E_RTOL, f"compare-qmcrunner {route}, do_loop {loop}: energies differ by {err:.3g}")
+            print(f"compare-qmcrunner: QmcRunner on a 5-ring (ZZ, X, XX, ZZZ) and a free variable, R=8, {route} route, "
+                  f"do_loop {loop}: run_sampling (wait 2, 6 sweeps, freq 2) and run_bond_sampling: card == CPU bit for "
+                  f"bit (states, samples, bond counts, keys); energies within {QMC_E_RTOL:g} relative", flush=True)
+    t0 = time.perf_counter()
+    decisions, ties, max_dd = qr_full_width_sweep(dev)
+    print(f"compare-qmcrunner: one gm sweep of the hard system at full width (n={QR_N}, R={QR_R}, beta {QR_BETA}; the "
+          f"card replays the CPU's decisions): {decisions} Glauber decisions, {ties} differ, all ties (deltas within "
+          f"{QR_DELTA_ATOL:g} + {QR_DELTA_RTOL:g} |delta|); largest |delta difference| {max_dd:.3g}; planes and keys "
+          f"equal ({time.perf_counter() - t0:.1f} s)", flush=True)
+    with _route(None):
+        w = qmc_runner(QR_N, QR_R, hard_terms(QR_N), "cpu")._ensure(QR_BETA)
+    plan = ge.sweep_plan(w.comp, w.ltau, False, gm=True)
+    loop_plan = ge.sweep_plan(w.comp, w.ltau, True)
+    every = [0, (3, 5), 1, (4, 10), 2, (5, 33), (3, 0), (4, 70000), (5, 0), (3, 1), (4, 1)]
+    err = 0
+    for name, p, T, R, seed in (("every slot kind", every, 64, 33, 41), ("the do_loop plan", loop_plan, 20, QR_R, 42),
+                                ("the hard n=32 plan", plan, 100, QR_R, 43)):
+        kd = _keys(R, seed)
+        t0 = time.perf_counter()
+        want = threefry_chain_reference(kd, p, T, 1000)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = [g.cpu().numpy() for g in threefry_chain(key_tensor(kd, dev), p, T, 1000)]
+        want = [want[0], want[1], key_tensor(want[2], "cpu").numpy()]
+        for g, x in zip(got, want):
+            check(g.shape == x.shape, f"compare-qmcrunner {name}: shape {g.shape} vs {x.shape}")
+            err = max(err, int(np.abs(g.astype(np.int64) - x.astype(np.int64)).max()) if g.size else 0)
+        check(err == 0, f"compare-qmcrunner: threefry_chain of {name} != its numpy version (max |diff| {err})")
+        print(f"compare-qmcrunner: threefry_chain, {name} ({len(p)} slots, {sum(_slot_blocks(k) for k in p)} blocks a "
+              f"step, x {T} x R={R}) == its numpy version bit for bit (seeds {got[0].shape}, int words {got[1].shape}; "
+              f"numpy {plain_ms:.3f} ms)", flush=True)
+    kt = key_tensor(_keys(QR_R, 43), dev)
+    threefry_chain(kt, plan, 100, 1)
+    runs = [event_ms(lambda: threefry_chain(kt, plan, 100, 1), 1) for _ in range(5)]
+    b_ms, b_by, b_what = chain_bound(plan, 100, QR_R)
+    print(f"compare-qmcrunner: threefry_chain, the hard n={QR_N} plan ({len(plan)} slots, {sum(_slot_blocks(k) for k in plan)}"
+          f" blocks a sweep) x 100 sweeps x R={QR_R} on {smi}: median {np.median(runs):.5f} ms (runs {runs}), bound "
+          f"{b_ms:.5f} ms ({b_by}: {b_what}); numpy {plain_ms:.3f} ms", flush=True)
+    return err, float(np.median(runs)), plain_ms, b_ms, b_by
+
+
+def _qr_rate(q, slope, beta=QR_BETA):
+    """(sweeps/s, the two calls' walls) of run_sampling as the benches take
+    it: the slope between a ``slope[0]``- and a ``slope[1]``-sweep call, after
+    a 10-sweep warm-up."""
+    q.run_sampling(beta, 10)
+    wall = {}
+    for T in slope:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q.run_sampling(beta, T)
+        torch.cuda.synchronize()
+        wall[T] = time.perf_counter() - t0
+    return (slope[1] - slope[0]) / (wall[slope[1]] - wall[slope[0]]), wall
+
+
+def phase_main_qmcrunner(dev, smi):
+    """The QmcRunner main path through run_sampling on the card, as the
+    benches time it (depth cut to a quarter): the hard n = 32 system (50 and
+    200 sweeps) and the 64-chain (100 and 400): sweeps/s and site-subslice
+    updates/s, the route,
+    the host set-up (compile_terms, compile_gm, the device tables), torch and
+    device operations a sweep, device ms a sweep and the idle share
+    (torch.profiler over a 20-sweep call), the threefry_chain launches (one a
+    call). Checks energies and samples, and the chain's energy against the
+    exact free-fermion one. Returns (threefry_chain launches, {name: sweeps/s})."""
+    from pyisingmontecarlo_tpu_torch.engines import generic as ge
+    from pyisingmontecarlo_tpu_torch.engines import generic_gm as gg
+
+    launches, rates = 0, {}
+    for name, n, terms, slope in (("hard n=32", QR_N, hard_terms(QR_N), QR_SLOPE),
+                                  ("64-chain", 64, chain_terms(64), QR_CHAIN_SLOPE)):
+        with _route(None):
+            t0 = time.perf_counter()
+            q = qmc_runner(n, QR_R, terms, dev)
+            w = q._ensure(QR_BETA)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        comp = ge.compile_terms(n, q.terms.terms, w.dtau)
+        t_terms = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gg.compile_gm(comp, n, "cpu")
+        t_gm = time.perf_counter() - t0
+        reset_counts()
+        rate, wall = _qr_rate(q, slope)
+        counts = read_counts()
+        check(counts == counts_only(keychain=3), f"{name}: launch counts {counts}, want 3 threefry_chain launches only")
+        launches += counts["keychain"]
+        rates[name] = rate
+        es, ss = q.run_sampling(QR_BETA, 40, sampling_freq=4)
+        check(es.shape == (QR_R,) and np.isfinite(es).all() and ss.shape == (QR_R, 10, n) and ss.dtype == np.bool_,
+              f"{name}: energies {es.shape}, samples {ss.shape} {ss.dtype}")
+        check(np.array_equal(ss[:, -1], (w.s[:, :, 0] == 1).cpu().numpy()), f"{name}: the last sample != slice 0")
+        e, se = es.mean() / n, es.std(ddof=1) / np.sqrt(QR_R) / n
+        if name == "64-chain":
+            exact = chain_energy(n, QR_BETA, 1.0)
+            check(abs(e - exact) < 4 * se + 0.03, f"64-chain: e/site {e} vs exact {exact} (se {se})")
+            e_line = f"e/site {e:.5f} (exact free-fermion {exact:.5f}, se {se:.5f})"
+        else:
+            check(-3.0 < e < -0.8, f"hard n=32: e/site {e}")
+            e_line = f"e/site {e:.5f} (se {se:.5f})"
+        steps = 20
+        ops, dlaunch, idle, per = _profile_call(lambda: q.run_sampling(QR_BETA, steps), steps)
+        dev_line = ("device time not measured (the profiler recorded none)" if per is None else
+                    f"{dlaunch:.1f} device operations a sweep, {sum(per.values()) / steps:.3f} device ms a sweep, "
+                    f"device idle {idle:.2f}% of the call; device ms by kernel "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per.items())))
+        print(f"main-qmcrunner: {name} (n={n}, R={QR_R}, beta {QR_BETA}, {len(q.terms.terms)} terms; G={w.comp.G}, "
+              f"{len(w.comp.color_sites)} site colors, {len(w.comp.tkink)} term-kink colors, L_tau={w.ltau}, "
+              f"Lt={w.Lt}; {'gm' if w.use_gm else 'classic'} route, {len(ge.sweep_plan(w.comp, w.ltau, False, True))} "
+              f"key slots a sweep) on {smi}: run_sampling slope {slope[0]} -> {slope[1]} sweeps "
+              f"({wall[slope[0]]:.3f} s, {wall[slope[1]]:.3f} s): {rate:.3f} sweeps/s = "
+              f"{QR_R * n * w.Lt * rate:.4g} site-subslice updates/s; set-up {setup:.3f} s (QmcRunner, compile_terms, "
+              f"compile_gm and device tables; compile_terms alone {t_terms:.3f} s, compile_gm's host part "
+              f"{t_gm:.3f} s); {counts['keychain']} threefry_chain launches (one a call); {e_line}", flush=True)
+        print(f"main-qmcrunner: {name}, a {steps}-sweep run_sampling under torch.profiler on {smi}: {ops:.1f} torch "
+              f"operations a sweep; {dev_line}", flush=True)
+    return launches, rates
+
+
+def phase_crossover_qmcrunner(dev, smi):
+    """The hard family at n = 128, R = 64 on both routes forced (the gate
+    admits gm there: G*n*TT under PMC_GM_MAX): sweeps/s, the slope between
+    3- and 9-sweep run_sampling calls after a 2-sweep warm-up, and each
+    route's set-up. Returns {route: sweeps/s}."""
+    out = {}
+    for route, mode in (("gm", "1"), ("classic", "0")):
+        with _route(mode):
+            t0 = time.perf_counter()
+            q = qmc_runner(QR_CROSS_N, QR_R, hard_terms(QR_CROSS_N), dev)
+            w = q._ensure(QR_BETA)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+        check(w.use_gm == (route == "gm"), f"crossover: route {w.use_gm}")
+        wall = {}
+        q.run_sampling(QR_BETA, 2)
+        for T in QR_CROSS_SWEEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.run_sampling(QR_BETA, T)
+            torch.cuda.synchronize()
+            wall[T] = time.perf_counter() - t0
+        lo, hi = QR_CROSS_SWEEPS
+        out[route] = (hi - lo) / (wall[hi] - wall[lo])
+        print(f"crossover-qmcrunner: the hard family at n={QR_CROSS_N}, R={QR_R} (G={w.comp.G}, "
+              f"G*n*TT={w.comp.G * QR_CROSS_N * w.comp.nterms}), {route} route forced, on {smi}: {out[route]:.3f} "
+              f"sweeps/s ({lo} -> {hi} sweeps: {wall[lo]:.3f} s, {wall[hi]:.3f} s) = "
+              f"{QR_R * QR_CROSS_N * w.Lt * out[route]:.4g} site-subslice updates/s; set-up {setup:.3f} s", flush=True)
+    return out
+
+
+def phase_physics_qmcrunner(dev):
+    """<E> on the card within 4 se + 0.1 of dense diagonalization (the bound
+    of tests/test_qmcrunner.py's XX and ZZZ checks): a 6-ring with ZZ, X and
+    XX bonds (beta 0.5) and an 8-ring with ZZ, X and ZZZ triples (beta 1),
+    256 replicas each."""
+    out = []
+    for name, n, kw, beta, wait, T in QR_PHYS:
+        terms = hard_terms(n, **kw)
+        with _route(None):
+            q = qmc_runner(n, 256, terms, dev, seed=5)
+            t0 = time.perf_counter()
+            es, _ = q.run_sampling(beta, T, sampling_wait_buffer=wait)
+            dt = time.perf_counter() - t0
+        dense = [(np.asarray(mat, np.float64).reshape(2 ** len(vs), 2 ** len(vs)) if kind == "full"
+                  else np.diag(mat), tuple(vs)) for kind, mat, vs in terms]
+        exact = dense_terms_energy(n, dense, beta)
+        m, se = es.mean(), es.std(ddof=1) / np.sqrt(len(es))
+        check(abs(m - exact) < 4 * se + 0.1, f"physics-qmcrunner {name}: <E> {m} vs dense {exact} (se {se})")
+        out.append(f"{name}, beta {beta}, wait {wait} + {T} sweeps ({dt:.1f} s): <E> {m:.4f} (dense {exact:.4f}, "
+                   f"se {se:.4f}, {'gm' if q._w.use_gm else 'classic'} route)")
+    print("physics-qmcrunner: " + "; ".join(out), flush=True)
+
+
+def dense_terms_energy(nvars, terms, beta):
+    """<E> by dense diagonalization of H = sum_t M_t, each M_t a 2^k x 2^k
+    matrix over its variables (local index sum_m bit_m << m, bit 1 = up;
+    tests/helpers.dense_terms_energy)."""
+    dim = 2**nvars
+    H = np.zeros((dim, dim))
+    for mat, vs in terms:
+        k = len(vs)
+        for st in range(dim):
+            idx_in = sum(((st >> vs[m]) & 1) << m for m in range(k))
+            for idx_out in range(2**k):
+                if mat[idx_in, idx_out] == 0.0:
+                    continue
+                st_out = st
+                for m in range(k):
+                    st_out = (st_out & ~(1 << vs[m])) | (((idx_out >> m) & 1) << vs[m])
+                H[st_out, st] += mat[idx_in, idx_out]
+    w = np.linalg.eigvalsh(H)
+    zw = np.exp(-beta * (w - w.min()))
+    return float((w * zw).sum() / zw.sum())
+
+
 def main():
     smi = phase_gpu()
     dev = torch.device("cuda", 0)
@@ -2309,6 +2727,12 @@ def main():
     qmc_keychain_launches, _ = phase_main_qmcising(dev, smi)
     qmc_tiled_launches, qmc_resident_launches = phase_main_qmcising_lattice(dev)
     phase_physics_qmcising(dev)
+    qr_chain_err, qr_chain_ms, qr_chain_plain_ms, qr_chain_bound, qr_chain_by = phase_compare_qmcrunner(dev, smi)
+    qr_keychain_launches, _ = phase_main_qmcrunner(dev, smi)
+    phase_crossover_qmcrunner(dev, smi)
+    phase_physics_qmcrunner(dev)
+    print(f"threefry_chain at the hard n={QR_N} QmcRunner plan (100 sweeps x R={QR_R}) on {smi}: {qr_chain_ms:.5f} ms, "
+          f"bound {qr_chain_bound:.5f} ms ({qr_chain_by}), numpy {qr_chain_plain_ms:.3f} ms", flush=True)
     sites = BENCH_R * BENCH_L**2
     sq_bound, sq_by = bound(2 * sites / 1024, SQ2D_OPS_PER_SITE * sites)  # per sweep of a 1024-sweep call
     wl_src, wl_tpu = "pyisingmontecarlo_tpu_torch/csrc/wl.cu", "pyisingmontecarlo_tpu/ops/wl_pallas.py"
@@ -2340,9 +2764,10 @@ def main():
         dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_res_launches, max_abs_err=ladder_res_err, **timed(ladder_t["resident"])),
         dict(name="threefry_chain", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
-             replaces="pyisingmontecarlo_tpu/engines/classical.py:675 and engines/worldline.py:396 (the XLA "
-                      "split_keys chains of time_step and sweep; no Pallas kernel)",
-             launches=keychain_launches + qmc_keychain_launches, max_abs_err=chain_err, ms=chain_ms,
+             replaces="pyisingmontecarlo_tpu/engines/classical.py:675, engines/worldline.py:396 and "
+                      "engines/generic.py:878 (the XLA split_keys chains of time_step and the sweeps; no Pallas kernel)",
+             launches=keychain_launches + qmc_keychain_launches + qr_keychain_launches,
+             max_abs_err=max(chain_err, qr_chain_err), ms=chain_ms,
              plain_ms=chain_plain_ms,
              bound_ms=chain_bound_ms, bound_by=chain_by, library_ms=None),
     ]

@@ -9,27 +9,17 @@ methods on any graph (``engines/worldline.py``: the kernels of ``ops/wl.py``
 on a uniform periodic ring or square torus, else the generic colored
 worldline engine); :class:`ClassicIsing`; :class:`QmcIsing`;
 :class:`LatticeTempering` on any ladder (``ops/ladder.py`` on ring and torus
-ladders, else the generic engine). ``QmcRunner`` is listed in ROADMAP.md as
-still to port.
+ladders, else the generic engine); :class:`QmcRunner` over arbitrary k-local
+interactions (``engines/generic.py`` and its group-major route
+``engines/generic_gm.py``).
 """
 
 from .classicising import ClassicIsing
 from .lattice import Lattice
 from .qmcising import QmcIsing
+from .qmcrunner import QmcRunner
 from .tempering import LatticeTempering
 
 __version__ = "0.1.0"
 
-__all__ = ["Lattice", "ClassicIsing", "QmcIsing", "LatticeTempering"]
-
-_NOT_PORTED = {
-    "QmcRunner": "item 7",
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"{name} is not ported to torch yet: ROADMAP.md, modules to port, {_NOT_PORTED[name]}"
-        )
-    raise AttributeError(name)
+__all__ = ["Lattice", "ClassicIsing", "QmcIsing", "QmcRunner", "LatticeTempering"]

@@ -1,32 +1,40 @@
-// The threefry2x32 key chain of the classical graph engine for sm_90a: every
-// replica's key split once per move of every time step of a call, and the
+// The threefry2x32 key chains of the graph engines for sm_90a: every replica's
+// key split once per move of every time step (or sweep) of a call, and the
 // tables the moves read, in one launch.
 //
 // Replaces no Pallas kernel: the JAX package splits the keys inside its XLA
-// step (pyisingmontecarlo_tpu/engines/classical.py, time_step l.655-705 and
-// the splits of _worm_walk l.477-482 and sw_cluster_update l.592-594, through
-// rng.split_keys and jax.random.randint). The semantics and the numpy version
-// it is held to bit for bit are rng.threefry_chain_reference in
+// steps (pyisingmontecarlo_tpu/engines/classical.py, time_step l.655-705 and
+// the splits of _worm_walk l.477-482 and sw_cluster_update l.592-594;
+// engines/worldline.py, sweep; engines/generic.py, sweep l.878-899 with the
+// inner splits of segment_color_update l.771, term_kink_update l.817,
+// slice_color_update l.745-746 and free_var_update l.873, and
+// engines/generic_gm.py, sweep_gm l.761-790), through rng.split_keys,
+// jax.random.randint and jax.random.bernoulli. The semantics and the numpy
+// version it is held to bit for bit are rng.threefry_chain_reference in
 // pyisingmontecarlo_tpu_torch/rng.py.
 //
-// One thread per replica walks its key through T steps of S slots (kinds[S]:
-// 0 plain, 1 worm, 2 cluster). Each slot splits the key, keys, sub = split(key),
-// and writes int32 lane seeds (k0 ^ 0x9E3779B9 ^ (k1 << 1)) into
-// seeds[T][C][R] (C columns a step: one for plain and worm slots, three for a
-// cluster slot), and for a worm slot the start site randint(k0, nvars) into
-// v0[T][W][R] with jax's algorithm; keys_out gets each replica's key after
-// the T steps. threefry2x32 is the 20-round block function with the key
-// schedule (k0, k1, k0 ^ k1 ^ 0x1BD11BDA); split(k) is the block at counters
-// (0, 0) and (0, 1), 32 random bits the xor of the two words at (0, 0).
+// One thread per replica walks its key through T steps of S slots
+// (plan[S][2]: kind, param). Each slot splits the key, keys, sub = split(key),
+// then by kind: 0 plain writes the int32 lane seed (k0 ^ 0x9E3779B9 ^ (k1 << 1))
+// of sub; 1 worm and 4 slice write the lane seed of split(sub)[0] and
+// randint(split(sub)[1], param) with jax's algorithm (param: nvars for a worm,
+// the slice count for a slice); 2 cluster writes three lane seeds; 3 fan walks
+// sub, k = split(sub) param times and writes each k's lane seed; 5 bits writes
+// the param words of bernoulli(sub, 0.5, (param,)), 1 where the word's top bit
+// is 0. Lane seeds go to seeds[T][C][R], randint draws and bits to v0[T][W][R]
+// (C and W: rng.chain_columns); keys_out gets each replica's key after the T
+// steps. threefry2x32 is the 20-round block function with the key schedule
+// (k0, k1, k0 ^ k1 ^ 0x1BD11BDA); split(k) is the block at counters (0, 0) and
+// (0, 1), the i-th 32 random bits the xor of the two words at (0, i).
 //
 // Bound: the chain is serial along the steps and independent across replicas,
-// so with R threads (100 on the triangular annealing, a block of 128 on one
-// SM) each warp issues its own threads' whole chain: every block of every
-// slot (2 a plain slot, 8 a worm, 7 a cluster), about 70 integer
-// instructions each, at most one instruction a cycle. The tables' bytes
-// (4 * R * C * T) are small beside that. The design
-// keeps the chain in registers and writes each table entry once, coalesced
-// across the replicas of a warp; nothing is read but the plan.
+// so with R threads (64 to 100 on the main paths, one or two blocks of 128 on
+// as many SMs) each warp issues its own threads' whole chain: every block of
+// every slot (2 a plain slot, 8 a worm or slice, 7 a cluster, 2 + 2m a fan,
+// 2 + m a bits slot), about 70 integer instructions each, at most one
+// instruction a cycle. The tables' bytes (4 * R * (C + W) * T) are small beside
+// that. The design keeps the chain in registers and writes each table entry
+// once, coalesced across the replicas of a warp; nothing is read but the plan.
 
 #include <cstdint>
 
@@ -80,8 +88,8 @@ __device__ __forceinline__ int32_t randint(Key k, uint32_t span) {
 }
 
 __global__ void __launch_bounds__(kChainThreads) threefry_chain_kernel(
-    const uint32_t* __restrict__ keys_in, uint32_t* __restrict__ keys_out, const int8_t* __restrict__ kinds, int S,
-    int T, int C, int W, uint32_t span, int R, int32_t* __restrict__ seeds, int32_t* __restrict__ v0) {
+    const uint32_t* __restrict__ keys_in, uint32_t* __restrict__ keys_out, const int32_t* __restrict__ plan, int S,
+    int T, int R, int32_t* __restrict__ seeds, int32_t* __restrict__ v0) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
     Key key{keys_in[2 * r], keys_in[2 * r + 1]};
@@ -89,24 +97,37 @@ __global__ void __launch_bounds__(kChainThreads) threefry_chain_kernel(
     int32_t* vp = v0 + r;
     for (int t = 0; t < T; ++t) {
         for (int k = 0; k < S; ++k) {
-            const Key sub = threefry(key, 0u, 1u);
+            Key sub = threefry(key, 0u, 1u);
             key = threefry(key, 0u, 0u);
-            const int kind = __ldg(kinds + k);
+            const int kind = __ldg(plan + 2 * k);
+            const int param = __ldg(plan + 2 * k + 1);
             if (kind == 0) {
                 *sp = lane_seed(sub);
                 sp += R;
-            } else if (kind == 1) {
+            } else if (kind == 1 || kind == 4) {
                 *sp = lane_seed(threefry(sub, 0u, 0u));
                 sp += R;
-                *vp = randint(threefry(sub, 0u, 1u), span);
+                *vp = randint(threefry(sub, 0u, 1u), static_cast<uint32_t>(param));
                 vp += R;
-            } else {
+            } else if (kind == 2) {
                 const Key k1 = threefry(sub, 0u, 0u);
                 sp[0] = lane_seed(threefry(sub, 0u, 1u));
                 const Key k2 = threefry(k1, 0u, 0u);
                 sp[R] = lane_seed(threefry(k1, 0u, 1u));
                 sp[2 * R] = lane_seed(threefry(k2, 0u, 1u));
                 sp += 3 * R;
+            } else if (kind == 3) {
+                for (int j = 0; j < param; ++j) {
+                    *sp = lane_seed(threefry(sub, 0u, 1u));
+                    sub = threefry(sub, 0u, 0u);
+                    sp += R;
+                }
+            } else {
+                for (int i = 0; i < param; ++i) {
+                    const Key y = threefry(sub, 0u, static_cast<uint32_t>(i));
+                    *vp = (y.k0 ^ y.k1) < 0x80000000u ? 1 : 0;
+                    vp += R;
+                }
             }
         }
     }
@@ -116,15 +137,16 @@ __global__ void __launch_bounds__(kChainThreads) threefry_chain_kernel(
 
 }  // namespace
 
-// keys_in/keys_out [R][2] uint32, kinds[S] int8, seeds [T][C][R] int32, v0 [T][W][R] int32 (may be null when
-// W == 0). C and W must be the columns and worms of the plan (rng.chain_columns). On the caller's stream.
-extern "C" int threefry_chain(const void* keys_in, void* keys_out, const void* kinds, int S, int T, int C, int W,
-                              int span, int R, void* seeds, void* v0, void* stream) {
-    if (R < 1 || S < 1 || T < 1 || C < S || W < 0 || span < 1 || (W > 0 && v0 == nullptr))
+// keys_in/keys_out [R][2] uint32, plan [S][2] int32 (kind, param: nvars for a worm slot), seeds [T][C][R] int32
+// (may be null when C == 0), v0 [T][W][R] int32 (may be null when W == 0). C and W must be the columns and int
+// words of the plan (rng.chain_columns). On the caller's stream.
+extern "C" int threefry_chain(const void* keys_in, void* keys_out, const void* plan, int S, int T, int C, int W,
+                              int R, void* seeds, void* v0, void* stream) {
+    if (R < 1 || S < 1 || T < 1 || C < 0 || W < 0 || (C > 0 && seeds == nullptr) || (W > 0 && v0 == nullptr))
         return (int)cudaErrorInvalidValue;
     const unsigned grid = (R + kChainThreads - 1) / kChainThreads;
     threefry_chain_kernel<<<grid, kChainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys_in), static_cast<uint32_t*>(keys_out), static_cast<const int8_t*>(kinds),
-        S, T, C, W, static_cast<uint32_t>(span), R, static_cast<int32_t*>(seeds), static_cast<int32_t*>(v0));
+        static_cast<const uint32_t*>(keys_in), static_cast<uint32_t*>(keys_out), static_cast<const int32_t*>(plan),
+        S, T, R, static_cast<int32_t*>(seeds), static_cast<int32_t*>(v0));
     return (int)cudaGetLastError();
 }

@@ -80,6 +80,7 @@ __all__ = [
     "sw_cluster_update",
     "worm_closure_fraction",
     "exact_f32_matmul",
+    "walk",
 ]
 
 _F = torch.float32
@@ -580,29 +581,41 @@ def _dispatch_chunk() -> int:
         return 0
 
 
+def walk(s, keys, T: int, plan: list, step, nvars: int = 1):
+    """``T`` steps of the key plan ``plan`` (``rng.threefry_chain``) on the
+    state ``s``, of any layout: ``step(t, s, seeds [C, R], v0 [W, R]) -> s``.
+    The chain is walked in pieces of ``PMC_STEPS_PER_DISPATCH`` steps (all at
+    once when unset or 0), each cut further so that its tables stay under
+    ``_TABLE_BYTES``; it continues from piece to piece, so any cut gives the
+    same trajectory bit for bit. ``keys`` is ``[R, 2]`` int32 key data on the
+    device, ``nvars`` the worm slots' span. Returns ``(s, keys)``."""
+    C, W = chain_columns(plan)
+    piece = max(1, _TABLE_BYTES // max(1, 4 * (C + W) * keys.shape[0]))
+    piece = min(piece, _dispatch_chunk() or piece)
+    for t0 in range(0, int(T), piece):
+        n = min(piece, int(T) - t0)
+        seeds, v0, keys = threefry_chain(keys, plan, n, nvars)
+        seeds, v0 = seeds.to(s.device), v0.to(s.device)
+        for t in range(n):
+            s = step(t0 + t, s, seeds[t], v0[t])
+    return s, keys
+
+
 def _steps(ga, bias_s, st, keys, beta_arr, moves: dict, on_step=None):
     """``len(beta_arr)`` time steps on a site-major state, the key chain walked
-    in pieces of ``PMC_STEPS_PER_DISPATCH`` steps (all at once when unset or
-    0), each cut further so that its table stays under ``_TABLE_BYTES``;
-    ``on_step(t, st)`` after step t. The chain continues from piece to piece,
-    so any chunking gives the same trajectory bit for bit. Returns ``(st, keys)``."""
+    by ``walk``; ``on_step(t, st)`` after step t. Returns ``(st, keys)``."""
     betas = np.asarray(beta_arr, np.float32).reshape(-1).tolist()
     kinds = step_plan(ga, moves["nspin_sweeps"], moves["nedge_sweeps"], moves["nworms"], moves["only_basic"],
                       moves.get("nclusters", 0))
-    C, W = chain_columns(kinds)
-    R = st.shape[1]
-    piece = max(1, _TABLE_BYTES // max(1, 4 * (C + W) * R))
-    piece = min(piece, _dispatch_chunk() or piece)
+
+    def one(t, x, seeds, v0):
+        x = time_step(ga, bias_s, x, seeds, v0, betas[t], **moves)
+        if on_step is not None:
+            on_step(t, x)
+        return x
+
     with exact_f32_matmul():
-        for t0 in range(0, len(betas), piece):
-            n = min(piece, len(betas) - t0)
-            seeds, v0, keys = threefry_chain(keys, kinds, n, st.shape[0])
-            seeds, v0 = seeds.to(st.device), v0.to(st.device)
-            for t in range(n):
-                st = time_step(ga, bias_s, st, seeds[t], v0[t], betas[t0 + t], **moves)
-                if on_step is not None:
-                    on_step(t0 + t, st)
-    return st, keys
+        return walk(st, keys, len(betas), kinds, one, st.shape[0])
 
 
 def run_steps(ga, bias, s, keys, beta_arr, nspin_sweeps, nedge_sweeps, nworms, only_basic, heatbath, wlen,

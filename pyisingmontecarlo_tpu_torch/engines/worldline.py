@@ -57,7 +57,6 @@ from ..rng import (
     random_states,
     seeds_from_key_data,
     split_all,
-    threefry_chain,
     uniform_f32,
 )
 from ..utils.accum import kadd, kfinal, kzero
@@ -299,24 +298,11 @@ def sweep(ga, p: WlParams, s, seeds, do_cluster: bool, do_rvb: bool, rvb_replica
 
 
 def walk(s, keys, T: int, slots: int, step):
-    """``T`` sweeps of ``slots`` key-chain slots each on a copy of ``s``:
-    ``step(t, s, seeds [slots, R]) -> s``. The chain is walked by
-    ``rng.threefry_chain`` in pieces of ``PMC_STEPS_PER_DISPATCH`` sweeps (all
-    at once when unset), each cut further so that its table stays under the
-    classical engine's bound; any piece size gives the same trajectory.
-    ``keys`` is ``[R, 2]`` int32 key data on the device. Returns ``(s, keys)``."""
-    s = s.clone()
-    R = s.shape[0]
-    piece = max(1, ce._TABLE_BYTES // max(1, 4 * slots * R))
-    piece = min(piece, ce._dispatch_chunk() or piece)
-    kinds = [KEY_PLAIN] * slots
-    for t0 in range(0, int(T), piece):
-        n = min(piece, int(T) - t0)
-        seeds, _, keys = threefry_chain(keys, kinds, n, s.shape[1])
-        seeds = seeds.to(s.device)
-        for t in range(n):
-            s = step(t0 + t, s, seeds[t])
-    return s, keys
+    """``T`` sweeps of ``slots`` plain key-chain slots each on a copy of
+    ``s``: ``step(t, s, seeds [slots, R]) -> s``, the chain walked in pieces
+    by ``classical.walk``. ``keys`` is ``[R, 2]`` int32 key data on the
+    device. Returns ``(s, keys)``."""
+    return ce.walk(s.clone(), keys, T, [KEY_PLAIN] * slots, lambda t, x, seeds, v0: step(t, x, seeds))
 
 
 # ----------------------------------------------------------------- estimators

@@ -7,8 +7,9 @@ objects then draw identical u64 seeds. ``worldline_from_arrays`` builds a
 worldline ensemble from a JAX ensemble's state and key data, handed over as
 numpy arrays. ``tempering_from_reference`` does both for a
 ``pyisingmontecarlo_tpu.LatticeTempering``, ``classicising_from_reference``
-for a ``pyisingmontecarlo_tpu.ClassicIsing`` and ``qmcising_from_reference``
-for a ``pyisingmontecarlo_tpu.QmcIsing``.
+for a ``pyisingmontecarlo_tpu.ClassicIsing``, ``qmcising_from_reference``
+for a ``pyisingmontecarlo_tpu.QmcIsing`` and ``qmcrunner_from_reference`` for
+a ``pyisingmontecarlo_tpu.QmcRunner``.
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ from .engines.worldline import WorldlineEnsemble
 from .graph import compile_graph, grid_2d_edges
 from .lattice import Lattice, resolve_device
 from .qmcising import QmcIsing
+from .qmcrunner import QmcRunner
 from .tempering import LatticeTempering
 
 __all__ = ["lattice_from_reference", "worldline_from_arrays", "tempering_from_reference",
-           "classicising_from_reference", "qmcising_from_reference", "state_to_torch", "state_to_numpy"]
+           "classicising_from_reference", "qmcising_from_reference", "qmcrunner_from_reference", "state_to_torch",
+           "state_to_numpy"]
 
 
 def lattice_from_reference(obj, device="cuda") -> Lattice:
@@ -154,3 +157,38 @@ def state_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int8 or t.dim() != 3:
         raise ValueError(f"expected [R, L, L] int8 spins, got {tuple(t.shape)} {t.dtype}")
     return t.detach().cpu().numpy()
+
+
+def qmcrunner_from_reference(obj, key_data, device="cuda") -> QmcRunner:
+    """A port ``QmcRunner`` in the state of ``obj`` (a
+    ``pyisingmontecarlo_tpu.QmcRunner``): its term set and offset, flags,
+    Trotter-step target and master seed stream; once materialized its beta and
+    worldlines ``s [R, nvars, Lt]``, else its pending initial states; and its
+    keys as ``key_data`` ``[R, 2]`` uint32 (``jax.random.key_data`` of
+    ``obj._w.keys`` once materialized, else of ``obj._keys``; the caller reads
+    it, as this module imports no jax). Both then run identically."""
+    q = QmcRunner(obj.nvars, 0, seed=obj.rng.seed_gen, use_allocator=obj.use_allocator,
+                  do_loop_updates=obj.do_loop_updates, do_heatbath_updates=obj.do_heatbath_updates, dtau=obj.dtau,
+                  device=device)
+    q.rng._gen.bit_generator.state = obj.rng._gen.bit_generator.state
+    q.terms.terms = [dict(mat=np.array(t["mat"], np.float64), vars=tuple(int(v) for v in t["vars"]),
+                          offset=float(t["offset"])) for t in obj.terms.terms]
+    q.terms.offset = float(obj.terms.offset)
+    kd = np.asarray(key_data, np.uint32).reshape(-1, 2).copy()
+    w = obj._w
+    if w is not None:
+        s = np.array(w.s, dtype=np.int8)
+        if s.shape[0] != len(kd):
+            raise ValueError(f"{s.shape[0]} worldlines and {len(kd)} keys")
+        q._w = q._worldline(w.beta, kd, s[:, :, 0])
+        if (q._w.ltau, q._w.Lt) != (w.ltau, w.Lt):
+            raise ValueError(f"the port's grid (ltau {q._w.ltau}, Lt {q._w.Lt}) differs from the reference's "
+                             f"(ltau {w.ltau}, Lt {w.Lt})")
+        q._w.s = torch.from_numpy(s).to(q.device)
+        q._w.do_loop = bool(w.do_loop)
+    elif obj._keys is not None:
+        init = np.array(obj._init_states, dtype=np.int8).reshape(-1, q.nvars)
+        if len(init) != len(kd):
+            raise ValueError(f"{len(init)} initial states and {len(kd)} keys")
+        q._keys, q._init_states = kd, init
+    return q

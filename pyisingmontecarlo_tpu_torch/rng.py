@@ -10,10 +10,12 @@ replica's stream from one call to the next), ``bernoulli(key, 0.5, (n,))``
 ``[R]``-sized host operations done once per call. All further randomness is
 the counter hash of ``ops/lanerng.py``.
 
-The classical graph engine splits each replica's key once for every move of
-every time step. ``threefry_chain`` walks that chain for a whole call: on a
-CUDA tensor in one launch of the kernel of ``csrc/keychain.cu`` (one thread a
-replica), on a CPU tensor in its plain numpy version
+The graph engines split each replica's key once for every move of every time
+step (or phase of every sweep; the generic k-local sweep also splits a
+sub-key again per color, draws a slice and draws Bernoulli bits: the fan,
+slice and bits slots). ``threefry_chain`` walks that chain for a whole call:
+on a CUDA tensor in one launch of the kernel of ``csrc/keychain.cu`` (one
+thread a replica), on a CPU tensor in its plain numpy version
 ``threefry_chain_reference``; both write the same tables bit for bit.
 
 Threefry2x32 is the 20-round Threefish-derived block function with the key
@@ -47,6 +49,9 @@ __all__ = [
     "KEY_PLAIN",
     "KEY_WORM",
     "KEY_CLUSTER",
+    "KEY_FAN",
+    "KEY_SLICE",
+    "KEY_BITS",
     "chain_columns",
     "threefry_chain",
     "threefry_chain_reference",
@@ -193,16 +198,48 @@ def randint(key_data: np.ndarray, maxval: int) -> np.ndarray:
 
 
 # the moves of a time step, in the order they split the replica's key
-KEY_PLAIN, KEY_WORM, KEY_CLUSTER = 0, 1, 2
-_COLUMNS = {KEY_PLAIN: 1, KEY_WORM: 1, KEY_CLUSTER: 3}
+KEY_PLAIN, KEY_WORM, KEY_CLUSTER, KEY_FAN, KEY_SLICE, KEY_BITS = 0, 1, 2, 3, 4, 5
+# the kinds that take a parameter: a plan slot of these is a pair (kind, m or span)
+_PARAM_KINDS = (KEY_FAN, KEY_SLICE, KEY_BITS)
+# bound on a slot's m (a fan's inner splits, a bits slot's words)
+_MAX_M = 1 << 16
 
 
-def chain_columns(kinds: Sequence[int]):
-    """``(C, W)``: the lane seeds and the worm start sites a step of this plan writes."""
-    return sum(_COLUMNS[int(k)] for k in kinds), sum(int(k) == KEY_WORM for k in kinds)
+def _slot(k):
+    """A plan slot -> ``(kind, param)``: KEY_PLAIN, KEY_WORM and KEY_CLUSTER
+    are bare ints (param 0); KEY_FAN, KEY_SLICE and KEY_BITS are pairs
+    ``(kind, m)``, ``(kind, span)``, ``(kind, m)``."""
+    if isinstance(k, (tuple, list)):
+        if len(k) != 2:
+            raise ValueError(f"a plan slot is a kind or a pair (kind, param), got {k!r}")
+        kind, param = int(k[0]), int(k[1])
+        if kind not in _PARAM_KINDS:
+            raise ValueError(f"slot kind {kind} takes no parameter, got {k!r}")
+        if kind == KEY_SLICE and not 0 < param < 2**31:
+            raise ValueError(f"a slice slot's span must be in [1, 2^31), got {param}")
+        if kind != KEY_SLICE and not 0 <= param <= _MAX_M:
+            raise ValueError(f"a fan or bits slot's m must be in [0, {_MAX_M}], got {param}")
+        return kind, param
+    kind = int(k)
+    if kind not in (KEY_PLAIN, KEY_WORM, KEY_CLUSTER):
+        raise ValueError(f"unknown slot kind {k!r} (fan, slice and bits slots are pairs (kind, param))")
+    return kind, 0
 
 
-def threefry_chain_reference(key_data: np.ndarray, kinds: Sequence[int], T: int, nvars: int):
+def _slot_columns(kind: int, param: int):
+    """(lane seeds, int words) one slot writes."""
+    return {KEY_PLAIN: (1, 0), KEY_WORM: (1, 1), KEY_CLUSTER: (3, 0), KEY_FAN: (param, 0), KEY_SLICE: (1, 1),
+            KEY_BITS: (0, param)}[kind]
+
+
+def chain_columns(kinds: Sequence):
+    """``(C, W)``: the lane seeds and the int words (worm start sites, slice
+    draws, Bernoulli bits) a step of this plan writes."""
+    cols = [_slot_columns(*_slot(k)) for k in kinds]
+    return sum(c for c, _ in cols), sum(w for _, w in cols)
+
+
+def threefry_chain_reference(key_data: np.ndarray, kinds: Sequence, T: int, nvars: int):
     """The key chain of ``T`` time steps of the plan ``kinds``, in numpy.
 
     Each slot takes ``keys, sub = split(keys)``; then a KEY_PLAIN slot writes
@@ -210,32 +247,43 @@ def threefry_chain_reference(key_data: np.ndarray, kinds: Sequence[int], T: int,
     ``ku, k0 = split(sub)`` and writes the lane seed of ``ku`` and the start
     site ``randint(k0, nvars)``; a KEY_CLUSTER slot ``k1, k_e = split(sub)``,
     ``k2, k_g = split(k1)``, ``_, k_f = split(k2)`` and writes the lane seeds
-    of ``k_e``, ``k_g``, ``k_f``, in that order. Returns ``(seeds [T, C, R]
-    int32, v0 [T, W, R] int32, key_data [R, 2] uint32)`` with the keys
-    advanced past the ``T`` steps: the JAX package's ``time_step`` splits, bit
+    of ``k_e``, ``k_g``, ``k_f``, in that order. A ``(KEY_FAN, m)`` slot
+    walks ``sub, k = split(sub)`` m times and writes the lane seed of each
+    ``k``; a ``(KEY_SLICE, span)`` slot is a worm slot that draws
+    ``randint(k0, span)``; a ``(KEY_BITS, m)`` slot writes the m words of
+    ``bernoulli(sub, 0.5, (m,))`` as 1 or 0 (nothing when m = 0). Returns
+    ``(seeds [T, C, R] int32, v0 [T, W, R] int32, key_data [R, 2] uint32)``
+    with the keys advanced past the ``T`` steps: the JAX package's splits, bit
     for bit."""
     kd = np.asarray(key_data, dtype=np.uint32).reshape(-1, 2)
     R = kd.shape[0]
+    slots = [_slot(k) for k in kinds]
     C, W = chain_columns(kinds)
     seeds = np.empty((T, C, R), np.int32)
     v0 = np.empty((T, W, R), np.int32)
     for t in range(T):
         col = w = 0
-        for kind in kinds:
+        for kind, param in slots:
             kd, sub = split_all(kd)
             if kind == KEY_PLAIN:
                 seeds[t, col] = seeds_from_key_data(sub)
-            elif kind == KEY_WORM:
+            elif kind in (KEY_WORM, KEY_SLICE):
                 ku, k0 = split_all(sub)
                 seeds[t, col] = seeds_from_key_data(ku)
-                v0[t, w] = randint(k0, nvars)
-                w += 1
-            else:
+                v0[t, w] = randint(k0, nvars if kind == KEY_WORM else param)
+            elif kind == KEY_CLUSTER:
                 k1, k_e = split_all(sub)
                 k2, k_g = split_all(k1)
                 _, k_f = split_all(k2)
                 seeds[t, col:col + 3] = np.stack([seeds_from_key_data(k) for k in (k_e, k_g, k_f)])
-            col += _COLUMNS[kind]
+            elif kind == KEY_FAN:
+                for j in range(param):
+                    sub, k = split_all(sub)
+                    seeds[t, col + j] = seeds_from_key_data(k)
+            elif param:
+                v0[t, w:w + param] = (random_bits(sub, param) < np.uint32(1 << 31)).T
+            c, i = _slot_columns(kind, param)
+            col, w = col + c, w + i
     return seeds, v0, kd
 
 
@@ -250,7 +298,7 @@ def key_data_of(keys: torch.Tensor) -> np.ndarray:
     return keys.detach().cpu().numpy().astype(np.int32).view(np.uint32).reshape(-1, 2)
 
 
-def threefry_chain(keys: torch.Tensor, kinds: Sequence[int], T: int, nvars: int):
+def threefry_chain(keys: torch.Tensor, kinds: Sequence, T: int, nvars: int):
     """``threefry_chain_reference`` on an ``[R, 2]`` int32 key tensor (the bits
     of ``key_tensor``), returning tensors on its device: ``(seeds [T, C, R],
     v0 [T, W, R], keys [R, 2])``.
@@ -258,11 +306,11 @@ def threefry_chain(keys: torch.Tensor, kinds: Sequence[int], T: int, nvars: int)
     A CUDA tensor launches ``threefry_chain`` of ``csrc/keychain.cu`` once
     (counted in ``threefry_chain.launches``; nothing is launched when the
     chain is empty) or raises; a CPU tensor runs the numpy version."""
-    kinds = [int(k) for k in kinds]
-    if any(k not in _COLUMNS for k in kinds):
-        raise ValueError(f"unknown slot kinds in {kinds}")
+    slots = [_slot(k) for k in kinds]
     if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be [R, 2] int32, got {tuple(keys.shape)} {keys.dtype}")
+    if any(kind == KEY_WORM for kind, _ in slots) and not 0 < nvars < 2**31:
+        raise ValueError(f"a worm slot's nvars must be in [1, 2^31), got {nvars}")
     if keys.device.type != "cuda":
         seeds, v0, kd = threefry_chain_reference(key_data_of(keys), kinds, int(T), nvars)
         return torch.from_numpy(seeds), torch.from_numpy(v0), key_tensor(kd, keys.device)
@@ -271,19 +319,18 @@ def threefry_chain(keys: torch.Tensor, kinds: Sequence[int], T: int, nvars: int)
     dev = keys.device
     seeds = torch.empty((T, C, R), dtype=torch.int32, device=dev)
     v0 = torch.empty((T, W, R), dtype=torch.int32, device=dev)
-    if R == 0 or T == 0 or not kinds:
+    if R == 0 or T == 0 or not slots:
         return seeds, v0, keys.clone()
-    if not 0 < nvars < 2**31:
-        raise ValueError(f"nvars must be in [1, 2^31), got {nvars}")
     from . import _kernels
 
     keys_in = keys.contiguous()
     out = torch.empty_like(keys_in)
-    plan = torch.tensor(kinds, dtype=torch.int8, device=dev)
+    plan = torch.tensor([(kind, int(nvars) if kind == KEY_WORM else param) for kind, param in slots],
+                        dtype=torch.int32).to(dev)
     with torch.cuda.device(dev):
         err = _kernels.load().threefry_chain(
-            keys_in.data_ptr(), out.data_ptr(), plan.data_ptr(), len(kinds), T, C, W, int(nvars), R,
-            seeds.data_ptr(), v0.data_ptr() if W else None, torch.cuda.current_stream(dev).cuda_stream)
+            keys_in.data_ptr(), out.data_ptr(), plan.data_ptr(), len(slots), T, C, W, R,
+            seeds.data_ptr() if C else None, v0.data_ptr() if W else None, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"threefry_chain launch failed: {_kernels.error_string(err)} ({err})")
     threefry_chain.launches += 1

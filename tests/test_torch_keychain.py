@@ -1,10 +1,13 @@
-"""The classical engine's key chain against jax: ``rng.randint`` against
+"""The graph engines' key chain against jax: ``rng.randint`` against
 ``jax.random.randint`` (maxval 1 to 10^5 and beyond 2^16, where jax's
 multiplier wraps to 0), the lane seeds against ``lanerng.replica_seeds_from_keys``,
-and ``threefry_chain_reference`` against the JAX engine's own splits
-(``rng.split_keys`` per slot, then the worm's and the cluster update's) for
+and ``threefry_chain_reference`` against the JAX engines' own splits
+(``rng.split_keys`` per slot, then the worm's and the cluster update's; the
+generic sweep's inner splits of a segment or term-kink pass, a slice's
+``randint(ksel, ltau)`` and the free variables' ``bernoulli(sub, 0.5)``) for
 plans of every slot kind (tolerance: none). The CUDA kernel is held to the
-same numpy version on the card by chip_smoke.py's compare-keychain."""
+same numpy version on the card by chip_smoke.py's compare-keychain and
+compare-qmcrunner."""
 
 import numpy as np
 import pytest
@@ -67,11 +70,22 @@ def _jax_chain(u64, kinds, T, nvars):
                 ku, k0 = split_keys(sub)  # engines/classical._worm_walk
                 row.append(jlanerng.replica_seeds_from_keys(ku))
                 worms.append(jax.vmap(lambda k: jax.random.randint(k, (), 0, nvars))(k0))
-            else:
+            elif kind == rng.KEY_CLUSTER:
                 k1, k_e = split_keys(sub)  # engines/classical.sw_cluster_update
                 k2, k_g = split_keys(k1)
                 _, k_f = split_keys(k2)
                 row += [jlanerng.replica_seeds_from_keys(k) for k in (k_e, k_g, k_f)]
+            elif kind[0] == rng.KEY_FAN:
+                for _ in range(kind[1]):  # engines/generic.segment_color_update, term_kink_update
+                    sub, k1 = split_keys(sub)
+                    row.append(jlanerng.replica_seeds_from_keys(k1))
+            elif kind[0] == rng.KEY_SLICE:
+                ku, ksel = split_keys(sub)  # engines/generic.slice_color_update
+                row.append(jlanerng.replica_seeds_from_keys(ku))
+                worms.append(jax.vmap(lambda k: jax.random.randint(k, (), 0, kind[1]))(ksel))
+            elif kind[1]:  # engines/generic.free_var_update
+                bits = jax.vmap(lambda k: jax.random.bernoulli(k, 0.5, (kind[1],)))(sub)
+                worms += list(np.asarray(bits).astype(np.int32).T)
         seeds.append(np.stack([np.asarray(x) for x in row]) if row else np.zeros((0, len(u64)), np.int32))
         v0.append(np.stack([np.asarray(x) for x in worms]) if worms else np.zeros((0, len(u64)), np.int32))
     return np.stack(seeds), np.stack(v0), np.asarray(jax.random.key_data(keys))
@@ -83,6 +97,9 @@ def _jax_chain(u64, kinds, T, nvars):
     ([2, 2, 1, 1], 2, 3, 70000),
     ([1], 4, 1, 1),
     ([], 3, 4, 10),
+    ([0, (3, 4), (3, 1), 0, (5, 0)], 2, 5, 9),
+    ([(4, 10), (4, 65537), (5, 7), (3, 0), 1], 3, 4, 12),
+    ([0, 0, (3, 5), (3, 5), (3, 4), 0, (4, 1), (4, 2**31 - 1), (5, 40)], 2, 3, 7),
 ])
 def test_chain_equals_jax_splits(kinds, T, R, nvars):
     u64 = _seeds(R, T + R)
@@ -117,10 +134,37 @@ def test_wrapper_on_cpu_tensor_launches_nothing():
     assert seeds.dtype == v0.dtype == keys.dtype == torch.int32
 
 
+def test_generic_sweep_plan_columns():
+    """The generic sweep's plan: (C, W) of every slot kind, and a plan with no
+    seed column (a lone bits slot) walks its keys."""
+    plan = [0, 0, (rng.KEY_FAN, 5), (rng.KEY_FAN, 4), 0, (rng.KEY_SLICE, 10), (rng.KEY_BITS, 3)]
+    assert rng.chain_columns(plan) == (2 + 5 + 4 + 1 + 1, 1 + 3)
+    assert rng.chain_columns([(rng.KEY_BITS, 0)]) == (0, 0)
+    kd = rng.key_data_from_seeds(_seeds(4, 6))
+    seeds, v0, out = rng.threefry_chain_reference(kd, [(rng.KEY_BITS, 0)], 3, 1)
+    assert seeds.shape == (3, 0, 4) and v0.shape == (3, 0, 4)
+    want = kd
+    for _ in range(3):
+        want, _ = rng.split_all(want)
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("slot", [(rng.KEY_SLICE, 0), (rng.KEY_SLICE, -3), (rng.KEY_SLICE, 2**31), (rng.KEY_FAN, -1),
+                                  (rng.KEY_BITS, 2**17), (rng.KEY_PLAIN, 1), (rng.KEY_FAN, 2, 3), 3, 4, 5, 6])
+def test_chain_rejects_bad_slots(slot):
+    kd = rng.key_tensor(rng.key_data_from_seeds(_seeds(3, 2)), "cpu")
+    with pytest.raises(ValueError):
+        rng.threefry_chain(kd, [0, slot], 1, 5)
+    with pytest.raises(ValueError):
+        rng.chain_columns([slot])
+
+
 def test_wrapper_checks_its_inputs():
     kd = rng.key_tensor(rng.key_data_from_seeds(_seeds(3, 2)), "cpu")
     with pytest.raises(ValueError):
         rng.threefry_chain(kd, [0, 3], 1, 5)
+    with pytest.raises(ValueError):
+        rng.threefry_chain(kd, [0, 1], 1, 0)
     with pytest.raises(ValueError):
         rng.threefry_chain(kd.to(torch.int64), [0], 1, 5)
     with pytest.raises(ValueError):

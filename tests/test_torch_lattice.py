@@ -46,7 +46,16 @@ def test_port_imports_no_jax():
         "import pyisingmontecarlo_tpu_torch.engines.classical, pyisingmontecarlo_tpu_torch.classicising\n"
         "import pyisingmontecarlo_tpu_torch.models, pyisingmontecarlo_tpu_torch.models.lattices\n"
         "import pyisingmontecarlo_tpu_torch.utils.profiling, pyisingmontecarlo_tpu_torch.utils.accum\n"
-        "import pyisingmontecarlo_tpu_torch.qmcising\n"
+        "import pyisingmontecarlo_tpu_torch.qmcising, pyisingmontecarlo_tpu_torch.qmcrunner\n"
+        "import pyisingmontecarlo_tpu_torch.engines.generic, pyisingmontecarlo_tpu_torch.engines.generic_gm\n"
+        "import os\n"
+        "for mode in ('1', '0'):\n"
+        "    os.environ['PMC_GENERIC_GM'] = mode\n"
+        "    r = pyisingmontecarlo_tpu_torch.QmcRunner(3, 2, seed=0, do_loop_updates=True, device='cpu')\n"
+        "    r.add_diagonal_interaction([-1.0, 1.0, 1.0, -1.0], [0, 1])\n"
+        "    r.add_interaction([0.0, 0.0, 0.0, -0.5, 0.0, 0.0, -0.5, 0.0, 0.0, -0.5, 0.0, 0.0, -0.5, 0.0, 0.0, 0.0],\n"
+        "                      [0, 1])\n"
+        "    r.run_sampling(1.0, 2); r.run_bond_sampling(1.0, 2)\n"
         "q = pyisingmontecarlo_tpu_torch.QmcIsing([((0, 1), 1.0), ((1, 2), -1.0)], 1.0, num_experiments=2,\n"
         "                                         do_rvb_updates=True, device='cpu')\n"
         "q.run_qmc(1.0, 2); q.run_cluster(); q.run_rvb(); q.run_bond_sampling(1.0, 2)\n"
@@ -160,8 +169,8 @@ def test_energy_matches_exact_enumeration():
 def test_unported_branches_raise():
     """Every classical branch runs now (the graph engine takes what the torus
     kernel does not), and so do the quantum methods off the worldline kernel's
-    lattices (the generic worldline engine) and QmcIsing; QmcRunner still
-    raises, naming its ROADMAP.md item."""
+    lattices (the generic worldline engine), QmcIsing and QmcRunner are
+    exported; a name the package lacks raises AttributeError."""
     port = tpmc.Lattice(grid_2d_edges(4, 4), device="cpu")
     for setup in (
         lambda l: l.set_individual_bias(0, 0.5),
@@ -185,9 +194,9 @@ def test_unported_branches_raise():
         lat.run_monte_carlo(0.3, 2, 2)
     with pytest.raises(ValueError):
         tpmc.Lattice([], device="cpu")
-    assert tpmc.ClassicIsing is not None and tpmc.QmcIsing is not None
-    with pytest.raises(AttributeError, match="ROADMAP.md"):
-        getattr(tpmc, "QmcRunner")
+    assert tpmc.ClassicIsing is not None and tpmc.QmcIsing is not None and tpmc.QmcRunner is not None
+    with pytest.raises(AttributeError):
+        getattr(tpmc, "NoSuchClass")
 
 
 def test_state_interop_round_trip():
