@@ -156,13 +156,31 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   forced: sweeps/s and set-up (the gate's price at one size);
 31. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
                   and an 8-ring with ZZZ triples, 256 replicas.
+32. compare-threefry-bits the threefry bits kernel (``threefry_bits``,
+                  csrc/keychain.cu) vs rng.random_bits / uniform_f32 (numpy), bit
+                  for bit in both modes: one key over 1 M and 8 M counters, 64
+                  keys, an odd size; its time at 8 M beside its bound and numpy's;
+33. compare-parallel the multi-device paths on a one-rank NCCL group on the card:
+                  QmcRunner (both routes), QmcIsing and the tempering ladder,
+                  replica-sharded, each bit for bit its unsharded run on the card,
+                  with both host walls; the spatial and tau-sharded sweeps bit for
+                  bit the same sweeps on the CPU;
+34. main-parallel the sharded ladder at benches/bench_tempering.py's shape
+                  (qmc_timesteps_sample(500, replica_swap_freq=1): 500
+                  ladder_resident launches), the spatial sweep at bench.py's
+                  1024^2 x 8 (20 sweeps) and the tau sweep at
+                  examples/tau_sharded_tfim.py's 16-ring (L_tau = 64, 128
+                  replicas, 100 sweeps against the exact free-fermion energy),
+                  each one threefry_bits launch a phase; sweeps/s beside the
+                  unsharded route's.
 
 Each entry of the kernels line takes its times and bound from one shape,
 that of the first main path that launched it; its launches are the sum over
 the main paths that launched it, each counted from 0 (wl_tiled plain sweeps:
 main-quantum and main-qmcising-lattice; wl_resident: main-chain and
 main-qmcising-lattice; threefry_chain: main-classical, main-qmcising and
-main-qmcrunner).
+main-qmcrunner; ladder_resident: main-tempering and main-parallel;
+threefry_bits: main-parallel).
 
 Then one JSON line with the kernels, and last ``{"ok": true, "device": ...}``.
 Needs torch with CUDA, nvcc and numpy; imports no jax.
@@ -274,6 +292,7 @@ def reset_counts():
     from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
     rng.threefry_chain.launches = 0
+    rng.threefry_bits.launches = 0
     sq2d.sweeps_2d.launches = 0
     wl.wl_sweeps.launches = 0
     wl.wl_sweeps.resident_launches = 0
@@ -286,14 +305,16 @@ def read_counts():
     from pyisingmontecarlo_tpu_torch import rng
     from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
-    return {"keychain": rng.threefry_chain.launches, "sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches,
+    return {"keychain": rng.threefry_chain.launches, "bits": rng.threefry_bits.launches,
+            "sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches,
             "wl_resident": wl.wl_sweeps.resident_launches, "wl_tiled": wl.wl_sweeps.tiled_launches,
             "ladder": ladder.ladder_sweeps.launches, "ladder_resident": ladder.ladder_sweeps.resident_launches}
 
 
 def counts_only(**want):
     """The launch counts with ``want`` and zeros elsewhere."""
-    return {**dict.fromkeys(("keychain", "sq2d", "wl", "wl_resident", "wl_tiled", "ladder", "ladder_resident"), 0),
+    return {**dict.fromkeys(("keychain", "bits", "sq2d", "wl", "wl_resident", "wl_tiled", "ladder", "ladder_resident"),
+                            0),
             **want}
 
 
@@ -2697,6 +2718,265 @@ def dense_terms_energy(nvars, terms, beta):
     return float((w * zw).sum() / zw.sum())
 
 
+# compare-threefry-bits: one key over 1 M and 8 M counters (8 M: the spatial sweep's draws a phase at bench.py's
+# 1024^2 x 8), R keys, an odd size
+BITS_CASES = (("1 M counters, one key", 1, 1 << 20), ("8 M counters, one key", 1, 8 << 20),
+              ("64 keys x 4097 counters", 64, 4097), ("3 keys x 1000003 counters", 3, 1000003))
+BITS_N = 8 << 20
+# main-parallel: the spatial sweep at bench.py's shape, the tau sweep at examples/tau_sharded_tfim.py's
+SP_SWEEPS = 20
+TAU_N, TAU_LTAU, TAU_R, TAU_BETA, TAU_SWEEPS = 16, 64, 128, 2.0, 100
+PAR_LADDER_T = 500
+
+
+def bits_bound(n):
+    """(least ms, what sets it) of ``n`` threefry counters: 4 bytes written and
+    one block's ALU instructions (THREEFRY_ALU_OPS) each."""
+    return bound(4 * n, THREEFRY_ALU_OPS * n)
+
+
+def phase_compare_threefry_bits(dev, smi):
+    """threefry_bits (csrc/keychain.cu) against rng.random_bits and
+    rng.uniform_f32 (numpy), bit for bit, in both modes, at BITS_CASES; its
+    time at 8 M counters beside its bound and the numpy version's. Returns
+    (largest |difference|, ms, plain ms, bound ms, bound by)."""
+    from pyisingmontecarlo_tpu_torch.rng import key_tensor, random_bits, threefry_bits, uniform_f32
+
+    err = 0
+    for name, R, n in BITS_CASES:
+        kd = _keys(R, n % 997)
+        keys = key_tensor(kd, dev)
+        got = threefry_bits(keys, n).cpu().numpy().view(np.uint32)
+        want = random_bits(kd, n)
+        gu = threefry_bits(keys, n, uniform=True).cpu().numpy()
+        wu = uniform_f32(kd, n)
+        e = max(int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max()),
+                int(np.abs(gu.view(np.uint32).astype(np.int64) - wu.view(np.uint32).astype(np.int64)).max()))
+        err = max(err, e)
+        check(e == 0 and got.shape == want.shape == (R, n), f"compare-threefry-bits {name}: max |diff| {e}")
+        print(f"compare-threefry-bits: {name}: bits and uniforms equal rng.random_bits / uniform_f32 bit for bit",
+              flush=True)
+    keys = key_tensor(_keys(1, 3), dev)
+    threefry_bits(keys, BITS_N, uniform=True)
+    runs = [event_ms(lambda: threefry_bits(keys, BITS_N, uniform=True), 1) for _ in range(10)]
+    t0 = time.perf_counter()
+    uniform_f32(_keys(1, 3), BITS_N)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, b_by = bits_bound(BITS_N)
+    ms = float(np.median(runs))
+    print(f"compare-threefry-bits: timing on {smi}: {BITS_N} uniforms, one key: threefry_bits median {ms:.5f} ms "
+          f"(runs {runs}); bound {b_ms:.5f} ms ({b_by}; bytes alone {bound(4 * BITS_N, 0)[0]:.5f} ms); numpy "
+          f"{plain_ms:.3f} ms", flush=True)
+    return err, ms, plain_ms, b_ms, b_by
+
+
+def _equal_results(a, b, what):
+    """Nested results (tuples, lists, arrays, numbers) equal bit for bit."""
+    if isinstance(a, (tuple, list)):
+        check(isinstance(b, (tuple, list)) and len(a) == len(b), f"{what}: structure differs")
+        for x, y in zip(a, b):
+            _equal_results(x, y, what)
+        return
+    x, y = np.asarray(a), np.asarray(b)
+    check(x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y), f"{what}: results differ")
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _sharded_vs_plain(calls, a, b, what):
+    """``calls(a)`` (sharded) and ``calls(b)`` (unsharded) twice, in the order
+    a, b, b, a, each pair bit for bit equal; returns the host walls of each
+    second call (b first, after the first pair warmed both up)."""
+    ra, _ = _wall(lambda: calls(a))
+    rb, _ = _wall(lambda: calls(b))
+    _equal_results(ra, rb, what)
+    rb, tb = _wall(lambda: calls(b))
+    ra, ta = _wall(lambda: calls(a))
+    _equal_results(ra, rb, what)
+    return ra, ta, tb
+
+
+def phase_compare_parallel(dev, smi):
+    """The sharded paths on a one-rank NCCL group on the card: QmcRunner on both
+    routes, QmcIsing and the tempering ladder, replica-sharded, each bit for bit
+    its unsharded run on the card (and its host wall beside); the spatial and
+    tau-sharded sweeps bit for bit the same sweeps on the CPU (one shard, no
+    collectives). The host walls are of a second round of calls, in the order
+    unsharded, sharded. Returns the meshes of main-parallel."""
+    import torch.distributed as dist
+
+    from pyisingmontecarlo_tpu_torch import QmcIsing
+    from pyisingmontecarlo_tpu_torch.parallel import mesh as pmesh
+    from pyisingmontecarlo_tpu_torch.parallel import replica as prep
+    from pyisingmontecarlo_tpu_torch.parallel import spatial as psp
+    from pyisingmontecarlo_tpu_torch.parallel import tau as ptau
+    from pyisingmontecarlo_tpu_torch.parallel import tempering as ptemp
+    from pyisingmontecarlo_tpu_torch.rng import fold_all
+
+    pmesh.init_distributed(device=dev)
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.get_backend() == want and dist.get_world_size() == 1, f"backend {dist.get_backend()}, want {want}")
+    meshes = {name: pmesh.make_mesh((1,), (name,), device=dev.type) for name in ("replica", "space", "tau")}
+    out = []
+    for mode in ("0", "1"):
+        with _route(mode):
+            a, b = (qmc_runner(QR_N, QR_R, hard_terms(QR_N), dev, seed=5) for _ in range(2))
+            prep.shard_runner(a, meshes["replica"], beta=QR_BETA)
+            b._ensure(QR_BETA)
+        calls = lambda q: [q.run_sampling(QR_BETA, 6, sampling_freq=2), q.run_bond_sampling(QR_BETA, 4, sampling_freq=2),
+                           q.get_graph_itime(QR_R - 1)]
+        _, ta, tb = _sharded_vs_plain(calls, a, b, f"compare-parallel QmcRunner PMC_GENERIC_GM={mode}")
+        out.append(f"QmcRunner hard n={QR_N}, R={QR_R}, {'gm' if a._w.use_gm else 'classic'} route: 10 sweeps sharded "
+                   f"{ta:.3f} s, unsharded {tb:.3f} s")
+    edges = glass_edges(256)
+    a, b = (QmcIsing(edges, QMC_GAMMA, 0.0, num_experiments=16, seed=QMC_SEED, device=dev) for _ in range(2))
+    prep.shard_qmcising(a, meshes["replica"], beta=QMC_BETA)
+    b._ensure(QMC_BETA)
+    calls = lambda q: [q.run_sampling(QMC_BETA, 6, sampling_freq=2), q.run_bond_sampling(QMC_BETA, 2)]
+    _, ta, tb = _sharded_vs_plain(calls, a, b, "compare-parallel QmcIsing")
+    out.append(f"QmcIsing 256-site glass, R=16: 8 sweeps sharded {ta:.3f} s, unsharded {tb:.3f} s")
+    a, b = pt_ladder(dev), pt_ladder(dev)
+    ptemp.shard_ladder(a, meshes["replica"])
+    calls = lambda lt: [lt.qmc_timesteps(3), lt.qmc_timesteps_sample(20, 1), lt.qmc_timesteps_sample(9, 2, 3),
+                        lt.get_total_swaps(), lt._materialize()["s"].cpu().numpy()]
+    ra, ta, tb = _sharded_vs_plain(calls, a, b, "compare-parallel ladder")
+    check(ra[3] > 0, "compare-parallel ladder: no swap accepted")
+    out.append(f"ladder 12^2 +-J, R={PT_R}: 32 sweeps sharded {ta:.3f} s, unsharded {tb:.3f} s ({ra[3]} swaps)")
+    rng = np.random.default_rng(4)
+    s = torch.from_numpy(rng.integers(0, 2, (4, 128, 128)).astype(np.int8) * 2 - 1)
+    key = np.array([0, 9], np.uint32)
+    card = psp.sharded_sweeps_2d(meshes["space"], s, key, 0.4, -1.0, 0.0, 10).cpu()
+    cpu = psp._sweeps_local(s.clone(), fold_all(key[None], 0)[0], 0.4, -1.0, 0.0, 10, 0, None)
+    check(torch.equal(card, cpu) and (card != s).any(), "compare-parallel spatial: card != CPU")
+    out.append("spatial 128^2 x 4, 10 sweeps: card == CPU")
+    for kind, size, nvars, L, R in (("ring", 0, 16, 64, 16), ("torus", 8, 64, 16, 8)):
+        s = torch.from_numpy(rng.integers(0, 2, (R, nvars, L)).astype(np.int8) * 2 - 1)
+        card = ptau.sharded_wl_sweeps(s, key, meshes["tau"], 2.0, 1.0, -1.0, 0.0, 10, kind=kind, size=size).cpu()
+        dtau = 2.0 / L
+        ktau = -0.5 * float(np.log(np.tanh(dtau)))
+        cpu = ptau._sweeps_local(s.clone(), fold_all(key[None], 0)[0], dtau, ktau, kind, size or nvars, -1.0, 0.0, 10,
+                                 0, None)
+        check(torch.equal(card, cpu) and (card != s).any(), f"compare-parallel tau {kind}: card != CPU")
+        out.append(f"tau {kind} {nvars} sites, L_tau={L}, R={R}, 10 sweeps: card == CPU")
+    print(f"compare-parallel on {smi}, one-rank NCCL group: each sharded path bit for bit its unsharded run "
+          f"(replica paths) or the CPU's (spatial, tau): " + "; ".join(out), flush=True)
+    return meshes
+
+
+def phase_main_parallel(dev, smi, meshes):
+    """The sharded paths' main shapes on the one-rank NCCL group: the
+    tempering bench's ladder (qmc_timesteps_sample(500, replica_swap_freq=1),
+    ladder_resident once a sweep), the spatial sweep at bench.py's 1024^2 x 8
+    and the tau sweep at the tau example's 16-ring (L_tau = 64, 128 replicas),
+    each one threefry_bits launch a phase; sweeps/s beside the unsharded
+    route's and, for spatial and tau, beside the same sweeps with no mesh.
+    Returns (the ladder's launch counts, threefry_bits launches, the ladder's
+    sweeps/s sharded and unsharded)."""
+    from pyisingmontecarlo_tpu_torch import Lattice
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.engines import worldline as wlg
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph, grid_2d_edges
+    from pyisingmontecarlo_tpu_torch.parallel import spatial as psp
+    from pyisingmontecarlo_tpu_torch.parallel import tau as ptau
+    from pyisingmontecarlo_tpu_torch.parallel import tempering as ptemp
+    from pyisingmontecarlo_tpu_torch.rng import fold_all
+
+    sharded, plain = pt_ladder(dev), pt_ladder(dev)
+    ptemp.shard_ladder(sharded, meshes["replica"])
+    for lt in (sharded, plain):
+        lt.qmc_timesteps_sample(20, replica_swap_freq=1)  # build and warm up
+    reset_counts()
+    (states, es), t_first = _wall(lambda: sharded.qmc_timesteps_sample(PAR_LADDER_T, replica_swap_freq=1))
+    counts = counts_ladder = read_counts()
+    check(counts == counts_only(ladder_resident=PAR_LADDER_T), f"main-parallel ladder: launch counts {counts}")
+    check(states.shape == (PT_R, PAR_LADDER_T, PT_SIDE**2) and np.isfinite(es).all() and es[-8:].mean() < es[:8].mean(),
+          f"main-parallel ladder: states {states.shape}, <E> {es[:8].mean()} .. {es[-8:].mean()}")
+    walls = {"sharded": [t_first], "unsharded": []}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        lt = sharded if name == "sharded" else plain
+        walls[name].append(_wall(lambda: lt.qmc_timesteps_sample(PAR_LADDER_T, replica_swap_freq=1))[1])
+    rate = {k: PAR_LADDER_T / min(v) for k, v in walls.items()}
+    from pyisingmontecarlo_tpu_torch.parallel.comm import MeshAxis, gather_axis, ring_shift
+
+    axis = MeshAxis(meshes["replica"], "replica")
+    feats = torch.zeros((PT_R, 2 * PT_SIDE**2 + 2), dtype=torch.int64, device=dev)  # a swap step's features
+    plane = torch.zeros((1, PT_SIDE**2, PT_LTAU), dtype=torch.int8, device=dev)
+    gather_axis(feats, axis)
+    _, t_gather = _wall(lambda: [gather_axis(feats, axis) for _ in range(200)])
+    _, t_shift = _wall(lambda: [ring_shift(plane, axis) for _ in range(200)])
+    print(f"main-parallel: ladder on {smi}: LatticeTempering.qmc_timesteps_sample({PAR_LADDER_T}, "
+          f"replica_swap_freq=1), 12^2 +-J, {PT_R} replicas, L_tau={PT_LTAU}, sharded on a one-rank mesh: "
+          f"{counts['ladder_resident']} ladder_resident launches, 0 multi-launch; {rate['sharded']:.2f} sweeps/s "
+          f"sharded against {rate['unsharded']:.2f} unsharded (best of runs {walls}); the swap step's gather of "
+          f"{tuple(feats.shape)} int64 features over the one-rank group {t_gather / 200 * 1e6:.1f} us a call, a "
+          f"ring shift of one replica plane {t_shift / 200 * 1e6:.2f} us (host wall, synchronized)", flush=True)
+    bits = counts["bits"]
+
+    rng = np.random.default_rng(0)
+    s = torch.from_numpy(rng.integers(0, 2, (BENCH_R, BENCH_L, BENCH_L)).astype(np.int8) * 2 - 1)
+    key = np.array([0, 0], np.uint32)
+    psp.sharded_sweeps_2d(meshes["space"], s, key, BENCH_BETA, -1.0, 0.0, 2)  # warm up
+    reset_counts()
+    out, t_sh = _wall(lambda: psp.sharded_sweeps_2d(meshes["space"], s, key, BENCH_BETA, -1.0, 0.0, SP_SWEEPS))
+    counts = read_counts()
+    check(counts == counts_only(bits=2 * SP_SWEEPS), f"main-parallel spatial: launch counts {counts}")
+    bits += counts["bits"]
+    x = out.to(dev, torch.float32)
+    e = float(-((x * x.roll(1, 1)).sum() + (x * x.roll(1, 2)).sum()) / x.numel())
+    check(out.shape == s.shape and -2.0 < e < -0.7, f"main-parallel spatial: state {tuple(out.shape)}, e/site {e}")
+    s_dev = s.to(dev)
+    _, t_local = _wall(lambda: psp._sweeps_local(s_dev, fold_all(key[None], 0)[0], BENCH_BETA, -1.0, 0.0, SP_SWEEPS, 0,
+                                                 None))
+    lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
+    lat.run_monte_carlo(BENCH_BETA, SP_SWEEPS, BENCH_R)
+    _, t_kernel = _wall(lambda: lat.run_monte_carlo(BENCH_BETA, SP_SWEEPS, BENCH_R))
+    print(f"main-parallel: spatial on {smi}: sharded_sweeps_2d at {BENCH_L}^2 x {BENCH_R}, beta {BENCH_BETA}, "
+          f"{SP_SWEEPS} sweeps on a one-rank space mesh: {counts['bits']} threefry_bits launches, "
+          f"{SP_SWEEPS / t_sh:.2f} sweeps/s ({t_sh:.4f} s; e/site {e:.4f}); the same sweeps with no mesh "
+          f"{SP_SWEEPS / t_local:.2f} sweeps/s; the unsharded route (Lattice.run_monte_carlo, sq2d_tiled) "
+          f"{SP_SWEEPS / t_kernel:.2f} sweeps/s", flush=True)
+
+    edges = [((i, (i + 1) % TAU_N), -1.0) for i in range(TAU_N)]
+    s = ptau.bernoulli_states([0, 0], (TAU_R, TAU_N, TAU_LTAU))
+    ptau.sharded_wl_sweeps(s, np.array([0, 1], np.uint32), meshes["tau"], TAU_BETA, 1.0, -1.0, 0.0, 2)  # warm up
+    reset_counts()
+    s, t_tau = _wall(lambda: ptau.sharded_wl_sweeps(s, np.array([0, 1], np.uint32), meshes["tau"], TAU_BETA, 1.0,
+                                                    -1.0, 0.0, TAU_SWEEPS))
+    counts = read_counts()
+    check(counts == counts_only(bits=12 * TAU_SWEEPS), f"main-parallel tau: launch counts {counts}")
+    bits += counts["bits"]
+    s = ptau.sharded_wl_sweeps(s, np.array([0, 2], np.uint32), meshes["tau"], TAU_BETA, 1.0, -1.0, 0.0, TAU_SWEEPS)
+    ga = ce.device_graph(compile_graph(edges))
+    p = wlg.make_params(np.full(TAU_R, TAU_BETA), 1.0, 0.0, TAU_LTAU)
+    es = wlg.total_energy(ga, p, s.cpu()).numpy().astype(np.float64) / TAU_N
+    em, se, exact = es.mean(), es.std(ddof=1) / np.sqrt(TAU_R), chain_energy(TAU_N, TAU_BETA, 1.0)
+    # one tau shard leaves the wrap bond unfrozen and lets both its ends flip in one cluster phase, as the JAX
+    # package's sharded_wl_sweeps does: e/site about 0.03 below exact at this shape (2 and 4 shards sample it
+    # exactly); the check is a sanity bound, not the physics check
+    check(np.isfinite(es).all() and abs(em - exact) < 0.1, f"main-parallel tau: e/site {em} vs exact {exact}")
+    dtau = TAU_BETA / TAU_LTAU
+    s_dev = s.to(dev)
+    _, t_local = _wall(lambda: ptau._sweeps_local(s_dev, fold_all(np.array([[0, 3]], np.uint32), 0)[0], dtau,
+                                                  -0.5 * float(np.log(np.tanh(dtau))), "ring", TAU_N, -1.0, 0.0,
+                                                  TAU_SWEEPS, 0, None))
+    lat = Lattice(edges, seed_gen=0, dtau=dtau, device=dev)
+    lat.set_transverse_field(1.0)
+    lat.run_quantum_monte_carlo(TAU_BETA, 10, TAU_R)
+    _, t_kernel = _wall(lambda: lat.run_quantum_monte_carlo(TAU_BETA, TAU_SWEEPS, TAU_R))
+    print(f"main-parallel: tau on {smi}: sharded_wl_sweeps on the {TAU_N}-ring, L_tau={TAU_LTAU}, {TAU_R} replicas, "
+          f"beta {TAU_BETA}, {TAU_SWEEPS} sweeps on a one-rank tau mesh: {counts['bits']} threefry_bits launches, "
+          f"{TAU_SWEEPS / t_tau:.2f} sweeps/s; e/site after {2 * TAU_SWEEPS} sweeps {em:.5f} (exact {exact:.5f}, "
+          f"se {se:.5f}; one shard's bias, see the check); the same sweeps with no mesh {TAU_SWEEPS / t_local:.2f} sweeps/s; the unsharded route "
+          f"(Lattice.run_quantum_monte_carlo, the worldline kernel) {TAU_SWEEPS / t_kernel:.2f} sweeps/s", flush=True)
+    return counts_ladder, bits, rate
+
+
 def main():
     smi = phase_gpu()
     dev = torch.device("cuda", 0)
@@ -2731,6 +3011,10 @@ def main():
     qr_keychain_launches, _ = phase_main_qmcrunner(dev, smi)
     phase_crossover_qmcrunner(dev, smi)
     phase_physics_qmcrunner(dev)
+    bits_err, bits_ms, bits_plain_ms, bits_bound_ms, bits_by = phase_compare_threefry_bits(dev, smi)
+    meshes = phase_compare_parallel(dev, smi)
+    par_counts, bits_launches, _ = phase_main_parallel(dev, smi, meshes)
+    torch.distributed.destroy_process_group()
     print(f"threefry_chain at the hard n={QR_N} QmcRunner plan (100 sweeps x R={QR_R}) on {smi}: {qr_chain_ms:.5f} ms, "
           f"bound {qr_chain_bound:.5f} ms ({qr_chain_by}), numpy {qr_chain_plain_ms:.3f} ms", flush=True)
     sites = BENCH_R * BENCH_L**2
@@ -2762,7 +3046,8 @@ def main():
              launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"],
              **timed(wl_t["chain/resident"])),
         dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
-             launches=ladder_res_launches, max_abs_err=ladder_res_err, **timed(ladder_t["resident"])),
+             launches=ladder_res_launches + par_counts["ladder_resident"], max_abs_err=ladder_res_err,
+             **timed(ladder_t["resident"])),
         dict(name="threefry_chain", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
              replaces="pyisingmontecarlo_tpu/engines/classical.py:675, engines/worldline.py:396 and "
                       "engines/generic.py:878 (the XLA split_keys chains of time_step and the sweeps; no Pallas kernel)",
@@ -2770,6 +3055,11 @@ def main():
              max_abs_err=max(chain_err, qr_chain_err), ms=chain_ms,
              plain_ms=chain_plain_ms,
              bound_ms=chain_bound_ms, bound_by=chain_by, library_ms=None),
+        dict(name="threefry_bits", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
+             replaces="pyisingmontecarlo_tpu/parallel/spatial.py:76 and parallel/tau.py:104,117-118 (jax.random.uniform "
+                      "inside the sharded XLA sweeps; no Pallas kernel)",
+             launches=bits_launches, max_abs_err=bits_err, ms=bits_ms, plain_ms=bits_plain_ms, bound_ms=bits_bound_ms,
+             bound_by=bits_by, library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ worldline engine); :class:`ClassicIsing`; :class:`QmcIsing`;
 :class:`LatticeTempering` on any ladder (``ops/ladder.py`` on ring and torus
 ladders, else the generic engine); :class:`QmcRunner` over arbitrary k-local
 interactions (``engines/generic.py`` and its group-major route
-``engines/generic_gm.py``).
+``engines/generic_gm.py``); the multi-device paths on ``torch.distributed``
+(``parallel/``: replica-sharded ensembles, the sharded tempering ladder,
+spatial and tau-sharded sweeps; ``entry.py``'s dry run and launcher).
 """
 
 from .classicising import ClassicIsing

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "ladder_resident_sweeps": ([_P] * 10 + [_I] * 9 + [_P], ctypes.c_int),
     "wl_tiled_sweeps": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 10 + [_P], ctypes.c_int),
     "threefry_chain": ([_P] * 3 + [_I] * 5 + [_P] * 3, ctypes.c_int),
+    "threefry_bits": ([_P, _I, ctypes.c_longlong, _I, _P, _P], ctypes.c_int),
     "pmc_smem_optin": ([_I], ctypes.c_int),
     "pmc_error_string": ([_I], ctypes.c_char_p),
 }

@@ -35,6 +35,19 @@
 // instruction a cycle. The tables' bytes (4 * R * (C + W) * T) are small beside
 // that. The design keeps the chain in registers and writes each table entry
 // once, coalesced across the replicas of a warp; nothing is read but the plan.
+//
+// threefry_bits: jax.random.bits(key, (n,)) and jax.random.uniform(key, (n,))
+// for R keys, one row each, on the card: bits[r][i] = y0 ^ y1 with (y0, y1) =
+// threefry2x32(key_r, (i >> 32, i & 0xFFFFFFFF)), the uniform
+// (bits >> 9 | 0x3F800000) as f32 - 1. The numpy version it is held to bit for
+// bit is rng.random_bits / rng.uniform_f32. Replaces no Pallas kernel: the JAX
+// package draws these inside its XLA programs, the spatially and tau-sharded
+// sweeps' jax.random.uniform over whole state shapes
+// (pyisingmontecarlo_tpu/parallel/spatial.py:76, parallel/tau.py:104,117-118).
+// Bound: one block function a counter, 50 ALU instructions (SASS, nvcc 12.9;
+// chip_smoke.py's THREEFRY_ALU_OPS), against 4 bytes written: the integer
+// pipe, not HBM, sets the least time (0.024 ms against 0.010 ms for 8 M). One thread a counter in a grid-stride loop over the row, one
+// grid row a key; the same threefry device function as the chain, written once.
 
 #include <cstdint>
 
@@ -135,7 +148,33 @@ __global__ void __launch_bounds__(kChainThreads) threefry_chain_kernel(
     keys_out[2 * r + 1] = key.k1;
 }
 
+constexpr int kBitsThreads = 256;
+
+__global__ void __launch_bounds__(kBitsThreads) threefry_bits_kernel(const uint32_t* __restrict__ keys, long long n,
+                                                                     int uniform, uint32_t* __restrict__ out) {
+    const int r = blockIdx.y;
+    const Key key{keys[2 * r], keys[2 * r + 1]};
+    uint32_t* row = out + static_cast<long long>(r) * n;
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+         i += static_cast<long long>(gridDim.x) * blockDim.x) {
+        const Key y = threefry(key, static_cast<uint32_t>(static_cast<unsigned long long>(i) >> 32),
+                               static_cast<uint32_t>(i));
+        const uint32_t b = y.k0 ^ y.k1;
+        row[i] = uniform ? __float_as_uint(__uint_as_float((b >> 9) | 0x3F800000u) - 1.0f) : b;
+    }
+}
+
 }  // namespace
+
+// keys [R][2] uint32 (device), out [R][n] uint32 bits, or f32 uniforms when uniform != 0. On the caller's stream.
+extern "C" int threefry_bits(const void* keys, int R, long long n, int uniform, void* out, void* stream) {
+    if (R < 1 || R > 65535 || n < 1 || keys == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+    const long long want = (n + kBitsThreads - 1) / kBitsThreads;
+    const unsigned gx = static_cast<unsigned>(want < (1LL << 20) ? want : (1LL << 20));
+    threefry_bits_kernel<<<dim3(gx, R), kBitsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(keys), n, uniform, static_cast<uint32_t*>(out));
+    return (int)cudaGetLastError();
+}
 
 // keys_in/keys_out [R][2] uint32, plan [S][2] int32 (kind, param: nvars for a worm slot), seeds [T][C][R] int32
 // (may be null when C == 0), v0 [T][W][R] int32 (may be null when W == 0). C and W must be the columns and int

@@ -1037,6 +1037,7 @@ class GenericWorldline:
         self.offsets_t = np.array([t["offset"] for t in termset.terms], np.float32)
         s0 = torch.as_tensor(np.asarray(states0, np.int8)).to(self.device)
         self.s = s0[:, :, None].expand(-1, termset.nvars, self.Lt).contiguous()
+        self.shard = None  # a parallel.comm.ReplicaShard: s and key_data then hold this rank's block
         self._dt: Optional[DeviceTerms] = None
         self.use_gm = gg.gm_eligible(self.comp, termset.nvars)
         if self.use_gm:
@@ -1052,11 +1053,15 @@ class GenericWorldline:
 
     @property
     def R(self) -> int:
-        return int(self.s.shape[0])
+        return int(self.s.shape[0]) if self.shard is None else self.shard.R
+
+    def _global(self, x):
+        return x if self.shard is None else self.shard.gather(x)
 
     def _run(self, classic, gm, *args):
         """Call a run function of the chosen route from the current keys; keep
-        its state and keys."""
+        its state and keys. Under a replica shard the run is this rank's block
+        and the results are gathered."""
         from . import generic_gm as gg
 
         keys = key_tensor(self.key_data, self.device)
@@ -1066,13 +1071,14 @@ class GenericWorldline:
             out = classic(self.dt, self.s, keys, *args)
         self.s = out[0]
         self.key_data = key_data_of(out[1])
-        return out[2:]
+        return self._global(out[2:])
 
     def timesteps(self, t: int):
         """t sweeps; returns the time-averaged energy estimator [R] (f64)."""
         t = int(t)
         if t == 0:
-            return total_energy(self.dt, self.s, self.ltau, self.ts.offset).cpu().numpy().astype(np.float64)
+            e = total_energy(self.dt, self.s, self.ltau, self.ts.offset)
+            return self._global(e).cpu().numpy().astype(np.float64)
         (esum,) = self._run(run_sweeps, "run_sweeps_gm", t, self.ltau, self.do_loop, self.ts.offset)
         return kfinal(esum) / t
 
@@ -1101,4 +1107,4 @@ class GenericWorldline:
 
     def itime_states(self, g: int) -> np.ndarray:
         """``[Lt, nvars]`` bool: the worldline of replica g."""
-        return (self.s[g].T == 1).cpu().numpy()
+        return (self._global(self.s)[g].T == 1).cpu().numpy()

@@ -280,8 +280,14 @@ def _tile_lanes(x, lt: int):
 
 
 def _sum_slabs(x, R: int):
-    """[rows, lt*R] -> [rows, R]: sum over the Trotter-slab column blocks."""
-    return x.reshape(x.shape[0], -1, R).sum(1)
+    """[rows, lt*R] -> [rows, R]: sum over the Trotter-slab column blocks, slab
+    by slab in order (XLA's order; torch's own reduction order here depends on
+    R, and a block of the replicas must sum as the whole batch does)."""
+    x = x.reshape(x.shape[0], -1, R)
+    acc = x[:, 0]
+    for t in range(1, x.shape[1]):
+        acc = acc + x[:, t]
+    return acc
 
 
 def _sum_group_blocks(x, G: int, n: int):
@@ -624,7 +630,8 @@ def _estimator_plane(gs: GmStructs, gm, R: int):
 def energy_gm(gs: GmStructs, gm, R: int, ltau: int, offset: float):
     """dlnZ/dbeta estimator: per-replica mean over Trotter slices of the
     summed per-term (M T / T) values [R]."""
-    col = _estimator_plane(gs, gm, R).sum(0, keepdim=True)  # [1, lt*R]
+    plane = _estimator_plane(gs, gm, R)  # [TT, lt*R]
+    col = plane.T.contiguous().sum(1)[None]  # [1, lt*R]: a contiguous reduction, its order independent of R
     return float(np.float32(offset)) + _sum_slabs(col, R)[0] / ltau
 
 

@@ -619,6 +619,8 @@ class WorldlineEnsemble:
         else:
             s = torch.from_numpy(random_states(self.key_data, cg.nvars)).to(self.device)[:, :, None]
         self.s = s.expand(shape).contiguous()
+        # a parallel.comm.ReplicaShard: s, key_data and p then hold this rank's block (R stays the total)
+        self.shard = None
 
     @property
     def ga(self) -> ce.GraphArrays:
@@ -663,18 +665,29 @@ class WorldlineEnsemble:
         self.key_data = fold_all(self.key_data, sweeps)
         return esum, out
 
+    def _global(self, x):
+        return x if self.shard is None else self.shard.gather(x)
+
+    def keep_shard(self, other: "WorldlineEnsemble") -> None:
+        """Take ``other``'s replica shard, if any, for an ensemble made from its
+        block (a regrid or a clone): the generic route, ``R`` the total."""
+        if other.shard is not None:
+            self.shard, self.dense, self.R = other.shard, None, other.R
+
     def _generic(self, run, *args, **kw):
-        """Call a generic-route run function from the current keys; keep its state and keys."""
+        """Call a generic-route run function from the current keys; keep its
+        state and keys. Under a replica shard the run is this rank's block and
+        the results are gathered."""
         out = run(self.ga, self.p, self.s, self._keys(), *args, **kw)
         self.s, keys = out[0], out[1]
         self.key_data = key_data_of(keys)
-        return out[2:]
+        return self._global(out[2:])
 
     def timesteps(self, t: int) -> np.ndarray:
         """t sweeps; returns the time-averaged energy estimator [R]."""
         t = int(t)
         if t == 0:
-            return total_energy(self.ga, self.p, self.s).cpu().numpy().astype(np.float64)
+            return self._global(total_energy(self.ga, self.p, self.s)).cpu().numpy().astype(np.float64)
         if self.on_kernel():
             esum, _ = self._run(t)
             return esum / t
@@ -755,11 +768,11 @@ class WorldlineEnsemble:
 
     def states_bool(self) -> np.ndarray:
         """Slice-0 spin configuration as bool[R, nvars]."""
-        return (self.s[:, :, 0] == 1).cpu().numpy()
+        return (self._global(self.s[:, :, 0]) == 1).cpu().numpy()
 
     def itime_states(self, g: int) -> np.ndarray:
         """``[L, nvars]`` bool: the worldline of replica g."""
-        return (self.s[g].T == 1).cpu().numpy()
+        return (self._global(self.s)[g].T == 1).cpu().numpy()
 
     def _sample_series(self, t: int, freq: int) -> torch.Tensor:
         """Slice-0 spin series ``[R, t // freq, nvars]`` (+-1 f32), on the device."""

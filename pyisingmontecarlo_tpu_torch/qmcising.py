@@ -92,6 +92,8 @@ class QmcIsing:
     def add_qmc(self, use_allocator: Optional[bool] = None) -> None:
         """Append one simulator seeded from the container's seed stream, with
         a random initial spin state (constant along tau once materialized)."""
+        if self._w is not None and self._w.shard is not None:
+            raise ValueError("add simulators before sharding the replicas (parallel.replica.shard_qmcising)")
         key = key_data_from_seeds(self.rng.make_seeds(1))
         s0 = random_states(key, self.nvars)  # [1, nvars] int8
         if self._w is not None:
@@ -121,7 +123,8 @@ class QmcIsing:
 
     def _ensure(self, beta: Optional[float]) -> wl.WorldlineEnsemble:
         """Materialize or regrid the worldline ensemble for ``beta``; None
-        keeps the current grid (beta 1.0 at first use)."""
+        keeps the current grid (beta 1.0 at first use). A replica shard stays
+        through a regrid, on the generic route."""
         if self._w is None:
             b = 1.0 if beta is None else float(beta)
             L = wl.choose_ltau(b, self.transverse, self.dtau)
@@ -131,10 +134,11 @@ class QmcIsing:
         elif beta is not None and float(beta) != self._w.beta:
             b = float(beta)
             L = wl.choose_ltau(b, self.transverse, self.dtau)
-            s = self._w.s
-            if L != self._w.L:  # nearest-slice resampling along tau
-                s = s[:, :, torch.from_numpy(np.arange(L) * self._w.L // L).to(s.device)]
-            self._w = self._ensemble(b, s, self._w.key_data, L)
+            old, s = self._w, self._w.s
+            if L != old.L:  # nearest-slice resampling along tau
+                s = s[:, :, torch.from_numpy(np.arange(L) * old.L // L).to(s.device)]
+            self._w = self._ensemble(b, s, old.key_data, L)
+            self._w.keep_shard(old)
         else:
             self._w.enable_rvb = self.enable_rvb
             self._w.enable_heatbath = self.enable_heatbath
@@ -260,6 +264,7 @@ class QmcIsing:
         if self._w is not None:
             w = self._w
             other._w = self._ensemble(w.beta, w.s.clone(), w.key_data.copy(), w.L, params=[x.cpu() for x in w.p])
+            other._w.keep_shard(w)
         return other
 
     # ----------------------------------------------------------- persistence
@@ -270,7 +275,7 @@ class QmcIsing:
         its full worldline. The random state is not saved."""
         graphs = []
         if self._w is not None:
-            s = self._w.s.cpu().numpy()
+            s = self._w._global(self._w.s).cpu().numpy()
             graphs = [{"L": self._w.L, "beta": self._w.beta, "worldline": s[g] == 1} for g in range(self._w.R)]
         elif self._keys is not None:
             graphs = [{"L": 0, "beta": 0.0, "worldline": (x == 1)[:, None]} for x in self._init_states]

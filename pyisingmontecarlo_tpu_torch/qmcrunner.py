@@ -83,6 +83,8 @@ class QmcRunner:
     def add_qmc(self, use_allocator: Optional[bool] = None) -> None:
         """Append one simulator with a random initial spin state, seeded from
         the container's seed stream."""
+        if self._w is not None and self._w.shard is not None:
+            raise ValueError("add simulators before sharding the replicas (parallel.replica.shard_runner)")
         key = key_data_from_seeds(self.rng.make_seeds(1))
         s0 = random_states(key, self.nvars)  # [1, nvars] int8
         if self._w is not None:
@@ -109,6 +111,7 @@ class QmcRunner:
         s_old = old.s.cpu().numpy()
         self._w = self._worldline(old.beta, old.key_data, s_old[:, :, 0])
         self._w.s = torch.from_numpy(ge.regrid_worldline(s_old, self._w.comp, self._w.Lt)).to(self.device)
+        self._w.shard = old.shard
 
     def add_interaction(self, mat: Sequence[float], vars: Sequence[int]) -> None:
         """A flattened 2^k x 2^k matrix over k variables."""
@@ -140,7 +143,7 @@ class QmcRunner:
 
     def _ensure(self, beta: float) -> ge.GenericWorldline:
         """Materialize the worldlines at ``beta``, or regrid them to their
-        nearest slices when ``beta`` changes the grid."""
+        nearest slices when ``beta`` changes the grid (a replica shard stays)."""
         if self._w is None:
             self._w = self._worldline(float(beta), self._keys, self._init_states)
             self._keys = self._init_states = None
@@ -152,6 +155,7 @@ class QmcRunner:
             else:
                 idx = torch.from_numpy(np.arange(self._w.Lt) * old.Lt // self._w.Lt).to(old.s.device)
                 self._w.s = old.s.index_select(2, idx)
+            self._w.shard = old.shard
         self._w.do_loop = self.do_loop_updates
         return self._w
 

@@ -16,7 +16,11 @@ sub-key again per color, draws a slice and draws Bernoulli bits: the fan,
 slice and bits slots). ``threefry_chain`` walks that chain for a whole call:
 on a CUDA tensor in one launch of the kernel of ``csrc/keychain.cu`` (one
 thread a replica), on a CPU tensor in its plain numpy version
-``threefry_chain_reference``; both write the same tables bit for bit.
+``threefry_chain_reference``; both write the same tables bit for bit. The
+sharded sweeps of ``parallel/`` draw ``uniform(key, shape)`` over whole state
+shapes: ``threefry_bits`` makes those bits (or uniforms) for R keys, on a
+CUDA tensor in one launch of ``threefry_bits`` of ``csrc/keychain.cu``, on a
+CPU tensor by ``random_bits`` / ``uniform_f32``.
 
 Threefry2x32 is the 20-round Threefish-derived block function with the key
 schedule ``(k0, k1, k0 ^ k1 ^ 0x1BD11BDA)``. Under jax's partitionable mode
@@ -55,6 +59,7 @@ __all__ = [
     "chain_columns",
     "threefry_chain",
     "threefry_chain_reference",
+    "threefry_bits",
     "key_tensor",
     "key_data_of",
 ]
@@ -338,3 +343,42 @@ def threefry_chain(keys: torch.Tensor, kinds: Sequence, T: int, nvars: int):
 
 
 threefry_chain.launches = 0
+
+
+def threefry_bits(keys: torch.Tensor, n: int, uniform: bool = False) -> torch.Tensor:
+    """``random_bits`` (or ``uniform_f32``) of ``n`` counters for every key of
+    an ``[R, 2]`` int32 key tensor (the bits of ``key_tensor``), on its
+    device: ``[R, n]`` int32 holding the uint32 words, or f32 uniforms.
+
+    A CUDA tensor launches ``threefry_bits`` of ``csrc/keychain.cu`` once
+    (counted in ``threefry_bits.launches``) or raises; a CPU tensor runs the
+    numpy version."""
+    n = int(n)
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int32:
+        raise ValueError(f"keys must be [R, 2] int32, got {tuple(keys.shape)} {keys.dtype}")
+    if n < 0:
+        raise ValueError(f"n must be non-negative, got {n}")
+    R = keys.shape[0]
+    if keys.device.type != "cuda":
+        kd = key_data_of(keys)
+        out = uniform_f32(kd, n) if uniform else random_bits(kd, n).view(np.int32)
+        return torch.from_numpy(np.ascontiguousarray(out)).to(keys.device)
+    if R > 65535:
+        raise ValueError(f"threefry_bits takes at most 65535 keys, got {R}")
+    dev = keys.device
+    out = torch.empty((R, n), dtype=torch.float32 if uniform else torch.int32, device=dev)
+    if R == 0 or n == 0:
+        return out
+    from . import _kernels
+
+    keys_in = keys.contiguous()
+    with torch.cuda.device(dev):
+        err = _kernels.load().threefry_bits(keys_in.data_ptr(), R, n, int(uniform), out.data_ptr(),
+                                            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"threefry_bits launch failed: {_kernels.error_string(err)} ({err})")
+    threefry_bits.launches += 1
+    return out
+
+
+threefry_bits.launches = 0

@@ -36,8 +36,14 @@ swap key is split once per swap step and the subkey gives
 ``uniform(sub, (R,))`` (``swap_uniforms``).
 
 ``enable_heatbath_update`` is accepted and has no effect, as in the JAX
-package (every parallel phase accepts by Glauber). The multi-device ladder
-is not ported (ROADMAP.md item 8).
+package (every parallel phase accepts by Glauber).
+
+Under a replica shard (``parallel/tempering.shard_ladder``) each rank sweeps
+its block of the replicas (the ladder kernel once per rank on them, or the
+generic sweep); a swap step gathers the swap features, every rank takes the
+same decisions from the same uniforms, and a pair that straddles two blocks
+trades its planes with the neighbouring rank. Results are gathered, the same
+on every rank, and equal the unsharded run's bit for bit.
 
 Checkpoints are the JAX package's CBOR files (``utils/cbor.py``); the
 per-replica seeds are not saved, so a reload reseeds.
@@ -68,17 +74,18 @@ __all__ = ["LatticeTempering", "key_tables", "swap_uniforms", "swap_features", "
 _NEVER = 2**31 - 1  # the swap period of runs without swaps
 
 
-def key_tables(key_data: np.ndarray, swapkey: np.ndarray, timesteps: int, swap_freq: int):
+def key_tables(key_data: np.ndarray, swapkey: np.ndarray, timesteps: int, swap_freq: int,
+               R: Optional[int] = None):
     """The host tables of a call of ``timesteps`` sweeps with a swap every
-    ``swap_freq``: ``(seeds [T, R] int32, uniforms [T // swap_freq, R] f32,
-    key_data, swapkey)`` with the keys advanced past the call."""
+    ``swap_freq``: ``(seeds [T, len(key_data)] int32, uniforms [T //
+    swap_freq, R] f32, key_data, swapkey)`` with the keys advanced past the
+    call; ``R`` (the ladder's replicas) defaults to ``len(key_data)``."""
     kd = np.asarray(key_data, np.uint32)
-    R = kd.shape[0]
-    seeds = np.empty((timesteps, R), np.int32)
+    seeds = np.empty((timesteps, kd.shape[0]), np.int32)
     for t in range(timesteps):
         kd, sub = split_all(kd)
         seeds[t] = seeds_from_key_data(sub)
-    uniforms, sk = swap_uniforms(swapkey, timesteps // swap_freq, R)
+    uniforms, sk = swap_uniforms(swapkey, timesteps // swap_freq, kd.shape[0] if R is None else R)
     return seeds, uniforms, kd, sk
 
 
@@ -174,7 +181,9 @@ class LatticeTempering:
                 jv[r, self._edge_index[(min(a, b), max(a, b))]] = j
         return jv
 
-    def _materialize(self) -> dict:
+    def _materialize(self, ltau: Optional[int] = None) -> dict:
+        """The ladder's tensors, built at first use; ``ltau`` sets the slice
+        count there (default: the largest ``choose_ltau`` of the rungs)."""
         if self._mat is not None:
             return self._mat
         if not self.graphs:
@@ -187,7 +196,7 @@ class LatticeTempering:
         betas = np.array([g["beta"] for g in self.graphs])
         gammas = np.array([g["transverse"] for g in self.graphs])
         hs = np.array([g["longitudinal"] for g in self.graphs])
-        L = max(choose_ltau(b, g, self.dtau) for b, g in zip(betas, gammas))
+        L = int(ltau) if ltau else max(choose_ltau(b, g, self.dtau) for b, g in zip(betas, gammas))
         rvb = np.array([g["rvb"] for g in self.graphs])
         topo = detect_topology(nvars, ea, eb)
         generic = bool(rvb.any()) or ladder.gate(topo, nvars, L, R) is not None
@@ -227,8 +236,16 @@ class LatticeTempering:
 
     def _swap(self, m: dict, s, features, u, phase: int):
         """One even/odd swap step with uniforms ``u[R]``: returns the new
-        state and the accepted count (a device scalar)."""
-        R, nvars, L = s.shape
+        state and the accepted count (a device scalar). Under a shard, ``s``
+        and ``features`` are this rank's block; the decisions are taken on the
+        gathered features, the same on every rank."""
+        shard = m.get("shard")
+        if shard is not None:
+            f = shard.gather(torch.cat([features[0].long(), features[1].long()[:, None],
+                                        features[2].long()[:, None]], 1))
+            features = (f[:, :-2], f[:, -2], f[:, -1])
+        _, nvars, L = s.shape
+        R = features[1].shape[0]
         ntot = nvars * L
         p, jv = m["p"], m["jv"]
 
@@ -246,7 +263,13 @@ class LatticeTempering:
         acc_leader = leader & (torch.log(u) < delta)
         acc_follower = acc_leader.roll(1, 0) & (idx > 0)
         perm = torch.where(acc_leader, idx + 1, torch.where(acc_follower, idx - 1, idx))
-        return s[perm], acc_leader.sum()
+        return (s[perm] if shard is None else shard.take(s, perm)), acc_leader.sum()
+
+    @staticmethod
+    def _gather(m: dict, x):
+        """The global per-replica results from this rank's block (``x`` itself unsharded)."""
+        shard = m.get("shard")
+        return x if shard is None else shard.gather(x)
 
     def _run(self, timesteps: int, swap_freq: Optional[int], sampling_freq: int = 0, with_energy: bool = True):
         """``timesteps`` sweeps, a swap step after every ``swap_freq``-th
@@ -259,8 +282,9 @@ class LatticeTempering:
             return self._run_generic(m, T, sf, freq, with_energy)
         nsamples = T // freq if freq else 0
         s, planes, dev = m["s"], m["planes"], self.device
-        R = s.shape[0]
-        seeds, uniforms, m["key_data"], self._swapkey = key_tables(m["key_data"], self._swapkey, T, sf)
+        R = s.shape[0]  # this rank's replicas under a shard
+        seeds, uniforms, m["key_data"], self._swapkey = key_tables(m["key_data"], self._swapkey, T, sf,
+                                                                    len(self.graphs))
         seeds, uniforms = torch.from_numpy(seeds).to(dev), torch.from_numpy(uniforms).to(dev)
         sums = None
         if with_energy:
@@ -291,18 +315,19 @@ class LatticeTempering:
                 samples.append(s[:, :, 0])
         m["s"] = s
         self.total_swaps += int(accepted)
-        out = torch.stack(samples) if samples else s.new_empty((0, R, self.nvars))
-        return (self._energy_sum(m, T, sums) if with_energy else None), out
+        out = self._gather(m, torch.stack(samples, 1) if samples else s.new_empty((R, 0, self.nvars))).transpose(0, 1)
+        return (self._energy_sum(m, T, self._gather(m, sums)) if with_energy else None), out
 
     def _run_generic(self, m: dict, T: int, sf: int, freq: int, with_energy: bool):
         """``_run`` on the generic route: each sweep is ``worldline.sweep``
         from its row of the key chain, then (``with_energy``) the energy
         estimator's compensated sum, then the swap step where one is due, then
         the sample where one is due."""
-        ga, p, dev = m["ga"], m["p"], self.device
-        R = m["s"].shape[0]
+        ga, dev = m["ga"], self.device
+        p = m["p"] if "shard" not in m else type(m["p"])(*(m["shard"].block(x) for x in m["p"]))
+        R = m["s"].shape[0]  # this rank's replicas under a shard
         nsamples = T // freq if freq else 0
-        uniforms, self._swapkey = swap_uniforms(self._swapkey, T // sf, R)
+        uniforms, self._swapkey = swap_uniforms(self._swapkey, T // sf, len(self.graphs))
         uniforms = torch.from_numpy(uniforms).to(dev)
         ea, eb = m["ea"].long(), m["eb"].long()
         esum = kzero(R, dev)
@@ -326,8 +351,8 @@ class LatticeTempering:
         m["s"], keys = wl.walk(m["s"], key_tensor(m["key_data"], dev), T, slots, step)
         m["key_data"] = key_data_of(keys)
         self.total_swaps += int(accepted)
-        out = torch.stack(samples) if samples else m["s"].new_empty((0, R, self.nvars))
-        return (kfinal(esum) if with_energy else None), out
+        out = self._gather(m, torch.stack(samples, 1) if samples else m["s"].new_empty((R, 0, self.nvars)))
+        return (kfinal(self._gather(m, esum)) if with_energy else None), out.transpose(0, 1)
 
     def _energy_sum(self, m: dict, T: int, sums) -> np.ndarray:
         """The energy estimator summed over ``T`` sweeps, per replica slot, from
@@ -363,7 +388,8 @@ class LatticeTempering:
         g = int(g)
         if g < 0 or g >= len(self.graphs):
             raise ValueError(f"Graph index {g} out of bounds")
-        return (self._materialize()["s"][g].T == 1).cpu().numpy()
+        m = self._materialize()
+        return (self._gather(m, m["s"])[g].T == 1).cpu().numpy()
 
     # ---------------------------------------------------------- correlations
 
@@ -410,7 +436,7 @@ class LatticeTempering:
     def save_to_file(self, path: str) -> None:
         """CBOR (nvars, edges, cutoff, seed, use_allocator, container), the JAX
         package's file; the random state is not saved."""
-        states = None if self._mat is None else self._mat["s"].cpu().numpy()
+        states = None if self._mat is None else self._gather(self._mat, self._mat["s"]).cpu().numpy()
         container = [
             {
                 "transverse": g["transverse"],

@@ -48,6 +48,9 @@ def test_port_imports_no_jax():
         "import pyisingmontecarlo_tpu_torch.utils.profiling, pyisingmontecarlo_tpu_torch.utils.accum\n"
         "import pyisingmontecarlo_tpu_torch.qmcising, pyisingmontecarlo_tpu_torch.qmcrunner\n"
         "import pyisingmontecarlo_tpu_torch.engines.generic, pyisingmontecarlo_tpu_torch.engines.generic_gm\n"
+        "import pyisingmontecarlo_tpu_torch.entry, pyisingmontecarlo_tpu_torch.examples.tau_sharded_tfim\n"
+        "import pyisingmontecarlo_tpu_torch.parallel.replica, pyisingmontecarlo_tpu_torch.parallel.tempering\n"
+        "import pyisingmontecarlo_tpu_torch.parallel.spatial, pyisingmontecarlo_tpu_torch.parallel.tau\n"
         "import os\n"
         "for mode in ('1', '0'):\n"
         "    os.environ['PMC_GENERIC_GM'] = mode\n"
