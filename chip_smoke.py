@@ -2723,6 +2723,7 @@ def dense_terms_energy(nvars, terms, beta):
 BITS_CASES = (("1 M counters, one key", 1, 1 << 20), ("8 M counters, one key", 1, 8 << 20),
               ("64 keys x 4097 counters", 64, 4097), ("3 keys x 1000003 counters", 3, 1000003))
 BITS_N = 8 << 20
+BITS_RUN = 20  # launches a timed run
 # main-parallel: the spatial sweep at bench.py's shape, the tau sweep at examples/tau_sharded_tfim.py's
 SP_SWEEPS = 20
 TAU_N, TAU_LTAU, TAU_R, TAU_BETA, TAU_SWEEPS = 16, 64, 128, 2.0, 100
@@ -2758,14 +2759,15 @@ def phase_compare_threefry_bits(dev, smi):
               flush=True)
     keys = key_tensor(_keys(1, 3), dev)
     threefry_bits(keys, BITS_N, uniform=True)
-    runs = [event_ms(lambda: threefry_bits(keys, BITS_N, uniform=True), 1) for _ in range(10)]
+    runs = [event_ms(lambda: [threefry_bits(keys, BITS_N, uniform=True) for _ in range(BITS_RUN)], BITS_RUN)
+            for _ in range(10)]
     t0 = time.perf_counter()
     uniform_f32(_keys(1, 3), BITS_N)
     plain_ms = (time.perf_counter() - t0) * 1e3
     b_ms, b_by = bits_bound(BITS_N)
     ms = float(np.median(runs))
     print(f"compare-threefry-bits: timing on {smi}: {BITS_N} uniforms, one key: threefry_bits median {ms:.5f} ms "
-          f"(runs {runs}); bound {b_ms:.5f} ms ({b_by}; bytes alone {bound(4 * BITS_N, 0)[0]:.5f} ms); numpy "
+          f"a launch (runs of {BITS_RUN} launches: {runs}); bound {b_ms:.5f} ms ({b_by}; bytes alone {bound(4 * BITS_N, 0)[0]:.5f} ms); numpy "
           f"{plain_ms:.3f} ms", flush=True)
     return err, ms, plain_ms, b_ms, b_by
 
@@ -2829,10 +2831,10 @@ def phase_compare_parallel(dev, smi):
             a, b = (qmc_runner(QR_N, QR_R, hard_terms(QR_N), dev, seed=5) for _ in range(2))
             prep.shard_runner(a, meshes["replica"], beta=QR_BETA)
             b._ensure(QR_BETA)
-        calls = lambda q: [q.run_sampling(QR_BETA, 6, sampling_freq=2), q.run_bond_sampling(QR_BETA, 4, sampling_freq=2),
+        calls = lambda q: [q.run_sampling(QR_BETA, 4, sampling_freq=2), q.run_bond_sampling(QR_BETA, 2, sampling_freq=1),
                            q.get_graph_itime(QR_R - 1)]
         _, ta, tb = _sharded_vs_plain(calls, a, b, f"compare-parallel QmcRunner PMC_GENERIC_GM={mode}")
-        out.append(f"QmcRunner hard n={QR_N}, R={QR_R}, {'gm' if a._w.use_gm else 'classic'} route: 10 sweeps sharded "
+        out.append(f"QmcRunner hard n={QR_N}, R={QR_R}, {'gm' if a._w.use_gm else 'classic'} route: 6 sweeps sharded "
                    f"{ta:.3f} s, unsharded {tb:.3f} s")
     edges = glass_edges(256)
     a, b = (QmcIsing(edges, QMC_GAMMA, 0.0, num_experiments=16, seed=QMC_SEED, device=dev) for _ in range(2))
@@ -2867,6 +2869,24 @@ def phase_compare_parallel(dev, smi):
     print(f"compare-parallel on {smi}, one-rank NCCL group: each sharded path bit for bit its unsharded run "
           f"(replica paths) or the CPU's (spatial, tau): " + "; ".join(out), flush=True)
     return meshes
+
+
+def _profiled(fn, names, launched):
+    """``fn()`` once under torch.profiler: the device kernels whose names hold
+    one of ``names`` (beside the launches the wrappers counted; the profiler
+    may miss a window's first kernel, so the counters are the check) and the
+    device's idle share, as text; 'not measured' when the profiler records no
+    device time."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_t = _device_times(prof, names, everything=True)
+    if dev_t is None:
+        return "profiler: not measured (no device time recorded)"
+    per, busy, span = dev_t
+    return (f"profiler ({launched} launched): " + ", ".join(f"{n} {np.mean(v):.3f} us x {len(v)}"
+                                                             for n, v in sorted(per.items()))
+            + f"; device busy {busy:.1f} of {span:.1f} us, idle {100 * (1 - busy / span):.2f}%")
 
 
 def phase_main_parallel(dev, smi, meshes):
@@ -2910,12 +2930,15 @@ def phase_main_parallel(dev, smi, meshes):
     gather_axis(feats, axis)
     _, t_gather = _wall(lambda: [gather_axis(feats, axis) for _ in range(200)])
     _, t_shift = _wall(lambda: [ring_shift(plane, axis) for _ in range(200)])
+    prof_ladder = _profiled(lambda: sharded.qmc_timesteps_sample(20, replica_swap_freq=1), ("ladder_resident", "nccl"),
+                            "20 ladder_resident")
     print(f"main-parallel: ladder on {smi}: LatticeTempering.qmc_timesteps_sample({PAR_LADDER_T}, "
           f"replica_swap_freq=1), 12^2 +-J, {PT_R} replicas, L_tau={PT_LTAU}, sharded on a one-rank mesh: "
           f"{counts['ladder_resident']} ladder_resident launches, 0 multi-launch; {rate['sharded']:.2f} sweeps/s "
           f"sharded against {rate['unsharded']:.2f} unsharded (best of runs {walls}); the swap step's gather of "
           f"{tuple(feats.shape)} int64 features over the one-rank group {t_gather / 200 * 1e6:.1f} us a call, a "
-          f"ring shift of one replica plane {t_shift / 200 * 1e6:.2f} us (host wall, synchronized)", flush=True)
+          f"ring shift of one replica plane {t_shift / 200 * 1e6:.2f} us (host wall, synchronized); 20 sharded steps' "
+          f"{prof_ladder}", flush=True)
     bits = counts["bits"]
 
     rng = np.random.default_rng(0)
@@ -2936,11 +2959,13 @@ def phase_main_parallel(dev, smi, meshes):
     lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
     lat.run_monte_carlo(BENCH_BETA, SP_SWEEPS, BENCH_R)
     _, t_kernel = _wall(lambda: lat.run_monte_carlo(BENCH_BETA, SP_SWEEPS, BENCH_R))
+    prof_sp = _profiled(lambda: psp.sharded_sweeps_2d(meshes["space"], s, key, BENCH_BETA, -1.0, 0.0, 5),
+                        ("threefry_bits", "nccl"), "10 threefry_bits")
     print(f"main-parallel: spatial on {smi}: sharded_sweeps_2d at {BENCH_L}^2 x {BENCH_R}, beta {BENCH_BETA}, "
           f"{SP_SWEEPS} sweeps on a one-rank space mesh: {counts['bits']} threefry_bits launches, "
           f"{SP_SWEEPS / t_sh:.2f} sweeps/s ({t_sh:.4f} s; e/site {e:.4f}); the same sweeps with no mesh "
           f"{SP_SWEEPS / t_local:.2f} sweeps/s; the unsharded route (Lattice.run_monte_carlo, sq2d_tiled) "
-          f"{SP_SWEEPS / t_kernel:.2f} sweeps/s", flush=True)
+          f"{SP_SWEEPS / t_kernel:.2f} sweeps/s; 5 sharded sweeps' {prof_sp}", flush=True)
 
     edges = [((i, (i + 1) % TAU_N), -1.0) for i in range(TAU_N)]
     s = ptau.bernoulli_states([0, 0], (TAU_R, TAU_N, TAU_LTAU))
@@ -2969,11 +2994,14 @@ def phase_main_parallel(dev, smi, meshes):
     lat.set_transverse_field(1.0)
     lat.run_quantum_monte_carlo(TAU_BETA, 10, TAU_R)
     _, t_kernel = _wall(lambda: lat.run_quantum_monte_carlo(TAU_BETA, TAU_SWEEPS, TAU_R))
+    prof_tau = _profiled(lambda: ptau.sharded_wl_sweeps(s, np.array([0, 4], np.uint32), meshes["tau"], TAU_BETA, 1.0,
+                                                        -1.0, 0.0, 5), ("threefry_bits", "nccl"), "60 threefry_bits")
     print(f"main-parallel: tau on {smi}: sharded_wl_sweeps on the {TAU_N}-ring, L_tau={TAU_LTAU}, {TAU_R} replicas, "
           f"beta {TAU_BETA}, {TAU_SWEEPS} sweeps on a one-rank tau mesh: {counts['bits']} threefry_bits launches, "
           f"{TAU_SWEEPS / t_tau:.2f} sweeps/s; e/site after {2 * TAU_SWEEPS} sweeps {em:.5f} (exact {exact:.5f}, "
           f"se {se:.5f}; one shard's bias, see the check); the same sweeps with no mesh {TAU_SWEEPS / t_local:.2f} sweeps/s; the unsharded route "
-          f"(Lattice.run_quantum_monte_carlo, the worldline kernel) {TAU_SWEEPS / t_kernel:.2f} sweeps/s", flush=True)
+          f"(Lattice.run_quantum_monte_carlo, the worldline kernel) {TAU_SWEEPS / t_kernel:.2f} sweeps/s; 5 sharded "
+          f"sweeps' {prof_tau}", flush=True)
     return counts_ladder, bits, rate
 
 
