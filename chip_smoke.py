@@ -198,6 +198,11 @@ side in the order DIR, this, this, DIR; it prints each run's numbers, each
 side's median and quartiles and the pairs won, and checks nothing else. The
 host's speed moves between calls to the card, so two commits are compared
 only within one call.
+
+    python3 chip_smoke.py --ab DIR qmcrunner
+
+does the same for main-qmcrunner's two sweeps/s (the hard n = 32 system and
+the 64-chain through QmcRunner.run_sampling), four runs a side (~9 min).
 """
 
 from __future__ import annotations
@@ -2505,6 +2510,7 @@ def phase_compare_qmcrunner(dev, smi):
     with its time, bound and the numpy chain's time. Returns (largest |difference|
     of the chain, its ms, the numpy chain's ms, bound ms, bound_by)."""
     from pyisingmontecarlo_tpu_torch.engines import generic as ge
+    from pyisingmontecarlo_tpu_torch.engines import generic_gm as gg
     from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain, threefry_chain_reference
 
     for route, mode in (("gm", "1"), ("classic", "0")):
@@ -2533,6 +2539,14 @@ def phase_compare_qmcrunner(dev, smi):
           f"equal ({time.perf_counter() - t0:.1f} s)", flush=True)
     with _route(None):
         w = qmc_runner(QR_N, QR_R, hard_terms(QR_N), "cpu")._ensure(QR_BETA)
+    rows, lt = w.comp.G * QR_N, w.ltau  # a gm plane of the hard system: [G*n, lt*R]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((rows, lt * QR_R)).astype(np.float32) * 1e3)
+    card, cpu = gg._sum_slabs(x.to(dev), QR_R).cpu(), gg._sum_slabs(x, QR_R)
+    block = gg._sum_slabs(x.to(dev).reshape(rows, lt, QR_R)[:, :, 8:24].reshape(rows, -1), 16).cpu()
+    check(torch.equal(card, cpu) and torch.equal(block, card[:, 8:24]),
+          "compare-qmcrunner: the gm slab sum on the card != the CPU's slab-by-slab sum, or a replica block's")
+    print(f"compare-qmcrunner: the gm route's slab sum of a [{rows}, {lt} x {QR_R}] plane of f32 normals x 1000: card "
+          f"== CPU slab by slab bit for bit, and a block of 16 replicas sums as the whole batch", flush=True)
     plan = ge.sweep_plan(w.comp, w.ltau, False, gm=True)
     loop_plan = ge.sweep_plan(w.comp, w.ltau, True)
     every = [0, (3, 5), 1, (4, 10), 2, (5, 33), (3, 0), (4, 70000), (5, 0), (3, 1), (4, 1)]
@@ -2871,21 +2885,25 @@ def phase_compare_parallel(dev, smi):
     return meshes
 
 
-def _profiled(fn, names, launched):
+def _profiled(fn, names, counter, want):
     """``fn()`` once under torch.profiler: the device kernels whose names hold
-    one of ``names`` (beside the launches the wrappers counted; the profiler
-    may miss a window's first kernel, so the counters are the check) and the
-    device's idle share, as text; 'not measured' when the profiler records no
-    device time."""
+    one of ``names`` beside the launches the wrapper counted under ``counter``
+    in that call (the profiler may miss a window's first kernel, so the count
+    is the check: it must be ``want``) and the device's idle share, as text;
+    'not measured' when the profiler records no device time."""
+    reset_counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == counts_only(**{counter: want}), f"profiled call: launch counts {counts}, want {counter}={want}")
+    launched = f"{counts[counter]} {'threefry_bits' if counter == 'bits' else counter} counted"
     dev_t = _device_times(prof, names, everything=True)
     if dev_t is None:
-        return "profiler: not measured (no device time recorded)"
+        return f"profiler: not measured (no device time recorded; {launched})"
     per, busy, span = dev_t
-    return (f"profiler ({launched} launched): " + ", ".join(f"{n} {np.mean(v):.3f} us x {len(v)}"
-                                                             for n, v in sorted(per.items()))
+    return (f"profiler ({launched}): " + ", ".join(f"{n} {np.mean(v):.3f} us x {len(v)}"
+                                                   for n, v in sorted(per.items()))
             + f"; device busy {busy:.1f} of {span:.1f} us, idle {100 * (1 - busy / span):.2f}%")
 
 
@@ -2898,6 +2916,8 @@ def phase_main_parallel(dev, smi, meshes):
     route's and, for spatial and tau, beside the same sweeps with no mesh.
     Returns (the ladder's launch counts, threefry_bits launches, the ladder's
     sweeps/s sharded and unsharded)."""
+    import torch.distributed as dist
+
     from pyisingmontecarlo_tpu_torch import Lattice
     from pyisingmontecarlo_tpu_torch.engines import classical as ce
     from pyisingmontecarlo_tpu_torch.engines import worldline as wlg
@@ -2930,14 +2950,23 @@ def phase_main_parallel(dev, smi, meshes):
     gather_axis(feats, axis)
     _, t_gather = _wall(lambda: [gather_axis(feats, axis) for _ in range(200)])
     _, t_shift = _wall(lambda: [ring_shift(plane, axis) for _ in range(200)])
+
+    def nccl_gather():  # the all_gather a rank of a wider axis issues; gather_axis issues none on one rank
+        parts = [torch.empty_like(feats)]
+        dist.all_gather(parts, feats, group=axis.group)
+        return parts[0]
+
+    check(torch.equal(nccl_gather(), feats), "main-parallel: a one-rank NCCL all_gather changed its input")
+    _, t_nccl = _wall(lambda: [nccl_gather() for _ in range(200)])
     prof_ladder = _profiled(lambda: sharded.qmc_timesteps_sample(20, replica_swap_freq=1), ("ladder_resident", "nccl"),
-                            "20 ladder_resident")
+                            "ladder_resident", 20)
     print(f"main-parallel: ladder on {smi}: LatticeTempering.qmc_timesteps_sample({PAR_LADDER_T}, "
           f"replica_swap_freq=1), 12^2 +-J, {PT_R} replicas, L_tau={PT_LTAU}, sharded on a one-rank mesh: "
           f"{counts['ladder_resident']} ladder_resident launches, 0 multi-launch; {rate['sharded']:.2f} sweeps/s "
-          f"sharded against {rate['unsharded']:.2f} unsharded (best of runs {walls}); the swap step's gather of "
-          f"{tuple(feats.shape)} int64 features over the one-rank group {t_gather / 200 * 1e6:.1f} us a call, a "
-          f"ring shift of one replica plane {t_shift / 200 * 1e6:.2f} us (host wall, synchronized); 20 sharded steps' "
+          f"sharded against {rate['unsharded']:.2f} unsharded (best of runs {walls}); the swap step's gather_axis of "
+          f"{tuple(feats.shape)} int64 features over the one-rank group {t_gather / 200 * 1e6:.2f} us a call (no "
+          f"collective on one rank; a one-rank NCCL all_gather of them {t_nccl / 200 * 1e6:.1f} us), a ring shift of "
+          f"one replica plane {t_shift / 200 * 1e6:.2f} us (host wall, synchronized); 20 sharded steps' "
           f"{prof_ladder}", flush=True)
     bits = counts["bits"]
 
@@ -2960,7 +2989,7 @@ def phase_main_parallel(dev, smi, meshes):
     lat.run_monte_carlo(BENCH_BETA, SP_SWEEPS, BENCH_R)
     _, t_kernel = _wall(lambda: lat.run_monte_carlo(BENCH_BETA, SP_SWEEPS, BENCH_R))
     prof_sp = _profiled(lambda: psp.sharded_sweeps_2d(meshes["space"], s, key, BENCH_BETA, -1.0, 0.0, 5),
-                        ("threefry_bits", "nccl"), "10 threefry_bits")
+                        ("threefry_bits", "nccl"), "bits", 10)
     print(f"main-parallel: spatial on {smi}: sharded_sweeps_2d at {BENCH_L}^2 x {BENCH_R}, beta {BENCH_BETA}, "
           f"{SP_SWEEPS} sweeps on a one-rank space mesh: {counts['bits']} threefry_bits launches, "
           f"{SP_SWEEPS / t_sh:.2f} sweeps/s ({t_sh:.4f} s; e/site {e:.4f}); the same sweeps with no mesh "
@@ -2995,7 +3024,7 @@ def phase_main_parallel(dev, smi, meshes):
     lat.run_quantum_monte_carlo(TAU_BETA, 10, TAU_R)
     _, t_kernel = _wall(lambda: lat.run_quantum_monte_carlo(TAU_BETA, TAU_SWEEPS, TAU_R))
     prof_tau = _profiled(lambda: ptau.sharded_wl_sweeps(s, np.array([0, 4], np.uint32), meshes["tau"], TAU_BETA, 1.0,
-                                                        -1.0, 0.0, 5), ("threefry_bits", "nccl"), "60 threefry_bits")
+                                                        -1.0, 0.0, 5), ("threefry_bits", "nccl"), "bits", 60)
     print(f"main-parallel: tau on {smi}: sharded_wl_sweeps on the {TAU_N}-ring, L_tau={TAU_LTAU}, {TAU_R} replicas, "
           f"beta {TAU_BETA}, {TAU_SWEEPS} sweeps on a one-rank tau mesh: {counts['bits']} threefry_bits launches, "
           f"{TAU_SWEEPS / t_tau:.2f} sweeps/s; e/site after {2 * TAU_SWEEPS} sweeps {em:.5f} (exact {exact:.5f}, "
@@ -3095,8 +3124,26 @@ def main():
     }}), flush=True)
 
 
-def rates():
-    """The end-to-end main paths of the package first on sys.path, as JSON:
+def qmcrunner_rates(dev):
+    """main-qmcrunner's two numbers: QmcRunner.run_sampling sweeps/s on the
+    hard n = 32 system and on the 64-chain (the route the gate picks, the
+    slopes of main-qmcrunner). None where the package has no ``QmcRunner``."""
+    import pyisingmontecarlo_tpu_torch as tpmc
+
+    if not hasattr(tpmc, "QmcRunner"):
+        return {"qmcrunner_hard_sweeps_per_s": None, "qmcrunner_chain_sweeps_per_s": None}
+    out = {}
+    for key, n, terms, slope in (("qmcrunner_hard_sweeps_per_s", QR_N, hard_terms(QR_N), QR_SLOPE),
+                                 ("qmcrunner_chain_sweeps_per_s", 64, chain_terms(64), QR_CHAIN_SLOPE)):
+        with _route(None):
+            q = qmc_runner(n, QR_R, terms, dev)
+        out[key], out[key.replace("_per_s", "_walls")] = _qr_rate(q, slope)
+    return out
+
+
+def rates(only=None):
+    """The end-to-end main paths of the package first on sys.path, as JSON
+    (with ``only="qmcrunner"``, ``qmcrunner_rates`` alone):
     ``bench.py``'s headline as bench.py takes it (a warm-up call, then the
     best of three ``Lattice.run_monte_carlo(0.4, 16384, 8)`` calls at 1024^2,
     in attempted flips/ns), the tempering bench's slope (min of two runs at t = 500 and 2000, as
@@ -3109,6 +3156,9 @@ def rates():
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if only == "qmcrunner":
+        print(json.dumps({"package": str(Path(pkg).parent.parent), **qmcrunner_rates(dev)}), flush=True)
+        return
     lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
     lat.run_monte_carlo(BENCH_BETA, BENCH_SWEEPS, BENCH_R)  # build and warm up, as bench.py does
     bench = []
@@ -3214,25 +3264,27 @@ def qmcising_rates(dev):
     return {"glass_qmc_sweeps_per_s": 30 / (min(wall[40]) - min(wall[10])), "glass_qmc_runs_s": wall}
 
 
-def ab(other, pairs=10):
-    """``rates`` of the package in ``other`` and of this one, each in a process
-    of its own, ``pairs`` runs a side in the order other, this, this, other;
-    then each side's median and quartiles and the pairs this one won."""
+def ab(other, pairs=10, only=None):
+    """``rates(only)`` of the package in ``other`` and of this one, each in a
+    process of its own, ``pairs`` runs a side in the order other, this, this,
+    other; then each side's median and quartiles and the pairs this one won."""
     smi = phase_gpu()
     runs = {"other": [], "this": []}
     for _ in range(pairs // 2):
         for side, root in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
-            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--rates", str(Path(root).resolve())],
-                                 capture_output=True, text=True, timeout=600)
+            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--rates", str(Path(root).resolve()),
+                                  *([only] if only else [])], capture_output=True, text=True, timeout=600)
             if out.returncode != 0:
                 raise RuntimeError(f"rates of {root} failed ({out.returncode}):\n{out.stdout}{out.stderr}")
             line = out.stdout.strip().splitlines()[-1]
             runs[side].append(json.loads(line))
             print(f"ab on {smi}: {line}", flush=True)
-    for key, higher in (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
-                        ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),
-                        ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False),
-                        ("glass_qmc_sweeps_per_s", True)):
+    keys = ((("qmcrunner_hard_sweeps_per_s", True), ("qmcrunner_chain_sweeps_per_s", True)) if only == "qmcrunner" else
+            (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
+             ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),
+             ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False),
+             ("glass_qmc_sweeps_per_s", True)))
+    for key, higher in keys:
         if any(r.get(key) is None for side in runs.values() for r in side):
             print(f"ab on {smi}: {key}: not measured on both sides", flush=True)
             continue
@@ -3246,8 +3298,9 @@ def ab(other, pairs=10):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rates"]:
         sys.path.insert(0, sys.argv[2])
-        rates()
+        rates(*sys.argv[3:4])
     elif sys.argv[1:2] == ["--ab"]:
-        ab(sys.argv[2])
+        only = sys.argv[3] if len(sys.argv) > 3 else None
+        ab(sys.argv[2], pairs=4 if only == "qmcrunner" else 10, only=only)
     else:
         main()

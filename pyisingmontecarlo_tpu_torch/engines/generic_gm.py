@@ -282,8 +282,13 @@ def _tile_lanes(x, lt: int):
 def _sum_slabs(x, R: int):
     """[rows, lt*R] -> [rows, R]: sum over the Trotter-slab column blocks, slab
     by slab in order (XLA's order; torch's own reduction order here depends on
-    R, and a block of the replicas must sum as the whole batch does)."""
+    R, and a block of the replicas must sum as the whole batch does). On CUDA
+    that is the last row of one ``cumsum``, whose scan along a middle axis adds
+    in order in f32; the CPU's ``cumsum`` accumulates f32 in f64, so there the
+    slabs are added one by one."""
     x = x.reshape(x.shape[0], -1, R)
+    if x.is_cuda:
+        return x.cumsum(1)[:, -1]
     acc = x[:, 0]
     for t in range(1, x.shape[1]):
         acc = acc + x[:, t]

@@ -7,12 +7,15 @@ step (four sweeps) of a 256^2 torus with 64 replicas through
 ``n``-rank world, with each module's ``dryrun_*`` at the same tiny shapes.
 ``launch`` spawns ``n`` ranks on a ``FileStore`` in a temporary directory
 (no TCP port) and returns each rank's result; the rank functions of the tests
-live here too, as a rank imports no test module (and so never jax):
+live here too, as a rank imports no test module (and so never jax). Every
+entry point runs on the card (NCCL, a GPU a rank) unless it is given
+``device="cpu"`` (gloo):
 
-    python -m pyisingmontecarlo_tpu_torch.entry --ranks 8 --backend gloo --device cpu
+    python -m pyisingmontecarlo_tpu_torch.entry --ranks 8 --device cpu
+    python -m pyisingmontecarlo_tpu_torch.entry --ranks N
     torchrun --nproc-per-node=N -m pyisingmontecarlo_tpu_torch.entry --torchrun
 
-(the second on a machine with N GPUs, NCCL: every rank runs the dry run.)
+(the second and third on a machine with N GPUs: every rank runs the dry run.)
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import pickle
 import queue
 import sys
 import tempfile
@@ -50,7 +54,7 @@ def entry(device="cuda"):
     return l2d.run_steps_2d, (s, seeds, beta_arr, -1.0, 0.0)
 
 
-def dryrun_multichip(n_devices: int, device="cpu") -> dict:
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     """On every rank of a world of at least ``n_devices``: (a) a replica-sharded
     tempering ladder step, (b) a spatially sharded 2D sweep, (c) the same on a
     (replica 2 x space n/2) mesh, (d) a replica-sharded QmcRunner sampling
@@ -84,7 +88,7 @@ def dryrun_multichip(n_devices: int, device="cpu") -> dict:
 # ------------------------------------------------------------------ ranks
 
 
-def on_mesh(shape: Sequence[int], names: Sequence[str], fn: Callable, *args, device="cpu",
+def on_mesh(shape: Sequence[int], names: Sequence[str], fn: Callable, *args, device="cuda",
             mesh_kw: Optional[str] = None, **kw):
     """Rank function: build the mesh, then ``fn(mesh, *args, **kw)``, or
     ``fn(*args, **kw)`` with the mesh as keyword ``mesh_kw`` when given."""
@@ -93,7 +97,7 @@ def on_mesh(shape: Sequence[int], names: Sequence[str], fn: Callable, *args, dev
 
 
 def drive(obj, shape: Sequence[int], names: Sequence[str], shard: Optional[Callable], shard_kw: dict,
-          calls: Sequence, device="cpu"):
+          calls: Sequence, device="cuda"):
     """Rank function: shard ``obj`` with ``shard(obj, mesh, **shard_kw)`` on the
     mesh (no sharding when ``shard`` is None), then make each call ``(method,
     args, kwargs)``; returns their results and ``obj``'s total swaps where it
@@ -132,8 +136,9 @@ def _rank_main(fn, args, kwargs, rank, n, backend, device, store, timeout, resul
         init_distributed(f"file://{store}", n, rank, backend, device=device, timeout=timeout)
         if "jax" in sys.modules:
             raise RuntimeError("a rank imported jax")
-        out = fn(*args, **kwargs)
-        results.put((rank, True, out))
+        # plain pickle: the queue's own would share a tensor's storage through
+        # this process, which may have exited before the launcher reads it
+        results.put((rank, True, pickle.dumps(fn(*args, **kwargs))))
     except BaseException:  # reported to the launcher, which raises
         results.put((rank, False, traceback.format_exc()))
     finally:
@@ -143,11 +148,12 @@ def _rank_main(fn, args, kwargs, rank, n, backend, device, store, timeout, resul
             dist.destroy_process_group()
 
 
-def launch(fn: Callable, n: int, backend: str = "gloo", device="cpu", timeout: float = DEFAULT_TIMEOUT,
+def launch(fn: Callable, n: int, backend: Optional[str] = None, device="cuda", timeout: float = DEFAULT_TIMEOUT,
            args: tuple = (), kwargs: Optional[dict] = None) -> list:
     """Run ``fn(*args, **kwargs)`` on ``n`` spawned ranks of one process group
-    (``backend`` on ``device``: a CUDA rank takes GPU ``rank`` and needs its
-    own) and return their results in rank order. ``fn`` and its arguments are
+    (``backend`` on ``device``, NCCL for CUDA and gloo for the CPU by default:
+    a CUDA rank takes GPU ``rank`` and needs its own) and return their results
+    in rank order. ``fn`` and its arguments are
     pickled, so ``fn`` is a module-level function. Raises with the rank's
     traceback when a rank fails, and kills every rank and raises
     ``TimeoutError`` after ``timeout`` seconds."""
@@ -175,7 +181,7 @@ def launch(fn: Callable, n: int, backend: str = "gloo", device="cpu", timeout: f
                         failed = f"a rank exited with code {dead[0]} without a result"
                     continue
                 if ok:
-                    got[rank] = out
+                    got[rank] = pickle.loads(out)
                 else:
                     failed = f"rank {rank} failed:\n{out}"
             if failed is not None:
@@ -193,8 +199,9 @@ def launch(fn: Callable, n: int, backend: str = "gloo", device="cpu", timeout: f
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=8, help="ranks to spawn for the dry run")
-    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
-    ap.add_argument("--device", default="cpu", help="cpu, or cuda (one GPU a rank)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="default: nccl on cuda, gloo on the cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (one GPU a rank), or cpu")
     ap.add_argument("--torchrun", action="store_true", help="this process is one rank started by torchrun")
     ap.add_argument("--timeout", type=float, default=600.0)
     a = ap.parse_args(argv)

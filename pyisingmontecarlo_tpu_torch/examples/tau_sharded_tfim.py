@@ -8,8 +8,8 @@ slab, trades one boundary slice a direction with its ring neighbours
 slab; FK clusters build on the open local window with shard-parity
 alternation (``pyisingmontecarlo_tpu_torch/parallel/tau.py``).
 
-    python -m pyisingmontecarlo_tpu_torch.examples.tau_sharded_tfim                  # 8 ranks, gloo, CPU
-    python -m pyisingmontecarlo_tpu_torch.examples.tau_sharded_tfim --ranks 2 --backend nccl --device cuda
+    python -m pyisingmontecarlo_tpu_torch.examples.tau_sharded_tfim --device cpu     # 8 ranks, gloo, CPU
+    python -m pyisingmontecarlo_tpu_torch.examples.tau_sharded_tfim --ranks 2        # NCCL, a GPU a rank
 
 (the second needs a GPU a rank).
 """
@@ -49,8 +49,9 @@ def run(mesh, nvars=16, ltau=64, replicas=128, beta=2.0, gamma=1.0, steps=6, swe
 def main(argv=None):
     ap = argparse.ArgumentParser(description="tau-sharded TFIM worldline")
     ap.add_argument("--ranks", type=int, default=8, help="tau slabs, one a rank")
-    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="default: nccl on cuda, gloo on the cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (one GPU a rank), or cpu")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--sweeps", type=int, default=20)
     a = ap.parse_args(argv)
@@ -59,7 +60,7 @@ def main(argv=None):
                              kwargs=dict(device=a.device, steps=a.steps, sweeps=a.sweeps))[0]
     for done, mean, se in energies:
         print(f"after {done:3d} sweeps: <E> = {mean:8.4f} +- {se:.4f}")
-    print(f"state {shape}: {n} tau slabs of {shape[2] // n} slices, one a rank ({a.backend}, {a.device})")
+    print(f"state {shape}: {n} tau slabs of {shape[2] // n} slices, one a rank ({a.device})")
     return energies
 
 

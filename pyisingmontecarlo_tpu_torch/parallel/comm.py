@@ -5,9 +5,10 @@ ladder planes across a shard boundary) and let GSPMD gather a sharded array
 into the global one (``np.asarray``). Here that is ``ring_shift``
 (``dist.batch_isend_irecv`` with the dimension's ring neighbours) and
 ``gather_axis`` (``dist.all_gather``), both on the dimension's process group
-of a ``DeviceMesh``. A dimension of one rank shifts a tensor onto itself, as
-``ppermute`` does on one device; it is written out because torch's ``isend``
-to its own rank raises. On gloo each collective waits at most ``timeout``
+of a ``DeviceMesh``. On a dimension of one rank neither issues a collective:
+a shift returns the tensor itself, as ``ppermute`` does on one device (torch's
+``isend`` to its own rank raises), and a gather returns the block, which is
+then the global tensor, as GSPMD's gather of a one-device array is. On gloo each collective waits at most ``timeout``
 seconds, so a hung rank fails instead of blocking; on NCCL the wait stays on
 the stream and the group's own timeout applies.
 """
@@ -95,8 +96,9 @@ def ring_shift(x: torch.Tensor, axis: Optional[MeshAxis], direction: int = 1,
 def gather_axis(x: torch.Tensor, axis: Optional[MeshAxis], dim: int = 0,
                 timeout: Optional[float] = None) -> torch.Tensor:
     """The global tensor from every rank's block ``x`` along ``dim``, in
-    index order (``all_gather``), the same on every rank; with no axis ``x``."""
-    if axis is None:
+    index order (``all_gather``), the same on every rank; with no axis, or one
+    rank on it, ``x``."""
+    if axis is None or axis.size == 1:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(axis.size)]

@@ -57,14 +57,19 @@ def _job(fn, *args, **kw):
     return (fn, args, kw)
 
 
+def _cpu_job(fn, *args, **kw):
+    """A job of an entry point that runs on the card unless given ``device="cpu"``."""
+    return _job(fn, *args, device="cpu", **kw)
+
+
 def _spatial_job(shape, names, s, key, **kw):
-    return _job(entry.on_mesh, shape, names, tsp.sharded_sweeps_2d, torch.from_numpy(s), np.array([0, key], np.uint32),
-                **SPATIAL, **kw)
+    return _cpu_job(entry.on_mesh, shape, names, tsp.sharded_sweeps_2d, torch.from_numpy(s),
+                    np.array([0, key], np.uint32), **SPATIAL, **kw)
 
 
 def _tau_job(shape, names, s, key, **kw):
-    return _job(entry.on_mesh, shape, names, ttau.sharded_wl_sweeps, torch.from_numpy(s),
-                np.array([0, key], np.uint32), mesh_kw="mesh", **{**TAU, **kw})
+    return _cpu_job(entry.on_mesh, shape, names, ttau.sharded_wl_sweeps, torch.from_numpy(s),
+                    np.array([0, key], np.uint32), mesh_kw="mesh", **{**TAU, **kw})
 
 
 def _jax_spatial(shape, names, s, key, **kw):
@@ -122,21 +127,22 @@ def world4():
         "tau ring 4": _tau_job((4,), ("tau",), TAU_RING, 3),
         "tau torus 4": _tau_job((4,), ("tau",), TAU_TORUS, 5, kind="torus", size=4),
         "tau 2x2": _tau_job((2, 2), ("replica", "tau"), TAU_TORUS, 6, kind="torus", size=4, replica_axis="replica"),
-        "dryrun tau": _job(entry.on_mesh, (4,), ("tau",), ttau.dryrun_tau, nvars=6, ltau=8, replicas=3, sweeps=2),
+        "dryrun tau": _cpu_job(entry.on_mesh, (4,), ("tau",), ttau.dryrun_tau, nvars=6, ltau=8, replicas=3, sweeps=2),
     }
     three = LatticeTempering([((0, 1), -1.0)], seed=0, device="cpu")
     for b in (1.0, 1.5, 2.0):
         three.add_graph(1.0, 0.0, b)
-    jobs["error: ladder 3 over 4"] = _job(entry.drive, three, (4,), ("replica",), ttp.shard_ladder, {}, [])
+    jobs["error: ladder 3 over 4"] = _cpu_job(entry.drive, three, (4,), ("replica",), ttp.shard_ladder, {}, [])
     six = QmcRunner(4, 6, seed=1, device="cpu")
     six.add_interaction(np.array([0.0, -0.5, -0.5, 0.0]), [0])
-    jobs["error: runner 6 over 4"] = _job(entry.drive, six, (4,), ("replica",), trep.shard_runner, dict(beta=1.0), [])
+    jobs["error: runner 6 over 4"] = _cpu_job(entry.drive, six, (4,), ("replica",), trep.shard_runner, dict(beta=1.0),
+                                              [])
     jobs["error: odd slabs"] = _tau_job((4,), ("tau",), TAU_RING[:, :, :12], 1)
     jobs["error: slabs do not divide"] = _tau_job((4,), ("tau",), TAU_RING[:, :, :10], 1)
     jobs["error: odd shard count"] = _tau_job((3,), ("tau",), TAU_RING[:, :, :12], 1)
     jobs["error: columns do not divide"] = _spatial_job((4,), ("space",), S10, 1)
     jobs["error: world too small"] = _job(entry.mesh_layout, tmesh.make_mesh, (64,), ("replica",), device="cpu")
-    results = entry.launch(entry.run_all, 4, args=(list(jobs.values()),), timeout=600.0)
+    results = entry.launch(entry.run_all, 4, args=(list(jobs.values()),), device="cpu", timeout=600.0)
     return {name: [r[k] for r in results] for k, name in enumerate(jobs)}
 
 
@@ -146,26 +152,26 @@ def world2():
         "spatial 2": _spatial_job((2,), ("space",), S16, 9),
         "tau ring 2": _tau_job((2,), ("tau",), TAU_RING, 4),
         "tau torus 2": _tau_job((2,), ("tau",), TAU_TORUS, 8, kind="torus", size=4),
-        "example": _job(entry.on_mesh, (2,), ("tau",), texample.run, steps=2, sweeps=3),
+        "example": _cpu_job(entry.on_mesh, (2,), ("tau",), texample.run, steps=2, sweeps=3),
     }
-    results = entry.launch(entry.run_all, 2, args=(list(jobs.values()),), timeout=600.0)
+    results = entry.launch(entry.run_all, 2, args=(list(jobs.values()),), device="cpu", timeout=600.0)
     return {name: [r[k] for r in results] for k, name in enumerate(jobs)}
 
 
 @pytest.fixture(scope="module")
 def world8():
     jobs = {
-        "dryrun_multichip": _job(entry.dryrun_multichip, 8),
+        "dryrun_multichip": _cpu_job(entry.dryrun_multichip, 8),
         "mesh 8": _job(entry.mesh_layout, tmesh.make_mesh, (8,), ("replica",), device="cpu"),
         "mesh 2x4": _job(entry.mesh_layout, tmesh.make_mesh, (2, 4), ("replica", "space"), device="cpu"),
         "global mesh": _job(entry.mesh_layout, tmesh.global_mesh, device="cpu"),
         "global mesh x y": _job(entry.mesh_layout, tmesh.global_mesh, "replica", (("x", 2), ("y", 2)), device="cpu"),
         "error: global mesh 3": _job(entry.mesh_layout, tmesh.global_mesh, "replica", (("x", 3),), device="cpu"),
         "init_distributed again": _job(tmesh.init_distributed),
-        "replica_sharding": _job(entry.on_mesh, (2, 4), ("replica", "space"), tmesh.replica_sharding, 12,
-                                 axis="space"),
+        "replica_sharding": _cpu_job(entry.on_mesh, (2, 4), ("replica", "space"), tmesh.replica_sharding, 12,
+                                     axis="space"),
     }
-    results = entry.launch(entry.run_all, 8, args=(list(jobs.values()),), timeout=600.0)
+    results = entry.launch(entry.run_all, 8, args=(list(jobs.values()),), device="cpu", timeout=600.0)
     return {name: [r[k] for r in results] for k, name in enumerate(jobs)}
 
 
@@ -264,3 +270,12 @@ def test_cuda_rank_needs_a_gpu():
         pytest.skip("this host has CUDA: the check is for a host without a GPU")
     with pytest.raises(ValueError, match="GPU of its own"):
         tmesh.init_distributed(device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """``launch`` and ``dryrun_multichip`` run on CUDA (NCCL) unless given
+    ``device="cpu"``: without a GPU their ranks raise instead of taking the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the check is for a host without a GPU")
+    with pytest.raises(RuntimeError, match="GPU of its own"):
+        entry.launch(entry.dryrun_multichip, 2, args=(2,), timeout=120.0)

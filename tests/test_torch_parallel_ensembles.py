@@ -31,7 +31,7 @@ from pyisingmontecarlo_tpu_torch.interop import qmcising_from_reference, qmcrunn
 from pyisingmontecarlo_tpu_torch.parallel import mesh as tmesh
 from pyisingmontecarlo_tpu_torch.parallel import replica as trep
 from pyisingmontecarlo_tpu_torch.parallel import tempering as ttp
-from test_torch_parallel import _all_ranks_equal, _job, _kd, _same
+from test_torch_parallel import _all_ranks_equal, _cpu_job, _kd, _same
 
 torch.set_num_threads(1)
 
@@ -118,30 +118,31 @@ def jax_on_ladder(monkeypatch):
 def world4():
     """Every 4-rank job of this file in one spawn: {name: rank results}."""
     jobs = {
-        "dryrun ladder": _job(entry.on_mesh, (4,), ("replica",), ttp.dryrun_ladder, replicas_per_device=2, nvars=6,
-                              ltau=8, timesteps=3),
-        "dryrun runner": _job(entry.on_mesh, (4,), ("replica",), trep.dryrun_runner, replicas_per_device=2, nvars=6,
-                              timesteps=2),
+        "dryrun ladder": _cpu_job(entry.on_mesh, (4,), ("replica",), ttp.dryrun_ladder, replicas_per_device=2, nvars=6,
+                                  ltau=8, timesteps=3),
+        "dryrun runner": _cpu_job(entry.on_mesh, (4,), ("replica",), trep.dryrun_runner, replicas_per_device=2, nvars=6,
+                                  timesteps=2),
     }
     for gm in ("0", "1"):
         calls = RUNNER_CALLS if gm == "1" else CLASSIC_CALLS
-        jobs[f"runner gm={gm} sharded"] = _job(entry.drive, _port_runner(gm), (4,), ("replica",), trep.shard_runner,
-                                               dict(beta=1.0), calls)
-        jobs[f"runner gm={gm} unsharded"] = _job(entry.drive, _port_runner(gm), (4,), ("replica",), None, {}, calls)
+        jobs[f"runner gm={gm} sharded"] = _cpu_job(entry.drive, _port_runner(gm), (4,), ("replica",), trep.shard_runner,
+                                                   dict(beta=1.0), calls)
+        jobs[f"runner gm={gm} unsharded"] = _cpu_job(entry.drive, _port_runner(gm), (4,), ("replica",), None, {}, calls)
     ref = _jax_qmcising()
-    jobs["qmcising"] = _job(entry.drive, qmcising_from_reference(ref, _kd(ref._w.keys), "cpu"), (4,), ("replica",),
-                            trep.shard_qmcising, dict(beta=1.2), QMCISING_CALLS)
+    jobs["qmcising"] = _cpu_job(entry.drive, qmcising_from_reference(ref, _kd(ref._w.keys), "cpu"), (4,), ("replica",),
+                                trep.shard_qmcising, dict(beta=1.2), QMCISING_CALLS)
     for sharded in (True, False):
         key = "sharded" if sharded else "unsharded"
         shard = ttp.shard_ladder if sharded else None
-        jobs[f"ladder {key}"] = _job(entry.drive, tempering_from_reference(_jax_ladder(), device="cpu"), (4,),
-                                     ("replica",), shard, {}, LADDER_CALLS + _itimes(8))
-        jobs[f"rvb ladder {key}"] = _job(entry.drive, _port_rvb_ladder(), (4,), ("replica",), shard, {},
-                                         LADDER_CALLS + _itimes(4))
+        jobs[f"ladder {key}"] = _cpu_job(entry.drive, tempering_from_reference(_jax_ladder(), device="cpu"), (4,),
+                                         ("replica",), shard, {}, LADDER_CALLS + _itimes(8))
+        jobs[f"rvb ladder {key}"] = _cpu_job(entry.drive, _port_rvb_ladder(), (4,), ("replica",), shard, {},
+                                             LADDER_CALLS + _itimes(4))
     tight = _jax_ladder([((i, (i + 1) % 4), -1.0) for i in range(4)], np.linspace(1.0, 1.1, 8), seed=0)
-    jobs["tight ladder"] = _job(entry.drive, tempering_from_reference(tight, device="cpu"), (4,), ("replica",),
-                                ttp.shard_ladder, {}, [("qmc_timesteps_sample", (TIGHT_SWEEPS,), dict(replica_swap_freq=1))])
-    results = entry.launch(entry.run_all, 4, args=(list(jobs.values()),), timeout=600.0)
+    jobs["tight ladder"] = _cpu_job(entry.drive, tempering_from_reference(tight, device="cpu"), (4,), ("replica",),
+                                    ttp.shard_ladder, {},
+                                    [("qmc_timesteps_sample", (TIGHT_SWEEPS,), dict(replica_swap_freq=1))])
+    results = entry.launch(entry.run_all, 4, args=(list(jobs.values()),), device="cpu", timeout=600.0)
     return {name: [r[k] for r in results] for k, name in enumerate(jobs)}
 
 
