@@ -8,9 +8,11 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 1.  gpu           the card's name and power limit (nvidia-smi);
 2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
                   (registers, shared memory and spills of each), and the SASS
-                  instructions of one lane-hash draw and of a site update of
-                  ``sq2d_tiled``'s row loop (cuobjdump, where the toolkit has
-                  it);
+                  instructions of one lane-hash draw, of a site update of
+                  ``sq2d_tiled``'s row loop and of a word of 32 slices in each
+                  slice loop of the multi-launch cluster phase (``fk_line`` in
+                  wl_cluster and ladder_cluster; cuobjdump, where the toolkit
+                  has it);
 3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
                   PyTorch version on the card, bit for bit (annealing, field,
                   explicit randoms, sampling, bench shape; L = 6, 16 and 200,
@@ -40,7 +42,10 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   longest chain the gate admits, R=1, odd R, tori 24^2 to
                   100^2, a side that is not a multiple of the tile, an 8192
                   ring, the 256^2 x 8 x 40 main shape in plain and sampling
-                  mode, and a 64^2 torus at L_tau=800 that no tile fits);
+                  mode, and a 64^2 torus at L_tau=800 that no tile fits); the
+                  multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
+                  rings and tori, plain and sampling mode, with lines frozen
+                  whole at high K_tau, at every cluster group size;
 8.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
                   256^2 TFIM torus (the shape of benches/bench_qmc_large.py;
                   tiled, one launch per sweep);
@@ -62,14 +67,21 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   tiled kernel's measurement builds (the sweep cut after its
                   load and store, site phases and cluster phases), the tiled
                   kernel at every tile side that fits the main shape, and the
-                  three routes at the gate's edges;
+                  three routes at the gate's edges; the multi-launch sweep at
+                  L_tau = 800 split by kernel name, the bound of its cluster
+                  phases alone (the SASS counts of the build phase for the
+                  frozen bonds of the timed state), and every cluster group
+                  size in turns at L_tau = 700 to 4096;
 14. compare-ladder    the ladder kernels vs their plain version, bit for bit
                   in states and swap features: resident and multi-launch,
                   each against the plain version and each other (ring with
                   field and per-replica couplings, 12^2 +-J torus, frozen
                   lines, L_tau=1200, L_tau=4 with R=1, odd R, a 24^2 torus,
                   a 48^2 torus off the gate, the 64 x 144 x 60 bench shape,
-                  and the 64 x 4096 x 60 shape of main-tempering-wide);
+                  and the 64 x 4096 x 60 shape of main-tempering-wide); the
+                  multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
+                  rings and +-J tori, with lines frozen whole at high K_tau,
+                  at every cluster group size;
 15. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
                   2000, on the ladder of benches/bench_tempering.py (12^2 +-J
                   spin glass, 64 replicas, L_tau = 60; resident, one launch per
@@ -82,7 +94,9 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   sweep calls, and one-sweep calls as the main path makes
                   them), each launch's device time and the idle share over
                   whole tempering steps (torch.profiler), and the multi-launch
-                  kernels and plain version at main-tempering-wide's 64^2 shape;
+                  kernels and plain version at main-tempering-wide's 64^2
+                  shape, split by kernel name, the bound of the cluster phases
+                  alone, and every cluster group size in turns;
 19. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100) and a plan with worm and cluster
@@ -203,6 +217,13 @@ only within one call.
 
 does the same for main-qmcrunner's two sweeps/s (the hard n = 32 system and
 the 64-chain through QmcRunner.run_sampling), four runs a side (~9 min).
+
+    python3 chip_smoke.py --ab DIR multi
+
+does it for the multi-launch routes: ms a sweep of main-quantum-long's 64^2
+torus at L_tau = 800 and of main-tempering-wide's 64^2 ladder (the best of
+three 20-sweep calls), with each kernel's device us a sweep
+(torch.profiler), ten runs a side (~6 min).
 """
 
 from __future__ import annotations
@@ -350,7 +371,7 @@ SQ2D_CUTS = {"box in and tile out only": ("PMC_SQ2D_CUT=0",), "no lane hash": ("
 
 def phase_build():
     """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS and SQ2D_CUTS,
-    all at once."""
+    all at once; then the SASS counts (returns cluster_sass's)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
@@ -368,6 +389,7 @@ def phase_build():
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     hash_sass()
     keychain_sass()
+    return cluster_sass()
 
 
 # two kernels that differ by one lane-hash draw whose pos is data and whose seed and ctr are fixed, as in
@@ -672,6 +694,29 @@ def in_turns(run_kernel, run_plain, n_kernel, n_plain):
     return kernel, plain
 
 
+def group_times(run, T, rounds=3):
+    """{G: [ms a sweep]} of ``run(T, G)``, the multi-launch route with its
+    cluster phases at G threads a line, for every group size the kernels are
+    built for, by CUDA events; each round takes the sizes in turn (forward,
+    then backward)."""
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    times = {G: [] for G in wl.CLUSTER_GROUPS}
+    for G in wl.CLUSTER_GROUPS:
+        run(2, G)  # warm-up
+    for k in range(rounds):
+        for G in wl.CLUSTER_GROUPS[::1 if k % 2 == 0 else -1]:
+            times[G].append(event_ms(lambda: run(T, G), T))
+    return times
+
+
+def _group_line(times, pick):
+    means = {G: float(np.mean(v)) for G, v in times.items()}
+    best = min(means, key=means.get)
+    return (", ".join(f"G={G} {means[G]:.5f} ms/sweep (runs {times[G]})" for G in times)
+            + f"; fastest G={best}; cluster_group picks G={pick} ({means[pick] / means[best]:.3f}x the fastest)")
+
+
 def phase_timing(dev, smi):
     """At the bench shape: the kernel (the plan's (B, K)) and the plain
     version in turns; each measurement build and every (B, K) of the grid, in
@@ -853,8 +898,28 @@ def phase_compare_wl(dev):
         (f"long L_tau sampling: torus 64^2 R=2 L={LONG_LTAU} freq=2 nsamples=2 T=4 (main-quantum-long's sampling "
          "mode, multi-launch)", LONG[0], LONG[1], LONG[2], LONG_LTAU, 4, LONG_BETA, WL_GAMMA, 0.0, 2, 2),
     ]
+    # the multi-launch route's lengths, every cluster group size: L_tau = 700, 800, 1002 (not a multiple of 32)
+    # and 4096, rings and tori, plain and sampling mode; dtau * Gamma = 0.001 or less freezes lines whole
+    # (L_tau = 4096: two levels of XLA's windows)
+    long_cases = [
+        ("multi-launch L=700: torus 64^2 R=2 T=2", LONG[0], LONG[1], 2, 700, 2, 35.0, 1.0, 0.0, 0, 0),
+        ("multi-launch L=800 sampling: ring 512 R=3 freq=1 nsamples=2 T=2", ("ring", 512, -1.0), 512, 3, 800, 2,
+         40.0, 1.0, 0.1, 1, 2),
+        ("multi-launch L=1002: ring 256 R=2 h=-0.2 T=3", ("ring", 256, -1.0), 256, 2, 1002, 3, 50.1, 1.0, -0.2, 0,
+         0),
+        ("multi-launch L=1002 sampling: torus 32^2 R=2 freq=2 nsamples=1 T=3", ("torus", 32, -1.0), 1024, 2, 1002,
+         3, 50.1, 1.0, 0.0, 2, 1),
+        ("multi-launch L=4096: torus 16^2 R=2 T=2", ("torus", 16, -1.0), 256, 2, 4096, 2, 204.8, 1.0, 0.0, 0, 0),
+        ("multi-launch L=4096 sampling: ring 64 R=2 freq=1 nsamples=2 T=2", ("ring", 64, -1.0), 64, 2, 4096, 2,
+         204.8, 1.0, 0.1, 1, 2),
+        ("multi-launch L=800, high K_tau (lines frozen whole): ring 64 R=4 Gamma=0.02 h=0.2 T=3", ("ring", 64, 0.7),
+         64, 4, 800, 3, 40.0, 0.02, 0.2, 0, 0),
+        ("multi-launch L=4096, high K_tau: torus 16^2 R=2 Gamma=0.02 sampling freq=1 nsamples=2 T=2",
+         ("torus", 16, -1.0), 256, 2, 4096, 2, 40.0, 0.02, 0.1, 1, 2),
+    ]
     worst = {"multi": 0, "resident": 0, "tiled": 0}
-    for k, (name, dense, nvars, R, L, T, beta, gamma, h, freq, ns) in enumerate(cases):
+    cases = [(c, False) for c in cases] + [(c, True) for c in long_cases]
+    for k, ((name, dense, nvars, R, L, T, beta, gamma, h, freq, ns), groups) in enumerate(cases):
         s, seeds = _wl_inputs(dense, nvars, R, 100 + k, dev, L)
         tables = wl.make_tables(dense, nvars, beta, gamma, h, L, dev)
         route, _ = wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)
@@ -862,7 +927,11 @@ def phase_compare_wl(dev):
         tiles = wl.tiled_plan(dense[0], dense[1], nvars, L, R, *lim)
         want = wl.wl_sweeps_reference(s, seeds, tables, T, freq, ns)
         runs = {"multi": wl._run_multi(s, seeds, tables, T, freq, ns)}
-        how = {"multi": "gate" if route == "multi" else "private launcher"}
+        how = {"multi": f"{'gate' if route == 'multi' else 'private launcher'}, group {wl.cluster_group(L)}"}
+        for G in wl.CLUSTER_GROUPS if groups else ():
+            if G != wl.cluster_group(L):
+                runs[f"multi group {G}"] = wl._run_multi(s, seeds, tables, T, freq, ns, G)
+                how[f"multi group {G}"] = "private launcher"
         if fit:
             runs["resident"] = (wl.wl_sweeps(s, seeds, tables, T, freq, ns) if route == "resident"
                                 else wl._run_resident(s, seeds, tables, T, freq, ns, fit))
@@ -875,7 +944,7 @@ def phase_compare_wl(dev):
         for r, got in runs.items():
             same, err = _equal_all(got, want)
             check(same, f"{name}: {r} != plain (max |diff| {err})")
-            worst[r] = max(worst[r], err)
+            worst[r.split()[0]] = max(worst[r.split()[0]], err)
             if r != "multi":
                 same, err = _equal_all(got, runs["multi"])
                 check(same, f"{name}: {r} != multi-launch (max |diff| {err})")
@@ -883,6 +952,7 @@ def phase_compare_wl(dev):
         moved = float((got[0] != s).float().mean())
         check(moved > 0.05, f"{name}: only {moved:.4f} of the spins moved")
         frozen = float((got[0] == got[0][:, :, :1]).all(2).float().mean())
+        check("high K_tau" not in name or frozen > 0.3, f"{name}: only {frozen:.3f} of lines constant in tau")
         print(f"compare-wl: {name}: " + " == ".join(f"{r} ({how[r]})" for r in runs)
               + f" == plain, bit-identical (spins, statistics{', samples' if ns else ''}); the gate picks {route}; "
               f"resident plan {fit}, tiled plan {tiles}; {moved:.3f} of spins moved, "
@@ -1107,18 +1177,21 @@ def _profile_line(prof, names, sweeps):
             + f"; device busy {busy:.1f} of {span:.1f} us over {sweeps} sweeps, idle {100 * (1 - busy / span):.2f}%")
 
 
-def phase_timing_wl(dev, smi):
+def phase_timing_wl(dev, smi, sass):
     """Worldline kernels and plain version at the main paths' shapes, through
     the wrappers' private launchers, in turns with CUDA events: every route
     that fits each shape against the plain version; at both 256^2 torus shapes
     the tiled route against the multi-launch route, ten runs each in turns;
     each launch's device time and the idle share from torch.profiler; the
     tiled kernel's measurement builds and every tile side that fits at the
-    main shape; then the three routes at the gate's edges. Returns {"shape/route": (ms/sweep, plain ms/sweep,
-    bound ms/sweep, bound_by)} for the shapes "torus" and "torus-sampling"
-    (the main paths' calls: 200 plain sweeps, and 20 sampled every 5), "chain"
-    (2000 sampled every 10) and "long" and "long-sampling" (5 plain, and 4
-    sampled every 2, at L_tau = 800)."""
+    main shape; then the three routes at the gate's edges; at L_tau = 800 the
+    bound of the cluster phases alone, from ``sass`` (cluster_sass's), and
+    every cluster group size (timing_wl_groups). Returns {"shape/route":
+    (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)} for the shapes
+    "torus" and "torus-sampling" (the main paths' calls: 200 plain sweeps,
+    and 20 sampled every 5), "chain" (2000 sampled every 10) and "long" and
+    "long-sampling" (5 plain, and 4 sampled every 2, at L_tau = 800), and
+    "long/cluster-bound": (ms, bound_by) or None."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
     lim = wl.device_limits(dev)
@@ -1167,6 +1240,13 @@ def phase_timing_wl(dev, smi):
                   f"{spins / (ms * 1e6):.3f} spin updates/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep "
                   f"(runs {p}); bound {b_ms:.5f} ms/sweep ({b_by}); {_profile_line(prof, names[route], n_prof)}",
                   flush=True)
+        if key == "long":  # the cluster phases' bound, for the bonds of the state a timed call leaves
+            x = wl._run_multi(s, seeds, tables, T)[0]
+            phases = frozen_bonds(x, dense[0], dense[1], seeds, 4, lambda u: u < tables.pb)
+            cb, line = cluster_bound(sass.get("wl_cluster"), phases, spins + spins // 2)
+            out["long/cluster-bound"] = cb
+            print(f"timing-wl: {key}, the cluster phases alone (wl_cluster x 2, group {wl.cluster_group(L)}), on "
+                  f"{smi}: bound {line}", flush=True)
         if key.startswith("torus"):  # the tiled route against the multi-launch route, ten runs each in turns
             a, b = versus(lambda: routes["tiled"](T), lambda: routes["multi-launch"](T), T, T)
             print(f"timing-wl: {key}, on {smi}: tiled median {np.median(a):.5f} ms/sweep (runs {a}); multi-launch "
@@ -1175,6 +1255,7 @@ def phase_timing_wl(dev, smi):
                   f"{R * (-(-dense[1] // tiles[0])) ** 2} blocks, box {tiles[1]} sites, {tiles[2]} bytes of shared "
                   f"memory; box bytes read a sweep {R * (-(-dense[1] // tiles[0])) ** 2 * tiles[1] * L}, "
                   f"written {spins}", flush=True)
+    timing_wl_groups(dev, smi)
     # the tiled kernel's measurement builds at the main shape, each in turns with the kernel itself
     (dense, nvars, R), T = TORUS, 50
     s, seeds = _wl_inputs(dense, nvars, R, 8, dev)
@@ -1232,6 +1313,25 @@ def phase_timing_wl(dev, smi):
               + ", ".join(f"{r} {means[r]:.5f} ms/sweep (runs {times[r]})" for r in means)
               + f"; faster: {faster}; the gate picks {gate}", flush=True)
     return out
+
+
+def timing_wl_groups(dev, smi):
+    """The multi-launch route's cluster group sizes (``group_times``): 64^2
+    tori at R = 2 (4096 lines a phase) from L_tau = 700, where the tiled route
+    leaves the 64^2 torus, to MAX_LTAU, and a 16^2 torus at 4096 (256 lines a
+    phase)."""
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    lim = wl.device_limits(dev)
+    for side, R, L, T in ((64, 2, 700, 10), (64, 2, 800, 10), (64, 2, 900, 10), (64, 2, 1002, 10),
+                          (64, 2, 2048, 5), (64, 2, 4096, 3), (16, 2, 4096, 10)):
+        dense = ("torus", side, -1.0)
+        s, seeds = _wl_inputs(dense, side * side, R, 10, dev, L)
+        tables = wl.make_tables(dense, side * side, LONG_BETA * L / LONG_LTAU, WL_GAMMA, 0.0, L, dev)
+        times = group_times(lambda t, G: wl._run_multi(s, seeds, tables, t, 0, 0, G), T)
+        print(f"timing-wl: multi-launch cluster groups, torus {side}^2 R={R} L_tau={L} ({R * side * side // 2} lines "
+              f"a phase; the gate picks {wl.choose_route('torus', side, side * side, L, R, *lim)[0]}), on {smi}: "
+              + _group_line(times, wl.cluster_group(L)), flush=True)
 
 
 def pt_edges(side):
@@ -1314,8 +1414,25 @@ def phase_compare_ladder(dev):
         (f"wide ladder torus 64^2 +-J R={PT_R} L_tau={PT_LTAU} (main-tempering-wide's shape)", "torus", 64,
          np.array([j for _, j in pt_edges(64)]), bench, [1.0] * PT_R, [0.0] * PT_R, PT_LTAU, 2),
     ]
+    # the multi-launch route's lengths, every cluster group size: L_tau = 700, 800, 1002 (not a multiple of 32)
+    # and 4096, rings and +-J tori; dtau * Gamma = 0.001 or less freezes lines whole
+    long_cases = [
+        ("multi-launch L=700: ring 64 R=3 h", "ring", 64, np.full(64, -1.0), [30.0, 35.0, 40.0], [1.0] * 3,
+         [0.1, 0.0, -0.1], 700, 2),
+        ("multi-launch L=800: torus 16^2 +-J R=2 h", "torus", 16, rng.choice([-1.0, 1.0], 2 * 16 * 16), [40.0, 30.0],
+         [1.0, 1.0], [0.0, 0.2], 800, 2),
+        ("multi-launch L=1002: torus 32^2 +-J R=2", "torus", 32, rng.choice([-1.0, 1.0], 2 * 32 * 32), [50.1, 40.0],
+         [1.0, 0.8], [0.1, 0.0], 1002, 2),
+        ("multi-launch L=4096: torus 16^2 R=2", "torus", 16, np.full(2 * 16 * 16, -1.0), [204.8, 150.0], [1.0] * 2,
+         [0.0, 0.1], 4096, 2),
+        ("multi-launch L=800, high K_tau (lines frozen whole): ring 64 R=3", "ring", 64, np.full(64, 0.7),
+         [40.0] * 3, [0.02, 0.03, 0.05], [0.2, 0.0, -0.1], 800, 3),
+        ("multi-launch L=4096, high K_tau: ring 64 R=2", "ring", 64, np.full(64, -1.0), [40.0, 40.0], [0.02, 0.01],
+         [0.2, 0.0], 4096, 2),
+    ]
     worst = {"multi": 0, "resident": 0}
-    for k, (name, kind, size, jv, betas, gammas, hs, L, T) in enumerate(cases):
+    cases = [(c, False) for c in cases] + [(c, True) for c in long_cases]
+    for k, ((name, kind, size, jv, betas, gammas, hs, L, T), groups) in enumerate(cases):
         s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, 200 + k, dev)
         nvars = s.shape[1]
         pbytes = ladder.param_bytes(kind, nvars)
@@ -1325,6 +1442,10 @@ def phase_compare_ladder(dev):
         want = (x, *feats)
         x = ladder._run_multi(s, seeds, planes, T)
         runs = {"multi": (x, ladder.swap_features(x, *edges))}
+        for G in wl.CLUSTER_GROUPS if groups else ():
+            if G != wl.cluster_group(L):
+                x = ladder._run_multi(s, seeds, planes, T, G)
+                runs[f"multi group {G}"] = (x, ladder.swap_features(x, *edges))
         if plan:
             runs["resident"] = ladder.ladder_sweeps(s, seeds, planes, T, edges)  # the wrapper's own route
         elif fit:
@@ -1335,7 +1456,7 @@ def phase_compare_ladder(dev):
             same, err = _equal_all(got, want)
             check(same, f"{name}: {route} != plain (max |diff| {err}, "
                         f"{int((got[0] != want[0]).sum())} of {want[0].numel()} spins)")
-            worst[route] = max(worst[route], err)
+            worst[route.split()[0]] = max(worst[route.split()[0]], err)
         if "resident" in flat:
             same, err = _equal_all(flat["resident"], flat["multi"])
             check(same, f"{name}: resident != multi-launch (max |diff| {err})")
@@ -1343,8 +1464,10 @@ def phase_compare_ladder(dev):
         moved = float((got != s).float().mean())
         check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
         frozen = float((got == got[:, :, :1]).all(2).float().mean())
+        check("high K_tau" not in name or frozen > 0.3, f"{name}: only {frozen:.3f} of lines constant in tau")
         route = ("resident (gate) == multi-launch" if plan else
                  "resident (private launcher) == multi-launch" if fit else "multi-launch (does not fit)")
+        route += f" (group {wl.cluster_group(L)})" + "".join(f" == {r}" for r in runs if r.startswith("multi group"))
         print(f"compare-ladder: {name}, T={T}: {route} == plain, bit-identical (spins, features); resident plan "
               f"{plan or fit}; {moved:.3f} of spins moved, {frozen:.3f} of lines constant in tau", flush=True)
     return worst["multi"], worst["resident"]
@@ -1446,16 +1569,19 @@ def phase_physics_tempering(dev):
           flush=True)
 
 
-def phase_timing_ladder(dev, smi):
+def phase_timing_ladder(dev, smi, sass):
     """Ladder kernels and plain version through the wrappers' private
     launchers (plain, kernel, kernel, plain, CUDA events): at the bench shape
     200-sweep calls on both routes, and one-sweep calls with features as the
     main path makes them; the device times of whole tempering steps
     (torch.profiler); the multi-launch kernels and the plain version at
-    main-tempering-wide's 64^2 +-J shape. Returns {route: (ms/sweep, plain
-    ms/sweep, bound ms/sweep, bound_by)} for "multi-launch" and "resident" at
-    the bench shape and "multi-launch-wide" at 64^2 (the bound as the main
-    path calls the kernel: once per sweep)."""
+    main-tempering-wide's 64^2 +-J shape, split by kernel name, with the
+    bound of its cluster phases alone (from ``sass``, cluster_sass's) and
+    every cluster group size. Returns {route: (ms/sweep, plain ms/sweep,
+    bound ms/sweep, bound_by)} for "multi-launch" and "resident" at the bench
+    shape and "multi-launch-wide" at 64^2 (the bound as the main path calls
+    the kernel: once per sweep), and "wide/cluster-bound": (ms, bound_by) or
+    None."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
@@ -1531,10 +1657,28 @@ def phase_timing_ladder(dev, smi):
     k, p = in_turns(lambda: ladder._run_multi(s, seeds, planes, T),
                     lambda: ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain, edges), T, T_plain)
     out["multi-launch-wide"] = (float(np.mean(k)), float(np.mean(p)), *bounds(side, False))
-    print(f"timing-ladder: {side}^2 +-J torus, {PT_R} x {side * side} x {PT_LTAU} ({spins} spins), multi-launch, on "
-          f"{smi}: {T}-sweep call {np.mean(k):.5f} ms/sweep = {spins / (np.mean(k) * 1e6):.3f} spin updates/ns "
-          f"(runs {k}); plain torch {np.mean(p):.5f} ms/sweep (runs {p}); bound "
-          f"{out['multi-launch-wide'][2]:.5f} ms/sweep ({out['multi-launch-wide'][3]}, once per sweep)", flush=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ladder._run_multi(s, seeds, planes, T)
+        torch.cuda.synchronize()
+    print(f"timing-ladder: {side}^2 +-J torus, {PT_R} x {side * side} x {PT_LTAU} ({spins} spins), multi-launch "
+          f"(cluster group {wl.cluster_group(PT_LTAU)}), on {smi}: {T}-sweep call {np.mean(k):.5f} ms/sweep = "
+          f"{spins / (np.mean(k) * 1e6):.3f} spin updates/ns (runs {k}); plain torch {np.mean(p):.5f} ms/sweep "
+          f"(runs {p}); bound {out['multi-launch-wide'][2]:.5f} ms/sweep ({out['multi-launch-wide'][3]}, once per "
+          f"sweep); {_profile_line(prof, ('ladder_site', 'ladder_cluster'), T)}", flush=True)
+    x = ladder._run_multi(s, seeds, planes, T)
+    pb = planes.pb[:, None, None]
+
+    def below(u31):  # ops/ladder.py's uniform against p_bond
+        return (u31.to(torch.float32) * ladder._SCALE + ladder._HALF_STEP).clamp(max=ladder._U_MAX) < pb
+
+    cb, line = cluster_bound(sass.get("ladder_cluster"), frozen_bonds(x, "torus", side, seeds[0], 4, below),
+                             spins + spins // 2)
+    out["wide/cluster-bound"] = cb
+    print(f"timing-ladder: {side}^2 shape, the cluster phases alone (ladder_cluster x 2, group "
+          f"{wl.cluster_group(PT_LTAU)}), on {smi}: bound {line}", flush=True)
+    times = group_times(lambda t, G: ladder._run_multi(s, seeds[:t], planes, t, G), T)
+    print(f"timing-ladder: multi-launch cluster groups at the {side}^2 shape ({PT_R * side * side // 2} lines a phase), "
+          f"on {smi}: " + _group_line(times, wl.cluster_group(PT_LTAU)), flush=True)
     return out
 
 
@@ -1605,6 +1749,131 @@ def keychain_sass():
     print(f"keychain SASS: one threefry2x32 block = {count['two'] - count['one']} instructions "
           f"{ {k: v for k, v in sorted(ops.items()) if v} }, {alu} on the ALU pipe (THREEFRY_OPS = {THREEFRY_OPS}, "
           f"THREEFRY_ALU_OPS = {THREEFRY_ALU_OPS})", flush=True)
+
+
+# the cluster phase's slice loops in fk_line (csrc/worldline.cuh), found in the SASS of wl_cluster and
+# ladder_cluster at the group size of main-quantum-long's and main-tempering-wide's L_tau: each the shortest loop
+# (a backward branch and what it jumps over) that holds what marks it, and the marks a word of 32 slices holds
+CLUSTER_LOOPS = {
+    "load": (lambda ops: "LDG" in ops and "VOTE" in ops, "VOTE", 2),  # spins, bond draws, slice dE, 2 ballots
+    "sum": (lambda ops: "VOTE" in ops and "FADD" in ops and "LDG" not in ops and "FFMA" not in ops, "VOTE", 1),
+    "decide": (lambda ops: "FFMA" in ops and "VOTE" in ops, "VOTE", 2),  # the heads' draws and logf, 2 ballots
+    "fill": (lambda ops: "FLO" in ops, "FLO", 1),  # the nearest head's decision, the flips
+}
+F32_OPS = {"FADD": 1, "FMUL": 1, "FFMA": 2}  # f32 operations of an instruction
+NOT_INT = ("FADD", "FMUL", "FFMA", "FSEL", "FSETP", "FMNMX", "MUFU", "I2F", "F2I", "FRND")  # the FMA and XU pipes
+
+
+def cluster_sass():
+    """{kernel: {loop: (ALU instructions, f32 operations) a word of 32
+    slices}} of each slice loop of fk_line (CLUSTER_LOOPS), in wl_cluster at
+    cluster_group(LONG_LTAU) and ladder_cluster at cluster_group(PT_LTAU)
+    (cuobjdump); a kernel is left out, and 'not measured' printed, without
+    cuobjdump or where a loop is not found."""
+    import re
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pyisingmontecarlo_tpu_torch import _kernels
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    nvcc = _kernels._nvcc()
+    dump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    out = {}
+    if not Path(dump).exists():
+        print("cluster SASS: not measured (no cuobjdump)", flush=True)
+        return out
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {k: pool.submit(_sass, nvcc, dump, _kernels._CSRC / f"{src}.cu", _kernels._BUILD / f"{src}.cubin")
+                for k, src in (("wl_cluster", "wl"), ("ladder_cluster", "ladder"))}
+        fns = {k: j.result() for k, j in jobs.items()}
+    for kernel, L in (("wl_cluster", LONG_LTAU), ("ladder_cluster", PT_LTAU)):
+        G = wl.cluster_group(L)
+        name = next(k for k in fns[kernel] if kernel in k and f"ILi{G}E" in k)
+        ins = fns[kernel][name]
+        loops = []
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                loops.append([i for i in ins if int(target.group(1), 16) <= i[0] <= addr])
+        counts = {}
+        for loop, (marks, mark, per_word) in CLUSTER_LOOPS.items():
+            found = [b for b in loops if marks({op.split(".")[0] for _, op, _ in b})]
+            if not found:
+                print(f"cluster SASS: {kernel}<{G}>: no {loop} loop found; its bound is not measured", flush=True)
+                break
+            body = min(found, key=len)
+            words = sum(1 for _, op, _ in body if op.startswith(mark)) / per_word
+            alu = sum(1 for _, op, _ in body if not op.startswith(NOT_ALU + NOT_INT))
+            f32 = sum(F32_OPS.get(op.split(".")[0], 0) for _, op, _ in body)
+            counts[loop] = (alu / words, f32 / words)
+        else:
+            out[kernel] = counts
+            print(f"cluster SASS: {kernel}<{G}> (L_tau={L}), a word of 32 slices: " + ", ".join(
+                f"{loop} {a:.1f} ALU instructions and {f:.1f} f32 operations" for loop, (a, f) in counts.items()),
+                flush=True)
+    return out
+
+
+def cluster_rounds(active):
+    """(lines, fully frozen lines, doubling rounds summed over the others) of
+    a cluster phase whose frozen bonds are ``active`` [lines, L] (bool), as
+    fk_line runs it: a round while some reach bit is left after the last,
+    ceil(log2 L) at most."""
+    L = active.shape[-1]
+    frozen = active.all(-1)
+    alive, reach = ~frozen, active.clone()
+    rounds = torch.zeros(active.shape[0], dtype=torch.int64, device=active.device)
+    for step in range(max(1, (L - 1).bit_length())):
+        rounds += alive
+        reach = reach & reach.roll(-(1 << step), -1)
+        alive = alive & reach.any(-1)
+    return active.shape[0], int(frozen.sum()), int(rounds.sum())
+
+
+def cluster_bound(counts, phases, nbytes):
+    """((ms, bound_by), what it counted) of a sweep's cluster phases, whose
+    frozen bonds are ``phases`` ([lines, L] each), from ``counts`` (a
+    kernel's cluster_sass entry): the ALU instructions and f32 operations of
+    fk_line's slice loops for this data (every word's load, each non-frozen
+    line's doubling rounds, decisions and fill; a frozen line's XLA sum,
+    mostly f32 additions, and its flips are not counted: a lower bound),
+    beside ``nbytes`` moved a phase; (None, 'not measured') without counts."""
+    if counts is None:
+        return None, "not measured (no cuobjdump, or a loop not found)"
+    alu = f32 = 0.0
+    what = []
+    for active in phases:
+        lines, frozen, rounds = cluster_rounds(active)
+        W = -(-active.shape[-1] // 32)
+        words = {"load": lines * W, "sum": rounds * W, "decide": (lines - frozen) * W, "fill": (lines - frozen) * W}
+        alu += 32 * sum(words[k] * counts[k][0] for k in words)
+        f32 += 32 * sum(words[k] * counts[k][1] for k in words)
+        what.append(f"{lines} lines, {frozen} frozen whole, {rounds / max(1, lines - frozen):.2f} doubling rounds a "
+                    "line")
+    ms, by = bound(len(phases) * nbytes, alu, f32)
+    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; " + "; ".join(what) + f"; {alu / 1e6:.1f} M ALU instructions, "
+                      f"{f32 / 1e6:.1f} M f32 operations, {len(phases) * nbytes} bytes)")
+
+
+def frozen_bonds(x, kind, size, seed, ctr, below):
+    """The frozen bonds [lines, L] (bool) of the lines of each color of
+    ``x`` [R, nvars, L] at a cluster phase's bond draw ``ctr`` (4 + 2 color),
+    as ops/wl.py and ops/ladder.py draw them: aligned, and ``below(u31)``
+    with u31 = lane_draw31(seed_r, tau nvars + i, ctr); the colors' lines
+    concatenated."""
+    from pyisingmontecarlo_tpu_torch.ops import wl
+    from pyisingmontecarlo_tpu_torch.ops.lanerng import lane_draw31, make_pos_mix
+
+    R, nvars, L = x.shape
+    color0, _, _ = wl.lattice_fns(kind, size, nvars, x.device)
+    tau = torch.arange(L, device=x.device)[None, :]
+    pos1, pos2 = make_pos_mix(tau, torch.arange(nvars, device=x.device)[:, None], nvars)
+    out = []
+    for color, c in enumerate((ctr, ctr + 2)):
+        act = (x == x.roll(-1, 2)) & below(lane_draw31(seed[:, None, None], pos1, pos2, c))
+        out.append(act[:, color0[:, 0] if color == 0 else ~color0[:, 0]].reshape(-1, L))
+    return out
 
 
 def chain_bound(kinds, T, R):
@@ -3038,7 +3307,7 @@ def main():
     smi = phase_gpu()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    sass = phase_build()
     err = phase_compare(dev)
     launches = phase_main(dev)
     phase_physics(dev)
@@ -3049,12 +3318,12 @@ def main():
     long_launches, long_sample_launches = phase_main_quantum_long(dev)
     resident_launches = phase_main_chain(dev)
     phase_physics_wl(dev)
-    wl_t = phase_timing_wl(dev, smi)
+    wl_t = phase_timing_wl(dev, smi, sass)
     ladder_err, ladder_res_err = phase_compare_ladder(dev)
     ladder_res_launches, _, _ = phase_main_tempering(dev)
     ladder_launches = phase_main_tempering_wide(dev)
     phase_physics_tempering(dev)
-    ladder_t = phase_timing_ladder(dev, smi)
+    ladder_t = phase_timing_ladder(dev, smi, sass)
     chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = phase_compare_keychain(dev, smi)
     phase_compare_classical(dev)
     keychain_launches = phase_main_classical(dev, smi)
@@ -3156,8 +3425,9 @@ def rates(only=None):
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    if only == "qmcrunner":
-        print(json.dumps({"package": str(Path(pkg).parent.parent), **qmcrunner_rates(dev)}), flush=True)
+    if only in ("qmcrunner", "multi"):
+        fn = qmcrunner_rates if only == "qmcrunner" else multi_rates
+        print(json.dumps({"package": str(Path(pkg).parent.parent), **fn(dev)}), flush=True)
         return
     lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
     lat.run_monte_carlo(BENCH_BETA, BENCH_SWEEPS, BENCH_R)  # build and warm up, as bench.py does
@@ -3264,6 +3534,34 @@ def qmcising_rates(dev):
     return {"glass_qmc_sweeps_per_s": 30 / (min(wall[40]) - min(wall[10])), "glass_qmc_runs_s": wall}
 
 
+def multi_rates(dev):
+    """The multi-launch routes' ms a sweep (the best of three 20-sweep calls,
+    CUDA events, after a warm-up) and each kernel's device us a sweep
+    (torch.profiler over one call): main-quantum-long's 64^2 torus at
+    L_tau = 800, R = 2, and main-tempering-wide's 64^2 +-J ladder."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
+    from pyisingmontecarlo_tpu_torch.tempering import key_tables
+
+    (dense, nvars, R), T = LONG, 20
+    s, seeds = _wl_inputs(dense, nvars, R, 7, dev, LONG_LTAU)
+    tables = wl.make_tables(dense, nvars, LONG_BETA, WL_GAMMA, 0.0, LONG_LTAU, dev)
+    lt = pt_ladder(dev, side=64)
+    m = lt._materialize()
+    lseeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
+    runs = {"wl_long": lambda: wl._run_multi(s, seeds, tables, T),
+            "ladder_wide": lambda: ladder._run_multi(m["s"], lseeds, m["planes"], T)}
+    out = {}
+    for key, run in runs.items():
+        run()  # warm-up
+        out[f"{key}_ms_per_sweep"] = min(event_ms(run, T) for _ in range(3))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev_t = _device_times(prof, ("wl_site", "wl_cluster", "wl_accumulate", "ladder_site", "ladder_cluster"))
+        out[f"{key}_us_per_sweep"] = None if dev_t is None else {k: sum(v) / T for k, v in dev_t[0].items()}
+    return out
+
+
 def ab(other, pairs=10, only=None):
     """``rates(only)`` of the package in ``other`` and of this one, each in a
     process of its own, ``pairs`` runs a side in the order other, this, this,
@@ -3280,6 +3578,7 @@ def ab(other, pairs=10, only=None):
             runs[side].append(json.loads(line))
             print(f"ab on {smi}: {line}", flush=True)
     keys = ((("qmcrunner_hard_sweeps_per_s", True), ("qmcrunner_chain_sweeps_per_s", True)) if only == "qmcrunner" else
+            (("wl_long_ms_per_sweep", False), ("ladder_wide_ms_per_sweep", False)) if only == "multi" else
             (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
              ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),
              ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False),
@@ -3293,6 +3592,13 @@ def ab(other, pairs=10, only=None):
         print(f"ab on {smi}: {key}: {Path(other).resolve()} median {np.median(a)} (quartiles "
               f"{np.percentile(a, 25)}, {np.percentile(a, 75)}); this median {np.median(b)} (quartiles "
               f"{np.percentile(b, 25)}, {np.percentile(b, 75)}); this one won {won} of {len(a)} pairs", flush=True)
+    for key in ("wl_long_us_per_sweep", "ladder_wide_us_per_sweep") if only == "multi" else ():
+        for side in ("other", "this"):
+            split = [r[key] for r in runs[side] if r.get(key)]
+            names = sorted({n for r in split for n in r})
+            print(f"ab on {smi}: {key} of {side}: " + (", ".join(
+                f"{n} median {np.median([r.get(n, 0.0) for r in split]):.3f}" for n in names) if split else
+                "not measured (the profiler recorded no device time)"), flush=True)
 
 
 if __name__ == "__main__":

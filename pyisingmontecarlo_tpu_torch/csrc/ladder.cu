@@ -29,11 +29,13 @@
 //   (r, i, tau), in place. Glauber acceptance in logit form,
 //   log(u) - log(1 - u) < -dE with dE = (-2 s) (dt (F + h) - kt (s_up + s_dn)),
 //   F the coupling-weighted neighbour field.
-// - ladder_cluster, twice (one per color): one thread per time line of the
-//   color, fk_line_update of worldline.cuh (the binary-counter walk that
-//   gives the JAX kernel's pointer-doubling sums, a frozen line's total in
-//   XLA's CPU order); a bond freezes when aligned and u < pb, a head flips
-//   its cluster when log(u) < -dE, with the slice dE (-2 s) dt (F + h).
+// - ladder_cluster, twice (one per color): a group of threads per time line
+//   of the color (a warp at the tempering shapes' L_tau), fk_line of
+//   worldline.cuh (the JAX kernel's pointer-doubling sums in shared memory, a
+//   frozen line's total in XLA's CPU order); a bond freezes when aligned and
+//   u < pb, a head flips its cluster when log(u) < -dE, with the slice dE
+//   (-2 s) dt (F + h), F from the site's neighbour lines and couplings
+//   (SiteField, found once a line).
 //
 // Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn in the JAX
 // kernel's order, so nothing is contracted to an FMA, and the logs are logf
@@ -48,11 +50,13 @@
 // tempering bench shape (64 replicas x 144 sites x L_tau 60 = 0.55 M spins)
 // that is about 0.9 us of integer issue at 33.5 T op/s per sweep, while the
 // 0.55 MB state stays in L2. The multi-launch route's six launches last a few
-// microseconds each and its cluster phase is a serial walk on 4608 lines per
-// color, latency-bound; the resident route takes that shape with no launch
-// between phases, every thread busy in the cluster phase, the state read and
-// written once per call, and the features computed from shared memory. At
-// R = 64 it fills 64 of the 132 SMs.
+// microseconds each at that shape; the resident route takes it with no
+// launch between phases, the state read and written once per call, and the
+// features computed from shared memory. At R = 64 it fills 64 of the 132
+// SMs. The multi-launch route takes the planes too large for a block, such
+// as the 64^2 glass: there a warp owns each of its 131072 lines a phase, and
+// the ALU work of the cluster phase's slice loops bounds it (chip_smoke.py
+// counts their SASS).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -99,6 +103,31 @@ __device__ __forceinline__ float field(const Geo& g, const int8_t* p, const floa
     return __fadd_rn(f, __fmul_rn(__ldg(J2 + xm), (float)p[xm * L + t]));
 }
 
+// field() of one site i at any slice, its neighbour lines and couplings
+// found once (nb: its neighbours(), ring i+1, i-1; torus x+1, x-1, y+1,
+// y-1): the same operations in the same order.
+struct SiteField {
+    const int8_t* q[4];  // ring: i+1, i-1; torus: y+1, y-1, x+1, x-1
+    float j[4];
+    int torus;
+
+    __device__ SiteField(const Geo& g, const int8_t* p, const float* Jr, const Nbrs& nb, int i) : torus(g.torus) {
+        const int L = g.L, n = g.nvars;
+        if (!g.torus) {
+            q[0] = p + nb.j[0] * L, q[1] = p + nb.j[1] * L, q[2] = q[3] = q[0];
+            j[0] = __ldg(Jr + i), j[1] = __ldg(Jr + nb.j[1]), j[2] = j[3] = 0.0f;
+            return;
+        }
+        q[0] = p + nb.j[2] * L, q[1] = p + nb.j[3] * L, q[2] = p + nb.j[0] * L, q[3] = p + nb.j[1] * L;
+        j[0] = __ldg(Jr + i), j[1] = __ldg(Jr + nb.j[3]), j[2] = __ldg(Jr + n + i), j[3] = __ldg(Jr + n + nb.j[1]);
+    }
+    __device__ __forceinline__ float at(int t) const {
+        const float f = __fadd_rn(__fmul_rn(j[0], (float)q[0][t]), __fmul_rn(j[1], (float)q[1][t]));
+        if (!torus) return f;
+        return __fadd_rn(__fadd_rn(f, __fmul_rn(j[2], (float)q[2][t])), __fmul_rn(j[3], (float)q[3][t]));
+    }
+};
+
 // grid: one thread per (r, site of the color, tau of the parity), tau
 // fastest. Indices fit in int: R * nvars * L < 2^31 (ops/ladder.py, gate).
 __global__ void __launch_bounds__(kSiteBlock) ladder_site(
@@ -123,24 +152,24 @@ __global__ void __launch_bounds__(kSiteBlock) ladder_site(
     if (__fsub_rn(logf(u), logf(__fsub_rn(1.0f, u))) < -dE) lp[tau] = (int8_t)(-sv);
 }
 
-// grid: one thread per time line of the color, kLineBlock lines per block.
-__global__ void __launch_bounds__(kLineBlock) ladder_cluster(
-    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int n_lines,
-    uint32_t ctr, int color) {
-    extern __shared__ uint32_t bits[];
-    const int line = blockIdx.x * kLineBlock + threadIdx.x;
-    if (line >= n_lines) return;
-    const int L = g.L, nvars = g.nvars, lines = nvars >> 1;
-    const int r = line / lines;
-    const int i = site_of(g, line - r * lines, color);
+// grid fk_grid: a group of G threads per time line of the color
+// (fk_block_lines(G) lines a block): fk_line (worldline.cuh).
+template <int G>
+__global__ void __launch_bounds__(fk_block_threads(G)) ladder_cluster(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, uint32_t ctr, int color) {
+    extern __shared__ __align__(16) unsigned char fk_smem[];
+    int x, y;
+    if (!fk_site<G>(g, color, x, y)) return;  // the whole group
+    const int L = g.L, nvars = g.nvars, r = blockIdx.z, i = x * g.size + y;
     const int8_t* p = s + (size_t)r * nvars * L;
     const float* Jr = q.J + (size_t)r * ndir * nvars;
     const uint32_t seed = (uint32_t)__ldg(seeds + r);
     const float dt = __ldg(q.dt + r), h = __ldg(q.h + r), pb = __ldg(q.pb + r);
-    fk_line_update(
-        s + ((size_t)r * nvars + i) * L, bits + threadIdx.x, L,
+    const SiteField F(g, p, Jr, neighbours_at(g, x, y), i);
+    fk_line<G>(
+        s + ((size_t)r * nvars + i) * L, fk_smem + (threadIdx.x / G) * fk_line_bytes(L), L,
         [&](int t) { return uniform(lane_draw31(seed, (uint32_t)(t * nvars + i), ctr)) < pb; },
-        [&](int x, int sv) { return __fmul_rn(__fmul_rn(-2.0f * (float)sv, dt), __fadd_rn(field(g, p, Jr, i, x), h)); },
+        [&](int t, int sv) { return __fmul_rn(__fmul_rn(-2.0f * (float)sv, dt), __fadd_rn(F.at(t), h)); },
         [&](int head, float de) {
             return logf(uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1))) < -de;
         });
@@ -242,12 +271,13 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
 // Runs T sweeps (6 T launches) on `stream` on s[R, nvars, L]; seeds is
 // [T, R] int32 (row t keys sweep t), J [R, ndir, nvars] and dt, kt, h, pb [R]
 // f32 as in ops/ladder.py. Draw d of every sweep uses counter d: 0..3 the site
-// phases, 4 + 2c and 5 + 2c the bond and head draws of cluster color c.
-// Returns the first launch error, or 0.
+// phases, 4 + 2c and 5 + 2c the bond and head draws of cluster color c. The
+// cluster phases take `group` threads a line (ops/wl.cluster_group); R <=
+// 65535 (fk_grid). Returns the first launch error, or 0.
 extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const void* dt, const void* kt,
                              const void* h, const void* pb, int R, int nvars, int L, int torus, int size,
-                             int T, void* stream) {
-    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1)) return (int)cudaErrorInvalidValue;
+                             int T, int group, void* stream) {
+    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
     const Geo g{torus, size, nvars, L};
     const int ndir = torus ? 2 : 1;
     const Params q{static_cast<const float*>(J), static_cast<const float*>(dt), static_cast<const float*>(kt),
@@ -255,27 +285,28 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* sp = static_cast<int8_t*>(s);
     const int n_active = R * (nvars / 2) * (L / 2);
-    const int n_color = R * (nvars / 2);
     const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
-    const unsigned color_grid = (n_color + kLineBlock - 1) / kLineBlock;
-    const int smem = cluster_smem_bytes(L);
-    cudaError_t e = cudaFuncSetAttribute(ladder_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    for (int t = 0; t < T; ++t) {
-        const int32_t* sd = static_cast<const int32_t*>(seeds) + (size_t)t * R;
-        uint32_t d = 0;
-        for (int color = 0; color < 2; ++color)
-            for (int parity = 0; parity < 2; ++parity) {
-                ladder_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, q, g, ndir, n_active, d++, color, parity);
-                if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    return (int)by_group(group, [&](auto gc) {
+        constexpr int G = decltype(gc)::value;
+        const int smem = fk_block_lines(G) * fk_line_bytes(L);
+        cudaError_t e = cudaFuncSetAttribute(ladder_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+        for (int t = 0; t < T; ++t) {
+            const int32_t* sd = static_cast<const int32_t*>(seeds) + (size_t)t * R;
+            uint32_t d = 0;
+            for (int color = 0; color < 2; ++color)
+                for (int parity = 0; parity < 2; ++parity) {
+                    ladder_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, q, g, ndir, n_active, d++, color, parity);
+                    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+                }
+            for (int color = 0; color < 2; ++color) {
+                ladder_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, d, color);
+                d += 2;
+                if ((e = cudaGetLastError()) != cudaSuccess) return e;
             }
-        for (int color = 0; color < 2; ++color) {
-            ladder_cluster<<<color_grid, kLineBlock, smem, st>>>(sp, sd, q, g, ndir, n_color, d, color);
-            d += 2;
-            if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
         }
-    }
-    return 0;
+        return cudaSuccess;
+    });
 }
 
 // The resident route: T sweeps in one launch of R blocks on `stream`, then the

@@ -24,9 +24,9 @@
 //   a color are taken in tiles whose scratch fits beside the plane
 //   (ops/wl.resident_plan), so the plane, not the scratch, bounds the shape.
 //   K + 2 barriers per tile, K = ceil(log2 L). (Tried on the H100 and not
-//   kept: the binary-counter walk of fk_line_update for (b), one thread per
-//   line, which gives the same sums, ran slower at both bench shapes, each
-//   line one serial chain of adds, draws and logs.)
+//   kept: a binary-counter walk of each cluster for (b), one thread per
+//   line, which gives the same sums (TreeSum, worldline.cuh), ran slower at
+//   both bench shapes, each line one serial chain of adds, draws and logs.)
 //
 // The draws are the multi-launch kernels' (same lane_draw31, pos and ctr), so
 // a resident launch equals them and the plain versions bit for bit.

@@ -53,7 +53,8 @@
 // a cluster. (c) Every thread takes pairs of slices again: each slice takes
 // the decision of its nearest head at or before it (cyclically), as the
 // resident route's step (d) does, and becomes a spin again. The same flips
-// as fk_line_update's; only (b) is serial, 4 barriers a phase.
+// as the JAX kernel's (ops/wl.fk_flips); only (b) is serial, 4 barriers a
+// phase.
 #pragma once
 
 #include <cstdint>

@@ -52,15 +52,18 @@
 //   and its tau neighbours the other parity, so nothing it reads is written in
 //   the launch. Acceptance compares a 31-bit draw with one of 30 int31
 //   thresholds made on the host; only active spins draw.
-// - wl_cluster, twice (one per color): one thread per time line of the
-//   color, in three passes along the line (frozen bonds, as bits in shared
-//   memory; each cluster's dE and its head's decision; the flips). The
-//   forward segmented sum gives the JAX kernel's pointer-doubling sums bit for
-//   bit by a binary-counter walk (fk_line_update, worldline.cuh); the fully frozen ring's
-//   total is summed in XLA's CPU order (ops/wl.py, xla_sum_last). Additions
-//   and products are __fadd_rn / __fmul_rn, so nothing is contracted, and the
-//   log is logf (no fast math). Shared memory: 2 ceil(L/32) words per line,
-//   64 KB per block of 64 lines at L = 4096, the longest line taken.
+// - wl_cluster, twice (one per color): a group of threads per time line of
+//   the color (fk_line, worldline.cuh; a warp up to L = 896, then a block of
+//   128 or 256 threads, ops/wl.cluster_group), in parallel over tau: the
+//   line's spins, bond draws and slice dE read coalesced along tau, the
+//   frozen bonds as bit words; the JAX kernel's forward segmented sum by
+//   pointer doubling in shared memory, stopped after the round that leaves no
+//   longer run of frozen bonds; the heads' decisions, each slice taking its
+//   nearest head's. A fully frozen line's total is summed in XLA's CPU order
+//   (ops/wl.py, xla_sum_last), its windows of 32 slices in parallel.
+//   Additions and products are __fadd_rn / __fmul_rn, so nothing is
+//   contracted, and the log is logf (no fast math). Shared memory: about
+//   8.6 bytes a slice (fk_line_bytes), 35 KB a line at L = 4096.
 // - wl_accumulate, once: one thread per line (both colors) adds the line's
 //   tau-sums of bond products (outgoing bonds), spins and aligned time bonds
 //   to int64 accumulators [R, 3, nvars]: exact, no atomics (one writer per
@@ -73,14 +76,14 @@
 // spins) that is 1.3 G operations, 39 us at the 33.5 T int32 op/s peak, while
 // reading and writing the 21 MB state once would take 12.5 us at 3.35 TB/s
 // (and it stays in the 50 MB L2): integer issue bounds it. The multi-launch
-// route passes over the state nine times a sweep with byte loads and walks
-// each line serially in its cluster phase, its neighbours' bytes read from
-// L2; the tiled route passes once and reads every neighbour from shared
-// memory. At the 256-site chain, R=64, L=40 (0.66 M spins) the multi-launch
-// route's launches last a few microseconds and its 8192 lines per color
-// cannot hide the serial walk's latency; the resident route takes that shape
-// instead, with no launch and no device-memory pass between phases, every
-// thread busy in the cluster phase, and barriers in their place.
+// route passes over the state nine times a sweep with byte loads, its
+// neighbours' bytes read from L2, and its cluster phase does about log2 of
+// the longest frozen run more work a slice than a serial walk would (the
+// doubling rounds; chip_smoke.py counts its SASS); the tiled route passes
+// once and reads every neighbour from shared memory. At the 256-site chain,
+// R=64, L=40 (0.66 M spins) the multi-launch route's launches last a few
+// microseconds; the resident route takes that shape instead, with no launch
+// and no device-memory pass between phases, and barriers in their place.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -127,26 +130,25 @@ __global__ void __launch_bounds__(kSiteBlock) wl_site(
     if ((int)u <= t) lp[tau] = (int8_t)(-sv);
 }
 
-// grid: one thread per time line of the color, kLineBlock lines per block:
-// fk_line_update (worldline.cuh) with the bond frozen when its int31 draw is
-// below pb, the slice's dE from the host table, and the head's flip when
-// log((u + 0.5) / 2^31) < -dE.
-__global__ void __launch_bounds__(kLineBlock) wl_cluster(
+// grid fk_grid: a group of G threads per time line of the color
+// (fk_block_lines(G) lines a block): fk_line (worldline.cuh) with the bond
+// frozen when its int31 draw is below pb, the slice's dE from the host table,
+// and the head's flip when log((u + 0.5) / 2^31) < -dE.
+template <int G>
+__global__ void __launch_bounds__(fk_block_threads(G)) wl_cluster(
     int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const float* __restrict__ cde,
-    int32_t pb, Geo g, int n_lines, uint32_t ctr, int color) {
-    extern __shared__ uint32_t bits[];
-    const int line = blockIdx.x * kLineBlock + threadIdx.x;
-    if (line >= n_lines) return;
-    const int L = g.L, nvars = g.nvars, lines = nvars >> 1;
-    const int r = line / lines;
-    const int i = site_of(g, line - r * lines, color);
+    int32_t pb, Geo g, uint32_t ctr, int color) {
+    extern __shared__ __align__(16) unsigned char fk_smem[];
+    int x, y;
+    if (!fk_site<G>(g, color, x, y)) return;  // the whole group
+    const int L = g.L, nvars = g.nvars, r = blockIdx.z, i = x * g.size + y;
     const int8_t* p = s + (size_t)r * nvars * L;
     const uint32_t seed = (uint32_t)__ldg(seeds + r);
-    const Nbrs nb = neighbours(g, i);
-    fk_line_update(
-        s + ((size_t)r * nvars + i) * L, bits + threadIdx.x, L,
+    const Nbrs nb = neighbours_at(g, x, y);
+    fk_line<G>(
+        s + ((size_t)r * nvars + i) * L, fk_smem + (threadIdx.x / G) * fk_line_bytes(L), L,
         [&](int t) { return (int)lane_draw31(seed, (uint32_t)(t * nvars + i), ctr) < pb; },
-        [&](int x, int sv) { return __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, x) + 4) >> 1)); },
+        [&](int t, int sv) { return __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, t) + 4) >> 1)); },
         [&](int head, float de) {
             return log_uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1)) < -de;
         });
@@ -395,47 +397,50 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
 // Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L]. thr [30] int32, cde [10] f32 and pb as in ops/wl.py;
 // acc [R, 3, nvars] int64 is added to; samples is [R, nsamples, nvars] int8
 // or null, slot k written after sweep (k + 1) * freq. Draw d of sweep t uses
-// counter 8 t + d. Returns the first launch error, or 0.
+// counter 8 t + d. The cluster phases take `group` threads a line
+// (ops/wl.cluster_group: 32, 64, 128, 256 or 512); R <= 65535 (fk_grid).
+// Returns the first launch error, or 0.
 extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void* cde, int pb,
                          void* acc, void* samples, int R, int nvars, int L, int torus, int size,
-                         int T, int freq, int nsamples, void* stream) {
-    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1)) return (int)cudaErrorInvalidValue;
+                         int T, int freq, int nsamples, int group, void* stream) {
+    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
     const Geo g{torus, size, nvars, L};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* sp = static_cast<int8_t*>(s);
     const int32_t* sd = static_cast<const int32_t*>(seeds);
     const int n_active = R * (nvars / 2) * (L / 2);
-    const int n_color = R * (nvars / 2);
     const int n_all = R * nvars;
     const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
-    const unsigned color_grid = (n_color + kLineBlock - 1) / kLineBlock;
     const unsigned all_grid = (n_all + kSiteBlock - 1) / kSiteBlock;
-    const int smem = cluster_smem_bytes(L);
-    cudaError_t e = cudaFuncSetAttribute(wl_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    for (int t = 0; t < T; ++t) {
-        const uint32_t base = 8u * (uint32_t)t;
-        uint32_t d = 0;
-        for (int color = 0; color < 2; ++color)
-            for (int parity = 0; parity < 2; ++parity) {
-                wl_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, static_cast<const int32_t*>(thr), g,
-                                                          n_active, base + d++, color, parity);
-                if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    return (int)by_group(group, [&](auto gc) {
+        constexpr int G = decltype(gc)::value;
+        const int smem = fk_block_lines(G) * fk_line_bytes(L);
+        cudaError_t e = cudaFuncSetAttribute(wl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+        for (int t = 0; t < T; ++t) {
+            const uint32_t base = 8u * (uint32_t)t;
+            uint32_t d = 0;
+            for (int color = 0; color < 2; ++color)
+                for (int parity = 0; parity < 2; ++parity) {
+                    wl_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, static_cast<const int32_t*>(thr), g,
+                                                              n_active, base + d++, color, parity);
+                    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+                }
+            for (int color = 0; color < 2; ++color) {
+                wl_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
+                    sp, sd, static_cast<const float*>(cde), pb, g, base + d, color);
+                d += 2;
+                if ((e = cudaGetLastError()) != cudaSuccess) return e;
             }
-        for (int color = 0; color < 2; ++color) {
-            wl_cluster<<<color_grid, kLineBlock, smem, st>>>(sp, sd, static_cast<const float*>(cde), pb, g,
-                                                             n_color, base + d, color);
-            d += 2;
-            if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+            int8_t* stage = nullptr;
+            if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
+                stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
+            wl_accumulate<<<all_grid, kSiteBlock, 0, st>>>(sp, static_cast<long long*>(acc), stage,
+                                                           nsamples * nvars, g, n_all);
+            if ((e = cudaGetLastError()) != cudaSuccess) return e;
         }
-        int8_t* stage = nullptr;
-        if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
-            stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
-        wl_accumulate<<<all_grid, kSiteBlock, 0, st>>>(sp, static_cast<long long*>(acc), stage,
-                                                       nsamples * nvars, g, n_all);
-        if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
-    return 0;
+        return cudaSuccess;
+    });
 }
 
 // The resident route: T sweeps in one launch of R blocks on `stream`, with

@@ -3,19 +3,21 @@
 // line (r, i) is L contiguous bytes), a fully frozen line's total in XLA's
 // order (XlaSum), a cluster's sum in the order of the JAX kernels' pointer
 // doubling fed one slice at a time (TreeSum), and the multi-launch route's
-// Fortuin-Kasteleyn time-line cluster update of one line by one thread
-// (fk_line_update), which holds those sums bit for bit. The resident route,
-// one block per replica with its plane in shared memory and the cluster
-// phase in parallel, is in resident.cuh, the tiled route in tiled.cuh;
-// ops/wl.choose_route picks the route by shape.
+// Fortuin-Kasteleyn time-line cluster update of one line by a group of
+// threads (fk_line: a warp, or a whole block for long lines), which runs the
+// JAX kernels' own pointer doubling in shared memory. The resident route,
+// one block per replica with its plane in shared memory, is in resident.cuh,
+// the tiled route in tiled.cuh; ops/wl.choose_route picks the route by shape.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
+#include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kSiteBlock = 256;
-constexpr int kLineBlock = 64;  // lines (threads) per block of a cluster phase
 constexpr int kMaxL = 4096;
 constexpr int kTreeDepth = 13;  // binary-counter blocks of up to 2^12 = kMaxL slices
 
@@ -40,12 +42,18 @@ struct Nbrs {
     int j[4];
 };
 
-__device__ __forceinline__ Nbrs neighbours(const Geo& g, int i) {
-    if (!g.torus) return {{i + 1 == g.nvars ? 0 : i + 1, i == 0 ? g.nvars - 1 : i - 1, -1, -1}};
+// The same of site (x, y) of a torus, i = x * size + y, or of site y of a
+// ring.
+__device__ __forceinline__ Nbrs neighbours_at(const Geo& g, int x, int y) {
+    if (!g.torus) return {{y + 1 == g.nvars ? 0 : y + 1, y == 0 ? g.nvars - 1 : y - 1, -1, -1}};
     const int n = g.size;
-    const int x = i / n, y = i - x * n;
     return {{(x + 1 == n ? 0 : x + 1) * n + y, (x == 0 ? n - 1 : x - 1) * n + y,
              x * n + (y + 1 == n ? 0 : y + 1), x * n + (y == 0 ? n - 1 : y - 1)}};
+}
+
+__device__ __forceinline__ Nbrs neighbours(const Geo& g, int i) {
+    const int x = g.torus ? i / g.size : 0;
+    return neighbours_at(g, x, i - x * g.size);
 }
 
 // A fully frozen line's total dE in XLA's CPU order (ops/wl.py,
@@ -140,84 +148,225 @@ struct TreeSum {
     }
 };
 
-// Per-line bit arrays in shared memory: word w of the block's thread j at
-// [w * kLineBlock + j], so a warp's accesses fall in distinct banks.
-__device__ __forceinline__ bool get_bit(const uint32_t* b, int x) {
-    return (b[(x >> 5) * kLineBlock] >> (x & 31)) & 1u;
+// The multi-launch route's cluster phase: a group of G threads owns one time
+// line, G = 32 (a warp; kFkWarpLines lines a block) or G = 64 .. 512 (the
+// whole block); ops/wl.cluster_group picks G by L. The group keeps its line
+// in shared memory (fk_line_bytes): two f32 run-sum buffers of 32 W slices
+// and five bit arrays of W words, W = ceil(L / 32) (the frozen bonds, the
+// spins' signs, two reach buffers, the first of which then holds the heads'
+// decisions, and the heads), and a word for the group's decision. Warp w of
+// the group takes the words w, w + G / 32, ...: slice t = 32 word + lane, so
+// that a ballot gives a word.
+constexpr int kFkWarpLines = 4;
+
+__host__ __device__ constexpr int fk_block_threads(int G) { return G == 32 ? 32 * kFkWarpLines : G; }
+__host__ __device__ constexpr int fk_block_lines(int G) { return G == 32 ? kFkWarpLines : 1; }
+__host__ __device__ inline int fk_line_bytes(int L) { return (276 * ((L + 31) >> 5) + 4 + 15) & ~15; }
+
+// The grid of a cluster phase: (chunks of a row's lines of the color, rows,
+// replicas); a torus has `size` rows of size / 2 lines of a color, a ring
+// one row of nvars / 2, so a group finds its line with no division.
+inline dim3 fk_grid(const Geo& g, int R, int G) {
+    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1;
+    return dim3((per_row + fk_block_lines(G) - 1) / fk_block_lines(G), g.torus ? g.size : 1, R);
 }
-__device__ __forceinline__ void set_bit(uint32_t* b, int x) { b[(x >> 5) * kLineBlock] |= 1u << (x & 31); }
 
-// Dynamic shared memory of a cluster-phase block: frozen and decision bits.
-inline int cluster_smem_bytes(int L) { return 2 * ((L + 31) / 32) * kLineBlock * (int)sizeof(uint32_t); }
+// The site (x, y) of the line that the calling group owns in fk_grid, or
+// false past its row's end (the whole group).
+template <int G>
+__device__ __forceinline__ bool fk_site(const Geo& g, int color, int& x, int& y) {
+    const int j = blockIdx.x * fk_block_lines(G) + threadIdx.x / G;
+    x = blockIdx.y;
+    y = 2 * j + (g.torus ? (x + color) & 1 : color);
+    return j < (g.torus ? g.size >> 1 : g.nvars >> 1);
+}
 
-// One FK cluster update of the time line lp[0..L) by one thread; bits is
-// this thread's column of the block's shared memory (bits + threadIdx.x).
-// bond_frozen(t): the aligned bond (t, t+1) freezes (the caller's draw);
-// slice_de(x, s): the diagonal dE of flipping slice x, which holds s;
-// head_flips(head, dE): the cluster headed at head, of total dE, flips.
+// Calls fn(std::integral_constant<int, G>{}) for a group size the kernels
+// are built for, else returns cudaErrorInvalidValue.
+template <class Fn>
+cudaError_t by_group(int group, Fn fn) {
+    switch (group) {
+        case 32: return fn(std::integral_constant<int, 32>{});
+        case 64: return fn(std::integral_constant<int, 64>{});
+        case 128: return fn(std::integral_constant<int, 128>{});
+        case 256: return fn(std::integral_constant<int, 256>{});
+        case 512: return fn(std::integral_constant<int, 512>{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// The group's barrier, and whether p holds on any of its threads (a barrier too).
+template <int G>
+__device__ __forceinline__ void fk_sync() {
+    if constexpr (G == 32)
+        __syncwarp();
+    else
+        __syncthreads();
+}
+template <int G>
+__device__ __forceinline__ bool fk_any(bool p) {
+    if constexpr (G == 32) {
+        __syncwarp();
+        return __any_sync(0xffffffffu, p);
+    } else {
+        return __syncthreads_or(p);
+    }
+}
+
+template <class T>
+__device__ __forceinline__ void fk_swap(T*& a, T*& b) {
+    T* x = a;
+    a = b;
+    b = x;
+}
+
+__device__ __forceinline__ bool fk_bit(const uint32_t* b, int x) { return (b[x >> 5] >> (x & 31)) & 1u; }
+
+// One FK cluster update of the time line lp[0..L) by a group of G threads
+// with sm, fk_line_bytes(L) of shared memory. bond_frozen(t): the aligned
+// bond (t, t+1) freezes (the caller's draw); slice_de(t, s): the diagonal dE
+// of flipping slice t, which holds s; head_flips(head, dE): the cluster
+// headed at head, of total dE, flips. Every thread of the group calls it
+// (a warp's 32 lanes, or the whole block).
 //
-// The JAX kernels run the forward segmented sum by pointer doubling over the
-// whole ring; TreeSum gives the same sums walking each cluster. Three passes
-// along the line: (1) frozen bonds, as bits; (2) from the first head (tau = 0 on a
-// fully frozen line, whose total is summed in XLA's order), each cluster's dE
-// and its head's decision, as bits; (3) the decisions carried to every slice
-// of their cluster, and the flips written. Frozen and other lines take the
-// same passes, so a warp's threads stay together.
-template <class BondFrozen, class SliceDE, class HeadFlips>
-__device__ __forceinline__ void fk_line_update(int8_t* lp, uint32_t* bits, int L,
-                                               BondFrozen bond_frozen, SliceDE slice_de,
-                                               HeadFlips head_flips) {
-    const int words = (L + 31) >> 5;
-    uint32_t* act = bits;
-    uint32_t* dec = act + words * kLineBlock;
-    for (int w = 0; w < words; ++w) act[w * kLineBlock] = dec[w * kLineBlock] = 0u;
-
-    // (1) h0 = the first head (the slice after the first thawed bond)
-    int h0 = -1;
-    const int s0 = lp[0];
-#pragma unroll 4
-    for (int t = 0; t < L; ++t) {
-        const int sv = lp[t], nx = t + 1 == L ? s0 : lp[t + 1];
-        if (sv == nx && bond_frozen(t))
-            set_bit(act, t);
-        else if (h0 < 0)
-            h0 = t + 1 == L ? 0 : t + 1;
-    }
-    const bool frozen = h0 < 0;  // one cluster, headed at tau = 0
-    if (frozen) h0 = 0;
-    // (2) each cluster's dE by the binary counter, and its head's decision
-    TreeSum<kTreeDepth> sum;
-    XlaSum whole(L);
-    for (int j = 0, x = h0, head = h0; j < L; ++j, x = x + 1 == L ? 0 : x + 1) {
-        const float v = slice_de(x, (int)lp[x]);
-        float acc = 0.0f;
-        bool ends = false;
-        if (frozen) {
-            whole.add(x, v);
-            if (j == L - 1) {
-                acc = whole.total();
-                ends = true;
-            }
-        } else {
-            sum.add(v);
-            if (!get_bit(act, x)) {  // the cluster ends at x
-                ends = true;
-                acc = sum.total();
-            }
+// The JAX kernels' phase (ops/wl.fk_flips), in parallel over the slices:
+// (1) each slice's spin, its bond draw and its dE (the neighbours read
+// coalesced along tau); the frozen bonds and the signs as bit words.
+// (2) A fully frozen line is one cluster headed at tau = 0, whose total is
+// summed in XLA's CPU order (XlaSum's, ops/wl.xla_sum_last): the windows of 32
+// slices in parallel, then the window sums by the same rule; the head
+// decides and the line flips whole or not. (3) Else the forward segmented
+// sum by pointer doubling, acc[t] += reach[t] ? acc[t + k] : 0 and
+// reach[t] &= reach[t + k] for k = 1, 2, 4, ... around the ring, double
+// buffered: the JAX sums addition for addition. It stops after the round
+// that leaves no reach bit set (no longer run of frozen bonds), since every
+// later round would leave the sums as they are, and after ceil(log2 L)
+// rounds at most. (4) The decision at each head (after a thawed bond): its
+// log-uniform is drawn there only; heads and decisions as bit words. (5)
+// Each slice takes the decision of its nearest head at or before it,
+// cyclically (found with __clz in its word, else in the words before it),
+// and flips: the set that the JAX kernels' forward doubling of the
+// decisions reaches. Additions are __fadd_rn: nothing is contracted.
+template <int G, class BondFrozen, class SliceDE, class HeadFlips>
+__device__ __forceinline__ void fk_line(int8_t* lp, unsigned char* sm, int L, BondFrozen bond_frozen,
+                                        SliceDE slice_de, HeadFlips head_flips) {
+    constexpr int NW = G / 32;  // warps of the group
+    const int W = (L + 31) >> 5;
+    const int lane = threadIdx.x & 31, gt = threadIdx.x % G, w0 = gt >> 5;
+    float* acc0 = reinterpret_cast<float*>(sm);
+    float* acc1 = acc0 + 32 * W;
+    uint32_t* act = reinterpret_cast<uint32_t*>(acc1 + 32 * W);  // bond (t, t + 1) frozen
+    uint32_t* up = act + W;                                       // spin t is +1
+    uint32_t* b0 = up + W;
+    uint32_t* b1 = b0 + W;
+    uint32_t* c0 = b1 + W;
+    int* flag = reinterpret_cast<int*>(c0 + W);
+    // (1)
+    bool thawed = false;
+    for (int w = w0; w < W; w += NW) {
+        const int t = 32 * w + lane;
+        const bool in = t < L;
+        const int sv = in ? lp[t] : 1;
+        int nx = __shfl_down_sync(0xffffffffu, sv, 1);
+        if (in && (lane == 31 || t + 1 == L)) nx = lp[t + 1 == L ? 0 : t + 1];
+        const bool a = in & (sv == nx) & bond_frozen(t);  // every lane draws: no branch
+        acc0[t] = in ? slice_de(t, sv) : 0.0f;
+        const uint32_t am = __ballot_sync(0xffffffffu, a), um = __ballot_sync(0xffffffffu, sv > 0);
+        if (lane == 0) {
+            act[w] = am;
+            up[w] = um;
         }
-        if (ends) {
-            if (head_flips(head, acc)) set_bit(dec, head);
-            sum.count = 0;
-            head = x + 1 == L ? 0 : x + 1;
-        }
+        thawed |= in && !a;
     }
-    // (3) a head (after a thawed bond, or tau = 0 of a frozen line) sets the
-    // decision its cluster takes
-    bool flip = false;
-#pragma unroll 4
-    for (int j = 0, x = h0; j < L; ++j, x = x + 1 == L ? 0 : x + 1) {
-        if (j == 0 || !get_bit(act, x == 0 ? L - 1 : x - 1)) flip = get_bit(dec, x);
-        if (flip) lp[x] = (int8_t)(-lp[x]);
+    if (!fk_any<G>(thawed)) {
+        // (2) XLA's order: windows of 32 slices, padded evenly at both ends
+        // (the pads add +0, which changes no sum), each summed from 0; then
+        // the W window sums by the same rule (L <= 4096: W <= 128, so at most
+        // four windows of windows), each level in acc1
+        float* part = acc1;
+        const int n2 = (W + 31) >> 5;
+        if (L > 32)
+            for (int v = gt; v < W; v += G) {
+                const int t0 = 32 * v - (32 * W - L) / 2;
+                float p = 0.0f;  // never -0, so a pad's +0 leaves it as it is
+#pragma unroll
+                for (int j = 0; j < 32; ++j) p = __fadd_rn(p, t0 + j >= 0 && t0 + j < L ? acc0[t0 + j] : 0.0f);
+                part[v] = p;
+            }
+        fk_sync<G>();
+        if (W > 32)
+            for (int v = gt; v < n2; v += G) {
+                const int x0 = 32 * v - (32 * n2 - W) / 2;
+                float p = 0.0f;
+                for (int j = max(0, -x0); j < 32 && x0 + j < W; ++j) p = __fadd_rn(p, part[x0 + j]);
+                part[W + v] = p;
+            }
+        fk_sync<G>();
+        if (gt == 0) {
+            const float* v = L <= 32 ? acc0 : W <= 32 ? part : part + W;
+            const int n = L <= 32 ? L : W <= 32 ? W : n2;
+            float tot = 0.0f;
+            for (int x = 0; x < n; ++x) tot = __fadd_rn(tot, v[x]);
+            *flag = head_flips(0, tot);
+        }
+        fk_sync<G>();
+        if (*flag)
+            for (int w = w0; w < W; w += NW) {
+                const int t = 32 * w + lane;
+                if (t < L) lp[t] = (int8_t)(fk_bit(up, t) ? -1 : 1);
+            }
+        return;
+    }
+    // (3) the forward segmented sum; reach starts as the frozen bonds
+    const int K = 32 - __clz(L - 1);  // ceil(log2 L), L >= 4
+    float *as = acc0, *ad = acc1;
+    const uint32_t* rs = act;
+    uint32_t* rd = b0;
+    for (int step = 0, k = 1; step < K; ++step, k <<= 1) {
+        bool more = false;
+        for (int w = w0; w < W; w += NW) {
+            const int t = 32 * w + lane;
+            const bool in = t < L;
+            const int u = !in ? t : t + k < L ? t + k : t + k - L;
+            const float a = as[t], b = as[u];  // t < 32 W: a slice past L holds what no sum reads
+            const bool rt = in && ((rs[w] >> lane) & 1u), r = rt && fk_bit(rs, u);
+            ad[t] = rt ? __fadd_rn(a, b) : a;
+            const uint32_t m = __ballot_sync(0xffffffffu, r);
+            if (lane == 0) rd[w] = m;
+            more |= r;
+        }
+        const bool again = fk_any<G>(more);
+        fk_swap(as, ad);
+        rs = rd;
+        rd = rd == b0 ? b1 : b0;
+        if (!again) break;
+    }
+    // (4) the heads (after a thawed bond) into c0 and their decisions into b0
+    bool flips = false;
+    for (int w = w0; w < W; w += NW) {
+        const int t = 32 * w + lane;
+        const bool head = t < L && !fk_bit(act, t == 0 ? L - 1 : t - 1);
+        const bool f = head && head_flips(t, as[t]);
+        const uint32_t hm = __ballot_sync(0xffffffffu, head), fm = __ballot_sync(0xffffffffu, f);
+        if (lane == 0) {
+            c0[w] = hm;
+            b0[w] = fm;
+        }
+        flips |= f;
+    }
+    if (!fk_any<G>(flips)) return;
+    // (5) each slice takes the decision of its nearest head at or before it,
+    // cyclically (the line has one at least): in its word, else the last head
+    // of the words before it; then the flips
+    for (int w = w0; w < W; w += NW) {
+        const int t = 32 * w + lane;
+        uint32_t m = c0[w] & (0xffffffffu >> (31 - lane));
+        int x = w;
+        for (int j = 1; !m; ++j) {
+            x = w - j < 0 ? w - j + W : w - j;
+            m = c0[x];
+        }
+        if (t < L && (b0[x] >> (31 - __clz(m))) & 1u) lp[t] = (int8_t)(fk_bit(up, t) ? -1 : 1);
     }
 }
 
