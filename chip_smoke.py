@@ -45,7 +45,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   mode, and a 64^2 torus at L_tau=800 that no tile fits); the
                   multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
                   rings and tori, plain and sampling mode, with lines frozen
-                  whole at high K_tau, at every cluster group size;
+                  whole at high K_tau (each of the three cluster group sizes);
 8.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
                   256^2 TFIM torus (the shape of benches/bench_qmc_large.py;
                   tiled, one launch per sweep);
@@ -69,9 +69,9 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   kernel at every tile side that fits the main shape, and the
                   three routes at the gate's edges; the multi-launch sweep at
                   L_tau = 800 split by kernel name, the bound of its cluster
-                  phases alone (the SASS counts of the build phase for the
-                  frozen bonds of the timed state), and every cluster group
-                  size in turns at L_tau = 700 to 4096;
+                  phases alone (what one pass over the lines needs, for the
+                  frozen bonds of the timed state) and the instruction floor
+                  of their algorithm (the SASS counts of the build phase);
 14. compare-ladder    the ladder kernels vs their plain version, bit for bit
                   in states and swap features: resident and multi-launch,
                   each against the plain version and each other (ring with
@@ -80,8 +80,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   a 48^2 torus off the gate, the 64 x 144 x 60 bench shape,
                   and the 64 x 4096 x 60 shape of main-tempering-wide); the
                   multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
-                  rings and +-J tori, with lines frozen whole at high K_tau,
-                  at every cluster group size;
+                  rings and +-J tori, with lines frozen whole at high K_tau;
 15. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
                   2000, on the ladder of benches/bench_tempering.py (12^2 +-J
                   spin glass, 64 replicas, L_tau = 60; resident, one launch per
@@ -96,7 +95,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   whole tempering steps (torch.profiler), and the multi-launch
                   kernels and plain version at main-tempering-wide's 64^2
                   shape, split by kernel name, the bound of the cluster phases
-                  alone, and every cluster group size in turns;
+                  alone and the instruction floor of their algorithm;
 19. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100) and a plan with worm and cluster
@@ -284,6 +283,16 @@ WL_OPS_PER_SPIN = 2 * HASH_OPS + 18
 LOG_OPS = 10
 LADDER_INT_OPS_PER_SPIN = 2 * HASH_OPS + 10
 LADDER_F32_OPS_PER_SPIN = 37 + 2 * LOG_OPS
+# What an FK cluster phase needs a slice of a line of its color, in one pass
+# (integer, f32 operations): on the worldline its bond draw and the
+# alignment and bond tests, the neighbour sum and the dE table's index, the
+# flip (8 integer operations besides the draw) and the run sum's addition;
+# on the ladder the draw, 4 integer operations, and the uniform, the bond
+# test, the field, the slice dE and the run sum (17 f32 operations). A
+# cluster head adds its draw and test and its uniform and logf.
+WL_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 8, 1)
+LADDER_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 4, 17)
+HEAD_OPS = (HASH_OPS + 1, LOG_OPS + 4)
 # the tempering ladder of benches/bench_tempering.py (the BASELINE.json
 # "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
 # geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
@@ -694,27 +703,12 @@ def in_turns(run_kernel, run_plain, n_kernel, n_plain):
     return kernel, plain
 
 
-def group_times(run, T, rounds=3):
-    """{G: [ms a sweep]} of ``run(T, G)``, the multi-launch route with its
-    cluster phases at G threads a line, for every group size the kernels are
-    built for, by CUDA events; each round takes the sizes in turn (forward,
-    then backward)."""
-    from pyisingmontecarlo_tpu_torch.ops import wl
+def cluster_group(L):
+    """The threads a time line of the multi-launch cluster phases at L_tau =
+    ``L`` (csrc/worldline.cuh, fk_group)."""
+    from pyisingmontecarlo_tpu_torch import _kernels
 
-    times = {G: [] for G in wl.CLUSTER_GROUPS}
-    for G in wl.CLUSTER_GROUPS:
-        run(2, G)  # warm-up
-    for k in range(rounds):
-        for G in wl.CLUSTER_GROUPS[::1 if k % 2 == 0 else -1]:
-            times[G].append(event_ms(lambda: run(T, G), T))
-    return times
-
-
-def _group_line(times, pick):
-    means = {G: float(np.mean(v)) for G, v in times.items()}
-    best = min(means, key=means.get)
-    return (", ".join(f"G={G} {means[G]:.5f} ms/sweep (runs {times[G]})" for G in times)
-            + f"; fastest G={best}; cluster_group picks G={pick} ({means[pick] / means[best]:.3f}x the fastest)")
+    return _kernels.load().pmc_cluster_group(L)
 
 
 def phase_timing(dev, smi):
@@ -898,10 +892,10 @@ def phase_compare_wl(dev):
         (f"long L_tau sampling: torus 64^2 R=2 L={LONG_LTAU} freq=2 nsamples=2 T=4 (main-quantum-long's sampling "
          "mode, multi-launch)", LONG[0], LONG[1], LONG[2], LONG_LTAU, 4, LONG_BETA, WL_GAMMA, 0.0, 2, 2),
     ]
-    # the multi-launch route's lengths, every cluster group size: L_tau = 700, 800, 1002 (not a multiple of 32)
-    # and 4096, rings and tori, plain and sampling mode; dtau * Gamma = 0.001 or less freezes lines whole
-    # (L_tau = 4096: two levels of XLA's windows)
-    long_cases = [
+    # the multi-launch route's lengths, each cluster group size fk_group picks: L_tau = 700, 800, 1002 (not a
+    # multiple of 32) and 4096, rings and tori, plain and sampling mode; dtau * Gamma = 0.001 or less freezes
+    # lines whole (L_tau = 4096: two levels of XLA's windows)
+    cases += [
         ("multi-launch L=700: torus 64^2 R=2 T=2", LONG[0], LONG[1], 2, 700, 2, 35.0, 1.0, 0.0, 0, 0),
         ("multi-launch L=800 sampling: ring 512 R=3 freq=1 nsamples=2 T=2", ("ring", 512, -1.0), 512, 3, 800, 2,
          40.0, 1.0, 0.1, 1, 2),
@@ -918,8 +912,7 @@ def phase_compare_wl(dev):
          ("torus", 16, -1.0), 256, 2, 4096, 2, 40.0, 0.02, 0.1, 1, 2),
     ]
     worst = {"multi": 0, "resident": 0, "tiled": 0}
-    cases = [(c, False) for c in cases] + [(c, True) for c in long_cases]
-    for k, ((name, dense, nvars, R, L, T, beta, gamma, h, freq, ns), groups) in enumerate(cases):
+    for k, (name, dense, nvars, R, L, T, beta, gamma, h, freq, ns) in enumerate(cases):
         s, seeds = _wl_inputs(dense, nvars, R, 100 + k, dev, L)
         tables = wl.make_tables(dense, nvars, beta, gamma, h, L, dev)
         route, _ = wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)
@@ -927,11 +920,7 @@ def phase_compare_wl(dev):
         tiles = wl.tiled_plan(dense[0], dense[1], nvars, L, R, *lim)
         want = wl.wl_sweeps_reference(s, seeds, tables, T, freq, ns)
         runs = {"multi": wl._run_multi(s, seeds, tables, T, freq, ns)}
-        how = {"multi": f"{'gate' if route == 'multi' else 'private launcher'}, group {wl.cluster_group(L)}"}
-        for G in wl.CLUSTER_GROUPS if groups else ():
-            if G != wl.cluster_group(L):
-                runs[f"multi group {G}"] = wl._run_multi(s, seeds, tables, T, freq, ns, G)
-                how[f"multi group {G}"] = "private launcher"
+        how = {"multi": f"{'gate' if route == 'multi' else 'private launcher'}, group {cluster_group(L)}"}
         if fit:
             runs["resident"] = (wl.wl_sweeps(s, seeds, tables, T, freq, ns) if route == "resident"
                                 else wl._run_resident(s, seeds, tables, T, freq, ns, fit))
@@ -944,7 +933,7 @@ def phase_compare_wl(dev):
         for r, got in runs.items():
             same, err = _equal_all(got, want)
             check(same, f"{name}: {r} != plain (max |diff| {err})")
-            worst[r.split()[0]] = max(worst[r.split()[0]], err)
+            worst[r] = max(worst[r], err)
             if r != "multi":
                 same, err = _equal_all(got, runs["multi"])
                 check(same, f"{name}: {r} != multi-launch (max |diff| {err})")
@@ -1185,8 +1174,9 @@ def phase_timing_wl(dev, smi, sass):
     each launch's device time and the idle share from torch.profiler; the
     tiled kernel's measurement builds and every tile side that fits at the
     main shape; then the three routes at the gate's edges; at L_tau = 800 the
-    bound of the cluster phases alone, from ``sass`` (cluster_sass's), and
-    every cluster group size (timing_wl_groups). Returns {"shape/route":
+    bound of the cluster phases alone (cluster_need), and the instruction
+    floor of their algorithm from ``sass`` (cluster_sass's, cluster_floor).
+    Returns {"shape/route":
     (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)} for the shapes
     "torus" and "torus-sampling" (the main paths' calls: 200 plain sweeps,
     and 20 sampled every 5), "chain" (2000 sampled every 10) and "long" and
@@ -1243,10 +1233,11 @@ def phase_timing_wl(dev, smi, sass):
         if key == "long":  # the cluster phases' bound, for the bonds of the state a timed call leaves
             x = wl._run_multi(s, seeds, tables, T)[0]
             phases = frozen_bonds(x, dense[0], dense[1], seeds, 4, lambda u: u < tables.pb)
-            cb, line = cluster_bound(sass.get("wl_cluster"), phases, spins + spins // 2)
+            cb, line = cluster_need(phases, spins + spins // 2, WL_CLUSTER_OPS_PER_SLICE)
             out["long/cluster-bound"] = cb
-            print(f"timing-wl: {key}, the cluster phases alone (wl_cluster x 2, group {wl.cluster_group(L)}), on "
-                  f"{smi}: bound {line}", flush=True)
+            _, floor = cluster_floor(sass.get("wl_cluster"), phases, spins + spins // 2)
+            print(f"timing-wl: {key}, the cluster phases alone (wl_cluster x 2, group {cluster_group(L)}), on "
+                  f"{smi}: bound {line}; the instruction floor of this algorithm {floor}", flush=True)
         if key.startswith("torus"):  # the tiled route against the multi-launch route, ten runs each in turns
             a, b = versus(lambda: routes["tiled"](T), lambda: routes["multi-launch"](T), T, T)
             print(f"timing-wl: {key}, on {smi}: tiled median {np.median(a):.5f} ms/sweep (runs {a}); multi-launch "
@@ -1255,7 +1246,6 @@ def phase_timing_wl(dev, smi, sass):
                   f"{R * (-(-dense[1] // tiles[0])) ** 2} blocks, box {tiles[1]} sites, {tiles[2]} bytes of shared "
                   f"memory; box bytes read a sweep {R * (-(-dense[1] // tiles[0])) ** 2 * tiles[1] * L}, "
                   f"written {spins}", flush=True)
-    timing_wl_groups(dev, smi)
     # the tiled kernel's measurement builds at the main shape, each in turns with the kernel itself
     (dense, nvars, R), T = TORUS, 50
     s, seeds = _wl_inputs(dense, nvars, R, 8, dev)
@@ -1313,25 +1303,6 @@ def phase_timing_wl(dev, smi, sass):
               + ", ".join(f"{r} {means[r]:.5f} ms/sweep (runs {times[r]})" for r in means)
               + f"; faster: {faster}; the gate picks {gate}", flush=True)
     return out
-
-
-def timing_wl_groups(dev, smi):
-    """The multi-launch route's cluster group sizes (``group_times``): 64^2
-    tori at R = 2 (4096 lines a phase) from L_tau = 700, where the tiled route
-    leaves the 64^2 torus, to MAX_LTAU, and a 16^2 torus at 4096 (256 lines a
-    phase)."""
-    from pyisingmontecarlo_tpu_torch.ops import wl
-
-    lim = wl.device_limits(dev)
-    for side, R, L, T in ((64, 2, 700, 10), (64, 2, 800, 10), (64, 2, 900, 10), (64, 2, 1002, 10),
-                          (64, 2, 2048, 5), (64, 2, 4096, 3), (16, 2, 4096, 10)):
-        dense = ("torus", side, -1.0)
-        s, seeds = _wl_inputs(dense, side * side, R, 10, dev, L)
-        tables = wl.make_tables(dense, side * side, LONG_BETA * L / LONG_LTAU, WL_GAMMA, 0.0, L, dev)
-        times = group_times(lambda t, G: wl._run_multi(s, seeds, tables, t, 0, 0, G), T)
-        print(f"timing-wl: multi-launch cluster groups, torus {side}^2 R={R} L_tau={L} ({R * side * side // 2} lines "
-              f"a phase; the gate picks {wl.choose_route('torus', side, side * side, L, R, *lim)[0]}), on {smi}: "
-              + _group_line(times, wl.cluster_group(L)), flush=True)
 
 
 def pt_edges(side):
@@ -1414,9 +1385,9 @@ def phase_compare_ladder(dev):
         (f"wide ladder torus 64^2 +-J R={PT_R} L_tau={PT_LTAU} (main-tempering-wide's shape)", "torus", 64,
          np.array([j for _, j in pt_edges(64)]), bench, [1.0] * PT_R, [0.0] * PT_R, PT_LTAU, 2),
     ]
-    # the multi-launch route's lengths, every cluster group size: L_tau = 700, 800, 1002 (not a multiple of 32)
-    # and 4096, rings and +-J tori; dtau * Gamma = 0.001 or less freezes lines whole
-    long_cases = [
+    # the multi-launch route's lengths, each cluster group size fk_group picks: L_tau = 700, 800, 1002 (not a
+    # multiple of 32) and 4096, rings and +-J tori; dtau * Gamma = 0.001 or less freezes lines whole
+    cases += [
         ("multi-launch L=700: ring 64 R=3 h", "ring", 64, np.full(64, -1.0), [30.0, 35.0, 40.0], [1.0] * 3,
          [0.1, 0.0, -0.1], 700, 2),
         ("multi-launch L=800: torus 16^2 +-J R=2 h", "torus", 16, rng.choice([-1.0, 1.0], 2 * 16 * 16), [40.0, 30.0],
@@ -1431,8 +1402,7 @@ def phase_compare_ladder(dev):
          [0.2, 0.0], 4096, 2),
     ]
     worst = {"multi": 0, "resident": 0}
-    cases = [(c, False) for c in cases] + [(c, True) for c in long_cases]
-    for k, ((name, kind, size, jv, betas, gammas, hs, L, T), groups) in enumerate(cases):
+    for k, (name, kind, size, jv, betas, gammas, hs, L, T) in enumerate(cases):
         s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, 200 + k, dev)
         nvars = s.shape[1]
         pbytes = ladder.param_bytes(kind, nvars)
@@ -1442,10 +1412,6 @@ def phase_compare_ladder(dev):
         want = (x, *feats)
         x = ladder._run_multi(s, seeds, planes, T)
         runs = {"multi": (x, ladder.swap_features(x, *edges))}
-        for G in wl.CLUSTER_GROUPS if groups else ():
-            if G != wl.cluster_group(L):
-                x = ladder._run_multi(s, seeds, planes, T, G)
-                runs[f"multi group {G}"] = (x, ladder.swap_features(x, *edges))
         if plan:
             runs["resident"] = ladder.ladder_sweeps(s, seeds, planes, T, edges)  # the wrapper's own route
         elif fit:
@@ -1456,7 +1422,7 @@ def phase_compare_ladder(dev):
             same, err = _equal_all(got, want)
             check(same, f"{name}: {route} != plain (max |diff| {err}, "
                         f"{int((got[0] != want[0]).sum())} of {want[0].numel()} spins)")
-            worst[route.split()[0]] = max(worst[route.split()[0]], err)
+            worst[route] = max(worst[route], err)
         if "resident" in flat:
             same, err = _equal_all(flat["resident"], flat["multi"])
             check(same, f"{name}: resident != multi-launch (max |diff| {err})")
@@ -1467,7 +1433,7 @@ def phase_compare_ladder(dev):
         check("high K_tau" not in name or frozen > 0.3, f"{name}: only {frozen:.3f} of lines constant in tau")
         route = ("resident (gate) == multi-launch" if plan else
                  "resident (private launcher) == multi-launch" if fit else "multi-launch (does not fit)")
-        route += f" (group {wl.cluster_group(L)})" + "".join(f" == {r}" for r in runs if r.startswith("multi group"))
+        route += f" (group {cluster_group(L)})"
         print(f"compare-ladder: {name}, T={T}: {route} == plain, bit-identical (spins, features); resident plan "
               f"{plan or fit}; {moved:.3f} of spins moved, {frozen:.3f} of lines constant in tau", flush=True)
     return worst["multi"], worst["resident"]
@@ -1576,8 +1542,8 @@ def phase_timing_ladder(dev, smi, sass):
     main path makes them; the device times of whole tempering steps
     (torch.profiler); the multi-launch kernels and the plain version at
     main-tempering-wide's 64^2 +-J shape, split by kernel name, with the
-    bound of its cluster phases alone (from ``sass``, cluster_sass's) and
-    every cluster group size. Returns {route: (ms/sweep, plain ms/sweep,
+    bound of its cluster phases alone (cluster_need) and the instruction floor
+    of their algorithm (from ``sass``, cluster_sass's). Returns {route: (ms/sweep, plain ms/sweep,
     bound ms/sweep, bound_by)} for "multi-launch" and "resident" at the bench
     shape and "multi-launch-wide" at 64^2 (the bound as the main path calls
     the kernel: once per sweep), and "wide/cluster-bound": (ms, bound_by) or
@@ -1661,7 +1627,7 @@ def phase_timing_ladder(dev, smi, sass):
         ladder._run_multi(s, seeds, planes, T)
         torch.cuda.synchronize()
     print(f"timing-ladder: {side}^2 +-J torus, {PT_R} x {side * side} x {PT_LTAU} ({spins} spins), multi-launch "
-          f"(cluster group {wl.cluster_group(PT_LTAU)}), on {smi}: {T}-sweep call {np.mean(k):.5f} ms/sweep = "
+          f"(cluster group {cluster_group(PT_LTAU)}), on {smi}: {T}-sweep call {np.mean(k):.5f} ms/sweep = "
           f"{spins / (np.mean(k) * 1e6):.3f} spin updates/ns (runs {k}); plain torch {np.mean(p):.5f} ms/sweep "
           f"(runs {p}); bound {out['multi-launch-wide'][2]:.5f} ms/sweep ({out['multi-launch-wide'][3]}, once per "
           f"sweep); {_profile_line(prof, ('ladder_site', 'ladder_cluster'), T)}", flush=True)
@@ -1671,14 +1637,14 @@ def phase_timing_ladder(dev, smi, sass):
     def below(u31):  # ops/ladder.py's uniform against p_bond
         return (u31.to(torch.float32) * ladder._SCALE + ladder._HALF_STEP).clamp(max=ladder._U_MAX) < pb
 
-    cb, line = cluster_bound(sass.get("ladder_cluster"), frozen_bonds(x, "torus", side, seeds[0], 4, below),
-                             spins + spins // 2)
+    phases = frozen_bonds(x, "torus", side, seeds[0], 4, below)
+    nbytes = spins + spins // 2 + 4 * PT_R * 2 * side * side  # the state, and the couplings read once a phase
+    cb, line = cluster_need(phases, nbytes, LADDER_CLUSTER_OPS_PER_SLICE)
     out["wide/cluster-bound"] = cb
+    _, floor = cluster_floor(sass.get("ladder_cluster"), phases, nbytes)
     print(f"timing-ladder: {side}^2 shape, the cluster phases alone (ladder_cluster x 2, group "
-          f"{wl.cluster_group(PT_LTAU)}), on {smi}: bound {line}", flush=True)
-    times = group_times(lambda t, G: ladder._run_multi(s, seeds[:t], planes, t, G), T)
-    print(f"timing-ladder: multi-launch cluster groups at the {side}^2 shape ({PT_R * side * side // 2} lines a phase), "
-          f"on {smi}: " + _group_line(times, wl.cluster_group(PT_LTAU)), flush=True)
+          f"{cluster_group(PT_LTAU)}), on {smi}: bound {line}; the instruction floor of this algorithm {floor}",
+          flush=True)
     return out
 
 
@@ -1767,7 +1733,7 @@ NOT_INT = ("FADD", "FMUL", "FFMA", "FSEL", "FSETP", "FMNMX", "MUFU", "I2F", "F2I
 def cluster_sass():
     """{kernel: {loop: (ALU instructions, f32 operations) a word of 32
     slices}} of each slice loop of fk_line (CLUSTER_LOOPS), in wl_cluster at
-    cluster_group(LONG_LTAU) and ladder_cluster at cluster_group(PT_LTAU)
+    fk_group(LONG_LTAU) and ladder_cluster at fk_group(PT_LTAU)
     (cuobjdump); a kernel is left out, and 'not measured' printed, without
     cuobjdump or where a loop is not found."""
     import re
@@ -1788,7 +1754,7 @@ def cluster_sass():
                 for k, src in (("wl_cluster", "wl"), ("ladder_cluster", "ladder"))}
         fns = {k: j.result() for k, j in jobs.items()}
     for kernel, L in (("wl_cluster", LONG_LTAU), ("ladder_cluster", PT_LTAU)):
-        G = wl.cluster_group(L)
+        G = cluster_group(L)
         name = next(k for k in fns[kernel] if kernel in k and f"ILi{G}E" in k)
         ins = fns[kernel][name]
         loops = []
@@ -1831,14 +1797,42 @@ def cluster_rounds(active):
     return active.shape[0], int(frozen.sum()), int(rounds.sum())
 
 
-def cluster_bound(counts, phases, nbytes):
+def cluster_heads(active):
+    """(slices, heads) of a cluster phase whose frozen bonds are ``active``
+    [lines, L] (bool): a head after each thawed bond, one at tau = 0 on a
+    line frozen whole."""
+    return active.numel(), int((~active).sum()) + int(active.all(-1).sum())
+
+
+def cluster_need(phases, nbytes, per_slice):
     """((ms, bound_by), what it counted) of a sweep's cluster phases, whose
-    frozen bonds are ``phases`` ([lines, L] each), from ``counts`` (a
-    kernel's cluster_sass entry): the ALU instructions and f32 operations of
-    fk_line's slice loops for this data (every word's load, each non-frozen
-    line's doubling rounds, decisions and fill; a frozen line's XLA sum,
-    mostly f32 additions, and its flips are not counted: a lower bound),
-    beside ``nbytes`` moved a phase; (None, 'not measured') without counts."""
+    frozen bonds are ``phases`` ([lines, L] each): what the function needs,
+    with no algorithm in it. ``nbytes`` a phase (its lines and their
+    neighbour lines read once, its lines written once), ``per_slice``
+    (integer, f32) operations a slice (one pass: the bond draw and test, the
+    slice dE, the run sum's addition, the flip) and HEAD_OPS a head (its
+    draw, uniform and log), at the card's peak rates."""
+    slices = heads = 0
+    for active in phases:
+        n, h = cluster_heads(active)
+        slices, heads = slices + n, heads + h
+    ops = slices * per_slice[0] + heads * HEAD_OPS[0]
+    f32 = slices * per_slice[1] + heads * HEAD_OPS[1]
+    ms, by = bound(len(phases) * nbytes, ops, f32)
+    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {slices} slices, {heads} heads; {ops / 1e6:.1f} M integer "
+                      f"operations, {f32 / 1e6:.1f} M f32 operations, {len(phases) * nbytes} bytes)")
+
+
+def cluster_floor(counts, phases, nbytes):
+    """((ms, bound_by), what it counted): the instruction floor of fk_line's
+    algorithm for a sweep's cluster phases, whose frozen bonds are ``phases``
+    ([lines, L] each), from ``counts`` (a kernel's cluster_sass entry): the
+    ALU instructions and f32 operations of fk_line's slice loops for this
+    data (every word's load, each non-frozen line's doubling rounds,
+    decisions and fill; a frozen line's XLA sum, mostly f32 additions, and
+    its flips are not counted), beside ``nbytes`` moved a phase. It counts
+    the doubling rounds the algorithm chose, so it is not the function's
+    bound (cluster_need); (None, 'not measured') without counts."""
     if counts is None:
         return None, "not measured (no cuobjdump, or a loop not found)"
     alu = f32 = 0.0

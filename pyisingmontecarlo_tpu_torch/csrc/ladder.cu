@@ -83,29 +83,37 @@ __device__ __forceinline__ float uniform(uint32_t u31) {
     return fminf(__fadd_rn(__fmul_rn(__int2float_rn((int)u31), kScale), kHalfStep), kUMax);
 }
 
-// The field sum_b J_b s_b of site i at slice t, in the JAX kernel's order:
-// ring fwd + bwd; torus ((y+ + y-) + x+) + x-. Jr is the replica's couplings
-// and p its [nvars, L] spins; each incoming bond's J is its source's outgoing
-// one.
+// The field sum_b J_b s_b of a site from its terms (coupling, neighbour
+// spin), in the JAX kernel's order: ring fwd + bwd (the last two terms
+// unused); torus ((y+ + y-) + x+) + x-. field() and SiteField both add
+// through it, so the order is written once.
+__device__ __forceinline__ float field_sum(bool torus, float j0, float s0, float j1, float s1, float j2, float s2,
+                                           float j3, float s3) {
+    const float f = __fadd_rn(__fmul_rn(j0, s0), __fmul_rn(j1, s1));
+    if (!torus) return f;
+    return __fadd_rn(__fadd_rn(f, __fmul_rn(j2, s2)), __fmul_rn(j3, s3));
+}
+
+// The field of site i at slice t. Jr is the replica's couplings and p its
+// [nvars, L] spins; each incoming bond's J is its source's outgoing one.
 __device__ __forceinline__ float field(const Geo& g, const int8_t* p, const float* Jr, int i, int t) {
     const int L = g.L, n = g.nvars;
     if (!g.torus) {
         const int ip = i + 1 == n ? 0 : i + 1, im = i == 0 ? n - 1 : i - 1;
-        return __fadd_rn(__fmul_rn(__ldg(Jr + i), (float)p[ip * L + t]),
-                         __fmul_rn(__ldg(Jr + im), (float)p[im * L + t]));
+        return field_sum(false, __ldg(Jr + i), (float)p[ip * L + t], __ldg(Jr + im), (float)p[im * L + t], 0.0f,
+                         0.0f, 0.0f, 0.0f);
     }
     const int m = g.size, x = i / m, y = i - x * m;
     const int yp = x * m + (y + 1 == m ? 0 : y + 1), ym = x * m + (y == 0 ? m - 1 : y - 1);
     const int xp = (x + 1 == m ? 0 : x + 1) * m + y, xm = (x == 0 ? m - 1 : x - 1) * m + y;
     const float* J2 = Jr + n;
-    float f = __fadd_rn(__fmul_rn(__ldg(Jr + i), (float)p[yp * L + t]), __fmul_rn(__ldg(Jr + ym), (float)p[ym * L + t]));
-    f = __fadd_rn(f, __fmul_rn(__ldg(J2 + i), (float)p[xp * L + t]));
-    return __fadd_rn(f, __fmul_rn(__ldg(J2 + xm), (float)p[xm * L + t]));
+    return field_sum(true, __ldg(Jr + i), (float)p[yp * L + t], __ldg(Jr + ym), (float)p[ym * L + t], __ldg(J2 + i),
+                     (float)p[xp * L + t], __ldg(J2 + xm), (float)p[xm * L + t]);
 }
 
 // field() of one site i at any slice, its neighbour lines and couplings
 // found once (nb: its neighbours(), ring i+1, i-1; torus x+1, x-1, y+1,
-// y-1): the same operations in the same order.
+// y-1), for the cluster phase's pass along the line.
 struct SiteField {
     const int8_t* q[4];  // ring: i+1, i-1; torus: y+1, y-1, x+1, x-1
     float j[4];
@@ -122,9 +130,9 @@ struct SiteField {
         j[0] = __ldg(Jr + i), j[1] = __ldg(Jr + nb.j[3]), j[2] = __ldg(Jr + n + i), j[3] = __ldg(Jr + n + nb.j[1]);
     }
     __device__ __forceinline__ float at(int t) const {
-        const float f = __fadd_rn(__fmul_rn(j[0], (float)q[0][t]), __fmul_rn(j[1], (float)q[1][t]));
-        if (!torus) return f;
-        return __fadd_rn(__fadd_rn(f, __fmul_rn(j[2], (float)q[2][t])), __fmul_rn(j[3], (float)q[3][t]));
+        if (!torus) return field_sum(false, j[0], (float)q[0][t], j[1], (float)q[1][t], 0.0f, 0.0f, 0.0f, 0.0f);
+        return field_sum(true, j[0], (float)q[0][t], j[1], (float)q[1][t], j[2], (float)q[2][t], j[3],
+                         (float)q[3][t]);
     }
 };
 
@@ -272,11 +280,11 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
 // [T, R] int32 (row t keys sweep t), J [R, ndir, nvars] and dt, kt, h, pb [R]
 // f32 as in ops/ladder.py. Draw d of every sweep uses counter d: 0..3 the site
 // phases, 4 + 2c and 5 + 2c the bond and head draws of cluster color c. The
-// cluster phases take `group` threads a line (ops/wl.cluster_group); R <=
-// 65535 (fk_grid). Returns the first launch error, or 0.
+// cluster phases take fk_group(L) threads a line (worldline.cuh); R <= 65535
+// (fk_grid). Returns the first launch error, or 0.
 extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const void* dt, const void* kt,
                              const void* h, const void* pb, int R, int nvars, int L, int torus, int size,
-                             int T, int group, void* stream) {
+                             int T, void* stream) {
     if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
     const Geo g{torus, size, nvars, L};
     const int ndir = torus ? 2 : 1;
@@ -286,7 +294,7 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
     int8_t* sp = static_cast<int8_t*>(s);
     const int n_active = R * (nvars / 2) * (L / 2);
     const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
-    return (int)by_group(group, [&](auto gc) {
+    return (int)by_group(L, [&](auto gc) {
         constexpr int G = decltype(gc)::value;
         const int smem = fk_block_lines(G) * fk_line_bytes(L);
         cudaError_t e = cudaFuncSetAttribute(ladder_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -54,7 +54,7 @@
 //   thresholds made on the host; only active spins draw.
 // - wl_cluster, twice (one per color): a group of threads per time line of
 //   the color (fk_line, worldline.cuh; a warp up to L = 896, then a block of
-//   128 or 256 threads, ops/wl.cluster_group), in parallel over tau: the
+//   128 or 256 threads, fk_group), in parallel over tau: the
 //   line's spins, bond draws and slice dE read coalesced along tau, the
 //   frozen bonds as bit words; the JAX kernel's forward segmented sum by
 //   pointer doubling in shared memory, stopped after the round that leaves no
@@ -397,12 +397,11 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
 // Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L]. thr [30] int32, cde [10] f32 and pb as in ops/wl.py;
 // acc [R, 3, nvars] int64 is added to; samples is [R, nsamples, nvars] int8
 // or null, slot k written after sweep (k + 1) * freq. Draw d of sweep t uses
-// counter 8 t + d. The cluster phases take `group` threads a line
-// (ops/wl.cluster_group: 32, 64, 128, 256 or 512); R <= 65535 (fk_grid).
-// Returns the first launch error, or 0.
+// counter 8 t + d. The cluster phases take fk_group(L) threads a line;
+// R <= 65535 (fk_grid). Returns the first launch error, or 0.
 extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void* cde, int pb,
                          void* acc, void* samples, int R, int nvars, int L, int torus, int size,
-                         int T, int freq, int nsamples, int group, void* stream) {
+                         int T, int freq, int nsamples, void* stream) {
     if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
     const Geo g{torus, size, nvars, L};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -412,7 +411,7 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
     const int n_all = R * nvars;
     const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
     const unsigned all_grid = (n_all + kSiteBlock - 1) / kSiteBlock;
-    return (int)by_group(group, [&](auto gc) {
+    return (int)by_group(L, [&](auto gc) {
         constexpr int G = decltype(gc)::value;
         const int smem = fk_block_lines(G) * fk_line_bytes(L);
         cudaError_t e = cudaFuncSetAttribute(wl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -510,3 +509,7 @@ extern "C" int pmc_smem_optin(int device) {
     const cudaError_t e = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     return e == cudaSuccess ? v : -(int)e;
 }
+
+// The threads a time line of the multi-launch cluster phases at L slices
+// (fk_group), for measurement.
+extern "C" int pmc_cluster_group(int L) { return fk_group(L); }

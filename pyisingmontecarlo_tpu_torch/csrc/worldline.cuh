@@ -149,8 +149,8 @@ struct TreeSum {
 };
 
 // The multi-launch route's cluster phase: a group of G threads owns one time
-// line, G = 32 (a warp; kFkWarpLines lines a block) or G = 64 .. 512 (the
-// whole block); ops/wl.cluster_group picks G by L. The group keeps its line
+// line, G = 32 (a warp; kFkWarpLines lines a block) or G = 128 or 256 (the
+// whole block); fk_group picks G by L. The group keeps its line
 // in shared memory (fk_line_bytes): two f32 run-sum buffers of 32 W slices
 // and five bit arrays of W words, W = ceil(L / 32) (the frozen bonds, the
 // spins' signs, two reach buffers, the first of which then holds the heads'
@@ -181,17 +181,19 @@ __device__ __forceinline__ bool fk_site(const Geo& g, int color, int& x, int& y)
     return j < (g.torus ? g.size >> 1 : g.nvars >> 1);
 }
 
-// Calls fn(std::integral_constant<int, G>{}) for a group size the kernels
-// are built for, else returns cudaErrorInvalidValue.
+// Threads a time line at L slices: a warp up to 28 words of 32 slices, a
+// block of 128 threads up to 64 words, then 256. Every size from 32 to 512
+// was timed in turns on an H100 (PERF.md): a warp was fastest at L = 60, 700
+// and 800, 128 threads from 900 to 2048, 256 at 4096.
+__host__ __device__ constexpr int fk_group(int L) { return L <= 896 ? 32 : L <= 2048 ? 128 : 256; }
+
+// Calls fn(std::integral_constant<int, fk_group(L)>{}).
 template <class Fn>
-cudaError_t by_group(int group, Fn fn) {
-    switch (group) {
+cudaError_t by_group(int L, Fn fn) {
+    switch (fk_group(L)) {
         case 32: return fn(std::integral_constant<int, 32>{});
-        case 64: return fn(std::integral_constant<int, 64>{});
         case 128: return fn(std::integral_constant<int, 128>{});
-        case 256: return fn(std::integral_constant<int, 256>{});
-        case 512: return fn(std::integral_constant<int, 512>{});
-        default: return cudaErrorInvalidValue;
+        default: return fn(std::integral_constant<int, 256>{});
     }
 }
 

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
-from .wl import MAX_LTAU, _kernel_call, _stream, cluster_group, device_limits, fk_flips, lattice_fns, resident_plan
+from .wl import MAX_LTAU, _kernel_call, _stream, device_limits, fk_flips, lattice_fns, resident_plan
 
 __all__ = ["LadderPlanes", "build_planes", "gate", "param_bytes", "swap_features", "ladder_sweeps",
            "ladder_sweeps_reference"]
@@ -244,19 +244,17 @@ def _planes_args(planes: LadderPlanes):
             planes.pb.data_ptr()]
 
 
-def _run_multi(s, seeds, planes: LadderPlanes, T: int, group: int = 0):
+def _run_multi(s, seeds, planes: LadderPlanes, T: int):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP``
-    launches a sweep, counted in ``ladder_sweeps.launches``), its cluster
-    phases with ``group`` threads a line (0: ``wl.cluster_group``'s); the new
-    state, without features."""
+    launches a sweep, counted in ``ladder_sweeps.launches``); the new state,
+    without features."""
     R, nvars, L = s.shape
-    group = group or cluster_group(L)
     x = s.clone()
     if R and T:
         with torch.cuda.device(x.device):
             _kernel_call("ladder kernel", lambda lib: lib.ladder_sweeps(
                 x.data_ptr(), seeds.data_ptr(), *_planes_args(planes), R, nvars, L, int(planes.kind == "torus"),
-                planes.size, T, group, _stream(x)))
+                planes.size, T, _stream(x)))
         ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
     return x
 

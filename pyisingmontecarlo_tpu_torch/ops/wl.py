@@ -77,7 +77,6 @@ __all__ = [
     "tiled_bytes",
     "tiled_plan",
     "choose_route",
-    "cluster_group",
     "dispatch_bound",
     "chunk_plan",
     "chunk_seeds",
@@ -92,9 +91,6 @@ __all__ = [
 DRAWS_PER_SWEEP = 8
 LAUNCHES_PER_SWEEP = 7  # multi-launch route: 4 site phases, 2 cluster phases, 1 accumulation
 MAX_LTAU = 4096  # the routes' line buffers in shared memory (csrc/worldline.cuh, kMaxL)
-# The multi-launch route's cluster phases run a group of threads a time line
-# (csrc/worldline.cuh, fk_line): a warp, or a block of up to 512 threads.
-CLUSTER_GROUPS = (32, 64, 128, 256, 512)
 RESIDENT_THREADS = 1024  # threads of a resident block (csrc/resident.cuh, kResThreads)
 WL_PARAM_BYTES = 30 * 4 + 10 * 4  # the resident block's thr and cde
 # The resident route runs one replica per SM (a block of 1024 threads, one
@@ -326,18 +322,6 @@ def choose_route(kind: str, size: int, nvars: int, ltau: int, R: int, limit: int
     return "multi", None
 
 
-def cluster_group(ltau: int) -> int:
-    """Threads a time line of the multi-launch cluster phases at ``ltau``
-    slices: a warp up to 28 words of 32 slices, a block of 128 threads up to
-    64 words, then 256 threads. Timed on an H100 (``chip_smoke.py``
-    timing-wl and timing-ladder, every size in turns; PERF.md): a warp was
-    fastest at L_tau = 60 (the 64^2 ladder, 1.28x ahead of 64 threads), 700
-    and 800, 128 threads at 900 to 2048, 256 at 4096."""
-    if ltau <= 896:
-        return 32
-    return 128 if ltau <= 2048 else 256
-
-
 def dispatch_bound(nvars: int, ltau: int) -> int:
     """Sweeps per dispatch chunk of the JAX kernel: 2^23, or 2^23 // (2 L_tau)
     when its plane (``nvars * L_tau`` int32) exceeds 2 MiB."""
@@ -532,12 +516,10 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0, group: int = 0):
+def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP`` launches
-    a sweep, counted in ``wl_sweeps.launches``), its cluster phases with
-    ``group`` threads a line (0: ``cluster_group``'s); ``wl_sweeps``' result."""
+    a sweep, counted in ``wl_sweeps.launches``); ``wl_sweeps``' result."""
     R, nvars, L = s.shape
-    group = group or cluster_group(L)
     x = s.clone()
     acc = torch.zeros((R, 3, nvars), dtype=torch.int64, device=s.device)
     samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
@@ -546,7 +528,7 @@ def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: 
             _kernel_call("wl kernel", lambda lib: lib.wl_sweeps(
                 x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
                 int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
-                R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, group, _stream(x)))
+                R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, _stream(x)))
         wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
     return x, acc.sum(2), samples
 
