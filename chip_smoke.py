@@ -11,8 +11,10 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   instructions of one lane-hash draw, of a site update of
                   ``sq2d_tiled``'s row loop and of a word of 32 slices in each
                   slice loop of the multi-launch cluster phase (``fk_line`` in
-                  wl_cluster and ladder_cluster; cuobjdump, where the toolkit
-                  has it);
+                  wl_cluster and ladder_cluster), of a slice of
+                  wl_accumulate's word loop and of a spin of
+                  ladder_site_short (hash, logf, loads, stores, the rest;
+                  cuobjdump, where the toolkit has it);
 3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
                   PyTorch version on the card, bit for bit (annealing, field,
                   explicit randoms, sampling, bench shape; L = 6, 16 and 200,
@@ -46,6 +48,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
                   rings and tori, plain and sampling mode, with lines frozen
                   whole at high K_tau (each of the three cluster group sizes);
+                  at L_tau = 62 and 66 (2-byte words) on a 30-ring and a 14^2
+                  torus, R = 3, sampling every 2 and 3 of 5 and 7 sweeps;
 8.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
                   256^2 TFIM torus (the shape of benches/bench_qmc_large.py;
                   tiled, one launch per sweep);
@@ -53,7 +57,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   torus, 20 sweeps (the tiled kernel's sampling mode);
 10. main-quantum-long  both entry points on a 64^2 torus at beta=40, so
                   L_tau=800, 5 and 4 sweeps (multi-launch, 7 launches per
-                  sweep, plain and sampling mode);
+                  sweep: 4 wl_site, 2 wl_cluster, 1 wl_accumulate; plain and
+                  sampling mode);
 11. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
                   TFIM chain, 64 replicas, 500 + 2000 sweeps (benches/bench_qmc.py's
                   shape; resident, one launch per call), against the exact
@@ -72,6 +77,9 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   phases alone (what one pass over the lines needs, for the
                   frozen bonds of the timed state) and the instruction floor
                   of their algorithm (the SASS counts of the build phase);
+                  the accumulation's time a sweep against what it needs
+                  (accumulate_need) and its SASS floor; every profiled
+                  call's launches beside the wrapper's count;
 14. compare-ladder    the ladder kernels vs their plain version, bit for bit
                   in states and swap features: resident and multi-launch,
                   each against the plain version and each other (ring with
@@ -80,14 +88,17 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   a 48^2 torus off the gate, the 64 x 144 x 60 bench shape,
                   and the 64 x 4096 x 60 shape of main-tempering-wide); the
                   multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
-                  rings and +-J tori, with lines frozen whole at high K_tau;
+                  rings and +-J tori, with lines frozen whole at high K_tau,
+                  and at L_tau = 62 and 66 on a 30-ring and a 14^2 +-J torus,
+                  R = 3;
 15. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
                   2000, on the ladder of benches/bench_tempering.py (12^2 +-J
                   spin glass, 64 replicas, L_tau = 60; resident, one launch per
                   sweep, features from the kernel), with sweeps/s and swap
                   attempts/s as that bench takes them;
 16. main-tempering-wide  the same ladder on a 64^2 +-J torus, 5 sweeps
-                  (multi-launch, 6 launches per sweep);
+                  (multi-launch, 4 launches per sweep: 2 ladder_site_short, 2
+                  ladder_cluster);
 17. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
 18. timing-ladder     ladder kernels and plain version at the bench shape (200-
                   sweep calls, and one-sweep calls as the main path makes
@@ -95,7 +106,9 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   whole tempering steps (torch.profiler), and the multi-launch
                   kernels and plain version at main-tempering-wide's 64^2
                   shape, split by kernel name, the bound of the cluster phases
-                  alone and the instruction floor of their algorithm;
+                  alone and the instruction floor of their algorithm, and the
+                  site phases' time against what they need (site_need) and
+                  their SASS floor;
 19. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100) and a plan with worm and cluster
@@ -293,6 +306,17 @@ LADDER_F32_OPS_PER_SPIN = 37 + 2 * LOG_OPS
 WL_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 8, 1)
 LADDER_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 4, 17)
 HEAD_OPS = (HASH_OPS + 1, LOG_OPS + 4)
+# What the multi-launch accumulation needs a slice (wl_accumulate): the bond
+# products with the two outgoing partners of a torus site (two multiplies,
+# two adds), the spin sum's add, and the aligned-bond test and its add: 7
+# integer operations (the kernel's dp4a does four slices' products and sums
+# in one instruction). What a ladder site phase needs an active spin
+# (ladder_site): its draw and 4 integer operations (position, test, flip),
+# and 22 f32 operations (the field's 4 products and 3 sums, dE, the uniform,
+# the logit, the test) and two logf.
+ACC_OPS_PER_SLICE = 7
+LADDER_SITE_OPS_PER_SPIN = (HASH_OPS + 4, 22 + 2 * LOG_OPS)
+SHORT_PAIRS = 8  # pairs of slices a thread of ladder_site_short holds (csrc/ladder.cu, kShortPairs)
 # the tempering ladder of benches/bench_tempering.py (the BASELINE.json
 # "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
 # geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
@@ -396,9 +420,9 @@ def phase_build():
             v.result()
     print(f"build: {dt:.3f} s, {path.relative_to(HERE)}; with the {len(variants)} measurement builds "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    hash_sass()
+    draw = hash_sass()
     keychain_sass()
-    return cluster_sass()
+    return cluster_sass(draw)
 
 
 # two kernels that differ by one lane-hash draw whose pos is data and whose seed and ctr are fixed, as in
@@ -464,7 +488,7 @@ def hash_sass():
     site of sq2d_tiled's row loop (V = 16; the loop's, over the four sites of
     each word it stores) with hashed draws and with draws from random planes,
     beside SQ2D_OPS_PER_SITE and SQ2D_RB_OPS_PER_SITE; 'not measured' where
-    the toolkit has no cuobjdump."""
+    the toolkit has no cuobjdump. Returns the draw's instructions, or None."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -500,6 +524,7 @@ def hash_sass():
     print(f"hash SASS: one draw = {sum(diff.values())} instructions {diff}: {sum(diff.values()) - imad} on the ALU "
           f"pipe, {imad} IMAD on the FMA pipe (HASH_OPS = {HASH_OPS}); clocks.max.sm {clock}; integer rate "
           f"{INT32_OPS_PER_S / 1e12:.2f} T op/s", flush=True)
+    draw = sum(diff.values())
     for rb, want in ((False, SQ2D_OPS_PER_SITE), (True, SQ2D_RB_OPS_PER_SITE)):
         name = next(k for k in sq2d_fns if "sq2d_tiled" in k and f"ILi16ELb{int(rb)}E" in k)
         # the row loop gathers its flip masks with prmt's sign-replicating selector (signs4)
@@ -513,6 +538,7 @@ def hash_sass():
               f"{dict(sorted(histogram(body).items()))} for {words} word(s) of 4 sites: {alu} on the ALU pipe, "
               f"{alu / (4 * words):.2f} a site ({'SQ2D_RB_OPS_PER_SITE' if rb else 'SQ2D_OPS_PER_SITE'} = {want})",
               flush=True)
+    return draw
 
 
 def _inputs(L, R, seed, dev):
@@ -911,6 +937,15 @@ def phase_compare_wl(dev):
         ("multi-launch L=4096, high K_tau: torus 16^2 R=2 Gamma=0.02 sampling freq=1 nsamples=2 T=2",
          ("torus", 16, -1.0), 256, 2, 4096, 2, 40.0, 0.02, 0.1, 1, 2),
     ]
+    # where wl_accumulate's indexing could go wrong: L_tau = 2 mod 4 (2-byte words), a row of lines that is not a
+    # multiple of the 8 a block holds (30 on the ring, 14 on the torus), odd R, samples every freq sweeps with
+    # freq not dividing T
+    cases += [
+        ("multi-launch L=62 (2 mod 4): ring 30 R=3 h=0.1 sampling freq=2 nsamples=2 T=5", ("ring", 30, -1.0), 30, 3,
+         62, 5, 3.1, 1.0, 0.1, 2, 2),
+        ("multi-launch L=66 (2 mod 4): torus 14^2 R=3 sampling freq=3 nsamples=2 T=7", ("torus", 14, -1.0), 196, 3,
+         66, 7, 3.3, 1.0, 0.0, 3, 2),
+    ]
     worst = {"multi": 0, "resident": 0, "tiled": 0}
     for k, (name, dense, nvars, R, L, T, beta, gamma, h, freq, ns) in enumerate(cases):
         s, seeds = _wl_inputs(dense, nvars, R, 100 + k, dev, L)
@@ -1166,6 +1201,18 @@ def _profile_line(prof, names, sweeps):
             + f"; device busy {busy:.1f} of {span:.1f} us over {sweeps} sweeps, idle {100 * (1 - busy / span):.2f}%")
 
 
+def _launches(prof, names, want):
+    """({kernel: mean us a launch} of the kernels ``names`` that a
+    torch.profiler run recorded, or None when it recorded no device time;
+    the recorded launches beside the wrapper's count ``want``, as text; a
+    window can miss a launch, so the means and not the sums are used)."""
+    dev_t = _device_times(prof, names)
+    if dev_t is None:
+        return None, "launches not recorded"
+    got = sum(len(v) for v in dev_t[0].values())
+    return {k: float(np.mean(v)) for k, v in dev_t[0].items()}, f"{got} launches recorded, the wrapper counts {want}"
+
+
 def phase_timing_wl(dev, smi, sass):
     """Worldline kernels and plain version at the main paths' shapes, through
     the wrappers' private launchers, in turns with CUDA events: every route
@@ -1175,13 +1222,16 @@ def phase_timing_wl(dev, smi, sass):
     tiled kernel's measurement builds and every tile side that fits at the
     main shape; then the three routes at the gate's edges; at L_tau = 800 the
     bound of the cluster phases alone (cluster_need), and the instruction
-    floor of their algorithm from ``sass`` (cluster_sass's, cluster_floor).
-    Returns {"shape/route":
+    floor of their algorithm from ``sass`` (cluster_sass's, cluster_floor);
+    the accumulation's time a sweep against what it needs (accumulate_need)
+    and its SASS floor (sass_floor). Every profiled call's launches are
+    printed beside the wrapper's count. Returns {"shape/route":
     (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)} for the shapes
     "torus" and "torus-sampling" (the main paths' calls: 200 plain sweeps,
     and 20 sampled every 5), "chain" (2000 sampled every 10) and "long" and
-    "long-sampling" (5 plain, and 4 sampled every 2, at L_tau = 800), and
-    "long/cluster-bound": (ms, bound_by) or None."""
+    "long-sampling" (5 plain, and 4 sampled every 2, at L_tau = 800),
+    "long/cluster-bound": (ms, bound_by) or None, and "long/accumulate" and
+    "long-sampling/accumulate": (ms a sweep or None, bound ms, bound_by)."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
     lim = wl.device_limits(dev)
@@ -1224,12 +1274,16 @@ def phase_timing_wl(dev, smi, sass):
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 run(n_prof)
                 torch.cuda.synchronize()
+            want = {"multi-launch": wl.LAUNCHES_PER_SWEEP * n_prof, "tiled": n_prof, "resident": 1}[route]
+            per, counted = _launches(prof, names[route], want)
+            if route == "multi-launch":
+                multi_per = per
             print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={L}"
                   f"{' sampling freq=' + str(freq) if freq else ''}, {route}"
                   f"{' (the gate picks it)' if route == gate else ''}, on {smi}: kernel {ms:.5f} ms/sweep = "
                   f"{spins / (ms * 1e6):.3f} spin updates/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep "
-                  f"(runs {p}); bound {b_ms:.5f} ms/sweep ({b_by}); {_profile_line(prof, names[route], n_prof)}",
-                  flush=True)
+                  f"(runs {p}); bound {b_ms:.5f} ms/sweep ({b_by}); {_profile_line(prof, names[route], n_prof)}; "
+                  f"{counted}", flush=True)
         if key == "long":  # the cluster phases' bound, for the bonds of the state a timed call leaves
             x = wl._run_multi(s, seeds, tables, T)[0]
             phases = frozen_bonds(x, dense[0], dense[1], seeds, 4, lambda u: u < tables.pb)
@@ -1238,6 +1292,15 @@ def phase_timing_wl(dev, smi, sass):
             _, floor = cluster_floor(sass.get("wl_cluster"), phases, spins + spins // 2)
             print(f"timing-wl: {key}, the cluster phases alone (wl_cluster x 2, group {cluster_group(L)}), on "
                   f"{smi}: bound {line}; the instruction floor of this algorithm {floor}", flush=True)
+        if key.startswith("long"):  # the accumulation alone: its time a sweep against what it needs
+            ab, line = accumulate_need(R, nvars, L, bool(freq))
+            acc_ms = multi_per["wl_accumulate"] / 1e3 if multi_per else None  # one launch a sweep
+            out[f"{key}/accumulate"] = (acc_ms, *ab)
+            _, floor = sass_floor(sass.get("wl_accumulate"), spins, spins + 48 * R * nvars)
+            print(f"timing-wl: {key}, the accumulation alone (wl_accumulate, a warp a line, "
+                  f"{'not measured' if acc_ms is None else f'{acc_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
+                  + ("" if acc_ms is None else f", {acc_ms / ab[0]:.2f}x it")
+                  + f"; the instruction floor of its SASS {floor}", flush=True)
         if key.startswith("torus"):  # the tiled route against the multi-launch route, ten runs each in turns
             a, b = versus(lambda: routes["tiled"](T), lambda: routes["multi-launch"](T), T, T)
             print(f"timing-wl: {key}, on {smi}: tiled median {np.median(a):.5f} ms/sweep (runs {a}); multi-launch "
@@ -1401,6 +1464,15 @@ def phase_compare_ladder(dev):
         ("multi-launch L=4096, high K_tau: ring 64 R=2", "ring", 64, np.full(64, -1.0), [40.0, 40.0], [0.02, 0.01],
          [0.2, 0.0], 4096, 2),
     ]
+    # where ladder_site's indexing could go wrong: L_tau = 2 mod 4 with every pair in one warp (31 pairs) and
+    # across two chunks of a warp (33 pairs, the last alone in its chunk), a row of color lines that is not a
+    # multiple of the 4 a block holds (15 on the ring, 7 on the torus), odd R
+    cases += [
+        ("multi-launch L=62 (2 mod 4): ring 30 R=3 h", "ring", 30, np.full(30, -1.0), [2.5, 3.1, 3.7], [1.0] * 3,
+         [0.1, 0.0, -0.1], 62, 3),
+        ("multi-launch L=66 (2 mod 4): torus 14^2 +-J R=3 h", "torus", 14, rng.choice([-1.0, 1.0], 2 * 14 * 14),
+         [2.5, 3.3, 4.0], [1.0] * 3, [0.0, 0.2, 0.0], 66, 3),
+    ]
     worst = {"multi": 0, "resident": 0}
     for k, (name, kind, size, jv, betas, gammas, hs, L, T) in enumerate(cases):
         s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, 200 + k, dev)
@@ -1546,8 +1618,10 @@ def phase_timing_ladder(dev, smi, sass):
     of their algorithm (from ``sass``, cluster_sass's). Returns {route: (ms/sweep, plain ms/sweep,
     bound ms/sweep, bound_by)} for "multi-launch" and "resident" at the bench
     shape and "multi-launch-wide" at 64^2 (the bound as the main path calls
-    the kernel: once per sweep), and "wide/cluster-bound": (ms, bound_by) or
-    None."""
+    the kernel: once per sweep), "wide/cluster-bound": (ms, bound_by) or
+    None, and "wide/site": (ladder_site's ms a sweep or None, the bound of
+    what it needs (site_need), bound_by), with its SASS floor printed; the
+    profiled call's launches are printed beside the wrapper's count."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
@@ -1631,6 +1705,15 @@ def phase_timing_ladder(dev, smi, sass):
           f"{spins / (np.mean(k) * 1e6):.3f} spin updates/ns (runs {k}); plain torch {np.mean(p):.5f} ms/sweep "
           f"(runs {p}); bound {out['multi-launch-wide'][2]:.5f} ms/sweep ({out['multi-launch-wide'][3]}, once per "
           f"sweep); {_profile_line(prof, ('ladder_site', 'ladder_cluster'), T)}", flush=True)
+    per, counted = _launches(prof, ("ladder_site", "ladder_cluster"), ladder.LAUNCHES_PER_SWEEP * T)
+    site_ms = 2 * per["ladder_site"] / 1e3 if per else None  # two launches a sweep, one a color
+    sb, line = site_need(PT_R, side * side, PT_LTAU, 2)
+    out["wide/site"] = (site_ms, *sb)
+    _, floor = sass_floor(sass.get("ladder_site"), spins, 2 * spins)
+    print(f"timing-ladder: {side}^2 shape, the site phases alone (ladder_site_short x 2, {counted}, "
+          f"{'not measured' if site_ms is None else f'{site_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
+          + ("" if site_ms is None else f", {site_ms / sb[0]:.2f}x it")
+          + f"; the instruction floor of its SASS {floor}", flush=True)
     x = ladder._run_multi(s, seeds, planes, T)
     pb = planes.pb[:, None, None]
 
@@ -1730,18 +1813,62 @@ F32_OPS = {"FADD": 1, "FMUL": 1, "FFMA": 2}  # f32 operations of an instruction
 NOT_INT = ("FADD", "FMUL", "FFMA", "FSEL", "FSETP", "FMNMX", "MUFU", "I2F", "F2I", "FRND")  # the FMA and XU pipes
 
 
-def cluster_sass():
+# two kernels that differ by one logf of data, as the ladder kernels call it; the difference of their SASS is
+# the logf's instructions
+LOG_PROBE = r"""
+extern "C" __global__ void one(const float* in, float* out) { out[threadIdx.x] = logf(in[threadIdx.x]); }
+extern "C" __global__ void two(const float* in, float* out) { out[threadIdx.x] = logf(logf(in[threadIdx.x])); }
+"""
+
+
+def _count(ins):
+    """(instructions, ALU instructions, f32 operations, loads, stores) of SASS ``ins``, NOPs left out."""
+    ops = [op for _, op, _ in ins if op != "NOP"]
+    return (len(ops), sum(1 for op in ops if not op.startswith(NOT_ALU + NOT_INT)),
+            sum(F32_OPS.get(op.split(".")[0], 0) for op in ops), sum(1 for op in ops if op.startswith("LD")),
+            sum(1 for op in ops if op.startswith("ST")))
+
+
+def _loops(ins):
+    """Every loop of ``ins``: a backward branch and the instructions it jumps over."""
+    import re
+
+    out = []
+    for addr, op, rest in ins:
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            out.append([i for i in ins if int(target.group(1), 16) <= i[0] <= addr])
+    return out
+
+
+def _split(ins, units, draws, logs, draw_n, log_n):
+    """{name: instructions a unit} of SASS ``ins`` that does ``units`` units
+    of work with ``draws`` lane-hash draws and ``logs`` logf: the hash and
+    the logf (at the probes' counts ``draw_n`` and ``log_n``), the loads and
+    stores, and the rest (addresses, tests, the update's own f32 and integer
+    work, control); with the ALU instructions and f32 operations a unit,
+    the floor's inputs."""
+    n, alu, f32, ld, st = _count(ins)
+    hashed, logged = draws * (draw_n or 0), logs * (log_n or 0)
+    return {"instructions": n / units, "hash": hashed / units, "logf": logged / units, "loads": ld / units,
+            "stores": st / units, "addresses and the rest": (n - hashed - logged - ld - st) / units,
+            "alu": alu / units, "f32": f32 / units}
+
+
+def cluster_sass(draw_n=None):
     """{kernel: {loop: (ALU instructions, f32 operations) a word of 32
     slices}} of each slice loop of fk_line (CLUSTER_LOOPS), in wl_cluster at
-    fk_group(LONG_LTAU) and ladder_cluster at fk_group(PT_LTAU)
-    (cuobjdump); a kernel is left out, and 'not measured' printed, without
-    cuobjdump or where a loop is not found."""
-    import re
+    fk_group(LONG_LTAU) and ladder_cluster at fk_group(PT_LTAU); and
+    {"wl_accumulate": _split of its word loop a slice, "ladder_site": _split
+    of the kernel a spin} (wl_accumulate<16>, LONG_LTAU's word;
+    ladder_site_short, PT_LTAU's: a thread's SHORT_PAIRS pairs of slices,
+    its line's set-up in), with ``draw_n`` the lane-hash draw's instructions (hash_sass)
+    and the logf's from LOG_PROBE (cuobjdump); a kernel is left out, and
+    'not measured' printed, without cuobjdump or where a loop is not found."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
-    from pyisingmontecarlo_tpu_torch.ops import wl
 
     nvcc = _kernels._nvcc()
     dump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
@@ -1749,19 +1876,17 @@ def cluster_sass():
     if not Path(dump).exists():
         print("cluster SASS: not measured (no cuobjdump)", flush=True)
         return out
-    with ThreadPoolExecutor(2) as pool:
+    probe = _kernels._BUILD / "log_probe.cu"
+    probe.write_text(LOG_PROBE)
+    with ThreadPoolExecutor(3) as pool:
         jobs = {k: pool.submit(_sass, nvcc, dump, _kernels._CSRC / f"{src}.cu", _kernels._BUILD / f"{src}.cubin")
                 for k, src in (("wl_cluster", "wl"), ("ladder_cluster", "ladder"))}
+        jobs["log"] = pool.submit(_sass, nvcc, dump, probe, _kernels._BUILD / "log_probe.cubin")
         fns = {k: j.result() for k, j in jobs.items()}
     for kernel, L in (("wl_cluster", LONG_LTAU), ("ladder_cluster", PT_LTAU)):
         G = cluster_group(L)
         name = next(k for k in fns[kernel] if kernel in k and f"ILi{G}E" in k)
-        ins = fns[kernel][name]
-        loops = []
-        for addr, op, rest in ins:
-            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-            if target and int(target.group(1), 16) < addr:
-                loops.append([i for i in ins if int(target.group(1), 16) <= i[0] <= addr])
+        loops = _loops(fns[kernel][name])
         counts = {}
         for loop, (marks, mark, per_word) in CLUSTER_LOOPS.items():
             found = [b for b in loops if marks({op.split(".")[0] for _, op, _ in b})]
@@ -1778,7 +1903,70 @@ def cluster_sass():
             print(f"cluster SASS: {kernel}<{G}> (L_tau={L}), a word of 32 slices: " + ", ".join(
                 f"{loop} {a:.1f} ALU instructions and {f:.1f} f32 operations" for loop, (a, f) in counts.items()),
                 flush=True)
+    log_n = len([i for i in fns["log"]["two"] if i[1] != "NOP"]) - len([i for i in fns["log"]["one"] if i[1] != "NOP"])
+    # wl_accumulate<16>: its word loop, a word of 16 slices a lane and four dp4a (spins, two partners, aligned
+    # bonds) a 4-slice chunk on a torus
+    name = next(k for k in fns["wl_cluster"] if "wl_accumulate" in k and "ILi16E" in k)
+    body = [b for b in _loops(fns["wl_cluster"][name]) if any(op.startswith("IDP") for _, op, _ in b)]
+    if body:
+        body = min(body, key=len)
+        words = sum(1 for _, op, _ in body if op.startswith("IDP")) / 16
+        out["wl_accumulate"] = _split(body, 16 * words, 0, 0, draw_n, log_n)
+    # ladder_site_short (L_tau <= 64): the whole kernel, a thread's SHORT_PAIRS pairs of slices
+    name = next(k for k in fns["ladder_cluster"] if "ladder_site_short" in k)
+    out["ladder_site"] = _split(fns["ladder_cluster"][name], 2 * SHORT_PAIRS, 2 * SHORT_PAIRS, 4 * SHORT_PAIRS,
+                                draw_n, log_n)
+    print(f"SASS: a logf is {log_n} instructions (LOG_PROBE)", flush=True)
+    for kernel, unit, ins in (("wl_accumulate", "slice", body), ("ladder_site", "spin", fns["ladder_cluster"][name])):
+        if kernel not in out:
+            print(f"SASS: {kernel}: no word loop found; not measured", flush=True)
+            continue
+        hist = {}
+        for _, op, _ in ins:
+            hist[op] = hist.get(op, 0) + 1
+        print(f"SASS: {kernel}, a {unit}: " + ", ".join(f"{k} {v:.2f}" for k, v in out[kernel].items())
+              + f"; the {'loop' if kernel == 'wl_accumulate' else 'kernel'} by opcode {dict(sorted(hist.items()))}",
+              flush=True)
     return out
+
+
+def sass_floor(split, units, nbytes):
+    """((ms, bound_by), what it counted): the instruction floor of ``units``
+    units of a kernel's work whose SASS ``split`` (cluster_sass's) gives a
+    unit's ALU instructions and f32 operations, beside ``nbytes`` moved;
+    (None, 'not measured') without it."""
+    if split is None:
+        return None, "not measured (no cuobjdump, or its loop not found)"
+    alu, f32 = split["alu"] * units, split["f32"] * units
+    ms, by = bound(nbytes, alu, f32)
+    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {units} units, {alu / 1e6:.1f} M ALU instructions, "
+                      f"{f32 / 1e6:.1f} M f32 operations, {nbytes} bytes)")
+
+
+def accumulate_need(R, nvars, L, sampling):
+    """((ms, bound_by), what it counted) of a sweep's accumulation
+    (wl_accumulate): the state read once, the [R, 3, nvars] int64
+    accumulators read and written, the sample slot written in sampling
+    mode, and ACC_OPS_PER_SLICE integer operations a slice."""
+    slices = R * nvars * L
+    nbytes = slices + 2 * 8 * 3 * R * nvars + (R * nvars if sampling else 0)
+    ms, by = bound(nbytes, ACC_OPS_PER_SLICE * slices)
+    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {slices} slices, {ACC_OPS_PER_SLICE * slices / 1e6:.1f} M integer "
+                      f"operations, {nbytes} bytes)")
+
+
+def site_need(R, nvars, L, ndir):
+    """((ms, bound_by), what it counted) of a sweep's two ladder site phases
+    (ladder_site): the state read and written once, the couplings and
+    per-replica parameters read once, and LADDER_SITE_OPS_PER_SPIN
+    (integer, f32) operations an active spin (each spin is active once a
+    sweep)."""
+    spins = R * nvars * L
+    nbytes = 2 * spins + 4 * R * ndir * nvars + 16 * R
+    ops, f32 = (spins * k for k in LADDER_SITE_OPS_PER_SPIN)
+    ms, by = bound(nbytes, ops, f32)
+    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {spins} spins, {ops / 1e6:.1f} M integer operations, "
+                      f"{f32 / 1e6:.1f} M f32 operations, {nbytes} bytes)")
 
 
 def cluster_rounds(active):
@@ -3298,42 +3486,51 @@ def phase_main_parallel(dev, smi, meshes):
 
 
 def main():
+    seconds = {}
+
+    def timed_phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 1)
+        return out
+
     smi = phase_gpu()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    sass = phase_build()
-    err = phase_compare(dev)
-    launches = phase_main(dev)
-    phase_physics(dev)
-    ms, plain_ms = phase_timing(dev, smi)
-    wl_errs = phase_compare_wl(dev)
-    wl_launches = phase_main_quantum(dev)
-    wl_sample_launches = phase_main_quantum_sampling(dev)
-    long_launches, long_sample_launches = phase_main_quantum_long(dev)
-    resident_launches = phase_main_chain(dev)
-    phase_physics_wl(dev)
-    wl_t = phase_timing_wl(dev, smi, sass)
-    ladder_err, ladder_res_err = phase_compare_ladder(dev)
-    ladder_res_launches, _, _ = phase_main_tempering(dev)
-    ladder_launches = phase_main_tempering_wide(dev)
-    phase_physics_tempering(dev)
-    ladder_t = phase_timing_ladder(dev, smi, sass)
-    chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = phase_compare_keychain(dev, smi)
-    phase_compare_classical(dev)
-    keychain_launches = phase_main_classical(dev, smi)
-    phase_main_classicising(dev, smi)
-    phase_physics_classical(dev)
-    phase_compare_qmc_generic(dev, smi)
-    qmc_keychain_launches, _ = phase_main_qmcising(dev, smi)
-    qmc_tiled_launches, qmc_resident_launches = phase_main_qmcising_lattice(dev)
-    phase_physics_qmcising(dev)
-    qr_chain_err, qr_chain_ms, qr_chain_plain_ms, qr_chain_bound, qr_chain_by = phase_compare_qmcrunner(dev, smi)
-    qr_keychain_launches, _ = phase_main_qmcrunner(dev, smi)
-    phase_crossover_qmcrunner(dev, smi)
-    phase_physics_qmcrunner(dev)
-    bits_err, bits_ms, bits_plain_ms, bits_bound_ms, bits_by = phase_compare_threefry_bits(dev, smi)
-    meshes = phase_compare_parallel(dev, smi)
-    par_counts, bits_launches, _ = phase_main_parallel(dev, smi, meshes)
+    sass = timed_phase(phase_build)
+    err = timed_phase(phase_compare, dev)
+    launches = timed_phase(phase_main, dev)
+    timed_phase(phase_physics, dev)
+    ms, plain_ms = timed_phase(phase_timing, dev, smi)
+    wl_errs = timed_phase(phase_compare_wl, dev)
+    wl_launches = timed_phase(phase_main_quantum, dev)
+    wl_sample_launches = timed_phase(phase_main_quantum_sampling, dev)
+    long_launches, long_sample_launches = timed_phase(phase_main_quantum_long, dev)
+    resident_launches = timed_phase(phase_main_chain, dev)
+    timed_phase(phase_physics_wl, dev)
+    wl_t = timed_phase(phase_timing_wl, dev, smi, sass)
+    ladder_err, ladder_res_err = timed_phase(phase_compare_ladder, dev)
+    ladder_res_launches, _, _ = timed_phase(phase_main_tempering, dev)
+    ladder_launches = timed_phase(phase_main_tempering_wide, dev)
+    timed_phase(phase_physics_tempering, dev)
+    ladder_t = timed_phase(phase_timing_ladder, dev, smi, sass)
+    chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = timed_phase(phase_compare_keychain, dev, smi)
+    timed_phase(phase_compare_classical, dev)
+    keychain_launches = timed_phase(phase_main_classical, dev, smi)
+    timed_phase(phase_main_classicising, dev, smi)
+    timed_phase(phase_physics_classical, dev)
+    timed_phase(phase_compare_qmc_generic, dev, smi)
+    qmc_keychain_launches, _ = timed_phase(phase_main_qmcising, dev, smi)
+    qmc_tiled_launches, qmc_resident_launches = timed_phase(phase_main_qmcising_lattice, dev)
+    timed_phase(phase_physics_qmcising, dev)
+    qr_chain_err, qr_chain_ms, qr_chain_plain_ms, qr_chain_bound, qr_chain_by = timed_phase(
+        phase_compare_qmcrunner, dev, smi)
+    qr_keychain_launches, _ = timed_phase(phase_main_qmcrunner, dev, smi)
+    timed_phase(phase_crossover_qmcrunner, dev, smi)
+    timed_phase(phase_physics_qmcrunner, dev)
+    bits_err, bits_ms, bits_plain_ms, bits_bound_ms, bits_by = timed_phase(phase_compare_threefry_bits, dev, smi)
+    meshes = timed_phase(phase_compare_parallel, dev, smi)
+    par_counts, bits_launches, _ = timed_phase(phase_main_parallel, dev, smi, meshes)
     torch.distributed.destroy_process_group()
     print(f"threefry_chain at the hard n={QR_N} QmcRunner plan (100 sweeps x R={QR_R}) on {smi}: {qr_chain_ms:.5f} ms, "
           f"bound {qr_chain_bound:.5f} ms ({qr_chain_by}), numpy {qr_chain_plain_ms:.3f} ms", flush=True)
@@ -3360,7 +3557,7 @@ def main():
         dict(name="wl_site+wl_cluster+wl_accumulate (sampling mode)", route="cuda", source=wl_src,
              replaces=f"{wl_tpu}:346", launches=long_sample_launches, max_abs_err=wl_errs["multi"],
              **timed(wl_t["long-sampling/multi-launch"])),
-        dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
+        dict(name="ladder_site_short+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
         dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
              launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"],
@@ -3381,6 +3578,7 @@ def main():
              launches=bits_launches, max_abs_err=bits_err, ms=bits_ms, plain_ms=bits_plain_ms, bound_ms=bits_bound_ms,
              bound_by=bits_by, library_ms=None),
     ]
+    print(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -3552,7 +3750,9 @@ def multi_rates(dev):
             run()
             torch.cuda.synchronize()
         dev_t = _device_times(prof, ("wl_site", "wl_cluster", "wl_accumulate", "ladder_site", "ladder_cluster"))
-        out[f"{key}_us_per_sweep"] = None if dev_t is None else {k: sum(v) / T for k, v in dev_t[0].items()}
+        # a launch's mean times its launches a sweep (a profiler window can miss a launch)
+        out[f"{key}_us_per_sweep"] = None if dev_t is None else {
+            k: float(np.mean(v)) * round(len(v) / T) for k, v in dev_t[0].items()}
     return out
 
 

@@ -23,12 +23,18 @@
 // computing them with torch operations.
 //
 // Multi-launch (planes too large for a block, such as a 64^2 torus at
-// L_tau = 60, 245 KB a replica), six launches a sweep on the caller's stream:
+// L_tau = 60, 245 KB a replica), four launches a sweep on the caller's stream:
 //
-// - ladder_site, four times (site color x tau parity): one thread per active
-//   (r, i, tau), in place. Glauber acceptance in logit form,
-//   log(u) - log(1 - u) < -dE with dE = (-2 s) (dt (F + h) - kt (s_up + s_dn)),
-//   F the coupling-weighted neighbour field.
+// - ladder_site_short (L_tau <= 64) or ladder_site, twice (one per site
+//   color): a group of threads per time line of the color (4 threads of 8
+//   pairs of slices each up to L_tau = 64, else the cluster phases' group
+//   size and grid), both tau parities in one launch, in place: the even
+//   slices, then the odd slices from the updated even ones. The line's pairs
+//   of slices and its neighbour lines' are read in 2-byte words, and its
+//   couplings and neighbour lines found once a line (SiteField). Glauber
+//   acceptance in logit form, log(u) - log(1 - u) < -dE with
+//   dE = (-2 s) (dt (F + h) - kt (s_up + s_dn)), F the coupling-weighted
+//   neighbour field.
 // - ladder_cluster, twice (one per color): a group of threads per time line
 //   of the color (a warp at the tempering shapes' L_tau), fk_line of
 //   worldline.cuh (the JAX kernel's pointer-doubling sums in shared memory, a
@@ -49,14 +55,15 @@
 // heads' draws and logs depend on the data and are not counted. At the
 // tempering bench shape (64 replicas x 144 sites x L_tau 60 = 0.55 M spins)
 // that is about 0.9 us of integer issue at 33.5 T op/s per sweep, while the
-// 0.55 MB state stays in L2. The multi-launch route's six launches last a few
+// 0.55 MB state stays in L2. The multi-launch route's four launches last a few
 // microseconds each at that shape; the resident route takes it with no
 // launch between phases, the state read and written once per call, and the
 // features computed from shared memory. At R = 64 it fills 64 of the 132
 // SMs. The multi-launch route takes the planes too large for a block, such
-// as the 64^2 glass: there a warp owns each of its 131072 lines a phase, and
-// the ALU work of the cluster phase's slice loops bounds it (chip_smoke.py
-// counts their SASS).
+// as the 64^2 glass: there a warp owns each of its 131072 lines a cluster
+// phase, and the ALU work of the cluster phase's slice loops bounds it; the
+// site phases issue a hash, two logf and the update's f32 work a spin, the
+// line's set-up shared by 16 spins (chip_smoke.py counts the SASS of both).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,7 +92,7 @@ __device__ __forceinline__ float uniform(uint32_t u31) {
 
 // The field sum_b J_b s_b of a site from its terms (coupling, neighbour
 // spin), in the JAX kernel's order: ring fwd + bwd (the last two terms
-// unused); torus ((y+ + y-) + x+) + x-. field() and SiteField both add
+// unused); torus ((y+ + y-) + x+) + x-. SiteField's at() and at2() both add
 // through it, so the order is written once.
 __device__ __forceinline__ float field_sum(bool torus, float j0, float s0, float j1, float s1, float j2, float s2,
                                            float j3, float s3) {
@@ -94,26 +101,10 @@ __device__ __forceinline__ float field_sum(bool torus, float j0, float s0, float
     return __fadd_rn(__fadd_rn(f, __fmul_rn(j2, s2)), __fmul_rn(j3, s3));
 }
 
-// The field of site i at slice t. Jr is the replica's couplings and p its
-// [nvars, L] spins; each incoming bond's J is its source's outgoing one.
-__device__ __forceinline__ float field(const Geo& g, const int8_t* p, const float* Jr, int i, int t) {
-    const int L = g.L, n = g.nvars;
-    if (!g.torus) {
-        const int ip = i + 1 == n ? 0 : i + 1, im = i == 0 ? n - 1 : i - 1;
-        return field_sum(false, __ldg(Jr + i), (float)p[ip * L + t], __ldg(Jr + im), (float)p[im * L + t], 0.0f,
-                         0.0f, 0.0f, 0.0f);
-    }
-    const int m = g.size, x = i / m, y = i - x * m;
-    const int yp = x * m + (y + 1 == m ? 0 : y + 1), ym = x * m + (y == 0 ? m - 1 : y - 1);
-    const int xp = (x + 1 == m ? 0 : x + 1) * m + y, xm = (x == 0 ? m - 1 : x - 1) * m + y;
-    const float* J2 = Jr + n;
-    return field_sum(true, __ldg(Jr + i), (float)p[yp * L + t], __ldg(Jr + ym), (float)p[ym * L + t], __ldg(J2 + i),
-                     (float)p[xp * L + t], __ldg(J2 + xm), (float)p[xm * L + t]);
-}
-
-// field() of one site i at any slice, its neighbour lines and couplings
-// found once (nb: its neighbours(), ring i+1, i-1; torus x+1, x-1, y+1,
-// y-1), for the cluster phase's pass along the line.
+// The field sum_b J_b s_b of one site at any slice, its neighbour lines and
+// couplings found once a line (nb: its neighbours(), ring i+1, i-1; torus
+// x+1, x-1, y+1, y-1; each incoming bond's J is its source's outgoing one).
+// Jr is the replica's couplings and p its [nvars, L] spins.
 struct SiteField {
     const int8_t* q[4];  // ring: i+1, i-1; torus: y+1, y-1, x+1, x-1
     float j[4];
@@ -134,30 +125,163 @@ struct SiteField {
         return field_sum(true, j[0], (float)q[0][t], j[1], (float)q[1][t], j[2], (float)q[2][t], j[3],
                          (float)q[3][t]);
     }
+    // The fields at slices t and t + 1, t even: one 2-byte load a neighbour line.
+    __device__ __forceinline__ void at2(int t, float& f0, float& f1) const {
+        const char2 a = *reinterpret_cast<const char2*>(q[0] + t), b = *reinterpret_cast<const char2*>(q[1] + t);
+        if (!torus) {
+            f0 = field_sum(false, j[0], (float)a.x, j[1], (float)b.x, 0.0f, 0.0f, 0.0f, 0.0f);
+            f1 = field_sum(false, j[0], (float)a.y, j[1], (float)b.y, 0.0f, 0.0f, 0.0f, 0.0f);
+            return;
+        }
+        const char2 c = *reinterpret_cast<const char2*>(q[2] + t), d = *reinterpret_cast<const char2*>(q[3] + t);
+        f0 = field_sum(true, j[0], (float)a.x, j[1], (float)b.x, j[2], (float)c.x, j[3], (float)d.x);
+        f1 = field_sum(true, j[0], (float)a.y, j[1], (float)b.y, j[2], (float)c.y, j[3], (float)d.y);
+    }
 };
 
-// grid: one thread per (r, site of the color, tau of the parity), tau
-// fastest. Indices fit in int: R * nvars * L < 2^31 (ops/ladder.py, gate).
-__global__ void __launch_bounds__(kSiteBlock) ladder_site(
-    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int n_active,
-    uint32_t ctr, int color, int parity) {
-    const int idx = blockIdx.x * kSiteBlock + threadIdx.x;
-    if (idx >= n_active) return;
-    const int halfL = g.L >> 1, lines = g.nvars >> 1, L = g.L;
-    const int k = idx / halfL;
-    const int tau = 2 * (idx - k * halfL) + parity;
-    const int r = k / lines;
-    const int i = site_of(g, k - r * lines, color);
-    int8_t* p = s + (size_t)r * g.nvars * L;
-    int8_t* lp = p + (size_t)i * L;
-    const int sv = lp[tau];
-    const float ud = (float)(lp[tau + 1 == L ? 0 : tau + 1] + lp[tau == 0 ? L - 1 : tau - 1]);
-    const float F = field(g, p, q.J + (size_t)r * ndir * g.nvars, i, tau);
-    const float inner = __fsub_rn(__fmul_rn(__ldg(q.dt + r), __fadd_rn(F, __ldg(q.h + r))),
-                                  __fmul_rn(__ldg(q.kt + r), ud));
-    const float dE = __fmul_rn(-2.0f * (float)sv, inner);
-    const float u = uniform(lane_draw31((uint32_t)__ldg(seeds + r), (uint32_t)(tau * g.nvars + i), ctr));
-    if (__fsub_rn(logf(u), logf(__fsub_rn(1.0f, u))) < -dE) lp[tau] = (int8_t)(-sv);
+// One line of a site phase: its spins lp, its neighbours' field F, and its
+// replica's seed and (dt, kt, h); flips() is the Glauber acceptance in
+// logit form, log(u) - log(1 - u) < -dE with
+// dE = (-2 s) (dt (F + h) - kt (s_up + s_dn)), for the draw of (tau, i) at
+// counter 2 color + parity.
+struct SiteLine {
+    int8_t* lp;
+    SiteField F;
+    uint32_t seed, c0;
+    float dt, kt, h;
+    int i, nvars;
+
+    __device__ SiteLine(int8_t* s, const int32_t* seeds, const Params& q, const Geo& g, int ndir, int color, int x,
+                        int y)
+        : lp(s + ((size_t)blockIdx.z * g.nvars + x * g.size + y) * g.L),
+          F(g, s + (size_t)blockIdx.z * g.nvars * g.L, q.J + (size_t)blockIdx.z * ndir * g.nvars,
+            neighbours_at(g, x, y), x * g.size + y),
+          seed((uint32_t)__ldg(seeds + blockIdx.z)),
+          c0(2u * (uint32_t)color),
+          dt(__ldg(q.dt + blockIdx.z)),
+          kt(__ldg(q.kt + blockIdx.z)),
+          h(__ldg(q.h + blockIdx.z)),
+          i(x * g.size + y),
+          nvars(g.nvars) {}
+
+    // whether spin sv at slice tau of the parity, with tau neighbours a and b and field f, flips
+    __device__ __forceinline__ bool flips(int sv, int a, int b, float f, int tau, int parity) const {
+        const float inner = __fsub_rn(__fmul_rn(dt, __fadd_rn(f, h)), __fmul_rn(kt, (float)(a + b)));
+        const float dE = __fmul_rn(-2.0f * (float)sv, inner);
+        const float u = uniform(lane_draw31(seed, (uint32_t)(tau * nvars + i), c0 + parity));
+        return __fsub_rn(logf(u), logf(__fsub_rn(1.0f, u))) < -dE;
+    }
+};
+
+// Both site phases of a color in one launch, a group of threads a time line
+// of the color: the even slices, a barrier, then the odd slices from the
+// updated even ones. The other color's lines are not written in the launch,
+// so the odd slices read what a launch per parity would read. A thread holds
+// pairs of slices (2k, 2k + 1), read with the neighbour lines' pairs in
+// 2-byte words; the odd slice before a pair and the even slice after it come
+// from the same thread, a neighbour lane (a shuffle) or memory.
+//
+// ladder_site_short, the lines of L <= 2 kShortLanes kShortPairs slices:
+// kShortLanes threads a line, thread t holding the kShortPairs consecutive
+// pairs from k = kShortPairs t in registers across both parities, the line
+// wrapping around by shuffles; kShortThreads / kShortLanes lines a block in a
+// grid of (chunks of a row's lines of the color, rows, replicas), as fk_grid.
+// A thread pays its line's set-up (the neighbour lines, couplings, seed and
+// parameters) once for 2 kShortPairs spins, and takes its pairs' decisions
+// with no branch before it writes a flip, so that their draws and logs
+// overlap; 8 pairs a thread beat 2, 4 and 16 on the 64^2 ladder at L_tau =
+// 60 (PERF.md). A group past its row's end computes a copy of the row's last
+// line and writes nothing, so that every lane of a warp takes part in the
+// shuffles.
+constexpr int kShortPairs = 8, kShortLanes = 32 / kShortPairs, kShortThreads = 128;
+
+inline dim3 short_grid(const Geo& g, int R) {
+    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1, lines = kShortThreads / kShortLanes;
+    return dim3((per_row + lines - 1) / lines, g.torus ? g.size : 1, R);
+}
+
+__global__ void __launch_bounds__(kShortThreads) ladder_site_short(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int color) {
+    constexpr int W = kShortLanes, C = kShortPairs;
+    constexpr unsigned kAll = 0xffffffffu;
+    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1;
+    const int jr = blockIdx.x * (kShortThreads / W) + threadIdx.x / W;
+    const bool live = jr < per_row;
+    const int x = blockIdx.y, y = 2 * (live ? jr : per_row - 1) + (g.torus ? (x + color) & 1 : color);
+    const SiteLine ln(s, seeds, q, g, ndir, color, x, y);
+    const int P = g.L >> 1, t = threadIdx.x % W;
+    int e[C], o[C];  // the pairs' slices
+    float f0[C], f1[C];
+    int olast = 0;  // the odd slice of the line's last pair, on the lane that holds it
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        const int k = C * t + c;
+        const int w = k < P ? *reinterpret_cast<const int16_t*>(ln.lp + 2 * k) : 0x0101;
+        e[c] = (int8_t)w;
+        o[c] = w >> 8;
+        f0[c] = f1[c] = 0.0f;
+        if (k < P) ln.F.at2(2 * k, f0[c], f1[c]);
+        if (c == (P - 1) % C) olast = o[c];
+    }
+    // parity 0: the odd slice before pair k is pair k - 1's (the lane below's last; pair 0: the line's last)
+    const int below = __shfl_up_sync(kAll, o[C - 1], 1, W);
+    const int wrap = __shfl_sync(kAll, olast, (P - 1) / C, W);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {  // every pair's decision, with no branch, then the flips
+        const int k = C * t + c;
+        const int po = c > 0 ? o[c > 0 ? c - 1 : c] : t == 0 ? wrap : below;
+        const bool flip = ln.flips(e[c], o[c], po, f0[c], 2 * k, 0);
+        if (flip & live & (k < P)) {
+            e[c] = -e[c];
+            ln.lp[2 * k] = (int8_t)e[c];
+        }
+    }
+    // parity 1: the even slice after pair k is pair k + 1's, updated (the lane above's first; the last
+    // pair: pair 0's)
+    const int above = __shfl_down_sync(kAll, e[0], 1, W);
+    const int first = __shfl_sync(kAll, e[0], 0, W);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        const int k = C * t + c;
+        const int ne = k + 1 == P ? first : c + 1 < C ? e[c + 1 < C ? c + 1 : c] : above;
+        const bool flip = ln.flips(o[c], ne, e[c], f1[c], 2 * k + 1, 1);
+        if (flip & live & (k < P)) ln.lp[2 * k + 1] = (int8_t)(-o[c]);
+    }
+}
+
+// ladder_site, the longer lines: grid fk_grid, a group of G threads a line
+// (fk_group, fk_block_lines(G) lines a block), thread gt holding pair
+// k = gt, gt + G, ... in turn: its even slice from its pair's odd slice and
+// the one before (the lane below; at a warp's first lane from memory,
+// unchanged in parity 0), then after the group's barrier its odd slice from
+// the pair's even slice and the next pair's (the lane above; at a warp's
+// last lane and the line's last pair from memory, written before the
+// barrier).
+template <int G>
+__global__ void __launch_bounds__(fk_block_threads(G)) ladder_site(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int color) {
+    int x, y;
+    if (!fk_site<G>(g, color, x, y)) return;  // the whole group
+    const SiteLine ln(s, seeds, q, g, ndir, color, x, y);
+    const int L = g.L, P = L >> 1, lane = threadIdx.x & 31, gt = threadIdx.x % G;
+    int8_t* lp = ln.lp;
+    for (int b = 0; b < P; b += G) {  // parity 0
+        const int k = b + gt;
+        const bool in = k < P;
+        const char2 v = in ? *reinterpret_cast<const char2*>(lp + 2 * k) : make_char2(1, 1);
+        int po = __shfl_up_sync(0xffffffffu, (int)v.y, 1);
+        if (in && lane == 0) po = lp[k == 0 ? L - 1 : 2 * k - 1];
+        if (in && ln.flips(v.x, v.y, po, ln.F.at(2 * k), 2 * k, 0)) lp[2 * k] = (int8_t)(-v.x);
+    }
+    fk_sync<G>();
+    for (int b = 0; b < P; b += G) {  // parity 1
+        const int k = b + gt;
+        const bool in = k < P;
+        const char2 v = in ? *reinterpret_cast<const char2*>(lp + 2 * k) : make_char2(1, 1);
+        int ne = __shfl_down_sync(0xffffffffu, (int)v.x, 1);
+        if (in && (lane == 31 || k + 1 == P)) ne = lp[k + 1 == P ? 0 : 2 * k + 2];
+        if (in && ln.flips(v.y, ne, v.x, ln.F.at(2 * k + 1), 2 * k + 1, 1)) lp[2 * k + 1] = (int8_t)(-v.y);
+    }
 }
 
 // grid fk_grid: a group of G threads per time line of the color
@@ -183,7 +307,7 @@ __global__ void __launch_bounds__(fk_block_threads(G)) ladder_cluster(
         });
 }
 
-// field() on the resident plane: Js is the replica's [ndir, nvars] couplings
+// SiteField::at on the resident plane: Js is the replica's [ndir, nvars] couplings
 // in shared memory, n site i's neighbours (ring i+1, i-1; torus x+1, x-1,
 // y+1, y-1); the same operations in the same order.
 __device__ __forceinline__ float res_field(const int8_t* pl, const float* Js, ushort4 n, int torus, int nvars,
@@ -276,12 +400,14 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
 
 }  // namespace
 
-// Runs T sweeps (6 T launches) on `stream` on s[R, nvars, L]; seeds is
+// Runs T sweeps (4 T launches) on `stream` on s[R, nvars, L]; seeds is
 // [T, R] int32 (row t keys sweep t), J [R, ndir, nvars] and dt, kt, h, pb [R]
-// f32 as in ops/ladder.py. Draw d of every sweep uses counter d: 0..3 the site
-// phases, 4 + 2c and 5 + 2c the bond and head draws of cluster color c. The
-// cluster phases take fk_group(L) threads a line (worldline.cuh); R <= 65535
-// (fk_grid). Returns the first launch error, or 0.
+// f32 as in ops/ladder.py. Draw d of every sweep uses counter d: 2c + parity
+// the site phases of color c, 4 + 2c and 5 + 2c the bond and head draws of
+// cluster color c. The site phases take kShortLanes threads a line up to
+// L = 2 kShortLanes kShortPairs (ladder_site_short), else, as the cluster
+// phases do, fk_group(L) (worldline.cuh); R <= 65535 (fk_grid). Returns the
+// first launch error, or 0.
 extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const void* dt, const void* kt,
                              const void* h, const void* pb, int R, int nvars, int L, int torus, int size,
                              int T, void* stream) {
@@ -292,24 +418,24 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
                    static_cast<const float*>(h), static_cast<const float*>(pb)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* sp = static_cast<int8_t*>(s);
-    const int n_active = R * (nvars / 2) * (L / 2);
-    const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
     return (int)by_group(L, [&](auto gc) {
         constexpr int G = decltype(gc)::value;
         const int smem = fk_block_lines(G) * fk_line_bytes(L);
         cudaError_t e = cudaFuncSetAttribute(ladder_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return e;
+        const bool short_lines = L <= 2 * kShortLanes * kShortPairs;
+        const dim3 grid = fk_grid(g, R, G), sgrid = short_grid(g, R);
         for (int t = 0; t < T; ++t) {
             const int32_t* sd = static_cast<const int32_t*>(seeds) + (size_t)t * R;
-            uint32_t d = 0;
-            for (int color = 0; color < 2; ++color)
-                for (int parity = 0; parity < 2; ++parity) {
-                    ladder_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, q, g, ndir, n_active, d++, color, parity);
-                    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-                }
             for (int color = 0; color < 2; ++color) {
-                ladder_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, d, color);
-                d += 2;
+                if (short_lines)
+                    ladder_site_short<<<sgrid, kShortThreads, 0, st>>>(sp, sd, q, g, ndir, color);
+                else
+                    ladder_site<G><<<grid, fk_block_threads(G), 0, st>>>(sp, sd, q, g, ndir, color);
+                if ((e = cudaGetLastError()) != cudaSuccess) return e;
+            }
+            for (int color = 0; color < 2; ++color) {
+                ladder_cluster<G><<<grid, fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, 4 + 2 * color, color);
                 if ((e = cudaGetLastError()) != cudaSuccess) return e;
             }
         }

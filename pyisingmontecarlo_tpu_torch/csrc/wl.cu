@@ -64,11 +64,13 @@
 //   Additions and products are __fadd_rn / __fmul_rn, so nothing is
 //   contracted, and the log is logf (no fast math). Shared memory: about
 //   8.6 bytes a slice (fk_line_bytes), 35 KB a line at L = 4096.
-// - wl_accumulate, once: one thread per line (both colors) adds the line's
+// - wl_accumulate, once: a warp per line (both colors) adds the line's
 //   tau-sums of bond products (outgoing bonds), spins and aligned time bonds
 //   to int64 accumulators [R, 3, nvars]: exact, no atomics (one writer per
-//   line). In sampling mode the same launch writes slice 0 into the sample
-//   slot after every freq-th sweep.
+//   line). The lanes read the line and its partners' lines in aligned words
+//   of up to 16 bytes, coalesced along tau, and sum four slices an
+//   instruction with dp4a. In sampling mode the same launch writes slice 0
+//   into the sample slot after every freq-th sweep.
 //
 // What bounds a sweep on an H100: it must hash two draws per spin (the site
 // phase's and its time bond's; 22 integer operations each) and do about 18
@@ -154,41 +156,126 @@ __global__ void __launch_bounds__(fk_block_threads(G)) wl_cluster(
         });
 }
 
-// grid: one thread per time line (all sites); it walks its line and its bond
-// partners' lines, which L1 holds across the walk.
-__global__ void __launch_bounds__(kSiteBlock) wl_accumulate(
-    const int8_t* __restrict__ s, long long* __restrict__ acc, int8_t* __restrict__ stage,
-    int stage_stride, Geo g, int n_lines) {
-    const int line = blockIdx.x * kSiteBlock + threadIdx.x;
-    if (line >= n_lines) return;
-    const int L = g.L, n = g.nvars;
-    const int r = line / n;
-    const int i = line - r * n;
+// The accumulation: a warp per time line (both colors), kAccLines lines a
+// block, in a grid of (chunks of a row's lines, rows, replicas): a torus has
+// `size` rows of `size` lines, a ring one row of nvars, so a warp finds its
+// line with no division. The lanes read words of V bytes (V slices) of the
+// line and of its outgoing bonds' partners (ring i+1; torus y+1 and x+1),
+// coalesced along tau; a word holds V / 4 (at least one) 32-bit chunks of
+// four signed bytes, and dp4a (__dp4a: four byte products and their sum)
+// gives a chunk's bond products, spin sum and aligned-bond products
+// s_t s_{t+1}, the chunk shifted down one byte with the next byte on top
+// (the next lane's first byte by a shuffle; the line's slice 0 after its
+// last slice). The aligned bonds are (L + sum s_t s_{t+1}) / 2. The sums
+// stay int32 (|x| <= 2 L) and a warp reduction gives lane 0 the line's
+// three, which it adds into acc[r, k, i] int64: one writer per line, no
+// atomics. V is the widest of 16, 8, 4, 2 that divides L and the state's
+// address (acc_width), since a line starts at a multiple of L.
+constexpr int kAccLines = 8;
+
+template <int V>
+struct Word {
+    static constexpr int N = V >= 4 ? V / 4 : 1;  // 32-bit chunks
+    static constexpr int top = 8 * (V >= 4 ? 3 : V - 1);  // the last byte's shift in the last chunk
+    uint32_t c[N];
+
+    __device__ __forceinline__ void load(const int8_t* p) {
+        if constexpr (V == 16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(p);
+            c[0] = v.x, c[1] = v.y, c[2] = v.z, c[3] = v.w;
+        } else if constexpr (V == 8) {
+            const uint2 v = *reinterpret_cast<const uint2*>(p);
+            c[0] = v.x, c[1] = v.y;
+        } else if constexpr (V == 4) {
+            c[0] = *reinterpret_cast<const uint32_t*>(p);
+        } else {
+            c[0] = *reinterpret_cast<const uint16_t*>(p);
+        }
+    }
+};
+
+template <int V>
+__global__ void __launch_bounds__(32 * kAccLines) wl_accumulate(
+    const int8_t* __restrict__ s, long long* __restrict__ acc, int8_t* __restrict__ stage, int stage_stride, Geo g) {
+    const int y = blockIdx.x * kAccLines + (threadIdx.x >> 5);
+    if (y >= (g.torus ? g.size : g.nvars)) return;  // the whole warp
+    const int lane = threadIdx.x & 31, x = blockIdx.y, r = blockIdx.z, L = g.L, n = g.nvars, m = g.size;
+    const int i = g.torus ? x * m + y : y;
     const int8_t* p = s + (size_t)r * n * L;
     const int8_t* lp = p + (size_t)i * L;
-    const int8_t* q1;  // the partners of the site's outgoing bonds
-    const int8_t* q2 = nullptr;
-    if (!g.torus) {
-        q1 = p + (size_t)(i + 1 == n ? 0 : i + 1) * L;
-    } else {
-        const int m = g.size, x = i / m, y = i - x * m;
-        q1 = p + (size_t)(x * m + (y + 1 == m ? 0 : y + 1)) * L;
-        q2 = p + (size_t)((x + 1 == m ? 0 : x + 1) * m + y) * L;
-    }
-    const int s0 = lp[0];
-    int sb = 0, sh = 0, al = 0;
-#pragma unroll 4
-    for (int t = 0; t < L; ++t) {
-        const int sv = lp[t], nx = t + 1 == L ? s0 : lp[t + 1];
-        sb += sv * (q1[t] + (q2 ? q2[t] : 0));
-        sh += sv;
-        al += sv == nx;
-    }
+    // the partners of the site's outgoing bonds
+    const int8_t* q1 = p + (size_t)(g.torus ? x * m + (y + 1 == m ? 0 : y + 1) : (y + 1 == n ? 0 : y + 1)) * L;
+    const int8_t* q2 = g.torus ? p + (size_t)((x + 1 == m ? 0 : x + 1) * m + y) * L : lp;  // torus only
+    const int nw = L / V;
     long long* a = acc + (size_t)r * 3 * n + i;
-    a[0] += sb;
-    a[n] += sh;
-    a[2 * (size_t)n] += al;
-    if (stage) stage[(size_t)r * stage_stride + i] = (int8_t)s0;
+    long long a0 = 0, a1 = 0, a2 = 0;  // the accumulators, read while the line's words arrive
+    if (lane == 0) a0 = a[0], a1 = a[n], a2 = a[2 * (size_t)n];
+    int sb = 0, sh = 0, pr = 0;
+    uint32_t s0 = 0;
+#pragma unroll 2
+    for (int b = 0; b < nw; b += 32) {
+        const int w = b + lane;
+        const bool in = w < nw;
+        Word<V> u;
+#pragma unroll
+        for (int k = 0; k < Word<V>::N; ++k) u.c[k] = 0;
+        if (in) u.load(lp + w * V);
+        uint32_t nx = __shfl_down_sync(0xffffffffu, u.c[0] & 0xffu, 1);
+        if (b == 0) s0 = __shfl_sync(0xffffffffu, u.c[0] & 0xffu, 0);
+        if (in && (lane == 31 || w + 1 == nw)) nx = w + 1 == nw ? s0 : (uint8_t)lp[(w + 1) * V];
+        if (in) {
+            Word<V> b1, b2;
+            b1.load(q1 + w * V);
+            if (g.torus) b2.load(q2 + w * V);
+#pragma unroll
+            for (int k = 0; k < Word<V>::N; ++k) {
+                const int c = (int)u.c[k];
+                const uint32_t up = k + 1 < Word<V>::N ? __funnelshift_r(u.c[k], u.c[k + 1 < Word<V>::N ? k + 1 : k], 8)
+                                                        : (u.c[k] >> 8) | (nx << Word<V>::top);
+                sh = __dp4a(c, 0x01010101, sh);
+                sb = __dp4a(c, (int)b1.c[k], sb);
+                if (g.torus) sb = __dp4a(c, (int)b2.c[k], sb);
+                pr = __dp4a(c, (int)up, pr);
+            }
+        }
+    }
+    sb = __reduce_add_sync(0xffffffffu, sb);
+    sh = __reduce_add_sync(0xffffffffu, sh);
+    pr = __reduce_add_sync(0xffffffffu, pr);
+    if (lane == 0) {
+        a[0] = a0 + sb;
+        a[n] = a1 + sh;
+        a[2 * (size_t)n] = a2 + (L + pr) / 2;
+        if (stage) stage[(size_t)r * stage_stride + i] = (int8_t)s0;
+    }
+}
+
+// acc_width: the word of wl_accumulate, the widest of 16, 8, 4 and 2 bytes
+// that divides L and the state's address (0: the address is odd).
+inline int acc_width(int L, const void* s) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(s);
+    for (int v = 16; v >= 2; v >>= 1)
+        if (L % v == 0 && a % v == 0) return v;
+    return 0;
+}
+
+// The grid of wl_accumulate: (chunks of a row's lines, rows, replicas).
+inline dim3 acc_grid(const Geo& g, int R) {
+    const int per_row = g.torus ? g.size : g.nvars;
+    return dim3((per_row + kAccLines - 1) / kAccLines, g.torus ? g.size : 1, R);
+}
+
+// Launches wl_accumulate<acc_width> on `st`.
+inline cudaError_t launch_accumulate(const int8_t* s, long long* acc, int8_t* stage, int stage_stride, const Geo& g,
+                                     int R, int V, cudaStream_t st) {
+    const dim3 grid = acc_grid(g, R);
+    switch (V) {
+        case 16: wl_accumulate<16><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
+        case 8: wl_accumulate<8><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
+        case 4: wl_accumulate<4><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
+        default: wl_accumulate<2><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
+    }
+    return cudaGetLastError();
 }
 
 constexpr int kWlParamBytes = 30 * 4 + 10 * 4;  // thr, cde (ops/wl.py WL_PARAM_BYTES)
@@ -394,11 +481,13 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
 
 }  // namespace
 
-// Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L]. thr [30] int32, cde [10] f32 and pb as in ops/wl.py;
-// acc [R, 3, nvars] int64 is added to; samples is [R, nsamples, nvars] int8
-// or null, slot k written after sweep (k + 1) * freq. Draw d of sweep t uses
-// counter 8 t + d. The cluster phases take fk_group(L) threads a line;
-// R <= 65535 (fk_grid). Returns the first launch error, or 0.
+// Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L], s at an even
+// address (wl_accumulate's words). thr [30] int32, cde [10] f32 and pb as in
+// ops/wl.py; acc [R, 3, nvars] int64 is added to; samples is
+// [R, nsamples, nvars] int8 or null, slot k written after sweep
+// (k + 1) * freq. Draw d of sweep t uses counter 8 t + d. The cluster phases
+// take fk_group(L) threads a line; R <= 65535 (fk_grid). Returns the first
+// launch error, or 0.
 extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void* cde, int pb,
                          void* acc, void* samples, int R, int nvars, int L, int torus, int size,
                          int T, int freq, int nsamples, void* stream) {
@@ -408,9 +497,9 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
     int8_t* sp = static_cast<int8_t*>(s);
     const int32_t* sd = static_cast<const int32_t*>(seeds);
     const int n_active = R * (nvars / 2) * (L / 2);
-    const int n_all = R * nvars;
     const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
-    const unsigned all_grid = (n_all + kSiteBlock - 1) / kSiteBlock;
+    const int V = acc_width(L, s);
+    if (V == 0) return (int)cudaErrorMisalignedAddress;
     return (int)by_group(L, [&](auto gc) {
         constexpr int G = decltype(gc)::value;
         const int smem = fk_block_lines(G) * fk_line_bytes(L);
@@ -434,9 +523,8 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
             int8_t* stage = nullptr;
             if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
                 stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
-            wl_accumulate<<<all_grid, kSiteBlock, 0, st>>>(sp, static_cast<long long*>(acc), stage,
-                                                           nsamples * nvars, g, n_all);
-            if ((e = cudaGetLastError()) != cudaSuccess) return e;
+            e = launch_accumulate(sp, static_cast<long long*>(acc), stage, nsamples * nvars, g, R, V, st);
+            if (e != cudaSuccess) return e;
         }
         return cudaSuccess;
     });

@@ -24,7 +24,7 @@ Two routes on the card, chosen by shape alone (``wl.resident_plan``): the
 resident kernel (one launch per call, one block per replica with its plane
 and couplings in shared memory, the swap features of the final state written
 by the kernel) where ``wl.resident_plan`` admits the shape, else the
-multi-launch kernels (six launches a sweep, the features then from
+multi-launch kernels (four launches a sweep, the features then from
 ``swap_features``). Both equal the plain version bit for bit.
 
 Randomness: the draw ``d`` of a sweep at (tau, i) is
@@ -54,7 +54,7 @@ from .wl import MAX_LTAU, _kernel_call, _stream, device_limits, fk_flips, lattic
 __all__ = ["LadderPlanes", "build_planes", "gate", "param_bytes", "swap_features", "ladder_sweeps",
            "ladder_sweeps_reference"]
 
-LAUNCHES_PER_SWEEP = 6  # multi-launch route: 4 site phases, 2 cluster phases
+LAUNCHES_PER_SWEEP = 4  # multi-launch route: 2 site phases (both parities of a color each), 2 cluster phases
 _INT_LIMIT = 2**31
 _SCALE = 1.0 / 2147483648.0  # 2^-31
 _HALF_STEP = 0.5 / 2147483648.0  # 2^-32
