@@ -11,10 +11,11 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   instructions of one lane-hash draw, of a site update of
                   ``sq2d_tiled``'s row loop and of a word of 32 slices in each
                   slice loop of the multi-launch cluster phase (``fk_line`` in
-                  wl_cluster and ladder_cluster), of a slice of
-                  wl_accumulate's word loop and of a spin of
-                  ladder_site_short (hash, logf, loads, stores, the rest;
-                  cuobjdump, where the toolkit has it);
+                  wl_cluster and ladder_cluster), of a slice of the
+                  statistics' word loops in wl_cluster (line_stats) and of
+                  a spin of ladder_site at L_tau = 60 and 1002 (hash, logf,
+                  loads, stores, the rest; cuobjdump, where the toolkit has
+                  it);
 3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
                   PyTorch version on the card, bit for bit (annealing, field,
                   explicit randoms, sampling, bench shape; L = 6, 16 and 200,
@@ -56,9 +57,9 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 9.  main-quantum-sampling  ``run_quantum_monte_carlo_sampling`` on the same
                   torus, 20 sweeps (the tiled kernel's sampling mode);
 10. main-quantum-long  both entry points on a 64^2 torus at beta=40, so
-                  L_tau=800, 5 and 4 sweeps (multi-launch, 7 launches per
-                  sweep: 4 wl_site, 2 wl_cluster, 1 wl_accumulate; plain and
-                  sampling mode);
+                  L_tau=800, 5 and 4 sweeps (multi-launch, 6 launches per
+                  sweep: 4 wl_site, 2 wl_cluster, each of which adds its
+                  lines' statistics; plain and sampling mode);
 11. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
                   TFIM chain, 64 replicas, 500 + 2000 sweeps (benches/bench_qmc.py's
                   shape; resident, one launch per call), against the exact
@@ -77,9 +78,10 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   phases alone (what one pass over the lines needs, for the
                   frozen bonds of the timed state) and the instruction floor
                   of their algorithm (the SASS counts of the build phase);
-                  the accumulation's time a sweep against what it needs
-                  (accumulate_need) and its SASS floor; every profiled
-                  call's launches beside the wrapper's count;
+                  what the accumulation of the statistics needs
+                  (accumulate_need) and the SASS floor of wl_cluster's
+                  statistics loops; every profiled call's launches checked
+                  against the wrapper's count;
 14. compare-ladder    the ladder kernels vs their plain version, bit for bit
                   in states and swap features: resident and multi-launch,
                   each against the plain version and each other (ring with
@@ -89,15 +91,17 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   and the 64 x 4096 x 60 shape of main-tempering-wide); the
                   multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
                   rings and +-J tori, with lines frozen whole at high K_tau,
-                  and at L_tau = 62 and 66 on a 30-ring and a 14^2 +-J torus,
-                  R = 3;
+                  at L_tau = 62 and 66 on a 30-ring and a 14^2 +-J torus,
+                  R = 3, and at L_tau = 130 and 514 (ladder_site's 16
+                  threads a line, and a warp's two chunks, the last of one
+                  pair);
 15. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
                   2000, on the ladder of benches/bench_tempering.py (12^2 +-J
                   spin glass, 64 replicas, L_tau = 60; resident, one launch per
                   sweep, features from the kernel), with sweeps/s and swap
                   attempts/s as that bench takes them;
 16. main-tempering-wide  the same ladder on a 64^2 +-J torus, 5 sweeps
-                  (multi-launch, 4 launches per sweep: 2 ladder_site_short, 2
+                  (multi-launch, 4 launches per sweep: 2 ladder_site, 2
                   ladder_cluster);
 17. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
 18. timing-ladder     ladder kernels and plain version at the bench shape (200-
@@ -108,7 +112,9 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   shape, split by kernel name, the bound of the cluster phases
                   alone and the instruction floor of their algorithm, and the
                   site phases' time against what they need (site_need) and
-                  their SASS floor;
+                  their SASS floor, there and on a 32^2 +-J ladder at
+                  L_tau = 1002, R = 16 (ladder_site a warp a line, in
+                  chunks);
 19. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100) and a plan with worm and cluster
@@ -233,9 +239,9 @@ the 64-chain through QmcRunner.run_sampling), four runs a side (~9 min).
     python3 chip_smoke.py --ab DIR multi
 
 does it for the multi-launch routes: ms a sweep of main-quantum-long's 64^2
-torus at L_tau = 800 and of main-tempering-wide's 64^2 ladder (the best of
-three 20-sweep calls), with each kernel's device us a sweep
-(torch.profiler), ten runs a side (~6 min).
+torus at L_tau = 800, of main-tempering-wide's 64^2 ladder and of a 32^2 +-J
+ladder at L_tau = 1002, R = 16 (the best of three 20-sweep calls), with each
+kernel's device us a sweep (torch.profiler), ten runs a side (~8 min).
 """
 
 from __future__ import annotations
@@ -306,17 +312,21 @@ LADDER_F32_OPS_PER_SPIN = 37 + 2 * LOG_OPS
 WL_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 8, 1)
 LADDER_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 4, 17)
 HEAD_OPS = (HASH_OPS + 1, LOG_OPS + 4)
-# What the multi-launch accumulation needs a slice (wl_accumulate): the bond
-# products with the two outgoing partners of a torus site (two multiplies,
-# two adds), the spin sum's add, and the aligned-bond test and its add: 7
-# integer operations (the kernel's dp4a does four slices' products and sums
-# in one instruction). What a ladder site phase needs an active spin
-# (ladder_site): its draw and 4 integer operations (position, test, flip),
-# and 22 f32 operations (the field's 4 products and 3 sums, dE, the uniform,
-# the logit, the test) and two logf.
-ACC_OPS_PER_SLICE = 7
+# What the multi-launch accumulation of the statistics needs (line_stats in
+# wl_cluster), in the instructions this card issues for four slices: a dp4a
+# (four byte products and their sum) for the spin sum, one for the aligned
+# bonds against the chunk shifted by a byte (a funnel shift), and one for each
+# bond of a site (a torus site has two, a ring site one), so 3 + ndir for four
+# slices. What a ladder site phase needs an active spin (ladder_site): its
+# draw and 4 integer operations (position, test, flip), and 22 f32 operations
+# (the field's 4 products and 3 sums, dE, the uniform, the logit, the test)
+# and two logf.
+def acc_ops_per_slice(ndir):
+    return (3 + ndir) / 4
+
+
 LADDER_SITE_OPS_PER_SPIN = (HASH_OPS + 4, 22 + 2 * LOG_OPS)
-SHORT_PAIRS = 8  # pairs of slices a thread of ladder_site_short holds (csrc/ladder.cu, kShortPairs)
+SITE_PAIRS = 8  # pairs of slices a thread of ladder_site holds (csrc/ladder.cu, kSitePairs)
 # the tempering ladder of benches/bench_tempering.py (the BASELINE.json
 # "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
 # geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
@@ -937,9 +947,9 @@ def phase_compare_wl(dev):
         ("multi-launch L=4096, high K_tau: torus 16^2 R=2 Gamma=0.02 sampling freq=1 nsamples=2 T=2",
          ("torus", 16, -1.0), 256, 2, 4096, 2, 40.0, 0.02, 0.1, 1, 2),
     ]
-    # where wl_accumulate's indexing could go wrong: L_tau = 2 mod 4 (2-byte words), a row of lines that is not a
-    # multiple of the 8 a block holds (30 on the ring, 14 on the torus), odd R, samples every freq sweeps with
-    # freq not dividing T
+    # where the statistics' indexing (line_stats) could go wrong: L_tau = 2 mod 4 (2-byte words), a row of color
+    # lines that is not a multiple of the 4 a block holds (15 on the ring, 7 on the torus), odd R, samples every
+    # freq sweeps with freq not dividing T
     cases += [
         ("multi-launch L=62 (2 mod 4): ring 30 R=3 h=0.1 sampling freq=2 nsamples=2 T=5", ("ring", 30, -1.0), 30, 3,
          62, 5, 3.1, 1.0, 0.1, 2, 2),
@@ -1201,16 +1211,44 @@ def _profile_line(prof, names, sweeps):
             + f"; device busy {busy:.1f} of {span:.1f} us over {sweeps} sweeps, idle {100 * (1 - busy / span):.2f}%")
 
 
+def _trace(fn):
+    """torch.profiler's record of ``fn()`` on the card, with ``fn()`` run
+    twice: the first call under the schedule's warm-up step, traced and
+    dropped, so that the device tracing has started before the recorded
+    call's first launch (a window opened on the call itself can miss it)."""
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA], schedule=sched) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def _launches(prof, names, want):
-    """({kernel: mean us a launch} of the kernels ``names`` that a
-    torch.profiler run recorded, or None when it recorded no device time;
-    the recorded launches beside the wrapper's count ``want``, as text; a
-    window can miss a launch, so the means and not the sums are used)."""
+    """Check that the launches of the kernels ``names`` that a _trace
+    recorded are ``want``, the wrapper's count (a witness beside it that the
+    C entry issues LAUNCHES_PER_SWEEP a sweep); the check as text, or 'not
+    recorded' when the profiler recorded no device time."""
     dev_t = _device_times(prof, names)
     if dev_t is None:
-        return None, "launches not recorded"
-    got = sum(len(v) for v in dev_t[0].values())
-    return {k: float(np.mean(v)) for k, v in dev_t[0].items()}, f"{got} launches recorded, the wrapper counts {want}"
+        return "launches not recorded"
+    got = {k: len(v) for k, v in dev_t[0].items()}
+    check(sum(got.values()) == want, f"the profiler recorded {got} launches, the wrapper counts {want}")
+    return f"{want} launches recorded, as the wrapper counts"
+
+
+def _ms_per_sweep(prof, name, sweeps):
+    """The device ms a sweep of the kernels whose names hold ``name`` that a
+    _trace recorded over ``sweeps`` sweeps, or None without device time."""
+    dev_t = _device_times(prof, (name,))
+    return None if dev_t is None else float(np.sum(dev_t[0][name])) / sweeps / 1e3
+
+
+def site_lanes(L):
+    """The threads a line of ladder_site at L slices (csrc/ladder.cu, site_lanes)."""
+    need = -(-(L // 2) // SITE_PAIRS)
+    return 4 if need <= 4 else 8 if need <= 8 else 16 if need <= 16 else 32
 
 
 def phase_timing_wl(dev, smi, sass):
@@ -1223,20 +1261,19 @@ def phase_timing_wl(dev, smi, sass):
     main shape; then the three routes at the gate's edges; at L_tau = 800 the
     bound of the cluster phases alone (cluster_need), and the instruction
     floor of their algorithm from ``sass`` (cluster_sass's, cluster_floor);
-    the accumulation's time a sweep against what it needs (accumulate_need)
-    and its SASS floor (sass_floor). Every profiled call's launches are
-    printed beside the wrapper's count. Returns {"shape/route":
-    (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)} for the shapes
-    "torus" and "torus-sampling" (the main paths' calls: 200 plain sweeps,
-    and 20 sampled every 5), "chain" (2000 sampled every 10) and "long" and
-    "long-sampling" (5 plain, and 4 sampled every 2, at L_tau = 800),
-    "long/cluster-bound": (ms, bound_by) or None, and "long/accumulate" and
-    "long-sampling/accumulate": (ms a sweep or None, bound ms, bound_by)."""
+    what the accumulation of the statistics needs (accumulate_need) and the
+    SASS floor of wl_cluster's statistics loops (sass_floor). Every profiled
+    call's launches are checked against the wrapper's count (_launches).
+    Returns {"shape/route": (ms/sweep, plain ms/sweep, bound ms/sweep,
+    bound_by)} for the shapes "torus" and "torus-sampling" (the main paths'
+    calls: 200 plain sweeps, and 20 sampled every 5), "chain" (2000 sampled
+    every 10) and "long" and "long-sampling" (5 plain, and 4 sampled every 2,
+    at L_tau = 800), and "long/cluster-bound": (ms, bound_by) or None."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
     lim = wl.device_limits(dev)
     out = {}
-    names = {"multi-launch": ("wl_site", "wl_cluster", "wl_accumulate"), "resident": ("wl_resident",),
+    names = {"multi-launch": ("wl_site", "wl_cluster"), "resident": ("wl_resident",),
              "tiled": ("wl_tiled",)}
     shapes = (("torus", TORUS, WL_LTAU, WL_BETA, 0, 200, 3), ("torus-sampling", TORUS, WL_LTAU, WL_BETA, 5, 20, 5),
               ("chain", CHAIN, WL_LTAU, WL_BETA, 10, 2000, 20), ("long", LONG, LONG_LTAU, LONG_BETA, 0, 5, 2),
@@ -1271,13 +1308,9 @@ def phase_timing_wl(dev, smi, sass):
             ms, plain_ms = float(np.mean(k)), float(np.mean(p))
             out[f"{key}/{route}"] = (ms, plain_ms, b_ms, b_by)
             n_prof = min(T, 20)
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                run(n_prof)
-                torch.cuda.synchronize()
+            prof = _trace(lambda: run(n_prof))
             want = {"multi-launch": wl.LAUNCHES_PER_SWEEP * n_prof, "tiled": n_prof, "resident": 1}[route]
-            per, counted = _launches(prof, names[route], want)
-            if route == "multi-launch":
-                multi_per = per
+            counted = _launches(prof, names[route], want)
             print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={L}"
                   f"{' sampling freq=' + str(freq) if freq else ''}, {route}"
                   f"{' (the gate picks it)' if route == gate else ''}, on {smi}: kernel {ms:.5f} ms/sweep = "
@@ -1292,15 +1325,12 @@ def phase_timing_wl(dev, smi, sass):
             _, floor = cluster_floor(sass.get("wl_cluster"), phases, spins + spins // 2)
             print(f"timing-wl: {key}, the cluster phases alone (wl_cluster x 2, group {cluster_group(L)}), on "
                   f"{smi}: bound {line}; the instruction floor of this algorithm {floor}", flush=True)
-        if key.startswith("long"):  # the accumulation alone: its time a sweep against what it needs
-            ab, line = accumulate_need(R, nvars, L, bool(freq))
-            acc_ms = multi_per["wl_accumulate"] / 1e3 if multi_per else None  # one launch a sweep
-            out[f"{key}/accumulate"] = (acc_ms, *ab)
-            _, floor = sass_floor(sass.get("wl_accumulate"), spins, spins + 48 * R * nvars)
-            print(f"timing-wl: {key}, the accumulation alone (wl_accumulate, a warp a line, "
-                  f"{'not measured' if acc_ms is None else f'{acc_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
-                  + ("" if acc_ms is None else f", {acc_ms / ab[0]:.2f}x it")
-                  + f"; the instruction floor of its SASS {floor}", flush=True)
+        if key.startswith("long"):  # the accumulation of the statistics, inside wl_cluster: what it needs
+            ab, line = accumulate_need(R, nvars, L, bool(freq), 2)
+            _, floor = sass_floor(sass.get("line_stats"), spins, spins + 48 * R * nvars)
+            print(f"timing-wl: {key}, the accumulation of the statistics (line_stats, inside wl_cluster: its time is "
+                  f"wl_cluster's against a separate launch's in --ab DIR multi), on {smi}: bound {line}; the "
+                  f"instruction floor of its SASS {floor}", flush=True)
         if key.startswith("torus"):  # the tiled route against the multi-launch route, ten runs each in turns
             a, b = versus(lambda: routes["tiled"](T), lambda: routes["multi-launch"](T), T, T)
             print(f"timing-wl: {key}, on {smi}: tiled median {np.median(a):.5f} ms/sweep (runs {a}); multi-launch "
@@ -1386,6 +1416,20 @@ def pt_ladder(dev, side=PT_SIDE):
     return lt
 
 
+# a ladder of long time lines for the multi-launch site phase's chunks: compare-ladder's 32^2 +-J torus at
+# L_tau = 1002 with R = 16 replicas at geomspace(20, 50.1), Gamma = 1 (dtau 0.02 to 0.05): (side, R, L_tau)
+LONG_LADDER = (32, 16, 1002)
+
+
+def long_ladder(dev, T):
+    """The state, per-sweep seeds [T, R] and planes of LONG_LADDER."""
+    side, R, L = LONG_LADDER
+    jv = np.random.default_rng(5).choice([-1.0, 1.0], 2 * side * side)
+    s, seeds, planes, _ = _ladder_inputs("torus", side, jv, np.geomspace(20.0, 50.1, R), [1.0] * R, [0.0] * R, L, T,
+                                         300, dev)
+    return s, seeds, planes
+
+
 def _ladder_edges(kind, size):
     """The union edges (ea, eb) of a ring or torus ladder, as numpy arrays."""
     from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
@@ -1464,14 +1508,19 @@ def phase_compare_ladder(dev):
         ("multi-launch L=4096, high K_tau: ring 64 R=2", "ring", 64, np.full(64, -1.0), [40.0, 40.0], [0.02, 0.01],
          [0.2, 0.0], 4096, 2),
     ]
-    # where ladder_site's indexing could go wrong: L_tau = 2 mod 4 with every pair in one warp (31 pairs) and
-    # across two chunks of a warp (33 pairs, the last alone in its chunk), a row of color lines that is not a
-    # multiple of the 4 a block holds (15 on the ring, 7 on the torus), odd R
+    # where ladder_site's indexing could go wrong: its lanes a line (site_lanes): 4 at L_tau = 62 (31 pairs), 8 at
+    # 66 (33), 16 at 130 (65), a warp in two chunks at 514 (257 pairs, the last chunk one pair); a row of color lines
+    # that is not a multiple of the lines a block holds (15 on the 30-ring against 32 and 8, 7 on the 14^2 torus
+    # against 16, 5 on the 10^2 torus against 4); odd R
     cases += [
         ("multi-launch L=62 (2 mod 4): ring 30 R=3 h", "ring", 30, np.full(30, -1.0), [2.5, 3.1, 3.7], [1.0] * 3,
          [0.1, 0.0, -0.1], 62, 3),
         ("multi-launch L=66 (2 mod 4): torus 14^2 +-J R=3 h", "torus", 14, rng.choice([-1.0, 1.0], 2 * 14 * 14),
          [2.5, 3.3, 4.0], [1.0] * 3, [0.0, 0.2, 0.0], 66, 3),
+        ("multi-launch L=130: ring 30 R=3 h", "ring", 30, rng.choice([-1.0, 1.0], 30), [5.0, 6.5, 8.0], [1.0] * 3,
+         [0.1, 0.0, -0.1], 130, 3),
+        ("multi-launch L=514: torus 10^2 +-J R=3 h", "torus", 10, rng.choice([-1.0, 1.0], 2 * 10 * 10),
+         [20.0, 25.7, 30.0], [1.0] * 3, [0.0, 0.1, -0.2], 514, 3),
     ]
     worst = {"multi": 0, "resident": 0}
     for k, (name, kind, size, jv, betas, gammas, hs, L, T) in enumerate(cases):
@@ -1697,23 +1746,41 @@ def phase_timing_ladder(dev, smi, sass):
     k, p = in_turns(lambda: ladder._run_multi(s, seeds, planes, T),
                     lambda: ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain, edges), T, T_plain)
     out["multi-launch-wide"] = (float(np.mean(k)), float(np.mean(p)), *bounds(side, False))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ladder._run_multi(s, seeds, planes, T)
-        torch.cuda.synchronize()
+    prof = _trace(lambda: ladder._run_multi(s, seeds, planes, T))
+    counted = _launches(prof, ("ladder_site", "ladder_cluster"), ladder.LAUNCHES_PER_SWEEP * T)
     print(f"timing-ladder: {side}^2 +-J torus, {PT_R} x {side * side} x {PT_LTAU} ({spins} spins), multi-launch "
           f"(cluster group {cluster_group(PT_LTAU)}), on {smi}: {T}-sweep call {np.mean(k):.5f} ms/sweep = "
           f"{spins / (np.mean(k) * 1e6):.3f} spin updates/ns (runs {k}); plain torch {np.mean(p):.5f} ms/sweep "
           f"(runs {p}); bound {out['multi-launch-wide'][2]:.5f} ms/sweep ({out['multi-launch-wide'][3]}, once per "
-          f"sweep); {_profile_line(prof, ('ladder_site', 'ladder_cluster'), T)}", flush=True)
-    per, counted = _launches(prof, ("ladder_site", "ladder_cluster"), ladder.LAUNCHES_PER_SWEEP * T)
-    site_ms = 2 * per["ladder_site"] / 1e3 if per else None  # two launches a sweep, one a color
+          f"sweep); {_profile_line(prof, ('ladder_site', 'ladder_cluster'), T)}; {counted}", flush=True)
+    site_ms = _ms_per_sweep(prof, "ladder_site", T)
     sb, line = site_need(PT_R, side * side, PT_LTAU, 2)
     out["wide/site"] = (site_ms, *sb)
     _, floor = sass_floor(sass.get("ladder_site"), spins, 2 * spins)
-    print(f"timing-ladder: {side}^2 shape, the site phases alone (ladder_site_short x 2, {counted}, "
+    print(f"timing-ladder: {side}^2 shape, the site phases alone (ladder_site<{site_lanes(PT_LTAU)}> x 2, "
           f"{'not measured' if site_ms is None else f'{site_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
           + ("" if site_ms is None else f", {site_ms / sb[0]:.2f}x it")
           + f"; the instruction floor of its SASS {floor}", flush=True)
+    # a ladder of long lines (LONG_LADDER): ladder_site a warp a line, in chunks
+    (side_l, R_l, L_l), T_l = LONG_LADDER, 10
+    s_l, seeds_l, planes_l = long_ladder(dev, T_l)
+    spins_l = R_l * side_l * side_l * L_l
+    ladder._run_multi(s_l, seeds_l[:2], planes_l, 2)  # warm-up
+    ms_l = min(event_ms(lambda: ladder._run_multi(s_l, seeds_l, planes_l, T_l), T_l) for _ in range(3))
+    prof = _trace(lambda: ladder._run_multi(s_l, seeds_l, planes_l, T_l))
+    counted = _launches(prof, ("ladder_site", "ladder_cluster"), ladder.LAUNCHES_PER_SWEEP * T_l)
+    site_l = _ms_per_sweep(prof, "ladder_site", T_l)
+    sb, line = site_need(R_l, side_l * side_l, L_l, 2)
+    chunks = -(-(L_l // 2) // (32 * SITE_PAIRS))
+    _, floor = sass_floor(sass.get("ladder_site_long"), R_l * side_l * side_l * 2 * 32 * SITE_PAIRS * chunks, 2 * spins_l)
+    print(f"timing-ladder: {side_l}^2 +-J torus, {R_l} x {side_l * side_l} x {L_l} ({spins_l} spins), multi-launch "
+          f"(site lanes {site_lanes(L_l)}, {chunks} chunks a line; cluster group {cluster_group(L_l)}), on {smi}: "
+          f"{T_l}-sweep call {ms_l:.5f} ms/sweep (the best of three); {_profile_line(prof, ('ladder_site', 'ladder_cluster'), T_l)}; "
+          f"{counted}; the site phases alone "
+          f"{'not measured' if site_l is None else f'{site_l:.5f} ms a sweep'}: bound {line}"
+          + ("" if site_l is None else f", {site_l / sb[0]:.2f}x it")
+          + f"; the instruction floor of its SASS (a padded slice: {2 * 32 * SITE_PAIRS * chunks} a line) {floor}",
+          flush=True)
     x = ladder._run_multi(s, seeds, planes, T)
     pb = planes.pb[:, None, None]
 
@@ -1859,12 +1926,14 @@ def cluster_sass(draw_n=None):
     """{kernel: {loop: (ALU instructions, f32 operations) a word of 32
     slices}} of each slice loop of fk_line (CLUSTER_LOOPS), in wl_cluster at
     fk_group(LONG_LTAU) and ladder_cluster at fk_group(PT_LTAU); and
-    {"wl_accumulate": _split of its word loop a slice, "ladder_site": _split
-    of the kernel a spin} (wl_accumulate<16>, LONG_LTAU's word;
-    ladder_site_short, PT_LTAU's: a thread's SHORT_PAIRS pairs of slices,
-    its line's set-up in), with ``draw_n`` the lane-hash draw's instructions (hash_sass)
-    and the logf's from LOG_PROBE (cuobjdump); a kernel is left out, and
-    'not measured' printed, without cuobjdump or where a loop is not found."""
+    {"line_stats": _split of wl_cluster's statistics loops a slice of a
+    torus (the mean of its two colors' loops; words of 16 bytes, LONG_LTAU's),
+    "ladder_site": _split of ladder_site at PT_LTAU a spin (a thread's
+    SITE_PAIRS pairs of slices, its line's set-up in), "ladder_site_long":
+    _split of ladder_site<32> at LONG_LADDER's L_tau a padded slice}, with
+    ``draw_n`` the lane-hash draw's instructions (hash_sass) and the logf's
+    from LOG_PROBE (cuobjdump); a kernel is left out, and 'not measured'
+    printed, without cuobjdump or where a loop is not found."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1904,30 +1973,58 @@ def cluster_sass(draw_n=None):
                 f"{loop} {a:.1f} ALU instructions and {f:.1f} f32 operations" for loop, (a, f) in counts.items()),
                 flush=True)
     log_n = len([i for i in fns["log"]["two"] if i[1] != "NOP"]) - len([i for i in fns["log"]["one"] if i[1] != "NOP"])
-    # wl_accumulate<16>: its word loop, a word of 16 slices a lane and four dp4a (spins, two partners, aligned
-    # bonds) a 4-slice chunk on a torus
-    name = next(k for k in fns["wl_cluster"] if "wl_accumulate" in k and "ILi16E" in k)
-    body = [b for b in _loops(fns["wl_cluster"][name]) if any(op.startswith("IDP") for _, op, _ in b)]
-    if body:
-        body = min(body, key=len)
-        words = sum(1 for _, op, _ in body if op.startswith("IDP")) / 16
-        out["wl_accumulate"] = _split(body, 16 * words, 0, 0, draw_n, log_n)
-    # ladder_site_short (L_tau <= 64): the whole kernel, a thread's SHORT_PAIRS pairs of slices
-    name = next(k for k in fns["ladder_cluster"] if "ladder_site_short" in k)
-    out["ladder_site"] = _split(fns["ladder_cluster"][name], 2 * SHORT_PAIRS, 2 * SHORT_PAIRS, 4 * SHORT_PAIRS,
-                                draw_n, log_n)
     print(f"SASS: a logf is {log_n} instructions (LOG_PROBE)", flush=True)
-    for kernel, unit, ins in (("wl_accumulate", "slice", body), ("ladder_site", "spin", fns["ladder_cluster"][name])):
-        if kernel not in out:
-            print(f"SASS: {kernel}: no word loop found; not measured", flush=True)
-            continue
-        hist = {}
-        for _, op, _ in ins:
-            hist[op] = hist.get(op, 0) + 1
-        print(f"SASS: {kernel}, a {unit}: " + ", ".join(f"{k} {v:.2f}" for k, v in out[kernel].items())
-              + f"; the {'loop' if kernel == 'wl_accumulate' else 'kernel'} by opcode {dict(sorted(hist.items()))}",
-              flush=True)
+    # line_stats in wl_cluster<fk_group(LONG_LTAU), 16>: a word loop for each count NQ of neighbour lines (0 on
+    # color 0, 2 on a ring's color 1, 4 on a torus's), a word of 16 slices a thread, four chunks of 4: a 16-byte
+    # load of the line and of each neighbour, and 4 (2 + NQ) dp4a, so words = dp4a / 4 - loads
+    name = next(k for k in fns["wl_cluster"] if "wl_cluster" in k and f"ILi{cluster_group(LONG_LTAU)}ELi16E" in k)
+    stats = {}
+    for body in _loops(fns["wl_cluster"][name]):
+        idp = sum(1 for _, op, _ in body if op.startswith("IDP"))
+        wide = sum(1 for _, op, _ in body if op.startswith("LDG") and ".128" in op)
+        words = idp // 4 - wide
+        if idp and words > 0 and wide % words == 0:
+            nq = wide // words - 1
+            if nq not in stats or len(body) < len(stats[nq][0]):
+                stats[nq] = (body, words)
+    if 0 in stats and 4 in stats:  # a torus sweep: half its lines of each color
+        a, c = (_split(stats[k][0], 16 * stats[k][1], 0, 0, draw_n, log_n) for k in (0, 4))
+        out["line_stats"] = {k: (a[k] + c[k]) / 2 for k in a}
+        for k in (0, 4):
+            _print_split(f"line_stats (wl_cluster, {k} neighbour lines)", "slice", stats[k][0],
+                         _split(stats[k][0], 16 * stats[k][1], 0, 0, draw_n, log_n))
+    else:
+        print(f"SASS: line_stats: word loops not found ({sorted(stats)}); not measured", flush=True)
+    # ladder_site<site_lanes(PT_LTAU)>: a line of one chunk, the whole kernel for a thread's 2 SITE_PAIRS spins;
+    # ladder_site<32> at LONG_LADDER's L_tau, K chunks a line: the kernel with its two chunk loops (the outermost
+    # loops that load) run K times (one chunk's reload in parity 1 counted in excess), for 2 SITE_PAIRS K slices
+    # a thread, the last chunk's padding in
+    fn = fns["ladder_cluster"][next(k for k in fns["ladder_cluster"]
+                                    if "ladder_site" in k and f"ILi{site_lanes(PT_LTAU)}E" in k)]
+    C = SITE_PAIRS
+    out["ladder_site"] = _split(fn, 2 * C, 2 * C, 4 * C, draw_n, log_n)
+    _print_split(f"ladder_site<{site_lanes(PT_LTAU)}> (L_tau={PT_LTAU})", "spin", fn, out["ladder_site"])
+    L_l = LONG_LADDER[2]
+    K = -(-(L_l // 2) // (32 * C))
+    fn = fns["ladder_cluster"][next(k for k in fns["ladder_cluster"] if "ladder_site" in k and "ILi32E" in k)]
+    loops = [b for b in _loops(fn) if any(op.startswith("LDG") for _, op, _ in b)]
+    outer = [b for b in loops if not any(c is not b and c[0][0] <= b[0][0] and b[-1][0] <= c[-1][0]
+                                         and len(c) > len(b) for c in loops)]
+    if len(outer) == 2:
+        ins = fn + (K - 1) * (outer[0] + outer[1])
+        out["ladder_site_long"] = _split(ins, 2 * C * K, 2 * C * K, 4 * C * K, draw_n, log_n)
+        _print_split(f"ladder_site<32> (L_tau={L_l}, {K} chunks)", "padded slice", ins, out["ladder_site_long"])
+    else:
+        print(f"SASS: ladder_site<32>: {len(outer)} chunk loops found, not 2; not measured", flush=True)
     return out
+
+
+def _print_split(what, unit, ins, split):
+    hist = {}
+    for _, op, _ in ins:
+        hist[op] = hist.get(op, 0) + 1
+    print(f"SASS: {what}, a {unit}: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f"; by opcode {dict(sorted(hist.items()))}", flush=True)
 
 
 def sass_floor(split, units, nbytes):
@@ -1943,16 +2040,18 @@ def sass_floor(split, units, nbytes):
                       f"{f32 / 1e6:.1f} M f32 operations, {nbytes} bytes)")
 
 
-def accumulate_need(R, nvars, L, sampling):
-    """((ms, bound_by), what it counted) of a sweep's accumulation
-    (wl_accumulate): the state read once, the [R, 3, nvars] int64
-    accumulators read and written, the sample slot written in sampling
-    mode, and ACC_OPS_PER_SLICE integer operations a slice."""
+def accumulate_need(R, nvars, L, sampling, ndir):
+    """((ms, bound_by), what it counted) of a sweep's accumulation of the
+    statistics, as a pass of its own would do it: the state read once, the
+    [R, 3, nvars] int64 accumulators read and written, the sample slot
+    written in sampling mode, and acc_ops_per_slice(ndir) integer
+    instructions a slice (ndir bonds a site)."""
     slices = R * nvars * L
     nbytes = slices + 2 * 8 * 3 * R * nvars + (R * nvars if sampling else 0)
-    ms, by = bound(nbytes, ACC_OPS_PER_SLICE * slices)
-    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {slices} slices, {ACC_OPS_PER_SLICE * slices / 1e6:.1f} M integer "
-                      f"operations, {nbytes} bytes)")
+    ops = acc_ops_per_slice(ndir) * slices
+    ms, by = bound(nbytes, ops)
+    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {slices} slices, {ops / 1e6:.2f} M integer instructions, "
+                      f"{nbytes} bytes)")
 
 
 def site_need(R, nvars, L, ndir):
@@ -3551,13 +3650,13 @@ def main():
              launches=wl_launches + qmc_tiled_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus/tiled"])),
         dict(name="wl_tiled (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
              launches=wl_sample_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus-sampling/tiled"])),
-        dict(name="wl_site+wl_cluster+wl_accumulate (plain sweeps)", route="cuda", source=wl_src,
+        dict(name="wl_site+wl_cluster (plain sweeps)", route="cuda", source=wl_src,
              replaces=f"{wl_tpu}:330", launches=long_launches, max_abs_err=wl_errs["multi"],
              **timed(wl_t["long/multi-launch"])),
-        dict(name="wl_site+wl_cluster+wl_accumulate (sampling mode)", route="cuda", source=wl_src,
+        dict(name="wl_site+wl_cluster (sampling mode)", route="cuda", source=wl_src,
              replaces=f"{wl_tpu}:346", launches=long_sample_launches, max_abs_err=wl_errs["multi"],
              **timed(wl_t["long-sampling/multi-launch"])),
-        dict(name="ladder_site_short+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
+        dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
         dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
              launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"],
@@ -3729,8 +3828,11 @@ def qmcising_rates(dev):
 def multi_rates(dev):
     """The multi-launch routes' ms a sweep (the best of three 20-sweep calls,
     CUDA events, after a warm-up) and each kernel's device us a sweep
-    (torch.profiler over one call): main-quantum-long's 64^2 torus at
-    L_tau = 800, R = 2, and main-tempering-wide's 64^2 +-J ladder."""
+    (torch.profiler over one call, _trace): main-quantum-long's 64^2 torus at
+    L_tau = 800, R = 2, main-tempering-wide's 64^2 +-J ladder and
+    LONG_LADDER (32^2 +-J, R = 16, L_tau = 1002). The kernels' names are
+    those of this checkout and of the one it is compared with (wl_accumulate,
+    a launch of its own before the statistics moved into wl_cluster)."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
@@ -3740,19 +3842,16 @@ def multi_rates(dev):
     lt = pt_ladder(dev, side=64)
     m = lt._materialize()
     lseeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
+    s_l, seeds_l, planes_l = long_ladder(dev, T)
     runs = {"wl_long": lambda: wl._run_multi(s, seeds, tables, T),
-            "ladder_wide": lambda: ladder._run_multi(m["s"], lseeds, m["planes"], T)}
+            "ladder_wide": lambda: ladder._run_multi(m["s"], lseeds, m["planes"], T),
+            "ladder_long": lambda: ladder._run_multi(s_l, seeds_l, planes_l, T)}
     out = {}
     for key, run in runs.items():
         run()  # warm-up
         out[f"{key}_ms_per_sweep"] = min(event_ms(run, T) for _ in range(3))
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        dev_t = _device_times(prof, ("wl_site", "wl_cluster", "wl_accumulate", "ladder_site", "ladder_cluster"))
-        # a launch's mean times its launches a sweep (a profiler window can miss a launch)
-        out[f"{key}_us_per_sweep"] = None if dev_t is None else {
-            k: float(np.mean(v)) * round(len(v) / T) for k, v in dev_t[0].items()}
+        dev_t = _device_times(_trace(run), ("wl_site", "wl_cluster", "wl_accumulate", "ladder_site", "ladder_cluster"))
+        out[f"{key}_us_per_sweep"] = None if dev_t is None else {k: float(np.sum(v)) / T for k, v in dev_t[0].items()}
     return out
 
 
@@ -3772,7 +3871,8 @@ def ab(other, pairs=10, only=None):
             runs[side].append(json.loads(line))
             print(f"ab on {smi}: {line}", flush=True)
     keys = ((("qmcrunner_hard_sweeps_per_s", True), ("qmcrunner_chain_sweeps_per_s", True)) if only == "qmcrunner" else
-            (("wl_long_ms_per_sweep", False), ("ladder_wide_ms_per_sweep", False)) if only == "multi" else
+            (("wl_long_ms_per_sweep", False), ("ladder_wide_ms_per_sweep", False), ("ladder_long_ms_per_sweep", False))
+            if only == "multi" else
             (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
              ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),
              ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False),
@@ -3786,7 +3886,7 @@ def ab(other, pairs=10, only=None):
         print(f"ab on {smi}: {key}: {Path(other).resolve()} median {np.median(a)} (quartiles "
               f"{np.percentile(a, 25)}, {np.percentile(a, 75)}); this median {np.median(b)} (quartiles "
               f"{np.percentile(b, 25)}, {np.percentile(b, 75)}); this one won {won} of {len(a)} pairs", flush=True)
-    for key in ("wl_long_us_per_sweep", "ladder_wide_us_per_sweep") if only == "multi" else ():
+    for key in ("wl_long_us_per_sweep", "ladder_wide_us_per_sweep", "ladder_long_us_per_sweep") if only == "multi" else ():
         for side in ("other", "this"):
             split = [r[key] for r in runs[side] if r.get(key)]
             names = sorted({n for r in split for n in r})

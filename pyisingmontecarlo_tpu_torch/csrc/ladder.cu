@@ -25,14 +25,14 @@
 // Multi-launch (planes too large for a block, such as a 64^2 torus at
 // L_tau = 60, 245 KB a replica), four launches a sweep on the caller's stream:
 //
-// - ladder_site_short (L_tau <= 64) or ladder_site, twice (one per site
-//   color): a group of threads per time line of the color (4 threads of 8
-//   pairs of slices each up to L_tau = 64, else the cluster phases' group
-//   size and grid), both tau parities in one launch, in place: the even
-//   slices, then the odd slices from the updated even ones. The line's pairs
-//   of slices and its neighbour lines' are read in 2-byte words, and its
-//   couplings and neighbour lines found once a line (SiteField). Glauber
-//   acceptance in logit form, log(u) - log(1 - u) < -dE with
+// - ladder_site, twice (one per site color): a group of threads per time
+//   line of the color (site_lanes(L): 4 threads of 8 pairs of slices each up
+//   to L_tau = 64, more up to a warp, then a warp taking the line in chunks),
+//   both tau parities in one launch, in place: the even slices, then the odd
+//   slices from the updated even ones. The line's pairs of slices and its
+//   neighbour lines' are read in 2-byte words, and its couplings and
+//   neighbour lines found once a line (SiteField). Glauber acceptance in
+//   logit form, log(u) - log(1 - u) < -dE with
 //   dE = (-2 s) (dt (F + h) - kt (s_up + s_dn)), F the coupling-weighted
 //   neighbour field.
 // - ladder_cluster, twice (one per color): a group of threads per time line
@@ -173,114 +173,110 @@ struct SiteLine {
     }
 };
 
-// Both site phases of a color in one launch, a group of threads a time line
-// of the color: the even slices, a barrier, then the odd slices from the
-// updated even ones. The other color's lines are not written in the launch,
-// so the odd slices read what a launch per parity would read. A thread holds
-// pairs of slices (2k, 2k + 1), read with the neighbour lines' pairs in
-// 2-byte words; the odd slice before a pair and the even slice after it come
-// from the same thread, a neighbour lane (a shuffle) or memory.
-//
-// ladder_site_short, the lines of L <= 2 kShortLanes kShortPairs slices:
-// kShortLanes threads a line, thread t holding the kShortPairs consecutive
-// pairs from k = kShortPairs t in registers across both parities, the line
-// wrapping around by shuffles; kShortThreads / kShortLanes lines a block in a
-// grid of (chunks of a row's lines of the color, rows, replicas), as fk_grid.
-// A thread pays its line's set-up (the neighbour lines, couplings, seed and
-// parameters) once for 2 kShortPairs spins, and takes its pairs' decisions
-// with no branch before it writes a flip, so that their draws and logs
-// overlap; 8 pairs a thread beat 2, 4 and 16 on the 64^2 ladder at L_tau =
-// 60 (PERF.md). A group past its row's end computes a copy of the row's last
-// line and writes nothing, so that every lane of a warp takes part in the
-// shuffles.
-constexpr int kShortPairs = 8, kShortLanes = 32 / kShortPairs, kShortThreads = 128;
+// Both site phases of a color in one launch, W threads a time line of the
+// color: the even slices, then the odd slices from the updated even ones. The
+// other color's lines are not written in the launch, so the odd slices read
+// what a launch per parity would read. A thread holds kSitePairs consecutive
+// pairs of slices (2k, 2k + 1) of a chunk of W kSitePairs pairs in registers,
+// read with the neighbour lines' pairs in 2-byte words: thread t the pairs
+// k = b + kSitePairs t + c of chunk b. W is site_lanes(L): the fewest of 4, 8,
+// 16 and 32 threads that hold the line in one chunk, else 32 and the line in
+// chunks. Parity 0 goes up the chunks, pair k's even slice from its odd slice
+// and the odd slice before it (pair k - 1's: the same thread, the lane below
+// by a shuffle, the chunk below's last carried in a register; at k = 0 the
+// line's last slice). Parity 1 goes down from the last chunk, still in
+// registers, pair k's odd slice from its even slice and the next pair's
+// updated even slice (the same thread, the lane above, the chunk above's first
+// carried from the chunk before; at the line's last pair pair 0's, kept from
+// parity 0), and reads each chunk below it again, which the same threads
+// wrote. A line of one chunk (every W < 32, so known when compiling) reads its
+// slices once. kSiteThreads / W lines a block in a grid of (chunks of a row's
+// lines of the color, rows, replicas), as fk_grid. A thread pays its line's
+// set-up (the neighbour lines, couplings, seed and parameters) once for its
+// pairs, and takes a chunk's decisions with no branch before it writes a
+// flip, so that their draws and logs overlap; 8 pairs a thread beat 2, 4 and
+// 16 on the 64^2 ladder at L_tau = 60 (PERF.md). A group past its row's end
+// computes a copy of the row's last line and writes nothing, so that every
+// lane of a warp takes part in the shuffles.
+constexpr int kSitePairs = 8, kSiteThreads = 128;
 
-inline dim3 short_grid(const Geo& g, int R) {
-    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1, lines = kShortThreads / kShortLanes;
+__host__ __device__ constexpr int site_lanes(int L) {
+    const int need = ((L >> 1) + kSitePairs - 1) / kSitePairs;
+    return need <= 4 ? 4 : need <= 8 ? 8 : need <= 16 ? 16 : 32;
+}
+
+inline dim3 site_grid(const Geo& g, int R, int W) {
+    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1, lines = kSiteThreads / W;
     return dim3((per_row + lines - 1) / lines, g.torus ? g.size : 1, R);
 }
 
-__global__ void __launch_bounds__(kShortThreads) ladder_site_short(
+template <int W>
+__global__ void __launch_bounds__(kSiteThreads) ladder_site(
     int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int color) {
-    constexpr int W = kShortLanes, C = kShortPairs;
+    constexpr int C = kSitePairs, N = W * C;
     constexpr unsigned kAll = 0xffffffffu;
     const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1;
-    const int jr = blockIdx.x * (kShortThreads / W) + threadIdx.x / W;
+    const int jr = blockIdx.x * (kSiteThreads / W) + threadIdx.x / W;
     const bool live = jr < per_row;
     const int x = blockIdx.y, y = 2 * (live ? jr : per_row - 1) + (g.torus ? (x + color) & 1 : color);
     const SiteLine ln(s, seeds, q, g, ndir, color, x, y);
-    const int P = g.L >> 1, t = threadIdx.x % W;
+    const int L = g.L, P = L >> 1, t = threadIdx.x % W;
+    const int last = W < 32 ? 0 : (P - 1) / N * N;  // the last chunk's first pair
     int e[C], o[C];  // the pairs' slices
     float f0[C], f1[C];
-    int olast = 0;  // the odd slice of the line's last pair, on the lane that holds it
+    auto load = [&](int b) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-        const int k = C * t + c;
-        const int w = k < P ? *reinterpret_cast<const int16_t*>(ln.lp + 2 * k) : 0x0101;
-        e[c] = (int8_t)w;
-        o[c] = w >> 8;
-        f0[c] = f1[c] = 0.0f;
-        if (k < P) ln.F.at2(2 * k, f0[c], f1[c]);
-        if (c == (P - 1) % C) olast = o[c];
-    }
-    // parity 0: the odd slice before pair k is pair k - 1's (the lane below's last; pair 0: the line's last)
-    const int below = __shfl_up_sync(kAll, o[C - 1], 1, W);
-    const int wrap = __shfl_sync(kAll, olast, (P - 1) / C, W);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {  // every pair's decision, with no branch, then the flips
-        const int k = C * t + c;
-        const int po = c > 0 ? o[c > 0 ? c - 1 : c] : t == 0 ? wrap : below;
-        const bool flip = ln.flips(e[c], o[c], po, f0[c], 2 * k, 0);
-        if (flip & live & (k < P)) {
-            e[c] = -e[c];
-            ln.lp[2 * k] = (int8_t)e[c];
+        for (int c = 0; c < C; ++c) {
+            const int k = b + C * t + c;
+            const int w = k < P ? *reinterpret_cast<const int16_t*>(ln.lp + 2 * k) : 0x0101;
+            e[c] = (int8_t)w;
+            o[c] = w >> 8;
+            f0[c] = f1[c] = 0.0f;
+            if (k < P) ln.F.at2(2 * k, f0[c], f1[c]);
         }
-    }
-    // parity 1: the even slice after pair k is pair k + 1's, updated (the lane above's first; the last
-    // pair: pair 0's)
-    const int above = __shfl_down_sync(kAll, e[0], 1, W);
-    const int first = __shfl_sync(kAll, e[0], 0, W);
+    };
+    int before = ln.lp[L - 1], first = 0;  // the odd slice before the chunk; pair 0's even slice, updated
+    for (int b = 0;; b += N) {  // parity 0, up the chunks
+        load(b);
+        const int below = __shfl_up_sync(kAll, o[C - 1], 1, W);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-        const int k = C * t + c;
-        const int ne = k + 1 == P ? first : c + 1 < C ? e[c + 1 < C ? c + 1 : c] : above;
-        const bool flip = ln.flips(o[c], ne, e[c], f1[c], 2 * k + 1, 1);
-        if (flip & live & (k < P)) ln.lp[2 * k + 1] = (int8_t)(-o[c]);
+        for (int c = 0; c < C; ++c) {  // every pair's decision, with no branch, then the flips
+            const int k = b + C * t + c;
+            const int po = c > 0 ? o[c > 0 ? c - 1 : c] : t == 0 ? before : below;
+            const bool flip = ln.flips(e[c], o[c], po, f0[c], 2 * k, 0);
+            if (flip & live & (k < P)) {
+                e[c] = -e[c];
+                ln.lp[2 * k] = (int8_t)e[c];
+            }
+        }
+        if (b == 0) first = __shfl_sync(kAll, e[0], 0, W);
+        if (b == last) break;
+        before = __shfl_sync(kAll, o[C - 1], W - 1, W);
+    }
+    int after = first;  // the even slice after the chunk's last pair, updated
+    for (int b = last;; b -= N) {  // parity 1, down the chunks
+        const int above = __shfl_down_sync(kAll, e[0], 1, W);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const int k = b + C * t + c;
+            const int ne = k + 1 == P ? first : c + 1 < C ? e[c + 1 < C ? c + 1 : c] : t == W - 1 ? after : above;
+            const bool flip = ln.flips(o[c], ne, e[c], f1[c], 2 * k + 1, 1);
+            if (flip & live & (k < P)) ln.lp[2 * k + 1] = (int8_t)(-o[c]);
+        }
+        if (b == 0) break;
+        after = __shfl_sync(kAll, e[0], 0, W);
+        load(b - N);
     }
 }
 
-// ladder_site, the longer lines: grid fk_grid, a group of G threads a line
-// (fk_group, fk_block_lines(G) lines a block), thread gt holding pair
-// k = gt, gt + G, ... in turn: its even slice from its pair's odd slice and
-// the one before (the lane below; at a warp's first lane from memory,
-// unchanged in parity 0), then after the group's barrier its odd slice from
-// the pair's even slice and the next pair's (the lane above; at a warp's
-// last lane and the line's last pair from memory, written before the
-// barrier).
-template <int G>
-__global__ void __launch_bounds__(fk_block_threads(G)) ladder_site(
-    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int color) {
-    int x, y;
-    if (!fk_site<G>(g, color, x, y)) return;  // the whole group
-    const SiteLine ln(s, seeds, q, g, ndir, color, x, y);
-    const int L = g.L, P = L >> 1, lane = threadIdx.x & 31, gt = threadIdx.x % G;
-    int8_t* lp = ln.lp;
-    for (int b = 0; b < P; b += G) {  // parity 0
-        const int k = b + gt;
-        const bool in = k < P;
-        const char2 v = in ? *reinterpret_cast<const char2*>(lp + 2 * k) : make_char2(1, 1);
-        int po = __shfl_up_sync(0xffffffffu, (int)v.y, 1);
-        if (in && lane == 0) po = lp[k == 0 ? L - 1 : 2 * k - 1];
-        if (in && ln.flips(v.x, v.y, po, ln.F.at(2 * k), 2 * k, 0)) lp[2 * k] = (int8_t)(-v.x);
-    }
-    fk_sync<G>();
-    for (int b = 0; b < P; b += G) {  // parity 1
-        const int k = b + gt;
-        const bool in = k < P;
-        const char2 v = in ? *reinterpret_cast<const char2*>(lp + 2 * k) : make_char2(1, 1);
-        int ne = __shfl_down_sync(0xffffffffu, (int)v.x, 1);
-        if (in && (lane == 31 || k + 1 == P)) ne = lp[k + 1 == P ? 0 : 2 * k + 2];
-        if (in && ln.flips(v.y, ne, v.x, ln.F.at(2 * k + 1), 2 * k + 1, 1)) lp[2 * k + 1] = (int8_t)(-v.y);
+// Calls fn(std::integral_constant<int, site_lanes(L)>{}).
+template <class Fn>
+cudaError_t by_lanes(int L, Fn fn) {
+    switch (site_lanes(L)) {
+        case 4: return fn(std::integral_constant<int, 4>{});
+        case 8: return fn(std::integral_constant<int, 8>{});
+        case 16: return fn(std::integral_constant<int, 16>{});
+        default: return fn(std::integral_constant<int, 32>{});
     }
 }
 
@@ -404,10 +400,9 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
 // [T, R] int32 (row t keys sweep t), J [R, ndir, nvars] and dt, kt, h, pb [R]
 // f32 as in ops/ladder.py. Draw d of every sweep uses counter d: 2c + parity
 // the site phases of color c, 4 + 2c and 5 + 2c the bond and head draws of
-// cluster color c. The site phases take kShortLanes threads a line up to
-// L = 2 kShortLanes kShortPairs (ladder_site_short), else, as the cluster
-// phases do, fk_group(L) (worldline.cuh); R <= 65535 (fk_grid). Returns the
-// first launch error, or 0.
+// cluster color c. The site phases take site_lanes(L) threads a line, the
+// cluster phases fk_group(L) (worldline.cuh); R <= 65535 (fk_grid). Returns
+// the first launch error, or 0.
 extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const void* dt, const void* kt,
                              const void* h, const void* pb, int R, int nvars, int L, int torus, int size,
                              int T, void* stream) {
@@ -418,28 +413,29 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
                    static_cast<const float*>(h), static_cast<const float*>(pb)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* sp = static_cast<int8_t*>(s);
-    return (int)by_group(L, [&](auto gc) {
-        constexpr int G = decltype(gc)::value;
-        const int smem = fk_block_lines(G) * fk_line_bytes(L);
-        cudaError_t e = cudaFuncSetAttribute(ladder_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-        const bool short_lines = L <= 2 * kShortLanes * kShortPairs;
-        const dim3 grid = fk_grid(g, R, G), sgrid = short_grid(g, R);
-        for (int t = 0; t < T; ++t) {
-            const int32_t* sd = static_cast<const int32_t*>(seeds) + (size_t)t * R;
-            for (int color = 0; color < 2; ++color) {
-                if (short_lines)
-                    ladder_site_short<<<sgrid, kShortThreads, 0, st>>>(sp, sd, q, g, ndir, color);
-                else
-                    ladder_site<G><<<grid, fk_block_threads(G), 0, st>>>(sp, sd, q, g, ndir, color);
-                if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    return (int)by_lanes(L, [&](auto wc) {
+        constexpr int W = decltype(wc)::value;
+        return by_group(L, [&](auto gc) {
+            constexpr int G = decltype(gc)::value;
+            const int smem = fk_block_lines(G) * fk_line_bytes(L);
+            cudaError_t e =
+                cudaFuncSetAttribute(ladder_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (e != cudaSuccess) return e;
+            const dim3 grid = fk_grid(g, R, G), sgrid = site_grid(g, R, W);
+            for (int t = 0; t < T; ++t) {
+                const int32_t* sd = static_cast<const int32_t*>(seeds) + (size_t)t * R;
+                for (int color = 0; color < 2; ++color) {
+                    ladder_site<W><<<sgrid, kSiteThreads, 0, st>>>(sp, sd, q, g, ndir, color);
+                    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+                }
+                for (int color = 0; color < 2; ++color) {
+                    ladder_cluster<G><<<grid, fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, 4 + 2 * color,
+                                                                             color);
+                    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+                }
             }
-            for (int color = 0; color < 2; ++color) {
-                ladder_cluster<G><<<grid, fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, 4 + 2 * color, color);
-                if ((e = cudaGetLastError()) != cudaSuccess) return e;
-            }
-        }
-        return cudaSuccess;
+            return cudaSuccess;
+        });
     });
 }
 

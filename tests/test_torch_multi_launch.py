@@ -1,29 +1,22 @@
-"""The multi-launch route's accumulation and ladder site phases, as the CUDA
-kernels of ``csrc/wl.cu`` (``wl_accumulate``) and ``csrc/ladder.cu``
-(``ladder_site_short``, ``ladder_site``) compute them, modelled in numpy.
+"""The multi-launch route's statistics, as ``line_stats`` in ``csrc/wl.cu``
+computes them at the end of each cluster phase, modelled in numpy.
 
-- The launch counts a sweep (``LAUNCHES_PER_SWEEP``): the worldline's four
-  site phases, two cluster phases and one accumulation; the ladder's two site
-  phases (both parities of a color in one launch) and two cluster phases
-  (``tests/test_torch_wl.py`` and ``test_torch_resident.py`` hold that the
-  plain versions add no launch).
-- A model of ``wl_accumulate``'s word arithmetic: a warp a line, words of V
-  bytes (2, 4, 8 or 16), four signed bytes a dp4a, the aligned bonds from the
-  line's bytes against the same bytes shifted down one (the next lane's first
-  byte on top, slice 0 after the last), against the statistics that
-  ``wl_sweeps_reference`` returns, on a ring and a torus whose rows are not a
-  multiple of the lines a block holds, at L_tau = 2 mod 4.
-- A model of the site kernels' schedule: each thread's pairs of slices, the
-  odd slice before a pair and the even slice after it taken from the same
-  thread, a neighbour lane or memory as the kernels take them, the line
-  wrapping around, against the same decisions made parity by parity over the
-  whole line; with a negative control (the wrap from the wrong pair differs).
-  The decisions are a fixed function of the spin, its tau neighbours and its
-  slice, so that the model checks the indexing alone.
+- A model of the word arithmetic: a group of threads a line, words of V bytes
+  (2, 4, 8 or 16), four signed bytes a dp4a; after the phase of color 0 the
+  lines of color 0 add their spin sums and aligned bonds (the line's bytes
+  against the same bytes shifted down one, the next lane's first byte on
+  top, slice 0 after the last), after the phase of color 1 the lines of color
+  1 add theirs and their bond products with every neighbour line, so that each
+  bond of the bipartite lattice is counted once, at its color-1 end; against
+  the statistics that ``wl_sweeps_reference`` returns, on rings and tori, at
+  L_tau = 2 mod 4 and at each word width.
+- On the card, the launches a sweep: the wrappers' counters advance by
+  ``LAUNCHES_PER_SWEEP`` a sweep on a real multi-launch call (skipped without
+  CUDA; ``tests/test_torch_wl.py`` holds that the plain version adds none).
 
-These models are second copies of the kernels' rules and can drift from the
-CUDA sources: the kernels run only on the card, where ``chip_smoke.py``
-compare-wl and compare-ladder hold them to the plain versions bit for bit.
+The model is a second copy of the kernel's rules and can drift from the CUDA
+source: the kernels run only on the card, where ``chip_smoke.py`` compare-wl
+and compare-ladder hold them to the plain versions bit for bit.
 Tolerance: none; every comparison is exact.
 """
 
@@ -36,14 +29,6 @@ from pyisingmontecarlo_tpu_torch.ops import ladder, wl
 
 torch.set_num_threads(1)
 
-SHORT_PAIRS = 8  # csrc/ladder.cu, kShortPairs
-SHORT_LANES = 32 // SHORT_PAIRS
-
-
-def test_launches_per_sweep():
-    assert wl.LAUNCHES_PER_SWEEP == 4 + 2 + 1
-    assert ladder.LAUNCHES_PER_SWEEP == 2 + 2
-
 
 def _dp4a(a, b, c):
     """__dp4a on int32 arrays: the four signed byte products of a and b, summed, plus c."""
@@ -54,18 +39,22 @@ def _dp4a(a, b, c):
     return out
 
 
-def _accumulate(x, kind, size, V):
-    """[R, 3] int64 statistics of x [R, nvars, L] int8 as wl_accumulate<V>
-    sums them: per line, 32-bit chunks of the words of V bytes (V = 2: the
-    upper half zero), dp4a with the outgoing partners' chunks, with 0x01010101
-    and with the chunk shifted down a byte, the next byte on top."""
+def _line_stats(x, kind, size, V):
+    """[R, 3] int64 statistics of x [R, nvars, L] int8 as line_stats<V> sums
+    them: per line, 32-bit chunks of the words of V bytes (V = 2: the upper
+    half zero), dp4a with 0x01010101 and with the chunk shifted down a byte,
+    the next byte on top; on the lines of color 1, dp4a with each neighbour
+    line's chunks (ring i + 1, i - 1; torus y + 1, y - 1, x + 1, x - 1)."""
     R, n, L = x.shape
     u = x.view(np.uint8).astype(np.uint32)
+    i = np.arange(n)
     if kind == "ring":
-        partners = [np.roll(u, -1, 1)]
+        color1 = i % 2 == 1
+        nbrs = [np.roll(u, -1, 1), np.roll(u, 1, 1)]
     else:
+        color1 = (i // size + i % size) % 2 == 1
         q = u.reshape(R, size, size, L)
-        partners = [np.roll(q, -1, 2).reshape(R, n, L), np.roll(q, -1, 1).reshape(R, n, L)]
+        nbrs = [np.roll(q, sh, ax).reshape(R, n, L) for ax in (2, 1) for sh in (-1, 1)]
     nxt = np.roll(u, -1, 2)  # the byte after each slice, slice 0 after the last
     B = min(V, 4)  # bytes a chunk holds
     sb = sh = pr = np.zeros((R, n), np.int64)
@@ -76,18 +65,18 @@ def _accumulate(x, kind, size, V):
         a = chunk(u)
         up = (a >> 8) | (nxt[:, :, c0 + B - 1] << (8 * (B - 1)))
         sh = _dp4a(a, np.uint32(0x01010101), sh)
-        for p in partners:
-            sb = _dp4a(a, chunk(p), sb)
         pr = _dp4a(a, up, pr)
+        for p in nbrs:
+            sb = np.where(color1, _dp4a(a, chunk(p), sb), sb)
     return np.stack([sb.sum(1), sh.sum(1), ((L + pr) // 2).sum(1)], 1)
 
 
 @pytest.mark.parametrize("kind,size,nvars,L,V", [
     ("ring", 30, 30, 62, 2), ("torus", 14, 196, 66, 2), ("ring", 10, 10, 60, 4), ("torus", 6, 36, 40, 8),
-    ("torus", 10, 100, 800, 16), ("ring", 8, 8, 4, 4)])
+    ("torus", 10, 100, 800, 16), ("ring", 8, 8, 4, 4), ("ring", 30, 30, 130, 2), ("torus", 4, 16, 1002, 2)])
 def test_accumulate_model_equals_reference_statistics(kind, size, nvars, L, V):
-    """wl_accumulate's word arithmetic equals the plain version's statistics
-    of the state it leaves (one sweep, R = 3), at each word width; V is the
+    """line_stats' word arithmetic equals the plain version's statistics of
+    the state it leaves (one sweep, R = 3), at each word width; V is the
     widest of 16, 8, 4, 2 that divides L (the state's address is aligned)."""
     assert V == max(v for v in (16, 8, 4, 2) if L % v == 0)
     rng = np.random.default_rng(L + nvars)
@@ -96,124 +85,24 @@ def test_accumulate_model_equals_reference_statistics(kind, size, nvars, L, V):
     seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, R).astype(np.int32))
     tables = wl.make_tables((kind, size, -1.0), nvars, 0.05 * L, 1.0, 0.1, L)
     x, stats, samples = wl.wl_sweeps_reference(s, seeds, tables, 1, 1, 1)
-    assert np.array_equal(_accumulate(x.numpy(), kind, size, V), stats.numpy())
+    assert np.array_equal(_line_stats(x.numpy(), kind, size, V), stats.numpy())
     assert np.array_equal(samples[:, 0].numpy(), x[:, :, 0].numpy())  # the stage: slice 0 of every line
 
 
-def _decide(sv, a, b, k, parity):
-    """A fixed decision of the spin sv at pair k of a parity, from its tau
-    neighbours a and b (either order)."""
-    return ((sv * 7 + (a + b) * 5 + k * 3 + parity) * 2654435761 >> 7) % 3 == 0
-
-
-def _parity_by_parity(e, o):
-    """Both parities over the whole line at once (the plain version's order):
-    e[k], o[k] the slices 2k and 2k + 1."""
-    P = len(e)
-    e = e.copy()
-    for k in range(P):
-        if _decide(e[k], o[k], o[k - 1], k, 0):
-            e[k] = -e[k]
-    o = o.copy()
-    for k in range(P):
-        if _decide(o[k], e[(k + 1) % P], e[k], k, 1):
-            o[k] = -o[k]
-    return e, o
-
-
-def _short_schedule(e, o, wrap_pair=None):
-    """ladder_site_short's schedule: thread t holds pairs C t .. C t + C - 1;
-    the odd slice before a thread's first pair is the lane below's last (pair
-    0: the line's last, from lane (P - 1) // C), the even slice after its last
-    the lane above's first (the line's last pair: pair 0's). ``wrap_pair``
-    replaces the pair the wrap is read from (a negative control)."""
-    P, C, W = len(e), SHORT_PAIRS, SHORT_LANES
-    assert P <= C * W
-    ev = np.ones((W, C), np.int64)
-    ov = np.ones((W, C), np.int64)
-    ev.flat[:P], ov.flat[:P] = e, o
-    last = P - 1 if wrap_pair is None else wrap_pair
-    wrap = ov[last // C, last % C]
-    below = np.roll(ov[:, C - 1], 1)  # shfl_up: lane t - 1's last
-    new_e = ev.copy()
-    for t in range(W):
-        for c in range(C):
-            k = C * t + c
-            po = ov[t, c - 1] if c > 0 else (wrap if t == 0 else below[t])
-            if k < P and _decide(ev[t, c], ov[t, c], po, k, 0):
-                new_e[t, c] = -ev[t, c]
-    above = np.roll(new_e[:, 0], -1)  # shfl_down: lane t + 1's first
-    first = new_e[0, 0]
-    new_o = ov.copy()
-    for t in range(W):
-        for c in range(C):
-            k = C * t + c
-            ne = first if k + 1 == P else (new_e[t, c + 1] if c + 1 < C else above[t])
-            if k < P and _decide(ov[t, c], ne, new_e[t, c], k, 1):
-                new_o[t, c] = -ov[t, c]
-    return new_e.flat[:P].copy(), new_o.flat[:P].copy()
-
-
-def _group_schedule(e, o, G):
-    """ladder_site's schedule for the longer lines: thread gt of a group of G
-    holds pair k = b + gt of chunk b; the odd slice before it is lane - 1's
-    (a shuffle within the warp), from memory at a warp's first lane (unchanged
-    in parity 0); after the barrier the even slice after it is lane + 1's,
-    from memory at a warp's last lane and the line's last pair."""
-    P = len(e)
-    mem_e, mem_o = e.copy(), o.copy()
-    for b in range(0, P, G):
-        for gt, k in enumerate(range(b, b + G)):
-            if k >= P:
-                continue
-            lane = gt % 32
-            po = mem_o[k - 1] if lane == 0 else o[k - 1]  # k - 1 >= 0 unless lane 0 (k = 0 wraps in memory)
-            if _decide(e[k], o[k], po, k, 0):
-                mem_e[k] = -e[k]
-    new_e = mem_e.copy()
-    for b in range(0, P, G):
-        for gt, k in enumerate(range(b, b + G)):
-            if k >= P:
-                continue
-            lane = gt % 32
-            ne = mem_e[(k + 1) % P] if lane == 31 or k + 1 == P else new_e[k + 1]
-            if _decide(o[k], ne, new_e[k], k, 1):
-                mem_o[k] = -o[k]
-    return new_e, mem_o
-
-
-def _line(L, seed):
-    rng = np.random.default_rng(seed)
-    s = rng.choice(np.array([-1, 1]), L)
-    return s[0::2].copy(), s[1::2].copy()
-
-
-@pytest.mark.parametrize("L", [4, 6, 16, 40, 60, 62, 64])
-def test_short_schedule_equals_parity_by_parity(L):
-    for seed in range(4):
-        e, o = _line(L, seed)
-        want = _parity_by_parity(e, o)
-        got = _short_schedule(e, o)
-        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
-
-
-def test_short_schedule_negative_control():
-    """The wrap read from the pair before the line's last differs somewhere."""
-    differs = 0
-    for L in (10, 30, 60, 62):
-        for seed in range(8):
-            e, o = _line(L, seed)
-            want = _parity_by_parity(e, o)
-            got = _short_schedule(e, o, wrap_pair=L // 2 - 2)
-            differs += not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]))
-    assert differs > 0
-
-
-@pytest.mark.parametrize("L,G", [(66, 32), (130, 32), (800, 32), (1002, 128), (4096, 256)])
-def test_group_schedule_equals_parity_by_parity(L, G):
-    assert L > 2 * SHORT_PAIRS * SHORT_LANES  # the lines ladder_site_short does not take
-    for seed in range(2):
-        e, o = _line(L, seed)
-        want = _parity_by_parity(e, o)
-        got = _group_schedule(e, o, G)
-        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="the multi-launch kernels run only on the card")
+def test_launches_per_sweep_on_the_card():
+    """The wrappers count LAUNCHES_PER_SWEEP a sweep on a real call of the
+    multi-launch route (a 16-ring at L_tau = 800, 3 sweeps)."""
+    dev = torch.device("cuda")
+    T, n, L = 3, 16, 800
+    s = torch.ones((2, n, L), dtype=torch.int8, device=dev)
+    seeds = torch.arange(2, dtype=torch.int32, device=dev)
+    tables = wl.make_tables(("ring", n, -1.0), n, 40.0, 1.0, 0.0, L, dev)
+    before = wl.wl_sweeps.launches
+    wl._run_multi(s, seeds, tables, T)
+    assert wl.wl_sweeps.launches - before == wl.LAUNCHES_PER_SWEEP * T
+    planes = ladder.build_planes("ring", n, n, np.arange(n), (np.arange(n) + 1) % n, np.full(n, -1.0), [40.0, 30.0],
+                                 [1.0, 1.0], [0.0, 0.0], L, dev)
+    before = ladder.ladder_sweeps.launches
+    ladder._run_multi(s, torch.zeros((T, 2), dtype=torch.int32, device=dev), planes, T)
+    assert ladder.ladder_sweeps.launches - before == ladder.LAUNCHES_PER_SWEEP * T
