@@ -39,6 +39,7 @@ _SIGNATURES = {
     "threefry_bits": ([_P, _I, ctypes.c_longlong, _I, _P, _P], ctypes.c_int),
     "pmc_smem_optin": ([_I], ctypes.c_int),
     "pmc_cluster_group": ([_I], ctypes.c_int),
+    "pmc_site_lanes": ([_I], ctypes.c_int),
     "pmc_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -461,3 +461,7 @@ extern "C" int ladder_resident_sweeps(void* s, const void* seeds, const void* J,
         static_cast<const int32_t*>(ea), static_cast<const int32_t*>(eb), E, static_cast<int32_t*>(feat));
     return (int)cudaGetLastError();
 }
+
+// The threads a time line of the multi-launch site phases at L slices
+// (site_lanes), for measurement.
+extern "C" int pmc_site_lanes(int L) { return site_lanes(L); }

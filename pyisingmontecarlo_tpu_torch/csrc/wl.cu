@@ -45,7 +45,7 @@
 // state moves once in and once out a sweep, the halo read again from L2.
 //
 // Multi-launch (what neither takes: L_tau so long that no tile of 8 fits),
-// six launches a sweep on the caller's stream:
+// seven launches a sweep on the caller's stream:
 //
 // - wl_site, four times (site color x tau parity): one thread per active
 //   (r, i, tau), updated in place. Its spatial neighbours have the other color
@@ -63,15 +63,14 @@
 //   (ops/wl.py, xla_sum_last), its windows of 32 slices in parallel.
 //   Additions and products are __fadd_rn / __fmul_rn, so nothing is
 //   contracted, and the log is logf (no fast math). Shared memory: about
-//   8.6 bytes a slice (fk_line_bytes), 35 KB a line at L = 4096. Then the
-//   same group adds its line's statistics of the sweep (line_stats): the
-//   lines of color 0 are final after their phase, those of color 1, and every
-//   bond, after the second. The group reads its line and, on color 1, its
-//   neighbours' lines in aligned words of up to 16 bytes, coalesced along
-//   tau, sums four slices an instruction with dp4a, and adds the sums to int64
-//   accumulators [R, 3, nvars] (one writer per line, no atomics, exact); in
-//   sampling mode it writes the line's slice 0 into the sample slot after
-//   every freq-th sweep.
+//   8.6 bytes a slice (fk_line_bytes), 35 KB a line at L = 4096.
+// - wl_accumulate, once: a warp per line (both colors) adds the line's
+//   tau-sums of bond products (outgoing bonds), spins and aligned time bonds
+//   to int64 accumulators [R, 3, nvars]: exact, no atomics (one writer per
+//   line). The lanes read the line and its partners' lines in aligned words
+//   of up to 16 bytes, coalesced along tau, and sum four slices an
+//   instruction with dp4a. In sampling mode the same launch writes slice 0
+//   into the sample slot after every freq-th sweep.
 //
 // What bounds a sweep on an H100: it must hash two draws per spin (the site
 // phase's and its time bond's; 22 integer operations each) and do about 18
@@ -79,7 +78,7 @@
 // spins) that is 1.3 G operations, 39 us at the 33.5 T int32 op/s peak, while
 // reading and writing the 21 MB state once would take 12.5 us at 3.35 TB/s
 // (and it stays in the 50 MB L2): integer issue bounds it. The multi-launch
-// route passes over the state eight times a sweep with byte loads, its
+// route passes over the state nine times a sweep with byte loads, its
 // neighbours' bytes read from L2, and its cluster phase does about log2 of
 // the longest frozen run more work a slice than a serial walk would (the
 // doubling rounds; chip_smoke.py counts its SASS); the tiled route passes
@@ -133,11 +132,47 @@ __global__ void __launch_bounds__(kSiteBlock) wl_site(
     if ((int)u <= t) lp[tau] = (int8_t)(-sv);
 }
 
-// The words of a line's statistics: V bytes (V slices) of a time line, as
-// V / 4 (at least one) 32-bit chunks of four signed bytes, for dp4a (__dp4a:
-// four byte products and their sum). V is the widest of 16, 8, 4, 2 that
-// divides L and the state's address (acc_width), since a line starts at a
-// multiple of L.
+// grid fk_grid: a group of G threads per time line of the color
+// (fk_block_lines(G) lines a block): fk_line (worldline.cuh) with the bond
+// frozen when its int31 draw is below pb, the slice's dE from the host table,
+// and the head's flip when log((u + 0.5) / 2^31) < -dE.
+template <int G>
+__global__ void __launch_bounds__(fk_block_threads(G)) wl_cluster(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const float* __restrict__ cde,
+    int32_t pb, Geo g, uint32_t ctr, int color) {
+    extern __shared__ __align__(16) unsigned char fk_smem[];
+    int x, y;
+    if (!fk_site<G>(g, color, x, y)) return;  // the whole group
+    const int L = g.L, nvars = g.nvars, r = blockIdx.z, i = x * g.size + y;
+    const int8_t* p = s + (size_t)r * nvars * L;
+    const uint32_t seed = (uint32_t)__ldg(seeds + r);
+    const Nbrs nb = neighbours_at(g, x, y);
+    fk_line<G>(
+        s + ((size_t)r * nvars + i) * L, fk_smem + (threadIdx.x / G) * fk_line_bytes(L), L,
+        [&](int t) { return (int)lane_draw31(seed, (uint32_t)(t * nvars + i), ctr) < pb; },
+        [&](int t, int sv) { return __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, t) + 4) >> 1)); },
+        [&](int head, float de) {
+            return log_uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1)) < -de;
+        });
+}
+
+// The accumulation: a warp per time line (both colors), kAccLines lines a
+// block, in a grid of (chunks of a row's lines, rows, replicas): a torus has
+// `size` rows of `size` lines, a ring one row of nvars, so a warp finds its
+// line with no division. The lanes read words of V bytes (V slices) of the
+// line and of its outgoing bonds' partners (ring i+1; torus y+1 and x+1),
+// coalesced along tau; a word holds V / 4 (at least one) 32-bit chunks of
+// four signed bytes, and dp4a (__dp4a: four byte products and their sum)
+// gives a chunk's bond products, spin sum and aligned-bond products
+// s_t s_{t+1}, the chunk shifted down one byte with the next byte on top
+// (the next lane's first byte by a shuffle; the line's slice 0 after its
+// last slice). The aligned bonds are (L + sum s_t s_{t+1}) / 2. The sums
+// stay int32 (|x| <= 2 L) and a warp reduction gives lane 0 the line's
+// three, which it adds into acc[r, k, i] int64: one writer per line, no
+// atomics. V is the widest of 16, 8, 4, 2 that divides L and the state's
+// address (acc_width), since a line starts at a multiple of L.
+constexpr int kAccLines = 8;
+
 template <int V>
 struct Word {
     static constexpr int N = V >= 4 ? V / 4 : 1;  // 32-bit chunks
@@ -159,119 +194,64 @@ struct Word {
     }
 };
 
-// A line's statistics once its cluster phase is done, by the line's group of
-// G threads: the tau-sums of its spins and aligned time bonds and, on a line
-// of color 1, of its bond products with all its neighbours (ring i + 1,
-// i - 1; torus y + 1, y - 1, x + 1, x - 1), which the phase of color 0 has
-// left final. The lattice is bipartite (nvars and the torus side are even),
-// so every bond has one end of color 1 and is counted once. Thread gt reads
-// words gt, gt + G, ... of the line and of its neighbours' lines, coalesced
-// along tau, and sums four slices a dp4a: the spin sum against 0x01010101,
-// the bond products against the neighbours' chunks, and the aligned-bond
-// products s_t s_{t+1} against the chunk shifted down one byte with the next
-// byte on top (the next lane's first byte by a shuffle; from memory at a
-// warp's last lane; slice 0 after the line's last). The aligned bonds are
-// (L + sum s_t s_{t+1}) / 2. The sums stay int32 (|x| <= 4 L); the group
-// reduces them (a warp's shuffles, then across the warps in red, 3 G / 32
-// ints of shared memory) and thread 0 adds them into acc[r, k, i] int64 (a
-// the line's column, n = nvars apart): one writer per line, no atomics. q:
-// the NQ neighbour lines (none on color 0, 2 on a ring, 4 on a torus);
-// stage: the line's sample slot, or null.
-template <int G, int V, int NQ>
-__device__ __forceinline__ void line_stats(const int8_t* lp, int L, int n, const int8_t* const* q, long long* a,
-                                           int8_t* stage, int* red) {
-    constexpr int NW = G / 32;
-    constexpr unsigned kAll = 0xffffffffu;
-    const int nw = L / V, gt = threadIdx.x % G, lane = threadIdx.x & 31;
-    const uint32_t s0 = (uint8_t)lp[0];
+template <int V>
+__global__ void __launch_bounds__(32 * kAccLines) wl_accumulate(
+    const int8_t* __restrict__ s, long long* __restrict__ acc, int8_t* __restrict__ stage, int stage_stride, Geo g) {
+    const int y = blockIdx.x * kAccLines + (threadIdx.x >> 5);
+    if (y >= (g.torus ? g.size : g.nvars)) return;  // the whole warp
+    const int lane = threadIdx.x & 31, x = blockIdx.y, r = blockIdx.z, L = g.L, n = g.nvars, m = g.size;
+    const int i = g.torus ? x * m + y : y;
+    const int8_t* p = s + (size_t)r * n * L;
+    const int8_t* lp = p + (size_t)i * L;
+    // the partners of the site's outgoing bonds
+    const int8_t* q1 = p + (size_t)(g.torus ? x * m + (y + 1 == m ? 0 : y + 1) : (y + 1 == n ? 0 : y + 1)) * L;
+    const int8_t* q2 = g.torus ? p + (size_t)((x + 1 == m ? 0 : x + 1) * m + y) * L : lp;  // torus only
+    const int nw = L / V;
+    long long* a = acc + (size_t)r * 3 * n + i;
+    long long a0 = 0, a1 = 0, a2 = 0;  // the accumulators, read while the line's words arrive
+    if (lane == 0) a0 = a[0], a1 = a[n], a2 = a[2 * (size_t)n];
     int sb = 0, sh = 0, pr = 0;
-    for (int b = 0; b < nw; b += G) {
-        const int w = b + gt;
+    uint32_t s0 = 0;
+#pragma unroll 2
+    for (int b = 0; b < nw; b += 32) {
+        const int w = b + lane;
         const bool in = w < nw;
         Word<V> u;
 #pragma unroll
         for (int k = 0; k < Word<V>::N; ++k) u.c[k] = 0;
         if (in) u.load(lp + w * V);
-        uint32_t nx = __shfl_down_sync(kAll, u.c[0] & 0xffu, 1);
+        uint32_t nx = __shfl_down_sync(0xffffffffu, u.c[0] & 0xffu, 1);
+        if (b == 0) s0 = __shfl_sync(0xffffffffu, u.c[0] & 0xffu, 0);
         if (in && (lane == 31 || w + 1 == nw)) nx = w + 1 == nw ? s0 : (uint8_t)lp[(w + 1) * V];
         if (in) {
+            Word<V> b1, b2;
+            b1.load(q1 + w * V);
+            if (g.torus) b2.load(q2 + w * V);
 #pragma unroll
             for (int k = 0; k < Word<V>::N; ++k) {
                 const int c = (int)u.c[k];
                 const uint32_t up = k + 1 < Word<V>::N ? __funnelshift_r(u.c[k], u.c[k + 1 < Word<V>::N ? k + 1 : k], 8)
                                                         : (u.c[k] >> 8) | (nx << Word<V>::top);
                 sh = __dp4a(c, 0x01010101, sh);
+                sb = __dp4a(c, (int)b1.c[k], sb);
+                if (g.torus) sb = __dp4a(c, (int)b2.c[k], sb);
                 pr = __dp4a(c, (int)up, pr);
-            }
-#pragma unroll
-            for (int j = 0; j < NQ; ++j) {
-                Word<V> v;
-                v.load(q[j] + w * V);
-#pragma unroll
-                for (int k = 0; k < Word<V>::N; ++k) sb = __dp4a((int)u.c[k], (int)v.c[k], sb);
             }
         }
     }
-    sb = __reduce_add_sync(kAll, sb);
-    sh = __reduce_add_sync(kAll, sh);
-    pr = __reduce_add_sync(kAll, pr);
-    if constexpr (NW > 1) {
-        if (lane == 0) red[gt >> 5] = sb, red[NW + (gt >> 5)] = sh, red[2 * NW + (gt >> 5)] = pr;
-        fk_sync<G>();
-        if (gt == 0)
-            for (int k = 1; k < NW; ++k) sb += red[k], sh += red[NW + k], pr += red[2 * NW + k];
-    }
-    if (gt == 0) {
-        if (NQ) a[0] += sb;
-        a[n] += sh;
-        a[2 * (size_t)n] += (L + pr) / 2;
-        if (stage) *stage = (int8_t)s0;
+    sb = __reduce_add_sync(0xffffffffu, sb);
+    sh = __reduce_add_sync(0xffffffffu, sh);
+    pr = __reduce_add_sync(0xffffffffu, pr);
+    if (lane == 0) {
+        a[0] = a0 + sb;
+        a[n] = a1 + sh;
+        a[2 * (size_t)n] = a2 + (L + pr) / 2;
+        if (stage) stage[(size_t)r * stage_stride + i] = (int8_t)s0;
     }
 }
 
-// grid fk_grid: a group of G threads per time line of the color
-// (fk_block_lines(G) lines a block): fk_line (worldline.cuh) with the bond
-// frozen when its int31 draw is below pb, the slice's dE from the host table,
-// and the head's flip when log((u + 0.5) / 2^31) < -dE; then the line's
-// statistics into acc [R, 3, nvars] int64 and, where stage is not null
-// ([R, stage_stride] rows of nvars), its slice 0 (line_stats, words of V
-// bytes).
-template <int G, int V>
-__global__ void __launch_bounds__(fk_block_threads(G)) wl_cluster(
-    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const float* __restrict__ cde,
-    int32_t pb, Geo g, uint32_t ctr, int color, long long* __restrict__ acc, int8_t* __restrict__ stage,
-    int stage_stride) {
-    extern __shared__ __align__(16) unsigned char fk_smem[];
-    int x, y;
-    if (!fk_site<G>(g, color, x, y)) return;  // the whole group
-    const int L = g.L, nvars = g.nvars, r = blockIdx.z, i = x * g.size + y;
-    const int8_t* p = s + (size_t)r * nvars * L;
-    int8_t* lp = s + ((size_t)r * nvars + i) * L;
-    unsigned char* sm = fk_smem + (threadIdx.x / G) * fk_line_bytes(L);
-    const uint32_t seed = (uint32_t)__ldg(seeds + r);
-    const Nbrs nb = neighbours_at(g, x, y);
-    fk_line<G>(
-        lp, sm, L, [&](int t) { return (int)lane_draw31(seed, (uint32_t)(t * nvars + i), ctr) < pb; },
-        [&](int t, int sv) { return __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, t) + 4) >> 1)); },
-        [&](int head, float de) {
-            return log_uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1)) < -de;
-        });
-    fk_sync<G>();  // the line's flips are written, and fk_line's shared memory free
-    const int8_t* q[4] = {p + nb.j[0] * L, p + nb.j[1] * L, p + (g.torus ? nb.j[2] : nb.j[0]) * L,
-                          p + (g.torus ? nb.j[3] : nb.j[0]) * L};
-    long long* a = acc + (size_t)r * 3 * nvars + i;
-    int8_t* st = stage ? stage + (size_t)r * stage_stride + i : nullptr;
-    int* red = reinterpret_cast<int*>(sm);
-    if (color == 0)
-        line_stats<G, V, 0>(lp, L, nvars, q, a, st, red);
-    else if (g.torus)
-        line_stats<G, V, 4>(lp, L, nvars, q, a, st, red);
-    else
-        line_stats<G, V, 2>(lp, L, nvars, q, a, st, red);
-}
-
-// acc_width: the word of line_stats, the widest of 16, 8, 4 and 2 bytes that
-// divides L and the state's address (0: the address is odd).
+// acc_width: the word of wl_accumulate, the widest of 16, 8, 4 and 2 bytes
+// that divides L and the state's address (0: the address is odd).
 inline int acc_width(int L, const void* s) {
     const uintptr_t a = reinterpret_cast<uintptr_t>(s);
     for (int v = 16; v >= 2; v >>= 1)
@@ -279,15 +259,23 @@ inline int acc_width(int L, const void* s) {
     return 0;
 }
 
-// Calls fn(std::integral_constant<int, V>{}) for V = acc_width's 16, 8, 4 or 2.
-template <class Fn>
-cudaError_t by_width(int V, Fn fn) {
+// The grid of wl_accumulate: (chunks of a row's lines, rows, replicas).
+inline dim3 acc_grid(const Geo& g, int R) {
+    const int per_row = g.torus ? g.size : g.nvars;
+    return dim3((per_row + kAccLines - 1) / kAccLines, g.torus ? g.size : 1, R);
+}
+
+// Launches wl_accumulate<acc_width> on `st`.
+inline cudaError_t launch_accumulate(const int8_t* s, long long* acc, int8_t* stage, int stage_stride, const Geo& g,
+                                     int R, int V, cudaStream_t st) {
+    const dim3 grid = acc_grid(g, R);
     switch (V) {
-        case 16: return fn(std::integral_constant<int, 16>{});
-        case 8: return fn(std::integral_constant<int, 8>{});
-        case 4: return fn(std::integral_constant<int, 4>{});
-        default: return fn(std::integral_constant<int, 2>{});
+        case 16: wl_accumulate<16><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
+        case 8: wl_accumulate<8><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
+        case 4: wl_accumulate<4><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
+        default: wl_accumulate<2><<<grid, 32 * kAccLines, 0, st>>>(s, acc, stage, stage_stride, g); break;
     }
+    return cudaGetLastError();
 }
 
 constexpr int kWlParamBytes = 30 * 4 + 10 * 4;  // thr, cde (ops/wl.py WL_PARAM_BYTES)
@@ -493,8 +481,8 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
 
 }  // namespace
 
-// Runs T sweeps (6 T launches) on `stream` on s[R, nvars, L], s at an even
-// address (line_stats' words). thr [30] int32, cde [10] f32 and pb as in
+// Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L], s at an even
+// address (wl_accumulate's words). thr [30] int32, cde [10] f32 and pb as in
 // ops/wl.py; acc [R, 3, nvars] int64 is added to; samples is
 // [R, nsamples, nvars] int8 or null, slot k written after sweep
 // (k + 1) * freq. Draw d of sweep t uses counter 8 t + d. The cluster phases
@@ -514,34 +502,31 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
     if (V == 0) return (int)cudaErrorMisalignedAddress;
     return (int)by_group(L, [&](auto gc) {
         constexpr int G = decltype(gc)::value;
-        return by_width(V, [&](auto vc) {
-            constexpr int W = decltype(vc)::value;
-            const int smem = fk_block_lines(G) * fk_line_bytes(L);
-            cudaError_t e =
-                cudaFuncSetAttribute(wl_cluster<G, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (e != cudaSuccess) return e;
-            for (int t = 0; t < T; ++t) {
-                const uint32_t base = 8u * (uint32_t)t;
-                uint32_t d = 0;
-                for (int color = 0; color < 2; ++color)
-                    for (int parity = 0; parity < 2; ++parity) {
-                        wl_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, static_cast<const int32_t*>(thr), g,
-                                                                  n_active, base + d++, color, parity);
-                        if ((e = cudaGetLastError()) != cudaSuccess) return e;
-                    }
-                int8_t* stage = nullptr;
-                if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
-                    stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
-                for (int color = 0; color < 2; ++color) {
-                    wl_cluster<G, W><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
-                        sp, sd, static_cast<const float*>(cde), pb, g, base + d, color, static_cast<long long*>(acc),
-                        stage, nsamples * nvars);
-                    d += 2;
+        const int smem = fk_block_lines(G) * fk_line_bytes(L);
+        cudaError_t e = cudaFuncSetAttribute(wl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+        for (int t = 0; t < T; ++t) {
+            const uint32_t base = 8u * (uint32_t)t;
+            uint32_t d = 0;
+            for (int color = 0; color < 2; ++color)
+                for (int parity = 0; parity < 2; ++parity) {
+                    wl_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, static_cast<const int32_t*>(thr), g,
+                                                              n_active, base + d++, color, parity);
                     if ((e = cudaGetLastError()) != cudaSuccess) return e;
                 }
+            for (int color = 0; color < 2; ++color) {
+                wl_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
+                    sp, sd, static_cast<const float*>(cde), pb, g, base + d, color);
+                d += 2;
+                if ((e = cudaGetLastError()) != cudaSuccess) return e;
             }
-            return cudaSuccess;
-        });
+            int8_t* stage = nullptr;
+            if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
+                stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
+            e = launch_accumulate(sp, static_cast<long long*>(acc), stage, nsamples * nvars, g, R, V, st);
+            if (e != cudaSuccess) return e;
+        }
+        return cudaSuccess;
     });
 }
 

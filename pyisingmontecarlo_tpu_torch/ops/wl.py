@@ -33,7 +33,7 @@ the tiled route's redundant halo work (``resident_plan``,
 ``RESIDENT_IDLE_SITES_TILED``); else the tiled kernel (one launch per sweep,
 one block per spatial tile of a replica with the tile and its halo in shared
 memory) where a tile of at least ``TILE_MIN`` sites a side fits
-(``tiled_plan``); else the multi-launch kernels (six launches a sweep). All
+(``tiled_plan``); else the multi-launch kernels (seven launches a sweep). All
 three equal the plain version bit for bit.
 
 Randomness: the draw ``d`` of sweep t at (tau, i) is
@@ -89,7 +89,7 @@ __all__ = [
 ]
 
 DRAWS_PER_SWEEP = 8
-LAUNCHES_PER_SWEEP = 6  # multi-launch route: 4 site phases, 2 cluster phases (each adds its lines' statistics)
+LAUNCHES_PER_SWEEP = 7  # multi-launch route: 4 site phases, 2 cluster phases, 1 accumulation
 MAX_LTAU = 4096  # the routes' line buffers in shared memory (csrc/worldline.cuh, kMaxL)
 RESIDENT_THREADS = 1024  # threads of a resident block (csrc/resident.cuh, kResThreads)
 WL_PARAM_BYTES = 30 * 4 + 10 * 4  # the resident block's thr and cde

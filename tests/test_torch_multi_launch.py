@@ -1,13 +1,11 @@
-"""The multi-launch route's statistics, as ``line_stats`` in ``csrc/wl.cu``
-computes them at the end of each cluster phase, modelled in numpy.
+"""The multi-launch route's accumulation, as ``wl_accumulate`` in
+``csrc/wl.cu`` computes it, modelled in numpy, and the launches a sweep.
 
-- A model of the word arithmetic: a group of threads a line, words of V bytes
-  (2, 4, 8 or 16), four signed bytes a dp4a; after the phase of color 0 the
-  lines of color 0 add their spin sums and aligned bonds (the line's bytes
-  against the same bytes shifted down one, the next lane's first byte on
-  top, slice 0 after the last), after the phase of color 1 the lines of color
-  1 add theirs and their bond products with every neighbour line, so that each
-  bond of the bipartite lattice is counted once, at its color-1 end; against
+- A model of the kernel's word arithmetic: a warp a line, words of V bytes
+  (2, 4, 8 or 16), four signed bytes a dp4a, the line's bond products with
+  its outgoing partners (ring i + 1; torus y + 1, x + 1), its spin sum, and
+  its aligned bonds from the line's bytes against the same bytes shifted down
+  one (the next lane's first byte on top, slice 0 after the last); against
   the statistics that ``wl_sweeps_reference`` returns, on rings and tori, at
   L_tau = 2 mod 4 and at each word width.
 - On the card, the launches a sweep: the wrappers' counters advance by
@@ -39,22 +37,18 @@ def _dp4a(a, b, c):
     return out
 
 
-def _line_stats(x, kind, size, V):
-    """[R, 3] int64 statistics of x [R, nvars, L] int8 as line_stats<V> sums
-    them: per line, 32-bit chunks of the words of V bytes (V = 2: the upper
-    half zero), dp4a with 0x01010101 and with the chunk shifted down a byte,
-    the next byte on top; on the lines of color 1, dp4a with each neighbour
-    line's chunks (ring i + 1, i - 1; torus y + 1, y - 1, x + 1, x - 1)."""
+def _accumulate(x, kind, size, V):
+    """[R, 3] int64 statistics of x [R, nvars, L] int8 as wl_accumulate<V>
+    sums them: per line, 32-bit chunks of the words of V bytes (V = 2: the
+    upper half zero), dp4a with the outgoing partners' chunks, with 0x01010101
+    and with the chunk shifted down a byte, the next byte on top."""
     R, n, L = x.shape
     u = x.view(np.uint8).astype(np.uint32)
-    i = np.arange(n)
     if kind == "ring":
-        color1 = i % 2 == 1
-        nbrs = [np.roll(u, -1, 1), np.roll(u, 1, 1)]
+        partners = [np.roll(u, -1, 1)]
     else:
-        color1 = (i // size + i % size) % 2 == 1
         q = u.reshape(R, size, size, L)
-        nbrs = [np.roll(q, sh, ax).reshape(R, n, L) for ax in (2, 1) for sh in (-1, 1)]
+        partners = [np.roll(q, -1, 2).reshape(R, n, L), np.roll(q, -1, 1).reshape(R, n, L)]
     nxt = np.roll(u, -1, 2)  # the byte after each slice, slice 0 after the last
     B = min(V, 4)  # bytes a chunk holds
     sb = sh = pr = np.zeros((R, n), np.int64)
@@ -65,9 +59,9 @@ def _line_stats(x, kind, size, V):
         a = chunk(u)
         up = (a >> 8) | (nxt[:, :, c0 + B - 1] << (8 * (B - 1)))
         sh = _dp4a(a, np.uint32(0x01010101), sh)
+        for p in partners:
+            sb = _dp4a(a, chunk(p), sb)
         pr = _dp4a(a, up, pr)
-        for p in nbrs:
-            sb = np.where(color1, _dp4a(a, chunk(p), sb), sb)
     return np.stack([sb.sum(1), sh.sum(1), ((L + pr) // 2).sum(1)], 1)
 
 
@@ -75,7 +69,7 @@ def _line_stats(x, kind, size, V):
     ("ring", 30, 30, 62, 2), ("torus", 14, 196, 66, 2), ("ring", 10, 10, 60, 4), ("torus", 6, 36, 40, 8),
     ("torus", 10, 100, 800, 16), ("ring", 8, 8, 4, 4), ("ring", 30, 30, 130, 2), ("torus", 4, 16, 1002, 2)])
 def test_accumulate_model_equals_reference_statistics(kind, size, nvars, L, V):
-    """line_stats' word arithmetic equals the plain version's statistics of
+    """wl_accumulate's word arithmetic equals the plain version's statistics of
     the state it leaves (one sweep, R = 3), at each word width; V is the
     widest of 16, 8, 4, 2 that divides L (the state's address is aligned)."""
     assert V == max(v for v in (16, 8, 4, 2) if L % v == 0)
@@ -85,7 +79,7 @@ def test_accumulate_model_equals_reference_statistics(kind, size, nvars, L, V):
     seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, R).astype(np.int32))
     tables = wl.make_tables((kind, size, -1.0), nvars, 0.05 * L, 1.0, 0.1, L)
     x, stats, samples = wl.wl_sweeps_reference(s, seeds, tables, 1, 1, 1)
-    assert np.array_equal(_line_stats(x.numpy(), kind, size, V), stats.numpy())
+    assert np.array_equal(_accumulate(x.numpy(), kind, size, V), stats.numpy())
     assert np.array_equal(samples[:, 0].numpy(), x[:, :, 0].numpy())  # the stage: slice 0 of every line
 
 
