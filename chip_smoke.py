@@ -7,14 +7,17 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 
 1.  gpu           the card's name and power limit (nvidia-smi);
 2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
-                  (registers, shared memory and spills of each), and the SASS
+                  (registers, shared memory and spills of each) and their
+                  measurement builds (TILED_VARIANTS, SQ2D_CUTS, CHAIN_CUTS),
+                  all at once, and the SASS
                   instructions of one lane-hash draw, of a site update of
                   ``sq2d_tiled``'s row loop and of a word of 32 slices in each
                   slice loop of the multi-launch cluster phase (``fk_line`` in
                   wl_cluster and ladder_cluster), of a slice of
-                  wl_accumulate's word loop and of a spin of ladder_site at
-                  L_tau = 60 and 1002 (hash, logf, loads, stores, the rest;
-                  cuobjdump, where the toolkit has it);
+                  wl_accumulate's word loop, of a spin of ladder_site at
+                  L_tau = 60 and 1002 and of wl_site at L_tau = 800 (hash,
+                  logf, loads, stores, the rest; cuobjdump, where the
+                  toolkit has it);
 3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
                   PyTorch version on the card, bit for bit (annealing, field,
                   explicit randoms, sampling, bench shape; L = 6, 16 and 200,
@@ -50,15 +53,17 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   whole at high K_tau (each of the three cluster group sizes);
                   at L_tau = 62 and 66 (2-byte words) on a 30-ring and a 14^2
                   torus, R = 3, sampling every 2 and 3 of 5 and 7 sweeps;
+                  at L_tau = 130 and 514 (wl_site's 16 threads a line, and
+                  a warp's two chunks, the last of one pair);
 8.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
                   256^2 TFIM torus (the shape of benches/bench_qmc_large.py;
                   tiled, one launch per sweep);
 9.  main-quantum-sampling  ``run_quantum_monte_carlo_sampling`` on the same
                   torus, 20 sweeps (the tiled kernel's sampling mode);
 10. main-quantum-long  both entry points on a 64^2 torus at beta=40, so
-                  L_tau=800, 5 and 4 sweeps (multi-launch, 7 launches per
-                  sweep: 4 wl_site, 2 wl_cluster, 1 wl_accumulate; plain and
-                  sampling mode);
+                  L_tau=800, 5 and 4 sweeps (multi-launch, 5 launches per
+                  sweep: 2 wl_site, both tau parities of a color each, 2
+                  wl_cluster, 1 wl_accumulate; plain and sampling mode);
 11. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
                   TFIM chain, 64 replicas, 500 + 2000 sweeps (benches/bench_qmc.py's
                   shape; resident, one launch per call), against the exact
@@ -77,10 +82,11 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   phases alone (what one pass over the lines needs, for the
                   frozen bonds of the timed state) and the instruction floor
                   of their algorithm (the SASS counts of the build phase);
-                  the accumulation's time a sweep against what it needs
-                  (accumulate_need) and its SASS floor; every profiled
-                  call's launches beside the wrapper's count (the best of
-                  up to three traces, none above the count);
+                  the site phases' and the accumulation's times a sweep
+                  against what they need (wl_site_need, accumulate_need) and
+                  their SASS floors; every profiled call's launches beside
+                  the wrapper's count (the best of up to three traces, none
+                  above the count);
 14. compare-ladder    the ladder kernels vs their plain version, bit for bit
                   in states and swap features: resident and multi-launch,
                   each against the plain version and each other (ring with
@@ -116,10 +122,17 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   chunks);
 19. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
-                  steps x 29 slots x R = 100) and a plan with worm and cluster
-                  slots at R = 1 over 2^16 chained splits; its time at 200 and
-                  4000 steps beside its bound, and the numpy chain's (the
-                  build phase counts a threefry block's SASS instructions);
+                  steps x 29 slots x R = 100), a plan with worm and cluster
+                  slots at R = 1 over 2^16 chained splits and a plan of every
+                  slot kind (fan and bits of m = 0 among them) at R = 100; its
+                  call and kernel time at 200 and 4000 steps beside its
+                  roofline (tables' bytes against every block's ALU
+                  instructions) and the spine's latency floor (T S steps at
+                  the step that threefry_spine_probe measures); at each of
+                  its three main-path plans, the kernel against its
+                  measurement builds (CHAIN_CUTS: the spine alone, the key
+                  staged) in turns; and the numpy chain's time (the build
+                  phase counts a threefry block's SASS instructions);
 20. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
                   every family (spin on the dense int, dense hi+lo and ELL
                   paths, edge with and without importance weights, worms, SW
@@ -148,7 +161,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   relative; one sweep of the main path's glass at full width,
                   phase by phase, where every differing spin must be an f32
                   tie; threefry_chain with the main path's all-plain plan vs
-                  its numpy version, bit for bit, its time and bound;
+                  its numpy version, bit for bit, its time, roofline and
+                  spine floor;
 25. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
                   benches/bench_classical_graph.py (n = 4096, R = 64, Gamma = 1,
                   beta = 2, L_tau = 40): run_qmc(2.0, 100), then
@@ -173,7 +187,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   Glauber ties counted (the card replays the CPU's decisions);
                   threefry_chain's fan, slice and bits slots vs its numpy
                   version bit for bit (a plan of every kind, the do_loop plan,
-                  the hard plan at 100 sweeps x R = 64, timed with its bound);
+                  the hard plan at 100 sweeps x R = 64, timed with its
+                  roofline and spine floor);
 29. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
                   and bench_qmcrunner.py time it, depth cut to a quarter: the
                   hard n = 32 system (ZZ, X, XX, ZZZ on a ring; R = 64, beta 1;
@@ -240,7 +255,8 @@ the 64-chain through QmcRunner.run_sampling), four runs a side (~9 min).
 does it for the multi-launch routes: ms a sweep of main-quantum-long's 64^2
 torus at L_tau = 800, of main-tempering-wide's 64^2 ladder and of a 32^2 +-J
 ladder at L_tau = 1002, R = 16 (the best of three 20-sweep calls), with each
-kernel's device us a sweep (torch.profiler), ten runs a side (~8 min).
+kernel's device us a sweep (torch.profiler), and threefry_chain's ms a call
+at its three main-path plans (chain_plans), ten runs a side (~8 min).
 """
 
 from __future__ import annotations
@@ -325,7 +341,10 @@ def acc_ops_per_slice(ndir):
 
 
 LADDER_SITE_OPS_PER_SPIN = (HASH_OPS + 4, 22 + 2 * LOG_OPS)
-SITE_PAIRS = 8  # pairs of slices a thread of ladder_site holds (csrc/ladder.cu, kSitePairs)
+SITE_PAIRS = 8  # pairs of slices a thread of wl_site and ladder_site holds (csrc/worldline.cuh, kSitePairs)
+# What a worldline site phase needs an active spin (wl_site): its draw and 6 integer operations (the position, the
+# table's index from the neighbour and tau sums, the test against the threshold, the flip); no f32 at all
+WL_SITE_OPS_PER_SPIN = HASH_OPS + 6
 # the tempering ladder of benches/bench_tempering.py (the BASELINE.json
 # "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
 # geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
@@ -411,15 +430,21 @@ SQ2D_CUTS = {"box in and tile out only": ("PMC_SQ2D_CUT=0",), "no lane hash": ("
              "no barriers between phases": ("PMC_SQ2D_CUT=2",)}
 
 
+# builds of the key chain's kernel that compare-keychain times beside it (csrc/keychain.cu): the spine alone, its
+# expansion warps idle (its tables are not the chain's); the spine staging the key it splits, each expansion warp
+# splitting off the sub-key (the same tables)
+CHAIN_CUTS = {"the spine alone": ("PMC_CHAIN_SPINE_ONLY=1",), "the key staged": ("PMC_CHAIN_STAGE_KEY=1",)}
+
+
 def phase_build():
-    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS and SQ2D_CUTS,
-    all at once; then the SASS counts (returns cluster_sass's)."""
+    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, SQ2D_CUTS and
+    CHAIN_CUTS, all at once; then the SASS counts (returns cluster_sass's)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values()]
+    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values(), *CHAIN_CUTS.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
         variants = [pool.submit(_kernels.build, defines=d) for d in builds]
         path = _kernels.build(verbose=True)
@@ -955,6 +980,14 @@ def phase_compare_wl(dev):
         ("multi-launch L=66 (2 mod 4): torus 14^2 R=3 sampling freq=3 nsamples=2 T=7", ("torus", 14, -1.0), 196, 3,
          66, 7, 3.3, 1.0, 0.0, 3, 2),
     ]
+    # wl_site's other thread counts and chunks: 16 threads a line (L_tau = 130), a warp's two chunks, the last of
+    # one pair (L_tau = 514), both in 2-byte words
+    cases += [
+        ("multi-launch L=130 (16 threads a line): torus 14^2 R=3 h=0.1 T=3", ("torus", 14, -1.0), 196, 3, 130, 3,
+         6.5, 1.0, 0.1, 0, 0),
+        ("multi-launch L=514 (a last chunk of one pair): ring 30 R=3 sampling freq=1 nsamples=2 T=2",
+         ("ring", 30, -1.0), 30, 3, 514, 2, 25.7, 1.0, 0.0, 1, 2),
+    ]
     worst = {"multi": 0, "resident": 0, "tiled": 0}
     for k, (name, dense, nvars, R, L, T, beta, gamma, h, freq, ns) in enumerate(cases):
         s, seeds = _wl_inputs(dense, nvars, R, 100 + k, dev, L)
@@ -1266,7 +1299,7 @@ def _ms_per_sweep(prof, name, sweeps):
 
 def site_lanes(L):
     """The threads a time line of the multi-launch site phases at L_tau =
-    ``L`` (csrc/ladder.cu, site_lanes)."""
+    ``L`` (csrc/worldline.cuh, site_lanes)."""
     from pyisingmontecarlo_tpu_torch import _kernels
 
     return _kernels.load().pmc_site_lanes(L)
@@ -1282,14 +1315,17 @@ def phase_timing_wl(dev, smi, sass):
     main shape; then the three routes at the gate's edges; at L_tau = 800 the
     bound of the cluster phases alone (cluster_need), and the instruction
     floor of their algorithm from ``sass`` (cluster_sass's, cluster_floor);
-    the accumulation's time a sweep against what it needs (accumulate_need)
-    and its SASS floor (sass_floor). Every profiled call's launches are
+    the site phases' and the accumulation's times a sweep against what they
+    need (wl_site_need, accumulate_need) and their SASS floors (sass_floor).
+    Every profiled call's launches are
     printed beside the wrapper's count (_launches). Returns {"shape/route":
     (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)} for the shapes
     "torus" and "torus-sampling" (the main paths' calls: 200 plain sweeps,
     and 20 sampled every 5), "chain" (2000 sampled every 10) and "long" and
     "long-sampling" (5 plain, and 4 sampled every 2, at L_tau = 800), and
-    "long/cluster-bound": (ms, bound_by) or None."""
+    "long/cluster-bound": (ms, bound_by) or None, and "long/site" and
+    "long-sampling/site": (wl_site's ms a sweep or None, the bound of what
+    it needs (wl_site_need), bound_by), with its SASS floor printed."""
     from pyisingmontecarlo_tpu_torch.ops import wl
 
     lim = wl.device_limits(dev)
@@ -1347,6 +1383,17 @@ def phase_timing_wl(dev, smi, sass):
             _, floor = cluster_floor(sass.get("wl_cluster"), phases, spins + spins // 2)
             print(f"timing-wl: {key}, the cluster phases alone (wl_cluster x 2, group {cluster_group(L)}), on "
                   f"{smi}: bound {line}; the instruction floor of this algorithm {floor}", flush=True)
+        if key.startswith("long"):  # the site phases alone: their time a sweep against what they need
+            site_ms = _ms_per_sweep(multi_prof, "wl_site", n_prof)
+            sb, line = wl_site_need(R, nvars, L)
+            out[f"{key}/site"] = (site_ms, *sb)
+            chunks = -(-(L // 2) // (32 * SITE_PAIRS))
+            padded = 2 * 32 * SITE_PAIRS * chunks  # slices a line of wl_site<32> holds, the last chunk's padding in
+            _, floor = sass_floor(sass.get("wl_site"), R * nvars * padded, 2 * spins)
+            print(f"timing-wl: {key}, the site phases alone (wl_site<{site_lanes(L)}> x 2, {chunks} chunks a line, "
+                  f"{'not measured' if site_ms is None else f'{site_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
+                  + ("" if site_ms is None else f", {site_ms / sb[0]:.2f}x it")
+                  + f"; the instruction floor of its SASS ({padded} padded slices a line) {floor}", flush=True)
         if key.startswith("long"):  # the accumulation alone: its time a sweep against what it needs
             ab, line = accumulate_need(R, nvars, L, bool(freq), 2)
             acc_ms = _ms_per_sweep(multi_prof, "wl_accumulate", n_prof)
@@ -1831,10 +1878,9 @@ TRI_L, TRI_R, TRI_SEED, TRI_T, TRI_T_FULL = 48, 100, 11, 200, 4000
 # replicas at beta 1.5; n = 4096 takes the dense coupling path, n = 16384 the ELL path (spin family there)
 GLASS_NS, GLASS_R, GLASS_BETA = (4096, 16384), 64, 1.5
 # one threefry2x32 block on a key that is data, counted in SASS by keychain_sass (nvcc 12.9): 68 instructions,
-# 50 of them on the ALU pipe (20 SHF, 21 LOP3, 9 IADD3) and 18 IMAD.IADD on the FMA pipe; the chain's serial
-# path runs at most one of them a cycle at the SM clock
+# 50 of them on the ALU pipe (20 SHF, 21 LOP3, 9 IADD3) and 18 IMAD.IADD on the FMA pipe
 THREEFRY_OPS, THREEFRY_ALU_OPS = 68, 50
-SM_CLOCK_HZ = 1.98e9
+SPINE_PROBE_STEPS = 1 << 16  # the spine probe's chained steps (threefry_spine_probe, csrc/keychain.cu)
 # blocks of a slot of the chain by kind (rng.KEY_PLAIN, KEY_WORM, KEY_CLUSTER, KEY_FAN, KEY_SLICE, KEY_BITS): the
 # split, and the sub-key's work (a fan of m: 2 a split of its inner chain; bits: 1 a word)
 CHAIN_BLOCKS = {0: lambda m: 2, 1: lambda m: 8, 2: lambda m: 7, 3: lambda m: 2 + 2 * m, 4: lambda m: 8,
@@ -1954,7 +2000,8 @@ def cluster_sass(draw_n=None):
     LONG_LTAU's word), "ladder_site": _split of ladder_site at PT_LTAU a
     spin (a thread's SITE_PAIRS pairs of slices, its line's set-up in),
     "ladder_site_long":
-    _split of ladder_site<32> at LONG_LADDER's L_tau a padded slice}, with
+    _split of ladder_site<32> at LONG_LADDER's L_tau a padded slice,
+    "wl_site": _split of wl_site<32, 16> at LONG_LTAU a padded slice}, with
     ``draw_n`` the lane-hash draw's instructions (hash_sass) and the logf's
     from LOG_PROBE (cuobjdump); a kernel is left out, and 'not measured'
     printed, without cuobjdump or where a loop is not found."""
@@ -2009,28 +2056,44 @@ def cluster_sass(draw_n=None):
         _print_split("wl_accumulate<16>'s word loop", "slice", body, out["wl_accumulate"])
     else:
         print("SASS: wl_accumulate: no word loop found; not measured", flush=True)
-    # ladder_site<site_lanes(PT_LTAU)>: a line of one chunk, the whole kernel for a thread's 2 SITE_PAIRS spins;
-    # ladder_site<32> at LONG_LADDER's L_tau, K chunks a line: the kernel with its two chunk loops (the outermost
-    # loops that load) run K times (one chunk's reload in parity 1 counted in excess), for 2 SITE_PAIRS K slices
-    # a thread, the last chunk's padding in
+    # ladder_site<site_lanes(PT_LTAU)>: a line of one chunk, the whole kernel for a thread's 2 SITE_PAIRS spins
     fn = fns["ladder_cluster"][next(k for k in fns["ladder_cluster"]
                                     if "ladder_site" in k and f"ILi{site_lanes(PT_LTAU)}E" in k)]
     C = SITE_PAIRS
     out["ladder_site"] = _split(fn, 2 * C, 2 * C, 4 * C, draw_n, log_n)
     _print_split(f"ladder_site<{site_lanes(PT_LTAU)}> (L_tau={PT_LTAU})", "spin", fn, out["ladder_site"])
-    L_l = LONG_LADDER[2]
-    K = -(-(L_l // 2) // (32 * C))
-    fn = fns["ladder_cluster"][next(k for k in fns["ladder_cluster"] if "ladder_site" in k and "ILi32E" in k)]
+    # the warp-a-line kernels, K chunks a line: ladder_site<32> at LONG_LADDER's L_tau, two logf a slice, and
+    # wl_site<32, 16> at LONG_LTAU (16-byte words), none
+    for key, src, kernel, tag, L, logs in (("ladder_site_long", "ladder_cluster", "ladder_site", "ILi32E",
+                                            LONG_LADDER[2], 2),
+                                           ("wl_site", "wl_cluster", "wl_site", "ILi32ELi16E", LONG_LTAU, 0)):
+        name = f"{kernel}<{tag[3:-1].replace('ELi', ', ')}> (L_tau={L}, {-(-(L // 2) // (32 * C))} chunks)"
+        split = _chunked_split(fns[src][next(k for k in fns[src] if kernel in k and tag in k)], L, logs, draw_n, log_n)
+        if split is None:
+            print(f"SASS: {name}: its two chunk loops not found; not measured", flush=True)
+            continue
+        out[key] = split[0]
+        _print_split(name, "padded slice", split[1], split[0])
+    return out
+
+
+def _chunked_split(fn, L, logs, draw_n, log_n):
+    """(_split a padded slice, the instructions counted) of a site kernel of
+    32 threads a line (site_phases, csrc/worldline.cuh) whose SASS is ``fn``,
+    at L slices, K chunks a line: the kernel with its two chunk loops (the
+    outermost loops that load) run K times (one chunk's reload in parity 1
+    counted in excess), for 2 SITE_PAIRS K slices a thread, the last chunk's
+    padding in, a draw and ``logs`` logf a slice; None where the two loops
+    are not found."""
+    C = SITE_PAIRS
+    K = -(-(L // 2) // (32 * C))
     loops = [b for b in _loops(fn) if any(op.startswith("LDG") for _, op, _ in b)]
     outer = [b for b in loops if not any(c is not b and c[0][0] <= b[0][0] and b[-1][0] <= c[-1][0]
                                          and len(c) > len(b) for c in loops)]
-    if len(outer) == 2:
-        ins = fn + (K - 1) * (outer[0] + outer[1])
-        out["ladder_site_long"] = _split(ins, 2 * C * K, 2 * C * K, 4 * C * K, draw_n, log_n)
-        _print_split(f"ladder_site<32> (L_tau={L_l}, {K} chunks)", "padded slice", ins, out["ladder_site_long"])
-    else:
-        print(f"SASS: ladder_site<32>: {len(outer)} chunk loops found, not 2; not measured", flush=True)
-    return out
+    if len(outer) != 2:
+        return None
+    ins = fn + (K - 1) * (outer[0] + outer[1])
+    return _split(ins, 2 * C * K, 2 * C * K, logs * 2 * C * K, draw_n, log_n), ins
 
 
 def _print_split(what, unit, ins, split):
@@ -2080,6 +2143,19 @@ def site_need(R, nvars, L, ndir):
     ms, by = bound(nbytes, ops, f32)
     return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {spins} spins, {ops / 1e6:.1f} M integer operations, "
                       f"{f32 / 1e6:.1f} M f32 operations, {nbytes} bytes)")
+
+
+def wl_site_need(R, nvars, L):
+    """((ms, bound_by), what it counted) of a sweep's two worldline site
+    launches (wl_site): the state read and written once, the [30] int32
+    threshold table and the seeds read once, and WL_SITE_OPS_PER_SPIN integer
+    operations an active spin (each spin is active once a sweep)."""
+    spins = R * nvars * L
+    nbytes = 2 * spins + 4 * 30 + 4 * R
+    ops = spins * WL_SITE_OPS_PER_SPIN
+    ms, by = bound(nbytes, ops)
+    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {spins} spins, {ops / 1e6:.1f} M integer operations, "
+                      f"{nbytes} bytes)")
 
 
 def cluster_rounds(active):
@@ -2172,21 +2248,91 @@ def frozen_bonds(x, kind, size, seed, ctr, below):
 
 
 def chain_bound(kinds, T, R):
-    """(least ms, "bytes" or "operations", which term set it) of the key
-    chain: the larger of its table bytes at the HBM rate, all its blocks' ALU
-    instructions at the integer rate, and one warp's issue of its own
-    replicas' chain (every block of every slot, T * the plan's CHAIN_BLOCKS
-    a thread, one instruction a cycle at the SM clock)."""
+    """(least ms, "bytes" or "operations", what it counted) of the key
+    chain's roofline: the larger of its tables' bytes at the HBM rate and all
+    its blocks' ALU instructions (CHAIN_BLOCKS, THREEFRY_ALU_OPS each) at the
+    integer rate."""
     from pyisingmontecarlo_tpu_torch.rng import chain_columns
 
     C, W = chain_columns(kinds)
     nbytes = 4 * T * R * (C + W) + 16 * R
     blocks = T * sum(_slot_blocks(k) for k in kinds)
     ops = THREEFRY_ALU_OPS * R * blocks
-    t_bytes, t_alu = bound(nbytes, ops)[0], ops / INT32_OPS_PER_S * 1e3
-    t_issue = THREEFRY_OPS * blocks / SM_CLOCK_HZ * 1e3
-    return max((t_bytes, "bytes", "the table's bytes"), (t_alu, "operations", "the ALU rate"),
-               (t_issue, "operations", "one warp's serial issue"))
+    ms, by = bound(nbytes, ops)
+    return ms, by, f"roofline: {nbytes} bytes, {R * blocks} blocks, {ops / 1e6:.2f} M ALU instructions"
+
+
+_SPINE_NS = {}
+
+
+def spine_step_ns(both=True):
+    """ns of one step of the chain's spine as one thread chains them
+    (threefry_spine_probe over SPINE_PROBE_STEPS steps, the best of three;
+    measured once a run): key' and the sub-key, two interleaved blocks, or
+    with ``both`` false key' alone."""
+    if both not in _SPINE_NS:
+        from pyisingmontecarlo_tpu_torch import _kernels
+        from pyisingmontecarlo_tpu_torch.rng import key_tensor
+
+        lib = _kernels.load()
+        keys = key_tensor(_keys(32, 3), torch.device("cuda", 0))
+        out = torch.empty_like(keys)
+
+        def probe():
+            err = lib.threefry_spine_probe(keys.data_ptr(), SPINE_PROBE_STEPS, int(both), out.data_ptr(),
+                                           torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"threefry_spine_probe failed ({err})")
+
+        probe()
+        _SPINE_NS[both] = min(event_ms(probe, 1) for _ in range(3)) / SPINE_PROBE_STEPS * 1e6
+    return _SPINE_NS[both]
+
+
+def _chain_launch(lib, keys, kinds, T, nvars):
+    """threefry_chain's launch as rng.threefry_chain makes it, through ``lib`` (a measurement build's library)."""
+    from pyisingmontecarlo_tpu_torch.rng import KEY_WORM, _slot, chain_columns
+
+    slots = [_slot(k) for k in kinds]
+    R, dev = keys.shape[0], keys.device
+    C, W = chain_columns(kinds)
+    seeds = torch.empty((T, C, R), dtype=torch.int32, device=dev)
+    v0 = torch.empty((T, W, R), dtype=torch.int32, device=dev)
+    out = torch.empty_like(keys)
+    plan = torch.tensor([(k, nvars if k == KEY_WORM else p) for k, p in slots], dtype=torch.int32).to(dev)
+    err = lib.threefry_chain(keys.data_ptr(), out.data_ptr(), plan.data_ptr(), len(slots), T, C, W, R,
+                             seeds.data_ptr() if C else None, v0.data_ptr() if W else None,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"threefry_chain ({lib}) failed ({err})")
+
+
+def chain_device_ms(fn):
+    """The device ms of the threefry_chain launch of ``fn()`` (torch.profiler, _trace; the call's time by
+    events adds the wrapper's host work, the plan's copy among it), or None where none was recorded."""
+    dev_t = _device_times(_trace(fn), ("threefry_chain",))
+    return None if dev_t is None else float(np.mean(dev_t[0]["threefry_chain"])) / 1e3
+
+
+def spine_floor(kinds, T):
+    """(ms, what it counted): the chain's latency floor, its T S dependent spine steps at spine_step_ns each."""
+    ns = spine_step_ns()
+    return T * len(kinds) * ns / 1e6, f"{T * len(kinds)} dependent spine steps x {ns:.2f} ns (the probe)"
+
+
+def chain_plans():
+    """{name: (plan, T, R, nvars)} of threefry_chain's three main-path calls: the triangular annealing's 200
+    steps (main-classical), QmcIsing's glass sweeps (main-qmcising) and the hard QmcRunner system's 100 sweeps
+    (main-qmcrunner)."""
+    from pyisingmontecarlo_tpu_torch.engines import classical as ce
+    from pyisingmontecarlo_tpu_torch.engines import generic as ge
+    from pyisingmontecarlo_tpu_torch.engines import worldline as wle
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph
+    from pyisingmontecarlo_tpu_torch.rng import KEY_PLAIN
+
+    with _route(None):
+        w = qmc_runner(QR_N, QR_R, hard_terms(QR_N), "cpu")._ensure(QR_BETA)
+    glass = [KEY_PLAIN] * wle.sweep_slots(ce.device_graph(compile_graph(glass_edges(QMC_N))), True, False)
+    return {"tri": (tri_plan(), TRI_T, TRI_R, TRI_L**2), "glass": (glass, QMC_T, QMC_R, QMC_N),
+            "hard": (ge.sweep_plan(w.comp, w.ltau, False, gm=True), 100, QR_R, 1)}
 
 
 def tri_plan():
@@ -2207,16 +2353,22 @@ def _keys(R, seed):
 
 def phase_compare_keychain(dev, smi):
     """threefry_chain against its numpy version, bit for bit: the main path's
-    plan (200 steps x 29 slots x R = 100) and a plan with worm and cluster
-    slots at R = 1 over 2^16 splits; then the kernel's time at the main shape
-    and at the full 4000 steps, beside the numpy chain's. Returns (largest
-    |difference|, kernel ms, plain ms) at the main shape."""
+    plan (200 steps x 29 slots x R = 100), a plan with worm and cluster
+    slots at R = 1 over 2^16 splits and a plan of every slot kind at R = 100;
+    then the call's and the kernel's time at the main shape and at the full
+    4000 steps beside the roofline (chain_bound) and the spine's floor
+    (spine_floor); the kernel against its measurement builds (CHAIN_CUTS) at
+    the three main-path plans (chain_plans), in turns; and the numpy chain's
+    time. Returns (largest |difference|, call ms, numpy ms, bound ms,
+    bound_by) at the main shape."""
     from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain, threefry_chain_reference
 
     kinds = tri_plan()
     check(len(kinds) == 29 and kinds.count(1) == 1, f"the triangular plan has {len(kinds)} slots: {kinds}")
     cases = (("main path", kinds, TRI_T, TRI_R, TRI_L**2, 3), ("worm and cluster, R=1", [0, 1, 0, 0, 2, 0, 0, 0],
-             8192, 1, 100003, 4))
+             8192, 1, 100003, 4),
+             ("every slot kind (fan and bits of m = 0 among them), R=100",
+              [0, 1, 2, (3, 0), (3, 1), (3, 5), (4, 9), (4, 70000), (5, 0), (5, 33), 0], 50, 100, 1000, 6))
     err = 0
     for name, plan, T, R, nvars, seed in cases:
         kd = _keys(R, seed)
@@ -2240,9 +2392,33 @@ def phase_compare_keychain(dev, smi):
         threefry_chain(kd, kinds, T, TRI_L**2)
         runs = [event_ms(lambda: threefry_chain(kd, kinds, T, TRI_L**2), 1) for _ in range(5)]
         b_ms, b_by, b_what = chain_bound(kinds, T, TRI_R)
+        f_ms, f_what = spine_floor(kinds, T)
+        d_ms = chain_device_ms(lambda: threefry_chain(kd, kinds, T, TRI_L**2))
         out[T] = (float(np.median(runs)), b_ms, b_by)
         print(f"compare-keychain: timing on {smi}: {T} steps x {len(kinds)} slots x R={TRI_R}: threefry_chain "
-              f"median {out[T][0]:.5f} ms (runs {runs}); bound {b_ms:.5f} ms ({b_by}: {b_what})", flush=True)
+              f"call median {out[T][0]:.5f} ms (runs {runs}), the kernel "
+              f"{'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; bound {b_ms:.5f} ms ({b_by}; {b_what}); the "
+              f"spine's latency floor {f_ms:.5f} ms ({f_what})"
+              + ("" if d_ms is None else f", the kernel {d_ms / f_ms:.2f}x it"), flush=True)
+    # each main-path plan: the kernel against its measurement builds (CHAIN_CUTS), in turns; against the spine alone,
+    # the difference is what the expansion warps cost the spine
+    from pyisingmontecarlo_tpu_torch import _kernels
+
+    print(f"compare-keychain: the spine's step on {smi} (threefry_spine_probe, {SPINE_PROBE_STEPS} steps in one "
+          f"thread): key' and the sub-key {spine_step_ns():.2f} ns, key' alone {spine_step_ns(False):.2f} ns",
+          flush=True)
+    for what, defines in CHAIN_CUTS.items():
+        cut = _kernels.load(defines)
+        for name, (plan, T, R, nvars) in chain_plans().items():
+            kt = key_tensor(_keys(R, 5), dev)
+            _chain_launch(cut, kt, plan, T, nvars)
+            a, b = versus(lambda: threefry_chain(kt, plan, T, nvars), lambda: _chain_launch(cut, kt, plan, T, nvars),
+                          1, 1, 3)
+            d_ms = chain_device_ms(lambda: _chain_launch(cut, kt, plan, T, nvars))
+            print(f"compare-keychain: {name} plan ({len(plan)} slots x {T} x R={R}), measurement build "
+                  f"{' '.join(defines)} ({what}), on {smi}: call median {np.median(b):.5f} ms (runs {b}), the kernel "
+                  f"{'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; against the chain's call median "
+                  f"{np.median(a):.5f} ms (runs {a}) in turns", flush=True)
     host = _keys(TRI_R, 5)
     t0 = time.perf_counter()
     threefry_chain_reference(host, kinds, TRI_T, TRI_L**2)
@@ -2751,9 +2927,13 @@ def phase_compare_qmc_generic(dev, smi):
     threefry_chain(kt, kinds, QMC_T, QMC_N)
     runs = [event_ms(lambda: threefry_chain(kt, kinds, QMC_T, QMC_N), 1) for _ in range(5)]
     b_ms, b_by, b_what = chain_bound(kinds, QMC_T, QMC_R)
+    f_ms, f_what = spine_floor(kinds, QMC_T)
+    d_ms = chain_device_ms(lambda: threefry_chain(kt, kinds, QMC_T, QMC_N))
     print(f"compare-qmc-generic: threefry_chain, the main path's all-plain plan ({len(kinds)} slots a sweep x "
-          f"{QMC_T} sweeps x R={QMC_R}) == its numpy version bit for bit; on {smi}: median {np.median(runs):.5f} ms "
-          f"(runs {runs}), bound {b_ms:.5f} ms ({b_by}: {b_what}); numpy {plain_ms:.3f} ms", flush=True)
+          f"{QMC_T} sweeps x R={QMC_R}) == its numpy version bit for bit; on {smi}: call median "
+          f"{np.median(runs):.5f} ms (runs {runs}), the kernel {'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; "
+          f"bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor {f_ms:.5f} ms ({f_what})"
+          + ("" if d_ms is None else f", the kernel {d_ms / f_ms:.2f}x it") + f"; numpy {plain_ms:.3f} ms", flush=True)
     return err, float(np.median(runs)), plain_ms, b_ms, b_by
 
 
@@ -3134,9 +3314,13 @@ def phase_compare_qmcrunner(dev, smi):
     threefry_chain(kt, plan, 100, 1)
     runs = [event_ms(lambda: threefry_chain(kt, plan, 100, 1), 1) for _ in range(5)]
     b_ms, b_by, b_what = chain_bound(plan, 100, QR_R)
+    f_ms, f_what = spine_floor(plan, 100)
+    d_ms = chain_device_ms(lambda: threefry_chain(kt, plan, 100, 1))
     print(f"compare-qmcrunner: threefry_chain, the hard n={QR_N} plan ({len(plan)} slots, {sum(_slot_blocks(k) for k in plan)}"
-          f" blocks a sweep) x 100 sweeps x R={QR_R} on {smi}: median {np.median(runs):.5f} ms (runs {runs}), bound "
-          f"{b_ms:.5f} ms ({b_by}: {b_what}); numpy {plain_ms:.3f} ms", flush=True)
+          f" blocks a sweep) x 100 sweeps x R={QR_R} on {smi}: call median {np.median(runs):.5f} ms (runs {runs}), "
+          f"the kernel {'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; bound {b_ms:.5f} ms ({b_by}; "
+          f"{b_what}); the spine's latency floor {f_ms:.5f} ms ({f_what})"
+          + ("" if d_ms is None else f", the kernel {d_ms / f_ms:.2f}x it") + f"; numpy {plain_ms:.3f} ms", flush=True)
     return err, float(np.median(runs)), plain_ms, b_ms, b_by
 
 
@@ -3844,7 +4028,8 @@ def multi_rates(dev):
     CUDA events, after a warm-up) and each kernel's device us a sweep
     (torch.profiler over one call, _trace): main-quantum-long's 64^2 torus at
     L_tau = 800, R = 2, main-tempering-wide's 64^2 +-J ladder and
-    LONG_LADDER (32^2 +-J, R = 16, L_tau = 1002)."""
+    LONG_LADDER (32^2 +-J, R = 16, L_tau = 1002); and the key chain's ms a
+    call at its three main-path plans (chain_plans, the median of five)."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
@@ -3865,6 +4050,13 @@ def multi_rates(dev):
         out[f"{key}_ms_per_sweep"] = min(event_ms(run, T) for _ in range(3))
         dev_t = _device_times(_launches(run, names, per_sweep * T)[0], names)
         out[f"{key}_us_per_sweep"] = None if dev_t is None else {k: _us_per_sweep(v, T) for k, v in dev_t[0].items()}
+    from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain
+
+    for name, (plan, T_c, R_c, nvars_c) in chain_plans().items():  # the key chain's three main-path calls
+        kt = key_tensor(_keys(R_c, 5), dev)
+        threefry_chain(kt, plan, T_c, nvars_c)  # warm-up
+        out[f"chain_{name}_ms"] = float(np.median([event_ms(lambda: threefry_chain(kt, plan, T_c, nvars_c), 1)
+                                                   for _ in range(5)]))
     return out
 
 
@@ -3884,7 +4076,8 @@ def ab(other, pairs=10, only=None):
             runs[side].append(json.loads(line))
             print(f"ab on {smi}: {line}", flush=True)
     keys = ((("qmcrunner_hard_sweeps_per_s", True), ("qmcrunner_chain_sweeps_per_s", True)) if only == "qmcrunner" else
-            (("wl_long_ms_per_sweep", False), ("ladder_wide_ms_per_sweep", False), ("ladder_long_ms_per_sweep", False))
+            (("wl_long_ms_per_sweep", False), ("ladder_wide_ms_per_sweep", False), ("ladder_long_ms_per_sweep", False),
+             ("chain_tri_ms", False), ("chain_hard_ms", False), ("chain_glass_ms", False))
             if only == "multi" else
             (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
              ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),

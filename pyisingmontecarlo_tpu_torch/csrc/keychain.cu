@@ -13,29 +13,51 @@
 // version it is held to bit for bit are rng.threefry_chain_reference in
 // pyisingmontecarlo_tpu_torch/rng.py.
 //
-// One thread per replica walks its key through T steps of S slots
-// (plan[S][2]: kind, param). Each slot splits the key, keys, sub = split(key),
-// then by kind: 0 plain writes the int32 lane seed (k0 ^ 0x9E3779B9 ^ (k1 << 1))
-// of sub; 1 worm and 4 slice write the lane seed of split(sub)[0] and
-// randint(split(sub)[1], param) with jax's algorithm (param: nvars for a worm,
-// the slice count for a slice); 2 cluster writes three lane seeds; 3 fan walks
-// sub, k = split(sub) param times and writes each k's lane seed; 5 bits writes
-// the param words of bernoulli(sub, 0.5, (param,)), 1 where the word's top bit
-// is 0. Lane seeds go to seeds[T][C][R], randint draws and bits to v0[T][W][R]
-// (C and W: rng.chain_columns); keys_out gets each replica's key after the T
-// steps. threefry2x32 is the 20-round block function with the key schedule
-// (k0, k1, k0 ^ k1 ^ 0x1BD11BDA); split(k) is the block at counters (0, 0) and
-// (0, 1), the i-th 32 random bits the xor of the two words at (0, i).
+// The chain of T steps of S slots (plan[S][2]: kind, param). Each slot splits
+// the key, keys, sub = split(key), then by kind: 0 plain writes the int32 lane
+// seed (k0 ^ 0x9E3779B9 ^ (k1 << 1)) of sub; 1 worm and 4 slice write the
+// lane seed of split(sub)[0] and randint(split(sub)[1], param) with jax's
+// algorithm (param: nvars for a worm, the slice count for a slice); 2 cluster
+// writes three lane seeds; 3 fan walks sub, k = split(sub) param times and
+// writes each k's lane seed; 5 bits writes the param words of
+// bernoulli(sub, 0.5, (param,)), 1 where the word's top bit is 0. Lane seeds
+// go to seeds[T][C][R], randint draws and bits to v0[T][W][R] (C and W:
+// rng.chain_columns); keys_out gets each replica's key after the T steps.
+// threefry2x32 is the 20-round block function with the key schedule
+// (k0, k1, k0 ^ k1 ^ 0x1BD11BDA); split(k) is the block at counters (0, 0)
+// and (0, 1), the i-th 32 random bits the xor of the two words at (0, i).
 //
-// Bound: the chain is serial along the steps and independent across replicas,
-// so with R threads (64 to 100 on the main paths, one or two blocks of 128 on
-// as many SMs) each warp issues its own threads' whole chain: every block of
-// every slot (2 a plain slot, 8 a worm or slice, 7 a cluster, 2 + 2m a fan,
-// 2 + m a bits slot), about 70 integer instructions each, at most one
-// instruction a cycle. The tables' bytes (4 * R * (C + W) * T) are small beside
-// that. The design keeps the chain in registers and writes each table entry
-// once, coalesced across the replicas of a warp; nothing is read but the plan.
+// Design: only the spine, key -> split(key)[0], is serial along the T S
+// slots; no slot's expansion feeds the next slot. A block takes 32 replicas
+// (lane = replica). Its spine warp walks the slots and, for each, computes
+// key' = threefry(key, 0, 0) and sub = threefry(key, 0, 1), two independent
+// blocks interleaved, and puts sub into a ring of kChainStages stages in
+// shared memory, kChainBatch slots a stage; it reads nothing else, so
+// nothing but the key's blocks sits on its path (reading the plan there, a
+// slot at a time or a batch ahead, cost it more than the expansion warps'
+// stores did). Six expansion warps take the batches in turn (warp e the
+// batches e, e + 6, ...), each keeping its own place in the plan and the
+// tables (plan_columns: the columns of the slots it passes, a slot a lane),
+// expand each slot's sub into its outputs and store them, each store one row
+// of 32 replicas. Producer and consumers meet at two mbarriers a stage
+// (full: the spine's 32 lanes arrive; empty: the consuming warp's 32 lanes),
+// once a batch. A stage's phase parity identifies its batch, since a
+// consumer waits for batch g only after its batch g - 6 was written and the
+// spine writes batch g only after batch g - kChainStages was read. Warp w
+// issues from the SM's scheduler w % 4 (an H100 SM has four), so warp 4,
+// which would share the spine's, only sets up and leaves.
 //
+// Bound: the spine is T S dependent steps, each one step's latency (about
+// one block's dependent chain, the second block in its shadow): a probe that
+// chains N steps in one thread (threefry_spine_probe) measures it, and T S
+// times it is the chain's floor whatever the design. The roofline is far
+// lower: the tables' bytes (4 R (C + W) T) at the HBM rate against every
+// block's ALU instructions (about 50 a block) at the card's integer rate, at
+// the main paths' R = 64 to 100. So the design keeps the expansion off the
+// spine: a thread walking every block of every slot of its replica would run
+// 144 blocks a sweep in line on the hard 32-ring plan, where the spine has
+// 52.
+
 // threefry_bits: jax.random.bits(key, (n,)) and jax.random.uniform(key, (n,))
 // for R keys, one row each, on the card: bits[r][i] = y0 ^ y1 with (y0, y1) =
 // threefry2x32(key_r, (i >> 32, i & 0xFFFFFFFF)), the uniform
@@ -54,8 +76,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kChainThreads = 128;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
 
@@ -100,52 +120,210 @@ __device__ __forceinline__ int32_t randint(Key k, uint32_t span) {
     return static_cast<int32_t>(((hi % span) * mult + lo % span) % span);
 }
 
-__global__ void __launch_bounds__(kChainThreads) threefry_chain_kernel(
-    const uint32_t* __restrict__ keys_in, uint32_t* __restrict__ keys_out, const int32_t* __restrict__ plan, int S,
-    int T, int R, int32_t* __restrict__ seeds, int32_t* __restrict__ v0) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= R) return;
-    Key key{keys_in[2 * r], keys_in[2 * r + 1]};
-    int32_t* sp = seeds + r;
-    int32_t* vp = v0 + r;
-    for (int t = 0; t < T; ++t) {
-        for (int k = 0; k < S; ++k) {
-            Key sub = threefry(key, 0u, 1u);
-            key = threefry(key, 0u, 0u);
-            const int kind = __ldg(plan + 2 * k);
-            const int param = __ldg(plan + 2 * k + 1);
-            if (kind == 0) {
-                *sp = lane_seed(sub);
-                sp += R;
-            } else if (kind == 1 || kind == 4) {
-                *sp = lane_seed(threefry(sub, 0u, 0u));
-                sp += R;
-                *vp = randint(threefry(sub, 0u, 1u), static_cast<uint32_t>(param));
-                vp += R;
-            } else if (kind == 2) {
-                const Key k1 = threefry(sub, 0u, 0u);
-                sp[0] = lane_seed(threefry(sub, 0u, 1u));
-                const Key k2 = threefry(k1, 0u, 0u);
-                sp[R] = lane_seed(threefry(k1, 0u, 1u));
-                sp[2 * R] = lane_seed(threefry(k2, 0u, 1u));
-                sp += 3 * R;
-            } else if (kind == 3) {
-                for (int j = 0; j < param; ++j) {
-                    *sp = lane_seed(threefry(sub, 0u, 1u));
-                    sub = threefry(sub, 0u, 0u);
-                    sp += R;
-                }
-            } else {
-                for (int i = 0; i < param; ++i) {
-                    const Key y = threefry(sub, 0u, static_cast<uint32_t>(i));
-                    *vp = (y.k0 ^ y.k1) < 0x80000000u ? 1 : 0;
-                    vp += R;
-                }
-            }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile(
+        "{\n"
+        ".reg .b64 state;\n"
+        "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+        "}\n" ::"r"(smem_addr(bar))
+        : "memory");
+}
+
+// Waits until the phase of parity `parity` of bar has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" ::"r"(smem_addr(bar)),
+        "r"(parity)
+        : "memory");
+}
+
+// The lane seeds and int words a slot of this kind and param writes (rng._slot_columns), with no branch.
+__device__ __forceinline__ int2 slot_columns(int kind, int param) {
+    const bool one = kind == 0 || kind == 1 || kind == 4;
+    return make_int2(one ? 1 : kind == 2 ? 3 : kind == 3 ? param : 0,
+                     kind == 1 || kind == 4 ? 1 : kind == 5 ? param : 0);
+}
+
+// The outputs of a slot from its sub-key: sp and vp point at the replica's
+// entry of the slot's first seed column and first int word (rows R apart);
+// nothing is stored where live is false.
+__device__ __forceinline__ void expand(Key sub, int kind, int param, int32_t* sp, int32_t* vp, size_t R, bool live) {
+    if (kind == 0) {
+        if (live) *sp = lane_seed(sub);
+    } else if (kind == 1 || kind == 4) {
+        const int32_t seed = lane_seed(threefry(sub, 0u, 0u));
+        const int32_t v = randint(threefry(sub, 0u, 1u), static_cast<uint32_t>(param));
+        if (live) *sp = seed, *vp = v;
+    } else if (kind == 2) {
+        const Key k1 = threefry(sub, 0u, 0u);
+        const int32_t a = lane_seed(threefry(sub, 0u, 1u));
+        const Key k2 = threefry(k1, 0u, 0u);
+        const int32_t b = lane_seed(threefry(k1, 0u, 1u)), c = lane_seed(threefry(k2, 0u, 1u));
+        if (live) sp[0] = a, sp[R] = b, sp[2 * R] = c;
+    } else if (kind == 3) {
+        for (int j = 0; j < param; ++j) {
+            const int32_t seed = lane_seed(threefry(sub, 0u, 1u));
+            sub = threefry(sub, 0u, 0u);
+            if (live) sp[j * R] = seed;
+        }
+    } else {
+        for (int i = 0; i < param; ++i) {
+            const Key y = threefry(sub, 0u, static_cast<uint32_t>(i));
+            if (live) vp[i * R] = (y.k0 ^ y.k1) < 0x80000000u ? 1 : 0;
         }
     }
-    keys_out[2 * r] = key.k0;
-    keys_out[2 * r + 1] = key.k1;
+}
+
+// Builds for measurement only (chip_smoke.py, CHAIN_CUTS), whose tables are
+// not the chain's or come another way: PMC_CHAIN_SPINE_ONLY, the spine alone
+// (the expansion warps idle, no stage waited for); PMC_CHAIN_STAGE_KEY, the
+// spine staging the key it splits and each expansion warp splitting off the
+// sub-key itself.
+#ifndef PMC_CHAIN_SPINE_ONLY
+#define PMC_CHAIN_SPINE_ONLY 0
+#endif
+#ifndef PMC_CHAIN_STAGE_KEY
+#define PMC_CHAIN_STAGE_KEY 0
+#endif
+
+constexpr int kChainWarps = 8;  // warp 0 the spine, 1-3 and 5-7 the expansion, 4 idle
+constexpr int kExpandWarps = 6;
+constexpr int kChainBatch = 8;    // slots a stage: the spine waits and arrives once a batch
+constexpr int kChainStages = 16;  // more than kExpandWarps: a stage's parity names its batch
+
+struct ChainStage {
+    uint2 sub[kChainBatch][32];
+};
+
+// The seed columns and int words of the n slots from slot k of the plan on, cyclically, a slot a lane, summed over
+// the warp (every lane gets the sums).
+__device__ __forceinline__ int2 plan_columns(const int2* __restrict__ plan, int S, int k, int n) {
+    const int lane = threadIdx.x & 31;
+    int2 sum = make_int2(0, 0);
+    for (int base = 0; base < n; base += 32) {
+        if (base + lane < n) {
+            const int2 p = __ldg(plan + (k + base + lane) % S);
+            const int2 cw = slot_columns(p.x, p.y);
+            sum.x += cw.x, sum.y += cw.y;
+        }
+    }
+    return make_int2(__reduce_add_sync(0xffffffffu, sum.x), __reduce_add_sync(0xffffffffu, sum.y));
+}
+
+// grid: ceil(R / 32) blocks of kChainWarps warps, 32 replicas a block.
+__global__ void __launch_bounds__(32 * kChainWarps) threefry_chain_kernel(
+    const uint32_t* __restrict__ keys_in, uint32_t* __restrict__ keys_out, const int32_t* __restrict__ plan, int S,
+    int J, int R, int32_t* __restrict__ seeds, int32_t* __restrict__ v0) {
+    __shared__ ChainStage stage[kChainStages];
+    __shared__ uint64_t full[kChainStages], empty[kChainStages];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = blockIdx.x * 32 + lane;
+    const bool live = r < R;
+    const int batches = (J + kChainBatch - 1) / kChainBatch;
+    if (threadIdx.x < kChainStages) {
+        mbar_init(&full[threadIdx.x], 32);
+        mbar_init(&empty[threadIdx.x], 32);
+    }
+    __syncthreads();
+    if (warp == 0) {  // the spine: the key splits, a batch of sub-keys a stage
+        Key key = live ? Key{keys_in[2 * r], keys_in[2 * r + 1]} : Key{0u, 0u};
+        for (int g = 0; g < batches; ++g) {
+            const int s = g % kChainStages, n = g / kChainStages;
+            if (!PMC_CHAIN_SPINE_ONLY && n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+#pragma unroll
+            for (int b = 0; b < kChainBatch; ++b) {
+                if (g * kChainBatch + b < J) {
+#if PMC_CHAIN_STAGE_KEY
+                    const Key sub = key;
+#else
+                    const Key sub = threefry(key, 0u, 1u);
+#endif
+                    key = threefry(key, 0u, 0u);
+                    stage[s].sub[b][lane] = make_uint2(sub.k0, sub.k1);
+                }
+            }
+            if (!PMC_CHAIN_SPINE_ONLY) mbar_arrive(&full[s]);
+        }
+        if (live) {
+            keys_out[2 * r] = key.k0;
+            keys_out[2 * r + 1] = key.k1;
+        }
+    } else if (warp != 4 && !PMC_CHAIN_SPINE_ONLY) {  // an expansion warp: batches e, e + kExpandWarps, ...
+        const int e = warp < 4 ? warp - 1 : warp - 2;
+        const int2* plan2 = reinterpret_cast<const int2*>(plan);
+        // the batch's first slot in the plan, and its first seed column and int word, counted from seeds and v0
+        int k = 0, col = 0, word = 0;
+        {
+            const int2 cw = plan_columns(plan2, S, 0, min(J, e * kChainBatch));
+            k = e * kChainBatch % S, col = cw.x, word = cw.y;
+        }
+        for (int g = e; g < batches; g += kExpandWarps) {
+            const int s = g % kChainStages, n = g / kChainStages;
+            const int m = min(kChainBatch, J - g * kChainBatch);  // the batch's slots
+            // lane b < m: slot b's (kind, param) and its first column and word, an exclusive scan over the lanes
+            const int2 p = lane < m ? __ldg(plan2 + (k + lane) % S) : make_int2(0, 0);
+            const int2 cw0 = lane < m ? slot_columns(p.x, p.y) : make_int2(0, 0);
+            int2 cw = cw0;
+#pragma unroll
+            for (int d = 1; d < kChainBatch; d <<= 1) {
+                const int x = __shfl_up_sync(0xffffffffu, cw.x, d), y = __shfl_up_sync(0xffffffffu, cw.y, d);
+                if (lane >= d) cw.x += x, cw.y += y;
+            }
+            mbar_wait(&full[s], n & 1);
+            for (int b = 0; b < m; ++b) {
+                const uint2 u = stage[s].sub[b][lane];
+                const int kind = __shfl_sync(0xffffffffu, p.x, b), param = __shfl_sync(0xffffffffu, p.y, b);
+                const int c = col + __shfl_sync(0xffffffffu, cw.x - cw0.x, b);
+                const int w = word + __shfl_sync(0xffffffffu, cw.y - cw0.y, b);
+#if PMC_CHAIN_STAGE_KEY
+                const Key sub = threefry(Key{u.x, u.y}, 0u, 1u);
+#else
+                const Key sub{u.x, u.y};
+#endif
+                expand(sub, kind, param, seeds + (size_t)c * R + r, v0 + (size_t)w * R + r, static_cast<size_t>(R),
+                       live);
+            }
+            mbar_arrive(&empty[s]);
+            // past this batch and the other warps' batches before this warp's next
+            const int skip = min(J - g * kChainBatch, kExpandWarps * kChainBatch);
+            const int2 more = plan_columns(plan2, S, k, skip);
+            k = (k + skip) % S, col += more.x, word += more.y;
+        }
+    }
+}
+
+// A probe of the spine's step latency, for measurement: one warp, each lane
+// chaining n steps of its own key, key' = threefry(key, 0, 0) and, with
+// both, sub = threefry(key, 0, 1) beside it as the spine computes them (the
+// subs folded into the output so that none is dropped).
+__global__ void threefry_spine_probe_kernel(const uint32_t* __restrict__ keys, int n, int both,
+                                            uint32_t* __restrict__ out) {
+    Key key{keys[2 * threadIdx.x], keys[2 * threadIdx.x + 1]};
+    uint32_t fold = 0;
+    if (both) {
+        for (int i = 0; i < n; ++i) {
+            const Key sub = threefry(key, 0u, 1u);
+            key = threefry(key, 0u, 0u);
+            fold ^= sub.k0 ^ sub.k1;
+        }
+    } else {
+        for (int i = 0; i < n; ++i) key = threefry(key, 0u, 0u);
+    }
+    out[2 * threadIdx.x] = key.k0 ^ fold;
+    out[2 * threadIdx.x + 1] = key.k1;
 }
 
 constexpr int kBitsThreads = 256;
@@ -178,14 +356,23 @@ extern "C" int threefry_bits(const void* keys, int R, long long n, int uniform, 
 
 // keys_in/keys_out [R][2] uint32, plan [S][2] int32 (kind, param: nvars for a worm slot), seeds [T][C][R] int32
 // (may be null when C == 0), v0 [T][W][R] int32 (may be null when W == 0). C and W must be the columns and int
-// words of the plan (rng.chain_columns). On the caller's stream.
+// words of the plan (rng.chain_columns); T S < 2^31. On the caller's stream.
 extern "C" int threefry_chain(const void* keys_in, void* keys_out, const void* plan, int S, int T, int C, int W,
                               int R, void* seeds, void* v0, void* stream) {
-    if (R < 1 || S < 1 || T < 1 || C < 0 || W < 0 || (C > 0 && seeds == nullptr) || (W > 0 && v0 == nullptr))
+    if (R < 1 || S < 1 || T < 1 || C < 0 || W < 0 || (long long)S * T > 0x7fffffffLL ||
+        (C > 0 && seeds == nullptr) || (W > 0 && v0 == nullptr))
         return (int)cudaErrorInvalidValue;
-    const unsigned grid = (R + kChainThreads - 1) / kChainThreads;
-    threefry_chain_kernel<<<grid, kChainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    threefry_chain_kernel<<<(R + 31) / 32, 32 * kChainWarps, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(keys_in), static_cast<uint32_t*>(keys_out), static_cast<const int32_t*>(plan),
-        S, T, R, static_cast<int32_t*>(seeds), static_cast<int32_t*>(v0));
+        S, S * T, R, static_cast<int32_t*>(seeds), static_cast<int32_t*>(v0));
+    return (int)cudaGetLastError();
+}
+
+// The spine probe for measurement: one warp on `stream`, lane i chaining n steps of keys[i] (keys [32][2] uint32
+// on the device; both: the sub-key beside the key, as the spine), out [32][2] uint32.
+extern "C" int threefry_spine_probe(const void* keys, int n, int both, void* out, void* stream) {
+    if (n < 0 || keys == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+    threefry_spine_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(keys), n, both, static_cast<uint32_t*>(out));
     return (int)cudaGetLastError();
 }

@@ -29,7 +29,8 @@
 //   line of the color (site_lanes(L): 4 threads of 8 pairs of slices each up
 //   to L_tau = 64, more up to a warp, then a warp taking the line in chunks),
 //   both tau parities in one launch, in place: the even slices, then the odd
-//   slices from the updated even ones. The line's pairs of slices and its
+//   slices from the updated even ones (site_phases of worldline.cuh, the
+//   schedule wl_site shares). The line's pairs of slices and its
 //   neighbour lines' are read in 2-byte words, and its couplings and
 //   neighbour lines found once a line (SiteField). Glauber acceptance in
 //   logit form, log(u) - log(1 - u) < -dE with
@@ -139,17 +140,22 @@ struct SiteField {
     }
 };
 
-// One line of a site phase: its spins lp, its neighbours' field F, and its
-// replica's seed and (dt, kt, h); flips() is the Glauber acceptance in
-// logit form, log(u) - log(1 - u) < -dE with
-// dE = (-2 s) (dt (F + h) - kt (s_up + s_dn)), for the draw of (tau, i) at
-// counter 2 color + parity.
+// One line of a site phase (site_phases, worldline.cuh): its spins lp, its
+// neighbours' field F, and its replica's seed and (dt, kt, h); load reads a
+// thread's pairs of slices and the neighbour lines' in 2-byte words, and
+// flips is the Glauber acceptance in logit form, log(u) - log(1 - u) < -dE
+// with dE = (-2 s) (dt (F + h) - kt (s_up + s_dn)), for the draw of (tau, i)
+// at counter 2 color + parity.
 struct SiteLine {
     int8_t* lp;
     SiteField F;
     uint32_t seed, c0;
     float dt, kt, h;
     int i, nvars;
+
+    struct Data {
+        float f0[kSitePairs], f1[kSitePairs];  // the field at each pair's even and odd slice
+    };
 
     __device__ SiteLine(int8_t* s, const int32_t* seeds, const Params& q, const Geo& g, int ndir, int color, int x,
                         int y)
@@ -164,8 +170,21 @@ struct SiteLine {
           i(x * g.size + y),
           nvars(g.nvars) {}
 
-    // whether spin sv at slice tau of the parity, with tau neighbours a and b and field f, flips
-    __device__ __forceinline__ bool flips(int sv, int a, int b, float f, int tau, int parity) const {
+    __device__ __forceinline__ void load(int k0, int P, int (&e)[kSitePairs], int (&o)[kSitePairs], Data& nb) const {
+#pragma unroll
+        for (int c = 0; c < kSitePairs; ++c) {
+            const int k = k0 + c;
+            const int w = k < P ? *reinterpret_cast<const int16_t*>(lp + 2 * k) : 0x0101;
+            e[c] = (int8_t)w;
+            o[c] = w >> 8;
+            nb.f0[c] = nb.f1[c] = 0.0f;
+            if (k < P) F.at2(2 * k, nb.f0[c], nb.f1[c]);
+        }
+    }
+
+    // whether spin sv at slice tau of the parity (the thread's pair c), with tau neighbours a and b, flips
+    __device__ __forceinline__ bool flips(int sv, int a, int b, const Data& nb, int c, int tau, int parity) const {
+        const float f = parity ? nb.f1[c] : nb.f0[c];
         const float inner = __fsub_rn(__fmul_rn(dt, __fadd_rn(f, h)), __fmul_rn(kt, (float)(a + b)));
         const float dE = __fmul_rn(-2.0f * (float)sv, inner);
         const float u = uniform(lane_draw31(seed, (uint32_t)(tau * nvars + i), c0 + parity));
@@ -173,111 +192,16 @@ struct SiteLine {
     }
 };
 
-// Both site phases of a color in one launch, W threads a time line of the
-// color: the even slices, then the odd slices from the updated even ones. The
-// other color's lines are not written in the launch, so the odd slices read
-// what a launch per parity would read. A thread holds kSitePairs consecutive
-// pairs of slices (2k, 2k + 1) of a chunk of W kSitePairs pairs in registers,
-// read with the neighbour lines' pairs in 2-byte words: thread t the pairs
-// k = b + kSitePairs t + c of chunk b. W is site_lanes(L): the fewest of 4, 8,
-// 16 and 32 threads that hold the line in one chunk, else 32 and the line in
-// chunks. Parity 0 goes up the chunks, pair k's even slice from its odd slice
-// and the odd slice before it (pair k - 1's: the same thread, the lane below
-// by a shuffle, the chunk below's last carried in a register; at k = 0 the
-// line's last slice). Parity 1 goes down from the last chunk, still in
-// registers, pair k's odd slice from its even slice and the next pair's
-// updated even slice (the same thread, the lane above, the chunk above's first
-// carried from the chunk before; at the line's last pair pair 0's, kept from
-// parity 0), and reads each chunk below it again, which the same threads
-// wrote. A line of one chunk (every W < 32, so known when compiling) reads its
-// slices once. kSiteThreads / W lines a block in a grid of (chunks of a row's
-// lines of the color, rows, replicas), as fk_grid. A thread pays its line's
-// set-up (the neighbour lines, couplings, seed and parameters) once for its
-// pairs, and takes a chunk's decisions with no branch before it writes a
-// flip, so that their draws and logs overlap; 8 pairs a thread beat 2, 4 and
-// 16 on the 64^2 ladder at L_tau = 60 (PERF.md). A group past its row's end
-// computes a copy of the row's last line and writes nothing, so that every
-// lane of a warp takes part in the shuffles.
-constexpr int kSitePairs = 8, kSiteThreads = 128;
-
-__host__ __device__ constexpr int site_lanes(int L) {
-    const int need = ((L >> 1) + kSitePairs - 1) / kSitePairs;
-    return need <= 4 ? 4 : need <= 8 ? 8 : need <= 16 ? 16 : 32;
-}
-
-inline dim3 site_grid(const Geo& g, int R, int W) {
-    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1, lines = kSiteThreads / W;
-    return dim3((per_row + lines - 1) / lines, g.torus ? g.size : 1, R);
-}
-
+// Both site phases of a color in one launch (site_phases, worldline.cuh):
+// W = site_lanes(L) threads a time line of the color, kSitePairs pairs of
+// slices a thread, in a grid site_grid.
 template <int W>
 __global__ void __launch_bounds__(kSiteThreads) ladder_site(
     int8_t* __restrict__ s, const int32_t* __restrict__ seeds, Params q, Geo g, int ndir, int color) {
-    constexpr int C = kSitePairs, N = W * C;
-    constexpr unsigned kAll = 0xffffffffu;
-    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1;
-    const int jr = blockIdx.x * (kSiteThreads / W) + threadIdx.x / W;
-    const bool live = jr < per_row;
-    const int x = blockIdx.y, y = 2 * (live ? jr : per_row - 1) + (g.torus ? (x + color) & 1 : color);
+    int x, y;
+    const bool live = site_line_of<W>(g, color, x, y);
     const SiteLine ln(s, seeds, q, g, ndir, color, x, y);
-    const int L = g.L, P = L >> 1, t = threadIdx.x % W;
-    const int last = W < 32 ? 0 : (P - 1) / N * N;  // the last chunk's first pair
-    int e[C], o[C];  // the pairs' slices
-    float f0[C], f1[C];
-    auto load = [&](int b) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-            const int k = b + C * t + c;
-            const int w = k < P ? *reinterpret_cast<const int16_t*>(ln.lp + 2 * k) : 0x0101;
-            e[c] = (int8_t)w;
-            o[c] = w >> 8;
-            f0[c] = f1[c] = 0.0f;
-            if (k < P) ln.F.at2(2 * k, f0[c], f1[c]);
-        }
-    };
-    int before = ln.lp[L - 1], first = 0;  // the odd slice before the chunk; pair 0's even slice, updated
-    for (int b = 0;; b += N) {  // parity 0, up the chunks
-        load(b);
-        const int below = __shfl_up_sync(kAll, o[C - 1], 1, W);
-#pragma unroll
-        for (int c = 0; c < C; ++c) {  // every pair's decision, with no branch, then the flips
-            const int k = b + C * t + c;
-            const int po = c > 0 ? o[c > 0 ? c - 1 : c] : t == 0 ? before : below;
-            const bool flip = ln.flips(e[c], o[c], po, f0[c], 2 * k, 0);
-            if (flip & live & (k < P)) {
-                e[c] = -e[c];
-                ln.lp[2 * k] = (int8_t)e[c];
-            }
-        }
-        if (b == 0) first = __shfl_sync(kAll, e[0], 0, W);
-        if (b == last) break;
-        before = __shfl_sync(kAll, o[C - 1], W - 1, W);
-    }
-    int after = first;  // the even slice after the chunk's last pair, updated
-    for (int b = last;; b -= N) {  // parity 1, down the chunks
-        const int above = __shfl_down_sync(kAll, e[0], 1, W);
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-            const int k = b + C * t + c;
-            const int ne = k + 1 == P ? first : c + 1 < C ? e[c + 1 < C ? c + 1 : c] : t == W - 1 ? after : above;
-            const bool flip = ln.flips(o[c], ne, e[c], f1[c], 2 * k + 1, 1);
-            if (flip & live & (k < P)) ln.lp[2 * k + 1] = (int8_t)(-o[c]);
-        }
-        if (b == 0) break;
-        after = __shfl_sync(kAll, e[0], 0, W);
-        load(b - N);
-    }
-}
-
-// Calls fn(std::integral_constant<int, site_lanes(L)>{}).
-template <class Fn>
-cudaError_t by_lanes(int L, Fn fn) {
-    switch (site_lanes(L)) {
-        case 4: return fn(std::integral_constant<int, 4>{});
-        case 8: return fn(std::integral_constant<int, 8>{});
-        case 16: return fn(std::integral_constant<int, 16>{});
-        default: return fn(std::integral_constant<int, 32>{});
-    }
+    site_phases<W>(ln, g.L, live);
 }
 
 // grid fk_grid: a group of G threads per time line of the color

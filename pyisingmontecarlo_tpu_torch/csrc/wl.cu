@@ -45,13 +45,20 @@
 // state moves once in and once out a sweep, the halo read again from L2.
 //
 // Multi-launch (what neither takes: L_tau so long that no tile of 8 fits),
-// seven launches a sweep on the caller's stream:
+// five launches a sweep on the caller's stream:
 //
-// - wl_site, four times (site color x tau parity): one thread per active
-//   (r, i, tau), updated in place. Its spatial neighbours have the other color
-//   and its tau neighbours the other parity, so nothing it reads is written in
-//   the launch. Acceptance compares a 31-bit draw with one of 30 int31
-//   thresholds made on the host; only active spins draw.
+// - wl_site, twice (one per site color): both tau parities of the color in
+//   one launch, in place, on ladder_site's schedule (site_phases,
+//   worldline.cuh): a group of site_lanes(L) threads a time line of the
+//   color, 8 pairs of slices a thread in registers, the even slices and then
+//   the odd slices from the updated even ones, a warp taking lines past 512
+//   slices in chunks; a grid of (chunks of a row's lines, rows, replicas),
+//   so no division finds a line. The line and its 2 or 4 neighbour lines are
+//   read in the widest aligned word that divides L (acc_width: 16 bytes at
+//   L_tau = 800), the neighbour bytes summed four slices an instruction
+//   (__vadd4). Its spatial neighbours have the other color, which the launch
+//   does not write. Acceptance compares a 31-bit draw with one of 30 int31
+//   thresholds made on the host, kept in shared memory: integers only.
 // - wl_cluster, twice (one per color): a group of threads per time line of
 //   the color (fk_line, worldline.cuh; a warp up to L = 896, then a block of
 //   128 or 256 threads, fk_group), in parallel over tau: the
@@ -78,8 +85,8 @@
 // spins) that is 1.3 G operations, 39 us at the 33.5 T int32 op/s peak, while
 // reading and writing the 21 MB state once would take 12.5 us at 3.35 TB/s
 // (and it stays in the 50 MB L2): integer issue bounds it. The multi-launch
-// route passes over the state nine times a sweep with byte loads, its
-// neighbours' bytes read from L2, and its cluster phase does about log2 of
+// route passes over the state five times a sweep, its neighbours' words read
+// from L2, and its cluster phase does about log2 of
 // the longest frozen run more work a slice than a serial walk would (the
 // doubling rounds; chip_smoke.py counts its SASS); the tiled route passes
 // once and reads every neighbour from shared memory. At the 256-site chain,
@@ -110,26 +117,130 @@ __device__ __forceinline__ float log_uniform(uint32_t u31) {
     return logf(__fmul_rn(__fadd_rn(__int2float_rn((int)u31), 0.5f), kLogScale));
 }
 
-// grid: one thread per (r, site of the color, tau of the parity), tau
-// fastest. Indices fit in int: R * nvars * L < 2^31 (ops/wl.py, gate).
-__global__ void __launch_bounds__(kSiteBlock) wl_site(
-    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const int32_t* __restrict__ thr,
-    Geo g, int n_active, uint32_t ctr, int color, int parity) {
-    const int idx = blockIdx.x * kSiteBlock + threadIdx.x;
-    if (idx >= n_active) return;
-    const int halfL = g.L >> 1, lines = g.nvars >> 1, L = g.L;
-    const int q = idx / halfL;
-    const int tau = 2 * (idx - q * halfL) + parity;
-    const int r = q / lines;
-    const int i = site_of(g, q - r * lines, color);
-    int8_t* p = s + (size_t)r * g.nvars * L;
-    int8_t* lp = p + (size_t)i * L;
-    const int sv = lp[tau];
-    const int ud = lp[tau + 1 == L ? 0 : tau + 1] + lp[tau == 0 ? L - 1 : tau - 1];
-    const int b = nbr_sum(p, neighbours(g, i), L, tau);
-    const int t = __ldg(thr + 15 * (sv > 0) + 3 * ((b + 4) >> 1) + ((ud + 2) >> 1));
-    const uint32_t u = lane_draw31((uint32_t)__ldg(seeds + r), (uint32_t)(tau * g.nvars + i), ctr);
-    if ((int)u <= t) lp[tau] = (int8_t)(-sv);
+// The 16 bytes p[0, 16) as four words, read in words of V bytes (V of 2, 4,
+// 8, 16; p a multiple of V): the words at or past n bytes from p (n a
+// multiple of V) are not read and hold pad.
+template <int V>
+__device__ __forceinline__ void load16(const int8_t* p, int n, uint32_t pad, uint32_t (&u)[4]) {
+    if constexpr (V == 16) {
+        const uint4 v = n > 0 ? *reinterpret_cast<const uint4*>(p) : make_uint4(pad, pad, pad, pad);
+        u[0] = v.x, u[1] = v.y, u[2] = v.z, u[3] = v.w;
+    } else if constexpr (V == 8) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const uint2 v = 8 * j < n ? *reinterpret_cast<const uint2*>(p + 8 * j) : make_uint2(pad, pad);
+            u[2 * j] = v.x, u[2 * j + 1] = v.y;
+        }
+    } else if constexpr (V == 4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) u[j] = 4 * j < n ? *reinterpret_cast<const uint32_t*>(p + 4 * j) : pad;
+    } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const uint32_t h = 2 * j < n ? *reinterpret_cast<const uint16_t*>(p + 2 * j) : pad & 0xffffu;
+            u[j >> 1] = j & 1 ? u[j >> 1] | h << 16 : h;
+        }
+    }
+}
+
+// One line of wl_site (site_phases, worldline.cuh): its spins lp, its spatial
+// neighbour lines q (ring i + 1, i - 1, twice; torus all four), its replica's
+// seed, the phase's draw counter and the threshold table in shared memory.
+// load reads a thread's 16 slices and the neighbour lines' in words of V bytes
+// (the line starts at a multiple of V, and a thread's slices at a multiple of
+// 16 in it) and adds the neighbour lines' bytes four slices an instruction
+// (__vadd4: a sum of at most four +-1 fits a byte); flips compares the draw of
+// (tau, i) at counter ctr + parity with
+// thr[15 (s > 0) + 3 ((B + 4) >> 1) + ((s_up + s_dn + 2) >> 1)], B the
+// neighbour sum, all in integers.
+template <int V>
+struct WlSiteLine {
+    int8_t* lp;
+    const int8_t* q[4];
+    const int32_t* thr;
+    uint32_t seed, ctr;
+    int i, nvars, L, torus;
+
+    struct Data {
+        uint32_t w[4];  // byte j of word m: the neighbour sum at the thread's slice 4 m + j
+    };
+
+    __device__ WlSiteLine(int8_t* s, const int32_t* seeds, const int32_t* thr_s, const Geo& g, uint32_t ctr_, int x,
+                          int y)
+        : thr(thr_s),
+          seed((uint32_t)__ldg(seeds + blockIdx.z)),
+          ctr(ctr_),
+          i(x * g.size + y),
+          nvars(g.nvars),
+          L(g.L),
+          torus(g.torus) {
+        int8_t* p = s + (size_t)blockIdx.z * g.nvars * g.L;
+        lp = p + (size_t)i * L;
+        const Nbrs n = neighbours_at(g, x, y);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) q[k] = p + (size_t)n.j[g.torus ? k : k & 1] * L;
+    }
+
+    __device__ __forceinline__ void load(int k0, int, int (&e)[kSitePairs], int (&o)[kSitePairs], Data& d) const {
+        const int s0 = 2 * k0, n = L - s0;
+        uint32_t u[4], v[4];
+        load16<V>(lp + s0, n, 0x01010101u, u);
+        load16<V>(q[0] + s0, n, 0u, d.w);
+        load16<V>(q[1] + s0, n, 0u, v);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) d.w[m] = __vadd4(d.w[m], v[m]);
+        if (torus) {
+            load16<V>(q[2] + s0, n, 0u, v);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) d.w[m] = __vadd4(d.w[m], v[m]);
+            load16<V>(q[3] + s0, n, 0u, v);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) d.w[m] = __vadd4(d.w[m], v[m]);
+        }
+#pragma unroll
+        for (int c = 0; c < kSitePairs; ++c) {
+            e[c] = (int8_t)(u[c >> 1] >> (16 * (c & 1)));
+            o[c] = (int8_t)(u[c >> 1] >> (16 * (c & 1) + 8));
+        }
+    }
+
+    // whether spin sv at slice tau of the parity (the thread's pair c), with tau neighbours a and b, flips
+    __device__ __forceinline__ bool flips(int sv, int a, int b, const Data& d, int c, int tau, int parity) const {
+        const int B = (int8_t)(d.w[c >> 1] >> (8 * (2 * (c & 1) + parity)));
+        const int th = thr[15 * (sv > 0) + 3 * ((B + 4) >> 1) + ((a + b + 2) >> 1)];
+        return (int)lane_draw31(seed, (uint32_t)(tau * nvars + i), ctr + parity) <= th;
+    }
+};
+
+// Both site phases of a color in one launch (site_phases, worldline.cuh):
+// W = site_lanes(L) threads a time line of the color, kSitePairs pairs of
+// slices a thread, words of V = acc_width bytes, in a grid site_grid; parity
+// p draws at counter ctr + p.
+template <int W, int V>
+__global__ void __launch_bounds__(kSiteThreads) wl_site(
+    int8_t* __restrict__ s, const int32_t* __restrict__ seeds, const int32_t* __restrict__ thr, Geo g, uint32_t ctr,
+    int color) {
+    __shared__ int32_t ts[30];
+    if (threadIdx.x < 30) ts[threadIdx.x] = __ldg(thr + threadIdx.x);
+    __syncthreads();
+    int x, y;
+    const bool live = site_line_of<W>(g, color, x, y);
+    const WlSiteLine<V> ln(s, seeds, ts, g, ctr, x, y);
+    site_phases<W>(ln, g.L, live);
+}
+
+// Launches wl_site<W, V> on `st`.
+template <int W>
+cudaError_t launch_site(int8_t* s, const int32_t* seeds, const int32_t* thr, const Geo& g, int R, int V,
+                        uint32_t ctr, int color, cudaStream_t st) {
+    const dim3 grid = site_grid(g, R, W);
+    switch (V) {
+        case 16: wl_site<W, 16><<<grid, kSiteThreads, 0, st>>>(s, seeds, thr, g, ctr, color); break;
+        case 8: wl_site<W, 8><<<grid, kSiteThreads, 0, st>>>(s, seeds, thr, g, ctr, color); break;
+        case 4: wl_site<W, 4><<<grid, kSiteThreads, 0, st>>>(s, seeds, thr, g, ctr, color); break;
+        default: wl_site<W, 2><<<grid, kSiteThreads, 0, st>>>(s, seeds, thr, g, ctr, color); break;
+    }
+    return cudaGetLastError();
 }
 
 // grid fk_grid: a group of G threads per time line of the color
@@ -481,13 +592,15 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
 
 }  // namespace
 
-// Runs T sweeps (7 T launches) on `stream` on s[R, nvars, L], s at an even
-// address (wl_accumulate's words). thr [30] int32, cde [10] f32 and pb as in
+// Runs T sweeps (5 T launches) on `stream` on s[R, nvars, L], s at an even
+// address (the words of wl_site and wl_accumulate). thr [30] int32, cde [10] f32 and pb as in
 // ops/wl.py; acc [R, 3, nvars] int64 is added to; samples is
 // [R, nsamples, nvars] int8 or null, slot k written after sweep
-// (k + 1) * freq. Draw d of sweep t uses counter 8 t + d. The cluster phases
-// take fk_group(L) threads a line; R <= 65535 (fk_grid). Returns the first
-// launch error, or 0.
+// (k + 1) * freq. Draw d of sweep t uses counter 8 t + d: 2c + parity the
+// site phases of color c, 4 + 2c and 5 + 2c the bond and head draws of
+// cluster color c. The site phases take site_lanes(L) threads a line, the
+// cluster phases fk_group(L); R <= 65535 (site_grid, fk_grid). Returns the
+// first launch error, or 0.
 extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void* cde, int pb,
                          void* acc, void* samples, int R, int nvars, int L, int torus, int size,
                          int T, int freq, int nsamples, void* stream) {
@@ -496,37 +609,34 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* sp = static_cast<int8_t*>(s);
     const int32_t* sd = static_cast<const int32_t*>(seeds);
-    const int n_active = R * (nvars / 2) * (L / 2);
-    const unsigned site_grid = (n_active + kSiteBlock - 1) / kSiteBlock;
+    const int32_t* th = static_cast<const int32_t*>(thr);
     const int V = acc_width(L, s);
     if (V == 0) return (int)cudaErrorMisalignedAddress;
-    return (int)by_group(L, [&](auto gc) {
-        constexpr int G = decltype(gc)::value;
-        const int smem = fk_block_lines(G) * fk_line_bytes(L);
-        cudaError_t e = cudaFuncSetAttribute(wl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-        for (int t = 0; t < T; ++t) {
-            const uint32_t base = 8u * (uint32_t)t;
-            uint32_t d = 0;
-            for (int color = 0; color < 2; ++color)
-                for (int parity = 0; parity < 2; ++parity) {
-                    wl_site<<<site_grid, kSiteBlock, 0, st>>>(sp, sd, static_cast<const int32_t*>(thr), g,
-                                                              n_active, base + d++, color, parity);
+    return (int)by_lanes(L, [&](auto wc) {
+        constexpr int W = decltype(wc)::value;
+        return by_group(L, [&](auto gc) {
+            constexpr int G = decltype(gc)::value;
+            const int smem = fk_block_lines(G) * fk_line_bytes(L);
+            cudaError_t e = cudaFuncSetAttribute(wl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (e != cudaSuccess) return e;
+            for (int t = 0; t < T; ++t) {
+                const uint32_t base = 8u * (uint32_t)t;
+                for (int color = 0; color < 2; ++color)
+                    if ((e = launch_site<W>(sp, sd, th, g, R, V, base + 2 * color, color, st)) != cudaSuccess)
+                        return e;
+                for (int color = 0; color < 2; ++color) {
+                    wl_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
+                        sp, sd, static_cast<const float*>(cde), pb, g, base + 4 + 2 * color, color);
                     if ((e = cudaGetLastError()) != cudaSuccess) return e;
                 }
-            for (int color = 0; color < 2; ++color) {
-                wl_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
-                    sp, sd, static_cast<const float*>(cde), pb, g, base + d, color);
-                d += 2;
-                if ((e = cudaGetLastError()) != cudaSuccess) return e;
+                int8_t* stage = nullptr;
+                if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
+                    stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
+                e = launch_accumulate(sp, static_cast<long long*>(acc), stage, nsamples * nvars, g, R, V, st);
+                if (e != cudaSuccess) return e;
             }
-            int8_t* stage = nullptr;
-            if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
-                stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
-            e = launch_accumulate(sp, static_cast<long long*>(acc), stage, nsamples * nvars, g, R, V, st);
-            if (e != cudaSuccess) return e;
-        }
-        return cudaSuccess;
+            return cudaSuccess;
+        });
     });
 }
 

@@ -3,11 +3,14 @@
 // line (r, i) is L contiguous bytes), a fully frozen line's total in XLA's
 // order (XlaSum), a cluster's sum in the order of the JAX kernels' pointer
 // doubling fed one slice at a time (TreeSum), and the multi-launch route's
-// Fortuin-Kasteleyn time-line cluster update of one line by a group of
-// threads (fk_line: a warp, or a whole block for long lines), which runs the
-// JAX kernels' own pointer doubling in shared memory. The resident route,
-// one block per replica with its plane in shared memory, is in resident.cuh,
-// the tiled route in tiled.cuh; ops/wl.choose_route picks the route by shape.
+// two phases of one line by a group of threads: the site phases of a color,
+// both tau parities in one launch (site_phases: 8 pairs of slices a thread,
+// wl_site and ladder_site giving the loads and the decision), and the
+// Fortuin-Kasteleyn time-line cluster update (fk_line: a warp, or a whole
+// block for long lines), which runs the JAX kernels' own pointer doubling in
+// shared memory. The resident route, one block per replica with its plane in
+// shared memory, is in resident.cuh, the tiled route in tiled.cuh;
+// ops/wl.choose_route picks the route by shape.
 #pragma once
 
 #include <cstdint>
@@ -17,7 +20,6 @@
 
 namespace {
 
-constexpr int kSiteBlock = 256;
 constexpr int kMaxL = 4096;
 constexpr int kTreeDepth = 13;  // binary-counter blocks of up to 2^12 = kMaxL slices
 
@@ -147,6 +149,116 @@ struct TreeSum {
         return acc;
     }
 };
+
+// The multi-launch route's site phases of a color (wl_site, ladder_site), W
+// threads a time line of the color, in place: the even slices, then the odd
+// slices from the updated even ones. The other color's lines are not written
+// in the launch, so the odd slices read what a launch per parity would read.
+// A thread holds kSitePairs consecutive pairs of slices (2k, 2k + 1) of a
+// chunk of W kSitePairs pairs in registers: thread t the pairs
+// k = b + kSitePairs t + c of chunk b. W is site_lanes(L): the fewest of 4,
+// 8, 16 and 32 threads that hold the line in one chunk, else 32 and the line
+// in chunks. Parity 0 goes up the chunks, pair k's even slice from its odd
+// slice and the odd slice before it (pair k - 1's: the same thread, the lane
+// below by a shuffle, the chunk below's last carried in a register; at k = 0
+// the line's last slice). Parity 1 goes down from the last chunk, still in
+// registers, pair k's odd slice from its even slice and the next pair's
+// updated even slice (the same thread, the lane above, the chunk above's
+// first carried from the chunk before; at the line's last pair pair 0's,
+// kept from parity 0), and reads each chunk below it again, which the same
+// threads wrote. A line of one chunk (every W < 32, so known when compiling)
+// reads its slices once. kSiteThreads / W lines a block in a grid of (chunks
+// of a row's lines of the color, rows, replicas), as fk_grid. A thread pays
+// its line's set-up (the neighbour lines, seed and parameters) once for its
+// pairs, and takes a chunk's decisions with no branch before it writes a
+// flip, so that their draws overlap; 8 pairs a thread beat 2, 4 and 16 on the
+// 64^2 ladder at L_tau = 60 (PERF.md). A group past its row's end computes a
+// copy of the row's last line and writes nothing, so that every lane of a
+// warp takes part in the shuffles.
+constexpr int kSitePairs = 8, kSiteThreads = 128;
+
+__host__ __device__ constexpr int site_lanes(int L) {
+    const int need = ((L >> 1) + kSitePairs - 1) / kSitePairs;
+    return need <= 4 ? 4 : need <= 8 ? 8 : need <= 16 ? 16 : 32;
+}
+
+inline dim3 site_grid(const Geo& g, int R, int W) {
+    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1, lines = kSiteThreads / W;
+    return dim3((per_row + lines - 1) / lines, g.torus ? g.size : 1, R);
+}
+
+// Calls fn(std::integral_constant<int, site_lanes(L)>{}).
+template <class Fn>
+cudaError_t by_lanes(int L, Fn fn) {
+    switch (site_lanes(L)) {
+        case 4: return fn(std::integral_constant<int, 4>{});
+        case 8: return fn(std::integral_constant<int, 8>{});
+        case 16: return fn(std::integral_constant<int, 16>{});
+        default: return fn(std::integral_constant<int, 32>{});
+    }
+}
+
+// The site (x, y) of the line that the calling group of W threads owns in
+// site_grid, and whether it is live: past its row's end, the row's last line
+// of the color (the group computes it and writes nothing).
+template <int W>
+__device__ __forceinline__ bool site_line_of(const Geo& g, int color, int& x, int& y) {
+    const int per_row = g.torus ? g.size >> 1 : g.nvars >> 1;
+    const int jr = blockIdx.x * (kSiteThreads / W) + threadIdx.x / W;
+    const bool live = jr < per_row;
+    x = blockIdx.y;
+    y = 2 * (live ? jr : per_row - 1) + (g.torus ? (x + color) & 1 : color);
+    return live;
+}
+
+// Both site phases of the line ln by its group of W threads, on the schedule
+// above. Line gives lp (its L spins), Data (a thread's neighbour data for its
+// kSitePairs pairs), load(k0, P, e, o, nb) (the spins of pairs k0 .. k0 +
+// kSitePairs - 1 into e (even slices) and o (odd), +1 past the line's P
+// pairs, and their neighbour data) and flips(sv, a, b, nb, c, tau, parity)
+// (whether spin sv at slice tau of the thread's pair c flips, its tau
+// neighbours a and b).
+template <int W, class Line>
+__device__ __forceinline__ void site_phases(const Line& ln, int L, bool live) {
+    constexpr int C = kSitePairs, N = W * C;
+    constexpr unsigned kAll = 0xffffffffu;
+    const int P = L >> 1, t = threadIdx.x % W;
+    const int last = W < 32 ? 0 : (P - 1) / N * N;  // the last chunk's first pair
+    int e[C], o[C];  // the pairs' slices
+    typename Line::Data nb;
+    int before = ln.lp[L - 1], first = 0;  // the odd slice before the chunk; pair 0's even slice, updated
+    for (int b = 0;; b += N) {  // parity 0, up the chunks
+        ln.load(b + C * t, P, e, o, nb);
+        const int below = __shfl_up_sync(kAll, o[C - 1], 1, W);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {  // every pair's decision, with no branch, then the flips
+            const int k = b + C * t + c;
+            const int po = c > 0 ? o[c > 0 ? c - 1 : c] : t == 0 ? before : below;
+            const bool flip = ln.flips(e[c], o[c], po, nb, c, 2 * k, 0);
+            if (flip & live & (k < P)) {
+                e[c] = -e[c];
+                ln.lp[2 * k] = (int8_t)e[c];
+            }
+        }
+        if (b == 0) first = __shfl_sync(kAll, e[0], 0, W);
+        if (b == last) break;
+        before = __shfl_sync(kAll, o[C - 1], W - 1, W);
+    }
+    int after = first;  // the even slice after the chunk's last pair, updated
+    for (int b = last;; b -= N) {  // parity 1, down the chunks
+        const int above = __shfl_down_sync(kAll, e[0], 1, W);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const int k = b + C * t + c;
+            const int ne = k + 1 == P ? first : c + 1 < C ? e[c + 1 < C ? c + 1 : c] : t == W - 1 ? after : above;
+            const bool flip = ln.flips(o[c], ne, e[c], nb, c, 2 * k + 1, 1);
+            if (flip & live & (k < P)) ln.lp[2 * k + 1] = (int8_t)(-o[c]);
+        }
+        if (b == 0) break;
+        after = __shfl_sync(kAll, e[0], 0, W);
+        ln.load(b - N + C * t, P, e, o, nb);
+    }
+}
 
 // The multi-launch route's cluster phase: a group of G threads owns one time
 // line, G = 32 (a warp; kFkWarpLines lines a block) or G = 128 or 256 (the

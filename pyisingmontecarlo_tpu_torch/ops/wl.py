@@ -10,7 +10,9 @@ as at the JAX package's public functions.
 
 One sweep, for sweep index t (counting from 0 within one dispatch chunk):
 
-1. four site phases, one per (site color, tau parity), draw ``d = 0..3``:
+1. four site phases, one per (site color, tau parity), draw ``d = 0..3``
+   (``2*color + parity``; the multi-launch kernels run both parities of a
+   color in one launch, the odd slices after the even ones):
    Glauber acceptance ``u <= thr[15*(s > 0) + 3*(B/2 + 2) + (s_up + s_dn)/2 + 1]``,
    with B the spatial neighbour sum and ``thr`` the 30-entry int31 table of
    ``site_tables``;
@@ -33,8 +35,9 @@ the tiled route's redundant halo work (``resident_plan``,
 ``RESIDENT_IDLE_SITES_TILED``); else the tiled kernel (one launch per sweep,
 one block per spatial tile of a replica with the tile and its halo in shared
 memory) where a tile of at least ``TILE_MIN`` sites a side fits
-(``tiled_plan``); else the multi-launch kernels (seven launches a sweep). All
-three equal the plain version bit for bit.
+(``tiled_plan``); else the multi-launch kernels (five launches a sweep: both
+tau parities of a color in one site launch). All three equal the plain
+version bit for bit.
 
 Randomness: the draw ``d`` of sweep t at (tau, i) is
 ``lane_draw31(seed_r, pos = tau*nvars + i, ctr = 8*t + d)``. A run longer than
@@ -89,7 +92,7 @@ __all__ = [
 ]
 
 DRAWS_PER_SWEEP = 8
-LAUNCHES_PER_SWEEP = 7  # multi-launch route: 4 site phases, 2 cluster phases, 1 accumulation
+LAUNCHES_PER_SWEEP = 5  # multi-launch route: 2 site launches (both parities of a color each), 2 cluster, 1 accumulation
 MAX_LTAU = 4096  # the routes' line buffers in shared memory (csrc/worldline.cuh, kMaxL)
 RESIDENT_THREADS = 1024  # threads of a resident block (csrc/resident.cuh, kResThreads)
 WL_PARAM_BYTES = 30 * 4 + 10 * 4  # the resident block's thr and cde

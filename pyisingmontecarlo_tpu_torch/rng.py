@@ -14,8 +14,9 @@ The graph engines split each replica's key once for every move of every time
 step (or phase of every sweep; the generic k-local sweep also splits a
 sub-key again per color, draws a slice and draws Bernoulli bits: the fan,
 slice and bits slots). ``threefry_chain`` walks that chain for a whole call:
-on a CUDA tensor in one launch of the kernel of ``csrc/keychain.cu`` (one
-thread a replica), on a CPU tensor in its plain numpy version
+on a CUDA tensor in one launch of the kernel of ``csrc/keychain.cu`` (a warp
+walks the serial key spine of 32 replicas, others expand each slot's
+sub-key into its outputs), on a CPU tensor in its plain numpy version
 ``threefry_chain_reference``; both write the same tables bit for bit. The
 sharded sweeps of ``parallel/`` draw ``uniform(key, shape)`` over whole state
 shapes: ``threefry_bits`` makes those bits (or uniforms) for R keys, on a

@@ -5,9 +5,14 @@ and ``threefry_chain_reference`` against the JAX engines' own splits
 (``rng.split_keys`` per slot, then the worm's and the cluster update's; the
 generic sweep's inner splits of a segment or term-kink pass, a slice's
 ``randint(ksel, ltau)`` and the free variables' ``bernoulli(sub, 0.5)``) for
-plans of every slot kind (tolerance: none). The CUDA kernel is held to the
-same numpy version on the card by chip_smoke.py's compare-keychain and
-compare-qmcrunner."""
+plans of every slot kind (tolerance: none); and a numpy model of the CUDA
+kernel's split of the work (``csrc/keychain.cu``: a spine warp walking only
+``key, sub = split(key)`` for 32 replicas, a ring of stages, six expansion
+warps taking batches of slots in turn and expanding each sub-key into its
+outputs)
+against ``threefry_chain_reference``, for every slot kind. The CUDA kernel is
+held to the same numpy version on the card by chip_smoke.py's
+compare-keychain and compare-qmcrunner."""
 
 import numpy as np
 import pytest
@@ -91,7 +96,7 @@ def _jax_chain(u64, kinds, T, nvars):
     return np.stack(seeds), np.stack(v0), np.asarray(jax.random.key_data(keys))
 
 
-@pytest.mark.parametrize("kinds,T,R,nvars", [
+PLANS = [
     ([0, 0, 0, 0, 1], 3, 5, 36),
     ([0, 1, 2, 0], 2, 4, 100003),
     ([2, 2, 1, 1], 2, 3, 70000),
@@ -100,7 +105,10 @@ def _jax_chain(u64, kinds, T, nvars):
     ([0, (3, 4), (3, 1), 0, (5, 0)], 2, 5, 9),
     ([(4, 10), (4, 65537), (5, 7), (3, 0), 1], 3, 4, 12),
     ([0, 0, (3, 5), (3, 5), (3, 4), 0, (4, 1), (4, 2**31 - 1), (5, 40)], 2, 3, 7),
-])
+]
+
+
+@pytest.mark.parametrize("kinds,T,R,nvars", PLANS)
 def test_chain_equals_jax_splits(kinds, T, R, nvars):
     u64 = _seeds(R, T + R)
     want = _jax_chain(u64, kinds, T, nvars)
@@ -108,6 +116,124 @@ def test_chain_equals_jax_splits(kinds, T, R, nvars):
     assert rng.chain_columns(kinds) == (got[0].shape[1], got[1].shape[1])
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.astype(g.dtype))
+
+
+def _block(k, x1):
+    """threefry2x32(k, (0, x1)) of [n, 2] keys -> [n, 2]."""
+    y0, y1 = rng.threefry2x32(k[:, 0], k[:, 1], np.uint32(0), np.uint32(x1))
+    return np.stack([y0, y1], -1)
+
+
+def _lane_seed(k):
+    return (k[:, 0] ^ np.uint32(0x9E3779B9) ^ (k[:, 1] << np.uint32(1))).view(np.int32)
+
+
+def _randint(k, span):
+    """csrc/keychain.cu randint: 32 bits of each half of split(k), jax's arithmetic mod 2^32."""
+    hi = np.bitwise_xor.reduce(_block(_block(k, 0), 0), 1).astype(np.uint64)
+    lo = np.bitwise_xor.reduce(_block(_block(k, 1), 0), 1).astype(np.uint64)
+    span, m32 = np.uint64(span), np.uint64(0xFFFFFFFF)
+    mult = np.uint64(65536) % span
+    mult = (mult * mult & m32) % span
+    return ((((hi % span) * mult & m32) + lo % span & m32) % span).astype(np.int32)
+
+
+def _expand(sub, kind, param):
+    """csrc/keychain.cu expand: a slot's (seed columns, int words) from its sub-keys [32, 2]."""
+    if kind == rng.KEY_PLAIN:
+        return [_lane_seed(sub)], []
+    if kind in (rng.KEY_WORM, rng.KEY_SLICE):
+        return [_lane_seed(_block(sub, 0))], [_randint(_block(sub, 1), param)]
+    if kind == rng.KEY_CLUSTER:
+        k1 = _block(sub, 0)
+        return [_lane_seed(_block(sub, 1)), _lane_seed(_block(k1, 1)), _lane_seed(_block(_block(k1, 0), 1))], []
+    if kind == rng.KEY_FAN:
+        out = []
+        for _ in range(param):
+            out.append(_lane_seed(_block(sub, 1)))
+            sub = _block(sub, 0)
+        return out, []
+    return [], [(np.bitwise_xor.reduce(_block(sub, i), 1) < np.uint32(1 << 31)).astype(np.int32)
+                for i in range(param)]
+
+
+def _chain_model(kd, kinds, T, nvars, warps=6, batch=8, stages=16):
+    """threefry_chain_kernel's schedule in numpy: per block of 32 replicas
+    (dead lanes past R keyed 0 and never stored), the spine computes each
+    slot's sub-key and key and puts a batch of sub-keys into stage g % stages
+    once the batch that held the stage was read; expansion warp e takes
+    batches e, e + warps, ... when written, keeping its own place in the plan
+    and in the tables (the slot, seed column and int word where its next
+    batch starts: the columns of the slots before it, then those of its batch
+    and the other warps' batches after each batch), and stores each slot's
+    outputs there. The spine runs ahead as far as the ring lets it, then the
+    warps take one batch each in turn."""
+    plan = [(kind, nvars if kind == rng.KEY_WORM else param) for kind, param in map(rng._slot, kinds)]
+    S, J = len(plan), len(plan) * T
+    G = -(-J // batch)
+    C, W = rng.chain_columns(kinds)
+    R = len(kd)
+    seeds = np.full((T * C, R), -1, np.int32)
+    v0 = np.full((T * W, R), -1, np.int32)
+    keys_out = np.empty_like(kd)
+
+    def columns(k, n):  # the seed columns and int words of n slots from slot k on, cyclically
+        cw = [rng._slot_columns(*plan[(k + i) % S]) for i in range(n)]
+        return sum(c for c, _ in cw), sum(w for _, w in cw)
+
+    for blk in range(0, R, 32):
+        live = min(32, R - blk)
+        key = np.zeros((32, 2), np.uint32)
+        key[:live] = kd[blk:blk + live]
+        ring = [None] * stages  # (batch, sub-keys of its slots) or None once read
+        g = 0
+        nxt = list(range(warps))  # each expansion warp's next batch
+        place = [(e * batch % S, *columns(0, min(J, e * batch))) for e in range(warps)]  # (slot, column, word)
+        while g < G or any(n < G for n in nxt):
+            while g < G and ring[g % stages] is None:  # the spine, as far as the ring lets it
+                subs = []
+                for _ in range(g * batch, min(J, g * batch + batch)):
+                    subs.append(_block(key, 1))
+                    key = _block(key, 0)
+                ring[g % stages] = (g, subs)
+                g += 1
+            for e in range(warps):
+                n = nxt[e]
+                if n >= G or ring[n % stages] is None or ring[n % stages][0] != n:
+                    continue  # not written yet (the stage's parity would make the warp wait)
+                k, col, word = place[e]
+                for b, sub in enumerate(ring[n % stages][1]):
+                    kind, param = plan[(k + b) % S]
+                    c, w = columns(k, b)
+                    cols, words = _expand(sub, kind, param)
+                    for a, v in enumerate(cols):
+                        seeds[col + c + a, blk:blk + live] = v[:live]
+                    for a, v in enumerate(words):
+                        v0[word + w + a, blk:blk + live] = v[:live]
+                ring[n % stages] = None
+                skip = min(J - n * batch, warps * batch)
+                c, w = columns(k, skip)
+                place[e] = ((k + skip) % S, col + c, word + w)
+                nxt[e] = n + warps
+        keys_out[blk:blk + live] = key[:live]
+    return seeds.reshape(T, C, R), v0.reshape(T, W, R), keys_out
+
+
+@pytest.mark.parametrize("kinds,T,R,nvars", [p for p in PLANS if p[0]] + [
+    ([0, 1, 2, (3, 0), (3, 1), (3, 3), (4, 9), (5, 0), (5, 5)], 5, 40, 11),
+    ([(3, 3), 0, (5, 5), (3, 0), 2, (5, 0), (3, 1), 1, (4, 3)], 20, 70, 100003),
+])
+def test_spine_expansion_model_equals_reference(kinds, T, R, nvars):
+    """The kernel's split of the chain (a serial spine, slots expanded beside
+    it) writes the reference's tables and keys, for every slot kind (plain,
+    worm, cluster, fan with m = 0, 1, 3 and more, slice, bits with m = 0, 5
+    and more), blocks with dead lanes (R = 40, 70), a last batch of fewer
+    slots, and more batches than the ring's stages (180 slots)."""
+    kd = rng.key_data_from_seeds(_seeds(R, 7 * T + R))
+    got = _chain_model(kd, kinds, T, nvars)
+    want = rng.threefry_chain_reference(kd, kinds, T, nvars)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_chain_continues_across_pieces():

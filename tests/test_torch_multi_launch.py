@@ -1,20 +1,35 @@
-"""The multi-launch route's accumulation, as ``wl_accumulate`` in
-``csrc/wl.cu`` computes it, modelled in numpy, and the launches a sweep.
+"""The multi-launch route's site and accumulation kernels, as ``wl_site``
+and ``wl_accumulate`` in ``csrc/wl.cu`` schedule and compute them, modelled in
+numpy, and the launches a sweep.
 
-- A model of the kernel's word arithmetic: a warp a line, words of V bytes
-  (2, 4, 8 or 16), four signed bytes a dp4a, the line's bond products with
-  its outgoing partners (ring i + 1; torus y + 1, x + 1), its spin sum, and
-  its aligned bonds from the line's bytes against the same bytes shifted down
-  one (the next lane's first byte on top, slice 0 after the last); against
-  the statistics that ``wl_sweeps_reference`` returns, on rings and tori, at
-  L_tau = 2 mod 4 and at each word width.
+- A model of the site phases' schedule (``site_phases`` of
+  ``csrc/worldline.cuh``, which ``wl_site`` and ``ladder_site`` share): one
+  launch a color, ``site_lanes(L)`` threads a time line of the color, 8 pairs
+  of slices a thread in registers, parity 0 up the chunks (the odd slice
+  before a pair from the same thread, the lane below by a shuffle, the chunk
+  below carried, the line's last slice at pair 0), parity 1 down from the
+  last chunk (the next even slice from the same thread, the lane above, the
+  chunk above carried, pair 0's at the line's last pair), the chunks below
+  read again; groups past their row's end computing the row's last line and
+  writing nothing; the neighbour sums added as bytes (``__vadd4``) and the
+  decision ``u <= thr[15 (s > 0) + 3 ((B + 4) >> 1) + ((a + b + 2) >> 1)]``;
+  against ``wl_sweeps_reference``'s four site phases (its cluster phases
+  made to flip nothing), on rings and tori at every ``site_lanes`` size,
+  2-byte words and a last chunk of one pair.
+- A model of the accumulation's word arithmetic: a warp a line, words of V
+  bytes (2, 4, 8 or 16), four signed bytes a dp4a, the line's bond products
+  with its outgoing partners (ring i + 1; torus y + 1, x + 1), its spin sum,
+  and its aligned bonds from the line's bytes against the same bytes shifted
+  down one (the next lane's first byte on top, slice 0 after the last);
+  against the statistics that ``wl_sweeps_reference`` returns, on rings and
+  tori, at L_tau = 2 mod 4 and at each word width.
 - On the card, the launches a sweep: the wrappers' counters advance by
   ``LAUNCHES_PER_SWEEP`` a sweep on a real multi-launch call (skipped without
   CUDA; ``tests/test_torch_wl.py`` holds that the plain version adds none).
 
-The model is a second copy of the kernel's rules and can drift from the CUDA
-source: the kernels run only on the card, where ``chip_smoke.py`` compare-wl
-and compare-ladder hold them to the plain versions bit for bit.
+The models are a second copy of the kernels' rules and can drift from the
+CUDA source: the kernels run only on the card, where ``chip_smoke.py``
+compare-wl and compare-ladder hold them to the plain versions bit for bit.
 Tolerance: none; every comparison is exact.
 """
 
@@ -24,6 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pyisingmontecarlo_tpu_torch.ops import ladder, wl
+from pyisingmontecarlo_tpu_torch.ops.lanerng import lane_draw31, make_pos_mix
 
 torch.set_num_threads(1)
 
@@ -81,6 +97,123 @@ def test_accumulate_model_equals_reference_statistics(kind, size, nvars, L, V):
     x, stats, samples = wl.wl_sweeps_reference(s, seeds, tables, 1, 1, 1)
     assert np.array_equal(_accumulate(x.numpy(), kind, size, V), stats.numpy())
     assert np.array_equal(samples[:, 0].numpy(), x[:, :, 0].numpy())  # the stage: slice 0 of every line
+
+
+SITE_PAIRS, SITE_THREADS = 8, 128  # csrc/worldline.cuh: kSitePairs, kSiteThreads
+
+
+def _site_lanes(L):
+    """csrc/worldline.cuh site_lanes: the fewest of 4, 8, 16, 32 threads that hold a line of L slices in one chunk."""
+    need = -(-(L // 2) // SITE_PAIRS)
+    return next((w for w in (4, 8, 16) if need <= w), 32)
+
+
+def _site_launch(mem, seeds, thr, kind, size, ctr, color):
+    """One wl_site launch of ``color`` on mem [R, nvars, L] int8, in place, as
+    its thread groups run it: registers e, o [R, groups, W, C] a chunk,
+    shuffles as shifts along the lanes, carries across chunks."""
+    R, nvars, L = mem.shape
+    C, P, W = SITE_PAIRS, L // 2, _site_lanes(L)
+    N = W * C
+    last = 0 if W < 32 else (P - 1) // N * N  # the last chunk's first pair
+    torus = kind == "torus"
+    per_row, rows = (size // 2, size) if torus else (nvars // 2, 1)
+    lines = SITE_THREADS // W  # lines a block
+    jr = np.arange(-(-per_row // lines) * lines)  # every group of a row, past its end too
+    live = np.tile(jr < per_row, rows)
+    x = np.repeat(np.arange(rows), len(jr))
+    y = 2 * np.tile(np.minimum(jr, per_row - 1), rows) + ((x + color) & 1 if torus else color)
+    i = x * size + y if torus else y  # [G] the groups' lines
+    if torus:
+        nb = [((x + 1) % size) * size + y, ((x - 1) % size) * size + y, x * size + (y + 1) % size,
+              x * size + (y - 1) % size]
+    else:
+        nb = [(y + 1) % nvars, (y - 1) % nvars]
+    lane = np.arange(W)
+    kc = C * lane[:, None] + np.arange(C)[None, :]  # [W, C] a thread's pairs, from the chunk's first
+    r = np.arange(R)[:, None, None, None]
+    seed = torch.from_numpy(seeds.astype(np.int32))[:, None, None, None]
+
+    def load(b):
+        """Registers e, o and the neighbour sums at both slices of pairs k = b + kc, +1 and 0 past the line."""
+        k = b + kc
+        inside = k < P
+        s2 = np.minimum(2 * k, L - 2)
+        e = np.where(inside, mem[r, i[:, None, None], s2], 1).astype(np.int64)
+        o = np.where(inside, mem[r, i[:, None, None], s2 + 1], 1).astype(np.int64)
+        sums = []
+        for p in (0, 1):  # byte adds of the neighbour lines, as __vadd4
+            u = sum(mem[r, q[:, None, None], s2 + p].view(np.uint8).astype(np.int64) for q in nb) % 256
+            sums.append(np.where(inside, u.astype(np.uint8).view(np.int8), 0).astype(np.int64))
+        return e, o, sums
+
+    def flips(sv, a, bb, B, k, parity):
+        tau = torch.from_numpy(2 * k + parity)
+        pos1, pos2 = make_pos_mix(tau[None, None], torch.from_numpy(i)[None, :, None, None], nvars)
+        u = lane_draw31(seed, pos1, pos2, ctr + parity).numpy()
+        return u <= thr[15 * (sv > 0) + 3 * ((B + 4) >> 1) + ((a + bb + 2) >> 1)]
+
+    def write(k, flip, p, v):
+        """Store v at slice 2k + p where flip, on a live group's line, k inside the line."""
+        ok = flip & live[None, :, None, None] & (k < P)
+        rr, gg, ww, cc = np.nonzero(ok)
+        mem[rr, i[gg], 2 * k[ww, cc] + p] = v[ok].astype(np.int8)
+
+    before, first = mem[:, i, L - 1].astype(np.int64), None  # [R, G]
+    b = 0
+    while True:  # parity 0, up the chunks
+        e, o, (Be, Bo) = load(b)
+        k = b + kc
+        below = np.concatenate([o[:, :, :1, C - 1], o[:, :, :-1, C - 1]], 2)  # __shfl_up by one, lane 0 its own
+        po = np.concatenate([np.where(lane == 0, before[:, :, None], below)[..., None], o[..., :-1]], 3)
+        flip = flips(e, o, po, Be, k, 0)
+        write(k, flip, 0, -e)
+        e = np.where(flip & live[None, :, None, None] & (k < P), -e, e)
+        if b == 0:
+            first = e[:, :, 0, 0]
+        if b == last:
+            break
+        before = o[:, :, W - 1, C - 1]
+        b += N
+    after = first
+    b = last
+    while True:  # parity 1, down the chunks
+        k = b + kc
+        above = np.concatenate([e[:, :, 1:, 0], e[:, :, -1:, 0]], 2)  # __shfl_down by one, the last lane its own
+        ne = np.concatenate([e[..., 1:], np.where(lane == W - 1, after[:, :, None], above)[..., None]], 3)
+        ne = np.where(k + 1 == P, first[:, :, None, None], ne)
+        write(k, flips(o, ne, e, Bo, k, 1), 1, -o)
+        if b == 0:
+            break
+        after = e[:, :, 0, 0]
+        e, o, (Be, Bo) = load(b - N)
+        b -= N
+
+
+@pytest.mark.parametrize("kind,size,nvars,L", [
+    ("ring", 30, 30, 62), ("torus", 14, 196, 66), ("ring", 10, 10, 130), ("torus", 10, 100, 514),
+    ("torus", 6, 36, 800), ("ring", 8, 8, 1002), ("torus", 4, 16, 130), ("ring", 12, 12, 514)])
+def test_site_schedule_model_equals_reference_site_phases(kind, size, nvars, L):
+    """Two launches a sweep, one a color, on the shared site schedule, equal
+    the plain version's four site phases over two sweeps (R = 2; counters
+    8 t + 2 color + parity), its cluster phases flipping nothing (no bond
+    frozen, a dE no draw's log is below). The cases hold every site_lanes
+    size (4 at L_tau = 62, 8 at 66, 16 at 130, 32 and two or more chunks
+    from 514), rows past their groups' end, and a last chunk of one pair
+    (L_tau = 514)."""
+    rng = np.random.default_rng(L + nvars)
+    R, T = 2, 2
+    s = rng.choice(np.array([-1, 1], np.int8), (R, nvars, L))
+    seeds = rng.integers(-(2**31), 2**31, R).astype(np.int32)
+    tables = wl.make_tables((kind, size, -1.0), nvars, 0.05 * L, 1.0, 0.1, L)
+    tables = tables._replace(cde=torch.full((10,), 1e30), pb=0)
+    want = wl.wl_sweeps_reference(torch.from_numpy(s), torch.from_numpy(seeds), tables, T)[0].numpy()
+    mem = s.copy()
+    for t in range(T):
+        for color in (0, 1):
+            _site_launch(mem, seeds, tables.thr.numpy(), kind, size, 8 * t + 2 * color, color)
+    assert (mem != s).mean() > 0.1
+    assert np.array_equal(mem, want)
 
 
 @pytest.mark.skipif(not torch.cuda.is_available(), reason="the multi-launch kernels run only on the card")
