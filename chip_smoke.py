@@ -8,8 +8,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 1.  gpu           the card's name and power limit (nvidia-smi);
 2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
                   (registers, shared memory and spills of each) and their
-                  measurement builds (TILED_VARIANTS, SQ2D_CUTS, CHAIN_CUTS),
-                  all at once, and the SASS
+                  measurement builds (TILED_VARIANTS, SQ2D_CUTS), all at
+                  once, and the SASS
                   instructions of one lane-hash draw, of a site update of
                   ``sq2d_tiled``'s row loop and of a word of 32 slices in each
                   slice loop of the multi-launch cluster phase (``fk_line`` in
@@ -128,11 +128,9 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   call and kernel time at 200 and 4000 steps beside its
                   roofline (tables' bytes against every block's ALU
                   instructions) and the spine's latency floor (T S steps at
-                  the step that threefry_spine_probe measures); at each of
-                  its three main-path plans, the kernel against its
-                  measurement builds (CHAIN_CUTS: the spine alone, the key
-                  staged) in turns; and the numpy chain's time (the build
-                  phase counts a threefry block's SASS instructions);
+                  the step that threefry_spine_probe measures); and the
+                  numpy chain's time (the build phase counts a threefry
+                  block's SASS instructions);
 20. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
                   every family (spin on the dense int, dense hi+lo and ELL
                   paths, edge with and without importance weights, worms, SW
@@ -430,21 +428,15 @@ SQ2D_CUTS = {"box in and tile out only": ("PMC_SQ2D_CUT=0",), "no lane hash": ("
              "no barriers between phases": ("PMC_SQ2D_CUT=2",)}
 
 
-# builds of the key chain's kernel that compare-keychain times beside it (csrc/keychain.cu): the spine alone, its
-# expansion warps idle (its tables are not the chain's); the spine staging the key it splits, each expansion warp
-# splitting off the sub-key (the same tables)
-CHAIN_CUTS = {"the spine alone": ("PMC_CHAIN_SPINE_ONLY=1",), "the key staged": ("PMC_CHAIN_STAGE_KEY=1",)}
-
-
 def phase_build():
-    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, SQ2D_CUTS and
-    CHAIN_CUTS, all at once; then the SASS counts (returns cluster_sass's)."""
+    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS and SQ2D_CUTS, all
+    at once; then the SASS counts (returns cluster_sass's)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values(), *CHAIN_CUTS.values()]
+    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
         variants = [pool.submit(_kernels.build, defines=d) for d in builds]
         path = _kernels.build(verbose=True)
@@ -2262,15 +2254,14 @@ def chain_bound(kinds, T, R):
     return ms, by, f"roofline: {nbytes} bytes, {R * blocks} blocks, {ops / 1e6:.2f} M ALU instructions"
 
 
-_SPINE_NS = {}
+_SPINE_NS = []
 
 
-def spine_step_ns(both=True):
-    """ns of one step of the chain's spine as one thread chains them
-    (threefry_spine_probe over SPINE_PROBE_STEPS steps, the best of three;
-    measured once a run): key' and the sub-key, two interleaved blocks, or
-    with ``both`` false key' alone."""
-    if both not in _SPINE_NS:
+def spine_step_ns():
+    """ns of one step of the chain's spine, key' = threefry(key, 0, 0), as
+    one thread chains them (threefry_spine_probe over SPINE_PROBE_STEPS
+    steps, the best of three; measured once a run)."""
+    if not _SPINE_NS:
         from pyisingmontecarlo_tpu_torch import _kernels
         from pyisingmontecarlo_tpu_torch.rng import key_tensor
 
@@ -2279,37 +2270,51 @@ def spine_step_ns(both=True):
         out = torch.empty_like(keys)
 
         def probe():
-            err = lib.threefry_spine_probe(keys.data_ptr(), SPINE_PROBE_STEPS, int(both), out.data_ptr(),
+            err = lib.threefry_spine_probe(keys.data_ptr(), SPINE_PROBE_STEPS, out.data_ptr(),
                                            torch.cuda.current_stream().cuda_stream)
             check(err == 0, f"threefry_spine_probe failed ({err})")
 
         probe()
-        _SPINE_NS[both] = min(event_ms(probe, 1) for _ in range(3)) / SPINE_PROBE_STEPS * 1e6
-    return _SPINE_NS[both]
+        _SPINE_NS.append(min(event_ms(probe, 1) for _ in range(3)) / SPINE_PROBE_STEPS * 1e6)
+    return _SPINE_NS[0]
 
 
-def _chain_launch(lib, keys, kinds, T, nvars):
-    """threefry_chain's launch as rng.threefry_chain makes it, through ``lib`` (a measurement build's library)."""
+def chain_kernel_ms(keys, kinds, T, nvars, n=5):
+    """The device ms of one threefry_chain launch on ``keys`` as
+    rng.threefry_chain makes it: ``n`` launches back to back between two
+    CUDA events, queued behind a first launch so that the card is never idle
+    between them, the best of three (the call's time by events adds the
+    wrapper's host work, the plan's copy among it; these launches are not
+    counted)."""
+    from pyisingmontecarlo_tpu_torch import _kernels
     from pyisingmontecarlo_tpu_torch.rng import KEY_WORM, _slot, chain_columns
 
-    slots = [_slot(k) for k in kinds]
+    lib, slots = _kernels.load(), [_slot(k) for k in kinds]
     R, dev = keys.shape[0], keys.device
     C, W = chain_columns(kinds)
     seeds = torch.empty((T, C, R), dtype=torch.int32, device=dev)
     v0 = torch.empty((T, W, R), dtype=torch.int32, device=dev)
     out = torch.empty_like(keys)
     plan = torch.tensor([(k, nvars if k == KEY_WORM else p) for k, p in slots], dtype=torch.int32).to(dev)
-    err = lib.threefry_chain(keys.data_ptr(), out.data_ptr(), plan.data_ptr(), len(slots), T, C, W, R,
-                             seeds.data_ptr() if C else None, v0.data_ptr() if W else None,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    check(err == 0, f"threefry_chain ({lib}) failed ({err})")
 
+    def launch():
+        err = lib.threefry_chain(keys.data_ptr(), out.data_ptr(), plan.data_ptr(), len(slots), T, C, W, R,
+                                 seeds.data_ptr() if C else None, v0.data_ptr() if W else None,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"threefry_chain failed ({err})")
 
-def chain_device_ms(fn):
-    """The device ms of the threefry_chain launch of ``fn()`` (torch.profiler, _trace; the call's time by
-    events adds the wrapper's host work, the plan's copy among it), or None where none was recorded."""
-    dev_t = _device_times(_trace(fn), ("threefry_chain",))
-    return None if dev_t is None else float(np.mean(dev_t[0]["threefry_chain"])) / 1e3
+    def timed():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        launch()
+        start.record()
+        for _ in range(n):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    return min(timed() for _ in range(3))
 
 
 def spine_floor(kinds, T):
@@ -2357,9 +2362,7 @@ def phase_compare_keychain(dev, smi):
     slots at R = 1 over 2^16 splits and a plan of every slot kind at R = 100;
     then the call's and the kernel's time at the main shape and at the full
     4000 steps beside the roofline (chain_bound) and the spine's floor
-    (spine_floor); the kernel against its measurement builds (CHAIN_CUTS) at
-    the three main-path plans (chain_plans), in turns; and the numpy chain's
-    time. Returns (largest |difference|, call ms, numpy ms, bound ms,
+    (spine_floor); and the numpy chain's time. Returns (largest |difference|, call ms, numpy ms, bound ms,
     bound_by) at the main shape."""
     from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain, threefry_chain_reference
 
@@ -2393,32 +2396,14 @@ def phase_compare_keychain(dev, smi):
         runs = [event_ms(lambda: threefry_chain(kd, kinds, T, TRI_L**2), 1) for _ in range(5)]
         b_ms, b_by, b_what = chain_bound(kinds, T, TRI_R)
         f_ms, f_what = spine_floor(kinds, T)
-        d_ms = chain_device_ms(lambda: threefry_chain(kd, kinds, T, TRI_L**2))
+        d_ms = chain_kernel_ms(kd, kinds, T, TRI_L**2)
         out[T] = (float(np.median(runs)), b_ms, b_by)
         print(f"compare-keychain: timing on {smi}: {T} steps x {len(kinds)} slots x R={TRI_R}: threefry_chain "
               f"call median {out[T][0]:.5f} ms (runs {runs}), the kernel "
-              f"{'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; bound {b_ms:.5f} ms ({b_by}; {b_what}); the "
-              f"spine's latency floor {f_ms:.5f} ms ({f_what})"
-              + ("" if d_ms is None else f", the kernel {d_ms / f_ms:.2f}x it"), flush=True)
-    # each main-path plan: the kernel against its measurement builds (CHAIN_CUTS), in turns; against the spine alone,
-    # the difference is what the expansion warps cost the spine
-    from pyisingmontecarlo_tpu_torch import _kernels
-
-    print(f"compare-keychain: the spine's step on {smi} (threefry_spine_probe, {SPINE_PROBE_STEPS} steps in one "
-          f"thread): key' and the sub-key {spine_step_ns():.2f} ns, key' alone {spine_step_ns(False):.2f} ns",
-          flush=True)
-    for what, defines in CHAIN_CUTS.items():
-        cut = _kernels.load(defines)
-        for name, (plan, T, R, nvars) in chain_plans().items():
-            kt = key_tensor(_keys(R, 5), dev)
-            _chain_launch(cut, kt, plan, T, nvars)
-            a, b = versus(lambda: threefry_chain(kt, plan, T, nvars), lambda: _chain_launch(cut, kt, plan, T, nvars),
-                          1, 1, 3)
-            d_ms = chain_device_ms(lambda: _chain_launch(cut, kt, plan, T, nvars))
-            print(f"compare-keychain: {name} plan ({len(plan)} slots x {T} x R={R}), measurement build "
-                  f"{' '.join(defines)} ({what}), on {smi}: call median {np.median(b):.5f} ms (runs {b}), the kernel "
-                  f"{'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; against the chain's call median "
-                  f"{np.median(a):.5f} ms (runs {a}) in turns", flush=True)
+              f"{d_ms:.5f} ms (events); bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor "
+              f"{f_ms:.5f} ms ({f_what}), the kernel {d_ms / f_ms:.2f}x it", flush=True)
+    print(f"compare-keychain: the spine's step on {smi} (threefry_spine_probe, {SPINE_PROBE_STEPS} steps of key' "
+          f"in one thread): {spine_step_ns():.2f} ns", flush=True)
     host = _keys(TRI_R, 5)
     t0 = time.perf_counter()
     threefry_chain_reference(host, kinds, TRI_T, TRI_L**2)
@@ -2928,12 +2913,12 @@ def phase_compare_qmc_generic(dev, smi):
     runs = [event_ms(lambda: threefry_chain(kt, kinds, QMC_T, QMC_N), 1) for _ in range(5)]
     b_ms, b_by, b_what = chain_bound(kinds, QMC_T, QMC_R)
     f_ms, f_what = spine_floor(kinds, QMC_T)
-    d_ms = chain_device_ms(lambda: threefry_chain(kt, kinds, QMC_T, QMC_N))
+    d_ms = chain_kernel_ms(kt, kinds, QMC_T, QMC_N)
     print(f"compare-qmc-generic: threefry_chain, the main path's all-plain plan ({len(kinds)} slots a sweep x "
           f"{QMC_T} sweeps x R={QMC_R}) == its numpy version bit for bit; on {smi}: call median "
-          f"{np.median(runs):.5f} ms (runs {runs}), the kernel {'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; "
-          f"bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor {f_ms:.5f} ms ({f_what})"
-          + ("" if d_ms is None else f", the kernel {d_ms / f_ms:.2f}x it") + f"; numpy {plain_ms:.3f} ms", flush=True)
+          f"{np.median(runs):.5f} ms (runs {runs}), the kernel {d_ms:.5f} ms (events); "
+          f"bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor {f_ms:.5f} ms ({f_what}), the kernel "
+          f"{d_ms / f_ms:.2f}x it; numpy {plain_ms:.3f} ms", flush=True)
     return err, float(np.median(runs)), plain_ms, b_ms, b_by
 
 
@@ -3315,12 +3300,11 @@ def phase_compare_qmcrunner(dev, smi):
     runs = [event_ms(lambda: threefry_chain(kt, plan, 100, 1), 1) for _ in range(5)]
     b_ms, b_by, b_what = chain_bound(plan, 100, QR_R)
     f_ms, f_what = spine_floor(plan, 100)
-    d_ms = chain_device_ms(lambda: threefry_chain(kt, plan, 100, 1))
+    d_ms = chain_kernel_ms(kt, plan, 100, 1)
     print(f"compare-qmcrunner: threefry_chain, the hard n={QR_N} plan ({len(plan)} slots, {sum(_slot_blocks(k) for k in plan)}"
           f" blocks a sweep) x 100 sweeps x R={QR_R} on {smi}: call median {np.median(runs):.5f} ms (runs {runs}), "
-          f"the kernel {'not measured' if d_ms is None else f'{d_ms:.5f} ms'}; bound {b_ms:.5f} ms ({b_by}; "
-          f"{b_what}); the spine's latency floor {f_ms:.5f} ms ({f_what})"
-          + ("" if d_ms is None else f", the kernel {d_ms / f_ms:.2f}x it") + f"; numpy {plain_ms:.3f} ms", flush=True)
+          f"the kernel {d_ms:.5f} ms (events); bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor "
+          f"{f_ms:.5f} ms ({f_what}), the kernel {d_ms / f_ms:.2f}x it; numpy {plain_ms:.3f} ms", flush=True)
     return err, float(np.median(runs)), plain_ms, b_ms, b_by
 
 

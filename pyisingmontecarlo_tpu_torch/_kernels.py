@@ -37,7 +37,7 @@ _SIGNATURES = {
     "wl_tiled_sweeps": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 10 + [_P], ctypes.c_int),
     "threefry_chain": ([_P] * 3 + [_I] * 5 + [_P] * 3, ctypes.c_int),
     "threefry_bits": ([_P, _I, ctypes.c_longlong, _I, _P, _P], ctypes.c_int),
-    "threefry_spine_probe": ([_P, _I, _I, _P, _P], ctypes.c_int),
+    "threefry_spine_probe": ([_P, _I, _P, _P], ctypes.c_int),
     "pmc_smem_optin": ([_I], ctypes.c_int),
     "pmc_cluster_group": ([_I], ctypes.c_int),
     "pmc_site_lanes": ([_I], ctypes.c_int),

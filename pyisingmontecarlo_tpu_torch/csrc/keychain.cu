@@ -29,34 +29,33 @@
 //
 // Design: only the spine, key -> split(key)[0], is serial along the T S
 // slots; no slot's expansion feeds the next slot. A block takes 32 replicas
-// (lane = replica). Its spine warp walks the slots and, for each, computes
-// key' = threefry(key, 0, 0) and sub = threefry(key, 0, 1), two independent
-// blocks interleaved, and puts sub into a ring of kChainStages stages in
-// shared memory, kChainBatch slots a stage; it reads nothing else, so
-// nothing but the key's blocks sits on its path (reading the plan there, a
-// slot at a time or a batch ahead, cost it more than the expansion warps'
-// stores did). Six expansion warps take the batches in turn (warp e the
-// batches e, e + 6, ...), each keeping its own place in the plan and the
-// tables (plan_columns: the columns of the slots it passes, a slot a lane),
-// expand each slot's sub into its outputs and store them, each store one row
-// of 32 replicas. Producer and consumers meet at two mbarriers a stage
-// (full: the spine's 32 lanes arrive; empty: the consuming warp's 32 lanes),
-// once a batch. A stage's phase parity identifies its batch, since a
-// consumer waits for batch g only after its batch g - 6 was written and the
-// spine writes batch g only after batch g - kChainStages was read. Warp w
-// issues from the SM's scheduler w % 4 (an H100 SM has four), so warp 4,
-// which would share the spine's, only sets up and leaves.
+// (lane = replica). Its spine warp walks the slots and, for each, puts the
+// key into a ring of kChainStages stages in shared memory, kChainBatch slots
+// a stage, and computes key' = threefry(key, 0, 0): one block a slot, and
+// nothing else on its path (it reads no plan; computing the sub-key there as
+// well, a second block beside key', cost it 9-16% a call). Six expansion
+// warps take the batches in turn (warp e the batches e, e + 6, ...), each
+// keeping its own place in the plan and the tables (plan_columns: the
+// columns of the slots it passes, a slot a lane), split off each slot's
+// sub = threefry(key, 0, 1), expand it into the slot's outputs and store
+// them, each store one row of 32 replicas. Producer and consumers meet at
+// two mbarriers a stage (full: the spine's 32 lanes arrive; empty: the
+// consuming warp's 32 lanes), once a batch. A stage's phase parity
+// identifies its batch, since a consumer waits for batch g only after its
+// batch g - 6 was written and the spine writes batch g only after batch
+// g - kChainStages was read. Warp w issues from the SM's scheduler w % 4 (an
+// H100 SM has four), so warp 4, which would share the spine's, only sets up
+// and leaves.
 //
-// Bound: the spine is T S dependent steps, each one step's latency (about
-// one block's dependent chain, the second block in its shadow): a probe that
-// chains N steps in one thread (threefry_spine_probe) measures it, and T S
-// times it is the chain's floor whatever the design. The roofline is far
-// lower: the tables' bytes (4 R (C + W) T) at the HBM rate against every
-// block's ALU instructions (about 50 a block) at the card's integer rate, at
-// the main paths' R = 64 to 100. So the design keeps the expansion off the
-// spine: a thread walking every block of every slot of its replica would run
-// 144 blocks a sweep in line on the hard 32-ring plan, where the spine has
-// 52.
+// Bound: the spine is T S dependent steps, each one block's dependent chain:
+// a probe that chains N of them in one thread (threefry_spine_probe)
+// measures a step, and T S times it is the chain's floor whatever the
+// design. The roofline is far lower: the tables' bytes (4 R (C + W) T) at
+// the HBM rate against every block's ALU instructions (about 50 a block) at
+// the card's integer rate, at the main paths' R = 64 to 100. So the design
+// keeps the expansion off the spine: a thread walking every block of every
+// slot of its replica would run 144 blocks a sweep in line on the hard
+// 32-ring plan, where the spine has 26.
 
 // threefry_bits: jax.random.bits(key, (n,)) and jax.random.uniform(key, (n,))
 // for R keys, one row each, on the card: bits[r][i] = y0 ^ y1 with (y0, y1) =
@@ -187,25 +186,13 @@ __device__ __forceinline__ void expand(Key sub, int kind, int param, int32_t* sp
     }
 }
 
-// Builds for measurement only (chip_smoke.py, CHAIN_CUTS), whose tables are
-// not the chain's or come another way: PMC_CHAIN_SPINE_ONLY, the spine alone
-// (the expansion warps idle, no stage waited for); PMC_CHAIN_STAGE_KEY, the
-// spine staging the key it splits and each expansion warp splitting off the
-// sub-key itself.
-#ifndef PMC_CHAIN_SPINE_ONLY
-#define PMC_CHAIN_SPINE_ONLY 0
-#endif
-#ifndef PMC_CHAIN_STAGE_KEY
-#define PMC_CHAIN_STAGE_KEY 0
-#endif
-
 constexpr int kChainWarps = 8;  // warp 0 the spine, 1-3 and 5-7 the expansion, 4 idle
 constexpr int kExpandWarps = 6;
 constexpr int kChainBatch = 8;    // slots a stage: the spine waits and arrives once a batch
 constexpr int kChainStages = 16;  // more than kExpandWarps: a stage's parity names its batch
 
 struct ChainStage {
-    uint2 sub[kChainBatch][32];
+    uint2 key[kChainBatch][32];  // the key each slot splits
 };
 
 // The seed columns and int words of the n slots from slot k of the plan on, cyclically, a slot a lane, summed over
@@ -238,30 +225,25 @@ __global__ void __launch_bounds__(32 * kChainWarps) threefry_chain_kernel(
         mbar_init(&empty[threadIdx.x], 32);
     }
     __syncthreads();
-    if (warp == 0) {  // the spine: the key splits, a batch of sub-keys a stage
+    if (warp == 0) {  // the spine: key' = threefry(key, 0, 0), a batch of keys a stage
         Key key = live ? Key{keys_in[2 * r], keys_in[2 * r + 1]} : Key{0u, 0u};
         for (int g = 0; g < batches; ++g) {
             const int s = g % kChainStages, n = g / kChainStages;
-            if (!PMC_CHAIN_SPINE_ONLY && n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+            if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
 #pragma unroll
             for (int b = 0; b < kChainBatch; ++b) {
                 if (g * kChainBatch + b < J) {
-#if PMC_CHAIN_STAGE_KEY
-                    const Key sub = key;
-#else
-                    const Key sub = threefry(key, 0u, 1u);
-#endif
+                    stage[s].key[b][lane] = make_uint2(key.k0, key.k1);
                     key = threefry(key, 0u, 0u);
-                    stage[s].sub[b][lane] = make_uint2(sub.k0, sub.k1);
                 }
             }
-            if (!PMC_CHAIN_SPINE_ONLY) mbar_arrive(&full[s]);
+            mbar_arrive(&full[s]);
         }
         if (live) {
             keys_out[2 * r] = key.k0;
             keys_out[2 * r + 1] = key.k1;
         }
-    } else if (warp != 4 && !PMC_CHAIN_SPINE_ONLY) {  // an expansion warp: batches e, e + kExpandWarps, ...
+    } else if (warp != 4) {  // an expansion warp: batches e, e + kExpandWarps, ...
         const int e = warp < 4 ? warp - 1 : warp - 2;
         const int2* plan2 = reinterpret_cast<const int2*>(plan);
         // the batch's first slot in the plan, and its first seed column and int word, counted from seeds and v0
@@ -284,15 +266,11 @@ __global__ void __launch_bounds__(32 * kChainWarps) threefry_chain_kernel(
             }
             mbar_wait(&full[s], n & 1);
             for (int b = 0; b < m; ++b) {
-                const uint2 u = stage[s].sub[b][lane];
+                const uint2 u = stage[s].key[b][lane];
                 const int kind = __shfl_sync(0xffffffffu, p.x, b), param = __shfl_sync(0xffffffffu, p.y, b);
                 const int c = col + __shfl_sync(0xffffffffu, cw.x - cw0.x, b);
                 const int w = word + __shfl_sync(0xffffffffu, cw.y - cw0.y, b);
-#if PMC_CHAIN_STAGE_KEY
                 const Key sub = threefry(Key{u.x, u.y}, 0u, 1u);
-#else
-                const Key sub{u.x, u.y};
-#endif
                 expand(sub, kind, param, seeds + (size_t)c * R + r, v0 + (size_t)w * R + r, static_cast<size_t>(R),
                        live);
             }
@@ -306,23 +284,12 @@ __global__ void __launch_bounds__(32 * kChainWarps) threefry_chain_kernel(
 }
 
 // A probe of the spine's step latency, for measurement: one warp, each lane
-// chaining n steps of its own key, key' = threefry(key, 0, 0) and, with
-// both, sub = threefry(key, 0, 1) beside it as the spine computes them (the
-// subs folded into the output so that none is dropped).
-__global__ void threefry_spine_probe_kernel(const uint32_t* __restrict__ keys, int n, int both,
-                                            uint32_t* __restrict__ out) {
+// chaining n steps of its own key, key' = threefry(key, 0, 0), as the spine
+// computes them.
+__global__ void threefry_spine_probe_kernel(const uint32_t* __restrict__ keys, int n, uint32_t* __restrict__ out) {
     Key key{keys[2 * threadIdx.x], keys[2 * threadIdx.x + 1]};
-    uint32_t fold = 0;
-    if (both) {
-        for (int i = 0; i < n; ++i) {
-            const Key sub = threefry(key, 0u, 1u);
-            key = threefry(key, 0u, 0u);
-            fold ^= sub.k0 ^ sub.k1;
-        }
-    } else {
-        for (int i = 0; i < n; ++i) key = threefry(key, 0u, 0u);
-    }
-    out[2 * threadIdx.x] = key.k0 ^ fold;
+    for (int i = 0; i < n; ++i) key = threefry(key, 0u, 0u);
+    out[2 * threadIdx.x] = key.k0;
     out[2 * threadIdx.x + 1] = key.k1;
 }
 
@@ -369,10 +336,10 @@ extern "C" int threefry_chain(const void* keys_in, void* keys_out, const void* p
 }
 
 // The spine probe for measurement: one warp on `stream`, lane i chaining n steps of keys[i] (keys [32][2] uint32
-// on the device; both: the sub-key beside the key, as the spine), out [32][2] uint32.
-extern "C" int threefry_spine_probe(const void* keys, int n, int both, void* out, void* stream) {
+// on the device), out [32][2] uint32.
+extern "C" int threefry_spine_probe(const void* keys, int n, void* out, void* stream) {
     if (n < 0 || keys == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
     threefry_spine_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), n, both, static_cast<uint32_t*>(out));
+        static_cast<const uint32_t*>(keys), n, static_cast<uint32_t*>(out));
     return (int)cudaGetLastError();
 }

@@ -7,9 +7,9 @@ generic sweep's inner splits of a segment or term-kink pass, a slice's
 ``randint(ksel, ltau)`` and the free variables' ``bernoulli(sub, 0.5)``) for
 plans of every slot kind (tolerance: none); and a numpy model of the CUDA
 kernel's split of the work (``csrc/keychain.cu``: a spine warp walking only
-``key, sub = split(key)`` for 32 replicas, a ring of stages, six expansion
-warps taking batches of slots in turn and expanding each sub-key into its
-outputs)
+``key' = split(key)[0]`` for 32 replicas and staging each key in a ring of
+stages, six expansion warps taking batches of slots in turn, splitting off
+each slot's sub-key and expanding it into its outputs)
 against ``threefry_chain_reference``, for every slot kind. The CUDA kernel is
 held to the same numpy version on the card by chip_smoke.py's
 compare-keychain and compare-qmcrunner."""
@@ -159,14 +159,14 @@ def _expand(sub, kind, param):
 
 def _chain_model(kd, kinds, T, nvars, warps=6, batch=8, stages=16):
     """threefry_chain_kernel's schedule in numpy: per block of 32 replicas
-    (dead lanes past R keyed 0 and never stored), the spine computes each
-    slot's sub-key and key and puts a batch of sub-keys into stage g % stages
-    once the batch that held the stage was read; expansion warp e takes
+    (dead lanes past R keyed 0 and never stored), the spine puts a batch of
+    the keys it splits into stage g % stages once the batch that held the
+    stage was read, computing only each next key; expansion warp e takes
     batches e, e + warps, ... when written, keeping its own place in the plan
     and in the tables (the slot, seed column and int word where its next
     batch starts: the columns of the slots before it, then those of its batch
-    and the other warps' batches after each batch), and stores each slot's
-    outputs there. The spine runs ahead as far as the ring lets it, then the
+    and the other warps' batches after each batch), splits each slot's
+    sub-key off its staged key and stores the slot's outputs there. The spine runs ahead as far as the ring lets it, then the
     warps take one batch each in turn."""
     plan = [(kind, nvars if kind == rng.KEY_WORM else param) for kind, param in map(rng._slot, kinds)]
     S, J = len(plan), len(plan) * T
@@ -185,27 +185,27 @@ def _chain_model(kd, kinds, T, nvars, warps=6, batch=8, stages=16):
         live = min(32, R - blk)
         key = np.zeros((32, 2), np.uint32)
         key[:live] = kd[blk:blk + live]
-        ring = [None] * stages  # (batch, sub-keys of its slots) or None once read
+        ring = [None] * stages  # (batch, the keys its slots split) or None once read
         g = 0
         nxt = list(range(warps))  # each expansion warp's next batch
         place = [(e * batch % S, *columns(0, min(J, e * batch))) for e in range(warps)]  # (slot, column, word)
         while g < G or any(n < G for n in nxt):
             while g < G and ring[g % stages] is None:  # the spine, as far as the ring lets it
-                subs = []
+                staged = []
                 for _ in range(g * batch, min(J, g * batch + batch)):
-                    subs.append(_block(key, 1))
+                    staged.append(key)
                     key = _block(key, 0)
-                ring[g % stages] = (g, subs)
+                ring[g % stages] = (g, staged)
                 g += 1
             for e in range(warps):
                 n = nxt[e]
                 if n >= G or ring[n % stages] is None or ring[n % stages][0] != n:
                     continue  # not written yet (the stage's parity would make the warp wait)
                 k, col, word = place[e]
-                for b, sub in enumerate(ring[n % stages][1]):
+                for b, staged in enumerate(ring[n % stages][1]):
                     kind, param = plan[(k + b) % S]
                     c, w = columns(k, b)
-                    cols, words = _expand(sub, kind, param)
+                    cols, words = _expand(_block(staged, 1), kind, param)
                     for a, v in enumerate(cols):
                         seeds[col + c + a, blk:blk + live] = v[:live]
                     for a, v in enumerate(words):
