@@ -217,6 +217,19 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   replicas, 100 sweeps against the exact free-fermion energy),
                   each one threefry_bits launch a phase; sweeps/s beside the
                   unsharded route's.
+35. graph-native  the native graph library (``_native_graph``, g++ at first use)
+                  built on this host from the checkout, each of its four passes
+                  array for array the python pass's on benches/bench_classical_graph.py's
+                  4-regular +-J glass at n = 4096 and 16384 and on BASELINE.json
+                  config 2's 48^2 triangular lattice, the set-up ms both ways;
+                  ClassicIsing on the n = 16384 glass takes the native build;
+36. shim          the reference README's first example, verbatim, through
+                  ``py_monte_carlo_torch`` on the default device (the card);
+37. examples      each twin of examples/ (pyisingmontecarlo_tpu_torch/examples/)
+                  through its ``main([])`` on the card, the ferromagnet also at
+                  L = 256: its wall, its launches (each twin must launch its
+                  path's kernel) and its physics (Onsager, the free-fermion
+                  energy, accepted swaps, the Richardson estimate).
 
 Each entry of the kernels line takes its times and bound from one shape,
 that of the first main path that launched it; its launches are the sum over
@@ -262,6 +275,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3766,6 +3780,171 @@ def phase_main_parallel(dev, smi, meshes):
     return counts_ladder, bits, rate
 
 
+def _same_arrays(a, b):
+    """Whether two tuples of pass outputs (arrays and ints) are equal, dtype for dtype."""
+    def same(x, y):
+        if isinstance(x, np.ndarray):
+            return isinstance(y, np.ndarray) and x.dtype == y.dtype and np.array_equal(x, y)
+        return type(x) is type(y) and x == y
+
+    return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+
+
+def _native_calls():
+    """{pass: the calls of the native graph library's pass so far}."""
+    from pyisingmontecarlo_tpu_torch import _native_graph as ng
+
+    return {name: getattr(ng, name).calls for name in ("build_ell", "color_sites", "color_edges", "strong_color_edges")}
+
+
+def phase_graph_native(dev, smi):
+    """The native graph library built on this host from the checkout's
+    source, its four passes against the python passes, array for array and
+    dtype for dtype, on benches/bench_classical_graph.py's 4-regular +-J glass
+    at n = 4096 and 16384 and BASELINE.json config 2's 48^2 triangular
+    lattice, with each graph's set-up both ways (the ELL adjacency and the
+    three colorings, ms on the host); then ClassicIsing on the n = 16384
+    glass, which must take the native build."""
+    from pyisingmontecarlo_tpu_torch import ClassicIsing
+    from pyisingmontecarlo_tpu_torch import _native_graph as ng
+    from pyisingmontecarlo_tpu_torch import graph as tg
+    from pyisingmontecarlo_tpu_torch.models import triangular_edges
+
+    check(ng.available(), f"no {ng.COMPILER} on PATH: the native graph library cannot be built")
+    lib = ng.build()
+    ng.load()
+    with tempfile.TemporaryDirectory(dir=ng.BUILD) as fresh:  # earlier phases built the package's copy: time one
+        t0 = time.perf_counter()
+        ng.build(ng.SOURCE, fresh)
+        build_s = time.perf_counter() - t0
+    print(f"graph-native: {ng.COMPILER} {' '.join(ng.FLAGS)} builds {ng.SOURCE.name} from the checkout in "
+          f"{build_s:.3f} s on the host of {smi} (into an empty directory); {lib.name} loaded", flush=True)
+    passes = (("ELL", ng.build_ell, tg._build_ell_numpy), ("site colors", ng.color_sites, tg._color_sites_python),
+              ("edge colors", ng.color_edges, tg._color_edges_python),
+              ("strong edge colors", ng.strong_color_edges, tg._strong_color_edges_python))
+    graphs = ((f"4-regular +-J glass n={GLASS_NS[0]}", glass_edges(GLASS_NS[0])),
+              (f"4-regular +-J glass n={GLASS_NS[1]}", glass_edges(GLASS_NS[1])),
+              (f"{TRI_L}^2 triangular", triangular_edges(TRI_L, j=1.0)))
+    for name, edges in graphs:
+        nvars, ea, eb, ej = tg.parse_edges(edges)
+        ms = {"native": {}, "python": {}}
+        for pname, native, python in passes:
+            args = (nvars, ea, eb, ej) if pname == "ELL" else (nvars, ea, eb)
+            out = {}
+            for side, fn, reps in (("native", native, 3), ("python", python, 1)):
+                best = float("inf")
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    out[side] = fn(*args)
+                    best = min(best, time.perf_counter() - t0)
+                ms[side][pname] = best * 1e3
+            got, want = (out[side] if pname == "ELL" else (out[side],) for side in ("native", "python"))
+            check(_same_arrays(got, want), f"graph-native: {name}: the native {pname} != the python pass's")
+        print(f"graph-native: {name} (n = {nvars}, {len(ea)} edges), set-up on the host of {smi}: native "
+              f"{sum(ms['native'].values()):.3f} ms (" + ", ".join(f"{k} {v:.3f}" for k, v in ms["native"].items())
+              + f"; the best of 3), python {sum(ms['python'].values()):.1f} ms ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in ms["python"].items())
+              + "); the four passes' arrays equal, dtype for dtype", flush=True)
+    before = _native_calls()
+    ci = ClassicIsing(glass_edges(GLASS_NS[1]), num_experiments=GLASS_R, seed=3, device=dev)
+    es, _ = ci.run_monte_carlo_sampling(GLASS_BETA, 2)
+    took = {k: v - before[k] for k, v in _native_calls().items()}
+    check(took["build_ell"] == took["color_sites"] == took["strong_color_edges"] == 1,
+          f"graph-native: ClassicIsing on the n={GLASS_NS[1]} glass took native passes {took}")
+    check(np.isfinite(es).all(), "graph-native: ClassicIsing's energies are not finite")
+    print(f"graph-native: ClassicIsing(glass n={GLASS_NS[1]}, R={GLASS_R}) on {smi} took the native build: "
+          f"native calls {took}", flush=True)
+
+
+def phase_shim(dev):
+    """The reference README's first example, verbatim, through py_monte_carlo_torch: the
+    default device (the card), run_monte_carlo(1.0, 10, 4) on the 3-site graph."""
+    import py_monte_carlo_torch as py_monte_carlo
+
+    edges = [((0, 1), 1.0), ((1, 2), -1.0)]
+    reset_counts()
+    lat = py_monte_carlo.Lattice(edges)
+    es, ss = lat.run_monte_carlo(1.0, 10, 4)
+    counts = read_counts()
+    check(lat.device.type == "cuda", f"shim: the default device is {lat.device}")
+    check(es.shape == (4,) and ss.shape == (4, 3) and es.dtype == np.float64 and ss.dtype == np.bool_,
+          f"shim: shapes {es.shape} {ss.shape}, dtypes {es.dtype} {ss.dtype}")
+    s = np.where(ss, 1.0, -1.0)
+    check(np.array_equal(es, s[:, 0] * s[:, 1] - s[:, 1] * s[:, 2]), f"shim: energies {es} != those of the states")
+    print(f"shim: py_monte_carlo_torch.Lattice({edges}).run_monte_carlo(1.0, 10, 4) on {lat.device} "
+          f"({torch.cuda.get_device_name(0)}): energies {es.tolist()}, states {ss.shape}; launches {counts}",
+          flush=True)
+
+
+# the twins' physics tolerances (examples phase)
+# ferromagnet at L = 32: <|m|> within 4 se + 0.03 of Onsager at beta >= 0.5 (the finite-size shift at L = 32 is
+# about +0.001; a replica still in two domains after 2000 sweeps from a random start pulls the mean down by
+# about 1/32), and below 0.1 at beta = 0.30 (its finite-size <|m|> ~ sqrt(chi / N) ~ 0.06)
+FERRO_TOL, FERRO_HOT_MAX = 0.03, 0.1
+# ferromagnet at L = 256: the 2200 sweeps are short of the ~L^2 sweeps that single-flip coarsening needs to
+# order the lattice, so <|m|> at beta >= 0.5 lies between the disordered value and Onsager's (+ 4 se + 0.03),
+# and at beta = 0.30 below 0.02 (sqrt(chi / N) ~ 0.008)
+FERRO_BIG_L, FERRO_BIG_HOT_MAX = 256, 0.02
+# TFIM chain: <E>/n within 4 se + 0.03 of the free-fermion energy (the Trotter bias at dtau = 0.05 is below 0.003
+# a site), <m^2> falling with Gamma; Trotter: the Richardson estimate within 4 of its standard errors
+
+
+def phase_examples(dev, smi):
+    """Each twin of examples/ through its main([]) on the card (default
+    arguments; the ferromagnet also at L = 256): its wall, its kernel
+    launches (each twin must launch the kernel its path takes), and its
+    physics against the tolerances above."""
+    from pyisingmontecarlo_tpu_torch.examples import (ferromagnet_phase_diagram, spin_glass_tempering,
+                                                      tfim_quantum_phase_transition, trotter_extrapolation)
+
+    def drive(mod, argv, want):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        name = mod.__name__.rsplit(".", 1)[1]
+        launched = {k: v for k, v in counts.items() if v}
+        check(sum(counts[k] for k in want) > 0, f"examples: {name} {argv} launched none of {want}: {counts}")
+        print(f"examples: {name} {argv} on {smi}: {wall:.3f} s wall; launches {launched}", flush=True)
+        return out
+
+    for L, argv in ((32, []), (FERRO_BIG_L, [str(FERRO_BIG_L)])):
+        rows = drive(ferromagnet_phase_diagram, argv, ("sq2d",))
+        (b_hot, m_hot, _, _), cold = rows[0], [r for r in rows if r[0] >= 0.5]
+        check(b_hot == 0.30 and m_hot < (FERRO_HOT_MAX if L == 32 else FERRO_BIG_HOT_MAX),
+              f"examples: ferromagnet L={L}: <|m|> {m_hot} at beta 0.30")
+        for beta, m, se, exact in cold:
+            ok = abs(m - exact) < 4 * se + FERRO_TOL if L == 32 else m_hot < m < exact + 4 * se + FERRO_TOL
+            check(ok, f"examples: ferromagnet L={L}: <|m|> {m} +- {se} at beta {beta}, Onsager {exact}")
+        print(f"examples: ferromagnet L={L}: " + ", ".join(f"beta {b}: {m:.4f} +- {se:.4f} (Onsager {e:.4f})"
+                                                        for b, m, se, e in rows), flush=True)
+
+    rows = drive(tfim_quantum_phase_transition, [], ("wl", "wl_resident", "wl_tiled"))
+    n, beta = 16, 8.0
+    for gamma, _, e, se in rows:
+        exact = chain_energy(n, beta, gamma)
+        check(abs(e - exact) < 4 * se + 0.03, f"examples: TFIM chain Gamma {gamma}: <E>/n {e} +- {se}, exact {exact}")
+    m2 = [r[1] for r in rows]
+    check(all(a > b for a, b in zip(m2, m2[1:])), f"examples: TFIM chain <m^2> {m2} does not fall with Gamma")
+    print(f"examples: TFIM chain n={n}, beta={beta}: " + ", ".join(
+        f"Gamma {g}: <E>/n {e:.5f} +- {se:.5f} (exact {chain_energy(n, beta, g):.5f}), <m^2> {m:.4f}"
+        for g, m, e, se in rows), flush=True)
+
+    out = drive(spin_glass_tempering, [], ("ladder", "ladder_resident"))
+    es = out["energies"]
+    check(out["swaps"] > 0 and es[-1] < es[0], f"examples: glass swaps {out['swaps']}, <E> coldest {es[-1]}, "
+                                                f"hottest {es[0]}")
+    print(f"examples: glass: {out['swaps']} accepted swaps, <E> hottest {es[0]:.3f}, coldest {es[-1]:.3f}", flush=True)
+
+    ex, rows = drive(trotter_extrapolation, [], ("wl", "wl_resident", "wl_tiled", "keychain"))
+    _, e_x, se_x, bias_x = rows[-1]
+    check(abs(bias_x) < 4 * se_x, f"examples: Richardson {e_x} +- {se_x}, exact {ex}")
+    print(f"examples: Trotter: exact {ex:.5f}; " + ", ".join(f"{label} {e:.5f} +- {se:.5f} (bias {b:+.5f})"
+                                                            for label, e, se, b in rows), flush=True)
+
+
 def main():
     seconds = {}
 
@@ -3813,6 +3992,9 @@ def main():
     meshes = timed_phase(phase_compare_parallel, dev, smi)
     par_counts, bits_launches, _ = timed_phase(phase_main_parallel, dev, smi, meshes)
     torch.distributed.destroy_process_group()
+    timed_phase(phase_graph_native, dev, smi)
+    timed_phase(phase_shim, dev)
+    timed_phase(phase_examples, dev, smi)
     print(f"threefry_chain at the hard n={QR_N} QmcRunner plan (100 sweeps x R={QR_R}) on {smi}: {qr_chain_ms:.5f} ms, "
           f"bound {qr_chain_bound:.5f} ms ({qr_chain_by}), numpy {qr_chain_plain_ms:.3f} ms", flush=True)
     sites = BENCH_R * BENCH_L**2

@@ -3,11 +3,12 @@
 Counterpart of ``pyisingmontecarlo_tpu/graph.py``, carried over (numpy only)
 rather than imported, because importing any module of the JAX package imports
 jax. Compilation products are lazy, as there: the uniform square torus runs
-its own kernel and never pays for a coloring. The colorings are the JAX
-package's python ones, array for array (the JAX package's native library is
-only a faster build of the same greedy passes and is not carried over): the
-order of the color classes decides the random stream of the classical engine,
-so the two packages must agree on it.
+its own kernel and never pays for a coloring. The ELL adjacency and the three
+colorings come from the port's native library (``_native_graph.py``, built
+from ``native/graphc.cpp`` at first use) where a C++ compiler is on ``PATH``,
+else from the python passes below, the plain version: both give the JAX
+package's arrays, array for array. The order of the color classes decides the
+random stream of the classical engine, so the two packages must agree on it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import _native_graph
 
 __all__ = [
     "CompiledGraph",
@@ -174,6 +177,12 @@ def _classes(colors: np.ndarray) -> Tuple[np.ndarray, ...]:
     return tuple(np.nonzero(colors == k)[0].astype(np.int32) for k in range(int(colors.max()) + 1))
 
 
+def _native():
+    """The native passes (``_native_graph``) where a C++ compiler is on
+    ``PATH``, else None: then the python passes run."""
+    return _native_graph if _native_graph.available() else None
+
+
 class CompiledGraph:
     """The compiled form of an edge list: the edge arrays ``nvars``,
     ``edge_a``, ``edge_b``, ``edge_j`` at once; the ELL adjacency and the
@@ -192,7 +201,8 @@ class CompiledGraph:
 
     def _ensure_ell(self):
         if self._ell is None:
-            self._ell = _build_ell_numpy(self.nvars, self.edge_a, self.edge_b, self.edge_j)
+            ng = _native()
+            self._ell = (ng.build_ell if ng else _build_ell_numpy)(self.nvars, self.edge_a, self.edge_b, self.edge_j)
         return self._ell
 
     @property
@@ -225,7 +235,8 @@ class CompiledGraph:
     @property
     def colors(self) -> np.ndarray:
         if self._colors is None:
-            self._colors = _color_sites_python(self.nvars, self.edge_a, self.edge_b)
+            ng = _native()
+            self._colors = (ng.color_sites if ng else _color_sites_python)(self.nvars, self.edge_a, self.edge_b)
         return self._colors
 
     @property
@@ -239,7 +250,8 @@ class CompiledGraph:
     @property
     def edge_colors(self) -> np.ndarray:
         if self._ecolors is None:
-            self._ecolors = _color_edges_python(self.nvars, self.edge_a, self.edge_b)
+            ng = _native()
+            self._ecolors = (ng.color_edges if ng else _color_edges_python)(self.nvars, self.edge_a, self.edge_b)
         return self._ecolors
 
     @property
@@ -255,7 +267,9 @@ class CompiledGraph:
         """The strong (distance-2) edge coloring, the one the parallel
         pair-flip moves use."""
         if self._strong_ecolors is None:
-            self._strong_ecolors = _strong_color_edges_python(self.nvars, self.edge_a, self.edge_b)
+            ng = _native()
+            color = ng.strong_color_edges if ng else _strong_color_edges_python
+            self._strong_ecolors = color(self.nvars, self.edge_a, self.edge_b)
         return self._strong_ecolors
 
     @property

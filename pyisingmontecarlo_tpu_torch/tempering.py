@@ -454,7 +454,7 @@ class LatticeTempering:
                    {"graphs": container, "total_swaps": int(self.total_swaps)}], path)
 
     @staticmethod
-    def read_from_file(path: str, reseed: Optional[int] = None, device="cuda") -> "LatticeTempering":
+    def read_from_file(path: str, reseed: Optional[int] = None, *, device="cuda") -> "LatticeTempering":
         """Reload a checkpoint; the per-replica seeds are drawn anew from
         ``reseed`` (or entropy), and saved worldlines are regridded if the
         ladder's L_tau changed."""

@@ -51,6 +51,11 @@ def test_port_imports_no_jax():
         "import pyisingmontecarlo_tpu_torch.entry, pyisingmontecarlo_tpu_torch.examples.tau_sharded_tfim\n"
         "import pyisingmontecarlo_tpu_torch.parallel.replica, pyisingmontecarlo_tpu_torch.parallel.tempering\n"
         "import pyisingmontecarlo_tpu_torch.parallel.spatial, pyisingmontecarlo_tpu_torch.parallel.tau\n"
+        "import py_monte_carlo_torch, pyisingmontecarlo_tpu_torch._native_graph\n"
+        "import pyisingmontecarlo_tpu_torch.examples.ferromagnet_phase_diagram\n"
+        "import pyisingmontecarlo_tpu_torch.examples.tfim_quantum_phase_transition\n"
+        "import pyisingmontecarlo_tpu_torch.examples.spin_glass_tempering\n"
+        "import pyisingmontecarlo_tpu_torch.examples.trotter_extrapolation\n"
         "import os\n"
         "for mode in ('1', '0'):\n"
         "    os.environ['PMC_GENERIC_GM'] = mode\n"
