@@ -8,14 +8,15 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 1.  gpu           the card's name and power limit (nvidia-smi);
 2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
                   (registers, shared memory and spills of each) and their
-                  measurement builds (TILED_VARIANTS, SQ2D_CUTS), all at
+                  measurement builds (TILED_VARIANTS, SQ2D_CUTS,
+                  FK_GROUP_VARIANTS), all at
                   once, and the SASS
                   instructions of one lane-hash draw, of a site update of
                   ``sq2d_tiled``'s row loop and of a word of 32 slices in each
                   slice loop of the multi-launch cluster phase (``fk_line`` in
                   wl_cluster and ladder_cluster), of a slice of
                   wl_accumulate's word loop, of a spin of ladder_site at
-                  L_tau = 60 and 1002 and of wl_site at L_tau = 800 (hash,
+                  L_tau = 60 and 974 and of wl_site at L_tau = 800 (hash,
                   logf, loads, stores, the rest; cuobjdump, where the
                   toolkit has it);
 3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
@@ -94,8 +95,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   lines, L_tau=1200, L_tau=4 with R=1, odd R, a 24^2 torus,
                   a 48^2 torus off the gate, the 64 x 144 x 60 bench shape,
                   and the 64 x 4096 x 60 shape of main-tempering-wide); the
-                  multi-launch kernels at L_tau = 700, 800, 1002 and 4096 on
-                  rings and +-J tori, with lines frozen whole at high K_tau,
+                  multi-launch kernels at L_tau = 700, 800, 974, 3906 and
+                  4096 on rings and +-J tori, with lines frozen whole at high K_tau,
                   at L_tau = 62 and 66 on a 30-ring and a 14^2 +-J torus,
                   R = 3, and at L_tau = 130 and 514 (ladder_site's 16
                   threads a line, and a warp's two chunks, the last of one
@@ -118,9 +119,39 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   alone and the instruction floor of their algorithm, and the
                   site phases' time against what they need (site_need) and
                   their SASS floor, there and on a 32^2 +-J ladder at
-                  L_tau = 1002, R = 16 (ladder_site a warp a line, in
+                  L_tau = 974, R = 16 (ladder_site a warp a line, in
                   chunks);
-19. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
+19. compare-longline  the multi-launch kernels vs their plain version past
+                  L_tau = 4096, bit for bit, through the wrappers (launch
+                  counts checked): the worldline kernels in plain and sampling
+                  mode at L_tau = 4098, 5120, 10,240, the longest line one
+                  block holds (26,944 on an H100), one pair past it, 40,960
+                  and 2^20 (the 4-ring at the gate's edge), and lines frozen
+                  whole at 40,960 and 2^20; the ladder kernels (states and
+                  swap features) on the 12^2 +-J glass at 5120, the 16-ring at
+                  40,960 (also frozen whole) and the 4-ring at 250,000 (the
+                  gate's edge); past one block the cluster phase is fk_long_*;
+20. main-quantum-longline  ``Lattice.run_quantum_monte_carlo(512, 300, 64)`` and
+                  ``run_quantum_monte_carlo_sampling(512, 300, 64, wait 300,
+                  freq 10)`` on the 128-ring TFIM at its critical point
+                  (L_tau = 10,240; multi-launch, the cluster phase a block of
+                  512 threads a line) against the exact free-fermion energy
+                  (chain_energy, in logs), launches by kernel, other device
+                  operations and the idle share of a profiled 20-sweep call;
+                  both entry points on the 16-ring at beta = 2048 (L_tau =
+                  40,960: 3 wl launches and 10 fk_long_* launches a sweep);
+21. main-tempering-longline  ``LatticeTempering.qmc_timesteps_sample(200)`` on
+                  the tempering bench's 12^2 +-J glass with 64 rungs at
+                  geomspace(0.2, 256) (L_tau = 5120; multi-launch), swaps
+                  accepted and <E> falling with beta, a profiled 10-sweep
+                  call; a 4-ring ladder at beta up to 12,500 (L_tau = 250,000:
+                  2 ladder_site and 10 fk_long_* launches a sweep);
+22. timing-longline   those shapes' kernels against the plain version (CUDA
+                  events, in turns), their bounds and each kernel's us a sweep
+                  (torch.profiler), and the cluster phase's group of 256 and
+                  1024 threads (FK_GROUP_VARIANTS) against 512 at L_tau =
+                  10,240;
+23. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100), a plan with worm and cluster
                   slots at R = 1 over 2^16 chained splits and a plan of every
@@ -131,13 +162,13 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   the step that threefry_spine_probe measures); and the
                   numpy chain's time (the build phase counts a threefry
                   block's SASS instructions);
-20. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
+24. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
                   every family (spin on the dense int, dense hi+lo and ELL
                   paths, edge with and without importance weights, worms, SW
                   with a field, annealing energies) at small shapes; then one
                   default step of the main path at full width, move by move,
                   where every differing spin must be an f32 tie;
-21. main-classical    ``Lattice.run_monte_carlo_annealing_and_get_energies`` of
+25. main-classical    ``Lattice.run_monte_carlo_annealing_and_get_energies`` of
                   BASELINE.json config 2 (benches/bench_configs.py: the 48^2
                   triangular AFM, 100 experiments, beta 0.1 -> 3.0), depth
                   cut from 4000 steps to 200: one threefry_chain launch, steps/s
@@ -145,13 +176,13 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   operations a step and the idle share (torch.profiler over a
                   20-step call); the last energy column against ``energy`` of
                   the states, <E> falling along the schedule;
-22. main-classicising ``ClassicIsing`` on benches/bench_classical_graph.py's 4-regular
+26. main-classicising ``ClassicIsing`` on benches/bench_classical_graph.py's 4-regular
                   +-J glass (R = 64, beta = 1.5): ms a step of each move family
                   at n = 4096 (dense) and of the spin family at n = 16384
                   (ELL); ``get_energies`` against the run's energies;
-23. physics-classical <E> of a frustrated 10-site graph with a field against exact
+27. physics-classical <E> of a frustrated 10-site graph with a field against exact
                   enumeration (Lattice with and without clusters, ClassicIsing);
-24. compare-qmc-generic the generic worldline engine on the card vs on the CPU,
+28. compare-qmc-generic the generic worldline engine on the card vs on the CPU,
                   bit for bit in states, keys, samples, cluster sizes and RVB
                   ratios (run_sweeps, run_sweeps_sample, run_diagonal_sweeps,
                   run_single_cluster, run_rvb_sweeps; a 64-site glass and a
@@ -161,23 +192,23 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   tie; threefry_chain with the main path's all-plain plan vs
                   its numpy version, bit for bit, its time, roofline and
                   spine floor;
-25. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
+29. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
                   benches/bench_classical_graph.py (n = 4096, R = 64, Gamma = 1,
                   beta = 2, L_tau = 40): run_qmc(2.0, 100), then
                   run_sampling(2.0, 200, sampling_freq=10) (generic route, one
                   threefry_chain launch a call): sweeps/s, spin updates/ns,
                   torch and device operations a sweep and the idle share
                   (torch.profiler over a 20-sweep call);
-26. main-qmcising-lattice ``QmcIsing`` on the 256^2 torus (R = 8, 200 sweeps;
+30. main-qmcising-lattice ``QmcIsing`` on the 256^2 torus (R = 8, 200 sweeps;
                   wl_tiled) and run_sampling on the 256-chain (R = 64;
                   wl_resident), against the exact free-fermion energy;
-27. physics-qmcising <E> against dense diagonalization: QmcIsing on an 8-site
+31. physics-qmcising <E> against dense diagonalization: QmcIsing on an 8-site
                   +-J graph with a field and RVB, Lattice on a 3 x 3 triangular
                   patch with RVB, each rung of a LatticeTempering glass ladder
                   off the ladder kernel's gate; cluster sizes and RVB ratios in
                   range.
 
-28. compare-qmcrunner the generic k-local engine on the card vs on the CPU:
+32. compare-qmcrunner the generic k-local engine on the card vs on the CPU:
                   QmcRunner on a 5-ring with ZZ, X, XX and ZZZ terms and a free
                   variable, both routes forced, with and without do_loop, bit
                   for bit (states, samples, bond counts, keys); one gm sweep of
@@ -187,7 +218,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   version bit for bit (a plan of every kind, the do_loop plan,
                   the hard plan at 100 sweeps x R = 64, timed with its
                   roofline and spine floor);
-29. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
+33. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
                   and bench_qmcrunner.py time it, depth cut to a quarter: the
                   hard n = 32 system (ZZ, X, XX, ZZZ on a ring; R = 64, beta 1;
                   slope between 50 and 200 sweeps) and the 64-site TFIM chain
@@ -196,20 +227,20 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   sweep and the idle share (torch.profiler over 20 sweeps), one
                   threefry_chain launch a call; the chain against the exact
                   free-fermion energy;
-30. crossover-qmcrunner the hard family at n = 128, R = 64 on both routes
+34. crossover-qmcrunner the hard family at n = 128, R = 64 on both routes
                   forced: sweeps/s and set-up (the gate's price at one size);
-31. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
+35. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
                   and an 8-ring with ZZZ triples, 256 replicas.
-32. compare-threefry-bits the threefry bits kernel (``threefry_bits``,
+36. compare-threefry-bits the threefry bits kernel (``threefry_bits``,
                   csrc/keychain.cu) vs rng.random_bits / uniform_f32 (numpy), bit
                   for bit in both modes: one key over 1 M and 8 M counters, 64
                   keys, an odd size; its time at 8 M beside its bound and numpy's;
-33. compare-parallel the multi-device paths on a one-rank NCCL group on the card:
+37. compare-parallel the multi-device paths on a one-rank NCCL group on the card:
                   QmcRunner (both routes), QmcIsing and the tempering ladder,
                   replica-sharded, each bit for bit its unsharded run on the card,
                   with both host walls; the spatial and tau-sharded sweeps bit for
                   bit the same sweeps on the CPU;
-34. main-parallel the sharded ladder at benches/bench_tempering.py's shape
+38. main-parallel the sharded ladder at benches/bench_tempering.py's shape
                   (qmc_timesteps_sample(500, replica_swap_freq=1): 500
                   ladder_resident launches), the spatial sweep at bench.py's
                   1024^2 x 8 (20 sweeps) and the tau sweep at
@@ -217,15 +248,15 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   replicas, 100 sweeps against the exact free-fermion energy),
                   each one threefry_bits launch a phase; sweeps/s beside the
                   unsharded route's.
-35. graph-native  the native graph library (``_native_graph``, g++ at first use)
+39. graph-native  the native graph library (``_native_graph``, g++ at first use)
                   built on this host from the checkout, each of its four passes
                   array for array the python pass's on benches/bench_classical_graph.py's
                   4-regular +-J glass at n = 4096 and 16384 and on BASELINE.json
                   config 2's 48^2 triangular lattice, the set-up ms both ways;
                   ClassicIsing on the n = 16384 glass takes the native build;
-36. shim          the reference README's first example, verbatim, through
+40. shim          the reference README's first example, verbatim, through
                   ``py_monte_carlo_torch`` on the default device (the card);
-37. examples      each twin of examples/ (pyisingmontecarlo_tpu_torch/examples/)
+41. examples      each twin of examples/ (pyisingmontecarlo_tpu_torch/examples/)
                   through its ``main([])`` on the card, the ferromagnet also at
                   L = 256: its wall, its launches (each twin must launch its
                   path's kernel) and its physics (Onsager, the free-fermion
@@ -237,7 +268,9 @@ the main paths that launched it, each counted from 0 (wl_tiled plain sweeps:
 main-quantum and main-qmcising-lattice; wl_resident: main-chain and
 main-qmcising-lattice; threefry_chain: main-classical, main-qmcising and
 main-qmcrunner; ladder_resident: main-tempering and main-parallel;
-threefry_bits: main-parallel).
+threefry_bits: main-parallel). The long lines' entries take their times and
+bounds from timing-longline, at the shape of the main path that launched
+them (main-quantum-longline, main-tempering-longline).
 
 Then one JSON line with the kernels, and last ``{"ok": true, "device": ...}``.
 Needs torch with CUDA, nvcc and numpy; imports no jax.
@@ -265,7 +298,7 @@ the 64-chain through QmcRunner.run_sampling), four runs a side (~9 min).
 
 does it for the multi-launch routes: ms a sweep of main-quantum-long's 64^2
 torus at L_tau = 800, of main-tempering-wide's 64^2 ladder and of a 32^2 +-J
-ladder at L_tau = 1002, R = 16 (the best of three 20-sweep calls), with each
+ladder at L_tau = 974, R = 16 (the best of three 20-sweep calls), with each
 kernel's device us a sweep (torch.profiler), and threefry_chain's ms a call
 at its three main-path plans (chain_plans), ten runs a side (~8 min).
 """
@@ -361,6 +394,17 @@ WL_SITE_OPS_PER_SPIN = HASH_OPS + 6
 # "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
 # geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
 PT_SIDE, PT_R, PT_LTAU = 12, 64, 60
+# the long time lines: the 128-ring TFIM at its critical point (J = -1, Gamma = 1) at beta = 4 N = 512,
+# dtau 0.05, so L_tau = 10,240, 64 replicas (finite-size scaling of the ground state takes beta of order N); the
+# tempering ladder above with its rungs at geomspace(0.2, 256, 64), so L_tau = 5120 (low-temperature tempering);
+# and the lines past one block's shared memory through the entry points: the 16-ring at beta = 2048 (L_tau =
+# 40,960), R = 2, and a 4-ring ladder with rungs up to beta = 12,500 (L_tau = 250,000)
+LL = (("ring", 128, -1.0), 128, 64)
+LL_BETA, LL_LTAU = 512.0, 10240
+LLPT_BETA, LLPT_LTAU = 256.0, 5120
+# builds of the multi-launch kernels with another group a line past L_tau = 4096 (csrc/worldline.cuh,
+# PMC_FK_GROUP_LONG; the default build's is 512), timed at the 128-ring's L_tau
+FK_GROUP_VARIANTS = {256: ("PMC_FK_GROUP_LONG=256",), 1024: ("PMC_FK_GROUP_LONG=1024",)}
 
 
 def check(cond, msg):
@@ -394,9 +438,11 @@ def reset_counts():
     rng.threefry_bits.launches = 0
     sq2d.sweeps_2d.launches = 0
     wl.wl_sweeps.launches = 0
+    wl.wl_sweeps.long_launches = 0
     wl.wl_sweeps.resident_launches = 0
     wl.wl_sweeps.tiled_launches = 0
     ladder.ladder_sweeps.launches = 0
+    ladder.ladder_sweeps.long_launches = 0
     ladder.ladder_sweeps.resident_launches = 0
 
 
@@ -405,15 +451,16 @@ def read_counts():
     from pyisingmontecarlo_tpu_torch.ops import ladder, sq2d, wl
 
     return {"keychain": rng.threefry_chain.launches, "bits": rng.threefry_bits.launches,
-            "sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches,
+            "sq2d": sq2d.sweeps_2d.launches, "wl": wl.wl_sweeps.launches, "wl_long": wl.wl_sweeps.long_launches,
             "wl_resident": wl.wl_sweeps.resident_launches, "wl_tiled": wl.wl_sweeps.tiled_launches,
-            "ladder": ladder.ladder_sweeps.launches, "ladder_resident": ladder.ladder_sweeps.resident_launches}
+            "ladder": ladder.ladder_sweeps.launches, "ladder_long": ladder.ladder_sweeps.long_launches,
+            "ladder_resident": ladder.ladder_sweeps.resident_launches}
 
 
 def counts_only(**want):
     """The launch counts with ``want`` and zeros elsewhere."""
-    return {**dict.fromkeys(("keychain", "bits", "sq2d", "wl", "wl_resident", "wl_tiled", "ladder", "ladder_resident"),
-                            0),
+    return {**dict.fromkeys(("keychain", "bits", "sq2d", "wl", "wl_long", "wl_resident", "wl_tiled", "ladder",
+                             "ladder_long", "ladder_resident"), 0),
             **want}
 
 
@@ -443,14 +490,14 @@ SQ2D_CUTS = {"box in and tile out only": ("PMC_SQ2D_CUT=0",), "no lane hash": ("
 
 
 def phase_build():
-    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS and SQ2D_CUTS, all
-    at once; then the SASS counts (returns cluster_sass's)."""
+    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, SQ2D_CUTS and
+    FK_GROUP_VARIANTS, all at once; then the SASS counts (returns cluster_sass's)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values()]
+    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values(), *FK_GROUP_VARIANTS.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
         variants = [pool.submit(_kernels.build, defines=d) for d in builds]
         path = _kernels.build(verbose=True)
@@ -1138,17 +1185,21 @@ def chain_energy(n, beta, gamma, j=1.0):
     modes, with Z_X+ = prod 2 cosh(beta e_k / 2), Z_X- = prod 2 sinh(beta e_k / 2),
     e_k = 2 sqrt(J^2 + Gamma^2 - 2 J Gamma cos k), and the periodic zero mode
     signed, e_0 = 2 (Gamma - J); <E> = -d ln Z / d beta by a central difference.
-    phase_physics_wl checks it against dense diagonalization."""
+    In logs throughout, log 2 cosh x = |x| + log1p(e^(-2|x|)) and
+    log 2 |sinh x| = |x| + log(-expm1(-2|x|)), so that beta e_k / 2 past 710 (the
+    128-ring at beta = 512) does not overflow. phase_physics_wl checks it
+    against dense diagonalization."""
     def ln_z(b):
         ea = 2 * np.sqrt(j * j + gamma * gamma - 2 * j * gamma * np.cos(2 * np.pi * (np.arange(n) + 0.5) / n))
         ep = 2 * np.sqrt(j * j + gamma * gamma - 2 * j * gamma * np.cos(2 * np.pi * np.arange(n) / n))
         ep[0] = 2 * (gamma - j)
-        sinh_p = np.sinh(b * ep / 2)
-        logs = [np.log(2 * np.cosh(b * ea / 2)).sum(), np.log(2 * np.abs(np.sinh(b * ea / 2))).sum(),
-                np.log(2 * np.cosh(b * ep / 2)).sum(), np.log(np.maximum(2 * np.abs(sinh_p), 1e-300)).sum()]
+        xa, xp = np.abs(b * ea / 2), np.abs(b * ep / 2)
+        with np.errstate(divide="ignore"):  # a zero mode: sinh 0 = 0, Z_P- = 0
+            logs = [(xa + np.log1p(np.exp(-2 * xa))).sum(), (xa + np.log(-np.expm1(-2 * xa))).sum(),
+                    (xp + np.log1p(np.exp(-2 * xp))).sum(), (xp + np.log(-np.expm1(-2 * xp))).sum()]
         top = max(logs)
         w = [np.exp(x - top) for x in logs]
-        return np.log(0.5 * (w[0] + w[1] + w[2] - np.prod(np.sign(sinh_p)) * w[3])) + top
+        return np.log(0.5 * (w[0] + w[1] + w[2] - np.prod(np.sign(ep)) * w[3])) + top
 
     d = 1e-5
     return float(-(ln_z(beta + d) - ln_z(beta - d)) / (2 * d) / n)
@@ -1205,6 +1256,10 @@ def phase_physics_wl(dev):
     edges = [((i, (i + 1) % 6), -1.0) for i in range(6)]
     exact = dense_tfim_energy(edges, 0.0, 1.0, 2.0, 6)
     check(abs(6 * chain_energy(6, 2.0, 1.0) - exact) < 1e-6, "free-fermion ring energy != dense diagonalization")
+    for b, g in ((400.0, 1.0), (400.0, 0.5)):  # beta e_k / 2 past 710: the logs' far branch
+        cold = dense_tfim_energy(edges, 0.0, g, b, 6)
+        check(abs(6 * chain_energy(6, b, g) - cold) < 1e-5, f"free-fermion ring energy at beta={b}, Gamma={g}: "
+                                                            f"{6 * chain_energy(6, b, g)} != dense {cold}")
     lat = Lattice(edges, seed_gen=1, device=dev)
     lat.set_transverse_field(1.0)
     es, _ = lat.run_quantum_monte_carlo_sampling(2.0, 220, 96, sampling_wait_buffer=150)
@@ -1494,15 +1549,17 @@ def pt_ladder(dev, side=PT_SIDE):
 
 
 # a ladder of long time lines for the multi-launch site phase's chunks: compare-ladder's 32^2 +-J torus at
-# L_tau = 1002 with R = 16 replicas at geomspace(20, 50.1), Gamma = 1 (dtau 0.02 to 0.05): (side, R, L_tau)
-LONG_LADDER = (32, 16, 1002)
+# L_tau = 974 (2 mod 4, two chunks of ladder_site a line; 997,376 spins a replica, inside the TPU ladder
+# kernel's gate of 10^6, which an L_tau of 1002 would pass) with R = 16 replicas at geomspace(19.5, 48.7),
+# Gamma = 1 (dtau 0.02 to 0.05): (side, R, L_tau)
+LONG_LADDER = (32, 16, 974)
 
 
 def long_ladder(dev, T):
     """The state, per-sweep seeds [T, R] and planes of LONG_LADDER."""
     side, R, L = LONG_LADDER
     jv = np.random.default_rng(5).choice([-1.0, 1.0], 2 * side * side)
-    s, seeds, planes, _ = _ladder_inputs("torus", side, jv, np.geomspace(20.0, 50.1, R), [1.0] * R, [0.0] * R, L, T,
+    s, seeds, planes, _ = _ladder_inputs("torus", side, jv, np.geomspace(19.5, 48.7, R), [1.0] * R, [0.0] * R, L, T,
                                          300, dev)
     return s, seeds, planes
 
@@ -1569,17 +1626,18 @@ def phase_compare_ladder(dev):
         (f"wide ladder torus 64^2 +-J R={PT_R} L_tau={PT_LTAU} (main-tempering-wide's shape)", "torus", 64,
          np.array([j for _, j in pt_edges(64)]), bench, [1.0] * PT_R, [0.0] * PT_R, PT_LTAU, 2),
     ]
-    # the multi-launch route's lengths, each cluster group size fk_group picks: L_tau = 700, 800, 1002 (not a
-    # multiple of 32) and 4096, rings and +-J tori; dtau * Gamma = 0.001 or less freezes lines whole
+    # the multi-launch route's lengths, each cluster group size fk_group picks: L_tau = 700, 800, 974 (not a
+    # multiple of 32), 3906 and 4096, rings and +-J tori (the 32^2 torus at 974 and the 16^2 torus at 3906 stay
+    # inside the TPU kernel's gate of 10^6 spins a replica); dtau * Gamma = 0.001 or less freezes lines whole
     cases += [
         ("multi-launch L=700: ring 64 R=3 h", "ring", 64, np.full(64, -1.0), [30.0, 35.0, 40.0], [1.0] * 3,
          [0.1, 0.0, -0.1], 700, 2),
         ("multi-launch L=800: torus 16^2 +-J R=2 h", "torus", 16, rng.choice([-1.0, 1.0], 2 * 16 * 16), [40.0, 30.0],
          [1.0, 1.0], [0.0, 0.2], 800, 2),
-        ("multi-launch L=1002: torus 32^2 +-J R=2", "torus", 32, rng.choice([-1.0, 1.0], 2 * 32 * 32), [50.1, 40.0],
-         [1.0, 0.8], [0.1, 0.0], 1002, 2),
-        ("multi-launch L=4096: torus 16^2 R=2", "torus", 16, np.full(2 * 16 * 16, -1.0), [204.8, 150.0], [1.0] * 2,
-         [0.0, 0.1], 4096, 2),
+        ("multi-launch L=974: torus 32^2 +-J R=2", "torus", 32, rng.choice([-1.0, 1.0], 2 * 32 * 32), [48.7, 40.0],
+         [1.0, 0.8], [0.1, 0.0], 974, 2),
+        ("multi-launch L=3906: torus 16^2 R=2", "torus", 16, np.full(2 * 16 * 16, -1.0), [195.3, 150.0], [1.0] * 2,
+         [0.0, 0.1], 3906, 2),
         ("multi-launch L=800, high K_tau (lines frozen whole): ring 64 R=3", "ring", 64, np.full(64, 0.7),
          [40.0] * 3, [0.02, 0.03, 0.05], [0.2, 0.0, -0.1], 800, 3),
         ("multi-launch L=4096, high K_tau: ring 64 R=2", "ring", 64, np.full(64, -1.0), [40.0, 40.0], [0.02, 0.01],
@@ -1635,6 +1693,383 @@ def phase_compare_ladder(dev):
         print(f"compare-ladder: {name}, T={T}: {route} == plain, bit-identical (spins, features); resident plan "
               f"{plan or fit}; {moved:.3f} of spins moved, {frozen:.3f} of lines constant in tau", flush=True)
     return worst["multi"], worst["resident"]
+
+
+def block_edge(dev):
+    """The longest L_tau whose line fits one block of the multi-launch cluster
+    phase (fk_line) on this card; one more slice pair takes fk_long_*."""
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    limit = wl.device_limits(dev)[0]
+    L = 4096
+    while not wl.cluster_long(L + 2, limit):
+        L += 2
+    return L
+
+
+def phase_compare_longline(dev):
+    """The multi-launch kernels vs their plain version on the card, bit for
+    bit, at L_tau past 4096: the worldline kernels in plain and sampling mode
+    at L_tau = 4098, 5120, 10,240, the longest line one block holds, one pair
+    past it, 40,960 and 2^20 (the 4-ring at the gate's edge), with lines frozen
+    whole at high K_tau; the ladder kernels (states and swap features) at
+    5120, 40,960 and 250,000 (the 4-ring at the gate's edge). Returns
+    {"wl": largest |difference|, "ladder": ...}."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
+
+    lim = wl.device_limits(dev)
+    edge = block_edge(dev)
+    cases = []  # name, dense, nvars, R, L_tau, T, beta, gamma, h, freq, nsamples
+    for dense, nvars, R, L in ((("torus", 8, -1.0), 64, 2, 4098), (("ring", 8, -1.0), 8, 3, 5120),
+                               (LL[0], LL[1], 2, LL_LTAU), (("ring", 16, -1.0), 16, 2, edge),
+                               (("ring", 16, -1.0), 16, 2, edge + 2), (("ring", 16, -1.0), 16, 2, 40960),
+                               (("ring", 4, -1.0), 4, 2, 1 << 20)):
+        beta = L / 20.0  # dtau = 0.05, Gamma = 1
+        cases.append((f"{dense[0]} {dense[1]} R={R} L={L} T=2", dense, nvars, R, L, 2, beta, 1.0, 0.1, 0, 0))
+        cases.append((f"{dense[0]} {dense[1]} R={R} L={L} sampling freq=1 nsamples=2 T=3", dense, nvars, R, L, 3,
+                      beta, 1.0, 0.0, 1, 2))
+    cases += [  # beta = 1, Gamma = 0.02: dtau * Gamma below 1e-6, lines frozen whole and summed in XLA's order
+        # (three levels of windows at 2^20), a line's dE of order 1, so that lines flip
+        ("ring 16 R=2 L=40960 high K_tau (lines frozen whole) T=2", ("ring", 16, 0.7), 16, 2, 40960, 2, 1.0,
+         0.02, 0.2, 0, 0),
+        ("ring 4 R=2 L=1048576 high K_tau (lines frozen whole) T=2", ("ring", 4, 0.7), 4, 2, 1 << 20, 2, 1.0,
+         0.02, 0.2, 0, 0),
+    ]
+    worst = {"wl": 0, "ladder": 0}
+    for k, (name, dense, nvars, R, L, T, beta, gamma, h, freq, ns) in enumerate(cases):
+        check(wl.gate(dense, nvars, L, R) is None, f"{name}: the gate refuses it")
+        check(wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)[0] == "multi", f"{name}: not multi-launch")
+        s, seeds = _wl_inputs(dense, nvars, R, 400 + k, dev, L)
+        tables = wl.make_tables(dense, nvars, beta, gamma, h, L, dev)
+        want = wl.wl_sweeps_reference(s, seeds, tables, T, freq, ns)
+        reset_counts()
+        got = wl.wl_sweeps(s, seeds, tables, T, freq, ns)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        long = wl.cluster_long(L, lim[0])
+        check(counts == (counts_only(wl=3 * T, wl_long=wl.LONG_LAUNCHES_PER_SWEEP * T) if long
+                         else counts_only(wl=wl.LAUNCHES_PER_SWEEP * T)), f"{name}: launch counts {counts}")
+        same, err = _equal_all(got, want)
+        check(same, f"{name}: multi-launch != plain (max |diff| {err}, {int((got[0] != want[0]).sum())} spins)")
+        worst["wl"] = max(worst["wl"], err)
+        moved = float((got[0] != s).float().mean())
+        check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
+        frozen = float((got[0] == got[0][:, :, :1]).all(2).float().mean())
+        check("high K_tau" not in name or frozen > 0.3, f"{name}: only {frozen:.3f} of lines constant in tau")
+        how = "fk_long_* (past one block)" if long else f"fk_line, group {cluster_group(L)}"
+        print(f"compare-longline: wl {name}: multi-launch ({how}, site lanes {site_lanes(L)}) == plain, "
+              f"bit-identical (spins, statistics{', samples' if ns else ''}); launches {counts['wl']} + "
+              f"{counts['wl_long']} fk_long; {moved:.3f} of spins moved, {frozen:.3f} of lines constant in tau",
+              flush=True)
+    glass = np.array([j for _, j in pt_edges(PT_SIDE)])
+    lcases = [  # name, kind, size, J, betas, gammas, hs, L_tau, T
+        (f"torus 12^2 +-J R=4 L={LLPT_LTAU} (main-tempering-longline's lattice)", "torus", 12, glass,
+         [2.0, 20.0, 100.0, LLPT_BETA], [1.0] * 4, [0.0, 0.1, 0.0, -0.1], LLPT_LTAU, 2),
+        ("ring 16 R=2 L=40960", "ring", 16, np.random.default_rng(3).choice([-1.0, 1.0], 16), [1500.0, 2048.0],
+         [1.0, 1.0], [0.1, 0.0], 40960, 2),
+        ("ring 16 R=2 L=40960 high K_tau (lines frozen whole)", "ring", 16, np.full(16, 0.7), [1.0] * 2,
+         [0.02, 0.01], [0.2, 0.0], 40960, 2),
+        ("ring 4 R=2 L=250000 (the gate's edge)", "ring", 4, np.full(4, -1.0), [10000.0, 12500.0], [1.0, 1.0],
+         [0.0, 0.1], 250000, 2),
+    ]
+    for k, (name, kind, size, jv, betas, gammas, hs, L, T) in enumerate(lcases):
+        s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, gammas, hs, L, T, 500 + k, dev)
+        nvars, R = s.shape[1], s.shape[0]
+        check(ladder.gate((kind, size), nvars, L, R) is None, f"{name}: the gate refuses it")
+        check(not wl.resident_plan(nvars, L, R, ladder.param_bytes(kind, nvars), *lim), f"{name}: resident")
+        x, feats = ladder.ladder_sweeps_reference(s, seeds, planes, T, edges)
+        reset_counts()
+        y, gfeats = ladder.ladder_sweeps(s, seeds, planes, T, edges)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        long = wl.cluster_long(L, lim[0])
+        check(counts == (counts_only(ladder=2 * T, ladder_long=wl.LONG_LAUNCHES_PER_SWEEP * T) if long
+                         else counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T)), f"{name}: launch counts {counts}")
+        same, err = _equal_all((y, *gfeats), (x, *feats))
+        check(same, f"{name}: multi-launch != plain (max |diff| {err}, {int((y != x).sum())} spins)")
+        worst["ladder"] = max(worst["ladder"], err)
+        moved = float((y != s).float().mean())
+        check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
+        frozen = float((y == y[:, :, :1]).all(2).float().mean())
+        check("high K_tau" not in name or frozen > 0.3, f"{name}: only {frozen:.3f} of lines constant in tau")
+        how = "fk_long_* (past one block)" if long else f"fk_line, group {cluster_group(L)}"
+        print(f"compare-longline: ladder {name}, T={T}: multi-launch ({how}) == plain, bit-identical (spins, "
+              f"features); launches {counts['ladder']} + {counts['ladder_long']} fk_long; {moved:.3f} of spins moved, "
+              f"{frozen:.3f} of lines constant in tau", flush=True)
+    return worst
+
+
+def _path_profile(fn, names, want):
+    """The trace of ``fn()`` (_launches) that recorded the most launches of
+    the kernels ``names`` (the wrapper counts ``want``), and (the text of
+    those launches, {kernel: launches}, the other device operations by name,
+    device busy us, span us); the last four None where the profiler recorded
+    no device time."""
+    prof, counted = _launches(fn, names, want)
+    dev_t = _device_times(prof, names, everything=True)
+    if dev_t is None:
+        return counted, None, None, None, None
+    per, busy, span = dev_t
+    others = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name and not any(n in e.name for n in names):
+            others[e.name[:60]] = others.get(e.name[:60], 0) + 1
+    return counted, {k: len(v) for k, v in per.items() if k != "other"}, others, busy, span
+
+
+def _path_line(counted, kernels, others, busy, span, sweeps):
+    if kernels is None:
+        return f"{counted}; device time not measured (the profiler recorded none)"
+    return (f"{counted}; by kernel {kernels}; other device operations {sum(others.values())} ({others}); device "
+            f"busy {busy:.1f} of {span:.1f} us, {busy / sweeps / 1e3:.5f} ms a sweep, "
+            f"idle {100 * (1 - busy / span):.2f}%")
+
+
+def phase_main_quantum_longline(dev, smi):
+    """The worldline paths through the user's entry points at long time lines:
+    the 128-ring TFIM at its critical point (LL: J = -1, Gamma = 1, beta =
+    512, L_tau = 10,240, 64 replicas, an 84 MB int8 plane), run_quantum_monte_carlo
+    (300 sweeps) and run_quantum_monte_carlo_sampling (300 sweeps after a
+    wait of 300, every 10th sampled), on the multi-launch kernels (the
+    cluster phase a block of 512 threads a line), against the exact
+    free-fermion energy; the launches by kernel, the other device operations
+    (the calls' set-up and results, no generic engine) and the idle share
+    of a 20-sweep call (torch.profiler); then the 16-ring at beta = 2048
+    (L_tau = 40,960, past one block: fk_long_*) through both entry points, 2
+    sweeps each. Returns {"plain", "sampling", "long", "long-sampling":
+    (wl launches, fk_long launches)}."""
+    from pyisingmontecarlo_tpu_torch import Lattice
+    from pyisingmontecarlo_tpu_torch.engines.worldline import choose_ltau
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    (dense, n, R), beta = LL, LL_BETA
+    check(choose_ltau(beta, WL_GAMMA) == LL_LTAU, "L_tau")
+    lim = wl.device_limits(dev)
+    check(not wl.cluster_long(LL_LTAU, lim[0]), "the 128-ring's line does not fit one block")
+    ring = [((i, (i + 1) % n), -1.0) for i in range(n)]
+    exact = chain_energy(n, beta, WL_GAMMA)
+    check(np.isfinite(exact), f"chain_energy({n}, {beta}) = {exact}")
+    out = {}
+    for key, T, wait, freq in (("plain", 300, 0, 0), ("sampling", 300, 300, 10)):
+        lat = Lattice(ring, seed_gen=5, device=dev)
+        lat.set_transverse_field(WL_GAMMA)
+        reset_counts()
+        t0 = time.perf_counter()
+        if freq:
+            es, ss = lat.run_quantum_monte_carlo_sampling(beta, T, R, sampling_wait_buffer=wait, sampling_freq=freq)
+            check(ss.shape == (R, T // freq, n) and ss.dtype == np.bool_, f"samples {ss.shape} {ss.dtype}")
+        else:
+            es, st = lat.run_quantum_monte_carlo(beta, T, R)
+            check(st.shape == (R, n) and st.dtype == np.bool_, f"states {st.shape} {st.dtype}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        want = counts_only(wl=wl.LAUNCHES_PER_SWEEP * (T + wait))
+        check(counts == want, f"launch counts {counts}, want {want} (multi-launch, fk_line)")
+        check(es.shape == (R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape}")
+        e, se = es.mean() / n, es.std(ddof=1) / np.sqrt(R) / n
+        # 4 standard errors plus the Trotter allowance of tests/test_worldline_exact.py
+        check(abs(e - exact) < 4 * se + 0.03, f"e/site {e} vs exact {exact} (se {se})")
+        out[key] = (counts["wl"], 0)
+        print(f"main-quantum-longline: Lattice.run_quantum_monte_carlo{'_sampling' if freq else ''}({beta}, {T}, "
+              f"{R}{f', wait={wait}, freq={freq}' if freq else ''}) on the {n}-ring at Gamma = {WL_GAMMA}, "
+              f"L_tau={LL_LTAU}, on {smi}: {counts['wl']} multi-launch launches (wl_site, wl_cluster, "
+              f"wl_accumulate; cluster group {cluster_group(LL_LTAU)}), 0 others, {dt:.3f} s host wall = "
+              f"{dt / (T + wait) * 1e3:.5f} ms a sweep; e/site={e:.6f} (exact {exact:.6f}, se {se:.6f})", flush=True)
+    lat = Lattice(ring, seed_gen=6, device=dev)
+    lat.set_transverse_field(WL_GAMMA)
+    T = 20
+    prof_line = _path_line(*_path_profile(lambda: lat.run_quantum_monte_carlo(beta, T, R),
+                                          ("wl_site", "wl_cluster", "wl_accumulate"),
+                                          wl.LAUNCHES_PER_SWEEP * T), T)
+    print(f"main-quantum-longline: run_quantum_monte_carlo({beta}, {T}, {R}) profiled, on {smi}: {prof_line}",
+          flush=True)
+    side, beta16 = 16, 2048.0
+    check(choose_ltau(beta16, WL_GAMMA) == 40960 and wl.cluster_long(40960, lim[0]), "the 16-ring's L_tau")
+    lat = Lattice([((i, (i + 1) % side), -1.0) for i in range(side)], seed_gen=7, device=dev)
+    lat.set_transverse_field(WL_GAMMA)
+    for key, T, freq in (("long", 2, 0), ("long-sampling", 2, 1)):
+        reset_counts()
+        t0 = time.perf_counter()
+        if freq:
+            es, ss = lat.run_quantum_monte_carlo_sampling(beta16, T, 2, sampling_freq=freq)
+            check(ss.shape == (2, T, side), f"samples {ss.shape}")
+        else:
+            es, st = lat.run_quantum_monte_carlo(beta16, T, 2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        want = counts_only(wl=3 * T, wl_long=wl.LONG_LAUNCHES_PER_SWEEP * T)
+        check(counts == want, f"launch counts {counts}, want {want} (multi-launch, fk_long)")
+        check(np.isfinite(es).all() and -2.5 < es.mean() / side < 0.5, f"energies {es}")
+        out[key] = (counts["wl"], counts["wl_long"])
+        print(f"main-quantum-longline: Lattice.run_quantum_monte_carlo{'_sampling' if freq else ''}({beta16}, {T}, 2"
+              f"{', freq=1' if freq else ''}) on the {side}-ring, L_tau=40960: {counts['wl']} wl_site and "
+              f"wl_accumulate launches and {counts['wl_long']} fk_long_* launches, 0 others, {dt:.3f} s host wall, "
+              f"e/site={es.mean() / side:.6f}", flush=True)
+    return out
+
+
+def phase_main_tempering_longline(dev, smi):
+    """The tempering path through the user's entry point at long time lines:
+    benches/bench_tempering.py's 12^2 +-J glass, 64 rungs at geomspace(0.2,
+    256, 64), Gamma = 1, so L_tau = 5120 (a 47 MB plane), on the multi-launch
+    kernels (the cluster phase a block of 512 threads a line):
+    qmc_timesteps_sample(200, replica_swap_freq=1), swaps accepted and <E>
+    falling with beta; the launches by kernel, the other device operations
+    and the idle share of a 10-sweep call (torch.profiler); then a 4-ring
+    ladder with rungs up to beta = 12,500 (L_tau = 250,000, the gate's edge,
+    past one block: fk_long_*), 2 sweeps. Returns {"wide": (ladder launches,
+    0), "long": (ladder launches, fk_long launches)}."""
+    from pyisingmontecarlo_tpu_torch import LatticeTempering
+    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
+
+    lim = wl.device_limits(dev)
+    lt = LatticeTempering(pt_edges(PT_SIDE), seed=0, device=dev)
+    for b in np.geomspace(0.2, LLPT_BETA, PT_R):
+        lt.add_graph(1.0, 0.0, float(b))
+    m = lt._materialize()
+    check(m["L"] == LLPT_LTAU and "planes" in m, f"L_tau {m['L']}, kernel route {'planes' in m}")
+    check(not wl.cluster_long(LLPT_LTAU, lim[0]), "the ladder's line does not fit one block")
+    T = 200
+    reset_counts()
+    t0 = time.perf_counter()
+    states, es = lt.qmc_timesteps_sample(T, replica_swap_freq=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T)
+    check(counts == want, f"launch counts {counts}, want {want} (multi-launch, fk_line)")
+    check(states.shape == (PT_R, T, PT_SIDE**2) and states.dtype == np.bool_, f"states {states.shape}")
+    check(es.shape == (PT_R,) and np.isfinite(es).all(), f"energies {es.shape}")
+    swaps = lt.get_total_swaps()
+    check(swaps > 0, "no swap accepted")
+    check(es[-8:].mean() < es[:8].mean(), f"<E> of the 8 highest betas {es[-8:].mean()} is not below that of the "
+                                          f"8 lowest {es[:8].mean()}")
+    out = {"wide": (counts["ladder"], 0)}
+    print(f"main-tempering-longline: LatticeTempering.qmc_timesteps_sample({T}, replica_swap_freq=1) on the "
+          f"{PT_SIDE}^2 +-J glass, {PT_R} rungs at geomspace(0.2, {LLPT_BETA}), L_tau={LLPT_LTAU}, on {smi}: "
+          f"{counts['ladder']} multi-launch launches (ladder_site, ladder_cluster; cluster group "
+          f"{cluster_group(LLPT_LTAU)}), 0 others, {swaps} accepted swaps, {dt:.3f} s host wall = "
+          f"{dt / T * 1e3:.5f} ms a sweep; <E> beta=0.2..0.3 {es[:8].mean():.4f}, beta=105..256 "
+          f"{es[-8:].mean():.4f}", flush=True)
+    T = 10
+    prof_line = _path_line(*_path_profile(lambda: lt.qmc_timesteps_sample(T, replica_swap_freq=1),
+                                          ("ladder_site", "ladder_cluster"), ladder.LAUNCHES_PER_SWEEP * T), T)
+    print(f"main-tempering-longline: qmc_timesteps_sample({T}) profiled, on {smi}: {prof_line}", flush=True)
+    ring4 = [((i, (i + 1) % 4), -1.0) for i in range(4)]
+    lt = LatticeTempering(ring4, seed=1, device=dev)
+    for b in (6000.0, 8000.0, 10000.0, 12500.0):
+        lt.add_graph(1.0, 0.0, b)
+    m = lt._materialize()
+    check(m["L"] == 250000 and "planes" in m and wl.cluster_long(250000, lim[0]), f"the 4-ring's L_tau {m['L']}")
+    T = 2
+    reset_counts()
+    t0 = time.perf_counter()
+    states, es = lt.qmc_timesteps_sample(T, replica_swap_freq=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = counts_only(ladder=2 * T, ladder_long=wl.LONG_LAUNCHES_PER_SWEEP * T)
+    check(counts == want, f"launch counts {counts}, want {want} (multi-launch, fk_long)")
+    check(states.shape == (4, T, 4) and np.isfinite(es).all(), f"states {states.shape}, energies {es}")
+    out["long"] = (counts["ladder"], counts["ladder_long"])
+    print(f"main-tempering-longline: qmc_timesteps_sample({T}, replica_swap_freq=1) on a 4-ring ladder, rungs at "
+          f"beta 6000 to 12500, L_tau=250000: {counts['ladder']} ladder_site launches and {counts['ladder_long']} "
+          f"fk_long_* launches, 0 others, {lt.get_total_swaps()} accepted swaps, {dt:.3f} s host wall", flush=True)
+    return out
+
+
+WL_LONG_NAMES = ("wl_site", "wl_cluster", "wl_accumulate", "fk_long_scan", "fk_long_carry", "fk_long_leaves",
+                 "fk_long_decide", "fk_long_flip")
+LADDER_LONG_NAMES = ("ladder_site", "ladder_cluster", "fk_long_scan", "fk_long_carry", "fk_long_leaves",
+                     "fk_long_decide", "fk_long_flip")
+
+
+def _split_line(prof, names, sweeps):
+    """Each kernel's device us a sweep (_us_per_sweep) that a _trace recorded."""
+    dev_t = _device_times(prof, names)
+    if dev_t is None:
+        return "by kernel: not measured (the profiler recorded no device time)"
+    return "by kernel, us a sweep: " + ", ".join(f"{k} {_us_per_sweep(v, sweeps):.2f}" for k, v in dev_t[0].items())
+
+
+def phase_timing_longline(dev, smi):
+    """The multi-launch kernels at the long lines' shapes against the plain
+    version, in turns with CUDA events, with the bound (the state in and out
+    once a call, the samples out; every spin's operations) and each kernel's
+    device us a sweep (torch.profiler, the best of up to three traces): the
+    128-ring at L_tau = 10,240, R = 64 (main-quantum-longline's shape, plain
+    and sampling every 10), with the cluster phase's other group sizes
+    (FK_GROUP_VARIANTS) in turns; the 16-ring at 40,960 and the 4-ring at
+    2^20, R = 2 (fk_long_*); the ladder on the 12^2 +-J glass at L_tau = 5120,
+    R = 64 (main-tempering-longline's shape) and on the 4-ring at 250,000, R
+    = 4 (fk_long_*; the bound once a sweep, as the tempering path calls it).
+    Returns {shape: (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)}."""
+    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
+
+    lim = wl.device_limits(dev)
+    out = {}
+    ring16, ring4 = (("ring", 16, -1.0), 16, 2), (("ring", 4, -1.0), 4, 2)
+    shapes = (("ring128", LL, LL_LTAU, 0, 20, 1), ("ring128-sampling", LL, LL_LTAU, 10, 20, 1),
+              ("ring16", ring16, 40960, 0, 10, 2), ("ring16-sampling", ring16, 40960, 1, 10, 2),
+              ("ring4", ring4, 1 << 20, 0, 4, 1))
+    for k, (key, (dense, nvars, R), L, freq, T, T_plain) in enumerate(shapes):
+        s, seeds = _wl_inputs(dense, nvars, R, 600 + k, dev, L)
+        tables = wl.make_tables(dense, nvars, L / 20.0, WL_GAMMA, 0.0, L, dev)
+
+        def ns(t):
+            return t // freq if freq else 0
+
+        def run(t, defines=()):
+            return wl._run_multi(s, seeds, tables, t, freq, ns(t), defines)
+
+        def plain():
+            wl.wl_sweeps_reference(s, seeds, tables, T_plain, freq, ns(T_plain))
+
+        spins = R * nvars * L
+        b_ms, b_by = bound((2 * spins + R * nvars * ns(T)) / T, WL_OPS_PER_SPIN * spins)
+        run(2)
+        kr, pr = in_turns(lambda: run(T), plain, T, T_plain)
+        out[key] = (float(np.mean(kr)), float(np.mean(pr)), b_ms, b_by)
+        long = wl.cluster_long(L, lim[0])
+        want = (3 + wl.LONG_LAUNCHES_PER_SWEEP if long else wl.LAUNCHES_PER_SWEEP) * T
+        prof, counted = _launches(lambda: run(T), WL_LONG_NAMES, want)
+        print(f"timing-longline: wl {key} n={nvars} R={R} L_tau={L}{f' sampling freq={freq}' if freq else ''} "
+              f"({'fk_long_*' if long else f'fk_line, group {cluster_group(L)}'}), on {smi}: kernel "
+              f"{out[key][0]:.5f} ms/sweep = {spins / (out[key][0] * 1e6):.3f} spin updates/ns (runs {kr}); plain "
+              f"torch {out[key][1]:.5f} ms/sweep (runs {pr}); bound {b_ms:.5f} ms/sweep ({b_by}), "
+              f"{out[key][0] / b_ms:.1f}x it; {_split_line(prof, WL_LONG_NAMES, T)}; {counted}", flush=True)
+        if key == "ring128":  # the cluster phase's other group sizes, in turns with the kernel's 512
+            for G, defines in FK_GROUP_VARIANTS.items():
+                run(2, defines)
+                a, b = versus(lambda: run(T), lambda: run(T, defines), T, T, 2)
+                print(f"timing-longline: wl {key}, cluster group {G} ({' '.join(defines)}) against "
+                      f"{cluster_group(L)}, on {smi}: {np.mean(b):.5f} ms/sweep (runs {b}) against {np.mean(a):.5f} "
+                      f"(runs {a})", flush=True)
+    glass = np.array([j for _, j in pt_edges(PT_SIDE)])
+    lshapes = (("ladder-glass12", "torus", PT_SIDE, glass, np.geomspace(0.2, LLPT_BETA, PT_R), LLPT_LTAU, 10),
+               ("ladder-ring4", "ring", 4, np.full(4, -1.0), np.array([6000.0, 8000.0, 10000.0, 12500.0]), 250000, 4))
+    for k, (key, kind, size, jv, betas, L, T) in enumerate(lshapes):
+        R = len(betas)
+        s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, [1.0] * R, [0.0] * R, L, T, 700 + k, dev)
+        nvars = s.shape[1]
+        spins = R * nvars * L
+        nbytes = 2 * spins + 4 * R + 4 * R * (2 if kind == "torus" else 1) * nvars + 16 * R
+        b_ms, b_by = bound(nbytes, LADDER_INT_OPS_PER_SPIN * spins, LADDER_F32_OPS_PER_SPIN * spins)
+        ladder._run_multi(s, seeds[:2], planes, 2)
+        kr, pr = in_turns(lambda: ladder._run_multi(s, seeds, planes, T),
+                          lambda: ladder.ladder_sweeps_reference(s, seeds[:1], planes, 1, edges), T, 1)
+        out[key] = (float(np.mean(kr)), float(np.mean(pr)), b_ms, b_by)
+        long = wl.cluster_long(L, lim[0])
+        want = (2 + wl.LONG_LAUNCHES_PER_SWEEP if long else ladder.LAUNCHES_PER_SWEEP) * T
+        prof, counted = _launches(lambda: ladder._run_multi(s, seeds, planes, T), LADDER_LONG_NAMES, want)
+        print(f"timing-longline: {key} n={nvars} R={R} L_tau={L} "
+              f"({'fk_long_*' if long else f'fk_line, group {cluster_group(L)}'}), on {smi}: kernel "
+              f"{out[key][0]:.5f} ms/sweep (runs {kr}); plain torch {out[key][1]:.5f} ms/sweep (runs {pr}); bound "
+              f"{b_ms:.5f} ms/sweep ({b_by}), {out[key][0] / b_ms:.1f}x it; "
+              f"{_split_line(prof, LADDER_LONG_NAMES, T)}; {counted}", flush=True)
+    return out
 
 
 def phase_main_tempering(dev):
@@ -3974,6 +4409,10 @@ def main():
     ladder_launches = timed_phase(phase_main_tempering_wide, dev)
     timed_phase(phase_physics_tempering, dev)
     ladder_t = timed_phase(phase_timing_ladder, dev, smi, sass)
+    long_errs = timed_phase(phase_compare_longline, dev)
+    ll_launches = timed_phase(phase_main_quantum_longline, dev, smi)
+    llpt_launches = timed_phase(phase_main_tempering_longline, dev, smi)
+    long_t = timed_phase(phase_timing_longline, dev, smi)
     chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = timed_phase(phase_compare_keychain, dev, smi)
     timed_phase(phase_compare_classical, dev)
     keychain_launches = timed_phase(phase_main_classical, dev, smi)
@@ -4022,6 +4461,25 @@ def main():
              **timed(wl_t["long-sampling/multi-launch"])),
         dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
+        dict(name="wl_site+wl_cluster+wl_accumulate at L_tau = 10,240 (plain sweeps; fk_line, 512 threads a line)",
+             route="cuda", source=wl_src, replaces=f"{wl_tpu}:330", launches=ll_launches["plain"][0],
+             max_abs_err=long_errs["wl"], **timed(long_t["ring128"])),
+        dict(name="wl_site+wl_cluster+wl_accumulate at L_tau = 10,240 (sampling mode)", route="cuda", source=wl_src,
+             replaces=f"{wl_tpu}:346", launches=ll_launches["sampling"][0], max_abs_err=long_errs["wl"],
+             **timed(long_t["ring128-sampling"])),
+        dict(name="wl_site+fk_long_*+wl_accumulate (plain sweeps; a line past one block, L_tau = 40,960)",
+             route="cuda", source=f"{wl_src}, pyisingmontecarlo_tpu_torch/csrc/worldline.cuh", replaces=f"{wl_tpu}:330",
+             launches=sum(ll_launches["long"]), max_abs_err=long_errs["wl"], **timed(long_t["ring16"])),
+        dict(name="wl_site+fk_long_*+wl_accumulate (sampling mode; L_tau = 40,960)", route="cuda",
+             source=f"{wl_src}, pyisingmontecarlo_tpu_torch/csrc/worldline.cuh", replaces=f"{wl_tpu}:346",
+             launches=sum(ll_launches["long-sampling"]), max_abs_err=long_errs["wl"],
+             **timed(long_t["ring16-sampling"])),
+        dict(name="ladder_site+ladder_cluster at L_tau = 5120 (fk_line, 512 threads a line)", route="cuda",
+             source=ladder_src, replaces=ladder_tpu, launches=llpt_launches["wide"][0],
+             max_abs_err=long_errs["ladder"], **timed(long_t["ladder-glass12"])),
+        dict(name="ladder_site+fk_long_* (a line past one block, L_tau = 250,000)", route="cuda",
+             source=f"{ladder_src}, pyisingmontecarlo_tpu_torch/csrc/worldline.cuh", replaces=ladder_tpu,
+             launches=sum(llpt_launches["long"]), max_abs_err=long_errs["ladder"], **timed(long_t["ladder-ring4"])),
         dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
              launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"],
              **timed(wl_t["chain/resident"])),
@@ -4194,7 +4652,7 @@ def multi_rates(dev):
     CUDA events, after a warm-up) and each kernel's device us a sweep
     (torch.profiler over one call, _trace): main-quantum-long's 64^2 torus at
     L_tau = 800, R = 2, main-tempering-wide's 64^2 +-J ladder and
-    LONG_LADDER (32^2 +-J, R = 16, L_tau = 1002); and the key chain's ms a
+    LONG_LADDER (32^2 +-J, R = 16, L_tau = 974); and the key chain's ms a
     call at its three main-path plans (chain_plans, the median of five)."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
     from pyisingmontecarlo_tpu_torch.tempering import key_tables

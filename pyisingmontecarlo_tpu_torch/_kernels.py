@@ -30,8 +30,8 @@ _I = ctypes.c_int
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
     "sq2d_tiled_sweeps": ([_P] * 7 + [_I] * 8 + [_P], ctypes.c_int),
-    "wl_sweeps": ([_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
-    "ladder_sweeps": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
+    "wl_sweeps": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "ladder_sweeps": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "wl_resident_sweeps": ([_P, _P, _P, _P, _I, _P, _P] + [_I] * 10 + [_P], ctypes.c_int),
     "ladder_resident_sweeps": ([_P] * 10 + [_I] * 9 + [_P], ctypes.c_int),
     "wl_tiled_sweeps": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 10 + [_P], ctypes.c_int),
@@ -41,6 +41,7 @@ _SIGNATURES = {
     "pmc_smem_optin": ([_I], ctypes.c_int),
     "pmc_cluster_group": ([_I], ctypes.c_int),
     "pmc_site_lanes": ([_I], ctypes.c_int),
+    "pmc_long_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "pmc_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -23,7 +23,9 @@
 // computing them with torch operations.
 //
 // Multi-launch (planes too large for a block, such as a 64^2 torus at
-// L_tau = 60, 245 KB a replica), four launches a sweep on the caller's stream:
+// L_tau = 60, 245 KB a replica, and every line past L_tau = kMaxL = 4096, up
+// to the JAX kernel's gate of 10^6 spins a replica: L_tau = 250,000 on a
+// 4-ring), four launches a sweep on the caller's stream:
 //
 // - ladder_site, twice (one per site color): a group of threads per time
 //   line of the color (site_lanes(L): 4 threads of 8 pairs of slices each up
@@ -42,7 +44,9 @@
 //   frozen line's total in XLA's CPU order); a bond freezes when aligned and
 //   u < pb, a head flips its cluster when log(u) < -dE, with the slice dE
 //   (-2 s) dt (F + h), F from the site's neighbour lines and couplings
-//   (SiteField, found once a line).
+//   (SiteField, found once a line). A line past one block's opt-in
+//   shared memory (L > 26,944 on an H100) takes the five fk_long_* launches
+//   a color of worldline.cuh instead (12 launches a sweep).
 //
 // Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn in the JAX
 // kernel's order, so nothing is contracted to an FMA, and the logs are logf
@@ -204,6 +208,43 @@ __global__ void __launch_bounds__(kSiteThreads) ladder_site(
     site_phases<W>(ln, g.L, live);
 }
 
+// A line's cluster draws for fk_long_* (its Ops): ladder_cluster's three
+// functions below (a bond freezes when aligned and u < pb, a head flips its
+// cluster when log(u) < -dE, with the slice dE (-2 s) dt (F + h), F from the
+// site's neighbour lines and couplings, SiteField). ladder_cluster keeps its
+// own lambdas: built on LadderFk it ran 4% slower on the 64^2 ladder at
+// L_tau = 60 on an H100 (a line's set-up counts there).
+struct LadderFk {
+    struct Args {
+        const int32_t* seeds;
+        Params q;
+        int ndir;
+    };
+    SiteField F;
+    uint32_t seed, ctr;
+    float dt, h, pb;
+    int i, nvars;
+
+    __device__ LadderFk(const int8_t* s, const Args& a, const Geo& g, int r, int i_, uint32_t ctr_)
+        : F(g, s + (size_t)r * g.nvars * g.L, a.q.J + (size_t)r * a.ndir * g.nvars, neighbours(g, i_), i_),
+          seed((uint32_t)__ldg(a.seeds + r)),
+          ctr(ctr_),
+          dt(__ldg(a.q.dt + r)),
+          h(__ldg(a.q.h + r)),
+          pb(__ldg(a.q.pb + r)),
+          i(i_),
+          nvars(g.nvars) {}
+    __device__ __forceinline__ bool frozen(int t) const {
+        return uniform(lane_draw31(seed, (uint32_t)(t * nvars + i), ctr)) < pb;
+    }
+    __device__ __forceinline__ float de(int t, int sv) const {
+        return __fmul_rn(__fmul_rn(-2.0f * (float)sv, dt), __fadd_rn(F.at(t), h));
+    }
+    __device__ __forceinline__ bool flips(int head, float de) const {
+        return logf(uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1))) < -de;
+    }
+};
+
 // grid fk_grid: a group of G threads per time line of the color
 // (fk_block_lines(G) lines a block): fk_line (worldline.cuh).
 template <int G>
@@ -320,42 +361,55 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
 
 }  // namespace
 
-// Runs T sweeps (4 T launches) on `stream` on s[R, nvars, L]; seeds is
-// [T, R] int32 (row t keys sweep t), J [R, ndir, nvars] and dt, kt, h, pb [R]
-// f32 as in ops/ladder.py. Draw d of every sweep uses counter d: 2c + parity
-// the site phases of color c, 4 + 2c and 5 + 2c the bond and head draws of
-// cluster color c. The site phases take site_lanes(L) threads a line, the
-// cluster phases fk_group(L) (worldline.cuh); R <= 65535 (fk_grid). Returns
-// the first launch error, or 0.
+// Runs T sweeps on `stream` on s[R, nvars, L]: 4 T launches, or 12 T where
+// the line is too long for fk_line's one block (fk_long: the five fk_long_*
+// launches a color in place of ladder_cluster, in scratch,
+// pmc_long_scratch_bytes of device memory (wl.cu); null otherwise); seeds is
+// [T, R] int32 (row t keys sweep t), J
+// [R, ndir, nvars] and dt, kt, h, pb [R] f32 as in ops/ladder.py. Draw d of
+// every sweep uses counter d: 2c + parity the site phases of color c, 4 + 2c
+// and 5 + 2c the bond and head draws of cluster color c. The site phases take
+// site_lanes(L) threads a line, the cluster phases fk_group(L) or fk_long_*
+// (worldline.cuh); R <= 65535 (fk_grid). Returns the first launch error, or 0.
 extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const void* dt, const void* kt,
-                             const void* h, const void* pb, int R, int nvars, int L, int torus, int size,
-                             int T, void* stream) {
-    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
+                             const void* h, const void* pb, void* scratch, int R, int nvars, int L, int torus,
+                             int size, int T, void* stream) {
+    if (L < 4 || L > kLongMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
     const Geo g{torus, size, nvars, L};
     const int ndir = torus ? 2 : 1;
     const Params q{static_cast<const float*>(J), static_cast<const float*>(dt), static_cast<const float*>(kt),
                    static_cast<const float*>(h), static_cast<const float*>(pb)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* sp = static_cast<int8_t*>(s);
+    const bool longline = fk_long(L, fk_optin());
+    if (longline && !scratch) return (int)cudaErrorInvalidValue;
+    const FkLong f = longline ? fk_long_layout(scratch, R, nvars, L) : FkLong{};
     return (int)by_lanes(L, [&](auto wc) {
         constexpr int W = decltype(wc)::value;
         return by_group(L, [&](auto gc) {
             constexpr int G = decltype(gc)::value;
             const int smem = fk_block_lines(G) * fk_line_bytes(L);
-            cudaError_t e =
-                cudaFuncSetAttribute(ladder_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            cudaError_t e = longline ? cudaSuccess
+                                     : cudaFuncSetAttribute(ladder_cluster<G>,
+                                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
             if (e != cudaSuccess) return e;
             const dim3 grid = fk_grid(g, R, G), sgrid = site_grid(g, R, W);
             for (int t = 0; t < T; ++t) {
                 const int32_t* sd = static_cast<const int32_t*>(seeds) + (size_t)t * R;
+                const LadderFk::Args fa{sd, q, ndir};
                 for (int color = 0; color < 2; ++color) {
                     ladder_site<W><<<sgrid, kSiteThreads, 0, st>>>(sp, sd, q, g, ndir, color);
                     if ((e = cudaGetLastError()) != cudaSuccess) return e;
                 }
                 for (int color = 0; color < 2; ++color) {
-                    ladder_cluster<G><<<grid, fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, 4 + 2 * color,
-                                                                             color);
-                    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+                    if (longline)
+                        e = fk_long_phase<LadderFk>(sp, fa, g, R, 4 + 2 * color, color, f, st);
+                    else {
+                        ladder_cluster<G><<<grid, fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, 4 + 2 * color,
+                                                                                   color);
+                        e = cudaGetLastError();
+                    }
+                    if (e != cudaSuccess) return e;
                 }
             }
             return cudaSuccess;

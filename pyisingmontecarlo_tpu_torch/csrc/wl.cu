@@ -44,8 +44,10 @@
 // to (B + 1)^2 / B^2 in the last cluster phase), and the serial walk; the
 // state moves once in and once out a sweep, the halo read again from L2.
 //
-// Multi-launch (what neither takes: L_tau so long that no tile of 8 fits),
-// five launches a sweep on the caller's stream:
+// Multi-launch (what neither takes: L_tau so long that no tile of 8 fits,
+// and every line past L_tau = kMaxL = 4096, up to the JAX kernel's gate of a
+// 16 MiB int32 plane a replica: L_tau = 2^20 on a 4-ring), five launches a
+// sweep on the caller's stream:
 //
 // - wl_site, twice (one per site color): both tau parities of the color in
 //   one launch, in place, on ladder_site's schedule (site_phases,
@@ -61,7 +63,7 @@
 //   thresholds made on the host, kept in shared memory: integers only.
 // - wl_cluster, twice (one per color): a group of threads per time line of
 //   the color (fk_line, worldline.cuh; a warp up to L = 896, then a block of
-//   128 or 256 threads, fk_group), in parallel over tau: the
+//   128, 256 or, past 4096, 512 threads, fk_group), in parallel over tau: the
 //   line's spins, bond draws and slice dE read coalesced along tau, the
 //   frozen bonds as bit words; the JAX kernel's forward segmented sum by
 //   pointer doubling in shared memory, stopped after the round that leaves no
@@ -70,7 +72,11 @@
 //   (ops/wl.py, xla_sum_last), its windows of 32 slices in parallel.
 //   Additions and products are __fadd_rn / __fmul_rn, so nothing is
 //   contracted, and the log is logf (no fast math). Shared memory: about
-//   8.6 bytes a slice (fk_line_bytes), 35 KB a line at L = 4096.
+//   8.6 bytes a slice (fk_line_bytes), 35 KB a line at L = 4096. A line past
+//   one block's opt-in shared memory (L > 26,944 on an H100, fk_long) takes
+//   the five fk_long_* launches a color of worldline.cuh instead (13
+//   launches a sweep), on the caller's scratch in device memory: the same
+//   flips, each run summed leaf by leaf from its head (WlFk gives the draws).
 // - wl_accumulate, once: a warp per line (both colors) adds the line's
 //   tau-sums of bond products (outgoing bonds), spins and aligned time bonds
 //   to int64 accumulators [R, 3, nvars]: exact, no atomics (one writer per
@@ -242,6 +248,46 @@ cudaError_t launch_site(int8_t* s, const int32_t* seeds, const int32_t* thr, con
     }
     return cudaGetLastError();
 }
+
+// A line's cluster draws for fk_long_* (its Ops): wl_cluster's three
+// functions below (the bond (t, t + 1) freezes when its int31 draw is below
+// pb, the slice's dE is the host table's, the head flips its cluster when
+// log((u + 0.5) / 2^31) < -dE). wl_cluster keeps its own lambdas and
+// __restrict__ parameters: built on WlFk and its Args, it compiled to other
+// shared-memory loops and ran 9% slower at L_tau = 800 on an H100.
+struct WlFk {
+    struct Args {
+        const int32_t* seeds;
+        const float* cde;
+        int32_t pb;
+    };
+    const int8_t* p;
+    const float* cde;
+    Nbrs nb;
+    uint32_t seed, ctr;
+    int32_t pb;
+    int i, nvars, L;
+
+    __device__ WlFk(const int8_t* s, const Args& a, const Geo& g, int r, int i_, uint32_t ctr_)
+        : p(s + (size_t)r * g.nvars * g.L),
+          cde(a.cde),
+          nb(neighbours(g, i_)),
+          seed((uint32_t)__ldg(a.seeds + r)),
+          ctr(ctr_),
+          pb(a.pb),
+          i(i_),
+          nvars(g.nvars),
+          L(g.L) {}
+    __device__ __forceinline__ bool frozen(int t) const {
+        return (int)lane_draw31(seed, (uint32_t)(t * nvars + i), ctr) < pb;
+    }
+    __device__ __forceinline__ float de(int t, int sv) const {
+        return __ldg(cde + 5 * (sv > 0) + ((nbr_sum(p, nb, L, t) + 4) >> 1));
+    }
+    __device__ __forceinline__ bool flips(int head, float de) const {
+        return log_uniform(lane_draw31(seed, (uint32_t)(head * nvars + i), ctr + 1)) < -de;
+    }
+};
 
 // grid fk_grid: a group of G threads per time line of the color
 // (fk_block_lines(G) lines a block): fk_line (worldline.cuh) with the bond
@@ -592,32 +638,41 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
 
 }  // namespace
 
-// Runs T sweeps (5 T launches) on `stream` on s[R, nvars, L], s at an even
-// address (the words of wl_site and wl_accumulate). thr [30] int32, cde [10] f32 and pb as in
-// ops/wl.py; acc [R, 3, nvars] int64 is added to; samples is
-// [R, nsamples, nvars] int8 or null, slot k written after sweep
-// (k + 1) * freq. Draw d of sweep t uses counter 8 t + d: 2c + parity the
-// site phases of color c, 4 + 2c and 5 + 2c the bond and head draws of
-// cluster color c. The site phases take site_lanes(L) threads a line, the
-// cluster phases fk_group(L); R <= 65535 (site_grid, fk_grid). Returns the
-// first launch error, or 0.
+// Runs T sweeps on `stream` on s[R, nvars, L], s at an even address (the
+// words of wl_site and wl_accumulate): 5 T launches, or 13 T where the line is
+// too long for fk_line's one block (fk_long: the five fk_long_* launches a
+// color in place of wl_cluster, in scratch, pmc_long_scratch_bytes of device
+// memory; null otherwise). thr [30] int32, cde [10] f32 and pb as in ops/wl.py; acc
+// [R, 3, nvars] int64 is added to; samples is [R, nsamples, nvars] int8 or
+// null, slot k written after sweep (k + 1) * freq. Draw d of sweep t uses
+// counter 8 t + d: 2c + parity the site phases of color c, 4 + 2c and 5 + 2c
+// the bond and head draws of cluster color c. The site phases take
+// site_lanes(L) threads a line, the cluster phases fk_group(L) or fk_long_*
+// (worldline.cuh); R <= 65535 (site_grid, fk_grid). Returns the first launch
+// error, or 0.
 extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void* cde, int pb,
-                         void* acc, void* samples, int R, int nvars, int L, int torus, int size,
+                         void* acc, void* samples, void* scratch, int R, int nvars, int L, int torus, int size,
                          int T, int freq, int nsamples, void* stream) {
-    if (L < 4 || L > kMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
+    if (L < 4 || L > kLongMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
     const Geo g{torus, size, nvars, L};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* sp = static_cast<int8_t*>(s);
     const int32_t* sd = static_cast<const int32_t*>(seeds);
     const int32_t* th = static_cast<const int32_t*>(thr);
+    const WlFk::Args fa{sd, static_cast<const float*>(cde), pb};
     const int V = acc_width(L, s);
     if (V == 0) return (int)cudaErrorMisalignedAddress;
+    const bool longline = fk_long(L, fk_optin());
+    if (longline && !scratch) return (int)cudaErrorInvalidValue;
+    const FkLong f = longline ? fk_long_layout(scratch, R, nvars, L) : FkLong{};
     return (int)by_lanes(L, [&](auto wc) {
         constexpr int W = decltype(wc)::value;
         return by_group(L, [&](auto gc) {
             constexpr int G = decltype(gc)::value;
             const int smem = fk_block_lines(G) * fk_line_bytes(L);
-            cudaError_t e = cudaFuncSetAttribute(wl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            cudaError_t e = longline ? cudaSuccess
+                                     : cudaFuncSetAttribute(wl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                            smem);
             if (e != cudaSuccess) return e;
             for (int t = 0; t < T; ++t) {
                 const uint32_t base = 8u * (uint32_t)t;
@@ -625,9 +680,14 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
                     if ((e = launch_site<W>(sp, sd, th, g, R, V, base + 2 * color, color, st)) != cudaSuccess)
                         return e;
                 for (int color = 0; color < 2; ++color) {
-                    wl_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
-                        sp, sd, static_cast<const float*>(cde), pb, g, base + 4 + 2 * color, color);
-                    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+                    if (longline)
+                        e = fk_long_phase<WlFk>(sp, fa, g, R, base + 4 + 2 * color, color, f, st);
+                    else {
+                        wl_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
+                            sp, sd, static_cast<const float*>(cde), pb, g, base + 4 + 2 * color, color);
+                        e = cudaGetLastError();
+                    }
+                    if (e != cudaSuccess) return e;
                 }
                 int8_t* stage = nullptr;
                 if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
@@ -677,8 +737,8 @@ extern "C" int wl_tiled_sweeps(const void* s, void* a, void* b, const void* seed
     const long long tiles = torus ? (long long)((side + tile - 1) / tile) * ((side + tile - 1) / tile)
                                   : (side + tile - 1) / tile;
     if (tiles * R >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-    const bool shallow = L < 128;  // counts below 128 need 7 counter levels
-    cudaError_t e = cudaFuncSetAttribute(shallow ? wl_tiled<7> : wl_tiled<kTreeDepth>,
+    const bool shallow = L < 128;  // counts below 128 need tree_depth(127) = 7 counter levels
+    cudaError_t e = cudaFuncSetAttribute(shallow ? wl_tiled<tree_depth(127)> : wl_tiled<tree_depth(kMaxL)>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     const Geo g{torus, size, nvars, L};
@@ -689,7 +749,7 @@ extern "C" int wl_tiled_sweeps(const void* s, void* a, void* b, const void* seed
         int8_t* stage = nullptr;
         if (samples && freq > 0 && (t + 1) % freq == 0 && (t + 1) / freq <= nsamples)
             stage = static_cast<int8_t*>(samples) + (size_t)((t + 1) / freq - 1) * nvars;
-        auto kernel = shallow ? wl_tiled<7> : wl_tiled<kTreeDepth>;
+        auto kernel = shallow ? wl_tiled<tree_depth(127)> : wl_tiled<tree_depth(kMaxL)>;
         kernel<<<(unsigned)(tiles * R), kTileThreads, smem, st>>>(
             in, out, static_cast<const int32_t*>(seeds), static_cast<const int32_t*>(thr),
             static_cast<const float*>(cde), pb, g, tile, static_cast<long long*>(acc), stage, nsamples * nvars,
@@ -709,5 +769,12 @@ extern "C" int pmc_smem_optin(int device) {
 }
 
 // The threads a time line of the multi-launch cluster phases at L slices
-// (fk_group), for measurement.
-extern "C" int pmc_cluster_group(int L) { return fk_group(L); }
+// (fk_group), or 0 where the line takes fk_long_* on the current device, for
+// measurement.
+extern "C" int pmc_cluster_group(int L) { return fk_long(L, fk_optin()) ? 0 : fk_group(L); }
+
+// The bytes of scratch that wl_sweeps and ladder_sweeps take where the line
+// is too long for one block (fk_long_bytes; 0 where it is not).
+extern "C" long long pmc_long_scratch_bytes(int R, int nvars, int L) {
+    return fk_long(L, fk_optin()) ? (long long)fk_long_bytes(R, nvars, L) : 0;
+}

@@ -1,18 +1,23 @@
 // What the worldline kernels (wl.cu, ladder.cu) share: the layout of
 // R replicas of a periodic ring or square torus, s[R, nvars, L] int8 (a time
 // line (r, i) is L contiguous bytes), a fully frozen line's total in XLA's
-// order (XlaSum), a cluster's sum in the order of the JAX kernels' pointer
-// doubling fed one slice at a time (TreeSum), and the multi-launch route's
-// two phases of one line by a group of threads: the site phases of a color,
-// both tau parities in one launch (site_phases: 8 pairs of slices a thread,
-// wl_site and ladder_site giving the loads and the decision), and the
-// Fortuin-Kasteleyn time-line cluster update (fk_line: a warp, or a whole
-// block for long lines), which runs the JAX kernels' own pointer doubling in
-// shared memory. The resident route, one block per replica with its plane in
+// order (XlaSum fed one slice at a time; xla_total by a block), a
+// cluster's sum in the order of the JAX kernels' pointer doubling fed one
+// slice at a time (TreeSum), and the multi-launch route's two phases of one
+// line by a group of threads: the site phases of a color, both tau parities
+// in one launch (site_phases: 8 pairs of slices a thread, wl_site and
+// ladder_site giving the loads and the decision), and the Fortuin-Kasteleyn
+// time-line cluster update, either by a group of threads holding the line in
+// shared memory (fk_line: a warp, or a whole block for long lines), which
+// runs the JAX kernels' own pointer doubling, or, for a line too long for one
+// block's shared memory, by five launches over the line in global memory
+// (fk_long_*: segments of kLongWords words, each run summed leaf by leaf from
+// its head). The resident route, one block per replica with its plane in
 // shared memory, is in resident.cuh, the tiled route in tiled.cuh;
 // ops/wl.choose_route picks the route by shape.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -20,8 +25,15 @@
 
 namespace {
 
+// The longest line of the resident and tiled routes (their planes and line
+// buffers in shared memory); the multi-launch route takes any line up to
+// kLongMaxL, the longest the TPU kernels' gates admit (2^22 spins a replica
+// over at least 4 sites on the worldline; 10^6 on the ladder).
 constexpr int kMaxL = 4096;
-constexpr int kTreeDepth = 13;  // binary-counter blocks of up to 2^12 = kMaxL slices
+constexpr int kLongMaxL = 1 << 20;
+
+// TreeSum's levels for counts up to n: floor(log2 n) + 1.
+__host__ __device__ constexpr int tree_depth(int n) { return n > 1 ? 1 + tree_depth(n >> 1) : 1; }
 
 struct Geo {
     int torus;  // 0: ring of nvars sites; 1: size x size torus, i = x * size + y
@@ -61,8 +73,9 @@ __device__ __forceinline__ Nbrs neighbours(const Geo& g, int i) {
 // A fully frozen line's total dE in XLA's CPU order (ops/wl.py,
 // xla_sum_last), fed one slice at a time in order: windows of 32 slices,
 // padded evenly at both ends, each summed from 0, then the window sums by the
-// same rule (L <= 4096 needs at most two levels). The pads add +0, which
-// changes no comparison.
+// same rule (the resident and tiled routes' L <= kMaxL needs at most two
+// levels; fk_line's frozen sum takes two, to 32,768 slices, fk_long_*'s
+// xla_total any number). The pads add +0, which changes no comparison.
 struct XlaSum {
     bool small, two;
     int lo1, lo2, w_cur = 0, v_cur = 0;
@@ -136,9 +149,11 @@ struct TreeSum {
         for (int b = 0; b < Depth; ++b) blk[b] = b == merges ? v : blk[b];
         ++count;
     }
-    __device__ __forceinline__ float total() const {  // R, right-nested
-        float acc = 0.0f;
-        bool first = true;
+    // R, right-nested; with a tail, R nested onto it (tail + the smallest
+    // block first), as a run continued by a shorter one sums
+    __device__ __forceinline__ float total(float tail = 0.0f, bool has_tail = false) const {
+        float acc = tail;
+        bool first = !has_tail;
 #pragma unroll
         for (int b = 0; b < Depth; ++b) {
             const bool set = (count >> b) & 1u;
@@ -294,10 +309,21 @@ __device__ __forceinline__ bool fk_site(const Geo& g, int color, int& x, int& y)
 }
 
 // Threads a time line at L slices: a warp up to 28 words of 32 slices, a
-// block of 128 threads up to 64 words, then 256. Every size from 32 to 512
-// was timed in turns on an H100 (PERF.md): a warp was fastest at L = 60, 700
-// and 800, 128 threads from 900 to 2048, 256 at 4096.
-__host__ __device__ constexpr int fk_group(int L) { return L <= 896 ? 32 : L <= 2048 ? 128 : 256; }
+// block of 128 threads up to 64 words, 256 up to 128 words (L = 4096), then
+// PMC_FK_GROUP_LONG (256, 512 or 1024; a build for measurement may set it)
+// while the line fits one block's shared memory (fk_line_bytes) and 32,768
+// slices, past which the line takes fk_long_* (fk_long). Every size from 32 to 1024 was timed in turns on
+// an H100 (PERF.md): a warp was fastest at L = 60, 700 and 800, 128 threads
+// from 900 to 2048, 256 at 4096, 512 at 10,240 (against 256 and 1024).
+#ifndef PMC_FK_GROUP_LONG
+#define PMC_FK_GROUP_LONG 512
+#endif
+static_assert(PMC_FK_GROUP_LONG == 256 || PMC_FK_GROUP_LONG == 512 || PMC_FK_GROUP_LONG == 1024,
+              "PMC_FK_GROUP_LONG: 256, 512 or 1024 threads a line");
+
+__host__ __device__ constexpr int fk_group(int L) {
+    return L <= 896 ? 32 : L <= 2048 ? 128 : L <= kMaxL ? 256 : PMC_FK_GROUP_LONG;
+}
 
 // Calls fn(std::integral_constant<int, fk_group(L)>{}).
 template <class Fn>
@@ -305,7 +331,9 @@ cudaError_t by_group(int L, Fn fn) {
     switch (fk_group(L)) {
         case 32: return fn(std::integral_constant<int, 32>{});
         case 128: return fn(std::integral_constant<int, 128>{});
-        default: return fn(std::integral_constant<int, 256>{});
+        case 256: return fn(std::integral_constant<int, 256>{});
+        case 512: return fn(std::integral_constant<int, 512>{});
+        default: return fn(std::integral_constant<int, 1024>{});
     }
 }
 
@@ -335,6 +363,35 @@ __device__ __forceinline__ void fk_swap(T*& a, T*& b) {
 }
 
 __device__ __forceinline__ bool fk_bit(const uint32_t* b, int x) { return (b[x >> 5] >> (x & 31)) & 1u; }
+
+// The total of x[0..n) in XLA's CPU order (ops/wl.xla_sum_last) by the
+// calling group of G threads (fk_sync<G> its barrier; fk_long_decide's
+// block), on its thread 0 (the others get 0): while more than 32 terms remain, windows of 32 padded evenly
+// at both ends (the pads add +0, which changes no sum, so they are skipped),
+// each summed from 0 by one thread, their sums the next level's terms in
+// scratch (n / 31 floats at most); then the last 32 or fewer one by one. At L
+// = 2^20 that is three levels of windows.
+template <int G>
+__device__ float xla_total(const float* x, int n, float* scratch) {
+    const int gt = threadIdx.x % G;
+    while (n > 32) {
+        const int m = (n + 31) >> 5, lo = (32 * m - n) >> 1;
+        for (int v = gt; v < m; v += G) {
+            const int a = 32 * v - lo;
+            float p = 0.0f;  // never -0, so a pad's +0 would leave it as it is
+            for (int j = max(0, -a); j < 32 && a + j < n; ++j) p = __fadd_rn(p, x[a + j]);
+            scratch[v] = p;
+        }
+        fk_sync<G>();
+        x = scratch;
+        scratch += m;
+        n = m;
+    }
+    float tot = 0.0f;
+    if (gt == 0)
+        for (int j = 0; j < n; ++j) tot = __fadd_rn(tot, x[j]);
+    return tot;
+}
 
 // One FK cluster update of the time line lp[0..L) by a group of G threads
 // with sm, fk_line_bytes(L) of shared memory. bond_frozen(t): the aligned
@@ -482,6 +539,323 @@ __device__ __forceinline__ void fk_line(int8_t* lp, unsigned char* sm, int L, Bo
         }
         if (t < L && (b0[x] >> (31 - __clz(m))) & 1u) lp[t] = (int8_t)(fk_bit(up, t) ? -1 : 1);
     }
+}
+
+// The multi-launch route's cluster phase for a line too long for one block's
+// shared memory (fk_line_bytes(L) past the card's opt-in bytes: L > 26,944
+// on an H100), in global memory: five launches a color, each over
+// (segments of kLongWords words of 32 slices, lines of the color, replicas)
+// with blocks of kLongThreads threads, warp w of a block taking the words w,
+// w + 8, ... of its segment, slice t = 32 word + lane. They compute what
+// fk_line computes (ops/wl.fk_flips), summing each cluster from its head
+// instead of by pointer doubling: the doubling's sum at a head h of a run of
+// n slices is the right-nested sum of the perfect binary trees of n's binary
+// expansion laid from h (TreeSum), which splits at kLongLeaf slices into
+// leaves of kLongLeaf slices at relative multiples of kLongLeaf from h, the
+// perfect trees of leaves of the blocks of n / kLongLeaf, nested onto the
+// run's last n % kLongLeaf slices. So each slice at a relative multiple of
+// kLongLeaf sums its leaf (or the run's tail) alone, and each head folds its
+// leaves: n + n / kLongLeaf additions a run, where the doubling does up to
+// n log2 n.
+//
+// 1. fk_long_scan: each slice's bond draw and dE (de), the heads (after a
+//    thawed bond; a lane 0 draws the bond before its word again) as bit
+//    words (hw), each segment's first and last head (sf, sl).
+// 2. fk_long_carry, a warp a line: for each segment the last head before it
+//    (cl) and the first after it (cf), around the ring (max and min scans);
+//    -1 everywhere for a line with no head (fully frozen).
+// 3. fk_long_leaves: each slice finds its run (its nearest head at or before
+//    it and the next head after it: in its word, in the words of its segment
+//    before or after it, else the carries) and, at a relative multiple of
+//    kLongLeaf, sums the leaf or the tail from it (TreeSum) into lf.
+// 4. fk_long_decide: each head folds its leaves onto its tail (TreeSum) and
+//    decides (its draw, as fk_line's head); a fully frozen line is summed in
+//    XLA's order (xla_total, by segment 0's block) and decided at tau = 0;
+//    the decisions as bit words (dw).
+// 5. fk_long_flip: each slice takes its nearest head's decision and flips.
+//
+// The caller's Ops type gives a line's draws: Ops(s, args, g, r, i, ctr),
+// frozen(t) (the aligned bond (t, t + 1) freezes), de(t, sv) (the slice's dE)
+// and flips(head, dE), as fk_line's three functions; only site i's own line
+// is written, in fk_long_flip, and its neighbours' (the other color) only
+// read. Additions are __fadd_rn: nothing is contracted.
+constexpr int kLongWords = 32, kLongThreads = 256, kLongLeaf = 256;
+
+// The scratch of one color's phase, per line of the color (line index
+// r * nl + j, j the line's rank in its color, site_of): de and lf (32 W f32
+// each, W = ceil(L / 32)), hw and dw (W words), sf, sl, cf, cl (nseg ints).
+struct FkLong {
+    float* de;
+    float* lf;
+    uint32_t* hw;
+    uint32_t* dw;
+    int *sf, *sl, *cf, *cl;
+    int L, W, nseg, nl;
+
+    __device__ size_t line() const { return (size_t)blockIdx.z * nl + blockIdx.y; }
+};
+
+// The bytes of FkLong for R replicas of nvars sites at L slices, and its
+// arrays laid out from base.
+inline size_t fk_long_bytes(int R, int nvars, int L) {
+    const size_t W = (L + 31) >> 5, nseg = (W + kLongWords - 1) / kLongWords, lines = (size_t)R * (nvars >> 1);
+    return lines * (2 * 32 * W * 4 + 2 * W * 4 + 4 * nseg * 4);
+}
+
+inline FkLong fk_long_layout(void* base, int R, int nvars, int L) {
+    FkLong f;
+    f.L = L;
+    f.W = (L + 31) >> 5;
+    f.nseg = (f.W + kLongWords - 1) / kLongWords;
+    f.nl = nvars >> 1;
+    const size_t lines = (size_t)R * f.nl;
+    f.de = static_cast<float*>(base);
+    f.lf = f.de + lines * 32 * f.W;
+    f.hw = reinterpret_cast<uint32_t*>(f.lf + lines * 32 * f.W);
+    f.dw = f.hw + lines * f.W;
+    f.sf = reinterpret_cast<int*>(f.dw + lines * f.W);
+    f.sl = f.sf + lines * f.nseg;
+    f.cf = f.sl + lines * f.nseg;
+    f.cl = f.cf + lines * f.nseg;
+    return f;
+}
+
+inline dim3 fk_long_grid(const FkLong& f, int R) { return dim3(f.nseg, f.nl, R); }
+
+// 1.
+template <class Ops>
+__global__ void __launch_bounds__(kLongThreads) fk_long_scan(const int8_t* __restrict__ s, typename Ops::Args a,
+                                                             Geo g, uint32_t ctr, int color, FkLong f) {
+    __shared__ int first, last;
+    const int r = blockIdx.z, i = site_of(g, blockIdx.y, color), L = g.L, lane = threadIdx.x & 31;
+    const Ops ops(s, a, g, r, i, ctr);
+    const int8_t* lp = s + ((size_t)r * g.nvars + i) * L;
+    const size_t ln = f.line();
+    float* de = f.de + ln * 32 * f.W;
+    if (threadIdx.x == 0) first = INT_MAX, last = -1;
+    __syncthreads();
+    const int w1 = min(f.W, (int)(blockIdx.x + 1) * kLongWords);
+    for (int w = blockIdx.x * kLongWords + (threadIdx.x >> 5); w < w1; w += kLongThreads / 32) {
+        const int t = 32 * w + lane;
+        const bool in = t < L;
+        const int sv = in ? lp[t] : 1;
+        int nx = __shfl_down_sync(0xffffffffu, sv, 1);
+        if (in && (lane == 31 || t + 1 == L)) nx = lp[t + 1 == L ? 0 : t + 1];
+        const bool fr = in & (sv == nx) & ops.frozen(t);  // every lane draws: no branch
+        if (in) de[t] = ops.de(t, sv);
+        bool before = __shfl_up_sync(0xffffffffu, fr, 1);  // the bond (t - 1, t) frozen
+        if (lane == 0) {
+            const int tp = t == 0 ? L - 1 : t - 1;
+            before = lp[tp] == sv && ops.frozen(tp);
+        }
+        const uint32_t hm = __ballot_sync(0xffffffffu, in && !before);
+        if (lane == 0) {
+            f.hw[ln * f.W + w] = hm;
+            if (hm) {
+                atomicMin(&first, 32 * w + __ffs(hm) - 1);
+                atomicMax(&last, 32 * w + 31 - __clz(hm));
+            }
+        }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        f.sf[ln * f.nseg + blockIdx.x] = first == INT_MAX ? -1 : first;
+        f.sl[ln * f.nseg + blockIdx.x] = last;
+    }
+}
+
+// 2. grid (1, lines of the color, replicas), a warp a line.
+__global__ void __launch_bounds__(32) fk_long_carry(FkLong f) {
+    const size_t ln = f.line();
+    const int* sf = f.sf + ln * f.nseg;
+    const int* sl = f.sl + ln * f.nseg;
+    int* cf = f.cf + ln * f.nseg;
+    int* cl = f.cl + ln * f.nseg;
+    const int lane = threadIdx.x, n = f.nseg;
+    int lo = INT_MAX, hi = -1;  // the line's first and last head
+    for (int x = lane; x < n; x += 32) {
+        if (sf[x] >= 0) lo = min(lo, sf[x]);
+        hi = max(hi, sl[x]);
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    int run = -1;  // the last head of the segments before this round's
+    for (int b = 0; b < n; b += 32) {
+        int v = b + lane < n ? sl[b + lane] : -1;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int u = __shfl_up_sync(0xffffffffu, v, o);
+            if (lane >= o) v = max(v, u);
+        }
+        int ex = __shfl_up_sync(0xffffffffu, v, 1);
+        ex = max(lane == 0 ? -1 : ex, run);
+        if (b + lane < n) cl[b + lane] = ex >= 0 ? ex : hi;
+        run = max(run, __shfl_sync(0xffffffffu, v, 31));
+    }
+    run = INT_MAX;  // the first head of the segments after this round's
+    for (int b = (n - 1) / 32 * 32; b >= 0; b -= 32) {
+        int v = b + lane < n && sf[b + lane] >= 0 ? sf[b + lane] : INT_MAX;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int u = __shfl_down_sync(0xffffffffu, v, o);
+            if (lane + o < 32) v = min(v, u);
+        }
+        int ex = __shfl_down_sync(0xffffffffu, v, 1);
+        ex = min(lane == 31 ? INT_MAX : ex, run);
+        if (b + lane < n) cf[b + lane] = ex != INT_MAX ? ex : lo == INT_MAX ? -1 : lo;
+        run = min(run, __shfl_sync(0xffffffffu, v, 0));
+    }
+}
+
+// A segment's head words and, for each of its words, the last head at or
+// before its end within the segment (upto) and the first at or after its
+// start (from), with the segment's carries: where each slice's run starts
+// and ends. Loaded by fk_long_segment (a barrier).
+struct FkSeg {
+    uint32_t hw[kLongWords];
+    int upto[kLongWords], from[kLongWords];
+    int cl, cf;
+
+    // the nearest head at or before slice t (word k of the segment), around the ring
+    __device__ __forceinline__ int head_at(int k, int lane, int t) const {
+        const uint32_t m = hw[k] & (0xffffffffu >> (31 - lane));
+        if (m) return t - lane + 31 - __clz(m);
+        return k > 0 && upto[k - 1] >= 0 ? upto[k - 1] : cl;
+    }
+    // the first head after slice t, around the ring (t itself for a line's only head)
+    __device__ __forceinline__ int head_after(int k, int lane, int t) const {
+        const uint32_t m = hw[k] & (0xfffffffeu << lane);
+        if (m) return t - lane + __ffs(m) - 1;
+        return k + 1 < kLongWords && from[k + 1] != INT_MAX ? from[k + 1] : cf;
+    }
+};
+
+__device__ __forceinline__ void fk_long_segment(FkSeg& sg, const FkLong& f, size_t ln) {
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x, w = blockIdx.x * kLongWords + lane;
+        const uint32_t m = w < f.W ? f.hw[ln * f.W + w] : 0u;
+        int last = m ? 32 * w + 31 - __clz(m) : -1, first = m ? 32 * w + __ffs(m) - 1 : INT_MAX;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int u = __shfl_up_sync(0xffffffffu, last, o), d = __shfl_down_sync(0xffffffffu, first, o);
+            if (lane >= o) last = max(last, u);
+            if (lane + o < 32) first = min(first, d);
+        }
+        sg.hw[lane] = m;
+        sg.upto[lane] = last;
+        sg.from[lane] = first;
+        if (lane == 0) {
+            sg.cl = f.cl[ln * f.nseg + blockIdx.x];
+            sg.cf = f.cf[ln * f.nseg + blockIdx.x];
+        }
+    }
+    __syncthreads();
+}
+
+// The slices from t to the end of its run, which ends before the head e.
+__device__ __forceinline__ int fk_long_left(int t, int e, int L) {
+    const int m = e - t - 1;
+    return (m < 0 ? m + L : m) + 1;
+}
+
+// 3.
+__global__ void __launch_bounds__(kLongThreads) fk_long_leaves(FkLong f) {
+    __shared__ FkSeg sg;
+    const size_t ln = f.line();
+    fk_long_segment(sg, f, ln);
+    if (sg.cl < 0) return;  // no head: a fully frozen line (the whole block)
+    const int L = f.L, lane = threadIdx.x & 31;
+    const float* de = f.de + ln * 32 * f.W;
+    for (int k = threadIdx.x >> 5; k < kLongWords; k += kLongThreads / 32) {
+        const int t = 32 * (blockIdx.x * kLongWords + k) + lane;
+        if (t >= L) break;
+        const int h = sg.head_at(k, lane, t), u = t - h < 0 ? t - h + L : t - h;
+        if (u % kLongLeaf) continue;
+        const int n = min(kLongLeaf, fk_long_left(t, sg.head_after(k, lane, t), L));
+        TreeSum<tree_depth(kLongLeaf)> sum;
+        for (int j = 0, x = t; j < n; ++j, x = x + 1 == L ? 0 : x + 1) sum.add(de[x]);
+        f.lf[ln * 32 * f.W + t] = sum.total();
+    }
+}
+
+// 4.
+template <class Ops>
+__global__ void __launch_bounds__(kLongThreads) fk_long_decide(const int8_t* __restrict__ s, typename Ops::Args a,
+                                                               Geo g, uint32_t ctr, int color, FkLong f) {
+    __shared__ FkSeg sg;
+    const size_t ln = f.line();
+    fk_long_segment(sg, f, ln);
+    const int r = blockIdx.z, i = site_of(g, blockIdx.y, color), L = g.L, lane = threadIdx.x & 31;
+    const Ops ops(s, a, g, r, i, ctr);
+    const float* lf = f.lf + ln * 32 * f.W;
+    uint32_t* dw = f.dw + ln * f.W;
+    if (sg.cl < 0) {  // one cluster headed at tau = 0, summed in XLA's order (lf the scratch)
+        if (blockIdx.x != 0) return;
+        const float tot = xla_total<kLongThreads>(f.de + ln * 32 * f.W, L, f.lf + ln * 32 * f.W);
+        if (threadIdx.x == 0) dw[0] = ops.flips(0, tot);
+        return;
+    }
+    for (int k = threadIdx.x >> 5; k < kLongWords; k += kLongThreads / 32) {
+        const int w = blockIdx.x * kLongWords + k, t = 32 * w + lane;
+        if (w >= f.W) break;  // the whole warp
+        bool flip = false;
+        if (t < L && ((sg.hw[k] >> lane) & 1u)) {
+            const int n = fk_long_left(t, sg.head_after(k, lane, t), L), q = n / kLongLeaf, rest = n % kLongLeaf;
+            TreeSum<tree_depth(kLongMaxL / kLongLeaf)> sum;
+            int x = t;
+            for (int j = 0; j < q; ++j, x = x + kLongLeaf < L ? x + kLongLeaf : x + kLongLeaf - L) sum.add(lf[x]);
+            flip = ops.flips(t, sum.total(rest ? lf[x] : 0.0f, rest != 0));
+        }
+        const uint32_t m = __ballot_sync(0xffffffffu, flip);
+        if (lane == 0) dw[w] = m;
+    }
+}
+
+// 5.
+__global__ void __launch_bounds__(kLongThreads) fk_long_flip(int8_t* __restrict__ s, Geo g, int color, FkLong f) {
+    __shared__ FkSeg sg;
+    const size_t ln = f.line();
+    fk_long_segment(sg, f, ln);
+    const int L = g.L, lane = threadIdx.x & 31;
+    int8_t* lp = s + ((size_t)blockIdx.z * g.nvars + site_of(g, blockIdx.y, color)) * L;
+    const uint32_t* dw = f.dw + ln * f.W;
+    const bool whole = sg.cl < 0 && (dw[0] & 1u);  // a fully frozen line decided at tau = 0
+    if (sg.cl < 0 && !whole) return;
+    for (int k = threadIdx.x >> 5; k < kLongWords; k += kLongThreads / 32) {
+        const int t = 32 * (blockIdx.x * kLongWords + k) + lane;
+        if (t >= L) break;
+        bool flip = whole;
+        if (!whole) {
+            const int h = sg.head_at(k, lane, t);
+            flip = (dw[h >> 5] >> (h & 31)) & 1u;
+        }
+        if (flip) lp[t] = (int8_t)(-lp[t]);
+    }
+}
+
+// Runs one color's five launches on st.
+template <class Ops>
+cudaError_t fk_long_phase(int8_t* s, const typename Ops::Args& a, const Geo& g, int R, uint32_t ctr, int color,
+                          const FkLong& f, cudaStream_t st) {
+    const dim3 grid = fk_long_grid(f, R);
+    fk_long_scan<Ops><<<grid, kLongThreads, 0, st>>>(s, a, g, ctr, color, f);
+    fk_long_carry<<<dim3(1, f.nl, R), 32, 0, st>>>(f);
+    fk_long_leaves<<<grid, kLongThreads, 0, st>>>(f);
+    fk_long_decide<Ops><<<grid, kLongThreads, 0, st>>>(s, a, g, ctr, color, f);
+    fk_long_flip<<<grid, kLongThreads, 0, st>>>(s, g, color, f);
+    return cudaGetLastError();
+}
+
+// Whether the cluster phase at L takes fk_long_* on a card of `optin` bytes
+// of shared memory per block: fk_line's buffers no longer fit one block, or
+// its frozen sum would need a third level of XLA's windows (past 32,768
+// slices; on an H100 the block's limit comes first, at 26,946).
+__host__ __device__ inline bool fk_long(int L, int optin) { return fk_line_bytes(L) > optin || L > 32 * 32 * 32; }
+
+// The card's opt-in shared memory per block (0 on an error).
+inline int fk_optin() {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+        return 0;
+    return v;
 }
 
 }  // namespace

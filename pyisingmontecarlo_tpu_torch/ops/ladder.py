@@ -23,9 +23,12 @@ The uniform is ``u = min(f32(u31) * 2^-31 + 2^-32, f32(1 - 1.2e-7))``.
 Two routes on the card, chosen by shape alone (``wl.resident_plan``): the
 resident kernel (one launch per call, one block per replica with its plane
 and couplings in shared memory, the swap features of the final state written
-by the kernel) where ``wl.resident_plan`` admits the shape, else the
-multi-launch kernels (four launches a sweep, the features then from
-``swap_features``). Both equal the plain version bit for bit.
+by the kernel) where ``wl.resident_plan`` admits the shape (lines up to
+``wl.MAX_LTAU`` slices), else the multi-launch kernels (four launches a
+sweep, the features then from ``swap_features``; a line too long for one
+block's shared memory, ``wl.cluster_long``, takes the five ``fk_long_*``
+launches a color in place of its cluster launch). Both equal the plain
+version bit for bit.
 
 Randomness: the draw ``d`` of a sweep at (tau, i) is
 ``lane_draw31(seed, pos = tau*nvars + i, ctr = d)``; every sweep has fresh
@@ -49,12 +52,16 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
-from .wl import MAX_LTAU, _kernel_call, _stream, device_limits, fk_flips, lattice_fns, resident_plan
+from .wl import (LONG_LAUNCHES_PER_SWEEP, _kernel_call, _stream, device_limits, fk_flips, lattice_fns, long_scratch,
+                 resident_plan)
 
 __all__ = ["LadderPlanes", "build_planes", "gate", "param_bytes", "swap_features", "ladder_sweeps",
            "ladder_sweeps_reference"]
 
 LAUNCHES_PER_SWEEP = 4  # multi-launch route: 2 site phases (both parities of a color each), 2 cluster phases
+# (where the line takes fk_long_*, wl.cluster_long: 2 of those a sweep and
+# wl.LONG_LAUNCHES_PER_SWEEP fk_long_* launches, in ladder_sweeps.long_launches)
+MAX_POINTS = 1_000_000  # the JAX kernel's gate (wl_ladder_pallas._MAX_POINTS): nvars * L_tau of a replica
 _INT_LIMIT = 2**31
 _SCALE = 1.0 / 2147483648.0  # 2^-31
 _HALF_STEP = 0.5 / 2147483648.0  # 2^-32
@@ -117,13 +124,17 @@ def build_planes(kind: str, size: int, nvars: int, edge_a, edge_b, edge_j, betas
 def gate(kind_size, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
     """None when the kernel takes this ladder, else the reason it does not: a
     ring or torus (``kind_size`` from ``graph.detect_topology``), L_tau even
-    and in [4, MAX_LTAU], an even number of sites, and fewer than 2^31 spins."""
+    and at least 4, an even number of sites (an even torus side), at most
+    ``MAX_POINTS`` spins a replica (the JAX kernel's gate), and fewer than
+    2^31 spins."""
     if kind_size is None:
         return "the union graph is not a periodic ring or square torus"
-    if ltau < 4 or ltau % 2 or ltau > MAX_LTAU:
-        return f"L_tau={ltau} is not even and in [4, {MAX_LTAU}]"
-    if nvars % 2:
-        return f"{nvars} sites is not even"
+    if ltau < 4 or ltau % 2:
+        return f"L_tau={ltau} is not even and at least 4"
+    if nvars % 2 or (kind_size[0] == "torus" and kind_size[1] % 2):
+        return f"{nvars} sites (a {kind_size[0]} of side {kind_size[1]}) is not even"
+    if nvars * ltau > MAX_POINTS:
+        return f"nvars * L_tau = {nvars * ltau} spins a replica exceed {MAX_POINTS}"
     if R * nvars * ltau >= _INT_LIMIT:
         return f"R * nvars * L_tau = {R * nvars * ltau} spins reach 2^31"
     return None
@@ -244,18 +255,25 @@ def _planes_args(planes: LadderPlanes):
             planes.pb.data_ptr()]
 
 
-def _run_multi(s, seeds, planes: LadderPlanes, T: int):
+def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = ()):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP``
-    launches a sweep, counted in ``ladder_sweeps.launches``); the new state,
-    without features."""
+    launches a sweep, counted in ``ladder_sweeps.launches``; where
+    ``wl.cluster_long``, 2 of them and ``wl.LONG_LAUNCHES_PER_SWEEP`` in
+    ``ladder_sweeps.long_launches``); the new state, without features.
+    ``defines`` launch a variant built for measurement (``_kernels.build``)."""
     R, nvars, L = s.shape
     x = s.clone()
     if R and T:
         with torch.cuda.device(x.device):
+            scratch = long_scratch(x, defines)
             _kernel_call("ladder kernel", lambda lib: lib.ladder_sweeps(
-                x.data_ptr(), seeds.data_ptr(), *_planes_args(planes), R, nvars, L, int(planes.kind == "torus"),
-                planes.size, T, _stream(x)))
-        ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
+                x.data_ptr(), seeds.data_ptr(), *_planes_args(planes), None if scratch is None else scratch.data_ptr(),
+                R, nvars, L, int(planes.kind == "torus"), planes.size, T, _stream(x)), defines)
+        if scratch is not None:  # the library's route: fk_long_*
+            ladder_sweeps.launches += 2 * T
+            ladder_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
+        else:
+            ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
     return x
 
 
@@ -291,8 +309,10 @@ def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T:
     A CUDA tensor launches ``csrc/ladder.cu`` or raises: the resident kernel
     (one launch, counted in ``ladder_sweeps.resident_launches``) where
     ``wl.resident_plan`` admits the shape, else the multi-launch kernels
-    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``ladder_sweeps.launches``). A
-    CPU tensor runs the plain version."""
+    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``ladder_sweeps.launches``;
+    for a line past one block, ``wl.cluster_long``, 2 there and
+    ``wl.LONG_LAUNCHES_PER_SWEEP`` in ``ladder_sweeps.long_launches``). A CPU
+    tensor runs the plain version."""
     T = int(T)
     _check(s, seeds, planes, T, edges)
     if s.device.type == "cpu":
@@ -308,4 +328,5 @@ def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T:
 
 
 ladder_sweeps.launches = 0
+ladder_sweeps.long_launches = 0
 ladder_sweeps.resident_launches = 0

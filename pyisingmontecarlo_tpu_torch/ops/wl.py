@@ -36,8 +36,12 @@ the tiled route's redundant halo work (``resident_plan``,
 one block per spatial tile of a replica with the tile and its halo in shared
 memory) where a tile of at least ``TILE_MIN`` sites a side fits
 (``tiled_plan``); else the multi-launch kernels (five launches a sweep: both
-tau parities of a color in one site launch). All three equal the plain
-version bit for bit.
+tau parities of a color in one site launch; a line too long for one block's
+shared memory, ``cluster_long``, takes the five ``fk_long_*`` launches a
+color in place of its cluster launch). The resident and tiled routes take
+lines up to ``MAX_LTAU`` slices, the multi-launch route every line the gate
+admits, as the JAX kernel does (up to 2^22 spins a replica). All three equal
+the plain version bit for bit.
 
 Randomness: the draw ``d`` of sweep t at (tau, i) is
 ``lane_draw31(seed_r, pos = tau*nvars + i, ctr = 8*t + d)``. A run longer than
@@ -75,6 +79,8 @@ __all__ = [
     "make_tables",
     "lattice_fns",
     "gate",
+    "fk_line_bytes",
+    "cluster_long",
     "resident_bytes",
     "resident_plan",
     "tiled_bytes",
@@ -93,7 +99,14 @@ __all__ = [
 
 DRAWS_PER_SWEEP = 8
 LAUNCHES_PER_SWEEP = 5  # multi-launch route: 2 site launches (both parities of a color each), 2 cluster, 1 accumulation
-MAX_LTAU = 4096  # the routes' line buffers in shared memory (csrc/worldline.cuh, kMaxL)
+# and where the line takes fk_long_* (cluster_long): 3 of those launches a
+# sweep (2 site, 1 accumulation), counted in wl_sweeps.launches, and
+# LONG_LAUNCHES_PER_SWEEP fk_long_* launches (5 a color), in wl_sweeps.long_launches
+LONG_LAUNCHES_PER_SWEEP = 10
+MAX_LTAU = 4096  # the resident and tiled routes' longest line (csrc/worldline.cuh, kMaxL)
+# the JAX kernel's gate (wl_pallas._MAX_PLANE_BYTES_LARGE): one replica's
+# int32 plane of nvars * L_tau
+MAX_PLANE_BYTES = 16 * 1024 * 1024
 RESIDENT_THREADS = 1024  # threads of a resident block (csrc/resident.cuh, kResThreads)
 WL_PARAM_BYTES = 30 * 4 + 10 * 4  # the resident block's thr and cde
 # The resident route runs one replica per SM (a block of 1024 threads, one
@@ -202,22 +215,42 @@ def make_tables(dense, nvars: int, beta: float, gamma: float, h: float, ltau: in
 
 def gate(dense, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
     """None when the kernel takes this shape, else the reason it does not:
-    a uniform ring or torus (``dense``), L_tau even and in [4, MAX_LTAU], an
-    even number of sites (an even torus side), and fewer than 2^31 spins."""
+    a uniform ring or torus (``dense``), L_tau even and at least 4, an even
+    number of sites (an even torus side), a replica's int32 plane of
+    ``nvars * L_tau`` within ``MAX_PLANE_BYTES`` (the JAX kernel's gate), and
+    fewer than 2^31 spins."""
     if dense is None:
         return "the graph is not a uniform periodic ring or square torus"
     kind, size, _ = dense
     if kind not in ("ring", "torus"):
         return f"unknown lattice kind {kind!r}"
-    if ltau < 4 or ltau % 2 or ltau > MAX_LTAU:
-        return f"L_tau={ltau} is not even and in [4, {MAX_LTAU}]"
+    if ltau < 4 or ltau % 2:
+        return f"L_tau={ltau} is not even and at least 4"
     if nvars % 2 or nvars < 4 or (kind == "torus" and (size % 2 or size * size != nvars)):
         return f"{kind} of {nvars} sites (size {size}) is not even"
     if kind == "ring" and size != nvars:
         return f"ring size {size} != nvars {nvars}"
+    if nvars * ltau * 4 > MAX_PLANE_BYTES:
+        return f"a replica's int32 plane of {nvars} x {ltau} exceeds {MAX_PLANE_BYTES} bytes"
     if R * nvars * ltau >= _INT_LIMIT:
         return f"R * nvars * L_tau = {R * nvars * ltau} spins reach 2^31"
     return None
+
+
+def fk_line_bytes(ltau: int) -> int:
+    """Shared memory of one line of the multi-launch cluster phase's group
+    (``csrc/worldline.cuh``, ``fk_line_bytes``): about 8.6 bytes a slice."""
+    return (276 * (-(-ltau // 32)) + 4 + 15) & ~15
+
+
+def cluster_long(ltau: int, limit: int) -> bool:
+    """Whether the multi-launch cluster phase takes ``fk_long_*`` (the line in
+    global memory, five launches a color) at ``ltau`` on a card of ``limit``
+    bytes of opt-in shared memory per block (``csrc/worldline.cuh``,
+    ``fk_long``): where one line's buffers pass one block, or its frozen sum
+    would pass two levels of XLA's windows (32,768 slices); past 26,944
+    slices on an H100."""
+    return fk_line_bytes(ltau) > limit or ltau > 32 * 32 * 32
 
 
 def _align16(n: int) -> int:
@@ -245,8 +278,11 @@ def resident_plan(nvars: int, ltau: int, R: int, param_bytes: int, limit: int, s
     plane and a cluster tile of at least one line per thread (or every line
     of a color) fit in ``limit`` bytes, the card's opt-in shared memory per
     block. The tile is the most lines that fit, split evenly over the color's
-    lines. Shape only (cached per shape: the tempering loop asks once a
-    sweep); the wrappers never fall back from a failed launch."""
+    lines; no line longer than ``MAX_LTAU``. Shape only (cached per shape:
+    the tempering loop asks once a sweep); the wrappers never fall back from a
+    failed launch."""
+    if ltau > MAX_LTAU:
+        return None
     if idle_sites is not None and nvars * (-(-R // sms) * sms - R) > idle_sites * sms:
         return None
     lines = nvars // 2
@@ -290,11 +326,13 @@ def tiled_plan(kind: str, size: int, nvars: int, ltau: int, R: int, limit: int, 
     """``(B, box sites, bytes)`` of the tiled kernel for ``R`` replicas of a
     ``kind`` lattice of side ``size`` (a ring's is ``nvars``) at ``ltau`` on a
     card of ``sms`` SMs with ``limit`` bytes of opt-in shared memory per
-    block, or None when no tile side fits. Of the sides that fit, the one
-    whose launch is least in ``waves * blocks per SM * box sites`` (a wave of
-    blocks shares an SM's issue; a block's work grows with its box). Shape
-    only, cached per shape; the wrappers never fall back from a failed
-    launch."""
+    block, or None when no tile side fits or the line is longer than
+    ``MAX_LTAU``. Of the sides that fit, the one whose launch is least in
+    ``waves * blocks per SM * box sites`` (a wave of blocks shares an SM's
+    issue; a block's work grows with its box). Shape only, cached per shape;
+    the wrappers never fall back from a failed launch."""
+    if ltau > MAX_LTAU:
+        return None
     side = size if kind == "torus" else nvars
     best = None
     for B in range(TILE_MIN, side - sum(TILE_HALO) + 1, TILE_STEP):
@@ -519,20 +557,43 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0):
+def long_scratch(x, defines: tuple = ()):
+    """The device scratch the multi-launch kernels take for the state
+    ``x[R, nvars, L]`` on its CUDA device where the line is too long for one
+    block (``pmc_long_scratch_bytes``, about 8.3 bytes a slice of a color's
+    lines; from torch's caching allocator), else None. Call it with that
+    device current."""
+    from .. import _kernels
+
+    R, nvars, L = x.shape
+    n = _kernels.load(defines).pmc_long_scratch_bytes(R, nvars, L)
+    return torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
+
+
+def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0,
+               defines: tuple = ()):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP`` launches
-    a sweep, counted in ``wl_sweeps.launches``); ``wl_sweeps``' result."""
+    a sweep, counted in ``wl_sweeps.launches``; where ``cluster_long``, 3 of
+    them and ``LONG_LAUNCHES_PER_SWEEP`` in ``wl_sweeps.long_launches``);
+    ``wl_sweeps``' result. ``defines`` launch a variant built for measurement
+    (``_kernels.build``)."""
     R, nvars, L = s.shape
     x = s.clone()
     acc = torch.zeros((R, 3, nvars), dtype=torch.int64, device=s.device)
     samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
     if R and T:
         with torch.cuda.device(x.device):
+            scratch = long_scratch(x, defines)
             _kernel_call("wl kernel", lambda lib: lib.wl_sweeps(
                 x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
                 int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
-                R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, _stream(x)))
-        wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
+                None if scratch is None else scratch.data_ptr(), R, nvars, L, int(tables.kind == "torus"),
+                tables.size, T, freq, nsamples, _stream(x)), defines)
+        if scratch is not None:  # the library's route: fk_long_*
+            wl_sweeps.launches += 3 * T
+            wl_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
+        else:
+            wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
     return x, acc.sum(2), samples
 
 
@@ -609,8 +670,10 @@ def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int
     ``choose_route`` gives: the resident kernel (one launch, counted in
     ``wl_sweeps.resident_launches``), the tiled kernel (one launch a sweep,
     counted in ``wl_sweeps.tiled_launches``) or the multi-launch kernels
-    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``wl_sweeps.launches``). A
-    CPU tensor runs the plain version."""
+    (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``wl_sweeps.launches``; for a
+    line past one block, ``cluster_long``, 3 there and
+    ``LONG_LAUNCHES_PER_SWEEP`` in ``wl_sweeps.long_launches``). A CPU tensor
+    runs the plain version."""
     T, freq, nsamples = int(T), int(freq), int(nsamples)
     _check(s, seeds_i32, tables, T, freq, nsamples)
     if s.device.type == "cpu":
@@ -678,5 +741,6 @@ def run_wl_sample(s, seeds_u32, freq: int, nsamples: int, rem: int, dense, beta:
 
 
 wl_sweeps.launches = 0
+wl_sweeps.long_launches = 0
 wl_sweeps.resident_launches = 0
 wl_sweeps.tiled_launches = 0

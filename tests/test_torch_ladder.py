@@ -142,7 +142,7 @@ def test_make_params_equal_jax():
 def test_gate_rejects():
     assert ladder.gate(("ring", 8), 8, 40, 64) is None
     assert "ring or square torus" in ladder.gate(None, 8, 40)
-    for L in (2, 41, 4098):
+    for L in (2, 41, ladder.MAX_POINTS // 8 + 2):
         assert "L_tau" in ladder.gate(("ring", 8), 8, L)
     assert "not even" in ladder.gate(("torus", 3), 9, 40)
     assert "2^31" in ladder.gate(("ring", 8), 8, 4096, 2**16)

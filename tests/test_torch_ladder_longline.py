@@ -1,0 +1,250 @@
+"""The ladder kernel's plain version, the long-line cluster algorithm and the
+kernel route at time lines past 4096 slices, up to the JAX kernel's gate
+(nvars * L_tau up to 10^6: L_tau = 250,000 on the 4-ring).
+
+- ``ladder_sweeps_reference`` against the JAX Pallas kernel
+  (``wl_ladder_pallas.ladder_sweep``) in interpret mode, R = 2, 2 sweeps: the
+  8-ring at L_tau = 5120, the 16-ring at 40,960 and a 6^2 +-J torus at 20,000.
+- ``ladder.gate`` against the JAX kernel's rule (``supported_ladder``, whose
+  platform test refuses the CPU, so the rule is read from ``_MAX_POINTS``) on
+  a grid of shapes on both sides of each edge.
+- A numpy model of the cluster phase that ``csrc/worldline.cuh`` runs for a
+  line too long for one block (``fk_long_*``: heads and the carries of
+  segments of 32 words, leaves of 256 slices summed from each run's head,
+  each head folding its leaves onto its tail, a fully frozen line in XLA's
+  order) against ``wl.fk_flips``, at L_tau = 40,960 and 2^20: random frozen
+  bonds (runs past 256 and 2^k slices, runs round the ring), lines with a
+  single thawed bond (one run of L_tau slices), fully frozen lines. It
+  checks the algorithm, not the kernel, and is a second copy of it that can
+  drift from the CUDA source: the kernel runs only on the card, where
+  ``chip_smoke.py`` compare-longline holds it to the plain version bit for bit.
+- ``Lattice`` on the 8-ring at beta = 256 (L_tau = 5120, past the resident
+  and tiled routes) takes the kernel route, and its <E> lies within 4 standard
+  errors plus the Trotter allowance of tests/test_worldline_exact.py of dense
+  diagonalization.
+
+Tolerance: none, but for the <E> of the last test.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jnp = pytest.importorskip("jax.numpy")
+from jax.experimental.pallas import tpu as pltpu
+
+from helpers import dense_tfim_energy
+from pyisingmontecarlo_tpu.graph import grid_2d_edges
+from pyisingmontecarlo_tpu.ops import wl_ladder_pallas as wlp
+from pyisingmontecarlo_tpu_torch import Lattice
+from pyisingmontecarlo_tpu_torch import rng as trng
+from pyisingmontecarlo_tpu_torch.ops import ladder, wl
+
+torch.set_num_threads(1)
+
+
+def _edges(kind, size):
+    if kind == "ring":
+        return np.arange(size), (np.arange(size) + 1) % size
+    g = grid_2d_edges(size, size)
+    return np.array([a for (a, _), _ in g]), np.array([b for (_, b), _ in g])
+
+
+LADDER_CASES = [
+    # name, kind, size, betas, gammas, hs, L (dtau = beta / L)
+    ("ring8 L=5120", "ring", 8, [200.0, 256.0], [1.0, 1.2], [0.0, -0.1], 5120),
+    ("ring16 L=40960", "ring", 16, [1500.0, 2048.0], [1.0, 0.8], [0.1, 0.0], 40960),
+    ("torus6 +-J L=20000", "torus", 6, [800.0, 1000.0], [1.0, 1.0], [0.0, 0.2], 20000),
+]
+
+
+@pytest.mark.parametrize("case", LADDER_CASES, ids=[c[0] for c in LADDER_CASES])
+def test_ladder_reference_equals_jax_kernel(case):
+    name, kind, size, betas, gammas, hs, L = case
+    nvars = size if kind == "ring" else size * size
+    assert ladder.gate((kind, size), nvars, L, 2) is None
+    ea, eb = _edges(kind, size)
+    jv = np.random.default_rng(len(name)).choice([-1.0, 1.0], len(ea))
+    R, T = len(betas), 2
+    kd = trng.key_data_from_seeds(np.random.default_rng(L).integers(0, 2**64, R, dtype=np.uint64))
+    s0 = np.ascontiguousarray(np.broadcast_to(trng.random_states(kd, nvars)[:, :, None], (R, nvars, L)))
+    seeds = []
+    for _ in range(T):
+        kd, sub = trng.split_all(kd)
+        seeds.append(trng.seeds_from_key_data(sub))
+    seeds = np.stack(seeds)
+    jp = wlp.build_planes(kind, size, nvars, ea, eb, jv, betas, gammas, hs, L)
+    s = jnp.asarray(s0)
+    with pltpu.force_tpu_interpret_mode():
+        for t in range(T):
+            s = wlp.ladder_sweep(s, jnp.asarray(seeds[t]), jp, kind, size, nvars)
+    want = np.asarray(s)
+    planes = ladder.build_planes(kind, size, nvars, ea, eb, jv, betas, gammas, hs, L)
+    edges = tuple(torch.from_numpy(np.asarray(e, np.int32)) for e in (ea, eb))
+    got = ladder.ladder_sweeps_reference(torch.from_numpy(s0), torch.from_numpy(seeds), planes, T, edges)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != s0).mean() > 0.02, "spins barely moved"
+
+
+def _tpu_rule(kind, size, nvars, ltau):
+    """``wl_ladder_pallas.supported_ladder`` without its platform test."""
+    if ltau < 4 or ltau % 2 or nvars % 2 or (kind == "torus" and size % 2):
+        return False
+    return ltau * nvars <= wlp._MAX_POINTS
+
+
+def test_gate_equals_tpu_rule():
+    admitted = 0
+    for kind, size in (("ring", 4), ("ring", 8), ("ring", 16), ("ring", 144), ("ring", 9), ("torus", 6),
+                       ("torus", 12), ("torus", 64), ("torus", 7)):
+        nvars = size if kind == "ring" else size * size
+        edge = wlp._MAX_POINTS // nvars
+        for L in {2, 3, 4, 5, 6, 4096, 4098, 5120, edge - 2, edge - 1, edge, edge + 1, edge + 2, 2 * edge}:
+            got = ladder.gate((kind, size), nvars, L) is None
+            assert got == _tpu_rule(kind, size, nvars, L), (kind, size, L)
+            admitted += got
+    assert admitted > 20
+    assert ladder.gate(("ring", 4), 4, 250000) is None  # the 4-ring at the gate's edge
+    assert ladder.gate(("ring", 4), 4, 250002) is not None
+    assert "2^31" in ladder.gate(("ring", 4), 4, 250000, R=8590)
+
+
+# the long-line cluster phase of csrc/worldline.cuh: segments of SEG_WORDS words of 32 slices (a block),
+# leaves of LEAF slices
+LEAF, SEG_WORDS, NONE = 256, 32, 2**31 - 1
+
+
+def _tree(x):
+    """The perfect binary tree of additions over the last axis (a power of two), in f32."""
+    while x.shape[-1] > 1:
+        x = (x[..., 0::2] + x[..., 1::2]).astype(np.float32)
+    return x[..., 0]
+
+
+def _nested(vals, lengths, tail=None):
+    """TreeSum's total of each row's first ``lengths`` values: the perfect
+    trees of the binary expansion of its length, laid from its start, summed
+    right-nested (the smallest first), onto ``tail`` where it is not NaN."""
+    acc = np.zeros(len(lengths), np.float32) if tail is None else np.nan_to_num(tail).astype(np.float32)
+    first = np.ones(len(lengths), bool) if tail is None else np.isnan(tail)
+    for b in range(int(lengths.max()).bit_length() if len(lengths) else 0):
+        has = (lengths >> b) & 1 == 1
+        if has.any():
+            start = lengths[has] & ~((2 << b) - 1)
+            block = _tree(np.take_along_axis(vals[has], start[:, None] + np.arange(1 << b)[None], 1))
+            acc[has] = np.where(first[has], block, (block + acc[has]).astype(np.float32))
+            first[has] = False
+    return acc
+
+
+def _xla_order(x):
+    """xla_total: windows of 32 padded evenly at both ends, level by level, then the last 32 or fewer."""
+    while len(x) > 32:
+        m = -(-len(x) // 32)
+        pad = np.zeros(32 * m, np.float32)
+        lo = (32 * m - len(x)) // 2
+        pad[lo:lo + len(x)] = x
+        x = np.zeros(m, np.float32)
+        for j in range(32):
+            x = (x + pad[j::32]).astype(np.float32)
+    tot = np.float32(0.0)
+    for v in x:
+        tot = np.float32(tot + v)
+    return tot
+
+
+def _fk_long(active, de, log_u):
+    """``fk_long_*`` on one line, in numpy: which slices flip."""
+    L = len(active)
+    heads = ~np.roll(active.astype(bool), 1)  # after a thawed bond
+    if not heads.any():  # one cluster headed at 0 (fk_long_decide's segment 0)
+        return np.full(L, log_u[0] < -_xla_order(de))
+    S = 32 * SEG_WORDS  # slices a segment
+    nseg = -(-L // S)
+    t = np.arange(nseg * S)
+    ht = np.zeros(nseg * S, bool)
+    ht[:L] = heads
+    # fk_long_scan: each segment's first and last head; fk_long_carry: the last head before each segment
+    # and the first after it, around the ring
+    sl = np.where(ht, t, -1).reshape(nseg, S).max(1)
+    sf = np.where(ht, t, NONE).reshape(nseg, S).min(1)
+    cl = np.maximum.accumulate(np.concatenate([[-1], sl[:-1]]))
+    cl = np.where(cl >= 0, cl, sl.max())
+    cf = np.minimum.accumulate(np.concatenate([sf[1:], [NONE]])[::-1])[::-1]
+    cf = np.where(cf < NONE, cf, sf.min())
+    # FkSeg: each slice's nearest head at or before it in its segment, else the carry; the first after it
+    upto = np.maximum.accumulate(np.where(ht, t, -1).reshape(nseg, S), 1)
+    h = np.where(upto >= 0, upto, cl[:, None]).reshape(-1)[:L]
+    since = np.minimum.accumulate(np.where(ht, t, NONE).reshape(nseg, S)[:, ::-1], 1)[:, ::-1]
+    after = np.concatenate([since[:, 1:], np.full((nseg, 1), NONE)], 1)
+    e = np.where(after < NONE, after, cf[:, None]).reshape(-1)[:L]
+    t = t[:L]
+    left = (e - t - 1) % L + 1  # slices from t to its run's end
+    # fk_long_leaves: from each slice at a relative multiple of LEAF, its leaf or its run's tail
+    start = np.nonzero((t - h) % L % LEAF == 0)[0]
+    n = np.minimum(left[start], LEAF)
+    lf = np.zeros(L, np.float32)
+    for width in (32, LEAF):  # the short ones in narrow rows
+        rows = (n <= width) if width < LEAF else (n > 32)
+        if rows.any():
+            lf[start[rows]] = _nested(de[(start[rows, None] + np.arange(width)[None]) % L], n[rows])
+    # fk_long_decide: each head folds its leaves onto its tail
+    hs = np.nonzero(heads)[0]
+    q, rest = left[hs] // LEAF, left[hs] % LEAF
+    tail = np.where(rest > 0, lf[(hs + q * LEAF) % L], np.nan).astype(np.float32)
+    leaves = lf[(hs[:, None] + LEAF * np.arange(max(1, int(q.max())))[None]) % L]
+    decide = np.zeros(L, bool)
+    decide[hs] = log_u[hs] < -_nested(leaves, q, tail)
+    return decide[h]  # fk_long_flip: each slice takes its nearest head's decision
+
+
+def _lines(L, seed):
+    """``(active, de, log_u)`` of 16 lines ``[RN, L]``: random frozen bonds at
+    densities from 0.3 to 0.9999 (runs past 256 and past 2^k slices, runs
+    round the ring), fully frozen lines, and lines with one thawed bond (at 0,
+    L - 2, L - 1, 1, L / 2 or 1023, the end of a segment)."""
+    rng = np.random.default_rng(seed)
+    active = np.concatenate([rng.random((1, L)) < p for p in (0.3, 0.9, 0.99, 0.995, 0.999, 0.9999, 0.99995)])
+    frozen = np.ones((3, L), bool)
+    single = np.ones((6, L), bool)
+    for r, t in enumerate((0, L - 2, L - 1, 1, L // 2, 1023)):
+        single[r, t] = False
+    active = np.concatenate([active, frozen, single]).astype(np.int32)
+    RN = active.shape[0]
+    table = np.float32([-0.4, -0.2, -0.0, 0.0, 0.2, 0.4, 0.1, -0.1, 0.3, -0.3])
+    de = np.where(rng.random((RN, L)) < 0.5, rng.choice(table, (RN, L)),
+                  0.05 * rng.standard_normal((RN, L))).astype(np.float32)
+    u = (rng.integers(0, 2**31, (RN, L)).astype(np.float32) + np.float32(0.5)) * np.float32(2.0**-31)
+    return active, de, np.log(u).astype(np.float32)
+
+
+@pytest.mark.parametrize("L", (40960, 1 << 20))
+def test_long_line_model_equals_fk_flips(L):
+    active, de, log_u = _lines(L, L)
+    if L > 40960:  # fk_flips' 20 rounds dominate: half the lines, every kind among them
+        keep = [0, 4, 6, 7, 10, 11, 12, 15]
+        active, de, log_u = active[keep], de[keep], log_u[keep]
+    want = wl.fk_flips(torch.from_numpy(active)[None], torch.from_numpy(de)[None],
+                       torch.from_numpy(log_u)[None])[0].numpy()
+    for r in range(active.shape[0]):
+        np.testing.assert_array_equal(_fk_long(active[r], de[r], log_u[r]), want[r], err_msg=f"line {r}")
+    runs = [np.diff(np.nonzero(~np.roll(a.astype(bool), 1))[0]) for a in active if not a.all()]
+    assert max(int(x.max()) for x in runs if len(x)) > 4 * LEAF  # heads fold several leaves
+    assert want.any() and not want.all()
+
+
+def test_lattice_long_ltau_takes_kernel_route_and_matches_dense():
+    """The 8-ring at beta = 256 (J = -1, Gamma = 1): L_tau = 5120, which the
+    gate admits and no resident or tiled plan takes, so the card would run the
+    multi-launch kernels; here the plain version runs. <E> within 4 standard
+    errors plus the Trotter allowance of tests/test_worldline_exact.py."""
+    n, beta, R = 8, 256.0, 16
+    edges = [((i, (i + 1) % n), -1.0) for i in range(n)]
+    lat = Lattice(edges, seed_gen=1, device="cpu")
+    lat.set_transverse_field(1.0)
+    w = lat._worldline(R, beta)
+    assert w.L == 5120 and w.on_kernel()
+    es, _ = lat.run_quantum_monte_carlo_sampling(beta, 12, R, sampling_wait_buffer=8)
+    exact = dense_tfim_energy(edges, 0.0, 1.0, beta, n)
+    m, se = es.mean(), es.std(ddof=1) / np.sqrt(R)
+    assert abs(m - exact) < 4 * se + 0.03, (m, se, exact)

@@ -204,7 +204,7 @@ def test_wrapper_checks():
             wl.wl_sweeps(*args[:4], **args[4])
     assert wl.gate(("ring", 8, -1.0), 8, 8) is None
     for dense, nvars, L in [(None, 8, 8), (("ring", 8, -1.0), 8, 6 + 1), (("ring", 8, -1.0), 8, 2),
-                            (("ring", 8, -1.0), 8, wl.MAX_LTAU + 2), (("torus", 5, -1.0), 25, 8)]:
+                            (("ring", 8, -1.0), 8, wl.MAX_PLANE_BYTES // 32 + 2), (("torus", 5, -1.0), 25, 8)]:
         assert wl.gate(dense, nvars, L) is not None
 
 
