@@ -131,7 +131,22 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   swap features) on the 12^2 +-J glass at 5120, the 16-ring at
                   40,960 (also frozen whole) and the 4-ring at 250,000 (the
                   gate's edge); past one block the cluster phase is fk_long_*;
-20. main-quantum-longline  ``Lattice.run_quantum_monte_carlo(512, 300, 64)`` and
+20. compare-replicas  the kernels at replica counts past one launch's limits
+                  (ops/replicas.py), each call in chunks of replicas, launch
+                  counts checked, the replicas on each side of every chunk
+                  boundary (and the first and last) bit for bit a call of
+                  them alone on the kernel and the plain version: sq2d_tiled
+                  at bench.py's 1024^2 lattice, R = 2048 (2^31 spins), and a
+                  32^2 torus at R = 65,600 (sampling, explicit randoms); the
+                  worldline multi-launch kernels on a 64^2 torus at L_tau =
+                  800, R = 656 (2.15e9 spins), the 4-ring at L_tau = 2^20, R
+                  = 512 (fk_long_*, two launches' worth) and at 4100, R =
+                  65,600 (sampling); the ladder's on the 4-ring at 4100, R =
+                  65,600 and the 12^2 +-J glass at 5120, R = 2913; then
+                  LatticeTempering on that glass ladder (2 sweeps with swaps)
+                  and QmcIsing on the 64^2 torus at R = 656, both on the
+                  kernels; chunks, launches and ms a sweep of each call;
+21. main-quantum-longline  ``Lattice.run_quantum_monte_carlo(512, 300, 64)`` and
                   ``run_quantum_monte_carlo_sampling(512, 300, 64, wait 300,
                   freq 10)`` on the 128-ring TFIM at its critical point
                   (L_tau = 10,240; multi-launch, the cluster phase a block of
@@ -140,18 +155,18 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   operations and the idle share of a profiled 20-sweep call;
                   both entry points on the 16-ring at beta = 2048 (L_tau =
                   40,960: 3 wl launches and 10 fk_long_* launches a sweep);
-21. main-tempering-longline  ``LatticeTempering.qmc_timesteps_sample(200)`` on
+22. main-tempering-longline  ``LatticeTempering.qmc_timesteps_sample(200)`` on
                   the tempering bench's 12^2 +-J glass with 64 rungs at
                   geomspace(0.2, 256) (L_tau = 5120; multi-launch), swaps
                   accepted and <E> falling with beta, a profiled 10-sweep
                   call; a 4-ring ladder at beta up to 12,500 (L_tau = 250,000:
                   2 ladder_site and 10 fk_long_* launches a sweep);
-22. timing-longline   those shapes' kernels against the plain version (CUDA
+23. timing-longline   those shapes' kernels against the plain version (CUDA
                   events, in turns), their bounds and each kernel's us a sweep
                   (torch.profiler), and the cluster phase's group of 256 and
                   1024 threads (FK_GROUP_VARIANTS) against 512 at L_tau =
                   10,240;
-23. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
+24. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100), a plan with worm and cluster
                   slots at R = 1 over 2^16 chained splits and a plan of every
@@ -162,13 +177,13 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   the step that threefry_spine_probe measures); and the
                   numpy chain's time (the build phase counts a threefry
                   block's SASS instructions);
-24. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
+25. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
                   every family (spin on the dense int, dense hi+lo and ELL
                   paths, edge with and without importance weights, worms, SW
                   with a field, annealing energies) at small shapes; then one
                   default step of the main path at full width, move by move,
                   where every differing spin must be an f32 tie;
-25. main-classical    ``Lattice.run_monte_carlo_annealing_and_get_energies`` of
+26. main-classical    ``Lattice.run_monte_carlo_annealing_and_get_energies`` of
                   BASELINE.json config 2 (benches/bench_configs.py: the 48^2
                   triangular AFM, 100 experiments, beta 0.1 -> 3.0), depth
                   cut from 4000 steps to 200: one threefry_chain launch, steps/s
@@ -176,13 +191,13 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   operations a step and the idle share (torch.profiler over a
                   20-step call); the last energy column against ``energy`` of
                   the states, <E> falling along the schedule;
-26. main-classicising ``ClassicIsing`` on benches/bench_classical_graph.py's 4-regular
+27. main-classicising ``ClassicIsing`` on benches/bench_classical_graph.py's 4-regular
                   +-J glass (R = 64, beta = 1.5): ms a step of each move family
                   at n = 4096 (dense) and of the spin family at n = 16384
                   (ELL); ``get_energies`` against the run's energies;
-27. physics-classical <E> of a frustrated 10-site graph with a field against exact
+28. physics-classical <E> of a frustrated 10-site graph with a field against exact
                   enumeration (Lattice with and without clusters, ClassicIsing);
-28. compare-qmc-generic the generic worldline engine on the card vs on the CPU,
+29. compare-qmc-generic the generic worldline engine on the card vs on the CPU,
                   bit for bit in states, keys, samples, cluster sizes and RVB
                   ratios (run_sweeps, run_sweeps_sample, run_diagonal_sweeps,
                   run_single_cluster, run_rvb_sweeps; a 64-site glass and a
@@ -192,23 +207,23 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   tie; threefry_chain with the main path's all-plain plan vs
                   its numpy version, bit for bit, its time, roofline and
                   spine floor;
-29. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
+30. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
                   benches/bench_classical_graph.py (n = 4096, R = 64, Gamma = 1,
                   beta = 2, L_tau = 40): run_qmc(2.0, 100), then
                   run_sampling(2.0, 200, sampling_freq=10) (generic route, one
                   threefry_chain launch a call): sweeps/s, spin updates/ns,
                   torch and device operations a sweep and the idle share
                   (torch.profiler over a 20-sweep call);
-30. main-qmcising-lattice ``QmcIsing`` on the 256^2 torus (R = 8, 200 sweeps;
+31. main-qmcising-lattice ``QmcIsing`` on the 256^2 torus (R = 8, 200 sweeps;
                   wl_tiled) and run_sampling on the 256-chain (R = 64;
                   wl_resident), against the exact free-fermion energy;
-31. physics-qmcising <E> against dense diagonalization: QmcIsing on an 8-site
+32. physics-qmcising <E> against dense diagonalization: QmcIsing on an 8-site
                   +-J graph with a field and RVB, Lattice on a 3 x 3 triangular
                   patch with RVB, each rung of a LatticeTempering glass ladder
                   off the ladder kernel's gate; cluster sizes and RVB ratios in
                   range.
 
-32. compare-qmcrunner the generic k-local engine on the card vs on the CPU:
+33. compare-qmcrunner the generic k-local engine on the card vs on the CPU:
                   QmcRunner on a 5-ring with ZZ, X, XX and ZZZ terms and a free
                   variable, both routes forced, with and without do_loop, bit
                   for bit (states, samples, bond counts, keys); one gm sweep of
@@ -218,7 +233,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   version bit for bit (a plan of every kind, the do_loop plan,
                   the hard plan at 100 sweeps x R = 64, timed with its
                   roofline and spine floor);
-33. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
+34. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
                   and bench_qmcrunner.py time it, depth cut to a quarter: the
                   hard n = 32 system (ZZ, X, XX, ZZZ on a ring; R = 64, beta 1;
                   slope between 50 and 200 sweeps) and the 64-site TFIM chain
@@ -227,20 +242,20 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   sweep and the idle share (torch.profiler over 20 sweeps), one
                   threefry_chain launch a call; the chain against the exact
                   free-fermion energy;
-34. crossover-qmcrunner the hard family at n = 128, R = 64 on both routes
+35. crossover-qmcrunner the hard family at n = 128, R = 64 on both routes
                   forced: sweeps/s and set-up (the gate's price at one size);
-35. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
+36. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
                   and an 8-ring with ZZZ triples, 256 replicas.
-36. compare-threefry-bits the threefry bits kernel (``threefry_bits``,
+37. compare-threefry-bits the threefry bits kernel (``threefry_bits``,
                   csrc/keychain.cu) vs rng.random_bits / uniform_f32 (numpy), bit
                   for bit in both modes: one key over 1 M and 8 M counters, 64
                   keys, an odd size; its time at 8 M beside its bound and numpy's;
-37. compare-parallel the multi-device paths on a one-rank NCCL group on the card:
+38. compare-parallel the multi-device paths on a one-rank NCCL group on the card:
                   QmcRunner (both routes), QmcIsing and the tempering ladder,
                   replica-sharded, each bit for bit its unsharded run on the card,
                   with both host walls; the spatial and tau-sharded sweeps bit for
                   bit the same sweeps on the CPU;
-38. main-parallel the sharded ladder at benches/bench_tempering.py's shape
+39. main-parallel the sharded ladder at benches/bench_tempering.py's shape
                   (qmc_timesteps_sample(500, replica_swap_freq=1): 500
                   ladder_resident launches), the spatial sweep at bench.py's
                   1024^2 x 8 (20 sweeps) and the tau sweep at
@@ -248,15 +263,15 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   replicas, 100 sweeps against the exact free-fermion energy),
                   each one threefry_bits launch a phase; sweeps/s beside the
                   unsharded route's.
-39. graph-native  the native graph library (``_native_graph``, g++ at first use)
+40. graph-native  the native graph library (``_native_graph``, g++ at first use)
                   built on this host from the checkout, each of its four passes
                   array for array the python pass's on benches/bench_classical_graph.py's
                   4-regular +-J glass at n = 4096 and 16384 and on BASELINE.json
                   config 2's 48^2 triangular lattice, the set-up ms both ways;
                   ClassicIsing on the n = 16384 glass takes the native build;
-40. shim          the reference README's first example, verbatim, through
+41. shim          the reference README's first example, verbatim, through
                   ``py_monte_carlo_torch`` on the default device (the card);
-41. examples      each twin of examples/ (pyisingmontecarlo_tpu_torch/examples/)
+42. examples      each twin of examples/ (pyisingmontecarlo_tpu_torch/examples/)
                   through its ``main([])`` on the card, the ferromagnet also at
                   L = 256: its wall, its launches (each twin must launch its
                   path's kernel) and its physics (Onsager, the free-fermion
@@ -1797,6 +1812,172 @@ def phase_compare_longline(dev):
               f"features); launches {counts['ladder']} + {counts['ladder_long']} fk_long; {moved:.3f} of spins moved, "
               f"{frozen:.3f} of lines constant in tau", flush=True)
     return worst
+
+
+def _pick(chunks, R):
+    """The replicas that compare-replicas holds: the first and the last, and
+    those on each side of every chunk boundary."""
+    return sorted({0, R - 1} | {x for a, _ in chunks[1:] for x in (a - 1, a)})
+
+
+def _rows_of(planes, it):
+    """Replicas ``it`` of a ladder's parameter planes."""
+    return planes._replace(**{k: getattr(planes, k)[it].contiguous() for k in ("j", "dt", "kt", "h", "pb")})
+
+
+def phase_compare_replicas(dev, smi):
+    """The kernels at replica counts past one launch's limits
+    (``ops/replicas.py``: 65,535 replicas on a grid's y or z axis, fewer than
+    2^31 spins a launch of fk_long_*): each case's call through the wrapper
+    runs in chunks of replicas (launch counts checked), and the replicas of
+    ``_pick`` (each side of every chunk boundary, the first and the last) are
+    held bit for bit against a call of those replicas alone on the kernel and
+    against the plain version for them. The square torus (1024^2 at R = 2048,
+    bench.py's lattice at 2^31 spins, and 32^2 at R = 65,600 in sampling and
+    explicit-randoms mode), the worldline (64^2 at L_tau = 800, R = 656, 2.15e9
+    spins; the 4-ring at L_tau = 2^20, R = 512, on fk_long_*; the 4-ring at
+    L_tau = 4100, R = 65,600, sampling), the ladder (the 4-ring at 4100, R =
+    65,600; the 12^2 +-J glass at 5120, R = 2913), then through the entry
+    points: LatticeTempering on that glass ladder, 2 sweeps with swaps, and
+    QmcIsing on the 64^2 torus at R = 656, both on the kernels. Prints chunks,
+    launches and ms a sweep of each call."""
+    from pyisingmontecarlo_tpu_torch import LatticeTempering, QmcIsing
+    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
+    from pyisingmontecarlo_tpu_torch.ops import ladder, replicas, sq2d, wl
+    from pyisingmontecarlo_tpu_torch.ops.lattice2d import random_states_2d
+    from pyisingmontecarlo_tpu_torch.rng import replica_seeds_i32
+
+    lim = wl.device_limits(dev)
+
+    def call(fn, T):
+        out = []
+        ms = event_ms(lambda: out.append(fn()), T)
+        return out[0], ms, read_counts()
+
+    def hold(name, big, alone, plain, chunks, counts, want, ms, idx, moved):
+        check(counts == want, f"{name}: launch counts {counts}, want {want}")
+        same, err = _equal_all(big, alone)
+        check(same, f"{name}: replicas {idx} of the whole call != a call of them alone (max |diff| {err})")
+        same, err = _equal_all(alone, plain)
+        check(same, f"{name}: the kernel != plain for replicas {idx} (max |diff| {err})")
+        check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
+        print(f"compare-replicas: {name}: {len(chunks)} chunk(s) of {sorted({b - a for a, b in chunks})} replicas; "
+              f"launches {({k: v for k, v in counts.items() if v})}; {ms:.3f} ms a sweep on {smi}; replicas {idx} "
+              f"== alone on the kernel == plain, bit-identical; {moved:.3f} of spins moved", flush=True)
+
+    for k, (name, L, R, T, mode) in enumerate((
+            ("torus 1024^2 R=2048 T=4 (bench.py's lattice, 2^31 spins)", BENCH_L, 2048, 4, "hash"),
+            ("torus 32^2 R=65600 T=4 sampling every 2", 32, 65600, 4, "sampling"),
+            ("torus 32^2 R=65600 T=4 explicit randoms", 32, 65600, 4, "explicit randoms"))):
+        rng = np.random.default_rng(700 + k)
+        seeds = torch.from_numpy(replica_seeds_i32(rng.integers(0, 2**64, R, dtype=np.uint64))).to(dev)
+        s = random_states_2d(seeds, L)
+        thr = sq2d.thresholds(np.full(T, 0.44, np.float32), -1.0, 0.0).to(dev)
+        rb = (torch.from_numpy(rng.integers(-(2**31), 2**31, (2 * T, L, L // 2)).astype(np.int32)).to(dev)
+              if mode == "explicit randoms" else None)
+        freq = 2 if mode == "sampling" else None
+        chunks = replicas.replica_chunks(R, L * L, "sq2d")
+        plan = sq2d.sq2d_plan(L, R, *lim, rb is not None)
+        reset_counts()
+        big, ms, counts = call(lambda: sq2d.sweeps_2d(s, seeds, thr, 3, rb, freq), T)
+        idx = _pick(chunks, R)
+        it = torch.tensor(idx, device=dev)
+        sub = (s[it].contiguous(), seeds[it].contiguous(), thr, 3, rb, freq)
+        alone, plain = sq2d.sweeps_2d(*sub), sq2d.sweeps_2d_reference(*sub)
+        big, alone, plain = ((x if freq else (x,)) for x in (big, alone, plain))
+        moved = float((big[0] != s).float().mean())
+        hold(name, [x[it] for x in big], alone, plain, chunks, counts,
+             counts_only(sq2d=len(chunks) * -(-T // plan[1])), ms, idx, moved)
+        del s, seeds, big
+        torch.cuda.empty_cache()
+
+    for k, (name, dense, nvars, R, L, T, freq, ns) in enumerate((
+            ("torus 64^2 R=656 L=800 T=2 (2.15e9 spins)", LONG[0], LONG[1], 656, LONG_LTAU, 2, 0, 0),
+            ("ring 4 R=512 L=2^20 T=2 (2^31 spins, fk_long_*)", ("ring", 4, -1.0), 4, 512, 1 << 20, 2, 0, 0),
+            ("ring 4 R=65600 L=4100 sampling freq=1 nsamples=2 T=2", ("ring", 4, -1.0), 4, 65600, 4100, 2, 1, 2))):
+        check(wl.gate(dense, nvars, L, R) is None, f"{name}: the gate refuses it")
+        check(wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)[0] == "multi", f"{name}: not multi-launch")
+        long = wl.cluster_long(L, lim[0])
+        chunks = replicas.replica_chunks(R, nvars * L, "long" if long else "multi")
+        s, seeds = _wl_inputs(dense, nvars, R, 720 + k, dev, L)
+        tables = wl.make_tables(dense, nvars, L / 20.0, 1.0, 0.1, L, dev)  # dtau = 0.05, Gamma = 1
+        reset_counts()
+        big, ms, counts = call(lambda: wl.wl_sweeps(s, seeds, tables, T, freq, ns), T)
+        n = len(chunks)
+        want = (counts_only(wl=3 * T * n, wl_long=wl.LONG_LAUNCHES_PER_SWEEP * T * n) if long
+                else counts_only(wl=wl.LAUNCHES_PER_SWEEP * T * n))
+        idx = _pick(chunks, R)
+        it = torch.tensor(idx, device=dev)
+        sub = (s[it].contiguous(), seeds[it].contiguous(), tables, T, freq, ns)
+        alone, plain = wl.wl_sweeps(*sub), wl.wl_sweeps_reference(*sub)
+        moved = float((big[0] != s).float().mean())
+        hold(f"wl {name}", [x[it] for x in big], alone, plain, chunks, counts, want, ms, idx, moved)
+        del s, seeds, big
+        torch.cuda.empty_cache()
+
+    glass = np.array([j for _, j in pt_edges(PT_SIDE)])
+    for k, (name, kind, size, jv, R, L, betas) in enumerate((
+            ("ring 4 R=65600 L=4100 T=2", "ring", 4, np.full(4, -1.0), 65600, 4100, np.geomspace(20.0, 205.0, 65600)),
+            ("torus 12^2 +-J R=2913 L=5120 T=2 (2.15e9 spins)", "torus", PT_SIDE, glass, 2913, LLPT_LTAU,
+             np.geomspace(0.2, LLPT_BETA, 2913)))):
+        T = 2
+        s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, [1.0] * R, [0.0] * R, L, T, 740 + k, dev)
+        nvars = s.shape[1]
+        check(ladder.gate((kind, size), nvars, L, R) is None, f"{name}: the gate refuses it")
+        check(not wl.resident_plan(nvars, L, R, ladder.param_bytes(kind, nvars), *lim), f"{name}: resident")
+        long = wl.cluster_long(L, lim[0])
+        chunks = replicas.replica_chunks(R, nvars * L, "long" if long else "multi")
+        reset_counts()
+        (y, feats), ms, counts = call(lambda: ladder.ladder_sweeps(s, seeds, planes, T, edges), T)
+        n = len(chunks)
+        want = (counts_only(ladder=2 * T * n, ladder_long=wl.LONG_LAUNCHES_PER_SWEEP * T * n) if long
+                else counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T * n))
+        idx = _pick(chunks, R)
+        it = torch.tensor(idx, device=dev)
+        sub = (s[it].contiguous(), seeds[:, it].contiguous(), _rows_of(planes, it), T, edges)
+        (ya, fa), (yp, fp) = ladder.ladder_sweeps(*sub), ladder.ladder_sweeps_reference(*sub)
+        moved = float((y != s).float().mean())
+        hold(f"ladder {name}", [y[it], *(f[it] for f in feats)], [ya, *fa], [yp, *fp], chunks, counts, want, ms,
+             idx, moved)
+        del s, seeds, planes, y, feats
+        torch.cuda.empty_cache()
+
+    R, T = 2913, 2
+    lt = LatticeTempering(pt_edges(PT_SIDE), seed=0, device=dev)
+    for b in np.geomspace(0.2, LLPT_BETA, R):
+        lt.add_graph(1.0, 0.0, float(b))
+    check(lt._on_kernel() and lt._ltau() == LLPT_LTAU, "LatticeTempering: not the kernel route at L_tau 5120")
+    reset_counts()
+    t0 = time.perf_counter()
+    states, es = lt.qmc_timesteps_sample(T, replica_swap_freq=1)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["ladder"] > 0 and counts == counts_only(ladder=T * ladder.LAUNCHES_PER_SWEEP),
+          f"LatticeTempering: launch counts {counts}")
+    check(states.shape == (R, T, PT_SIDE**2) and np.isfinite(es).all(), f"LatticeTempering: {states.shape}")
+    print(f"compare-replicas: LatticeTempering on the {PT_SIDE}^2 +-J glass, {R} rungs at geomspace(0.2, "
+          f"{LLPT_BETA}), L_tau={LLPT_LTAU} (2.15e9 spins), qmc_timesteps_sample({T}, replica_swap_freq=1): "
+          f"{counts['ladder']} ladder launches, 0 others; {lt.get_total_swaps()} swaps accepted; {dt:.3f} s host "
+          f"wall", flush=True)
+    del lt, states
+    torch.cuda.empty_cache()
+
+    (_, nvars, _), side, R, T = LONG, LONG[0][1], 656, 2
+    q = QmcIsing(grid_2d_edges(side, side, -1.0), WL_GAMMA, 0.0, num_experiments=R, seed=6, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    q.run_qmc(LONG_BETA, T)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check(q._w.L == LONG_LTAU and q._w.on_kernel(), f"QmcIsing: L_tau {q._w.L}, on the kernel {q._w.on_kernel()}")
+    check(counts["wl"] > 0 and counts == counts_only(wl=T * wl.LAUNCHES_PER_SWEEP), f"QmcIsing: counts {counts}")
+    check(bool((q._w.s.abs() == 1).all()), "QmcIsing: spins not +-1")
+    print(f"compare-replicas: QmcIsing on the {side}^2 torus, R={R}, run_qmc({LONG_BETA}, {T}) (L_tau="
+          f"{LONG_LTAU}, {R * nvars * LONG_LTAU} spins): on the kernel, {counts['wl']} wl launches, 0 others; "
+          f"{dt:.3f} s host wall", flush=True)
+    del q
+    torch.cuda.empty_cache()
 
 
 def _path_profile(fn, names, want):
@@ -4410,6 +4591,7 @@ def main():
     timed_phase(phase_physics_tempering, dev)
     ladder_t = timed_phase(phase_timing_ladder, dev, smi, sass)
     long_errs = timed_phase(phase_compare_longline, dev)
+    timed_phase(phase_compare_replicas, dev, smi)
     ll_launches = timed_phase(phase_main_quantum_longline, dev, smi)
     llpt_launches = timed_phase(phase_main_tempering_longline, dev, smi)
     long_t = timed_phase(phase_timing_longline, dev, smi)

@@ -631,8 +631,7 @@ class WorldlineEnsemble:
 
     def on_kernel(self) -> bool:
         """Whether the sweeps take the kernel route."""
-        return (self.dense is not None and not self.enable_rvb
-                and wl.gate(self.dense, self.cg.nvars, self.L, self.R) is None)
+        return self.dense is not None and not self.enable_rvb and wl.gate(self.dense, self.cg.nvars, self.L) is None
 
     def append(self, states: torch.Tensor, key_data: np.ndarray) -> None:
         """Append replicas: ``states [k, nvars, L]`` and their key data

@@ -28,7 +28,9 @@ by the kernel) where ``wl.resident_plan`` admits the shape (lines up to
 sweep, the features then from ``swap_features``; a line too long for one
 block's shared memory, ``wl.cluster_long``, takes the five ``fk_long_*``
 launches a color in place of its cluster launch). Both equal the plain
-version bit for bit.
+version bit for bit. Each takes any replica count: the route and its plan
+are chosen from the whole shape, and its launches run on chunks of replicas
+below the route's limits (``replicas.replica_chunks``).
 
 Randomness: the draw ``d`` of a sweep at (tau, i) is
 ``lane_draw31(seed, pos = tau*nvars + i, ctr = d)``; every sweep has fresh
@@ -52,8 +54,9 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
-from .wl import (LONG_LAUNCHES_PER_SWEEP, _kernel_call, _stream, device_limits, fk_flips, lattice_fns, long_scratch,
-                 resident_plan)
+from .replicas import gather_chunks, replica_chunks, rows
+from .wl import (LONG_LAUNCHES_PER_SWEEP, _kernel_call, _stream, cluster_long, device_limits, fk_flips, lattice_fns,
+                 long_scratch, resident_plan)
 
 __all__ = ["LadderPlanes", "build_planes", "gate", "param_bytes", "swap_features", "ladder_sweeps",
            "ladder_sweeps_reference"]
@@ -62,7 +65,6 @@ LAUNCHES_PER_SWEEP = 4  # multi-launch route: 2 site phases (both parities of a 
 # (where the line takes fk_long_*, wl.cluster_long: 2 of those a sweep and
 # wl.LONG_LAUNCHES_PER_SWEEP fk_long_* launches, in ladder_sweeps.long_launches)
 MAX_POINTS = 1_000_000  # the JAX kernel's gate (wl_ladder_pallas._MAX_POINTS): nvars * L_tau of a replica
-_INT_LIMIT = 2**31
 _SCALE = 1.0 / 2147483648.0  # 2^-31
 _HALF_STEP = 0.5 / 2147483648.0  # 2^-32
 _U_MAX = float(np.float32(1.0 - 1.2e-7))  # 1 - 2^-23
@@ -124,9 +126,11 @@ def build_planes(kind: str, size: int, nvars: int, edge_a, edge_b, edge_j, betas
 def gate(kind_size, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
     """None when the kernel takes this ladder, else the reason it does not: a
     ring or torus (``kind_size`` from ``graph.detect_topology``), L_tau even
-    and at least 4, an even number of sites (an even torus side), at most
-    ``MAX_POINTS`` spins a replica (the JAX kernel's gate), and fewer than
-    2^31 spins."""
+    and at least 4, an even number of sites (an even torus side), and at most
+    ``MAX_POINTS`` spins a replica: the JAX kernel's gate
+    (``supported_ladder``), which takes ``R`` and does not read it, nor does
+    this one: the wrapper splits any R into launches
+    (``replicas.replica_chunks``)."""
     if kind_size is None:
         return "the union graph is not a periodic ring or square torus"
     if ltau < 4 or ltau % 2:
@@ -135,8 +139,6 @@ def gate(kind_size, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
         return f"{nvars} sites (a {kind_size[0]} of side {kind_size[1]}) is not even"
     if nvars * ltau > MAX_POINTS:
         return f"nvars * L_tau = {nvars * ltau} spins a replica exceed {MAX_POINTS}"
-    if R * nvars * ltau >= _INT_LIMIT:
-        return f"R * nvars * L_tau = {R * nvars * ltau} spins reach 2^31"
     return None
 
 
@@ -250,38 +252,61 @@ def ladder_sweeps_reference(s, seeds, planes: LadderPlanes, T: int, edges):
     return x, swap_features(x, *edges)
 
 
-def _planes_args(planes: LadderPlanes):
-    return [planes.j.data_ptr(), planes.dt.data_ptr(), planes.kt.data_ptr(), planes.h.data_ptr(),
-            planes.pb.data_ptr()]
+def _planes_rows(planes: LadderPlanes, a: int, b: int) -> LadderPlanes:
+    """Replicas ``[a, b)`` of ``planes`` (views)."""
+    return planes._replace(**{k: getattr(planes, k)[a:b] for k in ("j", "dt", "kt", "h", "pb")})
+
+
+def _features(x, edges):
+    """``swap_features`` of ``x``, in chunks of fewer than 2^31 spins (those
+    of the strictest route, ``"long"``, which bound the temporaries), into
+    one ``[R, E]`` and two ``[R]`` tensors."""
+    R, nvars, L = x.shape
+    return gather_chunks(R, replica_chunks(R, nvars * L, "long"), lambda a, b: swap_features(x[a:b], *edges))
+
+
+def _planes_args(planes: LadderPlanes, a: int, b: int):
+    """The addresses of replicas ``[a, b)`` of the parameter planes."""
+    return [rows(getattr(planes, k), a, b) for k in ("j", "dt", "kt", "h", "pb")]
+
+
+def _chunk_seeds(seeds, a: int, b: int, R: int):
+    """Columns ``[a, b)`` of ``seeds[T, R]``, contiguous (the tensor itself for all of them)."""
+    return seeds if (a, b) == (0, R) else seeds[:, a:b].contiguous()
 
 
 def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = ()):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP``
-    launches a sweep, counted in ``ladder_sweeps.launches``; where
-    ``wl.cluster_long``, 2 of them and ``wl.LONG_LAUNCHES_PER_SWEEP`` in
-    ``ladder_sweeps.long_launches``); the new state, without features.
-    ``defines`` launch a variant built for measurement (``_kernels.build``)."""
+    launches a sweep and chunk of replicas, counted in
+    ``ladder_sweeps.launches``; where ``wl.cluster_long``, 2 of them and
+    ``wl.LONG_LAUNCHES_PER_SWEEP`` in ``ladder_sweeps.long_launches``); the
+    new state, without features. ``defines`` launch a variant built for
+    measurement (``_kernels.build``)."""
     R, nvars, L = s.shape
     x = s.clone()
     if R and T:
         with torch.cuda.device(x.device):
-            scratch = long_scratch(x, defines)
-            _kernel_call("ladder kernel", lambda lib: lib.ladder_sweeps(
-                x.data_ptr(), seeds.data_ptr(), *_planes_args(planes), None if scratch is None else scratch.data_ptr(),
-                R, nvars, L, int(planes.kind == "torus"), planes.size, T, _stream(x)), defines)
-        if scratch is not None:  # the library's route: fk_long_*
-            ladder_sweeps.launches += 2 * T
-            ladder_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
-        else:
-            ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
+            chunks = replica_chunks(R, nvars * L, "long" if cluster_long(L, device_limits(x.device)[0]) else "multi")
+            scratch = long_scratch(x[:chunks[0][1]], defines)
+            for a, b in chunks:
+                sd = _chunk_seeds(seeds, a, b, R)
+                _kernel_call("ladder kernel", lambda lib: lib.ladder_sweeps(
+                    rows(x, a, b), sd.data_ptr(), *_planes_args(planes, a, b),
+                    None if scratch is None else scratch.data_ptr(), b - a, nvars, L, int(planes.kind == "torus"),
+                    planes.size, T, _stream(x)), defines)
+                if scratch is not None:  # the library's route: fk_long_*
+                    ladder_sweeps.launches += 2 * T
+                    ladder_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
+                else:
+                    ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
     return x
 
 
 def _run_resident(s, seeds, planes: LadderPlanes, T: int, edges, plan):
-    """The resident route on a CUDA tensor (one launch, counted in
-    ``ladder_sweeps.resident_launches``), with ``plan = (tile, bytes)`` from
-    ``wl.resident_plan``; the features are the kernel's (int32 views of one
-    ``[R, E + 2]`` tensor). ``ladder_sweeps``' result."""
+    """The resident route on a CUDA tensor (one launch a chunk of replicas,
+    counted in ``ladder_sweeps.resident_launches``), with ``plan = (tile,
+    bytes)`` from ``wl.resident_plan``; the features are the kernel's (int32
+    views of one ``[R, E + 2]`` tensor). ``ladder_sweeps``' result."""
     R, nvars, L = s.shape
     x = s.clone()
     if not (R and T):
@@ -291,10 +316,13 @@ def _run_resident(s, seeds, planes: LadderPlanes, T: int, edges, plan):
     feat = torch.empty((R, E + 2), dtype=torch.int32, device=s.device)
     tile, nbytes = plan
     with torch.cuda.device(x.device):
-        _kernel_call("ladder resident kernel", lambda lib: lib.ladder_resident_sweeps(
-            x.data_ptr(), seeds.data_ptr(), *_planes_args(planes), ea.data_ptr(), eb.data_ptr(), feat.data_ptr(),
-            R, nvars, L, int(planes.kind == "torus"), planes.size, T, E, tile, nbytes, _stream(x)))
-    ladder_sweeps.resident_launches += 1
+        for a, b in replica_chunks(R, nvars * L, "ladder_resident"):
+            sd = _chunk_seeds(seeds, a, b, R)
+            _kernel_call("ladder resident kernel", lambda lib: lib.ladder_resident_sweeps(
+                rows(x, a, b), sd.data_ptr(), *_planes_args(planes, a, b), ea.data_ptr(), eb.data_ptr(),
+                rows(feat, a, b), b - a, nvars, L, int(planes.kind == "torus"), planes.size, T, E, tile, nbytes,
+                _stream(x)))
+            ladder_sweeps.resident_launches += 1
     return x, (feat[:, :E], feat[:, E], feat[:, E + 1])
 
 
@@ -311,20 +339,28 @@ def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T:
     ``wl.resident_plan`` admits the shape, else the multi-launch kernels
     (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``ladder_sweeps.launches``;
     for a line past one block, ``wl.cluster_long``, 2 there and
-    ``wl.LONG_LAUNCHES_PER_SWEEP`` in ``ladder_sweeps.long_launches``). A CPU
-    tensor runs the plain version."""
+    ``wl.LONG_LAUNCHES_PER_SWEEP`` in ``ladder_sweeps.long_launches``; the
+    features then by chunk), each on chunks of replicas below its limits
+    (``replicas.replica_chunks``). A CPU tensor runs the plain version, in the
+    chunks of the strictest route, ``"long"``."""
     T = int(T)
     _check(s, seeds, planes, T, edges)
+    R, nvars, L = s.shape
     if s.device.type == "cpu":
-        return ladder_sweeps_reference(s, seeds, planes, T, edges)
+        def run(a, b):
+            x, feats = ladder_sweeps_reference(s[a:b], _chunk_seeds(seeds, a, b, R), _planes_rows(planes, a, b), T,
+                                               edges)
+            return (x, *feats)
+
+        x, *feats = gather_chunks(R, replica_chunks(R, nvars * L, "long"), run)
+        return x, tuple(feats)
     if s.device.type != "cuda":
         raise ValueError(f"ladder_sweeps runs on cuda or cpu tensors, got {s.device}")
-    R, nvars, L = s.shape
     plan = resident_plan(nvars, L, R, param_bytes(planes.kind, nvars), *device_limits(s.device))
     if plan:
         return _run_resident(s, seeds, planes, T, edges, plan)
     x = _run_multi(s, seeds, planes, T)
-    return x, swap_features(x, *edges)
+    return x, _features(x, edges)
 
 
 ladder_sweeps.launches = 0

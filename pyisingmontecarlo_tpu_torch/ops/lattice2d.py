@@ -20,6 +20,8 @@ __all__ = ["run_steps_2d", "run_sampling_2d", "energy_2d", "random_states_2d"]
 INIT_CTR = 0x7FFFFFFF
 # bound on the per-chunk sample stack when energies are collected every sweep
 _STACK_BYTES = 1 << 28
+# bound on the sites whose initial draws are made at once (their int64 words: 1 GiB each)
+_DRAW_SITES = 1 << 27
 
 
 def random_states_2d(seeds_i32: torch.Tensor, L: int) -> torch.Tensor:
@@ -28,12 +30,19 @@ def random_states_2d(seeds_i32: torch.Tensor, L: int) -> torch.Tensor:
 
     The JAX package draws these with threefry Bernoulli; the port uses the lane
     hash at a counter no sweep uses, so the states (like the sweeps) depend only
-    on each replica's own seed, but differ from the JAX package's."""
+    on each replica's own seed, but differ from the JAX package's. Drawn a
+    block of replicas at a time (``_DRAW_SITES``), which bounds the draws'
+    temporaries at any R."""
     dev = seeds_i32.device
     pos1, pos2 = make_pos_mix(torch.zeros(1, dtype=torch.int64, device=dev),
                               torch.arange(L * L, device=dev), 0)
-    u = lane_draw31(seeds_i32[:, None], pos1, pos2, INIT_CTR)
-    return torch.where(u < 2**30, 1, -1).to(torch.int8).reshape(-1, L, L)
+    R = seeds_i32.shape[0]
+    out = torch.empty((R, L, L), dtype=torch.int8, device=dev)
+    step = max(1, _DRAW_SITES // (L * L))  # replicas at a time
+    for a in range(0, R, step):
+        u = lane_draw31(seeds_i32[a:a + step, None], pos1, pos2, INIT_CTR)
+        out[a:a + step] = torch.where(u < 2**30, 1, -1).to(torch.int8).reshape(-1, L, L)
+    return out
 
 
 def energy_2d(s: torch.Tensor, j: float, h: float) -> torch.Tensor:

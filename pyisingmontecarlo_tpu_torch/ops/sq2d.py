@@ -33,6 +33,10 @@ Randomness contract (replaces the TPU hardware PRNG of the JAX kernel):
   (``lattice2d.random_states_2d``, counter ``0x7FFFFFFF``).
 - A replica's trajectory therefore depends only on its own seed, and the
   kernel and the plain version give the same trajectory at any batch size.
+
+The replicas are the kernel's grid y: a call of more than
+``replicas.GRID_MAX`` runs in chunks of replicas (``replicas.replica_chunks``),
+each on views of the same tensors, with the plan of the whole shape.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
+from .replicas import gather_chunks, replica_chunks, rows
 from .wl import _kernel_call, _stream, device_limits
 
 __all__ = [
@@ -61,7 +66,7 @@ __all__ = [
 
 _I31_MAX = 2**31 - 1
 _CTR_LIMIT = 2**30
-_GRID_MAX = 65535  # replicas are the kernel's grid y; L at most this keeps x * L/2 an int32
+_L_MAX = 65535  # L at most this keeps x * L/2 an int32
 
 # The tiled kernel's schedule and the plan's choices (csrc/sq2d.cu)
 TILED_THREADS = 256
@@ -184,8 +189,8 @@ def _check(s, seeds_i32, thr, ctr0, rb, samples):
     R, L, _ = s.shape
     if L < 4 or L % 2:
         raise ValueError(f"L must be even and >= 4, got {L}")
-    if L > _GRID_MAX or R > _GRID_MAX:
-        raise ValueError(f"L and R must be <= {_GRID_MAX}, got L={L}, R={R}")
+    if L > _L_MAX:
+        raise ValueError(f"L must be <= {_L_MAX}, got L={L}")
     if seeds_i32.dtype != torch.int32 or tuple(seeds_i32.shape) != (R,):
         raise ValueError(f"seeds_i32 must be [{R}] int32, got {tuple(seeds_i32.shape)} {seeds_i32.dtype}")
     if thr.dtype != torch.int32 or thr.dim() != 2 or thr.shape[1] != 10:
@@ -242,11 +247,12 @@ def sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb=None, samples=None):
 
 
 def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
-    """The tiled kernel on CUDA tensors (``ceil(T / K)`` launches, counted in
-    ``sweeps_2d.launches``) with ``plan = (B, K, ...)`` from ``sq2d_plan``;
-    returns ``(state, stack or None)``. The launches alternate between two new
-    buffers, and the last writes the one returned; ``s`` is only read.
-    ``defines`` launch a build for measurement (``PMC_SQ2D_CUT``)."""
+    """The tiled kernel on CUDA tensors (``ceil(T / K)`` launches a chunk of
+    replicas, ``replica_chunks``, counted in ``sweeps_2d.launches``) with
+    ``plan = (B, K, ...)`` from ``sq2d_plan``; returns ``(state, stack or
+    None)``. The launches alternate between two new buffers, and the last
+    writes the one returned; ``s`` is only read. ``defines`` launch a build
+    for measurement (``PMC_SQ2D_CUT``)."""
     R, L, _ = s.shape
     T = thr.shape[0]
     stack = torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
@@ -257,11 +263,12 @@ def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
     out = torch.empty_like(s)
     tmp = torch.empty_like(s) if n > 1 else None
     with torch.cuda.device(s.device):
-        _kernel_call("sq2d tiled kernel", lambda lib: lib.sq2d_tiled_sweeps(
-            s.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(), seeds_i32.data_ptr(),
-            thr.data_ptr(), None if rb is None else rb.data_ptr(), None if stack is None else stack.data_ptr(),
-            R, L, T, int(ctr0), int(samples or 0), 0 if stack is None else stack.shape[1], B, K, _stream(s)), defines)
-    sweeps_2d.launches += n
+        for a, b in replica_chunks(R, L * L, "sq2d"):
+            _kernel_call("sq2d tiled kernel", lambda lib: lib.sq2d_tiled_sweeps(
+                rows(s, a, b), rows(out, a, b), rows(tmp, a, b), rows(seeds_i32, a, b), thr.data_ptr(),
+                None if rb is None else rb.data_ptr(), rows(stack, a, b), b - a, L, T, int(ctr0), int(samples or 0),
+                0 if stack is None else stack.shape[1], B, K, _stream(s)), defines)
+            sweeps_2d.launches += n
     return out, stack
 
 
@@ -286,11 +293,18 @@ def sweeps_2d(
     stack, and ``(state, stack)`` is returned.
 
     A CUDA tensor launches the tiled kernel of ``csrc/sq2d.cu`` with
-    ``sq2d_plan``'s (B, K) for the shape and mode (``ceil(T / K)`` launches, counted in
-    ``sweeps_2d.launches``) or raises; a CPU tensor runs the plain version."""
+    ``sq2d_plan``'s (B, K) for the shape and mode (``ceil(T / K)`` launches a
+    chunk of at most ``replicas.GRID_MAX`` replicas, counted in
+    ``sweeps_2d.launches``) or raises; a CPU tensor runs the plain version,
+    in the same chunks."""
     R, L, T = _check(s, seeds_i32, thr, ctr0, rb, samples)
     if s.device.type == "cpu":
-        return sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb, samples)
+        def run(a, b):
+            got = sweeps_2d_reference(s[a:b], seeds_i32[a:b], thr, ctr0, rb, samples)
+            return got if samples else (got,)
+
+        got = gather_chunks(R, replica_chunks(R, L * L, "sq2d"), run)
+        return got if samples else got[0]
     if s.device.type != "cuda":
         raise ValueError(f"sweeps_2d runs on cuda or cpu tensors, got {s.device}")
     plan = sq2d_plan(L, R, *device_limits(s.device), rb is not None)

@@ -41,7 +41,9 @@ shared memory, ``cluster_long``, takes the five ``fk_long_*`` launches a
 color in place of its cluster launch). The resident and tiled routes take
 lines up to ``MAX_LTAU`` slices, the multi-launch route every line the gate
 admits, as the JAX kernel does (up to 2^22 spins a replica). All three equal
-the plain version bit for bit.
+the plain version bit for bit. Each takes any replica count: the route and
+its plan are chosen from the whole shape, and its launches run on chunks of
+replicas below the route's limits (``replicas.replica_chunks``).
 
 Randomness: the draw ``d`` of sweep t at (tau, i) is
 ``lane_draw31(seed_r, pos = tau*nvars + i, ctr = 8*t + d)``. A run longer than
@@ -70,6 +72,7 @@ import numpy as np
 import torch
 
 from .lanerng import lane_draw31, make_pos_mix
+from .replicas import gather_chunks, replica_chunks, rows
 
 __all__ = [
     "WlTables",
@@ -216,9 +219,10 @@ def make_tables(dense, nvars: int, beta: float, gamma: float, h: float, ltau: in
 def gate(dense, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
     """None when the kernel takes this shape, else the reason it does not:
     a uniform ring or torus (``dense``), L_tau even and at least 4, an even
-    number of sites (an even torus side), a replica's int32 plane of
-    ``nvars * L_tau`` within ``MAX_PLANE_BYTES`` (the JAX kernel's gate), and
-    fewer than 2^31 spins."""
+    number of sites (an even torus side), and a replica's int32 plane of
+    ``nvars * L_tau`` within ``MAX_PLANE_BYTES``: the JAX kernel's gate,
+    which reads no replica count. ``R`` is not read either: the wrapper
+    splits any R into launches (``replicas.replica_chunks``)."""
     if dense is None:
         return "the graph is not a uniform periodic ring or square torus"
     kind, size, _ = dense
@@ -232,8 +236,6 @@ def gate(dense, nvars: int, ltau: int, R: int = 1) -> Optional[str]:
         return f"ring size {size} != nvars {nvars}"
     if nvars * ltau * 4 > MAX_PLANE_BYTES:
         return f"a replica's int32 plane of {nvars} x {ltau} exceeds {MAX_PLANE_BYTES} bytes"
-    if R * nvars * ltau >= _INT_LIMIT:
-        return f"R * nvars * L_tau = {R * nvars * ltau} spins reach 2^31"
     return None
 
 
@@ -561,8 +563,8 @@ def long_scratch(x, defines: tuple = ()):
     """The device scratch the multi-launch kernels take for the state
     ``x[R, nvars, L]`` on its CUDA device where the line is too long for one
     block (``pmc_long_scratch_bytes``, about 8.3 bytes a slice of a color's
-    lines; from torch's caching allocator), else None. Call it with that
-    device current."""
+    lines; from torch's caching allocator), else None; the chunks of a call
+    share that of the largest. Call it with that device current."""
     from .. import _kernels
 
     R, nvars, L = x.shape
@@ -573,34 +575,36 @@ def long_scratch(x, defines: tuple = ()):
 def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0,
                defines: tuple = ()):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP`` launches
-    a sweep, counted in ``wl_sweeps.launches``; where ``cluster_long``, 3 of
-    them and ``LONG_LAUNCHES_PER_SWEEP`` in ``wl_sweeps.long_launches``);
-    ``wl_sweeps``' result. ``defines`` launch a variant built for measurement
-    (``_kernels.build``)."""
+    a sweep and chunk of replicas, counted in ``wl_sweeps.launches``; where
+    ``cluster_long``, 3 of them and ``LONG_LAUNCHES_PER_SWEEP`` in
+    ``wl_sweeps.long_launches``); ``wl_sweeps``' result. ``defines`` launch a
+    variant built for measurement (``_kernels.build``)."""
     R, nvars, L = s.shape
     x = s.clone()
     acc = torch.zeros((R, 3, nvars), dtype=torch.int64, device=s.device)
     samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
     if R and T:
         with torch.cuda.device(x.device):
-            scratch = long_scratch(x, defines)
-            _kernel_call("wl kernel", lambda lib: lib.wl_sweeps(
-                x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
-                int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
-                None if scratch is None else scratch.data_ptr(), R, nvars, L, int(tables.kind == "torus"),
-                tables.size, T, freq, nsamples, _stream(x)), defines)
-        if scratch is not None:  # the library's route: fk_long_*
-            wl_sweeps.launches += 3 * T
-            wl_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
-        else:
-            wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
+            chunks = replica_chunks(R, nvars * L, "long" if cluster_long(L, device_limits(x.device)[0]) else "multi")
+            scratch = long_scratch(x[:chunks[0][1]], defines)
+            for a, b in chunks:
+                _kernel_call("wl kernel", lambda lib: lib.wl_sweeps(
+                    rows(x, a, b), rows(seeds_i32, a, b), tables.thr.data_ptr(), tables.cde.data_ptr(),
+                    int(tables.pb), rows(acc, a, b), rows(samples, a, b) if nsamples else None,
+                    None if scratch is None else scratch.data_ptr(), b - a, nvars, L, int(tables.kind == "torus"),
+                    tables.size, T, freq, nsamples, _stream(x)), defines)
+                if scratch is not None:  # the library's route: fk_long_*
+                    wl_sweeps.launches += 3 * T
+                    wl_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
+                else:
+                    wl_sweeps.launches += LAUNCHES_PER_SWEEP * T
     return x, acc.sum(2), samples
 
 
 def _run_resident(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int, plan):
-    """The resident route on a CUDA tensor (one launch, counted in
-    ``wl_sweeps.resident_launches``), with ``plan = (tile, bytes)`` from
-    ``resident_plan``; ``wl_sweeps``' result."""
+    """The resident route on a CUDA tensor (one launch a chunk of replicas,
+    counted in ``wl_sweeps.resident_launches``), with ``plan = (tile, bytes)``
+    from ``resident_plan``; ``wl_sweeps``' result."""
     R, nvars, L = s.shape
     x = s.clone()
     acc = torch.zeros((R, 3), dtype=torch.int64, device=s.device)
@@ -608,38 +612,41 @@ def _run_resident(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: i
     if R and T:
         tile, nbytes = plan
         with torch.cuda.device(x.device):
-            _kernel_call("wl resident kernel", lambda lib: lib.wl_resident_sweeps(
-                x.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(), tables.cde.data_ptr(),
-                int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
-                R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, tile, nbytes, _stream(x)))
-        wl_sweeps.resident_launches += 1
+            for a, b in replica_chunks(R, nvars * L, "wl_resident"):
+                _kernel_call("wl resident kernel", lambda lib: lib.wl_resident_sweeps(
+                    rows(x, a, b), rows(seeds_i32, a, b), tables.thr.data_ptr(), tables.cde.data_ptr(),
+                    int(tables.pb), rows(acc, a, b), rows(samples, a, b) if nsamples else None, b - a, nvars, L,
+                    int(tables.kind == "torus"), tables.size, T, freq, nsamples, tile, nbytes, _stream(x)))
+                wl_sweeps.resident_launches += 1
     return x, acc, samples
 
 
 def _run_tiled(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int, plan, defines: tuple = ()):
-    """The tiled route on a CUDA tensor (one launch a sweep, counted in
-    ``wl_sweeps.tiled_launches``), with ``plan = (B, box sites, bytes)`` from
-    ``tiled_plan``; ``wl_sweeps``' result. The sweeps alternate between two
-    new buffers; ``s`` is read by the first (through a copy if it is not
-    16-byte aligned, as the kernel's vector loads need). ``defines`` launch a
-    variant built for measurement (``_kernels.build``)."""
+    """The tiled route on a CUDA tensor (one launch a sweep and chunk of
+    replicas, counted in ``wl_sweeps.tiled_launches``), with ``plan = (B, box
+    sites, bytes)`` from ``tiled_plan``; ``wl_sweeps``' result. The sweeps
+    alternate between two new buffers; ``s`` is read by the first (through a
+    copy if it is not 16-byte aligned, as the kernel's vector loads need).
+    ``defines`` launch a variant built for measurement (``_kernels.build``)."""
     R, nvars, L = s.shape
     acc = torch.zeros((R, 3), dtype=torch.int64, device=s.device)
     samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
     if not (R and T):
         return s.clone(), acc, samples
     src = s if s.data_ptr() % 16 == 0 else s.clone()
-    a = torch.empty_like(s)
-    b = torch.empty_like(s) if T > 1 else a
+    even = torch.empty_like(s)
+    odd = torch.empty_like(s) if T > 1 else even
     B, _, nbytes = plan
+    torus = tables.kind == "torus"
+    tiles = (-(-(tables.size if torus else nvars) // B)) ** (2 if torus else 1)
     with torch.cuda.device(s.device):
-        _kernel_call("wl tiled kernel", lambda lib: lib.wl_tiled_sweeps(
-            src.data_ptr(), a.data_ptr(), b.data_ptr(), seeds_i32.data_ptr(), tables.thr.data_ptr(),
-            tables.cde.data_ptr(), int(tables.pb), acc.data_ptr(), samples.data_ptr() if nsamples else None,
-            R, nvars, L, int(tables.kind == "torus"), tables.size, T, freq, nsamples, B, nbytes, _stream(s)),
-            defines)
-    wl_sweeps.tiled_launches += T
-    return (a if T % 2 else b), acc, samples
+        for a, b in replica_chunks(R, nvars * L, "wl_tiled", tiles):
+            _kernel_call("wl tiled kernel", lambda lib: lib.wl_tiled_sweeps(
+                rows(src, a, b), rows(even, a, b), rows(odd, a, b), rows(seeds_i32, a, b), tables.thr.data_ptr(),
+                tables.cde.data_ptr(), int(tables.pb), rows(acc, a, b), rows(samples, a, b) if nsamples else None,
+                b - a, nvars, L, int(torus), tables.size, T, freq, nsamples, B, nbytes, _stream(s)), defines)
+            wl_sweeps.tiled_launches += T
+    return (even if T % 2 else odd), acc, samples
 
 
 def device_limits(device) -> tuple:
@@ -672,15 +679,18 @@ def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int
     counted in ``wl_sweeps.tiled_launches``) or the multi-launch kernels
     (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``wl_sweeps.launches``; for a
     line past one block, ``cluster_long``, 3 there and
-    ``LONG_LAUNCHES_PER_SWEEP`` in ``wl_sweeps.long_launches``). A CPU tensor
-    runs the plain version."""
+    ``LONG_LAUNCHES_PER_SWEEP`` in ``wl_sweeps.long_launches``), each on
+    chunks of replicas below its limits (``replicas.replica_chunks``). A CPU
+    tensor runs the plain version, in the chunks of the strictest route,
+    ``"long"``."""
     T, freq, nsamples = int(T), int(freq), int(nsamples)
-    _check(s, seeds_i32, tables, T, freq, nsamples)
+    R = _check(s, seeds_i32, tables, T, freq, nsamples)
     if s.device.type == "cpu":
-        return wl_sweeps_reference(s, seeds_i32, tables, T, freq, nsamples)
+        return gather_chunks(R, replica_chunks(R, tables.nvars * tables.ltau, "long"), lambda a, b: wl_sweeps_reference(
+            s[a:b], seeds_i32[a:b], tables, T, freq, nsamples))
     if s.device.type != "cuda":
         raise ValueError(f"wl_sweeps runs on cuda or cpu tensors, got {s.device}")
-    R, nvars, L = s.shape
+    _, nvars, L = s.shape
     route, plan = choose_route(tables.kind, tables.size, nvars, L, R, *device_limits(s.device))
     if route == "resident":
         return _run_resident(s, seeds_i32, tables, T, freq, nsamples, plan)

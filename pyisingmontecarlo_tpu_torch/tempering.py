@@ -181,6 +181,23 @@ class LatticeTempering:
                 jv[r, self._edge_index[(min(a, b), max(a, b))]] = j
         return jv
 
+    def _union_edges(self):
+        """The union graph's edges ``(ea, eb)`` int64, in edge-id order."""
+        pairs = sorted(self._edge_index.items(), key=lambda kv: kv[1])
+        return np.array([a for (a, _), _ in pairs], np.int64), np.array([b for (_, b), _ in pairs], np.int64)
+
+    def _ltau(self, ltau: Optional[int] = None) -> int:
+        """``ltau``, or by default the largest ``choose_ltau`` of the rungs."""
+        return int(ltau) if ltau else max(choose_ltau(g["beta"], g["transverse"], self.dtau) for g in self.graphs)
+
+    def _on_kernel(self, ltau: Optional[int] = None) -> bool:
+        """Whether the ladder's sweeps take the kernel (``ops/ladder``): no
+        replica with RVB, and a union graph and L_tau that ``ladder.gate``
+        takes, at any replica count. Shapes only: nothing is built."""
+        ea, eb = self._union_edges()
+        return (not any(g["rvb"] for g in self.graphs)
+                and ladder.gate(detect_topology(self.nvars, ea, eb), self.nvars, self._ltau(ltau)) is None)
+
     def _materialize(self, ltau: Optional[int] = None) -> dict:
         """The ladder's tensors, built at first use; ``ltau`` sets the slice
         count there (default: the largest ``choose_ltau`` of the rungs)."""
@@ -189,17 +206,15 @@ class LatticeTempering:
         if not self.graphs:
             raise ValueError("No graphs added to tempering container")
         R, nvars, dev = len(self.graphs), self.nvars, self.device
-        pairs = sorted(self._edge_index.items(), key=lambda kv: kv[1])
-        ea = np.array([a for (a, _), _ in pairs], np.int64)
-        eb = np.array([b for (_, b), _ in pairs], np.int64)
+        ea, eb = self._union_edges()
         jv = self._union_jvals()
         betas = np.array([g["beta"] for g in self.graphs])
         gammas = np.array([g["transverse"] for g in self.graphs])
         hs = np.array([g["longitudinal"] for g in self.graphs])
-        L = int(ltau) if ltau else max(choose_ltau(b, g, self.dtau) for b, g in zip(betas, gammas))
+        L = self._ltau(ltau)
         rvb = np.array([g["rvb"] for g in self.graphs])
         topo = detect_topology(nvars, ea, eb)
-        generic = bool(rvb.any()) or ladder.gate(topo, nvars, L, R) is not None
+        generic = not self._on_kernel(L)
         key_data = key_data_from_seeds(np.array([g["seed"] for g in self.graphs], np.uint64))
         if self._restored is not None:
             s = self._restored.to(dev)

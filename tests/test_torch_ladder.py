@@ -145,7 +145,8 @@ def test_gate_rejects():
     for L in (2, 41, ladder.MAX_POINTS // 8 + 2):
         assert "L_tau" in ladder.gate(("ring", 8), 8, L)
     assert "not even" in ladder.gate(("torus", 3), 9, 40)
-    assert "2^31" in ladder.gate(("ring", 8), 8, 4096, 2**16)
+    # the JAX gate reads no replica count, nor does the port's: 2^16 replicas of 32,768 spins run in chunks
+    assert ladder.gate(("ring", 8), 8, 4096, 2**16) is None
 
 
 def test_wrapper_checks():

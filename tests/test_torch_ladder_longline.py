@@ -7,7 +7,10 @@ kernel route at time lines past 4096 slices, up to the JAX kernel's gate
   8-ring at L_tau = 5120, the 16-ring at 40,960 and a 6^2 +-J torus at 20,000.
 - ``ladder.gate`` against the JAX kernel's rule (``supported_ladder``, whose
   platform test refuses the CPU, so the rule is read from ``_MAX_POINTS``) on
-  a grid of shapes on both sides of each edge.
+  a grid of shapes on both sides of each edge, at replica counts past 2^31
+  spins and past 65,535 replicas, which neither rule reads; a
+  ``LatticeTempering`` ladder chooses the kernel route at such counts (its
+  decision reads shapes only: no plane built).
 - A numpy model of the cluster phase that ``csrc/worldline.cuh`` runs for a
   line too long for one block (``fk_long_*``: heads and the carries of
   segments of 32 words, leaves of 256 slices summed from each run's head,
@@ -86,6 +89,9 @@ def test_ladder_reference_equals_jax_kernel(case):
     assert (want != s0).mean() > 0.02, "spins barely moved"
 
 
+REPLICAS = (1, 511, 512, 656, 8590, 65536, 10**6)
+
+
 def _tpu_rule(kind, size, nvars, ltau):
     """``wl_ladder_pallas.supported_ladder`` without its platform test."""
     if ltau < 4 or ltau % 2 or nvars % 2 or (kind == "torus" and size % 2):
@@ -100,13 +106,41 @@ def test_gate_equals_tpu_rule():
         nvars = size if kind == "ring" else size * size
         edge = wlp._MAX_POINTS // nvars
         for L in {2, 3, 4, 5, 6, 4096, 4098, 5120, edge - 2, edge - 1, edge, edge + 1, edge + 2, 2 * edge}:
-            got = ladder.gate((kind, size), nvars, L) is None
-            assert got == _tpu_rule(kind, size, nvars, L), (kind, size, L)
+            for R in REPLICAS:
+                got = ladder.gate((kind, size), nvars, L, R) is None
+                assert got == _tpu_rule(kind, size, nvars, L), (kind, size, L, R)
             admitted += got
     assert admitted > 20
     assert ladder.gate(("ring", 4), 4, 250000) is None  # the 4-ring at the gate's edge
     assert ladder.gate(("ring", 4), 4, 250002) is not None
-    assert "2^31" in ladder.gate(("ring", 4), 4, 250000, R=8590)
+    # past 2^31 spins in all (R = 8590 at 10^6 spins a replica) and past one launch's 65,535 replicas: the
+    # wrapper splits the replicas into launches
+    for R in REPLICAS:
+        assert ladder.gate(("ring", 4), 4, 250000, R) is None
+        assert ladder.gate(("torus", 12), 144, 5120, R) is None
+
+
+def _tempering(edges, R, beta):
+    from pyisingmontecarlo_tpu_torch import LatticeTempering
+
+    lt = LatticeTempering(edges, seed=1, device="cpu")
+    for r in range(R):
+        lt.add_graph(1.0, 0.0, beta)
+    return lt
+
+
+def test_tempering_takes_the_kernel_at_any_replica_count():
+    ring4 = [((i, (i + 1) % 4), -1.0) for i in range(4)]
+    lt = _tempering(ring4, 8590, 12500.0)  # dtau = 0.05: L_tau = 250,000, the gate's edge; 8.6e9 spins
+    assert lt._ltau() == 250000 and lt._on_kernel()
+    g = grid_2d_edges(12, 12)
+    glass = [(e, float(j)) for (e, _), j in zip(g, np.random.default_rng(0).choice([-1.0, 1.0], len(g)))]
+    assert _tempering(glass, 2913, 256.0)._on_kernel()  # L_tau = 5120: 2.15e9 spins
+    assert _tempering(ring4, 65600, 205.0)._on_kernel()  # L_tau = 4100: past one launch's 65,535 replicas
+    # the 4-ring at L_tau = 2^20, R = 512: off the kernel by the spins a replica (4 x 2^20 past 10^6), as in
+    # the JAX package, whatever R
+    assert not _tempering(ring4, 512, 12500.0)._on_kernel(1 << 20)
+    assert not _tpu_rule("ring", 4, 4, 1 << 20)
 
 
 # the long-line cluster phase of csrc/worldline.cuh: segments of SEG_WORDS words of 32 slices (a block),

@@ -14,7 +14,12 @@ slices on an H100, then ``fk_long_*`` in global memory).
   (32,768 +- 32), at 40,960 and at 2^20.
 - ``wl.gate`` against the JAX kernel's rule (``wl_pallas.supported``, whose
   platform test refuses the CPU, so the rule is read from
-  ``_MAX_PLANE_BYTES_LARGE``) on a grid of shapes on both sides of each edge.
+  ``_MAX_PLANE_BYTES_LARGE``) on a grid of shapes on both sides of each edge,
+  at replica counts past 2^31 spins and past 65,535 replicas, which the JAX
+  rule does not read; a worldline ensemble (``Lattice``'s and
+  ``QmcIsing``'s) on the 4-ring at L_tau = 2^20 stays on the kernel route at
+  R = 512, also after ``append`` grows it there (on the meta device: shapes
+  only, no plane built).
 
 The kernels themselves run only on the card, where ``chip_smoke.py``
 compare-longline holds them to the plain version bit for bit at these
@@ -95,17 +100,39 @@ def _grid():
     return shapes
 
 
+REPLICAS = (1, 511, 512, 656, 8590, 65536, 10**6)
+
+
 def test_gate_equals_tpu_rule():
     admitted = 0
     for dense, nvars, L in _grid():
-        assert (wl.gate(dense, nvars, L) is None) == _tpu_rule(dense, nvars, L), (dense, nvars, L)
+        for R in REPLICAS:
+            assert (wl.gate(dense, nvars, L, R) is None) == _tpu_rule(dense, nvars, L), (dense, nvars, L, R)
         admitted += wl.gate(dense, nvars, L) is None
     assert admitted > 20
     assert wl.gate(("ring", 4, -1.0), 4, 1 << 20) is None  # the 4-ring at the gate's edge
     assert wl.gate(("ring", 4, -1.0), 4, (1 << 20) + 2) is not None
-    # the port's own cut: fewer than 2^31 spins in all
-    assert "2^31" in wl.gate(("ring", 4, -1.0), 4, 1 << 20, R=512)
-    assert wl.gate(("ring", 4, -1.0), 4, 1 << 20, R=511) is None
+    # past 2^31 spins in all (R = 512 at 2^22 spins a replica) and past one launch's 65,535 replicas: the JAX
+    # rule reads no R, and the port's wrapper splits the replicas into launches
+    for R in REPLICAS:
+        assert wl.gate(("ring", 4, -1.0), 4, 1 << 20, R=R) is None
+        assert wl.gate(("torus", 64, -1.0), 64 * 64, 800, R=R) is None
+
+
+def test_ensemble_stays_on_kernel_at_any_replica_count():
+    from pyisingmontecarlo_tpu_torch.engines.worldline import WorldlineEnsemble
+    from pyisingmontecarlo_tpu_torch.graph import compile_graph
+    from pyisingmontecarlo_tpu_torch.rng import key_data_from_seeds
+
+    ring4 = [((i, (i + 1) % 4), -1.0) for i in range(4)]
+    kd = key_data_from_seeds(np.arange(512, dtype=np.uint64))
+    ens = WorldlineEnsemble(compile_graph(ring4), 1.0, 0.0, 2.0, kd[:511], 511, ltau=1 << 20, device="meta")
+    assert ens.s.shape == (511, 4, 1 << 20) and ens.on_kernel()
+    ens.append(torch.empty((1, 4, 1 << 20), dtype=torch.int8, device="meta"), kd[511:])
+    assert ens.R == 512 and ens.on_kernel()  # 2^31 spins
+    big = WorldlineEnsemble(compile_graph(ring4), 1.0, 0.0, 2.0, key_data_from_seeds(np.arange(65600, dtype=np.uint64)),
+                            65600, ltau=4100, device="meta")
+    assert big.on_kernel()  # past one launch's 65,535 replicas
 
 
 def test_route_takes_long_lines_to_multi_launch():
