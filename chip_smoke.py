@@ -9,7 +9,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
                   (registers, shared memory and spills of each) and their
                   measurement builds (TILED_VARIANTS, SQ2D_CUTS,
-                  FK_GROUP_VARIANTS), all at
+                  FK_GROUP_VARIANTS, FK_LONG_CUTS), all at
                   once, and the SASS
                   instructions of one lane-hash draw, of a site update of
                   ``sq2d_tiled``'s row loop and of a word of 32 slices in each
@@ -130,7 +130,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   whole at 40,960 and 2^20; the ladder kernels (states and
                   swap features) on the 12^2 +-J glass at 5120, the 16-ring at
                   40,960 (also frozen whole) and the 4-ring at 250,000 (the
-                  gate's edge); past one block the cluster phase is fk_long_*;
+                  gate's edge); past one block the cluster phase is fk_long_*
+                  (fk_long_sums and fk_long_apply, two launches a color);
 20. compare-replicas  the kernels at replica counts past one launch's limits
                   (ops/replicas.py), each call in chunks of replicas, launch
                   counts checked, the replicas on each side of every chunk
@@ -140,7 +141,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   32^2 torus at R = 65,600 (sampling, explicit randoms); the
                   worldline multi-launch kernels on a 64^2 torus at L_tau =
                   800, R = 656 (2.15e9 spins), the 4-ring at L_tau = 2^20, R
-                  = 512 (fk_long_*, two launches' worth) and at 4100, R =
+                  = 512 (fk_long_*, two chunks) and at 4100, R =
                   65,600 (sampling); the ladder's on the 4-ring at 4100, R =
                   65,600 and the 12^2 +-J glass at 5120, R = 2913; then
                   LatticeTempering on that glass ladder (2 sweeps with swaps)
@@ -154,18 +155,21 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   (chain_energy, in logs), launches by kernel, other device
                   operations and the idle share of a profiled 20-sweep call;
                   both entry points on the 16-ring at beta = 2048 (L_tau =
-                  40,960: 3 wl launches and 10 fk_long_* launches a sweep);
+                  40,960: 3 wl launches and 4 fk_long_* launches a sweep);
 22. main-tempering-longline  ``LatticeTempering.qmc_timesteps_sample(200)`` on
                   the tempering bench's 12^2 +-J glass with 64 rungs at
                   geomspace(0.2, 256) (L_tau = 5120; multi-launch), swaps
                   accepted and <E> falling with beta, a profiled 10-sweep
                   call; a 4-ring ladder at beta up to 12,500 (L_tau = 250,000:
-                  2 ladder_site and 10 fk_long_* launches a sweep);
+                  2 ladder_site and 4 fk_long_* launches a sweep);
 23. timing-longline   those shapes' kernels against the plain version (CUDA
                   events, in turns), their bounds and each kernel's us a sweep
                   (torch.profiler), and the cluster phase's group of 256 and
                   1024 threads (FK_GROUP_VARIANTS) against 512 at L_tau =
-                  10,240;
+                  10,240; past one block fk_long_*'s us a sweep against what
+                  the cluster phase needs (fk_long_need) and its plain
+                  version (fk_flips, CUDA events), and fk_long_sums's cut
+                  builds (FK_LONG_CUTS);
 24. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100), a plan with worm and cluster
@@ -313,9 +317,13 @@ the 64-chain through QmcRunner.run_sampling), four runs a side (~9 min).
 
 does it for the multi-launch routes: ms a sweep of main-quantum-long's 64^2
 torus at L_tau = 800, of main-tempering-wide's 64^2 ladder and of a 32^2 +-J
-ladder at L_tau = 974, R = 16 (the best of three 20-sweep calls), with each
-kernel's device us a sweep (torch.profiler), and threefry_chain's ms a call
-at its three main-path plans (chain_plans), ten runs a side (~8 min).
+ladder at L_tau = 974, R = 16 (the best of three 20-sweep calls), and of the
+three lines past one block of timing-longline (the 16-ring at 40,960 and
+the 4-ring at 2^20, R = 2; the ladder's 4-ring at 250,000, R = 4), with each
+kernel's device us a sweep (torch.profiler) and, past one block, the
+cluster phase's (fk_long_*, the kernels of either checkout) summed, and
+threefry_chain's ms a call at its three main-path plans (chain_plans), ten
+runs a side.
 """
 
 from __future__ import annotations
@@ -420,6 +428,14 @@ LLPT_BETA, LLPT_LTAU = 256.0, 5120
 # builds of the multi-launch kernels with another group a line past L_tau = 4096 (csrc/worldline.cuh,
 # PMC_FK_GROUP_LONG; the default build's is 512), timed at the 128-ring's L_tau
 FK_GROUP_VARIANTS = {256: ("PMC_FK_GROUP_LONG=256",), 1024: ("PMC_FK_GROUP_LONG=1024",)}
+FK_LEAF = 256  # the slices of a leaf of fk_long_*'s run sums (csrc/worldline.cuh, kLongLeaf)
+# builds of fk_long_sums cut short after a step, for measurement (csrc/worldline.cuh, PMC_FK_LONG_CUT; their
+# fk_long_apply does nothing), timed at the lines past one block
+FK_LONG_CUTS = {"the draws and heads": ("PMC_FK_LONG_CUT=1",), "+ the look-back": ("PMC_FK_LONG_CUT=2",),
+                "+ the leaf starts": ("PMC_FK_LONG_CUT=3",), "+ the leaves' trees": ("PMC_FK_LONG_CUT=4",)}
+# the shapes at which timing-longline times fk_long_* alone, the main paths' first
+FK_LONG_SHAPES = {"ring16": "the 16-ring at L_tau = 40,960, R = 2", "ring4": "the 4-ring at L_tau = 2^20, R = 2",
+                  "ladder-ring4": "the ladder's 4-ring at L_tau = 250,000, R = 4"}
 
 
 def check(cond, msg):
@@ -505,14 +521,14 @@ SQ2D_CUTS = {"box in and tile out only": ("PMC_SQ2D_CUT=0",), "no lane hash": ("
 
 
 def phase_build():
-    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, SQ2D_CUTS and
-    FK_GROUP_VARIANTS, all at once; then the SASS counts (returns cluster_sass's)."""
+    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, SQ2D_CUTS,
+    FK_GROUP_VARIANTS and FK_LONG_CUTS, all at once; then the SASS counts (returns cluster_sass's)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pyisingmontecarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values(), *FK_GROUP_VARIANTS.values()]
+    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values(), *FK_GROUP_VARIANTS.values(), *FK_LONG_CUTS.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
         variants = [pool.submit(_kernels.build, defines=d) for d in builds]
         path = _kernels.build(verbose=True)
@@ -1340,20 +1356,25 @@ def _launches(fn, names, want, tries=3):
     H100: 105 of 140 launches in one trace, 65 to 77 of 80 in each of three
     traces of one process), and never adds them, so up to ``tries`` traces
     are taken until one records ``want``, and no trace may record more than
-    the wrapper counts; 'not recorded' when it records no device time."""
+    the wrapper counts; a trace with no device time counts 0, and 'not
+    recorded' when none records any."""
     best, counts = None, []
     for _ in range(tries):
         prof = _trace(fn)
         dev_t = _device_times(prof, names)
         if dev_t is None:
-            return prof, "launches not recorded"
+            counts.append(0)
+            best = best or prof
+            continue
         got = {k: len(v) for k, v in dev_t[0].items()}
         check(sum(got.values()) <= want, f"the profiler recorded {got} launches, the wrapper counts {want}")
         counts.append(sum(got.values()))
-        if best is None or counts[-1] > max(counts[:-1]):
+        if counts[-1] > max(counts[:-1], default=0):
             best = prof
         if counts[-1] == want:
             break
+    if not max(counts):
+        return best, "launches not recorded"
     return best, (f"{max(counts)} launches recorded, the wrapper counts {want}"
                   + (f" (traces: {counts})" if len(counts) > 1 else ""))
 
@@ -2161,10 +2182,11 @@ def phase_main_tempering_longline(dev, smi):
     return out
 
 
-WL_LONG_NAMES = ("wl_site", "wl_cluster", "wl_accumulate", "fk_long_scan", "fk_long_carry", "fk_long_leaves",
-                 "fk_long_decide", "fk_long_flip")
-LADDER_LONG_NAMES = ("ladder_site", "ladder_cluster", "fk_long_scan", "fk_long_carry", "fk_long_leaves",
-                     "fk_long_decide", "fk_long_flip")
+FK_LONG_NAMES = ("fk_long_sums", "fk_long_apply")
+# the earlier fk_long_*'s five kernels a color, for --ab DIR multi against a checkout that has them
+FK_LONG_OLD_NAMES = ("fk_long_scan", "fk_long_carry", "fk_long_leaves", "fk_long_decide", "fk_long_flip")
+WL_LONG_NAMES = ("wl_site", "wl_cluster", "wl_accumulate", *FK_LONG_NAMES)
+LADDER_LONG_NAMES = ("ladder_site", "ladder_cluster", *FK_LONG_NAMES)
 
 
 def _split_line(prof, names, sweeps):
@@ -2173,6 +2195,64 @@ def _split_line(prof, names, sweeps):
     if dev_t is None:
         return "by kernel: not measured (the profiler recorded no device time)"
     return "by kernel, us a sweep: " + ", ".join(f"{k} {_us_per_sweep(v, sweeps):.2f}" for k, v in dev_t[0].items())
+
+
+def _kernels_us(prof, names, sweeps):
+    """The device us a sweep of the kernels ``names`` together (the sum of
+    each one's _us_per_sweep) that a _trace recorded, or None without device
+    time."""
+    dev_t = _device_times(prof, names)
+    return None if dev_t is None else sum(_us_per_sweep(v, sweeps) for v in dev_t[0].values())
+
+
+def fk_long_need(phases, nbytes, per_slice):
+    """What the cluster phase past one block needs a sweep in one pass
+    (cluster_need, whose ``per_slice`` counts a slice's addition into its
+    run's sum), with the leaves' fold: fk_long_* sums a run of n slices in
+    n + n / FK_LEAF additions (each slice into its leaf, each leaf into its
+    head's total), so 1 / FK_LEAF more f32 operation a slice."""
+    return cluster_need(phases, nbytes, (per_slice[0], per_slice[1] + 1 / FK_LEAF))
+
+
+def fk_long_timing(prof, sweeps, phases, nbytes, per_slice, dev):
+    """fk_long_*'s numbers at a timed shape: (its device ms a sweep from the
+    trace ``prof`` of a ``sweeps``-sweep call, None where the profiler
+    recorded none; the plain version's ms a sweep: ops/wl.fk_flips, the run
+    sums, decisions and flips, on both colors' lines at the frozen bonds
+    ``phases`` with random dE and log-uniforms (the best of three, CUDA
+    events); its bound (fk_long_need): (ms, bound_by) and the text)."""
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
+    us = _kernels_us(prof, FK_LONG_NAMES, sweeps)
+    active = torch.cat(phases)[None].to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    de = 0.1 * torch.randn(active.shape, generator=gen, device=dev)
+    log_u = torch.log(torch.rand(active.shape, generator=gen, device=dev).clamp_min(2.0**-31))
+    wl.fk_flips(active, de, log_u)
+    plain = min(event_ms(lambda: wl.fk_flips(active, de, log_u), 1) for _ in range(3))
+    need, line = fk_long_need(phases, nbytes, per_slice)
+    return (None if us is None else us / 1e3), plain, need, line
+
+
+def _fk_long_cuts(run, names, want, sweeps, what, smi):
+    """fk_long_sums's device us a sweep in each build of FK_LONG_CUTS at one
+    shape: ``run(t, defines)`` a t-sweep call of the build, traced as
+    _launches traces (``names``, ``want`` launches)."""
+    parts = []
+    for cut, defines in FK_LONG_CUTS.items():
+        run(2, defines)
+        us = _kernels_us(_launches(lambda: run(sweeps, defines), names, want)[0], ("fk_long_sums",), sweeps)
+        parts.append(f"{cut} {'not measured' if us is None else f'{us:.2f}'}")
+    print(f"timing-longline: {what}: fk_long_sums cut short (FK_LONG_CUTS; fk_long_apply off), us a sweep, on "
+          f"{smi}: " + ", ".join(parts), flush=True)
+
+
+def _fk_long_print(what, fk, line, smi):
+    ms, plain, (b_ms, _) = fk[0], fk[1], fk[2:]
+    print(f"timing-longline: {what}: fk_long_* (fk_long_sums and fk_long_apply), on {smi}: "
+          + (f"{ms:.5f} ms a sweep (torch.profiler), {ms / b_ms:.1f}x its bound" if ms is not None else
+             "not measured (the profiler recorded no device time)")
+          + f"; bound {line}; plain version (fk_flips, both colors) {plain:.5f} ms a sweep", flush=True)
 
 
 def phase_timing_longline(dev, smi):
@@ -2186,7 +2266,10 @@ def phase_timing_longline(dev, smi):
     2^20, R = 2 (fk_long_*); the ladder on the 12^2 +-J glass at L_tau = 5120,
     R = 64 (main-tempering-longline's shape) and on the 4-ring at 250,000, R
     = 4 (fk_long_*; the bound once a sweep, as the tempering path calls it).
-    Returns {shape: (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)}."""
+    Past one block also fk_long_* alone (fk_long_timing) and fk_long_sums's
+    cut builds. Returns {shape: (ms/sweep, plain ms/sweep, bound ms/sweep,
+    bound_by)}, and for fk_long_* {shape/fk_long: (its ms a sweep, None if
+    not recorded; fk_flips' ms; its bound ms; bound_by)}."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
 
     lim = wl.device_limits(dev)
@@ -2221,6 +2304,12 @@ def phase_timing_longline(dev, smi):
               f"{out[key][0]:.5f} ms/sweep = {spins / (out[key][0] * 1e6):.3f} spin updates/ns (runs {kr}); plain "
               f"torch {out[key][1]:.5f} ms/sweep (runs {pr}); bound {b_ms:.5f} ms/sweep ({b_by}), "
               f"{out[key][0] / b_ms:.1f}x it; {_split_line(prof, WL_LONG_NAMES, T)}; {counted}", flush=True)
+        if long and not freq:  # the cluster phase alone: at the state after T sweeps, its bond draws' frozen bonds
+            phases = frozen_bonds(run(T)[0], dense[0], dense[1], seeds, 4, lambda u: u < tables.pb)
+            fk = fk_long_timing(prof, T, phases, spins + spins // 2, WL_CLUSTER_OPS_PER_SLICE, dev)
+            out[f"{key}/fk_long"] = (fk[0], fk[1], *fk[2])
+            _fk_long_print(f"wl {key}", out[f"{key}/fk_long"], fk[3], smi)
+            _fk_long_cuts(run, WL_LONG_NAMES, want, T, f"wl {key}", smi)
         if key == "ring128":  # the cluster phase's other group sizes, in turns with the kernel's 512
             for G, defines in FK_GROUP_VARIANTS.items():
                 run(2, defines)
@@ -2250,6 +2339,18 @@ def phase_timing_longline(dev, smi):
               f"{out[key][0]:.5f} ms/sweep (runs {kr}); plain torch {out[key][1]:.5f} ms/sweep (runs {pr}); bound "
               f"{b_ms:.5f} ms/sweep ({b_by}), {out[key][0] / b_ms:.1f}x it; "
               f"{_split_line(prof, LADDER_LONG_NAMES, T)}; {counted}", flush=True)
+        if long:
+            pb = planes.pb[:, None, None]
+
+            def below(u31):  # ops/ladder.py's uniform against p_bond
+                return (u31.to(torch.float32) * ladder._SCALE + ladder._HALF_STEP).clamp(max=ladder._U_MAX) < pb
+
+            phases = frozen_bonds(ladder._run_multi(s, seeds, planes, T), kind, size, seeds[0], 4, below)
+            nbytes = spins + spins // 2 + 4 * R * (2 if kind == "torus" else 1) * nvars  # the couplings too
+            fk = fk_long_timing(prof, T, phases, nbytes, LADDER_CLUSTER_OPS_PER_SLICE, dev)
+            out[f"{key}/fk_long"] = (fk[0], fk[1], *fk[2])
+            _fk_long_print(key, out[f"{key}/fk_long"], fk[3], smi)
+            _fk_long_cuts(lambda t, d: ladder._run_multi(s, seeds, planes, t, d), LADDER_LONG_NAMES, want, T, key, smi)
     return out
 
 
@@ -4562,6 +4663,8 @@ def phase_examples(dev, smi):
 
 
 def main():
+    from pyisingmontecarlo_tpu_torch.ops import wl
+
     seconds = {}
 
     def timed_phase(fn, *args):
@@ -4627,6 +4730,9 @@ def main():
     def timed(t):
         return dict(ms=t[0], plain_ms=t[1], bound_ms=t[2], bound_by=t[3], library_ms=None)
 
+    # fk_long_*'s own numbers at the first main path's shape that the profiler timed
+    fk_key = next((k for k in FK_LONG_SHAPES if long_t[f"{k}/fk_long"][0] is not None), "ring16")
+
     kernels = [
         dict(name="sq2d_tiled", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/sq2d.cu",
              replaces="pyisingmontecarlo_tpu/ops/sq2d_pallas.py:159", launches=launches, max_abs_err=err,
@@ -4662,6 +4768,13 @@ def main():
         dict(name="ladder_site+fk_long_* (a line past one block, L_tau = 250,000)", route="cuda",
              source=f"{ladder_src}, pyisingmontecarlo_tpu_torch/csrc/worldline.cuh", replaces=ladder_tpu,
              launches=sum(llpt_launches["long"]), max_abs_err=long_errs["ladder"], **timed(long_t["ladder-ring4"])),
+        dict(name=f"fk_long_sums+fk_long_apply (the cluster phase past one block, a sweep's {wl.LONG_LAUNCHES_PER_SWEEP} "
+                  f"launches; {FK_LONG_SHAPES[fk_key]})", route="cuda",
+             source="pyisingmontecarlo_tpu_torch/csrc/worldline.cuh",
+             replaces=f"{wl_tpu}:263 and pyisingmontecarlo_tpu/ops/wl_ladder_pallas.py:246 (cluster_phase, in the "
+                      f"kernels at {wl_tpu}:330, :346 and wl_ladder_pallas.py:157)",
+             launches=ll_launches["long"][1] + ll_launches["long-sampling"][1] + llpt_launches["long"][1],
+             max_abs_err=max(long_errs["wl"], long_errs["ladder"]), **timed(long_t[f"{fk_key}/fk_long"])),
         dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
              launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"],
              **timed(wl_t["chain/resident"])),
@@ -4830,12 +4943,17 @@ def qmcising_rates(dev):
 
 
 def multi_rates(dev):
-    """The multi-launch routes' ms a sweep (the best of three 20-sweep calls,
-    CUDA events, after a warm-up) and each kernel's device us a sweep
+    """The multi-launch routes' ms a sweep (the best of three calls, CUDA
+    events, after a warm-up) and each kernel's device us a sweep
     (torch.profiler over one call, _trace): main-quantum-long's 64^2 torus at
     L_tau = 800, R = 2, main-tempering-wide's 64^2 +-J ladder and
-    LONG_LADDER (32^2 +-J, R = 16, L_tau = 974); and the key chain's ms a
-    call at its three main-path plans (chain_plans, the median of five)."""
+    LONG_LADDER (32^2 +-J, R = 16, L_tau = 974), 20-sweep calls; past one
+    block (timing-longline's shapes) the 16-ring at L_tau = 40,960, R = 2 (20
+    sweeps), the 4-ring at 2^20, R = 2, and the ladder's 4-ring at 250,000, R
+    = 4 (10 sweeps), with the cluster phase's kernels' us a sweep summed
+    (fk_long_*, those of either checkout: FK_LONG_NAMES, FK_LONG_OLD_NAMES);
+    and the key chain's ms a call at its three main-path plans (chain_plans,
+    the median of five)."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
     from pyisingmontecarlo_tpu_torch.tempering import key_tables
 
@@ -4846,16 +4964,34 @@ def multi_rates(dev):
     m = lt._materialize()
     lseeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
     s_l, seeds_l, planes_l = long_ladder(dev, T)
-    runs = {"wl_long": (lambda: wl._run_multi(s, seeds, tables, T), wl.LAUNCHES_PER_SWEEP),
-            "ladder_wide": (lambda: ladder._run_multi(m["s"], lseeds, m["planes"], T), ladder.LAUNCHES_PER_SWEEP),
-            "ladder_long": (lambda: ladder._run_multi(s_l, seeds_l, planes_l, T), ladder.LAUNCHES_PER_SWEEP)}
-    names = ("wl_site", "wl_cluster", "wl_accumulate", "ladder_site", "ladder_cluster")
+    long_wl = {}
+    for key, n, L, T_k in (("wl_long16", 16, 40960, 20), ("wl_long4", 4, 1 << 20, 10)):
+        d = ("ring", n, -1.0)
+        x, sd = _wl_inputs(d, n, 2, 11 + n, dev, L)
+        long_wl[key] = (x, sd, wl.make_tables(d, n, L / 20.0, WL_GAMMA, 0.0, L, dev), T_k)
+    T_l4 = 10
+    s_l4, seeds_l4, planes_l4, _ = _ladder_inputs("ring", 4, np.full(4, -1.0), np.array([6000.0, 8000.0, 10000.0, 12500.0]),
+                                                  [1.0] * 4, [0.0] * 4, 250000, T_l4, 13, dev)
+    runs = {"wl_long": (lambda: wl._run_multi(s, seeds, tables, T), wl.LAUNCHES_PER_SWEEP, T),
+            "ladder_wide": (lambda: ladder._run_multi(m["s"], lseeds, m["planes"], T), ladder.LAUNCHES_PER_SWEEP, T),
+            "ladder_long": (lambda: ladder._run_multi(s_l, seeds_l, planes_l, T), ladder.LAUNCHES_PER_SWEEP, T)}
+    for key, (x, sd, tb, T_k) in long_wl.items():
+        runs[key] = (lambda x=x, sd=sd, tb=tb, T_k=T_k: wl._run_multi(x, sd, tb, T_k), 3 + wl.LONG_LAUNCHES_PER_SWEEP,
+                     T_k)
+    runs["ladder_long4"] = (lambda: ladder._run_multi(s_l4, seeds_l4, planes_l4, T_l4), 2 + wl.LONG_LAUNCHES_PER_SWEEP,
+                            T_l4)
+    names = ("wl_site", "wl_cluster", "wl_accumulate", "ladder_site", "ladder_cluster", *FK_LONG_NAMES,
+             *FK_LONG_OLD_NAMES)
     out = {}
-    for key, (run, per_sweep) in runs.items():
+    for key, (run, per_sweep, T_k) in runs.items():
         run()  # warm-up
-        out[f"{key}_ms_per_sweep"] = min(event_ms(run, T) for _ in range(3))
-        dev_t = _device_times(_launches(run, names, per_sweep * T)[0], names)
-        out[f"{key}_us_per_sweep"] = None if dev_t is None else {k: _us_per_sweep(v, T) for k, v in dev_t[0].items()}
+        out[f"{key}_ms_per_sweep"] = min(event_ms(run, T_k) for _ in range(3))
+        dev_t = _device_times(_launches(run, names, per_sweep * T_k)[0], names)
+        out[f"{key}_us_per_sweep"] = None if dev_t is None else {k: _us_per_sweep(v, T_k) for k, v in dev_t[0].items()}
+        if key in ("wl_long16", "wl_long4", "ladder_long4"):
+            split = out[f"{key}_us_per_sweep"]
+            out[f"{key}_fk_long_us"] = None if split is None else sum(v for k, v in split.items()
+                                                                      if k.startswith("fk_long_"))
     from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain
 
     for name, (plan, T_c, R_c, nvars_c) in chain_plans().items():  # the key chain's three main-path calls
@@ -4883,6 +5019,8 @@ def ab(other, pairs=10, only=None):
             print(f"ab on {smi}: {line}", flush=True)
     keys = ((("qmcrunner_hard_sweeps_per_s", True), ("qmcrunner_chain_sweeps_per_s", True)) if only == "qmcrunner" else
             (("wl_long_ms_per_sweep", False), ("ladder_wide_ms_per_sweep", False), ("ladder_long_ms_per_sweep", False),
+             ("wl_long16_ms_per_sweep", False), ("wl_long4_ms_per_sweep", False), ("ladder_long4_ms_per_sweep", False),
+             ("wl_long16_fk_long_us", False), ("wl_long4_fk_long_us", False), ("ladder_long4_fk_long_us", False),
              ("chain_tri_ms", False), ("chain_hard_ms", False), ("chain_glass_ms", False))
             if only == "multi" else
             (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
@@ -4898,7 +5036,8 @@ def ab(other, pairs=10, only=None):
         print(f"ab on {smi}: {key}: {Path(other).resolve()} median {np.median(a)} (quartiles "
               f"{np.percentile(a, 25)}, {np.percentile(a, 75)}); this median {np.median(b)} (quartiles "
               f"{np.percentile(b, 25)}, {np.percentile(b, 75)}); this one won {won} of {len(a)} pairs", flush=True)
-    split_keys = ("wl_long_us_per_sweep", "ladder_wide_us_per_sweep", "ladder_long_us_per_sweep")
+    split_keys = ("wl_long_us_per_sweep", "ladder_wide_us_per_sweep", "ladder_long_us_per_sweep",
+                  "wl_long16_us_per_sweep", "wl_long4_us_per_sweep", "ladder_long4_us_per_sweep")
     for key in split_keys if only == "multi" else ():
         for side in ("other", "this"):
             split = [r[key] for r in runs[side] if r.get(key)]

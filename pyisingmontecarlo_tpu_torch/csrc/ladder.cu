@@ -45,8 +45,8 @@
 //   u < pb, a head flips its cluster when log(u) < -dE, with the slice dE
 //   (-2 s) dt (F + h), F from the site's neighbour lines and couplings
 //   (SiteField, found once a line). A line past one block's opt-in
-//   shared memory (L > 26,944 on an H100) takes the five fk_long_* launches
-//   a color of worldline.cuh instead (12 launches a sweep).
+//   shared memory (L > 26,944 on an H100) takes the two fk_long_* launches
+//   a color of worldline.cuh instead (6 launches a sweep).
 //
 // Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn in the JAX
 // kernel's order, so nothing is contracted to an FMA, and the logs are logf
@@ -361,10 +361,11 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
 
 }  // namespace
 
-// Runs T sweeps on `stream` on s[R, nvars, L]: 4 T launches, or 12 T where
-// the line is too long for fk_line's one block (fk_long: the five fk_long_*
+// Runs T sweeps on `stream` on s[R, nvars, L]: 4 T launches, or 6 T where
+// the line is too long for fk_line's one block (fk_long: the two fk_long_*
 // launches a color in place of ladder_cluster, in scratch,
-// pmc_long_scratch_bytes of device memory (wl.cu); null otherwise); seeds is
+// pmc_long_scratch_bytes of device memory (wl.cu), whose status words are
+// zeroed once a call; null otherwise); seeds is
 // [T, R] int32 (row t keys sweep t), J
 // [R, ndir, nvars] and dt, kt, h, pb [R] f32 as in ops/ladder.py. Draw d of
 // every sweep uses counter d: 2c + parity the site phases of color c, 4 + 2c
@@ -384,6 +385,10 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
     const bool longline = fk_long(L, fk_optin());
     if (longline && !scratch) return (int)cudaErrorInvalidValue;
     const FkLong f = longline ? fk_long_layout(scratch, R, nvars, L) : FkLong{};
+    if (longline) {
+        const cudaError_t e = fk_long_reset(f, R, st);
+        if (e != cudaSuccess) return (int)e;
+    }
     return (int)by_lanes(L, [&](auto wc) {
         constexpr int W = decltype(wc)::value;
         return by_group(L, [&](auto gc) {
@@ -403,7 +408,7 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
                 }
                 for (int color = 0; color < 2; ++color) {
                     if (longline)
-                        e = fk_long_phase<LadderFk>(sp, fa, g, R, 4 + 2 * color, color, f, st);
+                        e = fk_long_phase<LadderFk>(sp, fa, g, R, 4 + 2 * color, color, 2u * t + color + 1u, f, st);
                     else {
                         ladder_cluster<G><<<grid, fk_block_threads(G), smem, st>>>(sp, sd, q, g, ndir, 4 + 2 * color,
                                                                                    color);

@@ -74,9 +74,10 @@
 //   contracted, and the log is logf (no fast math). Shared memory: about
 //   8.6 bytes a slice (fk_line_bytes), 35 KB a line at L = 4096. A line past
 //   one block's opt-in shared memory (L > 26,944 on an H100, fk_long) takes
-//   the five fk_long_* launches a color of worldline.cuh instead (13
-//   launches a sweep), on the caller's scratch in device memory: the same
-//   flips, each run summed leaf by leaf from its head (WlFk gives the draws).
+//   the two fk_long_* launches a color of worldline.cuh instead (7 launches
+//   a sweep), on the caller's scratch in device memory: the same flips, each
+//   run's leaves summed from shared memory where they start, each head
+//   folding its leaves (WlFk gives the draws).
 // - wl_accumulate, once: a warp per line (both colors) adds the line's
 //   tau-sums of bond products (outgoing bonds), spins and aligned time bonds
 //   to int64 accumulators [R, 3, nvars]: exact, no atomics (one writer per
@@ -639,10 +640,10 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
 }  // namespace
 
 // Runs T sweeps on `stream` on s[R, nvars, L], s at an even address (the
-// words of wl_site and wl_accumulate): 5 T launches, or 13 T where the line is
-// too long for fk_line's one block (fk_long: the five fk_long_* launches a
+// words of wl_site and wl_accumulate): 5 T launches, or 7 T where the line is
+// too long for fk_line's one block (fk_long: the two fk_long_* launches a
 // color in place of wl_cluster, in scratch, pmc_long_scratch_bytes of device
-// memory; null otherwise). thr [30] int32, cde [10] f32 and pb as in ops/wl.py; acc
+// memory, whose status words are zeroed once a call; null otherwise). thr [30] int32, cde [10] f32 and pb as in ops/wl.py; acc
 // [R, 3, nvars] int64 is added to; samples is [R, nsamples, nvars] int8 or
 // null, slot k written after sweep (k + 1) * freq. Draw d of sweep t uses
 // counter 8 t + d: 2c + parity the site phases of color c, 4 + 2c and 5 + 2c
@@ -665,6 +666,10 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
     const bool longline = fk_long(L, fk_optin());
     if (longline && !scratch) return (int)cudaErrorInvalidValue;
     const FkLong f = longline ? fk_long_layout(scratch, R, nvars, L) : FkLong{};
+    if (longline) {
+        const cudaError_t e = fk_long_reset(f, R, st);
+        if (e != cudaSuccess) return (int)e;
+    }
     return (int)by_lanes(L, [&](auto wc) {
         constexpr int W = decltype(wc)::value;
         return by_group(L, [&](auto gc) {
@@ -681,7 +686,8 @@ extern "C" int wl_sweeps(void* s, const void* seeds, const void* thr, const void
                         return e;
                 for (int color = 0; color < 2; ++color) {
                     if (longline)
-                        e = fk_long_phase<WlFk>(sp, fa, g, R, base + 4 + 2 * color, color, f, st);
+                        e = fk_long_phase<WlFk>(sp, fa, g, R, base + 4 + 2 * color, color, 2u * t + color + 1u, f,
+                                                st);
                     else {
                         wl_cluster<G><<<fk_grid(g, R, G), fk_block_threads(G), smem, st>>>(
                             sp, sd, static_cast<const float*>(cde), pb, g, base + 4 + 2 * color, color);

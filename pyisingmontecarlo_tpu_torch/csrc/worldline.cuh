@@ -10,9 +10,10 @@
 // time-line cluster update, either by a group of threads holding the line in
 // shared memory (fk_line: a warp, or a whole block for long lines), which
 // runs the JAX kernels' own pointer doubling, or, for a line too long for one
-// block's shared memory, by five launches over the line in global memory
-// (fk_long_*: segments of kLongWords words, each run summed leaf by leaf from
-// its head). The resident route, one block per replica with its plane in
+// block's shared memory, by two launches over the line in global memory
+// (fk_long_sums, fk_long_apply: segments of kLongSlices slices, each run's
+// leaves summed from shared memory where they start, each head folding its
+// leaves). The resident route, one block per replica with its plane in
 // shared memory, is in resident.cuh, the tiled route in tiled.cuh;
 // ops/wl.choose_route picks the route by shape.
 #pragma once
@@ -365,8 +366,9 @@ __device__ __forceinline__ void fk_swap(T*& a, T*& b) {
 __device__ __forceinline__ bool fk_bit(const uint32_t* b, int x) { return (b[x >> 5] >> (x & 31)) & 1u; }
 
 // The total of x[0..n) in XLA's CPU order (ops/wl.xla_sum_last) by the
-// calling group of G threads (fk_sync<G> its barrier; fk_long_decide's
-// block), on its thread 0 (the others get 0): while more than 32 terms remain, windows of 32 padded evenly
+// calling group of G threads (fk_sync<G> its barrier; the last block of
+// fk_long_sums, which reads the other blocks' values through L2, __ldcg), on
+// its thread 0 (the others get 0): while more than 32 terms remain, windows of 32 padded evenly
 // at both ends (the pads add +0, which changes no sum, so they are skipped),
 // each summed from 0 by one thread, their sums the next level's terms in
 // scratch (n / 31 floats at most); then the last 32 or fewer one by one. At L
@@ -379,7 +381,7 @@ __device__ float xla_total(const float* x, int n, float* scratch) {
         for (int v = gt; v < m; v += G) {
             const int a = 32 * v - lo;
             float p = 0.0f;  // never -0, so a pad's +0 would leave it as it is
-            for (int j = max(0, -a); j < 32 && a + j < n; ++j) p = __fadd_rn(p, x[a + j]);
+            for (int j = max(0, -a); j < 32 && a + j < n; ++j) p = __fadd_rn(p, __ldcg(x + a + j));
             scratch[v] = p;
         }
         fk_sync<G>();
@@ -389,7 +391,7 @@ __device__ float xla_total(const float* x, int n, float* scratch) {
     }
     float tot = 0.0f;
     if (gt == 0)
-        for (int j = 0; j < n; ++j) tot = __fadd_rn(tot, x[j]);
+        for (int j = 0; j < n; ++j) tot = __fadd_rn(tot, __ldcg(x + j));
     return tot;
 }
 
@@ -543,303 +545,481 @@ __device__ __forceinline__ void fk_line(int8_t* lp, unsigned char* sm, int L, Bo
 
 // The multi-launch route's cluster phase for a line too long for one block's
 // shared memory (fk_line_bytes(L) past the card's opt-in bytes: L > 26,944
-// on an H100), in global memory: five launches a color, each over
-// (segments of kLongWords words of 32 slices, lines of the color, replicas)
-// with blocks of kLongThreads threads, warp w of a block taking the words w,
-// w + 8, ... of its segment, slice t = 32 word + lane. They compute what
-// fk_line computes (ops/wl.fk_flips), summing each cluster from its head
-// instead of by pointer doubling: the doubling's sum at a head h of a run of
-// n slices is the right-nested sum of the perfect binary trees of n's binary
-// expansion laid from h (TreeSum), which splits at kLongLeaf slices into
-// leaves of kLongLeaf slices at relative multiples of kLongLeaf from h, the
-// perfect trees of leaves of the blocks of n / kLongLeaf, nested onto the
-// run's last n % kLongLeaf slices. So each slice at a relative multiple of
-// kLongLeaf sums its leaf (or the run's tail) alone, and each head folds its
-// leaves: n + n / kLongLeaf additions a run, where the doubling does up to
-// n log2 n.
+// on an H100), over the line in global memory: two launches a color, each
+// over (segments of kLongSlices slices, lines of the color, replicas) with
+// blocks of kLongThreads threads. They compute what fk_line computes
+// (ops/wl.fk_flips), summing each cluster from its head instead of by pointer
+// doubling: the doubling's sum at a head h of a run of n slices is the
+// right-nested sum of the perfect binary trees of n's binary expansion laid
+// from h (TreeSum), which splits at kLongLeaf slices into leaves of kLongLeaf
+// slices at relative multiples of kLongLeaf from h, the perfect trees of
+// leaves of the blocks of n / kLongLeaf, nested onto the run's last
+// n % kLongLeaf slices (its tail). So each leaf is summed alone where it
+// starts and each head folds its leaves: n + n / kLongLeaf additions a run,
+// where the doubling does up to n log2 n.
 //
-// 1. fk_long_scan: each slice's bond draw and dE (de), the heads (after a
-//    thawed bond; a lane 0 draws the bond before its word again) as bit
-//    words (hw), each segment's first and last head (sf, sl).
-// 2. fk_long_carry, a warp a line: for each segment the last head before it
-//    (cl) and the first after it (cf), around the ring (max and min scans);
-//    -1 everywhere for a line with no head (fully frozen).
-// 3. fk_long_leaves: each slice finds its run (its nearest head at or before
-//    it and the next head after it: in its word, in the words of its segment
-//    before or after it, else the carries) and, at a relative multiple of
-//    kLongLeaf, sums the leaf or the tail from it (TreeSum) into lf.
-// 4. fk_long_decide: each head folds its leaves onto its tail (TreeSum) and
-//    decides (its draw, as fk_line's head); a fully frozen line is summed in
-//    XLA's order (xla_total, by segment 0's block) and decided at tau = 0;
-//    the decisions as bit words (dw).
-// 5. fk_long_flip: each slice takes its nearest head's decision and flips.
+// 1. fk_long_sums: a block takes its segment from a ticket of its line, so
+//    that it waits only on blocks that have started, and computes for the
+//    segment and a halo of kLongLeaf slices past its end each slice's bond
+//    draw, dE (kept in shared memory) and head bit (after a thawed bond); the
+//    draws are a pure hash of (seed, pos, ctr), so the halo's are exact. It
+//    publishes its segment's last head in a status word tagged with the
+//    launch and finds the last head before its segment by a decoupled
+//    look-back (a warp reads 32 status words at a time and stops at the
+//    nearest segment with a head, or at one that has published its
+//    inclusive result). Then it sums, from shared memory, every leaf that
+//    starts in its segment: a full one by a warp (8 slices a lane, then five
+//    shuffle levels: the perfect tree, TreeSum's additions exactly); the
+//    short ones (a run's tail), the common case, all at once level by level
+//    in place (a node of 2^c slices at a multiple of 2^c in its leaf is the
+//    sum of its halves, c = 1 .. 7, every thread on its slices; then a thread
+//    a leaf nests the nodes of its length's binary expansion: TreeSum's
+//    additions again; a thread walking each tail alone ran 1.5x slower). It
+//    writes the leaf sums (lf), the heads, the spins' signs and two bits a
+//    leaf start (the leaf is short; the leaf ends its run). A slice before
+//    the line's first head (the wrap-around run, headed by the line's last
+//    head) has no known head in its block: its dE goes to lf, and the block
+//    of the line that finishes last (a count of finished blocks) sums those
+//    leaves, or, on a line with no head (fully frozen), sums the line in
+//    XLA's order (xla_total) and decides it at tau = 0.
+// 2. fk_long_apply: each block decides the heads in its segment and the
+//    carried head that owns its first slices, a thread a head (each walks
+//    its leaves from the head, folds them with TreeSum onto the tail and
+//    draws at its own (pos, ctr); the same leaves and draw as the head's own
+//    block, so the same bit), waiting on no other block, then flips its
+//    slices from their signs: it reads no spin of the line it writes.
 //
 // The caller's Ops type gives a line's draws: Ops(s, args, g, r, i, ctr),
 // frozen(t) (the aligned bond (t, t + 1) freezes), de(t, sv) (the slice's dE)
 // and flips(head, dE), as fk_line's three functions; only site i's own line
-// is written, in fk_long_flip, and its neighbours' (the other color) only
+// is written, in fk_long_apply, and its neighbours' (the other color) only
 // read. Additions are __fadd_rn: nothing is contracted.
+//
+// They replace the TPU kernels' cluster phase (wl_pallas.py cluster_phase,
+// wl_ladder_pallas.py's) on lines past one block. What bounds them on an
+// H100: one pass needs a bond draw and the dE's few operations a slice and
+// n + n / kLongLeaf additions a run, integer issue (about 10 us a sweep on
+// the 4-ring at L = 2^20, two lines a color and replica, R = 2; chip_smoke.py
+// fk_long_need); they run about 20x that (PERF.md), most of it the draws of
+// the segment and its halo, the look-back and the leaf starts (the cut
+// builds, PMC_FK_LONG_CUT).
+// A build for measurement only (chip_smoke.py, FK_LONG_CUTS) may stop
+// fk_long_sums after a step (1: the draws and heads; 2: the look-back; 3:
+// the leaf starts; 4: the leaves' trees, before the short leaves' nesting)
+// and skip fk_long_apply.
+#ifndef PMC_FK_LONG_CUT
+#define PMC_FK_LONG_CUT 0
+#endif
 constexpr int kLongWords = 32, kLongThreads = 256, kLongLeaf = 256;
+constexpr int kLongSlices = 32 * kLongWords;             // a segment's own slices
+constexpr int kLongCover = kLongWords + kLongLeaf / 32;  // the words of a segment and its halo
+constexpr int kLongWarps = kLongThreads / 32;
+static_assert(kLongCover % kLongWarps == 0, "fk_long_sums: a segment's words and its halo's split evenly over the warps");
+// A status word: the launch's tag in the high half; the inclusive flag (the
+// last head of every segment up to this one) and a head + 1 (0: none) in the
+// low half.
+constexpr unsigned long long kLongIncl = 1ull << 31, kLongVal = kLongIncl - 1;
+// The polls of a look-back before it gives up (__trap: a launch error, never
+// a hang): a predecessor publishes its status after its own draws.
+constexpr int kLongSpins = 1 << 24;
 
 // The scratch of one color's phase, per line of the color (line index
-// r * nl + j, j the line's rank in its color, site_of): de and lf (32 W f32
-// each, W = ceil(L / 32)), hw and dw (W words), sf, sl, cf, cl (nseg ints).
+// r * nl + j, j the line's rank in its color, site_of). Zeroed once a call
+// (fk_long_reset): st (nseg status words), tk and done (the line's tickets
+// and finished blocks). Written in every launch: lf (32 W f32: each leaf's
+// sum at its start, a wrap-around slice's dE), hw, up, sw, ew (W words: the
+// heads, the spins +1, the leaf starts whose leaf is short and whose leaf
+// ends its run), sf and cl (nseg ints: the segment's first head and the last
+// head before it, -1 for none), info (the line's last head; -1 or -2 for a
+// fully frozen line that stays or flips) and xs (xw f32: xla_total's levels).
 struct FkLong {
-    float* de;
-    float* lf;
-    uint32_t* hw;
-    uint32_t* dw;
-    int *sf, *sl, *cf, *cl;
-    int L, W, nseg, nl;
-
-    __device__ size_t line() const { return (size_t)blockIdx.z * nl + blockIdx.y; }
+    unsigned long long* st;
+    unsigned *tk, *done;
+    float *lf, *xs;
+    uint32_t *hw, *up, *sw, *ew;
+    int *sf, *cl, *info;
+    int L, W, nseg, nl, xw;
 };
 
-// The bytes of FkLong for R replicas of nvars sites at L slices, and its
-// arrays laid out from base.
+__host__ __device__ constexpr int fk_long_xw(int W) { return W + (W >> 4) + 4; }  // W + W / 32 + W / 1024 + 3 at least
+
+inline size_t fk_long_sync_bytes(size_t lines, int nseg) { return lines * (8 * (size_t)nseg + 8); }
+
+// The bytes of FkLong for R replicas of nvars sites at L slices (about 4.6
+// a slice of a color's lines), and its arrays laid out from base.
 inline size_t fk_long_bytes(int R, int nvars, int L) {
-    const size_t W = (L + 31) >> 5, nseg = (W + kLongWords - 1) / kLongWords, lines = (size_t)R * (nvars >> 1);
-    return lines * (2 * 32 * W * 4 + 2 * W * 4 + 4 * nseg * 4);
+    const int W = (L + 31) >> 5, nseg = (L + kLongSlices - 1) / kLongSlices;
+    const size_t lines = (size_t)R * (nvars >> 1);
+    return fk_long_sync_bytes(lines, nseg) + lines * 4 * (32 * (size_t)W + fk_long_xw(W) + 4 * (size_t)W + 2 * nseg + 1);
 }
 
 inline FkLong fk_long_layout(void* base, int R, int nvars, int L) {
     FkLong f;
     f.L = L;
     f.W = (L + 31) >> 5;
-    f.nseg = (f.W + kLongWords - 1) / kLongWords;
+    f.nseg = (L + kLongSlices - 1) / kLongSlices;
     f.nl = nvars >> 1;
+    f.xw = fk_long_xw(f.W);
     const size_t lines = (size_t)R * f.nl;
-    f.de = static_cast<float*>(base);
-    f.lf = f.de + lines * 32 * f.W;
-    f.hw = reinterpret_cast<uint32_t*>(f.lf + lines * 32 * f.W);
-    f.dw = f.hw + lines * f.W;
-    f.sf = reinterpret_cast<int*>(f.dw + lines * f.W);
-    f.sl = f.sf + lines * f.nseg;
-    f.cf = f.sl + lines * f.nseg;
-    f.cl = f.cf + lines * f.nseg;
+    f.st = static_cast<unsigned long long*>(base);
+    f.tk = reinterpret_cast<unsigned*>(f.st + lines * f.nseg);
+    f.done = f.tk + lines;
+    f.lf = reinterpret_cast<float*>(f.done + lines);
+    f.xs = f.lf + lines * 32 * f.W;
+    f.hw = reinterpret_cast<uint32_t*>(f.xs + lines * f.xw);
+    f.up = f.hw + lines * f.W;
+    f.sw = f.up + lines * f.W;
+    f.ew = f.sw + lines * f.W;
+    f.sf = reinterpret_cast<int*>(f.ew + lines * f.W);
+    f.cl = f.sf + lines * f.nseg;
+    f.info = f.cl + lines * f.nseg;
     return f;
+}
+
+// Zeroes the status words, tickets and counts once a call, before its first
+// launch (a launch's tag, 2 t + color + 1, tells its words from the last's).
+inline cudaError_t fk_long_reset(const FkLong& f, int R, cudaStream_t st) {
+    return cudaMemsetAsync(f.st, 0, fk_long_sync_bytes((size_t)R * f.nl, f.nseg), st);
 }
 
 inline dim3 fk_long_grid(const FkLong& f, int R) { return dim3(f.nseg, f.nl, R); }
 
+__device__ __forceinline__ unsigned long long fk_long_load(const unsigned long long* p) {
+    return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+__device__ __forceinline__ void fk_long_store(unsigned long long* p, unsigned long long v) {
+    *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// The bits of word w that hold one of the first n slices.
+__device__ __forceinline__ uint32_t fk_below(int w, int n) {
+    const int b = n - 32 * w;
+    return b <= 0 ? 0u : b >= 32 ? 0xffffffffu : (1u << b) - 1u;
+}
+
+// A full leaf x[0 .. kLongLeaf) summed by the calling warp, on lane 0: the
+// perfect binary tree, 8 slices a lane, then five shuffle levels (lane l adds
+// lane l + o's node to its own), so TreeSum's additions in the same pairs.
+__device__ __forceinline__ float fk_leaf_tree(const float* x) {
+    const float* p = x + 8 * (threadIdx.x & 31);
+    float v = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
+                        __fadd_rn(__fadd_rn(p[4], p[5]), __fadd_rn(p[6], p[7])));
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
+    return v;
+}
+
 // 1.
 template <class Ops>
-__global__ void __launch_bounds__(kLongThreads) fk_long_scan(const int8_t* __restrict__ s, typename Ops::Args a,
-                                                             Geo g, uint32_t ctr, int color, FkLong f) {
-    __shared__ int first, last;
-    const int r = blockIdx.z, i = site_of(g, blockIdx.y, color), L = g.L, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(kLongThreads) fk_long_sums(const int8_t* __restrict__ s, typename Ops::Args a,
+                                                             Geo g, uint32_t ctr, int color, uint32_t tag, FkLong f) {
+    constexpr unsigned kAll = 0xffffffffu;
+    __shared__ float de[32 * kLongCover];                 // the slices' dE, local slice u at S0 + u mod L
+    __shared__ uint32_t fw[kLongCover], hw[kLongCover];  // frozen bonds (u, u + 1); heads
+    __shared__ int upto[kLongCover], from[kLongCover];   // the last head at or before a word's end, the first at or after its start
+    __shared__ uint32_t tails[kLongSlices];              // the short leaves: start | length << 16
+    __shared__ int fulls[kLongSlices / kLongLeaf];       // the full leaves' starts
+    __shared__ int seg, ntail, nfull, mine, carry, firsthead;
+    __shared__ bool before, last;
+    const int r = blockIdx.z, L = g.L, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const size_t ln = (size_t)r * f.nl + blockIdx.y;
+    if (threadIdx.x == 0) {
+        seg = (int)(atomicAdd(f.tk + ln, 1u) % (unsigned)f.nseg);
+        ntail = nfull = 0;
+    }
+    __syncthreads();
+    const int S0 = seg * kLongSlices, own = min(kLongSlices, L - S0), cover = own + kLongLeaf;
+    const int i = site_of(g, blockIdx.y, color);
     const Ops ops(s, a, g, r, i, ctr);
     const int8_t* lp = s + ((size_t)r * g.nvars + i) * L;
-    const size_t ln = f.line();
-    float* de = f.de + ln * 32 * f.W;
-    if (threadIdx.x == 0) first = INT_MAX, last = -1;
-    __syncthreads();
-    const int w1 = min(f.W, (int)(blockIdx.x + 1) * kLongWords);
-    for (int w = blockIdx.x * kLongWords + (threadIdx.x >> 5); w < w1; w += kLongThreads / 32) {
-        const int t = 32 * w + lane;
-        const bool in = t < L;
-        const int sv = in ? lp[t] : 1;
-        int nx = __shfl_down_sync(0xffffffffu, sv, 1);
-        if (in && (lane == 31 || t + 1 == L)) nx = lp[t + 1 == L ? 0 : t + 1];
-        const bool fr = in & (sv == nx) & ops.frozen(t);  // every lane draws: no branch
-        if (in) de[t] = ops.de(t, sv);
-        bool before = __shfl_up_sync(0xffffffffu, fr, 1);  // the bond (t - 1, t) frozen
+    const size_t w0 = ln * f.W + (S0 >> 5);  // the segment's first word in the line's bit arrays
+    unsigned long long* st = f.st + ln * f.nseg;
+    float* lf = f.lf + ln * 32 * f.W;
+    // the draws of the segment and its halo
+    for (int w = warp; w < kLongCover; w += kLongWarps) {
+        const int u = 32 * w + lane, t = S0 + u < L ? S0 + u : S0 + u - L;
+        const int sv = lp[t];
+        int nx = __shfl_down_sync(kAll, sv, 1);
+        if (lane == 31) nx = lp[t + 1 == L ? 0 : t + 1];
+        const bool fr = (u < cover) & (sv == nx) & ops.frozen(t);  // every lane draws: no branch
+        de[u] = ops.de(t, sv);
+        const uint32_t fm = __ballot_sync(kAll, fr), um = __ballot_sync(kAll, sv > 0);
         if (lane == 0) {
-            const int tp = t == 0 ? L - 1 : t - 1;
-            before = lp[tp] == sv && ops.frozen(tp);
+            fw[w] = fm;
+            if (32 * w < own) f.up[w0 + w] = um & fk_below(w, own);
         }
-        const uint32_t hm = __ballot_sync(0xffffffffu, in && !before);
+    }
+    if (threadIdx.x == 0) {  // the bond into the segment's first slice
+        const int t = S0 == 0 ? L - 1 : S0 - 1;
+        before = lp[t] == lp[S0] && ops.frozen(t);
+    }
+    __syncthreads();
+    if (threadIdx.x < kLongCover) {
+        const int w = threadIdx.x;
+        hw[w] = ~((fw[w] << 1) | (w ? fw[w - 1] >> 31 : (uint32_t)before)) & fk_below(w, cover);
+    }
+    __syncthreads();
+    if constexpr (PMC_FK_LONG_CUT == 1) return;
+    if (warp == 0) {
+        int run = -1;
+        for (int b = 0; b < kLongCover; b += 32) {
+            const int w = b + lane;
+            const uint32_t m = w < kLongCover ? hw[w] : 0u;
+            int v = m ? 32 * w + 31 - __clz(m) : -1;
+            for (int o = 1; o < 32; o <<= 1) {
+                const int x = __shfl_up_sync(kAll, v, o);
+                if (lane >= o) v = max(v, x);
+            }
+            v = max(v, run);
+            if (w < kLongCover) upto[w] = v;
+            run = __shfl_sync(kAll, v, 31);
+        }
+        run = INT_MAX;
+        for (int b = (kLongCover - 1) / 32 * 32; b >= 0; b -= 32) {
+            const int w = b + lane;
+            const uint32_t m = w < kLongCover ? hw[w] : 0u;
+            int v = m ? 32 * w + __ffs(m) - 1 : INT_MAX;
+            for (int o = 1; o < 32; o <<= 1) {
+                const int x = __shfl_down_sync(kAll, v, o);
+                if (lane + o < 32) v = min(v, x);
+            }
+            v = min(v, run);
+            if (w < kLongCover) from[w] = v;
+            run = __shfl_sync(kAll, v, 0);
+        }
+        __syncwarp();
+        if (lane == 0) {  // the segment's last head (the halo's left out): its status
+            const int wl = (own - 1) >> 5;
+            const uint32_t m = hw[wl] & fk_below(wl, own);
+            mine = m ? 32 * wl + 31 - __clz(m) : wl ? upto[wl - 1] : -1;
+            fk_long_store(st + seg, (unsigned long long)tag << 32 | (unsigned long long)(mine >= 0 ? S0 + mine + 1 : 0));
+            f.sf[ln * f.nseg + seg] = from[0] < own ? S0 + from[0] : -1;
+        }
+        // the look-back: the nearest segment before this one with a head, or with its inclusive status
+        int c = -1;
+        for (int j0 = seg - 1; j0 >= 0; j0 -= 32) {
+            const int j = j0 - lane;
+            unsigned long long v;
+            unsigned dm;
+            for (int spin = 0;; ++spin) {
+                v = j >= 0 ? fk_long_load(st + j) : 0ull;
+                const bool ready = j < 0 || (uint32_t)(v >> 32) == tag;
+                dm = __ballot_sync(kAll, j >= 0 && ready && (v & (kLongIncl | kLongVal)) != 0);
+                const unsigned rm = __ballot_sync(kAll, ready), need = dm ? dm ^ (dm - 1) : kAll;
+                if ((rm & need) == need) break;  // every lane up to the first decisive one is ready
+                if (spin == kLongSpins) __trap();
+                __nanosleep(64);
+            }
+            if (dm) {
+                c = (int)(__shfl_sync(kAll, v, __ffs(dm) - 1) & kLongVal) - 1;
+                break;
+            }
+        }
         if (lane == 0) {
-            f.hw[ln * f.W + w] = hm;
-            if (hm) {
-                atomicMin(&first, 32 * w + __ffs(hm) - 1);
-                atomicMax(&last, 32 * w + 31 - __clz(hm));
+            carry = c;
+            f.cl[ln * f.nseg + seg] = c;
+            const int incl = mine >= 0 ? S0 + mine : c;
+            fk_long_store(st + seg, (unsigned long long)tag << 32 | kLongIncl | (unsigned long long)(incl + 1));
+        }
+    }
+    __syncthreads();
+    if constexpr (PMC_FK_LONG_CUT == 2) return;
+    // each local slice's offset in its leaf (rel: from its run's head, in the cover or the carry; -1 for the
+    // wrap-around run) and the slices from it to its run's end in the cover (dn); the own slices' leaf starts
+    constexpr int K = kLongCover / kLongWarps;
+    int rel[K], dn[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int w = warp + kLongWarps * k, u = 32 * w + lane;
+        const uint32_t m = hw[w], mb = m & (kAll >> (31 - lane)), ma = m & (0xfffffffeu << lane);
+        const int hl = mb ? 32 * w + 31 - __clz(mb) : w ? upto[w - 1] : -1;
+        const int nh = ma ? 32 * w + __ffs(ma) - 1 : w + 1 < kLongCover ? from[w + 1] : INT_MAX;
+        rel[k] = hl >= 0 ? u - hl : carry >= 0 ? S0 + u - carry : -1;
+        dn[k] = nh == INT_MAX ? INT_MAX : nh - u;
+        if (w < kLongWords && 32 * w < own) {
+            const bool in = u < own, start = in && rel[k] >= 0 && (rel[k] & (kLongLeaf - 1)) == 0;
+            const uint32_t sm = __ballot_sync(kAll, start && dn[k] < kLongLeaf),
+                           em = __ballot_sync(kAll, start && dn[k] <= kLongLeaf);
+            if (lane == 0) {
+                f.hw[w0 + w] = m & fk_below(w, own);
+                f.sw[w0 + w] = sm;
+                f.ew[w0 + w] = em;
+            }
+            if (start) {
+                if (dn[k] < kLongLeaf)
+                    tails[atomicAdd(&ntail, 1)] = (uint32_t)u | (uint32_t)dn[k] << 16;
+                else
+                    fulls[atomicAdd(&nfull, 1)] = u;
+            }
+            if (in && rel[k] < 0) lf[S0 + u] = de[u];
+        }
+    }
+    __syncthreads();
+    if constexpr (PMC_FK_LONG_CUT == 3) return;
+    for (int e = warp; e < nfull; e += kLongWarps) {  // before the levels below sum the leaf's slices in place
+        const float v = fk_leaf_tree(de + fulls[e]);
+        if (lane == 0) lf[S0 + fulls[e]] = v;
+    }
+    __syncthreads();
+    // the short leaves' perfect trees, level by level in place: a node of 2^c slices at a multiple of 2^c in
+    // its leaf, within its run, is the sum of its halves (TreeSum's additions); a leaf's block of 2^b slices
+    // at its offset o is then the node at o, the largest that starts there
+#pragma unroll
+    for (int c = 1; c < 8; ++c) {
+        const int half = 1 << (c - 1);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int u = 32 * (warp + kLongWarps * k) + lane;
+            if (rel[k] >= 0 && (rel[k] & (2 * half - 1)) == 0 && dn[k] >= 2 * half && u + 2 * half <= 32 * kLongCover)
+                de[u] = __fadd_rn(de[u], de[u + half]);
+        }
+        __syncthreads();
+    }
+    if constexpr (PMC_FK_LONG_CUT == 4) return;
+    for (int e = threadIdx.x; e < ntail; e += kLongThreads) {  // the blocks of n's binary expansion, right-nested
+        const int u = tails[e] & 0xffff, n = tails[e] >> 16;
+        float acc = 0.0f;
+        bool first = true;
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+            if ((n >> b) & 1) {
+                const float x = de[u + (n & ~((2 << b) - 1))];
+                acc = first ? x : __fadd_rn(x, acc);
+                first = false;
+            }
+        lf[S0 + u] = acc;
+    }
+    // the line's last block to finish: the wrap-around run's leaves, or a fully frozen line
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        last = (atomicAdd(f.done + ln, 1u) + 1u) % (unsigned)f.nseg == 0;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const int H = (int)(fk_long_load(st + f.nseg - 1) & kLongVal) - 1;  // the line's last head
+    if (H < 0) {  // no head: one cluster headed at tau = 0, summed in XLA's order
+        const float tot = xla_total<kLongThreads>(lf, L, f.xs + ln * f.xw);
+        if (threadIdx.x == 0) f.info[ln] = ops.flips(0, tot) ? -2 : -1;
+        return;
+    }
+    if (warp == 0) {  // the line's first head
+        int F = INT_MAX;
+        for (int b = 0; b < f.nseg && F == INT_MAX; b += 32) {
+            const int x = b + lane < f.nseg ? __ldcg(f.sf + ln * f.nseg + b + lane) : -1;
+            F = (int)__reduce_min_sync(kAll, (unsigned)(x >= 0 ? x : INT_MAX));
+        }
+        if (lane == 0) firsthead = F;
+    }
+    __syncthreads();
+    const int F = firsthead;
+    // the wrap-around run's leaves before F, at relative multiples of kLongLeaf from H, from their dE in lf
+    for (int p = ((H - L) % kLongLeaf + kLongLeaf) % kLongLeaf + kLongLeaf * threadIdx.x; p < F;
+         p += kLongLeaf * kLongThreads) {
+        const int n = min(kLongLeaf, F - p);
+        TreeSum<tree_depth(kLongLeaf)> sum;
+        for (int j = 0; j < n; ++j) sum.add(__ldcg(lf + p + j));
+        lf[p] = sum.total();
+        if (n < kLongLeaf) atomicOr(f.sw + ln * f.W + (p >> 5), 1u << (p & 31));
+        if (F - p <= kLongLeaf) atomicOr(f.ew + ln * f.W + (p >> 5), 1u << (p & 31));
+    }
+    if (threadIdx.x == 0) f.info[ln] = H;
+}
+
+// The total dE of the run headed at slice x: its leaves walked from x, each
+// full one added to a TreeSum and the short one (the tail) nested under them,
+// until the leaf that ends the run (at most L / kLongLeaf + 1 leaves: the
+// bound only guards a fault from a hang).
+__device__ __forceinline__ float fk_long_fold(const FkLong& f, size_t ln, int x) {
+    const float* lf = f.lf + ln * 32 * f.W;
+    const uint32_t* sw = f.sw + ln * f.W;
+    const uint32_t* ew = f.ew + ln * f.W;
+    TreeSum<tree_depth(kLongMaxL / kLongLeaf)> sum;
+    for (int j = 0; j <= f.L / kLongLeaf; ++j) {
+        const float v = lf[x];
+        const uint32_t b = 1u << (x & 31);
+        if (sw[x >> 5] & b) return sum.total(v, true);
+        sum.add(v);
+        if (ew[x >> 5] & b) break;
+        x = x + kLongLeaf < f.L ? x + kLongLeaf : x + kLongLeaf - f.L;
+    }
+    return sum.total();
+}
+
+// 2.
+template <class Ops>
+__global__ void __launch_bounds__(kLongThreads) fk_long_apply(int8_t* __restrict__ s, typename Ops::Args a, Geo g,
+                                                              uint32_t ctr, int color, FkLong f) {
+    constexpr unsigned kAll = 0xffffffffu;
+    __shared__ uint32_t hw[kLongWords], dw[kLongWords];  // the segment's heads and their decisions
+    __shared__ int prev[kLongWords];                     // the decision of the last head before each word
+    __shared__ int cdec;                                 // the carried head's decision
+    __shared__ int heads[kLongSlices], nheads;           // the segment's heads
+    const int r = blockIdx.z, L = g.L, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const size_t ln = (size_t)r * f.nl + blockIdx.y;
+    const int S0 = blockIdx.x * kLongSlices, own = min(kLongSlices, L - S0), nw = (own + 31) >> 5;
+    const int i = site_of(g, blockIdx.y, color);
+    int8_t* lp = s + ((size_t)r * g.nvars + i) * L + S0;
+    const uint32_t* up = f.up + ln * f.W + (S0 >> 5);
+    if constexpr (PMC_FK_LONG_CUT != 0) return;
+    const int info = f.info[ln];
+    if (info < 0) {  // a fully frozen line, decided at tau = 0: all or nothing
+        if (info == -2)
+            for (int w = warp; w < nw; w += kLongWarps) {
+                const int u = 32 * w + lane;
+                if (u < own) lp[u] = (int8_t)((up[w] >> lane) & 1u ? -1 : 1);
+            }
+        return;
+    }
+    const Ops ops(s, a, g, r, i, ctr);
+    if (threadIdx.x < nw) hw[threadIdx.x] = f.hw[ln * f.W + (S0 >> 5) + threadIdx.x];
+    if (threadIdx.x < kLongWords) dw[threadIdx.x] = 0u;
+    if (threadIdx.x == 0) nheads = 0;
+    __syncthreads();
+    for (int w = warp; w < nw; w += kLongWarps)  // the heads, listed so that each takes a thread of its own
+        if ((hw[w] >> lane) & 1u) heads[atomicAdd(&nheads, 1)] = 32 * w + lane;
+    __syncthreads();
+    for (int e = threadIdx.x; e <= nheads; e += kLongThreads) {
+        if (e < nheads) {
+            const int u = heads[e];
+            if (ops.flips(S0 + u, fk_long_fold(f, ln, S0 + u))) atomicOr(dw + (u >> 5), 1u << (u & 31));
+        } else {  // the last head before the segment, else (the wrap-around run) the line's last
+            cdec = 0;
+            if (!(hw[0] & 1u)) {
+                const int c = f.cl[ln * f.nseg + blockIdx.x], h = c >= 0 ? c : info;
+                cdec = ops.flips(h, fk_long_fold(f, ln, h));
             }
         }
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-        f.sf[ln * f.nseg + blockIdx.x] = first == INT_MAX ? -1 : first;
-        f.sl[ln * f.nseg + blockIdx.x] = last;
-    }
-}
-
-// 2. grid (1, lines of the color, replicas), a warp a line.
-__global__ void __launch_bounds__(32) fk_long_carry(FkLong f) {
-    const size_t ln = f.line();
-    const int* sf = f.sf + ln * f.nseg;
-    const int* sl = f.sl + ln * f.nseg;
-    int* cf = f.cf + ln * f.nseg;
-    int* cl = f.cl + ln * f.nseg;
-    const int lane = threadIdx.x, n = f.nseg;
-    int lo = INT_MAX, hi = -1;  // the line's first and last head
-    for (int x = lane; x < n; x += 32) {
-        if (sf[x] >= 0) lo = min(lo, sf[x]);
-        hi = max(hi, sl[x]);
-    }
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
-    int run = -1;  // the last head of the segments before this round's
-    for (int b = 0; b < n; b += 32) {
-        int v = b + lane < n ? sl[b + lane] : -1;
+    if (warp == 0) {  // the last word before each word that holds a head
+        int v = lane < nw && hw[lane] ? lane : -1;
         for (int o = 1; o < 32; o <<= 1) {
-            const int u = __shfl_up_sync(0xffffffffu, v, o);
-            if (lane >= o) v = max(v, u);
+            const int x = __shfl_up_sync(kAll, v, o);
+            if (lane >= o) v = max(v, x);
         }
-        int ex = __shfl_up_sync(0xffffffffu, v, 1);
-        ex = max(lane == 0 ? -1 : ex, run);
-        if (b + lane < n) cl[b + lane] = ex >= 0 ? ex : hi;
-        run = max(run, __shfl_sync(0xffffffffu, v, 31));
-    }
-    run = INT_MAX;  // the first head of the segments after this round's
-    for (int b = (n - 1) / 32 * 32; b >= 0; b -= 32) {
-        int v = b + lane < n && sf[b + lane] >= 0 ? sf[b + lane] : INT_MAX;
-        for (int o = 1; o < 32; o <<= 1) {
-            const int u = __shfl_down_sync(0xffffffffu, v, o);
-            if (lane + o < 32) v = min(v, u);
-        }
-        int ex = __shfl_down_sync(0xffffffffu, v, 1);
-        ex = min(lane == 31 ? INT_MAX : ex, run);
-        if (b + lane < n) cf[b + lane] = ex != INT_MAX ? ex : lo == INT_MAX ? -1 : lo;
-        run = min(run, __shfl_sync(0xffffffffu, v, 0));
-    }
-}
-
-// A segment's head words and, for each of its words, the last head at or
-// before its end within the segment (upto) and the first at or after its
-// start (from), with the segment's carries: where each slice's run starts
-// and ends. Loaded by fk_long_segment (a barrier).
-struct FkSeg {
-    uint32_t hw[kLongWords];
-    int upto[kLongWords], from[kLongWords];
-    int cl, cf;
-
-    // the nearest head at or before slice t (word k of the segment), around the ring
-    __device__ __forceinline__ int head_at(int k, int lane, int t) const {
-        const uint32_t m = hw[k] & (0xffffffffu >> (31 - lane));
-        if (m) return t - lane + 31 - __clz(m);
-        return k > 0 && upto[k - 1] >= 0 ? upto[k - 1] : cl;
-    }
-    // the first head after slice t, around the ring (t itself for a line's only head)
-    __device__ __forceinline__ int head_after(int k, int lane, int t) const {
-        const uint32_t m = hw[k] & (0xfffffffeu << lane);
-        if (m) return t - lane + __ffs(m) - 1;
-        return k + 1 < kLongWords && from[k + 1] != INT_MAX ? from[k + 1] : cf;
-    }
-};
-
-__device__ __forceinline__ void fk_long_segment(FkSeg& sg, const FkLong& f, size_t ln) {
-    if (threadIdx.x < 32) {
-        const int lane = threadIdx.x, w = blockIdx.x * kLongWords + lane;
-        const uint32_t m = w < f.W ? f.hw[ln * f.W + w] : 0u;
-        int last = m ? 32 * w + 31 - __clz(m) : -1, first = m ? 32 * w + __ffs(m) - 1 : INT_MAX;
-        for (int o = 1; o < 32; o <<= 1) {
-            const int u = __shfl_up_sync(0xffffffffu, last, o), d = __shfl_down_sync(0xffffffffu, first, o);
-            if (lane >= o) last = max(last, u);
-            if (lane + o < 32) first = min(first, d);
-        }
-        sg.hw[lane] = m;
-        sg.upto[lane] = last;
-        sg.from[lane] = first;
-        if (lane == 0) {
-            sg.cl = f.cl[ln * f.nseg + blockIdx.x];
-            sg.cf = f.cf[ln * f.nseg + blockIdx.x];
-        }
+        const int x = __shfl_up_sync(kAll, v, 1), ex = lane ? x : -1;
+        prev[lane] = ex >= 0 ? (int)((dw[ex] >> (31 - __clz(hw[ex]))) & 1u) : cdec;
     }
     __syncthreads();
-}
-
-// The slices from t to the end of its run, which ends before the head e.
-__device__ __forceinline__ int fk_long_left(int t, int e, int L) {
-    const int m = e - t - 1;
-    return (m < 0 ? m + L : m) + 1;
-}
-
-// 3.
-__global__ void __launch_bounds__(kLongThreads) fk_long_leaves(FkLong f) {
-    __shared__ FkSeg sg;
-    const size_t ln = f.line();
-    fk_long_segment(sg, f, ln);
-    if (sg.cl < 0) return;  // no head: a fully frozen line (the whole block)
-    const int L = f.L, lane = threadIdx.x & 31;
-    const float* de = f.de + ln * 32 * f.W;
-    for (int k = threadIdx.x >> 5; k < kLongWords; k += kLongThreads / 32) {
-        const int t = 32 * (blockIdx.x * kLongWords + k) + lane;
-        if (t >= L) break;
-        const int h = sg.head_at(k, lane, t), u = t - h < 0 ? t - h + L : t - h;
-        if (u % kLongLeaf) continue;
-        const int n = min(kLongLeaf, fk_long_left(t, sg.head_after(k, lane, t), L));
-        TreeSum<tree_depth(kLongLeaf)> sum;
-        for (int j = 0, x = t; j < n; ++j, x = x + 1 == L ? 0 : x + 1) sum.add(de[x]);
-        f.lf[ln * 32 * f.W + t] = sum.total();
+    for (int w = warp; w < nw; w += kLongWarps) {
+        const int u = 32 * w + lane;
+        const uint32_t m = hw[w] & (kAll >> (31 - lane));
+        const bool d = m ? (dw[w] >> (31 - __clz(m))) & 1u : prev[w] != 0;
+        if (u < own && d) lp[u] = (int8_t)((up[w] >> lane) & 1u ? -1 : 1);
     }
 }
 
-// 4.
-template <class Ops>
-__global__ void __launch_bounds__(kLongThreads) fk_long_decide(const int8_t* __restrict__ s, typename Ops::Args a,
-                                                               Geo g, uint32_t ctr, int color, FkLong f) {
-    __shared__ FkSeg sg;
-    const size_t ln = f.line();
-    fk_long_segment(sg, f, ln);
-    const int r = blockIdx.z, i = site_of(g, blockIdx.y, color), L = g.L, lane = threadIdx.x & 31;
-    const Ops ops(s, a, g, r, i, ctr);
-    const float* lf = f.lf + ln * 32 * f.W;
-    uint32_t* dw = f.dw + ln * f.W;
-    if (sg.cl < 0) {  // one cluster headed at tau = 0, summed in XLA's order (lf the scratch)
-        if (blockIdx.x != 0) return;
-        const float tot = xla_total<kLongThreads>(f.de + ln * 32 * f.W, L, f.lf + ln * 32 * f.W);
-        if (threadIdx.x == 0) dw[0] = ops.flips(0, tot);
-        return;
-    }
-    for (int k = threadIdx.x >> 5; k < kLongWords; k += kLongThreads / 32) {
-        const int w = blockIdx.x * kLongWords + k, t = 32 * w + lane;
-        if (w >= f.W) break;  // the whole warp
-        bool flip = false;
-        if (t < L && ((sg.hw[k] >> lane) & 1u)) {
-            const int n = fk_long_left(t, sg.head_after(k, lane, t), L), q = n / kLongLeaf, rest = n % kLongLeaf;
-            TreeSum<tree_depth(kLongMaxL / kLongLeaf)> sum;
-            int x = t;
-            for (int j = 0; j < q; ++j, x = x + kLongLeaf < L ? x + kLongLeaf : x + kLongLeaf - L) sum.add(lf[x]);
-            flip = ops.flips(t, sum.total(rest ? lf[x] : 0.0f, rest != 0));
-        }
-        const uint32_t m = __ballot_sync(0xffffffffu, flip);
-        if (lane == 0) dw[w] = m;
-    }
-}
-
-// 5.
-__global__ void __launch_bounds__(kLongThreads) fk_long_flip(int8_t* __restrict__ s, Geo g, int color, FkLong f) {
-    __shared__ FkSeg sg;
-    const size_t ln = f.line();
-    fk_long_segment(sg, f, ln);
-    const int L = g.L, lane = threadIdx.x & 31;
-    int8_t* lp = s + ((size_t)blockIdx.z * g.nvars + site_of(g, blockIdx.y, color)) * L;
-    const uint32_t* dw = f.dw + ln * f.W;
-    const bool whole = sg.cl < 0 && (dw[0] & 1u);  // a fully frozen line decided at tau = 0
-    if (sg.cl < 0 && !whole) return;
-    for (int k = threadIdx.x >> 5; k < kLongWords; k += kLongThreads / 32) {
-        const int t = 32 * (blockIdx.x * kLongWords + k) + lane;
-        if (t >= L) break;
-        bool flip = whole;
-        if (!whole) {
-            const int h = sg.head_at(k, lane, t);
-            flip = (dw[h >> 5] >> (h & 31)) & 1u;
-        }
-        if (flip) lp[t] = (int8_t)(-lp[t]);
-    }
-}
-
-// Runs one color's five launches on st.
+// Runs one color's two launches on st; tag tells the launch's status words
+// from the call's earlier launches' (2 t + color + 1 at sweep t).
 template <class Ops>
 cudaError_t fk_long_phase(int8_t* s, const typename Ops::Args& a, const Geo& g, int R, uint32_t ctr, int color,
-                          const FkLong& f, cudaStream_t st) {
+                          uint32_t tag, const FkLong& f, cudaStream_t st) {
     const dim3 grid = fk_long_grid(f, R);
-    fk_long_scan<Ops><<<grid, kLongThreads, 0, st>>>(s, a, g, ctr, color, f);
-    fk_long_carry<<<dim3(1, f.nl, R), 32, 0, st>>>(f);
-    fk_long_leaves<<<grid, kLongThreads, 0, st>>>(f);
-    fk_long_decide<Ops><<<grid, kLongThreads, 0, st>>>(s, a, g, ctr, color, f);
-    fk_long_flip<<<grid, kLongThreads, 0, st>>>(s, g, color, f);
+    fk_long_sums<Ops><<<grid, kLongThreads, 0, st>>>(s, a, g, ctr, color, tag, f);
+    fk_long_apply<Ops><<<grid, kLongThreads, 0, st>>>(s, a, g, ctr, color, f);
     return cudaGetLastError();
 }
 

@@ -26,7 +26,7 @@ and couplings in shared memory, the swap features of the final state written
 by the kernel) where ``wl.resident_plan`` admits the shape (lines up to
 ``wl.MAX_LTAU`` slices), else the multi-launch kernels (four launches a
 sweep, the features then from ``swap_features``; a line too long for one
-block's shared memory, ``wl.cluster_long``, takes the five ``fk_long_*``
+block's shared memory, ``wl.cluster_long``, takes the two ``fk_long_*``
 launches a color in place of its cluster launch). Both equal the plain
 version bit for bit. Each takes any replica count: the route and its plan
 are chosen from the whole shape, and its launches run on chunks of replicas

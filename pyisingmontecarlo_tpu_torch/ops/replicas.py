@@ -24,8 +24,8 @@ The limits, read from ``csrc/``:
 - ``ACC_MAX``: ``wl_resident`` and ``wl_tiled`` add to ``acc + 3 * r + k``
   with an int ``r`` (``wl.cu``).
 - ``LONG_SPINS``: a launch of ``fk_long_*`` keeps its lines in scratch of
-  about 4.1 bytes a spin (``fk_long_bytes``, ``worldline.cuh``); fewer than
-  2^31 spins a launch keep it under 9 GB, beside a state of twice 2 GiB.
+  about 2.3 bytes a spin (``fk_long_bytes``, ``worldline.cuh``); fewer than
+  2^31 spins a launch keep it to about 5 GB, beside a state of twice 2 GiB.
 
 Every other offset over the replica axis is 64-bit (``size_t``) in the
 kernels; none of them counts spins in an int.

@@ -37,8 +37,9 @@ one block per spatial tile of a replica with the tile and its halo in shared
 memory) where a tile of at least ``TILE_MIN`` sites a side fits
 (``tiled_plan``); else the multi-launch kernels (five launches a sweep: both
 tau parities of a color in one site launch; a line too long for one block's
-shared memory, ``cluster_long``, takes the five ``fk_long_*`` launches a
-color in place of its cluster launch). The resident and tiled routes take
+shared memory, ``cluster_long``, takes the two ``fk_long_*`` launches a
+color, ``fk_long_sums`` and ``fk_long_apply``, in place of its cluster
+launch). The resident and tiled routes take
 lines up to ``MAX_LTAU`` slices, the multi-launch route every line the gate
 admits, as the JAX kernel does (up to 2^22 spins a replica). All three equal
 the plain version bit for bit. Each takes any replica count: the route and
@@ -104,8 +105,9 @@ DRAWS_PER_SWEEP = 8
 LAUNCHES_PER_SWEEP = 5  # multi-launch route: 2 site launches (both parities of a color each), 2 cluster, 1 accumulation
 # and where the line takes fk_long_* (cluster_long): 3 of those launches a
 # sweep (2 site, 1 accumulation), counted in wl_sweeps.launches, and
-# LONG_LAUNCHES_PER_SWEEP fk_long_* launches (5 a color), in wl_sweeps.long_launches
-LONG_LAUNCHES_PER_SWEEP = 10
+# LONG_LAUNCHES_PER_SWEEP fk_long_* launches (2 a color: fk_long_sums,
+# fk_long_apply), in wl_sweeps.long_launches
+LONG_LAUNCHES_PER_SWEEP = 4
 MAX_LTAU = 4096  # the resident and tiled routes' longest line (csrc/worldline.cuh, kMaxL)
 # the JAX kernel's gate (wl_pallas._MAX_PLANE_BYTES_LARGE): one replica's
 # int32 plane of nvars * L_tau
@@ -247,7 +249,7 @@ def fk_line_bytes(ltau: int) -> int:
 
 def cluster_long(ltau: int, limit: int) -> bool:
     """Whether the multi-launch cluster phase takes ``fk_long_*`` (the line in
-    global memory, five launches a color) at ``ltau`` on a card of ``limit``
+    global memory, two launches a color) at ``ltau`` on a card of ``limit``
     bytes of opt-in shared memory per block (``csrc/worldline.cuh``,
     ``fk_long``): where one line's buffers pass one block, or its frozen sum
     would pass two levels of XLA's windows (32,768 slices); past 26,944
@@ -562,9 +564,10 @@ def _stream(x):
 def long_scratch(x, defines: tuple = ()):
     """The device scratch the multi-launch kernels take for the state
     ``x[R, nvars, L]`` on its CUDA device where the line is too long for one
-    block (``pmc_long_scratch_bytes``, about 8.3 bytes a slice of a color's
-    lines; from torch's caching allocator), else None; the chunks of a call
-    share that of the largest. Call it with that device current."""
+    block (``pmc_long_scratch_bytes``, about 4.6 bytes a slice of a color's
+    lines; from torch's caching allocator; the kernel library zeroes its
+    status words once a call), else None; the chunks of a call share that of
+    the largest. Call it with that device current."""
     from .. import _kernels
 
     R, nvars, L = x.shape

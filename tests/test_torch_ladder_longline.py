@@ -11,11 +11,13 @@ kernel route at time lines past 4096 slices, up to the JAX kernel's gate
   spins and past 65,535 replicas, which neither rule reads; a
   ``LatticeTempering`` ladder chooses the kernel route at such counts (its
   decision reads shapes only: no plane built).
-- A numpy model of the cluster phase that ``csrc/worldline.cuh`` runs for a
-  line too long for one block (``fk_long_*``: heads and the carries of
-  segments of 32 words, leaves of 256 slices summed from each run's head,
-  each head folding its leaves onto its tail, a fully frozen line in XLA's
-  order) against ``wl.fk_flips``, at L_tau = 40,960 and 2^20: random frozen
+- The numpy model (``fk_long_model.py``) of the cluster phase that
+  ``csrc/worldline.cuh`` runs for a line too long for one block
+  (``fk_long_sums`` and ``fk_long_apply``, two launches a color: segments of
+  1024 slices and a halo, the last head before a segment by a look-back,
+  leaves of 256 slices summed where they start, each head folding its
+  leaves onto its tail, a fully frozen line in XLA's order) against
+  ``wl.fk_flips``, at L_tau = 40,960 and 2^20: random frozen
   bonds (runs past 256 and 2^k slices, runs round the ring), lines with a
   single thawed bond (one run of L_tau slices), fully frozen lines. It
   checks the algorithm, not the kernel, and is a second copy of it that can
@@ -36,6 +38,7 @@ torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 from jax.experimental.pallas import tpu as pltpu
 
+from fk_long_model import LEAF, fk_long_model
 from helpers import dense_tfim_energy
 from pyisingmontecarlo_tpu.graph import grid_2d_edges
 from pyisingmontecarlo_tpu.ops import wl_ladder_pallas as wlp
@@ -143,95 +146,6 @@ def test_tempering_takes_the_kernel_at_any_replica_count():
     assert not _tpu_rule("ring", 4, 4, 1 << 20)
 
 
-# the long-line cluster phase of csrc/worldline.cuh: segments of SEG_WORDS words of 32 slices (a block),
-# leaves of LEAF slices
-LEAF, SEG_WORDS, NONE = 256, 32, 2**31 - 1
-
-
-def _tree(x):
-    """The perfect binary tree of additions over the last axis (a power of two), in f32."""
-    while x.shape[-1] > 1:
-        x = (x[..., 0::2] + x[..., 1::2]).astype(np.float32)
-    return x[..., 0]
-
-
-def _nested(vals, lengths, tail=None):
-    """TreeSum's total of each row's first ``lengths`` values: the perfect
-    trees of the binary expansion of its length, laid from its start, summed
-    right-nested (the smallest first), onto ``tail`` where it is not NaN."""
-    acc = np.zeros(len(lengths), np.float32) if tail is None else np.nan_to_num(tail).astype(np.float32)
-    first = np.ones(len(lengths), bool) if tail is None else np.isnan(tail)
-    for b in range(int(lengths.max()).bit_length() if len(lengths) else 0):
-        has = (lengths >> b) & 1 == 1
-        if has.any():
-            start = lengths[has] & ~((2 << b) - 1)
-            block = _tree(np.take_along_axis(vals[has], start[:, None] + np.arange(1 << b)[None], 1))
-            acc[has] = np.where(first[has], block, (block + acc[has]).astype(np.float32))
-            first[has] = False
-    return acc
-
-
-def _xla_order(x):
-    """xla_total: windows of 32 padded evenly at both ends, level by level, then the last 32 or fewer."""
-    while len(x) > 32:
-        m = -(-len(x) // 32)
-        pad = np.zeros(32 * m, np.float32)
-        lo = (32 * m - len(x)) // 2
-        pad[lo:lo + len(x)] = x
-        x = np.zeros(m, np.float32)
-        for j in range(32):
-            x = (x + pad[j::32]).astype(np.float32)
-    tot = np.float32(0.0)
-    for v in x:
-        tot = np.float32(tot + v)
-    return tot
-
-
-def _fk_long(active, de, log_u):
-    """``fk_long_*`` on one line, in numpy: which slices flip."""
-    L = len(active)
-    heads = ~np.roll(active.astype(bool), 1)  # after a thawed bond
-    if not heads.any():  # one cluster headed at 0 (fk_long_decide's segment 0)
-        return np.full(L, log_u[0] < -_xla_order(de))
-    S = 32 * SEG_WORDS  # slices a segment
-    nseg = -(-L // S)
-    t = np.arange(nseg * S)
-    ht = np.zeros(nseg * S, bool)
-    ht[:L] = heads
-    # fk_long_scan: each segment's first and last head; fk_long_carry: the last head before each segment
-    # and the first after it, around the ring
-    sl = np.where(ht, t, -1).reshape(nseg, S).max(1)
-    sf = np.where(ht, t, NONE).reshape(nseg, S).min(1)
-    cl = np.maximum.accumulate(np.concatenate([[-1], sl[:-1]]))
-    cl = np.where(cl >= 0, cl, sl.max())
-    cf = np.minimum.accumulate(np.concatenate([sf[1:], [NONE]])[::-1])[::-1]
-    cf = np.where(cf < NONE, cf, sf.min())
-    # FkSeg: each slice's nearest head at or before it in its segment, else the carry; the first after it
-    upto = np.maximum.accumulate(np.where(ht, t, -1).reshape(nseg, S), 1)
-    h = np.where(upto >= 0, upto, cl[:, None]).reshape(-1)[:L]
-    since = np.minimum.accumulate(np.where(ht, t, NONE).reshape(nseg, S)[:, ::-1], 1)[:, ::-1]
-    after = np.concatenate([since[:, 1:], np.full((nseg, 1), NONE)], 1)
-    e = np.where(after < NONE, after, cf[:, None]).reshape(-1)[:L]
-    t = t[:L]
-    left = (e - t - 1) % L + 1  # slices from t to its run's end
-    # fk_long_leaves: from each slice at a relative multiple of LEAF, its leaf or its run's tail
-    start = np.nonzero((t - h) % L % LEAF == 0)[0]
-    n = np.minimum(left[start], LEAF)
-    lf = np.zeros(L, np.float32)
-    for width in (32, LEAF):  # the short ones in narrow rows
-        rows = (n <= width) if width < LEAF else (n > 32)
-        if rows.any():
-            lf[start[rows]] = _nested(de[(start[rows, None] + np.arange(width)[None]) % L], n[rows])
-    # fk_long_decide: each head folds its leaves onto its tail
-    hs = np.nonzero(heads)[0]
-    q, rest = left[hs] // LEAF, left[hs] % LEAF
-    tail = np.where(rest > 0, lf[(hs + q * LEAF) % L], np.nan).astype(np.float32)
-    leaves = lf[(hs[:, None] + LEAF * np.arange(max(1, int(q.max())))[None]) % L]
-    decide = np.zeros(L, bool)
-    decide[hs] = log_u[hs] < -_nested(leaves, q, tail)
-    return decide[h]  # fk_long_flip: each slice takes its nearest head's decision
-
-
 def _lines(L, seed):
     """``(active, de, log_u)`` of 16 lines ``[RN, L]``: random frozen bonds at
     densities from 0.3 to 0.9999 (runs past 256 and past 2^k slices, runs
@@ -261,7 +175,7 @@ def test_long_line_model_equals_fk_flips(L):
     want = wl.fk_flips(torch.from_numpy(active)[None], torch.from_numpy(de)[None],
                        torch.from_numpy(log_u)[None])[0].numpy()
     for r in range(active.shape[0]):
-        np.testing.assert_array_equal(_fk_long(active[r], de[r], log_u[r]), want[r], err_msg=f"line {r}")
+        np.testing.assert_array_equal(fk_long_model(active[r], de[r], log_u[r]), want[r], err_msg=f"line {r}")
     runs = [np.diff(np.nonzero(~np.roll(a.astype(bool), 1))[0]) for a in active if not a.all()]
     assert max(int(x.max()) for x in runs if len(x)) > 4 * LEAF  # heads fold several leaves
     assert want.any() and not want.all()
