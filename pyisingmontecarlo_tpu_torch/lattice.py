@@ -32,6 +32,7 @@ from .engines import classical as ce
 from .graph import compile_graph, detect_square_torus
 from .ops import lattice2d as l2d
 from .rng import MasterRng, key_data_from_seeds, key_tensor, replica_seeds_i32
+from .utils.profiling import span
 
 __all__ = ["Lattice", "resolve_device"]
 
@@ -238,18 +239,22 @@ class Lattice:
     ):
         """-> (energies[n] f64, states[n, nvars] bool). The move flags are
         no-ops on the torus (single-spin updates, uniform weights)."""
-        self._check_classical()
-        beta_arr = np.full(int(timesteps), beta, np.float32)
-        if self._fast2d():
-            s0, seeds, J, h = self._torus_args(num_experiments)
-            s = l2d.run_steps_2d(s0, seeds, beta_arr, J, h)
-            es = l2d.energy_2d(s, J, h)
+        with span("lattice.run_monte_carlo"):
+            self._check_classical()
+            beta_arr = np.full(int(timesteps), beta, np.float32)
+            if self._fast2d():
+                with span("lattice.setup"):
+                    s0, seeds, J, h = self._torus_args(num_experiments)
+                s = l2d.run_steps_2d(s0, seeds, beta_arr, J, h)
+                # the energies' copy waits for the sweeps, outside the states' span
+                es = l2d.energy_2d(s, J, h).cpu().numpy().astype(np.float64)
+                with span("lattice.states"):
+                    return es, self._states(s, s.shape[0])
+            ga, bias, s0, keys = self._classical_setup(num_experiments)
+            s, _ = ce.run_steps_chunked(ga, bias, s0, keys, beta_arr,
+                                        **self._move_args(only_basic_moves, edge_move_importance_sampling))
+            es = ce.energy(ga, bias, s)
             return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
-        ga, bias, s0, keys = self._classical_setup(num_experiments)
-        s, _ = ce.run_steps_chunked(ga, bias, s0, keys, beta_arr,
-                                    **self._move_args(only_basic_moves, edge_move_importance_sampling))
-        es = ce.energy(ga, bias, s)
-        return es.cpu().numpy().astype(np.float64), self._states(s, s.shape[0])
 
     def run_monte_carlo_sampling(
         self,

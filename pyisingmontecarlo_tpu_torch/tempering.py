@@ -68,6 +68,7 @@ from .rng import (MasterRng, key_data_from_seeds, key_data_of, key_tensor, rando
                   split_all, uniform_f32)
 from .utils import cbor
 from .utils.accum import kadd, kfinal, kzero
+from .utils.profiling import span
 
 __all__ = ["LatticeTempering", "key_tables", "swap_uniforms", "swap_features", "batched_graph_arrays"]
 
@@ -298,9 +299,10 @@ class LatticeTempering:
         nsamples = T // freq if freq else 0
         s, planes, dev = m["s"], m["planes"], self.device
         R = s.shape[0]  # this rank's replicas under a shard
-        seeds, uniforms, m["key_data"], self._swapkey = key_tables(m["key_data"], self._swapkey, T, sf,
-                                                                    len(self.graphs))
-        seeds, uniforms = torch.from_numpy(seeds).to(dev), torch.from_numpy(uniforms).to(dev)
+        with span("tempering.key_tables"):
+            seeds, uniforms, m["key_data"], self._swapkey = key_tables(m["key_data"], self._swapkey, T, sf,
+                                                                        len(self.graphs))
+            seeds, uniforms = torch.from_numpy(seeds).to(dev), torch.from_numpy(uniforms).to(dev)
         sums = None
         if with_energy:
             sums = [torch.zeros((R, m["ea"].numel()), dtype=torch.int64, device=dev),
@@ -329,8 +331,10 @@ class LatticeTempering:
             if freq and t % freq == 0 and t // freq <= nsamples:
                 samples.append(s[:, :, 0])
         m["s"] = s
-        self.total_swaps += int(accepted)
-        out = self._gather(m, torch.stack(samples, 1) if samples else s.new_empty((R, 0, self.nvars))).transpose(0, 1)
+        self.total_swaps += int(accepted)  # waits for the sweeps, before the samples' span
+        with span("tempering.samples"):
+            out = self._gather(m, torch.stack(samples, 1) if samples else s.new_empty((R, 0, self.nvars)))
+            out = out.transpose(0, 1)
         return (self._energy_sum(m, T, self._gather(m, sums)) if with_energy else None), out
 
     def _run_generic(self, m: dict, T: int, sf: int, freq: int, with_energy: bool):
@@ -342,8 +346,9 @@ class LatticeTempering:
         p = m["p"] if "shard" not in m else type(m["p"])(*(m["shard"].block(x) for x in m["p"]))
         R = m["s"].shape[0]  # this rank's replicas under a shard
         nsamples = T // freq if freq else 0
-        uniforms, self._swapkey = swap_uniforms(self._swapkey, T // sf, len(self.graphs))
-        uniforms = torch.from_numpy(uniforms).to(dev)
+        with span("tempering.key_tables"):
+            uniforms, self._swapkey = swap_uniforms(self._swapkey, T // sf, len(self.graphs))
+            uniforms = torch.from_numpy(uniforms).to(dev)
         ea, eb = m["ea"].long(), m["eb"].long()
         esum = kzero(R, dev)
         accepted = torch.zeros((), dtype=torch.int64, device=dev)
@@ -366,8 +371,10 @@ class LatticeTempering:
         m["s"], keys = wl.walk(m["s"], key_tensor(m["key_data"], dev), T, slots, step)
         m["key_data"] = key_data_of(keys)
         self.total_swaps += int(accepted)
-        out = self._gather(m, torch.stack(samples, 1) if samples else m["s"].new_empty((R, 0, self.nvars)))
-        return (kfinal(self._gather(m, esum)) if with_energy else None), out.transpose(0, 1)
+        with span("tempering.samples"):
+            out = self._gather(m, torch.stack(samples, 1) if samples else m["s"].new_empty((R, 0, self.nvars)))
+            out = out.transpose(0, 1)
+        return (kfinal(self._gather(m, esum)) if with_energy else None), out
 
     def _energy_sum(self, m: dict, T: int, sums) -> np.ndarray:
         """The energy estimator summed over ``T`` sweeps, per replica slot, from
@@ -392,11 +399,13 @@ class LatticeTempering:
         """-> (states [ngraphs, t/sfreq, nvars] bool, avg_energies [ngraphs]
         f64): sweeps, neighbour swaps every ``replica_swap_freq`` (default 1),
         slice-0 samples every ``sampling_freq`` (default 1)."""
-        swap_freq = int(replica_swap_freq) if replica_swap_freq else 1
-        sfreq = int(sampling_freq) if sampling_freq else 1
-        esum, states = self._run(int(timesteps), swap_freq, sfreq)
-        states = (states == 1).cpu().numpy()  # [t/sfreq, R, nvars]
-        return np.swapaxes(states, 0, 1), esum / max(int(timesteps), 1)
+        with span("tempering.qmc_timesteps_sample"):
+            swap_freq = int(replica_swap_freq) if replica_swap_freq else 1
+            sfreq = int(sampling_freq) if sampling_freq else 1
+            esum, states = self._run(int(timesteps), swap_freq, sfreq)
+            with span("tempering.samples"):
+                states = np.swapaxes((states == 1).cpu().numpy(), 0, 1)  # [R, t/sfreq, nvars]
+            return states, esum / max(int(timesteps), 1)
 
     def get_graph_itime(self, g: int) -> np.ndarray:
         """-> bool [L, nvars], the worldline of replica g."""

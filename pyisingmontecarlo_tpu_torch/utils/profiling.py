@@ -1,4 +1,4 @@
-"""Throughput counters and device traces.
+"""Throughput counters, device traces and the port's program spans.
 
 Counterpart of ``pyisingmontecarlo_tpu/utils/profiling.py``: ``SweepMeter``
 as there, and ``trace`` on ``torch.profiler`` in place of ``jax.profiler``::
@@ -13,6 +13,31 @@ as there, and ``trace`` on ``torch.profiler`` in place of ``jax.profiler``::
 
 The meter reads the host clock: the results of the timed calls must be on the
 host (the ``run_*`` methods return numpy arrays) before the block ends.
+
+**Program spans.** While a profiler runs (``trace`` above, or any
+``torch.profiler.profile``), the port opens a ``record_function`` range at
+each of its layer boundaries listed in ``SPANS``, named ``pmc.<module>.<part>``:
+
+- ``pmc.lattice.run_monte_carlo``: the whole of ``Lattice.run_monte_carlo``,
+  on either route; inside it, on the torus route, ``pmc.lattice.setup`` (the
+  replicas' seeds, their copy to the card and the random initial states) and
+  ``pmc.lattice.states`` (the states compared to +1 and copied to the host,
+  after the energies' copy, which waits for the sweeps);
+- ``pmc.tempering.qmc_timesteps_sample``: the whole of
+  ``LatticeTempering.qmc_timesteps_sample``; inside it (and inside every other
+  method that sweeps the ladder) ``pmc.tempering.key_tables`` (the host's key
+  and swap-uniform tables of the call and their copy to the card, before the
+  first sweep) and ``pmc.tempering.samples`` (the samples' stack after the
+  accepted swaps were read, and their copy to the host).
+
+No span is opened per sweep. In the exported ``trace.json`` (open it at
+https://ui.perfetto.dev or chrome://tracing) the spans lie on the host
+thread's track, on the same clock as the kernels and copies on the card's
+stream, so a stretch where the card idles can be read off against the span
+open above it; ``prof.events()`` holds them by name too. With no profiler
+running, ``span`` checks one flag and returns a shared null context: 0.37 us
+a span on the host of an NVIDIA H100 80GB HBM3 machine, against 13.6 us for a
+bare ``record_function``; under the profiler a span costs about 15.5 us there.
 """
 
 from __future__ import annotations
@@ -22,7 +47,29 @@ import os
 import time
 from dataclasses import dataclass, field
 
-__all__ = ["SweepMeter", "trace"]
+import torch
+
+__all__ = ["SweepMeter", "trace", "span", "SPANS"]
+
+SPANS = (
+    "pmc.lattice.run_monte_carlo",
+    "pmc.lattice.setup",
+    "pmc.lattice.states",
+    "pmc.tempering.qmc_timesteps_sample",
+    "pmc.tempering.key_tables",
+    "pmc.tempering.samples",
+)
+
+_NULL = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """The program span ``"pmc." + name`` (one of ``SPANS``) while a profiler
+    runs, else a shared null context: ``with span("lattice.setup"): ...``."""
+    if _profiling():
+        return torch.profiler.record_function("pmc." + name)
+    return _NULL
 
 
 @dataclass
@@ -67,7 +114,6 @@ def trace(log_dir: str):
     """``torch.profiler`` over the block (CPU, and CUDA where there is a card),
     written to ``log_dir/trace.json`` as a Chrome trace; yields the profiler,
     whose ``key_averages()`` sum the time by operation and kernel."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])

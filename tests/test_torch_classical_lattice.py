@@ -293,6 +293,7 @@ def test_profiling_meter_and_trace(tmp_path):
             lat.run_monte_carlo(0.5, 3, 2)
             m.add(sweeps=3, sites=3 * 2 * 16)
     assert (tmp_path / "tb" / "trace.json").stat().st_size > 0
+    assert "pmc.lattice.run_monte_carlo" in (tmp_path / "tb" / "trace.json").read_text()
     assert any(e.name.startswith("aten::") for e in prof.events())
     assert m.elapsed > 0 and m.sweeps_per_s == pytest.approx(3 / m.elapsed)
     assert m.updates_per_ns == pytest.approx(96 / (m.elapsed * 1e9)) and "sweeps/s" in m.report()
