@@ -417,6 +417,7 @@ WL_SITE_OPS_PER_SPIN = HASH_OPS + 6
 # "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
 # geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
 PT_SIDE, PT_R, PT_LTAU = 12, 64, 60
+GLASS80_SIDE = 80  # the glass80.pt cell's torus (portbench/configs/pmj_glass_80_pt64.json) on the ladder above
 # the long time lines: the 128-ring TFIM at its critical point (J = -1, Gamma = 1) at beta = 4 N = 512,
 # dtau 0.05, so L_tau = 10,240, 64 replicas (finite-size scaling of the ground state takes beta of order N); the
 # tempering ladder above with its rungs at geomspace(0.2, 256, 64), so L_tau = 5120 (low-temperature tempering);
@@ -1633,8 +1634,9 @@ def phase_compare_ladder(dev):
     features: the route the gate picks (or the resident kernel through its
     private launcher where it fits but the gate leaves the shape to the
     multi-launch kernels) and the multi-launch kernels, each against the plain
-    version and against each other; returns (largest |difference| of the
-    multi-launch kernels, of the resident kernel)."""
+    version and against each other (the multi-launch features from
+    pt_swap_features); returns (largest |difference| of the multi-launch
+    kernels, of the resident kernel)."""
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
 
     lim = wl.device_limits(dev)
@@ -1661,6 +1663,9 @@ def phase_compare_ladder(dev):
          [0.0] * PT_R, PT_LTAU, 4),
         (f"wide ladder torus 64^2 +-J R={PT_R} L_tau={PT_LTAU} (main-tempering-wide's shape)", "torus", 64,
          np.array([j for _, j in pt_edges(64)]), bench, [1.0] * PT_R, [0.0] * PT_R, PT_LTAU, 2),
+        (f"glass torus {GLASS80_SIDE}^2 +-J R={PT_R} L_tau={PT_LTAU} (the glass80.pt cell's shape)", "torus",
+         GLASS80_SIDE, np.array([j for _, j in pt_edges(GLASS80_SIDE)]), bench, [1.0] * PT_R, [0.0] * PT_R,
+         PT_LTAU, 2),
     ]
     # the multi-launch route's lengths, each cluster group size fk_group picks: L_tau = 700, 800, 974 (not a
     # multiple of 32), 3906 and 4096, rings and +-J tori (the 32^2 torus at 974 and the 16^2 torus at 3906 stay
@@ -1702,8 +1707,7 @@ def phase_compare_ladder(dev):
         plan, fit = wl.resident_plan(nvars, L, R, pbytes, *lim), wl.resident_plan(nvars, L, R, pbytes, *lim, None)
         x, feats = ladder.ladder_sweeps_reference(s, seeds, planes, T, edges)
         want = (x, *feats)
-        x = ladder._run_multi(s, seeds, planes, T)
-        runs = {"multi": (x, ladder.swap_features(x, *edges))}
+        runs = {"multi": ladder._run_multi(s, seeds, planes, T, edges=edges)}  # features from pt_swap_features
         if plan:
             runs["resident"] = ladder.ladder_sweeps(s, seeds, planes, T, edges)  # the wrapper's own route
         elif fit:
@@ -2405,13 +2409,14 @@ def phase_main_tempering(dev):
 def phase_main_tempering_wide(dev):
     """The tempering path on the same ladder over a 64^2 +-J torus, whose
     plane (245 KB a replica) the gate leaves to the multi-launch kernels;
-    returns the launch count."""
+    returns the launch counts of the ladder kernels and of pt_swap_features."""
     from pyisingmontecarlo_tpu_torch.ops import ladder
 
     T, side = 5, 64
     lt = pt_ladder(dev, side=side)
     lt._materialize()
     reset_counts()
+    features0 = ladder.ladder_sweeps.feature_launches
     t0 = time.perf_counter()
     states, es = lt.qmc_timesteps_sample(T, replica_swap_freq=1)
     torch.cuda.synchronize()
@@ -2419,12 +2424,14 @@ def phase_main_tempering_wide(dev):
     counts = read_counts()
     want = counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T)
     check(counts == want, f"launch counts {counts}, want {want}")
+    features = ladder.ladder_sweeps.feature_launches - features0
+    check(features == T, f"{features} pt_swap_features launches, want {T} (one a one-sweep call)")
     check(states.shape == (PT_R, T, side * side) and states.dtype == np.bool_, f"states {states.shape}")
     check(es.shape == (PT_R,) and es.dtype == np.float64 and np.isfinite(es).all(), f"energies {es.shape}")
     print(f"main-tempering-wide: LatticeTempering.qmc_timesteps_sample({T}, replica_swap_freq=1) on a {side}^2 "
-          f"+-J glass, {PT_R} replicas, L_tau={PT_LTAU}: {counts['ladder']} multi-launch launches, "
-          f"{lt.get_total_swaps()} accepted swaps, {dt:.3f} s host wall", flush=True)
-    return counts["ladder"]
+          f"+-J glass, {PT_R} replicas, L_tau={PT_LTAU}: {counts['ladder']} multi-launch launches and {features} "
+          f"pt_swap_features, {lt.get_total_swaps()} accepted swaps, {dt:.3f} s host wall", flush=True)
+    return counts["ladder"], features
 
 
 def phase_physics_tempering(dev):
@@ -2490,8 +2497,7 @@ def phase_timing_ladder(dev, smi, sass):
     plan = wl.resident_plan(nvars, PT_LTAU, PT_R, ladder.param_bytes("torus", nvars), *wl.device_limits(dev))
 
     def multi_with_features(t):
-        x = ladder._run_multi(s, seeds[:t], planes, t)
-        return x, ladder.swap_features(x, *edges)
+        return ladder._run_multi(s, seeds[:t], planes, t, edges=edges)
 
     routes = {"multi-launch": (lambda t: ladder._run_multi(s, seeds[:t], planes, t), multi_with_features),
               "resident": (lambda t: ladder._run_resident(s, seeds[:t], planes, t, edges, plan),) * 2}
@@ -2589,7 +2595,57 @@ def phase_timing_ladder(dev, smi, sass):
     print(f"timing-ladder: {side}^2 shape, the cluster phases alone (ladder_cluster x 2, group "
           f"{cluster_group(PT_LTAU)}), on {smi}: bound {line}; the instruction floor of this algorithm {floor}",
           flush=True)
+    out["glass/features"] = timing_features(dev, smi, setup)
     return out
+
+
+def timing_features(dev, smi, setup):
+    """At the glass80.pt cell's shape (80^2 +-J torus, 64 rungs, L_tau 60):
+    the features of a swept state as the multi-launch route computes them
+    once a call (the memset of the S and A slots and pt_swap_features,
+    through the C entry with T = 0, 50 back to back, CUDA events; each
+    one's device time from the profiler) against swap_features, the plain
+    version the route took before (a call by CUDA events, median of five),
+    and the bytes they must move (the state read once, the features
+    written). Returns (ms, plain ms, bound ms, bound_by) a call."""
+    from pyisingmontecarlo_tpu_torch import _kernels
+    from pyisingmontecarlo_tpu_torch.ops import ladder
+
+    side, n = GLASS80_SIDE, 50
+    _, s, seeds, planes, edges = setup(side, 2)
+    nvars, E = side * side, edges[0].numel()
+    x, feats = ladder._run_multi(s, seeds, planes, 2, edges=edges)  # a swept state; the warm-up
+    same, err = _equal_all(feats, ladder.swap_features(x, *edges))
+    check(same, f"glass features: pt_swap_features != swap_features (max |diff| {err})")
+    lib, feat = _kernels.load(), torch.empty((PT_R, E + 2), dtype=torch.int32, device=dev)
+    args = (x.data_ptr(), seeds.data_ptr(), *ladder._planes_args(planes, 0, PT_R), None, edges[0].data_ptr(),
+            edges[1].data_ptr(), feat.data_ptr(), PT_R, nvars, PT_LTAU, 1, side, 0, E,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launches():
+        for _ in range(n):
+            check(lib.ladder_sweeps(*args) == 0, "pt_swap_features: launch failed")
+
+    launches()
+    ms = float(np.median([event_ms(launches, n) for _ in range(5)]))
+    check(all(torch.equal(f, g) for f, g in zip((feat[:, :E], feat[:, E], feat[:, E + 1]), feats)),
+          "glass features: the C entry at T = 0 != the wrapper's")
+    prof, counted = _launches(launches, ("pt_swap_features",), n)
+    dev_t = _device_times(prof, ("pt_swap_features", "Memset"))
+    us = {k: float(np.mean(v)) for k, v in (dev_t[0] if dev_t else {}).items()}
+    plain = float(np.median([event_ms(lambda: ladder.swap_features(x, *edges), 1) for _ in range(5)]))
+    nbytes = PT_R * nvars * PT_LTAU + 4 * PT_R * (E + 2)
+    bound_ms, by = bound(nbytes, 0)
+
+    def device(k):
+        return f"{us[k]:.3f} us" if k in us else "not measured"
+
+    print(f"timing-features: {PT_R} x {nvars} x {PT_LTAU} (glass80.pt's shape), {E} union edges, on {smi}: memset + "
+          f"pt_swap_features {ms * 1e3:.3f} us a call (CUDA events, "
+          f"{n} back to back, median of five); device time a launch: pt_swap_features {device('pt_swap_features')}, "
+          f"memset {device('Memset')} ({counted}); swap_features (plain torch) {plain * 1e3:.3f} us a call; bound "
+          f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {by}), the kernel {ms / bound_ms:.2f}x it", flush=True)
+    return ms, plain, bound_ms, by
 
 
 # ----------------------------------------------------------------------------------------- the classical graph path
@@ -4690,7 +4746,7 @@ def main():
     wl_t = timed_phase(phase_timing_wl, dev, smi, sass)
     ladder_err, ladder_res_err = timed_phase(phase_compare_ladder, dev)
     ladder_res_launches, _, _ = timed_phase(phase_main_tempering, dev)
-    ladder_launches = timed_phase(phase_main_tempering_wide, dev)
+    ladder_launches, feature_launches = timed_phase(phase_main_tempering_wide, dev)
     timed_phase(phase_physics_tempering, dev)
     ladder_t = timed_phase(phase_timing_ladder, dev, smi, sass)
     long_errs = timed_phase(phase_compare_longline, dev)
@@ -4781,6 +4837,11 @@ def main():
         dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
              launches=ladder_res_launches + par_counts["ladder_resident"], max_abs_err=ladder_res_err,
              **timed(ladder_t["resident"])),
+        dict(name="pt_swap_features (a call's memset and launch; glass80.pt's shape)", route="cuda",
+             source=ladder_src, replaces="no Pallas kernel: the XLA ops of pyisingmontecarlo_tpu/tempering.py:152 "
+                                         "(_swap_features)",
+             launches=feature_launches, max_abs_err=max(ladder_err, long_errs["ladder"]),
+             **timed(ladder_t["glass/features"])),
         dict(name="threefry_chain", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
              replaces="pyisingmontecarlo_tpu/engines/classical.py:675, engines/worldline.py:396 and "
                       "engines/generic.py:878 (the XLA split_keys chains of time_step and the sweeps; no Pallas kernel)",

@@ -31,7 +31,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sq2d_tiled_sweeps": ([_P] * 7 + [_I] * 8 + [_P], ctypes.c_int),
     "wl_sweeps": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
-    "ladder_sweeps": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "ladder_sweeps": ([_P] * 11 + [_I] * 7 + [_P], ctypes.c_int),
     "wl_resident_sweeps": ([_P, _P, _P, _P, _I, _P, _P] + [_I] * 10 + [_P], ctypes.c_int),
     "ladder_resident_sweeps": ([_P] * 10 + [_I] * 9 + [_P], ctypes.c_int),
     "wl_tiled_sweeps": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 10 + [_P], ctypes.c_int),

@@ -47,6 +47,29 @@
 //   (SiteField, found once a line). A line past one block's opt-in
 //   shared memory (L > 26,944 on an H100) takes the two fk_long_* launches
 //   a color of worldline.cuh instead (6 launches a sweep).
+// - pt_swap_features, once a call after the last sweep, where the caller
+//   asks for the features: the resident route's feat [R, E + 2] int32 of the
+//   state the call leaves, a memset of its S and A slots before it. It
+//   replaces no Pallas kernel: the JAX package computes these features with
+//   XLA ops (pyisingmontecarlo_tpu/tempering.py:152, _swap_features), and
+//   the port did so in torch (ops/ladder.swap_features) until a gather of
+//   2 R E L_tau bytes and int64 sums, a dozen operations after every sweep,
+//   took more device time than the sweep's four launches on the 80^2 glass.
+//   A group of feat_lanes(L) threads an item (a union edge (ea, eb) in its
+//   given order, then a time line; one thread up to 16 words a line, so a
+//   thread an item at the tempering shapes' L_tau = 60), reading its lines
+//   in 4-byte words with dp4a (2-byte words where L % 4 = 2): an edge's
+//   products summed over tau; a line's spin sum and its aligned time bonds
+//   (L + sum_t s_t s_t+1) / 2 from its words against the same words shifted
+//   down one byte, summed over the block and added into feat's zeroed slots
+//   with an atomic a block (the sums are integers, so their order does not
+//   matter). What bounds it is the state's bytes, read once, and the
+//   features' written: 27.9 MB at 64 x 6400 x 60, 8.3 us at 3.35 TB/s. It
+//   reads each line about five times (its own item and its sites' four
+//   edges), from L2 (which still holds the state the last cluster launch
+//   wrote) and L1, since nothing is assumed of the edges' order: about
+//   27 us there on an H100, the same with 8 to 32 words a lane and 128 to
+//   512 threads a block, 43 us with 4 words and 108 with 1.
 //
 // Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn in the JAX
 // kernel's order, so nothing is contracted to an FMA, and the logs are logf
@@ -359,6 +382,123 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
     res_store(b, gs);
 }
 
+// The swap features on the multi-launch route (pt_swap_features): kFeatThreads
+// threads a block, feat_lanes(L, V) a group, up to kFeatWords words of V
+// bytes a lane where the line is short enough for one (more up to a warp).
+constexpr int kFeatThreads = 256, kFeatWords = 16;
+
+// The threads an item at L slices in words of V bytes: the fewest of 1, 2,
+// 4, 8, 16 and 32 that hold a line at kFeatWords words a lane (a warp and
+// more words a lane up to L = kMaxL), the whole block past kMaxL.
+__host__ __device__ constexpr int feat_lanes(int L, int V) {
+    if (L > kMaxL) return kFeatThreads;
+    const int need = (L / V + kFeatWords - 1) / kFeatWords;
+    int g = 1;
+    while (g < need && g < 32) g *= 2;
+    return g;
+}
+
+template <int V>
+__device__ __forceinline__ int feat_word(const int8_t* p) {
+    if constexpr (V == 4)
+        return *reinterpret_cast<const int*>(p);
+    else
+        return (int)*reinterpret_cast<const uint16_t*>(p);  // bytes 2 and 3 zero: they add nothing to a dp4a
+}
+
+// v summed over the calling group of G threads, in its first thread (0 in the others past a warp).
+template <int G>
+__device__ __forceinline__ int group_sum(int v) {
+    if constexpr (G == kFeatThreads) {
+        __shared__ int part[kFeatThreads / 32];
+        v = __reduce_add_sync(0xffffffffu, v);
+        __syncthreads();  // a former call's reads of part are done
+        if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+        __syncthreads();
+        v = 0;
+        if (threadIdx.x == 0)
+            for (int w = 0; w < kFeatThreads / 32; ++w) v += part[w];
+        return v;
+    } else {
+#pragma unroll
+        for (int o = G / 2; o; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o, G);
+        return v;
+    }
+}
+
+// grid (chunks of a replica's E + nvars items, R): a group of G threads an
+// item, the union edges first, then the time lines; feat [R, E + 2] with its
+// slots E and E + 1 zeroed.
+template <int G, int V>
+__global__ void __launch_bounds__(kFeatThreads) pt_swap_features(
+    const int8_t* __restrict__ s, const int32_t* __restrict__ ea, const int32_t* __restrict__ eb,
+    int32_t* __restrict__ feat, int nvars, int L, int E) {
+    constexpr int kItems = kFeatThreads / G;
+    const int r = blockIdx.y, lane = threadIdx.x % G, k = blockIdx.x * kItems + threadIdx.x / G;
+    const int8_t* p = s + (size_t)r * nvars * L;
+    const int nw = L / V;
+    int v = 0, pr = 0;  // an edge's bond products; a line's spin sum and products s_t s_t+1
+    if (k < E) {
+        const int8_t* a = p + (size_t)__ldg(ea + k) * L;
+        const int8_t* b = p + (size_t)__ldg(eb + k) * L;
+#pragma unroll 4
+        for (int w = lane; w < nw; w += G) v = __dp4a(feat_word<V>(a + w * V), feat_word<V>(b + w * V), v);
+    } else if (k < E + nvars) {
+        const int8_t* a = p + (size_t)(k - E) * L;
+#pragma unroll 4
+        for (int w = lane; w < nw; w += G) {
+            const int c = feat_word<V>(a + w * V);
+            const uint32_t nx = (uint8_t)a[w + 1 == nw ? 0 : (w + 1) * V];  // the next slice, slice 0 after the last
+            v = __dp4a(c, 0x01010101, v);
+            pr = __dp4a(c, (int)(((uint32_t)c >> 8) | (nx << (8 * (V - 1)))), pr);
+        }
+    }
+    v = group_sum<G>(v);
+    pr = group_sum<G>(pr);
+    int32_t* f = feat + (size_t)r * (E + 2);
+    if (lane == 0 && k < E) f[k] = v;
+    if ((blockIdx.x + 1) * kItems <= E) return;  // the whole block: no line among its items
+    __shared__ int red[2];
+    if (threadIdx.x < 2) red[threadIdx.x] = 0;
+    __syncthreads();
+    const bool line = lane == 0 && k >= E && k < E + nvars;
+    res_block_add(red, 0, line ? v : 0);
+    res_block_add(red, 1, line ? (L + pr) / 2 : 0);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        atomicAdd(f + E, red[0]);
+        atomicAdd(f + E + 1, red[1]);
+    }
+}
+
+template <int V>
+cudaError_t launch_features(const int8_t* s, const int32_t* ea, const int32_t* eb, int32_t* feat, int R, int nvars,
+                            int L, int E, cudaStream_t st) {
+    const int G = feat_lanes(L, V), items = kFeatThreads / G;
+    const dim3 grid((E + nvars + items - 1) / items, R);
+    switch (G) {
+        case 1: pt_swap_features<1, V><<<grid, kFeatThreads, 0, st>>>(s, ea, eb, feat, nvars, L, E); break;
+        case 2: pt_swap_features<2, V><<<grid, kFeatThreads, 0, st>>>(s, ea, eb, feat, nvars, L, E); break;
+        case 4: pt_swap_features<4, V><<<grid, kFeatThreads, 0, st>>>(s, ea, eb, feat, nvars, L, E); break;
+        case 8: pt_swap_features<8, V><<<grid, kFeatThreads, 0, st>>>(s, ea, eb, feat, nvars, L, E); break;
+        case 16: pt_swap_features<16, V><<<grid, kFeatThreads, 0, st>>>(s, ea, eb, feat, nvars, L, E); break;
+        case 32: pt_swap_features<32, V><<<grid, kFeatThreads, 0, st>>>(s, ea, eb, feat, nvars, L, E); break;
+        default: pt_swap_features<kFeatThreads, V><<<grid, kFeatThreads, 0, st>>>(s, ea, eb, feat, nvars, L, E);
+    }
+    return cudaGetLastError();
+}
+
+// The features of s [R, nvars, L] into feat [R, E + 2] on `st`: the memset
+// of the S and A slots, then pt_swap_features in words of 4 bytes (2 where
+// L % 4 = 2).
+cudaError_t swap_features(const int8_t* s, const int32_t* ea, const int32_t* eb, int32_t* feat, int R, int nvars,
+                          int L, int E, cudaStream_t st) {
+    const cudaError_t e = cudaMemset2DAsync(feat + E, (size_t)(E + 2) * sizeof(int32_t), 0, 2 * sizeof(int32_t), R, st);
+    if (e != cudaSuccess) return e;
+    return L % 4 ? launch_features<2>(s, ea, eb, feat, R, nvars, L, E, st)
+                 : launch_features<4>(s, ea, eb, feat, R, nvars, L, E, st);
+}
+
 }  // namespace
 
 // Runs T sweeps on `stream` on s[R, nvars, L]: 4 T launches, or 6 T where
@@ -371,11 +511,15 @@ __global__ void __launch_bounds__(kResThreads, 1) ladder_resident(
 // every sweep uses counter d: 2c + parity the site phases of color c, 4 + 2c
 // and 5 + 2c the bond and head draws of cluster color c. The site phases take
 // site_lanes(L) threads a line, the cluster phases fk_group(L) or fk_long_*
-// (worldline.cuh); R <= 65535 (fk_grid). Returns the first launch error, or 0.
+// (worldline.cuh); R <= 65535 (fk_grid). With feat (null: none), the swap
+// features of the state the sweeps leave (T may be 0) into feat [R, E + 2]
+// int32 as ladder_resident_sweeps writes them (ea, eb [E] int32 site indices
+// in [0, nvars)): a memset and one launch of pt_swap_features after the
+// last sweep. Returns the first launch error, or 0.
 extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const void* dt, const void* kt,
-                             const void* h, const void* pb, void* scratch, int R, int nvars, int L, int torus,
-                             int size, int T, void* stream) {
-    if (L < 4 || L > kLongMaxL || (L & 1) || (nvars & 1) || R > 65535) return (int)cudaErrorInvalidValue;
+                             const void* h, const void* pb, void* scratch, const void* ea, const void* eb, void* feat,
+                             int R, int nvars, int L, int torus, int size, int T, int E, void* stream) {
+    if (L < 4 || L > kLongMaxL || (L & 1) || (nvars & 1) || R > 65535 || E < 0) return (int)cudaErrorInvalidValue;
     const Geo g{torus, size, nvars, L};
     const int ndir = torus ? 2 : 1;
     const Params q{static_cast<const float*>(J), static_cast<const float*>(dt), static_cast<const float*>(kt),
@@ -389,7 +533,7 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
         const cudaError_t e = fk_long_reset(f, R, st);
         if (e != cudaSuccess) return (int)e;
     }
-    return (int)by_lanes(L, [&](auto wc) {
+    const cudaError_t err = by_lanes(L, [&](auto wc) {
         constexpr int W = decltype(wc)::value;
         return by_group(L, [&](auto gc) {
             constexpr int G = decltype(gc)::value;
@@ -420,6 +564,9 @@ extern "C" int ladder_sweeps(void* s, const void* seeds, const void* J, const vo
             return cudaSuccess;
         });
     });
+    if (err != cudaSuccess || !feat) return (int)err;
+    return (int)swap_features(sp, static_cast<const int32_t*>(ea), static_cast<const int32_t*>(eb),
+                              static_cast<int32_t*>(feat), R, nvars, L, E, st);
 }
 
 // The resident route: T sweeps in one launch of R blocks on `stream`, then the

@@ -25,12 +25,15 @@ resident kernel (one launch per call, one block per replica with its plane
 and couplings in shared memory, the swap features of the final state written
 by the kernel) where ``wl.resident_plan`` admits the shape (lines up to
 ``wl.MAX_LTAU`` slices), else the multi-launch kernels (four launches a
-sweep, the features then from ``swap_features``; a line too long for one
-block's shared memory, ``wl.cluster_long``, takes the two ``fk_long_*``
-launches a color in place of its cluster launch). Both equal the plain
-version bit for bit. Each takes any replica count: the route and its plan
-are chosen from the whole shape, and its launches run on chunks of replicas
-below the route's limits (``replicas.replica_chunks``).
+sweep; a line too long for one block's shared memory, ``wl.cluster_long``,
+takes the two ``fk_long_*`` launches a color in place of its cluster launch;
+then the features of the final state from one launch of
+``pt_swap_features`` after the last sweep, which reads the state once in
+place of ``swap_features``' dozen torch operations). Both return the
+features as int32 and equal the plain version bit for bit. Each takes any
+replica count: the route and its plan are chosen from the whole shape, and
+its launches run on chunks of replicas below the route's limits
+(``replicas.replica_chunks``).
 
 Randomness: the draw ``d`` of a sweep at (tau, i) is
 ``lane_draw31(seed, pos = tau*nvars + i, ctr = d)``; every sweep has fresh
@@ -257,14 +260,6 @@ def _planes_rows(planes: LadderPlanes, a: int, b: int) -> LadderPlanes:
     return planes._replace(**{k: getattr(planes, k)[a:b] for k in ("j", "dt", "kt", "h", "pb")})
 
 
-def _features(x, edges):
-    """``swap_features`` of ``x``, in chunks of fewer than 2^31 spins (those
-    of the strictest route, ``"long"``, which bound the temporaries), into
-    one ``[R, E]`` and two ``[R]`` tensors."""
-    R, nvars, L = x.shape
-    return gather_chunks(R, replica_chunks(R, nvars * L, "long"), lambda a, b: swap_features(x[a:b], *edges))
-
-
 def _planes_args(planes: LadderPlanes, a: int, b: int):
     """The addresses of replicas ``[a, b)`` of the parameter planes."""
     return [rows(getattr(planes, k), a, b) for k in ("j", "dt", "kt", "h", "pb")]
@@ -275,16 +270,24 @@ def _chunk_seeds(seeds, a: int, b: int, R: int):
     return seeds if (a, b) == (0, R) else seeds[:, a:b].contiguous()
 
 
-def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = ()):
+def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = (), edges=None):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP``
     launches a sweep and chunk of replicas, counted in
     ``ladder_sweeps.launches``; where ``wl.cluster_long``, 2 of them and
     ``wl.LONG_LAUNCHES_PER_SWEEP`` in ``ladder_sweeps.long_launches``); the
-    new state, without features. ``defines`` launch a variant built for
-    measurement (``_kernels.build``)."""
+    new state. With ``edges``, ``(state, features)``: after a chunk's last
+    sweep (T may be 0) one launch of ``pt_swap_features`` a chunk, counted in
+    ``ladder_sweeps.feature_launches``, writes its rows of one ``[R, E + 2]``
+    int32 tensor, returned as ``_run_resident`` returns it. ``defines``
+    launch a variant built for measurement (``_kernels.build``)."""
     R, nvars, L = s.shape
     x = s.clone()
-    if R and T:
+    feat, E, eptr = None, 0, (None, None)
+    if edges is not None:
+        E = edges[0].numel()
+        feat = torch.empty((R, E + 2), dtype=torch.int32, device=s.device)
+        eptr = tuple(e.data_ptr() for e in edges)
+    if R and (T or feat is not None):
         with torch.cuda.device(x.device):
             chunks = replica_chunks(R, nvars * L, "long" if cluster_long(L, device_limits(x.device)[0]) else "multi")
             scratch = long_scratch(x[:chunks[0][1]], defines)
@@ -292,14 +295,17 @@ def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = ()):
                 sd = _chunk_seeds(seeds, a, b, R)
                 _kernel_call("ladder kernel", lambda lib: lib.ladder_sweeps(
                     rows(x, a, b), sd.data_ptr(), *_planes_args(planes, a, b),
-                    None if scratch is None else scratch.data_ptr(), b - a, nvars, L, int(planes.kind == "torus"),
-                    planes.size, T, _stream(x)), defines)
+                    None if scratch is None else scratch.data_ptr(), *eptr, rows(feat, a, b),
+                    b - a, nvars, L, int(planes.kind == "torus"), planes.size, T, E, _stream(x)), defines)
                 if scratch is not None:  # the library's route: fk_long_*
                     ladder_sweeps.launches += 2 * T
                     ladder_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
                 else:
                     ladder_sweeps.launches += LAUNCHES_PER_SWEEP * T
-    return x
+                ladder_sweeps.feature_launches += int(feat is not None)
+    if feat is None:
+        return x
+    return x, (feat[:, :E], feat[:, E], feat[:, E + 1])
 
 
 def _run_resident(s, seeds, planes: LadderPlanes, T: int, edges, plan):
@@ -331,8 +337,8 @@ def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T:
     ``(state, features)``. ``seeds[T, R]`` int32 keys sweep t's draws (counter
     ``d = 0..7`` within each sweep); ``edges = (ea, eb)`` are ``[E]`` int32
     site indices in ``[0, nvars)``, and the features ``(P [R, E], S [R],
-    A [R])`` of the new state are those ``swap_features`` gives (int32 from
-    the resident kernel, int64 otherwise).
+    A [R])`` of the new state are those ``swap_features`` gives (int32 views
+    of one ``[R, E + 2]`` tensor from the kernels, int64 on the CPU).
 
     A CUDA tensor launches ``csrc/ladder.cu`` or raises: the resident kernel
     (one launch, counted in ``ladder_sweeps.resident_launches``) where
@@ -340,9 +346,10 @@ def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T:
     (``LAUNCHES_PER_SWEEP`` a sweep, counted in ``ladder_sweeps.launches``;
     for a line past one block, ``wl.cluster_long``, 2 there and
     ``wl.LONG_LAUNCHES_PER_SWEEP`` in ``ladder_sweeps.long_launches``; the
-    features then by chunk), each on chunks of replicas below its limits
-    (``replicas.replica_chunks``). A CPU tensor runs the plain version, in the
-    chunks of the strictest route, ``"long"``."""
+    features then from ``pt_swap_features``, one launch a chunk, counted in
+    ``ladder_sweeps.feature_launches``), each on chunks of replicas below its
+    limits (``replicas.replica_chunks``). A CPU tensor runs the plain version,
+    in the chunks of the strictest route, ``"long"``."""
     T = int(T)
     _check(s, seeds, planes, T, edges)
     R, nvars, L = s.shape
@@ -359,10 +366,10 @@ def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T:
     plan = resident_plan(nvars, L, R, param_bytes(planes.kind, nvars), *device_limits(s.device))
     if plan:
         return _run_resident(s, seeds, planes, T, edges, plan)
-    x = _run_multi(s, seeds, planes, T)
-    return x, _features(x, edges)
+    return _run_multi(s, seeds, planes, T, edges=edges)
 
 
 ladder_sweeps.launches = 0
 ladder_sweeps.long_launches = 0
 ladder_sweeps.resident_launches = 0
+ladder_sweeps.feature_launches = 0

@@ -17,9 +17,10 @@ graph, sweep together, with an even/odd neighbour swap every
 A swap step weighs every replica's configuration under its own and its
 neighbours' parameters from three exact integer features of each
 configuration (``ops/ladder.swap_features``: per-edge bond products, spin
-sum, aligned time bonds; the ladder call returns them, from the resident
-kernel itself where the shape takes it; the generic route computes them from
-the state), in f32 as the JAX package does, and accepts pair (r, r+1), r of
+sum, aligned time bonds; the ladder call returns them as int32, from the
+resident kernel itself or from ``pt_swap_features`` after the multi-launch
+route's last sweep; the generic route computes them from the state), in f32
+as the JAX package does, and accepts pair (r, r+1), r of
 the step's parity, when ``log u < W_r(x_{r+1}) W_{r+1}(x_r) / (W_r(x_r)
 W_{r+1}(x_{r+1}))`` in log space; accepted pairs exchange configurations.
 On the ladder route the energies use the same features, accumulated per
@@ -256,23 +257,24 @@ class LatticeTempering:
         and ``features`` are this rank's block; the decisions are taken on the
         gathered features, the same on every rank."""
         shard = m.get("shard")
+        # the features as one [R, E + 2] tensor, so that a roll is one operation (torch's roll first copies a
+        # strided tensor, such as the kernels' views of one [R, E + 2] tensor, to a contiguous one)
+        f = torch.cat([features[0], features[1][:, None], features[2][:, None]], 1)
         if shard is not None:
-            f = shard.gather(torch.cat([features[0].long(), features[1].long()[:, None],
-                                        features[2].long()[:, None]], 1))
-            features = (f[:, :-2], f[:, -2], f[:, -1])
+            f = shard.gather(f.long())
         _, nvars, L = s.shape
-        R = features[1].shape[0]
+        R = f.shape[0]
         ntot = nvars * L
         p, jv = m["p"], m["jv"]
 
-        def log_weight(P, S, A):
-            A = A.to(torch.float32)
+        def log_weight(f):
+            P, S, A = f[:, :-2], f[:, -2], f[:, -1].to(torch.float32)
             diag = -p.dtau * ((jv * P.to(torch.float32)).sum(-1) + p.h * S.to(torch.float32))
             return diag + A * m["log_cosh"] + (ntot - A) * m["log_sinh"]
 
-        lw_self = log_weight(*features)
-        lw_up = log_weight(*(f.roll(-1, 0) for f in features))  # log W_r(x_{r+1})
-        lw_dn = log_weight(*(f.roll(1, 0) for f in features))  # log W_r(x_{r-1})
+        lw_self = log_weight(f)
+        lw_up = log_weight(f.roll(-1, 0))  # log W_r(x_{r+1})
+        lw_dn = log_weight(f.roll(1, 0))  # log W_r(x_{r-1})
         delta = lw_up + lw_dn.roll(-1, 0) - lw_self - lw_self.roll(-1, 0)
         idx = torch.arange(R, device=s.device)
         leader = ((idx % 2) == phase) & (idx + 1 < R)

@@ -23,9 +23,21 @@ numpy, and the launches a sweep.
   down one (the next lane's first byte on top, slice 0 after the last);
   against the statistics that ``wl_sweeps_reference`` returns, on rings and
   tori, at L_tau = 2 mod 4 and at each word width.
+- A model of ``pt_swap_features``' items and word arithmetic (``csrc/ladder.cu``):
+  the union edges in their given order, then the time lines; words of 4 bytes
+  (2, the upper half zero, where L_tau % 4 = 2); an edge's dp4a of its two
+  lines' words; a line's dp4a with 0x01010101 and with its words shifted
+  down a byte, the next word's first byte on top (slice 0 after the last),
+  its aligned bonds (L + sum) / 2; the S and A slots summed over the blocks
+  that hold a line; against ``swap_features`` on rings and tori, edges in
+  and out of site order, at every group size ``feat_lanes`` picks.
 - On the card, the launches a sweep: the wrappers' counters advance by
   ``LAUNCHES_PER_SWEEP`` a sweep on a real multi-launch call (skipped without
-  CUDA; ``tests/test_torch_wl.py`` holds that the plain version adds none).
+  CUDA; ``tests/test_torch_wl.py`` holds that the plain version adds none);
+  and ``pt_swap_features`` itself, equal to ``swap_features`` bit for bit on
+  the ``glass80.pt`` cell's shape, at L_tau = 62, on shuffled edges with one
+  that some replicas lack, past ``wl.MAX_LTAU``, and split into chunks of
+  replicas, one launch a chunk (skipped without CUDA).
 
 The models are a second copy of the kernels' rules and can drift from the
 CUDA source: the kernels run only on the card, where ``chip_smoke.py``
@@ -38,7 +50,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from pyisingmontecarlo_tpu_torch.ops import ladder, wl
+from pyisingmontecarlo_tpu_torch.ops import ladder, replicas, wl
 from pyisingmontecarlo_tpu_torch.ops.lanerng import lane_draw31, make_pos_mix
 
 torch.set_num_threads(1)
@@ -97,6 +109,84 @@ def test_accumulate_model_equals_reference_statistics(kind, size, nvars, L, V):
     x, stats, samples = wl.wl_sweeps_reference(s, seeds, tables, 1, 1, 1)
     assert np.array_equal(_accumulate(x.numpy(), kind, size, V), stats.numpy())
     assert np.array_equal(samples[:, 0].numpy(), x[:, :, 0].numpy())  # the stage: slice 0 of every line
+
+
+FEAT_THREADS, FEAT_WORDS = 256, 16  # csrc/ladder.cu: kFeatThreads, kFeatWords
+
+
+def _feat_lanes(L, V):
+    """csrc/ladder.cu's feat_lanes: the threads an item of pt_swap_features."""
+    if L > wl.MAX_LTAU:
+        return FEAT_THREADS
+    need, g = -(-(L // V) // FEAT_WORDS), 1
+    while g < need and g < 32:
+        g *= 2
+    return g
+
+
+def _ladder_edges(kind, size, rng=None):
+    """The union edges of a ring or torus as [E] int32 arrays; with ``rng``,
+    shuffled out of site order and about half of them flipped (b, a)."""
+    n = size if kind == "ring" else size * size
+    v = np.arange(n)
+    if kind == "ring":
+        ea, eb = v, (v + 1) % n
+    else:
+        x, y = v // size, v % size
+        ea = np.repeat(v, 2)
+        eb = np.stack([((x + 1) % size) * size + y, x * size + (y + 1) % size], 1).reshape(-1)
+    if rng is not None:
+        order, flip = rng.permutation(len(ea)), rng.random(len(ea)) < 0.5
+        ea, eb = np.where(flip, eb, ea)[order], np.where(flip, ea, eb)[order]
+    return ea.astype(np.int32), eb.astype(np.int32)
+
+
+def _feature_model(x, ea, eb):
+    """feat [R, E + 2] of x [R, nvars, L] int8 as pt_swap_features computes it."""
+    R, n, L = x.shape
+    E, V = len(ea), 2 if L % 4 else 4
+    items = FEAT_THREADS // _feat_lanes(L, V)
+    u = x.view(np.uint8).astype(np.uint32)
+    words = sum(u[:, :, j::V] << (8 * j) for j in range(V))  # [R, n, L / V]; V = 2: the upper half zero
+    nxt = u[:, :, np.r_[V:L:V, 0]]  # the next word's first byte, slice 0 after the last word
+    up = (words >> 8) | (nxt << (8 * (V - 1)))
+
+    def dp4a_sum(a, b):  # over a line's words
+        return _dp4a(a, b, np.zeros(np.broadcast(a, b).shape, np.int64)).sum(-1)
+
+    P = np.stack([dp4a_sum(words[:, a], words[:, b]) for a, b in zip(ea, eb)], 1)
+    S_line = dp4a_sum(words, np.uint32(0x01010101))
+    A_line = (L + dp4a_sum(words, up)) // 2
+    # the blocks that hold a line (the others return before the block sums): each line once
+    summed = np.zeros(n, np.int64)
+    for blk in range(-(-(E + n) // items)):
+        if (blk + 1) * items > E:
+            k = np.arange(blk * items, (blk + 1) * items)
+            summed[k[(k >= E) & (k < E + n)] - E] += 1
+    assert (summed == 1).all()
+    return np.concatenate([P, (S_line * summed).sum(1, keepdims=True), (A_line * summed).sum(1, keepdims=True)], 1)
+
+
+@pytest.mark.parametrize("kind,size,L,shuffled", [
+    ("torus", 6, 60, False), ("torus", 6, 60, True), ("ring", 30, 62, False), ("torus", 4, 8, False),
+    ("ring", 8, 4, False), ("ring", 8, 6, True), ("torus", 6, 66, True), ("ring", 10, 300, True),
+    ("ring", 6, 1000, False), ("ring", 6, 514, False), ("ring", 4, 4100, False)])
+def test_feature_model_equals_swap_features(kind, size, L, shuffled):
+    """pt_swap_features' items, words and sums equal swap_features on random
+    states (R = 3): group sizes 1 (L_tau = 4, 6, 8, 60), 2 (62), 4 (66), 8
+    (300), 16 (1000), 32 (514) and the block (4100); 2-byte words at 6, 62,
+    66 and 514; edges shuffled and flipped. A model, not the kernel: the card
+    tests below and chip_smoke.py's compare-ladder hold the kernel."""
+    assert _feat_lanes(L, 2 if L % 4 else 4) == {4: 1, 6: 1, 8: 1, 60: 1, 62: 2, 66: 4, 300: 8, 1000: 16, 514: 32,
+                                                  4100: FEAT_THREADS}[L]
+    rng = np.random.default_rng(L + size)
+    ea, eb = _ladder_edges(kind, size, rng if shuffled else None)
+    n = size if kind == "ring" else size * size
+    x = rng.choice(np.array([-1, 1], np.int8), (3, n, L))
+    want = ladder.swap_features(torch.from_numpy(x), torch.from_numpy(ea).long(), torch.from_numpy(eb).long())
+    got = _feature_model(x, ea, eb)
+    assert np.array_equal(got[:, :-2], want[0].numpy())
+    assert np.array_equal(got[:, -2], want[1].numpy()) and np.array_equal(got[:, -1], want[2].numpy())
 
 
 SITE_PAIRS, SITE_THREADS = 8, 128  # csrc/worldline.cuh: kSitePairs, kSiteThreads
@@ -233,3 +323,73 @@ def test_launches_per_sweep_on_the_card():
     before = ladder.ladder_sweeps.launches
     ladder._run_multi(s, torch.zeros((T, 2), dtype=torch.int32, device=dev), planes, T)
     assert ladder.ladder_sweeps.launches - before == ladder.LAUNCHES_PER_SWEEP * T
+
+
+def _feature_case(kind, size, R, L, T, shuffled, dev):
+    """Random +-1 worldlines, per-sweep seeds [T, R], planes with +-J
+    couplings (with ``shuffled``, edge 0 absent, J = 0, from the odd
+    replicas) and the union edges as int32 on ``dev``."""
+    rng = np.random.default_rng(R * L + size)
+    n = size if kind == "ring" else size * size
+    ea, eb = _ladder_edges(kind, size, rng if shuffled else None)
+    jv = rng.choice([-1.0, 1.0], (R, len(ea)))
+    if shuffled:
+        jv[1::2, 0] = 0.0
+    betas = np.geomspace(0.2, 3.0, R) * L / 60
+    planes = ladder.build_planes(kind, size, n, ea, eb, jv, betas, [1.0] * R, [0.0] * R, L, dev)
+    s = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), (R, n, L))).to(dev)
+    seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, (T, R)).astype(np.int32)).to(dev)
+    return s, seeds, planes, tuple(torch.from_numpy(e).to(dev) for e in (ea, eb))
+
+
+def _assert_features_equal(feats, x, edges):
+    """The kernel's int32 features equal swap_features of the state on the card, bit for bit."""
+    want = ladder.swap_features(x, *(e.long() for e in edges))
+    for got, w in zip(feats, want):
+        assert got.dtype == torch.int32 and got.shape == w.shape
+        assert torch.equal(got.long(), w)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="pt_swap_features runs only on the card")
+@pytest.mark.parametrize("kind,size,R,L,T,shuffled", [
+    ("torus", 80, 64, 60, 2, False),  # the glass80.pt cell: 80^2 +-J torus, 64 rungs, L_tau 60
+    ("ring", 30, 3, 62, 2, False),  # L_tau % 4 = 2: 2-byte words
+    ("torus", 14, 5, 60, 2, True),  # edges out of site order and flipped, edge 0 absent from the odd replicas
+    ("ring", 16, 2, 40_960, 1, False)])  # past wl.MAX_LTAU: a block an item, fk_long_* sweeps
+def test_feature_kernel_equals_swap_features_on_the_card(kind, size, R, L, T, shuffled):
+    """pt_swap_features, after T sweeps and after none, equals swap_features
+    bit for bit, one launch a call; the wrapper takes it on the glass's shape."""
+    dev = torch.device("cuda")
+    s, seeds, planes, edges = _feature_case(kind, size, R, L, T, shuffled, dev)
+    for t in (0, T):
+        before = ladder.ladder_sweeps.feature_launches
+        x, feats = ladder._run_multi(s, seeds[:t], planes, t, edges=edges)
+        torch.cuda.synchronize()
+        assert ladder.ladder_sweeps.feature_launches - before == 1
+        assert t == 0 or not torch.equal(x, s)
+        _assert_features_equal(feats, x, edges)
+    if (kind, size) == ("torus", 80):
+        launches = (ladder.ladder_sweeps.resident_launches, ladder.ladder_sweeps.feature_launches)
+        x, feats = ladder.ladder_sweeps(s, seeds, planes, T, edges)
+        torch.cuda.synchronize()
+        assert (ladder.ladder_sweeps.resident_launches, ladder.ladder_sweeps.feature_launches) == \
+            (launches[0], launches[1] + 1)
+        _assert_features_equal(feats, x, edges)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="pt_swap_features runs only on the card")
+def test_feature_launches_a_chunk_on_the_card(monkeypatch):
+    """Replicas split into chunks (at most 2 a launch: 2 + 2 + 1 of R = 5)
+    take one pt_swap_features launch a chunk, into their rows of one tensor,
+    equal to an unsplit call and to swap_features."""
+    dev = torch.device("cuda")
+    s, seeds, planes, edges = _feature_case("torus", 16, 5, 60, 2, True, dev)
+    whole, whole_feats = ladder._run_multi(s, seeds, planes, 2, edges=edges)
+    monkeypatch.setattr(replicas, "GRID_MAX", 2)
+    before = ladder.ladder_sweeps.feature_launches
+    x, feats = ladder._run_multi(s, seeds, planes, 2, edges=edges)
+    torch.cuda.synchronize()
+    assert ladder.ladder_sweeps.feature_launches - before == 3
+    assert torch.equal(x, whole)
+    assert all(torch.equal(a, b) for a, b in zip(feats, whole_feats))
+    _assert_features_equal(feats, x, edges)

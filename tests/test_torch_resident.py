@@ -174,11 +174,11 @@ def test_ladder_edge_checks():
 def test_resident_counters_untouched_on_cpu():
     """The counters count kernel launches only: the plain versions add none."""
     before = (wl.wl_sweeps.launches, wl.wl_sweeps.resident_launches, ladder.ladder_sweeps.launches,
-              ladder.ladder_sweeps.resident_launches)
+              ladder.ladder_sweeps.resident_launches, ladder.ladder_sweeps.feature_launches)
     tables = wl.make_tables(("ring", 8, -1.0), 8, 1.0, 1.0, 0.0, 8)
     wl.wl_sweeps(torch.ones((1, 8, 8), dtype=torch.int8), torch.zeros(1, dtype=torch.int32), tables, 2, 1, 2)
     s, seeds, planes, edges, _, _ = _ladder_case("ring", 8, 2, 8, 1)
     ladder.ladder_sweeps(s, seeds, planes, 3, edges)
     after = (wl.wl_sweeps.launches, wl.wl_sweeps.resident_launches, ladder.ladder_sweeps.launches,
-             ladder.ladder_sweeps.resident_launches)
+             ladder.ladder_sweeps.resident_launches, ladder.ladder_sweeps.feature_launches)
     assert after == before
