@@ -360,9 +360,13 @@ class Lattice:
 
     def run_quantum_monte_carlo(self, beta: float, timesteps: int, num_experiments: int):
         """-> (avg_energies[n] f64, states[n, nvars] bool)."""
-        w = self._worldline(num_experiments, beta)
-        es = w.timesteps(int(timesteps))
-        return np.asarray(es, np.float64), w.states_bool()
+        with span("lattice.run_quantum_monte_carlo"):
+            with span("worldline.setup"):
+                w = self._worldline(num_experiments, beta)
+            # the energies' sums reach the host inside timesteps, which waits for the sweeps
+            es = np.asarray(w.timesteps(int(timesteps)), np.float64)
+            with span("worldline.states"):
+                return es, w.states_bool()
 
     def run_quantum_monte_carlo_sampling(
         self,

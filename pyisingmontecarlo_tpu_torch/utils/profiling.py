@@ -28,7 +28,14 @@ each of its layer boundaries listed in ``SPANS``, named ``pmc.<module>.<part>``:
   method that sweeps the ladder) ``pmc.tempering.key_tables`` (the host's key
   and swap-uniform tables of the call and their copy to the card, before the
   first sweep) and ``pmc.tempering.samples`` (the samples' stack after the
-  accepted swaps were read, and their copy to the host).
+  accepted swaps were read, and their copy to the host);
+- ``pmc.lattice.run_quantum_monte_carlo``: the whole of
+  ``Lattice.run_quantum_monte_carlo``, on either route; inside it
+  ``pmc.worldline.setup`` (``Lattice._worldline``: the replicas' keys, their
+  random initial states, the parameters, the lattice's detection, and the
+  state's copy to the card and its expansion over the slices) and
+  ``pmc.worldline.states`` (slice 0 compared to +1 and copied to the host,
+  after the energies' sums were copied, which waits for the sweeps).
 
 No span is opened per sweep. In the exported ``trace.json`` (open it at
 https://ui.perfetto.dev or chrome://tracing) the spans lie on the host
@@ -58,6 +65,9 @@ SPANS = (
     "pmc.tempering.qmc_timesteps_sample",
     "pmc.tempering.key_tables",
     "pmc.tempering.samples",
+    "pmc.lattice.run_quantum_monte_carlo",
+    "pmc.worldline.setup",
+    "pmc.worldline.states",
 )
 
 _NULL = contextlib.nullcontext()

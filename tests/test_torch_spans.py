@@ -109,6 +109,12 @@ def _graph_run():
     return Lattice(TRI, seed_gen=2, device="cpu").run_monte_carlo(0.5, 4, 3)
 
 
+def _quantum_run():
+    lat = Lattice(grid_2d_edges(8, 8, j=-1.0), seed_gen=4, device="cpu")
+    lat.set_transverse_field(1.0)
+    return lat.run_quantum_monte_carlo(0.4, 3, 2)
+
+
 def _ladder_run(edges):
     def run():
         lt = _ladder(edges)
@@ -117,8 +123,8 @@ def _ladder_run(edges):
     return run
 
 
-@pytest.mark.parametrize("run", [_torus_run, _graph_run, _ladder_run(RING8), _ladder_run(CHORDED)],
-                         ids=["torus", "graph", "ladder_kernel_plain", "ladder_generic"])
+@pytest.mark.parametrize("run", [_torus_run, _graph_run, _ladder_run(RING8), _ladder_run(CHORDED), _quantum_run],
+                         ids=["torus", "graph", "ladder_kernel_plain", "ladder_generic", "quantum"])
 def test_results_bit_equal_with_and_without_a_profiler(run):
     plain = run()
     traced, got = _profiled(run)
@@ -129,7 +135,7 @@ def test_results_bit_equal_with_and_without_a_profiler(run):
 
 
 def test_recorded_names_are_listed_and_name_no_kernel():
-    runs = (_torus_run, _graph_run, _ladder_run(RING8), _ladder_run(CHORDED))
+    runs = (_torus_run, _graph_run, _ladder_run(RING8), _ladder_run(CHORDED), _quantum_run)
     _, got = _profiled(lambda: [run() for run in runs])
     assert set(got) == set(SPANS)
     assert len(set(SPANS)) == len(SPANS) and all(n.startswith("pmc.") for n in SPANS)
