@@ -180,7 +180,14 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   instructions) and the spine's latency floor (T S steps at
                   the step that threefry_spine_probe measures); and the
                   numpy chain's time (the build phase counts a threefry
-                  block's SASS instructions);
+                  block's SASS instructions); then compare-key-tables:
+                  LatticeTempering's key tables on the card
+                  (tempering.key_tables_device: a plain slot a sweep, a
+                  uniform slot a swap step) vs the numpy key_tables, bit for
+                  bit, at glass80.pt's 64 rungs x 500 sweeps, 33 rungs and
+                  LONG_LADDER's 16; their time (CUDA events) and the
+                  ladder's whole tables (host clock) against numpy's;
+                  key_tables_device.launches over two ladder calls;
 25. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
                   every family (spin on the dense int, dense hi+lo and ELL
                   paths, edge with and without importance weights, worms, SW
@@ -1977,12 +1984,12 @@ def phase_compare_replicas(dev, smi):
     states, es = lt.qmc_timesteps_sample(T, replica_swap_freq=1)
     dt = time.perf_counter() - t0
     counts = read_counts()
-    check(counts["ladder"] > 0 and counts == counts_only(ladder=T * ladder.LAUNCHES_PER_SWEEP),
+    check(counts["ladder"] > 0 and counts == counts_only(ladder=T * ladder.LAUNCHES_PER_SWEEP, keychain=2),
           f"LatticeTempering: launch counts {counts}")
     check(states.shape == (R, T, PT_SIDE**2) and np.isfinite(es).all(), f"LatticeTempering: {states.shape}")
     print(f"compare-replicas: LatticeTempering on the {PT_SIDE}^2 +-J glass, {R} rungs at geomspace(0.2, "
           f"{LLPT_BETA}), L_tau={LLPT_LTAU} (2.15e9 spins), qmc_timesteps_sample({T}, replica_swap_freq=1): "
-          f"{counts['ladder']} ladder launches, 0 others; {lt.get_total_swaps()} swaps accepted; {dt:.3f} s host "
+          f"{counts['ladder']} ladder launches, the key tables' 2 threefry_chain, 0 others; {lt.get_total_swaps()} swaps accepted; {dt:.3f} s host "
           f"wall", flush=True)
     del lt, states
     torch.cuda.empty_cache()
@@ -2144,7 +2151,7 @@ def phase_main_tempering_longline(dev, smi):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    want = counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T)
+    want = counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T, keychain=2)
     check(counts == want, f"launch counts {counts}, want {want} (multi-launch, fk_line)")
     check(states.shape == (PT_R, T, PT_SIDE**2) and states.dtype == np.bool_, f"states {states.shape}")
     check(es.shape == (PT_R,) and np.isfinite(es).all(), f"energies {es.shape}")
@@ -2156,7 +2163,7 @@ def phase_main_tempering_longline(dev, smi):
     print(f"main-tempering-longline: LatticeTempering.qmc_timesteps_sample({T}, replica_swap_freq=1) on the "
           f"{PT_SIDE}^2 +-J glass, {PT_R} rungs at geomspace(0.2, {LLPT_BETA}), L_tau={LLPT_LTAU}, on {smi}: "
           f"{counts['ladder']} multi-launch launches (ladder_site, ladder_cluster; cluster group "
-          f"{cluster_group(LLPT_LTAU)}), 0 others, {swaps} accepted swaps, {dt:.3f} s host wall = "
+          f"{cluster_group(LLPT_LTAU)}), the key tables' 2 threefry_chain, 0 others, {swaps} accepted swaps, {dt:.3f} s host wall = "
           f"{dt / T * 1e3:.5f} ms a sweep; <E> beta=0.2..0.3 {es[:8].mean():.4f}, beta=105..256 "
           f"{es[-8:].mean():.4f}", flush=True)
     T = 10
@@ -2176,13 +2183,13 @@ def phase_main_tempering_longline(dev, smi):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    want = counts_only(ladder=2 * T, ladder_long=wl.LONG_LAUNCHES_PER_SWEEP * T)
+    want = counts_only(ladder=2 * T, ladder_long=wl.LONG_LAUNCHES_PER_SWEEP * T, keychain=2)
     check(counts == want, f"launch counts {counts}, want {want} (multi-launch, fk_long)")
     check(states.shape == (4, T, 4) and np.isfinite(es).all(), f"states {states.shape}, energies {es}")
     out["long"] = (counts["ladder"], counts["ladder_long"])
     print(f"main-tempering-longline: qmc_timesteps_sample({T}, replica_swap_freq=1) on a 4-ring ladder, rungs at "
           f"beta 6000 to 12500, L_tau=250000: {counts['ladder']} ladder_site launches and {counts['ladder_long']} "
-          f"fk_long_* launches, 0 others, {lt.get_total_swaps()} accepted swaps, {dt:.3f} s host wall", flush=True)
+          f"fk_long_* launches, the key tables' 2 threefry_chain, 0 others, {lt.get_total_swaps()} accepted swaps, {dt:.3f} s host wall", flush=True)
     return out
 
 
@@ -2379,7 +2386,7 @@ def phase_main_tempering(dev):
         torch.cuda.synchronize()
         wall[T] = [time.perf_counter() - t0]
     counts = read_counts()
-    want = counts_only(ladder_resident=2500)  # one resident launch per sweep
+    want = counts_only(ladder_resident=2500, keychain=4)  # one resident launch a sweep, two key chains a call
     check(counts == want, f"launch counts {counts}, want {want}")
     swaps = lt.get_total_swaps()
     for T, (states, es) in out.items():
@@ -2422,7 +2429,7 @@ def phase_main_tempering_wide(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    want = counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T)
+    want = counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T, keychain=2)
     check(counts == want, f"launch counts {counts}, want {want}")
     features = ladder.ladder_sweeps.feature_launches - features0
     check(features == T, f"{features} pt_swap_features launches, want {T} (one a one-sweep call)")
@@ -3199,6 +3206,70 @@ def phase_compare_keychain(dev, smi):
           f"({plain_ms / (TRI_T * len(kinds)) * 1e3:.1f} us a slot; {plain_ms * TRI_T_FULL / TRI_T / 1e3:.3f} s at "
           f"{TRI_T_FULL} steps by proportion)", flush=True)
     return err, out[TRI_T][0], plain_ms, out[TRI_T][1], out[TRI_T][2]
+
+
+# compare-key-tables' shapes: (name, keys, sweeps, swap period)
+KEY_TABLE_CASES = (("glass80.pt's 64 rungs, a swap every sweep", 64, 500, 1),
+                   ("33 rungs, past one block of 32, a swap every third sweep", 33, 200, 3),
+                   (f"LONG_LADDER's {LONG_LADDER[1]} rungs", LONG_LADDER[1], 500, 1))
+
+
+def phase_compare_key_tables(dev, smi):
+    """LatticeTempering's key tables on the card (tempering.key_tables_device:
+    threefry_chain with a plain slot a sweep, then a uniform slot a swap step
+    on the swap key) against the numpy key_tables, bit for bit (seeds,
+    uniforms, both advanced keys), at KEY_TABLE_CASES; their time by CUDA
+    events (the two launches) and the ladder's whole tables (``_tables``: the
+    keys' copies there and back, by the host's clock) against numpy's; then
+    key_tables_device.launches over two calls of the 12^2 bench ladder (one a
+    call) and its keys after them against the numpy chain's. Returns the
+    largest |difference|."""
+    from pyisingmontecarlo_tpu_torch import tempering as tt
+    from pyisingmontecarlo_tpu_torch.rng import key_data_of, key_tensor
+
+    err = 0
+    for name, R, T, sf in KEY_TABLE_CASES:
+        kd, sk = _keys(R, 40 + R), _keys(1, 41 + R)[0]
+        t0 = time.perf_counter()
+        want = tt.key_tables(kd, sk, T, sf)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        keys, swapkey = key_tensor(kd, dev), key_tensor(sk, dev)[0]
+        got = tt.key_tables_device(keys, swapkey, T, sf)
+        got = [got[0].cpu().numpy(), got[1].cpu().numpy().view(np.int32), key_data_of(got[2]), key_data_of(got[3])]
+        want = [want[0], want[1].view(np.int32), want[2], want[3][None]]
+        for g, w in zip(got, want):
+            check(g.shape == w.shape, f"compare-key-tables {name}: shape {g.shape} vs {w.shape}")
+            err = max(err, int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()) if g.size else 0)
+        check(err == 0, f"compare-key-tables {name}: key_tables_device != key_tables (max |diff| {err})")
+        runs = [event_ms(lambda: [tt.key_tables_device(keys, swapkey, T, sf) for _ in range(5)], 5) for _ in range(5)]
+        print(f"compare-key-tables: {name}: {T} sweeps x {R} keys, {T // sf} swap steps: seeds {got[0].shape}, "
+              f"uniforms {got[1].shape} and both keys equal key_tables bit for bit; on {smi} key_tables_device "
+              f"median {np.median(runs):.5f} ms a call (CUDA events, runs of 5 calls: {runs}), numpy key_tables "
+              f"{plain_ms:.3f} ms", flush=True)
+    lt = pt_ladder(dev)
+    m = lt._materialize()
+    T = 500
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        lt._tables(m, T, 1)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    kd, sk = m["key_data"].copy(), lt._swapkey.copy()
+    t0 = time.perf_counter()
+    want = tt.key_tables(kd, sk, 2 * 20, 1, PT_R)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    tt.key_tables_device.launches = 0
+    for _ in range(2):
+        lt.qmc_timesteps_sample(20, replica_swap_freq=1)
+    calls = tt.key_tables_device.launches
+    check(calls == 2, f"compare-key-tables: key_tables_device.launches {calls} over two ladder calls, want 2")
+    check(np.array_equal(m["key_data"], want[2]) and np.array_equal(lt._swapkey, want[3]),
+          "compare-key-tables: the ladder's keys after two calls differ from the numpy chain's")
+    print(f"compare-key-tables: the {PT_SIDE}^2 bench ladder's tables of {T} sweeps ({PT_R} rungs; LatticeTempering."
+          f"_tables, the keys' copies and the wait in) on {smi}: median {np.median(walls):.3f} ms by the host's clock "
+          f"(runs {[round(w, 3) for w in walls]}); key_tables_device.launches {calls} over two 20-sweep calls, keys "
+          f"after them equal the numpy chain's (numpy key_tables of those 40 sweeps {plain_ms:.3f} ms)", flush=True)
+    return err
 
 
 def glass_edges(n, seed=7):
@@ -4404,18 +4475,20 @@ def phase_compare_parallel(dev, smi):
     return meshes
 
 
-def _profiled(fn, names, counter, want):
+def _profiled(fn, names, counter, want, **also):
     """``fn()`` once under torch.profiler: the device kernels whose names hold
     one of ``names`` beside the launches the wrapper counted under ``counter``
     in that call (the profiler may miss a window's first kernel, so the count
-    is the check: it must be ``want``) and the device's idle share, as text;
-    'not measured' when the profiler records no device time."""
+    is the check: it must be ``want``, and the other counters ``also`` or 0)
+    and the device's idle share, as text; 'not measured' when the profiler
+    records no device time."""
     reset_counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     counts = read_counts()
-    check(counts == counts_only(**{counter: want}), f"profiled call: launch counts {counts}, want {counter}={want}")
+    check(counts == counts_only(**{counter: want}, **also),
+          f"profiled call: launch counts {counts}, want {counter}={want} and {also or 'no other'}")
     launched = f"{counts[counter]} {'threefry_bits' if counter == 'bits' else counter} counted"
     dev_t = _device_times(prof, names, everything=True)
     if dev_t is None:
@@ -4453,7 +4526,8 @@ def phase_main_parallel(dev, smi, meshes):
     reset_counts()
     (states, es), t_first = _wall(lambda: sharded.qmc_timesteps_sample(PAR_LADDER_T, replica_swap_freq=1))
     counts = counts_ladder = read_counts()
-    check(counts == counts_only(ladder_resident=PAR_LADDER_T), f"main-parallel ladder: launch counts {counts}")
+    check(counts == counts_only(ladder_resident=PAR_LADDER_T, keychain=2),
+          f"main-parallel ladder: launch counts {counts}")
     check(states.shape == (PT_R, PAR_LADDER_T, PT_SIDE**2) and np.isfinite(es).all() and es[-8:].mean() < es[:8].mean(),
           f"main-parallel ladder: states {states.shape}, <E> {es[:8].mean()} .. {es[-8:].mean()}")
     walls = {"sharded": [t_first], "unsharded": []}
@@ -4478,7 +4552,7 @@ def phase_main_parallel(dev, smi, meshes):
     check(torch.equal(nccl_gather(), feats), "main-parallel: a one-rank NCCL all_gather changed its input")
     _, t_nccl = _wall(lambda: [nccl_gather() for _ in range(200)])
     prof_ladder = _profiled(lambda: sharded.qmc_timesteps_sample(20, replica_swap_freq=1), ("ladder_resident", "nccl"),
-                            "ladder_resident", 20)
+                            "ladder_resident", 20, keychain=2)  # and the key tables' two chains
     print(f"main-parallel: ladder on {smi}: LatticeTempering.qmc_timesteps_sample({PAR_LADDER_T}, "
           f"replica_swap_freq=1), 12^2 +-J, {PT_R} replicas, L_tau={PT_LTAU}, sharded on a one-rank mesh: "
           f"{counts['ladder_resident']} ladder_resident launches, 0 multi-launch; {rate['sharded']:.2f} sweeps/s "
@@ -4755,6 +4829,7 @@ def main():
     llpt_launches = timed_phase(phase_main_tempering_longline, dev, smi)
     long_t = timed_phase(phase_timing_longline, dev, smi)
     chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = timed_phase(phase_compare_keychain, dev, smi)
+    chain_err = max(chain_err, timed_phase(phase_compare_key_tables, dev, smi))
     timed_phase(phase_compare_classical, dev)
     keychain_launches = timed_phase(phase_main_classical, dev, smi)
     timed_phase(phase_main_classicising, dev, smi)

@@ -20,8 +20,11 @@
 // algorithm (param: nvars for a worm, the slice count for a slice); 2 cluster
 // writes three lane seeds; 3 fan walks sub, k = split(sub) param times and
 // writes each k's lane seed; 5 bits writes the param words of
-// bernoulli(sub, 0.5, (param,)), 1 where the word's top bit is 0. Lane seeds
-// go to seeds[T][C][R], randint draws and bits to v0[T][W][R] (C and W:
+// bernoulli(sub, 0.5, (param,)), 1 where the word's top bit is 0; 6 uniform
+// writes the param words of uniform(sub, (param,)) as f32 bit patterns,
+// (b >> 9 | 0x3F800000) as f32 - 1 of the word's bits b (the swap uniforms
+// of pyisingmontecarlo_tpu_torch/tempering.py, one key). Lane seeds
+// go to seeds[T][C][R], randint draws, bits and uniforms to v0[T][W][R] (C and W:
 // rng.chain_columns); keys_out gets each replica's key after the T steps.
 // threefry2x32 is the 20-round block function with the key schedule
 // (k0, k1, k0 ^ k1 ^ 0x1BD11BDA); split(k) is the block at counters (0, 0)
@@ -153,7 +156,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 __device__ __forceinline__ int2 slot_columns(int kind, int param) {
     const bool one = kind == 0 || kind == 1 || kind == 4;
     return make_int2(one ? 1 : kind == 2 ? 3 : kind == 3 ? param : 0,
-                     kind == 1 || kind == 4 ? 1 : kind == 5 ? param : 0);
+                     kind == 1 || kind == 4 ? 1 : kind == 5 || kind == 6 ? param : 0);
 }
 
 // The outputs of a slot from its sub-key: sp and vp point at the replica's
@@ -178,10 +181,12 @@ __device__ __forceinline__ void expand(Key sub, int kind, int param, int32_t* sp
             sub = threefry(sub, 0u, 0u);
             if (live) sp[j * R] = seed;
         }
-    } else {
+    } else {  // bits (5) or uniform (6)
         for (int i = 0; i < param; ++i) {
             const Key y = threefry(sub, 0u, static_cast<uint32_t>(i));
-            if (live) vp[i * R] = (y.k0 ^ y.k1) < 0x80000000u ? 1 : 0;
+            const uint32_t b = y.k0 ^ y.k1;
+            const uint32_t u = __float_as_uint(__uint_as_float((b >> 9) | 0x3F800000u) - 1.0f);
+            if (live) vp[i * R] = static_cast<int32_t>(kind == 5 ? (b < 0x80000000u ? 1u : 0u) : u);
         }
     }
 }

@@ -13,7 +13,9 @@ the counter hash of ``ops/lanerng.py``.
 The graph engines split each replica's key once for every move of every time
 step (or phase of every sweep; the generic k-local sweep also splits a
 sub-key again per color, draws a slice and draws Bernoulli bits: the fan,
-slice and bits slots). ``threefry_chain`` walks that chain for a whole call:
+slice and bits slots); ``LatticeTempering`` splits each replica's key once a
+sweep and its one swap key once a swap step, drawing ``uniform(sub, (R,))``
+(the plain and uniform slots). ``threefry_chain`` walks that chain for a whole call:
 on a CUDA tensor in one launch of the kernel of ``csrc/keychain.cu`` (a warp
 walks the serial key spine of 32 replicas, others expand each slot's
 sub-key into its outputs), on a CPU tensor in its plain numpy version
@@ -34,6 +36,7 @@ function at counter ``(0, i)``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -57,6 +60,7 @@ __all__ = [
     "KEY_FAN",
     "KEY_SLICE",
     "KEY_BITS",
+    "KEY_UNIFORM",
     "chain_columns",
     "threefry_chain",
     "threefry_chain_reference",
@@ -204,17 +208,17 @@ def randint(key_data: np.ndarray, maxval: int) -> np.ndarray:
 
 
 # the moves of a time step, in the order they split the replica's key
-KEY_PLAIN, KEY_WORM, KEY_CLUSTER, KEY_FAN, KEY_SLICE, KEY_BITS = 0, 1, 2, 3, 4, 5
+KEY_PLAIN, KEY_WORM, KEY_CLUSTER, KEY_FAN, KEY_SLICE, KEY_BITS, KEY_UNIFORM = 0, 1, 2, 3, 4, 5, 6
 # the kinds that take a parameter: a plan slot of these is a pair (kind, m or span)
-_PARAM_KINDS = (KEY_FAN, KEY_SLICE, KEY_BITS)
-# bound on a slot's m (a fan's inner splits, a bits slot's words)
+_PARAM_KINDS = (KEY_FAN, KEY_SLICE, KEY_BITS, KEY_UNIFORM)
+# bound on a slot's m (a fan's inner splits, a bits or uniform slot's words)
 _MAX_M = 1 << 16
 
 
 def _slot(k):
     """A plan slot -> ``(kind, param)``: KEY_PLAIN, KEY_WORM and KEY_CLUSTER
-    are bare ints (param 0); KEY_FAN, KEY_SLICE and KEY_BITS are pairs
-    ``(kind, m)``, ``(kind, span)``, ``(kind, m)``."""
+    are bare ints (param 0); KEY_FAN, KEY_SLICE, KEY_BITS and KEY_UNIFORM
+    are pairs ``(kind, m)``, ``(kind, span)``, ``(kind, m)``, ``(kind, m)``."""
     if isinstance(k, (tuple, list)):
         if len(k) != 2:
             raise ValueError(f"a plan slot is a kind or a pair (kind, param), got {k!r}")
@@ -224,23 +228,23 @@ def _slot(k):
         if kind == KEY_SLICE and not 0 < param < 2**31:
             raise ValueError(f"a slice slot's span must be in [1, 2^31), got {param}")
         if kind != KEY_SLICE and not 0 <= param <= _MAX_M:
-            raise ValueError(f"a fan or bits slot's m must be in [0, {_MAX_M}], got {param}")
+            raise ValueError(f"a fan, bits or uniform slot's m must be in [0, {_MAX_M}], got {param}")
         return kind, param
     kind = int(k)
     if kind not in (KEY_PLAIN, KEY_WORM, KEY_CLUSTER):
-        raise ValueError(f"unknown slot kind {k!r} (fan, slice and bits slots are pairs (kind, param))")
+        raise ValueError(f"unknown slot kind {k!r} (fan, slice, bits and uniform slots are pairs (kind, param))")
     return kind, 0
 
 
 def _slot_columns(kind: int, param: int):
     """(lane seeds, int words) one slot writes."""
     return {KEY_PLAIN: (1, 0), KEY_WORM: (1, 1), KEY_CLUSTER: (3, 0), KEY_FAN: (param, 0), KEY_SLICE: (1, 1),
-            KEY_BITS: (0, param)}[kind]
+            KEY_BITS: (0, param), KEY_UNIFORM: (0, param)}[kind]
 
 
 def chain_columns(kinds: Sequence):
     """``(C, W)``: the lane seeds and the int words (worm start sites, slice
-    draws, Bernoulli bits) a step of this plan writes."""
+    draws, Bernoulli bits, uniforms' f32 bits) a step of this plan writes."""
     cols = [_slot_columns(*_slot(k)) for k in kinds]
     return sum(c for c, _ in cols), sum(w for _, w in cols)
 
@@ -257,7 +261,9 @@ def threefry_chain_reference(key_data: np.ndarray, kinds: Sequence, T: int, nvar
     walks ``sub, k = split(sub)`` m times and writes the lane seed of each
     ``k``; a ``(KEY_SLICE, span)`` slot is a worm slot that draws
     ``randint(k0, span)``; a ``(KEY_BITS, m)`` slot writes the m words of
-    ``bernoulli(sub, 0.5, (m,))`` as 1 or 0 (nothing when m = 0). Returns
+    ``bernoulli(sub, 0.5, (m,))`` as 1 or 0 (nothing when m = 0); a
+    ``(KEY_UNIFORM, m)`` slot writes the m words of ``uniform(sub, (m,))``
+    (``uniform_f32``) as their f32 bit patterns. Returns
     ``(seeds [T, C, R] int32, v0 [T, W, R] int32, key_data [R, 2] uint32)``
     with the keys advanced past the ``T`` steps: the JAX package's splits, bit
     for bit."""
@@ -286,8 +292,10 @@ def threefry_chain_reference(key_data: np.ndarray, kinds: Sequence, T: int, nvar
                 for j in range(param):
                     sub, k = split_all(sub)
                     seeds[t, col + j] = seeds_from_key_data(k)
-            elif param:
+            elif kind == KEY_BITS:
                 v0[t, w:w + param] = (random_bits(sub, param) < np.uint32(1 << 31)).T
+            else:
+                v0[t, w:w + param] = uniform_f32(sub, param).view(np.int32).T
             c, i = _slot_columns(kind, param)
             col, w = col + c, w + i
     return seeds, v0, kd
@@ -302,6 +310,13 @@ def key_tensor(key_data: np.ndarray, device) -> torch.Tensor:
 def key_data_of(keys: torch.Tensor) -> np.ndarray:
     """The inverse of ``key_tensor``: ``[R, 2]`` uint32 key data on the host."""
     return keys.detach().cpu().numpy().astype(np.int32).view(np.uint32).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tensor(plan: tuple, device: torch.device) -> torch.Tensor:
+    """The ``[S, 2]`` int32 plan of ``threefry_chain`` on ``device``, copied
+    there once per plan (the kernel only reads it)."""
+    return torch.tensor(plan, dtype=torch.int32).to(device)
 
 
 def threefry_chain(keys: torch.Tensor, kinds: Sequence, T: int, nvars: int):
@@ -331,8 +346,7 @@ def threefry_chain(keys: torch.Tensor, kinds: Sequence, T: int, nvars: int):
 
     keys_in = keys.contiguous()
     out = torch.empty_like(keys_in)
-    plan = torch.tensor([(kind, int(nvars) if kind == KEY_WORM else param) for kind, param in slots],
-                        dtype=torch.int32).to(dev)
+    plan = _plan_tensor(tuple((kind, int(nvars) if kind == KEY_WORM else param) for kind, param in slots), dev)
     with torch.cuda.device(dev):
         err = _kernels.load().threefry_chain(
             keys_in.data_ptr(), out.data_ptr(), plan.data_ptr(), len(slots), T, C, W, R,

@@ -31,10 +31,14 @@ the JAX package does.
 
 Randomness, bit for bit the JAX package's: on the ladder route each
 replica's threefry key is split once per sweep and the subkey gives that
-sweep's kernel seed (``key_tables``, on the host); on the generic route once
-per phase of the sweep (``worldline.walk`` on ``rng.threefry_chain``). The
-swap key is split once per swap step and the subkey gives
-``uniform(sub, (R,))`` (``swap_uniforms``).
+sweep's kernel seed; on the generic route once per phase of the sweep
+(``worldline.walk`` on ``rng.threefry_chain``). The swap key is split once
+per swap step and the subkey gives ``uniform(sub, (R,))``. A call makes its
+seeds and uniforms before its first sweep, on the ladder's device
+(``key_tables_device``, ``swap_uniforms_device``: ``rng.threefry_chain``
+with a plain slot a sweep and a uniform slot a swap step, one launch each on
+CUDA); ``key_tables`` and ``swap_uniforms`` are the same tables in numpy, and
+make them for a ladder of more rungs than a uniform slot holds.
 
 ``enable_heatbath_update`` is accepted and has no effect, as in the JAX
 package (every parallel phase accepts by Glauber).
@@ -65,13 +69,14 @@ from .graph import CompiledGraph, compile_graph_arrays, detect_topology, parse_e
 from .lattice import resolve_device
 from .ops import ladder
 from .ops.ladder import swap_features
-from .rng import (MasterRng, key_data_from_seeds, key_data_of, key_tensor, random_states, seeds_from_key_data,
-                  split_all, uniform_f32)
+from .rng import (_MAX_M, KEY_PLAIN, KEY_UNIFORM, MasterRng, key_data_from_seeds, key_data_of, key_tensor,
+                  random_states, seeds_from_key_data, split_all, threefry_chain, uniform_f32)
 from .utils import cbor
 from .utils.accum import kadd, kfinal, kzero
 from .utils.profiling import span
 
-__all__ = ["LatticeTempering", "key_tables", "swap_uniforms", "swap_features", "batched_graph_arrays"]
+__all__ = ["LatticeTempering", "key_tables", "swap_uniforms", "key_tables_device", "swap_uniforms_device",
+           "swap_features", "batched_graph_arrays"]
 
 _NEVER = 2**31 - 1  # the swap period of runs without swaps
 
@@ -100,6 +105,33 @@ def swap_uniforms(swapkey: np.ndarray, nswaps: int, R: int):
         sk, sub = split_all(sk)
         uniforms[k] = uniform_f32(sub, R)[0]
     return uniforms, sk[0]
+
+
+def key_tables_device(keys: torch.Tensor, swapkey: torch.Tensor, timesteps: int, swap_freq: int,
+                      R: Optional[int] = None):
+    """``key_tables`` on key tensors (the bits of ``rng.key_tensor``: ``keys
+    [n, 2]``, ``swapkey [2]``), made on their device: ``(seeds [T, n] int32,
+    uniforms [T // swap_freq, R] f32, keys, swapkey)``, the same bits. The
+    seeds are ``rng.threefry_chain`` of one plain slot a sweep: one launch on
+    CUDA, its numpy version on the CPU. A call on CUDA is counted in
+    ``key_tables_device.launches``."""
+    seeds, _, keys = threefry_chain(keys, [KEY_PLAIN], int(timesteps), 0)
+    uniforms, swapkey = swap_uniforms_device(swapkey, int(timesteps) // int(swap_freq),
+                                             keys.shape[0] if R is None else R)
+    if keys.device.type == "cuda":
+        key_tables_device.launches += 1
+    return seeds[:, 0], uniforms, keys, swapkey
+
+
+key_tables_device.launches = 0
+
+
+def swap_uniforms_device(swapkey: torch.Tensor, nswaps: int, R: int):
+    """``swap_uniforms`` on a key tensor ``swapkey [2]``, made on its device:
+    ``(uniforms [nswaps, R] f32, swapkey)``, ``rng.threefry_chain`` of one
+    ``(KEY_UNIFORM, R)`` slot a swap step (R at most ``rng._MAX_M``)."""
+    _, v0, swapkey = threefry_chain(swapkey.reshape(1, 2), [(KEY_UNIFORM, int(R))], int(nswaps), 0)
+    return v0.view(torch.float32)[:, :, 0], swapkey[0]
 
 
 def batched_graph_arrays(cg: CompiledGraph, jvals: np.ndarray, device="cpu") -> ce.GraphArrays:
@@ -283,6 +315,30 @@ class LatticeTempering:
         perm = torch.where(acc_leader, idx + 1, torch.where(acc_follower, idx - 1, idx))
         return (s[perm] if shard is None else shard.take(s, perm)), acc_leader.sum()
 
+    def _tables(self, m: dict, T: int, sf: int, seeds: bool = True):
+        """A call's tables on the ladder's device, ``(seeds [T, R] int32 or
+        None without ``seeds``, uniforms [T // sf, ngraphs] f32)``, with
+        ``m["key_data"]`` and the swap key advanced past the call: made by
+        ``key_tables_device`` (``swap_uniforms_device``), the keys copied there
+        and back once; past ``rng._MAX_M`` rungs by the numpy ``key_tables``
+        (``swap_uniforms``)."""
+        n, dev = len(self.graphs), self.device
+        if n > _MAX_M:
+            if not seeds:
+                uniforms, self._swapkey = swap_uniforms(self._swapkey, T // sf, n)
+                return None, torch.from_numpy(uniforms).to(dev)
+            seeds, uniforms, m["key_data"], self._swapkey = key_tables(m["key_data"], self._swapkey, T, sf, n)
+            return torch.from_numpy(seeds).to(dev), torch.from_numpy(uniforms).to(dev)
+        if not seeds:
+            uniforms, sk = swap_uniforms_device(key_tensor(self._swapkey, dev), T // sf, n)
+            self._swapkey = key_data_of(sk)[0]
+            return None, uniforms
+        kt = key_tensor(np.concatenate([m["key_data"], self._swapkey[None]]), dev)
+        seeds, uniforms, keys, sk = key_tables_device(kt[:-1], kt[-1], T, sf, n)
+        kd = key_data_of(torch.cat([keys, sk[None]]))
+        m["key_data"], self._swapkey = kd[:-1], kd[-1]
+        return seeds, uniforms
+
     @staticmethod
     def _gather(m: dict, x):
         """The global per-replica results from this rank's block (``x`` itself unsharded)."""
@@ -302,9 +358,7 @@ class LatticeTempering:
         s, planes, dev = m["s"], m["planes"], self.device
         R = s.shape[0]  # this rank's replicas under a shard
         with span("tempering.key_tables"):
-            seeds, uniforms, m["key_data"], self._swapkey = key_tables(m["key_data"], self._swapkey, T, sf,
-                                                                        len(self.graphs))
-            seeds, uniforms = torch.from_numpy(seeds).to(dev), torch.from_numpy(uniforms).to(dev)
+            seeds, uniforms = self._tables(m, T, sf)
         sums = None
         if with_energy:
             sums = [torch.zeros((R, m["ea"].numel()), dtype=torch.int64, device=dev),
@@ -349,8 +403,7 @@ class LatticeTempering:
         R = m["s"].shape[0]  # this rank's replicas under a shard
         nsamples = T // freq if freq else 0
         with span("tempering.key_tables"):
-            uniforms, self._swapkey = swap_uniforms(self._swapkey, T // sf, len(self.graphs))
-            uniforms = torch.from_numpy(uniforms).to(dev)
+            _, uniforms = self._tables(m, T, sf, seeds=False)
         ea, eb = m["ea"].long(), m["eb"].long()
         esum = kzero(R, dev)
         accepted = torch.zeros((), dtype=torch.int64, device=dev)

@@ -25,10 +25,11 @@ each of its layer boundaries listed in ``SPANS``, named ``pmc.<module>.<part>``:
   after the energies' copy, which waits for the sweeps);
 - ``pmc.tempering.qmc_timesteps_sample``: the whole of
   ``LatticeTempering.qmc_timesteps_sample``; inside it (and inside every other
-  method that sweeps the ladder) ``pmc.tempering.key_tables`` (the host's key
-  and swap-uniform tables of the call and their copy to the card, before the
-  first sweep) and ``pmc.tempering.samples`` (the samples' stack after the
-  accepted swaps were read, and their copy to the host);
+  method that sweeps the ladder) ``pmc.tempering.key_tables`` (the call's seed
+  and swap-uniform tables, before the first sweep: the keys' copy to the
+  ladder's device, the key chains there, and the advanced keys' copy back) and
+  ``pmc.tempering.samples`` (the samples' stack after the accepted swaps were
+  read, and their copy to the host);
 - ``pmc.lattice.run_quantum_monte_carlo``: the whole of
   ``Lattice.run_quantum_monte_carlo``, on either route; inside it
   ``pmc.worldline.setup`` (``Lattice._worldline``: the replicas' keys, their

@@ -4,7 +4,8 @@ multiplier wraps to 0), the lane seeds against ``lanerng.replica_seeds_from_keys
 and ``threefry_chain_reference`` against the JAX engines' own splits
 (``rng.split_keys`` per slot, then the worm's and the cluster update's; the
 generic sweep's inner splits of a segment or term-kink pass, a slice's
-``randint(ksel, ltau)`` and the free variables' ``bernoulli(sub, 0.5)``) for
+``randint(ksel, ltau)`` and the free variables' ``bernoulli(sub, 0.5)``; the
+tempering swap step's ``uniform(sub, (R,))``) for
 plans of every slot kind (tolerance: none); and a numpy model of the CUDA
 kernel's split of the work (``csrc/keychain.cu``: a spine warp walking only
 ``key' = split(key)[0]`` for 32 replicas and staging each key in a ring of
@@ -88,9 +89,13 @@ def _jax_chain(u64, kinds, T, nvars):
                 ku, ksel = split_keys(sub)  # engines/generic.slice_color_update
                 row.append(jlanerng.replica_seeds_from_keys(ku))
                 worms.append(jax.vmap(lambda k: jax.random.randint(k, (), 0, kind[1]))(ksel))
-            elif kind[1]:  # engines/generic.free_var_update
-                bits = jax.vmap(lambda k: jax.random.bernoulli(k, 0.5, (kind[1],)))(sub)
-                worms += list(np.asarray(bits).astype(np.int32).T)
+            elif kind[0] == rng.KEY_BITS:
+                if kind[1]:  # engines/generic.free_var_update
+                    bits = jax.vmap(lambda k: jax.random.bernoulli(k, 0.5, (kind[1],)))(sub)
+                    worms += list(np.asarray(bits).astype(np.int32).T)
+            elif kind[1]:  # tempering's swap step: uniform(sub, (R,)) as f32 bits
+                u = jax.vmap(lambda k: jax.random.uniform(k, (kind[1],)))(sub)
+                worms += list(np.asarray(u, np.float32).view(np.int32).T)
         seeds.append(np.stack([np.asarray(x) for x in row]) if row else np.zeros((0, len(u64)), np.int32))
         v0.append(np.stack([np.asarray(x) for x in worms]) if worms else np.zeros((0, len(u64)), np.int32))
     return np.stack(seeds), np.stack(v0), np.asarray(jax.random.key_data(keys))
@@ -105,6 +110,9 @@ PLANS = [
     ([0, (3, 4), (3, 1), 0, (5, 0)], 2, 5, 9),
     ([(4, 10), (4, 65537), (5, 7), (3, 0), 1], 3, 4, 12),
     ([0, 0, (3, 5), (3, 5), (3, 4), 0, (4, 1), (4, 2**31 - 1), (5, 40)], 2, 3, 7),
+    ([(6, 64)], 3, 1, 1),
+    ([(6, 1), 0, (6, 0), (5, 3), (6, 65)], 2, 3, 5),
+    ([1, (6, 64), (3, 2), (6, 65), 2], 2, 2, 9),
 ]
 
 
@@ -153,8 +161,11 @@ def _expand(sub, kind, param):
             out.append(_lane_seed(_block(sub, 1)))
             sub = _block(sub, 0)
         return out, []
-    return [], [(np.bitwise_xor.reduce(_block(sub, i), 1) < np.uint32(1 << 31)).astype(np.int32)
-                for i in range(param)]
+    words = [np.bitwise_xor.reduce(_block(sub, i), 1) for i in range(param)]
+    if kind == rng.KEY_BITS:
+        return [], [(b < np.uint32(1 << 31)).astype(np.int32) for b in words]
+    return [], [(((b >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)).view(np.int32)
+                for b in words]
 
 
 def _chain_model(kd, kinds, T, nvars, warps=6, batch=8, stages=16):
@@ -222,13 +233,15 @@ def _chain_model(kd, kinds, T, nvars, warps=6, batch=8, stages=16):
 @pytest.mark.parametrize("kinds,T,R,nvars", [p for p in PLANS if p[0]] + [
     ([0, 1, 2, (3, 0), (3, 1), (3, 3), (4, 9), (5, 0), (5, 5)], 5, 40, 11),
     ([(3, 3), 0, (5, 5), (3, 0), 2, (5, 0), (3, 1), 1, (4, 3)], 20, 70, 100003),
+    ([(6, 33)], 60, 1, 1),
 ])
 def test_spine_expansion_model_equals_reference(kinds, T, R, nvars):
     """The kernel's split of the chain (a serial spine, slots expanded beside
     it) writes the reference's tables and keys, for every slot kind (plain,
     worm, cluster, fan with m = 0, 1, 3 and more, slice, bits with m = 0, 5
-    and more), blocks with dead lanes (R = 40, 70), a last batch of fewer
-    slots, and more batches than the ring's stages (180 slots)."""
+    and more, uniform with m = 0, 1, 64, 65), blocks with dead lanes (R = 1,
+    40, 70), a last batch of fewer slots, and more batches than the ring's
+    stages (180 slots; the swap key's 60 uniform slots, one key)."""
     kd = rng.key_data_from_seeds(_seeds(R, 7 * T + R))
     got = _chain_model(kd, kinds, T, nvars)
     want = rng.threefry_chain_reference(kd, kinds, T, nvars)
@@ -276,7 +289,9 @@ def test_generic_sweep_plan_columns():
 
 
 @pytest.mark.parametrize("slot", [(rng.KEY_SLICE, 0), (rng.KEY_SLICE, -3), (rng.KEY_SLICE, 2**31), (rng.KEY_FAN, -1),
-                                  (rng.KEY_BITS, 2**17), (rng.KEY_PLAIN, 1), (rng.KEY_FAN, 2, 3), 3, 4, 5, 6])
+                                  (rng.KEY_BITS, 2**17), (rng.KEY_PLAIN, 1), (rng.KEY_FAN, 2, 3), 3, 4, 5, 6,
+                                  (rng.KEY_UNIFORM, -1), (rng.KEY_UNIFORM, 2**16 + 1), (rng.KEY_UNIFORM, 1, 2), 7,
+                                  (7, 4)])
 def test_chain_rejects_bad_slots(slot):
     kd = rng.key_tensor(rng.key_data_from_seeds(_seeds(3, 2)), "cpu")
     with pytest.raises(ValueError):

@@ -8,8 +8,10 @@ the JAX side sums an f32 estimator per sweep (compensated), the port forms it
 once in f64 from exact integer features, so they agree within 1e-5 relative
 (the largest difference seen here is 3.4e-7). Autocorrelations are f32 FFTs
 on both sides and agree within 1e-4. Also checkpoints (the port's own, the
-JAX package's files, regridding), ``clone``, the errors, and the per-rung
-energies of a 4-ring ladder against dense diagonalization."""
+JAX package's files, regridding), ``clone``, the errors, the per-rung
+energies of a 4-ring ladder against dense diagonalization, and the tables a
+call makes on the ladder's device (``key_tables_device``) against the numpy
+``key_tables``, bit for bit."""
 
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ import pyisingmontecarlo_tpu as jpmc
 from helpers import dense_tfim_energy
 from pyisingmontecarlo_tpu.graph import grid_2d_edges
 from pyisingmontecarlo_tpu_torch import LatticeTempering
+from pyisingmontecarlo_tpu_torch import tempering as tt
 from pyisingmontecarlo_tpu_torch.interop import tempering_from_reference
+from pyisingmontecarlo_tpu_torch.rng import key_data_from_seeds, key_data_of, key_tensor
 
 torch.set_num_threads(1)
 
@@ -235,3 +239,67 @@ def test_per_rung_energy_matches_dense_diagonalization():
         m, se = energies[:, k].mean(), energies[:, k].std(ddof=1) / np.sqrt(6)
         assert abs(m - exact) < 5 * se + 0.06, (b, m, exact, se)
     assert lt.get_total_swaps() > 0
+
+
+def _key_data(n, seed):
+    return key_data_from_seeds(np.random.default_rng(seed).integers(0, 2**64, n, dtype=np.uint64))
+
+
+def _assert_same_tables(got, want):
+    seeds, uniforms, keys, swapkey = got
+    assert seeds.dtype == torch.int32 and uniforms.dtype == torch.float32
+    np.testing.assert_array_equal(seeds.numpy(), want[0])
+    np.testing.assert_array_equal(uniforms.numpy().view(np.int32), want[1].view(np.int32))
+    np.testing.assert_array_equal(key_data_of(keys), want[2])
+    np.testing.assert_array_equal(key_data_of(swapkey), want[3][None])
+
+
+@pytest.mark.parametrize("T,swap_freq", [(0, 1), (1, 1), (7, 1), (0, 3), (1, 3), (7, 3), (0, None), (1, None),
+                                         (7, None)])
+@pytest.mark.parametrize("R", [1, 33, 64])
+def test_device_key_tables_equal_numpy(R, T, swap_freq):
+    """``key_tables_device`` on CPU key tensors (``threefry_chain``'s numpy
+    version): the seeds, uniforms and both advanced keys of ``key_tables``,
+    bit for bit, for ladders across the chain kernel's 32-replica block, and
+    nothing counted."""
+    kd, sk = _key_data(R, R), _key_data(1, R + 1)[0]
+    sf = swap_freq or tt._NEVER
+    tt.key_tables_device.launches = 0
+    got = tt.key_tables_device(key_tensor(kd, "cpu"), key_tensor(sk, "cpu")[0], T, sf)
+    _assert_same_tables(got, tt.key_tables(kd, sk, T, sf))
+    assert got[0].shape == (T, R) and got[1].shape == (T // sf, R)
+    assert tt.key_tables_device.launches == 0
+
+
+@pytest.mark.parametrize("R", [1, 33, 64])
+def test_device_key_tables_continue_across_calls(R):
+    """Two calls of 3 and 4 sweeps continue one chain: the tables of one call
+    of 7; and a block of the keys with the whole ladder's uniforms (a shard)."""
+    kd, sk = _key_data(R, 2 * R), _key_data(1, 2 * R + 1)[0]
+    a = tt.key_tables_device(key_tensor(kd, "cpu"), key_tensor(sk, "cpu")[0], 3, 1)
+    b = tt.key_tables_device(a[2], a[3], 4, 1)
+    whole = tt.key_tables(kd, sk, 7, 1)
+    _assert_same_tables((torch.cat([a[0], b[0]]), torch.cat([a[1], b[1]]), b[2], b[3]), whole)
+    block = kd[R // 2:R // 2 + 1]
+    got = tt.key_tables_device(key_tensor(block, "cpu"), key_tensor(sk, "cpu")[0], 5, 2, R + 7)
+    _assert_same_tables(got, tt.key_tables(block, sk, 5, 2, R + 7))
+
+
+@pytest.mark.parametrize("rvb", [False, True])
+def test_ladder_tables_past_a_uniform_slot(monkeypatch, rvb):
+    """A ladder of more rungs than a uniform slot holds makes its tables in
+    numpy (``key_tables``, ``swap_uniforms``): the same runs, keys and swap
+    key as the tables of ``key_tables_device``, on both routes."""
+    lts = []
+    for cap in (tt._MAX_M, 2):
+        monkeypatch.setattr(tt, "_MAX_M", cap)
+        lt = _port_ladder(seed=9)
+        lt.add_graph(1.0, 0.0, 2.0, enable_rvb_update=rvb)
+        out = lt.qmc_timesteps_sample(5, replica_swap_freq=2)
+        lts.append((lt, out))
+    (a, out_a), (b, out_b) = lts
+    assert ("ga" in a._materialize()) == rvb
+    _assert_same_sample(out_a, out_b)
+    _assert_same_ladder(a, b)
+    np.testing.assert_array_equal(a._materialize()["key_data"], b._materialize()["key_data"])
+    np.testing.assert_array_equal(a._swapkey, b._swapkey)
