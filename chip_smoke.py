@@ -7,39 +7,20 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
 
 1.  gpu           the card's name and power limit (nvidia-smi);
 2.  build         nvcc builds the CUDA kernels from ``pyisingmontecarlo_tpu_torch/csrc``
-                  (registers, shared memory and spills of each) and their
-                  measurement builds (TILED_VARIANTS, SQ2D_CUTS,
-                  FK_GROUP_VARIANTS, FK_LONG_CUTS), all at
-                  once, and the SASS
-                  instructions of one lane-hash draw, of a site update of
-                  ``sq2d_tiled``'s row loop and of a word of 32 slices in each
-                  slice loop of the multi-launch cluster phase (``fk_line`` in
-                  wl_cluster and ladder_cluster), of a slice of
-                  wl_accumulate's word loop, of a spin of ladder_site at
-                  L_tau = 60 and 974 and of wl_site at L_tau = 800 (hash,
-                  logf, loads, stores, the rest; cuobjdump, where the
-                  toolkit has it);
+                  and prints the registers, shared memory and spills of each;
 3.  compare       the square-torus kernel (``sq2d_tiled``) vs its plain
                   PyTorch version on the card, bit for bit (annealing, field,
                   explicit randoms, sampling, bench shape; L = 6, 16 and 200,
                   37 sweeps across launch boundaries from ctr0 = 3, sampling
                   every 3 sweeps and every sweep, explicit randoms over
                   several launches, draws and thresholds over the whole
-                  int32 range), and every (B, K) of the timing grid against
-                  the plan's at the bench shape;
+                  int32 range), and every (B, K) of a grid against the plan's
+                  at the bench shape;
 4.  main          ``Lattice.run_monte_carlo`` at 1024^2, 8 replicas, 1024
                   sweeps, through the kernel (``sq2d_plan``'s ceil(T / K)
                   launches);
 5.  physics       Onsager energy (L=32) and disordered magnetization (L=16);
-6.  timing        square-torus kernel and plain version at the bench shape;
-                  the kernel's measurement builds (SQ2D_CUTS) and the (B, K)
-                  grid there, and a (B, K) grid beside the plan's at five
-                  more shapes and modes (SQ2D_PLAN_SHAPES); the kernel in all three
-                  modes, ten runs each,
-                  beside the plain version and its bound; the
-                  main path's launch gaps and host share at 1024 and 16384
-                  sweeps (torch.profiler);
-7.  compare-wl    the worldline kernels vs their plain version, bit for bit:
+6.  compare-wl    the worldline kernels vs their plain version, bit for bit:
                   the multi-launch, resident and tiled kernels (the gate's
                   route through the wrapper, the others through their private
                   launchers where the shape fits them), each against the plain
@@ -56,72 +37,45 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   torus, R = 3, sampling every 2 and 3 of 5 and 7 sweeps;
                   at L_tau = 130 and 514 (wl_site's 16 threads a line, and
                   a warp's two chunks, the last of one pair);
-8.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
+7.  main-quantum  ``Lattice.run_quantum_monte_carlo(2.0, 200, 8)`` on the
                   256^2 TFIM torus (the shape of benches/bench_qmc_large.py;
                   tiled, one launch per sweep);
-9.  main-quantum-sampling  ``run_quantum_monte_carlo_sampling`` on the same
+8.  main-quantum-sampling  ``run_quantum_monte_carlo_sampling`` on the same
                   torus, 20 sweeps (the tiled kernel's sampling mode);
-10. main-quantum-long  both entry points on a 64^2 torus at beta=40, so
+9.  main-quantum-long  both entry points on a 64^2 torus at beta=40, so
                   L_tau=800, 5 and 4 sweeps (multi-launch, 5 launches per
                   sweep: 2 wl_site, both tau parities of a color each, 2
                   wl_cluster, 1 wl_accumulate; plain and sampling mode);
-11. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
+10. main-chain    ``Lattice.run_quantum_monte_carlo_sampling`` on the 256-site
                   TFIM chain, 64 replicas, 500 + 2000 sweeps (benches/bench_qmc.py's
                   shape; resident, one launch per call), against the exact
                   free-fermion energy;
-12. physics-wl    <E> of a 6-ring against dense diagonalization, and a bond
+11. physics-wl    <E> of a 6-ring against dense diagonalization, and a bond
                   autocorrelation on a 32^2 torus;
-13. timing-wl     every route that fits each main path's shape against the
-                  plain version, the tiled route against the multi-launch
-                  route at both torus shapes (ten runs each in turns), each
-                  launch's device time and the idle share (torch.profiler), the
-                  tiled kernel's measurement builds (the sweep cut after its
-                  load and store, site phases and cluster phases), the tiled
-                  kernel at every tile side that fits the main shape, and the
-                  three routes at the gate's edges; the multi-launch sweep at
-                  L_tau = 800 split by kernel name, the bound of its cluster
-                  phases alone (what one pass over the lines needs, for the
-                  frozen bonds of the timed state) and the instruction floor
-                  of their algorithm (the SASS counts of the build phase);
-                  the site phases' and the accumulation's times a sweep
-                  against what they need (wl_site_need, accumulate_need) and
-                  their SASS floors; every profiled call's launches beside
-                  the wrapper's count (the best of up to three traces, none
-                  above the count);
-14. compare-ladder    the ladder kernels vs their plain version, bit for bit
+12. compare-ladder    the ladder kernels vs their plain version, bit for bit
                   in states and swap features: resident and multi-launch,
                   each against the plain version and each other (ring with
                   field and per-replica couplings, 12^2 +-J torus, frozen
                   lines, L_tau=1200, L_tau=4 with R=1, odd R, a 24^2 torus,
                   a 48^2 torus off the gate, the 64 x 144 x 60 bench shape,
-                  and the 64 x 4096 x 60 shape of main-tempering-wide); the
-                  multi-launch kernels at L_tau = 700, 800, 974, 3906 and
-                  4096 on rings and +-J tori, with lines frozen whole at high K_tau,
-                  at L_tau = 62 and 66 on a 30-ring and a 14^2 +-J torus,
-                  R = 3, and at L_tau = 130 and 514 (ladder_site's 16
-                  threads a line, and a warp's two chunks, the last of one
-                  pair);
-15. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
+                  the 64 x 4096 x 60 shape of main-tempering-wide, and the
+                  glass80.pt cell's 64 x 6400 x 60, whose features are taken
+                  again by a launch at T = 0); the multi-launch kernels at
+                  L_tau = 700, 800, 974, 3906 and 4096 on rings and +-J tori,
+                  with lines frozen whole at high K_tau, at L_tau = 62 and 66
+                  on a 30-ring and a 14^2 +-J torus, R = 3, and at L_tau = 130
+                  and 514 (ladder_site's 16 threads a line, and a warp's two
+                  chunks, the last of one pair);
+13. main-tempering    ``LatticeTempering.qmc_timesteps_sample`` at t = 500, then
                   2000, on the ladder of benches/bench_tempering.py (12^2 +-J
                   spin glass, 64 replicas, L_tau = 60; resident, one launch per
                   sweep, features from the kernel), with sweeps/s and swap
                   attempts/s as that bench takes them;
-16. main-tempering-wide  the same ladder on a 64^2 +-J torus, 5 sweeps
+14. main-tempering-wide  the same ladder on a 64^2 +-J torus, 5 sweeps
                   (multi-launch, 4 launches per sweep: 2 ladder_site, 2
                   ladder_cluster);
-17. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
-18. timing-ladder     ladder kernels and plain version at the bench shape (200-
-                  sweep calls, and one-sweep calls as the main path makes
-                  them), each launch's device time and the idle share over
-                  whole tempering steps (torch.profiler), and the multi-launch
-                  kernels and plain version at main-tempering-wide's 64^2
-                  shape, split by kernel name, the bound of the cluster phases
-                  alone and the instruction floor of their algorithm, and the
-                  site phases' time against what they need (site_need) and
-                  their SASS floor, there and on a 32^2 +-J ladder at
-                  L_tau = 974, R = 16 (ladder_site a warp a line, in
-                  chunks);
-19. compare-longline  the multi-launch kernels vs their plain version past
+15. physics-tempering per-rung <E> of a 4-ring ladder against dense diagonalization;
+16. compare-longline  the multi-launch kernels vs their plain version past
                   L_tau = 4096, bit for bit, through the wrappers (launch
                   counts checked): the worldline kernels in plain and sampling
                   mode at L_tau = 4098, 5120, 10,240, the longest line one
@@ -132,7 +86,7 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   40,960 (also frozen whole) and the 4-ring at 250,000 (the
                   gate's edge); past one block the cluster phase is fk_long_*
                   (fk_long_sums and fk_long_apply, two launches a color);
-20. compare-replicas  the kernels at replica counts past one launch's limits
+17. compare-replicas  the kernels at replica counts past one launch's limits
                   (ops/replicas.py), each call in chunks of replicas, launch
                   counts checked, the replicas on each side of every chunk
                   boundary (and the first and last) bit for bit a call of
@@ -146,8 +100,8 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   65,600 and the 12^2 +-J glass at 5120, R = 2913; then
                   LatticeTempering on that glass ladder (2 sweeps with swaps)
                   and QmcIsing on the 64^2 torus at R = 656, both on the
-                  kernels; chunks, launches and ms a sweep of each call;
-21. main-quantum-longline  ``Lattice.run_quantum_monte_carlo(512, 300, 64)`` and
+                  kernels;
+18. main-quantum-longline  ``Lattice.run_quantum_monte_carlo(512, 300, 64)`` and
                   ``run_quantum_monte_carlo_sampling(512, 300, 64, wait 300,
                   freq 10)`` on the 128-ring TFIM at its critical point
                   (L_tau = 10,240; multi-launch, the cluster phase a block of
@@ -156,45 +110,30 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   operations and the idle share of a profiled 20-sweep call;
                   both entry points on the 16-ring at beta = 2048 (L_tau =
                   40,960: 3 wl launches and 4 fk_long_* launches a sweep);
-22. main-tempering-longline  ``LatticeTempering.qmc_timesteps_sample(200)`` on
+19. main-tempering-longline  ``LatticeTempering.qmc_timesteps_sample(200)`` on
                   the tempering bench's 12^2 +-J glass with 64 rungs at
                   geomspace(0.2, 256) (L_tau = 5120; multi-launch), swaps
                   accepted and <E> falling with beta, a profiled 10-sweep
                   call; a 4-ring ladder at beta up to 12,500 (L_tau = 250,000:
                   2 ladder_site and 4 fk_long_* launches a sweep);
-23. timing-longline   those shapes' kernels against the plain version (CUDA
-                  events, in turns), their bounds and each kernel's us a sweep
-                  (torch.profiler), and the cluster phase's group of 256 and
-                  1024 threads (FK_GROUP_VARIANTS) against 512 at L_tau =
-                  10,240; past one block fk_long_*'s us a sweep against what
-                  the cluster phase needs (fk_long_need) and its plain
-                  version (fk_flips, CUDA events), and fk_long_sums's cut
-                  builds (FK_LONG_CUTS);
-24. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
+20. compare-keychain  the key chain's kernel (``threefry_chain``, csrc/keychain.cu)
                   vs its numpy version, bit for bit: the main path's plan (200
                   steps x 29 slots x R = 100), a plan with worm and cluster
                   slots at R = 1 over 2^16 chained splits and a plan of every
-                  slot kind (fan and bits of m = 0 among them) at R = 100; its
-                  call and kernel time at 200 and 4000 steps beside its
-                  roofline (tables' bytes against every block's ALU
-                  instructions) and the spine's latency floor (T S steps at
-                  the step that threefry_spine_probe measures); and the
-                  numpy chain's time (the build phase counts a threefry
-                  block's SASS instructions); then compare-key-tables:
-                  LatticeTempering's key tables on the card
+                  slot kind (fan and bits of m = 0 among them) at R = 100;
+21. compare-key-tables  LatticeTempering's key tables on the card
                   (tempering.key_tables_device: a plain slot a sweep, a
                   uniform slot a swap step) vs the numpy key_tables, bit for
                   bit, at glass80.pt's 64 rungs x 500 sweeps, 33 rungs and
-                  LONG_LADDER's 16; their time (CUDA events) and the
-                  ladder's whole tables (host clock) against numpy's;
-                  key_tables_device.launches over two ladder calls;
-25. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
+                  16 rungs; key_tables_device.launches over two
+                  ladder calls;
+22. compare-classical the graph engine on the card vs on the CPU, bit for bit, in
                   every family (spin on the dense int, dense hi+lo and ELL
                   paths, edge with and without importance weights, worms, SW
                   with a field, annealing energies) at small shapes; then one
                   default step of the main path at full width, move by move,
                   where every differing spin must be an f32 tie;
-26. main-classical    ``Lattice.run_monte_carlo_annealing_and_get_energies`` of
+23. main-classical    ``Lattice.run_monte_carlo_annealing_and_get_energies`` of
                   BASELINE.json config 2 (benches/bench_configs.py: the 48^2
                   triangular AFM, 100 experiments, beta 0.1 -> 3.0), depth
                   cut from 4000 steps to 200: one threefry_chain launch, steps/s
@@ -202,13 +141,13 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   operations a step and the idle share (torch.profiler over a
                   20-step call); the last energy column against ``energy`` of
                   the states, <E> falling along the schedule;
-27. main-classicising ``ClassicIsing`` on benches/bench_classical_graph.py's 4-regular
+24. main-classicising ``ClassicIsing`` on benches/bench_classical_graph.py's 4-regular
                   +-J glass (R = 64, beta = 1.5): ms a step of each move family
                   at n = 4096 (dense) and of the spin family at n = 16384
                   (ELL); ``get_energies`` against the run's energies;
-28. physics-classical <E> of a frustrated 10-site graph with a field against exact
+25. physics-classical <E> of a frustrated 10-site graph with a field against exact
                   enumeration (Lattice with and without clusters, ClassicIsing);
-29. compare-qmc-generic the generic worldline engine on the card vs on the CPU,
+26. compare-qmc-generic the generic worldline engine on the card vs on the CPU,
                   bit for bit in states, keys, samples, cluster sizes and RVB
                   ratios (run_sweeps, run_sweeps_sample, run_diagonal_sweeps,
                   run_single_cluster, run_rvb_sweeps; a 64-site glass and a
@@ -216,35 +155,33 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   relative; one sweep of the main path's glass at full width,
                   phase by phase, where every differing spin must be an f32
                   tie; threefry_chain with the main path's all-plain plan vs
-                  its numpy version, bit for bit, its time, roofline and
-                  spine floor;
-30. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
+                  its numpy version, bit for bit;
+27. main-qmcising ``QmcIsing`` on the 4-regular +-J glass of
                   benches/bench_classical_graph.py (n = 4096, R = 64, Gamma = 1,
                   beta = 2, L_tau = 40): run_qmc(2.0, 100), then
                   run_sampling(2.0, 200, sampling_freq=10) (generic route, one
                   threefry_chain launch a call): sweeps/s, spin updates/ns,
                   torch and device operations a sweep and the idle share
                   (torch.profiler over a 20-sweep call);
-31. main-qmcising-lattice ``QmcIsing`` on the 256^2 torus (R = 8, 200 sweeps;
+28. main-qmcising-lattice ``QmcIsing`` on the 256^2 torus (R = 8, 200 sweeps;
                   wl_tiled) and run_sampling on the 256-chain (R = 64;
                   wl_resident), against the exact free-fermion energy;
-32. physics-qmcising <E> against dense diagonalization: QmcIsing on an 8-site
+29. physics-qmcising <E> against dense diagonalization: QmcIsing on an 8-site
                   +-J graph with a field and RVB, Lattice on a 3 x 3 triangular
                   patch with RVB, each rung of a LatticeTempering glass ladder
                   off the ladder kernel's gate; cluster sizes and RVB ratios in
-                  range.
-
-33. compare-qmcrunner the generic k-local engine on the card vs on the CPU:
+                  range;
+30. compare-qmcrunner the generic k-local engine on the card vs on the CPU:
                   QmcRunner on a 5-ring with ZZ, X, XX and ZZZ terms and a free
                   variable, both routes forced, with and without do_loop, bit
-                  for bit (states, samples, bond counts, keys); one gm sweep of
-                  the hard n = 32, R = 64 system at full width with its
-                  Glauber ties counted (the card replays the CPU's decisions);
+                  for bit (states, samples, bond counts, keys); the hard family
+                  at n = 128 takes each route forced; one gm sweep of the hard
+                  n = 32, R = 64 system at full width with its Glauber ties
+                  counted (the card replays the CPU's decisions);
                   threefry_chain's fan, slice and bits slots vs its numpy
                   version bit for bit (a plan of every kind, the do_loop plan,
-                  the hard plan at 100 sweeps x R = 64, timed with its
-                  roofline and spine floor);
-34. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
+                  the hard plan at 100 sweeps x R = 64);
+31. main-qmcrunner    QmcRunner.run_sampling as benches/bench_qmcrunner_hard.py
                   and bench_qmcrunner.py time it, depth cut to a quarter: the
                   hard n = 32 system (ZZ, X, XX, ZZZ on a ring; R = 64, beta 1;
                   slope between 50 and 200 sweeps) and the 64-site TFIM chain
@@ -253,84 +190,50 @@ Phases, each printing at least one line; any failure raises and exits non-zero:
                   sweep and the idle share (torch.profiler over 20 sweeps), one
                   threefry_chain launch a call; the chain against the exact
                   free-fermion energy;
-35. crossover-qmcrunner the hard family at n = 128, R = 64 on both routes
-                  forced: sweeps/s and set-up (the gate's price at one size);
-36. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
-                  and an 8-ring with ZZZ triples, 256 replicas.
-37. compare-threefry-bits the threefry bits kernel (``threefry_bits``,
+32. physics-qmcrunner <E> against dense diagonalization: a 6-ring with XX bonds
+                  and an 8-ring with ZZZ triples, 256 replicas;
+33. compare-threefry-bits the threefry bits kernel (``threefry_bits``,
                   csrc/keychain.cu) vs rng.random_bits / uniform_f32 (numpy), bit
                   for bit in both modes: one key over 1 M and 8 M counters, 64
-                  keys, an odd size; its time at 8 M beside its bound and numpy's;
-38. compare-parallel the multi-device paths on a one-rank NCCL group on the card:
+                  keys, an odd size;
+34. compare-parallel the multi-device paths on a one-rank NCCL group on the card:
                   QmcRunner (both routes), QmcIsing and the tempering ladder,
                   replica-sharded, each bit for bit its unsharded run on the card,
                   with both host walls; the spatial and tau-sharded sweeps bit for
                   bit the same sweeps on the CPU;
-39. main-parallel the sharded ladder at benches/bench_tempering.py's shape
+35. main-parallel the sharded ladder at benches/bench_tempering.py's shape
                   (qmc_timesteps_sample(500, replica_swap_freq=1): 500
                   ladder_resident launches), the spatial sweep at bench.py's
                   1024^2 x 8 (20 sweeps) and the tau sweep at
                   examples/tau_sharded_tfim.py's 16-ring (L_tau = 64, 128
                   replicas, 100 sweeps against the exact free-fermion energy),
                   each one threefry_bits launch a phase; sweeps/s beside the
-                  unsharded route's.
-40. graph-native  the native graph library (``_native_graph``, g++ at first use)
+                  unsharded route's;
+36. graph-native  the native graph library (``_native_graph``, g++ at first use)
                   built on this host from the checkout, each of its four passes
                   array for array the python pass's on benches/bench_classical_graph.py's
                   4-regular +-J glass at n = 4096 and 16384 and on BASELINE.json
                   config 2's 48^2 triangular lattice, the set-up ms both ways;
                   ClassicIsing on the n = 16384 glass takes the native build;
-41. shim          the reference README's first example, verbatim, through
+37. shim          the reference README's first example, verbatim, through
                   ``py_monte_carlo_torch`` on the default device (the card);
-42. examples      each twin of examples/ (pyisingmontecarlo_tpu_torch/examples/)
+38. examples      each twin of examples/ (pyisingmontecarlo_tpu_torch/examples/)
                   through its ``main([])`` on the card, the ferromagnet also at
                   L = 256: its wall, its launches (each twin must launch its
                   path's kernel) and its physics (Onsager, the free-fermion
                   energy, accepted swaps, the Richardson estimate).
 
-Each entry of the kernels line takes its times and bound from one shape,
-that of the first main path that launched it; its launches are the sum over
-the main paths that launched it, each counted from 0 (wl_tiled plain sweeps:
-main-quantum and main-qmcising-lattice; wl_resident: main-chain and
-main-qmcising-lattice; threefry_chain: main-classical, main-qmcising and
-main-qmcrunner; ladder_resident: main-tempering and main-parallel;
-threefry_bits: main-parallel). The long lines' entries take their times and
-bounds from timing-longline, at the shape of the main path that launched
-them (main-quantum-longline, main-tempering-longline).
+Every profiled call's launches are checked against the wrapper's count:
+``_launches`` takes up to three traces (``_trace``: a profiler schedule's
+warm-up step, then the recorded call) until one records as many launches as
+the wrapper counts, and fails if any records more (the profiler can drop
+records; it never adds them). The kernels' times and bounds are the
+benchmark's (``portbench/``), not this script's.
 
-Then one JSON line with the kernels, and last ``{"ok": true, "device": ...}``.
-Needs torch with CUDA, nvcc and numpy; imports no jax.
-
-    python3 chip_smoke.py --ab DIR   # DIR: the root of another checkout, e.g. the parent commit's
-
-times the end-to-end main paths (``bench.py``'s headline, the best of three
-``Lattice.run_monte_carlo(0.4, 16384, 8)`` calls at 1024^2 after a warm-up,
-in attempted flips/ns; the tempering bench's sweeps/s slope, the 256-chain's
-sampling call, the 256^2 torus's site updates/s slope of
-benches/bench_qmc_large.py, the triangular annealing's site-steps/s, the
-glass's ms a step and QmcIsing's sweeps/s on the glass) for the
-package in DIR and for this one, each in a process of its own, ten runs a
-side in the order DIR, this, this, DIR; it prints each run's numbers, each
-side's median and quartiles and the pairs won, and checks nothing else. The
-host's speed moves between calls to the card, so two commits are compared
-only within one call.
-
-    python3 chip_smoke.py --ab DIR qmcrunner
-
-does the same for main-qmcrunner's two sweeps/s (the hard n = 32 system and
-the 64-chain through QmcRunner.run_sampling), four runs a side (~9 min).
-
-    python3 chip_smoke.py --ab DIR multi
-
-does it for the multi-launch routes: ms a sweep of main-quantum-long's 64^2
-torus at L_tau = 800, of main-tempering-wide's 64^2 ladder and of a 32^2 +-J
-ladder at L_tau = 974, R = 16 (the best of three 20-sweep calls), and of the
-three lines past one block of timing-longline (the 16-ring at 40,960 and
-the 4-ring at 2^20, R = 2; the ladder's 4-ring at 250,000, R = 4), with each
-kernel's device us a sweep (torch.profiler) and, past one block, the
-cluster phase's (fk_long_*, the kernels of either checkout) summed, and
-threefry_chain's ms a call at its three main-path plans (chain_plans), ten
-runs a side.
+Then one JSON line with the kernels (each one's launches, summed over the
+main paths that launched it, and its largest difference from its plain
+version), and last ``{"ok": true, "device": ...}``. Needs torch with CUDA,
+nvcc and numpy; imports no jax.
 """
 
 from __future__ import annotations
@@ -347,7 +250,6 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 BENCH_L, BENCH_R, BENCH_BETA = 1024, 8, 0.4
-BENCH_SWEEPS = 16384  # bench.py's sweeps a call
 # the worldline main shapes: the 256^2 torus (8 replicas) and the 256-site
 # chain (64 replicas), both at beta=2, Gamma=1, J=-1, so L_tau = 40
 WL_BETA, WL_GAMMA, WL_LTAU = 2.0, 1.0, 40
@@ -357,69 +259,6 @@ CHAIN = (("ring", 256, -1.0), 256, 64)
 # tile of 8 sites and its halo in shared memory (ops/wl.tiled_plan)
 LONG_BETA, LONG_LTAU = 40.0, 800
 LONG = (("torus", 64, -1.0), 64 * 64, 2)
-
-# Least time of a kernel's work on an H100 SXM: the bytes it must move at the
-# 3.35 TB/s of HBM3, or its integer operations on the integer (ALU) pipe:
-# 64 int32 lanes per SM (16 in each of the 4 partitions; the H100 white
-# paper), 132 SMs, 1.98 GHz (the clock at which the data sheet's 67 TFLOP/s
-# f32 is 132 SMs x 128 lanes x 2 operations of an FMA; phase_build prints the
-# card's clocks.max.sm beside it): 16.7 T op/s. An integer multiply-add
-# (IMAD) issues to the FMA pipe, beside the ALU, so only ALU instructions are
-# counted. A lane-hash draw compiles to HASH_OPS = 11 ALU instructions (6
-# shifts, 5 xors; phase_build counts them in SASS, nvcc 12.9) and 6 IMADs; a
-# square-torus site update takes SQ2D_OPS_PER_SITE of them (the hash and the
-# rest of sq2d_tiled's row loop: neighbour sums, table index and lookup, flip
-# mask, the loop's own addresses and test), or SQ2D_RB_OPS_PER_SITE with its
-# draw from a random plane (phase_build counts both in the kernel's SASS); a
-# worldline spin takes two draws per sweep (site phase and time
-# bond) and 18 more operations (site test, cluster dE and run sum,
-# accumulation). Cluster-head draws, which depend on the data, are not
-# counted, so the bound is a lower one.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-F32_OPS_PER_S = 67e12  # outside the tensor cores (the H100 SXM data sheet)
-HASH_OPS = 11
-SQ2D_OPS_PER_SITE = 67 / 4  # ALU instructions of the row loop for a word of four sites, the draws' 44 among them
-SQ2D_RB_OPS_PER_SITE = 40 / 4
-WL_OPS_PER_SPIN = 2 * HASH_OPS + 18
-# A ladder spin per sweep (csrc/ladder.cu): two draws (site phase, time bond)
-# and about 10 more integer operations (indices, alignment, bits); in f32 the
-# site phase's field, dE, uniform and logit (about 20 operations plus two
-# logf) and the cluster phase's uniform, bond test, field, slice dE and run
-# sum (about 17). A logf counts 10 f32 operations (range reduction and
-# polynomial). Cluster-head draws and logs depend on the data and are not
-# counted, so the bound is a lower one.
-LOG_OPS = 10
-LADDER_INT_OPS_PER_SPIN = 2 * HASH_OPS + 10
-LADDER_F32_OPS_PER_SPIN = 37 + 2 * LOG_OPS
-# What an FK cluster phase needs a slice of a line of its color, in one pass
-# (integer, f32 operations): on the worldline its bond draw and the
-# alignment and bond tests, the neighbour sum and the dE table's index, the
-# flip (8 integer operations besides the draw) and the run sum's addition;
-# on the ladder the draw, 4 integer operations, and the uniform, the bond
-# test, the field, the slice dE and the run sum (17 f32 operations). A
-# cluster head adds its draw and test and its uniform and logf.
-WL_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 8, 1)
-LADDER_CLUSTER_OPS_PER_SLICE = (HASH_OPS + 4, 17)
-HEAD_OPS = (HASH_OPS + 1, LOG_OPS + 4)
-# What the multi-launch accumulation needs (wl_accumulate), in the
-# instructions this card issues for four slices: a dp4a (four byte products
-# and their sum) for the spin sum, one for the aligned bonds against the chunk
-# shifted by a byte (a funnel shift), and one for each outgoing bond of a site
-# (a torus site has two, a ring site one), so 3 + ndir for four slices. What
-# a ladder site phase needs an active spin (ladder_site): its draw and 4
-# integer operations (position, test, flip), and 22 f32 operations (the
-# field's 4 products and 3 sums, dE, the uniform, the logit, the test) and
-# two logf.
-def acc_ops_per_slice(ndir):
-    return (3 + ndir) / 4
-
-
-LADDER_SITE_OPS_PER_SPIN = (HASH_OPS + 4, 22 + 2 * LOG_OPS)
-SITE_PAIRS = 8  # pairs of slices a thread of wl_site and ladder_site holds (csrc/worldline.cuh, kSitePairs)
-# What a worldline site phase needs an active spin (wl_site): its draw and 6 integer operations (the position, the
-# table's index from the neighbour and tau sums, the test against the threshold, the flip); no f32 at all
-WL_SITE_OPS_PER_SPIN = HASH_OPS + 6
 # the tempering ladder of benches/bench_tempering.py (the BASELINE.json
 # "Parallel tempering" config): 12^2 periodic +-J spin glass, 64 replicas at
 # geomspace(0.2, 3.0), Gamma = 1, h = 0, so L_tau = 60
@@ -433,17 +272,6 @@ GLASS80_SIDE = 80  # the glass80.pt cell's torus (portbench/configs/pmj_glass_80
 LL = (("ring", 128, -1.0), 128, 64)
 LL_BETA, LL_LTAU = 512.0, 10240
 LLPT_BETA, LLPT_LTAU = 256.0, 5120
-# builds of the multi-launch kernels with another group a line past L_tau = 4096 (csrc/worldline.cuh,
-# PMC_FK_GROUP_LONG; the default build's is 512), timed at the 128-ring's L_tau
-FK_GROUP_VARIANTS = {256: ("PMC_FK_GROUP_LONG=256",), 1024: ("PMC_FK_GROUP_LONG=1024",)}
-FK_LEAF = 256  # the slices of a leaf of fk_long_*'s run sums (csrc/worldline.cuh, kLongLeaf)
-# builds of fk_long_sums cut short after a step, for measurement (csrc/worldline.cuh, PMC_FK_LONG_CUT; their
-# fk_long_apply does nothing), timed at the lines past one block
-FK_LONG_CUTS = {"the draws and heads": ("PMC_FK_LONG_CUT=1",), "+ the look-back": ("PMC_FK_LONG_CUT=2",),
-                "+ the leaf starts": ("PMC_FK_LONG_CUT=3",), "+ the leaves' trees": ("PMC_FK_LONG_CUT=4",)}
-# the shapes at which timing-longline times fk_long_* alone, the main paths' first
-FK_LONG_SHAPES = {"ring16": "the 16-ring at L_tau = 40,960, R = 2", "ring4": "the 4-ring at L_tau = 2^20, R = 2",
-                  "ladder-ring4": "the ladder's 4-ring at L_tau = 250,000, R = 4"}
 
 
 def check(cond, msg):
@@ -459,14 +287,6 @@ def onsager_u(beta):
         a, b = (a + b) / 2.0, np.sqrt(a * b)
     K = np.pi / (2.0 * a)
     return -1.0 / np.tanh(2 * beta) * (1.0 + (2.0 / np.pi) * (2.0 * np.tanh(2 * beta) ** 2 - 1.0) * K)
-
-
-def bound(nbytes, ops, f32_ops=0):
-    """(least ms, what sets it) for ``nbytes`` moved, ``ops`` integer and
-    ``f32_ops`` f32 operations: the larger of the three times."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def reset_counts():
@@ -516,155 +336,14 @@ def phase_gpu():
     return smi
 
 
-# builds of the tiled worldline kernel that timing-wl times beside it (csrc/wl.cu): the sweep cut after the
-# box's load and store, after the site phases, after the cluster phases
-TILED_VARIANTS = {"load and store only": ("PMC_TILED_PHASES=0",), "+ site phases": ("PMC_TILED_PHASES=1",),
-                  "+ cluster phases": ("PMC_TILED_PHASES=3",)}
-
-
-# builds of the square-torus kernel that timing times beside it (csrc/sq2d.cu): the launches' box in and
-# tile out alone, the phases without the lane hash, the phases without their barriers
-SQ2D_CUTS = {"box in and tile out only": ("PMC_SQ2D_CUT=0",), "no lane hash": ("PMC_SQ2D_CUT=1",),
-             "no barriers between phases": ("PMC_SQ2D_CUT=2",)}
-
-
 def phase_build():
-    """The kernels, verbose (registers, spills), and the measurement builds of TILED_VARIANTS, SQ2D_CUTS,
-    FK_GROUP_VARIANTS and FK_LONG_CUTS, all at once; then the SASS counts (returns cluster_sass's)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    """The kernels, verbose: nvcc prints the registers, shared memory and spills of each."""
     from pyisingmontecarlo_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    builds = [*TILED_VARIANTS.values(), *SQ2D_CUTS.values(), *FK_GROUP_VARIANTS.values(), *FK_LONG_CUTS.values()]
-    with ThreadPoolExecutor(len(builds)) as pool:
-        variants = [pool.submit(_kernels.build, defines=d) for d in builds]
-        path = _kernels.build(verbose=True)
-        _kernels.load()
-        dt = time.perf_counter() - t0
-        for v in variants:
-            v.result()
-    print(f"build: {dt:.3f} s, {path.relative_to(HERE)}; with the {len(variants)} measurement builds "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    draw = hash_sass()
-    keychain_sass()
-    return cluster_sass(draw)
-
-
-# two kernels that differ by one lane-hash draw whose pos is data and whose seed and ctr are fixed, as in
-# the sweep kernels' inner loops; the difference of their SASS is the draw's instructions
-HASH_PROBE = r"""
-#include <cstdint>
-#include "lanerng.cuh"
-extern "C" __global__ void one(const uint32_t* in, uint32_t* out) {
-    out[threadIdx.x] = lane_draw31(in[0], in[1 + threadIdx.x], in[2]);
-}
-extern "C" __global__ void two(const uint32_t* in, uint32_t* out) {
-    out[threadIdx.x] = lane_draw31(in[0], lane_draw31(in[0], in[1 + threadIdx.x], in[2]), in[2]);
-}
-"""
-
-
-# SASS opcodes not issued to the ALU pipe: multiply-adds (the FMA pipe), loads and stores, control
-NOT_ALU = ("IMAD", "IMUL", "LD", "ST", "BRA", "BAR", "NOP", "EXIT", "BSSY", "BSYNC", "WARPSYNC", "DEPBAR")
-
-
-def _sass(nvcc, dump, src, cubin):
-    """{function: [(address, opcode, operands)]} of ``src`` compiled for sm_90a."""
-    import re
-
-    from pyisingmontecarlo_tpu_torch import _kernels
-
-    subprocess.run([nvcc, "-arch=sm_90a", "-std=c++17", "-O3", "-I", str(_kernels._CSRC), "-cubin", "-o",
-                    str(cubin), str(src)], check=True, capture_output=True, timeout=300)
-    text = subprocess.run([dump, "-sass", str(cubin)], check=True, capture_output=True, text=True,
-                          timeout=300).stdout
-    fns, fn = {}, None
-    for line in text.splitlines():
-        head = re.search(r"Function : (\w+)", line)
-        if head:
-            fn = fns.setdefault(head.group(1), [])
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
-        if fn is not None and m:
-            fn.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    return fns
-
-
-def _row_loop(ins, marker):
-    """The instructions of the shortest loop (a backward branch and what it
-    jumps over) of ``ins`` that holds an instruction for which ``marker`` is
-    true and a shared-memory store."""
-    import re
-
-    best = None
-    for addr, op, rest in ins:
-        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-        if target and int(target.group(1), 16) < addr:
-            body = [i for i in ins if int(target.group(1), 16) <= i[0] <= addr]
-            if any(marker(i) for i in body) and any(i[1] == "STS" for i in body):
-                best = body if best is None or len(body) < len(best) else best
-    return best
-
-
-def hash_sass():
-    """Print the SASS instructions of one lane-hash draw by opcode (cuobjdump
-    of HASH_PROBE), those on the ALU pipe (all but IMAD), the HASH_OPS the
-    bounds take, and the card's maximum SM clock; then the ALU instructions a
-    site of sq2d_tiled's row loop (V = 16; the loop's, over the four sites of
-    each word it stores) with hashed draws and with draws from random planes,
-    beside SQ2D_OPS_PER_SITE and SQ2D_RB_OPS_PER_SITE; 'not measured' where
-    the toolkit has no cuobjdump. Returns the draw's instructions, or None."""
-    import shutil
-    from concurrent.futures import ThreadPoolExecutor
-
-    from pyisingmontecarlo_tpu_torch import _kernels
-
-    nvcc = _kernels._nvcc()
-    dump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
-    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
-                           capture_output=True, text=True, timeout=60).stdout.strip()
-    if not Path(dump).exists():
-        print(f"hash SASS: not measured (no cuobjdump); clocks.max.sm {clock}", flush=True)
-        return
-    build = _kernels._BUILD
-    build.mkdir(exist_ok=True)
-    probe = build / "hash_probe.cu"
-    probe.write_text(HASH_PROBE)
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(_sass, nvcc, dump, probe, build / "hash_probe.cubin"),
-                pool.submit(_sass, nvcc, dump, _kernels._CSRC / "sq2d.cu", build / "sq2d.cubin")]
-        probe_fns, sq2d_fns = (j.result() for j in jobs)
-
-    def histogram(ins):
-        out = {}
-        for _, op, _ in ins:
-            if op not in ("NOP", "BRA", "EXIT"):
-                out[op] = out.get(op, 0) + 1
-        return out
-
-    ops = {k: histogram(v) for k, v in probe_fns.items()}
-    diff = {k: ops["two"].get(k, 0) - ops["one"].get(k, 0) for k in set(ops["one"]) | set(ops["two"])}
-    diff = {k: v for k, v in sorted(diff.items()) if v}
-    imad = sum(v for k, v in diff.items() if k.startswith(("IMAD", "IMUL")))
-    print(f"hash SASS: one draw = {sum(diff.values())} instructions {diff}: {sum(diff.values()) - imad} on the ALU "
-          f"pipe, {imad} IMAD on the FMA pipe (HASH_OPS = {HASH_OPS}); clocks.max.sm {clock}; integer rate "
-          f"{INT32_OPS_PER_S / 1e12:.2f} T op/s", flush=True)
-    draw = sum(diff.values())
-    for rb, want in ((False, SQ2D_OPS_PER_SITE), (True, SQ2D_RB_OPS_PER_SITE)):
-        name = next(k for k in sq2d_fns if "sq2d_tiled" in k and f"ILi16ELb{int(rb)}E" in k)
-        # the row loop gathers its flip masks with prmt's sign-replicating selector (signs4)
-        body = _row_loop(sq2d_fns[name], lambda i: i[1] == "PRMT" and "0xfb" in i[2])
-        if body is None:
-            print(f"sq2d SASS ({'random planes' if rb else 'hashed draws'}): no row loop found", flush=True)
-            continue
-        alu = sum(1 for _, op, _ in body if not op.startswith(NOT_ALU))
-        words = sum(1 for _, op, _ in body if op == "STS")
-        print(f"sq2d SASS ({'random planes' if rb else 'hashed draws'}): the row loop is {len(body)} instructions "
-              f"{dict(sorted(histogram(body).items()))} for {words} word(s) of 4 sites: {alu} on the ALU pipe, "
-              f"{alu / (4 * words):.2f} a site ({'SQ2D_RB_OPS_PER_SITE' if rb else 'SQ2D_OPS_PER_SITE'} = {want})",
-              flush=True)
-    return draw
+    path = _kernels.build(verbose=True)
+    _kernels.load()
+    print(f"build: {time.perf_counter() - t0:.3f} s, {path.relative_to(HERE)}", flush=True)
 
 
 def _inputs(L, R, seed, dev):
@@ -676,20 +355,16 @@ def _inputs(L, R, seed, dev):
     return random_states_2d(seeds, L), seeds
 
 
-# the (B, K) grid that timing measures at the bench shape (compare holds each to the plan's result)
+# the (B, K) grid that compare holds to the plan's result at the bench shape
 SQ2D_GRID_B, SQ2D_GRID_K = (64, 128, 192, 256), (2, 4, 8, 16)
-# shapes (L, R, explicit randoms) where timing holds sq2d_plan's pick against a (B, K) grid: one replica, a
-# side no tile divides, a larger lattice, many small lattices, and the bench shape with random planes
-SQ2D_PLAN_SHAPES = ((1024, 1, False), (1000, 8, False), (2048, 8, False), (256, 64, False), (1024, 8, True))
-SQ2D_PLAN_GRID_B = (32, 64, 96, 128, 192, 256)
 
 
 def phase_compare(dev):
     """Kernel vs plain version on the card, through the wrapper (the plan's
-    (B, K)); then every (B, K) of the timing grid against the plan's result
+    (B, K)); then every (B, K) of a grid against the plan's result
     at the bench shape; returns the largest |difference|."""
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.ops import sq2d
-    from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
 
     rng = np.random.default_rng(0)
     cases = []
@@ -776,7 +451,7 @@ def phase_main(dev):
     from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
     from pyisingmontecarlo_tpu_torch.ops import lattice2d
     from pyisingmontecarlo_tpu_torch.ops.sq2d import sq2d_plan
-    from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
 
     T = 1024
     lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
@@ -825,162 +500,12 @@ def phase_physics(dev):
     print("physics: " + "; ".join(out), flush=True)
 
 
-def versus(run_a, run_b, n_a, n_b, pairs=5):
-    """Milliseconds per sweep of two calls (of ``n_a`` and ``n_b`` sweeps),
-    timed with CUDA events in the order a, b, b, a, ``pairs`` times over (2
-    ``pairs`` runs of each); returns (a runs, b runs)."""
-    runs = {"a": [], "b": []}
-    for _ in range(pairs):
-        for name in ("a", "b", "b", "a"):
-            fn, n = (run_a, n_a) if name == "a" else (run_b, n_b)
-            runs[name].append(event_ms(fn, n))
-    return runs["a"], runs["b"]
-
-
-def event_ms(fn, n):
-    """Milliseconds per sweep of one call of ``fn`` (``n`` sweeps), by CUDA events."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def in_turns(run_kernel, run_plain, n_kernel, n_plain):
-    """Milliseconds per sweep of each call, timed with CUDA events in the order
-    plain, kernel, kernel, plain; returns (kernel runs, plain runs)."""
-    plain, kernel = versus(run_plain, run_kernel, n_plain, n_kernel, pairs=1)
-    return kernel, plain
-
-
 def cluster_group(L):
     """The threads a time line of the multi-launch cluster phases at L_tau =
     ``L`` (csrc/worldline.cuh, fk_group)."""
     from pyisingmontecarlo_tpu_torch import _kernels
 
     return _kernels.load().pmc_cluster_group(L)
-
-
-def phase_timing(dev, smi):
-    """At the bench shape: the kernel (the plan's (B, K)) and the plain
-    version in turns; each measurement build and every (B, K) of the grid, in
-    turns with the plan's kernel; the kernel in plain, sampling and
-    explicit-randoms mode (TPU kernels 1, 2 and 3), ten runs each, then in
-    turns with the plain version, each against its bound; then the main
-    path's profile. Returns (kernel ms per sweep, plain ms per sweep) of the
-    1024-sweep call."""
-    from pyisingmontecarlo_tpu_torch.ops import sq2d
-    from pyisingmontecarlo_tpu_torch.ops.wl import device_limits
-
-    T, L, sites = 1024, BENCH_L, BENCH_R * BENCH_L**2
-    s, seeds = _inputs(L, BENCH_R, 6, dev)
-    thr = sq2d.thresholds(np.full(T, BENCH_BETA, np.float32), -1.0, 0.0).to(dev)
-    plan = sq2d.sq2d_plan(L, BENCH_R, *device_limits(dev))
-    for fn in (sq2d.sweeps_2d, sq2d.sweeps_2d_reference):  # warm-up
-        fn(s, seeds, thr[:8], 0)
-    k, p = in_turns(lambda: sq2d.sweeps_2d(s, seeds, thr, 0), lambda: sq2d.sweeps_2d_reference(s, seeds, thr, 0),
-                    T, T)
-    ms, plain_ms = float(np.mean(k)), float(np.mean(p))
-    b_ms, b_by = bound(2 * sites / T, SQ2D_OPS_PER_SITE * sites)
-    print(f"timing: {L}^2 x {BENCH_R} replicas, beta={BENCH_BETA}, {T} sweeps, on {smi}: kernel (B={plan[0]}, "
-          f"K={plan[1]}, box {plan[2]}^2, {plan[3]} bytes, {BENCH_R * (-(-L // plan[0])) ** 2} blocks) {ms:.5f} "
-          f"ms/sweep = {sites / (ms * 1e6):.3f} attempted flips/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep = "
-          f"{sites / (plain_ms * 1e6):.3f} flips/ns (runs {p}); bound {b_ms:.5f} ms/sweep ({b_by})", flush=True)
-    Tg = 256
-    for what, defines in SQ2D_CUTS.items():  # the measurement builds, each in turns with the kernel
-        sq2d._run_tiled(s, seeds, thr[:8], 0, None, None, plan, defines)
-        a, b = versus(lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, plan),
-                      lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, plan, defines), Tg, Tg, 2)
-        print(f"timing: sq2d_tiled build {' '.join(defines)} ({what}) at {L}^2 x {BENCH_R}, {Tg} sweeps, on {smi}: "
-              f"{np.mean(b):.5f} ms/sweep (runs {b}) against the kernel's {np.mean(a):.5f} (runs {a})", flush=True)
-    for B in SQ2D_GRID_B:
-        row = []
-        for K in SQ2D_GRID_K:
-            sq2d._run_tiled(s, seeds, thr[:8], 0, None, None, (B, K))
-            a, b = versus(lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, plan),
-                          lambda: sq2d._run_tiled(s, seeds, thr[:Tg], 0, None, None, (B, K)), Tg, Tg, 1)
-            row.append(f"K={K} {np.mean(b):.5f} (the plan's {np.mean(a):.5f})")
-        print(f"timing: grid at {L}^2 x {BENCH_R}, {Tg} sweeps, on {smi}: B={B} "
-              f"({BENCH_R * (-(-L // B)) ** 2} blocks): " + "; ".join(row) + " ms/sweep", flush=True)
-    for Lp, Rp, use_rb in SQ2D_PLAN_SHAPES:  # the plan against a grid at other shapes, each cell in turns with it
-        sp, seedsp = _inputs(Lp, Rp, 30 + Rp, dev)
-        rbp = torch.randint(0, 2**31 - 1, (2 * Tg, Lp, Lp // 2), dtype=torch.int32, device=dev) if use_rb else None
-        pplan = sq2d.sq2d_plan(Lp, Rp, *device_limits(dev), use_rb)
-        cells, mine = {}, []
-        for B, K in sorted({(B, K) for B in SQ2D_PLAN_GRID_B for K in SQ2D_GRID_K} | {pplan[:2]}):
-            sq2d._run_tiled(sp, seedsp, thr[:8], 0, None if rbp is None else rbp[:16], None, (B, K))
-            a, b = versus(lambda: sq2d._run_tiled(sp, seedsp, thr[:Tg], 0, rbp, None, pplan),
-                          lambda: sq2d._run_tiled(sp, seedsp, thr[:Tg], 0, rbp, None, (B, K)), Tg, Tg, 1)
-            cells[B, K] = float(np.mean(b))
-            mine += a
-        best = min(cells, key=cells.get)
-        print(f"timing: plan at {Lp}^2 x {Rp}{', explicit randoms' if use_rb else ''}, {Tg} sweeps, on {smi}: "
-              f"the plan's (B, K) = {pplan[:2]} "
-              f"({Rp * (-(-Lp // pplan[0])) ** 2} blocks) {np.mean(mine):.5f} ms/sweep (mean of {len(mine)} runs, "
-              f"{cells[pplan[:2]]:.5f} as a cell); the grid's best {best} {cells[best]:.5f}, the plan "
-              f"{cells[pplan[:2]] / cells[best]:.3f}x it; grid " + "; ".join(
-                  f"{B},{K} {t:.5f}" for (B, K), t in cells.items()), flush=True)
-    T2 = 64
-    rb = torch.randint(0, 2**31 - 1, (2 * T2, L, L // 2), dtype=torch.int32, device=dev)
-    for mode, kw, nbytes, ops in (
-        ("plain", {}, 2 * sites / T2, SQ2D_OPS_PER_SITE * sites),
-        ("sampling, a sample every 16 sweeps", dict(samples=16), 2 * sites / T2 + sites / 16,
-         SQ2D_OPS_PER_SITE * sites),
-        ("explicit randoms", dict(rb=rb), 2 * sites / T2 + 4 * L * L, SQ2D_RB_OPS_PER_SITE * sites),
-    ):
-        rbm, freq = kw.get("rb"), kw.get("samples")
-        mplan = sq2d.sq2d_plan(L, BENCH_R, *device_limits(dev), rbm is not None)
-
-        def run():
-            sq2d._run_tiled(s, seeds, thr[:T2], 0, rbm, freq, mplan)
-
-        run()
-        a = [event_ms(run, T2) for _ in range(10)]  # back to back: a plain call between them slows the next
-        _, p = in_turns(run, lambda: sq2d.sweeps_2d_reference(s, seeds, thr[:T2], 0, **kw), T2, T2)
-        mb_ms, mb_by = bound(nbytes, ops)
-        print(f"timing: {mode}, {L}^2 x {BENCH_R}, {T2} sweeps, on {smi}: sq2d_tiled median {np.median(a):.5f} "
-              f"ms/sweep (mean {np.mean(a):.5f}; runs {a}); plain torch median {np.median(p):.5f} ms/sweep (runs "
-              f"{p}); bound {mb_ms:.5f} ms/sweep ({mb_by}); B={mplan[0]} K={mplan[1]}, {-(-T2 // mplan[1])} launches",
-              flush=True)
-    main_path_profile(dev, smi)
-    return ms, plain_ms
-
-
-def main_path_profile(dev, smi):
-    """``Lattice.run_monte_carlo(0.4, T, 8)`` at 1024^2 for T = 1024 and
-    16384 (bench.py's), after a warm-up call: the host wall of the call, and
-    under torch.profiler the device time of the sq2d launches and of all
-    device work, the median gap between consecutive sq2d launches, and the
-    host's share of the call (the wall not covered by device work)."""
-    from pyisingmontecarlo_tpu_torch import Lattice
-    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
-
-    lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
-    for T in (1024, BENCH_SWEEPS):
-        lat.run_monte_carlo(BENCH_BETA, T, BENCH_R)
-        t0 = time.perf_counter()
-        lat.run_monte_carlo(BENCH_BETA, T, BENCH_R)  # returns numpy arrays: the device is done
-        wall = (time.perf_counter() - t0) * 1e3
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            lat.run_monte_carlo(BENCH_BETA, T, BENCH_R)
-        evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        sq = [e for e in evs if "sq2d_tiled" in e.name]
-        if not sq:
-            print(f"timing: main path T={T}: device times not measured (the profiler recorded none); host wall "
-                  f"{wall:.3f} ms", flush=True)
-            continue
-        busy_sq = sum(e.time_range.elapsed_us() for e in sq) / 1e3
-        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
-        gaps = [b.time_range.start - a.time_range.end for a, b in zip(sq, sq[1:])]
-        print(f"timing: main path Lattice.run_monte_carlo({BENCH_BETA}, {T}, {BENCH_R}) at {BENCH_L}^2, on {smi}: "
-              f"host wall {wall:.3f} ms; device: {len(sq)} sq2d_tiled launches {busy_sq:.3f} ms (median "
-              f"{np.median([e.time_range.elapsed_us() for e in sq]):.3f} us, median gap "
-              f"{np.median(gaps) if gaps else 0:.3f} us, gaps {sum(gaps) / 1e3:.3f} ms), all device work "
-              f"{busy:.3f} ms in {len(evs)} operations; host share {100 * (1 - busy / wall):.2f}% of the wall",
-              flush=True)
 
 
 def _wl_inputs(dense, nvars, R, seed, dev, ltau=WL_LTAU):
@@ -1006,9 +531,10 @@ def phase_compare_wl(dev):
     wrapper where the gate picks it, else through its private launcher where
     the shape fits it), each against the plain version and against the
     multi-launch kernels; returns {route: largest |difference|}."""
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.ops import wl
 
-    lim = wl.device_limits(dev)
+    lim = device_limits(dev)
     longest = max(L for L in range(4, wl.MAX_LTAU + 1, 2) if wl.resident_plan(256, L, 1, wl.WL_PARAM_BYTES, *lim))
     cases = [  # name, dense, nvars, R, L_tau, T, beta, gamma, h, freq, nsamples
         ("ring 256 R=4 L=40 T=13", ("ring", 256, -1.0), 256, 4, 40, 13, 2.0, 1.0, 0.0, 0, 0),
@@ -1334,15 +860,6 @@ def _device_times(prof, names, everything=False):
     return per, busy, span
 
 
-def _profile_line(prof, names, sweeps):
-    dev_t = _device_times(prof, names)
-    if dev_t is None:
-        return "per-launch device times: not measured (the profiler recorded no device time)"
-    per, busy, span = dev_t
-    return ("per launch " + ", ".join(f"{k} {np.mean(v):.3f} us x {len(v)}" for k, v in sorted(per.items()))
-            + f"; device busy {busy:.1f} of {span:.1f} us over {sweeps} sweeps, idle {100 * (1 - busy / span):.2f}%")
-
-
 def _trace(fn):
     """torch.profiler's record of ``fn()`` on the card, with ``fn()`` run
     twice: the first call under the schedule's warm-up step, traced and
@@ -1387,191 +904,12 @@ def _launches(fn, names, want, tries=3):
                   + (f" (traces: {counts})" if len(counts) > 1 else ""))
 
 
-def _us_per_sweep(launches, sweeps):
-    """A kernel's device us a sweep from the us of its ``launches`` that a
-    trace recorded over ``sweeps`` sweeps: a launch's mean times its
-    launches a sweep, which a dropped record does not change."""
-    return float(np.mean(launches)) * round(len(launches) / sweeps)
-
-
-def _ms_per_sweep(prof, name, sweeps):
-    """The device ms a sweep of the kernels whose names hold ``name`` that a
-    _trace recorded over ``sweeps`` sweeps (_us_per_sweep), or None without
-    device time."""
-    dev_t = _device_times(prof, (name,))
-    return None if dev_t is None else _us_per_sweep(dev_t[0][name], sweeps) / 1e3
-
-
 def site_lanes(L):
     """The threads a time line of the multi-launch site phases at L_tau =
     ``L`` (csrc/worldline.cuh, site_lanes)."""
     from pyisingmontecarlo_tpu_torch import _kernels
 
     return _kernels.load().pmc_site_lanes(L)
-
-
-def phase_timing_wl(dev, smi, sass):
-    """Worldline kernels and plain version at the main paths' shapes, through
-    the wrappers' private launchers, in turns with CUDA events: every route
-    that fits each shape against the plain version; at both 256^2 torus shapes
-    the tiled route against the multi-launch route, ten runs each in turns;
-    each launch's device time and the idle share from torch.profiler; the
-    tiled kernel's measurement builds and every tile side that fits at the
-    main shape; then the three routes at the gate's edges; at L_tau = 800 the
-    bound of the cluster phases alone (cluster_need), and the instruction
-    floor of their algorithm from ``sass`` (cluster_sass's, cluster_floor);
-    the site phases' and the accumulation's times a sweep against what they
-    need (wl_site_need, accumulate_need) and their SASS floors (sass_floor).
-    Every profiled call's launches are
-    printed beside the wrapper's count (_launches). Returns {"shape/route":
-    (ms/sweep, plain ms/sweep, bound ms/sweep, bound_by)} for the shapes
-    "torus" and "torus-sampling" (the main paths' calls: 200 plain sweeps,
-    and 20 sampled every 5), "chain" (2000 sampled every 10) and "long" and
-    "long-sampling" (5 plain, and 4 sampled every 2, at L_tau = 800), and
-    "long/cluster-bound": (ms, bound_by) or None, and "long/site" and
-    "long-sampling/site": (wl_site's ms a sweep or None, the bound of what
-    it needs (wl_site_need), bound_by), with its SASS floor printed."""
-    from pyisingmontecarlo_tpu_torch.ops import wl
-
-    lim = wl.device_limits(dev)
-    out = {}
-    names = {"multi-launch": ("wl_site", "wl_cluster", "wl_accumulate"), "resident": ("wl_resident",),
-             "tiled": ("wl_tiled",)}
-    shapes = (("torus", TORUS, WL_LTAU, WL_BETA, 0, 200, 3), ("torus-sampling", TORUS, WL_LTAU, WL_BETA, 5, 20, 5),
-              ("chain", CHAIN, WL_LTAU, WL_BETA, 10, 2000, 20), ("long", LONG, LONG_LTAU, LONG_BETA, 0, 5, 2),
-              ("long-sampling", LONG, LONG_LTAU, LONG_BETA, 2, 4, 2))
-    for key, (dense, nvars, R), L, beta, freq, T, T_plain in shapes:
-        s, seeds = _wl_inputs(dense, nvars, R, 7, dev, L)
-        tables = wl.make_tables(dense, nvars, beta, WL_GAMMA, 0.0, L, dev)
-        res = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim)
-        tiles = wl.tiled_plan(dense[0], dense[1], nvars, L, R, *lim)
-        gate, _ = wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)
-
-        def ns(t):
-            return t // freq if freq else 0
-
-        def plain():
-            wl.wl_sweeps_reference(s, seeds, tables, T_plain, freq, ns(T_plain))
-
-        routes = {"multi-launch": lambda t: wl._run_multi(s, seeds, tables, t, freq, ns(t))}
-        if res:
-            routes["resident"] = lambda t: wl._run_resident(s, seeds, tables, t, freq, ns(t), res)
-        if tiles:
-            routes["tiled"] = lambda t: wl._run_tiled(s, seeds, tables, t, freq, ns(t), tiles)
-        spins = R * nvars * L
-        for route, run in routes.items():
-            # the least bytes of the work as the route's caller asks for it: the state in and out once per
-            # launch (every sweep on the tiled route, once per call on the others), the samples out
-            nbytes = 2 * spins * (T if route == "tiled" else 1) + R * nvars * ns(T)
-            b_ms, b_by = bound(nbytes / T, WL_OPS_PER_SPIN * spins)
-            run(2)  # warm-up
-            wl.wl_sweeps_reference(s, seeds, tables, 2, freq, ns(2))
-            k, p = in_turns(lambda: run(T), plain, T, T_plain)
-            ms, plain_ms = float(np.mean(k)), float(np.mean(p))
-            out[f"{key}/{route}"] = (ms, plain_ms, b_ms, b_by)
-            n_prof = min(T, 20)
-            want = {"multi-launch": wl.LAUNCHES_PER_SWEEP * n_prof, "tiled": n_prof, "resident": 1}[route]
-            prof, counted = _launches(lambda: run(n_prof), names[route], want)
-            if route == "multi-launch":
-                multi_prof = prof
-            print(f"timing-wl: {key} {dense[0]} n={nvars} R={R} L_tau={L}"
-                  f"{' sampling freq=' + str(freq) if freq else ''}, {route}"
-                  f"{' (the gate picks it)' if route == gate else ''}, on {smi}: kernel {ms:.5f} ms/sweep = "
-                  f"{spins / (ms * 1e6):.3f} spin updates/ns (runs {k}); plain torch {plain_ms:.5f} ms/sweep "
-                  f"(runs {p}); bound {b_ms:.5f} ms/sweep ({b_by}); {_profile_line(prof, names[route], n_prof)}; "
-                  f"{counted}", flush=True)
-        if key == "long":  # the cluster phases' bound, for the bonds of the state a timed call leaves
-            x = wl._run_multi(s, seeds, tables, T)[0]
-            phases = frozen_bonds(x, dense[0], dense[1], seeds, 4, lambda u: u < tables.pb)
-            cb, line = cluster_need(phases, spins + spins // 2, WL_CLUSTER_OPS_PER_SLICE)
-            out["long/cluster-bound"] = cb
-            _, floor = cluster_floor(sass.get("wl_cluster"), phases, spins + spins // 2)
-            print(f"timing-wl: {key}, the cluster phases alone (wl_cluster x 2, group {cluster_group(L)}), on "
-                  f"{smi}: bound {line}; the instruction floor of this algorithm {floor}", flush=True)
-        if key.startswith("long"):  # the site phases alone: their time a sweep against what they need
-            site_ms = _ms_per_sweep(multi_prof, "wl_site", n_prof)
-            sb, line = wl_site_need(R, nvars, L)
-            out[f"{key}/site"] = (site_ms, *sb)
-            chunks = -(-(L // 2) // (32 * SITE_PAIRS))
-            padded = 2 * 32 * SITE_PAIRS * chunks  # slices a line of wl_site<32> holds, the last chunk's padding in
-            _, floor = sass_floor(sass.get("wl_site"), R * nvars * padded, 2 * spins)
-            print(f"timing-wl: {key}, the site phases alone (wl_site<{site_lanes(L)}> x 2, {chunks} chunks a line, "
-                  f"{'not measured' if site_ms is None else f'{site_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
-                  + ("" if site_ms is None else f", {site_ms / sb[0]:.2f}x it")
-                  + f"; the instruction floor of its SASS ({padded} padded slices a line) {floor}", flush=True)
-        if key.startswith("long"):  # the accumulation alone: its time a sweep against what it needs
-            ab, line = accumulate_need(R, nvars, L, bool(freq), 2)
-            acc_ms = _ms_per_sweep(multi_prof, "wl_accumulate", n_prof)
-            _, floor = sass_floor(sass.get("wl_accumulate"), spins, spins + 48 * R * nvars)
-            print(f"timing-wl: {key}, the accumulation alone (wl_accumulate, a warp a line, "
-                  f"{'not measured' if acc_ms is None else f'{acc_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
-                  + ("" if acc_ms is None else f", {acc_ms / ab[0]:.2f}x it")
-                  + f"; the instruction floor of its SASS {floor}", flush=True)
-        if key.startswith("torus"):  # the tiled route against the multi-launch route, ten runs each in turns
-            a, b = versus(lambda: routes["tiled"](T), lambda: routes["multi-launch"](T), T, T)
-            print(f"timing-wl: {key}, on {smi}: tiled median {np.median(a):.5f} ms/sweep (runs {a}); multi-launch "
-                  f"median {np.median(b):.5f} (runs {b}); tiled faster in {sum(x < y for x, y in zip(a, b))} of "
-                  f"{len(a)} pairs, {np.median(b) / np.median(a):.3f}x; tile {tiles[0]}, "
-                  f"{R * (-(-dense[1] // tiles[0])) ** 2} blocks, box {tiles[1]} sites, {tiles[2]} bytes of shared "
-                  f"memory; box bytes read a sweep {R * (-(-dense[1] // tiles[0])) ** 2 * tiles[1] * L}, "
-                  f"written {spins}", flush=True)
-    # the tiled kernel's measurement builds at the main shape, each in turns with the kernel itself
-    (dense, nvars, R), T = TORUS, 50
-    s, seeds = _wl_inputs(dense, nvars, R, 8, dev)
-    tables = wl.make_tables(dense, nvars, WL_BETA, WL_GAMMA, 0.0, WL_LTAU, dev)
-    tiles = wl.tiled_plan(dense[0], dense[1], nvars, WL_LTAU, R, *lim)
-    s = wl._run_tiled(s, seeds, tables, 20, 0, 0, tiles)[0]  # a state 20 sweeps in, as the main path sees
-    for what, defines in TILED_VARIANTS.items():
-        wl._run_tiled(s, seeds, tables, 2, 0, 0, tiles, defines)
-        a, b = versus(lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, tiles),
-                      lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, tiles, defines), T, T, 2)
-        print(f"timing-wl: tiled build {' '.join(defines)} ({what}) at the main shape, on {smi}: "
-              f"{np.mean(b):.5f} ms/sweep (runs {b}) against the kernel's {np.mean(a):.5f} (runs {a})", flush=True)
-    # every tile side that fits the main shape (a multiple of TILE_STEP, the box within the lattice and the
-    # opt-in shared memory), each in turns with the side tiled_plan picks
-    side = dense[1]
-    for B in range(wl.TILE_MIN, side - sum(wl.TILE_HALO) + 1, wl.TILE_STEP):
-        box, nbytes = (B + sum(wl.TILE_HALO)) ** 2, wl.tiled_bytes(dense[0], B, WL_LTAU)
-        if box > 65535 or nbytes > lim[0]:
-            break
-        plan = (B, box, nbytes)
-        wl._run_tiled(s, seeds, tables, 2, 0, 0, plan)
-        a, b = versus(lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, tiles),
-                      lambda: wl._run_tiled(s, seeds, tables, T, 0, 0, plan), T, T, 2)
-        print(f"timing-wl: tile side {B} at the main shape ({R * (-(-side // B)) ** 2} blocks, box {box} sites, "
-              f"{nbytes} bytes), on {smi}: {np.mean(b):.5f} ms/sweep (runs {b}) against tiled_plan's side "
-              f"{tiles[0]}, {np.mean(a):.5f} (runs {a})", flush=True)
-    # the gate's edges: the three routes where each fits, the resident and tiled kernels through their
-    # private launchers; tori of 24^2 to 48^2 sites at R = 16 and 64, at R = 264 (two waves of the 132
-    # SMs) and at one full wave
-    edges = [(CHAIN[0], 256, 64, 824, 10), (CHAIN[0], 256, 64, 200, 20), (("ring", 32, -1.0), 32, 64, 1200, 10)]
-    edges += [(("torus", m, -1.0), m * m, R, 40, 50) for m in (24, 32, 36, 40, 48) for R in (16, 64)]
-    edges += [(("torus", m, -1.0), m * m, R, 40, 20) for m, R in ((24, 264), (32, 264), (48, 132))]
-    for dense, nvars, R, L, T in edges:
-        s, seeds = _wl_inputs(dense, nvars, R, 9, dev, L)
-        tables = wl.make_tables(dense, nvars, WL_BETA * L / WL_LTAU, WL_GAMMA, 0.0, L, dev)
-        fit = wl.resident_plan(nvars, L, R, wl.WL_PARAM_BYTES, *lim, None)  # the idle-sites threshold lifted
-        tiles = wl.tiled_plan(dense[0], dense[1], nvars, L, R, *lim)
-        gate, _ = wl.choose_route(dense[0], dense[1], nvars, L, R, *lim)
-        runs = {"resident": lambda t: wl._run_resident(s, seeds, tables, t, 0, 0, fit),
-                "multi-launch": lambda t: wl._run_multi(s, seeds, tables, t, 0, 0)}
-        if tiles:
-            runs["tiled"] = lambda t: wl._run_tiled(s, seeds, tables, t, 0, 0, tiles)
-        for run in runs.values():
-            run(2)
-        k, p = in_turns(lambda: runs["resident"](T), lambda: runs["multi-launch"](T), T, T)
-        times = {"resident": k, "multi-launch": p}
-        if tiles:
-            times["tiled"], _ = versus(lambda: runs["tiled"](T), lambda: runs["multi-launch"](T), T, T, 1)
-        means = {r: float(np.mean(v)) for r, v in times.items()}
-        faster = min(means, key=means.get)
-        sms = lim[1]
-        idle = nvars * (-(-R // sms) * sms - R) / sms
-        print(f"timing-wl: gate edge {dense[0]} n={nvars} R={R} L_tau={L} (resident tile {fit[0]} of {nvars // 2} "
-              f"lines, {idle:.1f} idle sites; tiled plan {tiles}), on {smi}: "
-              + ", ".join(f"{r} {means[r]:.5f} ms/sweep (runs {times[r]})" for r in means)
-              + f"; faster: {faster}; the gate picks {gate}", flush=True)
-    return out
 
 
 def pt_edges(side):
@@ -1591,21 +929,6 @@ def pt_ladder(dev, side=PT_SIDE):
         lt.add_graph(1.0, 0.0, float(b))
     return lt
 
-
-# a ladder of long time lines for the multi-launch site phase's chunks: compare-ladder's 32^2 +-J torus at
-# L_tau = 974 (2 mod 4, two chunks of ladder_site a line; 997,376 spins a replica, inside the TPU ladder
-# kernel's gate of 10^6, which an L_tau of 1002 would pass) with R = 16 replicas at geomspace(19.5, 48.7),
-# Gamma = 1 (dtau 0.02 to 0.05): (side, R, L_tau)
-LONG_LADDER = (32, 16, 974)
-
-
-def long_ladder(dev, T):
-    """The state, per-sweep seeds [T, R] and planes of LONG_LADDER."""
-    side, R, L = LONG_LADDER
-    jv = np.random.default_rng(5).choice([-1.0, 1.0], 2 * side * side)
-    s, seeds, planes, _ = _ladder_inputs("torus", side, jv, np.geomspace(19.5, 48.7, R), [1.0] * R, [0.0] * R, L, T,
-                                         300, dev)
-    return s, seeds, planes
 
 
 def _ladder_edges(kind, size):
@@ -1642,11 +965,13 @@ def phase_compare_ladder(dev):
     private launcher where it fits but the gate leaves the shape to the
     multi-launch kernels) and the multi-launch kernels, each against the plain
     version and against each other (the multi-launch features from
-    pt_swap_features); returns (largest |difference| of the multi-launch
-    kernels, of the resident kernel)."""
+    pt_swap_features; at the glass80.pt cell's shape also from a launch at T
+    = 0, which sweeps nothing); returns (largest |difference| of the
+    multi-launch kernels, of the resident kernel)."""
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
 
-    lim = wl.device_limits(dev)
+    lim = device_limits(dev)
     rng = np.random.default_rng(11)
     dyadic = np.where(rng.random((4, 8)) < 0.25, 0.0, rng.choice([-1.0, -0.5, 0.5, 1.0], (4, 8)))
     glass = np.array([j for _, j in pt_edges(PT_SIDE)])
@@ -1729,6 +1054,15 @@ def phase_compare_ladder(dev):
         if "resident" in flat:
             same, err = _equal_all(flat["resident"], flat["multi"])
             check(same, f"{name}: resident != multi-launch (max |diff| {err})")
+        if "glass80.pt" in name:  # the swept state's features alone: the C entry at T = 0, one launch, no sweep
+            y, feats = runs["multi"]
+            before = ladder.ladder_sweeps.feature_launches
+            y0, feats0 = ladder._run_multi(y, seeds, planes, 0, edges=edges)
+            torch.cuda.synchronize()
+            check(ladder.ladder_sweeps.feature_launches == before + 1, f"{name}: T = 0 launched "
+                  f"{ladder.ladder_sweeps.feature_launches - before} pt_swap_features, want 1")
+            same, err = _equal_all((y0, *feats0), (y, *feats))
+            check(same, f"{name}: the features of the C entry at T = 0 != the sweeping call's (max |diff| {err})")
         got = runs["multi"][0]
         moved = float((got != s).float().mean())
         check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
@@ -1737,6 +1071,8 @@ def phase_compare_ladder(dev):
         route = ("resident (gate) == multi-launch" if plan else
                  "resident (private launcher) == multi-launch" if fit else "multi-launch (does not fit)")
         route += f" (group {cluster_group(L)})"
+        if "glass80.pt" in name:
+            route += "; the features again at T = 0"
         print(f"compare-ladder: {name}, T={T}: {route} == plain, bit-identical (spins, features); resident plan "
               f"{plan or fit}; {moved:.3f} of spins moved, {frozen:.3f} of lines constant in tau", flush=True)
     return worst["multi"], worst["resident"]
@@ -1745,9 +1081,10 @@ def phase_compare_ladder(dev):
 def block_edge(dev):
     """The longest L_tau whose line fits one block of the multi-launch cluster
     phase (fk_line) on this card; one more slice pair takes fk_long_*."""
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.ops import wl
 
-    limit = wl.device_limits(dev)[0]
+    limit = device_limits(dev)[0]
     L = 4096
     while not wl.cluster_long(L + 2, limit):
         L += 2
@@ -1762,9 +1099,10 @@ def phase_compare_longline(dev):
     whole at high K_tau; the ladder kernels (states and swap features) at
     5120, 40,960 and 250,000 (the 4-ring at the gate's edge). Returns
     {"wl": largest |difference|, "ladder": ...}."""
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
 
-    lim = wl.device_limits(dev)
+    lim = device_limits(dev)
     edge = block_edge(dev)
     cases = []  # name, dense, nvars, R, L_tau, T, beta, gamma, h, freq, nsamples
     for dense, nvars, R, L in ((("torus", 8, -1.0), 64, 2, 4098), (("ring", 8, -1.0), 8, 3, 5120),
@@ -1857,7 +1195,7 @@ def _rows_of(planes, it):
     return planes._replace(**{k: getattr(planes, k)[it].contiguous() for k in ("j", "dt", "kt", "h", "pb")})
 
 
-def phase_compare_replicas(dev, smi):
+def phase_compare_replicas(dev):
     """The kernels at replica counts past one launch's limits
     (``ops/replicas.py``: 65,535 replicas on a grid's y or z axis, fewer than
     2^31 spins a launch of fk_long_*): each case's call through the wrapper
@@ -1871,22 +1209,23 @@ def phase_compare_replicas(dev, smi):
     L_tau = 4100, R = 65,600, sampling), the ladder (the 4-ring at 4100, R =
     65,600; the 12^2 +-J glass at 5120, R = 2913), then through the entry
     points: LatticeTempering on that glass ladder, 2 sweeps with swaps, and
-    QmcIsing on the 64^2 torus at R = 656, both on the kernels. Prints chunks,
-    launches and ms a sweep of each call."""
+    QmcIsing on the 64^2 torus at R = 656, both on the kernels. Prints chunks
+    and launches of each call."""
     from pyisingmontecarlo_tpu_torch import LatticeTempering, QmcIsing
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
     from pyisingmontecarlo_tpu_torch.ops import ladder, replicas, sq2d, wl
     from pyisingmontecarlo_tpu_torch.ops.lattice2d import random_states_2d
     from pyisingmontecarlo_tpu_torch.rng import replica_seeds_i32
 
-    lim = wl.device_limits(dev)
+    lim = device_limits(dev)
 
-    def call(fn, T):
-        out = []
-        ms = event_ms(lambda: out.append(fn()), T)
-        return out[0], ms, read_counts()
+    def call(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_counts()
 
-    def hold(name, big, alone, plain, chunks, counts, want, ms, idx, moved):
+    def hold(name, big, alone, plain, chunks, counts, want, idx, moved):
         check(counts == want, f"{name}: launch counts {counts}, want {want}")
         same, err = _equal_all(big, alone)
         check(same, f"{name}: replicas {idx} of the whole call != a call of them alone (max |diff| {err})")
@@ -1894,7 +1233,7 @@ def phase_compare_replicas(dev, smi):
         check(same, f"{name}: the kernel != plain for replicas {idx} (max |diff| {err})")
         check(moved > 0.01, f"{name}: only {moved:.4f} of the spins moved")
         print(f"compare-replicas: {name}: {len(chunks)} chunk(s) of {sorted({b - a for a, b in chunks})} replicas; "
-              f"launches {({k: v for k, v in counts.items() if v})}; {ms:.3f} ms a sweep on {smi}; replicas {idx} "
+              f"launches {({k: v for k, v in counts.items() if v})}; replicas {idx} "
               f"== alone on the kernel == plain, bit-identical; {moved:.3f} of spins moved", flush=True)
 
     for k, (name, L, R, T, mode) in enumerate((
@@ -1911,7 +1250,7 @@ def phase_compare_replicas(dev, smi):
         chunks = replicas.replica_chunks(R, L * L, "sq2d")
         plan = sq2d.sq2d_plan(L, R, *lim, rb is not None)
         reset_counts()
-        big, ms, counts = call(lambda: sq2d.sweeps_2d(s, seeds, thr, 3, rb, freq), T)
+        big, counts = call(lambda: sq2d.sweeps_2d(s, seeds, thr, 3, rb, freq))
         idx = _pick(chunks, R)
         it = torch.tensor(idx, device=dev)
         sub = (s[it].contiguous(), seeds[it].contiguous(), thr, 3, rb, freq)
@@ -1919,7 +1258,7 @@ def phase_compare_replicas(dev, smi):
         big, alone, plain = ((x if freq else (x,)) for x in (big, alone, plain))
         moved = float((big[0] != s).float().mean())
         hold(name, [x[it] for x in big], alone, plain, chunks, counts,
-             counts_only(sq2d=len(chunks) * -(-T // plan[1])), ms, idx, moved)
+             counts_only(sq2d=len(chunks) * -(-T // plan[1])), idx, moved)
         del s, seeds, big
         torch.cuda.empty_cache()
 
@@ -1934,7 +1273,7 @@ def phase_compare_replicas(dev, smi):
         s, seeds = _wl_inputs(dense, nvars, R, 720 + k, dev, L)
         tables = wl.make_tables(dense, nvars, L / 20.0, 1.0, 0.1, L, dev)  # dtau = 0.05, Gamma = 1
         reset_counts()
-        big, ms, counts = call(lambda: wl.wl_sweeps(s, seeds, tables, T, freq, ns), T)
+        big, counts = call(lambda: wl.wl_sweeps(s, seeds, tables, T, freq, ns))
         n = len(chunks)
         want = (counts_only(wl=3 * T * n, wl_long=wl.LONG_LAUNCHES_PER_SWEEP * T * n) if long
                 else counts_only(wl=wl.LAUNCHES_PER_SWEEP * T * n))
@@ -1943,7 +1282,7 @@ def phase_compare_replicas(dev, smi):
         sub = (s[it].contiguous(), seeds[it].contiguous(), tables, T, freq, ns)
         alone, plain = wl.wl_sweeps(*sub), wl.wl_sweeps_reference(*sub)
         moved = float((big[0] != s).float().mean())
-        hold(f"wl {name}", [x[it] for x in big], alone, plain, chunks, counts, want, ms, idx, moved)
+        hold(f"wl {name}", [x[it] for x in big], alone, plain, chunks, counts, want, idx, moved)
         del s, seeds, big
         torch.cuda.empty_cache()
 
@@ -1960,7 +1299,7 @@ def phase_compare_replicas(dev, smi):
         long = wl.cluster_long(L, lim[0])
         chunks = replicas.replica_chunks(R, nvars * L, "long" if long else "multi")
         reset_counts()
-        (y, feats), ms, counts = call(lambda: ladder.ladder_sweeps(s, seeds, planes, T, edges), T)
+        (y, feats), counts = call(lambda: ladder.ladder_sweeps(s, seeds, planes, T, edges))
         n = len(chunks)
         want = (counts_only(ladder=2 * T * n, ladder_long=wl.LONG_LAUNCHES_PER_SWEEP * T * n) if long
                 else counts_only(ladder=ladder.LAUNCHES_PER_SWEEP * T * n))
@@ -1969,8 +1308,8 @@ def phase_compare_replicas(dev, smi):
         sub = (s[it].contiguous(), seeds[:, it].contiguous(), _rows_of(planes, it), T, edges)
         (ya, fa), (yp, fp) = ladder.ladder_sweeps(*sub), ladder.ladder_sweeps_reference(*sub)
         moved = float((y != s).float().mean())
-        hold(f"ladder {name}", [y[it], *(f[it] for f in feats)], [ya, *fa], [yp, *fp], chunks, counts, want, ms,
-             idx, moved)
+        hold(f"ladder {name}", [y[it], *(f[it] for f in feats)], [ya, *fa], [yp, *fp], chunks, counts, want, idx,
+             moved)
         del s, seeds, planes, y, feats
         torch.cuda.empty_cache()
 
@@ -2052,12 +1391,13 @@ def phase_main_quantum_longline(dev, smi):
     sweeps each. Returns {"plain", "sampling", "long", "long-sampling":
     (wl launches, fk_long launches)}."""
     from pyisingmontecarlo_tpu_torch import Lattice
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.engines.worldline import choose_ltau
     from pyisingmontecarlo_tpu_torch.ops import wl
 
     (dense, n, R), beta = LL, LL_BETA
     check(choose_ltau(beta, WL_GAMMA) == LL_LTAU, "L_tau")
-    lim = wl.device_limits(dev)
+    lim = device_limits(dev)
     check(not wl.cluster_long(LL_LTAU, lim[0]), "the 128-ring's line does not fit one block")
     ring = [((i, (i + 1) % n), -1.0) for i in range(n)]
     exact = chain_energy(n, beta, WL_GAMMA)
@@ -2135,9 +1475,10 @@ def phase_main_tempering_longline(dev, smi):
     past one block: fk_long_*), 2 sweeps. Returns {"wide": (ladder launches,
     0), "long": (ladder launches, fk_long launches)}."""
     from pyisingmontecarlo_tpu_torch import LatticeTempering
+    from pyisingmontecarlo_tpu_torch._kernels import device_limits
     from pyisingmontecarlo_tpu_torch.ops import ladder, wl
 
-    lim = wl.device_limits(dev)
+    lim = device_limits(dev)
     lt = LatticeTempering(pt_edges(PT_SIDE), seed=0, device=dev)
     for b in np.geomspace(0.2, LLPT_BETA, PT_R):
         lt.add_graph(1.0, 0.0, float(b))
@@ -2190,178 +1531,6 @@ def phase_main_tempering_longline(dev, smi):
     print(f"main-tempering-longline: qmc_timesteps_sample({T}, replica_swap_freq=1) on a 4-ring ladder, rungs at "
           f"beta 6000 to 12500, L_tau=250000: {counts['ladder']} ladder_site launches and {counts['ladder_long']} "
           f"fk_long_* launches, the key tables' 2 threefry_chain, 0 others, {lt.get_total_swaps()} accepted swaps, {dt:.3f} s host wall", flush=True)
-    return out
-
-
-FK_LONG_NAMES = ("fk_long_sums", "fk_long_apply")
-# the earlier fk_long_*'s five kernels a color, for --ab DIR multi against a checkout that has them
-FK_LONG_OLD_NAMES = ("fk_long_scan", "fk_long_carry", "fk_long_leaves", "fk_long_decide", "fk_long_flip")
-WL_LONG_NAMES = ("wl_site", "wl_cluster", "wl_accumulate", *FK_LONG_NAMES)
-LADDER_LONG_NAMES = ("ladder_site", "ladder_cluster", *FK_LONG_NAMES)
-
-
-def _split_line(prof, names, sweeps):
-    """Each kernel's device us a sweep (_us_per_sweep) that a _trace recorded."""
-    dev_t = _device_times(prof, names)
-    if dev_t is None:
-        return "by kernel: not measured (the profiler recorded no device time)"
-    return "by kernel, us a sweep: " + ", ".join(f"{k} {_us_per_sweep(v, sweeps):.2f}" for k, v in dev_t[0].items())
-
-
-def _kernels_us(prof, names, sweeps):
-    """The device us a sweep of the kernels ``names`` together (the sum of
-    each one's _us_per_sweep) that a _trace recorded, or None without device
-    time."""
-    dev_t = _device_times(prof, names)
-    return None if dev_t is None else sum(_us_per_sweep(v, sweeps) for v in dev_t[0].values())
-
-
-def fk_long_need(phases, nbytes, per_slice):
-    """What the cluster phase past one block needs a sweep in one pass
-    (cluster_need, whose ``per_slice`` counts a slice's addition into its
-    run's sum), with the leaves' fold: fk_long_* sums a run of n slices in
-    n + n / FK_LEAF additions (each slice into its leaf, each leaf into its
-    head's total), so 1 / FK_LEAF more f32 operation a slice."""
-    return cluster_need(phases, nbytes, (per_slice[0], per_slice[1] + 1 / FK_LEAF))
-
-
-def fk_long_timing(prof, sweeps, phases, nbytes, per_slice, dev):
-    """fk_long_*'s numbers at a timed shape: (its device ms a sweep from the
-    trace ``prof`` of a ``sweeps``-sweep call, None where the profiler
-    recorded none; the plain version's ms a sweep: ops/wl.fk_flips, the run
-    sums, decisions and flips, on both colors' lines at the frozen bonds
-    ``phases`` with random dE and log-uniforms (the best of three, CUDA
-    events); its bound (fk_long_need): (ms, bound_by) and the text)."""
-    from pyisingmontecarlo_tpu_torch.ops import wl
-
-    us = _kernels_us(prof, FK_LONG_NAMES, sweeps)
-    active = torch.cat(phases)[None].to(torch.int32)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    de = 0.1 * torch.randn(active.shape, generator=gen, device=dev)
-    log_u = torch.log(torch.rand(active.shape, generator=gen, device=dev).clamp_min(2.0**-31))
-    wl.fk_flips(active, de, log_u)
-    plain = min(event_ms(lambda: wl.fk_flips(active, de, log_u), 1) for _ in range(3))
-    need, line = fk_long_need(phases, nbytes, per_slice)
-    return (None if us is None else us / 1e3), plain, need, line
-
-
-def _fk_long_cuts(run, names, want, sweeps, what, smi):
-    """fk_long_sums's device us a sweep in each build of FK_LONG_CUTS at one
-    shape: ``run(t, defines)`` a t-sweep call of the build, traced as
-    _launches traces (``names``, ``want`` launches)."""
-    parts = []
-    for cut, defines in FK_LONG_CUTS.items():
-        run(2, defines)
-        us = _kernels_us(_launches(lambda: run(sweeps, defines), names, want)[0], ("fk_long_sums",), sweeps)
-        parts.append(f"{cut} {'not measured' if us is None else f'{us:.2f}'}")
-    print(f"timing-longline: {what}: fk_long_sums cut short (FK_LONG_CUTS; fk_long_apply off), us a sweep, on "
-          f"{smi}: " + ", ".join(parts), flush=True)
-
-
-def _fk_long_print(what, fk, line, smi):
-    ms, plain, (b_ms, _) = fk[0], fk[1], fk[2:]
-    print(f"timing-longline: {what}: fk_long_* (fk_long_sums and fk_long_apply), on {smi}: "
-          + (f"{ms:.5f} ms a sweep (torch.profiler), {ms / b_ms:.1f}x its bound" if ms is not None else
-             "not measured (the profiler recorded no device time)")
-          + f"; bound {line}; plain version (fk_flips, both colors) {plain:.5f} ms a sweep", flush=True)
-
-
-def phase_timing_longline(dev, smi):
-    """The multi-launch kernels at the long lines' shapes against the plain
-    version, in turns with CUDA events, with the bound (the state in and out
-    once a call, the samples out; every spin's operations) and each kernel's
-    device us a sweep (torch.profiler, the best of up to three traces): the
-    128-ring at L_tau = 10,240, R = 64 (main-quantum-longline's shape, plain
-    and sampling every 10), with the cluster phase's other group sizes
-    (FK_GROUP_VARIANTS) in turns; the 16-ring at 40,960 and the 4-ring at
-    2^20, R = 2 (fk_long_*); the ladder on the 12^2 +-J glass at L_tau = 5120,
-    R = 64 (main-tempering-longline's shape) and on the 4-ring at 250,000, R
-    = 4 (fk_long_*; the bound once a sweep, as the tempering path calls it).
-    Past one block also fk_long_* alone (fk_long_timing) and fk_long_sums's
-    cut builds. Returns {shape: (ms/sweep, plain ms/sweep, bound ms/sweep,
-    bound_by)}, and for fk_long_* {shape/fk_long: (its ms a sweep, None if
-    not recorded; fk_flips' ms; its bound ms; bound_by)}."""
-    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
-
-    lim = wl.device_limits(dev)
-    out = {}
-    ring16, ring4 = (("ring", 16, -1.0), 16, 2), (("ring", 4, -1.0), 4, 2)
-    shapes = (("ring128", LL, LL_LTAU, 0, 20, 1), ("ring128-sampling", LL, LL_LTAU, 10, 20, 1),
-              ("ring16", ring16, 40960, 0, 10, 2), ("ring16-sampling", ring16, 40960, 1, 10, 2),
-              ("ring4", ring4, 1 << 20, 0, 4, 1))
-    for k, (key, (dense, nvars, R), L, freq, T, T_plain) in enumerate(shapes):
-        s, seeds = _wl_inputs(dense, nvars, R, 600 + k, dev, L)
-        tables = wl.make_tables(dense, nvars, L / 20.0, WL_GAMMA, 0.0, L, dev)
-
-        def ns(t):
-            return t // freq if freq else 0
-
-        def run(t, defines=()):
-            return wl._run_multi(s, seeds, tables, t, freq, ns(t), defines)
-
-        def plain():
-            wl.wl_sweeps_reference(s, seeds, tables, T_plain, freq, ns(T_plain))
-
-        spins = R * nvars * L
-        b_ms, b_by = bound((2 * spins + R * nvars * ns(T)) / T, WL_OPS_PER_SPIN * spins)
-        run(2)
-        kr, pr = in_turns(lambda: run(T), plain, T, T_plain)
-        out[key] = (float(np.mean(kr)), float(np.mean(pr)), b_ms, b_by)
-        long = wl.cluster_long(L, lim[0])
-        want = (3 + wl.LONG_LAUNCHES_PER_SWEEP if long else wl.LAUNCHES_PER_SWEEP) * T
-        prof, counted = _launches(lambda: run(T), WL_LONG_NAMES, want)
-        print(f"timing-longline: wl {key} n={nvars} R={R} L_tau={L}{f' sampling freq={freq}' if freq else ''} "
-              f"({'fk_long_*' if long else f'fk_line, group {cluster_group(L)}'}), on {smi}: kernel "
-              f"{out[key][0]:.5f} ms/sweep = {spins / (out[key][0] * 1e6):.3f} spin updates/ns (runs {kr}); plain "
-              f"torch {out[key][1]:.5f} ms/sweep (runs {pr}); bound {b_ms:.5f} ms/sweep ({b_by}), "
-              f"{out[key][0] / b_ms:.1f}x it; {_split_line(prof, WL_LONG_NAMES, T)}; {counted}", flush=True)
-        if long and not freq:  # the cluster phase alone: at the state after T sweeps, its bond draws' frozen bonds
-            phases = frozen_bonds(run(T)[0], dense[0], dense[1], seeds, 4, lambda u: u < tables.pb)
-            fk = fk_long_timing(prof, T, phases, spins + spins // 2, WL_CLUSTER_OPS_PER_SLICE, dev)
-            out[f"{key}/fk_long"] = (fk[0], fk[1], *fk[2])
-            _fk_long_print(f"wl {key}", out[f"{key}/fk_long"], fk[3], smi)
-            _fk_long_cuts(run, WL_LONG_NAMES, want, T, f"wl {key}", smi)
-        if key == "ring128":  # the cluster phase's other group sizes, in turns with the kernel's 512
-            for G, defines in FK_GROUP_VARIANTS.items():
-                run(2, defines)
-                a, b = versus(lambda: run(T), lambda: run(T, defines), T, T, 2)
-                print(f"timing-longline: wl {key}, cluster group {G} ({' '.join(defines)}) against "
-                      f"{cluster_group(L)}, on {smi}: {np.mean(b):.5f} ms/sweep (runs {b}) against {np.mean(a):.5f} "
-                      f"(runs {a})", flush=True)
-    glass = np.array([j for _, j in pt_edges(PT_SIDE)])
-    lshapes = (("ladder-glass12", "torus", PT_SIDE, glass, np.geomspace(0.2, LLPT_BETA, PT_R), LLPT_LTAU, 10),
-               ("ladder-ring4", "ring", 4, np.full(4, -1.0), np.array([6000.0, 8000.0, 10000.0, 12500.0]), 250000, 4))
-    for k, (key, kind, size, jv, betas, L, T) in enumerate(lshapes):
-        R = len(betas)
-        s, seeds, planes, edges = _ladder_inputs(kind, size, jv, betas, [1.0] * R, [0.0] * R, L, T, 700 + k, dev)
-        nvars = s.shape[1]
-        spins = R * nvars * L
-        nbytes = 2 * spins + 4 * R + 4 * R * (2 if kind == "torus" else 1) * nvars + 16 * R
-        b_ms, b_by = bound(nbytes, LADDER_INT_OPS_PER_SPIN * spins, LADDER_F32_OPS_PER_SPIN * spins)
-        ladder._run_multi(s, seeds[:2], planes, 2)
-        kr, pr = in_turns(lambda: ladder._run_multi(s, seeds, planes, T),
-                          lambda: ladder.ladder_sweeps_reference(s, seeds[:1], planes, 1, edges), T, 1)
-        out[key] = (float(np.mean(kr)), float(np.mean(pr)), b_ms, b_by)
-        long = wl.cluster_long(L, lim[0])
-        want = (2 + wl.LONG_LAUNCHES_PER_SWEEP if long else ladder.LAUNCHES_PER_SWEEP) * T
-        prof, counted = _launches(lambda: ladder._run_multi(s, seeds, planes, T), LADDER_LONG_NAMES, want)
-        print(f"timing-longline: {key} n={nvars} R={R} L_tau={L} "
-              f"({'fk_long_*' if long else f'fk_line, group {cluster_group(L)}'}), on {smi}: kernel "
-              f"{out[key][0]:.5f} ms/sweep (runs {kr}); plain torch {out[key][1]:.5f} ms/sweep (runs {pr}); bound "
-              f"{b_ms:.5f} ms/sweep ({b_by}), {out[key][0] / b_ms:.1f}x it; "
-              f"{_split_line(prof, LADDER_LONG_NAMES, T)}; {counted}", flush=True)
-        if long:
-            pb = planes.pb[:, None, None]
-
-            def below(u31):  # ops/ladder.py's uniform against p_bond
-                return (u31.to(torch.float32) * ladder._SCALE + ladder._HALF_STEP).clamp(max=ladder._U_MAX) < pb
-
-            phases = frozen_bonds(ladder._run_multi(s, seeds, planes, T), kind, size, seeds[0], 4, below)
-            nbytes = spins + spins // 2 + 4 * R * (2 if kind == "torus" else 1) * nvars  # the couplings too
-            fk = fk_long_timing(prof, T, phases, nbytes, LADDER_CLUSTER_OPS_PER_SLICE, dev)
-            out[f"{key}/fk_long"] = (fk[0], fk[1], *fk[2])
-            _fk_long_print(key, out[f"{key}/fk_long"], fk[3], smi)
-            _fk_long_cuts(lambda t, d: ladder._run_multi(s, seeds, planes, t, d), LADDER_LONG_NAMES, want, T, key, smi)
     return out
 
 
@@ -2464,197 +1633,6 @@ def phase_physics_tempering(dev):
           flush=True)
 
 
-def phase_timing_ladder(dev, smi, sass):
-    """Ladder kernels and plain version through the wrappers' private
-    launchers (plain, kernel, kernel, plain, CUDA events): at the bench shape
-    200-sweep calls on both routes, and one-sweep calls with features as the
-    main path makes them; the device times of whole tempering steps
-    (torch.profiler); the multi-launch kernels and the plain version at
-    main-tempering-wide's 64^2 +-J shape, split by kernel name, with the
-    bound of its cluster phases alone (cluster_need) and the instruction floor
-    of their algorithm (from ``sass``, cluster_sass's). Returns {route: (ms/sweep, plain ms/sweep,
-    bound ms/sweep, bound_by)} for "multi-launch" and "resident" at the bench
-    shape and "multi-launch-wide" at 64^2 (the bound as the main path calls
-    the kernel: once per sweep), "wide/cluster-bound": (ms, bound_by) or
-    None, and "wide/site": (ladder_site's ms a sweep or None, the bound of
-    what it needs (site_need), bound_by), with its SASS floor printed; the
-    profiled call's launches are printed beside the wrapper's count."""
-    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
-    from pyisingmontecarlo_tpu_torch.tempering import key_tables
-
-    def setup(side, T):
-        lt = pt_ladder(dev, side=side)
-        m = lt._materialize()
-        seeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
-        return lt, m["s"], seeds, m["planes"], (m["ea"], m["eb"])
-
-    def bounds(side, features):
-        """(ms, bound_by) of one sweep as the main path calls the kernel:
-        state in and out, seeds and parameters in, and, for the resident
-        route, the features [R, E + 2] int32 out."""
-        nvars = side * side
-        spins = PT_R * nvars * PT_LTAU
-        nbytes = 2 * spins + 4 * PT_R + 4 * PT_R * 2 * nvars + 16 * PT_R + features * 4 * PT_R * (2 * nvars + 2)
-        return bound(nbytes, LADDER_INT_OPS_PER_SPIN * spins, LADDER_F32_OPS_PER_SPIN * spins)
-
-    T, T_plain = 200, 3
-    lt, s, seeds, planes, edges = setup(PT_SIDE, T)
-    nvars = PT_SIDE**2
-    spins = PT_R * nvars * PT_LTAU
-    plan = wl.resident_plan(nvars, PT_LTAU, PT_R, ladder.param_bytes("torus", nvars), *wl.device_limits(dev))
-
-    def multi_with_features(t):
-        return ladder._run_multi(s, seeds[:t], planes, t, edges=edges)
-
-    routes = {"multi-launch": (lambda t: ladder._run_multi(s, seeds[:t], planes, t), multi_with_features),
-              "resident": (lambda t: ladder._run_resident(s, seeds[:t], planes, t, edges, plan),) * 2}
-
-    def plain():
-        ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain, edges)
-
-    out = {}
-    for route, (run, run_features) in routes.items():
-        run_features(2)  # warm-up
-        ladder.ladder_sweeps_reference(s, seeds[:2], planes, 2, edges)
-        k, p = in_turns(lambda: run(T), plain, T, T_plain)
-        out[route] = (float(np.mean(k)), float(np.mean(p)), *bounds(PT_SIDE, route == "resident"))
-
-        def one_sweep_calls():
-            for _ in range(T):
-                run_features(1)
-
-        one, _ = in_turns(one_sweep_calls, lambda: None, T, 1)
-        print(f"timing-ladder: bench shape {PT_R} x {nvars} x {PT_LTAU} ({spins} spins), {route}, on {smi}: "
-              f"{T}-sweep call {out[route][0]:.5f} ms/sweep = {spins / (out[route][0] * 1e6):.3f} spin updates/ns "
-              f"(runs {k}); one-sweep calls with features {np.mean(one):.5f} ms/sweep (runs {one}); "
-              f"plain torch {out[route][1]:.5f} ms/sweep (runs {p}); bound {out[route][2]:.5f} ms/sweep "
-              f"({out[route][3]}, once per sweep)", flush=True)
-    lt.qmc_timesteps_sample(4, replica_swap_freq=1)  # warm-up
-    steps = 20
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        lt.qmc_timesteps_sample(steps, replica_swap_freq=1)
-        torch.cuda.synchronize()
-    dev_t = _device_times(prof, ("ladder_resident", "ladder_site", "ladder_cluster"), everything=True)
-    if dev_t is None:
-        step = "device times of a tempering step: not measured (the profiler recorded no device time)"
-    else:
-        per, busy, span = dev_t
-        step = (f"over {steps} tempering steps (sweep with features, swap): "
-                + ", ".join(f"{n} {np.mean(v):.3f} us x {len(v)} = {np.sum(v):.1f} us"
-                            for n, v in sorted(per.items()))
-                + f"; device busy {busy:.1f} of {span:.1f} us, idle {100 * (1 - busy / span):.2f}%; "
-                f"{PT_R} of {torch.cuda.get_device_properties(dev).multi_processor_count} SMs hold a resident block")
-    print(f"timing-ladder: tempering steps on {smi}: {step}", flush=True)
-    # main-tempering-wide's shape: the multi-launch kernels in 20-sweep calls against the plain version
-    side, T, T_plain = 64, 20, 2
-    _, s, seeds, planes, edges = setup(side, T)
-    spins = PT_R * side * side * PT_LTAU
-    ladder._run_multi(s, seeds[:2], planes, 2)  # warm-up
-    k, p = in_turns(lambda: ladder._run_multi(s, seeds, planes, T),
-                    lambda: ladder.ladder_sweeps_reference(s, seeds[:T_plain], planes, T_plain, edges), T, T_plain)
-    out["multi-launch-wide"] = (float(np.mean(k)), float(np.mean(p)), *bounds(side, False))
-    prof, counted = _launches(lambda: ladder._run_multi(s, seeds, planes, T), ("ladder_site", "ladder_cluster"),
-                              ladder.LAUNCHES_PER_SWEEP * T)
-    print(f"timing-ladder: {side}^2 +-J torus, {PT_R} x {side * side} x {PT_LTAU} ({spins} spins), multi-launch "
-          f"(cluster group {cluster_group(PT_LTAU)}), on {smi}: {T}-sweep call {np.mean(k):.5f} ms/sweep = "
-          f"{spins / (np.mean(k) * 1e6):.3f} spin updates/ns (runs {k}); plain torch {np.mean(p):.5f} ms/sweep "
-          f"(runs {p}); bound {out['multi-launch-wide'][2]:.5f} ms/sweep ({out['multi-launch-wide'][3]}, once per "
-          f"sweep); {_profile_line(prof, ('ladder_site', 'ladder_cluster'), T)}; {counted}", flush=True)
-    site_ms = _ms_per_sweep(prof, "ladder_site", T)
-    sb, line = site_need(PT_R, side * side, PT_LTAU, 2)
-    out["wide/site"] = (site_ms, *sb)
-    _, floor = sass_floor(sass.get("ladder_site"), spins, 2 * spins)
-    print(f"timing-ladder: {side}^2 shape, the site phases alone (ladder_site<{site_lanes(PT_LTAU)}> x 2, "
-          f"{'not measured' if site_ms is None else f'{site_ms:.5f} ms a sweep'}), on {smi}: bound {line}"
-          + ("" if site_ms is None else f", {site_ms / sb[0]:.2f}x it")
-          + f"; the instruction floor of its SASS {floor}", flush=True)
-    # a ladder of long lines (LONG_LADDER): ladder_site a warp a line, in chunks
-    (side_l, R_l, L_l), T_l = LONG_LADDER, 10
-    s_l, seeds_l, planes_l = long_ladder(dev, T_l)
-    spins_l = R_l * side_l * side_l * L_l
-    ladder._run_multi(s_l, seeds_l[:2], planes_l, 2)  # warm-up
-    ms_l = min(event_ms(lambda: ladder._run_multi(s_l, seeds_l, planes_l, T_l), T_l) for _ in range(3))
-    prof, counted = _launches(lambda: ladder._run_multi(s_l, seeds_l, planes_l, T_l), ("ladder_site", "ladder_cluster"),
-                              ladder.LAUNCHES_PER_SWEEP * T_l)
-    site_l = _ms_per_sweep(prof, "ladder_site", T_l)
-    sb, line = site_need(R_l, side_l * side_l, L_l, 2)
-    chunks = -(-(L_l // 2) // (32 * SITE_PAIRS))
-    padded = 2 * 32 * SITE_PAIRS * chunks  # slices a line of ladder_site<32> holds, the last chunk's padding in
-    _, floor = sass_floor(sass.get("ladder_site_long"), R_l * side_l * side_l * padded, 2 * spins_l)
-    print(f"timing-ladder: {side_l}^2 +-J torus, {R_l} x {side_l * side_l} x {L_l} ({spins_l} spins), multi-launch "
-          f"(site lanes {site_lanes(L_l)}, {chunks} chunks a line; cluster group {cluster_group(L_l)}), on {smi}: "
-          f"{T_l}-sweep call {ms_l:.5f} ms/sweep (the best of three); "
-          f"{_profile_line(prof, ('ladder_site', 'ladder_cluster'), T_l)}; {counted}; the site phases alone "
-          f"{'not measured' if site_l is None else f'{site_l:.5f} ms a sweep'}: bound {line}"
-          + ("" if site_l is None else f", {site_l / sb[0]:.2f}x it")
-          + f"; the instruction floor of its SASS ({padded} padded slices a line) {floor}", flush=True)
-    x = ladder._run_multi(s, seeds, planes, T)
-    pb = planes.pb[:, None, None]
-
-    def below(u31):  # ops/ladder.py's uniform against p_bond
-        return (u31.to(torch.float32) * ladder._SCALE + ladder._HALF_STEP).clamp(max=ladder._U_MAX) < pb
-
-    phases = frozen_bonds(x, "torus", side, seeds[0], 4, below)
-    nbytes = spins + spins // 2 + 4 * PT_R * 2 * side * side  # the state, and the couplings read once a phase
-    cb, line = cluster_need(phases, nbytes, LADDER_CLUSTER_OPS_PER_SLICE)
-    out["wide/cluster-bound"] = cb
-    _, floor = cluster_floor(sass.get("ladder_cluster"), phases, nbytes)
-    print(f"timing-ladder: {side}^2 shape, the cluster phases alone (ladder_cluster x 2, group "
-          f"{cluster_group(PT_LTAU)}), on {smi}: bound {line}; the instruction floor of this algorithm {floor}",
-          flush=True)
-    out["glass/features"] = timing_features(dev, smi, setup)
-    return out
-
-
-def timing_features(dev, smi, setup):
-    """At the glass80.pt cell's shape (80^2 +-J torus, 64 rungs, L_tau 60):
-    the features of a swept state as the multi-launch route computes them
-    once a call (the memset of the S and A slots and pt_swap_features,
-    through the C entry with T = 0, 50 back to back, CUDA events; each
-    one's device time from the profiler) against swap_features, the plain
-    version the route took before (a call by CUDA events, median of five),
-    and the bytes they must move (the state read once, the features
-    written). Returns (ms, plain ms, bound ms, bound_by) a call."""
-    from pyisingmontecarlo_tpu_torch import _kernels
-    from pyisingmontecarlo_tpu_torch.ops import ladder
-
-    side, n = GLASS80_SIDE, 50
-    _, s, seeds, planes, edges = setup(side, 2)
-    nvars, E = side * side, edges[0].numel()
-    x, feats = ladder._run_multi(s, seeds, planes, 2, edges=edges)  # a swept state; the warm-up
-    same, err = _equal_all(feats, ladder.swap_features(x, *edges))
-    check(same, f"glass features: pt_swap_features != swap_features (max |diff| {err})")
-    lib, feat = _kernels.load(), torch.empty((PT_R, E + 2), dtype=torch.int32, device=dev)
-    args = (x.data_ptr(), seeds.data_ptr(), *ladder._planes_args(planes, 0, PT_R), None, edges[0].data_ptr(),
-            edges[1].data_ptr(), feat.data_ptr(), PT_R, nvars, PT_LTAU, 1, side, 0, E,
-            torch.cuda.current_stream(dev).cuda_stream)
-
-    def launches():
-        for _ in range(n):
-            check(lib.ladder_sweeps(*args) == 0, "pt_swap_features: launch failed")
-
-    launches()
-    ms = float(np.median([event_ms(launches, n) for _ in range(5)]))
-    check(all(torch.equal(f, g) for f, g in zip((feat[:, :E], feat[:, E], feat[:, E + 1]), feats)),
-          "glass features: the C entry at T = 0 != the wrapper's")
-    prof, counted = _launches(launches, ("pt_swap_features",), n)
-    dev_t = _device_times(prof, ("pt_swap_features", "Memset"))
-    us = {k: float(np.mean(v)) for k, v in (dev_t[0] if dev_t else {}).items()}
-    plain = float(np.median([event_ms(lambda: ladder.swap_features(x, *edges), 1) for _ in range(5)]))
-    nbytes = PT_R * nvars * PT_LTAU + 4 * PT_R * (E + 2)
-    bound_ms, by = bound(nbytes, 0)
-
-    def device(k):
-        return f"{us[k]:.3f} us" if k in us else "not measured"
-
-    print(f"timing-features: {PT_R} x {nvars} x {PT_LTAU} (glass80.pt's shape), {E} union edges, on {smi}: memset + "
-          f"pt_swap_features {ms * 1e3:.3f} us a call (CUDA events, "
-          f"{n} back to back, median of five); device time a launch: pt_swap_features {device('pt_swap_features')}, "
-          f"memset {device('Memset')} ({counted}); swap_features (plain torch) {plain * 1e3:.3f} us a call; bound "
-          f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {by}), the kernel {ms / bound_ms:.2f}x it", flush=True)
-    return ms, plain, bound_ms, by
-
-
 # ----------------------------------------------------------------------------------------- the classical graph path
 
 # the classical graph path's main call: BASELINE.json config 2 (benches/bench_configs.py:30-42), the annealing of
@@ -2663,10 +1641,6 @@ TRI_L, TRI_R, TRI_SEED, TRI_T, TRI_T_FULL = 48, 100, 11, 200, 4000
 # benches/bench_classical_graph.py's glass: a 4-regular +-J graph (two random Hamilton cycles, seed 7), 64
 # replicas at beta 1.5; n = 4096 takes the dense coupling path, n = 16384 the ELL path (spin family there)
 GLASS_NS, GLASS_R, GLASS_BETA = (4096, 16384), 64, 1.5
-# one threefry2x32 block on a key that is data, counted in SASS by keychain_sass (nvcc 12.9): 68 instructions,
-# 50 of them on the ALU pipe (20 SHF, 21 LOP3, 9 IADD3) and 18 IMAD.IADD on the FMA pipe
-THREEFRY_OPS, THREEFRY_ALU_OPS = 68, 50
-SPINE_PROBE_STEPS = 1 << 16  # the spine probe's chained steps (threefry_spine_probe, csrc/keychain.cu)
 # blocks of a slot of the chain by kind (rng.KEY_PLAIN, KEY_WORM, KEY_CLUSTER, KEY_FAN, KEY_SLICE, KEY_BITS): the
 # split, and the sub-key's work (a fan of m: 2 a split of its inner chain; bits: 1 a word)
 CHAIN_BLOCKS = {0: lambda m: 2, 1: lambda m: 8, 2: lambda m: 7, 3: lambda m: 2 + 2 * m, 4: lambda m: 8,
@@ -2678,460 +1652,6 @@ def _slot_blocks(slot):
 
     kind, m = _slot(slot)
     return CHAIN_BLOCKS[kind](m)
-
-
-THREEFRY_PROBE = r"""
-#include "keychain.cu"
-extern "C" __global__ void one(const uint32_t* in, uint32_t* out) {
-    const Key k = threefry(Key{in[0], in[1 + threadIdx.x]}, 0u, in[2]);
-    out[2 * threadIdx.x] = k.k0;
-    out[2 * threadIdx.x + 1] = k.k1;
-}
-extern "C" __global__ void two(const uint32_t* in, uint32_t* out) {
-    const Key k = threefry(threefry(Key{in[0], in[1 + threadIdx.x]}, 0u, in[2]), 0u, in[2]);
-    out[2 * threadIdx.x] = k.k0;
-    out[2 * threadIdx.x + 1] = k.k1;
-}
-"""
-
-
-def keychain_sass():
-    """The SASS instructions of one threefry2x32 block on a key that is data
-    (cuobjdump of THREEFRY_PROBE: two chained blocks less one), beside
-    THREEFRY_OPS; 'not measured' without cuobjdump."""
-    import shutil
-
-    from pyisingmontecarlo_tpu_torch import _kernels
-
-    nvcc = _kernels._nvcc()
-    dump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
-    if not Path(dump).exists():
-        print("keychain SASS: not measured (no cuobjdump)", flush=True)
-        return
-    probe = _kernels._BUILD / "threefry_probe.cu"
-    probe.write_text(THREEFRY_PROBE)
-    fns = _sass(nvcc, dump, probe, _kernels._BUILD / "threefry_probe.cubin")
-    count = {k: sum(1 for _, op, _ in v if op not in ("NOP", "BRA", "EXIT")) for k, v in fns.items()}
-    ops = {}
-    for k, sign in (("two", 1), ("one", -1)):
-        for _, op, _ in fns[k]:
-            if op not in ("NOP", "BRA", "EXIT"):
-                ops[op] = ops.get(op, 0) + sign
-    alu = sum(v for k, v in ops.items() if not k.startswith(NOT_ALU))
-    print(f"keychain SASS: one threefry2x32 block = {count['two'] - count['one']} instructions "
-          f"{ {k: v for k, v in sorted(ops.items()) if v} }, {alu} on the ALU pipe (THREEFRY_OPS = {THREEFRY_OPS}, "
-          f"THREEFRY_ALU_OPS = {THREEFRY_ALU_OPS})", flush=True)
-
-
-# the cluster phase's slice loops in fk_line (csrc/worldline.cuh), found in the SASS of wl_cluster and
-# ladder_cluster at the group size of main-quantum-long's and main-tempering-wide's L_tau: each the shortest loop
-# (a backward branch and what it jumps over) that holds what marks it, and the marks a word of 32 slices holds
-CLUSTER_LOOPS = {
-    "load": (lambda ops: "LDG" in ops and "VOTE" in ops, "VOTE", 2),  # spins, bond draws, slice dE, 2 ballots
-    "sum": (lambda ops: "VOTE" in ops and "FADD" in ops and "LDG" not in ops and "FFMA" not in ops, "VOTE", 1),
-    "decide": (lambda ops: "FFMA" in ops and "VOTE" in ops, "VOTE", 2),  # the heads' draws and logf, 2 ballots
-    "fill": (lambda ops: "FLO" in ops, "FLO", 1),  # the nearest head's decision, the flips
-}
-F32_OPS = {"FADD": 1, "FMUL": 1, "FFMA": 2}  # f32 operations of an instruction
-NOT_INT = ("FADD", "FMUL", "FFMA", "FSEL", "FSETP", "FMNMX", "MUFU", "I2F", "F2I", "FRND")  # the FMA and XU pipes
-
-
-# two kernels that differ by one logf of data, as the ladder kernels call it; the difference of their SASS is
-# the logf's instructions
-LOG_PROBE = r"""
-extern "C" __global__ void one(const float* in, float* out) { out[threadIdx.x] = logf(in[threadIdx.x]); }
-extern "C" __global__ void two(const float* in, float* out) { out[threadIdx.x] = logf(logf(in[threadIdx.x])); }
-"""
-
-
-def _count(ins):
-    """(instructions, ALU instructions, f32 operations, loads, stores) of SASS ``ins``, NOPs left out."""
-    ops = [op for _, op, _ in ins if op != "NOP"]
-    return (len(ops), sum(1 for op in ops if not op.startswith(NOT_ALU + NOT_INT)),
-            sum(F32_OPS.get(op.split(".")[0], 0) for op in ops), sum(1 for op in ops if op.startswith("LD")),
-            sum(1 for op in ops if op.startswith("ST")))
-
-
-def _loops(ins):
-    """Every loop of ``ins``: a backward branch and the instructions it jumps over."""
-    import re
-
-    out = []
-    for addr, op, rest in ins:
-        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-        if target and int(target.group(1), 16) < addr:
-            out.append([i for i in ins if int(target.group(1), 16) <= i[0] <= addr])
-    return out
-
-
-def _split(ins, units, draws, logs, draw_n, log_n):
-    """{name: instructions a unit} of SASS ``ins`` that does ``units`` units
-    of work with ``draws`` lane-hash draws and ``logs`` logf: the hash and
-    the logf (at the probes' counts ``draw_n`` and ``log_n``), the loads and
-    stores, and the rest (addresses, tests, the update's own f32 and integer
-    work, control); with the ALU instructions and f32 operations a unit,
-    the floor's inputs."""
-    n, alu, f32, ld, st = _count(ins)
-    hashed, logged = draws * (draw_n or 0), logs * (log_n or 0)
-    return {"instructions": n / units, "hash": hashed / units, "logf": logged / units, "loads": ld / units,
-            "stores": st / units, "addresses and the rest": (n - hashed - logged - ld - st) / units,
-            "alu": alu / units, "f32": f32 / units}
-
-
-def cluster_sass(draw_n=None):
-    """{kernel: {loop: (ALU instructions, f32 operations) a word of 32
-    slices}} of each slice loop of fk_line (CLUSTER_LOOPS), in wl_cluster at
-    fk_group(LONG_LTAU) and ladder_cluster at fk_group(PT_LTAU); and
-    {"wl_accumulate": _split of its word loop a slice (wl_accumulate<16>,
-    LONG_LTAU's word), "ladder_site": _split of ladder_site at PT_LTAU a
-    spin (a thread's SITE_PAIRS pairs of slices, its line's set-up in),
-    "ladder_site_long":
-    _split of ladder_site<32> at LONG_LADDER's L_tau a padded slice,
-    "wl_site": _split of wl_site<32, 16> at LONG_LTAU a padded slice}, with
-    ``draw_n`` the lane-hash draw's instructions (hash_sass) and the logf's
-    from LOG_PROBE (cuobjdump); a kernel is left out, and 'not measured'
-    printed, without cuobjdump or where a loop is not found."""
-    import shutil
-    from concurrent.futures import ThreadPoolExecutor
-
-    from pyisingmontecarlo_tpu_torch import _kernels
-
-    nvcc = _kernels._nvcc()
-    dump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
-    out = {}
-    if not Path(dump).exists():
-        print("cluster SASS: not measured (no cuobjdump)", flush=True)
-        return out
-    probe = _kernels._BUILD / "log_probe.cu"
-    probe.write_text(LOG_PROBE)
-    with ThreadPoolExecutor(3) as pool:
-        jobs = {k: pool.submit(_sass, nvcc, dump, _kernels._CSRC / f"{src}.cu", _kernels._BUILD / f"{src}.cubin")
-                for k, src in (("wl_cluster", "wl"), ("ladder_cluster", "ladder"))}
-        jobs["log"] = pool.submit(_sass, nvcc, dump, probe, _kernels._BUILD / "log_probe.cubin")
-        fns = {k: j.result() for k, j in jobs.items()}
-    for kernel, L in (("wl_cluster", LONG_LTAU), ("ladder_cluster", PT_LTAU)):
-        G = cluster_group(L)
-        name = next(k for k in fns[kernel] if kernel in k and f"ILi{G}E" in k)
-        loops = _loops(fns[kernel][name])
-        counts = {}
-        for loop, (marks, mark, per_word) in CLUSTER_LOOPS.items():
-            found = [b for b in loops if marks({op.split(".")[0] for _, op, _ in b})]
-            if not found:
-                print(f"cluster SASS: {kernel}<{G}>: no {loop} loop found; its bound is not measured", flush=True)
-                break
-            body = min(found, key=len)
-            words = sum(1 for _, op, _ in body if op.startswith(mark)) / per_word
-            alu = sum(1 for _, op, _ in body if not op.startswith(NOT_ALU + NOT_INT))
-            f32 = sum(F32_OPS.get(op.split(".")[0], 0) for _, op, _ in body)
-            counts[loop] = (alu / words, f32 / words)
-        else:
-            out[kernel] = counts
-            print(f"cluster SASS: {kernel}<{G}> (L_tau={L}), a word of 32 slices: " + ", ".join(
-                f"{loop} {a:.1f} ALU instructions and {f:.1f} f32 operations" for loop, (a, f) in counts.items()),
-                flush=True)
-    log_n = len([i for i in fns["log"]["two"] if i[1] != "NOP"]) - len([i for i in fns["log"]["one"] if i[1] != "NOP"])
-    print(f"SASS: a logf is {log_n} instructions (LOG_PROBE)", flush=True)
-    # wl_accumulate<16>: its word loop, a word of 16 slices a lane and four dp4a (spins, two partners, aligned
-    # bonds) a 4-slice chunk on a torus
-    name = next(k for k in fns["wl_cluster"] if "wl_accumulate" in k and "ILi16E" in k)
-    body = [b for b in _loops(fns["wl_cluster"][name]) if any(op.startswith("IDP") for _, op, _ in b)]
-    if body:
-        body = min(body, key=len)
-        words = sum(1 for _, op, _ in body if op.startswith("IDP")) / 16
-        out["wl_accumulate"] = _split(body, 16 * words, 0, 0, draw_n, log_n)
-        _print_split("wl_accumulate<16>'s word loop", "slice", body, out["wl_accumulate"])
-    else:
-        print("SASS: wl_accumulate: no word loop found; not measured", flush=True)
-    # ladder_site<site_lanes(PT_LTAU)>: a line of one chunk, the whole kernel for a thread's 2 SITE_PAIRS spins
-    fn = fns["ladder_cluster"][next(k for k in fns["ladder_cluster"]
-                                    if "ladder_site" in k and f"ILi{site_lanes(PT_LTAU)}E" in k)]
-    C = SITE_PAIRS
-    out["ladder_site"] = _split(fn, 2 * C, 2 * C, 4 * C, draw_n, log_n)
-    _print_split(f"ladder_site<{site_lanes(PT_LTAU)}> (L_tau={PT_LTAU})", "spin", fn, out["ladder_site"])
-    # the warp-a-line kernels, K chunks a line: ladder_site<32> at LONG_LADDER's L_tau, two logf a slice, and
-    # wl_site<32, 16> at LONG_LTAU (16-byte words), none
-    for key, src, kernel, tag, L, logs in (("ladder_site_long", "ladder_cluster", "ladder_site", "ILi32E",
-                                            LONG_LADDER[2], 2),
-                                           ("wl_site", "wl_cluster", "wl_site", "ILi32ELi16E", LONG_LTAU, 0)):
-        name = f"{kernel}<{tag[3:-1].replace('ELi', ', ')}> (L_tau={L}, {-(-(L // 2) // (32 * C))} chunks)"
-        split = _chunked_split(fns[src][next(k for k in fns[src] if kernel in k and tag in k)], L, logs, draw_n, log_n)
-        if split is None:
-            print(f"SASS: {name}: its two chunk loops not found; not measured", flush=True)
-            continue
-        out[key] = split[0]
-        _print_split(name, "padded slice", split[1], split[0])
-    return out
-
-
-def _chunked_split(fn, L, logs, draw_n, log_n):
-    """(_split a padded slice, the instructions counted) of a site kernel of
-    32 threads a line (site_phases, csrc/worldline.cuh) whose SASS is ``fn``,
-    at L slices, K chunks a line: the kernel with its two chunk loops (the
-    outermost loops that load) run K times (one chunk's reload in parity 1
-    counted in excess), for 2 SITE_PAIRS K slices a thread, the last chunk's
-    padding in, a draw and ``logs`` logf a slice; None where the two loops
-    are not found."""
-    C = SITE_PAIRS
-    K = -(-(L // 2) // (32 * C))
-    loops = [b for b in _loops(fn) if any(op.startswith("LDG") for _, op, _ in b)]
-    outer = [b for b in loops if not any(c is not b and c[0][0] <= b[0][0] and b[-1][0] <= c[-1][0]
-                                         and len(c) > len(b) for c in loops)]
-    if len(outer) != 2:
-        return None
-    ins = fn + (K - 1) * (outer[0] + outer[1])
-    return _split(ins, 2 * C * K, 2 * C * K, logs * 2 * C * K, draw_n, log_n), ins
-
-
-def _print_split(what, unit, ins, split):
-    hist = {}
-    for _, op, _ in ins:
-        hist[op] = hist.get(op, 0) + 1
-    print(f"SASS: {what}, a {unit}: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-          + f"; by opcode {dict(sorted(hist.items()))}", flush=True)
-
-
-def sass_floor(split, units, nbytes):
-    """((ms, bound_by), what it counted): the instruction floor of ``units``
-    units of a kernel's work whose SASS ``split`` (cluster_sass's) gives a
-    unit's ALU instructions and f32 operations, beside ``nbytes`` moved;
-    (None, 'not measured') without it."""
-    if split is None:
-        return None, "not measured (no cuobjdump, or its loop not found)"
-    alu, f32 = split["alu"] * units, split["f32"] * units
-    ms, by = bound(nbytes, alu, f32)
-    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {units} units, {alu / 1e6:.1f} M ALU instructions, "
-                      f"{f32 / 1e6:.1f} M f32 operations, {nbytes} bytes)")
-
-
-def accumulate_need(R, nvars, L, sampling, ndir):
-    """((ms, bound_by), what it counted) of a sweep's accumulation
-    (wl_accumulate): the state read once, the [R, 3, nvars] int64
-    accumulators read and written, the sample slot written in sampling
-    mode, and acc_ops_per_slice(ndir) integer instructions a slice (ndir
-    outgoing bonds a site)."""
-    slices = R * nvars * L
-    nbytes = slices + 2 * 8 * 3 * R * nvars + (R * nvars if sampling else 0)
-    ops = acc_ops_per_slice(ndir) * slices
-    ms, by = bound(nbytes, ops)
-    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {slices} slices, {ops / 1e6:.2f} M integer instructions, "
-                      f"{nbytes} bytes)")
-
-
-def site_need(R, nvars, L, ndir):
-    """((ms, bound_by), what it counted) of a sweep's two ladder site phases
-    (ladder_site): the state read and written once, the couplings and
-    per-replica parameters read once, and LADDER_SITE_OPS_PER_SPIN
-    (integer, f32) operations an active spin (each spin is active once a
-    sweep)."""
-    spins = R * nvars * L
-    nbytes = 2 * spins + 4 * R * ndir * nvars + 16 * R
-    ops, f32 = (spins * k for k in LADDER_SITE_OPS_PER_SPIN)
-    ms, by = bound(nbytes, ops, f32)
-    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {spins} spins, {ops / 1e6:.1f} M integer operations, "
-                      f"{f32 / 1e6:.1f} M f32 operations, {nbytes} bytes)")
-
-
-def wl_site_need(R, nvars, L):
-    """((ms, bound_by), what it counted) of a sweep's two worldline site
-    launches (wl_site): the state read and written once, the [30] int32
-    threshold table and the seeds read once, and WL_SITE_OPS_PER_SPIN integer
-    operations an active spin (each spin is active once a sweep)."""
-    spins = R * nvars * L
-    nbytes = 2 * spins + 4 * 30 + 4 * R
-    ops = spins * WL_SITE_OPS_PER_SPIN
-    ms, by = bound(nbytes, ops)
-    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {spins} spins, {ops / 1e6:.1f} M integer operations, "
-                      f"{nbytes} bytes)")
-
-
-def cluster_rounds(active):
-    """(lines, fully frozen lines, doubling rounds summed over the others) of
-    a cluster phase whose frozen bonds are ``active`` [lines, L] (bool), as
-    fk_line runs it: a round while some reach bit is left after the last,
-    ceil(log2 L) at most."""
-    L = active.shape[-1]
-    frozen = active.all(-1)
-    alive, reach = ~frozen, active.clone()
-    rounds = torch.zeros(active.shape[0], dtype=torch.int64, device=active.device)
-    for step in range(max(1, (L - 1).bit_length())):
-        rounds += alive
-        reach = reach & reach.roll(-(1 << step), -1)
-        alive = alive & reach.any(-1)
-    return active.shape[0], int(frozen.sum()), int(rounds.sum())
-
-
-def cluster_heads(active):
-    """(slices, heads) of a cluster phase whose frozen bonds are ``active``
-    [lines, L] (bool): a head after each thawed bond, one at tau = 0 on a
-    line frozen whole."""
-    return active.numel(), int((~active).sum()) + int(active.all(-1).sum())
-
-
-def cluster_need(phases, nbytes, per_slice):
-    """((ms, bound_by), what it counted) of a sweep's cluster phases, whose
-    frozen bonds are ``phases`` ([lines, L] each): what the function needs,
-    with no algorithm in it. ``nbytes`` a phase (its lines and their
-    neighbour lines read once, its lines written once), ``per_slice``
-    (integer, f32) operations a slice (one pass: the bond draw and test, the
-    slice dE, the run sum's addition, the flip) and HEAD_OPS a head (its
-    draw, uniform and log), at the card's peak rates."""
-    slices = heads = 0
-    for active in phases:
-        n, h = cluster_heads(active)
-        slices, heads = slices + n, heads + h
-    ops = slices * per_slice[0] + heads * HEAD_OPS[0]
-    f32 = slices * per_slice[1] + heads * HEAD_OPS[1]
-    ms, by = bound(len(phases) * nbytes, ops, f32)
-    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; {slices} slices, {heads} heads; {ops / 1e6:.1f} M integer "
-                      f"operations, {f32 / 1e6:.1f} M f32 operations, {len(phases) * nbytes} bytes)")
-
-
-def cluster_floor(counts, phases, nbytes):
-    """((ms, bound_by), what it counted): the instruction floor of fk_line's
-    algorithm for a sweep's cluster phases, whose frozen bonds are ``phases``
-    ([lines, L] each), from ``counts`` (a kernel's cluster_sass entry): the
-    ALU instructions and f32 operations of fk_line's slice loops for this
-    data (every word's load, each non-frozen line's doubling rounds,
-    decisions and fill; a frozen line's XLA sum, mostly f32 additions, and
-    its flips are not counted), beside ``nbytes`` moved a phase. It counts
-    the doubling rounds the algorithm chose, so it is not the function's
-    bound (cluster_need); (None, 'not measured') without counts."""
-    if counts is None:
-        return None, "not measured (no cuobjdump, or a loop not found)"
-    alu = f32 = 0.0
-    what = []
-    for active in phases:
-        lines, frozen, rounds = cluster_rounds(active)
-        W = -(-active.shape[-1] // 32)
-        words = {"load": lines * W, "sum": rounds * W, "decide": (lines - frozen) * W, "fill": (lines - frozen) * W}
-        alu += 32 * sum(words[k] * counts[k][0] for k in words)
-        f32 += 32 * sum(words[k] * counts[k][1] for k in words)
-        what.append(f"{lines} lines, {frozen} frozen whole, {rounds / max(1, lines - frozen):.2f} doubling rounds a "
-                    "line")
-    ms, by = bound(len(phases) * nbytes, alu, f32)
-    return (ms, by), (f"{ms:.5f} ms a sweep ({by}; " + "; ".join(what) + f"; {alu / 1e6:.1f} M ALU instructions, "
-                      f"{f32 / 1e6:.1f} M f32 operations, {len(phases) * nbytes} bytes)")
-
-
-def frozen_bonds(x, kind, size, seed, ctr, below):
-    """The frozen bonds [lines, L] (bool) of the lines of each color of
-    ``x`` [R, nvars, L] at a cluster phase's bond draw ``ctr`` (4 + 2 color),
-    as ops/wl.py and ops/ladder.py draw them: aligned, and ``below(u31)``
-    with u31 = lane_draw31(seed_r, tau nvars + i, ctr); the colors' lines
-    concatenated."""
-    from pyisingmontecarlo_tpu_torch.ops import wl
-    from pyisingmontecarlo_tpu_torch.ops.lanerng import lane_draw31, make_pos_mix
-
-    R, nvars, L = x.shape
-    color0, _, _ = wl.lattice_fns(kind, size, nvars, x.device)
-    tau = torch.arange(L, device=x.device)[None, :]
-    pos1, pos2 = make_pos_mix(tau, torch.arange(nvars, device=x.device)[:, None], nvars)
-    out = []
-    for color, c in enumerate((ctr, ctr + 2)):
-        act = (x == x.roll(-1, 2)) & below(lane_draw31(seed[:, None, None], pos1, pos2, c))
-        out.append(act[:, color0[:, 0] if color == 0 else ~color0[:, 0]].reshape(-1, L))
-    return out
-
-
-def chain_bound(kinds, T, R):
-    """(least ms, "bytes" or "operations", what it counted) of the key
-    chain's roofline: the larger of its tables' bytes at the HBM rate and all
-    its blocks' ALU instructions (CHAIN_BLOCKS, THREEFRY_ALU_OPS each) at the
-    integer rate."""
-    from pyisingmontecarlo_tpu_torch.rng import chain_columns
-
-    C, W = chain_columns(kinds)
-    nbytes = 4 * T * R * (C + W) + 16 * R
-    blocks = T * sum(_slot_blocks(k) for k in kinds)
-    ops = THREEFRY_ALU_OPS * R * blocks
-    ms, by = bound(nbytes, ops)
-    return ms, by, f"roofline: {nbytes} bytes, {R * blocks} blocks, {ops / 1e6:.2f} M ALU instructions"
-
-
-_SPINE_NS = []
-
-
-def spine_step_ns():
-    """ns of one step of the chain's spine, key' = threefry(key, 0, 0), as
-    one thread chains them (threefry_spine_probe over SPINE_PROBE_STEPS
-    steps, the best of three; measured once a run)."""
-    if not _SPINE_NS:
-        from pyisingmontecarlo_tpu_torch import _kernels
-        from pyisingmontecarlo_tpu_torch.rng import key_tensor
-
-        lib = _kernels.load()
-        keys = key_tensor(_keys(32, 3), torch.device("cuda", 0))
-        out = torch.empty_like(keys)
-
-        def probe():
-            err = lib.threefry_spine_probe(keys.data_ptr(), SPINE_PROBE_STEPS, out.data_ptr(),
-                                           torch.cuda.current_stream().cuda_stream)
-            check(err == 0, f"threefry_spine_probe failed ({err})")
-
-        probe()
-        _SPINE_NS.append(min(event_ms(probe, 1) for _ in range(3)) / SPINE_PROBE_STEPS * 1e6)
-    return _SPINE_NS[0]
-
-
-def chain_kernel_ms(keys, kinds, T, nvars, n=5):
-    """The device ms of one threefry_chain launch on ``keys`` as
-    rng.threefry_chain makes it: ``n`` launches back to back between two
-    CUDA events, queued behind a first launch so that the card is never idle
-    between them, the best of three (the call's time by events adds the
-    wrapper's host work, the plan's copy among it; these launches are not
-    counted)."""
-    from pyisingmontecarlo_tpu_torch import _kernels
-    from pyisingmontecarlo_tpu_torch.rng import KEY_WORM, _slot, chain_columns
-
-    lib, slots = _kernels.load(), [_slot(k) for k in kinds]
-    R, dev = keys.shape[0], keys.device
-    C, W = chain_columns(kinds)
-    seeds = torch.empty((T, C, R), dtype=torch.int32, device=dev)
-    v0 = torch.empty((T, W, R), dtype=torch.int32, device=dev)
-    out = torch.empty_like(keys)
-    plan = torch.tensor([(k, nvars if k == KEY_WORM else p) for k, p in slots], dtype=torch.int32).to(dev)
-
-    def launch():
-        err = lib.threefry_chain(keys.data_ptr(), out.data_ptr(), plan.data_ptr(), len(slots), T, C, W, R,
-                                 seeds.data_ptr() if C else None, v0.data_ptr() if W else None,
-                                 torch.cuda.current_stream(dev).cuda_stream)
-        check(err == 0, f"threefry_chain failed ({err})")
-
-    def timed():
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        launch()
-        start.record()
-        for _ in range(n):
-            launch()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    return min(timed() for _ in range(3))
-
-
-def spine_floor(kinds, T):
-    """(ms, what it counted): the chain's latency floor, its T S dependent spine steps at spine_step_ns each."""
-    ns = spine_step_ns()
-    return T * len(kinds) * ns / 1e6, f"{T * len(kinds)} dependent spine steps x {ns:.2f} ns (the probe)"
-
-
-def chain_plans():
-    """{name: (plan, T, R, nvars)} of threefry_chain's three main-path calls: the triangular annealing's 200
-    steps (main-classical), QmcIsing's glass sweeps (main-qmcising) and the hard QmcRunner system's 100 sweeps
-    (main-qmcrunner)."""
-    from pyisingmontecarlo_tpu_torch.engines import classical as ce
-    from pyisingmontecarlo_tpu_torch.engines import generic as ge
-    from pyisingmontecarlo_tpu_torch.engines import worldline as wle
-    from pyisingmontecarlo_tpu_torch.graph import compile_graph
-    from pyisingmontecarlo_tpu_torch.rng import KEY_PLAIN
-
-    with _route(None):
-        w = qmc_runner(QR_N, QR_R, hard_terms(QR_N), "cpu")._ensure(QR_BETA)
-    glass = [KEY_PLAIN] * wle.sweep_slots(ce.device_graph(compile_graph(glass_edges(QMC_N))), True, False)
-    return {"tri": (tri_plan(), TRI_T, TRI_R, TRI_L**2), "glass": (glass, QMC_T, QMC_R, QMC_N),
-            "hard": (ge.sweep_plan(w.comp, w.ltau, False, gm=True), 100, QR_R, 1)}
 
 
 def tri_plan():
@@ -3150,14 +1670,11 @@ def _keys(R, seed):
     return key_data_from_seeds(np.random.default_rng(seed).integers(0, 2**64, R, dtype=np.uint64))
 
 
-def phase_compare_keychain(dev, smi):
+def phase_compare_keychain(dev):
     """threefry_chain against its numpy version, bit for bit: the main path's
     plan (200 steps x 29 slots x R = 100), a plan with worm and cluster
-    slots at R = 1 over 2^16 splits and a plan of every slot kind at R = 100;
-    then the call's and the kernel's time at the main shape and at the full
-    4000 steps beside the roofline (chain_bound) and the spine's floor
-    (spine_floor); and the numpy chain's time. Returns (largest |difference|, call ms, numpy ms, bound ms,
-    bound_by) at the main shape."""
+    slots at R = 1 over 2^16 splits and a plan of every slot kind at R = 100.
+    Returns the largest |difference|."""
     from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain, threefry_chain_reference
 
     kinds = tri_plan()
@@ -3183,44 +1700,20 @@ def phase_compare_keychain(dev, smi):
         print(f"compare-keychain: {name}: {T} steps x {len(plan)} slots x R={R} ({T * len(plan)} chained splits, "
               f"nvars {nvars}): seeds {got[0].shape}, worm starts {got[1].shape} and keys equal bit for bit "
               f"(numpy {plain_s:.3f} s)", flush=True)
-    kd = key_tensor(_keys(TRI_R, 5), dev)
-    out = {}
-    for T in (TRI_T, TRI_T_FULL):
-        threefry_chain(kd, kinds, T, TRI_L**2)
-        runs = [event_ms(lambda: threefry_chain(kd, kinds, T, TRI_L**2), 1) for _ in range(5)]
-        b_ms, b_by, b_what = chain_bound(kinds, T, TRI_R)
-        f_ms, f_what = spine_floor(kinds, T)
-        d_ms = chain_kernel_ms(kd, kinds, T, TRI_L**2)
-        out[T] = (float(np.median(runs)), b_ms, b_by)
-        print(f"compare-keychain: timing on {smi}: {T} steps x {len(kinds)} slots x R={TRI_R}: threefry_chain "
-              f"call median {out[T][0]:.5f} ms (runs {runs}), the kernel "
-              f"{d_ms:.5f} ms (events); bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor "
-              f"{f_ms:.5f} ms ({f_what}), the kernel {d_ms / f_ms:.2f}x it", flush=True)
-    print(f"compare-keychain: the spine's step on {smi} (threefry_spine_probe, {SPINE_PROBE_STEPS} steps of key' "
-          f"in one thread): {spine_step_ns():.2f} ns", flush=True)
-    host = _keys(TRI_R, 5)
-    t0 = time.perf_counter()
-    threefry_chain_reference(host, kinds, TRI_T, TRI_L**2)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    print(f"compare-keychain: the numpy chain at {TRI_T} steps {plain_ms:.3f} ms "
-          f"({plain_ms / (TRI_T * len(kinds)) * 1e3:.1f} us a slot; {plain_ms * TRI_T_FULL / TRI_T / 1e3:.3f} s at "
-          f"{TRI_T_FULL} steps by proportion)", flush=True)
-    return err, out[TRI_T][0], plain_ms, out[TRI_T][1], out[TRI_T][2]
+    return err
 
 
 # compare-key-tables' shapes: (name, keys, sweeps, swap period)
 KEY_TABLE_CASES = (("glass80.pt's 64 rungs, a swap every sweep", 64, 500, 1),
                    ("33 rungs, past one block of 32, a swap every third sweep", 33, 200, 3),
-                   (f"LONG_LADDER's {LONG_LADDER[1]} rungs", LONG_LADDER[1], 500, 1))
+                   ("16 rungs, half a block", 16, 500, 1))
 
 
-def phase_compare_key_tables(dev, smi):
+def phase_compare_key_tables(dev):
     """LatticeTempering's key tables on the card (tempering.key_tables_device:
     threefry_chain with a plain slot a sweep, then a uniform slot a swap step
     on the swap key) against the numpy key_tables, bit for bit (seeds,
-    uniforms, both advanced keys), at KEY_TABLE_CASES; their time by CUDA
-    events (the two launches) and the ladder's whole tables (``_tables``: the
-    keys' copies there and back, by the host's clock) against numpy's; then
+    uniforms, both advanced keys), at KEY_TABLE_CASES; then
     key_tables_device.launches over two calls of the 12^2 bench ladder (one a
     call) and its keys after them against the numpy chain's. Returns the
     largest |difference|."""
@@ -3241,19 +1734,11 @@ def phase_compare_key_tables(dev, smi):
             check(g.shape == w.shape, f"compare-key-tables {name}: shape {g.shape} vs {w.shape}")
             err = max(err, int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()) if g.size else 0)
         check(err == 0, f"compare-key-tables {name}: key_tables_device != key_tables (max |diff| {err})")
-        runs = [event_ms(lambda: [tt.key_tables_device(keys, swapkey, T, sf) for _ in range(5)], 5) for _ in range(5)]
         print(f"compare-key-tables: {name}: {T} sweeps x {R} keys, {T // sf} swap steps: seeds {got[0].shape}, "
-              f"uniforms {got[1].shape} and both keys equal key_tables bit for bit; on {smi} key_tables_device "
-              f"median {np.median(runs):.5f} ms a call (CUDA events, runs of 5 calls: {runs}), numpy key_tables "
-              f"{plain_ms:.3f} ms", flush=True)
+              f"uniforms {got[1].shape} and both keys equal key_tables bit for bit (numpy key_tables "
+              f"{plain_ms:.3f} ms)", flush=True)
     lt = pt_ladder(dev)
     m = lt._materialize()
-    T = 500
-    walls = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        lt._tables(m, T, 1)
-        walls.append((time.perf_counter() - t0) * 1e3)
     kd, sk = m["key_data"].copy(), lt._swapkey.copy()
     t0 = time.perf_counter()
     want = tt.key_tables(kd, sk, 2 * 20, 1, PT_R)
@@ -3265,10 +1750,9 @@ def phase_compare_key_tables(dev, smi):
     check(calls == 2, f"compare-key-tables: key_tables_device.launches {calls} over two ladder calls, want 2")
     check(np.array_equal(m["key_data"], want[2]) and np.array_equal(lt._swapkey, want[3]),
           "compare-key-tables: the ladder's keys after two calls differ from the numpy chain's")
-    print(f"compare-key-tables: the {PT_SIDE}^2 bench ladder's tables of {T} sweeps ({PT_R} rungs; LatticeTempering."
-          f"_tables, the keys' copies and the wait in) on {smi}: median {np.median(walls):.3f} ms by the host's clock "
-          f"(runs {[round(w, 3) for w in walls]}); key_tables_device.launches {calls} over two 20-sweep calls, keys "
-          f"after them equal the numpy chain's (numpy key_tables of those 40 sweeps {plain_ms:.3f} ms)", flush=True)
+    print(f"compare-key-tables: the {PT_SIDE}^2 bench ladder ({PT_R} rungs): key_tables_device.launches {calls} over "
+          f"two 20-sweep calls, keys after them equal the numpy chain's (numpy key_tables of those 40 sweeps "
+          f"{plain_ms:.3f} ms)", flush=True)
     return err
 
 
@@ -3717,14 +2201,13 @@ def qmc_full_width_sweep(dev):
     return differ, ties, 2 * QMC_R * QMC_N * WL_LTAU
 
 
-def phase_compare_qmc_generic(dev, smi):
+def phase_compare_qmc_generic(dev):
     """The generic worldline engine on the card against the same engine on
     the CPU: every run function on a small glass and a triangular patch, RVB on,
     bit for bit in states, keys, samples, cluster sizes and RVB ratios, the
     energies within QMC_E_RTOL; one full-width sweep of the main path's glass
     (ties only); the key chain's all-plain plan of the main path against its
-    numpy version, bit for bit, with its time and bound. Returns (largest
-    |difference| of the chain, its ms, the numpy chain's ms, bound ms, bound_by)."""
+    numpy version, bit for bit. Returns the largest |difference| of the chain."""
     from pyisingmontecarlo_tpu_torch.engines import worldline as wl
     from pyisingmontecarlo_tpu_torch.models import triangular_edges
     from pyisingmontecarlo_tpu_torch.rng import KEY_PLAIN, key_tensor, threefry_chain, threefry_chain_reference
@@ -3766,18 +2249,9 @@ def phase_compare_qmc_generic(dev, smi):
     err = max(int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()) if g.size else 0 for g, w in zip(got, want))
     check(err == 0 and all(g.shape == w.shape for g, w in zip(got, want)),
           f"compare-qmc-generic: threefry_chain of the glass plan != its numpy version (max |diff| {err})")
-    kt = key_tensor(kd, dev)
-    threefry_chain(kt, kinds, QMC_T, QMC_N)
-    runs = [event_ms(lambda: threefry_chain(kt, kinds, QMC_T, QMC_N), 1) for _ in range(5)]
-    b_ms, b_by, b_what = chain_bound(kinds, QMC_T, QMC_R)
-    f_ms, f_what = spine_floor(kinds, QMC_T)
-    d_ms = chain_kernel_ms(kt, kinds, QMC_T, QMC_N)
     print(f"compare-qmc-generic: threefry_chain, the main path's all-plain plan ({len(kinds)} slots a sweep x "
-          f"{QMC_T} sweeps x R={QMC_R}) == its numpy version bit for bit; on {smi}: call median "
-          f"{np.median(runs):.5f} ms (runs {runs}), the kernel {d_ms:.5f} ms (events); "
-          f"bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor {f_ms:.5f} ms ({f_what}), the kernel "
-          f"{d_ms / f_ms:.2f}x it; numpy {plain_ms:.3f} ms", flush=True)
-    return err, float(np.median(runs)), plain_ms, b_ms, b_by
+          f"{QMC_T} sweeps x R={QMC_R}) == its numpy version bit for bit (numpy {plain_ms:.3f} ms)", flush=True)
+    return err
 
 
 def phase_main_qmcising(dev, smi):
@@ -3930,10 +2404,10 @@ def phase_physics_qmcising(dev):
 # fields Gamma = 1, XX bonds jx = 0.5 and ZZZ triples k3 = 0.25; R = 64, beta = 1) and benches/bench_qmcrunner.py's
 # 64-site TFIM chain as generic terms (R = 64, beta = 1), each timed by the slope between two run_sampling calls
 # as the benches time it, depth cut to a quarter (the benches' 200 -> 800 and 400 -> 1600 sweeps took ~270 s of
-# the script's time at 6-27 sweeps/s); the hard family at n = 128 prices the route gate
+# the script's time at 6-27 sweeps/s); compare-qmcrunner forces each route on the hard family at n = 128
 QR_N, QR_R, QR_BETA = 32, 64, 1.0
 QR_SLOPE, QR_CHAIN_SLOPE = (50, 200), (100, 400)
-QR_CROSS_N, QR_CROSS_SWEEPS = 128, (3, 9)
+QR_CROSS_N = 128
 # physics-qmcrunner: XX bonds mix slowly (term kinks); at beta 0.5 a 6-ring settles within 300 sweeps
 QR_PHYS = (("6-ring ZZ + X(0.7) + XX(0.5)", 6, dict(gamma=0.7, jx=0.5, k3=0.0), 0.5, 300, 200),
            ("8-ring ZZ + X(0.8) + ZZZ(0.4)", 8, dict(gamma=0.8, jx=0.0, k3=0.4), 1.0, 100, 200))
@@ -4085,17 +2559,17 @@ def qr_full_width_sweep(dev):
     return stats["decisions"], stats["ties"], stats["max_dd"]
 
 
-def phase_compare_qmcrunner(dev, smi):
+def phase_compare_qmcrunner(dev):
     """The generic k-local engine on the card against the same engine on the
     CPU: QmcRunner on a 5-ring with ZZ, X, XX and ZZZ terms and a free sixth
     variable, on both routes (forced) with and without do_loop: states,
-    samples, bond counts and keys bit for bit, energies within QMC_E_RTOL; one
-    full-width gm sweep of the hard n = 32 system with its ties counted
+    samples, bond counts and keys bit for bit, energies within QMC_E_RTOL; the
+    hard family at n = 128 on each route forced takes it; one full-width gm
+    sweep of the hard n = 32 system with its ties counted
     (qr_full_width_sweep); threefry_chain with the generic sweep's slots
     (fan, slice, bits) against its numpy version bit for bit: a plan of every
-    kind, the do_loop plan, and the hard n = 32 plan at 100 sweeps x R = 64,
-    with its time, bound and the numpy chain's time. Returns (largest |difference|
-    of the chain, its ms, the numpy chain's ms, bound ms, bound_by)."""
+    kind, the do_loop plan, and the hard n = 32 plan at 100 sweeps x R = 64.
+    Returns the largest |difference| of the chain."""
     from pyisingmontecarlo_tpu_torch.engines import generic as ge
     from pyisingmontecarlo_tpu_torch.engines import generic_gm as gg
     from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain, threefry_chain_reference
@@ -4118,6 +2592,13 @@ def phase_compare_qmcrunner(dev, smi):
             print(f"compare-qmcrunner: QmcRunner on a 5-ring (ZZ, X, XX, ZZZ) and a free variable, R=8, {route} route, "
                   f"do_loop {loop}: run_sampling (wait 2, 6 sweeps, freq 2) and run_bond_sampling: card == CPU bit for "
                   f"bit (states, samples, bond counts, keys); energies within {QMC_E_RTOL:g} relative", flush=True)
+    for route, mode in (("gm", "1"), ("classic", "0")):  # the gate admits gm at n = 128: G*n*TT under PMC_GM_MAX
+        with _route(mode):
+            w = qmc_runner(QR_CROSS_N, QR_R, hard_terms(QR_CROSS_N), dev)._ensure(QR_BETA)
+        check(w.use_gm == (route == "gm"), f"compare-qmcrunner: the hard family at n={QR_CROSS_N}, {route} forced: "
+                                           f"use_gm {w.use_gm}")
+        print(f"compare-qmcrunner: the hard family at n={QR_CROSS_N}, R={QR_R} (G={w.comp.G}, "
+              f"G*n*TT={w.comp.G * QR_CROSS_N * w.comp.nterms}), {route} route forced: taken", flush=True)
     t0 = time.perf_counter()
     decisions, ties, max_dd = qr_full_width_sweep(dev)
     print(f"compare-qmcrunner: one gm sweep of the hard system at full width (n={QR_N}, R={QR_R}, beta {QR_BETA}; the "
@@ -4153,17 +2634,7 @@ def phase_compare_qmcrunner(dev, smi):
         print(f"compare-qmcrunner: threefry_chain, {name} ({len(p)} slots, {sum(_slot_blocks(k) for k in p)} blocks a "
               f"step, x {T} x R={R}) == its numpy version bit for bit (seeds {got[0].shape}, int words {got[1].shape}; "
               f"numpy {plain_ms:.3f} ms)", flush=True)
-    kt = key_tensor(_keys(QR_R, 43), dev)
-    threefry_chain(kt, plan, 100, 1)
-    runs = [event_ms(lambda: threefry_chain(kt, plan, 100, 1), 1) for _ in range(5)]
-    b_ms, b_by, b_what = chain_bound(plan, 100, QR_R)
-    f_ms, f_what = spine_floor(plan, 100)
-    d_ms = chain_kernel_ms(kt, plan, 100, 1)
-    print(f"compare-qmcrunner: threefry_chain, the hard n={QR_N} plan ({len(plan)} slots, {sum(_slot_blocks(k) for k in plan)}"
-          f" blocks a sweep) x 100 sweeps x R={QR_R} on {smi}: call median {np.median(runs):.5f} ms (runs {runs}), "
-          f"the kernel {d_ms:.5f} ms (events); bound {b_ms:.5f} ms ({b_by}; {b_what}); the spine's latency floor "
-          f"{f_ms:.5f} ms ({f_what}), the kernel {d_ms / f_ms:.2f}x it; numpy {plain_ms:.3f} ms", flush=True)
-    return err, float(np.median(runs)), plain_ms, b_ms, b_by
+    return err
 
 
 def _qr_rate(q, slope, beta=QR_BETA):
@@ -4246,37 +2717,6 @@ def phase_main_qmcrunner(dev, smi):
     return launches, rates
 
 
-def phase_crossover_qmcrunner(dev, smi):
-    """The hard family at n = 128, R = 64 on both routes forced (the gate
-    admits gm there: G*n*TT under PMC_GM_MAX): sweeps/s, the slope between
-    3- and 9-sweep run_sampling calls after a 2-sweep warm-up, and each
-    route's set-up. Returns {route: sweeps/s}."""
-    out = {}
-    for route, mode in (("gm", "1"), ("classic", "0")):
-        with _route(mode):
-            t0 = time.perf_counter()
-            q = qmc_runner(QR_CROSS_N, QR_R, hard_terms(QR_CROSS_N), dev)
-            w = q._ensure(QR_BETA)
-            torch.cuda.synchronize()
-            setup = time.perf_counter() - t0
-        check(w.use_gm == (route == "gm"), f"crossover: route {w.use_gm}")
-        wall = {}
-        q.run_sampling(QR_BETA, 2)
-        for T in QR_CROSS_SWEEPS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            q.run_sampling(QR_BETA, T)
-            torch.cuda.synchronize()
-            wall[T] = time.perf_counter() - t0
-        lo, hi = QR_CROSS_SWEEPS
-        out[route] = (hi - lo) / (wall[hi] - wall[lo])
-        print(f"crossover-qmcrunner: the hard family at n={QR_CROSS_N}, R={QR_R} (G={w.comp.G}, "
-              f"G*n*TT={w.comp.G * QR_CROSS_N * w.comp.nterms}), {route} route forced, on {smi}: {out[route]:.3f} "
-              f"sweeps/s ({lo} -> {hi} sweeps: {wall[lo]:.3f} s, {wall[hi]:.3f} s) = "
-              f"{QR_R * QR_CROSS_N * w.Lt * out[route]:.4g} site-subslice updates/s; set-up {setup:.3f} s", flush=True)
-    return out
-
-
 def phase_physics_qmcrunner(dev):
     """<E> on the card within 4 se + 0.1 of dense diagonalization (the bound
     of tests/test_qmcrunner.py's XX and ZZZ checks): a 6-ring with ZZ, X and
@@ -4326,25 +2766,16 @@ def dense_terms_energy(nvars, terms, beta):
 # 1024^2 x 8), R keys, an odd size
 BITS_CASES = (("1 M counters, one key", 1, 1 << 20), ("8 M counters, one key", 1, 8 << 20),
               ("64 keys x 4097 counters", 64, 4097), ("3 keys x 1000003 counters", 3, 1000003))
-BITS_N = 8 << 20
-BITS_RUN = 20  # launches a timed run
 # main-parallel: the spatial sweep at bench.py's shape, the tau sweep at examples/tau_sharded_tfim.py's
 SP_SWEEPS = 20
 TAU_N, TAU_LTAU, TAU_R, TAU_BETA, TAU_SWEEPS = 16, 64, 128, 2.0, 100
 PAR_LADDER_T = 500
 
 
-def bits_bound(n):
-    """(least ms, what sets it) of ``n`` threefry counters: 4 bytes written and
-    one block's ALU instructions (THREEFRY_ALU_OPS) each."""
-    return bound(4 * n, THREEFRY_ALU_OPS * n)
-
-
-def phase_compare_threefry_bits(dev, smi):
+def phase_compare_threefry_bits(dev):
     """threefry_bits (csrc/keychain.cu) against rng.random_bits and
-    rng.uniform_f32 (numpy), bit for bit, in both modes, at BITS_CASES; its
-    time at 8 M counters beside its bound and the numpy version's. Returns
-    (largest |difference|, ms, plain ms, bound ms, bound by)."""
+    rng.uniform_f32 (numpy), bit for bit, in both modes, at BITS_CASES.
+    Returns the largest |difference|."""
     from pyisingmontecarlo_tpu_torch.rng import key_tensor, random_bits, threefry_bits, uniform_f32
 
     err = 0
@@ -4361,19 +2792,7 @@ def phase_compare_threefry_bits(dev, smi):
         check(e == 0 and got.shape == want.shape == (R, n), f"compare-threefry-bits {name}: max |diff| {e}")
         print(f"compare-threefry-bits: {name}: bits and uniforms equal rng.random_bits / uniform_f32 bit for bit",
               flush=True)
-    keys = key_tensor(_keys(1, 3), dev)
-    threefry_bits(keys, BITS_N, uniform=True)
-    runs = [event_ms(lambda: [threefry_bits(keys, BITS_N, uniform=True) for _ in range(BITS_RUN)], BITS_RUN)
-            for _ in range(10)]
-    t0 = time.perf_counter()
-    uniform_f32(_keys(1, 3), BITS_N)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    b_ms, b_by = bits_bound(BITS_N)
-    ms = float(np.median(runs))
-    print(f"compare-threefry-bits: timing on {smi}: {BITS_N} uniforms, one key: threefry_bits median {ms:.5f} ms "
-          f"a launch (runs of {BITS_RUN} launches: {runs}); bound {b_ms:.5f} ms ({b_by}; bytes alone {bound(4 * BITS_N, 0)[0]:.5f} ms); numpy "
-          f"{plain_ms:.3f} ms", flush=True)
-    return err, ms, plain_ms, b_ms, b_by
+    return err
 
 
 def _equal_results(a, b, what):
@@ -4806,389 +3225,103 @@ def main():
     smi = phase_gpu()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    sass = timed_phase(phase_build)
+    timed_phase(phase_build)
     err = timed_phase(phase_compare, dev)
     launches = timed_phase(phase_main, dev)
     timed_phase(phase_physics, dev)
-    ms, plain_ms = timed_phase(phase_timing, dev, smi)
     wl_errs = timed_phase(phase_compare_wl, dev)
     wl_launches = timed_phase(phase_main_quantum, dev)
     wl_sample_launches = timed_phase(phase_main_quantum_sampling, dev)
     long_launches, long_sample_launches = timed_phase(phase_main_quantum_long, dev)
     resident_launches = timed_phase(phase_main_chain, dev)
     timed_phase(phase_physics_wl, dev)
-    wl_t = timed_phase(phase_timing_wl, dev, smi, sass)
     ladder_err, ladder_res_err = timed_phase(phase_compare_ladder, dev)
     ladder_res_launches, _, _ = timed_phase(phase_main_tempering, dev)
     ladder_launches, feature_launches = timed_phase(phase_main_tempering_wide, dev)
     timed_phase(phase_physics_tempering, dev)
-    ladder_t = timed_phase(phase_timing_ladder, dev, smi, sass)
     long_errs = timed_phase(phase_compare_longline, dev)
-    timed_phase(phase_compare_replicas, dev, smi)
+    timed_phase(phase_compare_replicas, dev)
     ll_launches = timed_phase(phase_main_quantum_longline, dev, smi)
     llpt_launches = timed_phase(phase_main_tempering_longline, dev, smi)
-    long_t = timed_phase(phase_timing_longline, dev, smi)
-    chain_err, chain_ms, chain_plain_ms, chain_bound_ms, chain_by = timed_phase(phase_compare_keychain, dev, smi)
-    chain_err = max(chain_err, timed_phase(phase_compare_key_tables, dev, smi))
+    chain_err = timed_phase(phase_compare_keychain, dev)
+    chain_err = max(chain_err, timed_phase(phase_compare_key_tables, dev))
     timed_phase(phase_compare_classical, dev)
     keychain_launches = timed_phase(phase_main_classical, dev, smi)
     timed_phase(phase_main_classicising, dev, smi)
     timed_phase(phase_physics_classical, dev)
-    timed_phase(phase_compare_qmc_generic, dev, smi)
+    timed_phase(phase_compare_qmc_generic, dev)
     qmc_keychain_launches, _ = timed_phase(phase_main_qmcising, dev, smi)
     qmc_tiled_launches, qmc_resident_launches = timed_phase(phase_main_qmcising_lattice, dev)
     timed_phase(phase_physics_qmcising, dev)
-    qr_chain_err, qr_chain_ms, qr_chain_plain_ms, qr_chain_bound, qr_chain_by = timed_phase(
-        phase_compare_qmcrunner, dev, smi)
+    qr_chain_err = timed_phase(phase_compare_qmcrunner, dev)
     qr_keychain_launches, _ = timed_phase(phase_main_qmcrunner, dev, smi)
-    timed_phase(phase_crossover_qmcrunner, dev, smi)
     timed_phase(phase_physics_qmcrunner, dev)
-    bits_err, bits_ms, bits_plain_ms, bits_bound_ms, bits_by = timed_phase(phase_compare_threefry_bits, dev, smi)
+    bits_err = timed_phase(phase_compare_threefry_bits, dev)
     meshes = timed_phase(phase_compare_parallel, dev, smi)
     par_counts, bits_launches, _ = timed_phase(phase_main_parallel, dev, smi, meshes)
     torch.distributed.destroy_process_group()
     timed_phase(phase_graph_native, dev, smi)
     timed_phase(phase_shim, dev)
     timed_phase(phase_examples, dev, smi)
-    print(f"threefry_chain at the hard n={QR_N} QmcRunner plan (100 sweeps x R={QR_R}) on {smi}: {qr_chain_ms:.5f} ms, "
-          f"bound {qr_chain_bound:.5f} ms ({qr_chain_by}), numpy {qr_chain_plain_ms:.3f} ms", flush=True)
-    sites = BENCH_R * BENCH_L**2
-    sq_bound, sq_by = bound(2 * sites / 1024, SQ2D_OPS_PER_SITE * sites)  # per sweep of a 1024-sweep call
     wl_src, wl_tpu = "pyisingmontecarlo_tpu_torch/csrc/wl.cu", "pyisingmontecarlo_tpu/ops/wl_pallas.py"
     ladder_src, ladder_tpu = ("pyisingmontecarlo_tpu_torch/csrc/ladder.cu",
                               "pyisingmontecarlo_tpu/ops/wl_ladder_pallas.py:157")
-
-    def timed(t):
-        return dict(ms=t[0], plain_ms=t[1], bound_ms=t[2], bound_by=t[3], library_ms=None)
-
-    # fk_long_*'s own numbers at the first main path's shape that the profiler timed
-    fk_key = next((k for k in FK_LONG_SHAPES if long_t[f"{k}/fk_long"][0] is not None), "ring16")
-
+    long_src = "pyisingmontecarlo_tpu_torch/csrc/worldline.cuh"
     kernels = [
-        dict(name="sq2d_tiled", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/sq2d.cu",
-             replaces="pyisingmontecarlo_tpu/ops/sq2d_pallas.py:159", launches=launches, max_abs_err=err,
-             ms=ms, plain_ms=plain_ms, bound_ms=sq_bound, bound_by=sq_by, library_ms=None),
-        dict(name="wl_tiled (plain sweeps)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:330",
-             launches=wl_launches + qmc_tiled_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus/tiled"])),
-        dict(name="wl_tiled (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
-             launches=wl_sample_launches, max_abs_err=wl_errs["tiled"], **timed(wl_t["torus-sampling/tiled"])),
-        dict(name="wl_site+wl_cluster+wl_accumulate (plain sweeps)", route="cuda", source=wl_src,
-             replaces=f"{wl_tpu}:330", launches=long_launches, max_abs_err=wl_errs["multi"],
-             **timed(wl_t["long/multi-launch"])),
-        dict(name="wl_site+wl_cluster+wl_accumulate (sampling mode)", route="cuda", source=wl_src,
-             replaces=f"{wl_tpu}:346", launches=long_sample_launches, max_abs_err=wl_errs["multi"],
-             **timed(wl_t["long-sampling/multi-launch"])),
-        dict(name="ladder_site+ladder_cluster", route="cuda", source=ladder_src, replaces=ladder_tpu,
-             launches=ladder_launches, max_abs_err=ladder_err, **timed(ladder_t["multi-launch-wide"])),
+        dict(name="sq2d_tiled", source="pyisingmontecarlo_tpu_torch/csrc/sq2d.cu",
+             replaces="pyisingmontecarlo_tpu/ops/sq2d_pallas.py:159", launches=launches, max_abs_err=err),
+        dict(name="wl_tiled (plain sweeps)", source=wl_src, replaces=f"{wl_tpu}:330",
+             launches=wl_launches + qmc_tiled_launches, max_abs_err=wl_errs["tiled"]),
+        dict(name="wl_tiled (sampling mode)", source=wl_src, replaces=f"{wl_tpu}:346", launches=wl_sample_launches,
+             max_abs_err=wl_errs["tiled"]),
+        dict(name="wl_site+wl_cluster+wl_accumulate (plain sweeps)", source=wl_src, replaces=f"{wl_tpu}:330",
+             launches=long_launches, max_abs_err=wl_errs["multi"]),
+        dict(name="wl_site+wl_cluster+wl_accumulate (sampling mode)", source=wl_src, replaces=f"{wl_tpu}:346",
+             launches=long_sample_launches, max_abs_err=wl_errs["multi"]),
+        dict(name="ladder_site+ladder_cluster", source=ladder_src, replaces=ladder_tpu, launches=ladder_launches,
+             max_abs_err=ladder_err),
         dict(name="wl_site+wl_cluster+wl_accumulate at L_tau = 10,240 (plain sweeps; fk_line, 512 threads a line)",
-             route="cuda", source=wl_src, replaces=f"{wl_tpu}:330", launches=ll_launches["plain"][0],
-             max_abs_err=long_errs["wl"], **timed(long_t["ring128"])),
-        dict(name="wl_site+wl_cluster+wl_accumulate at L_tau = 10,240 (sampling mode)", route="cuda", source=wl_src,
-             replaces=f"{wl_tpu}:346", launches=ll_launches["sampling"][0], max_abs_err=long_errs["wl"],
-             **timed(long_t["ring128-sampling"])),
+             source=wl_src, replaces=f"{wl_tpu}:330", launches=ll_launches["plain"][0], max_abs_err=long_errs["wl"]),
+        dict(name="wl_site+wl_cluster+wl_accumulate at L_tau = 10,240 (sampling mode)", source=wl_src,
+             replaces=f"{wl_tpu}:346", launches=ll_launches["sampling"][0], max_abs_err=long_errs["wl"]),
         dict(name="wl_site+fk_long_*+wl_accumulate (plain sweeps; a line past one block, L_tau = 40,960)",
-             route="cuda", source=f"{wl_src}, pyisingmontecarlo_tpu_torch/csrc/worldline.cuh", replaces=f"{wl_tpu}:330",
-             launches=sum(ll_launches["long"]), max_abs_err=long_errs["wl"], **timed(long_t["ring16"])),
-        dict(name="wl_site+fk_long_*+wl_accumulate (sampling mode; L_tau = 40,960)", route="cuda",
-             source=f"{wl_src}, pyisingmontecarlo_tpu_torch/csrc/worldline.cuh", replaces=f"{wl_tpu}:346",
-             launches=sum(ll_launches["long-sampling"]), max_abs_err=long_errs["wl"],
-             **timed(long_t["ring16-sampling"])),
-        dict(name="ladder_site+ladder_cluster at L_tau = 5120 (fk_line, 512 threads a line)", route="cuda",
-             source=ladder_src, replaces=ladder_tpu, launches=llpt_launches["wide"][0],
-             max_abs_err=long_errs["ladder"], **timed(long_t["ladder-glass12"])),
-        dict(name="ladder_site+fk_long_* (a line past one block, L_tau = 250,000)", route="cuda",
-             source=f"{ladder_src}, pyisingmontecarlo_tpu_torch/csrc/worldline.cuh", replaces=ladder_tpu,
-             launches=sum(llpt_launches["long"]), max_abs_err=long_errs["ladder"], **timed(long_t["ladder-ring4"])),
-        dict(name=f"fk_long_sums+fk_long_apply (the cluster phase past one block, a sweep's {wl.LONG_LAUNCHES_PER_SWEEP} "
-                  f"launches; {FK_LONG_SHAPES[fk_key]})", route="cuda",
-             source="pyisingmontecarlo_tpu_torch/csrc/worldline.cuh",
+             source=f"{wl_src}, {long_src}", replaces=f"{wl_tpu}:330", launches=sum(ll_launches["long"]),
+             max_abs_err=long_errs["wl"]),
+        dict(name="wl_site+fk_long_*+wl_accumulate (sampling mode; L_tau = 40,960)", source=f"{wl_src}, {long_src}",
+             replaces=f"{wl_tpu}:346", launches=sum(ll_launches["long-sampling"]), max_abs_err=long_errs["wl"]),
+        dict(name="ladder_site+ladder_cluster at L_tau = 5120 (fk_line, 512 threads a line)", source=ladder_src,
+             replaces=ladder_tpu, launches=llpt_launches["wide"][0], max_abs_err=long_errs["ladder"]),
+        dict(name="ladder_site+fk_long_* (a line past one block, L_tau = 250,000)", source=f"{ladder_src}, {long_src}",
+             replaces=ladder_tpu, launches=sum(llpt_launches["long"]), max_abs_err=long_errs["ladder"]),
+        dict(name=f"fk_long_sums+fk_long_apply (the cluster phase past one block, a sweep's "
+                  f"{wl.LONG_LAUNCHES_PER_SWEEP} launches)", source=long_src,
              replaces=f"{wl_tpu}:263 and pyisingmontecarlo_tpu/ops/wl_ladder_pallas.py:246 (cluster_phase, in the "
                       f"kernels at {wl_tpu}:330, :346 and wl_ladder_pallas.py:157)",
              launches=ll_launches["long"][1] + ll_launches["long-sampling"][1] + llpt_launches["long"][1],
-             max_abs_err=max(long_errs["wl"], long_errs["ladder"]), **timed(long_t[f"{fk_key}/fk_long"])),
-        dict(name="wl_resident (sampling mode)", route="cuda", source=wl_src, replaces=f"{wl_tpu}:346",
-             launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"],
-             **timed(wl_t["chain/resident"])),
-        dict(name="ladder_resident", route="cuda", source=ladder_src, replaces=ladder_tpu,
-             launches=ladder_res_launches + par_counts["ladder_resident"], max_abs_err=ladder_res_err,
-             **timed(ladder_t["resident"])),
-        dict(name="pt_swap_features (a call's memset and launch; glass80.pt's shape)", route="cuda",
-             source=ladder_src, replaces="no Pallas kernel: the XLA ops of pyisingmontecarlo_tpu/tempering.py:152 "
-                                         "(_swap_features)",
-             launches=feature_launches, max_abs_err=max(ladder_err, long_errs["ladder"]),
-             **timed(ladder_t["glass/features"])),
-        dict(name="threefry_chain", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
+             max_abs_err=max(long_errs["wl"], long_errs["ladder"])),
+        dict(name="wl_resident (sampling mode)", source=wl_src, replaces=f"{wl_tpu}:346",
+             launches=resident_launches + qmc_resident_launches, max_abs_err=wl_errs["resident"]),
+        dict(name="ladder_resident", source=ladder_src, replaces=ladder_tpu,
+             launches=ladder_res_launches + par_counts["ladder_resident"], max_abs_err=ladder_res_err),
+        dict(name="pt_swap_features", source=ladder_src,
+             replaces="no Pallas kernel: the XLA ops of pyisingmontecarlo_tpu/tempering.py:152 (_swap_features)",
+             launches=feature_launches, max_abs_err=max(ladder_err, long_errs["ladder"])),
+        dict(name="threefry_chain", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
              replaces="pyisingmontecarlo_tpu/engines/classical.py:675, engines/worldline.py:396 and "
                       "engines/generic.py:878 (the XLA split_keys chains of time_step and the sweeps; no Pallas kernel)",
              launches=keychain_launches + qmc_keychain_launches + qr_keychain_launches,
-             max_abs_err=max(chain_err, qr_chain_err), ms=chain_ms,
-             plain_ms=chain_plain_ms,
-             bound_ms=chain_bound_ms, bound_by=chain_by, library_ms=None),
-        dict(name="threefry_bits", route="cuda", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
+             max_abs_err=max(chain_err, qr_chain_err)),
+        dict(name="threefry_bits", source="pyisingmontecarlo_tpu_torch/csrc/keychain.cu",
              replaces="pyisingmontecarlo_tpu/parallel/spatial.py:76 and parallel/tau.py:104,117-118 (jax.random.uniform "
                       "inside the sharded XLA sweeps; no Pallas kernel)",
-             launches=bits_launches, max_abs_err=bits_err, ms=bits_ms, plain_ms=bits_plain_ms, bound_ms=bits_bound_ms,
-             bound_by=bits_by, library_ms=None),
+             launches=bits_launches, max_abs_err=bits_err),
     ]
     print(f"seconds by phase: {json.dumps(seconds)}; {sum(seconds.values()):.1f} s in all", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": [dict(k, route="cuda") for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
 
 
-def qmcrunner_rates(dev):
-    """main-qmcrunner's two numbers: QmcRunner.run_sampling sweeps/s on the
-    hard n = 32 system and on the 64-chain (the route the gate picks, the
-    slopes of main-qmcrunner). None where the package has no ``QmcRunner``."""
-    import pyisingmontecarlo_tpu_torch as tpmc
-
-    if not hasattr(tpmc, "QmcRunner"):
-        return {"qmcrunner_hard_sweeps_per_s": None, "qmcrunner_chain_sweeps_per_s": None}
-    out = {}
-    for key, n, terms, slope in (("qmcrunner_hard_sweeps_per_s", QR_N, hard_terms(QR_N), QR_SLOPE),
-                                 ("qmcrunner_chain_sweeps_per_s", 64, chain_terms(64), QR_CHAIN_SLOPE)):
-        with _route(None):
-            q = qmc_runner(n, QR_R, terms, dev)
-        out[key], out[key.replace("_per_s", "_walls")] = _qr_rate(q, slope)
-    return out
-
-
-def rates(only=None):
-    """The end-to-end main paths of the package first on sys.path, as JSON
-    (with ``only="qmcrunner"``, ``qmcrunner_rates`` alone):
-    ``bench.py``'s headline as bench.py takes it (a warm-up call, then the
-    best of three ``Lattice.run_monte_carlo(0.4, 16384, 8)`` calls at 1024^2,
-    in attempted flips/ns), the tempering bench's slope (min of two runs at t = 500 and 2000, as
-    main-tempering takes it), the chain's sampling call (min of two), and the
-    256^2 torus's site updates/s as benches/bench_qmc_large.py takes them
-    (the slope between min-of-two runs of run_quantum_monte_carlo(2.0, t, 8)
-    at t = 200 and 800); then ``classical_rates``."""
-    from pyisingmontecarlo_tpu_torch import Lattice, __file__ as pkg
-    from pyisingmontecarlo_tpu_torch.graph import grid_2d_edges
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    if only in ("qmcrunner", "multi"):
-        fn = qmcrunner_rates if only == "qmcrunner" else multi_rates
-        print(json.dumps({"package": str(Path(pkg).parent.parent), **fn(dev)}), flush=True)
-        return
-    lat = Lattice(grid_2d_edges(BENCH_L, BENCH_L, -1.0), seed_gen=0, device=dev)
-    lat.run_monte_carlo(BENCH_BETA, BENCH_SWEEPS, BENCH_R)  # build and warm up, as bench.py does
-    bench = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        lat.run_monte_carlo(BENCH_BETA, BENCH_SWEEPS, BENCH_R)  # returns numpy arrays: the device is done
-        bench.append(time.perf_counter() - t0)
-    flips = BENCH_R * BENCH_L**2 * BENCH_SWEEPS / (min(bench) * 1e9)
-    lt = pt_ladder(dev)
-    lt.qmc_timesteps_sample(20, replica_swap_freq=1)  # build and warm up
-    wall = {500: [], 2000: []}
-    for _ in range(2):
-        for T in (500, 2000):
-            t0 = time.perf_counter()
-            lt.qmc_timesteps_sample(T, replica_swap_freq=1)
-            torch.cuda.synchronize()
-            wall[T].append(time.perf_counter() - t0)
-    slope = 1500 / (min(wall[2000]) - min(wall[500]))
-    (_, n, R), chain = CHAIN, []
-    lat = Lattice([((i, (i + 1) % n), -1.0) for i in range(n)], seed_gen=0, device=dev)
-    lat.set_transverse_field(WL_GAMMA)
-    lat.run_quantum_monte_carlo_sampling(WL_BETA, 20, R, sampling_wait_buffer=5, sampling_freq=10)
-    for _ in range(2):
-        t0 = time.perf_counter()
-        lat.run_quantum_monte_carlo_sampling(WL_BETA, 2000, R, sampling_wait_buffer=500, sampling_freq=10)
-        torch.cuda.synchronize()
-        chain.append(time.perf_counter() - t0)
-    (_, n, R), side = TORUS, TORUS[0][1]
-    lat = Lattice(grid_2d_edges(side, side, -1.0), seed_gen=0, device=dev)
-    lat.set_transverse_field(WL_GAMMA)
-    for t in (200, 800):  # build and warm up, as the bench does
-        lat.run_quantum_monte_carlo(WL_BETA, t, R)
-    torus = {200: [], 800: []}
-    for t in (200, 800, 200, 800):
-        t0 = time.perf_counter()
-        lat.run_quantum_monte_carlo(WL_BETA, t, R)
-        torch.cuda.synchronize()
-        torus[t].append(time.perf_counter() - t0)
-    updates = R * n * WL_LTAU * 600 / (min(torus[800]) - min(torus[200]))
-    print(json.dumps({"package": str(Path(pkg).parent.parent), "bench_flips_per_ns": flips, "bench_runs_s": bench,
-                      "tempering_sweeps_per_s": slope,
-                      "tempering_runs_s": wall, "chain_sampling_call_s": min(chain), "chain_runs_s": chain,
-                      "torus_site_updates_per_s": updates, "torus_runs_s": torus, **classical_rates(dev),
-                      **qmcising_rates(dev)}),
-          flush=True)
-
-
-def classical_rates(dev):
-    """The classical graph path's end-to-end numbers: the triangular
-    annealing's site-steps/s (main-classical's call, a warm-up and the best
-    of two), and ms a step of ClassicIsing's default moves on the n = 4096
-    glass and of its spin family on the n = 16384 glass (the slope between
-    10- and 40-step calls). None where the package has no graph engine (no
-    ``ClassicIsing``); a failure of a package that has one propagates."""
-    import pyisingmontecarlo_tpu_torch as tpmc
-
-    if not hasattr(tpmc, "ClassicIsing"):
-        return {"triangular_site_steps_per_s": None, "glass_default_ms_per_step": None,
-                "glass_ell_spin_ms_per_step": None}
-    from pyisingmontecarlo_tpu_torch import ClassicIsing, Lattice
-    from pyisingmontecarlo_tpu_torch.models import triangular_edges
-
-    lat = Lattice(triangular_edges(TRI_L, j=1.0), seed_gen=TRI_SEED, device=dev)
-    lat.run_monte_carlo_annealing_and_get_energies([(0, 0.1), (TRI_T, 3.0)], TRI_T, TRI_R)
-    tri = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        lat.run_monte_carlo_annealing_and_get_energies([(0, 0.1), (TRI_T, 3.0)], TRI_T, TRI_R)
-        tri.append(time.perf_counter() - t0)
-    glass = {}
-    for n, kw in ((GLASS_NS[0], {}), (GLASS_NS[1], dict(nedgeupdates=0, nwormupdates=0))):
-        ci = ClassicIsing(glass_edges(n), num_experiments=GLASS_R, seed=3, device=dev)
-        ci.run_monte_carlo(GLASS_BETA, 2, **kw)
-        wall = {}
-        for T in (10, 40):
-            t0 = time.perf_counter()
-            ci.run_monte_carlo(GLASS_BETA, T, **kw)
-            torch.cuda.synchronize()
-            wall[T] = time.perf_counter() - t0
-        glass[n] = (wall[40] - wall[10]) / 30 * 1e3
-    return {"triangular_site_steps_per_s": TRI_L**2 * TRI_R * TRI_T / min(tri), "triangular_runs_s": tri,
-            "glass_default_ms_per_step": glass[GLASS_NS[0]], "glass_ell_spin_ms_per_step": glass[GLASS_NS[1]]}
-
-
-def qmcising_rates(dev):
-    """The QmcIsing main path's sweeps/s: run_qmc on the n = 4096 glass (R = 64,
-    L_tau = 40), the slope between 10- and 40-sweep calls (the best of two
-    each) after a warm-up. None where the package has no ``QmcIsing``; a
-    failure of a package that has one propagates."""
-    import pyisingmontecarlo_tpu_torch as tpmc
-
-    if not hasattr(tpmc, "QmcIsing"):
-        return {"glass_qmc_sweeps_per_s": None}
-    q = tpmc.QmcIsing(glass_edges(QMC_N), QMC_GAMMA, 0.0, num_experiments=QMC_R, seed=QMC_SEED, device=dev)
-    q.run_qmc(QMC_BETA, 5)
-    wall = {10: [], 40: []}
-    for T in (10, 40, 10, 40):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        q.run_qmc(QMC_BETA, T)
-        torch.cuda.synchronize()
-        wall[T].append(time.perf_counter() - t0)
-    return {"glass_qmc_sweeps_per_s": 30 / (min(wall[40]) - min(wall[10])), "glass_qmc_runs_s": wall}
-
-
-def multi_rates(dev):
-    """The multi-launch routes' ms a sweep (the best of three calls, CUDA
-    events, after a warm-up) and each kernel's device us a sweep
-    (torch.profiler over one call, _trace): main-quantum-long's 64^2 torus at
-    L_tau = 800, R = 2, main-tempering-wide's 64^2 +-J ladder and
-    LONG_LADDER (32^2 +-J, R = 16, L_tau = 974), 20-sweep calls; past one
-    block (timing-longline's shapes) the 16-ring at L_tau = 40,960, R = 2 (20
-    sweeps), the 4-ring at 2^20, R = 2, and the ladder's 4-ring at 250,000, R
-    = 4 (10 sweeps), with the cluster phase's kernels' us a sweep summed
-    (fk_long_*, those of either checkout: FK_LONG_NAMES, FK_LONG_OLD_NAMES);
-    and the key chain's ms a call at its three main-path plans (chain_plans,
-    the median of five)."""
-    from pyisingmontecarlo_tpu_torch.ops import ladder, wl
-    from pyisingmontecarlo_tpu_torch.tempering import key_tables
-
-    (dense, nvars, R), T = LONG, 20
-    s, seeds = _wl_inputs(dense, nvars, R, 7, dev, LONG_LTAU)
-    tables = wl.make_tables(dense, nvars, LONG_BETA, WL_GAMMA, 0.0, LONG_LTAU, dev)
-    lt = pt_ladder(dev, side=64)
-    m = lt._materialize()
-    lseeds = torch.from_numpy(key_tables(m["key_data"], lt._swapkey, T, 2**31 - 1)[0]).to(dev)
-    s_l, seeds_l, planes_l = long_ladder(dev, T)
-    long_wl = {}
-    for key, n, L, T_k in (("wl_long16", 16, 40960, 20), ("wl_long4", 4, 1 << 20, 10)):
-        d = ("ring", n, -1.0)
-        x, sd = _wl_inputs(d, n, 2, 11 + n, dev, L)
-        long_wl[key] = (x, sd, wl.make_tables(d, n, L / 20.0, WL_GAMMA, 0.0, L, dev), T_k)
-    T_l4 = 10
-    s_l4, seeds_l4, planes_l4, _ = _ladder_inputs("ring", 4, np.full(4, -1.0), np.array([6000.0, 8000.0, 10000.0, 12500.0]),
-                                                  [1.0] * 4, [0.0] * 4, 250000, T_l4, 13, dev)
-    runs = {"wl_long": (lambda: wl._run_multi(s, seeds, tables, T), wl.LAUNCHES_PER_SWEEP, T),
-            "ladder_wide": (lambda: ladder._run_multi(m["s"], lseeds, m["planes"], T), ladder.LAUNCHES_PER_SWEEP, T),
-            "ladder_long": (lambda: ladder._run_multi(s_l, seeds_l, planes_l, T), ladder.LAUNCHES_PER_SWEEP, T)}
-    for key, (x, sd, tb, T_k) in long_wl.items():
-        runs[key] = (lambda x=x, sd=sd, tb=tb, T_k=T_k: wl._run_multi(x, sd, tb, T_k), 3 + wl.LONG_LAUNCHES_PER_SWEEP,
-                     T_k)
-    runs["ladder_long4"] = (lambda: ladder._run_multi(s_l4, seeds_l4, planes_l4, T_l4), 2 + wl.LONG_LAUNCHES_PER_SWEEP,
-                            T_l4)
-    names = ("wl_site", "wl_cluster", "wl_accumulate", "ladder_site", "ladder_cluster", *FK_LONG_NAMES,
-             *FK_LONG_OLD_NAMES)
-    out = {}
-    for key, (run, per_sweep, T_k) in runs.items():
-        run()  # warm-up
-        out[f"{key}_ms_per_sweep"] = min(event_ms(run, T_k) for _ in range(3))
-        dev_t = _device_times(_launches(run, names, per_sweep * T_k)[0], names)
-        out[f"{key}_us_per_sweep"] = None if dev_t is None else {k: _us_per_sweep(v, T_k) for k, v in dev_t[0].items()}
-        if key in ("wl_long16", "wl_long4", "ladder_long4"):
-            split = out[f"{key}_us_per_sweep"]
-            out[f"{key}_fk_long_us"] = None if split is None else sum(v for k, v in split.items()
-                                                                      if k.startswith("fk_long_"))
-    from pyisingmontecarlo_tpu_torch.rng import key_tensor, threefry_chain
-
-    for name, (plan, T_c, R_c, nvars_c) in chain_plans().items():  # the key chain's three main-path calls
-        kt = key_tensor(_keys(R_c, 5), dev)
-        threefry_chain(kt, plan, T_c, nvars_c)  # warm-up
-        out[f"chain_{name}_ms"] = float(np.median([event_ms(lambda: threefry_chain(kt, plan, T_c, nvars_c), 1)
-                                                   for _ in range(5)]))
-    return out
-
-
-def ab(other, pairs=10, only=None):
-    """``rates(only)`` of the package in ``other`` and of this one, each in a
-    process of its own, ``pairs`` runs a side in the order other, this, this,
-    other; then each side's median and quartiles and the pairs this one won."""
-    smi = phase_gpu()
-    runs = {"other": [], "this": []}
-    for _ in range(pairs // 2):
-        for side, root in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
-            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--rates", str(Path(root).resolve()),
-                                  *([only] if only else [])], capture_output=True, text=True, timeout=600)
-            if out.returncode != 0:
-                raise RuntimeError(f"rates of {root} failed ({out.returncode}):\n{out.stdout}{out.stderr}")
-            line = out.stdout.strip().splitlines()[-1]
-            runs[side].append(json.loads(line))
-            print(f"ab on {smi}: {line}", flush=True)
-    keys = ((("qmcrunner_hard_sweeps_per_s", True), ("qmcrunner_chain_sweeps_per_s", True)) if only == "qmcrunner" else
-            (("wl_long_ms_per_sweep", False), ("ladder_wide_ms_per_sweep", False), ("ladder_long_ms_per_sweep", False),
-             ("wl_long16_ms_per_sweep", False), ("wl_long4_ms_per_sweep", False), ("ladder_long4_ms_per_sweep", False),
-             ("wl_long16_fk_long_us", False), ("wl_long4_fk_long_us", False), ("ladder_long4_fk_long_us", False),
-             ("chain_tri_ms", False), ("chain_hard_ms", False), ("chain_glass_ms", False))
-            if only == "multi" else
-            (("bench_flips_per_ns", True), ("tempering_sweeps_per_s", True), ("chain_sampling_call_s", False),
-             ("torus_site_updates_per_s", True), ("triangular_site_steps_per_s", True),
-             ("glass_default_ms_per_step", False), ("glass_ell_spin_ms_per_step", False),
-             ("glass_qmc_sweeps_per_s", True)))
-    for key, higher in keys:
-        if any(r.get(key) is None for side in runs.values() for r in side):
-            print(f"ab on {smi}: {key}: not measured on both sides", flush=True)
-            continue
-        a, b = (np.array([r[key] for r in runs[side]]) for side in ("other", "this"))
-        won = int(((b > a) if higher else (b < a)).sum())
-        print(f"ab on {smi}: {key}: {Path(other).resolve()} median {np.median(a)} (quartiles "
-              f"{np.percentile(a, 25)}, {np.percentile(a, 75)}); this median {np.median(b)} (quartiles "
-              f"{np.percentile(b, 25)}, {np.percentile(b, 75)}); this one won {won} of {len(a)} pairs", flush=True)
-    split_keys = ("wl_long_us_per_sweep", "ladder_wide_us_per_sweep", "ladder_long_us_per_sweep",
-                  "wl_long16_us_per_sweep", "wl_long4_us_per_sweep", "ladder_long4_us_per_sweep")
-    for key in split_keys if only == "multi" else ():
-        for side in ("other", "this"):
-            split = [r[key] for r in runs[side] if r.get(key)]
-            names = sorted({n for r in split for n in r})
-            print(f"ab on {smi}: {key} of {side}: " + (", ".join(
-                f"{n} median {np.median([r.get(n, 0.0) for r in split]):.3f}" for n in names) if split else
-                "not measured (the profiler recorded no device time)"), flush=True)
-
-
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rates"]:
-        sys.path.insert(0, sys.argv[2])
-        rates(*sys.argv[3:4])
-    elif sys.argv[1:2] == ["--ab"]:
-        only = sys.argv[3] if len(sys.argv) > 3 else None
-        ab(sys.argv[2], pairs=4 if only == "qmcrunner" else 10, only=only)
-    else:
-        main()
+    main()

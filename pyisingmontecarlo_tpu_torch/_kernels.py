@@ -5,7 +5,7 @@ all started together) and links them into one shared library with a plain C
 interface, at first use, into ``_build/`` under a name keyed by the hash of
 the sources; ``ctypes`` loads it. Each C entry returns
 ``cudaGetLastError()`` after its launches, and the Python wrapper raises if it
-is not 0. Nothing here runs when the module is imported.
+is not 0 (``call``). Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "load", "error_string", "smem_optin"]
+import torch
+
+__all__ = ["build", "load", "error_string", "smem_optin", "call", "stream", "device_limits", "resolve_device"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -37,7 +39,6 @@ _SIGNATURES = {
     "wl_tiled_sweeps": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 10 + [_P], ctypes.c_int),
     "threefry_chain": ([_P] * 3 + [_I] * 5 + [_P] * 3, ctypes.c_int),
     "threefry_bits": ([_P, _I, ctypes.c_longlong, _I, _P, _P], ctypes.c_int),
-    "threefry_spine_probe": ([_P, _I, _P, _P], ctypes.c_int),
     "pmc_smem_optin": ([_I], ctypes.c_int),
     "pmc_cluster_group": ([_I], ctypes.c_int),
     "pmc_site_lanes": ([_I], ctypes.c_int),
@@ -62,18 +63,15 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False, defines: tuple = ()) -> Path:
+def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` unless a library for these sources exists; returns
     its path. ``verbose`` compiles in any case, with ``-Xptxas -v``, and prints
-    what nvcc says (registers, shared memory and spills of each kernel).
-    ``defines`` (``"NAME=value"`` strings) build a variant for measurement,
-    such as a phase-cut sweep, under a name of its own."""
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    what nvcc says (registers, shared memory and spills of each kernel)."""
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(flags).encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     lib = _BUILD / f"libpmc_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists() and not verbose:
         return lib
@@ -83,7 +81,7 @@ def build(verbose: bool = False, defines: tuple = ()) -> Path:
     jobs = []
     for src in sorted(_CSRC.glob("*.cu")):
         obj = tmp.with_suffix(f".{src.stem}.o")
-        cmd = [nvcc, *flags, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
     try:
@@ -105,10 +103,9 @@ def build(verbose: bool = False, defines: tuple = ()) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(defines: tuple = ()) -> ctypes.CDLL:
-    """Build if needed, then load the kernel library (or the variant that
-    ``defines`` builds) with its C signatures set."""
-    lib = ctypes.CDLL(str(build(defines=defines)))
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the kernel library with its C signatures set."""
+    lib = ctypes.CDLL(str(build()))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -128,3 +125,42 @@ def smem_optin(device: int) -> int:
     if v < 0:
         raise RuntimeError(f"cudaDeviceGetAttribute failed: {error_string(-v)} ({-v})")
     return v
+
+
+def call(name: str, fn) -> None:
+    """Run ``fn(lib)``, a C entry of the kernel library that launches on the
+    current stream, and raise if it returns an error."""
+    err = fn(load())
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {error_string(err)} ({err})")
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``x``'s device, as the C entries take it."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def device_limits(device) -> tuple:
+    """``(limit, sms)`` of a CUDA device: its opt-in shared memory per block
+    in bytes and its SM count, as the launchers' plans take them."""
+    index = torch.device(device).index or 0
+    return smem_optin(index), _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, cuda or cpu; raises for another type,
+    or for cuda where torch has no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but torch.cuda.is_available() is False; pass device='cpu' "
+            "to run the kernels' plain versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    return dev

@@ -25,9 +25,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ._kernels import resolve_device
 from .engines import classical as ce
 from .graph import compile_graph, detect_square_torus
-from .lattice import resolve_device
 from .ops import lattice2d as l2d
 from .rng import MasterRng, fold_all, key_data_from_seeds, key_data_of, key_tensor, seeds_from_key_data
 

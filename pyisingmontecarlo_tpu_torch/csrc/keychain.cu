@@ -51,9 +51,9 @@
 // and leaves.
 //
 // Bound: the spine is T S dependent steps, each one block's dependent chain:
-// a probe that chains N of them in one thread (threefry_spine_probe)
-// measures a step, and T S times it is the chain's floor whatever the
-// design. The roofline is far lower: the tables' bytes (4 R (C + W) T) at
+// T S times one step's latency (a step chained alone in one thread, about
+// 113 ns on an H100; PERF.md) is the chain's floor whatever the design.
+// The roofline is far lower: the tables' bytes (4 R (C + W) T) at
 // the HBM rate against every block's ALU instructions (about 50 a block) at
 // the card's integer rate, at the main paths' R = 64 to 100. So the design
 // keeps the expansion off the spine: a thread walking every block of every
@@ -68,10 +68,11 @@
 // package draws these inside its XLA programs, the spatially and tau-sharded
 // sweeps' jax.random.uniform over whole state shapes
 // (pyisingmontecarlo_tpu/parallel/spatial.py:76, parallel/tau.py:104,117-118).
-// Bound: one block function a counter, 50 ALU instructions (SASS, nvcc 12.9;
-// chip_smoke.py's THREEFRY_ALU_OPS), against 4 bytes written: the integer
-// pipe, not HBM, sets the least time (0.024 ms against 0.010 ms for 8 M). One thread a counter in a grid-stride loop over the row, one
-// grid row a key; the same threefry device function as the chain, written once.
+// Bound: one block function a counter, 50 ALU instructions (SASS, nvcc 12.9),
+// against 4 bytes written: the integer pipe, not HBM, sets the least time
+// (0.024 ms against 0.010 ms for 8 M). One thread a counter in a grid-stride
+// loop over the row, one grid row a key; the same threefry device function
+// as the chain, written once.
 
 #include <cstdint>
 
@@ -288,16 +289,6 @@ __global__ void __launch_bounds__(32 * kChainWarps) threefry_chain_kernel(
     }
 }
 
-// A probe of the spine's step latency, for measurement: one warp, each lane
-// chaining n steps of its own key, key' = threefry(key, 0, 0), as the spine
-// computes them.
-__global__ void threefry_spine_probe_kernel(const uint32_t* __restrict__ keys, int n, uint32_t* __restrict__ out) {
-    Key key{keys[2 * threadIdx.x], keys[2 * threadIdx.x + 1]};
-    for (int i = 0; i < n; ++i) key = threefry(key, 0u, 0u);
-    out[2 * threadIdx.x] = key.k0;
-    out[2 * threadIdx.x + 1] = key.k1;
-}
-
 constexpr int kBitsThreads = 256;
 
 __global__ void __launch_bounds__(kBitsThreads) threefry_bits_kernel(const uint32_t* __restrict__ keys, long long n,
@@ -337,14 +328,5 @@ extern "C" int threefry_chain(const void* keys_in, void* keys_out, const void* p
     threefry_chain_kernel<<<(R + 31) / 32, 32 * kChainWarps, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(keys_in), static_cast<uint32_t*>(keys_out), static_cast<const int32_t*>(plan),
         S, S * T, R, static_cast<int32_t*>(seeds), static_cast<int32_t*>(v0));
-    return (int)cudaGetLastError();
-}
-
-// The spine probe for measurement: one warp on `stream`, lane i chaining n steps of keys[i] (keys [32][2] uint32
-// on the device), out [32][2] uint32.
-extern "C" int threefry_spine_probe(const void* keys, int n, void* out, void* stream) {
-    if (n < 0 || keys == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
-    threefry_spine_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), n, static_cast<uint32_t*>(out));
     return (int)cudaGetLastError();
 }

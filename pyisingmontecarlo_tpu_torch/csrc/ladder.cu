@@ -91,7 +91,7 @@
 // as the 64^2 glass: there a warp owns each of its 131072 lines a cluster
 // phase, and the ALU work of the cluster phase's slice loops bounds it; the
 // site phases issue a hash, two logf and the update's f32 work a spin, the
-// line's set-up shared by 16 spins (chip_smoke.py counts the SASS of both).
+// line's set-up shared by 16 spins.
 
 #include <cstdint>
 #include <cuda_runtime.h>

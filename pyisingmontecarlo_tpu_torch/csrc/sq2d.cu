@@ -47,9 +47,9 @@
 // neighbour sums, the table lookups, the flips and the row loop's own
 // addresses and test add about 6 more ALU instructions a site, four sites at
 // a time (the thresholds are stored as ~t, so that the flip mask is the sign
-// bytes of u + ~t, gathered four at a time by prmt; chip_smoke.py counts the
-// loop's SASS). The halo adds redundant updates (1.12x the tile's at B = 256,
-// K = 8), and each launch pays a fixed cost for the box in and the tile out;
+// bytes of u + ~t, gathered four at a time by prmt). The halo adds
+// redundant updates (1.12x the tile's at B = 256, K = 8), and each launch
+// pays a fixed cost for the box in and the tile out;
 // sq2d_plan takes the largest tiles that still fill the card. A sweep moves
 // 2 bytes a site once every K sweeps.
 
@@ -57,12 +57,6 @@
 #include <cuda_runtime.h>
 
 #include "lanerng.cuh"
-
-// Measurement builds only (chip_smoke.py's timing; no wrapper passes it): PMC_SQ2D_CUT=0 skips the phases
-// of sq2d_tiled, 1 replaces its lane hash by one xor, 2 drops its barriers between phases.
-#ifndef PMC_SQ2D_CUT
-#define PMC_SQ2D_CUT 3
-#endif
 
 namespace {
 
@@ -248,11 +242,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1) sq2d_tiled(const TiledArgs a
     const int q = tid % nW, r0 = tid / nW;
     const int4 kg = *reinterpret_cast<const int4*>(kpos + 4 * q);
     const uint32_t seed = (uint32_t)__ldg(a.seeds + r);
-#if PMC_SQ2D_CUT == 0
-    const int nphases = 0;  // measurement build: the box in and the tile out only
-#else
     const int nphases = 2 * a.kl;
-#endif
     for (int jp = 0; jp < nphases; ++jp) {
         const int tl = jp >> 1, p = jp & 1;
         const int lo = jp + 1, hi = w - 2 - jp;  // the sites this phase updates: lo <= i, j <= hi
@@ -294,18 +284,12 @@ __global__ void __launch_bounds__(kTiledThreads, 1) sq2d_tiled(const TiledArgs a
                 for (int b = 0; b < 4; ++b) {
                     const uint32_t k = (uint32_t)(b == 0 ? kg.x : b == 1 ? kg.y : b == 2 ? kg.z : kg.w);
                     const uint32_t nt = *reinterpret_cast<const uint32_t*>(th + __byte_perm(idx4, 0, 0x4440 | b));
-#if PMC_SQ2D_CUT == 1
-                    d[b] = ((ha ^ k) >> 1) + nt;  // measurement build: no hash
-#else
                     d[b] = flip_sign<RB>(RB ? (uint32_t)__ldg(rbp + xw + k) : lane_draw31_split(ha, hb, k), nt);
-#endif
                 }
                 *reinterpret_cast<uint32_t*>(row) = self ^ (signs4(d[0], d[1], d[2], d[3]) & (par ? in1 : in0));
             }
         }
-#if PMC_SQ2D_CUT != 2  // measurement build: no barrier between phases
         __syncthreads();
-#endif
         const int t = a.t0 + tl + 1;  // sweeps done
         if (p == 1 && a.samples && t % a.freq == 0 && t / a.freq <= a.nsamples) {
             store_tile<V>(a.samples + ((size_t)r * a.nsamples + t / a.freq - 1) * plane, E, O, P, H, B, L, X0, Y0);

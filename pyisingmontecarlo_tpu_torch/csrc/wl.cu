@@ -95,7 +95,7 @@
 // route passes over the state five times a sweep, its neighbours' words read
 // from L2, and its cluster phase does about log2 of
 // the longest frozen run more work a slice than a serial walk would (the
-// doubling rounds; chip_smoke.py counts its SASS); the tiled route passes
+// doubling rounds); the tiled route passes
 // once and reads every neighbour from shared memory. At the 256-site chain,
 // R=64, L=40 (0.66 M spins) the multi-launch route's launches last a few
 // microseconds; the resident route takes that shape instead, with no launch
@@ -532,15 +532,6 @@ __global__ void __launch_bounds__(kResThreads, 1) wl_resident(
     res_store(b, gs);
 }
 
-// The phases wl_tiled runs, as bits: 1 the site phases, 2 the cluster
-// phases, 4 the statistics and samples (the box is always loaded and its
-// interior stored). All of them but in a build that times a cut sweep
-// (chip_smoke.py, timing-wl: nvcc -DPMC_TILED_PHASES=...), whose results are
-// not a sweep's.
-#ifndef PMC_TILED_PHASES
-#define PMC_TILED_PHASES 7
-#endif
-
 // grid: one block of kTileThreads per (replica, tile) (tiled.cuh), one sweep
 // t (draw counter base = 8 t) from s_in to s_out; acc [R, 3] int64 is added
 // to once per block; stage is the sample slot of this sweep ([R, stage_stride]
@@ -572,7 +563,7 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
     __syncthreads();
     const uint32_t seed = (uint32_t)seeds[t.r];
     // four site phases, each on the sites of its color up to its rank
-    for (int color = 0; color < 2 && (PMC_TILED_PHASES & 1); ++color)
+    for (int color = 0; color < 2; ++color)
         for (int parity = 0; parity < 2; ++parity) {
             const uint32_t ctr = base + 2 * color + parity;
             const uint16_t* ls = list + start[color * kRanks];
@@ -593,7 +584,7 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
                          reinterpret_cast<int*>(smem + o.first) + tile_max_lines(g.torus, B),
                          reinterpret_cast<uint16_t*>(smem + o.order), reinterpret_cast<uint32_t*>(smem + o.masks),
                          reinterpret_cast<float*>(smem + o.qde), reinterpret_cast<uint16_t*>(smem + o.qhead)};
-    for (int color = 0; color < 2 && (PMC_TILED_PHASES & 2); ++color) {
+    for (int color = 0; color < 2; ++color) {
         const uint32_t ctr = base + 4 + 2 * color;
         const uint16_t* ls = list + start[color * kRanks];
         const int n = start[color * kRanks + tile_rank(4 + color) + 1] - start[color * kRanks];
@@ -612,7 +603,7 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
     const uint16_t* l0 = list + start[0];
     const uint16_t* l1 = list + start[kRanks];
     int psb = 0, psh = 0, pal = 0;
-    for (TileWalk w(L >> 1); w.row < ((PMC_TILED_PHASES & 4) ? n0 + n1 : 0); w.next()) {  // pairs (tau, tau + 1)
+    for (TileWalk w(L >> 1); w.row < n0 + n1; w.next()) {  // pairs (tau, tau + 1)
         const int k = w.row < n0 ? l0[w.row] : l1[w.row - n0], tau = 2 * w.col;
         const int8_t* lp = pl + k * L;
         const char2 v = *reinterpret_cast<const char2*>(lp + tau);
@@ -623,7 +614,7 @@ __global__ void __launch_bounds__(kTileThreads, 2) wl_tiled(
         psh += v.x + v.y;
         pal += (v.x == v.y) + (v.y == nx);
     }
-    if (stage && (PMC_TILED_PHASES & 4))
+    if (stage)
         for (int j = tid; j < n0 + n1; j += kTileThreads) {
             const int k = j < n0 ? l0[j] : l1[j - n0];
             stage[(size_t)t.r * stage_stride + gi[k]] = pl[k * L];

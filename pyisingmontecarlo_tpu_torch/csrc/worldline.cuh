@@ -311,19 +311,12 @@ __device__ __forceinline__ bool fk_site(const Geo& g, int color, int& x, int& y)
 
 // Threads a time line at L slices: a warp up to 28 words of 32 slices, a
 // block of 128 threads up to 64 words, 256 up to 128 words (L = 4096), then
-// PMC_FK_GROUP_LONG (256, 512 or 1024; a build for measurement may set it)
-// while the line fits one block's shared memory (fk_line_bytes) and 32,768
+// 512 while the line fits one block's shared memory (fk_line_bytes) and 32,768
 // slices, past which the line takes fk_long_* (fk_long). Every size from 32 to 1024 was timed in turns on
 // an H100 (PERF.md): a warp was fastest at L = 60, 700 and 800, 128 threads
 // from 900 to 2048, 256 at 4096, 512 at 10,240 (against 256 and 1024).
-#ifndef PMC_FK_GROUP_LONG
-#define PMC_FK_GROUP_LONG 512
-#endif
-static_assert(PMC_FK_GROUP_LONG == 256 || PMC_FK_GROUP_LONG == 512 || PMC_FK_GROUP_LONG == 1024,
-              "PMC_FK_GROUP_LONG: 256, 512 or 1024 threads a line");
-
 __host__ __device__ constexpr int fk_group(int L) {
-    return L <= 896 ? 32 : L <= 2048 ? 128 : L <= kMaxL ? 256 : PMC_FK_GROUP_LONG;
+    return L <= 896 ? 32 : L <= 2048 ? 128 : L <= kMaxL ? 256 : 512;
 }
 
 // Calls fn(std::integral_constant<int, fk_group(L)>{}).
@@ -599,17 +592,10 @@ __device__ __forceinline__ void fk_line(int8_t* lp, unsigned char* sm, int L, Bo
 // wl_ladder_pallas.py's) on lines past one block. What bounds them on an
 // H100: one pass needs a bond draw and the dE's few operations a slice and
 // n + n / kLongLeaf additions a run, integer issue (about 10 us a sweep on
-// the 4-ring at L = 2^20, two lines a color and replica, R = 2; chip_smoke.py
-// fk_long_need); they run about 20x that (PERF.md), most of it the draws of
-// the segment and its halo, the look-back and the leaf starts (the cut
-// builds, PMC_FK_LONG_CUT).
-// A build for measurement only (chip_smoke.py, FK_LONG_CUTS) may stop
-// fk_long_sums after a step (1: the draws and heads; 2: the look-back; 3:
-// the leaf starts; 4: the leaves' trees, before the short leaves' nesting)
-// and skip fk_long_apply.
-#ifndef PMC_FK_LONG_CUT
-#define PMC_FK_LONG_CUT 0
-#endif
+// the 4-ring at L = 2^20, two lines a color and replica, R = 2); they run
+// about 20x that (PERF.md), most of it the draws of the segment and its
+// halo, the look-back and the leaf starts (timed in builds of fk_long_sums
+// cut after each step).
 constexpr int kLongWords = 32, kLongThreads = 256, kLongLeaf = 256;
 constexpr int kLongSlices = 32 * kLongWords;             // a segment's own slices
 constexpr int kLongCover = kLongWords + kLongLeaf / 32;  // the words of a segment and its halo
@@ -759,7 +745,6 @@ __global__ void __launch_bounds__(kLongThreads) fk_long_sums(const int8_t* __res
         hw[w] = ~((fw[w] << 1) | (w ? fw[w - 1] >> 31 : (uint32_t)before)) & fk_below(w, cover);
     }
     __syncthreads();
-    if constexpr (PMC_FK_LONG_CUT == 1) return;
     if (warp == 0) {
         int run = -1;
         for (int b = 0; b < kLongCover; b += 32) {
@@ -823,7 +808,6 @@ __global__ void __launch_bounds__(kLongThreads) fk_long_sums(const int8_t* __res
         }
     }
     __syncthreads();
-    if constexpr (PMC_FK_LONG_CUT == 2) return;
     // each local slice's offset in its leaf (rel: from its run's head, in the cover or the carry; -1 for the
     // wrap-around run) and the slices from it to its run's end in the cover (dn); the own slices' leaf starts
     constexpr int K = kLongCover / kLongWarps;
@@ -855,7 +839,6 @@ __global__ void __launch_bounds__(kLongThreads) fk_long_sums(const int8_t* __res
         }
     }
     __syncthreads();
-    if constexpr (PMC_FK_LONG_CUT == 3) return;
     for (int e = warp; e < nfull; e += kLongWarps) {  // before the levels below sum the leaf's slices in place
         const float v = fk_leaf_tree(de + fulls[e]);
         if (lane == 0) lf[S0 + fulls[e]] = v;
@@ -875,7 +858,6 @@ __global__ void __launch_bounds__(kLongThreads) fk_long_sums(const int8_t* __res
         }
         __syncthreads();
     }
-    if constexpr (PMC_FK_LONG_CUT == 4) return;
     for (int e = threadIdx.x; e < ntail; e += kLongThreads) {  // the blocks of n's binary expansion, right-nested
         const int u = tails[e] & 0xffff, n = tails[e] >> 16;
         float acc = 0.0f;
@@ -963,7 +945,6 @@ __global__ void __launch_bounds__(kLongThreads) fk_long_apply(int8_t* __restrict
     const int i = site_of(g, blockIdx.y, color);
     int8_t* lp = s + ((size_t)r * g.nvars + i) * L + S0;
     const uint32_t* up = f.up + ln * f.W + (S0 >> 5);
-    if constexpr (PMC_FK_LONG_CUT != 0) return;
     const int info = f.info[ln];
     if (info < 0) {  // a fully frozen line, decided at tau = 0: all or nothing
         if (info == -2)

@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .._kernels import resolve_device
 from ..graph import CompiledGraph
 from ..ops.lanerng import lane_draw31, make_pos_mix
 from ..rng import (
@@ -454,8 +455,6 @@ def worm_closure_fraction(cg: CompiledGraph, wlen: Optional[int] = None, trials:
     not depend on the state, so this is exact for any run); the keys of
     ``trials`` replicas seeded ``seed, seed + 1, ...``. ``wlen`` defaults to
     ``min(nvars, DEFAULT_WLEN)``."""
-    from ..lattice import resolve_device
-
     dev = resolve_device(device)
     ga = device_graph(cg, dev)
     wl = int(wlen) if wlen else min(cg.nvars, DEFAULT_WLEN)

@@ -42,7 +42,7 @@ __all__ = ["entry", "dryrun_multichip", "launch", "on_mesh", "drive", "run_all",
 def entry(device="cuda"):
     """``(fn, args)``: ``fn(*args)`` runs one checkerboard step (four sweeps at
     beta 0.44, J = -1) on a 256^2 torus with 64 replicas and returns the state."""
-    from .lattice import resolve_device
+    from ._kernels import resolve_device
     from .ops import lattice2d as l2d
     from .rng import replica_seeds_i32
 

@@ -19,10 +19,11 @@ import copy
 import numpy as np
 import torch
 
+from ._kernels import resolve_device
 from .classicising import ClassicIsing
 from .engines.worldline import WorldlineEnsemble
 from .graph import compile_graph, grid_2d_edges
-from .lattice import Lattice, resolve_device
+from .lattice import Lattice
 from .qmcising import QmcIsing
 from .qmcrunner import QmcRunner
 from .tempering import LatticeTempering

@@ -28,25 +28,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ._kernels import resolve_device
 from .engines import classical as ce
 from .graph import compile_graph, detect_square_torus
 from .ops import lattice2d as l2d
 from .rng import MasterRng, key_data_from_seeds, key_tensor, replica_seeds_i32
 from .utils.profiling import span
 
-__all__ = ["Lattice", "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but torch.cuda.is_available() is False; pass device='cpu' "
-            "to run the kernels' plain versions"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    return dev
+__all__ = ["Lattice"]
 
 
 class Lattice:

@@ -56,10 +56,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import _kernels
 from .lanerng import lane_draw31, make_pos_mix
 from .replicas import gather_chunks, replica_chunks, rows
-from .wl import (LONG_LAUNCHES_PER_SWEEP, _kernel_call, _stream, cluster_long, device_limits, fk_flips, lattice_fns,
-                 long_scratch, resident_plan)
+from .wl import LONG_LAUNCHES_PER_SWEEP, cluster_long, fk_flips, lattice_fns, long_scratch, resident_plan
 
 __all__ = ["LadderPlanes", "build_planes", "gate", "param_bytes", "swap_features", "ladder_sweeps",
            "ladder_sweeps_reference"]
@@ -270,7 +270,7 @@ def _chunk_seeds(seeds, a: int, b: int, R: int):
     return seeds if (a, b) == (0, R) else seeds[:, a:b].contiguous()
 
 
-def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = (), edges=None):
+def _run_multi(s, seeds, planes: LadderPlanes, T: int, edges=None):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP``
     launches a sweep and chunk of replicas, counted in
     ``ladder_sweeps.launches``; where ``wl.cluster_long``, 2 of them and
@@ -278,8 +278,7 @@ def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = (), edge
     new state. With ``edges``, ``(state, features)``: after a chunk's last
     sweep (T may be 0) one launch of ``pt_swap_features`` a chunk, counted in
     ``ladder_sweeps.feature_launches``, writes its rows of one ``[R, E + 2]``
-    int32 tensor, returned as ``_run_resident`` returns it. ``defines``
-    launch a variant built for measurement (``_kernels.build``)."""
+    int32 tensor, returned as ``_run_resident`` returns it."""
     R, nvars, L = s.shape
     x = s.clone()
     feat, E, eptr = None, 0, (None, None)
@@ -289,14 +288,15 @@ def _run_multi(s, seeds, planes: LadderPlanes, T: int, defines: tuple = (), edge
         eptr = tuple(e.data_ptr() for e in edges)
     if R and (T or feat is not None):
         with torch.cuda.device(x.device):
-            chunks = replica_chunks(R, nvars * L, "long" if cluster_long(L, device_limits(x.device)[0]) else "multi")
-            scratch = long_scratch(x[:chunks[0][1]], defines)
+            long = cluster_long(L, _kernels.device_limits(x.device)[0])
+            chunks = replica_chunks(R, nvars * L, "long" if long else "multi")
+            scratch = long_scratch(x[:chunks[0][1]])
             for a, b in chunks:
                 sd = _chunk_seeds(seeds, a, b, R)
-                _kernel_call("ladder kernel", lambda lib: lib.ladder_sweeps(
+                _kernels.call("ladder kernel", lambda lib: lib.ladder_sweeps(
                     rows(x, a, b), sd.data_ptr(), *_planes_args(planes, a, b),
                     None if scratch is None else scratch.data_ptr(), *eptr, rows(feat, a, b),
-                    b - a, nvars, L, int(planes.kind == "torus"), planes.size, T, E, _stream(x)), defines)
+                    b - a, nvars, L, int(planes.kind == "torus"), planes.size, T, E, _kernels.stream(x)))
                 if scratch is not None:  # the library's route: fk_long_*
                     ladder_sweeps.launches += 2 * T
                     ladder_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
@@ -324,10 +324,10 @@ def _run_resident(s, seeds, planes: LadderPlanes, T: int, edges, plan):
     with torch.cuda.device(x.device):
         for a, b in replica_chunks(R, nvars * L, "ladder_resident"):
             sd = _chunk_seeds(seeds, a, b, R)
-            _kernel_call("ladder resident kernel", lambda lib: lib.ladder_resident_sweeps(
+            _kernels.call("ladder resident kernel", lambda lib: lib.ladder_resident_sweeps(
                 rows(x, a, b), sd.data_ptr(), *_planes_args(planes, a, b), ea.data_ptr(), eb.data_ptr(),
                 rows(feat, a, b), b - a, nvars, L, int(planes.kind == "torus"), planes.size, T, E, tile, nbytes,
-                _stream(x)))
+                _kernels.stream(x)))
             ladder_sweeps.resident_launches += 1
     return x, (feat[:, :E], feat[:, E], feat[:, E + 1])
 
@@ -363,7 +363,7 @@ def ladder_sweeps(s: torch.Tensor, seeds: torch.Tensor, planes: LadderPlanes, T:
         return x, tuple(feats)
     if s.device.type != "cuda":
         raise ValueError(f"ladder_sweeps runs on cuda or cpu tensors, got {s.device}")
-    plan = resident_plan(nvars, L, R, param_bytes(planes.kind, nvars), *device_limits(s.device))
+    plan = resident_plan(nvars, L, R, param_bytes(planes.kind, nvars), *_kernels.device_limits(s.device))
     if plan:
         return _run_resident(s, seeds, planes, T, edges, plan)
     return _run_multi(s, seeds, planes, T, edges=edges)

@@ -48,9 +48,9 @@ import functools
 import numpy as np
 import torch
 
+from .. import _kernels
 from .lanerng import lane_draw31, make_pos_mix
 from .replicas import gather_chunks, replica_chunks, rows
-from .wl import _kernel_call, _stream, device_limits
 
 __all__ = [
     "dE_values",
@@ -74,7 +74,7 @@ HALO_PER_SWEEP = 2  # a launch of K sweeps reads a halo of 2K sites around its t
 TILE_STEP = 8  # tile sides are multiples of 8 (and the box's side w = B + 4K too)
 TILE_MAX = 256
 SWEEPS_PER_LAUNCH = (2, 4, 8)  # the K the plan takes; even, so that 2K is a multiple of 4
-# The plan's rule, read off chip_smoke.py's (B, K) grids on an H100 (1024^2 x 1 and x 8, 1000^2 x 8,
+# The plan's rule, read off (B, K) grids timed on an H100 (1024^2 x 1 and x 8, 1000^2 x 8,
 # 2048^2 x 8, 256^2 x 64, and 1024^2 x 8 with random planes): the largest tiles whose blocks fill the
 # card, where one block an SM keeps it busy and the card counts as full at PLAN_FILL of its SMs; draws
 # read from random planes in HBM need PLAN_RB_BLOCKS_PER_SM blocks an SM to hide their loads. A launch
@@ -246,13 +246,12 @@ def sweeps_2d_reference(s, seeds_i32, thr, ctr0, rb=None, samples=None):
     return (s, stack) if samples else s
 
 
-def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
+def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan):
     """The tiled kernel on CUDA tensors (``ceil(T / K)`` launches a chunk of
     replicas, ``replica_chunks``, counted in ``sweeps_2d.launches``) with
     ``plan = (B, K, ...)`` from ``sq2d_plan``; returns ``(state, stack or
     None)``. The launches alternate between two new buffers, and the last
-    writes the one returned; ``s`` is only read. ``defines`` launch a build
-    for measurement (``PMC_SQ2D_CUT``)."""
+    writes the one returned; ``s`` is only read."""
     R, L, _ = s.shape
     T = thr.shape[0]
     stack = torch.empty((R, T // samples, L, L), dtype=torch.int8, device=s.device) if samples else None
@@ -264,10 +263,10 @@ def _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan, defines: tuple = ()):
     tmp = torch.empty_like(s) if n > 1 else None
     with torch.cuda.device(s.device):
         for a, b in replica_chunks(R, L * L, "sq2d"):
-            _kernel_call("sq2d tiled kernel", lambda lib: lib.sq2d_tiled_sweeps(
+            _kernels.call("sq2d tiled kernel", lambda lib: lib.sq2d_tiled_sweeps(
                 rows(s, a, b), rows(out, a, b), rows(tmp, a, b), rows(seeds_i32, a, b), thr.data_ptr(),
                 None if rb is None else rb.data_ptr(), rows(stack, a, b), b - a, L, T, int(ctr0), int(samples or 0),
-                0 if stack is None else stack.shape[1], B, K, _stream(s)), defines)
+                0 if stack is None else stack.shape[1], B, K, _kernels.stream(s)))
             sweeps_2d.launches += n
     return out, stack
 
@@ -307,7 +306,7 @@ def sweeps_2d(
         return got if samples else got[0]
     if s.device.type != "cuda":
         raise ValueError(f"sweeps_2d runs on cuda or cpu tensors, got {s.device}")
-    plan = sq2d_plan(L, R, *device_limits(s.device), rb is not None)
+    plan = sq2d_plan(L, R, *_kernels.device_limits(s.device), rb is not None)
     if plan is None:
         raise ValueError(f"no tile of the sq2d kernel fits L={L} on {s.device}")
     out, stack = _run_tiled(s, seeds_i32, thr, ctr0, rb, samples, plan)

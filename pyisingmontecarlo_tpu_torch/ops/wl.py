@@ -72,6 +72,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import _kernels
 from .lanerng import lane_draw31, make_pos_mix
 from .replicas import gather_chunks, replica_chunks, rows
 
@@ -120,7 +121,7 @@ WL_PARAM_BYTES = 30 * 4 + 10 * 4  # the resident block's thr and cde
 # spreads every replica's lines over all SMs, and has a floor set by its
 # serial cluster walk. On an H100 a resident site costs about what 132
 # replicas' sites cost the multi-launch route, and the floor is worth about
-# 1150 resident sites (the gate's edges in chip_smoke.py's timing-wl, tori of
+# 1150 resident sites (the gate's edges timed on the card, tori of
 # 24^2 to 48^2 at L_tau = 40 and R = 16, 64, 264; PERF.md). So the resident
 # route is the faster while the sites its idle SMs could have swept,
 # ``nvars * (ceil(R / SMs) - R / SMs)``, stay within this many.
@@ -547,55 +548,38 @@ def wl_sweeps_reference(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, n
     return x.to(torch.int8), stats, samples
 
 
-def _kernel_call(name: str, fn, defines: tuple = ()):
-    """Run ``fn(lib)``, a C entry of the kernel library (or of the variant
-    that ``defines`` builds), and raise if it returns an error."""
-    from .. import _kernels
-
-    err = fn(_kernels.load(defines))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {_kernels.error_string(err)} ({err})")
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def long_scratch(x, defines: tuple = ()):
+def long_scratch(x):
     """The device scratch the multi-launch kernels take for the state
     ``x[R, nvars, L]`` on its CUDA device where the line is too long for one
     block (``pmc_long_scratch_bytes``, about 4.6 bytes a slice of a color's
     lines; from torch's caching allocator; the kernel library zeroes its
     status words once a call), else None; the chunks of a call share that of
     the largest. Call it with that device current."""
-    from .. import _kernels
-
     R, nvars, L = x.shape
-    n = _kernels.load(defines).pmc_long_scratch_bytes(R, nvars, L)
+    n = _kernels.load().pmc_long_scratch_bytes(R, nvars, L)
     return torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
 
 
-def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0,
-               defines: tuple = ()):
+def _run_multi(s, seeds_i32, tables: WlTables, T: int, freq: int = 0, nsamples: int = 0):
     """The multi-launch route on a CUDA tensor (``LAUNCHES_PER_SWEEP`` launches
     a sweep and chunk of replicas, counted in ``wl_sweeps.launches``; where
     ``cluster_long``, 3 of them and ``LONG_LAUNCHES_PER_SWEEP`` in
-    ``wl_sweeps.long_launches``); ``wl_sweeps``' result. ``defines`` launch a
-    variant built for measurement (``_kernels.build``)."""
+    ``wl_sweeps.long_launches``); ``wl_sweeps``' result."""
     R, nvars, L = s.shape
     x = s.clone()
     acc = torch.zeros((R, 3, nvars), dtype=torch.int64, device=s.device)
     samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
     if R and T:
         with torch.cuda.device(x.device):
-            chunks = replica_chunks(R, nvars * L, "long" if cluster_long(L, device_limits(x.device)[0]) else "multi")
-            scratch = long_scratch(x[:chunks[0][1]], defines)
+            long = cluster_long(L, _kernels.device_limits(x.device)[0])
+            chunks = replica_chunks(R, nvars * L, "long" if long else "multi")
+            scratch = long_scratch(x[:chunks[0][1]])
             for a, b in chunks:
-                _kernel_call("wl kernel", lambda lib: lib.wl_sweeps(
+                _kernels.call("wl kernel", lambda lib: lib.wl_sweeps(
                     rows(x, a, b), rows(seeds_i32, a, b), tables.thr.data_ptr(), tables.cde.data_ptr(),
                     int(tables.pb), rows(acc, a, b), rows(samples, a, b) if nsamples else None,
                     None if scratch is None else scratch.data_ptr(), b - a, nvars, L, int(tables.kind == "torus"),
-                    tables.size, T, freq, nsamples, _stream(x)), defines)
+                    tables.size, T, freq, nsamples, _kernels.stream(x)))
                 if scratch is not None:  # the library's route: fk_long_*
                     wl_sweeps.launches += 3 * T
                     wl_sweeps.long_launches += LONG_LAUNCHES_PER_SWEEP * T
@@ -616,21 +600,20 @@ def _run_resident(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: i
         tile, nbytes = plan
         with torch.cuda.device(x.device):
             for a, b in replica_chunks(R, nvars * L, "wl_resident"):
-                _kernel_call("wl resident kernel", lambda lib: lib.wl_resident_sweeps(
+                _kernels.call("wl resident kernel", lambda lib: lib.wl_resident_sweeps(
                     rows(x, a, b), rows(seeds_i32, a, b), tables.thr.data_ptr(), tables.cde.data_ptr(),
                     int(tables.pb), rows(acc, a, b), rows(samples, a, b) if nsamples else None, b - a, nvars, L,
-                    int(tables.kind == "torus"), tables.size, T, freq, nsamples, tile, nbytes, _stream(x)))
+                    int(tables.kind == "torus"), tables.size, T, freq, nsamples, tile, nbytes, _kernels.stream(x)))
                 wl_sweeps.resident_launches += 1
     return x, acc, samples
 
 
-def _run_tiled(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int, plan, defines: tuple = ()):
+def _run_tiled(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int, plan):
     """The tiled route on a CUDA tensor (one launch a sweep and chunk of
     replicas, counted in ``wl_sweeps.tiled_launches``), with ``plan = (B, box
     sites, bytes)`` from ``tiled_plan``; ``wl_sweeps``' result. The sweeps
     alternate between two new buffers; ``s`` is read by the first (through a
-    copy if it is not 16-byte aligned, as the kernel's vector loads need).
-    ``defines`` launch a variant built for measurement (``_kernels.build``)."""
+    copy if it is not 16-byte aligned, as the kernel's vector loads need)."""
     R, nvars, L = s.shape
     acc = torch.zeros((R, 3), dtype=torch.int64, device=s.device)
     samples = torch.empty((R, nsamples, nvars), dtype=torch.int8, device=s.device)
@@ -644,26 +627,12 @@ def _run_tiled(s, seeds_i32, tables: WlTables, T: int, freq: int, nsamples: int,
     tiles = (-(-(tables.size if torus else nvars) // B)) ** (2 if torus else 1)
     with torch.cuda.device(s.device):
         for a, b in replica_chunks(R, nvars * L, "wl_tiled", tiles):
-            _kernel_call("wl tiled kernel", lambda lib: lib.wl_tiled_sweeps(
+            _kernels.call("wl tiled kernel", lambda lib: lib.wl_tiled_sweeps(
                 rows(src, a, b), rows(even, a, b), rows(odd, a, b), rows(seeds_i32, a, b), tables.thr.data_ptr(),
                 tables.cde.data_ptr(), int(tables.pb), rows(acc, a, b), rows(samples, a, b) if nsamples else None,
-                b - a, nvars, L, int(torus), tables.size, T, freq, nsamples, B, nbytes, _stream(s)), defines)
+                b - a, nvars, L, int(torus), tables.size, T, freq, nsamples, B, nbytes, _kernels.stream(s)))
             wl_sweeps.tiled_launches += T
     return (even if T % 2 else odd), acc, samples
-
-
-def device_limits(device) -> tuple:
-    """``(limit, sms)`` of a CUDA device: its opt-in shared memory per block
-    in bytes and its SM count, as ``resident_plan`` takes them."""
-    from .. import _kernels
-
-    index = torch.device(device).index or 0
-    return _kernels.smem_optin(index), _sm_count(index)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int,
@@ -694,7 +663,7 @@ def wl_sweeps(s: torch.Tensor, seeds_i32: torch.Tensor, tables: WlTables, T: int
     if s.device.type != "cuda":
         raise ValueError(f"wl_sweeps runs on cuda or cpu tensors, got {s.device}")
     _, nvars, L = s.shape
-    route, plan = choose_route(tables.kind, tables.size, nvars, L, R, *device_limits(s.device))
+    route, plan = choose_route(tables.kind, tables.size, nvars, L, R, *_kernels.device_limits(s.device))
     if route == "resident":
         return _run_resident(s, seeds_i32, tables, T, freq, nsamples, plan)
     if route == "tiled":

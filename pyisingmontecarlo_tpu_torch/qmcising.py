@@ -26,10 +26,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ._kernels import resolve_device
 from .engines import worldline as wl
 from .engines.observables import pad_autocorr
 from .graph import compile_graph
-from .lattice import resolve_device
 from .rng import MasterRng, key_data_from_seeds, random_states
 from .utils import cbor
 

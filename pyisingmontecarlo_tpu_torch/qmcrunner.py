@@ -25,9 +25,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ._kernels import resolve_device
 from .engines import generic as ge
 from .engines.observables import autocorrelation_device, pad_autocorr
-from .lattice import resolve_device
 from .rng import MasterRng, key_data_from_seeds, random_states
 
 __all__ = ["QmcRunner"]

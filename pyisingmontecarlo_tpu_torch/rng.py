@@ -42,6 +42,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import _kernels
+
 __all__ = [
     "MasterRng",
     "key_data_from_seeds",
@@ -342,17 +344,13 @@ def threefry_chain(keys: torch.Tensor, kinds: Sequence, T: int, nvars: int):
     v0 = torch.empty((T, W, R), dtype=torch.int32, device=dev)
     if R == 0 or T == 0 or not slots:
         return seeds, v0, keys.clone()
-    from . import _kernels
-
     keys_in = keys.contiguous()
     out = torch.empty_like(keys_in)
     plan = _plan_tensor(tuple((kind, int(nvars) if kind == KEY_WORM else param) for kind, param in slots), dev)
     with torch.cuda.device(dev):
-        err = _kernels.load().threefry_chain(
+        _kernels.call("threefry_chain", lambda lib: lib.threefry_chain(
             keys_in.data_ptr(), out.data_ptr(), plan.data_ptr(), len(slots), T, C, W, R,
-            seeds.data_ptr() if C else None, v0.data_ptr() if W else None, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"threefry_chain launch failed: {_kernels.error_string(err)} ({err})")
+            seeds.data_ptr() if C else None, v0.data_ptr() if W else None, _kernels.stream(keys_in)))
     threefry_chain.launches += 1
     return seeds, v0, out
 
@@ -384,14 +382,10 @@ def threefry_bits(keys: torch.Tensor, n: int, uniform: bool = False) -> torch.Te
     out = torch.empty((R, n), dtype=torch.float32 if uniform else torch.int32, device=dev)
     if R == 0 or n == 0:
         return out
-    from . import _kernels
-
     keys_in = keys.contiguous()
     with torch.cuda.device(dev):
-        err = _kernels.load().threefry_bits(keys_in.data_ptr(), R, n, int(uniform), out.data_ptr(),
-                                            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"threefry_bits launch failed: {_kernels.error_string(err)} ({err})")
+        _kernels.call("threefry_bits", lambda lib: lib.threefry_bits(
+            keys_in.data_ptr(), R, n, int(uniform), out.data_ptr(), _kernels.stream(keys_in)))
     threefry_bits.launches += 1
     return out
 

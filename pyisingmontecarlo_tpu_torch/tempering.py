@@ -61,12 +61,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ._kernels import resolve_device
 from .engines import classical as ce
 from .engines import worldline as wl
 from .engines.observables import autocorrelation_device, pad_autocorr
 from .engines.worldline import choose_ltau, make_params
 from .graph import CompiledGraph, compile_graph_arrays, detect_topology, parse_edges
-from .lattice import resolve_device
 from .ops import ladder
 from .ops.ladder import swap_features
 from .rng import (_MAX_M, KEY_PLAIN, KEY_UNIFORM, MasterRng, key_data_from_seeds, key_data_of, key_tensor,

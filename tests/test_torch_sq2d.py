@@ -207,3 +207,19 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.build(verbose=True)
+
+
+def test_kernel_launch_error_raises_with_name_text_and_code(monkeypatch):
+    """A C entry's nonzero return is raised by the one launcher, ``_kernels.call``,
+    with the launch's name, the CUDA error's text and its code."""
+
+    class FakeLib:
+        @staticmethod
+        def x_sweeps(*args):
+            return 98
+
+    monkeypatch.setattr(_kernels, "load", lambda: FakeLib())
+    monkeypatch.setattr(_kernels, "error_string", lambda code: f"fake error {code}")
+    with pytest.raises(RuntimeError, match=r"^x kernel launch failed: fake error 98 \(98\)$"):
+        _kernels.call("x kernel", lambda lib: lib.x_sweeps(1, 2))
+    _kernels.call("x kernel", lambda lib: 0)
